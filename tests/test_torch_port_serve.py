@@ -1,0 +1,162 @@
+"""PyTorch port, serving: the port's Predictor serves a reference-format
+checkpoint written by the JAX package and answers as the JAX Predictor
+does (CPU), over HTTP too; the CLI refuses what is not ported."""
+
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ta3n_tpu.config import ModelConfig, TrainConfig
+from ta3n_tpu.io_utils.torch_export import save_torch_checkpoint
+from ta3n_tpu.models import VideoModel as JaxVideoModel
+from ta3n_tpu.serve import Predictor as JaxPredictor
+from ta3n_tpu.train import create_train_state
+from ta3n_tpu_torch.cli import serve as cli_serve
+from ta3n_tpu_torch.serve import Predictor, make_http_server
+
+CFG = ModelConfig(num_class=4, baseline_type="video",
+                  frame_aggregation="trn-m", train_segments=3,
+                  val_segments=3, fc_dim=16, feature_dim=16,
+                  use_attn="TransAttn", dropout_i=0.0, dropout_v=0.0)
+PROB_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """JAX params redrawn at a trained-like scale (kernels
+    U(±1/sqrt(fan_in)), biases U(±0.25)), so that top-k is not decided by
+    rounding, saved as a reference-format .pth.tar with the `module.`
+    prefix and the dead keys."""
+    state = create_train_state(JaxVideoModel(CFG), jax.random.PRNGKey(0),
+                               4, 4, TrainConfig(batch_size=(4, 4, 4)))
+    rng = np.random.default_rng(0)
+
+    def redraw(leaf):
+        bound = 1.0 / np.sqrt(leaf.shape[0]) if leaf.ndim == 2 else 0.25
+        return rng.uniform(-bound, bound, leaf.shape).astype(np.float32)
+
+    params = jax.tree_util.tree_map(redraw, state.params)
+    path = str(tmp_path_factory.mktemp("ckpt") / "model.pth.tar")
+    save_torch_checkpoint(path, params)
+    return path, params
+
+
+@pytest.fixture(scope="module")
+def predictor(checkpoint):
+    return Predictor.from_checkpoint(checkpoint[0], CFG, device="cpu",
+                                     batch_size=4, top_k=3)
+
+
+def test_predictor_matches_jax_predictor(checkpoint, predictor):
+    """N=6 at batch 4: two chunks, the second padded."""
+    x = np.random.default_rng(1).normal(size=(6, 3, 16)).astype(np.float32)
+    ref = JaxPredictor(CFG, checkpoint[1], batch_size=4, top_k=3)
+    want_p, want_tp, want_ti = ref(x)
+    probs, tp, ti = predictor(x)
+    assert probs.shape == (6, 4) and tp.shape == ti.shape == (6, 3)
+    np.testing.assert_allclose(probs, want_p, rtol=0, atol=PROB_TOL)
+    np.testing.assert_allclose(tp, want_tp, rtol=0, atol=PROB_TOL)
+    np.testing.assert_array_equal(ti, want_ti)
+    np.testing.assert_allclose(probs.sum(1), 1.0, atol=PROB_TOL)
+    # padding does not change a row
+    np.testing.assert_allclose(predictor(x[4:])[0], probs[4:], rtol=0,
+                               atol=PROB_TOL)
+
+
+def test_http_round_trip(predictor):
+    server = make_http_server(predictor, ["a", "b", "c", "d"], "127.0.0.1",
+                              0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=10) as r:
+            assert json.loads(r.read()) == {"status": "ok", "num_class": 4,
+                                            "segments": 3}
+        x = np.random.default_rng(2).normal(size=(5, 3, 16)).astype(
+            np.float32)
+        req = urllib.request.Request(
+            f"{url}/predict", data=json.dumps({"features": x.tolist()})
+            .encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            out = json.loads(r.read())
+        _, tp, ti = predictor(x)
+        assert out["top_classes"] == ti.tolist()
+        np.testing.assert_allclose(out["top_probs"], tp, rtol=0,
+                                   atol=PROB_TOL)
+        assert out["names"][0] == ["abcd"[j] for j in ti[0]]
+
+        bad = urllib.request.Request(
+            f"{url}/predict", data=json.dumps({"features": [1, 2]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(bad, timeout=10)
+        assert e.value.code == 400 and "error" in json.loads(e.value.read())
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(f"{url}/nope", timeout=10)
+        assert e.value.code == 404
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def test_checkpoint_directory_raises_with_export_hint(tmp_path):
+    with pytest.raises(ValueError, match="ta3n_tpu.cli.export_checkpoint"):
+        Predictor.from_checkpoint(str(tmp_path), CFG, device="cpu")
+
+
+def test_unported_serving_extras_raise(predictor, tmp_path):
+    for call in (lambda: predictor.export(str(tmp_path)),
+                 lambda: Predictor.from_exported(str(tmp_path)),
+                 lambda: Predictor.from_sweep(str(tmp_path), CFG),
+                 lambda: Predictor(CFG, predictor.model, device="cpu",
+                                   mesh=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
+def _class_file(tmp_path):
+    path = tmp_path / "classes.txt"
+    path.write_text("0 a\n1 b\n2 c\n3 d\n")
+    return str(path)
+
+
+_MODEL_FLAGS = ["--feature_dim", "16", "--fc_dim", "16",
+                "--test_segments", "3"]
+
+
+@pytest.mark.parametrize("flags", [["--export", "out"], ["--data_parallel"],
+                                   ["--sweep_best"], ["--quantize", "int8"]])
+def test_cli_refuses_unported_flags(tmp_path, checkpoint, flags):
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli_serve.main([_class_file(tmp_path), checkpoint[0], *_MODEL_FLAGS,
+                        "--device", "cpu", *flags])
+
+
+def test_cli_cuda_without_a_card_exits(tmp_path, checkpoint, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli_serve.main([_class_file(tmp_path), checkpoint[0],
+                        *_MODEL_FLAGS])
+
+
+def test_cli_builds_the_predictor(tmp_path, checkpoint, predictor,
+                                  monkeypatch):
+    served = {}
+    monkeypatch.setattr(cli_serve, "run_http_server",
+                        lambda p, names, host, port: served.update(
+                            predictor=p, names=names, port=port))
+    cli_serve.main([_class_file(tmp_path), checkpoint[0], *_MODEL_FLAGS,
+                    "--device", "cpu", "--port", "0", "--top_k", "3",
+                    "--batch_size", "4"])
+    assert served["names"] == ["a", "b", "c", "d"] and served["port"] == 0
+    x = np.random.default_rng(3).normal(size=(2, 3, 16)).astype(np.float32)
+    np.testing.assert_array_equal(served["predictor"](x)[2], predictor(x)[2])
