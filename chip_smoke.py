@@ -2,19 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ta3n_tpu_torch/csrc, holds it against
-its plain PyTorch version at the flagship serving shapes and times both,
-then serves the flagship model (UCF->HMDB_full: trn-m over 5 segments,
-2048-d features, fc 512, TRN bottleneck 256, TransAttn, 12 classes, random
-weights from a seed) over HTTP and checks the answers against a plain-path
-forward of the same weights on the same card.  Any failure exits non-zero;
-so does a machine without a CUDA device.  The last line of the output is
-one JSON object: {"ok": true, "device": {...}}.
+Builds the port's CUDA kernels from ta3n_tpu_torch/csrc (one nvcc per
+source, in parallel), holds each against its plain PyTorch version at the
+flagship shapes and times both, then drives the port's two main paths at
+the flagship widths (UCF->HMDB_full: trn-m over 5 segments, 2048-d
+features, fc 512, TRN bottleneck 256, TransAttn, 12 classes, random weights
+from a seed):
+  * serving: the model served over HTTP, the answers checked against a
+    plain-path forward of the same weights on the same card;
+  * training: the published train step (uSv, RevGrad at three levels,
+    attentive entropy, Nesterov SGD with DANN lr) at 128 source + 74
+    target videos, 5 steps through the kernels checked against 5 steps of
+    a copy whose TRN is the plain version, then timed at the published
+    dropout 0.5.
+Each path is run with the kernels' launch counts set to 0 just before it
+and read just after.  Any failure exits non-zero; so does a machine
+without a CUDA device.  The last line of the output is one JSON object:
+{"ok": true, "device": {...}}; the line before it lists the kernels.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -30,12 +40,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from ta3n_tpu_torch.config import ModelConfig
+from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.models import VideoModel
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
 from ta3n_tpu_torch.ops import _build, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
 from ta3n_tpu_torch.serve import Predictor, make_http_server
+from ta3n_tpu_torch.train import StepScalars, TrainState, make_train_step
+from ta3n_tpu_torch.train.optim import make_optimizer
+from ta3n_tpu_torch.train.schedules import dann_lr, effective_beta, progress
 
 FLAGSHIP = ModelConfig(
     num_class=12, baseline_type="video", frame_aggregation="trn-m",
@@ -48,6 +61,18 @@ TRN_CASES = ((1, 5, 512, 256), (64, 5, 512, 256), (202, 5, 512, 256),
 TIMED_BATCHES = (64, 202)
 RTOL = 1e-4                    # |kernel - plain| <= RTOL * max(1, |plain|)
 PROB_TOL = 1e-5
+# the published training recipe (BASELINE.md:25)
+DA = DAConfig(use_target="uSv", adv_DA="RevGrad",
+              add_loss_DA="attentive_entropy", place_adv=("Y", "Y", "Y"))
+TRAIN = TrainConfig(lr=0.03, lr_adaptive="dann", batch_size=(128, 74, 64),
+                    beta=(0.75, 0.75, 0.5), gamma=0.003)
+TRAIN_STEPS = 5                # parity steps, kernel TRN against plain TRN
+TIMED_STEPS = 20
+STEP_RTOL = 2e-4               # per-step losses (tests/test_train_parity_*)
+PARAM_TOL = dict(rtol=1e-3, atol=2e-5)
+# NVIDIA H100 SXM data sheet (700 W): f32 CUDA-core peak and HBM rate
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -72,10 +97,12 @@ def build_kernels() -> float:
     return seconds
 
 
-def trn_inputs(b, s, d, h, gen):
-    """Non-negative x like the post-ReLU shared features; weights and
+def trn_inputs(b, s, d, h, gen, signed=False):
+    """Non-negative x like the post-ReLU shared features (``signed``: of
+    both signs, so that the backward's (x > 0) matters); weights and
     biases at torch's default Linear scale U(±1/sqrt(k*D))."""
-    x = torch.rand((b, s, d), generator=gen)
+    x = (torch.randn((b, s, d), generator=gen) if signed
+         else torch.rand((b, s, d), generator=gen))
     weights, biases = [], []
     for k in build_relation_plan(s).scales:
         bound = 1.0 / math.sqrt(k * d)
@@ -171,6 +198,180 @@ def time_trn(gen, runs=41, warmup=5):
     return results
 
 
+def grid_inputs(b, s, d, h, rng):
+    """x, weights, biases and an upstream gradient on dyadic grids small
+    enough that every product and partial sum of the forward and the
+    backward is exact in float32 at these widths: any summation order
+    gives the same bits, so kernel and plain must agree exactly, masks
+    included."""
+    def grid(lo, hi, shape, step):
+        return torch.from_numpy(
+            (rng.integers(lo, hi + 1, shape) * step).astype(np.float32)
+        ).cuda()
+
+    x = grid(-8, 16, (b, s, d), 2.0 ** -4)
+    weights = [grid(-16, 16, (h, k * d), 2.0 ** -8)
+               for k in build_relation_plan(s).scales]
+    biases = [grid(-64, 64, (h,), 2.0 ** -12) for _ in weights]
+    return x, weights, biases, grid(-128, 128, (b, s - 1, h), 2.0 ** -8)
+
+
+def preacts(x, weights, biases, s):
+    """z of every subset, [B, n_sub*H], in the masks' layout."""
+    plan = build_relation_plan(s)
+    b, _, d = x.shape
+    zs = []
+    for w, bias, k, subsets in zip(weights, biases, plan.scales,
+                                   plan.subsets):
+        idx = torch.as_tensor(subsets.reshape(-1), device=x.device)
+        g = x[:, idx].reshape(b, subsets.shape[0], k * d)
+        zs.append((torch.relu(g) @ w.T + bias).reshape(b, -1))
+    return torch.cat(zs, dim=1)
+
+
+def check_train_kernels(gen):
+    """K1 (train) against trn_multiscale_fwd_masks_plain and K2 against
+    trn_multiscale_bwd_plain at every case: float inputs within the
+    tolerance (K2 from the kernel's masks on both sides), exact inputs
+    bit for bit, masks included, and K2 bitwise equal on a second call.
+    Returns the largest error of each on the float inputs."""
+    rng = np.random.default_rng(1)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    with torch.no_grad():
+        for b, s, d, h in TRN_CASES:
+            x, w, bi = trn_inputs(b, s, d, h, gen, signed=True)
+            out, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+            want, want_masks = trn_fused.trn_multiscale_fwd_masks_plain(
+                x, w, bi, s)
+            torch.cuda.synchronize()
+            if out.shape != (b, s - 1, h) or not torch.isfinite(out).all():
+                raise AssertionError(f"K1 (train) output bad at B={b}")
+            err = (out - want).abs().max().item()
+            tol = RTOL * max(1.0, want.abs().max().item())
+            differ = masks != want_masks
+            z = preacts(x, w, bi, s)
+            z_tol = RTOL * max(1.0, z.abs().max().item())
+            ties = int(differ.sum())
+            log(f"  K1 (train) B={b} S={s} D={d} H={h}: max|kernel-plain| "
+                f"= {err:.3e} (tolerance {tol:.3e}); mask density "
+                f"{masks.float().mean().item():.4f}; {ties} of "
+                f"{masks.numel()} mask entries differ from plain")
+            if not err <= tol:
+                raise AssertionError(f"K1 (train) disagrees at B={b}")
+            if ties and not (z[differ].abs() <= z_tol).all():
+                raise AssertionError(f"K1 (train) masks differ at B={b} "
+                                     "where z is not a rounding tie")
+            worst["fwd"] = max(worst["fwd"], err)
+
+            g = torch.randn((b, s - 1, h), generator=gen).cuda()
+            got = trn_fused.trn_multiscale_bwd(x, w, masks, g, s, 3)
+            again = trn_fused.trn_multiscale_bwd(x, w, masks, g, s, 3)
+            ref = trn_fused.trn_multiscale_bwd_plain(x, w, masks, g, s)
+            torch.cuda.synchronize()
+            errs = []
+            for name, a_, again_, r in zip(
+                    ["dx"] + [f"dW{i}" for i in range(s - 1)]
+                    + [f"db{i}" for i in range(s - 1)],
+                    (got[0], *got[1], *got[2]),
+                    (again[0], *again[1], *again[2]),
+                    (ref[0], *ref[1], *ref[2])):
+                e = (a_ - r).abs().max().item()
+                t = RTOL * max(1.0, r.abs().max().item())
+                if a_.shape != r.shape or not e <= t:
+                    raise AssertionError(f"K2 {name} disagrees at B={b}: "
+                                         f"{e} > {t}")
+                if not torch.equal(a_, again_):
+                    raise AssertionError(f"K2 {name} not bitwise "
+                                         f"repeatable at B={b}")
+                errs.append(e)
+            log(f"  K2 B={b} S={s} D={d} H={h}: max|kernel-plain| over dx, "
+                f"{s - 1} dW, {s - 1} db = {max(errs):.3e}; a second call "
+                "is bitwise equal")
+            worst["bwd"] = max(worst["bwd"], max(errs))
+
+            gx, gw, gb, gg = grid_inputs(b, s, d, h, rng)
+            out, masks = trn_fused.trn_multiscale_fwd_masks(gx, gw, gb, s)
+            want, want_masks = trn_fused.trn_multiscale_fwd_masks_plain(
+                gx, gw, gb, s)
+            got = trn_fused.trn_multiscale_bwd(gx, gw, masks, gg, s, 3)
+            ref = trn_fused.trn_multiscale_bwd_plain(gx, gw, want_masks, gg,
+                                                     s)
+            torch.cuda.synchronize()
+            exact = [torch.equal(masks, want_masks), torch.equal(out, want)]
+            exact += [torch.equal(a_, r) for a_, r in
+                      zip((got[0], *got[1], *got[2]),
+                          (ref[0], *ref[1], *ref[2]))]
+            if not all(exact):
+                raise AssertionError(f"kernels differ from plain on exact "
+                                     f"inputs at B={b}: {exact}")
+            log(f"  exact inputs B={b}: K1 (train) masks and output, K2 dx, "
+                "dW and db bitwise equal to plain")
+    return worst
+
+
+def time_pair(fns, runs=41, warmup=5):
+    """Median device time of each function, taken in turns (a, b, b, a,
+    ...)."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    times = {name: [] for name in fns}
+    names = list(fns)
+    for i in range(runs):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            times[name].append(device_ms(fns[name]))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def time_train_kernels(gen, b=202):
+    """Device times of K1 (train) and K2 against their plain versions at
+    the train batch."""
+    x, w, bi = trn_inputs(b, 5, 512, 256, gen, signed=True)
+    g = torch.randn((b, 4, 256), generator=gen).cuda()
+    with torch.no_grad():
+        _, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, 5)
+        fwd = time_pair({
+            "kernel": lambda: trn_fused.trn_multiscale_fwd_masks(x, w, bi, 5),
+            "plain": lambda: trn_fused.trn_multiscale_fwd_masks_plain(
+                x, w, bi, 5)})
+        bwd = time_pair({
+            "kernel": lambda: trn_fused.trn_multiscale_bwd(x, w, masks, g, 5),
+            "plain": lambda: trn_fused.trn_multiscale_bwd_plain(
+                x, w, masks, g, 5)})
+    for label, t in (("K1 (train)", fwd), ("K2", bwd)):
+        log(f"  B={b} {label}: kernel {t['kernel']:.4f} ms, plain "
+            f"{t['plain']:.4f} ms device (medians of 41, in turns)")
+    return fwd, bwd
+
+
+def trn_work(b, s=5, d=512, h=256):
+    """FLOPs and the least bytes of the TRN kernels at these shapes: each
+    input read once, each output written once."""
+    plan = build_relation_plan(s)
+    n_sub = sum(len(sub) for sub in plan.subsets)
+    flops = 2 * b * h * d * sum(len(sub) * k
+                                for k, sub in zip(plan.scales, plan.subsets))
+    w_bytes = 4 * h * d * sum(plan.scales)
+    b_bytes = 4 * h * len(plan.scales)
+    x_bytes, out_bytes = 4 * b * s * d, 4 * b * (s - 1) * h
+    mask_bytes = b * n_sub * h
+    fwd_bytes = x_bytes + w_bytes + b_bytes + out_bytes
+    return {
+        "trn_fused_fwd": (flops, fwd_bytes),
+        "trn_fused_fwd_train": (flops, fwd_bytes + mask_bytes),
+        # x, g (the size of out), masks and W in; dx, dW and db out
+        "trn_fused_bwd": (2 * flops, 2 * x_bytes + out_bytes + mask_bytes
+                          + 2 * w_bytes + b_bytes),
+    }
+
+
+def bound(flops, nbytes):
+    """The least time the card could take, in ms, and what sets it."""
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 class PlainTRN(nn.Module):
     """The TRN of a model, run through the plain PyTorch version."""
 
@@ -227,7 +428,7 @@ def serve_flagship(gen, workdir):
     try:
         bodies = [{"features": feats.tolist()} for feats in requests]
         for label in ("warm-up", "served"):
-            trn_fused.launches = 0
+            reset_counts()
             answers = []
             for feats, body in zip(requests, bodies):
                 t0 = time.perf_counter()
@@ -236,12 +437,15 @@ def serve_flagship(gen, workdir):
                     f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
         with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
             health = json.loads(r.read())
-        launches = trn_fused.launches
+        launches = counts()
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
     log(f"  TRN kernel launches while serving: {launches}")
+    if launches["trn_fused_fwd_train"] or launches["trn_fused_bwd"]:
+        raise AssertionError("serving launched a training kernel")
+    launches = launches["trn_fused_fwd"]
     if health != {"status": "ok", "num_class": 12, "segments": 5}:
         raise AssertionError(f"bad /healthz answer {health}")
     chunks = sum(-(-n // SERVE_BATCH) for n in REQUEST_SIZES)
@@ -275,6 +479,196 @@ def serve_flagship(gen, workdir):
     return launches
 
 
+def reset_counts():
+    trn_fused.launches = trn_fused.train_launches = 0
+    trn_fused.bwd_launches = 0
+
+
+def counts():
+    return {"trn_fused_fwd": trn_fused.launches,
+            "trn_fused_fwd_train": trn_fused.train_launches,
+            "trn_fused_bwd": trn_fused.bwd_launches}
+
+
+def flagship_model(gen, dropout=0.0):
+    """The flagship on the card, every weight redrawn at torch's default
+    scale (as for serving), so that the losses and gradients are far from
+    those of a near-zero network."""
+    cfg = dataclasses.replace(FLAGSHIP, dropout_i=dropout, dropout_v=dropout)
+    model = VideoModel(cfg, generator=gen)
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            torch_default_uniform_(mod, gen)
+    return model.cuda()
+
+
+def train_batch(seed=0):
+    """128 source and 74 target videos of random 5x2048 features (numpy,
+    seeded), on the card."""
+    rng = np.random.default_rng(seed)
+    bs, bt = TRAIN.batch_size[:2]
+    shape = (FLAGSHIP.train_segments, FLAGSHIP.input_feature_dim)
+    batch = (rng.random((bs, *shape), np.float32),
+             rng.integers(0, FLAGSHIP.num_class, bs), np.ones(bs, np.float32),
+             rng.random((bt, *shape), np.float32),
+             rng.integers(0, FLAGSHIP.num_class, bt), np.ones(bt, np.float32))
+    return [torch.as_tensor(a).cuda() for a in batch]
+
+
+def scalars(i, total, beta_cfg):
+    """The step's schedule values at step i of ``total``: DANN lr, and
+    beta from ``beta_cfg`` (negative entries follow the DANN schedule)."""
+    p = progress(i, 0, total)
+    return StepScalars(effective_beta(beta_cfg, p), 0.0, 0.0, TRAIN.gamma,
+                       dann_lr(TRAIN.lr, p))
+
+
+def train_flagship(gen):
+    """TRAIN_STEPS flagship steps through the kernels against the same
+    steps of a copy whose TRN is the plain version, dropout 0, DANN lr and
+    beta.  Returns the kernel launches of the kernel copy's steps."""
+    model = flagship_model(gen)
+    plain_model = copy.deepcopy(model)
+    plain_model.TRN = PlainTRN(plain_model.TRN)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch()
+    steps = [scalars(i, TRAIN_STEPS, (-1.0, -1.0, -1.0))
+             for i in range(TRAIN_STEPS)]
+    metrics, launches = [], None
+    for net in (model, plain_model):
+        state = TrainState(net, make_optimizer(net.parameters(), TRAIN), 0)
+        step = make_train_step(net, DA, TRAIN)
+        reset_counts()
+        run = []
+        for sc in steps:
+            state, m = step(state, *batch, sc, None)
+            run.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        if net is model:
+            launches = counts()
+        metrics.append(run)
+    worst_rel = 0.0
+    for i, (sc, got, want) in enumerate(zip(steps, *metrics)):
+        log(f"  step {i}: lr {sc.lr:.5f} beta {sc.beta[0]:.4f}: " + ", ".join(
+            f"{k} {got[k]:.6f}/{want[k]:.6f}" for k in
+            ("loss_c", "loss_a", "loss_e", "loss")) + " (kernel/plain)")
+        for key in want:
+            if not math.isfinite(got[key]) or not math.isclose(
+                    got[key], want[key], rel_tol=STEP_RTOL):
+                raise AssertionError(f"step {i}: {key} {got[key]} differs "
+                                     f"from the plain TRN's {want[key]}")
+            worst_rel = max(worst_rel, abs(got[key] - want[key])
+                            / max(abs(want[key]), 1e-30))
+    log(f"  largest relative difference of a metric over {TRAIN_STEPS} "
+        f"steps: {worst_rel:.3e} (tolerance {STEP_RTOL})")
+    ours = model.state_dict()
+    ref = {k.replace("TRN.trn.", "TRN."): v
+           for k, v in plain_model.state_dict().items()}
+    worst = 0.0
+    for name, want in ref.items():
+        got = ours[name]
+        excess = ((got - want).abs()
+                  - PARAM_TOL["rtol"] * want.abs()).max().item()
+        if not excess <= PARAM_TOL["atol"]:
+            raise AssertionError(f"{name} after {TRAIN_STEPS} steps differs "
+                                 "from the plain TRN's")
+        worst = max(worst, (got - want).abs().max().item())
+    for name in ("fc_classifier_source.weight", "fc_classifier_source.bias"):
+        if not (torch.equal(ours[name], start[name])
+                and torch.equal(ref[name], start[name])):
+            raise AssertionError(f"{name} moved")
+    moved = sum(not torch.equal(ours[k], start[k]) for k in ours)
+    if moved != len(ours) - 2:
+        raise AssertionError(f"{moved} of {len(ours)} parameters moved")
+    log(f"  after {TRAIN_STEPS} steps: {moved} of {len(ours)} parameter "
+        f"tensors moved (all but fc_classifier_source); max|kernel-plain| "
+        f"= {worst:.3e} (tolerance rtol {PARAM_TOL['rtol']}, atol "
+        f"{PARAM_TOL['atol']})")
+    log(f"  kernel launches in the kernel copy's {TRAIN_STEPS} steps: "
+        f"{launches}")
+    want_launches = {"trn_fused_fwd": 0, "trn_fused_fwd_train": TRAIN_STEPS,
+                     "trn_fused_bwd": TRAIN_STEPS}
+    if launches != want_launches:
+        raise AssertionError(f"expected {want_launches} launches")
+    return launches
+
+
+def time_train_step(gen, warmup=3):
+    """The published step (dropout 0.5, beta 0.75/0.75/0.5, DANN lr) with
+    the kernel TRN and with the plain TRN, TIMED_STEPS steps each, in
+    turns (plain, kernel, kernel, plain): median ms of a step (synchronised
+    after each) and videos/s over the steps run back to back."""
+    model = flagship_model(gen, dropout=0.5)
+    plain_model = copy.deepcopy(model)
+    plain_model.TRN = PlainTRN(plain_model.TRN)
+    batch = train_batch(seed=1)
+    videos = sum(TRAIN.batch_size[:2])
+    runs = {}
+    for name, net in (("kernel", model), ("plain", plain_model)):
+        runs[name] = [TrainState(net, make_optimizer(net.parameters(),
+                                                     TRAIN), 0),
+                      make_train_step(net, DA, TRAIN),
+                      torch.Generator("cuda").manual_seed(0)]
+    times = {name: {"step_ms": [], "rate": []} for name in runs}
+
+    def run(name, n, sync_each):
+        state, step, rng = runs[name]
+        per_step = []
+        torch.cuda.synchronize()
+        t_all = time.perf_counter()
+        for i in range(n):
+            t0 = time.perf_counter()
+            state, metrics = step(state, *batch,
+                                  scalars(state.step, 100, TRAIN.beta), rng)
+            if sync_each:
+                torch.cuda.synchronize()
+                per_step.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_all
+        runs[name][0] = state
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"{name} step loss is not finite")
+        return per_step, n * videos / seconds
+
+    for name in runs:
+        run(name, warmup, True)
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for name in order:
+            per_step, _ = run(name, TIMED_STEPS, True)
+            _, rate = run(name, TIMED_STEPS, False)
+            times[name]["step_ms"] += per_step
+            times[name]["rate"].append(rate)
+    result = {}
+    for name, t in times.items():
+        result[name] = (statistics.median(t["step_ms"]),
+                        statistics.median(t["rate"]))
+        log(f"  {name} TRN: {result[name][0]:.3f} ms per step (median of "
+            f"{len(t['step_ms'])}, synchronised each step); "
+            f"{result[name][1]:.0f} videos/s ({TIMED_STEPS} steps back to "
+            f"back, median of {len(t['rate'])})")
+
+    # where the kernel step's time goes: device time by kernel over a few
+    # steps, against the unprofiled time of a step run back to back
+    from torch.profiler import ProfilerActivity, profile
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run("kernel", n, False)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    step_ms = videos / result["kernel"][1] * 1e3
+    log(f"  profile of {n} kernel-TRN steps: device busy {busy_ms:.4f} ms "
+        f"per step, {sum(e.count for e in kernels) // n} kernels per step; "
+        f"against {step_ms:.3f} ms per step back to back, the device is "
+        f"idle {100 * (1 - busy_ms / step_ms):.1f}% of the time")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/step "
+            f"{e.count // n:4d}x  {e.key[:90]}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
@@ -291,22 +685,60 @@ def main() -> int:
         f"{build_kernels():.1f} s")
 
     gen = torch.Generator().manual_seed(0)
-    log("TRN kernel vs plain")
-    max_err = check_trn_kernel(gen)
+    log("K1 (infer) vs plain")
+    max_err = {"trn_fused_fwd": check_trn_kernel(gen)}
+    log("K1 (train) and K2 vs plain")
+    worst = check_train_kernels(gen)
+    max_err["trn_fused_fwd_train"] = worst["fwd"]
+    max_err["trn_fused_bwd"] = worst["bwd"]
+
+    log("kernel times")
     times = time_trn(gen)
+    fwd_t, bwd_t = time_train_kernels(gen)
+    t64 = times[SERVE_BATCH]
+    ms = {"trn_fused_fwd": (t64[("kernel", "device")],
+                            t64[("plain", "device")]),
+          "trn_fused_fwd_train": (fwd_t["kernel"], fwd_t["plain"]),
+          "trn_fused_bwd": (bwd_t["kernel"], bwd_t["plain"])}
 
     log("flagship serving over HTTP")
     with tempfile.TemporaryDirectory() as workdir:
-        launches = serve_flagship(gen, workdir)
+        launches = {"trn_fused_fwd": serve_flagship(gen, workdir)}
 
-    t64 = times[SERVE_BATCH]
-    print(json.dumps({"kernels": [{
-        "name": "trn_fused_fwd", "route": "cuda",
-        "source": "ta3n_tpu_torch/csrc/trn_fused_fwd.cu",
-        "replaces": "ta3n_tpu/ops/trn_fused.py:68",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": t64[("kernel", "device")],
-        "plain_ms": t64[("plain", "device")]}]}))
+    log(f"flagship train step, {TRAIN.batch_size[0]} + "
+        f"{TRAIN.batch_size[1]} videos: kernel TRN vs plain TRN")
+    train_launches = train_flagship(gen)
+    launches["trn_fused_fwd_train"] = train_launches["trn_fused_fwd_train"]
+    launches["trn_fused_bwd"] = train_launches["trn_fused_bwd"]
+    log("flagship train step timing (dropout 0.5)")
+    time_train_step(gen)
+
+    # the shapes each kernel runs at on its path: serving batch, train batch
+    work = {**{k: v for k, v in trn_work(SERVE_BATCH).items()
+               if k == "trn_fused_fwd"},
+            **{k: v for k, v in trn_work(sum(TRAIN.batch_size[:2])).items()
+               if k != "trn_fused_fwd"}}
+    sources = {
+        "trn_fused_fwd": ("ta3n_tpu_torch/csrc/trn_fused_fwd.cu",
+                          "ta3n_tpu/ops/trn_fused.py:68"),
+        "trn_fused_fwd_train": ("ta3n_tpu_torch/csrc/trn_fused_fwd.cu",
+                                "ta3n_tpu/ops/trn_fused.py:68"),
+        "trn_fused_bwd": ("ta3n_tpu_torch/csrc/trn_fused_bwd.cu",
+                          "ta3n_tpu/ops/trn_fused.py:187"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        bound_ms, bound_by = bound(*work[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": ms[name][0],
+            "plain_ms": ms[name][1], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no single PyTorch call computes a multi-scale TRN over a
+            # subset plan, forward or backward
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

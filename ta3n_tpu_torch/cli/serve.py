@@ -16,8 +16,8 @@ import argparse
 
 import torch
 
-from ta3n_tpu.data.manifest import load_class_names
 from ta3n_tpu_torch.config import ModelConfig
+from ta3n_tpu_torch.data.manifest import load_class_names
 from ta3n_tpu_torch.serve import _LATER, Predictor, run_http_server
 
 

@@ -1,3 +1,7 @@
-from ta3n_tpu_torch.losses.losses import entropy_from_logits
+from ta3n_tpu_torch.losses.losses import (attentive_entropy,
+                                          cross_entropy_soft,
+                                          entropy_from_logits, masked_mean,
+                                          weighted_cross_entropy)
 
-__all__ = ["entropy_from_logits"]
+__all__ = ["masked_mean", "entropy_from_logits", "weighted_cross_entropy",
+           "cross_entropy_soft", "attentive_entropy"]

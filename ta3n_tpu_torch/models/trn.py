@@ -4,7 +4,7 @@ Port of `ta3n_tpu/models/trn.py:80-161` (`RelationModuleMultiScale`,
 reference TRNmodule.py:27-86).  The parameters keep the reference's
 module layout, ``fc_fusion_scales.{i}`` = Sequential(ReLU, Linear, ReLU),
 so a reference ``state_dict`` loads as it is; the forward runs the fused
-op on each scale's Linear parameters.
+ops (`ops/trn_fused.py`) on each scale's Linear parameters.
 """
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ from torch import nn
 
 from ta3n_tpu_torch.models.layers import linear
 from ta3n_tpu_torch.ops.relation import build_relation_plan
-from ta3n_tpu_torch.ops.trn_fused import (trn_multiscale_infer,
-                                          trn_multiscale_plain)
+from ta3n_tpu_torch.ops.trn_fused import (trn_multiscale_fused,
+                                          trn_multiscale_infer)
 
 __all__ = ["RelationModuleMultiScale"]
 
@@ -45,22 +45,14 @@ class RelationModuleMultiScale(nn.Module):
             for k in plan.scales)
 
     def forward(self, x: torch.Tensor, infer: bool = False) -> torch.Tensor:
-        """``infer=True`` (eval and serve) takes the fused inference op,
-        which on CUDA is the hand-written kernel; ``infer=False`` the
-        plain, differentiable version, which on CUDA waits for the
-        training kernels."""
+        """``infer=True`` (eval and serve) takes the fused inference op;
+        ``infer=False`` (training) the fused training op, whose backward
+        uses the relu masks its forward saved.  On CUDA both are the
+        hand-written kernels; on the CPU their plain versions."""
         if x.shape[1] != self.num_frames:
             raise ValueError(f"expected {self.num_frames} segments, got "
                              f"{x.shape[1]}")
         weights = [seq[1].weight for seq in self.fc_fusion_scales]
         biases = [seq[1].bias for seq in self.fc_fusion_scales]
-        if infer:
-            return trn_multiscale_infer(x, weights, biases, self.num_frames,
-                                        self.subsample_num)
-        if x.device.type == "cuda":
-            raise NotImplementedError(
-                "the TRN training forward on CUDA is not ported yet (ROADMAP "
-                "queue 1, item 3: the train step with the TRN training "
-                "kernels)")
-        return trn_multiscale_plain(x, weights, biases, self.num_frames,
-                                    self.subsample_num)
+        fused = trn_multiscale_infer if infer else trn_multiscale_fused
+        return fused(x, weights, biases, self.num_frames, self.subsample_num)

@@ -19,7 +19,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ta3n_tpu_torch.config import ModelConfig
@@ -57,6 +56,20 @@ def _check_flagship(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{field}={got!r} is not ported yet; the port runs "
                 f"{field}={want!r} (ROADMAP.md queue 1, item {item})")
+
+
+def _dropout(x: torch.Tensor, p: float, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (torch's ``F.dropout`` arithmetic) whose mask is
+    drawn from ``generator``, a generator on x's device, not from torch's
+    global RNG."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator on "
+                         f"{x.device} (the train step passes one)")
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)
 
 
 class StreamOutput(NamedTuple):
@@ -114,13 +127,16 @@ class VideoModel(nn.Module):
         self.to(device)
 
     def forward(self, input_source: torch.Tensor, input_target: torch.Tensor,
-                beta, mu, is_train: bool = True, reverse: bool = False
+                beta, mu, is_train: bool = True, reverse: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[StreamOutput, StreamOutput]:
         """Dual-stream forward (reference forward, models.py:545-722).
 
         input_source [Bs, S, D], input_target [Bt, S, D] (either may be
-        empty); beta: (3,) GRL strengths [relation, video, frame]; mu: GRL
-        strength of the MCD reverse step.
+        empty); beta: (3,) GRL strengths [relation, video, frame], a tensor
+        or a sequence of numbers; mu: GRL strength of the MCD reverse step.
+        ``generator`` (on the inputs' device) draws the two dropout masks;
+        it is needed when ``is_train`` and a dropout rate is above 0.
         """
         cfg = self.cfg
         num_segments = cfg.train_segments if is_train else cfg.val_segments
@@ -135,7 +151,7 @@ class VideoModel(nn.Module):
 
         # shared frame-level FC (models.py:565-603)
         f = torch.relu(self.fc_feature_shared_source(f))
-        f = F.dropout(f, cfg.dropout_i, training=is_train)
+        f = _dropout(f, cfg.dropout_i, is_train, generator)
         feat_all.append(f.reshape(b_all, num_segments, -1))
 
         # frame-level adversarial branch (models.py:605-610)
@@ -160,7 +176,8 @@ class VideoModel(nn.Module):
         feat_all.append(feat_video)
 
         # video-level classifier (models.py:678-691)
-        feat_video = F.dropout(feat_video, cfg.dropout_v, training=is_train)
+        feat_video = _dropout(feat_video, cfg.dropout_v, is_train,
+                              generator)
         if reverse:
             feat_video = grad_reverse(feat_video, mu)  # MCD step 2
         pred_video = self.fc_classifier_video_source(feat_video)

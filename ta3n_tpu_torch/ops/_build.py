@@ -2,8 +2,9 @@
 
 The kernels are CUDA C++ sources under ``ta3n_tpu_torch/csrc/`` with a
 plain C interface.  At first CUDA use they are compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library and bound with ``ctypes``; no
-PyTorch headers are compiled, so a build takes seconds.
+Hopper (``sm_90a``), one compiler process per source, all started
+together, then linked into one shared library and bound with ``ctypes``;
+no PyTorch headers are compiled, so a build takes seconds.
 
 The library lands in ``build/ta3n_tpu_torch/`` at the root of the checkout
 (listed in ``.gitignore``), named by a hash of the sources and the compiler
@@ -30,16 +31,23 @@ from pathlib import Path
 __all__ = ["SOURCES", "library_path", "compile_library", "load_library"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (_CSRC / "trn_fused_fwd.cu",)
+SOURCES = (_CSRC / "trn_fused_fwd.cu", _CSRC / "trn_fused_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ta3n_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (every pointer and the stream c_void_p)
 _ENTRIES = {
     # x, w ptrs, b ptrs, out, plan table, batch, frames, d, h, stream
     "ta3n_trn_fused_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w ptrs, b ptrs, out, masks, plan table, batch, frames, d, h, stream
+    "ta3n_trn_fused_fwd_train_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _P],
+    # x, w ptrs, masks, g, dx, dw ptrs, db ptrs, plan table, batch, frames,
+    # d, h, stream
+    "ta3n_trn_fused_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _P],
 }
 
 
@@ -66,23 +74,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libta3n_tpu_torch_{digest.hexdigest()[:16]}.so"
 
 
-def compile_library(path: Path) -> str:
-    """Compile SOURCES into ``path``; return the compiler's output (ptxas
-    prints each kernel's registers, shared memory and spills)."""
-    path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+def _run_all(cmds) -> str:
+    """Run the commands concurrently; raise if any fails, else return
+    their output in order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return proc.stdout + proc.stderr
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def compile_library(path: Path) -> str:
+    """Compile SOURCES into ``path``: one nvcc per source, concurrently,
+    then one link.  Return the compiler's output (ptxas prints each
+    kernel's registers, shared memory and spills)."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+        out = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, path.name)
+        out += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, path)
+    return out
 
 
 @functools.cache

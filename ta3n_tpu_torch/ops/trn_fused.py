@@ -1,4 +1,5 @@
-"""Fused multi-scale TRN forward, inference variant.
+"""Fused multi-scale TRN: the inference forward, and the training forward
+and backward as one autograd Function.
 
 The multi-scale TRN (reference TRNmodule.py:58-82) is, per scale k:
     out_k = sum_j relu( concat(relu(x[:, subset_kj, :])) @ W_k^T + b_k )
@@ -7,39 +8,59 @@ summed over min(3, C(S,k)) statically-selected subsets, for k = S..2
 ``[H, k*D]``: the JAX package keeps ``[k*D, H]``
 (`ta3n_tpu/io_utils/torch_export.py:37`).
 
-Two versions of one function:
+Plain PyTorch versions, which run on any device (CPU tensors take them;
+``chip_smoke.py`` holds the kernels against them on the card):
 
-  * ``trn_multiscale_plain``: plain PyTorch, the counterpart of the JAX
-    package's ``trn_multiscale_reference``.  It runs on any device and is
-    differentiable.
-  * ``trn_multiscale_infer``: the wrapper of the hand-written CUDA kernel
-    ``csrc/trn_fused_fwd.cu`` (the port of the Pallas kernel
-    ``ta3n_tpu/ops/trn_fused.py::_fwd_kernel``, inference variant).  A
-    CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-    version.  ``launches`` counts kernel launches.
+  * ``trn_multiscale_plain``: the forward, differentiable by autograd; the
+    counterpart of the JAX package's ``trn_multiscale_reference``.
+  * ``trn_multiscale_fwd_masks_plain``: the forward and the relu mask of
+    every subset, the counterpart of ``_fused_forward(with_masks=True)``.
+  * ``trn_multiscale_bwd_plain``: the backward from those masks, the
+    counterpart of ``_fused_bwd_xla`` and of the Pallas ``_bwd_kernel``.
 
-The training variant (relu masks) and the fused backward are not ported
-yet; see ROADMAP.md.
+Wrappers of the hand-written CUDA kernels (``csrc/``).  A CUDA tensor
+launches the kernel or raises, never falls back; a CPU tensor takes the
+plain version.  Each kernel has a count of its launches:
+
+  * ``trn_multiscale_infer`` (``launches``): the inference forward,
+    ``csrc/trn_fused_fwd.cu``, the port of the Pallas ``_fwd_kernel``
+    with ``with_masks=False``.
+  * ``trn_multiscale_fwd_masks`` (``train_launches``): the training
+    forward, the same source with the mask write, the port of
+    ``_fwd_kernel`` with ``with_masks=True``.
+  * ``trn_multiscale_bwd`` (``bwd_launches``): the backward,
+    ``csrc/trn_fused_bwd.cu``, the port of ``_bwd_kernel``.
+
+``trn_multiscale_fused`` joins the last two in one
+``torch.autograd.Function``, as ``trn_multiscale_fused``'s custom VJP
+joins them in the JAX package.  It saves x, the weights and the uint8
+masks, never z.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ta3n_tpu_torch.ops.relation import build_relation_plan
 
-__all__ = ["trn_multiscale_plain", "trn_multiscale_infer", "launches"]
+__all__ = ["trn_multiscale_plain", "trn_multiscale_fwd_masks_plain",
+           "trn_multiscale_bwd_plain", "trn_multiscale_infer",
+           "trn_multiscale_fwd_masks", "trn_multiscale_bwd",
+           "trn_multiscale_fused", "launches", "train_launches",
+           "bwd_launches"]
 
-# kernel launches made by trn_multiscale_infer (plain-version calls are not
-# counted); callers reset it to 0 to count the launches of one run
-launches = 0
+# kernel launches made by each wrapper (plain-version calls are not
+# counted); callers reset them to 0 to count the launches of one run
+launches = 0          # inference forward, csrc/trn_fused_fwd.cu
+train_launches = 0    # training forward, csrc/trn_fused_fwd.cu
+bwd_launches = 0      # backward, csrc/trn_fused_bwd.cu
 
-# limits of the kernel's by-value plan (csrc/trn_fused_fwd.cu)
+# limits of the kernels' by-value plan (csrc/trn_fused_*.cu)
 _MAX_FRAMES = 16
 _MAX_SUBSETS = 3
 
@@ -61,19 +82,72 @@ def trn_multiscale_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return torch.stack(outs, dim=1)
 
 
+def trn_multiscale_fwd_masks_plain(
+        x: torch.Tensor, weights: Sequence[torch.Tensor],
+        biases: Sequence[torch.Tensor], num_frames: int,
+        subsample_num: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain training forward: ``(out [B, S-1, H], masks)``, where masks
+    [B, n_sub*H] uint8 holds (z > 0) of every selected subset in the
+    plan's order (scale by scale), the comparison that selects what
+    ``out`` sums."""
+    plan = build_relation_plan(num_frames, subsample_num)
+    b, _, d = x.shape
+    outs, masks = [], []
+    for w, bias, k, subsets, idx in zip(
+            weights, biases, plan.scales, plan.subsets,
+            _subset_index(num_frames, subsample_num, x.device)):
+        g = x.index_select(1, idx).reshape(b, subsets.shape[0], k * d)
+        z = torch.relu(g) @ w.T + bias                 # [B, n_sub, H]
+        on = z > 0
+        outs.append(torch.where(on, z, 0.0).sum(dim=1))
+        masks.append(on.reshape(b, -1))
+    return torch.stack(outs, dim=1), torch.cat(masks, dim=1).to(torch.uint8)
+
+
+def trn_multiscale_bwd_plain(
+        x: torch.Tensor, weights: Sequence[torch.Tensor],
+        masks: torch.Tensor, g: torch.Tensor, num_frames: int,
+        subsample_num: int = 3) -> Tuple[torch.Tensor, tuple, tuple]:
+    """Plain backward from the forward's masks: ``(dx [B, S, D], dWs, dbs)``
+    with dWs[i] [H, k_i*D] (torch layout) and dbs[i] [H], for the upstream
+    gradient g [B, S-1, H]."""
+    plan = build_relation_plan(num_frames, subsample_num)
+    b, _, d = x.shape
+    h = weights[0].shape[0]
+    xr = torch.relu(x)
+    dx = torch.zeros_like(x)
+    dws, dbs = [], []
+    sub = 0
+    for i, (w, k, subsets, idx) in enumerate(zip(
+            weights, plan.scales, plan.subsets,
+            _subset_index(num_frames, subsample_num, x.device))):
+        n = subsets.shape[0]
+        m = (masks[:, sub * h:(sub + n) * h].reshape(b, n, h).to(g.dtype)
+             * g[:, i, None, :])                       # [B, n_sub, H]
+        sub += n
+        xs = xr.index_select(1, idx).reshape(b * n, k * d)
+        dws.append(m.reshape(b * n, h).T @ xs)
+        dbs.append(m.sum(dim=(0, 1)))
+        dx.index_add_(1, idx, (m @ w).reshape(b, n * k, d))
+    return dx * (x > 0), tuple(dws), tuple(dbs)
+
+
 @functools.lru_cache(maxsize=None)
 def _subset_index(num_frames: int, subsample_num: int,
                   device: torch.device) -> tuple:
     """Per scale, the plan's frame indices as a tensor on ``device``, made
-    once: a host-to-device copy per call would stall the stream."""
+    once: a host-to-device copy per call would stall the stream.  Made as
+    normal tensors even when the first call runs under inference mode, so
+    that autograd can save them later."""
     plan = build_relation_plan(num_frames, subsample_num)
-    return tuple(torch.as_tensor(s.reshape(-1), device=device)
-                 for s in plan.subsets)
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(s.reshape(-1), device=device)
+                     for s in plan.subsets)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan_table(num_frames: int, subsample_num: int) -> np.ndarray:
-    """The kernel's plan: for each scale, k, n_sub, then n_sub*k frame
+    """The kernels' plan: for each scale, k, n_sub, then n_sub*k frame
     indices (int32)."""
     plan = build_relation_plan(num_frames, subsample_num)
     table = []
@@ -85,7 +159,8 @@ def _plan_table(num_frames: int, subsample_num: int) -> np.ndarray:
 
 
 def _check_inputs(x, weights, biases, num_frames, subsample_num) -> None:
-    """Raise on anything the kernel does not take."""
+    """Raise on anything the kernels do not take (``biases`` None: the
+    backward, which takes none)."""
     if not 2 <= num_frames <= _MAX_FRAMES:
         raise ValueError(f"the TRN kernel takes 2..{_MAX_FRAMES} frames, "
                          f"got {num_frames}")
@@ -98,56 +173,133 @@ def _check_inputs(x, weights, biases, num_frames, subsample_num) -> None:
         raise ValueError(f"x must be [B, {num_frames}, D], got "
                          f"{tuple(x.shape)}")
     n_scales = len(plan.scales)
-    if len(weights) != n_scales or len(biases) != n_scales:
+    biases = list(biases) if biases is not None else []
+    if len(weights) != n_scales or len(biases) not in (0, n_scales):
         raise ValueError(f"expected {n_scales} weights and biases, got "
                          f"{len(weights)} and {len(biases)}")
     d = x.shape[2]
     h = weights[0].shape[0]
     for t in (x, *weights, *biases):
-        if t.device != x.device:
-            raise ValueError(f"all tensors must be on {x.device}, "
-                             f"got one on {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the TRN kernel takes float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the TRN kernel takes contiguous tensors")
-    for k, w, bias in zip(plan.scales, weights, biases):
-        if tuple(w.shape) != (h, k * d) or tuple(bias.shape) != (h,):
+        _check_tensor(t, x.device, torch.float32)
+    for i, (k, w) in enumerate(zip(plan.scales, weights)):
+        if tuple(w.shape) != (h, k * d) or (
+                biases and tuple(biases[i].shape) != (h,)):
             raise ValueError(
                 f"scale k={k}: expected weight {(h, k * d)} and bias "
-                f"{(h,)}, got {tuple(w.shape)} and {tuple(bias.shape)}")
+                f"{(h,)}, got {tuple(w.shape)} and "
+                f"{tuple(biases[i].shape) if biases else None}")
+
+
+def _check_tensor(t: torch.Tensor, device: torch.device,
+                  dtype: torch.dtype) -> None:
+    if t.device != device:
+        raise ValueError(f"all tensors must be on {device}, got one on "
+                         f"{t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"the TRN kernel takes {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError("the TRN kernel takes contiguous tensors")
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _call(entry: str, x: torch.Tensor, *args) -> None:
+    """Call a C entry with the current stream of x's device; raise on a
+    refused launch."""
+    from ta3n_tpu_torch.ops._build import load_library
+
+    fn = getattr(load_library(), entry)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
 def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
+    """The inference forward kernel."""
     global launches
     _check_inputs(x, weights, biases, num_frames, subsample_num)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *weights, *biases)):
         raise RuntimeError(
             "trn_multiscale_infer's CUDA kernel has no backward; call it "
-            "under torch.no_grad() or torch.inference_mode()")
-    from ta3n_tpu_torch.ops._build import load_library
-
+            "under torch.no_grad() or torch.inference_mode(), or train "
+            "through trn_multiscale_fused")
     b, s, d = x.shape
     h = weights[0].shape[0]
     out = torch.empty((b, s - 1, h), dtype=x.dtype, device=x.device)
     if b == 0:  # a grid of 0 blocks is refused
         return out
-    lib = load_library()
-    table = _plan_table(num_frames, subsample_num)
-    w_ptrs = (ctypes.c_void_p * len(weights))(
-        *[w.data_ptr() for w in weights])
-    b_ptrs = (ctypes.c_void_p * len(biases))(
-        *[bi.data_ptr() for bi in biases])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ta3n_trn_fused_fwd_f32(
-            x.data_ptr(), ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
-            out.data_ptr(), table.ctypes.data, b, s, d, h, stream)
-    if err != 0:
-        raise RuntimeError(f"trn_fused_fwd launch failed: CUDA error {err}")
+    w_ptrs, b_ptrs = _ptrs(weights), _ptrs(biases)
+    _call("ta3n_trn_fused_fwd_f32", x, x.data_ptr(),
+          ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
+          out.data_ptr(), _plan_table(num_frames, subsample_num).ctypes.data,
+          b, s, d, h)
     launches += 1
     return out
+
+
+def _n_subsets(num_frames: int, subsample_num: int) -> int:
+    return sum(len(sub) for sub in
+               build_relation_plan(num_frames, subsample_num).subsets)
+
+
+def _launch_train(x, weights, biases, num_frames, subsample_num
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward kernel: (out, uint8 masks)."""
+    global train_launches
+    _check_inputs(x, weights, biases, num_frames, subsample_num)
+    b, s, d = x.shape
+    h = weights[0].shape[0]
+    n_sub = _n_subsets(num_frames, subsample_num)
+    out = torch.empty((b, s - 1, h), dtype=x.dtype, device=x.device)
+    masks = torch.empty((b, n_sub * h), dtype=torch.uint8, device=x.device)
+    if b == 0:  # a grid of 0 blocks is refused
+        return out, masks
+    w_ptrs, b_ptrs = _ptrs(weights), _ptrs(biases)
+    _call("ta3n_trn_fused_fwd_train_f32", x, x.data_ptr(),
+          ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
+          out.data_ptr(), masks.data_ptr(),
+          _plan_table(num_frames, subsample_num).ctypes.data, b, s, d, h)
+    train_launches += 1
+    return out, masks
+
+
+def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
+                ) -> Tuple[torch.Tensor, tuple, tuple]:
+    """The backward kernel (its dx and dW/db passes): (dx, dWs, dbs)."""
+    global bwd_launches
+    _check_inputs(x, weights, None, num_frames, subsample_num)
+    b, s, d = x.shape
+    h = weights[0].shape[0]
+    n_sub = _n_subsets(num_frames, subsample_num)
+    _check_tensor(masks, x.device, torch.uint8)
+    _check_tensor(g, x.device, torch.float32)
+    if tuple(masks.shape) != (b, n_sub * h) or \
+            tuple(g.shape) != (b, s - 1, h):
+        raise ValueError(f"expected masks {(b, n_sub * h)} and g "
+                         f"{(b, s - 1, h)}, got {tuple(masks.shape)} and "
+                         f"{tuple(g.shape)}")
+    dx = torch.empty_like(x)
+    dws = tuple(torch.empty_like(w) for w in weights)
+    dbs = tuple(torch.empty((h,), dtype=x.dtype, device=x.device)
+                for _ in weights)
+    w_ptrs, dw_ptrs, db_ptrs = _ptrs(weights), _ptrs(dws), _ptrs(dbs)
+    _call("ta3n_trn_fused_bwd_f32", x, x.data_ptr(),
+          ctypes.addressof(w_ptrs), masks.data_ptr(), g.data_ptr(),
+          dx.data_ptr(), ctypes.addressof(dw_ptrs),
+          ctypes.addressof(db_ptrs),
+          _plan_table(num_frames, subsample_num).ctypes.data, b, s, d, h)
+    bwd_launches += 1
+    return dx, dws, dbs
+
+
+def _no_kernel(name: str, device: torch.device) -> ValueError:
+    return ValueError(f"{name}: no kernel for device {device}")
 
 
 def trn_multiscale_infer(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -164,5 +316,79 @@ def trn_multiscale_infer(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if x.device.type == "cpu":
         return trn_multiscale_plain(x, weights, biases, num_frames,
                                     subsample_num)
-    raise ValueError(f"trn_multiscale_infer: no kernel for device "
-                     f"{x.device}")
+    raise _no_kernel("trn_multiscale_infer", x.device)
+
+
+def trn_multiscale_fwd_masks(x: torch.Tensor,
+                             weights: Sequence[torch.Tensor],
+                             biases: Sequence[torch.Tensor], num_frames: int,
+                             subsample_num: int = 3
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: ``(out [B, S-1, H], uint8 masks [B, n_sub*H])``.
+
+    A CUDA ``x`` launches the hand-written kernel (float32, contiguous, on
+    one device; anything else raises).  A CPU ``x`` takes
+    ``trn_multiscale_fwd_masks_plain``.  Not differentiable itself: train
+    through ``trn_multiscale_fused``.
+    """
+    if x.device.type == "cuda":
+        return _launch_train(x, weights, biases, num_frames, subsample_num)
+    if x.device.type == "cpu":
+        return trn_multiscale_fwd_masks_plain(x, weights, biases, num_frames,
+                                              subsample_num)
+    raise _no_kernel("trn_multiscale_fwd_masks", x.device)
+
+
+def trn_multiscale_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                       masks: torch.Tensor, g: torch.Tensor, num_frames: int,
+                       subsample_num: int = 3
+                       ) -> Tuple[torch.Tensor, tuple, tuple]:
+    """Backward from the training forward's masks: ``(dx, dWs, dbs)`` for
+    the upstream gradient g [B, S-1, H], dWs in the torch layout.
+
+    A CUDA ``x`` launches the hand-written kernel (g may be
+    non-contiguous; anything else it does not take raises).  A CPU ``x``
+    takes ``trn_multiscale_bwd_plain``.
+    """
+    if x.device.type == "cuda":
+        return _launch_bwd(x, weights, masks, g.contiguous(), num_frames,
+                           subsample_num)
+    if x.device.type == "cpu":
+        return trn_multiscale_bwd_plain(x, weights, masks, g, num_frames,
+                                        subsample_num)
+    raise _no_kernel("trn_multiscale_bwd", x.device)
+
+
+class _TRNFused(torch.autograd.Function):
+    """The training forward (out and masks) and the backward from the
+    masks."""
+
+    @staticmethod
+    def forward(ctx, x, num_frames, subsample_num, *params):
+        n = len(params) // 2
+        weights, biases = params[:n], params[n:]
+        out, masks = trn_multiscale_fwd_masks(x, weights, biases, num_frames,
+                                              subsample_num)
+        ctx.save_for_backward(x, masks, *weights)
+        ctx.plan = (num_frames, subsample_num)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, masks, *weights = ctx.saved_tensors
+        dx, dws, dbs = trn_multiscale_bwd(x, weights, masks, g, *ctx.plan)
+        return (dx, None, None, *dws, *dbs)
+
+
+def trn_multiscale_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                         biases: Sequence[torch.Tensor], num_frames: int,
+                         subsample_num: int = 3) -> torch.Tensor:
+    """Differentiable fused forward: [B, S, D] -> [B, S-1, H].
+
+    Its forward is ``trn_multiscale_fwd_masks`` and its backward
+    ``trn_multiscale_bwd``: on a CUDA ``x`` the two kernels, which raise
+    on what they do not take and never fall back; on a CPU ``x`` their
+    plain versions.
+    """
+    return _TRNFused.apply(x, num_frames, subsample_num, *weights, *biases)

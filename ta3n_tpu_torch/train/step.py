@@ -1,0 +1,233 @@
+"""The flagship train step: one forward of both streams, the TA3N losses,
+backward and one optimizer update.
+
+Port of `ta3n_tpu/train/step.py:175-289, 413-689` (reference main.py:348-628
+loss assembly, backward and optimizer) for the published UCF->HMDB_full
+recipe: the uSv classification loss on the source stream, RevGrad
+adversarial losses at the layers that ``place_adv`` marks, and attentive
+entropy with its layer-pick rule.  Any other ``DAConfig`` value raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
+
+Padded videos are masked, not removed: ``mask_s`` and ``mask_t`` weight
+every loss, as in the JAX package (main.py:358-372,825-832).  The per-step
+schedule values (beta, mu, alpha, gamma, lr) are arguments of the step.
+The step makes no host-device round trip of its own: metrics come back as
+0-d tensors on the model's device, and a number-valued beta never leaves
+the host.  The TRN runs through `ops/trn_fused.py::trn_multiscale_fused`:
+on CUDA its training forward and backward kernels, once each per step.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Sequence
+
+import torch
+
+from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
+from ta3n_tpu_torch.losses import attentive_entropy, weighted_cross_entropy
+from ta3n_tpu_torch.models.video_model import VideoModel
+from ta3n_tpu_torch.train.optim import make_optimizer, optimizer_step
+
+__all__ = ["TrainState", "StepScalars", "create_train_state",
+           "make_train_step", "topk_correct"]
+
+
+class TrainState(NamedTuple):
+    """The model (its parameters updated in place by each step), its
+    optimizer and the number of steps taken."""
+
+    model: VideoModel
+    optimizer: torch.optim.Optimizer
+    step: int
+
+
+class StepScalars(NamedTuple):
+    """Per-step schedule values, computed on the host (`schedules.py`)."""
+
+    beta: Any       # (3,) [relation, video, frame]: numbers or a tensor
+    mu: float
+    alpha: float
+    gamma: float
+    lr: float
+
+
+# DAConfig field -> (the values the port runs, the ROADMAP.md queue-1 item
+# porting the others)
+_DA_PORTED = {
+    "use_target": (("none", "uSv"), "6: Sv"),
+    "dis_DA": (("none",), "7: the discrepancy losses DAN, JAN and CORAL"),
+    "add_loss_DA": (("none", "attentive_entropy"), "6: target_entropy"),
+    "ens_DA": (("none",), "6: MCD"),
+    "pretrain_source": ((False,), "6: --pretrain_source"),
+    "pred_normalize": (("N",), "6: pred_normalize"),
+}
+
+
+def _check_da(da: DAConfig) -> None:
+    for field, (ported, item) in _DA_PORTED.items():
+        got = getattr(da, field)
+        if got not in ported:
+            raise NotImplementedError(
+                f"DAConfig.{field}={got!r} is not ported yet; the port runs "
+                f"{' or '.join(map(repr, ported))} (ROADMAP.md queue 1, "
+                f"item {item})")
+
+
+def create_train_state(cfg: ModelConfig, train_cfg: TrainConfig,
+                       generator: Optional[torch.Generator] = None,
+                       device="cuda") -> TrainState:
+    """A `VideoModel` initialised from ``generator`` (a CPU generator) and
+    moved to ``device``, with a fresh optimizer and step 0."""
+    model = VideoModel(cfg, generator, device)
+    return TrainState(model, make_optimizer(model.parameters(), train_cfg),
+                      0)
+
+
+def topk_correct(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Masked top-k hit count (reference accuracy(), main.py:809-822)."""
+    k = min(k, logits.shape[-1])
+    top = torch.topk(logits, k, dim=-1).indices
+    hit = (top == labels[:, None]).any(dim=-1).to(mask.dtype)
+    return (hit * mask).sum()
+
+
+def _rows(p: torch.Tensor, m: torch.Tensor):
+    """Frame- and relation-level domain logits [B, L, 2] flattened to rows,
+    with the video mask repeated per row."""
+    if p.dim() == 3:
+        m = m.repeat_interleave(p.shape[1])
+        p = p.reshape(-1, p.shape[-1])
+    return p, m
+
+
+def _domain_adversarial_loss(pred_domain_s, pred_domain_t, mask_s, mask_t,
+                             place_adv: Sequence[str],
+                             domain_weights: Optional[torch.Tensor]):
+    """Sum of the 2-way domain CE over the layers marked 'Y' in place_adv
+    (main.py:507-538): source label 0, target label 1.  Also returns the
+    selected (logits, mask) pairs, whose index 1 feeds attentive entropy
+    (main.py:560)."""
+    loss = 0.0
+    selected = []
+    for layer, flag in enumerate(place_adv):
+        if flag != "Y":
+            continue
+        ps, ms = _rows(pred_domain_s[layer], mask_s)
+        pt, mt = _rows(pred_domain_t[layer], mask_t)
+        logits, m = torch.cat([ps, pt]), torch.cat([ms, mt])
+        labels = torch.cat([
+            torch.zeros(ps.shape[0], dtype=torch.long, device=ps.device),
+            torch.ones(pt.shape[0], dtype=torch.long, device=pt.device)])
+        loss = loss + weighted_cross_entropy(logits, labels, domain_weights,
+                                             m)
+        selected.append((logits, m))
+    return loss, selected
+
+
+def _entropy_domain(selected, out_s, out_t, mask_s, mask_t, rows: int):
+    """The domain logits that weight attentive entropy (main.py:560): the
+    reference's pred_domain_all[1] (the video level under the published
+    place_adv), else the video level, else the frame level, the first
+    whose row count is the class logits' ``rows``.  The reference crashes
+    for the other place_adv values; `ta3n_tpu/train/step.py:561-599`
+    documents the divergence."""
+    if len(selected) > 1 and selected[1][0].shape[0] == rows:
+        return selected[1]
+    for layer in (1, 2):
+        ps, ms = _rows(out_s.pred_domain[layer], mask_s)
+        pt, mt = _rows(out_t.pred_domain[layer], mask_t)
+        if ps.shape[0] + pt.shape[0] == rows:
+            break
+    return torch.cat([ps, pt]), torch.cat([ms, mt])
+
+
+def _as(t, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(t).to(device=device, dtype=dtype)
+
+
+def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
+                    class_weights=None, domain_weights=None):
+    """Build the train step for ``model``'s configuration.
+
+    Returned signature:
+      step(state, xs, ys, mask_s, xt, yt, mask_t, scalars, generator)
+        -> (new_state, metrics)
+    xs [Bs, S, D] and xt [Bt, S, D] features, ys/yt labels, mask_s/mask_t
+    per-video 0/1 weights (tensors or numpy arrays; moved to the model's
+    device), ``scalars`` a `StepScalars`, ``generator`` a torch.Generator on
+    the model's device for the dropout masks.  The step updates
+    ``state.model`` in place and returns the state with ``step + 1`` and
+    the metrics loss_c, loss_a, loss_e (where the configuration has them),
+    loss, top1, top5 and n, as 0-d tensors.
+    """
+    cfg = model.cfg
+    if cfg.quantize != "none":
+        # int8 quantization is inference-only: round() has zero gradient
+        raise ValueError(
+            f"ModelConfig.quantize={cfg.quantize!r} is inference-only "
+            "(eval CLI / serve.Predictor); train with quantize='none'")
+    _check_da(da)
+    use_tgt = da.use_target != "none"
+    adversarial = da.adv_DA != "none" and use_tgt
+    entropy = (da.add_loss_DA == "attentive_entropy"
+               and cfg.use_attn != "none" and use_tgt)
+    device = next(model.parameters()).device
+    if class_weights is not None:
+        class_weights = _as(class_weights, device, torch.float32)
+    if domain_weights is not None:
+        domain_weights = _as(domain_weights, device, torch.float32)
+
+    def loss_fn(net, xs, ys, mask_s, xt, yt, mask_t, scalars, generator):
+        out_s, out_t = net(xs, xt, scalars.beta, scalars.mu, True, False,
+                           generator=generator)
+        metrics: Dict[str, torch.Tensor] = {}
+
+        # (1) classification loss on the source stream (uSv,
+        # main.py:437-451)
+        o, lab, m = out_s.out, ys, mask_s
+        loss = metrics["loss_c"] = weighted_cross_entropy(
+            o, lab, class_weights, m)
+
+        # (2) adversarial loss (main.py:507-538)
+        selected = []
+        if adversarial:
+            loss_a, selected = _domain_adversarial_loss(
+                out_s.pred_domain, out_t.pred_domain, mask_s, mask_t,
+                da.place_adv, domain_weights)
+            metrics["loss_a"] = loss_a
+            loss = loss + loss_a
+
+        # (3) attentive entropy (main.py:558-562)
+        if entropy:
+            pred_all = torch.cat([out_s.out, out_t.out])
+            m_all = torch.cat([mask_s, mask_t])
+            dom_logits, dom_m = _entropy_domain(
+                selected, out_s, out_t, mask_s, mask_t, pred_all.shape[0])
+            loss_e = attentive_entropy(pred_all, dom_logits, m_all * dom_m)
+            metrics["loss_e"] = loss_e
+            loss = loss + scalars.gamma * loss_e
+
+        metrics["loss"] = loss
+        metrics["top1"] = topk_correct(o, lab, m, 1)
+        metrics["top5"] = topk_correct(o, lab, m, 5)
+        metrics["n"] = m.sum()
+        return loss, metrics
+
+    def step(state: TrainState, xs, ys, mask_s, xt, yt, mask_t,
+             scalars: StepScalars, generator: Optional[torch.Generator]):
+        net, optimizer = state.model, state.optimizer
+        dev = next(net.parameters()).device
+        f32 = torch.float32
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(
+            net, _as(xs, dev, f32), _as(ys, dev, torch.long),
+            _as(mask_s, dev, f32), _as(xt, dev, f32),
+            _as(yt, dev, torch.long), _as(mask_t, dev, f32), scalars,
+            generator)
+        loss.backward()
+        optimizer_step(optimizer, scalars.lr, train_cfg.clip_gradient)
+        return (TrainState(net, optimizer, state.step + 1),
+                {k: v.detach() for k, v in metrics.items()})
+
+    return step

@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the hand-written TRN kernel against its plain
-version, and the flagship model's CUDA forward against its CPU forward.
+"""PyTorch port on the card: the hand-written TRN kernels (inference
+forward, training forward, backward) against their plain versions, and the
+flagship model's CUDA forward, backward and train step against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs where jax is not installed:
@@ -13,11 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from ta3n_tpu_torch.config import ModelConfig
+from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.models import VideoModel
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
-from ta3n_tpu_torch.ops import trn_fused
+from ta3n_tpu_torch.ops import _build, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
+from ta3n_tpu_torch.train import (StepScalars, create_train_state,
+                                  make_train_step)
+
+CASES = [(1, 5, 512, 256), (64, 5, 512, 256), (202, 5, 512, 256),
+         (13, 4, 24, 8), (5, 3, 37, 19), (3, 2, 40, 33)]
 
 pytestmark = pytest.mark.cuda
 
@@ -44,9 +50,37 @@ def _trn_inputs(b, s, d, h, seed=0):
     return x.cuda(), [w.cuda() for w in weights], [b.cuda() for b in biases]
 
 
-@pytest.mark.parametrize("b,s,d,h", [(1, 5, 512, 256), (64, 5, 512, 256),
-                                     (202, 5, 512, 256), (13, 4, 24, 8),
-                                     (5, 3, 37, 19), (3, 2, 40, 33)])
+def _grid_inputs(b, s, d, h, seed=0):
+    """x, weights, biases and an upstream gradient on dyadic grids small
+    enough that every product and partial sum of the forward and backward
+    is exact in float32 at these widths (|sums| < 2**24 grid steps): any
+    summation order then gives the same bits, and the masks agree even
+    where z is 0."""
+    rng = np.random.default_rng(seed)
+
+    def grid(lo, hi, shape, step):
+        return torch.from_numpy(
+            (rng.integers(lo, hi + 1, shape) * step).astype(np.float32))
+
+    x = grid(-8, 16, (b, s, d), 2.0 ** -4)
+    weights = [grid(-16, 16, (h, k * d), 2.0 ** -8)
+               for k in build_relation_plan(s).scales]
+    biases = [grid(-64, 64, (h,), 2.0 ** -12) for _ in weights]
+    g = grid(-128, 128, (b, s - 1, h), 2.0 ** -8)
+    return (x.cuda(), [w.cuda() for w in weights],
+            [bi.cuda() for bi in biases], g.cuda())
+
+
+def _tol(want):
+    return 1e-4 * max(1.0, want.abs().max().item())
+
+
+def _reset_counts():
+    trn_fused.launches = trn_fused.train_launches = 0
+    trn_fused.bwd_launches = 0
+
+
+@pytest.mark.parametrize("b,s,d,h", CASES)
 def test_kernel_matches_plain(b, s, d, h):
     """Within 1e-4 * max(1, max|plain|): f32 sums in another order.  One
     launch per call, and bitwise equal on a second call (no atomics)."""
@@ -64,12 +98,126 @@ def test_kernel_matches_plain(b, s, d, h):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("b,s,d,h", CASES)
+def test_train_kernel_matches_plain(b, s, d, h):
+    """The training forward: output within 1e-4 * max(1, max|plain|),
+    masks exactly those of the plain version on inputs where f32 sums are
+    exact, bitwise equal on a second call, one launch per call."""
+    x, w, bi = _trn_inputs(b, s, d, h)
+    _reset_counts()
+    with torch.no_grad():
+        got, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+        again, masks_again = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+        want, _ = trn_fused.trn_multiscale_fwd_masks_plain(x, w, bi, s)
+        gx, gw, gb, _ = _grid_inputs(b, s, d, h, seed=1)
+        grid_out, grid_masks = trn_fused.trn_multiscale_fwd_masks(
+            gx, gw, gb, s)
+        grid_want, grid_want_masks = \
+            trn_fused.trn_multiscale_fwd_masks_plain(gx, gw, gb, s)
+    torch.cuda.synchronize()
+    assert trn_fused.train_launches == 3 and trn_fused.launches == 0
+    assert got.shape == (b, s - 1, h) and masks.dtype == torch.uint8
+    assert (got - want).abs().max().item() <= _tol(want)
+    assert torch.equal(got, again) and torch.equal(masks, masks_again)
+    assert torch.equal(grid_masks, grid_want_masks)
+    assert torch.equal(grid_out, grid_want)
+
+
+@pytest.mark.parametrize("b,s,d,h", CASES)
+def test_bwd_kernel_matches_plain(b, s, d, h):
+    """The backward from the kernel's masks: dx, every dW and db within
+    1e-4 * max(1, max|plain|), bitwise equal on a second call (no
+    atomics), exactly the plain values on exact-sum inputs; one launch per
+    call."""
+    x, w, bi = _trn_inputs(b, s, d, h)
+    g = torch.randn((b, s - 1, h), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    _reset_counts()
+    with torch.no_grad():
+        _, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+        got = trn_fused.trn_multiscale_bwd(x, w, masks, g, s, 3)
+        again = trn_fused.trn_multiscale_bwd(x, w, masks, g, s, 3)
+        want = trn_fused.trn_multiscale_bwd_plain(x, w, masks, g, s)
+        gx, gw, gb, gg = _grid_inputs(b, s, d, h, seed=2)
+        _, gmasks = trn_fused.trn_multiscale_fwd_masks_plain(gx, gw, gb, s)
+        grid_got = trn_fused.trn_multiscale_bwd(gx, gw, gmasks, gg, s, 3)
+        grid_want = trn_fused.trn_multiscale_bwd_plain(gx, gw, gmasks, gg,
+                                                       s)
+    torch.cuda.synchronize()
+    assert trn_fused.bwd_launches == 3
+    flat = [(got[0], again[0], want[0], grid_got[0], grid_want[0])]
+    flat += list(zip(got[1] + got[2], again[1] + again[2],
+                     want[1] + want[2], grid_got[1] + grid_got[2],
+                     grid_want[1] + grid_want[2]))
+    assert len(flat) == 1 + 2 * (s - 1)
+    for ours, ours_again, ref, grid_ours, grid_ref in flat:
+        assert ours.shape == ref.shape
+        assert (ours - ref).abs().max().item() <= _tol(ref)
+        assert torch.equal(ours, ours_again)
+        assert torch.equal(grid_ours, grid_ref)
+
+
 def test_empty_batch_launches_nothing():
+    """B = 0: the forwards launch nothing; the backward runs its dW/db
+    pass, which writes zeros."""
     x, w, bi = _trn_inputs(0, 5, 32, 16)
-    trn_fused.launches = 0
+    _reset_counts()
     with torch.inference_mode():
         out = trn_fused.trn_multiscale_infer(x, w, bi, 5)
     assert out.shape == (0, 4, 16) and trn_fused.launches == 0
+    with torch.no_grad():
+        out, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, 5)
+        assert out.shape == (0, 4, 16) and masks.shape == (0, 160)
+        dx, dws, dbs = trn_fused.trn_multiscale_bwd(
+            x, w, masks, torch.zeros((0, 4, 16), device="cuda"), 5, 3)
+    torch.cuda.synchronize()
+    assert trn_fused.train_launches == 0 and trn_fused.bwd_launches == 1
+    assert dx.shape == x.shape
+    assert all(not t.any() for t in (*dws, *dbs))
+
+
+def test_fused_op_autograd_on_cuda():
+    """trn_multiscale_fused on CUDA tensors: one training-forward and one
+    backward launch, the gradients of autograd through the plain version,
+    and a non-contiguous upstream gradient taken as it comes."""
+    b, s, d, h = 37, 5, 64, 32
+    x, w, bi = _trn_inputs(b, s, d, h, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in (x, *w, *bi)]
+    refs = [t.clone().requires_grad_(True) for t in (x, *w, *bi)]
+    n = len(w)
+    _reset_counts()
+    out = trn_fused.trn_multiscale_fused(leaves[0], leaves[1:1 + n],
+                                         leaves[1 + n:], s)
+    # a transposed upstream gradient: not contiguous
+    r = torch.randn((h, s - 1, b), device="cuda").permute(2, 1, 0)
+    out.backward(r)
+    ref = trn_fused.trn_multiscale_plain(refs[0], refs[1:1 + n],
+                                         refs[1 + n:], s)
+    ref.backward(r)
+    torch.cuda.synchronize()
+    assert (trn_fused.train_launches, trn_fused.bwd_launches) == (1, 1)
+    assert (out - ref).abs().max().item() <= _tol(ref)
+    for a, b_ in zip(leaves, refs):
+        assert (a.grad - b_.grad).abs().max().item() <= _tol(b_.grad)
+
+
+def test_failed_launch_raises(monkeypatch):
+    """A CUDA tensor whose kernel cannot launch raises, and is not counted;
+    it never takes the plain version."""
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1  # cudaErrorInvalidValue
+
+    x, w, bi = _trn_inputs(4, 5, 32, 16)
+    monkeypatch.setattr(_build, "load_library", lambda: Refusing())
+    _reset_counts()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        trn_fused.trn_multiscale_fused(x, w, bi, 5)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="launch failed"):
+        trn_fused.trn_multiscale_bwd(
+            x, w, torch.zeros((4, 160), dtype=torch.uint8, device="cuda"),
+            torch.zeros((4, 4, 16), device="cuda"), 5, 3)
+    assert (trn_fused.train_launches, trn_fused.bwd_launches) == (0, 0)
 
 
 def test_kernel_refuses_what_it_cannot_take():
@@ -84,8 +232,9 @@ def test_kernel_refuses_what_it_cannot_take():
 
 
 def test_model_on_cuda_matches_cpu():
-    """Eval forward of the flagship branches at small widths: CUDA (the
-    kernel) against CPU (the plain version), within 1e-4 relative."""
+    """Eval forward, and training forward and backward, of the flagship
+    branches at small widths: CUDA (the kernels) against CPU (the plain
+    versions), within 1e-4 relative."""
     cfg = ModelConfig(num_class=6, baseline_type="video",
                       frame_aggregation="trn-m", train_segments=5,
                       val_segments=5, feature_dim=96, fc_dim=64,
@@ -107,5 +256,66 @@ def test_model_on_cuda_matches_cpu():
     for a, b in [(got.out, ref.out), (got.attn, ref.attn),
                  *zip(got.pred_domain, ref.pred_domain)]:
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(x[:0].cuda(), x.cuda(), beta.cuda(), 0.0, True)
+
+    beta = (0.75, 0.75, 0.5)
+    grads = []
+    for device in ("cpu", "cuda"):
+        model.to(device).zero_grad(set_to_none=True)
+        _reset_counts()
+        src, tgt = model(x[:4].to(device), x[4:].to(device), beta, 0.0, True)
+        (src.out.sum() + tgt.pred_domain[0].sum()
+         + tgt.pred_domain[1].sum()).backward()
+        torch.cuda.synchronize()
+        launched = (trn_fused.train_launches, trn_fused.bwd_launches)
+        assert launched == ((1, 1) if device == "cuda" else (0, 0))
+        # a copy: moving the model moves the data of its CPU grads too
+        grads.append({n: p.grad.to("cpu", copy=True)
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+    assert sorted(grads[0]) == sorted(grads[1])
+    for name, ref in grads[0].items():
+        torch.testing.assert_close(grads[1][name], ref, rtol=1e-4,
+                                   atol=1e-5, msg=lambda m: f"{name}: {m}")
+
+
+def test_train_step_on_cuda_matches_cpu():
+    """Three flagship train steps at small widths, dropout 0: on CUDA
+    (one training-forward and one backward launch per step) against the
+    same steps on the CPU."""
+    cfg = ModelConfig(num_class=6, baseline_type="video",
+                      frame_aggregation="trn-m", train_segments=5,
+                      val_segments=5, feature_dim=96, fc_dim=64,
+                      use_attn="TransAttn", dropout_i=0.0, dropout_v=0.0)
+    da = DAConfig(use_target="uSv", adv_DA="RevGrad",
+                  add_loss_DA="attentive_entropy")
+    tc = TrainConfig(lr=0.03)
+    rng = np.random.default_rng(0)
+    batches = [(rng.random((8, 5, 96), np.float32),
+                rng.integers(0, 6, 8), np.ones(8, np.float32),
+                rng.random((7, 5, 96), np.float32),
+                rng.integers(0, 6, 7), np.ones(7, np.float32))
+               for _ in range(3)]
+    results = []
+    for device in ("cpu", "cuda"):
+        gen = torch.Generator().manual_seed(0)
+        state = create_train_state(cfg, tc, gen, device="cpu")
+        for mod in state.model.modules():
+            if isinstance(mod, torch.nn.Linear):
+                torch_default_uniform_(mod, gen)
+        state.model.to(device)  # the optimizer keeps the same Parameters
+        step = make_train_step(state.model, da, tc)
+        _reset_counts()
+        losses = []
+        for batch in batches:
+            state, metrics = step(state, *batch,
+                                  StepScalars((0.75, 0.75, 0.5), 0.0, 0.0,
+                                              0.003, 0.03), None)
+            losses.append(float(metrics["loss"]))
+        launched = (trn_fused.train_launches, trn_fused.bwd_launches)
+        assert launched == ((3, 3) if device == "cuda" else (0, 0))
+        results.append((losses, {k: v.to("cpu", copy=True) for k, v in
+                                 state.model.state_dict().items()}))
+    np.testing.assert_allclose(results[1][0], results[0][0], rtol=2e-4)
+    for name, ref in results[0][1].items():
+        torch.testing.assert_close(results[1][1][name], ref, rtol=1e-3,
+                                   atol=2e-5, msg=lambda m: f"{name}: {m}")

@@ -1,6 +1,9 @@
-"""PyTorch port, imports: the port and its smoke test stand without jax,
-and the smoke test refuses to run anywhere but on a CUDA card."""
+"""PyTorch port, imports: the port and its smoke test stand without jax
+and without the JAX package, the port's own copies of the JAX package's
+configuration do not drift from it, and the smoke test refuses to run
+anywhere but on a CUDA card."""
 
+import dataclasses
 import os
 import pathlib
 import re
@@ -8,18 +11,23 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "ta3n_tpu_torch"
 JAX_STACK = ("jax", "flax", "optax", "orbax")
+# and the JAX package itself (the top-level name exactly: ta3n_tpu_torch
+# stays importable)
+BLOCKED = (*JAX_STACK, "ta3n_tpu")
 
 _BLOCKED_IMPORT = f"""
 import importlib, pkgutil, sys
-for m in {JAX_STACK!r}:
+for m in {BLOCKED!r}:
     sys.modules[m] = None  # any import of them raises ImportError
 import ta3n_tpu_torch, ta3n_tpu_torch.serve, ta3n_tpu_torch.cli.serve
 for info in pkgutil.walk_packages(ta3n_tpu_torch.__path__, "ta3n_tpu_torch."):
     importlib.import_module(info.name)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in {JAX_STACK!r}
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                 and sys.modules[m] is not None)
 print("loaded:", loaded)
 """
@@ -41,11 +49,68 @@ def test_port_imports_with_jax_blocked():
 
 def test_no_jax_import_in_port_sources():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b", re.MULTILINE)
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|ta3n_tpu\b(?!_torch))\b",
+        re.MULTILINE)
     files = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
+
+
+def test_source_pattern_tells_the_packages_apart():
+    pattern = re.compile(r"^\s*(import|from)\s+ta3n_tpu\b(?!_torch)")
+    assert pattern.match("from ta3n_tpu.config import ModelConfig")
+    assert pattern.match("import ta3n_tpu")
+    assert not pattern.match("from ta3n_tpu_torch.config import ModelConfig")
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "DAConfig", "TrainConfig"])
+def test_config_copies_match_jax_package(name):
+    """The port's copies have the JAX package's fields, in order, with the
+    same types and defaults, the same derived properties, and the same
+    backbone table."""
+    import ta3n_tpu.config as jax_config
+    import ta3n_tpu_torch.config as port_config
+
+    ours, ref = getattr(port_config, name), getattr(jax_config, name)
+
+    def fields(cls):
+        return [(f.name, f.type, f.default, f.default_factory)
+                for f in dataclasses.fields(cls)]
+
+    assert fields(ours) == fields(ref)
+    assert ours.__dataclass_params__.frozen == ref.__dataclass_params__.frozen
+    props = sorted(k for k, v in vars(ref).items() if isinstance(v, property))
+    assert props == sorted(k for k, v in vars(ours).items()
+                           if isinstance(v, property))
+    if name == "ModelConfig":
+        assert port_config.BACKBONE_FEATURE_DIM == \
+            jax_config.BACKBONE_FEATURE_DIM
+        for kw in (dict(num_class=3), dict(num_class=3, fc_dim=4096),
+                   dict(num_class=3, frame_aggregation="trn-m",
+                        base_model="resnet18"),
+                   dict(num_class=3, frame_aggregation="none",
+                        modality="RGBDiff")):
+            a, b = ours(**kw), ref(**kw)
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+            for prop in props:
+                assert getattr(a, prop) == getattr(b, prop), prop
+        for bad in (dict(quantize="fp8"), dict(add_fc=0),
+                    dict(baseline_type="x"), dict(use_attn="DotProduct")):
+            with pytest.raises(ValueError):
+                ref(num_class=3, **bad)
+            with pytest.raises(ValueError):
+                ours(num_class=3, **bad)
+
+
+def test_manifest_copy_matches_jax_package(tmp_path):
+    from ta3n_tpu.data.manifest import load_class_names as jax_load
+    from ta3n_tpu_torch.data.manifest import load_class_names
+
+    path = tmp_path / "class.txt"
+    path.write_text("0 brush hair\n1 cartwheel\n\n2 catch\n")
+    assert load_class_names(str(path)) == jax_load(str(path)) == \
+        ["brush hair", "cartwheel", "catch"]
 
 
 def test_port_ships_its_kernel_sources():
