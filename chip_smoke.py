@@ -4,17 +4,24 @@
 
 Builds the port's CUDA kernels from ta3n_tpu_torch/csrc (one nvcc per
 source, in parallel), holds each against its plain PyTorch version at the
-flagship shapes and times both, then drives the port's two main paths at
-the flagship widths (UCF->HMDB_full: trn-m over 5 segments, 2048-d
-features, fc 512, TRN bottleneck 256, TransAttn, 12 classes, random weights
-from a seed):
+flagship shapes and times both, then drives the port's main paths at the
+flagship widths (UCF->HMDB_full: trn-m over 5 segments, 2048-d features,
+fc 512, TRN bottleneck 256, TransAttn, 12 classes, random weights from a
+seed):
   * serving: the model served over HTTP, the answers checked against a
     plain-path forward of the same weights on the same card;
   * training: the published train step (uSv, RevGrad at three levels,
     attentive entropy, Nesterov SGD with DANN lr) at 128 source + 74
     target videos, 5 steps through the kernels checked against 5 steps of
     a copy whose TRN is the plain version, then timed at the published
-    dropout 0.5.
+    dropout 0.5;
+  * device-store training: synthetic feature stores of the published
+    split sizes uploaded once, index batches from the loader, 5 steps
+    whose gather + shared FC runs as the K3 kernel checked against 5
+    steps of the host-feature step on the same batches, then both timed
+    at dropout 0.5;
+  * device-store eval: one val epoch (6 batches of 64) through
+    make_multi_eval_step against the host-feature eval step.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -41,12 +48,14 @@ import torch
 from torch import nn
 
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
+from ta3n_tpu_torch.data import TSNLoader, make_domain_pair
 from ta3n_tpu_torch.models import VideoModel
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
-from ta3n_tpu_torch.ops import _build, trn_fused
+from ta3n_tpu_torch.ops import _build, gather_gemm, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
 from ta3n_tpu_torch.serve import Predictor, make_http_server
-from ta3n_tpu_torch.train import StepScalars, TrainState, make_train_step
+from ta3n_tpu_torch.train import (StepScalars, TrainState, make_eval_step,
+                                  make_multi_eval_step, make_train_step)
 from ta3n_tpu_torch.train.optim import make_optimizer
 from ta3n_tpu_torch.train.schedules import dann_lr, effective_beta, progress
 
@@ -70,6 +79,11 @@ TRAIN_STEPS = 5                # parity steps, kernel TRN against plain TRN
 TIMED_STEPS = 20
 STEP_RTOL = 2e-4               # per-step losses (tests/test_train_parity_*)
 PARAM_TOL = dict(rtol=1e-3, atol=2e-5)
+# the published UCF->HMDB_full split sizes: source train, target train, val
+SPLITS = dict(num_source=1438, num_target=840, num_val=360)
+K3_CASES = (640, 370, 320, 37, 1, 0)   # rows: train source/target, eval
+K3_TIMED = ((640, True), (320, False))  # (rows, with x_res): train, eval
+EVAL_RTOL = 1e-5               # the val epoch's summed loss
 # NVIDIA H100 SXM data sheet (700 W): f32 CUDA-core peak and HBM rate
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -443,8 +457,9 @@ def serve_flagship(gen, workdir):
         server.server_close()
         thread.join(timeout=30)
     log(f"  TRN kernel launches while serving: {launches}")
-    if launches["trn_fused_fwd_train"] or launches["trn_fused_bwd"]:
-        raise AssertionError("serving launched a training kernel")
+    if launches["trn_fused_fwd_train"] or launches["trn_fused_bwd"] or \
+            launches["gather_gemm"]:
+        raise AssertionError("serving launched a kernel of another path")
     launches = launches["trn_fused_fwd"]
     if health != {"status": "ok", "num_class": 12, "segments": 5}:
         raise AssertionError(f"bad /healthz answer {health}")
@@ -482,12 +497,14 @@ def serve_flagship(gen, workdir):
 def reset_counts():
     trn_fused.launches = trn_fused.train_launches = 0
     trn_fused.bwd_launches = 0
+    gather_gemm.launches = 0
 
 
 def counts():
     return {"trn_fused_fwd": trn_fused.launches,
             "trn_fused_fwd_train": trn_fused.train_launches,
-            "trn_fused_bwd": trn_fused.bwd_launches}
+            "trn_fused_bwd": trn_fused.bwd_launches,
+            "gather_gemm": gather_gemm.launches}
 
 
 def flagship_model(gen, dropout=0.0):
@@ -587,10 +604,33 @@ def train_flagship(gen):
     log(f"  kernel launches in the kernel copy's {TRAIN_STEPS} steps: "
         f"{launches}")
     want_launches = {"trn_fused_fwd": 0, "trn_fused_fwd_train": TRAIN_STEPS,
-                     "trn_fused_bwd": TRAIN_STEPS}
+                     "trn_fused_bwd": TRAIN_STEPS, "gather_gemm": 0}
     if launches != want_launches:
         raise AssertionError(f"expected {want_launches} launches")
     return launches
+
+
+def device_profile(run, n, step_ms, label):
+    """Profile ``run(n)`` (n steps back to back): device time by kernel
+    per step, and the device's idle share against ``step_ms``, the
+    unprofiled time of a step run back to back."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(n)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    idle = 1 - busy_ms / step_ms
+    log(f"  profile of {n} {label}: device busy {busy_ms:.4f} ms per step, "
+        f"{sum(e.count for e in kernels) // n} kernels per step; against "
+        f"{step_ms:.3f} ms per step back to back, the device is idle "
+        f"{100 * idle:.1f}% of the time")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/step "
+            f"{e.count // n:4d}x  {e.key[:90]}")
+    return busy_ms, idle
 
 
 def time_train_step(gen, warmup=3):
@@ -649,24 +689,288 @@ def time_train_step(gen, warmup=3):
 
     # where the kernel step's time goes: device time by kernel over a few
     # steps, against the unprofiled time of a step run back to back
-    from torch.profiler import ProfilerActivity, profile
-    n = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run("kernel", n, False)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    step_ms = videos / result["kernel"][1] * 1e3
-    log(f"  profile of {n} kernel-TRN steps: device busy {busy_ms:.4f} ms "
-        f"per step, {sum(e.count for e in kernels) // n} kernels per step; "
-        f"against {step_ms:.3f} ms per step back to back, the device is "
-        f"idle {100 * (1 - busy_ms / step_ms):.1f}% of the time")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/step "
-            f"{e.count // n:4d}x  {e.key[:90]}")
+    device_profile(lambda n: run("kernel", n, False), 5,
+                   videos / result["kernel"][1] * 1e3, "kernel-TRN steps")
     return result
+
+
+def gather_case(n, num_rows, rng):
+    """n indices into a store of num_rows rows with duplicates, the last
+    row and two masked rows (the loader points them at row 0, scale 0),
+    checked and uploaded; and their scales on the card."""
+    idx = rng.integers(0, num_rows, n)
+    scale = np.ones(n, np.float32)
+    if n >= 6:
+        idx[:3] = [idx[2], idx[2], num_rows - 1]
+        idx[3:5], scale[3:5] = 0, 0.0
+    return (gather_gemm.row_index(idx, num_rows, "cuda"),
+            torch.from_numpy(scale).cuda())
+
+
+def check_gather_kernel(store):
+    """K3 against gathered_gemm_plain on the source store at every row
+    count of K3_CASES: z within the tolerance, x_res (the scaled gathered
+    rows) bitwise equal, a second call bitwise equal; then on a store and
+    a weight on dyadic grids, where every f32 sum is exact, z bit for bit.
+    Returns the largest error on the float inputs."""
+    rng = np.random.default_rng(2)
+    h, d = FLAGSHIP.fc_dim, store.shape[1]
+    w = (torch.from_numpy(rng.uniform(-1, 1, (h, d)).astype(np.float32))
+         / math.sqrt(d)).cuda()
+    grid_store = torch.from_numpy(
+        (rng.integers(-8, 17, (4096, d)) * 2.0 ** -4).astype(np.float32)
+    ).cuda()
+    grid_w = torch.from_numpy(
+        (rng.integers(-16, 17, (h, d)) * 2.0 ** -8).astype(np.float32)
+    ).cuda()
+    worst = 0.0
+    for n in K3_CASES:
+        rows, scale = gather_case(n, store.shape[0], rng)
+        z, x_res = gather_gemm.gathered_gemm(store, rows, w, scale)
+        again, _ = gather_gemm.gathered_gemm(store, rows, w, scale)
+        want, want_x = gather_gemm.gathered_gemm_plain(store, rows.rows, w,
+                                                       scale)
+        grows, gscale = gather_case(n, grid_store.shape[0], rng)
+        grid_z, _ = gather_gemm.gathered_gemm(grid_store, grows, grid_w,
+                                              gscale)
+        grid_want, _ = gather_gemm.gathered_gemm_plain(
+            grid_store, grows.rows, grid_w, gscale)
+        torch.cuda.synchronize()
+        if z.shape != (n, h) or not torch.isfinite(z).all():
+            raise AssertionError(f"K3 output bad at N={n}")
+        err = (z - want).abs().max().item() if n else 0.0
+        tol = RTOL * max(1.0, want.abs().max().item() if n else 0.0)
+        exact = [torch.equal(x_res, want_x), torch.equal(z, again),
+                 torch.equal(grid_z, grid_want)]
+        log(f"  K3 N={n} D={d} H={h}: max|kernel-plain| = {err:.3e} "
+            f"(tolerance {tol:.3e}); x_res equal to plain, second call "
+            f"equal, exact inputs equal to plain: {exact}")
+        if not err <= tol or not all(exact):
+            raise AssertionError(f"K3 disagrees with plain at N={n}")
+        worst = max(worst, err)
+    return worst
+
+
+def gather_work(rows, d, h, with_rows):
+    """FLOPs and the least bytes of K3 for these index rows: each distinct
+    store row read once, idx and scale read, W read once, z written and,
+    with x_res, the gathered rows written."""
+    n = rows.rows.shape[0]
+    distinct = torch.unique(rows.rows).numel()
+    nbytes = 4 * (distinct * d + 2 * n + h * d + n * h
+                  + (n * d if with_rows else 0))
+    return 2 * n * d * h, nbytes
+
+
+def time_gather(store):
+    """Device times of K3, its plain version and the index_select + mm
+    pair at the train (with x_res) and eval (without) row counts, 41 runs
+    each in turns; the work and bound of each case."""
+    rng = np.random.default_rng(3)
+    h, d = FLAGSHIP.fc_dim, store.shape[1]
+    w = (torch.rand((h, d), generator=torch.Generator().manual_seed(3))
+         * 2 - 1).cuda() / math.sqrt(d)
+    results = {}
+    with torch.no_grad():
+        for n, with_rows in K3_TIMED:
+            rows, scale = gather_case(n, store.shape[0], rng)
+            t = time_pair({
+                "kernel": lambda: gather_gemm.gathered_gemm(
+                    store, rows, w, scale, with_rows),
+                "plain": lambda: gather_gemm.gathered_gemm_plain(
+                    store, rows.rows, w, scale),
+                "library": lambda: torch.mm(
+                    store.index_select(0, rows.rows), w.t())})
+            work = gather_work(rows, d, h, with_rows)
+            results[n] = (t, work)
+            log(f"  K3 N={n} {'with' if with_rows else 'without'} x_res: "
+                f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+                f"index_select + mm {t['library']:.4f} ms device; bound "
+                f"{bound(*work)[0]:.4f} ms by {bound(*work)[1]} (medians "
+                f"of 41, in turns)")
+    return results
+
+
+def store_loaders(stores, seed=1):
+    """Source and target loaders as the Trainer makes them ('test'
+    sampling, shuffled): 128 + 74 videos a step."""
+    bs, bt = TRAIN.batch_size[:2]
+    s = FLAGSHIP.train_segments
+    return (TSNLoader(stores[0], batch_size=bs, num_segments=s, seed=seed),
+            TSNLoader(stores[1], batch_size=bt, num_segments=s,
+                      seed=seed + 1))
+
+
+def endless(epochs):
+    """The batches of epoch after epoch: ``epochs`` is a loader's bound
+    epoch() or index_epoch()."""
+    while True:
+        yield from epochs()
+
+
+def train_device_store(gen, stores, dev):
+    """TRAIN_STEPS device-store steps (index batches, K3 twice per step)
+    against as many host-feature steps from the same weights on the same
+    batches, where the host gathers the features; dropout 0, DANN lr and
+    beta.  Returns the kernel launches of the device-store steps."""
+    model = flagship_model(gen)
+    host_model = copy.deepcopy(model)
+    idx_s, idx_t = store_loaders(stores)
+    feat_s, feat_t = store_loaders(stores)
+    steps = [scalars(i, TRAIN_STEPS, (-1.0, -1.0, -1.0))
+             for i in range(TRAIN_STEPS)]
+    state = TrainState(model, make_optimizer(model.parameters(), TRAIN), 0)
+    step = make_train_step(model, DA, TRAIN, gather_on_device=True)
+    host_state = TrainState(host_model,
+                            make_optimizer(host_model.parameters(), TRAIN), 0)
+    host_step = make_train_step(host_model, DA, TRAIN)
+    batches = zip(endless(idx_s.index_epoch), endless(idx_t.index_epoch),
+                  endless(feat_s.epoch), endless(feat_t.epoch))
+    launches = dict.fromkeys(counts(), 0)
+    worst_rel = 0.0
+    for i, (sc, (bs, bt, hs, ht)) in enumerate(zip(steps, batches)):
+        # each device-store step is counted alone; the host-feature
+        # reference step after it is not counted
+        reset_counts()
+        state, got = step(state, dev[0], *bs, dev[1], *bt, sc, None)
+        torch.cuda.synchronize()
+        launched = counts()
+        if launched != {"trn_fused_fwd": 0, "trn_fused_fwd_train": 1,
+                        "trn_fused_bwd": 1, "gather_gemm": 2}:
+            raise AssertionError(f"step {i} launched {launched}")
+        launches = {k: launches[k] + launched[k] for k in launches}
+        host_state, want = host_step(host_state, *hs, *ht, sc, None)
+        got = {k: float(v) for k, v in got.items()}
+        want = {k: float(v) for k, v in want.items()}
+        log(f"  step {i}: " + ", ".join(
+            f"{k} {got[k]:.6f}/{want[k]:.6f}" for k in
+            ("loss_c", "loss_a", "loss_e", "loss"))
+            + " (device store/host features); launched " + str(launched))
+        for key in want:
+            if not math.isfinite(got[key]) or not math.isclose(
+                    got[key], want[key], rel_tol=STEP_RTOL):
+                raise AssertionError(f"step {i}: {key} {got[key]} differs "
+                                     f"from the host-feature step's "
+                                     f"{want[key]}")
+            worst_rel = max(worst_rel, abs(got[key] - want[key])
+                            / max(abs(want[key]), 1e-30))
+    ours, ref = model.state_dict(), host_model.state_dict()
+    worst = 0.0
+    for name, want in ref.items():
+        excess = ((ours[name] - want).abs()
+                  - PARAM_TOL["rtol"] * want.abs()).max().item()
+        if not excess <= PARAM_TOL["atol"]:
+            raise AssertionError(f"{name} after {TRAIN_STEPS} steps differs "
+                                 "from the host-feature step's")
+        worst = max(worst, (ours[name] - want).abs().max().item())
+    log(f"  over {TRAIN_STEPS} steps: metrics within {worst_rel:.3e} "
+        f"relative (tolerance {STEP_RTOL}), parameters within {worst:.3e} "
+        f"(tolerance rtol {PARAM_TOL['rtol']}, atol {PARAM_TOL['atol']}); "
+        f"device-store launches {launches}")
+    return launches
+
+
+def time_store_steps(gen, stores, dev, warmup=3):
+    """The published step (dropout 0.5) fed from the stores on the card
+    (index batches) and from host-gathered features, each from its own
+    loaders, TIMED_STEPS steps back to back in turns (host, device,
+    device, host): videos/s over the real (unmasked) videos, and the
+    device's idle share of each under the profiler."""
+    model = flagship_model(gen, dropout=0.5)
+    host_model = copy.deepcopy(model)
+    idx_s, idx_t = store_loaders(stores, seed=5)
+    feat_s, feat_t = store_loaders(stores, seed=5)
+    runs = {
+        "device store": [
+            TrainState(model, make_optimizer(model.parameters(), TRAIN), 0),
+            make_train_step(model, DA, TRAIN, gather_on_device=True),
+            zip(endless(idx_s.index_epoch), endless(idx_t.index_epoch)),
+            lambda bs, bt: (dev[0], *bs, dev[1], *bt)],
+        "host features": [
+            TrainState(host_model, make_optimizer(host_model.parameters(),
+                                                  TRAIN), 0),
+            make_train_step(host_model, DA, TRAIN),
+            zip(endless(feat_s.epoch), endless(feat_t.epoch)),
+            lambda bs, bt: (*bs, *bt)]}
+    rngs = {name: torch.Generator("cuda").manual_seed(0) for name in runs}
+
+    def run(name, n):
+        state, step, batches, args = runs[name]
+        videos = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            bs, bt = next(batches)
+            videos += float(bs.mask.sum() + bt.mask.sum())
+            state, metrics = step(state, *args(bs, bt),
+                                  scalars(state.step, 100, TRAIN.beta),
+                                  rngs[name])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[name][0] = state
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"{name} step loss is not finite")
+        return videos / seconds, seconds * 1e3 / n
+
+    for name in runs:
+        run(name, warmup)
+    rates = {name: [] for name in runs}
+    for order in (("host features", "device store"),
+                  ("device store", "host features")):
+        for name in order:
+            rates[name].append(run(name, TIMED_STEPS))
+    result = {}
+    for name, r in rates.items():
+        rate = statistics.median(x[0] for x in r)
+        step_ms = statistics.median(x[1] for x in r)
+        log(f"  {name}: {rate:.0f} videos/s, {step_ms:.3f} ms per step "
+            f"({TIMED_STEPS} steps back to back with their loader, median "
+            f"of {len(r)})")
+        busy, idle = device_profile(lambda n: run(name, n), 5, step_ms,
+                                    f"{name} steps")
+        result[name] = (rate, step_ms, busy, idle)
+    return result
+
+
+def eval_device_store(gen, val, dev_val):
+    """One val epoch (batches of 64, the last one padded) through
+    make_multi_eval_step on the store on the card, against the summed
+    host-feature eval steps with the same weights.  Returns the kernel
+    launches of the multi-batch eval."""
+    model = flagship_model(gen)
+    loader = TSNLoader(val, batch_size=TRAIN.batch_size[2],
+                       num_segments=FLAGSHIP.val_segments, shuffle=False)
+    ev = make_eval_step(model)
+    want = {"loss_sum": 0.0, "top1": 0.0, "top5": 0.0, "n": 0.0}
+    for batch in loader.epoch():
+        m = ev(*batch)
+        for key, value in (("loss_sum", m["loss"] * m["n"]),
+                           ("top1", m["top1"]), ("top5", m["top5"]),
+                           ("n", m["n"])):
+            want[key] += float(value)
+    stacked = [np.stack(a) for a in zip(*loader.index_epoch())]
+    reset_counts()
+    t0 = time.perf_counter()
+    got = {k: float(v) for k, v in
+           make_multi_eval_step(model)(dev_val, *stacked).items()}
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    nb = len(loader)
+    log(f"  {nb} batches of {TRAIN.batch_size[2]} ({int(got['n'])} videos)"
+        f" in {seconds * 1e3:.2f} ms (one fetch): loss_sum "
+        f"{got['loss_sum']:.6f}/{want['loss_sum']:.6f}, top1 "
+        f"{got['top1']:.0f}/{want['top1']:.0f}, top5 {got['top5']:.0f}/"
+        f"{want['top5']:.0f}, n {got['n']:.0f}/{want['n']:.0f} (device "
+        f"store/host features); launches {launches}")
+    if any(got[k] != want[k] for k in ("top1", "top5", "n")) or \
+            got["n"] != len(val.paths) or not math.isclose(
+                got["loss_sum"], want["loss_sum"], rel_tol=EVAL_RTOL):
+        raise AssertionError("the device-store val epoch differs from the "
+                             "host-feature eval")
+    if launches != {"trn_fused_fwd": nb, "trn_fused_fwd_train": 0,
+                    "trn_fused_bwd": 0, "gather_gemm": nb}:
+        raise AssertionError(f"expected {nb} K1 (infer) and K3 launches")
+    return launches
 
 
 def main() -> int:
@@ -692,32 +996,65 @@ def main() -> int:
     max_err["trn_fused_fwd_train"] = worst["fwd"]
     max_err["trn_fused_bwd"] = worst["bwd"]
 
+    log("feature stores of the published split sizes, uploaded once")
+    t0 = time.perf_counter()
+    stores = make_domain_pair(**SPLITS, num_class=FLAGSHIP.num_class,
+                              feature_dim=FLAGSHIP.input_feature_dim)
+    dev = [store.to_device() for store in stores]
+    torch.cuda.synchronize()
+    log("  " + ", ".join(
+        f"{name} {store.num_videos} videos, {t.shape[0]} rows, "
+        f"{t.numel() * 4 / 1e9:.3f} GB" for name, store, t in
+        zip(("source", "target", "val"), stores, dev))
+        + f" (made and uploaded in {time.perf_counter() - t0:.1f} s)")
+    log("K3 vs plain")
+    max_err["gather_gemm"] = check_gather_kernel(dev[0])
+
     log("kernel times")
     times = time_trn(gen)
     fwd_t, bwd_t = time_train_kernels(gen)
+    gather_t = time_gather(dev[0])
     t64 = times[SERVE_BATCH]
+    k3_t, k3_work = gather_t[K3_TIMED[0][0]]
     ms = {"trn_fused_fwd": (t64[("kernel", "device")],
-                            t64[("plain", "device")]),
-          "trn_fused_fwd_train": (fwd_t["kernel"], fwd_t["plain"]),
-          "trn_fused_bwd": (bwd_t["kernel"], bwd_t["plain"])}
+                            t64[("plain", "device")], None),
+          "trn_fused_fwd_train": (fwd_t["kernel"], fwd_t["plain"], None),
+          "trn_fused_bwd": (bwd_t["kernel"], bwd_t["plain"], None),
+          "gather_gemm": (k3_t["kernel"], k3_t["plain"], k3_t["library"])}
+
+    # each path's launches, counted from 0 over its own run, summed per
+    # kernel over the paths that launch it
+    launches = dict.fromkeys(counts(), 0)
+
+    def add(path_launches):
+        for name, n in path_launches.items():
+            launches[name] += n
 
     log("flagship serving over HTTP")
     with tempfile.TemporaryDirectory() as workdir:
-        launches = {"trn_fused_fwd": serve_flagship(gen, workdir)}
+        add({"trn_fused_fwd": serve_flagship(gen, workdir)})
 
     log(f"flagship train step, {TRAIN.batch_size[0]} + "
         f"{TRAIN.batch_size[1]} videos: kernel TRN vs plain TRN")
-    train_launches = train_flagship(gen)
-    launches["trn_fused_fwd_train"] = train_launches["trn_fused_fwd_train"]
-    launches["trn_fused_bwd"] = train_launches["trn_fused_bwd"]
+    add(train_flagship(gen))
     log("flagship train step timing (dropout 0.5)")
     time_train_step(gen)
+
+    log(f"device-store train step, {TRAIN.batch_size[0]} + "
+        f"{TRAIN.batch_size[1]} videos: against the host-feature step")
+    add(train_device_store(gen, stores, dev))
+    log("device-store against host-feature train step timing (dropout 0.5)")
+    time_store_steps(gen, stores, dev)
+
+    log("device-store eval: one val epoch")
+    add(eval_device_store(gen, stores[2], dev[2]))
 
     # the shapes each kernel runs at on its path: serving batch, train batch
     work = {**{k: v for k, v in trn_work(SERVE_BATCH).items()
                if k == "trn_fused_fwd"},
             **{k: v for k, v in trn_work(sum(TRAIN.batch_size[:2])).items()
-               if k != "trn_fused_fwd"}}
+               if k != "trn_fused_fwd"},
+            "gather_gemm": k3_work}
     sources = {
         "trn_fused_fwd": ("ta3n_tpu_torch/csrc/trn_fused_fwd.cu",
                           "ta3n_tpu/ops/trn_fused.py:68"),
@@ -725,9 +1062,14 @@ def main() -> int:
                                 "ta3n_tpu/ops/trn_fused.py:68"),
         "trn_fused_bwd": ("ta3n_tpu_torch/csrc/trn_fused_bwd.cu",
                           "ta3n_tpu/ops/trn_fused.py:187"),
+        "gather_gemm": ("ta3n_tpu_torch/csrc/gather_gemm.cu",
+                        "ta3n_tpu/ops/gather_gemm.py:70"),
     }
+    log(f"launches on the paths: {launches}")
     kernels = []
     for name, (source, replaces) in sources.items():
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on its path")
         bound_ms, bound_by = bound(*work[name])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -735,9 +1077,11 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": ms[name][0],
             "plain_ms": ms[name][1], "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # no single PyTorch call computes a multi-scale TRN over a
-            # subset plan, forward or backward
-            "library_ms": None})
+            # the TRN kernels: no single PyTorch call computes a
+            # multi-scale TRN over a subset plan, forward or backward.
+            # K3: index_select + mm, two calls (no single call gathers
+            # and multiplies)
+            "library_ms": ms[name][2]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,146 @@
+"""Packed frame-feature store: the port's own copy of
+`ta3n_tpu/data/feature_store.py::FeatureStore` (its on-disk format and host
+gather), plus ``to_device``, which uploads the features once for the
+device-store train and eval steps (`train/step.py`).
+
+All frame features of a split live in ONE contiguous array plus an offsets
+vector (reference: one ``.t7`` file per frame, dataset.py:53-66), so a
+batch gather is a single numpy fancy-index.
+
+Layout on disk (directory), as the JAX package writes it:
+    features.npy   [total_frames, D] (float32/float16) — memmap-able
+    offsets.npy    [num_videos + 1] int64, frame row ranges per video
+    meta.json      {"paths": [...], "labels": [...], "feature_dim": D,
+                    "num_streams": 1|2}
+Flow modality stores x/y stream features interleaved per frame:
+    features.npy   [total_frames, 2, D]
+
+Quantized (int8) stores, which add ``scales.npy``, are not ported yet
+(ROADMAP.md queue 1, item 8): they raise.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ta3n_tpu_torch.data.manifest import VideoRecord
+
+__all__ = ["FeatureStore"]
+
+
+class FeatureStore:
+    def __init__(self, features: np.ndarray, offsets: np.ndarray,
+                 paths: Sequence[str], labels: Sequence[int],
+                 scales: np.ndarray = None):
+        if scales is not None:
+            raise NotImplementedError(
+                "int8-quantized feature stores are not ported yet "
+                "(ROADMAP.md queue 1, item 8)")
+        if offsets.shape[0] != len(paths) + 1:
+            raise ValueError(f"{offsets.shape[0]} offsets for "
+                             f"{len(paths)} videos")
+        self.features = features
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.paths = list(paths)
+        self.labels = np.asarray(labels, dtype=np.int64)
+        self._path_index = {p: i for i, p in enumerate(self.paths)}
+
+    # ---- properties ----
+    @property
+    def num_videos(self) -> int:
+        return len(self.paths)
+
+    @property
+    def feature_dim(self) -> int:
+        return self.features.shape[-1]
+
+    @property
+    def num_streams(self) -> int:
+        return self.features.shape[1] if self.features.ndim == 3 else 1
+
+    def num_frames(self, video_idx: np.ndarray) -> np.ndarray:
+        video_idx = np.asarray(video_idx)
+        return self.offsets[video_idx + 1] - self.offsets[video_idx]
+
+    def records(self) -> List[VideoRecord]:
+        nf = self.offsets[1:] - self.offsets[:-1]
+        return [VideoRecord(p, int(n), int(l))
+                for p, n, l in zip(self.paths, nf, self.labels)]
+
+    def index_of(self, path: str) -> int:
+        return self._path_index[path]
+
+    # ---- gather ----
+    def gather(self, video_idx: np.ndarray, frame_idx: np.ndarray,
+               dtype=np.float32) -> np.ndarray:
+        """Gather [B, T(, streams), D] features on the host.
+
+        video_idx: [B]; frame_idx: [B, T] 0-based within-video indices.
+        Flow stores return [B, T*streams, D] with x/y interleaved per frame
+        (parity with dataset.py:62-66 extending [x, y] per step).
+        """
+        abs_idx = (self.offsets[np.asarray(video_idx)][:, None]
+                   + np.asarray(frame_idx))
+        out = np.asarray(self.features[abs_idx], dtype=dtype)
+        if out.ndim == 4:  # [B, T, streams, D] -> [B, T*streams, D]
+            b, t, s, d = out.shape
+            out = out.reshape(b, t * s, d)
+        return out
+
+    def to_device(self, device="cuda") -> torch.Tensor:
+        """The features as one contiguous float32 tensor on ``device``,
+        [total_frames, D] or [total_frames, streams, D], uploaded once.  A
+        float16 store becomes float32, which is exact (the JAX model casts
+        gathered float16 rows to float32 in the same way)."""
+        return torch.tensor(np.asarray(self.features), dtype=torch.float32,
+                            device=device)
+
+    # ---- persistence ----
+    def save(self, directory: str) -> None:
+        os.makedirs(directory, exist_ok=True)
+        np.save(os.path.join(directory, "features.npy"), self.features)
+        np.save(os.path.join(directory, "offsets.npy"), self.offsets)
+        meta = {
+            "paths": self.paths,
+            "labels": self.labels.tolist(),
+            "feature_dim": int(self.feature_dim),
+            "num_streams": int(self.num_streams),
+        }
+        with open(os.path.join(directory, "meta.json"), "w") as f:
+            json.dump(meta, f)
+
+    @classmethod
+    def load(cls, directory: str, mmap: bool = True) -> "FeatureStore":
+        features = np.load(os.path.join(directory, "features.npy"),
+                           mmap_mode="r" if mmap else None)
+        offsets = np.load(os.path.join(directory, "offsets.npy"))
+        scales_path = os.path.join(directory, "scales.npy")
+        scales = (np.load(scales_path) if os.path.exists(scales_path)
+                  else None)
+        with open(os.path.join(directory, "meta.json")) as f:
+            meta = json.load(f)
+        return cls(features, offsets, meta["paths"], meta["labels"],
+                   scales=scales)
+
+    # ---- construction ----
+    @classmethod
+    def from_arrays(cls, per_video_features: Sequence[np.ndarray],
+                    paths: Sequence[str], labels: Sequence[int]
+                    ) -> "FeatureStore":
+        counts = [f.shape[0] for f in per_video_features]
+        offsets = np.zeros(len(counts) + 1, dtype=np.int64)
+        offsets[1:] = np.cumsum(counts)
+        features = np.concatenate(per_video_features, axis=0)
+        return cls(features, offsets, paths, labels)
+
+    def subset(self, indices: Sequence[int]) -> "FeatureStore":
+        feats = [self.features[self.offsets[i]:self.offsets[i + 1]]
+                 for i in indices]
+        return FeatureStore.from_arrays(
+            feats, [self.paths[i] for i in indices],
+            [int(self.labels[i]) for i in indices])

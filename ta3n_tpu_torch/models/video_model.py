@@ -143,14 +143,34 @@ class VideoModel(nn.Module):
         if input_source.shape[1] != num_segments:
             raise ValueError(f"expected {num_segments} segments, got "
                              f"{input_source.shape[1]}")
-        bs = input_source.shape[0]
+        bs, bt = input_source.shape[0], input_target.shape[0]
         x = torch.cat([input_source, input_target], dim=0)
-        b_all = x.shape[0]
-        f = x.reshape(b_all * num_segments, -1)
+        # shared frame-level FC (models.py:565-603)
+        pre = self.fc_feature_shared_source(
+            x.reshape((bs + bt) * num_segments, -1))
+        return self.forward_shared(pre, bs, bt, beta, mu, is_train, reverse,
+                                   generator)
+
+    def forward_shared(self, pre: torch.Tensor, bs: int, bt: int, beta, mu,
+                       is_train: bool = True, reverse: bool = False,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[StreamOutput, StreamOutput]:
+        """The forward from the shared FC's pre-activations on: ``pre``
+        [(bs+bt)*S, fc] holds the frame rows of the bs source videos, then
+        of the bt target videos.  The device-store steps compute ``pre``
+        with the fused gather + FC (`ops/gather_gemm.py`), as the JAX
+        model's ``combined_rows`` entry takes rows gathered on the device;
+        ``forward`` computes it from feature arrays.  The other arguments
+        are those of ``forward``."""
+        cfg = self.cfg
+        num_segments = cfg.train_segments if is_train else cfg.val_segments
+        b_all = bs + bt
+        if pre.shape[0] != b_all * num_segments:
+            raise ValueError(f"expected {b_all * num_segments} frame rows "
+                             f"for {b_all} videos, got {pre.shape[0]}")
         feat_all = []
 
-        # shared frame-level FC (models.py:565-603)
-        f = torch.relu(self.fc_feature_shared_source(f))
+        f = torch.relu(pre)
         f = _dropout(f, cfg.dropout_i, is_train, generator)
         feat_all.append(f.reshape(b_all, num_segments, -1))
 

@@ -31,7 +31,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "library_path", "compile_library", "load_library"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (_CSRC / "trn_fused_fwd.cu", _CSRC / "trn_fused_bwd.cu")
+SOURCES = (_CSRC / "trn_fused_fwd.cu", _CSRC / "trn_fused_bwd.cu",
+           _CSRC / "gather_gemm.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ta3n_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,6 +49,10 @@ _ENTRIES = {
     # d, h, stream
     "ta3n_trn_fused_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _P],
+    # store, idx, scale, w, z, x_res, part, n_idx, streams, d, k_rows, h,
+    # splits, stream
+    "ta3n_gather_gemm_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P],
 }
 
 

@@ -1,0 +1,244 @@
+"""Fused row gather + first-FC GEMM (K3): the device-store steps' gather of
+a batch's frame rows from the store on the card, fed straight into the
+shared frame-level FC.
+
+Port of `ta3n_tpu/ops/gather_gemm.py` (the Pallas ``gathered_gemm``), which
+computes ``z = store[idx] @ W`` and returns the gathered rows ``x_res`` for
+``dW = x_resᵀ dz``; the JAX device-store step computes the same function
+as ``device_gather`` and the mask multiply (`ta3n_tpu/train/step.py:392-410,
+759-766`) followed by the first Dense layer.  Here, with the gathered rows
+each scaled by ``row_scale`` (the loader's video mask: padded videos point
+at row 0 with scale 0, so their rows are exactly 0, as JAX's ``x * mask``):
+
+  * ``gathered_gemm_plain``: the plain PyTorch version, which CPU stores
+    take and ``chip_smoke.py`` holds the kernel against on the card.
+  * ``gathered_gemm``: on a CUDA store, the hand-written kernel
+    (``csrc/gather_gemm.cu``), counted in ``launches``; on a CPU store, the
+    plain version.
+  * ``gathered_linear``: the FC as a ``torch.autograd.Function`` over one
+    or more (store, indices, row scale) parts written into one output
+    buffer (source rows first), the bias added once; its backward is
+    ``dW = dzᵀ x_res`` and ``db = dz.sum(0)`` (the JAX package leaves dW to
+    XLA too).  The stores and indices get no gradient.
+
+Shapes: a store is [R, D], or [R, S, D] for a Flow store whose S stream
+rows interleave per frame (row r, stream s is gathered row r·S + s, the
+order of ``device_gather``); ``weight`` is in torch layout [H, k·D], where
+k consecutive gathered rows form one FC input row, as the model's
+``x.reshape(B*S, -1)`` groups them (k = 1 for RGB at new_length 1).  The
+outputs are z [M, H] and x_res [M, k·D], M = N·S/k for N indices.
+
+Indices.  A kernel cannot raise on a bad index, so indices are checked on
+the host, where the loader makes them, before they reach the card:
+``row_index`` checks 0 <= idx < R and uploads them as a ``RowIndex``.  A
+CUDA store takes only a ``RowIndex`` on its device; a CPU store also takes
+an integer array, which it checks the same way.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ta3n_tpu_torch.ops.trn_fused import _call, _check_tensor, _no_kernel
+
+__all__ = ["RowIndex", "row_index", "gathered_gemm_plain", "gathered_gemm",
+           "gathered_linear", "launches"]
+
+# kernel launches made by gathered_gemm and gathered_linear (plain-version
+# calls are not counted); callers reset it to 0 to count one run's launches
+launches = 0
+
+# the kernel's tiles (csrc/gather_gemm.cu): output rows and columns per
+# block, K per chunk; and how many K slices share an output tile, enough
+# for about _TARGET_BLOCKS blocks (132 SMs, a few blocks each)
+_TILE, _TILE_K = 64, 16
+_MAX_SPLITS, _TARGET_BLOCKS = 8, 1024
+
+
+class RowIndex(NamedTuple):
+    """Row indices into a store, checked on the host and uploaded."""
+
+    rows: torch.Tensor  # [N] int32, contiguous
+    end: int            # one past the largest index (0 when N == 0)
+
+
+def row_index(idx, num_rows: int, device="cuda") -> RowIndex:
+    """Check that every index lies in [0, num_rows) and upload them as
+    int32 to ``device``.  ``idx``: an integer numpy array or CPU tensor of
+    any shape (flattened in C order)."""
+    a = np.asarray(idx).reshape(-1)
+    if not np.issubdtype(a.dtype, np.integer):
+        raise TypeError(f"row indices must be integers, got {a.dtype}")
+    if num_rows > 2 ** 31:
+        raise ValueError(f"int32 indices address at most 2**31 rows, the "
+                         f"store has {num_rows}")
+    end = int(a.max()) + 1 if a.size else 0
+    if a.size and (a.min() < 0 or end > num_rows):
+        raise IndexError(f"row indices must lie in [0, {num_rows}), got "
+                         f"[{int(a.min())}, {end - 1}]")
+    return RowIndex(torch.tensor(a, dtype=torch.int32, device=device), end)
+
+
+def _rows_of(idx, store: torch.Tensor) -> torch.Tensor:
+    """The int32 index tensor that may be read against ``store``."""
+    if isinstance(idx, RowIndex):
+        rows = idx.rows
+        if rows.device != store.device:
+            raise ValueError(f"indices on {rows.device} for a store on "
+                             f"{store.device}")
+        if rows.dtype != torch.int32 or rows.dim() != 1 or \
+                not rows.is_contiguous():
+            raise TypeError("a RowIndex holds a contiguous 1-d int32 tensor, "
+                            f"got {rows.dtype} of shape {tuple(rows.shape)}")
+        if idx.end > store.shape[0]:
+            raise IndexError(f"indices checked for {idx.end} rows, the store "
+                             f"has {store.shape[0]}")
+        return rows
+    if store.device.type == "cuda":
+        raise TypeError("a CUDA store takes only indices checked on the host:"
+                        " pass row_index(idx, store.shape[0], store.device)")
+    return row_index(idx, store.shape[0], store.device).rows
+
+
+def _geometry(store, n, weight, row_scale) -> Tuple[int, int, int, int]:
+    """(streams, D, k, M) of a gather of n indices; raise on shapes that do
+    not fit."""
+    if store.dim() not in (2, 3):
+        raise ValueError(f"a store is [R, D] or [R, S, D], got "
+                         f"{tuple(store.shape)}")
+    streams = store.shape[1] if store.dim() == 3 else 1
+    d = store.shape[-1]
+    if weight.dim() != 2 or weight.shape[1] % d:
+        raise ValueError(f"weight must be [H, k*{d}], got "
+                         f"{tuple(weight.shape)}")
+    k = weight.shape[1] // d
+    if n * streams % k:
+        raise ValueError(f"{n * streams} gathered rows do not group into FC "
+                         f"input rows of {k}")
+    if row_scale is not None and tuple(row_scale.shape) != (n,):
+        raise ValueError(f"row_scale must be [{n}], got "
+                         f"{tuple(row_scale.shape)}")
+    return streams, d, k, n * streams // k
+
+
+def gathered_gemm_plain(store: torch.Tensor, idx: torch.Tensor,
+                        weight: torch.Tensor,
+                        row_scale: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: ``(z, x_res)`` with x_res the gathered rows,
+    each scaled by its row_scale, viewed as [M, k*D], and
+    ``z = x_res @ weight.T``.  idx: [N] integer tensor on the store's
+    device."""
+    rows = store.index_select(0, idx)               # [N, D] or [N, S, D]
+    if row_scale is not None:
+        rows = rows * row_scale.reshape(-1, *([1] * (rows.dim() - 1)))
+    x = rows.reshape(-1, weight.shape[1])
+    return x @ weight.T, x
+
+
+def _prepare(store, idx, weight, row_scale):
+    """The checked index tensor and the geometry of one gather."""
+    rows = _rows_of(idx, store)
+    return rows, _geometry(store, rows.shape[0], weight, row_scale)
+
+
+def _gather_into(store, rows, geometry, weight, row_scale, z,
+                 x_res) -> None:
+    """One gather + GEMM written into z [M, H] and, unless None, x_res
+    [M, k*D]: the kernel on a CUDA store, the plain version on a CPU one."""
+    global launches
+    if store.device.type == "cpu":
+        got_z, got_x = gathered_gemm_plain(store, rows, weight, row_scale)
+        z.copy_(got_z)
+        if x_res is not None:
+            x_res.copy_(got_x)
+        return
+    if store.device.type != "cuda":
+        raise _no_kernel("gathered_gemm", store.device)
+    for t in (store, weight, z, *(t for t in (row_scale, x_res)
+                                  if t is not None)):
+        _check_tensor(t, store.device, torch.float32)
+    streams, d, k, m = geometry
+    if m == 0:  # a grid of 0 blocks is refused
+        return
+    h = weight.shape[0]
+    splits = _splits(m, h, k * -(-d // _TILE_K))
+    part = (torch.empty((splits, m, h), dtype=z.dtype, device=z.device)
+            if splits > 1 else None)
+    _call("ta3n_gather_gemm_f32", store, store.data_ptr(), rows.data_ptr(),
+          None if row_scale is None else row_scale.data_ptr(),
+          weight.data_ptr(), z.data_ptr(),
+          None if x_res is None else x_res.data_ptr(),
+          None if part is None else part.data_ptr(), rows.shape[0], streams,
+          d, k, h, splits)
+    launches += 1
+
+
+def _splits(m: int, h: int, chunks: int) -> int:
+    """K slices per output tile: enough for about _TARGET_BLOCKS blocks,
+    at most _MAX_SPLITS and at most one per K chunk."""
+    tiles = -(-m // _TILE) * -(-h // _TILE)
+    return max(1, min(_MAX_SPLITS, chunks, -(-_TARGET_BLOCKS // tiles)))
+
+
+def gathered_gemm(store: torch.Tensor, idx, weight: torch.Tensor,
+                  row_scale: Optional[torch.Tensor] = None,
+                  with_rows: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Fused gather + GEMM, no bias: ``(z [M, H], x_res [M, k*D])``, x_res
+    None unless ``with_rows``.
+
+    A CUDA ``store`` launches the hand-written kernel (float32, contiguous,
+    everything on its device, idx a ``RowIndex``; anything else raises, and
+    nothing falls back).  A CPU ``store`` takes ``gathered_gemm_plain``.
+    """
+    rows, geometry = _prepare(store, idx, weight, row_scale)
+    m = geometry[3]
+    kw = dict(dtype=store.dtype, device=store.device)
+    z = torch.empty((m, weight.shape[0]), **kw)
+    x_res = torch.empty((m, weight.shape[1]), **kw) if with_rows else None
+    _gather_into(store, rows, geometry, weight, row_scale, z, x_res)
+    return z, x_res
+
+
+class _GatheredLinear(torch.autograd.Function):
+    """Forward: every part's gather + GEMM into one buffer, then the bias;
+    backward: dW and db from the saved gathered rows."""
+
+    @staticmethod
+    def forward(ctx, parts, weight, bias):
+        prepared = [_prepare(store, idx, weight, row_scale)
+                    for store, idx, row_scale in parts]
+        total = sum(geometry[3] for _, geometry in prepared)
+        kw = dict(dtype=weight.dtype, device=weight.device)
+        z = torch.empty((total, weight.shape[0]), **kw)
+        x_res = torch.empty((total, weight.shape[1]), **kw)
+        start = 0
+        for (store, _, row_scale), (rows, geometry) in zip(parts, prepared):
+            end = start + geometry[3]
+            _gather_into(store, rows, geometry, weight, row_scale,
+                         z[start:end], x_res[start:end])
+            start = end
+        ctx.save_for_backward(x_res)
+        return z.add_(bias)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dz):
+        (x_res,) = ctx.saved_tensors
+        dw = torch.mm(dz.t(), x_res) if ctx.needs_input_grad[1] else None
+        db = dz.sum(0) if ctx.needs_input_grad[2] else None
+        return None, dw, db
+
+
+def gathered_linear(parts: Sequence[tuple], weight: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``gathered rows @ weight.T + bias`` over ``parts``, a
+    sequence of (store, idx, row_scale or None), each written at its row
+    offset into one [sum M, H] output (no concat).  One K3 launch per
+    non-empty part on CUDA stores; the plain version on CPU stores.
+    Gradients flow to ``weight`` and ``bias`` only."""
+    return _GatheredLinear.apply(tuple(parts), weight, bias)

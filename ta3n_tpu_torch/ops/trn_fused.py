@@ -196,9 +196,9 @@ def _check_tensor(t: torch.Tensor, device: torch.device,
         raise ValueError(f"all tensors must be on {device}, got one on "
                          f"{t.device}")
     if t.dtype != dtype:
-        raise TypeError(f"the TRN kernel takes {dtype}, got {t.dtype}")
+        raise TypeError(f"the CUDA kernels take {dtype}, got {t.dtype}")
     if not t.is_contiguous():
-        raise ValueError("the TRN kernel takes contiguous tensors")
+        raise ValueError("the CUDA kernels take contiguous tensors")
 
 
 def _ptrs(tensors) -> ctypes.Array:

@@ -1,6 +1,8 @@
-"""PyTorch port on the card: the hand-written TRN kernels (inference
-forward, training forward, backward) against their plain versions, and the
-flagship model's CUDA forward, backward and train step against the CPU.
+"""PyTorch port on the card: the hand-written kernels (the TRN's inference
+forward, training forward and backward, and the fused gather + first-FC
+GEMM) against their plain versions, and the flagship model's CUDA forward,
+backward, train steps (features from the host or from stores on the card)
+and eval steps against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs where jax is not installed:
@@ -15,11 +17,13 @@ import pytest
 import torch
 
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
+from ta3n_tpu_torch.data import TSNLoader, make_domain_pair
 from ta3n_tpu_torch.models import VideoModel
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
-from ta3n_tpu_torch.ops import _build, trn_fused
+from ta3n_tpu_torch.ops import _build, gather_gemm, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
 from ta3n_tpu_torch.train import (StepScalars, create_train_state,
+                                  make_eval_step, make_multi_eval_step,
                                   make_train_step)
 
 CASES = [(1, 5, 512, 256), (64, 5, 512, 256), (202, 5, 512, 256),
@@ -78,6 +82,12 @@ def _tol(want):
 def _reset_counts():
     trn_fused.launches = trn_fused.train_launches = 0
     trn_fused.bwd_launches = 0
+    gather_gemm.launches = 0
+
+
+def _counts():
+    return (gather_gemm.launches, trn_fused.launches,
+            trn_fused.train_launches, trn_fused.bwd_launches)
 
 
 @pytest.mark.parametrize("b,s,d,h", CASES)
@@ -319,3 +329,234 @@ def test_train_step_on_cuda_matches_cpu():
     for name, ref in results[0][1].items():
         torch.testing.assert_close(results[1][1][name], ref, rtol=1e-3,
                                    atol=2e-5, msg=lambda m: f"{name}: {m}")
+
+
+def _gather_inputs(n, r=500, d=256, h=96, streams=None, k=1, seed=0,
+                   grid=False):
+    """A store of r rows, n indices with duplicates, the last row and two
+    masked rows (row 0, scale 0), per-index scales and a weight [h, k*d].
+    ``grid``: values on dyadic grids small enough that every f32 product
+    and partial sum is exact, so any summation order gives the same
+    bits."""
+    rng = np.random.default_rng(seed)
+    shape = (r, d) if streams is None else (r, streams, d)
+    if grid:
+        store = rng.integers(-8, 17, shape) * 2.0 ** -4
+        w = rng.integers(-16, 17, (h, k * d)) * 2.0 ** -8
+    else:
+        store = rng.normal(size=shape)
+        w = rng.uniform(-1, 1, (h, k * d)) / math.sqrt(k * d)
+    idx = rng.integers(0, r, n)
+    scale = rng.choice([1.0, 0.5, 2.0], n)
+    if n >= 6:
+        idx[:3] = [idx[2], idx[2], r - 1]
+        idx[3:5], scale[3:5] = 0, 0.0
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    return f32(store), idx, f32(scale), f32(w)
+
+
+@pytest.mark.parametrize("n,streams,k,d", [
+    (640, None, 1, 256), (370, None, 1, 256), (37, None, 1, 256),
+    (1, None, 1, 256), (30, 2, 2, 256), (21, 2, 1, 256), (18, None, 3, 256),
+    (45, None, 1, 37), (20, 2, 2, 22)])
+def test_gather_gemm_kernel_matches_plain(n, streams, k, d):
+    """K3: z within 1e-4 * max(1, max|plain|), x_res (the scaled gathered
+    rows) bitwise equal, masked rows exactly 0, a second call and the
+    call without rows bitwise equal; exact inputs bit for bit.  Ragged N,
+    Flow streams, k gathered rows per FC input row, and widths D that are
+    not a multiple of 4 (the kernel's scalar loads)."""
+    store, idx, scale, w = _gather_inputs(n, d=d, streams=streams, k=k)
+    r = store.shape[0]
+    rows = gather_gemm.row_index(idx, r, "cuda")
+    _reset_counts()
+    z, x_res = gather_gemm.gathered_gemm(store, rows, w, scale)
+    again, _ = gather_gemm.gathered_gemm(store, rows, w, scale)
+    bare, none = gather_gemm.gathered_gemm(store, rows, w, scale,
+                                           with_rows=False)
+    want, want_x = gather_gemm.gathered_gemm_plain(store, rows.rows, w,
+                                                   scale)
+    gs, gi, gsc, gw = _gather_inputs(n, d=d, streams=streams, k=k, seed=1,
+                                     grid=True)
+    grows = gather_gemm.row_index(gi, r, "cuda")
+    grid_z, _ = gather_gemm.gathered_gemm(gs, grows, gw, gsc)
+    grid_want, _ = gather_gemm.gathered_gemm_plain(gs, grows.rows, gw, gsc)
+    torch.cuda.synchronize()
+    assert gather_gemm.launches == 4
+    m = n * (streams or 1) // k
+    assert z.shape == (m, w.shape[0]) and x_res.shape == (m, w.shape[1])
+    assert none is None
+    assert (z - want).abs().max().item() <= _tol(want)
+    assert torch.equal(x_res, want_x)
+    assert torch.equal(z, again) and torch.equal(z, bare)
+    assert torch.equal(grid_z, grid_want)
+    if n >= 6 and streams is None and k == 1:
+        assert not z[3:5].any() and not x_res[3:5].any()
+
+
+def test_gather_gemm_empty_launches_nothing():
+    store, _, _, w = _gather_inputs(0)
+    _reset_counts()
+    rows = gather_gemm.row_index(np.zeros(0, np.int64), 500, "cuda")
+    z, x_res = gather_gemm.gathered_gemm(store, rows, w)
+    out = gather_gemm.gathered_linear([(store, rows, None)], w,
+                                      torch.zeros(96, device="cuda"))
+    assert z.shape == (0, 96) and x_res.shape == (0, 256)
+    assert out.shape == (0, 96) and gather_gemm.launches == 0
+
+
+def test_gather_gemm_failed_launch_raises(monkeypatch):
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1  # cudaErrorInvalidValue
+
+    store, idx, scale, w = _gather_inputs(8)
+    rows = gather_gemm.row_index(idx, 500, "cuda")
+    monkeypatch.setattr(_build, "load_library", lambda: Refusing())
+    _reset_counts()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gather_gemm.gathered_gemm(store, rows, w, scale)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gather_gemm.gathered_linear([(store, rows, scale)], w,
+                                    torch.zeros(96, device="cuda"))
+    assert gather_gemm.launches == 0
+
+
+def test_gather_gemm_refuses_what_it_cannot_take():
+    """Indices not checked on the host (a numpy array, a CPU tensor, a
+    bare CUDA tensor), int64 or CPU ones in a RowIndex, a float16 store,
+    mixed devices and non-contiguous tensors: refused, none read."""
+    store, idx, scale, w = _gather_inputs(8)
+    rows = gather_gemm.row_index(idx, 500, "cuda")
+    _reset_counts()
+    for unchecked in (idx, torch.from_numpy(idx), rows.rows):
+        with pytest.raises(TypeError, match="checked on the host"):
+            gather_gemm.gathered_gemm(store, unchecked, w)
+    with pytest.raises(TypeError, match="int32"):
+        gather_gemm.gathered_gemm(
+            store, gather_gemm.RowIndex(rows.rows.long(), rows.end), w)
+    with pytest.raises(ValueError, match="indices on cpu"):
+        gather_gemm.gathered_gemm(store, gather_gemm.row_index(idx, 500,
+                                                               "cpu"), w)
+    with pytest.raises(TypeError):
+        gather_gemm.gathered_gemm(store.half(), rows, w)
+    with pytest.raises(ValueError, match="on cuda"):
+        gather_gemm.gathered_gemm(store, rows, w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_gemm.gathered_gemm(store, rows, w.t().contiguous().t())
+    with pytest.raises(IndexError):
+        gather_gemm.gathered_gemm(store[:100], rows, w)
+    assert gather_gemm.launches == 0
+
+
+def test_gathered_linear_on_cuda_matches_cpu():
+    """Two parts into one buffer: the output, dW and db on the card (two
+    K3 launches) against the same on the CPU (the plain version)."""
+    s_store, s_idx, s_scale, w = _gather_inputs(45, seed=2)
+    t_store, t_idx, t_scale, _ = _gather_inputs(20, r=300, seed=3)
+    bias = torch.randn(96)
+    g = torch.randn((65, 96))
+    results = []
+    for device in ("cpu", "cuda"):
+        weight = w.to(device).clone().requires_grad_(True)
+        b = bias.to(device).clone().requires_grad_(True)
+        parts = [(st.to(device), gather_gemm.row_index(i, st.shape[0],
+                                                       device),
+                  sc.to(device))
+                 for st, i, sc in ((s_store, s_idx, s_scale),
+                                   (t_store, t_idx, t_scale))]
+        _reset_counts()
+        out = gather_gemm.gathered_linear(parts, weight, b)
+        out.backward(g.to(device))
+        torch.cuda.synchronize()
+        assert gather_gemm.launches == (2 if device == "cuda" else 0)
+        results.append([t.detach().cpu() for t in (out, weight.grad,
+                                                   b.grad)])
+    for got, ref in zip(results[1], results[0]):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+_SMALL = dict(num_class=6, baseline_type="video", frame_aggregation="trn-m",
+              train_segments=5, val_segments=5, feature_dim=96, fc_dim=64,
+              use_attn="TransAttn", dropout_i=0.0, dropout_v=0.0)
+
+
+def _small_state(device):
+    gen = torch.Generator().manual_seed(0)
+    state = create_train_state(ModelConfig(**_SMALL), TrainConfig(lr=0.03),
+                               gen, device="cpu")
+    for mod in state.model.modules():
+        if isinstance(mod, torch.nn.Linear):
+            torch_default_uniform_(mod, gen)
+    state.model.to(device)  # the optimizer keeps the same Parameters
+    return state
+
+
+def test_device_store_train_step_on_cuda_matches_cpu():
+    """Three device-store steps at small widths, dropout 0, the target
+    stream padded: on CUDA two K3, one K1 (train) and one K2 launch per
+    step, against the same steps on the CPU."""
+    stores = make_domain_pair(num_source=24, num_target=13, num_val=4,
+                              num_class=6, feature_dim=96)
+    da = DAConfig(use_target="uSv", adv_DA="RevGrad",
+                  add_loss_DA="attentive_entropy")
+    results = []
+    for device in ("cpu", "cuda"):
+        state = _small_state(device)
+        step = make_train_step(state.model, da, TrainConfig(lr=0.03),
+                               gather_on_device=True)
+        dev = [s.to_device(device) for s in stores[:2]]
+        ls = TSNLoader(stores[0], batch_size=8, num_segments=5, seed=1)
+        lt = TSNLoader(stores[1], batch_size=5, num_segments=5, seed=2)
+        _reset_counts()
+        losses = []
+        for bs, bt in zip(ls.index_epoch(), lt.index_epoch()):
+            state, metrics = step(state, dev[0], *bs, dev[1], *bt,
+                                  StepScalars((0.75, 0.75, 0.5), 0.0, 0.0,
+                                              0.003, 0.03), None)
+            losses.append(float(metrics["loss"]))
+        assert len(losses) == 3
+        assert _counts() == ((6, 0, 3, 3) if device == "cuda"
+                             else (0, 0, 0, 0))
+        results.append((losses, {k: v.to("cpu", copy=True) for k, v in
+                                 state.model.state_dict().items()}))
+    np.testing.assert_allclose(results[1][0], results[0][0], rtol=2e-4)
+    for name, ref in results[0][1].items():
+        torch.testing.assert_close(results[1][1][name], ref, rtol=1e-3,
+                                   atol=2e-5, msg=lambda m: f"{name}: {m}")
+
+
+def test_eval_steps_on_cuda_match_cpu():
+    """The eval step on host features and on the store, and the multi-
+    batch eval over a val epoch with a padded last batch: on CUDA one K3
+    (without rows) and one K1 (infer) launch per batch, the same metrics
+    as on the CPU."""
+    val = make_domain_pair(num_source=4, num_target=4, num_val=11,
+                           num_class=6, feature_dim=96)[2]
+    loader = TSNLoader(val, batch_size=4, num_segments=5, shuffle=False)
+    batches = list(zip(loader.epoch(), loader.index_epoch()))
+    stacked = [np.stack(a) for a in zip(*(bi for _, bi in batches))]
+    results = []
+    for device in ("cpu", "cuda"):
+        model = _small_state(device).model
+        store = val.to_device(device)
+        ev, ev_d = (make_eval_step(model, gather_on_device=g)
+                    for g in (False, True))
+        _reset_counts()
+        per_batch = [(ev(*bh), ev_d(store, *bi)) for bh, bi in batches]
+        multi = make_multi_eval_step(model)(store, *stacked)
+        torch.cuda.synchronize()
+        assert _counts() == ((6, 9, 0, 0) if device == "cuda"
+                             else (0, 0, 0, 0))
+        results.append((per_batch, multi))
+    for (got_h, got_d), (ref_h, _) in zip(results[1][0], results[0][0]):
+        for got in (got_h, got_d):
+            for key in ("loss", "logits", "feat"):
+                torch.testing.assert_close(got[key].cpu(), ref_h[key],
+                                           rtol=1e-4, atol=1e-5)
+            for key in ("top1", "top5", "n"):
+                assert float(got[key]) == float(ref_h[key])
+    got, ref = results[1][1], results[0][1]
+    assert math.isclose(float(got["loss_sum"]), float(ref["loss_sum"]),
+                        rel_tol=1e-5)
+    for key in ("top1", "top5", "n"):
+        assert float(got[key]) == float(ref[key])

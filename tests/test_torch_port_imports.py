@@ -103,6 +103,36 @@ def test_config_copies_match_jax_package(name):
                 ours(num_class=3, **bad)
 
 
+@pytest.mark.parametrize("module", ["manifest", "samplers", "feature_store",
+                                    "loader", "synthetic"])
+def test_data_copies_match_jax_package(module):
+    """The port's copies of the JAX package's data modules: every public
+    name they share has the same signature and defaults (functions and
+    the methods of classes) and the same fields (named tuples,
+    dataclasses); test_torch_port_data.py holds their behaviour."""
+    import importlib
+    import inspect
+
+    ours = importlib.import_module(f"ta3n_tpu_torch.data.{module}")
+    ref = importlib.import_module(f"ta3n_tpu.data.{module}")
+    assert set(ours.__all__) <= set(ref.__all__) | {"IndexBatch"}
+    for name in ours.__all__:
+        a, b = getattr(ours, name), getattr(ref, name)
+        if not inspect.isclass(a):
+            assert inspect.signature(a) == inspect.signature(b), name
+            continue
+        if dataclasses.is_dataclass(a):
+            assert [(f.name, f.type) for f in dataclasses.fields(a)] == \
+                [(f.name, f.type) for f in dataclasses.fields(b)]
+        assert getattr(a, "_fields", None) == getattr(b, "_fields", None)
+        shared = [m for m in vars(a) if m in vars(b)
+                  and (m == "__init__" or not m.startswith("_"))
+                  and callable(getattr(a, m))]
+        for m in shared:
+            assert inspect.signature(getattr(a, m)) == \
+                inspect.signature(getattr(b, m)), f"{name}.{m}"
+
+
 def test_manifest_copy_matches_jax_package(tmp_path):
     from ta3n_tpu.data.manifest import load_class_names as jax_load
     from ta3n_tpu_torch.data.manifest import load_class_names
