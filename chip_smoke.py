@@ -3,8 +3,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ta3n_tpu_torch/csrc (one nvcc per
-source, in parallel), holds each against its plain PyTorch version at the
-flagship shapes and times both, then drives the port's main paths at the
+source, in parallel), checks in their SASS that the tensor-core kernels
+(K2, K3) hold mma (HMMA) and cp.async (LDGSTS) instructions, holds each
+kernel against its plain PyTorch version at the flagship shapes and times
+both (K2 also by its dx and dW families, K3 at the train and eval shapes,
+each against the bound of the arithmetic it runs), then drives the port's
+main paths at the
 flagship widths (UCF->HMDB_full: trn-m over 5 segments, 2048-d features,
 fc 512, TRN bottleneck 256, TransAttn, 12 classes, random weights from a
 seed):
@@ -31,6 +35,7 @@ without a CUDA device.  The last line of the output is one JSON object:
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import json
 import math
@@ -84,9 +89,18 @@ SPLITS = dict(num_source=1438, num_target=840, num_val=360)
 K3_CASES = (640, 370, 320, 37, 1, 0)   # rows: train source/target, eval
 K3_TIMED = ((640, True), (320, False))  # (rows, with x_res): train, eval
 EVAL_RTOL = 1e-5               # the val epoch's summed loss
-# NVIDIA H100 SXM data sheet (700 W): f32 CUDA-core peak and HBM rate
+# NVIDIA H100 SXM data sheet (700 W): f32 CUDA-core peak, dense TF32
+# tensor-core peak and HBM rate
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# the rate of each kernel's arithmetic: K1 runs f32 FMA on the CUDA cores;
+# K2 and K3 run three TF32 tensor-core products per f32 product (3xTF32)
+PEAK_OPS = {"trn_fused_fwd": PEAK_F32, "trn_fused_fwd_train": PEAK_F32,
+            "trn_fused_bwd": PEAK_TF32 / 3, "gather_gemm": PEAK_TF32 / 3}
+# kernels on the tensor cores, fed by cp.async: their SASS must hold HMMA
+# and LDGSTS instructions
+TENSOR_CORE_KERNELS = ("gather_gemm_kernel", "trn_fused_bwd_kernel")
 
 
 def log(msg: str) -> None:
@@ -105,10 +119,36 @@ def build_kernels() -> float:
     out = _build.compile_library(_build.library_path())
     seconds = time.perf_counter() - t0
     for line in out.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or \
+                "spill" in line:
             log(f"  ptxas: {line.strip()}")
     _build.load_library()
     return seconds
+
+
+def check_sass() -> None:
+    """Count the tensor-core (HMMA) and asynchronous-copy (LDGSTS)
+    instructions of each kernel in the built library's SASS; fail unless
+    every kernel of TENSOR_CORE_KERNELS has both."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
+                          check=True, capture_output=True,
+                          text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += " HMMA." in line
+            counts[name][1] += " LDGSTS" in line
+    for name, (hmma, ldgsts) in sorted(counts.items()):
+        log(f"  sass: {hmma:4d} HMMA, {ldgsts:4d} LDGSTS  {name[:80]}")
+    for kernel in TENSOR_CORE_KERNELS:
+        found = [c for n, c in counts.items() if kernel in n]
+        if not found or not all(h and g for h, g in found):
+            raise AssertionError(f"{kernel}: no HMMA or no LDGSTS in its "
+                                 "SASS")
 
 
 def trn_inputs(b, s, d, h, gen, signed=False):
@@ -379,9 +419,10 @@ def trn_work(b, s=5, d=512, h=256):
     }
 
 
-def bound(flops, nbytes):
-    """The least time the card could take, in ms, and what sets it."""
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak_ops):
+    """The least time the card could take, in ms, and what sets it, for a
+    kernel whose arithmetic runs at ``peak_ops`` FLOP/s."""
+    t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -783,12 +824,67 @@ def time_gather(store):
                     store.index_select(0, rows.rows), w.t())})
             work = gather_work(rows, d, h, with_rows)
             results[n] = (t, work)
+            least, by = bound(*work, PEAK_OPS["gather_gemm"])
             log(f"  K3 N={n} {'with' if with_rows else 'without'} x_res: "
                 f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
                 f"index_select + mm {t['library']:.4f} ms device; bound "
-                f"{bound(*work)[0]:.4f} ms by {bound(*work)[1]} (medians "
-                f"of 41, in turns)")
+                f"{least:.4f} ms by {by} (medians of 41, in turns)")
     return results
+
+
+def bwd_parts(x, w, masks, g, parts):
+    """K2's tiles of one family (parts 1: dx, 2: dW/db) or both (3),
+    through the C entry that takes the choice; not counted as a launch of
+    the backward.  Returns (dx, dWs, dbs), each written only by its own
+    family."""
+    b, s, d = x.shape
+    h = w[0].shape[0]
+    dx = torch.zeros_like(x)
+    dws = [torch.zeros_like(t) for t in w]
+    dbs = [torch.zeros((h,), device=x.device) for _ in w]
+    ptrs = [trn_fused._ptrs(t) for t in (w, dws, dbs)]
+    trn_fused._call("ta3n_trn_fused_bwd_parts_f32", x, x.data_ptr(),
+                    ctypes.addressof(ptrs[0]), masks.data_ptr(),
+                    g.data_ptr(), dx.data_ptr(), ctypes.addressof(ptrs[1]),
+                    ctypes.addressof(ptrs[2]),
+                    trn_fused._plan_table(s, 3).ctypes.data, b, s, d, h,
+                    parts)
+    return dx, dws, dbs
+
+
+def split_bwd(gen, b=202, n=20):
+    """K2's device time by the profiler at the train batch: the dx tiles
+    alone, the dW/db tiles alone and both in one grid (the backward), n
+    launches each; each family alone must give the backward's bits.
+    Returns ms per launch of each."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w, bi = trn_inputs(b, 5, 512, 256, gen, signed=True)
+    g = torch.randn((b, 4, 256), generator=gen).cuda()
+    result = {}
+    with torch.no_grad():
+        _, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, 5)
+        full = bwd_parts(x, w, masks, g, 3)
+        dx_only, dw_only = bwd_parts(x, w, masks, g, 1), \
+            bwd_parts(x, w, masks, g, 2)
+        torch.cuda.synchronize()
+        if not (torch.equal(dx_only[0], full[0]) and all(
+                torch.equal(a, r) for a, r in
+                zip((*dw_only[1], *dw_only[2]), (*full[1], *full[2])))):
+            raise AssertionError("K2's families alone differ from the "
+                                 "backward")
+        for name, parts in (("dx", 1), ("dW", 2), ("both", 3)):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    bwd_parts(x, w, masks, g, parts)
+                torch.cuda.synchronize()
+            result[name] = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if "trn_fused_bwd_kernel" in e.key) / 1e3 / n
+    log(f"  K2 at B={b} by the profiler: dx tiles alone "
+        f"{result['dx']:.4f} ms, dW/db tiles alone {result['dW']:.4f} ms, "
+        f"both in one grid {result['both']:.4f} ms (means of {n}; the "
+        f"families alone sum to {result['dx'] + result['dW']:.4f} ms)")
+    return result
 
 
 def store_loaders(stores, seed=1):
@@ -987,6 +1083,7 @@ def main() -> int:
     log("build: nvcc for sm_90a")
     log(f"  built {_build.library_path().name} in "
         f"{build_kernels():.1f} s")
+    check_sass()
 
     gen = torch.Generator().manual_seed(0)
     log("K1 (infer) vs plain")
@@ -1013,9 +1110,11 @@ def main() -> int:
     log("kernel times")
     times = time_trn(gen)
     fwd_t, bwd_t = time_train_kernels(gen)
+    bwd_split = split_bwd(gen)
     gather_t = time_gather(dev[0])
     t64 = times[SERVE_BATCH]
     k3_t, k3_work = gather_t[K3_TIMED[0][0]]
+    k3_eval_t, k3_eval_work = gather_t[K3_TIMED[1][0]]
     ms = {"trn_fused_fwd": (t64[("kernel", "device")],
                             t64[("plain", "device")], None),
           "trn_fused_fwd_train": (fwd_t["kernel"], fwd_t["plain"], None),
@@ -1070,7 +1169,7 @@ def main() -> int:
     for name, (source, replaces) in sources.items():
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on its path")
-        bound_ms, bound_by = bound(*work[name])
+        bound_ms, bound_by = bound(*work[name], PEAK_OPS[name])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -1082,6 +1181,14 @@ def main() -> int:
             # K3: index_select + mm, two calls (no single call gathers
             # and multiplies)
             "library_ms": ms[name][2]})
+    # K2's two families by the profiler, each alone and in one grid; K3
+    # at the eval shape (320 rows, no x_res) as well
+    kernels[2].update(dx_ms=bwd_split["dx"], dw_ms=bwd_split["dW"],
+                      both_ms=bwd_split["both"])
+    kernels[3].update(
+        eval_ms=k3_eval_t["kernel"], eval_plain_ms=k3_eval_t["plain"],
+        eval_library_ms=k3_eval_t["library"],
+        eval_bound_ms=bound(*k3_eval_work, PEAK_OPS["gather_gemm"])[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,4 +1,5 @@
-// Fused row gather + first-FC GEMM, float32, for Hopper (sm_90a).
+// Fused row gather + first-FC GEMM, float32 at f32 accuracy on the tensor
+// cores (3xTF32), for Hopper (sm_90a).
 //
 // Replaces ta3n_tpu/ops/gather_gemm.py::_kernel (launched through
 // gathered_gemm): the device-store steps gather the B*T frame rows of a
@@ -15,75 +16,90 @@
 // one row was one DMA; here the store is the plain [R*S, D] array.
 //
 // What bounds it on the card.  At the flagship train step (N = 640 source
-// rows, D = 2048, H = 512) the work is 2*N*D*H = 1.34 GFLOP, 20 us at the
-// 67 TFLOP/s f32 CUDA-core peak, against 16 MB moved (the rows, x_res, W
-// and z), 4.8 us at 3.35 TB/s: bound by f32 FMA issue.  Two things stand
-// in the way of that peak: the output is small (640 x 512), so output
-// tiles alone do not fill 132 SMs, and a thread that stages fewer than
-// 8x8 outputs' worth of operands per k step is bound by shared memory
-// bandwidth, not by FMA (the first version of this kernel, 2x4 outputs
-// per thread, ran at a third of the FMA rate that way).
+// rows, D = 2048, H = 512) the work is 2*N*D*H = 1.34 GFLOP against 16 MB
+// moved (the rows, x_res, W and z), 4.8 us at 3.35 TB/s.  In 3xTF32 the
+// tensor cores do three products per pair, 4.0 GFLOP, 8.1 us at the dense
+// TF32 rate of 495 TFLOP/s: bound by operations.  On the H100 mma.sync
+// reaches about 260 TFLOP/s of TF32, and the split of each operand costs
+// about as many instructions as the products (PERF.md).
 //
 // What the design does about that.
-//  * 8x8 outputs per thread from two float4 of rows and two float4 of W
-//    per k (4 shared loads for 64 FMA), a [64, 64] tile per block of 64
-//    threads.
+//  * mma.sync m16n8k8 TF32 with the 3xTF32 split (tf32x3.cuh): each row
+//    value is scaled by its row_scale in f32 first (the value x_res and
+//    the plain version hold), then split.  Rows [M, K] and W [H, K] are
+//    both K-major, so the fragments are 32-bit loads from staged rows
+//    padded to 36 floats: conflict-free (bank 4g + t).
+//  * A 64 x 64 tile per block of 4 warps, each warp 32 x 32 (2 x 4 m16n8
+//    tiles, eight independent mma.sync a pass); three blocks fit on an SM.
+//    Each 32-deep K chunk is summed into fresh registers and then added to
+//    the f32 sum (add_to), against the tensor core's truncating
+//    accumulation.
+//  * A ring of 4 stages of 32-deep K chunks in dynamic shared memory,
+//    filled by cp.async (16-byte copies where D % 4 == 0 and the pointers
+//    are 16-byte aligned, else 4-byte copies: D = 37 or 22).  Out-of-range
+//    rows and columns are zero-filled by the copy.  A chunk never crosses
+//    a gathered row, so it has one row address and one scale per row.
+//  * Each thread stages half a row of the row tile (16 floats a chunk) and
+//    holds its 64-bit address (an idx*D offset passes 2^31 at about 1M
+//    rows of 2048) and scale, recomputed only when the chunk passes to the
+//    next gathered row; and half a W row.
 //  * Split K: gridDim.z blocks share an output tile, each over a slice of
 //    the K chunks, into a scratch [splits, M, H]; a second kernel sums the
 //    slices in a fixed order.  No atomics: a second run gives the same
 //    bits.  With one split the kernel writes z directly.
-//  * Each thread stages one row of the row tile and one row of the W tile
-//    per chunk (16 consecutive floats of each), so it holds one row
-//    address (64-bit: an idx*D offset passes 2^31 at about 1M rows of
-//    2048) and one scale, recomputed only when the chunk passes to the
-//    next gathered row; its shared-memory stores are conflict-free.
-//  * Register prefetch and two shared buffers: the next chunk's loads are
-//    in flight while the current one is multiplied; one barrier a chunk.
-//  * Each row is scaled by its row_scale as it is loaded, so masked rows
-//    are exactly 0 as in JAX's x * mask; exactly one column tile
-//    (blockIdx.y == 0) writes the staged rows to x_res, and without x_res
-//    (eval, inference) that write is skipped.
-//  * f32 FMA on the CUDA cores: no tensor cores, no TF32.
-// Ragged M, H and D edges are masked in the loads and the stores.  Indices
-// are not checked here: the Python wrapper only launches with indices it
-// checked on the host (0 <= idx < R).
+//  * Masked rows have scale 0, so they are exactly 0 as in JAX's x * mask;
+//    the blocks of column tile 0 (blockIdx.y == 0) write the scaled rows of
+//    their K slice to x_res from shared memory, so no row is written
+//    twice; without x_res (eval, inference) that write is skipped.
+// Indices are not checked here: the Python wrapper only launches with
+// indices it checked on the host (0 <= idx < R).
 
 #include <cuda_runtime.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr int kTileM = 64;
 constexpr int kTileH = 64;
-constexpr int kTileK = 16;
-constexpr int kThreads = 64;
-constexpr int kPad = 4;  // shared rows stay 16-byte aligned for float4
+constexpr int kTileK = 32;
+constexpr int kThreads = 128;  // 4 warps: 2 along M x 2 along H
+constexpr int kStages = 4;
+constexpr int kStride = kTileK + 4;  // padded row: bank 4g + t, 16-byte rows
+constexpr int kRun = 16;             // floats staged per thread and row
 constexpr int kMaxSplits = 8;
 
-static_assert(kTileM == kThreads && kTileH == kThreads,
-              "one row of each tile per thread");
-static_assert(kTileM * kTileH == kThreads * 64, "8x8 outputs per thread");
+static_assert(kTileK == 2 * kRun && 2 * kTileM == kThreads &&
+                  2 * kTileH == kThreads,
+              "two threads per staged row of each tile");
+static_assert(kTileM == 2 * 32 && kTileH == 2 * 32, "4 warps of 32 x 32");
 
 struct Stage {
-  float x[kTileK][kTileM + kPad];
-  float w[kTileK][kTileH + kPad];
+  float x[kTileM][kStride];  // scaled on use, not here
+  float w[kTileH][kStride];
+  float scale[kTileM];
 };
+constexpr int kSmem = kStages * static_cast<int>(sizeof(Stage));
+static_assert(sizeof(Stage) % 16 == 0, "16-byte aligned stages");
 
 // grid (ceil(M/kTileM), ceil(H/kTileH), splits): one block per output tile
-// and K slice.  kVec4: rows are loaded as float4 (D % 4 == 0, 16-byte
-// aligned store, W and x_res).
+// and K slice.  kVec4: 16-byte copies (D % 4 == 0, 16-byte aligned store,
+// W and x_res).
 template <bool kVec4>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
     gather_gemm_kernel(const float* __restrict__ store,
                        const int* __restrict__ idx,
                        const float* __restrict__ scale,
                        const float* __restrict__ w, float* __restrict__ out,
                        float* __restrict__ x_res, long long m_rows,
                        int streams, int d, int k_rows, int h) {
-  __shared__ __align__(16) Stage stage[2];
+  extern __shared__ __align__(128) unsigned char smem[];
+  Stage* stage = reinterpret_cast<Stage*>(smem);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 8;  // output columns 4*tx + {0..3}, 32 + 4*tx + ...
-  const int ty = tid / 8;  // output rows 4*ty + {0..3}, 32 + 4*ty + ...
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = 32 * (warp % 2), wn = 32 * (warp / 2);
   const long long m0 = static_cast<long long>(blockIdx.x) * kTileM;
   const int h0 = blockIdx.y * kTileH;
   const long long kdim = static_cast<long long>(k_rows) * d;  // W row
@@ -97,17 +113,20 @@ __global__ void __launch_bounds__(kThreads)
   const int c_begin = static_cast<int>(chunks * blockIdx.z / gridDim.z);
   const int c_end = static_cast<int>(chunks * (blockIdx.z + 1) / gridDim.z);
 
-  // the row this thread stages: output row m0 + tid, and W row h0 + tid
-  const long long m = m0 + tid;
-  const int gh = h0 + tid;
+  // what this thread stages: floats [col, col + kRun) of a chunk, of row
+  // m0 + srow and of W row h0 + srow
+  const int srow = tid / 2, col = kRun * (tid % 2);
+  const long long m = m0 + srow;
+  const int gh = h0 + srow;
   int row_j = -1;
   const float* row = nullptr;
   float row_scale = 0.f;
 
-  float xr[kTileK], wr[kTileK];
-  auto load = [&](int c) {
+  auto issue = [&](int c, int s) {
+    c += c_begin;
     const int j = c / per_row;
-    const int c0 = (c % per_row) * kTileK;
+    const int c0 = (c % per_row) * kTileK + col;
+    Stage& st = stage[s];
     if (j != row_j) {
       row_j = j;
       row = nullptr;
@@ -119,99 +138,83 @@ __global__ void __launch_bounds__(kThreads)
         row_scale = scale != nullptr ? scale[n] : 1.f;
       }
     }
-    const float* wrow =
-        gh < h ? w + gh * kdim + static_cast<long long>(j) * d : nullptr;
-    float* dst = write_rows && row != nullptr
-                     ? x_res + (m * k_rows + j) * d + c0
-                     : nullptr;
-    if constexpr (kVec4) {
-      // D % 4 == 0 and 16-byte aligned rows: 4 float4 per row, each
-      // wholly inside or outside the row
+    if (tid % 2 == 0) st.scale[srow] = row != nullptr ? row_scale : 0.f;
+    ta3n::copy_run16<kVec4>(&st.x[srow][col],
+                            row != nullptr ? row + c0 : store, store,
+                            row != nullptr ? d - c0 : 0);
+    const bool w_in = gh < h;
+    ta3n::copy_run16<kVec4>(
+        &st.w[srow][col],
+        w_in ? w + gh * kdim + static_cast<long long>(j) * d + c0 : w, w,
+        w_in ? d - c0 : 0);
+  };
+
+  float acc[2][4][4] = {};
+  auto compute = [&](int c, int s) {
+    const Stage& st = stage[s];
+    float part[2][4][4] = {};
+    float sc[2][2];
 #pragma unroll
-      for (int v = 0; v < kTileK / 4; ++v) {
-        const bool in = c0 + 4 * v < d;
-        float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), wv = xv;
-        if (row != nullptr && in) {
-          xv = *reinterpret_cast<const float4*>(row + c0 + 4 * v);
-          xv.x *= row_scale;
-          xv.y *= row_scale;
-          xv.z *= row_scale;
-          xv.w *= row_scale;
-          if (dst != nullptr) *reinterpret_cast<float4*>(dst + 4 * v) = xv;
+    for (int i = 0; i < 2; ++i) {
+      sc[i][0] = st.scale[wm + 16 * i + g];
+      sc[i][1] = st.scale[wm + 16 * i + g + 8];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTileK; kk += 8) {
+      float a[2][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = wm + 16 * i + g;
+        a[i][0] = st.x[r][kk + t] * sc[i][0];
+        a[i][1] = st.x[r + 8][kk + t] * sc[i][1];
+        a[i][2] = st.x[r][kk + t + 4] * sc[i][0];
+        a[i][3] = st.x[r + 8][kk + t + 4] * sc[i][1];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn + 8 * j + g;
+        b[j][0] = st.w[n][kk + t];
+        b[j][1] = st.w[n][kk + t + 4];
+      }
+      ta3n::mma_3xtf32(part, a, b);
+    }
+    ta3n::add_to(acc, part);
+    if (write_rows && m < m_rows) {
+      c += c_begin;
+      const int j = c / per_row;
+      const int c0 = (c % per_row) * kTileK + col;
+      float* dst = x_res + (m * k_rows + j) * d + c0;
+      const float rs = st.scale[srow];
+      const float* src = &st.x[srow][col];
+      if constexpr (kVec4) {
+#pragma unroll
+        for (int v = 0; v < kRun / 4; ++v) {
+          if (4 * v >= d - c0) break;
+          const float4 x4 = *reinterpret_cast<const float4*>(src + 4 * v);
+          *reinterpret_cast<float4*>(dst + 4 * v) =
+              make_float4(x4.x * rs, x4.y * rs, x4.z * rs, x4.w * rs);
         }
-        if (wrow != nullptr && in)
-          wv = *reinterpret_cast<const float4*>(wrow + c0 + 4 * v);
-        xr[4 * v] = xv.x;
-        xr[4 * v + 1] = xv.y;
-        xr[4 * v + 2] = xv.z;
-        xr[4 * v + 3] = xv.w;
-        wr[4 * v] = wv.x;
-        wr[4 * v + 1] = wv.y;
-        wr[4 * v + 2] = wv.z;
-        wr[4 * v + 3] = wv.w;
-      }
-    } else {
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < kTileK; ++kk) {
-        const bool in = c0 + kk < d;
-        xr[kk] = (row != nullptr && in) ? row[c0 + kk] * row_scale : 0.f;
-        wr[kk] = (wrow != nullptr && in) ? wrow[c0 + kk] : 0.f;
-        if (dst != nullptr && in) dst[kk] = xr[kk];
+        for (int e = 0; e < kRun; ++e)
+          if (e < d - c0) dst[e] = src[e] * rs;
       }
     }
   };
-  auto store_stage = [&](Stage& s) {
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      s.x[kk][tid] = xr[kk];
-      s.w[kk][tid] = wr[kk];
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-  if (c_begin < c_end) {
-    load(c_begin);
-    store_stage(stage[0]);
-  }
-  __syncthreads();
-  for (int c = c_begin; c < c_end; ++c) {
-    const int buf = (c - c_begin) & 1;
-    if (c + 1 < c_end) load(c + 1);  // in flight while this chunk runs
-    const Stage& s = stage[buf];
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&s.x[kk][4 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&s.x[kk][32 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&s.w[kk][4 * tx]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&s.w[kk][32 + 4 * tx]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[r][q] = fmaf(a[r], b[q], acc[r][q]);
-    }
-    if (c + 1 < c_end) store_stage(stage[buf ^ 1]);
-    __syncthreads();
-  }
+  ta3n::pipeline<kStages>(c_end - c_begin, issue, compute);
 
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const long long om = m0 + (r < 4 ? 4 * ty + r : 32 + 4 * ty + r - 4);
-    if (om >= m_rows) continue;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int oh = h0 + (q < 4 ? 4 * tx + q : 32 + 4 * tx + q - 4);
-      if (oh < h) out[om * h + oh] = acc[r][q];
-    }
-  }
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long om = m0 + wm + 16 * i + g + 8 * half;
+        const int oh = h0 + wn + 8 * j + 2 * t;
+        if (om >= m_rows) continue;
+        if (oh < h) out[om * h + oh] = acc[i][j][2 * half];
+        if (oh + 1 < h) out[om * h + oh + 1] = acc[i][j][2 * half + 1];
+      }
 }
 
 // z[i] = sum over s of part[s][i], s in order: the split-K reduction.
@@ -225,6 +228,15 @@ __global__ void gather_gemm_reduce(const float* __restrict__ part,
     for (int s = 1; s < splits; ++s) sum += part[s * count + i];
     z[i] = sum;
   }
+}
+
+// Above 48 KB of dynamic shared memory a kernel must opt in, once.
+template <bool kVec4>
+cudaError_t allow_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      gather_gemm_kernel<kVec4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  return err;
 }
 
 }  // namespace
@@ -254,16 +266,18 @@ extern "C" int ta3n_gather_gemm_f32(const void* store, const void* idx,
   if (tiles > 0x7fffffffLL || (h + kTileH - 1) / kTileH > 65535 ||
       chunks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(tiles), (h + kTileH - 1) / kTileH,
-                  splits);
   const auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
   const bool vec4 = d % 4 == 0 && aligned(store) && aligned(w) &&
                     (x_res == nullptr || aligned(x_res));
+  const cudaError_t attr = vec4 ? allow_smem<true>() : allow_smem<false>();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(tiles), (h + kTileH - 1) / kTileH,
+                  splits);
   (vec4 ? gather_gemm_kernel<true> : gather_gemm_kernel<false>)
-      <<<grid, kThreads, 0, s>>>(
+      <<<grid, kThreads, kSmem, s>>>(
           static_cast<const float*>(store), static_cast<const int*>(idx),
           static_cast<const float*>(scale), static_cast<const float*>(w),
           static_cast<float*>(splits > 1 ? part : z),

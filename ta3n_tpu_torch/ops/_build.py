@@ -49,6 +49,9 @@ _ENTRIES = {
     # d, h, stream
     "ta3n_trn_fused_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _P],
+    # the same and parts (1: dx tiles, 2: dW/db tiles, 3: both), stream
+    "ta3n_trn_fused_bwd_parts_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _P],
     # store, idx, scale, w, z, x_res, part, n_idx, streams, d, k_rows, h,
     # splits, stream
     "ta3n_gather_gemm_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -71,9 +74,12 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources and flags lives: named by
+    a hash of the flags and of every ``*.cu`` and ``*.cuh`` under
+    ``csrc/``, so an edited header is rebuilt too."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")],
+                      key=lambda p: p.name):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libta3n_tpu_torch_{digest.hexdigest()[:16]}.so"

@@ -52,10 +52,12 @@ __all__ = ["RowIndex", "row_index", "gathered_gemm_plain", "gathered_gemm",
 launches = 0
 
 # the kernel's tiles (csrc/gather_gemm.cu): output rows and columns per
-# block, K per chunk; and how many K slices share an output tile, enough
-# for about _TARGET_BLOCKS blocks (132 SMs, a few blocks each)
-_TILE, _TILE_K = 64, 16
-_MAX_SPLITS, _TARGET_BLOCKS = 8, 1024
+# block, K per chunk; and how many K slices share an output tile: as many
+# as _TARGET_BLOCKS blocks hold, two per SM of the H100's 132 (240 blocks
+# in three K slices at the train shape, 640 x 512; 240 in six at the eval
+# shape, 320 x 512: the fastest of 1-8 slices measured at both)
+_TILE_M, _TILE_H, _TILE_K = 64, 64, 32
+_MAX_SPLITS, _TARGET_BLOCKS = 8, 264
 
 
 class RowIndex(NamedTuple):
@@ -178,10 +180,11 @@ def _gather_into(store, rows, geometry, weight, row_scale, z,
 
 
 def _splits(m: int, h: int, chunks: int) -> int:
-    """K slices per output tile: enough for about _TARGET_BLOCKS blocks,
-    at most _MAX_SPLITS and at most one per K chunk."""
-    tiles = -(-m // _TILE) * -(-h // _TILE)
-    return max(1, min(_MAX_SPLITS, chunks, -(-_TARGET_BLOCKS // tiles)))
+    """K slices per output tile: as many as keep the grid within
+    _TARGET_BLOCKS blocks, at least 1, at most _MAX_SPLITS and at most one
+    per K chunk."""
+    tiles = -(-m // _TILE_M) * -(-h // _TILE_H)
+    return max(1, min(_MAX_SPLITS, chunks, _TARGET_BLOCKS // tiles))
 
 
 def gathered_gemm(store: torch.Tensor, idx, weight: torch.Tensor,

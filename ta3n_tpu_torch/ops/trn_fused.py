@@ -271,7 +271,8 @@ def _launch_train(x, weights, biases, num_frames, subsample_num
 
 def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
                 ) -> Tuple[torch.Tensor, tuple, tuple]:
-    """The backward kernel (its dx and dW/db passes): (dx, dWs, dbs)."""
+    """The backward kernel (one grid of dx and dW/db tiles): (dx, dWs,
+    dbs)."""
     global bwd_launches
     _check_inputs(x, weights, None, num_frames, subsample_num)
     b, s, d = x.shape

@@ -1,0 +1,83 @@
+"""The port's kernel build on the CPU: what names the built library, the C
+entry points against their ctypes bindings, and K3's choice of K slices.
+Nothing here compiles: nvcc runs only where there is a card."""
+
+import re
+
+import pytest
+
+from ta3n_tpu_torch.ops import _build, gather_gemm
+
+
+def _csrc(tmp_path, files):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name, text in files.items():
+        (csrc / name).write_text(text)
+    return csrc
+
+
+@pytest.mark.parametrize("edited", ["kernel.cu", "shared.cuh"])
+def test_library_name_follows_every_source_and_header(tmp_path, monkeypatch,
+                                                      edited):
+    """An edit to a .cu or to a header it includes names another library,
+    so a stale build is never loaded; undoing the edit names the first."""
+    csrc = _csrc(tmp_path, {"kernel.cu": '#include "shared.cuh"\n',
+                            "shared.cuh": "// helpers\n"})
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    first = _build.library_path()
+    original = (csrc / edited).read_text()
+    (csrc / edited).write_text(original + "// edited\n")
+    assert _build.library_path() != first
+    (csrc / edited).write_text(original)
+    assert _build.library_path() == first
+
+
+def test_library_name_counts_a_new_header(tmp_path, monkeypatch):
+    csrc = _csrc(tmp_path, {"kernel.cu": "\n"})
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    first = _build.library_path()
+    (csrc / "extra.cuh").write_text("\n")
+    assert _build.library_path() != first
+
+
+def test_every_kernel_source_is_compiled():
+    """SOURCES lists every .cu under csrc/ (headers are included, not
+    compiled), so a new kernel file cannot be left out of the build."""
+    on_disk = sorted(p.name for p in _build._CSRC.glob("*.cu"))
+    assert sorted(p.name for p in _build.SOURCES) == on_disk
+    assert list(_build._CSRC.glob("*.cuh"))
+
+
+def _c_entries():
+    """name -> number of parameters of every extern "C" function."""
+    found = {}
+    for src in _build.SOURCES:
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\((.*?)\)\s*\{', src.read_text(),
+                re.S):
+            found[name] = params.count(",") + 1
+    return found
+
+
+def test_c_entries_match_their_bindings():
+    """Every C entry the wrappers call is defined, with as many parameters
+    as its ctypes argtypes: a mismatch would pass garbage, not raise."""
+    entries = _c_entries()
+    assert set(entries) == set(_build._ENTRIES)
+    for name, argtypes in _build._ENTRIES.items():
+        assert entries[name] == len(argtypes), name
+
+
+@pytest.mark.parametrize("m,h,chunks", [
+    (640, 512, 64), (370, 512, 64), (320, 512, 64), (37, 512, 64),
+    (1, 512, 64), (45, 96, 2), (20000, 512, 64)])
+def test_gather_splits_fill_at_most_the_target(m, h, chunks):
+    """K3's K slices: 1..8, at most one per chunk, and the grid within
+    _TARGET_BLOCKS unless one slice per tile already exceeds it."""
+    splits = gather_gemm._splits(m, h, chunks)
+    tiles = -(-m // gather_gemm._TILE_M) * -(-h // gather_gemm._TILE_H)
+    assert 1 <= splits <= min(gather_gemm._MAX_SPLITS, chunks)
+    assert splits == 1 or tiles * splits <= gather_gemm._TARGET_BLOCKS
+    if (m, h) == (640, 512):
+        assert (splits, tiles * splits) == (3, 240)

@@ -139,6 +139,18 @@ def test_bwd_kernel_matches_plain(b, s, d, h):
     1e-4 * max(1, max|plain|), bitwise equal on a second call (no
     atomics), exactly the plain values on exact-sum inputs; one launch per
     call."""
+    _check_bwd(b, s, d, h)
+
+
+@pytest.mark.parametrize("b", [15, 16, 17])
+def test_bwd_kernel_batch_edges(b):
+    """K2 around the 16-row boundary of an m16n8k8 fragment, in its
+    16-byte copy variant (D % 4 == 0, H % 16 == 0): the checks of
+    test_bwd_kernel_matches_plain."""
+    _check_bwd(b, 5, 128, 64)
+
+
+def _check_bwd(b, s, d, h):
     x, w, bi = _trn_inputs(b, s, d, h)
     g = torch.randn((b, s - 1, h), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(0))
@@ -364,7 +376,29 @@ def test_gather_gemm_kernel_matches_plain(n, streams, k, d):
     rows) bitwise equal, masked rows exactly 0, a second call and the
     call without rows bitwise equal; exact inputs bit for bit.  Ragged N,
     Flow streams, k gathered rows per FC input row, and widths D that are
-    not a multiple of 4 (the kernel's scalar loads)."""
+    not a multiple of 4 (the kernel's 4-byte copies)."""
+    _check_gather(n, streams, k, d)
+
+
+@pytest.mark.parametrize("splits", ["one", "most"])
+@pytest.mark.parametrize("n", [63, 64, 65, 129])
+def test_gather_gemm_row_tiles_and_splits(n, splits, monkeypatch):
+    """K3 around the 64-row tile (one K slice, and as many as the kernel
+    takes): the checks of test_gather_gemm_kernel_matches_plain."""
+    most = gather_gemm._MAX_SPLITS
+    monkeypatch.setattr(gather_gemm, "_splits", lambda m, h, chunks:
+                        1 if splits == "one" else min(most, chunks))
+    _check_gather(n, None, 1, 256)
+
+
+@pytest.mark.parametrize("d", [100, 50])
+def test_gather_gemm_ragged_k_chunk(d):
+    """K3 with D not a multiple of its 32-deep K chunk, with 16-byte copies
+    (D = 100) and with 4-byte copies (D = 50)."""
+    _check_gather(70, None, 1, d)
+
+
+def _check_gather(n, streams, k, d):
     store, idx, scale, w = _gather_inputs(n, d=d, streams=streams, k=k)
     r = store.shape[0]
     rows = gather_gemm.row_index(idx, r, "cuda")
@@ -391,6 +425,92 @@ def test_gather_gemm_kernel_matches_plain(n, streams, k, d):
     assert torch.equal(grid_z, grid_want)
     if n >= 6 and streams is None and k == 1:
         assert not z[3:5].any() and not x_res[3:5].any()
+
+
+def _full_mantissa(rng, shape):
+    """Values of both signs whose float32 mantissas use all 24 bits,
+    (1 + j * 2**-23) * 2**e with j random in [0, 2**23): TF32 keeps 11 of
+    them."""
+    j = rng.integers(0, 2 ** 23, shape)
+    e = rng.integers(-2, 1, shape)
+    sign = rng.choice([-1.0, 1.0], shape)
+    return (sign * (1.0 + j * 2.0 ** -23) * 2.0 ** e).astype(np.float32)
+
+
+def _tf32(t):
+    """t rounded to TF32 (10 explicit mantissa bits, to nearest, ties away
+    from zero: cvt.rna.tf32.f32), as float64."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32).double()
+
+
+def _rel_err(got, want):
+    """The largest |got - want| over the outputs, each relative to
+    max(1, max|want|)."""
+    return max((g.double() - w).abs().max().item()
+               / max(1.0, w.abs().max().item()) for g, w in zip(got, want))
+
+
+# 3xTF32 against the f32 plain version on full-mantissa inputs: the kernels
+# may err at most _X3_FACTOR times as much as the plain f32 version, and
+# that bound must stay 10 times below the error of 1xTF32 (rounded
+# operands, exact sums) on the same inputs.  Measured on an NVIDIA H100
+# 80GB HBM3 (700 W), relative to max(1, max|float64|): K3 3.2e-7 against
+# plain f32 8.8e-7 and 1xTF32 2.7e-4; K2 6.1e-7 against 3.5e-7 and 2.9e-4
+# (a kernel summing all of K in one tensor-core accumulator gave K2 1.5e-5)
+_X3_FACTOR = 8.0
+
+
+def _check_x3(kernel, plain, tf32):
+    assert kernel <= _X3_FACTOR * plain, (kernel, plain, tf32)
+    assert _X3_FACTOR * plain <= tf32 / 10, (kernel, plain, tf32)
+
+
+def test_gather_gemm_full_mantissa_needs_3xtf32():
+    """K3 at the train shape (640 rows, D = 2048, H = 512) on inputs with
+    full 24-bit mantissas, against a float64 computation: within
+    _X3_FACTOR times the error of the plain f32 version, which 1xTF32
+    misses by far."""
+    rng = np.random.default_rng(7)
+    store = torch.from_numpy(_full_mantissa(rng, (1000, 2048))).cuda()
+    w = torch.from_numpy(_full_mantissa(rng, (512, 2048)) / 64).cuda()
+    idx = rng.integers(0, 1000, 640)
+    rows = gather_gemm.row_index(idx, 1000, "cuda")
+    z, _ = gather_gemm.gathered_gemm(store, rows, w)
+    plain, _ = gather_gemm.gathered_gemm_plain(store, rows.rows, w)
+    x = store.double()[torch.from_numpy(idx).cuda()]
+    want = x @ w.double().T
+    one = _tf32(store)[torch.from_numpy(idx).cuda()] @ _tf32(w).T
+    errs = [_rel_err([t], [want]) for t in (z, plain, one)]
+    print(f"K3 full mantissa: kernel {errs[0]:.3e}, plain f32 {errs[1]:.3e}, "
+          f"1xTF32 {errs[2]:.3e}")
+    _check_x3(*errs)
+
+
+def test_bwd_full_mantissa_needs_3xtf32():
+    """K2 at the train batch (202, 5, 512, 256) on inputs with full 24-bit
+    mantissas, against the plain backward in float64: within _X3_FACTOR
+    times the error of the plain f32 version, which 1xTF32 misses by
+    far."""
+    b, s, d, h = 202, 5, 512, 256
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(_full_mantissa(rng, (b, s, d))).cuda()
+    w = [torch.from_numpy(_full_mantissa(rng, (h, k * d)) / 64).cuda()
+         for k in build_relation_plan(s).scales]
+    g = torch.from_numpy(_full_mantissa(rng, (b, s - 1, h))).cuda()
+    masks = torch.from_numpy(
+        rng.integers(0, 2, (b, 10 * h)).astype(np.uint8)).cuda()
+    got = trn_fused.trn_multiscale_bwd(x, w, masks, g, s, 3)
+    plain = trn_fused.trn_multiscale_bwd_plain(x, w, masks, g, s)
+    want = trn_fused.trn_multiscale_bwd_plain(
+        x.double(), [t.double() for t in w], masks, g.double(), s)
+    one = trn_fused.trn_multiscale_bwd_plain(
+        _tf32(x), [_tf32(t) for t in w], masks, _tf32(g), s)
+    flat = lambda r: (r[0], *r[1], *r[2])
+    errs = [_rel_err(flat(r), flat(want)) for r in (got, plain, one)]
+    print(f"K2 full mantissa: kernel {errs[0]:.3e}, plain f32 {errs[1]:.3e}, "
+          f"1xTF32 {errs[2]:.3e}")
+    _check_x3(*errs)
 
 
 def test_gather_gemm_empty_launches_nothing():
