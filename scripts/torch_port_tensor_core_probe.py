@@ -1,11 +1,14 @@
 """Probes of the port's tensor-core kernels on one CUDA card (an H100):
-the numbers behind the design of K2 (csrc/trn_fused_bwd.cu) and K3
-(csrc/gather_gemm.cu), and behind the tf32x3.cuh helpers they share.
+the numbers behind the design of K1 (csrc/trn_fused_fwd.cu), K2
+(csrc/trn_fused_bwd.cu) and K3 (csrc/gather_gemm.cu), and behind the
+tf32x3.cuh helpers they share.
 
     PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
         [PROBE ...] [--k3-slices N]
+    PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
+        k1-earlier --earlier-k1 PATH
 
-Probes (all by default):
+Probes (all but k1-earlier by default):
   mma-rate        mma.sync m16n8k8 TF32 throughput: bare, and as one 3xTF32
                   step of the kernels (24 mma.sync over 16 fresh f32 values)
                   with the split done by integer rounding (tf32x3.cuh) or by
@@ -17,8 +20,20 @@ Probes (all by default):
                   float64, and chip_smoke.py's five device-store steps
                   against the host-feature steps
   phases          clock64 cycles a chunk spends waiting for its copies,
-                  issuing the next copies and computing, in K3 and in K2's
-                  dx and dW families
+                  issuing the next copies and computing, in K3, in K2's
+                  dx and dW families and in K1
+  k1-splits       K1 device time, (infer) at B=1, 64 and 202 and (train)
+                  at B=202, for 1..8 D slices
+  k1-variants     K1 with its tile width, ring and blocks an SM varied
+                  (K1_VARIANTS) at one and two D slices, each checked
+                  against the plain version and timed in turns; its GEMM
+                  and epilogue kernels by the profiler
+  k1-earlier      only when named, with --earlier-k1 PATH: K1 against
+                  the f32-FMA design it replaced, built from PATH, that
+                  design's trn_fused_fwd.cu (its C entries take no scratch
+                  and no slice count; e.g. `git show
+                  a7f844d:ta3n_tpu_torch/csrc/trn_fused_fwd.cu`), both
+                  checked against the plain version and timed in turns
 
 --k3-slices N runs the split-variants probe with K3 at N K slices in
 place of the wrapper's choice.  Variants are built from a patched copy of
@@ -30,6 +45,7 @@ Fails on a machine without a CUDA device.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import re
 import shutil
 import statistics
@@ -210,24 +226,33 @@ def dev_ms(fn) -> float:
     return chip_smoke.device_ms(fn)
 
 
-def variant_library(name: str, patch, extra_c: str = ""):
-    """Build csrc/ with tf32x3.cuh patched by ``patch`` (text -> text) and
+def variant_library(name: str, patch, extra_c: str = "", edits=None):
+    """Build csrc/ with tf32x3.cuh patched by ``patch`` (text -> text),
     ``extra_c`` appended to each kernel source that includes it, STEM
-    replaced by the source's name; bind it as _build does."""
+    replaced by the source's name, and ``edits`` ({source name: [(old,
+    new), ...]}) made in the sources; bind it as _build does.  Returns the
+    library and ptxas's lines on registers and spills."""
     out = PROBE_DIR / re.sub(r"\W+", "_", name)
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(_build._CSRC, out)
     header = out / "tf32x3.cuh"
     header.write_text(patch(header.read_text()))
+    for source, pairs in (edits or {}).items():
+        text = (out / source).read_text()
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{source} has changed: {old!r}")
+            text = text.replace(old, new)
+        (out / source).write_text(text)
     for src in _build.SOURCES:
         if '#include "tf32x3.cuh"' in src.read_text():
             with open(out / src.name, "a") as f:
                 f.write(extra_c.replace("STEM", src.stem))
     nvcc = _build._nvcc()
     objs = [str(out / (src.stem + ".o")) for src in _build.SOURCES]
-    _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", obj,
-                      str(out / src.name)]
-                     for src, obj in zip(_build.SOURCES, objs)])
+    ptxas = _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", obj,
+                              str(out / src.name)]
+                             for src, obj in zip(_build.SOURCES, objs)])
     lib_path = out / "lib.so"
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
                       str(lib_path), *objs]])
@@ -236,7 +261,7 @@ def variant_library(name: str, patch, extra_c: str = ""):
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return lib, ptxas
 
 
 def with_library(lib):
@@ -313,7 +338,7 @@ def probe_split_variants() -> None:
 
     for name, body in SPLITS.items():
         patch = split_patch(body)
-        with_library(variant_library(f"split {name}", patch))
+        with_library(variant_library(f"split {name}", patch)[0])
         z, x = gather_gemm.gathered_gemm(dev[0], rows, w, scale)
         err = z.double() - x.double() @ w.double().T
         log(f"  {name}: K3 at N=640 against float64: max {err.abs().max().item():.3e}, "
@@ -345,7 +370,7 @@ extern "C" void probe_phases_STEM(unsigned long long* out, int reset) {
   }
 }
 """
-    lib = variant_library("phases", patch, read)
+    lib = variant_library("phases", patch, read)[0]
     with_library(lib)
     counts = (ctypes.c_ulonglong * 4)()
 
@@ -368,6 +393,12 @@ extern "C" void probe_phases_STEM(unsigned long long* out, int reset) {
         store.shape[0], "cuda")
     measure("K3 N=640", lambda: gather_gemm.gathered_gemm(store, rows, w),
             "gather_gemm")
+    with torch.no_grad():
+        for b in (64, 202):
+            x, wt, bi = chip_smoke.trn_inputs(
+                b, 5, 512, 256, torch.Generator().manual_seed(0))
+            measure(f"K1 (infer) B={b}", lambda: trn_fused.trn_multiscale_infer(
+                x, wt, bi, 5), "trn_fused_fwd")
     x, wt, bi = chip_smoke.trn_inputs(202, 5, 512, 256,
                                       torch.Generator().manual_seed(0),
                                       signed=True)
@@ -380,8 +411,159 @@ extern "C" void probe_phases_STEM(unsigned long long* out, int reset) {
                         x, wt, masks, g, parts), "trn_fused_bwd")
 
 
+def k1_cases():
+    """K1's timed cases: (label, B, fn(x, w, b) -> output)."""
+    infer = lambda x, w, b: trn_fused.trn_multiscale_infer(x, w, b, 5)
+    train = lambda x, w, b: trn_fused.trn_multiscale_fwd_masks(x, w, b, 5)
+    return (("K1 (infer)", 1, infer), ("K1 (infer)", 64, infer),
+            ("K1 (infer)", 202, infer),
+            ("K1 (train)", 202, train))
+
+
+def probe_k1_splits() -> None:
+    log("k1-splits (device time, median of 21 launches)")
+    chosen = trn_fused._fwd_splits
+    with torch.no_grad():
+        for label, b, fn in k1_cases():
+            x, w, bi = chip_smoke.trn_inputs(
+                b, 5, 512, 256, torch.Generator().manual_seed(0))
+            line = []
+            for splits in range(1, trn_fused._FWD_MAX_SPLITS + 1):
+                trn_fused._fwd_splits = lambda *a, n=splits: n
+                for _ in range(3):
+                    fn(x, w, bi)
+                line.append(f"{splits}: " + format(statistics.median(
+                    dev_ms(lambda: fn(x, w, bi)) for _ in range(21)), ".4f"))
+            trn_fused._fwd_splits = chosen
+            log(f"  {label} B={b}: ms by D slices {', '.join(line)}; the "
+                f"wrapper picks {chosen(5, 3, b, 512, 256)}")
+
+
+# K1 (csrc/trn_fused_fwd.cu) variants: edits of the source
+_K1_WIDE = [("constexpr int kTileH = 64;", "constexpr int kTileH = 128;"),
+            ("constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 2;")]
+_K1_STAGES3 = [("constexpr int kStages = 4;", "constexpr int kStages = 3;")]
+K1_VARIANTS = {
+    "64x64 tiles, 4 stages, 3 blocks an SM (the tree)": [],
+    "64x64, 3 stages, 4 blocks an SM": _K1_STAGES3 + [
+        ("constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 4;")],
+    "64x128, 3 stages, 2 blocks an SM": _K1_WIDE + _K1_STAGES3,
+}
+
+
+def ptxas_lines(out: str, kernel: str) -> str:
+    """ptxas's registers and spills for the first entry naming kernel."""
+    lines = out.splitlines()
+    for n, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            found = [x.split(":", 1)[-1].strip() for x in lines[n + 1:n + 5]
+                     if "registers" in x or "spill" in x]
+            return "; ".join(found)
+    return "not found"
+
+
+def probe_k1_variants() -> None:
+    """K1 built in each variant of K1_VARIANTS at one and two D slices,
+    checked against the plain version and timed in turns; the GEMM and
+    the epilogue kernels of each by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    log("k1-variants (device time, medians of 41 in turns)")
+    libs = {}
+    for name, edits in K1_VARIANTS.items():
+        lib, ptxas = variant_library(f"k1 {name}", lambda text: text, "",
+                                     {"trn_fused_fwd.cu": edits})
+        log(f"  {name}: {ptxas_lines(ptxas, 'trn_fused_fwd_kernel')}")
+        libs[name] = lib
+    chosen, tree = trn_fused._fwd_splits, _build.load_library
+    with torch.no_grad():
+        for label, b, fn in k1_cases():
+            x, w, bi = chip_smoke.trn_inputs(
+                b, 5, 512, 256, torch.Generator().manual_seed(0))
+            want = trn_fused.trn_multiscale_plain(x, w, bi, 5)
+            fns = {}
+            for (name, lib), splits in itertools.product(libs.items(),
+                                                         (1, 2)):
+                def run(lib=lib, splits=splits):
+                    with_library(lib)
+                    trn_fused._fwd_splits = lambda *a: splits
+                    return fn(x, w, bi)
+                got = run()
+                got = got[0] if isinstance(got, tuple) else got
+                err = (got - want).abs().max().item()
+                tol = chip_smoke.RTOL * max(1.0, want.abs().max().item())
+                if not err <= tol:
+                    raise AssertionError(f"{name} {label} B={b}: {err}")
+                fns[(name, splits)] = run
+            t = chip_smoke.time_pair(fns)
+            for key, run in fns.items():
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        run()
+                    torch.cuda.synchronize()
+                gemm, epi = (sum(e.self_device_time_total
+                                 for e in prof.key_averages() if part in e.key)
+                             / 1e3 / 20 for part in ("trn_fused_fwd_kernel",
+                                                     "trn_fused_fwd_epilogue"))
+                log(f"  {label} B={b}, {key[0]}, {key[1]} D slice(s): "
+                    f"{t[key]:.4f} ms (GEMM {gemm:.4f}, epilogue {epi:.4f} "
+                    "by the profiler, means of 20)")
+    trn_fused._fwd_splits, _build.load_library = chosen, tree
+
+
+def probe_k1_earlier(path: Path) -> None:
+    log(f"k1-earlier ({path.name} from {path.parent}; device time, "
+        "medians of 41 in turns)")
+    out_dir = PROBE_DIR / "earlier"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / "lib.so"
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                      str(lib_path), str(path)]])
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ta3n_trn_fused_fwd_f32.argtypes = [P] * 5 + [I] * 4 + [P]
+    lib.ta3n_trn_fused_fwd_train_f32.argtypes = [P] * 6 + [I] * 4 + [P]
+
+    def earlier(x, w, bi, masks=None):
+        b, s, d = x.shape
+        h = w[0].shape[0]
+        out = torch.empty((b, s - 1, h), device=x.device)
+        ptrs = [trn_fused._ptrs(t) for t in (w, bi)]
+        extra = [] if masks is None else [masks.data_ptr()]
+        stream = torch.cuda.current_stream().cuda_stream
+        entry = (lib.ta3n_trn_fused_fwd_f32 if masks is None
+                 else lib.ta3n_trn_fused_fwd_train_f32)
+        err = entry(x.data_ptr(), ctypes.addressof(ptrs[0]),
+                    ctypes.addressof(ptrs[1]), out.data_ptr(), *extra,
+                    trn_fused._plan_table(s, 3).ctypes.data, b, s, d, h,
+                    stream)
+        if err:
+            raise RuntimeError(f"earlier K1 launch failed: {err}")
+        return out
+
+    with torch.no_grad():
+        for label, b, fn in k1_cases():
+            x, w, bi = chip_smoke.trn_inputs(
+                b, 5, 512, 256, torch.Generator().manual_seed(0))
+            masks = (torch.empty((b, 10 * 256), dtype=torch.uint8,
+                                 device="cuda") if "train" in label else None)
+            want = trn_fused.trn_multiscale_plain(x, w, bi, 5)
+            for name, got in (("earlier", earlier(x, w, bi, masks)),
+                              ("current", fn(x, w, bi))):
+                got = got[0] if isinstance(got, tuple) else got
+                err = (got - want).abs().max().item()
+                tol = chip_smoke.RTOL * max(1.0, want.abs().max().item())
+                if not err <= tol:
+                    raise AssertionError(f"{name} {label} B={b}: {err}")
+            t = chip_smoke.time_pair({
+                "earlier": lambda: earlier(x, w, bi, masks),
+                "current": lambda: fn(x, w, bi)})
+            log(f"  {label} B={b}: earlier {t['earlier']:.4f} ms, current "
+                f"{t['current']:.4f} ms ({t['earlier'] / t['current']:.2f}x)")
+
+
 PROBES = {"mma-rate": probe_mma_rate, "k3-splits": probe_k3_splits,
-          "split-variants": probe_split_variants, "phases": probe_phases}
+          "split-variants": probe_split_variants, "phases": probe_phases,
+          "k1-splits": probe_k1_splits, "k1-variants": probe_k1_variants}
 
 
 def main(argv) -> int:
@@ -396,7 +578,12 @@ def main(argv) -> int:
         del argv[at:at + 2]
         gather_gemm._splits = lambda m, h, chunks: min(slices, chunks)
         log(f"K3 at {slices} K slices")
-    names = argv or list(PROBES)
+    if "--earlier-k1" in argv:
+        at = argv.index("--earlier-k1")
+        path = Path(argv[at + 1]).resolve()
+        del argv[at:at + 2]
+        PROBES["k1-earlier"] = lambda: probe_k1_earlier(path)
+    names = argv or [n for n in PROBES if n != "k1-earlier"]
     unknown = [n for n in names if n not in PROBES]
     if unknown:
         print(f"unknown probes {unknown}; choose from {list(PROBES)}",

@@ -128,10 +128,11 @@ def reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_reference_checkpoint(path: str, model_cfg: ModelConfig,
-                              device="cpu") -> VideoModel:
+                              device="cuda") -> VideoModel:
     """A `VideoModel` for ``model_cfg`` holding the weights of the
     reference-format ``.pth.tar`` at ``path`` (strict load), on
-    ``device``."""
+    ``device``: the card by default, as the port's other entry points;
+    CPU callers pass ``device="cpu"``."""
     state = reference_state_dict(path)
     # its own generator: the init is overwritten, and the global RNG stays
     model = VideoModel(model_cfg, torch.Generator(), device)

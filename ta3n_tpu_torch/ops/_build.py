@@ -40,11 +40,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (every pointer and the stream c_void_p)
 _ENTRIES = {
-    # x, w ptrs, b ptrs, out, plan table, batch, frames, d, h, stream
-    "ta3n_trn_fused_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, w ptrs, b ptrs, out, masks, plan table, batch, frames, d, h, stream
-    "ta3n_trn_fused_fwd_train_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _P],
+    # x, w ptrs, b ptrs, out, part, plan table, batch, frames, d, h,
+    # splits, stream
+    "ta3n_trn_fused_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P],
+    # x, w ptrs, b ptrs, out, masks, part, plan table, batch, frames, d, h,
+    # splits, stream
+    "ta3n_trn_fused_fwd_train_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _P],
     # x, w ptrs, masks, g, dx, dw ptrs, db ptrs, plan table, batch, frames,
     # d, h, stream
     "ta3n_trn_fused_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

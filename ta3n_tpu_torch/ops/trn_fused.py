@@ -64,6 +64,15 @@ bwd_launches = 0      # backward, csrc/trn_fused_bwd.cu
 _MAX_FRAMES = 16
 _MAX_SUBSETS = 3
 
+# the forward kernel's tiles (csrc/trn_fused_fwd.cu): unit rows (subset,
+# video) and H columns per block, D per chunk; and how many D slices share
+# an output tile: as many as _FWD_TARGET_BLOCKS blocks hold, one per SM of
+# the H100's 132 (one slice at B=64, 128 blocks, and at B=202, 440: on
+# the H100 one slice beat two to eight at B=64 and was within 1% of the
+# best at B=202, PERF.md)
+_FWD_TILE_M, _FWD_TILE_H, _FWD_TILE_K = 64, 64, 32
+_FWD_MAX_SPLITS, _FWD_TARGET_BLOCKS = 8, 132
+
 
 def trn_multiscale_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                          biases: Sequence[torch.Tensor], num_frames: int,
@@ -158,6 +167,30 @@ def _plan_table(num_frames: int, subsample_num: int) -> np.ndarray:
     return table
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_units(num_frames: int, subsample_num: int) -> tuple:
+    """The forward kernel's work units in its block order: one per (scale
+    i, position p), ``(i, p, n_sub_i)``, a GEMM over the n_sub_i*B rows
+    (subset j, video) against W_i's D columns of position p.  The unit's
+    partials land in the scratch slots slot0_i + p*n_sub_i + j, where
+    slot0_i counts the slots of the scales before it."""
+    plan = build_relation_plan(num_frames, subsample_num)
+    return tuple((i, p, len(sub)) for i, (k, sub) in
+                 enumerate(zip(plan.scales, plan.subsets)) for p in range(k))
+
+
+def _fwd_splits(num_frames: int, subsample_num: int, b: int, d: int,
+                h: int) -> int:
+    """D slices per output tile of the forward kernel: as many as keep the
+    grid within _FWD_TARGET_BLOCKS blocks, at least 1, at most
+    _FWD_MAX_SPLITS and at most one per D chunk."""
+    h_tiles = -(-h // _FWD_TILE_H)
+    tiles = sum(-(-n * b // _FWD_TILE_M) * h_tiles
+                for _, _, n in _fwd_units(num_frames, subsample_num))
+    return max(1, min(_FWD_MAX_SPLITS, -(-d // _FWD_TILE_K),
+                      _FWD_TARGET_BLOCKS // tiles))
+
+
 def _check_inputs(x, weights, biases, num_frames, subsample_num) -> None:
     """Raise on anything the kernels do not take (``biases`` None: the
     backward, which takes none)."""
@@ -219,6 +252,23 @@ def _call(entry: str, x: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
+def _launch_fwd(entry, x, weights, biases, num_frames, subsample_num,
+                *outs) -> None:
+    """The forward kernel and its epilogue into ``outs`` (out, and the
+    masks in the training variant), with their scratch of partial z."""
+    b, s, d = x.shape
+    h = weights[0].shape[0]
+    splits = _fwd_splits(num_frames, subsample_num, b, d, h)
+    slots = sum(n for _, _, n in _fwd_units(num_frames, subsample_num))
+    part = torch.empty((splits * slots, b, h), dtype=x.dtype,
+                       device=x.device)
+    w_ptrs, b_ptrs = _ptrs(weights), _ptrs(biases)
+    _call(entry, x, x.data_ptr(), ctypes.addressof(w_ptrs),
+          ctypes.addressof(b_ptrs), *(t.data_ptr() for t in outs),
+          part.data_ptr(), _plan_table(num_frames, subsample_num).ctypes.data,
+          b, s, d, h, splits)
+
+
 def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
     """The inference forward kernel."""
     global launches
@@ -229,16 +279,13 @@ def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
             "trn_multiscale_infer's CUDA kernel has no backward; call it "
             "under torch.no_grad() or torch.inference_mode(), or train "
             "through trn_multiscale_fused")
-    b, s, d = x.shape
+    b, s, _ = x.shape
     h = weights[0].shape[0]
     out = torch.empty((b, s - 1, h), dtype=x.dtype, device=x.device)
     if b == 0:  # a grid of 0 blocks is refused
         return out
-    w_ptrs, b_ptrs = _ptrs(weights), _ptrs(biases)
-    _call("ta3n_trn_fused_fwd_f32", x, x.data_ptr(),
-          ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
-          out.data_ptr(), _plan_table(num_frames, subsample_num).ctypes.data,
-          b, s, d, h)
+    _launch_fwd("ta3n_trn_fused_fwd_f32", x, weights, biases, num_frames,
+                subsample_num, out)
     launches += 1
     return out
 
@@ -253,18 +300,15 @@ def _launch_train(x, weights, biases, num_frames, subsample_num
     """The training forward kernel: (out, uint8 masks)."""
     global train_launches
     _check_inputs(x, weights, biases, num_frames, subsample_num)
-    b, s, d = x.shape
+    b, s, _ = x.shape
     h = weights[0].shape[0]
     n_sub = _n_subsets(num_frames, subsample_num)
     out = torch.empty((b, s - 1, h), dtype=x.dtype, device=x.device)
     masks = torch.empty((b, n_sub * h), dtype=torch.uint8, device=x.device)
     if b == 0:  # a grid of 0 blocks is refused
         return out, masks
-    w_ptrs, b_ptrs = _ptrs(weights), _ptrs(biases)
-    _call("ta3n_trn_fused_fwd_train_f32", x, x.data_ptr(),
-          ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
-          out.data_ptr(), masks.data_ptr(),
-          _plan_table(num_frames, subsample_num).ctypes.data, b, s, d, h)
+    _launch_fwd("ta3n_trn_fused_fwd_train_f32", x, weights, biases,
+                num_frames, subsample_num, out, masks)
     train_launches += 1
     return out, masks
 

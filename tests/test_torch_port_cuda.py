@@ -133,6 +133,87 @@ def test_train_kernel_matches_plain(b, s, d, h):
     assert torch.equal(grid_out, grid_want)
 
 
+def _preacts(x, weights, biases, s):
+    """z of every subset, [B, n_sub*H], in the masks' layout."""
+    plan = build_relation_plan(s)
+    b, _, d = x.shape
+    zs = []
+    for w, bias, k, subsets in zip(weights, biases, plan.scales,
+                                   plan.subsets):
+        idx = torch.as_tensor(subsets.reshape(-1), device=x.device)
+        g = x[:, idx].reshape(b, subsets.shape[0], k * d)
+        zs.append((torch.relu(g) @ w.T + bias).reshape(b, -1))
+    return torch.cat(zs, dim=1)
+
+
+def _check_fwd(b, s, d, h, train):
+    """K1, the inference (train=False) or the training variant: output
+    within 1e-4 * max(1, max|plain|), masks equal to plain's except where
+    |z| is within that tolerance of 0 (a rounding tie), a second call
+    bitwise equal, exact inputs bit for bit (masks included); one launch
+    per call."""
+    x, w, bi = _trn_inputs(b, s, d, h)
+    gx, gw, gb, _ = _grid_inputs(b, s, d, h, seed=1)
+    _reset_counts()
+    with torch.no_grad():
+        if train:
+            fwd = trn_fused.trn_multiscale_fwd_masks
+            plain = trn_fused.trn_multiscale_fwd_masks_plain
+        else:
+            fwd = lambda *a: (trn_fused.trn_multiscale_infer(*a), None)
+            plain = lambda *a: (trn_fused.trn_multiscale_plain(*a), None)
+        (got, masks), (again, masks_again) = fwd(x, w, bi, s), \
+            fwd(x, w, bi, s)
+        want, want_masks = trn_fused.trn_multiscale_fwd_masks_plain(
+            x, w, bi, s)
+        grid_got, grid_masks = fwd(gx, gw, gb, s)
+        grid_want, grid_want_masks = plain(gx, gw, gb, s)
+        z = _preacts(x, w, bi, s)
+    torch.cuda.synchronize()
+    assert (trn_fused.train_launches if train else trn_fused.launches) == 3
+    assert got.shape == (b, s - 1, h)
+    assert (got - want).abs().max().item() <= _tol(want)
+    assert torch.equal(got, again) and torch.equal(grid_got, grid_want)
+    if train:
+        assert masks.dtype == torch.uint8 and masks.shape == want_masks.shape
+        differ = masks != want_masks
+        assert (z[differ].abs() <= _tol(z)).all()
+        assert torch.equal(masks, masks_again)
+        assert torch.equal(grid_masks, grid_want_masks)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["infer", "train"])
+@pytest.mark.parametrize("b", [63, 64, 65, 129, 202])
+def test_fwd_kernel_batch_edges(b, train):
+    """K1 around its 64-row unit tiles, whose rows (subset, video) run
+    over the subsets of a scale: B*n_sub rows end mid-tile at 63, 65 and
+    129, exactly at 64 and 202*3 = 606 = 9*64 + 30."""
+    _check_fwd(b, 5, 512, 256, train)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["infer", "train"])
+@pytest.mark.parametrize("splits", ["one", "most"])
+@pytest.mark.parametrize("b", [1, 64, 202])
+def test_fwd_kernel_splits(b, splits, train, monkeypatch):
+    """K1 with one D slice per output tile and with as many as it takes
+    (8: 2 chunks a slice at D = 512): the checks of _check_fwd."""
+    most = trn_fused._FWD_MAX_SPLITS
+    monkeypatch.setattr(trn_fused, "_fwd_splits", lambda s, n, b_, d, h:
+                        1 if splits == "one" else most)
+    _check_fwd(b, 5, 512, 256, train)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["infer", "train"])
+@pytest.mark.parametrize("d", [37, 100])
+def test_fwd_kernel_ragged_d_chunk(d, train, monkeypatch):
+    """K1 with D not a multiple of its 32-deep chunk, with 4-byte copies
+    (D = 37) and 16-byte copies (D = 100), at 1 and at 3 D slices."""
+    for splits in (1, 3):
+        monkeypatch.setattr(trn_fused, "_fwd_splits",
+                            lambda *a, n=splits: n)
+        _check_fwd(70, 5, d, 40, train)
+
+
 @pytest.mark.parametrize("b,s,d,h", CASES)
 def test_bwd_kernel_matches_plain(b, s, d, h):
     """The backward from the kernel's masks: dx, every dW and db within
@@ -511,6 +592,38 @@ def test_bwd_full_mantissa_needs_3xtf32():
     print(f"K2 full mantissa: kernel {errs[0]:.3e}, plain f32 {errs[1]:.3e}, "
           f"1xTF32 {errs[2]:.3e}")
     _check_x3(*errs)
+
+
+def test_fwd_full_mantissa_needs_3xtf32():
+    """K1 (train) at the train batch (202, 5, 512, 256) on inputs with
+    full 24-bit mantissas, against the plain forward in float64: the
+    output within _X3_FACTOR times the error of the plain f32 version,
+    which 1xTF32 misses by far; the masks differ from float64's only at
+    rounding ties (|z| within 1e-4 * max(1, max|z|) of 0)."""
+    b, s, d, h = 202, 5, 512, 256
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(_full_mantissa(rng, (b, s, d))).cuda()
+    w = [torch.from_numpy(_full_mantissa(rng, (h, k * d)) / 64).cuda()
+         for k in build_relation_plan(s).scales]
+    bi = [torch.from_numpy(_full_mantissa(rng, (h,)) / 64).cuda()
+          for _ in w]
+    with torch.no_grad():
+        got, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+        plain = trn_fused.trn_multiscale_plain(x, w, bi, s)
+        xd, wd, bd = x.double(), [t.double() for t in w], \
+            [t.double() for t in bi]
+        want, want_masks = trn_fused.trn_multiscale_fwd_masks_plain(
+            xd, wd, bd, s)
+        one = trn_fused.trn_multiscale_plain(_tf32(x), [_tf32(t) for t in w],
+                                             bd, s)
+        z = _preacts(xd, wd, bd, s)
+    errs = [_rel_err([t], [want]) for t in (got, plain, one)]
+    differ = masks != want_masks
+    print(f"K1 full mantissa: kernel {errs[0]:.3e}, plain f32 {errs[1]:.3e}, "
+          f"1xTF32 {errs[2]:.3e}; {int(differ.sum())} of {masks.numel()} "
+          "masks differ from float64's")
+    _check_x3(*errs)
+    assert (z[differ].abs() <= _tol(z)).all()
 
 
 def test_gather_gemm_empty_launches_nothing():

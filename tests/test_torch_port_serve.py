@@ -2,6 +2,7 @@
 checkpoint written by the JAX package and answers as the JAX Predictor
 does (CPU), over HTTP too; the CLI refuses what is not ported."""
 
+import inspect
 import json
 import threading
 import urllib.error
@@ -18,6 +19,8 @@ from ta3n_tpu.models import VideoModel as JaxVideoModel
 from ta3n_tpu.serve import Predictor as JaxPredictor
 from ta3n_tpu.train import create_train_state
 from ta3n_tpu_torch.cli import serve as cli_serve
+from ta3n_tpu_torch.io_utils.convert import (load_reference_checkpoint,
+                                             reference_state_dict)
 from ta3n_tpu_torch.serve import Predictor, make_http_server
 
 CFG = ModelConfig(num_class=4, baseline_type="video",
@@ -51,6 +54,22 @@ def checkpoint(tmp_path_factory):
 def predictor(checkpoint):
     return Predictor.from_checkpoint(checkpoint[0], CFG, device="cpu",
                                      batch_size=4, top_k=3)
+
+
+def test_load_reference_checkpoint_onto_the_cpu(checkpoint):
+    """The loader defaults to the card, as Predictor.from_checkpoint does;
+    a CPU caller asks for the CPU and gets every weight of the file
+    there."""
+    default = inspect.signature(load_reference_checkpoint).parameters[
+        "device"].default
+    assert default == "cuda"
+    model = load_reference_checkpoint(checkpoint[0], CFG, device="cpu")
+    state = model.state_dict()
+    want = reference_state_dict(checkpoint[0])
+    assert sorted(state) == sorted(want)
+    for name, value in want.items():
+        assert state[name].device.type == "cpu"
+        assert torch.equal(state[name], value), name
 
 
 def test_predictor_matches_jax_predictor(checkpoint, predictor):
