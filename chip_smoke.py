@@ -27,7 +27,17 @@ seed):
     steps of the host-feature step on the same batches, each step from
     the same parameters, then both timed at dropout 0.5;
   * device-store eval: one val epoch (6 batches of 64) through
-    make_multi_eval_step against the host-feature eval step.
+    make_multi_eval_step against the host-feature eval step;
+  * the TRN beyond 16 segments: K1 (infer) at B=64, K1 (train) and K2 at
+    B=202, at S = 17 and 25, against their plain versions, and timed;
+  * the eval CLI (`python -m ta3n_tpu_torch.cli.test_models`) on the
+    synthetic val store and a seed model's `.pth.tar`, from host features
+    and with --device_store, its scores held to a plain-path forward;
+  * the Trainer through the train CLI (`python -m ta3n_tpu_torch.cli.train`)
+    on synthetic stores of the published split sizes: 2 epochs from the
+    device stores with --save_model, a --resume_hp run to epoch 3, one
+    epoch from host features, and the eval CLI on its model_best.pth.tar,
+    whose Pred@1 must be the best Prec@1 the Trainer printed.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -36,9 +46,10 @@ without a CUDA device.  The last line of the output is one JSON object:
 
 from __future__ import annotations
 
+import contextlib
 import copy
-import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
@@ -54,15 +65,18 @@ import numpy as np
 import torch
 from torch import nn
 
+from ta3n_tpu_torch.cli import test_models as cli_test_models
+from ta3n_tpu_torch.cli import train as cli_train
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.data import TSNLoader, make_domain_pair
 from ta3n_tpu_torch.models import VideoModel
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
-from ta3n_tpu_torch.ops import _build, gather_gemm, trn_fused
+from ta3n_tpu_torch.ops import _build, gather_gemm, relation, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
 from ta3n_tpu_torch.serve import Predictor, make_http_server
 from ta3n_tpu_torch.train import (StepScalars, TrainState, make_eval_step,
                                   make_multi_eval_step, make_train_step)
+from ta3n_tpu_torch.train.loop import Trainer
 from ta3n_tpu_torch.train.optim import make_optimizer
 from ta3n_tpu_torch.train.schedules import dann_lr, effective_beta, progress
 
@@ -91,6 +105,19 @@ SPLITS = dict(num_source=1438, num_target=840, num_val=360)
 K3_CASES = (640, 370, 320, 37, 1, 0)   # rows: train source/target, eval
 K3_TIMED = ((640, True), (320, False))  # (rows, with x_res): train, eval
 EVAL_RTOL = 1e-5               # the val epoch's summed loss
+MANY_FRAMES = (17, 25)         # segments beyond the earlier cap of 16
+CLI_BATCH = 128                # the eval CLI's --bS and the val batch
+# the flagship's flags on the command line of the CLIs
+MODEL_FLAGS = ["--baseline_type", "video", "--frame_aggregation", "trn-m",
+               "--use_attn", "TransAttn", "--fc_dim", "512",
+               "--feature_dim", "2048"]
+# the published recipe on the train CLI's command line (BASELINE.md:25)
+RECIPE_FLAGS = ["--num_segments", "5", "--use_target", "uSv",
+                "--adv_DA", "RevGrad", "--place_adv", "Y", "Y", "Y",
+                "--add_loss_DA", "attentive_entropy", "--gamma", "0.003",
+                "--beta", "0.75", "0.75", "0.5", "--lr", "0.03",
+                "--lr_adaptive", "dann", "-b", "128", "74", str(CLI_BATCH),
+                "--dropout_i", "0.5", "--dropout_v", "0.5", "-pf", "4"]
 # NVIDIA H100 SXM data sheet (700 W): dense TF32 tensor-core peak and HBM
 # rate
 PEAK_TF32 = 495e12
@@ -1029,16 +1056,14 @@ def bwd_parts(x, w, masks, g, parts):
     b, s, d = x.shape
     h = w[0].shape[0]
     dx = torch.zeros_like(x)
-    dws = [torch.zeros_like(t) for t in w]
-    dbs = [torch.zeros((h,), device=x.device) for _ in w]
-    ptrs = [trn_fused._ptrs(t) for t in (w, dws, dbs)]
+    dw = torch.zeros((sum(t.numel() for t in w),), device=x.device)
+    db = torch.zeros((len(w), h), device=x.device)
     trn_fused._call("ta3n_trn_fused_bwd_parts_f32", x, x.data_ptr(),
-                    ctypes.addressof(ptrs[0]), masks.data_ptr(),
-                    g.data_ptr(), dx.data_ptr(), ctypes.addressof(ptrs[1]),
-                    ctypes.addressof(ptrs[2]),
-                    trn_fused._plan_table(s, 3).ctypes.data, b, s, d, h,
-                    parts)
-    return dx, dws, dbs
+                    *trn_fused._pointer_args(w, (), s, 3, x.device),
+                    masks.data_ptr(),
+                    g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                    *trn_fused._plan_args(s, 3, x.device), b, s, d, h, parts)
+    return dx, trn_fused._split_flat(dw, w), tuple(db.unbind())
 
 
 def split_bwd(gen, b=202, n=20):
@@ -1277,6 +1302,312 @@ def eval_device_store(gen, val, dev_val):
     return launches
 
 
+def trn_many_frames(gen):
+    """K1 (infer) at B=64, K1 (train) and K2 at B=202, at the flagship
+    widths and S = 17 and 25: each checked once against its plain version
+    (K2 from the kernel's masks; the masks equal but at ties; on dyadic
+    inputs bit for bit), then timed against it in turns.  Returns the
+    launches of the checked calls and {S: {kernel: (ms, plain ms)}}."""
+    relation.build_relation_plan.cache_clear()
+    trn_fused._plan_table.cache_clear()
+    t0 = time.perf_counter()
+    trn_fused._plan_table(25, 3)
+    log(f"  S=25 plan and kernel table built on the host in "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms "
+        f"({trn_fused._plan_table(25, 3).size} int32)")
+    launches = dict.fromkeys(counts(), 0)
+    rng = np.random.default_rng(4)
+    results = {}
+    for s in MANY_FRAMES:
+        x, w, bi = trn_inputs(SERVE_BATCH, s, 512, 256, gen)
+        with torch.inference_mode():
+            reset_counts()
+            got = trn_fused.trn_multiscale_infer(x, w, bi, s)
+            torch.cuda.synchronize()
+            launched = counts()
+            want = trn_fused.trn_multiscale_plain(x, w, bi, s)
+            err = (got - want).abs().max().item()
+            if not err <= RTOL * max(1.0, want.abs().max().item()):
+                raise AssertionError(f"K1 (infer) disagrees at S={s}: {err}")
+            infer_t = time_pair({
+                "kernel": lambda: trn_fused.trn_multiscale_infer(x, w, bi, s),
+                "plain": lambda: trn_fused.trn_multiscale_plain(x, w, bi, s)})
+        b = sum(TRAIN.batch_size[:2])
+        x, w, bi = trn_inputs(b, s, 512, 256, gen, signed=True)
+        g = torch.randn((b, s - 1, 256), generator=gen).cuda()
+        with torch.no_grad():
+            reset_counts()
+            out, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+            dx, dws, dbs = trn_fused.trn_multiscale_bwd(x, w, masks, g, s)
+            torch.cuda.synchronize()
+            launched = {k: launched[k] + n for k, n in counts().items()}
+            want, want_masks = trn_fused.trn_multiscale_fwd_masks_plain(
+                x, w, bi, s)
+            ref = trn_fused.trn_multiscale_bwd_plain(x, w, masks, g, s)
+            z = preacts(x, w, bi, s)
+            fwd_err = (out - want).abs().max().item()
+            differ = masks != want_masks
+            bwd_err = max((a - r).abs().max().item() / max(
+                1.0, r.abs().max().item()) for a, r in
+                zip((dx, *dws, *dbs), (ref[0], *ref[1], *ref[2])))
+            if not fwd_err <= RTOL * max(1.0, want.abs().max().item()) or \
+                    not bwd_err <= RTOL or not (
+                        z[differ].abs()
+                        <= RTOL * max(1.0, z.abs().max().item())).all():
+                raise AssertionError(f"K1 (train) or K2 disagrees at S={s}")
+            gx, gw, gb, gg = grid_inputs(b, s, 512, 256, rng)
+            gout, gmasks = trn_fused.trn_multiscale_fwd_masks(gx, gw, gb, s)
+            gwant, gwant_masks = trn_fused.trn_multiscale_fwd_masks_plain(
+                gx, gw, gb, s)
+            gbwd = trn_fused.trn_multiscale_bwd(gx, gw, gwant_masks, gg, s)
+            gref = trn_fused.trn_multiscale_bwd_plain(gx, gw, gwant_masks,
+                                                      gg, s)
+            exact = [torch.equal(gout, gwant), torch.equal(gmasks, gwant_masks)]
+            exact += [torch.equal(a, r) for a, r in zip(
+                (gbwd[0], *gbwd[1], *gbwd[2]), (gref[0], *gref[1], *gref[2]))]
+            if not all(exact):
+                raise AssertionError(f"S={s}: kernels differ from plain on "
+                                     "exact inputs")
+            fwd_t = time_pair({
+                "kernel": lambda: trn_fused.trn_multiscale_fwd_masks(
+                    x, w, bi, s),
+                "plain": lambda: trn_fused.trn_multiscale_fwd_masks_plain(
+                    x, w, bi, s)})
+            bwd_t = time_pair({
+                "kernel": lambda: trn_fused.trn_multiscale_bwd(
+                    x, w, masks, g, s),
+                "plain": lambda: trn_fused.trn_multiscale_bwd_plain(
+                    x, w, masks, g, s)})
+        if launched != {"trn_fused_fwd": 1, "trn_fused_fwd_train": 1,
+                        "trn_fused_bwd": 1, "gather_gemm": 0}:
+            raise AssertionError(f"S={s} launched {launched}")
+        launches = {k: launches[k] + n for k, n in launched.items()}
+        slots = sum(n for _, _, n in trn_fused._fwd_units(s, 3))
+        log(f"  S={s} ({slots} slots, K1 scratch "
+            f"{slots * b * 256 * 4 / 1e6:.0f} MB at B={b}): max|kernel-plain|"
+            f" K1 (infer) {err:.3e}, K1 (train) {fwd_err:.3e}, K2 "
+            f"{bwd_err:.3e} relative; {int(differ.sum())} of {masks.numel()}"
+            f" masks differ, at ties; exact inputs bitwise equal to plain")
+        results[s] = {}
+        for name, bb, t in (("trn_fused_fwd", SERVE_BATCH, infer_t),
+                            ("trn_fused_fwd_train", b, fwd_t),
+                            ("trn_fused_bwd", b, bwd_t)):
+            least, by = bound(*trn_work(bb, s)[name], PEAK_OPS[name])
+            results[s][name] = (t["kernel"], t["plain"], least)
+            log(f"  S={s} {name} B={bb}: kernel {t['kernel']:.4f} ms, plain "
+                f"{t['plain']:.4f} ms, bound {least:.4f} ms by {by} "
+                "(device, medians of 41 in turns)")
+    return launches, results
+
+
+def write_workspace(root, stores):
+    """The stores with their list files (as the JAX package writes them)
+    and a class file of the flagship's 12 classes, under root."""
+    for name, store in zip(("src", "tgt", "val"), stores):
+        store.save(os.path.join(root, name))
+        with open(os.path.join(root, name, "list.txt"), "w") as f:
+            for r in store.records():
+                f.write(f"{r.path} {r.num_frames} {r.label}\n")
+    with open(os.path.join(root, "class.txt"), "w") as f:
+        for i in range(FLAGSHIP.num_class):
+            f.write(f"{i} class_{i}\n")
+
+
+def run_cli(main_fn, argv):
+    """Run a CLI's main in process; its return value and its output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main_fn(argv)
+    return result, buf.getvalue()
+
+
+def eval_cli_args(root, weights, *extra):
+    return [os.path.join(root, "class.txt"), "RGB",
+            os.path.join(root, "val", "list.txt"), weights, *MODEL_FLAGS,
+            "--test_segments", "5", "--bS", str(CLI_BATCH), "--top", "1",
+            "3", "5", *extra]
+
+
+def eval_cli(gen, root, val):
+    """The eval CLI on the val store and a seed model's .pth.tar, from
+    host features and with --device_store (scores, confusion and
+    attention saved): its scores against a plain-path forward of the same
+    weights, the two Pred@k lines equal, and its launches (host: one K1
+    (infer) per batch; store: one K1 (infer) and one K3 per batch)."""
+    model = flagship_model(gen)
+    weights = os.path.join(root, "seed.pth.tar")
+    torch.save({"epoch": 0, "arch": "resnet101", "best_prec1": 0.0,
+                "prec1": 0.0,
+                "state_dict": {f"module.{k}": v.cpu() for k, v in
+                               model.state_dict().items()}}, weights)
+    plain_model = copy.deepcopy(model)
+    plain_model.TRN = PlainTRN(plain_model.TRN)
+    plain = Predictor(FLAGSHIP, plain_model, batch_size=CLI_BATCH,
+                      device="cuda")
+    loader = TSNLoader(val, batch_size=CLI_BATCH, num_segments=5,
+                       shuffle=False)
+    feats = np.concatenate([b.features[:int(b.mask.sum())]
+                            for b in loader.epoch()])
+    want = plain(feats)[0][np.argsort(np.array(val.paths), kind="stable")]
+    nb = len(loader)
+    lines, launches = {}, dict.fromkeys(counts(), 0)
+    for label, extra, k3 in (("host features", [], 0),
+                             ("device store", ["--device_store"], nb)):
+        prefix = os.path.join(root, label.replace(" ", "_"))
+        reset_counts()
+        t0 = time.perf_counter()
+        line, out = run_cli(cli_test_models.main, eval_cli_args(
+            root, weights, "--save_scores", prefix + "_scores",
+            "--save_confusion", prefix + "_conf", "--save_attention",
+            prefix + "_attn", *extra))
+        seconds = time.perf_counter() - t0
+        launched = counts()
+        scores = np.load(prefix + "_scores.npz")["scores"]
+        attn = np.loadtxt(prefix + "_attn.txt")
+        err = np.abs(scores - want).max()
+        log(f"  {label}: {line.strip()}; {out.splitlines()[-2].strip()}; "
+            f"{seconds:.2f} s in main; max|scores - plain| = {err:.3e}; "
+            f"attention {attn.shape}; launches {launched}")
+        if scores.shape != want.shape or not err <= PROB_TOL or \
+                attn.shape != (len(val.paths), 4) or not os.path.isfile(
+                    prefix + "_conf-top[1, 3, 5].txt"):
+            raise AssertionError(f"eval CLI ({label}) output is wrong")
+        if launched != {"trn_fused_fwd": nb, "trn_fused_fwd_train": 0,
+                        "trn_fused_bwd": 0, "gather_gemm": k3}:
+            raise AssertionError(f"eval CLI ({label}) launched {launched}")
+        lines[label] = line
+        launches = {k: launches[k] + n for k, n in launched.items()}
+    if len(set(lines.values())) != 1:
+        raise AssertionError(f"the eval CLI's Pred@k lines differ: {lines}")
+    return launches
+
+
+@contextlib.contextmanager
+def trainer_records():
+    """Record every epoch and validation the Trainer runs: its kernel
+    launches (counted from 0 over the call), its time (synchronised), and
+    for an epoch its lr at entry, its steps and its real videos."""
+    records = []
+    epoch_fn, validate_fn = Trainer.train_epoch, Trainer.validate
+
+    def timed(fn, self, kind, epoch):
+        lr = self.lr_current
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(self, epoch)
+        torch.cuda.synchronize()
+        rec = {"kind": kind, "epoch": epoch, "lr": lr, "out": out,
+               "seconds": time.perf_counter() - t0, "launches": counts(),
+               "store": self.device_store}
+        if kind == "train":
+            rec["steps"] = min(len(self.source_loader),
+                               len(self.target_loader))
+            rec["videos"] = (self.source_loader.num_videos
+                             + self.target_loader.num_videos)
+        else:
+            rec["batches"] = len(self.val_loader)
+        records.append(rec)
+        return out
+
+    Trainer.train_epoch = lambda self, e: timed(epoch_fn, self, "train", e)
+    Trainer.validate = lambda self, e: timed(validate_fn, self, "val", e)
+    try:
+        yield records
+    finally:
+        Trainer.train_epoch, Trainer.validate = epoch_fn, validate_fn
+
+
+def check_trainer_launches(rec):
+    """One parametrised check for every epoch and validation: per train
+    step 1 K1 (train), 1 K2 and, from the stores, 2 K3; per val batch
+    1 K1 (infer) and, from the store, 1 K3."""
+    if rec["kind"] == "train":
+        n = rec["steps"]
+        want = {"trn_fused_fwd": 0, "trn_fused_fwd_train": n,
+                "trn_fused_bwd": n, "gather_gemm": 2 * n * rec["store"]}
+    else:
+        n = rec["batches"]
+        want = {"trn_fused_fwd": n, "trn_fused_fwd_train": 0,
+                "trn_fused_bwd": 0, "gather_gemm": n * rec["store"]}
+    if rec["launches"] != want:
+        raise AssertionError(f"{rec['kind']} epoch {rec['epoch']} launched "
+                             f"{rec['launches']}, expected {want}")
+
+
+def train_cli(root):
+    """The Trainer through the train CLI on the stores under root: 2 epochs
+    from the device stores with --save_model, then --resume_hp to epoch 3,
+    then one epoch from host features; the launches of every epoch and
+    validation checked; the resumed run's start (epoch 3, the saved lr,
+    the log separator); the eval CLI on model_best.pth.tar against the
+    best Prec@1 printed.  Returns the summed launches."""
+    lists = [os.path.join(root, n, "list.txt") for n in ("src", "tgt", "val")]
+    exp = os.path.join(root, "exp")
+    ckpt = os.path.join(exp, "RGB", "checkpoint.pth.tar")
+
+    def argv(exp_dir, *extra):
+        return [os.path.join(root, "class.txt"), "RGB", *lists, *MODEL_FLAGS,
+                *RECIPE_FLAGS, "--exp_path", exp_dir + "/",
+                "--save_best_log", os.path.join(exp_dir, "best.log"), *extra]
+
+    runs = (("device store, 2 epochs", argv(exp, "--device_store",
+                                            "--save_model", "--epochs", "2")),
+            ("device store, --resume_hp to epoch 3",
+             argv(exp, "--device_store", "--save_model", "--epochs", "3",
+                  "--resume", ckpt, "--resume_hp")),
+            ("host features, 1 epoch", argv(os.path.join(root, "exp_host"),
+                                            "--epochs", "1")))
+    launches = dict.fromkeys(counts(), 0)
+    best_seen = 0.0
+    for i, (label, args) in enumerate(runs):
+        if i == 1:
+            saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+        with trainer_records() as records:
+            best, out = run_cli(cli_train.main, args)
+        for rec in records:
+            check_trainer_launches(rec)
+            launches = {k: launches[k] + n
+                        for k, n in rec["launches"].items()}
+            if rec["kind"] == "train":
+                log(f"  {label}: epoch {rec['epoch']} {rec['seconds']:.3f} s"
+                    f", {rec['steps']} steps, {rec['videos']} videos, "
+                    f"{rec['videos'] / rec['seconds']:.0f} videos/s (lr "
+                    f"{rec['lr']:.5f} at entry; launches {rec['launches']})")
+            else:
+                log(f"  {label}: validation after epoch {rec['epoch']}: "
+                    f"Prec@1 {rec['out']:.3f} in {rec['seconds'] * 1e3:.1f}"
+                    f" ms ({rec['batches']} batches)")
+                if i < 2:
+                    best_seen = max(best_seen, rec["out"])
+        log(f"  {label}: best {best:.3f}; "
+            + out.strip().splitlines()[-1].strip())
+        if i == 1:
+            first = [r for r in records if r["kind"] == "train"][0]
+            log_text = open(os.path.join(exp, "RGB", "train.log")).read()
+            if first["epoch"] != 3 or first["lr"] != saved["lr_current"] or \
+                    "========== start:" not in log_text or \
+                    "=> loaded checkpoint" not in out:
+                raise AssertionError(
+                    f"the resumed run started at epoch {first['epoch']} with "
+                    f"lr {first['lr']} (saved {saved['lr_current']})")
+            log(f"  resumed at epoch 3 with the saved lr_current "
+                f"{saved['lr_current']:.6f} and step {saved['step']}; "
+                "train.log has the start separator")
+    reset_counts()
+    line, _ = run_cli(cli_test_models.main, eval_cli_args(
+        root, os.path.join(exp, "RGB", "model_best.pth.tar"),
+        "--device_store"))
+    launched = counts()
+    pred1 = float(line.split()[1].rstrip("%"))
+    log(f"  eval CLI on model_best.pth.tar: {line.strip()} (best Prec@1 "
+        f"printed {best_seen:.3f}); launches {launched}")
+    if abs(pred1 - best_seen) > 0.006:
+        raise AssertionError(f"Pred@1 {pred1} is not the best Prec@1 "
+                             f"{best_seen}")
+    return {k: launches[k] + launched[k] for k in launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
@@ -1359,6 +1690,18 @@ def main() -> int:
     log("device-store eval: one val epoch")
     add(eval_device_store(gen, stores[2], dev[2]))
 
+    log(f"the TRN beyond 16 segments: S = {MANY_FRAMES}")
+    many_launches, many = trn_many_frames(gen)
+    add(many_launches)
+    with tempfile.TemporaryDirectory() as root:
+        write_workspace(root, stores)
+        log(f"eval CLI: {len(stores[2].paths)} videos at --bS {CLI_BATCH}")
+        add(eval_cli(gen, root, stores[2]))
+        log("Trainer through the train CLI: the published recipe on "
+            "stores of the published split sizes")
+        add(train_cli(root))
+        log(card_line())
+
     # the shapes each kernel runs at on its path: serving batch, train batch
     work = {**{k: v for k, v in trn_work(SERVE_BATCH).items()
                if k == "trn_fused_fwd"},
@@ -1404,6 +1747,12 @@ def main() -> int:
                                         PEAK_OPS["trn_fused_fwd"])[0]})
     kernels[2].update(dx_ms=bwd_split["dx"], dw_ms=bwd_split["dW"],
                       both_ms=bwd_split["both"])
+    # K1 and K2 at S = 17 and 25 (K1 (infer) at B=64, the others at 202)
+    for kernel in kernels[:3]:
+        for s, t in many.items():
+            kernel.update({f"s{s}_ms": t[kernel["name"]][0],
+                           f"s{s}_plain_ms": t[kernel["name"]][1],
+                           f"s{s}_bound_ms": t[kernel["name"]][2]})
     kernels[3].update(
         eval_ms=k3_eval_t["kernel"], eval_plain_ms=k3_eval_t["plain"],
         eval_library_ms=k3_eval_t["library"],

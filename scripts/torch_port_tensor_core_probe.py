@@ -62,6 +62,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from ta3n_tpu_torch.data import make_domain_pair  # noqa: E402
 from ta3n_tpu_torch.ops import _build, gather_gemm, trn_fused  # noqa: E402
+from ta3n_tpu_torch.ops.relation import build_relation_plan  # noqa: E402
 
 PROBE_DIR = _build.BUILD_DIR / "probe"
 
@@ -523,18 +524,28 @@ def probe_k1_earlier(path: Path) -> None:
     lib.ta3n_trn_fused_fwd_f32.argtypes = [P] * 5 + [I] * 4 + [P]
     lib.ta3n_trn_fused_fwd_train_f32.argtypes = [P] * 6 + [I] * 4 + [P]
 
+    def by_value_table(s):
+        """The earlier kernel's plan, passed by value: per scale k, n_sub,
+        then the frame indices."""
+        plan = build_relation_plan(s)
+        return np.asarray([v for k, sub in zip(plan.scales, plan.subsets)
+                           for v in (k, len(sub), *sub.reshape(-1))],
+                          np.int32)
+
     def earlier(x, w, bi, masks=None):
         b, s, d = x.shape
         h = w[0].shape[0]
         out = torch.empty((b, s - 1, h), device=x.device)
-        ptrs = [trn_fused._ptrs(t) for t in (w, bi)]
+        ptrs = [(ctypes.c_void_p * len(t))(*[v.data_ptr() for v in t])
+                for t in (w, bi)]
+        table = by_value_table(s)
         extra = [] if masks is None else [masks.data_ptr()]
         stream = torch.cuda.current_stream().cuda_stream
         entry = (lib.ta3n_trn_fused_fwd_f32 if masks is None
                  else lib.ta3n_trn_fused_fwd_train_f32)
         err = entry(x.data_ptr(), ctypes.addressof(ptrs[0]),
                     ctypes.addressof(ptrs[1]), out.data_ptr(), *extra,
-                    trn_fused._plan_table(s, 3).ctypes.data, b, s, d, h,
+                    table.ctypes.data, b, s, d, h,
                     stream)
         if err:
             raise RuntimeError(f"earlier K1 launch failed: {err}")

@@ -58,22 +58,23 @@
 //  * One grid: its first blocks are the dx tiles (the longer K), the rest
 //    the dW tiles, so the two families overlap on the SMs: 160 + 448
 //    blocks at the train batch.
+//  * The relation plan is a table in device memory (trn_plan.cuh), sized
+//    by the call, so any S is taken.  A dx block stages its frame's
+//    triples (W slice, scale and subset of each) into shared memory once,
+//    after the ring; a dW block reads its unit's record once.  dW and db
+//    are each one flat buffer (the scales' blocks side by side), so only
+//    the weights come as an array of pointers.
 // Ragged B, H and D edges are zero-filled by the copies and masked in the
 // stores.
 
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
+#include "trn_plan.cuh"
 
 namespace {
 
-constexpr int kMaxFrames = 16;
-constexpr int kMaxScales = kMaxFrames - 1;
-constexpr int kMaxSubsets = 3;
-// a frame is in a subset at most once: at most one triple per subset
-constexpr int kMaxTriples = 1 + (kMaxScales - 1) * kMaxSubsets;
-// (scale, position) pairs: sum of k = S..2
-constexpr int kMaxPositions = kMaxFrames * (kMaxFrames + 1) / 2 - 1;
+using ta3n::Plan;
 
 constexpr int kThreads = 128;  // 4 warps: 2 x 2, each 32 x 32 outputs
 constexpr int kTile = 64;      // output tile, both families
@@ -100,23 +101,13 @@ static_assert(kTile * kTileK == kThreads * kRun &&
                   kTile * kTileK / kThreads == kRun,
               "one run of 16 per thread and tile");
 
-struct Plan {
-  const float* w[kMaxScales];  // [H, k*D], row-major
-  float* dw[kMaxScales];       // [H, k*D]
-  float* db[kMaxScales];       // [H]
-  int k[kMaxScales];
-  int n_sub[kMaxScales];
-  int sub0[kMaxScales];  // index of the scale's first subset, all scales
-  int n_sub_total;
-  unsigned char frames[kMaxScales][kMaxSubsets][kMaxFrames];
-  // per frame: its (scale | subset << 4 | position << 10) triples
-  int n_trip[kMaxFrames];
-  unsigned short trip[kMaxFrames][kMaxTriples];
-  // per dW GEMM: its scale and frame position
-  int n_pos;
-  unsigned char pos_scale[kMaxPositions];
-  unsigned char pos_p[kMaxPositions];
+// A triple of a dx block's frame, staged after the ring: W_i at the
+// triple's position, W_i's row length k_i*D, scale i and global subset.
+struct Triple {
+  const float* w;
+  int row, scale, sub, pad;
 };
+static_assert(kStageBytes % alignof(Triple) == 0, "triples after the ring");
 
 struct Stage {
   float* g;
@@ -139,10 +130,10 @@ __device__ __forceinline__ float masked(const Stage& st, int g_at,
 // The dx tile `blk`: frame f, batch rows b0.., D columns d0...
 template <bool kVec4>
 __device__ __forceinline__ void dx_tile(
-    const Plan& plan, const float* __restrict__ x,
-    const float* __restrict__ g, const unsigned char* __restrict__ masks,
-    float* __restrict__ dx, int batch, int num_frames, int d, int h, int blk,
-    unsigned char* smem) {
+    const Plan& plan, const long long* __restrict__ ptrs,
+    const float* __restrict__ x, const float* __restrict__ g,
+    const unsigned char* __restrict__ masks, float* __restrict__ dx,
+    int batch, int num_frames, int d, int h, int blk, unsigned char* smem) {
   const int tiles_b = (batch + kTile - 1) / kTile;
   const int tiles_d = (d + kTile - 1) / kTile;
   const int f = blk / (tiles_b * tiles_d);
@@ -162,9 +153,25 @@ __device__ __forceinline__ void dx_tile(
   const int gb = b0 + ar;
   const bool row_in = gb < batch;
 
+  // the frame's triples, decoded once into shared memory after the ring
+  Triple* trips = reinterpret_cast<Triple*>(smem + kSmem);
+  const int t_begin = __ldg(&plan.trip0[f]);
+  const int n_trip = __ldg(&plan.trip0[f + 1]) - t_begin;
+  for (int q = tid; q < n_trip; q += kThreads) {
+    const int code = __ldg(&plan.trips[t_begin + q]);
+    const int z = code >> 2;
+    const int4 u0 = __ldg(&plan.units[3 * z]);      // i, p, n_sub, slot
+    const int4 u1 = __ldg(&plan.units[3 * z + 1]);  // counts, sub0
+    const int k = __ldg(&plan.units[3 * z + 2]).w;
+    trips[q] = {ta3n::ptr_at<const float>(ptrs, z) +
+                    static_cast<long long>(u0.y) * d,
+                k * d, u0.x, u1.w + (code & 3), 0};
+  }
+  __syncthreads();
+
   auto issue = [&](int c, int s) {
-    const int trip = plan.trip[f][c / h_chunks];
-    const int i = trip & 15, sub = (trip >> 4) & 63, p = trip >> 10;
+    const Triple tr = trips[c / h_chunks];
+    const int i = tr.scale, sub = tr.sub;
     const int hk = c % h_chunks * kTileK;
     const Stage st = stage_at(smem, s);
     const int hh = hk + ac;
@@ -179,13 +186,10 @@ __device__ __forceinline__ void dx_tile(
                : masks,
         masks, row_in ? h - hh : 0);
     const int wh = hk + br;
-    const float* w = plan.w[i];
     ta3n::copy_run16<kVec4>(
         st.b + br * kNStride + bc,
-        wh < h ? w + static_cast<long long>(wh) * plan.k[i] * d +
-                     static_cast<long long>(p) * d + d0 + bc
-               : w,
-        w, wh < h ? d - d0 - bc : 0);
+        wh < h ? tr.w + static_cast<long long>(wh) * tr.row + d0 + bc : tr.w,
+        tr.w, wh < h ? d - d0 - bc : 0);
   };
 
   float acc[2][4][4] = {};
@@ -217,7 +221,7 @@ __device__ __forceinline__ void dx_tile(
     }
     ta3n::add_to(acc, part);
   };
-  ta3n::pipeline<kStages>(plan.n_trip[f] * h_chunks, issue, compute);
+  ta3n::pipeline<kStages>(n_trip * h_chunks, issue, compute);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -238,19 +242,24 @@ __device__ __forceinline__ void dx_tile(
       }
 }
 
-// The dW tile `blk`: (scale, position) pair z, H rows h0.., D columns
-// d0...
+// The dW tile `blk`: unit (scale, position) z, H rows h0.., D columns
+// d0...  dw and db: the flat gradient buffers (dW_i at h*d*(its first
+// unit), db_i at h*i).
 template <bool kVec4>
 __device__ __forceinline__ void dw_tile(
     const Plan& plan, const float* __restrict__ x,
     const float* __restrict__ g, const unsigned char* __restrict__ masks,
-    int batch, int num_frames, int d, int h, int blk, unsigned char* smem) {
+    float* __restrict__ dw, float* __restrict__ db, int batch,
+    int num_frames, int d, int h, int blk, unsigned char* smem) {
   const int tiles_d = (d + kTile - 1) / kTile;
   const int tiles_h = (h + kTile - 1) / kTile;
   const int z = blk / (tiles_h * tiles_d);
   const int rem = blk % (tiles_h * tiles_d);
   const int h0 = rem / tiles_d * kTile, d0 = rem % tiles_d * kTile;
-  const int scale = plan.pos_scale[z], p = plan.pos_p[z];
+  const int4 u0 = __ldg(&plan.units[3 * z]);      // i, p, n_sub, slot
+  const int sub0 = __ldg(&plan.units[3 * z + 1]).w;
+  const int4 u2 = __ldg(&plan.units[3 * z + 2]);  // frames, k
+  const int scale = u0.x, p = u0.y;
   const int n_scales = num_frames - 1;
   const int b_chunks = (batch + kTileK - 1) / kTileK;
   // one block per H tile of each scale also reduces db
@@ -267,8 +276,8 @@ __device__ __forceinline__ void dw_tile(
   auto issue = [&](int c, int s) {
     const int j = c / b_chunks;
     const int gb = c % b_chunks * kTileK + sr;
-    const int f = plan.frames[scale][j][p];
-    const int sub = plan.sub0[scale] + j;
+    const int f = j == 0 ? u2.x : j == 1 ? u2.y : u2.z;
+    const int sub = sub0 + j;
     const bool in = gb < batch;
     const Stage st = stage_at(smem, s);
     const int hh = h0 + sc;
@@ -324,10 +333,11 @@ __device__ __forceinline__ void dw_tile(
         db_acc += masked(st, k * kNStride + tid, k * kDwMaskStride + tid);
     }
   };
-  ta3n::pipeline<kStages>(plan.n_sub[scale] * b_chunks, issue, compute);
+  ta3n::pipeline<kStages>(u0.z * b_chunks, issue, compute);
 
-  float* __restrict__ dw = plan.dw[scale];
-  const long long row = static_cast<long long>(plan.k[scale]) * d;
+  // dW_i [h, k*d] starts at the unit of its position 0, z - p
+  dw += static_cast<long long>(h) * d * (z - p);
+  const long long row = static_cast<long long>(u2.w) * d;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -345,74 +355,43 @@ __device__ __forceinline__ void dw_tile(
         }
       }
   if (db_block && tid < kTile && h0 + tid < h)
-    plan.db[scale][h0 + tid] = db_acc;
+    db[static_cast<long long>(scale) * h + h0 + tid] = db_acc;
 }
 
 // grid (dx_blocks + dW blocks): the dx tiles first, then the dW tiles.
 // kVec4: 16-byte copies (D % 4 == 0, H % 16 == 0, aligned pointers).
+// ptrs: each unit's weight (its scale's).  Dynamic shared memory: the
+// ring, then the triples of the frame with the most.
 template <bool kVec4>
 __global__ void __launch_bounds__(kThreads, 3)
-    trn_fused_bwd_kernel(const __grid_constant__ Plan plan,
+    trn_fused_bwd_kernel(const Plan plan, const long long* __restrict__ ptrs,
                          const float* __restrict__ x,
                          const float* __restrict__ g,
                          const unsigned char* __restrict__ masks,
-                         float* __restrict__ dx, int batch, int num_frames,
+                         float* __restrict__ dx, float* __restrict__ dw,
+                         float* __restrict__ db, int batch, int num_frames,
                          int d, int h, int dx_blocks) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int blk = static_cast<int>(blockIdx.x);
   if (blk < dx_blocks)
-    dx_tile<kVec4>(plan, x, g, masks, dx, batch, num_frames, d, h, blk,
+    dx_tile<kVec4>(plan, ptrs, x, g, masks, dx, batch, num_frames, d, h, blk,
                    smem);
   else
-    dw_tile<kVec4>(plan, x, g, masks, batch, num_frames, d, h,
+    dw_tile<kVec4>(plan, x, g, masks, dw, db, batch, num_frames, d, h,
                    blk - dx_blocks, smem);
 }
 
-// Above 48 KB of dynamic shared memory a kernel must opt in, once.
+// Above 48 KB of dynamic shared memory a kernel must opt in: raised to
+// `bytes` when a plan needs more than any before.
 template <bool kVec4>
-cudaError_t allow_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
+cudaError_t allow_smem(int bytes) {
+  static int allowed = 0;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
       trn_fused_bwd_kernel<kVec4>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) allowed = bytes;
   return err;
-}
-
-// Fill `plan` from the host plan table (for each scale: k, n_sub, then
-// n_sub*k frame indices); false if the table is malformed.
-bool read_plan(Plan& plan, const void* const* w, void* const* dw,
-               void* const* db, const int* t, int num_frames) {
-  int n_sub_total = 0, n_pos = 0;
-  for (int i = 0; i < num_frames - 1; ++i) {
-    const int k = *t++;
-    const int n_sub = *t++;
-    if (k < 1 || k > num_frames || n_sub < 1 || n_sub > kMaxSubsets)
-      return false;
-    plan.w[i] = static_cast<const float*>(w[i]);
-    plan.dw[i] = static_cast<float*>(dw[i]);
-    plan.db[i] = static_cast<float*>(db[i]);
-    plan.k[i] = k;
-    plan.n_sub[i] = n_sub;
-    plan.sub0[i] = n_sub_total;
-    for (int j = 0; j < n_sub; ++j) {
-      for (int p = 0; p < k; ++p) {
-        const int f = *t++;
-        if (f < 0 || f >= num_frames || plan.n_trip[f] >= kMaxTriples)
-          return false;
-        plan.frames[i][j][p] = static_cast<unsigned char>(f);
-        plan.trip[f][plan.n_trip[f]++] = static_cast<unsigned short>(
-            i | (n_sub_total + j) << 4 | p << 10);
-      }
-    }
-    n_sub_total += n_sub;
-    if (n_pos + k > kMaxPositions) return false;
-    for (int p = 0; p < k; ++p, ++n_pos) {
-      plan.pos_scale[n_pos] = static_cast<unsigned char>(i);
-      plan.pos_p[n_pos] = static_cast<unsigned char>(p);
-    }
-  }
-  plan.n_sub_total = n_sub_total;
-  plan.n_pos = n_pos;
-  return true;
 }
 
 }  // namespace
@@ -421,14 +400,16 @@ bool read_plan(Plan& plan, const void* const* w, void* const* dw,
 // parts & 2 the dW/db tiles (3: both, the backward).  One family alone
 // is for timing each one's share; it writes only its own outputs.
 extern "C" int ta3n_trn_fused_bwd_parts_f32(
-    const void* x, const void* const* w, const void* masks, const void* g,
-    void* dx, void* const* dw, void* const* db, const int* plan_table,
-    int batch, int num_frames, int d, int h, int parts, void* stream) {
-  if (num_frames < 2 || num_frames > kMaxFrames || batch < 0 || d < 1 ||
-      h < 1 || parts < 1 || parts > 3)
+    const void* x, const void* ptrs, const void* const* host_ptrs,
+    const void* masks, const void* g, void* dx, void* dw, void* db,
+    const int* plan_table, int plan_len, const int* plan_dev, int batch,
+    int num_frames, int d, int h, int parts, void* stream) {
+  if (num_frames < 2 || batch < 0 || d < 1 || h < 1 || parts < 1 ||
+      parts > 3 || ptrs == nullptr || host_ptrs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  Plan plan{};
-  if (!read_plan(plan, w, dw, db, plan_table, num_frames))
+  const ta3n::PlanInfo info =
+      ta3n::check_plan(plan_table, plan_len, plan_dev, num_frames);
+  if (!info.ok || static_cast<long long>(info.max_k) * d > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles_d = (d + kTile - 1) / kTile;
   const long long dx_blocks =
@@ -437,39 +418,54 @@ extern "C" int ta3n_trn_fused_bwd_parts_f32(
                 : 0;
   const long long blocks =
       dx_blocks +
-      (parts & 2 ? tiles_d * ((h + kTile - 1) / kTile) * plan.n_pos : 0);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+      (parts & 2 ? tiles_d * ((h + kTile - 1) / kTile) * info.plan.n_units
+                 : 0);
+  const long long smem =
+      kSmem + static_cast<long long>(info.max_trip) * sizeof(Triple);
+  if (blocks > 0x7fffffffLL || smem > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   const auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
   bool vec4 = d % 4 == 0 && h % 16 == 0 && aligned(x) && aligned(g) &&
               aligned(masks);
-  for (int i = 0; i < num_frames - 1; ++i) vec4 = vec4 && aligned(w[i]);
-  const cudaError_t attr = vec4 ? allow_smem<true>() : allow_smem<false>();
+  for (int z = 0; z < info.plan.n_units; ++z)
+    vec4 = vec4 && aligned(host_ptrs[z]);
+  const int bytes = static_cast<int>(smem);
+  const cudaError_t attr =
+      vec4 ? allow_smem<true>(bytes) : allow_smem<false>(bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   (vec4 ? trn_fused_bwd_kernel<true> : trn_fused_bwd_kernel<false>)
-      <<<static_cast<unsigned>(blocks), kThreads, kSmem,
+      <<<static_cast<unsigned>(blocks), kThreads, bytes,
          static_cast<cudaStream_t>(stream)>>>(
-          plan, static_cast<const float*>(x), static_cast<const float*>(g),
+          info.plan, static_cast<const long long*>(ptrs),
+          static_cast<const float*>(x), static_cast<const float*>(g),
           static_cast<const unsigned char*>(masks), static_cast<float*>(dx),
-          batch, num_frames, d, h, static_cast<int>(dx_blocks));
+          static_cast<float*>(dw), static_cast<float*>(db), batch, num_frames,
+          d, h, static_cast<int>(dx_blocks));
   return static_cast<int>(cudaGetLastError());
 }
 
 // x [batch, num_frames, d] f32, masks [batch, n_sub_total*h] uint8 (from
 // ta3n_trn_fused_fwd_train_f32), g [batch, num_frames-1, h] f32 and
-// dx [batch, num_frames, d] f32: contiguous on the current device.  w, dw
-// and db are host arrays of num_frames-1 device pointers: the weights
-// [h, k*d] and their gradients [h, k*d] and [h] (f32, contiguous, written
-// whole).  plan_table as for ta3n_trn_fused_fwd_f32.  Launches one grid of
-// dx and dW/db tiles on `stream`; returns cudaGetLastError().
-extern "C" int ta3n_trn_fused_bwd_f32(const void* x, const void* const* w,
+// dx [batch, num_frames, d] f32: contiguous on the current device.  ptrs
+// is a device array of device pointers, for each unit (scale, position)
+// of the plan its scale's weight [h, k*d] (f32, row-major), and
+// host_ptrs the same pointers on the host.  dw
+// (h*d*n_units f32) receives every scale's dW_i [h, k_i*d] side by side,
+// db (n_scales*h f32) every db_i; both written whole.  plan_table,
+// plan_len and plan_dev as for ta3n_trn_fused_fwd_f32.  Launches one grid
+// of dx and dW/db tiles on `stream`; returns cudaGetLastError().
+extern "C" int ta3n_trn_fused_bwd_f32(const void* x, const void* ptrs,
+                                      const void* const* host_ptrs,
                                       const void* masks, const void* g,
-                                      void* dx, void* const* dw,
-                                      void* const* db, const int* plan_table,
-                                      int batch, int num_frames, int d, int h,
+                                      void* dx, void* dw, void* db,
+                                      const int* plan_table, int plan_len,
+                                      const int* plan_dev, int batch,
+                                      int num_frames, int d, int h,
                                       void* stream) {
-  return ta3n_trn_fused_bwd_parts_f32(x, w, masks, g, dx, dw, db, plan_table,
+  return ta3n_trn_fused_bwd_parts_f32(x, ptrs, host_ptrs, masks, g, dx, dw,
+                                      db, plan_table, plan_len, plan_dev,
                                       batch, num_frames, d, h, 3, stream);
 }

@@ -43,7 +43,8 @@
 //    subset over positions and then D slices in a fixed order, adds the
 //    bias, writes the mask (training variant) and sums relu over the
 //    subsets.  No atomics: a second run gives the same bits.  The scratch
-//    is 32 slots x B x H x 4 bytes, 6.6 MB at B=202, and stays in L2.
+//    is sum_i(k_i*n_sub_i) slots x B x H x 4 bytes: 32 slots at S=5, 6.6
+//    MB at B=202, which stays in L2; 922 slots at S=25, 190 MB at B=202.
 //  * mma.sync m16n8k8 TF32 with the 3xTF32 split (tf32x3.cuh), relu
 //    applied to each x value before it is split (relu is exact, so
 //    operands of at most 11 significant bits still multiply exactly).  x
@@ -59,20 +60,24 @@
 //    next chunks are in flight while one is multiplied.  Each thread
 //    stages half a row of x and of W, whose addresses are fixed for the
 //    block (its position is fixed).
-//  * The subset plan and the block layout are a kernel parameter
-//    (constant bank): frame indices are uniform loads.
+//  * The relation plan is a table in device memory (trn_plan.cuh), sized
+//    by the call, so any S is taken.  A block finds its unit with one
+//    cooperative pass over the units: each thread reads a unit's record
+//    and weight pointer (one round trip, no load waiting on another) and
+//    tests the unit's block range, and the thread that finds it hands the
+//    record over in shared memory.  The rows' frames and W slice are then
+//    fixed for the whole K loop.
 // Ragged B, H and D edges are zero-filled by the copies and masked in the
 // stores, so any widths are taken.
 
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
+#include "trn_plan.cuh"
 
 namespace {
 
-constexpr int kMaxFrames = 16;
-constexpr int kMaxScales = kMaxFrames - 1;
-constexpr int kMaxSubsets = 3;
+using ta3n::Plan;
 constexpr int kTileM = 64;  // unit rows (subset, video)
 constexpr int kTileH = 64;
 constexpr int kTileK = 32;
@@ -90,21 +95,6 @@ static_assert(kTileK == 2 * kRun && 2 * kTileM == kThreads,
 static_assert(kTileH % (kThreads / 2) == 0, "whole W rows per thread");
 static_assert(kTileM == 2 * 32 && kWarpN % 8 == 0, "4 warps of 32 x kWarpN");
 
-struct Plan {
-  const float* w[kMaxScales];  // [H, k*D], row-major
-  const float* b[kMaxScales];  // [H]
-  int k[kMaxScales];
-  int n_sub[kMaxScales];
-  int sub0[kMaxScales];   // the scale's first subset over all scales
-  int slot0[kMaxScales];  // the scale's first (position, subset) slot
-  int m_tiles[kMaxScales];      // row tiles of each of the scale's units
-  int blk0[kMaxScales + 1];     // the scale's first block; then the grid
-  int n_sub_total;
-  int n_slots;  // sum of k*n_sub
-  int splits;   // D slices per output tile
-  unsigned char frames[kMaxScales][kMaxSubsets][kMaxFrames];
-};
-
 struct Stage {
   float x[kTileM][kStride];  // relu applied on use, not here
   float w[kTileH][kStride];
@@ -112,31 +102,61 @@ struct Stage {
 constexpr int kSmem = kStages * static_cast<int>(sizeof(Stage));
 static_assert(sizeof(Stage) % 16 == 0, "16-byte aligned stages");
 
-// One block: scale i, position p, H tile, row tile and D slice, in that
-// order from the slowest; it writes the partial z of its rows and columns
-// into part.  kVec4: 16-byte copies.
+// The row tiles of a unit of n subsets: n*B rows of 64.
+__device__ __forceinline__ int unit_m_tiles(int n, int mt1, int mt2,
+                                            int mt3) {
+  return n == 1 ? mt1 : n == 2 ? mt2 : mt3;
+}
+
+// One block: unit (scale i, position p), H tile, row tile and D slice, in
+// that order from the slowest; it writes the partial z of its rows and
+// columns into part.  A unit of n subsets has m_tiles(n) * h_tiles *
+// splits blocks; mt1..mt3 are the row tiles of 1..3 subsets at this B.
+// ptrs: each unit's weight (its scale's), then each scale's bias.  kVec4:
+// 16-byte copies.
 template <bool kVec4>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    trn_fused_fwd_kernel(const __grid_constant__ Plan plan,
+    trn_fused_fwd_kernel(const Plan plan, const long long* __restrict__ ptrs,
                          const float* __restrict__ x,
                          float* __restrict__ part, int batch, int num_frames,
-                         int d, int h) {
+                         int d, int h, int splits, int mt1, int mt2,
+                         int mt3) {
   extern __shared__ __align__(128) unsigned char smem[];
   Stage* stage = reinterpret_cast<Stage*>(smem);
+  __shared__ int4 unit_at, unit_frames;  // {i, p, n_sub, slot}, frames/k
+  __shared__ const float* unit_w;
+  __shared__ long long unit_b0;
 
-  int i = 0;
-  while (static_cast<int>(blockIdx.x) >= plan.blk0[i + 1]) ++i;
-  int rest = blockIdx.x - plan.blk0[i];
-  const int split = rest % plan.splits;
-  rest /= plan.splits;
-  const int mt = rest % plan.m_tiles[i];
-  rest /= plan.m_tiles[i];
   const int h_tiles = (h + kTileH - 1) / kTileH;
-  const int h0 = rest % h_tiles * kTileH;
-  const int p = rest / h_tiles;
-  const int n_sub = plan.n_sub[i];
+  const long long per_tile = static_cast<long long>(h_tiles) * splits;
+  const long long blk = blockIdx.x;
+  for (int z = threadIdx.x; z < plan.n_units; z += kThreads) {
+    const int4 a = __ldg(&plan.units[3 * z]);
+    const int4 c = __ldg(&plan.units[3 * z + 1]);
+    const int4 f = __ldg(&plan.units[3 * z + 2]);
+    const float* w = ta3n::ptr_at<const float>(ptrs, z);
+    const long long b0 = per_tile * (static_cast<long long>(c.x) * mt1 +
+                                     static_cast<long long>(c.y) * mt2 +
+                                     static_cast<long long>(c.z) * mt3);
+    if (blk >= b0 && blk < b0 + per_tile * unit_m_tiles(a.z, mt1, mt2, mt3)) {
+      unit_at = a;
+      unit_frames = f;
+      unit_w = w;
+      unit_b0 = b0;
+    }
+  }
+  __syncthreads();
+  const int4 u0 = unit_at, u2 = unit_frames;
+  const int p = u0.y, n_sub = u0.z;
+  const int m_tiles = unit_m_tiles(n_sub, mt1, mt2, mt3);
+  long long rest = blk - unit_b0;
+  const int split = static_cast<int>(rest % splits);
+  rest /= splits;
+  const int mt = static_cast<int>(rest % m_tiles);
+  const int h0 = static_cast<int>(rest / m_tiles) * kTileH;
   const int rows = n_sub * batch;
   const int m0 = mt * kTileM;
+  const float* w_i = unit_w;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -145,8 +165,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   // this block's D slice, in chunks of kTileK
   const int chunks = (d + kTileK - 1) / kTileK;
-  const int c_begin = chunks * split / plan.splits;
-  const int c_end = chunks * (split + 1) / plan.splits;
+  const int c_begin = chunks * split / splits;
+  const int c_end = chunks * (split + 1) / splits;
 
   // what this thread stages: floats [col, col + kRun) of a chunk, of unit
   // row m0 + srow (video b of subset j) and of W rows h0 + srow + 64q
@@ -155,14 +175,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const float* xrow = nullptr;
   if (r < rows) {
     const int j = r / batch, b = r % batch;
-    xrow = x + (static_cast<long long>(b) * num_frames +
-                plan.frames[i][j][p]) * d;
+    const int f = j == 0 ? u2.x : j == 1 ? u2.y : u2.z;
+    xrow = x + (static_cast<long long>(b) * num_frames + f) * d;
   }
   const float* wrow[kTileH / 64];
 #pragma unroll
   for (int q = 0; q < kTileH / 64; ++q) {
     const int gh = h0 + srow + 64 * q;
-    wrow[q] = gh < h ? plan.w[i] + static_cast<long long>(gh) * plan.k[i] * d +
+    wrow[q] = gh < h ? w_i + static_cast<long long>(gh) * u2.w * d +
                            static_cast<long long>(p) * d
                      : nullptr;
   }
@@ -176,8 +196,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
     for (int q = 0; q < kTileH / 64; ++q)
       ta3n::copy_run16<kVec4>(&st.w[srow + 64 * q][col],
-                              wrow[q] != nullptr ? wrow[q] + c0 : plan.w[i],
-                              plan.w[i], wrow[q] != nullptr ? d - c0 : 0);
+                              wrow[q] != nullptr ? wrow[q] + c0 : w_i, w_i,
+                              wrow[q] != nullptr ? d - c0 : 0);
   };
 
   float acc[2][kNT][4] = {};
@@ -209,9 +229,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   // the unit's rows are contiguous in part: slot (slot0 + p*n_sub + j)
   // holds rows j*B .. j*B + B - 1
-  float* out = part + (static_cast<long long>(split) * plan.n_slots +
-                       plan.slot0[i] + p * n_sub) *
-                          batch * h;
+  float* out =
+      part + (static_cast<long long>(split) * plan.n_slots + u0.w) * batch * h;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -232,11 +251,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // each the D slices in order, plus the bias; out = sum_j relu(z_j), and
 // the training variant writes (z_j > 0).
 template <bool kWithMasks>
-__global__ void trn_fused_fwd_epilogue(const __grid_constant__ Plan plan,
+__global__ void trn_fused_fwd_epilogue(const Plan plan,
+                                       const long long* __restrict__ ptrs,
                                        const float* __restrict__ part,
                                        float* __restrict__ out,
                                        unsigned char* __restrict__ masks,
-                                       int batch, int n_scales, int h) {
+                                       int batch, int h, int splits) {
+  const int n_scales = plan.n_scales;
   const long long count = static_cast<long long>(batch) * n_scales * h;
   const long long plane = static_cast<long long>(batch) * h;  // one slot
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -246,15 +267,16 @@ __global__ void trn_fused_fwd_epilogue(const __grid_constant__ Plan plan,
     const long long bi = e / h;
     const int i = static_cast<int>(bi % n_scales);
     const long long b = bi / n_scales;
-    const int k = plan.k[i], n_sub = plan.n_sub[i];
-    const float* base =
-        part + static_cast<long long>(plan.slot0[i]) * plane + b * h + hh;
-    const float bias = plan.b[i][hh];
+    const int4 sc = __ldg(&plan.scales[i]);  // k, n_sub, sub0, slot0
+    const int k = sc.x, n_sub = sc.y;
+    const float* base = part + static_cast<long long>(sc.w) * plane + b * h + hh;
+    const float bias =
+        ta3n::ptr_at<const float>(ptrs, plan.n_units + i)[hh];
     float sum = 0.f;
     for (int j = 0; j < n_sub; ++j) {
       float z = 0.f;
       for (int p = 0; p < k; ++p)
-        for (int s = 0; s < plan.splits; ++s)
+        for (int s = 0; s < splits; ++s)
           z += base[(static_cast<long long>(s) * plan.n_slots + p * n_sub +
                      j) *
                     plane];
@@ -262,7 +284,7 @@ __global__ void trn_fused_fwd_epilogue(const __grid_constant__ Plan plan,
       const bool on = z > 0.f;
       sum += on ? z : 0.f;
       if constexpr (kWithMasks)
-        masks[(b * plan.n_sub_total + plan.sub0[i] + j) * h + hh] = on;
+        masks[(b * plan.n_sub_total + sc.z + j) * h + hh] = on;
     }
     out[e] = sum;
   }
@@ -277,104 +299,86 @@ cudaError_t allow_smem() {
   return err;
 }
 
-// Fill `plan` from the host plan table and lay out the blocks; false if
-// the table is malformed or the grid too large.
-bool read_plan(Plan& plan, const void* const* w, const void* const* b,
-               const int* t, int num_frames, int batch, int h, int splits) {
-  const long long h_tiles = (h + kTileH - 1) / kTileH;
-  int n_sub_total = 0, n_slots = 0;
-  long long blocks = 0;
-  for (int i = 0; i < num_frames - 1; ++i) {
-    const int k = *t++;
-    const int n_sub = *t++;
-    if (k < 1 || k > num_frames || n_sub < 1 || n_sub > kMaxSubsets)
-      return false;
-    plan.w[i] = static_cast<const float*>(w[i]);
-    plan.b[i] = static_cast<const float*>(b[i]);
-    plan.k[i] = k;
-    plan.n_sub[i] = n_sub;
-    plan.sub0[i] = n_sub_total;
-    plan.slot0[i] = n_slots;
-    n_sub_total += n_sub;
-    n_slots += k * n_sub;
-    const long long m_tiles =
-        (static_cast<long long>(n_sub) * batch + kTileM - 1) / kTileM;
-    if (m_tiles > 0x7fffffffLL) return false;
-    plan.m_tiles[i] = static_cast<int>(m_tiles);
-    plan.blk0[i] = static_cast<int>(blocks);
-    blocks += k * m_tiles * h_tiles * splits;
-    if (blocks > 0x7fffffffLL) return false;
-    for (int j = 0; j < n_sub; ++j) {
-      for (int p = 0; p < k; ++p) {
-        const int f = *t++;
-        if (f < 0 || f >= num_frames) return false;
-        plan.frames[i][j][p] = static_cast<unsigned char>(f);
-      }
-    }
-  }
-  plan.blk0[num_frames - 1] = static_cast<int>(blocks);
-  plan.n_sub_total = n_sub_total;
-  plan.n_slots = n_slots;
-  plan.splits = splits;
-  return true;
-}
-
 template <bool kWithMasks>
-int launch(const void* x, const void* const* w, const void* const* b,
+int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
            void* out, void* masks, void* part, const int* plan_table,
-           int batch, int num_frames, int d, int h, int splits,
-           void* stream) {
-  if (num_frames < 2 || num_frames > kMaxFrames || batch < 1 || d < 1 ||
-      h < 1 || splits < 1 || splits > kMaxSplits || part == nullptr)
+           int plan_len, const int* plan_dev, int batch, int num_frames,
+           int d, int h, int splits, void* stream) {
+  if (num_frames < 2 || batch < 1 || d < 1 || h < 1 || splits < 1 ||
+      splits > kMaxSplits || part == nullptr || ptrs == nullptr ||
+      host_ptrs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  Plan plan{};
-  if (!read_plan(plan, w, b, plan_table, num_frames, batch, h, splits))
+  const ta3n::PlanInfo info =
+      ta3n::check_plan(plan_table, plan_len, plan_dev, num_frames);
+  if (!info.ok || static_cast<long long>(info.max_k) * d > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  int mt[ta3n::kMaxSubsets + 1] = {};
+  long long blocks = 0;
+  for (int n = 1; n <= ta3n::kMaxSubsets; ++n) {
+    const long long tiles =
+        (static_cast<long long>(n) * batch + kTileM - 1) / kTileM;
+    if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    mt[n] = static_cast<int>(tiles);
+    blocks += tiles * info.units_with[n];
+  }
+  blocks *= static_cast<long long>((h + kTileH - 1) / kTileH) * splits;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* ptr) {
     return reinterpret_cast<unsigned long long>(ptr) % 16 == 0;
   };
   bool vec4 = d % 4 == 0 && aligned(x);
-  for (int i = 0; i < num_frames - 1; ++i) vec4 = vec4 && aligned(plan.w[i]);
+  for (int z = 0; z < info.plan.n_units; ++z)
+    vec4 = vec4 && aligned(host_ptrs[z]);
   const cudaError_t attr = vec4 ? allow_smem<true>() : allow_smem<false>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* dev_ptrs = static_cast<const long long*>(ptrs);
   (vec4 ? trn_fused_fwd_kernel<true> : trn_fused_fwd_kernel<false>)
-      <<<plan.blk0[num_frames - 1], kThreads, kSmem, s>>>(
-          plan, static_cast<const float*>(x), static_cast<float*>(part),
-          batch, num_frames, d, h);
+      <<<static_cast<unsigned>(blocks), kThreads, kSmem, s>>>(
+          info.plan, dev_ptrs, static_cast<const float*>(x),
+          static_cast<float*>(part), batch, num_frames, d, h, splits, mt[1],
+          mt[2], mt[3]);
   const long long count = static_cast<long long>(batch) * (num_frames - 1) * h;
-  const long long blocks = (count + 255) / 256;
+  const long long epi = (count + 255) / 256;
   trn_fused_fwd_epilogue<kWithMasks>
-      <<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(
-          plan, static_cast<const float*>(part), static_cast<float*>(out),
-          static_cast<unsigned char*>(masks), batch, num_frames - 1, h);
+      <<<static_cast<unsigned>(epi < 8192 ? epi : 8192), 256, 0, s>>>(
+          info.plan, dev_ptrs, static_cast<const float*>(part),
+          static_cast<float*>(out), static_cast<unsigned char*>(masks), batch,
+          h, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x [batch, num_frames, d], out [batch, num_frames-1, h]: contiguous f32 on
-// the current device.  w and b are host arrays of num_frames-1 device
-// pointers.  plan_table is a host int32 array holding, for each scale,
-// k, n_sub and then n_sub*k frame indices.  splits (1..8) D slices per
-// output tile; part is scratch of [splits * sum(k*n_sub), batch, h] f32.
-// Launches both kernels on `stream` and returns cudaGetLastError().
-extern "C" int ta3n_trn_fused_fwd_f32(const void* x, const void* const* w,
-                                      const void* const* b, void* out,
+// the current device.  ptrs is a device array of device pointers: for each
+// unit (scale, position) of the plan its scale's weight [h, k*d]
+// (row-major), then each scale's bias [h]; host_ptrs holds the same
+// pointers on the host (their alignment picks the copy width).  plan_table (plan_len ints, on the host) and
+// plan_dev (the same ints on the device, 16-byte aligned) are the relation
+// plan of trn_plan.cuh; a malformed table is refused.  splits (1..8) D
+// slices per output tile; part is scratch of [splits * n_slots, batch, h]
+// f32.  Launches both kernels on `stream` and returns cudaGetLastError().
+extern "C" int ta3n_trn_fused_fwd_f32(const void* x, const void* ptrs,
+                                      const void* const* host_ptrs, void* out,
                                       void* part, const int* plan_table,
+                                      int plan_len, const int* plan_dev,
                                       int batch, int num_frames, int d, int h,
                                       int splits, void* stream) {
-  return launch<false>(x, w, b, out, nullptr, part, plan_table, batch,
-                       num_frames, d, h, splits, stream);
+  return launch<false>(x, ptrs, host_ptrs, out, nullptr, part, plan_table,
+                       plan_len, plan_dev, batch, num_frames, d, h, splits,
+                       stream);
 }
 
 // The training variant: as above, and masks [batch, n_sub_total*h] uint8
 // (contiguous, on the current device) receives (z > 0) of every subset, in
 // the plan's subset order.
 extern "C" int ta3n_trn_fused_fwd_train_f32(
-    const void* x, const void* const* w, const void* const* b, void* out,
-    void* masks, void* part, const int* plan_table, int batch,
-    int num_frames, int d, int h, int splits, void* stream) {
-  return launch<true>(x, w, b, out, masks, part, plan_table, batch,
-                      num_frames, d, h, splits, stream);
+    const void* x, const void* ptrs, const void* const* host_ptrs, void* out,
+    void* masks, void* part, const int* plan_table, int plan_len,
+    const int* plan_dev, int batch, int num_frames, int d, int h, int splits,
+    void* stream) {
+  return launch<true>(x, ptrs, host_ptrs, out, masks, part, plan_table,
+                      plan_len, plan_dev, batch, num_frames, d, h, splits,
+                      stream);
 }

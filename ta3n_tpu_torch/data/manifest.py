@@ -1,14 +1,17 @@
 """Video records and class lists: the port's own copies of
-`ta3n_tpu/data/manifest.py`'s ``VideoRecord``, ``repeat_to``,
-``epoch_balance_counts`` and ``load_class_names``."""
+`ta3n_tpu/data/manifest.py`'s ``VideoRecord``, ``parse_list_file``,
+``repeat_to``, ``epoch_balance_counts`` and ``load_class_names``.
+
+List files hold one video per line, ``<path> <num_frames> <label>``
+(reference `VideoRecord`, dataset.py:14-28)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Sequence
 
-__all__ = ["VideoRecord", "repeat_to", "epoch_balance_counts",
-           "load_class_names"]
+__all__ = ["VideoRecord", "parse_list_file", "repeat_to",
+           "epoch_balance_counts", "load_class_names"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,6 +19,19 @@ class VideoRecord:
     path: str
     num_frames: int
     label: int
+
+
+def parse_list_file(list_file: str) -> List[VideoRecord]:
+    records = []
+    with open(list_file) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            parts = line.split(" ")
+            records.append(VideoRecord(parts[0], int(parts[1]),
+                                       int(parts[2])))
+    return records
 
 
 def repeat_to(records: Sequence[VideoRecord], num_dataload: int

@@ -1,2 +1,4 @@
-"""Weight conversion between the JAX package, reference-format `.pth.tar`
-checkpoints and the port's modules."""
+"""Files of the port: weight conversion between the JAX package,
+reference-format `.pth.tar` checkpoints and the port's modules
+(`convert.py`), the Trainer's checkpoints (`checkpoint.py`), log files and
+meters (`logs.py`) and confusion matrices (`confusion.py`)."""

@@ -8,28 +8,30 @@ uses only the single full subset).  Behavioural parity with the reference
 
   * scales are ``[S, S-1, ..., 2]`` (``TRNmodule.py:34``),
   * subsets per scale are ``itertools.combinations(range(S), k)`` in
-    lexicographic order (``TRNmodule.py:84-86``),
+    lexicographic order (``TRNmodule.py:84-86``); the selected ones are
+    unranked from their index in that order, never listed, so a plan costs
+    O(S^2) at any S (the listing grows as 2^S: about 0.3 s and 160 MB at
+    S=20),
   * the largest scale contributes only ``relations[0][0]`` — the single
     C(S,S)=1 full combination (``TRNmodule.py:60-64``),
   * every other scale sums ``min(3, C(S,k))`` subsets at indices
     ``ceil(i * N / n_sel)`` for i in range(n_sel) (``TRNmodule.py:66-79``).
 
-Everything here is computed once at Python level (static under jit); the
-selected indices are baked into gather constants so XLA sees fixed shapes.
+Everything here is computed once, on the host; the TRN's kernels read the
+plan as a table on the device (`ops/trn_fused.py::_plan_table`).
 """
 
 from __future__ import annotations
 
-import itertools
 from functools import lru_cache
-from math import ceil
+from math import ceil, comb
 from typing import List, Tuple
 
 import numpy as np
 
 __all__ = [
     "relation_scales",
-    "relation_set",
+    "combination_at",
     "even_subsample_indices",
     "selected_relation_indices",
     "RelationPlan",
@@ -42,10 +44,21 @@ def relation_scales(num_frames: int) -> List[int]:
     return list(range(num_frames, 1, -1))
 
 
-@lru_cache(maxsize=None)
-def relation_set(num_frames: int, k: int) -> Tuple[Tuple[int, ...], ...]:
-    """All k-frame index combinations, lexicographic (TRNmodule.py:84-86)."""
-    return tuple(itertools.combinations(range(num_frames), k))
+def combination_at(num_frames: int, k: int, index: int) -> Tuple[int, ...]:
+    """The ``index``-th k-frame combination in lexicographic order, as
+    ``list(itertools.combinations(range(num_frames), k))[index]``, without
+    listing the others."""
+    if not 0 <= index < comb(num_frames, k):
+        raise IndexError(f"combination {index} of C({num_frames}, {k})")
+    out, first = [], 0
+    for slot in range(k, 0, -1):
+        # skip the combinations whose next frame is `first`
+        while comb(num_frames - first - 1, slot - 1) <= index:
+            index -= comb(num_frames - first - 1, slot - 1)
+            first += 1
+        out.append(first)
+        first += 1
+    return tuple(out)
 
 
 def even_subsample_indices(num_total: int, num_select: int) -> List[int]:
@@ -62,13 +75,10 @@ def selected_relation_indices(num_frames: int, subsample_num: int = 3
     """
     out: List[List[Tuple[int, ...]]] = []
     for scale_id, k in enumerate(relation_scales(num_frames)):
-        rels = relation_set(num_frames, k)
-        if scale_id == 0:
-            out.append([rels[0]])
-        else:
-            n_sel = min(subsample_num, len(rels))
-            idxs = even_subsample_indices(len(rels), n_sel)
-            out.append([rels[i] for i in idxs])
+        total = comb(num_frames, k)
+        n_sel = 1 if scale_id == 0 else min(subsample_num, total)
+        out.append([combination_at(num_frames, k, i)
+                    for i in even_subsample_indices(total, n_sel)])
     return out
 
 

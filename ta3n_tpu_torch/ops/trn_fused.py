@@ -35,6 +35,14 @@ plain version.  Each kernel has a count of its launches:
 ``torch.autograd.Function``, as ``trn_multiscale_fused``'s custom VJP
 joins them in the JAX package.  It saves x, the weights and the uint8
 masks, never z.
+
+The kernels take any number of frames S >= 2: they read the relation plan
+as a table in device memory (``_plan_table``, the layout of
+``csrc/trn_plan.cuh``), uploaded once per (S, subsample_num, device), and
+the weights and biases through an array of device pointers (one weight
+per (scale, position) unit, so that no load in the kernels waits on
+another), uploaded once per set of pointers (the optimizer updates the
+weights in place, so a training run uploads it once).
 """
 
 from __future__ import annotations
@@ -60,8 +68,7 @@ launches = 0          # inference forward, csrc/trn_fused_fwd.cu
 train_launches = 0    # training forward, csrc/trn_fused_fwd.cu
 bwd_launches = 0      # backward, csrc/trn_fused_bwd.cu
 
-# limits of the kernels' by-value plan (csrc/trn_fused_*.cu)
-_MAX_FRAMES = 16
+# the kernels take at most 3 subsets per scale (csrc/trn_plan.cuh)
 _MAX_SUBSETS = 3
 
 # the forward kernel's tiles (csrc/trn_fused_fwd.cu): unit rows (subset,
@@ -156,15 +163,77 @@ def _subset_index(num_frames: int, subsample_num: int,
 
 @functools.lru_cache(maxsize=None)
 def _plan_table(num_frames: int, subsample_num: int) -> np.ndarray:
-    """The kernels' plan: for each scale, k, n_sub, then n_sub*k frame
-    indices (int32)."""
+    """The kernels' relation plan, int32, in the layout of
+    ``csrc/trn_plan.cuh``: the header (n_scales, n_units, n_sub_total,
+    n_slots); per scale {k, n_sub, sub0, slot0}; per unit (scale i,
+    position p) {i, p, n_sub, slot}, {units before it with 1, 2, 3
+    subsets, sub0}, {the frame of each subset at p (-1 past n_sub), k};
+    per frame its first triple, then the count; and per frame its triples
+    (unit << 2 | subset), in the order scale, subset, position."""
     plan = build_relation_plan(num_frames, subsample_num)
-    table = []
-    for k, subsets in zip(plan.scales, plan.subsets):
-        table += [k, subsets.shape[0], *subsets.reshape(-1).tolist()]
-    table = np.asarray(table, dtype=np.int32)
+    scales, units, first_unit = [], [], []
+    sub0 = slot0 = 0
+    before = [0, 0, 0, 0]  # units so far with 1, 2, 3 subsets
+    for i, (k, subsets) in enumerate(zip(plan.scales, plan.subsets)):
+        n = len(subsets)
+        scales.append([k, n, sub0, slot0])
+        first_unit.append(len(units))
+        for p in range(k):
+            frames = [int(f) for f in subsets[:, p]] + [-1] * (3 - n)
+            units.append([i, p, n, slot0 + p * n, *before[1:], sub0,
+                          *frames, k])
+            before[n] += 1
+        sub0 += n
+        slot0 += k * n
+    trips = [[] for _ in range(num_frames)]
+    for i, (k, subsets) in enumerate(zip(plan.scales, plan.subsets)):
+        for j, sub in enumerate(subsets):
+            for p, f in enumerate(sub):
+                trips[f].append((first_unit[i] + p) << 2 | j)
+    trip0 = np.cumsum([0] + [len(t) for t in trips])
+    table = np.concatenate([
+        [len(scales), len(units), sub0, slot0], np.ravel(scales),
+        np.ravel(units), trip0, [c for t in trips for c in t]]
+    ).astype(np.int32)
     table.flags.writeable = False  # shared by every call
     return table
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_device(num_frames: int, subsample_num: int,
+                 device: torch.device) -> torch.Tensor:
+    """``_plan_table`` on ``device``, uploaded once."""
+    return torch.as_tensor(_plan_table(num_frames, subsample_num).copy(),
+                           device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_ptrs(ptrs: tuple, device: torch.device) -> torch.Tensor:
+    """The int64 device pointers ``ptrs`` as an array on ``device``: a
+    pinned upload ordered on the current stream, made once per set of
+    pointers, so the host never waits for it."""
+    host = torch.tensor(ptrs, dtype=torch.int64).pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def _pointer_args(weights, biases, num_frames: int, subsample_num: int,
+                  device: torch.device) -> tuple:
+    """The kernels' array of pointers, each unit's weight (its scale's,
+    once per position) then each bias, in two copies: on the device, and
+    on the host (the C entry checks their alignment)."""
+    scales = build_relation_plan(num_frames, subsample_num).scales
+    ptrs = tuple(w.data_ptr() for w, k in zip(weights, scales)
+                 for _ in range(k)) + tuple(b.data_ptr() for b in biases)
+    return (_device_ptrs(ptrs, device).data_ptr(),
+            (ctypes.c_void_p * len(ptrs))(*ptrs))
+
+
+def _plan_args(num_frames: int, subsample_num: int,
+               device: torch.device) -> tuple:
+    """The plan table's C arguments: host copy, its length, device copy."""
+    table = _plan_table(num_frames, subsample_num)
+    return (table.ctypes.data, table.size,
+            _plan_device(num_frames, subsample_num, device).data_ptr())
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,9 +263,9 @@ def _fwd_splits(num_frames: int, subsample_num: int, b: int, d: int,
 def _check_inputs(x, weights, biases, num_frames, subsample_num) -> None:
     """Raise on anything the kernels do not take (``biases`` None: the
     backward, which takes none)."""
-    if not 2 <= num_frames <= _MAX_FRAMES:
-        raise ValueError(f"the TRN kernel takes 2..{_MAX_FRAMES} frames, "
-                         f"got {num_frames}")
+    if num_frames < 2:
+        raise ValueError(f"the TRN kernel takes 2 or more frames, got "
+                         f"{num_frames}")
     plan = build_relation_plan(num_frames, subsample_num)
     if max(len(s) for s in plan.subsets) > _MAX_SUBSETS:
         raise ValueError(f"the TRN kernel takes at most {_MAX_SUBSETS} "
@@ -234,11 +303,6 @@ def _check_tensor(t: torch.Tensor, device: torch.device,
         raise ValueError("the CUDA kernels take contiguous tensors")
 
 
-def _ptrs(tensors) -> ctypes.Array:
-    """A host array of the tensors' device pointers."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-
-
 def _call(entry: str, x: torch.Tensor, *args) -> None:
     """Call a C entry with the current stream of x's device; raise on a
     refused launch."""
@@ -255,18 +319,21 @@ def _call(entry: str, x: torch.Tensor, *args) -> None:
 def _launch_fwd(entry, x, weights, biases, num_frames, subsample_num,
                 *outs) -> None:
     """The forward kernel and its epilogue into ``outs`` (out, and the
-    masks in the training variant), with their scratch of partial z."""
+    masks in the training variant), with their scratch of partial z:
+    [splits * n_slots, B, H] f32, n_slots = sum_k(k * n_sub_k): 32 slots
+    at S=5 (6.6 MB at B=202, H=256), 922 at S=25 (190 MB)."""
     b, s, d = x.shape
     h = weights[0].shape[0]
     splits = _fwd_splits(num_frames, subsample_num, b, d, h)
     slots = sum(n for _, _, n in _fwd_units(num_frames, subsample_num))
     part = torch.empty((splits * slots, b, h), dtype=x.dtype,
                        device=x.device)
-    w_ptrs, b_ptrs = _ptrs(weights), _ptrs(biases)
-    _call(entry, x, x.data_ptr(), ctypes.addressof(w_ptrs),
-          ctypes.addressof(b_ptrs), *(t.data_ptr() for t in outs),
-          part.data_ptr(), _plan_table(num_frames, subsample_num).ctypes.data,
-          b, s, d, h, splits)
+    _call(entry, x, x.data_ptr(),
+          *_pointer_args(weights, biases, num_frames, subsample_num,
+                         x.device),
+          *(t.data_ptr() for t in outs), part.data_ptr(),
+          *_plan_args(num_frames, subsample_num, x.device), b, s, d, h,
+          splits)
 
 
 def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
@@ -330,17 +397,26 @@ def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
                          f"{(b, s - 1, h)}, got {tuple(masks.shape)} and "
                          f"{tuple(g.shape)}")
     dx = torch.empty_like(x)
-    dws = tuple(torch.empty_like(w) for w in weights)
-    dbs = tuple(torch.empty((h,), dtype=x.dtype, device=x.device)
-                for _ in weights)
-    w_ptrs, dw_ptrs, db_ptrs = _ptrs(weights), _ptrs(dws), _ptrs(dbs)
+    # every dW_i side by side in one buffer, every db_i in another
+    dw = torch.empty((sum(w.numel() for w in weights),), dtype=x.dtype,
+                     device=x.device)
+    db = torch.empty((len(weights), h), dtype=x.dtype, device=x.device)
     _call("ta3n_trn_fused_bwd_f32", x, x.data_ptr(),
-          ctypes.addressof(w_ptrs), masks.data_ptr(), g.data_ptr(),
-          dx.data_ptr(), ctypes.addressof(dw_ptrs),
-          ctypes.addressof(db_ptrs),
-          _plan_table(num_frames, subsample_num).ctypes.data, b, s, d, h)
+          *_pointer_args(weights, (), num_frames, subsample_num, x.device),
+          masks.data_ptr(), g.data_ptr(),
+          dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+          *_plan_args(num_frames, subsample_num, x.device), b, s, d, h)
     bwd_launches += 1
-    return dx, dws, dbs
+    return dx, _split_flat(dw, weights), tuple(db.unbind())
+
+
+def _split_flat(flat: torch.Tensor, like) -> tuple:
+    """Views of ``flat`` shaped as the tensors ``like``, side by side."""
+    out, at = [], 0
+    for t in like:
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return tuple(out)
 
 
 def _no_kernel(name: str, device: torch.device) -> ValueError:

@@ -4,8 +4,8 @@ own copy of `ta3n_tpu/train/schedules.py`.
 Parity with the reference's in-place schedule logic:
   * alpha ramp (main.py:231)
   * per-batch DANN beta (main.py:350-352)
-  * the DANN learning-rate rule (main.py:800-802); the step-decay and
-    loss-plateau rules come with ROADMAP.md queue 1, item 8
+  * step-decay / loss-plateau / DANN learning-rate rules
+    (main.py:236-237,789-802)
 All return plain floats, computed on the host and passed to the train step
 as its per-step scalars.
 """
@@ -16,7 +16,7 @@ import math
 from typing import Sequence
 
 __all__ = ["alpha_schedule", "dann_beta", "effective_beta", "dann_lr",
-           "progress"]
+           "step_decay_lr", "loss_plateau_lr", "progress"]
 
 
 def alpha_schedule(alpha_cfg: float, epoch: int, epochs: int) -> float:
@@ -48,3 +48,19 @@ def dann_lr(lr0: float, p: float) -> float:
     """lr = lr0 / (1 + 10p)^0.75 (main.py:800-802)."""
     return lr0 / (1.0 + 10.0 * p) ** 0.75
 
+
+def step_decay_lr(lr0: float, decay: float, epoch: int,
+                  lr_steps: Sequence[float]) -> float:
+    """Divide by ``decay`` at every epoch listed in lr_steps
+    (main.py:236-237,789-792)."""
+    n = sum(1 for s in lr_steps if epoch >= s)
+    return lr0 / (decay ** n)
+
+
+def loss_plateau_lr(lr_prev: float, decay: float, loss_current: float,
+                    loss_previous: float) -> float:
+    """Divide by ``decay`` when the classification loss went up
+    (main.py:234-235,794-798)."""
+    if loss_current > loss_previous:
+        return lr_prev / decay
+    return lr_prev

@@ -40,7 +40,7 @@ from ta3n_tpu_torch.train.optim import make_optimizer, optimizer_step
 
 __all__ = ["TrainState", "StepScalars", "create_train_state",
            "make_train_step", "make_eval_step", "make_multi_eval_step",
-           "device_gather", "topk_correct"]
+           "make_infer_step", "device_gather", "topk_correct"]
 
 
 class TrainState(NamedTuple):
@@ -188,7 +188,7 @@ def _store_part(store: torch.Tensor, idx, mask: torch.Tensor):
 
 def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
                     class_weights=None, domain_weights=None,
-                    gather_on_device: bool = False):
+                    gather_on_device: bool = False, return_aux: bool = False):
     """Build the train step for ``model``'s configuration, on the model's
     device.
 
@@ -201,7 +201,8 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
     the model's device for the dropout masks.  The step updates
     ``state.model`` in place and returns the state with ``step + 1`` and
     the metrics loss_c, loss_a, loss_e (where the configuration has them),
-    loss, top1, top5 and n, as 0-d tensors.
+    loss, top1, top5 and n, as 0-d tensors; with ``return_aux`` also the
+    attention values attn_s [Bs, R] and attn_t [Bt, R] (main.py:623-628).
 
     With ``gather_on_device=True`` the features stay on the device
     (`FeatureStore.to_device`) and only index batches cross from the host:
@@ -262,6 +263,8 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
         metrics["top1"] = topk_correct(o, lab, m, 1)
         metrics["top5"] = topk_correct(o, lab, m, 5)
         metrics["n"] = m.sum()
+        if return_aux:
+            metrics["attn_s"], metrics["attn_t"] = out_s.attn, out_t.attn
         return loss, metrics
 
     def update(state: TrainState, outs, ys, mask_s, mask_t, scalars):
@@ -370,6 +373,21 @@ def make_eval_step(model: VideoModel, class_weights=None,
     return ev_gather if gather_on_device else ev
 
 
+def _stacked_parts(store: torch.Tensor, idx, mask: torch.Tensor) -> list:
+    """The store part (`_store_part`) of each of the stacked index batches
+    idx [Nb, B, T], whose masks are mask [Nb, B] on the store's device: the
+    indices checked and uploaded once for all the batches."""
+    idx = np.asarray(idx)
+    if idx.ndim != 3:
+        raise ValueError(f"stacked index batches are [Nb, B, T], got "
+                         f"{idx.shape}")
+    nb, b, t = idx.shape
+    rows = row_index(idx, store.shape[0], store.device)
+    scale = mask.repeat_interleave(t, dim=1)               # [Nb, B*T]
+    return [(store, RowIndex(rows.rows[i * b * t:(i + 1) * b * t], rows.end),
+             scale[i]) for i in range(nb)]
+
+
 def make_multi_eval_step(model: VideoModel, class_weights=None):
     """A whole validation epoch from a store on the device
     (`ta3n_tpu/train/step.py::make_multi_eval_step`): the stacked index
@@ -389,23 +407,59 @@ def make_multi_eval_step(model: VideoModel, class_weights=None):
 
     @torch.inference_mode()
     def multi_eval(store, idx, ys, mask):
-        idx = np.asarray(idx)
-        if idx.ndim != 3:
-            raise ValueError(f"stacked index batches are [Nb, B, T], got "
-                             f"{idx.shape}")
-        nb, b, t = idx.shape
         ys = _as(ys, device, torch.long)
         mask = _as(mask, device, torch.float32)
-        rows = row_index(idx, store.shape[0], store.device)
-        scale = mask.repeat_interleave(t, dim=1)           # [Nb, B*T]
         sums = torch.zeros(4, device=device)
-        for i in range(nb):
-            part = (store, RowIndex(rows.rows[i * b * t:(i + 1) * b * t],
-                                    rows.end), scale[i])
-            out = _eval_gathered(model, part, b)
+        for i, part in enumerate(_stacked_parts(store, idx, mask)):
+            out = _eval_gathered(model, part, mask.shape[1])
             loss, top1, top5, n = _eval_metrics(out.out, ys[i], mask[i],
                                                 class_weights)
             sums += torch.stack([loss * n, top1, top5, n])
         return dict(zip(("loss_sum", "top1", "top5", "n"), sums.unbind()))
 
     return multi_eval
+
+
+def make_infer_step(model: VideoModel, top_k: int,
+                    gather_on_device: bool = False):
+    """Inference of the eval CLI, on the model's device, under
+    ``torch.inference_mode()`` (the counterpart of the JAX CLI's ``_infer``
+    and ``_infer_all``, `ta3n_tpu/cli/test_models.py:158-187`): softmax
+    probabilities of the video-level logits, their ``top_k`` (at most the
+    class count) and the attention values.
+
+    Returned signature:
+      infer(x [B, S, D]) -> (probs [B, C], top_p [B, K], top_i [B, K],
+                             attn [B, R])
+    or, with ``gather_on_device=True``, a whole test set from a store on
+    the device in one call, its outputs kept on the device and stacked for
+    one fetch:
+      infer(store, idx [Nb, B, T], mask [Nb, B]) -> the same, each
+        [Nb, B, ...]
+    Each batch then runs the fused gather + FC without the gathered rows
+    (on CUDA the K3 kernel) and the model from its pre-activations (K1
+    (infer)); padded videos (mask 0) read zero rows, as the JAX CLI's
+    ``x * mask``.
+    """
+    device = next(model.parameters()).device
+    k = min(top_k, model.cfg.num_class)
+
+    def head(out: StreamOutput):
+        probs = torch.softmax(out.out, dim=-1)
+        top_p, top_i = torch.topk(probs, k, dim=-1)
+        return probs, top_p, top_i, out.attn
+
+    @torch.inference_mode()
+    def infer(x):
+        x = _as(x, device, torch.float32)
+        _, out = model(x[:0], x, _EVAL_BETA, 0.0, False, False)
+        return head(out)
+
+    @torch.inference_mode()
+    def infer_all(store, idx, mask):
+        mask = _as(mask, device, torch.float32)
+        outs = [head(_eval_gathered(model, part, mask.shape[1]))
+                for part in _stacked_parts(store, idx, mask)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+
+    return infer_all if gather_on_device else infer

@@ -214,6 +214,27 @@ def test_fwd_kernel_ragged_d_chunk(d, train, monkeypatch):
         _check_fwd(70, 5, d, 40, train)
 
 
+# beyond the 16 frames of the earlier by-value plan: the flagship widths
+# at the serve and train batches, and ragged widths
+MANY_FRAMES = [(b, s, 512, 256) for s in (17, 25) for b in (1, 64, 202)] + \
+    [(13, 17, 37, 19), (5, 25, 24, 8)]
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["infer", "train"])
+@pytest.mark.parametrize("b,s,d,h", MANY_FRAMES)
+def test_fwd_kernel_many_frames(b, s, d, h, train):
+    """K1 at S = 17 and 25, its plan read from device memory: the checks
+    of _check_fwd (tolerance, masks, second call, dyadic inputs bit for
+    bit)."""
+    _check_fwd(b, s, d, h, train)
+
+
+@pytest.mark.parametrize("b,s,d,h", MANY_FRAMES)
+def test_bwd_kernel_many_frames(b, s, d, h):
+    """K2 at S = 17 and 25: the checks of test_bwd_kernel_matches_plain."""
+    _check_bwd(b, s, d, h)
+
+
 @pytest.mark.parametrize("b,s,d,h", CASES)
 def test_bwd_kernel_matches_plain(b, s, d, h):
     """The backward from the kernel's masks: dx, every dW and db within

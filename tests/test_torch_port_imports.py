@@ -168,3 +168,77 @@ def test_chip_smoke_fails_without_the_program(tmp_path):
     assert proc.returncode != 0
     assert "No module named 'ta3n_tpu_torch'" in proc.stderr
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("port_module,jax_module,names", [
+    ("ta3n_tpu_torch.io_utils.confusion", "ta3n_tpu.io_utils.confusion",
+     ["confusion_matrix", "per_class_topk_accuracy",
+      "plot_confusion_matrix"]),
+    ("ta3n_tpu_torch.io_utils.logs", "ta3n_tpu.io_utils.logs",
+     ["AverageMeter", "LogFiles"]),
+    ("ta3n_tpu_torch.train.schedules", "ta3n_tpu.train.schedules",
+     ["alpha_schedule", "progress", "dann_beta", "effective_beta",
+      "dann_lr", "step_decay_lr", "loss_plateau_lr"]),
+    ("ta3n_tpu_torch.data.manifest", "ta3n_tpu.data.manifest",
+     ["parse_list_file"]),
+    ("ta3n_tpu_torch.cli.opts", "ta3n_tpu.cli.opts", ["configs_from_args"]),
+])
+def test_copied_code_matches_jax_package(port_module, jax_module, names):
+    """The port's copies of JAX modules that import no jax: each copied
+    function and class has the original's source, line for line."""
+    import importlib
+    import inspect
+
+    ours, ref = (importlib.import_module(m) for m in (port_module,
+                                                      jax_module))
+    assert set(names) <= set(ours.__all__) | {"configs_from_args"}
+    for name in names:
+        assert inspect.getsource(getattr(ours, name)) == \
+            inspect.getsource(getattr(ref, name)), name
+
+
+def _actions(parser, skip=()):
+    return [(a.option_strings, a.dest, a.default, a.type, a.choices,
+             a.nargs, a.const, type(a).__name__) for a in parser._actions
+            if a.dest not in skip]
+
+
+def test_train_parser_matches_jax_package():
+    """The train CLI's flags, defaults and order are the JAX parser's,
+    plus --device; the three flags with no effect in the port say so."""
+    from ta3n_tpu.cli.opts import build_parser as jax_parser
+    from ta3n_tpu_torch.cli.opts import build_parser
+
+    ours, ref = build_parser(), jax_parser()
+    assert _actions(ours, skip=("device",)) == _actions(ref)
+    assert ours._actions[-1].dest == "device"
+    assert ours._actions[-1].default == "cuda"
+    helps = {a.dest: a.help for a in ours._actions}
+    for dest in ("prng_impl", "compilation_cache", "workers"):
+        assert "no effect" in helps[dest], dest
+
+
+def test_eval_parser_matches_jax_package():
+    from ta3n_tpu.cli.test_models import build_parser as jax_parser
+    from ta3n_tpu_torch.cli.test_models import build_parser
+
+    ours = build_parser()
+    assert _actions(ours, skip=("device",)) == _actions(jax_parser())
+    assert ours._actions[-1].dest == "device"
+    assert ours._actions[-1].default == "cuda"
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--num_segments", "17", "--val_segments", "-1", "--fc_dim", "512",
+         "--use_target", "uSv", "--dis_DA", "DAN", "--beta", "-1", "0.5",
+         "--lr_steps", "3", "4", "--copy_list", "Y", "N"]])
+def test_configs_from_args_match_jax_package(argv):
+    from ta3n_tpu.cli.opts import build_parser as jax_parser
+    from ta3n_tpu.cli.opts import configs_from_args as jax_configs
+    from ta3n_tpu_torch.cli.opts import build_parser, configs_from_args
+
+    head = ["class.txt", "RGB", "src.txt", "tgt.txt", "val.txt"]
+    ours = configs_from_args(build_parser().parse_args(head + argv), 7)
+    ref = jax_configs(jax_parser().parse_args(head + argv), 7)
+    for a, b in zip(ours, ref, strict=True):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)

@@ -126,14 +126,34 @@ def test_plain_version_is_differentiable():
 
 
 def test_kernel_plan_table_layout():
-    """The kernel's plan: per scale k, n_sub, then the frame indices."""
+    """The kernels' plan (csrc/trn_plan.cuh): the header, per scale k,
+    n_sub, sub0, slot0; per (scale, position) unit its scale, position,
+    subset count, slot, the units before it by subset count, sub0, its
+    subsets' frames and k; per frame the triples that read it."""
     table = trn_fused._plan_table(5, 3).tolist()
     plan = relation.build_relation_plan(5, 3)
-    want = []
-    for k, subsets in zip(plan.scales, plan.subsets):
-        want += [k, len(subsets), *subsets.reshape(-1).tolist()]
-    assert table == want
-    assert table[:7] == [5, 1, 0, 1, 2, 3, 4]  # the single full subset
+    assert table[:4] == [4, 14, 10, 32]
+    scales = [table[4 + 4 * i:8 + 4 * i] for i in range(4)]
+    assert scales == [[5, 1, 0, 0], [4, 3, 1, 5], [3, 3, 4, 17],
+                      [2, 3, 7, 26]]
+    units = [table[20 + 12 * z:32 + 12 * z] for z in range(14)]
+    z = 0
+    for i, (k, subsets) in enumerate(zip(plan.scales, plan.subsets)):
+        n = len(subsets)
+        for p in range(k):
+            frames = subsets[:, p].tolist() + [-1] * (3 - n)
+            assert units[z][:4] == [i, p, n, scales[i][3] + p * n]
+            assert units[z][7:] == [scales[i][2], *frames, k]
+            z += 1
+    assert units[0] == [0, 0, 1, 0, 0, 0, 0, 0, 0, -1, -1, 5]
+    assert [u[4:7] for u in units[4:7]] == [[4, 0, 0], [5, 0, 0], [5, 0, 1]]
+    trip0 = table[188:194]
+    trips = table[194:]
+    assert trip0[0] == 0 and trip0[-1] == len(trips) == 32
+    for f in range(5):
+        for code in trips[trip0[f]:trip0[f + 1]]:
+            unit, j = divmod(code, 4)
+            assert units[unit][8 + j] == f
 
 
 @pytest.mark.parametrize("case", ["dtype", "layout", "contiguous", "frames",
@@ -149,8 +169,8 @@ def test_kernel_input_checks(case):
         w, err = [t.T.contiguous() for t in w], ValueError
     elif case == "contiguous":
         w, err = [t.T.contiguous().T for t in w], ValueError
-    elif case == "frames":
-        kw["num_frames"], err = 17, ValueError
+    elif case == "frames":  # any S from 2 up runs; 1 has no relation
+        x, kw["num_frames"], err = x[:, :1], 1, ValueError
     elif case == "count":
         w, err = w[:-1], ValueError
     else:
