@@ -37,7 +37,15 @@ seed):
     on synthetic stores of the published split sizes: 2 epochs from the
     device stores with --save_model, a --resume_hp run to epoch 3, one
     epoch from host features, and the eval CLI on its model_best.pth.tar,
-    whose Pred@1 must be the best Prec@1 the Trainer printed.
+    whose Pred@1 must be the best Prec@1 the Trainer printed;
+  * the comparison configurations (COMPARISON: TemPooling source-only and
+    with RevGrad, TA2N, general attention, AdaBN, AutoDIAL, MCD and
+    share_params N with two shared FCs, Sv, target entropy and
+    pred_normalize) at the same widths and batch: 3 device-store steps of
+    each against host-feature steps on the plain path, each step from the
+    same parameters and with its launches checked, one val epoch from the
+    store, the step timed and profiled; then AdaBN and MCD through the
+    train CLI for one epoch and the eval CLI on its model_best.pth.tar.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -118,6 +126,42 @@ RECIPE_FLAGS = ["--num_segments", "5", "--use_target", "uSv",
                 "--beta", "0.75", "0.75", "0.5", "--lr", "0.03",
                 "--lr_adaptive", "dann", "-b", "128", "74", str(CLI_BATCH),
                 "--dropout_i", "0.5", "--dropout_v", "0.5", "-pf", "4"]
+# the comparison rows of the paper (BASELINE.md) and of the JAX package's
+# baseline configurations (tests/test_baseline_configs.py), at the flagship
+# widths: name -> (model fields beyond the flagship's, DAConfig fields,
+# launches of one device-store step: K3, K1 (train), K2)
+RECIPE = dict(use_target="uSv", adv_DA="RevGrad",
+              add_loss_DA="attentive_entropy", place_adv=("Y", "Y", "Y"))
+COMPARISON = {
+    "tempooling_source_only": (
+        dict(frame_aggregation="avgpool", use_attn="none"),
+        dict(use_target="none"), (2, 0, 0)),
+    "tempooling_revgrad": (
+        dict(frame_aggregation="avgpool", use_attn="none"),
+        dict(use_target="uSv", adv_DA="RevGrad", place_adv=("N", "N", "Y")),
+        (2, 0, 0)),
+    "ta2n": (dict(use_attn="none"), RECIPE, (2, 1, 1)),
+    "trn_m_general": (dict(use_attn="general", use_attn_frame="TransAttn"),
+                      RECIPE, (2, 1, 1)),
+    "adabn": (dict(use_bn="AdaBN"), RECIPE, (2, 1, 1)),
+    "autodial": (dict(use_bn="AutoDIAL"), RECIPE, (2, 1, 1)),
+    "mcd": (dict(ens_DA="MCD"), {**RECIPE, "ens_DA": "MCD"}, (2, 2, 2)),
+    "share_n": (dict(share_params="N", add_fc=2),
+                dict(use_target="Sv", adv_DA="RevGrad",
+                     add_loss_DA="target_entropy", pred_normalize="Y",
+                     place_adv=("Y", "Y", "Y")), (2, 1, 1)),
+}
+COMPARISON_STEPS = 3           # parity steps per configuration
+COMPARISON_TIMED = 10          # timed steps per configuration
+COMPARISON_MU = 0.5            # MCD's GRL strength in those steps
+# AutoDIAL's alpha in the seed model: round(128 * 0.75) = 96 source and
+# round(74 * 0.75) = 56 (55.5, half to even) target videos to their own BN,
+# the rest mixed (at its init value 1 nothing mixes)
+AUTODIAL_ALPHA = 0.75
+# the configurations taken through the train CLI and the eval CLI, with
+# their flags beyond MODEL_FLAGS and RECIPE_FLAGS
+COMPARISON_CLI = {"adabn": ["--use_bn", "AdaBN"],
+                  "mcd": ["--ens_DA", "MCD", "--mu", "0.5"]}
 # NVIDIA H100 SXM data sheet (700 W): dense TF32 tensor-core peak and HBM
 # rate
 PEAK_TF32 = 495e12
@@ -610,15 +654,20 @@ def counts():
             "gather_gemm": gather_gemm.launches}
 
 
-def flagship_model(gen, dropout=0.0):
-    """The flagship on the card, every weight redrawn at torch's default
-    scale (as for serving), so that the losses and gradients are far from
-    those of a near-zero network."""
-    cfg = dataclasses.replace(FLAGSHIP, dropout_i=dropout, dropout_v=dropout)
+def flagship_model(gen, dropout=0.0, **fields):
+    """The flagship, or the flagship with other model ``fields``, on the
+    card, every Linear redrawn at torch's default scale (as for serving),
+    so that the losses and gradients are far from those of a near-zero
+    network; AutoDIAL's alpha at AUTODIAL_ALPHA."""
+    cfg = dataclasses.replace(FLAGSHIP, dropout_i=dropout, dropout_v=dropout,
+                              **fields)
     model = VideoModel(cfg, generator=gen)
     for mod in model.modules():
         if isinstance(mod, nn.Linear):
             torch_default_uniform_(mod, gen)
+    if cfg.use_bn == "AutoDIAL":
+        with torch.no_grad():
+            model.alpha.fill_(AUTODIAL_ALPHA)
     return model.cuda()
 
 
@@ -676,12 +725,14 @@ def check_metrics(i, got, want, ref):
     return worst
 
 
-def record_trn(model):
+def record_trn(model, calls=None):
     """Hook the model's TRN: at each forward, record its input x (the
     shared FC's output after its relu, so (x > 0) is that relu's mask), z
     of its subsets by the plain version, and the relu masks of its subsets
     as this side computed them: the kernel's, saved for its backward, or
-    the plain TRN's.  Returns the record and the hook's handle."""
+    the plain TRN's.  The record holds the last forward's; ``calls``, a
+    list, gets every forward's.  Returns the record and the hook's
+    handle."""
     rec = {}
     plain = isinstance(model.TRN, PlainTRN)
     trn = model.TRN.trn if plain else model.TRN
@@ -696,8 +747,50 @@ def record_trn(model):
                 x, ws, bs, trn.num_frames, trn.subsample_num)[1] if plain
                      else out.grad_fn.saved_tensors[1])
         rec.update(x=x.clone(), z=z, masks=masks.clone())
+        if calls is not None:
+            calls.append(dict(rec))
 
     return rec, model.TRN.register_forward_hook(hook)
+
+
+def trn_ties(ours, ref, rows):
+    """Add to ``rows`` the TRN weight rows that a TRN relu mask flipped at
+    a rounding tie may have moved (tie_rows); the number of masks
+    flipped."""
+    scale_of = [i for i, sub in enumerate(
+        build_relation_plan(ref["x"].shape[1]).subsets) for _ in sub]
+    h = ref["z"].shape[1] // len(scale_of)
+    differ = ours["masks"] != ref["masks"]
+    z = ref["z"].abs()
+    if (differ & (z > RTOL * max(1.0, z.max().item()))).any():
+        raise AssertionError("a TRN mask differs where z is not a rounding "
+                             "tie")
+    for b, col in differ.nonzero().tolist():
+        i, u = scale_of[col // h], col % h
+        for p in ("weight", "bias"):
+            rows.setdefault(f"TRN.fc_fusion_scales.{i}.1.{p}", {})[u] = (
+                f"TRN mask of video {b}, subset {col // h} flipped at "
+                f"|z| = {z[b, col].item():.2e}")
+    return int(differ.sum())
+
+
+def relu_ties(ours, ref, names, rows, what="shared-FC relu"):
+    """Add to ``rows`` the rows u of the parameters ``names(b)`` (for
+    video b) that a relu mask of unit u flipped at a rounding tie may have
+    moved; ``ours`` and ``ref`` are the relu's outputs [B, S, F] on the two
+    sides.  Raise where a mask differs at a value that is not a tie.  The
+    number of masks flipped."""
+    differ = (ours > 0) != (ref > 0)
+    top = torch.maximum(ours, ref)
+    if (differ & (top > RTOL * max(1.0, ref.max().item()))).any():
+        raise AssertionError(f"a {what} mask differs where its input is "
+                             "not a rounding tie")
+    for b, f, u in differ.nonzero().tolist():
+        for name in names(b):
+            rows.setdefault(name, {})[u] = (
+                f"{what} of video {b}, frame {f} flipped at "
+                f"{top[b, f, u].item():.2e}")
+    return int(differ.sum())
 
 
 def tie_rows(ours, ref):
@@ -712,32 +805,11 @@ def tie_rows(ours, ref):
     3.1e-5).  Raise where a mask differs at a value that is not a tie,
     beyond RTOL of the largest."""
     rows = {}
-    scale_of = [i for i, sub in enumerate(
-        build_relation_plan(FLAGSHIP.train_segments).subsets) for _ in sub]
-    h = ref["z"].shape[1] // len(scale_of)
-    differ = ours["masks"] != ref["masks"]
-    z = ref["z"].abs()
-    if (differ & (z > RTOL * max(1.0, z.max().item()))).any():
-        raise AssertionError("a TRN mask differs where z is not a rounding "
-                             "tie")
-    for b, col in differ.nonzero().tolist():
-        i, u = scale_of[col // h], col % h
-        for p in ("weight", "bias"):
-            rows.setdefault(f"TRN.fc_fusion_scales.{i}.1.{p}", {})[u] = (
-                f"TRN mask of video {b}, subset {col // h} flipped at "
-                f"|z| = {z[b, col].item():.2e}")
-    differ = (ours["x"] > 0) != (ref["x"] > 0)
-    top = torch.maximum(ours["x"], ref["x"])
-    if (differ & (top > RTOL * max(1.0, ref["x"].max().item()))).any():
-        raise AssertionError("a shared-FC relu mask differs where its "
-                             "input is not a rounding tie")
-    for b, f, u in differ.nonzero().tolist():
-        for p in ("weight", "bias"):
-            rows.setdefault(f"fc_feature_shared_source.{p}", {})[u] = (
-                f"shared-FC relu of video {b}, frame {f} flipped at "
-                f"{top[b, f, u].item():.2e}")
-    return rows, (int((ours["masks"] != ref["masks"]).sum()),
-                  int(differ.sum()))
+    shared = ("fc_feature_shared_source.weight",
+              "fc_feature_shared_source.bias")
+    flipped = (trn_ties(ours, ref, rows),
+               relu_ties(ours["x"], ref["x"], lambda b: shared, rows))
+    return rows, flipped
 
 
 def check_params(i, ours, ref, label, ties):
@@ -1261,12 +1333,14 @@ def time_store_steps(gen, stores, dev, warmup=3):
     return result
 
 
-def eval_device_store(gen, val, dev_val):
+def eval_device_store(gen, val, dev_val, model=None):
     """One val epoch (batches of 64, the last one padded) through
     make_multi_eval_step on the store on the card, against the summed
-    host-feature eval steps with the same weights.  Returns the kernel
-    launches of the multi-batch eval."""
-    model = flagship_model(gen)
+    host-feature eval steps with the same weights: of ``model``, else of
+    a flagship seed model.  Returns the kernel launches of the
+    multi-batch eval."""
+    model = model or flagship_model(gen)
+    k1 = model.cfg.frame_aggregation == "trn-m"
     loader = TSNLoader(val, batch_size=TRAIN.batch_size[2],
                        num_segments=FLAGSHIP.val_segments, shuffle=False)
     ev = make_eval_step(model)
@@ -1296,9 +1370,10 @@ def eval_device_store(gen, val, dev_val):
                 got["loss_sum"], want["loss_sum"], rel_tol=EVAL_RTOL):
         raise AssertionError("the device-store val epoch differs from the "
                              "host-feature eval")
-    if launches != {"trn_fused_fwd": nb, "trn_fused_fwd_train": 0,
+    if launches != {"trn_fused_fwd": nb * k1, "trn_fused_fwd_train": 0,
                     "trn_fused_bwd": 0, "gather_gemm": nb}:
-        raise AssertionError(f"expected {nb} K1 (infer) and K3 launches")
+        raise AssertionError(f"expected {nb} K3 launches and {nb * k1} K1 "
+                             "(infer)")
     return launches
 
 
@@ -1518,14 +1593,15 @@ def trainer_records():
         Trainer.train_epoch, Trainer.validate = epoch_fn, validate_fn
 
 
-def check_trainer_launches(rec):
+def check_trainer_launches(rec, trn_forwards=1):
     """One parametrised check for every epoch and validation: per train
-    step 1 K1 (train), 1 K2 and, from the stores, 2 K3; per val batch
-    1 K1 (infer) and, from the store, 1 K3."""
+    step ``trn_forwards`` K1 (train) and K2 (two under MCD) and, from the
+    stores, 2 K3; per val batch 1 K1 (infer) and, from the store, 1 K3."""
     if rec["kind"] == "train":
         n = rec["steps"]
-        want = {"trn_fused_fwd": 0, "trn_fused_fwd_train": n,
-                "trn_fused_bwd": n, "gather_gemm": 2 * n * rec["store"]}
+        want = {"trn_fused_fwd": 0, "trn_fused_fwd_train": n * trn_forwards,
+                "trn_fused_bwd": n * trn_forwards,
+                "gather_gemm": 2 * n * rec["store"]}
     else:
         n = rec["batches"]
         want = {"trn_fused_fwd": n, "trn_fused_fwd_train": 0,
@@ -1606,6 +1682,220 @@ def train_cli(root):
         raise AssertionError(f"Pred@1 {pred1} is not the best Prec@1 "
                              f"{best_seen}")
     return {k: launches[k] + launched[k] for k in launches}
+
+
+def record_forwards(model):
+    """Record every forward_shared call of ``model``: the outputs of its
+    shared FC layers' relus [B, S, F] (StreamOutput.feat, both streams),
+    and with a multi-scale TRN the record_trn record of each.  Returns
+    (calls, trn_calls, undo)."""
+    calls, trn_calls = [], []
+    inner = model.forward_shared
+    layers = model.cfg.add_fc
+
+    def forward_shared(*args, **kw):
+        outs = inner(*args, **kw)
+        calls.append([torch.cat([o.feat[-1 - l] for o in outs]).detach()
+                      for l in range(layers)])
+        return outs
+
+    model.forward_shared = forward_shared
+    handle = (record_trn(model, trn_calls)[1]
+              if model.cfg.frame_aggregation == "trn-m" else None)
+
+    def undo():
+        del model.forward_shared
+        if handle is not None:
+            handle.remove()
+
+    return calls, trn_calls, undo
+
+
+def comparison_ties(cfg, bs, ours, ref):
+    """tie_rows for every forward of a step (two under MCD) of a
+    comparison configuration: the TRN masks (trn_ties), and the relu of
+    each shared FC layer l, whose flip at unit u for video b may move row
+    u of layer l's weight and bias of b's domain (both domains' under BN,
+    whose statistics mix them) and, after the first layer with BN, entry
+    u of both BNs' weight and bias."""
+    rows, flips = {}, [0, 0]
+    for o, r in zip(ours[1], ref[1]):
+        flips[0] += trn_ties(o, r, rows)
+    bn = cfg.use_bn != "none"
+    for o_call, r_call in zip(ours[0], ref[0]):
+        for layer, (o, r) in enumerate(zip(o_call, r_call)):
+            suffix = "" if layer == 0 else f"_{layer + 1}"
+
+            def names(b, suffix=suffix, layer=layer):
+                if cfg.share_params == "Y":
+                    doms = ("source",)
+                elif bn:
+                    doms = ("source", "target")
+                else:
+                    doms = ("source",) if b < bs else ("target",)
+                out = [f"fc_feature_shared{suffix}_{d}.{p}" for d in doms
+                       for p in ("weight", "bias")]
+                if layer == 0 and bn:
+                    out += [f"bn_shared_{t}.{p}" for t in "ST"
+                            for p in ("weight", "bias")]
+                return out
+
+            flips[1] += relu_ties(o, r, names, rows,
+                                  f"layer-{layer + 1} relu")
+    return rows, flips
+
+
+def comparison_config(gen, name, stores, dev):
+    """One comparison configuration at the flagship widths:
+    COMPARISON_STEPS device-store steps (K3, and K1 (train) and K2 where
+    the configuration has a multi-scale TRN) against as many host-feature
+    steps of a copy on the plain path (its TRN the plain version), on the
+    same batches, each step from the same parameters, BN statistics and
+    momentum (same_start); the launches of each step against the table;
+    metrics and updated parameters held as in train_device_store.  Then
+    one val epoch from the store against the host-feature eval, and the
+    device-store step timed and profiled at dropout 0.  Returns the
+    launches and (ms per step, device busy ms per step, idle share)."""
+    fields, da_fields, per_step = COMPARISON[name]
+    da = DAConfig(**da_fields)
+    model = flagship_model(gen, **fields)
+    cfg = model.cfg
+    plain = copy.deepcopy(model)
+    if cfg.frame_aggregation == "trn-m":
+        plain.TRN = PlainTRN(plain.TRN)
+    steps = [scalars(i, COMPARISON_STEPS, (-1.0, -1.0, -1.0))._replace(
+        mu=COMPARISON_MU) for i in range(COMPARISON_STEPS)]
+    ker = TrainState(model, make_optimizer(model.parameters(), TRAIN), 0)
+    ref = TrainState(plain, make_optimizer(plain.parameters(), TRAIN), 0)
+    ker_step = make_train_step(model, da, TRAIN, gather_on_device=True)
+    ref_step = make_train_step(plain, da, TRAIN)
+    rec, ref_rec = record_forwards(model), record_forwards(plain)
+    idx_s, idx_t = store_loaders(stores, seed=7)
+    feat_s, feat_t = store_loaders(stores, seed=7)
+    index = zip(endless(idx_s.index_epoch), endless(idx_t.index_epoch))
+    feats = zip(endless(feat_s.epoch), endless(feat_t.epoch))
+    want_launches = {"trn_fused_fwd": 0, "trn_fused_fwd_train": per_step[1],
+                     "trn_fused_bwd": per_step[2],
+                     "gather_gemm": per_step[0]}
+    launches = dict.fromkeys(counts(), 0)
+    worst_rel = worst = 0.0
+    ties, flips = 0, (0, 0)
+    for i, sc in enumerate(steps):
+        (bs, bt), (hs, ht) = next(index), next(feats)
+        same_start(ker, ref)
+        for r in (rec, ref_rec):
+            r[0].clear()
+            r[1].clear()
+        reset_counts()
+        ker, got = ker_step(ker, dev[0], *bs, dev[1], *bt, sc, None)
+        torch.cuda.synchronize()
+        launched = counts()
+        if launched != want_launches:
+            raise AssertionError(f"{name} step {i} launched {launched}, "
+                                 f"expected {want_launches}")
+        launches = {k: launches[k] + launched[k] for k in launches}
+        ref, want = ref_step(ref, *hs, *ht, sc, None)
+        got = {k: float(v) for k, v in got.items()}
+        want = {k: float(v) for k, v in want.items()}
+        worst_rel = max(worst_rel, check_metrics(
+            i, got, want, f"{name}'s plain path"))
+        allowed, flipped = comparison_ties(cfg, len(bs.mask), rec, ref_rec)
+        diff, rows = check_params(i, model, plain,
+                                  f"{name}'s plain path", allowed)
+        worst, ties = max(worst, diff), ties + rows
+        flips = tuple(map(sum, zip(flips, flipped)))
+    for r in (rec, ref_rec):
+        r[2]()
+    losses = ", ".join(f"{k} {got[k]:.5f}" for k in sorted(got)
+                       if k.startswith("loss"))
+    log(f"  {name}: {COMPARISON_STEPS} steps, last {losses}; metrics within "
+        f"{worst_rel:.3e} relative, parameters within {worst:.3e} "
+        f"(masks flipped at ties: {flips[0]} TRN, {flips[1]} FC relu; "
+        f"{ties} rows let through); launches per step {want_launches}")
+    if cfg.use_bn == "AutoDIAL" and \
+            float(model.alpha.detach()) != AUTODIAL_ALPHA:
+        raise AssertionError(f"AutoDIAL's alpha moved to "
+                             f"{float(model.alpha)}")
+    launches_val = eval_device_store(gen, stores[2], dev[2], model)
+    launches = {k: launches[k] + launches_val[k] for k in launches}
+
+    def run(n):
+        nonlocal ker
+        for _ in range(n):
+            bs, bt = next(index)
+            ker, metrics = ker_step(ker, dev[0], *bs, dev[1], *bt, steps[-1],
+                                    None)
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"{name}: a step's loss is not finite")
+
+    run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(COMPARISON_TIMED)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / COMPARISON_TIMED
+    log(f"  {name}: {step_ms:.3f} ms per device-store step "
+        f"({COMPARISON_TIMED} back to back, dropout 0)")
+    busy, idle = device_profile(run, 5, step_ms, f"{name} steps")
+    return launches, (step_ms, busy, idle)
+
+
+def comparison_cli(root, name):
+    """The Trainer through the train CLI for one epoch from the device
+    stores with --save_model, its launches checked per epoch and
+    validation, then the eval CLI on its model_best.pth.tar (reference
+    format, with the BN running stats or the second classifier), whose
+    Pred@1 must be the best Prec@1 the Trainer printed.  Returns the
+    summed launches."""
+    lists = [os.path.join(root, n, "list.txt") for n in ("src", "tgt", "val")]
+    exp = os.path.join(root, f"exp_{name}")
+    extra = COMPARISON_CLI[name]
+    trn_forwards = COMPARISON[name][2][1]
+    with trainer_records() as records:
+        best, out = run_cli(cli_train.main, [
+            os.path.join(root, "class.txt"), "RGB", *lists, *MODEL_FLAGS,
+            *RECIPE_FLAGS, *extra, "--exp_path", exp + "/",
+            "--save_best_log", os.path.join(exp, "best.log"),
+            "--device_store", "--save_model", "--epochs", "1"])
+    launches = dict.fromkeys(counts(), 0)
+    for rec in records:
+        check_trainer_launches(rec, trn_forwards)
+        launches = {k: launches[k] + n for k, n in rec["launches"].items()}
+    train = [r for r in records if r["kind"] == "train"][0]
+    log(f"  {name} train CLI: epoch 1 {train['seconds']:.3f} s, "
+        f"{train['steps']} steps, {train['videos']} videos; best "
+        f"{best:.3f}; launches {launches}")
+    eval_flags = [f for f in extra if f in ("--use_bn", "AdaBN")]
+    reset_counts()
+    line, _ = run_cli(cli_test_models.main, eval_cli_args(
+        root, os.path.join(exp, "RGB", "model_best.pth.tar"),
+        "--device_store", *eval_flags))
+    launched = counts()
+    pred1 = float(line.split()[1].rstrip("%"))
+    log(f"  {name} eval CLI on model_best.pth.tar: {line.strip()} (best "
+        f"Prec@1 printed {best:.3f}); launches {launched}")
+    if abs(pred1 - best) > 0.006:
+        raise AssertionError(f"{name}: Pred@1 {pred1} is not the best "
+                             f"Prec@1 {best}")
+    return {k: launches[k] + launched[k] for k in launches}
+
+
+def comparison_phase(gen, stores, dev, root):
+    """The comparison configurations (COMPARISON) at the flagship widths,
+    then COMPARISON_CLI through the CLIs.  Returns the summed launches."""
+    launches = dict.fromkeys(counts(), 0)
+    times = {}
+    for name in COMPARISON:
+        got, times[name] = comparison_config(gen, name, stores, dev)
+        launches = {k: launches[k] + got[k] for k in launches}
+    for name in COMPARISON_CLI:
+        got = comparison_cli(root, name)
+        launches = {k: launches[k] + got[k] for k in launches}
+    log("  device-store step by configuration (ms per step back to back, "
+        "device busy ms per step, idle share): " + "; ".join(
+            f"{n} {t[0]:.3f} / {t[1]:.4f} / {100 * t[2]:.1f}%"
+            for n, t in times.items()))
+    return launches
 
 
 def main() -> int:
@@ -1700,6 +1990,12 @@ def main() -> int:
         log("Trainer through the train CLI: the published recipe on "
             "stores of the published split sizes")
         add(train_cli(root))
+        log("comparison configurations: " + ", ".join(COMPARISON) + " at "
+            f"{TRAIN.batch_size[0]} + {TRAIN.batch_size[1]} videos; "
+            + " and ".join(COMPARISON_CLI) + " through the CLIs")
+        t0 = time.perf_counter()
+        add(comparison_phase(gen, stores, dev, root))
+        log(f"comparison configurations: {time.perf_counter() - t0:.1f} s")
         log(card_line())
 
     # the shapes each kernel runs at on its path: serving batch, train batch

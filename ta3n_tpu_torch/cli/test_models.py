@@ -117,12 +117,12 @@ def _check_ported(args) -> None:
             (args.data_parallel, "--data_parallel", "10")):
         if on:
             raise NotImplementedError(_later(what, item))
-    if (args.baseline_type, args.frame_aggregation) != ("video", "trn-m"):
+    if args.baseline_type != "video":
         raise NotImplementedError(
-            _later(f"--baseline_type {args.baseline_type} "
-                   f"--frame_aggregation {args.frame_aggregation}", "6")
-            + "; the port runs the flagship: pass --baseline_type video "
-            "--frame_aggregation trn-m --use_attn TransAttn (the CLI's "
+            _later(f"--baseline_type {args.baseline_type}", "6: the frame "
+                   "and tsn baselines")
+            + "; the port runs the video baseline: pass --baseline_type "
+            "video --frame_aggregation trn-m (or avgpool, trn) (the CLI's "
             "defaults are frame and avgpool)")
 
 

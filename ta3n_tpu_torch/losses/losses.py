@@ -1,10 +1,10 @@
 """Losses of the port: the entropy that TransAttn needs and the losses of
-the flagship train step.
+the train step.
 
-Ports of `ta3n_tpu/losses/losses.py:38-104`, with optional row masks in
+Ports of `ta3n_tpu/losses/losses.py:38-116`, with optional row masks in
 place of the reference's dummy-row padding (`main.py:358-372,825-832`):
 padded rows carry zero weight.  The discrepancy losses (DAN, JAN, CORAL)
-and MCD's come with ROADMAP.md queue 1, items 6 and 7.
+come with ROADMAP.md queue 1, item 7.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 
 __all__ = ["masked_mean", "entropy_from_logits", "weighted_cross_entropy",
-           "cross_entropy_soft", "attentive_entropy"]
+           "cross_entropy_soft", "attentive_entropy", "dis_MCD"]
 
 
 def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]
@@ -68,3 +68,14 @@ def attentive_entropy(pred: torch.Tensor, pred_domain: torch.Tensor,
     video-level domain logits)."""
     weights = 1.0 + entropy_from_logits(pred_domain)
     return masked_mean(weights * entropy_from_logits(pred), mask)
+
+
+def dis_MCD(out1: torch.Tensor, out2: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean |softmax(out1) - softmax(out2)| over the real rows, the MCD
+    discrepancy (reference loss.py:29-30)."""
+    d = (torch.softmax(out1, dim=-1) - torch.softmax(out2, dim=-1)).abs()
+    if mask is None:
+        return d.mean()
+    m = mask.to(d.dtype)[:, None]
+    return (d * m).sum() / (m.sum() * d.shape[-1]).clamp(min=1.0)

@@ -1,5 +1,6 @@
-"""Building blocks of the port: the reference's init policy and the
-TransAttn weights.
+"""Building blocks of the port: the reference's init policy, the
+TransAttn weights, general attention and the masked BatchNorm of AdaBN and
+AutoDIAL.
 
 Init policy (`ta3n_tpu/models/layers.py:17-44`, PARITY §2.2, load-bearing):
 the Linears that the reference's init loop touches get
@@ -20,7 +21,7 @@ from torch import nn
 from ta3n_tpu_torch.losses.losses import entropy_from_logits
 
 __all__ = ["linear", "normal_001_", "torch_default_uniform_",
-           "trans_attn_weights"]
+           "trans_attn_weights", "GeneralAttn", "MaskedBatchNorm"]
 
 
 @torch.no_grad()
@@ -64,3 +65,81 @@ def trans_attn_weights(pred_domain: torch.Tensor) -> torch.Tensor:
     get_trans_attn, models.py:351-357).  [..., 2] -> [...].
     """
     return 1.0 - entropy_from_logits(pred_domain)
+
+
+class GeneralAttn(nn.Sequential):
+    """'general' attention: Linear -> tanh -> Linear(1), softmax over
+    axis 1.  Port of `ta3n_tpu/models/layers.py::GeneralAttn` (reference
+    attn_layer, models.py:320-325, and get_general_attn, models.py:359-366):
+    [B, T, D] -> weights [B, T, 1].  The reference builds it outside its
+    normal_(0.001) loop, so both Linears keep torch's default init; as a
+    Sequential(Linear, Tanh, Linear) it has the reference's parameter
+    names, ``attn_layer.0`` and ``attn_layer.2``."""
+
+    def __init__(self, dim: int, generator: Optional[torch.Generator]):
+        super().__init__(linear(dim, dim, "torch_default", generator),
+                         nn.Tanh(),
+                         linear(dim, 1, "torch_default", generator))
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(super().forward(feat), dim=1)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d whose batch statistics take per-row weights.
+
+    Port of `ta3n_tpu/models/layers.py::MaskedBatchNorm` (reference
+    nn.BatchNorm1d, models.py:195-199): in training, normalise with the
+    weighted batch mean and biased variance over the rows of weight > 0,
+    and update the running stats with momentum 0.1 from the *unbiased*
+    variance, ``var * n / max(n - 1, 1)`` with ``n = max(sum(w), 1)``;
+    otherwise normalise with the running stats.  eps 1e-5.  The weights
+    let AdaBN/AutoDIAL route rows between two BNs and leave padded videos
+    out of both, without the reference's reordering of the batch
+    (models.py:490-543).
+
+    Which statistics it uses is the ``use_running_average`` argument of
+    the forward, never ``self.training``: the steps pass it from their
+    ``is_train``.  Parameters and buffers carry torch's BN names
+    (``weight``, ``bias``, ``running_mean``, ``running_var``,
+    ``num_batches_tracked``), so a reference state_dict loads as it is.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor,
+                stats_weight: Optional[torch.Tensor] = None,
+                use_running_average: bool = False) -> torch.Tensor:
+        if use_running_average:
+            mean, var = self.running_mean, self.running_var
+        else:
+            if stats_weight is None:
+                n = float(x.shape[0])
+                mean = x.mean(dim=0)
+                var = (x - mean).square().mean(dim=0)
+                denom = max(n - 1.0, 1.0)
+            else:
+                w = stats_weight.to(x.dtype)[:, None]
+                n = w.sum().clamp(min=1.0)
+                mean = (w * x).sum(dim=0) / n
+                var = (w * (x - mean).square()).sum(dim=0) / n
+                denom = (n - 1.0).clamp(min=1.0)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * n / denom
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * unbiased)
+                self.num_batches_tracked.add_(1)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias

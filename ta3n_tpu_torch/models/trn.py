@@ -1,10 +1,13 @@
-"""Multi-scale Temporal Relation Network aggregator.
+"""Temporal Relation Network aggregators, single- and multi-scale.
 
-Port of `ta3n_tpu/models/trn.py:80-161` (`RelationModuleMultiScale`,
-reference TRNmodule.py:27-86).  The parameters keep the reference's
-module layout, ``fc_fusion_scales.{i}`` = Sequential(ReLU, Linear, ReLU),
-so a reference ``state_dict`` loads as it is; the forward runs the fused
-ops (`ops/trn_fused.py`) on each scale's Linear parameters.
+Ports of `ta3n_tpu/models/trn.py:47-161` (`RelationModule` and
+`RelationModuleMultiScale`, reference TRNmodule.py:6-86).  The parameters
+keep the reference's module layout, ``classifier`` and
+``fc_fusion_scales.{i}``, each a Sequential(ReLU, Linear, ReLU), so a
+reference ``state_dict`` loads as it is.  The multi-scale forward runs the
+fused ops (`ops/trn_fused.py`) on each scale's Linear parameters; the
+single-scale one is a plain Linear, as in the JAX package, which never
+gives it the Pallas path.
 """
 
 from __future__ import annotations
@@ -19,7 +22,36 @@ from ta3n_tpu_torch.ops.relation import build_relation_plan
 from ta3n_tpu_torch.ops.trn_fused import (trn_multiscale_fused,
                                           trn_multiscale_infer)
 
-__all__ = ["RelationModuleMultiScale"]
+__all__ = ["RelationModule", "RelationModuleMultiScale"]
+
+
+class RelationModule(nn.Module):
+    """[B, S, D] -> [B, 1, H]: relu -> Linear(S*D -> H) -> relu over the
+    concatenated frames.  The reference returns [B, H], and its plain
+    'trn' adversarial path crashes on it (models.py:639, 651); the JAX
+    package returns one relation, [B, 1, H], so that the relation heads
+    and the sum over relations run as for trn-m, and so does the port.
+
+    Init: torch's default Linear init (outside the reference's
+    normal_(0.001) loop, TRNmodule.py:16-21).
+    """
+
+    def __init__(self, img_feature_dim: int, num_bottleneck: int,
+                 num_frames: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_frames = num_frames
+        self.classifier = nn.Sequential(
+            nn.ReLU(), linear(num_frames * img_feature_dim, num_bottleneck,
+                              "torch_default", generator), nn.ReLU())
+
+    def forward(self, x: torch.Tensor, infer: bool = False) -> torch.Tensor:
+        """``infer`` is accepted for the multi-scale module's signature;
+        both modes compute the same function."""
+        if x.shape[1] != self.num_frames:
+            raise ValueError(f"expected {self.num_frames} segments, got "
+                             f"{x.shape[1]}")
+        return self.classifier(x.reshape(x.shape[0], -1))[:, None, :]
 
 
 class RelationModuleMultiScale(nn.Module):

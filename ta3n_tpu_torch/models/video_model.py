@@ -1,17 +1,21 @@
-"""The TA3N video domain-adaptation model, flagship branches.
+"""The TA3N video domain-adaptation model, video baseline.
 
 Port of `ta3n_tpu/models/video_model.py:130-391` (reference VideoModel,
-models.py:58-722) for the published flagship configuration: one shared
-FC layer, shared source/target parameters, no BN alignment, multi-scale
-TRN aggregation with TransAttn, the video baseline, no MCD, float32.  Any
-other configuration value raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.
+models.py:58-722) for the video baseline: one to three shared FC layers,
+shared or per-domain parameters (``share_params``), AdaBN/AutoDIAL
+alignment after the first shared layer, frame-level TransAttn or general
+attention, avgpool, single-scale TRN or multi-scale TRN aggregation with
+TransAttn, general or no relation attention, softmax outputs, and MCD's
+second video classifier, in float32.  The other configuration values
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
 As in the JAX package the two streams run as one batch (source videos
 first) and are split at the end; the outputs are two `StreamOutput`s with
 ``pred_domain`` in the reference's post-reversal order (relation, video,
-frame).  Module attribute names are the reference ``state_dict`` keys, so
-a reference-format checkpoint strict-loads (`io_utils/convert.py`).
+frame).  Under ``share_params='N'`` a row of the batch takes the source
+layer when it belongs to a source video and the target layer otherwise.
+Module attribute names are the reference ``state_dict`` keys, so a
+reference-format checkpoint strict-loads (`io_utils/convert.py`).
 """
 
 from __future__ import annotations
@@ -22,40 +26,42 @@ import torch
 from torch import nn
 
 from ta3n_tpu_torch.config import ModelConfig
-from ta3n_tpu_torch.models.layers import linear, trans_attn_weights
-from ta3n_tpu_torch.models.trn import RelationModuleMultiScale
+from ta3n_tpu_torch.models.layers import (GeneralAttn, MaskedBatchNorm,
+                                          linear, trans_attn_weights)
+from ta3n_tpu_torch.models.trn import (RelationModule,
+                                       RelationModuleMultiScale)
 from ta3n_tpu_torch.ops.grl import grad_reverse
 
 __all__ = ["VideoModel", "StreamOutput"]
 
-# field -> (the value the port runs, the ROADMAP.md queue-1 item porting
+# field -> (the values the port runs, the ROADMAP.md queue-1 item porting
 # the others)
-_FLAGSHIP = {
-    "baseline_type": ("video", "6: the frame and tsn baselines"),
-    "frame_aggregation": ("trn-m", "6: avgpool, rnn, trn and temconv "
-                                   "aggregation"),
-    "add_fc": (1, "6: stacked shared FC layers"),
-    "share_params": ("Y", "6: share_params=N"),
-    "use_bn": ("none", "6: AdaBN and AutoDIAL"),
-    "use_attn": ("TransAttn", "6: general attention and no attention"),
-    "use_attn_frame": ("none", "6: frame-level attention"),
-    "ens_DA": ("none", "6: MCD"),
-    "before_softmax": (True, "6: softmax outputs"),
-    "quantize": ("none", "10: int8 inference"),
-    "compute_dtype": ("float32", "8: the bf16 compute path"),
-    "param_dtype": ("float32", "8: the bf16 compute path"),
+_PORTED = {
+    "baseline_type": (("video",), "6: the frame and tsn baselines"),
+    "frame_aggregation": (("avgpool", "trn", "trn-m"),
+                          "6: rnn and temconv aggregation"),
+    "quantize": (("none",), "10: int8 inference"),
+    "compute_dtype": (("float32",), "8: the bf16 compute path"),
+    "param_dtype": (("float32",), "8: the bf16 compute path"),
 }
+# the reference builds at most three shared FC layers: its parameter names
+# stop at fc_feature_shared_3_* (models.py:141-192)
+_MAX_FC = 3
 
 
-def _check_flagship(cfg: ModelConfig) -> None:
+def _check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a configuration the port does not
     run yet."""
-    for field, (want, item) in _FLAGSHIP.items():
+    for field, (ported, item) in _PORTED.items():
         got = getattr(cfg, field)
-        if got != want:
+        if got not in ported:
             raise NotImplementedError(
                 f"{field}={got!r} is not ported yet; the port runs "
-                f"{field}={want!r} (ROADMAP.md queue 1, item {item})")
+                f"{field}={' or '.join(map(repr, ported))} (ROADMAP.md "
+                f"queue 1, item {item})")
+    if cfg.add_fc > _MAX_FC:
+        raise ValueError(f"add_fc={cfg.add_fc}: the reference has at most "
+                         f"{_MAX_FC} shared FC layers")
 
 
 def _dropout(x: torch.Tensor, p: float, training: bool,
@@ -75,124 +81,274 @@ def _dropout(x: torch.Tensor, p: float, training: bool,
 class StreamOutput(NamedTuple):
     """Per-domain forward outputs, as `ta3n_tpu.models.StreamOutput`."""
 
-    attn: torch.Tensor                      # [B, R]
+    attn: torch.Tensor                      # [B, R] (TRN) or [B] (avgpool)
     out: torch.Tensor                       # logits [B, C]
-    out_2: torch.Tensor                     # == out (no MCD)
+    out_2: torch.Tensor                     # MCD's second classifier (or out)
     pred_domain: Tuple[torch.Tensor, ...]   # relation, video, frame
     feat: Tuple[torch.Tensor, ...]          # reversed feat_all
 
 
 class VideoModel(nn.Module):
-    """The flagship TA3N model, initialised on the CPU from ``generator``
-    (a CPU generator; None draws from torch's global one) with the
-    reference's init policy (`models/layers.py`), then moved to
-    ``device``: the same seed gives the same weights on any device."""
+    """The TA3N model, initialised on the CPU from ``generator`` (a CPU
+    generator; None draws from torch's global one) with the reference's
+    init policy (`models/layers.py`), then moved to ``device``: the same
+    seed gives the same weights on any device."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None,
                  device="cpu"):
         super().__init__()
-        _check_flagship(cfg)
-        if cfg.train_segments != cfg.val_segments:
+        _check_ported(cfg)
+        trn = cfg.frame_aggregation in ("trn", "trn-m")
+        if trn and cfg.train_segments != cfg.val_segments:
             # the TRN's parameters are sized by the segment count
-            raise ValueError("trn-m needs train_segments == val_segments, "
-                             f"got {cfg.train_segments} and "
-                             f"{cfg.val_segments}")
+            raise ValueError(f"{cfg.frame_aggregation} needs train_segments "
+                             f"== val_segments, got {cfg.train_segments} "
+                             f"and {cfg.val_segments}")
         self.cfg = cfg
         d_in, d_sh = cfg.input_feature_dim, cfg.shared_dim
-        d_rel, d_agg = cfg.num_bottleneck, cfg.aggregated_dim
+        d_agg = cfg.aggregated_dim
         g = generator
+        domains = ("source",) if cfg.share_params == "Y" else ("source",
+                                                               "target")
 
         def n001(i, o):
             return linear(i, o, "normal001", g)
 
-        # shared frame-level FC, frame domain head, frame classifier
-        # (models.py:141-192)
-        self.fc_feature_shared_source = n001(d_in, d_sh)
+        def dual(name, i, o):
+            """The source layer and, under share_params N, the target
+            layer (models.py:174-192, 296-305)."""
+            for dom in domains:
+                setattr(self, f"{name}_{dom}", n001(i, o))
+
+        # shared frame-level FC stack, BN alignment, frame domain head,
+        # frame classifier (models.py:141-199)
+        for li in range(cfg.add_fc):
+            suffix = "" if li == 0 else f"_{li + 1}"
+            dual(f"fc_feature_shared{suffix}", d_in if li == 0 else d_sh,
+                 d_sh)
+        if cfg.use_bn != "none":
+            self.bn_shared_S = MaskedBatchNorm(d_sh)
+            self.bn_shared_T = MaskedBatchNorm(d_sh)
         self.fc_feature_domain = n001(d_sh, d_sh)
         self.fc_classifier_domain = n001(d_sh, 2)
-        self.fc_classifier_source = n001(d_sh, cfg.num_class)
-        self.TRN = RelationModuleMultiScale(d_sh, d_rel, cfg.train_segments,
-                                            generator=g)
-        # relation domain heads: torch default init, built outside the
-        # reference's normal_(0.001) loop (models.py:286-294)
-        self.relation_domain_classifier_all = nn.ModuleList(
-            nn.Sequential(linear(d_rel, d_agg, "torch_default", g),
-                          nn.ReLU(),
-                          linear(d_agg, 2, "torch_default", g))
-            for _ in range(cfg.train_segments - 1))
-        self.fc_classifier_video_source = n001(d_agg, cfg.num_class)
+        dual("fc_classifier", d_sh, cfg.num_class)
+        if cfg.use_attn_frame == "general":
+            # no reference name: the reference reads use_attn here and
+            # crashes when only use_attn_frame is set (models.py:369)
+            self.attn_layer_frame = GeneralAttn(d_sh, g)
+        if trn:
+            d_rel = cfg.num_bottleneck
+            if cfg.frame_aggregation == "trn":
+                self.TRN = RelationModule(d_sh, d_rel, cfg.train_segments,
+                                          generator=g)
+                num_relation = 1
+            else:
+                self.TRN = RelationModuleMultiScale(
+                    d_sh, d_rel, cfg.train_segments, generator=g)
+                num_relation = cfg.train_segments - 1
+            # relation domain heads: torch default init, built outside the
+            # reference's normal_(0.001) loop (models.py:286-294)
+            self.relation_domain_classifier_all = nn.ModuleList(
+                nn.Sequential(linear(d_rel, d_agg, "torch_default", g),
+                              nn.ReLU(),
+                              linear(d_agg, 2, "torch_default", g))
+                for _ in range(num_relation))
+            if cfg.use_attn == "general":
+                self.attn_layer = GeneralAttn(d_agg, g)
+        dual("fc_classifier_video", d_agg, cfg.num_class)
+        if cfg.ens_DA == "MCD":
+            for dom in domains:
+                setattr(self, f"fc_classifier_video_{dom}_2",
+                        n001(d_agg, cfg.num_class))
         self.fc_feature_domain_video = n001(d_agg, d_agg)
         self.fc_classifier_domain_video = n001(d_agg, 2)
+        if cfg.use_bn == "AutoDIAL":
+            # the reference's learned mixing weight (models.py:314-316)
+            self.alpha = nn.Parameter(torch.ones(()))
         self.to(device)
+
+    def shared_fc(self, domain: str) -> nn.Linear:
+        """The first shared FC layer of ``domain``, "source" or "target":
+        under share_params Y both are fc_feature_shared_source."""
+        if self.cfg.share_params == "Y":
+            domain = "source"
+        return getattr(self, f"fc_feature_shared_{domain}")
+
+    def _dual(self, name: str, x: torch.Tensor, n_source_rows: int,
+              suffix: str = "") -> torch.Tensor:
+        """Layer ``name`` on x's rows: under share_params N the first
+        n_source_rows rows take ``{name}_source{suffix}`` and the others
+        ``{name}_target{suffix}`` (`ta3n_tpu/models/video_model.py::
+        _dual_dense`), else every row takes ``{name}_source{suffix}``."""
+        layer_s = getattr(self, f"{name}_source{suffix}")
+        if self.cfg.share_params == "Y":
+            return layer_s(x)
+        layer_t = getattr(self, f"{name}_target{suffix}")
+        return torch.cat([layer_s(x[:n_source_rows]),
+                          layer_t(x[n_source_rows:])])
+
+    def shared_pre(self, input_source: torch.Tensor,
+                   input_target: torch.Tensor) -> torch.Tensor:
+        """The first shared FC's pre-activations [(bs+bt)*S, fc] of the
+        two streams' features [bs, S, D] and [bt, S, D], source rows
+        first (models.py:565-603)."""
+        s = input_source.shape[1]
+        if input_target.shape[1] != s:
+            raise ValueError(f"the streams have {s} and "
+                             f"{input_target.shape[1]} segments")
+        x = torch.cat([input_source, input_target], dim=0)
+        return self._dual("fc_feature_shared", x.reshape(-1, x.shape[-1]),
+                          input_source.shape[0] * s)
 
     def forward(self, input_source: torch.Tensor, input_target: torch.Tensor,
                 beta, mu, is_train: bool = True, reverse: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                mask_source: Optional[torch.Tensor] = None,
+                mask_target: Optional[torch.Tensor] = None
                 ) -> Tuple[StreamOutput, StreamOutput]:
         """Dual-stream forward (reference forward, models.py:545-722).
 
         input_source [Bs, S, D], input_target [Bt, S, D] (either may be
         empty); beta: (3,) GRL strengths [relation, video, frame], a tensor
-        or a sequence of numbers; mu: GRL strength of the MCD reverse step.
-        ``generator`` (on the inputs' device) draws the two dropout masks;
-        it is needed when ``is_train`` and a dropout rate is above 0.
+        or a sequence of numbers; mu: GRL strength of the MCD reverse step,
+        applied to the video feature when ``reverse``.  ``generator`` (on
+        the inputs' device) draws the dropout masks; it is needed when
+        ``is_train`` and a dropout rate is above 0.  mask_source [Bs] and
+        mask_target [Bt], the loader's 0/1 video masks, keep padded videos
+        out of the BN statistics (AdaBN/AutoDIAL; None: every video
+        counts).
         """
-        cfg = self.cfg
-        num_segments = cfg.train_segments if is_train else cfg.val_segments
+        num_segments = (self.cfg.train_segments if is_train
+                        else self.cfg.val_segments)
         if input_source.shape[1] != num_segments:
             raise ValueError(f"expected {num_segments} segments, got "
                              f"{input_source.shape[1]}")
-        bs, bt = input_source.shape[0], input_target.shape[0]
-        x = torch.cat([input_source, input_target], dim=0)
-        # shared frame-level FC (models.py:565-603)
-        pre = self.fc_feature_shared_source(
-            x.reshape((bs + bt) * num_segments, -1))
-        return self.forward_shared(pre, bs, bt, beta, mu, is_train, reverse,
-                                   generator)
+        pre = self.shared_pre(input_source, input_target)
+        return self.forward_shared(pre, input_source.shape[0],
+                                   input_target.shape[0], beta, mu,
+                                   is_train, reverse, generator,
+                                   mask_source, mask_target)
+
+    def _domain_align(self, x: torch.Tensor, is_train: bool, bs: int,
+                      bt: int, rows_per_video: int,
+                      mask_s: Optional[torch.Tensor],
+                      mask_t: Optional[torch.Tensor]) -> torch.Tensor:
+        """AdaBN / AutoDIAL: each row normalised by BN_S or BN_T, each BN's
+        statistics over the rows routed to it (`ta3n_tpu/models/
+        video_model.py::_domain_align`, reference domainAlign,
+        models.py:490-543, with the JAX package's two documented fixes).
+        In training the first round(batch * max(alpha, 0.5)) videos of
+        each domain go to their own BN and the rest to the other one, when
+        both domains have such a rest; otherwise, and in eval, each domain
+        to its own.  torch.round rounds half to even, as jnp.round.
+        Padded videos count in neither BN's statistics.  alpha enters
+        detached, so that it gets no gradient and SGD skips it (in the
+        JAX step its gradient through round() is a structural zero)."""
+        if self.cfg.use_bn == "AutoDIAL":
+            alpha = self.alpha.detach()
+        else:
+            alpha = torch.ones((), device=x.device)
+        alpha_c = alpha.clamp(min=0.5)
+        n_s1 = torch.round(bs * alpha_c)
+        n_t1 = torch.round(bt * alpha_c)
+        own_s = torch.arange(bs, device=x.device) < n_s1
+        own_t = torch.arange(bt, device=x.device) < n_t1
+        if is_train:
+            mixing = (bs - n_s1 > 0) & (bt - n_t1 > 0)
+            own_s = own_s | ~mixing
+            own_t = own_t | ~mixing
+        else:
+            own_s, own_t = torch.ones_like(own_s), torch.ones_like(own_t)
+        to_s = torch.cat([own_s, ~own_t]).repeat_interleave(rows_per_video)
+        w_s = to_s.to(x.dtype)
+        w_t = 1.0 - w_s
+        if mask_s is not None:
+            valid = torch.cat([mask_s, mask_t]).to(x.dtype) \
+                .repeat_interleave(rows_per_video)
+            w_s, w_t = w_s * valid, w_t * valid
+        y_s = self.bn_shared_S(x, w_s, use_running_average=not is_train)
+        y_t = self.bn_shared_T(x, w_t, use_running_average=not is_train)
+        return torch.where(w_s[:, None] > 0, y_s, y_t)
 
     def forward_shared(self, pre: torch.Tensor, bs: int, bt: int, beta, mu,
                        is_train: bool = True, reverse: bool = False,
-                       generator: Optional[torch.Generator] = None
+                       generator: Optional[torch.Generator] = None,
+                       mask_source: Optional[torch.Tensor] = None,
+                       mask_target: Optional[torch.Tensor] = None
                        ) -> Tuple[StreamOutput, StreamOutput]:
-        """The forward from the shared FC's pre-activations on: ``pre``
-        [(bs+bt)*S, fc] holds the frame rows of the bs source videos, then
-        of the bt target videos.  The device-store steps compute ``pre``
-        with the fused gather + FC (`ops/gather_gemm.py`), as the JAX
-        model's ``combined_rows`` entry takes rows gathered on the device;
-        ``forward`` computes it from feature arrays.  The other arguments
-        are those of ``forward``."""
+        """The forward from the first shared FC's pre-activations on:
+        ``pre`` [(bs+bt)*S, fc] holds the frame rows of the bs source
+        videos, then of the bt target videos.  The device-store steps
+        compute ``pre`` with the fused gather + FC (`ops/gather_gemm.py`),
+        as the JAX model's ``combined_rows`` entry takes rows gathered on
+        the device; ``forward`` computes it from feature arrays
+        (``shared_pre``).  The other arguments are those of ``forward``."""
         cfg = self.cfg
         num_segments = cfg.train_segments if is_train else cfg.val_segments
         b_all = bs + bt
         if pre.shape[0] != b_all * num_segments:
             raise ValueError(f"expected {b_all * num_segments} frame rows "
                              f"for {b_all} videos, got {pre.shape[0]}")
+        n_src_rows = bs * num_segments
         feat_all = []
 
-        f = torch.relu(pre)
-        f = _dropout(f, cfg.dropout_i, is_train, generator)
-        feat_all.append(f.reshape(b_all, num_segments, -1))
+        # shared frame-level FC stack (models.py:565-603)
+        f = pre
+        for li in range(cfg.add_fc):
+            if li > 0:
+                f = self._dual(f"fc_feature_shared_{li + 1}", f, n_src_rows)
+            elif cfg.use_bn != "none":
+                f = self._domain_align(f, is_train, bs, bt, num_segments,
+                                       mask_source, mask_target)
+            f = torch.relu(f)
+            f = _dropout(f, cfg.dropout_i, is_train, generator)
+            feat_all.append(f.reshape(b_all, num_segments, -1))
 
         # frame-level adversarial branch (models.py:605-610)
         h = grad_reverse(f, beta[2])
         h = torch.relu(self.fc_feature_domain(h))
         pred_domain_frame = self.fc_classifier_domain(h)
+        pred_domain_frame_3d = pred_domain_frame.reshape(b_all, num_segments,
+                                                         2)
+
+        # frame-level attention (models.py:368-377, 612-614), keyed by
+        # use_attn_frame as in the JAX package
+        if cfg.use_attn_frame == "TransAttn":
+            f = (trans_attn_weights(pred_domain_frame)[:, None] + 1) * f
+        elif cfg.use_attn_frame == "general":
+            w = self.attn_layer_frame(f.reshape(b_all, num_segments, -1))
+            f = (w.reshape(-1, 1) + 1) * f
 
         # the frame classifier (models.py:616-621) feeds only the frame and
         # tsn baselines: the video baseline never reads it
 
-        # multi-scale TRN aggregation (models.py:623-651)
-        rel = self.TRN(f.reshape(b_all, num_segments, -1),
-                       infer=not is_train)
-        rel_rev = grad_reverse(rel, beta[0])
-        pred_domain_relation = torch.stack(
-            [head(rel_rev[:, i])
-             for i, head in enumerate(self.relation_domain_classifier_all)],
-            dim=1)                                        # [B, R, 2]
-        attn = trans_attn_weights(pred_domain_relation)   # [B, R]
-        rel = (attn[..., None] + 1) * rel
-        feat_video = rel.sum(dim=1)
+        # aggregation: frames -> video (models.py:623-651)
+        feat_seg = f.reshape(b_all, num_segments, -1)
+        if cfg.frame_aggregation == "avgpool":
+            if cfg.use_attn == "TransAttn":  # models.py:427-430
+                w = trans_attn_weights(pred_domain_frame_3d)
+                feat_seg = (w[..., None] + 1) * feat_seg
+            feat_video = feat_seg.mean(dim=1)
+            attn = feat_video[:, 0]  # the reference's junk value
+            pred_domain_relation = None
+        else:
+            rel = self.TRN(feat_seg, infer=not is_train)     # [B, R, H]
+            rel_rev = grad_reverse(rel, beta[0])
+            pred_domain_relation = torch.stack(
+                [head(rel_rev[:, i])
+                 for i, head in enumerate(self.relation_domain_classifier_all)],
+                dim=1)                                        # [B, R, 2]
+            if cfg.use_attn == "TransAttn":  # models.py:379-388, 643-648
+                attn = trans_attn_weights(pred_domain_relation)   # [B, R]
+                rel = (attn[..., None] + 1) * rel
+            elif cfg.use_attn == "general":
+                w = self.attn_layer(rel)                      # [B, R, 1]
+                rel = (w + 1) * rel
+                attn = w[:, :, 0]
+            else:
+                attn = rel[:, :, 0]
+            feat_video = rel.sum(dim=1)
         feat_all.append(feat_video)
 
         # video-level classifier (models.py:678-691)
@@ -200,19 +356,32 @@ class VideoModel(nn.Module):
                               generator)
         if reverse:
             feat_video = grad_reverse(feat_video, mu)  # MCD step 2
-        pred_video = self.fc_classifier_video_source(feat_video)
+        pred_video = self._dual("fc_classifier_video", feat_video, bs)
         feat_all.append(pred_video)
 
         # video-level adversarial branch (models.py:693-698)
         hv = grad_reverse(feat_video, beta[1])
         hv = torch.relu(self.fc_feature_domain_video(hv))
         pred_domain_video = self.fc_classifier_domain_video(hv)
+        if pred_domain_relation is None:
+            # no relations: the relation slot holds the video-level logits
+            # (models.py:705-707)
+            pred_domain_relation = pred_domain_video
+
+        # outputs (models.py:437-454, 709-720)
+        def final(logits):
+            return logits if cfg.before_softmax else torch.softmax(logits,
+                                                                   dim=-1)
+
+        out = final(pred_video)
+        out_2 = (final(self._dual("fc_classifier_video", feat_video, bs,
+                                  suffix="_2"))
+                 if cfg.ens_DA == "MCD" else out)
 
         # split the fused batch back into the two streams
         pred_domain = (pred_domain_relation, pred_domain_video,
-                       pred_domain_frame.reshape(b_all, num_segments, 2))
+                       pred_domain_frame_3d)
         pd_s, pd_t = zip(*((p[:bs], p[bs:]) for p in pred_domain))
         ft_s, ft_t = zip(*((t[:bs], t[bs:]) for t in reversed(feat_all)))
-        out_s, out_t = pred_video[:bs], pred_video[bs:]
-        return (StreamOutput(attn[:bs], out_s, out_s, pd_s, ft_s),
-                StreamOutput(attn[bs:], out_t, out_t, pd_t, ft_t))
+        return (StreamOutput(attn[:bs], out[:bs], out_2[:bs], pd_s, ft_s),
+                StreamOutput(attn[bs:], out[bs:], out_2[bs:], pd_t, ft_t))

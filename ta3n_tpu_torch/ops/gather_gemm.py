@@ -17,9 +17,11 @@ at row 0 with scale 0, so their rows are exactly 0, as JAX's ``x * mask``):
     plain version.
   * ``gathered_linear``: the FC as a ``torch.autograd.Function`` over one
     or more (store, indices, row scale) parts written into one output
-    buffer (source rows first), the bias added once; its backward is
-    ``dW = dzᵀ x_res`` and ``db = dz.sum(0)`` (the JAX package leaves dW to
-    XLA too).  The stores and indices get no gradient.
+    buffer (source rows first), each part with its own weight and bias or
+    all with one (the model's ``share_params``); its backward is
+    ``dW = dzᵀ x_res`` and ``db = dz.sum(0)`` over the rows of each
+    weight (the JAX package leaves dW to XLA too).  The stores and indices
+    get no gradient.
 
 Shapes: a store is [R, D], or [R, S, D] for a Flow store whose S stream
 rows interleave per frame (row r, stream s is gathered row r·S + s, the
@@ -208,40 +210,77 @@ def gathered_gemm(store: torch.Tensor, idx, weight: torch.Tensor,
 
 
 class _GatheredLinear(torch.autograd.Function):
-    """Forward: every part's gather + GEMM into one buffer, then the bias;
-    backward: dW and db from the saved gathered rows."""
+    """Forward: every part's gather + GEMM with its weight into one buffer,
+    then its bias; backward: dW and db of each weight from the saved
+    gathered rows of its parts.  ``part_weight[i]`` is the index of part
+    i's weight; the parts of one weight are consecutive, so its rows are
+    one range of the output."""
 
     @staticmethod
-    def forward(ctx, parts, weight, bias):
-        prepared = [_prepare(store, idx, weight, row_scale)
-                    for store, idx, row_scale in parts]
+    def forward(ctx, parts, part_weight, *weights_and_biases):
+        n = len(weights_and_biases) // 2
+        weights, biases = weights_and_biases[:n], weights_and_biases[n:]
+        prepared = [_prepare(store, idx, weights[w], row_scale)
+                    for (store, idx, row_scale), w in zip(parts, part_weight)]
         total = sum(geometry[3] for _, geometry in prepared)
-        kw = dict(dtype=weight.dtype, device=weight.device)
-        z = torch.empty((total, weight.shape[0]), **kw)
-        x_res = torch.empty((total, weight.shape[1]), **kw)
+        kw = dict(dtype=weights[0].dtype, device=weights[0].device)
+        z = torch.empty((total, weights[0].shape[0]), **kw)
+        x_res = torch.empty((total, weights[0].shape[1]), **kw)
+        runs = [[total, 0] for _ in weights]  # each weight's output rows
         start = 0
-        for (store, _, row_scale), (rows, geometry) in zip(parts, prepared):
+        for (store, _, row_scale), (rows, geometry), w in zip(
+                parts, prepared, part_weight):
             end = start + geometry[3]
-            _gather_into(store, rows, geometry, weight, row_scale,
+            _gather_into(store, rows, geometry, weights[w], row_scale,
                          z[start:end], x_res[start:end])
+            runs[w] = [min(runs[w][0], start), end]
             start = end
+        for (a, b), bias in zip(runs, biases):
+            z[a:b].add_(bias)
+        ctx.runs = runs
         ctx.save_for_backward(x_res)
-        return z.add_(bias)
+        return z
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dz):
         (x_res,) = ctx.saved_tensors
-        dw = torch.mm(dz.t(), x_res) if ctx.needs_input_grad[1] else None
-        db = dz.sum(0) if ctx.needs_input_grad[2] else None
-        return None, dw, db
+        runs, need = ctx.runs, ctx.needs_input_grad[2:]
+        n = len(runs)
+        dws = [torch.mm(dz[a:b].t(), x_res[a:b]) if need[i] else None
+               for i, (a, b) in enumerate(runs)]
+        dbs = [dz[a:b].sum(0) if need[n + i] else None
+               for i, (a, b) in enumerate(runs)]
+        return (None, None, *dws, *dbs)
 
 
-def gathered_linear(parts: Sequence[tuple], weight: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
-    """Differentiable ``gathered rows @ weight.T + bias`` over ``parts``, a
-    sequence of (store, idx, row_scale or None), each written at its row
-    offset into one [sum M, H] output (no concat).  One K3 launch per
-    non-empty part on CUDA stores; the plain version on CPU stores.
-    Gradients flow to ``weight`` and ``bias`` only."""
-    return _GatheredLinear.apply(tuple(parts), weight, bias)
+def gathered_linear(parts: Sequence[tuple], weight, bias) -> torch.Tensor:
+    """Differentiable ``gathered rows @ W.T + b`` over ``parts``, a sequence
+    of (store, idx, row_scale or None), each written at its row offset
+    into one [sum M, H] output (no concat).  ``weight`` and ``bias`` are
+    one tensor for every part, or a sequence with one for each part:
+    under share_params N the source store takes the source layer and the
+    target store the target layer.  The parts of one weight must be
+    consecutive.  One K3 launch per non-empty part on CUDA stores; the
+    plain version on CPU stores.  Gradients flow to the weights and biases
+    only: each gets ``dzᵀ x_res`` (and ``dz.sum(0)``) over its own parts'
+    rows."""
+    parts = tuple(parts)
+    if isinstance(weight, torch.Tensor):
+        weight, bias = [weight] * len(parts), [bias] * len(parts)
+    if not parts or not len(weight) == len(bias) == len(parts):
+        raise ValueError(f"{len(parts)} parts need one weight and one bias "
+                         f"each, got {len(weight)} and {len(bias)}")
+    weights, biases, part_weight = [], [], []
+    for w, b in zip(weight, bias):
+        if not weights or w is not weights[-1]:
+            if any(w is u for u in weights):
+                raise ValueError("the parts of one weight must be "
+                                 "consecutive")
+            weights.append(w)
+            biases.append(b)
+        elif b is not biases[-1]:
+            raise ValueError("parts that share a weight share its bias")
+        part_weight.append(len(weights) - 1)
+    return _GatheredLinear.apply(parts, tuple(part_weight), *weights,
+                                 *biases)

@@ -1,7 +1,7 @@
 """Inference and serving: a batch predictor and a local HTTP endpoint.
 
 Port of `ta3n_tpu/serve.py` (Predictor: 49-108 and 259-308; HTTP:
-311-365) for the flagship model:
+311-365) for the models the port runs (`models/video_model.py`):
 
     predictor = Predictor.from_checkpoint("model.pth.tar", model_cfg,
                                           device="cuda")
@@ -9,15 +9,16 @@ Port of `ta3n_tpu/serve.py` (Predictor: 49-108 and 259-308; HTTP:
 
     python -m ta3n_tpu_torch.cli.serve CLASS_FILE model.pth.tar --port 8500
 
-On CUDA the model's multi-scale TRN runs as the hand-written kernel
+On CUDA a multi-scale TRN runs as the hand-written kernel
 (`ops/trn_fused.py`).  Requests are cut into chunks of ``batch_size``
 videos and the last chunk is zero-padded to it, as in the JAX package, so
 the device sees one shape.
 
 The JAX predictor feeds every chunk as both streams and keeps the target
-half; every row of the flagship is independent in eval (no BN, dropout
-off), so the port feeds it once, as the target stream with an empty
-source stream.
+half; every row is independent in eval (dropout off, BN on its running
+statistics), so the port feeds it once, as the target stream with an
+empty source stream (under share_params N the target layers, as the JAX
+target half).
 
 AOT export, sweep ensembles, ``mesh=`` data parallelism and int8 are not
 ported yet (ROADMAP.md queue 1, item 10).

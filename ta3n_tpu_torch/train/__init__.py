@@ -1,4 +1,4 @@
-"""Training of the port: the flagship train step, with features from the
+"""Training of the port: the train step, with features from the
 host or gathered from stores on the device, the validation and inference
 steps (`train/step.py`), its optimizer (`train/optim.py`), schedules
 (`train/schedules.py`) and the Trainer's epoch loop (`train/loop.py`)."""

@@ -34,6 +34,8 @@ from ta3n_tpu_torch.data import (FeatureStore, TSNLoader,
                                  epoch_balance_counts, parse_list_file)
 from ta3n_tpu_torch.io_utils.checkpoint import (load_checkpoint,
                                                 save_checkpoint)
+from ta3n_tpu_torch.io_utils.convert import (export_reference_state,
+                                             live_state)
 from ta3n_tpu_torch.io_utils.logs import AverageMeter, LogFiles
 from ta3n_tpu_torch.train.schedules import (alpha_schedule, dann_lr,
                                             effective_beta, loss_plateau_lr,
@@ -45,7 +47,8 @@ from ta3n_tpu_torch.train.step import (StepScalars, TrainState,
 __all__ = ["Trainer", "TrainingDivergedError", "build_loaders",
            "class_weights_from_list"]
 
-_METRICS = ("loss", "loss_c", "loss_a", "loss_e", "top1", "top5", "n")
+_METRICS = ("loss", "loss_c", "loss_a", "loss_e", "loss_s", "top1",
+            "top5", "n")
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -213,6 +216,10 @@ class Trainer:
         self.state = create_train_state(
             model_cfg, train_cfg, torch.Generator().manual_seed(seed),
             self.device)
+        if save_model:
+            # a model the reference format cannot hold fails here, not at
+            # the first save
+            export_reference_state(self.state.model)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         model = self.state.model
         self.train_step = make_train_step(
@@ -254,9 +261,8 @@ class Trainer:
         ``.pth.tar``; with ``resume_hp`` also the optimizer (its momentum
         buffers) and the current lr.  Returns the epoch to start at."""
         payload = load_checkpoint(path)
-        state = {(k[len("module."):] if k.startswith("module.") else k): v
-                 for k, v in payload["state_dict"].items()}
-        self.state.model.load_state_dict(state, strict=True)
+        self.state.model.load_state_dict(live_state(payload["state_dict"]),
+                                         strict=True)
         if resume_hp:
             self.state.optimizer.load_state_dict(payload["optimizer"])
             # the reference's --resume_hp also restores the optimizer's
@@ -277,8 +283,8 @@ class Trainer:
         return {
             "epoch": epoch,
             "arch": self.model_cfg.base_model,
-            "state_dict": {f"module.{k}": v.detach().cpu() for k, v in
-                           self.state.model.state_dict().items()},
+            "state_dict": {f"module.{k}": v for k, v in
+                           export_reference_state(self.state.model).items()},
             "optimizer": self.state.optimizer.state_dict(),
             "best_prec1": self.best_prec1,
             "prec1": prec1,
@@ -330,7 +336,7 @@ class Trainer:
                 # weighted by batch size like the reference (main.py:569)
                 meters["loss"].update(m["loss"], n)
                 meters["loss_c"].update(m["loss_c"], n)
-                for key in ("loss_a", "loss_e"):
+                for key in ("loss_a", "loss_e", "loss_s"):
                     if key in m:
                         meters[key].update(m[key], n)
                 meters["top1"].update(100.0 * m["top1"] / max(n, 1), n)

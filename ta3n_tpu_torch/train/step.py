@@ -1,27 +1,34 @@
-"""The flagship train step (one forward of both streams, the TA3N losses,
-backward and one optimizer update) and the validation steps.
+"""The train step (one forward of both streams, the TA3N losses, backward
+and one optimizer update) and the validation steps.
 
-Port of `ta3n_tpu/train/step.py:175-289, 392-410, 413-766, 1064-1168`
-(reference main.py:348-628 loss assembly, backward and optimizer, and
-validate(), main.py:669-761) for the published UCF->HMDB_full
-recipe: the uSv classification loss on the source stream, RevGrad
-adversarial losses at the layers that ``place_adv`` marks, and attentive
-entropy with its layer-pick rule.  Any other ``DAConfig`` value raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Port of `ta3n_tpu/train/step.py:175-289, 413-766, 1064-1168` (reference
+main.py:348-628 loss assembly, backward and optimizer, and validate(),
+main.py:669-761): the classification loss on the source stream (uSv) or
+on both (Sv), RevGrad adversarial losses at the layers that ``place_adv``
+marks, target entropy or attentive entropy with its layer-pick rule, the
+'uncertainty' logit scaling of ``pred_normalize``, and MCD's second
+forward with its discrepancy.  The other ``DAConfig`` values raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
 Padded videos are masked, not removed: ``mask_s`` and ``mask_t`` weight
-every loss, as in the JAX package (main.py:358-372,825-832).  The per-step
-schedule values (beta, mu, alpha, gamma, lr) are arguments of the step.
-The step makes no host-device round trip of its own: metrics come back as
-0-d tensors on the model's device, and a number-valued beta never leaves
-the host.  The TRN runs through `ops/trn_fused.py::trn_multiscale_fused`:
-on CUDA its training forward and backward kernels, once each per step.
+every loss and keep the padded videos out of the BN statistics, as in the
+JAX package (main.py:358-372,825-832).  The per-step schedule values
+(beta, mu, alpha, gamma, lr) are arguments of the step.  The step makes
+no host-device round trip of its own: metrics come back as 0-d tensors on
+the model's device, and a number-valued beta never leaves the host.  A
+multi-scale TRN runs through `ops/trn_fused.py::trn_multiscale_fused`: on
+CUDA its training forward and backward kernels, once each per forward
+(twice per MCD step).  BN running statistics live in the model's buffers
+and are updated by every training forward, so twice per MCD step, as the
+JAX step's second ``apply`` does.
 
 Each step takes its videos either as feature arrays from the host or, with
 ``gather_on_device=True``, as index batches into feature stores that live
 on the device (`FeatureStore.to_device`, `TSNLoader.index_epoch`): the
-gather and the shared FC then run as one fused op (`ops/gather_gemm.py`,
-on CUDA the K3 kernel), and only a few KB of indices cross per step.
+gather and the first shared FC then run as one fused op
+(`ops/gather_gemm.py`, on CUDA the K3 kernel, one launch per store), and
+only a few KB of indices cross per step.  Either way the first shared
+FC's output is computed once per step: MCD's second forward reuses it.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ import numpy as np
 import torch
 
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
-from ta3n_tpu_torch.losses import attentive_entropy, weighted_cross_entropy
+from ta3n_tpu_torch.losses import (attentive_entropy, cross_entropy_soft,
+                                   dis_MCD, weighted_cross_entropy)
 from ta3n_tpu_torch.models.video_model import StreamOutput, VideoModel
 from ta3n_tpu_torch.ops.gather_gemm import (RowIndex, gathered_gemm,
                                             gathered_linear, row_index)
@@ -65,12 +73,8 @@ class StepScalars(NamedTuple):
 # DAConfig field -> (the values the port runs, the ROADMAP.md queue-1 item
 # porting the others)
 _DA_PORTED = {
-    "use_target": (("none", "uSv"), "6: Sv"),
     "dis_DA": (("none",), "7: the discrepancy losses DAN, JAN and CORAL"),
-    "add_loss_DA": (("none", "attentive_entropy"), "6: target_entropy"),
-    "ens_DA": (("none",), "6: MCD"),
     "pretrain_source": ((False,), "6: --pretrain_source"),
-    "pred_normalize": (("N",), "6: pred_normalize"),
 }
 
 
@@ -112,13 +116,28 @@ def _rows(p: torch.Tensor, m: torch.Tensor):
     return p, m
 
 
+def _masked_var_log_scale(x: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """x / log(var(x)) over the real rows, the reference's 'uncertainty'
+    pred_normalize (main.py:424-427, 531-532; `ta3n_tpu/train/step.py::
+    _masked_var_log_scale`): torch's unbiased .var() over every element
+    of the rows whose mask is 1."""
+    w = mask.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+    n = (w.sum() * float(np.prod(x.shape[1:]))).clamp(min=2.0)
+    mean = (x * w).sum() / n
+    var = ((x - mean).square() * w).sum() / (n - 1.0)
+    return x / torch.log(var)
+
+
 def _domain_adversarial_loss(pred_domain_s, pred_domain_t, mask_s, mask_t,
                              place_adv: Sequence[str],
-                             domain_weights: Optional[torch.Tensor]):
+                             domain_weights: Optional[torch.Tensor],
+                             pred_normalize: bool = False):
     """Sum of the 2-way domain CE over the layers marked 'Y' in place_adv
-    (main.py:507-538): source label 0, target label 1.  Also returns the
-    selected (logits, mask) pairs, whose index 1 feeds attentive entropy
-    (main.py:560)."""
+    (main.py:507-538): source label 0, target label 1, each layer's logits
+    scaled by _masked_var_log_scale under pred_normalize.  Also returns
+    the selected (logits, mask) pairs, scaled where the loss was, whose
+    index 1 feeds attentive entropy (main.py:560)."""
     loss = 0.0
     selected = []
     for layer, flag in enumerate(place_adv):
@@ -130,6 +149,8 @@ def _domain_adversarial_loss(pred_domain_s, pred_domain_t, mask_s, mask_t,
         labels = torch.cat([
             torch.zeros(ps.shape[0], dtype=torch.long, device=ps.device),
             torch.ones(pt.shape[0], dtype=torch.long, device=pt.device)])
+        if pred_normalize:
+            logits = _masked_var_log_scale(logits, m)
         loss = loss + weighted_cross_entropy(logits, labels, domain_weights,
                                              m)
         selected.append((logits, m))
@@ -200,9 +221,9 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
     device), ``scalars`` a `StepScalars`, ``generator`` a torch.Generator on
     the model's device for the dropout masks.  The step updates
     ``state.model`` in place and returns the state with ``step + 1`` and
-    the metrics loss_c, loss_a, loss_e (where the configuration has them),
-    loss, top1, top5 and n, as 0-d tensors; with ``return_aux`` also the
-    attention values attn_s [Bs, R] and attn_t [Bt, R] (main.py:623-628).
+    the metrics loss_c, loss_a, loss_e, loss_s (where the configuration
+    has them), loss, top1, top5 and n, as 0-d tensors; with ``return_aux``
+    also the attention values attn_s and attn_t (main.py:623-628).
 
     With ``gather_on_device=True`` the features stay on the device
     (`FeatureStore.to_device`) and only index batches cross from the host:
@@ -210,9 +231,10 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
            scalars, generator)
     idx_s [Bs, T] and idx_t [Bt, T] are the loader's ``abs_indices``
     (numpy), checked against their store on the host before upload.  Both
-    domains' shared-FC pre-activations come from `gathered_linear`, one
+    domains' first-FC pre-activations come from `gathered_linear`, one
     gather + GEMM per store into one buffer (on CUDA the K3 kernel, twice
-    per step), and the model runs on from them (`forward_shared`).
+    per step), each store with its domain's layer under share_params N,
+    and the model runs on from them (`forward_shared`).
     """
     cfg = model.cfg
     if cfg.quantize != "none":
@@ -222,42 +244,84 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
             "(eval CLI / serve.Predictor); train with quantize='none'")
     _check_da(da)
     use_tgt = da.use_target != "none"
+    mcd = da.ens_DA == "MCD" and use_tgt
+    if mcd and cfg.ens_DA != "MCD":
+        # without the model's second classifier out_2 == out, and the MCD
+        # discrepancy would train nothing (as the JAX step refuses)
+        raise ValueError("DAConfig.ens_DA='MCD' requires "
+                         "ModelConfig.ens_DA='MCD' (the second video "
+                         "classifier lives in the model)")
     adversarial = da.adv_DA != "none" and use_tgt
+    target_entropy = da.add_loss_DA == "target_entropy" and use_tgt
     entropy = (da.add_loss_DA == "attentive_entropy"
                and cfg.use_attn != "none" and use_tgt)
+    normalize = da.pred_normalize == "Y"
     device = next(model.parameters()).device
     if class_weights is not None:
         class_weights = _as(class_weights, device, torch.float32)
     if domain_weights is not None:
         domain_weights = _as(domain_weights, device, torch.float32)
 
-    def loss_fn(out_s, out_t, ys, mask_s, mask_t, scalars):
+    def loss_fn(net: VideoModel, pre, ys, mask_s, yt, mask_t, scalars,
+                generator):
+        """The forward(s) from the first shared FC's output ``pre`` and
+        the losses (main.py:437-562; `ta3n_tpu/train/step.py::loss_fn`)."""
+        bs, bt = len(mask_s), len(mask_t)
+        fwd = (pre, bs, bt, scalars.beta, scalars.mu, True)
+        out_s, out_t = net.forward_shared(*fwd, False, generator, mask_s,
+                                          mask_t)
         metrics: Dict[str, torch.Tensor] = {}
 
-        # (1) classification loss on the source stream (uSv,
-        # main.py:437-451)
-        o, lab, m = out_s.out, ys, mask_s
-        loss = metrics["loss_c"] = weighted_cross_entropy(
-            o, lab, class_weights, m)
+        # (1) classification loss (main.py:424-451): pred_normalize scales
+        # both streams' logits once, and the scaled ones feed Sv and the
+        # entropy losses below
+        o_s, o_t = out_s.out, out_t.out
+        if normalize:
+            o_s = _masked_var_log_scale(o_s, mask_s)
+            o_t = _masked_var_log_scale(o_t, mask_t)
+        if da.use_target == "Sv":
+            o, lab, m = (torch.cat([o_s, o_t]), torch.cat([ys, yt]),
+                         torch.cat([mask_s, mask_t]))
+        else:
+            o, lab, m = o_s, ys, mask_s
+        loss = weighted_cross_entropy(o, lab, class_weights, m)
+        if mcd:  # the second classifier's, unscaled
+            loss = loss + weighted_cross_entropy(out_s.out_2, ys,
+                                                 class_weights, mask_s)
+        metrics["loss_c"] = loss
 
         # (2) adversarial loss (main.py:507-538)
         selected = []
         if adversarial:
             loss_a, selected = _domain_adversarial_loss(
                 out_s.pred_domain, out_t.pred_domain, mask_s, mask_t,
-                da.place_adv, domain_weights)
+                da.place_adv, domain_weights, normalize)
             metrics["loss_a"] = loss_a
             loss = loss + loss_a
 
-        # (3) attentive entropy (main.py:558-562)
-        if entropy:
-            pred_all = torch.cat([out_s.out, out_t.out])
+        # (3) target entropy (main.py:541-545) or attentive entropy
+        # (main.py:558-562)
+        if target_entropy:
+            loss_e = metrics["loss_e"] = cross_entropy_soft(o_t, mask_t)
+            loss = loss + scalars.gamma * loss_e
+        elif entropy:
+            pred_all = torch.cat([o_s, o_t])
             m_all = torch.cat([mask_s, mask_t])
             dom_logits, dom_m = _entropy_domain(
                 selected, out_s, out_t, mask_s, mask_t, pred_all.shape[0])
             loss_e = attentive_entropy(pred_all, dom_logits, m_all * dom_m)
             metrics["loss_e"] = loss_e
             loss = loss + scalars.gamma * loss_e
+
+        # (4) MCD: a second forward with GRL(mu) on the video feature and
+        # its own dropout masks; the discrepancy of its two target-stream
+        # classifiers, maximised (main.py:547-556, models.py:682-684)
+        if mcd:
+            _, out_t_rev = net.forward_shared(*fwd, True, generator, mask_s,
+                                              mask_t)
+            loss_s = metrics["loss_s"] = -dis_MCD(out_t_rev.out,
+                                                  out_t_rev.out_2, mask_t)
+            loss = loss + loss_s
 
         metrics["loss"] = loss
         metrics["top1"] = topk_correct(o, lab, m, 1)
@@ -267,26 +331,27 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
             metrics["attn_s"], metrics["attn_t"] = out_s.attn, out_t.attn
         return loss, metrics
 
-    def update(state: TrainState, outs, ys, mask_s, mask_t, scalars):
-        """The losses of the forward's outputs, backward and one update."""
-        loss, metrics = loss_fn(*outs, ys, mask_s, mask_t, scalars)
+    f32, i64 = torch.float32, torch.long
+
+    def update(state: TrainState, pre, ys, mask_s, yt, mask_t, scalars,
+               generator):
+        """The losses, backward and one update."""
+        dev = pre.device
+        loss, metrics = loss_fn(state.model, pre, _as(ys, dev, i64), mask_s,
+                                _as(yt, dev, i64), mask_t, scalars,
+                                generator)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer_step(state.optimizer, scalars.lr, train_cfg.clip_gradient)
         return (TrainState(state.model, state.optimizer, state.step + 1),
                 {k: v.detach() for k, v in metrics.items()})
 
-    f32, i64 = torch.float32, torch.long
-
     def step(state: TrainState, xs, ys, mask_s, xt, yt, mask_t,
              scalars: StepScalars, generator: Optional[torch.Generator]):
         dev = next(state.model.parameters()).device
-        mask_s, mask_t = _as(mask_s, dev, f32), _as(mask_t, dev, f32)
-        outs = state.model(_as(xs, dev, f32), _as(xt, dev, f32),
-                           scalars.beta, scalars.mu, True, False,
-                           generator=generator)
-        return update(state, outs, _as(ys, dev, i64), mask_s, mask_t,
-                      scalars)
+        pre = state.model.shared_pre(_as(xs, dev, f32), _as(xt, dev, f32))
+        return update(state, pre, ys, _as(mask_s, dev, f32), yt,
+                      _as(mask_t, dev, f32), scalars, generator)
 
     def gather_step(state: TrainState, store_s, idx_s, ys, mask_s, store_t,
                     idx_t, yt, mask_t, scalars: StepScalars,
@@ -294,15 +359,13 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
         net = state.model
         dev = next(net.parameters()).device
         mask_s, mask_t = _as(mask_s, dev, f32), _as(mask_t, dev, f32)
-        fc = net.fc_feature_shared_source
+        fcs = (net.shared_fc("source"), net.shared_fc("target"))
         pre = gathered_linear([_store_part(store_s, idx_s, mask_s),
                                _store_part(store_t, idx_t, mask_t)],
-                              fc.weight, fc.bias)
-        outs = net.forward_shared(pre, len(mask_s), len(mask_t),
-                                  scalars.beta, scalars.mu, True, False,
-                                  generator=generator)
-        return update(state, outs, _as(ys, dev, i64), mask_s, mask_t,
-                      scalars)
+                              [fc.weight for fc in fcs],
+                              [fc.bias for fc in fcs])
+        return update(state, pre, ys, mask_s, yt, mask_t, scalars,
+                      generator)
 
     return gather_step if gather_on_device else step
 
@@ -321,8 +384,10 @@ def _eval_metrics(out: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
 def _eval_gathered(model: VideoModel, part, b: int) -> StreamOutput:
     """The eval forward of b videos from a store part (`_store_part`):
     the fused gather + FC without the gathered rows (no backward), then
-    the model from the pre-activations."""
-    fc = model.fc_feature_shared_source
+    the model from the pre-activations.  The videos run as the target
+    stream, so under share_params N they take the target layers, as in
+    the JAX eval step, which reads the target side."""
+    fc = model.shared_fc("target")
     store, rows, scale = part
     z, _ = gathered_gemm(store, rows, fc.weight, scale, with_rows=False)
     _, out = model.forward_shared(z.add_(fc.bias), 0, b, _EVAL_BETA, 0.0,
@@ -343,9 +408,10 @@ def make_eval_step(model: VideoModel, class_weights=None,
     (on CUDA the K3 kernel, without the gathered rows).  Metrics: loss,
     top1, top5 and n as 0-d tensors, the logits [B, C] and feat, the
     video-level feature [B, H] (main.py:430).  The JAX step feeds the
-    batch as both streams and reads the target side; with no batch
-    statistics in the model the target side of x alone is the same
-    function, so the port runs x once, as the target stream.
+    batch as both streams and reads the target side; in eval every row is
+    independent (BN normalises with its running statistics), so the
+    target side of x alone is the same function, and the port runs x
+    once, as the target stream.
     """
     device = next(model.parameters()).device
     if class_weights is not None:

@@ -1,8 +1,9 @@
 """PyTorch port on the card: the hand-written kernels (the TRN's inference
 forward, training forward and backward, and the fused gather + first-FC
-GEMM) against their plain versions, and the flagship model's CUDA forward,
-backward, train steps (features from the host or from stores on the card)
-and eval steps against the CPU.
+GEMM, also with a weight for each part) against their plain versions, and
+the flagship model's CUDA forward, backward, train steps (features from
+the host or from stores on the card) and eval steps, and the AdaBN and
+MCD device-store steps, against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs where jax is not installed:
@@ -729,15 +730,51 @@ def test_gathered_linear_on_cuda_matches_cpu():
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
 
+def test_gathered_linear_two_weights_on_cuda_matches_cpu():
+    """share_params N: the source part with its weight and bias, the
+    target part with its own, into one buffer; on the card two K3
+    launches, each with its part's weight; the output and each weight's
+    dW = dzᵀ x_res and db over its own rows against the CPU."""
+    s_store, s_idx, s_scale, w_s = _gather_inputs(45, seed=4)
+    t_store, t_idx, t_scale, w_t = _gather_inputs(20, r=300, seed=5)
+    biases = (torch.randn(96), torch.randn(96))
+    g = torch.randn((65, 96))
+    results = []
+    for device in ("cpu", "cuda"):
+        weights = [w.to(device).clone().requires_grad_(True)
+                   for w in (w_s, w_t)]
+        bs = [b.to(device).clone().requires_grad_(True) for b in biases]
+        parts = [(st.to(device), gather_gemm.row_index(i, st.shape[0],
+                                                       device),
+                  sc.to(device))
+                 for st, i, sc in ((s_store, s_idx, s_scale),
+                                   (t_store, t_idx, t_scale))]
+        _reset_counts()
+        out = gather_gemm.gathered_linear(parts, weights, bs)
+        out.backward(g.to(device))
+        torch.cuda.synchronize()
+        assert gather_gemm.launches == (2 if device == "cuda" else 0)
+        results.append([t.detach().cpu() for t in (
+            out, *(w.grad for w in weights), *(b.grad for b in bs))])
+    for got, ref in zip(results[1], results[0]):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    # each part's rows through its own weight only
+    x_t = t_store.cpu()[torch.from_numpy(t_idx).long()] * \
+        t_scale.cpu()[:, None]
+    torch.testing.assert_close(results[0][0][45:],
+                               x_t @ w_t.cpu().T + biases[1],
+                               rtol=1e-5, atol=1e-5)
+
+
 _SMALL = dict(num_class=6, baseline_type="video", frame_aggregation="trn-m",
               train_segments=5, val_segments=5, feature_dim=96, fc_dim=64,
               use_attn="TransAttn", dropout_i=0.0, dropout_v=0.0)
 
 
-def _small_state(device):
+def _small_state(device, **fields):
     gen = torch.Generator().manual_seed(0)
-    state = create_train_state(ModelConfig(**_SMALL), TrainConfig(lr=0.03),
-                               gen, device="cpu")
+    state = create_train_state(ModelConfig(**{**_SMALL, **fields}),
+                               TrainConfig(lr=0.03), gen, device="cpu")
     for mod in state.model.modules():
         if isinstance(mod, torch.nn.Linear):
             torch_default_uniform_(mod, gen)
@@ -814,3 +851,45 @@ def test_eval_steps_on_cuda_match_cpu():
                         rel_tol=1e-5)
     for key in ("top1", "top5", "n"):
         assert float(got[key]) == float(ref[key])
+
+
+@pytest.mark.parametrize("name,fields,da,per_step", [
+    ("adabn", dict(use_bn="AdaBN"), {}, (2, 0, 1, 1)),
+    ("mcd", dict(ens_DA="MCD"), dict(ens_DA="MCD"), (2, 0, 2, 2)),
+])
+def test_comparison_config_store_step_on_cuda_matches_cpu(name, fields, da,
+                                                          per_step):
+    """Three device-store steps of AdaBN and of MCD at small widths,
+    dropout 0, the target stream padded: the kernels' launches per step
+    (MCD runs the TRN forward and backward twice on one K3 output), the
+    losses, parameters and BN running stats against the same steps on
+    the CPU (the plain versions)."""
+    stores = make_domain_pair(num_source=24, num_target=13, num_val=4,
+                              num_class=6, feature_dim=96)
+    da = DAConfig(use_target="uSv", adv_DA="RevGrad",
+                  add_loss_DA="attentive_entropy", **da)
+    results = []
+    for device in ("cpu", "cuda"):
+        state = _small_state(device, **fields)
+        step = make_train_step(state.model, da, TrainConfig(lr=0.03),
+                               gather_on_device=True)
+        dev = [s.to_device(device) for s in stores[:2]]
+        ls = TSNLoader(stores[0], batch_size=8, num_segments=5, seed=1)
+        lt = TSNLoader(stores[1], batch_size=5, num_segments=5, seed=2)
+        _reset_counts()
+        losses = []
+        for bs, bt in zip(ls.index_epoch(), lt.index_epoch()):
+            state, metrics = step(state, dev[0], *bs, dev[1], *bt,
+                                  StepScalars((0.75, 0.75, 0.5), 0.5, 0.0,
+                                              0.003, 0.03), None)
+            losses.append([float(metrics[k]) for k in sorted(metrics)])
+        torch.cuda.synchronize()
+        assert len(losses) == 3
+        assert _counts() == (tuple(3 * n for n in per_step)
+                             if device == "cuda" else (0, 0, 0, 0)), name
+        results.append((losses, {k: v.to("cpu", copy=True) for k, v in
+                                 state.model.state_dict().items()}))
+    np.testing.assert_allclose(results[1][0], results[0][0], rtol=2e-4)
+    for key, ref in results[0][1].items():
+        torch.testing.assert_close(results[1][1][key], ref, rtol=1e-3,
+                                   atol=2e-5, msg=lambda m: f"{key}: {m}")

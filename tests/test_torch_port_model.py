@@ -1,6 +1,7 @@
 """PyTorch port, model: the weight converter against the JAX package's
 torch export, and the flagship VideoModel against the JAX VideoModel on
-the same weights and inputs (CPU, float32, dropout 0)."""
+the same weights and inputs (CPU, float32, dropout 0).  The rest of the
+model surface: tests/test_torch_port_surface_model.py."""
 
 import jax
 import jax.numpy as jnp
@@ -75,9 +76,13 @@ def test_dead_prefixes_match_jax_package():
 
 
 def test_converter_rejects_unknown_parameters(jax_params):
-    with pytest.raises(KeyError, match="attn_layer"):
-        state_dict_from_jax_params({**jax_params, "attn_layer": {}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Collections of what the port does not run (the RNN, temconv's TCL)
+    and BN statistics without their BN are refused."""
+    with pytest.raises(KeyError, match="rnn"):
+        state_dict_from_jax_params({**jax_params, "rnn": {}})
+    with pytest.raises(KeyError, match="tcl_3_1"):
+        state_dict_from_jax_params({**jax_params, "tcl_3_1": {}})
+    with pytest.raises(KeyError, match="bn_shared_S"):
         state_dict_from_jax_params(jax_params,
                                    {"bn_shared_S": {"mean": np.zeros(2)}})
 
@@ -142,10 +147,10 @@ def test_grl_reverses_domain_head_gradients(jax_params):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("frame_aggregation", "avgpool"), ("use_attn", "general"),
-    ("use_bn", "AdaBN"), ("ens_DA", "MCD"), ("share_params", "N"),
-    ("baseline_type", "frame"), ("add_fc", 2), ("quantize", "int8"),
-    ("compute_dtype", "bfloat16"), ("use_attn_frame", "TransAttn"),
+    ("frame_aggregation", "rnn"), ("frame_aggregation", "temconv"),
+    ("baseline_type", "tsn"), ("baseline_type", "frame"),
+    ("quantize", "int8"), ("compute_dtype", "bfloat16"),
+    ("param_dtype", "bfloat16"),
 ])
 def test_unported_config_raises(field, value):
     import dataclasses
