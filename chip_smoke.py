@@ -41,11 +41,18 @@ seed):
   * the comparison configurations (COMPARISON: TemPooling source-only and
     with RevGrad, TA2N, general attention, AdaBN, AutoDIAL, MCD and
     share_params N with two shared FCs, Sv, target entropy and
-    pred_normalize) at the same widths and batch: 3 device-store steps of
-    each against host-feature steps on the plain path, each step from the
-    same parameters and with its launches checked, one val epoch from the
-    store, the step timed and profiled; then AdaBN and MCD through the
-    train CLI for one epoch and the eval CLI on its model_best.pth.tar.
+    pred_normalize; TemPooling with DAN and with JAN, TA3N with DAN and
+    with CORAL at all three layers, bidirectional two-layer LSTM and GRU
+    aggregation, temconv with AdaBN, the frame baseline under the TA3N
+    recipe and the tsn baseline over TemPooling) at the same widths and
+    batch: 3 device-store steps of each against host-feature steps on the
+    plain path, each step from the same parameters and with its launches
+    checked, one val epoch from the store, the step timed and profiled
+    (TA3N with DAN at all layers: also its peak memory); then AdaBN, MCD,
+    TemPooling with JAN, the frame baseline and the flagship with
+    --pretrain_source through the train CLI for one epoch and the eval CLI
+    on its model_best.pth.tar (the frame baseline's with no
+    --baseline_type flag, its default).
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -76,7 +83,8 @@ from torch import nn
 from ta3n_tpu_torch.cli import test_models as cli_test_models
 from ta3n_tpu_torch.cli import train as cli_train
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
-from ta3n_tpu_torch.data import TSNLoader, make_domain_pair
+from ta3n_tpu_torch.data import FeatureStore, TSNLoader, make_domain_pair
+from ta3n_tpu_torch.io_utils.convert import load_reference_checkpoint
 from ta3n_tpu_torch.models import VideoModel
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
 from ta3n_tpu_torch.ops import _build, gather_gemm, relation, trn_fused
@@ -150,18 +158,66 @@ COMPARISON = {
                 dict(use_target="Sv", adv_DA="RevGrad",
                      add_loss_DA="target_entropy", pred_normalize="Y",
                      place_adv=("Y", "Y", "Y")), (2, 1, 1)),
+    # the discrepancy losses (BENCH_NOTES.md "DAN stabilized"), DAN and
+    # CORAL at every layer of the flagship: at 128 + 74 videos, 74 pairs
+    # of 5 x 512 shared features, a 148 x 148 x 2560 difference
+    "tempooling_dan": (dict(frame_aggregation="avgpool", use_attn="none"),
+                       dict(use_target="uSv", dis_DA="DAN",
+                            place_dis=("Y", "Y", "N")), (2, 0, 0)),
+    "tempooling_jan": (dict(frame_aggregation="avgpool", use_attn="none"),
+                       dict(use_target="uSv", dis_DA="JAN"), (2, 0, 0)),
+    "ta3n_dan_all": (dict(), {**RECIPE, "dis_DA": "DAN",
+                              "place_dis": ("Y", "Y", "Y")}, (2, 1, 1)),
+    "ta3n_coral_all": (dict(), {**RECIPE, "dis_DA": "CORAL",
+                                "place_dis": ("Y", "Y", "Y")}, (2, 1, 1)),
+    # the aggregations of the paper's ablation: RNN (3 chunks of round(5/3)
+    # = 2 frames, the last repeated; 2 chunks of round(2.5) = 2, the last
+    # frame dropped) and temconv
+    "rnn_bilstm": (dict(frame_aggregation="rnn", rnn_cell="LSTM", n_rnn=2,
+                        n_directions=2, n_ts=3, use_attn="none"),
+                   dict(use_target="uSv", adv_DA="RevGrad",
+                        place_adv=("N", "Y", "Y")), (2, 0, 0)),
+    "rnn_gru": (dict(frame_aggregation="rnn", rnn_cell="GRU", n_ts=2,
+                     use_attn="none"),
+                dict(use_target="uSv", adv_DA="RevGrad",
+                     place_adv=("N", "Y", "Y")), (2, 0, 0)),
+    "temconv_adabn": (dict(frame_aggregation="temconv", use_bn="AdaBN",
+                           use_attn="none"),
+                      dict(use_target="uSv", adv_DA="RevGrad",
+                           place_adv=("N", "Y", "Y")), (2, 0, 0)),
+    # the frame and tsn baselines
+    "frame_ta3n": (dict(baseline_type="frame"), RECIPE, (2, 1, 1)),
+    "tsn_tempooling": (dict(baseline_type="tsn", frame_aggregation="avgpool",
+                            use_attn="none"),
+                       dict(use_target="uSv", adv_DA="RevGrad",
+                            place_adv=("N", "N", "Y")), (2, 0, 0)),
 }
 COMPARISON_STEPS = 3           # parity steps per configuration
 COMPARISON_TIMED = 10          # timed steps per configuration
 COMPARISON_MU = 0.5            # MCD's GRL strength in those steps
+COMPARISON_ALPHA = 1.0         # the discrepancy weight (opts.py default)
 # AutoDIAL's alpha in the seed model: round(128 * 0.75) = 96 source and
 # round(74 * 0.75) = 56 (55.5, half to even) target videos to their own BN,
 # the rest mixed (at its init value 1 nothing mixes)
 AUTODIAL_ALPHA = 0.75
-# the configurations taken through the train CLI and the eval CLI, with
-# their flags beyond MODEL_FLAGS and RECIPE_FLAGS
-COMPARISON_CLI = {"adabn": ["--use_bn", "AdaBN"],
-                  "mcd": ["--ens_DA", "MCD", "--mu", "0.5"]}
+# the configurations taken through the train CLI and the eval CLI: their
+# train flags beyond MODEL_FLAGS and RECIPE_FLAGS (the later of a repeated
+# flag counts), their eval flags beyond MODEL_FLAGS (None: MODEL_FLAGS
+# without --baseline_type, so that the eval CLI takes its default, frame),
+# and the launches of one batch of their epochs: K3, K1 (train), K2, and
+# K1 (infer) per val batch
+AVGPOOL_FLAGS = ["--frame_aggregation", "avgpool", "--use_attn", "none"]
+COMPARISON_CLI = {
+    "adabn": (["--use_bn", "AdaBN"], ["--use_bn", "AdaBN"], (2, 1, 1, 1)),
+    "mcd": (["--ens_DA", "MCD", "--mu", "0.5"], [], (2, 2, 2, 1)),
+    "tempooling_jan": (AVGPOOL_FLAGS + ["--dis_DA", "JAN", "--adv_DA",
+                                        "none", "--add_loss_DA", "none"],
+                       AVGPOOL_FLAGS, (2, 0, 0, 0)),
+    "frame_ta3n": (["--baseline_type", "frame"], None, (2, 1, 1, 1)),
+    # the classification-only step before each train step: twice the
+    # launches of a flagship batch
+    "pretrain_source": (["--pretrain_source"], [], (4, 2, 2, 1)),
+}
 # NVIDIA H100 SXM data sheet (700 W): dense TF32 tensor-core peak and HBM
 # rate
 PEAK_TF32 = 495e12
@@ -777,9 +833,10 @@ def trn_ties(ours, ref, rows):
 def relu_ties(ours, ref, names, rows, what="shared-FC relu"):
     """Add to ``rows`` the rows u of the parameters ``names(b)`` (for
     video b) that a relu mask of unit u flipped at a rounding tie may have
-    moved; ``ours`` and ``ref`` are the relu's outputs [B, S, F] on the two
-    sides.  Raise where a mask differs at a value that is not a tie.  The
-    number of masks flipped."""
+    moved (a name given as (name, row) names that row whatever u);
+    ``ours`` and ``ref`` are the relu's outputs, or its inputs, [B, S, F]
+    on the two sides.  Raise where a mask differs at a value that is not
+    a tie.  The number of masks flipped."""
     differ = (ours > 0) != (ref > 0)
     top = torch.maximum(ours, ref)
     if (differ & (top > RTOL * max(1.0, ref.max().item()))).any():
@@ -787,8 +844,9 @@ def relu_ties(ours, ref, names, rows, what="shared-FC relu"):
                              "not a rounding tie")
     for b, f, u in differ.nonzero().tolist():
         for name in names(b):
-            rows.setdefault(name, {})[u] = (
-                f"{what} of video {b}, frame {f} flipped at "
+            name, row = name if isinstance(name, tuple) else (name, u)
+            rows.setdefault(name, {})[row] = (
+                f"{what} of video {b}, frame {f} unit {u} flipped at "
                 f"{top[b, f, u].item():.2e}")
     return int(differ.sum())
 
@@ -939,10 +997,11 @@ def train_flagship(gen):
     return launches
 
 
-def device_profile(run, n, step_ms, label):
-    """Profile ``run(n)`` (n steps back to back): device time by kernel
-    per step, and the device's idle share against ``step_ms``, the
-    unprofiled time of a step run back to back."""
+def device_profile(run, n, step_ms, label, top=8):
+    """Profile ``run(n)`` (n steps back to back): device time per step of
+    the ``top`` kernels that take most, and the device's idle share
+    against ``step_ms``, the unprofiled time of a step run back to
+    back."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -956,7 +1015,7 @@ def device_profile(run, n, step_ms, label):
         f"{sum(e.count for e in kernels) // n} kernels per step; against "
         f"{step_ms:.3f} ms per step back to back, the device is idle "
         f"{100 * idle:.1f}% of the time")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/step "
             f"{e.count // n:4d}x  {e.key[:90]}")
     return busy_ms, idle
@@ -1341,6 +1400,9 @@ def eval_device_store(gen, val, dev_val, model=None):
     multi-batch eval."""
     model = model or flagship_model(gen)
     k1 = model.cfg.frame_aggregation == "trn-m"
+    # the frame baseline's loss and counts are over frames
+    per_video = (model.cfg.val_segments
+                 if model.cfg.baseline_type == "frame" else 1)
     loader = TSNLoader(val, batch_size=TRAIN.batch_size[2],
                        num_segments=FLAGSHIP.val_segments, shuffle=False)
     ev = make_eval_step(model)
@@ -1366,7 +1428,7 @@ def eval_device_store(gen, val, dev_val, model=None):
         f"{want['top5']:.0f}, n {got['n']:.0f}/{want['n']:.0f} (device "
         f"store/host features); launches {launches}")
     if any(got[k] != want[k] for k in ("top1", "top5", "n")) or \
-            got["n"] != len(val.paths) or not math.isclose(
+            got["n"] != len(val.paths) * per_video or not math.isclose(
                 got["loss_sum"], want["loss_sum"], rel_tol=EVAL_RTOL):
         raise AssertionError("the device-store val epoch differs from the "
                              "host-feature eval")
@@ -1496,9 +1558,9 @@ def run_cli(main_fn, argv):
     return result, buf.getvalue()
 
 
-def eval_cli_args(root, weights, *extra):
+def eval_cli_args(root, weights, *extra, model_flags=MODEL_FLAGS):
     return [os.path.join(root, "class.txt"), "RGB",
-            os.path.join(root, "val", "list.txt"), weights, *MODEL_FLAGS,
+            os.path.join(root, "val", "list.txt"), weights, *model_flags,
             "--test_segments", "5", "--bS", str(CLI_BATCH), "--top", "1",
             "3", "5", *extra]
 
@@ -1593,18 +1655,21 @@ def trainer_records():
         Trainer.train_epoch, Trainer.validate = epoch_fn, validate_fn
 
 
-def check_trainer_launches(rec, trn_forwards=1):
-    """One parametrised check for every epoch and validation: per train
-    step ``trn_forwards`` K1 (train) and K2 (two under MCD) and, from the
-    stores, 2 K3; per val batch 1 K1 (infer) and, from the store, 1 K3."""
+def check_trainer_launches(rec, per_batch=(2, 1, 1, 1)):
+    """One parametrised check for every epoch and validation, from the
+    launches of one batch ``per_batch`` (K3 from the stores, K1 (train),
+    K2, K1 (infer) per val batch): per train batch those (the flagship: 2
+    K3, 1 K1 (train), 1 K2; MCD two TRN forwards, --pretrain_source two
+    steps), per val batch its K1 (infer) and, from the store, 1 K3."""
+    k3, k1_train, k2, k1 = per_batch
     if rec["kind"] == "train":
         n = rec["steps"]
-        want = {"trn_fused_fwd": 0, "trn_fused_fwd_train": n * trn_forwards,
-                "trn_fused_bwd": n * trn_forwards,
-                "gather_gemm": 2 * n * rec["store"]}
+        want = {"trn_fused_fwd": 0, "trn_fused_fwd_train": n * k1_train,
+                "trn_fused_bwd": n * k2,
+                "gather_gemm": k3 * n * rec["store"]}
     else:
         n = rec["batches"]
-        want = {"trn_fused_fwd": n, "trn_fused_fwd_train": 0,
+        want = {"trn_fused_fwd": n * k1, "trn_fused_fwd_train": 0,
                 "trn_fused_bwd": 0, "gather_gemm": n * rec["store"]}
     if rec["launches"] != want:
         raise AssertionError(f"{rec['kind']} epoch {rec['epoch']} launched "
@@ -1687,10 +1752,11 @@ def train_cli(root):
 def record_forwards(model):
     """Record every forward_shared call of ``model``: the outputs of its
     shared FC layers' relus [B, S, F] (StreamOutput.feat, both streams),
-    and with a multi-scale TRN the record_trn record of each.  Returns
-    (calls, trn_calls, undo)."""
-    calls, trn_calls = [], []
-    inner = model.forward_shared
+    with a multi-scale TRN the record_trn record of each, and with temconv
+    the input of its relu [B, S, F] (temconv_pre).  Returns (calls,
+    trn_calls, undo, temconv_calls)."""
+    calls, trn_calls, temconv_calls = [], [], []
+    inner, inner_temconv = model.forward_shared, model.temconv_pre
     layers = model.cfg.add_fc
 
     def forward_shared(*args, **kw):
@@ -1699,25 +1765,31 @@ def record_forwards(model):
                       for l in range(layers)])
         return outs
 
+    def temconv_pre(*args, **kw):
+        out = inner_temconv(*args, **kw)
+        temconv_calls.append(out.detach().clone())
+        return out
+
     model.forward_shared = forward_shared
+    model.temconv_pre = temconv_pre
     handle = (record_trn(model, trn_calls)[1]
               if model.cfg.frame_aggregation == "trn-m" else None)
 
     def undo():
-        del model.forward_shared
+        del model.forward_shared, model.temconv_pre
         if handle is not None:
             handle.remove()
 
-    return calls, trn_calls, undo
+    return calls, trn_calls, undo, temconv_calls
 
 
 def comparison_ties(cfg, bs, ours, ref):
     """tie_rows for every forward of a step (two under MCD) of a
-    comparison configuration: the TRN masks (trn_ties), and the relu of
-    each shared FC layer l, whose flip at unit u for video b may move row
-    u of layer l's weight and bias of b's domain (both domains' under BN,
-    whose statistics mix them) and, after the first layer with BN, entry
-    u of both BNs' weight and bias."""
+    comparison configuration: the TRN masks (trn_ties), the relu of each
+    shared FC layer l, whose flip at unit u for video b may move row u of
+    layer l's weight and bias of b's domain (both domains' under BN, whose
+    statistics mix them) and, after the first layer with BN, entry u of
+    both BNs' weight and bias; and temconv's relu."""
     rows, flips = {}, [0, 0]
     for o, r in zip(ours[1], ref[1]):
         flips[0] += trn_ties(o, r, rows)
@@ -1742,6 +1814,25 @@ def comparison_ties(cfg, bs, ours, ref):
 
             flips[1] += relu_ties(o, r, names, rows,
                                   f"layer-{layer + 1} relu")
+    # temconv's relu: z[b, f, u] is the TCL's (one 3-tap conv over the
+    # frames, every unit) of units u of frames f-1..f+1, then under BN
+    # entry u of the bn_1 pair; a flip moves the whole conv and row u of
+    # the bn_1 pair and of the last shared layer (and of the shared BN)
+    for o, r in zip(ours[3], ref[3]):
+        last = "" if cfg.add_fc == 1 else f"_{cfg.add_fc}"
+
+        def temconv_names(b, last=last):
+            doms = ("source",) if cfg.share_params == "Y" else (
+                "source", "target")
+            out = [(f"tcl_3_1.conv2d.{p}", 0) for p in ("weight", "bias")]
+            out += [f"fc_feature_shared{last}_{d}.{p}" for d in doms
+                    for p in ("weight", "bias")]
+            if bn:
+                out += [f"bn_{n}_{t}.{p}" for n in ("1", "shared")
+                        for t in "ST" for p in ("weight", "bias")]
+            return out
+
+        flips[1] += relu_ties(o, r, temconv_names, rows, "temconv relu")
     return rows, flips
 
 
@@ -1763,8 +1854,13 @@ def comparison_config(gen, name, stores, dev):
     plain = copy.deepcopy(model)
     if cfg.frame_aggregation == "trn-m":
         plain.TRN = PlainTRN(plain.TRN)
+    elif cfg.frame_aggregation == "rnn":
+        # a deep copy gives each RNN weight its own storage: back into one
+        # buffer for cuDNN, as the model keeps them
+        plain.rnn.flatten_parameters()
     steps = [scalars(i, COMPARISON_STEPS, (-1.0, -1.0, -1.0))._replace(
-        mu=COMPARISON_MU) for i in range(COMPARISON_STEPS)]
+        mu=COMPARISON_MU, alpha=COMPARISON_ALPHA)
+        for i in range(COMPARISON_STEPS)]
     ker = TrainState(model, make_optimizer(model.parameters(), TRAIN), 0)
     ref = TrainState(plain, make_optimizer(plain.parameters(), TRAIN), 0)
     ker_step = make_train_step(model, da, TRAIN, gather_on_device=True)
@@ -1786,6 +1882,7 @@ def comparison_config(gen, name, stores, dev):
         for r in (rec, ref_rec):
             r[0].clear()
             r[1].clear()
+            r[3].clear()
         reset_counts()
         ker, got = ker_step(ker, dev[0], *bs, dev[1], *bt, sc, None)
         torch.cuda.synchronize()
@@ -1836,7 +1933,18 @@ def comparison_config(gen, name, stores, dev):
     step_ms = (time.perf_counter() - t0) * 1e3 / COMPARISON_TIMED
     log(f"  {name}: {step_ms:.3f} ms per device-store step "
         f"({COMPARISON_TIMED} back to back, dropout 0)")
-    busy, idle = device_profile(run, 5, step_ms, f"{name} steps")
+    busy, idle = device_profile(run, 5, step_ms, f"{name} steps",
+                                top=12 if da.dis_DA != "none" else 8)
+    if da.dis_DA != "none":
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run(1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {name}: peak memory over a step "
+            f"{peak / 2 ** 20:.1f} MiB, {(peak - base) / 2 ** 20:.1f} MiB "
+            f"above the {base / 2 ** 20:.1f} MiB held between steps "
+            f"(stores, model, optimizer); {card_line()}")
     return launches, (step_ms, busy, idle)
 
 
@@ -1844,40 +1952,71 @@ def comparison_cli(root, name):
     """The Trainer through the train CLI for one epoch from the device
     stores with --save_model, its launches checked per epoch and
     validation, then the eval CLI on its model_best.pth.tar (reference
-    format, with the BN running stats or the second classifier), whose
-    Pred@1 must be the best Prec@1 the Trainer printed.  Returns the
-    summed launches."""
+    format, with the BN running stats or the second classifier).  Its
+    Pred@1 must be the best Prec@1 the Trainer printed; for the frame
+    baseline, whose Prec@1 counts frames and whose Pred@1 scores the
+    frame logits averaged over the segments, the Pred@1 of a plain-path
+    Predictor on the same checkpoint and val videos.  Returns the summed
+    launches."""
     lists = [os.path.join(root, n, "list.txt") for n in ("src", "tgt", "val")]
     exp = os.path.join(root, f"exp_{name}")
-    extra = COMPARISON_CLI[name]
-    trn_forwards = COMPARISON[name][2][1]
+    train_flags, eval_flags, per_batch = COMPARISON_CLI[name]
     with trainer_records() as records:
         best, out = run_cli(cli_train.main, [
             os.path.join(root, "class.txt"), "RGB", *lists, *MODEL_FLAGS,
-            *RECIPE_FLAGS, *extra, "--exp_path", exp + "/",
+            *RECIPE_FLAGS, *train_flags, "--exp_path", exp + "/",
             "--save_best_log", os.path.join(exp, "best.log"),
             "--device_store", "--save_model", "--epochs", "1"])
     launches = dict.fromkeys(counts(), 0)
     for rec in records:
-        check_trainer_launches(rec, trn_forwards)
+        check_trainer_launches(rec, per_batch)
         launches = {k: launches[k] + n for k, n in rec["launches"].items()}
     train = [r for r in records if r["kind"] == "train"][0]
     log(f"  {name} train CLI: epoch 1 {train['seconds']:.3f} s, "
         f"{train['steps']} steps, {train['videos']} videos; best "
         f"{best:.3f}; launches {launches}")
-    eval_flags = [f for f in extra if f in ("--use_bn", "AdaBN")]
+    weights = os.path.join(exp, "RGB", "model_best.pth.tar")
+    if eval_flags is None:  # no --baseline_type: the CLI's default, frame
+        model_flags, eval_flags = MODEL_FLAGS[2:], []
+    else:
+        model_flags = MODEL_FLAGS
     reset_counts()
     line, _ = run_cli(cli_test_models.main, eval_cli_args(
-        root, os.path.join(exp, "RGB", "model_best.pth.tar"),
-        "--device_store", *eval_flags))
+        root, weights, "--device_store", *eval_flags,
+        model_flags=model_flags))
     launched = counts()
     pred1 = float(line.split()[1].rstrip("%"))
-    log(f"  {name} eval CLI on model_best.pth.tar: {line.strip()} (best "
-        f"Prec@1 printed {best:.3f}); launches {launched}")
-    if abs(pred1 - best) > 0.006:
-        raise AssertionError(f"{name}: Pred@1 {pred1} is not the best "
-                             f"Prec@1 {best}")
+    want, what = best, "best Prec@1 printed"
+    if "--baseline_type" not in model_flags:
+        want, what = video_accuracy(root, weights), (
+            "plain-path Pred@1 of the averaged frame logits")
+    log(f"  {name} eval CLI on model_best.pth.tar: {line.strip()} ({what} "
+        f"{want:.3f}, best Prec@1 printed {best:.3f}); launches {launched}")
+    if abs(pred1 - want) > 0.006:
+        raise AssertionError(f"{name}: Pred@1 {pred1} is not the {what} "
+                             f"{want}")
     return {k: launches[k] + launched[k] for k in launches}
+
+
+def video_accuracy(root, weights):
+    """Top-1 accuracy in percent over the val videos of a frame-baseline
+    flagship checkpoint served by a Predictor whose TRN is the plain
+    version: the frame logits averaged over the segments."""
+    cfg = dataclasses.replace(FLAGSHIP, baseline_type="frame")
+    model = load_reference_checkpoint(weights, cfg, "cuda")
+    model.TRN = PlainTRN(model.TRN)
+    val = FeatureStore.load(os.path.join(root, "val"))
+    loader = TSNLoader(val, batch_size=CLI_BATCH, num_segments=5,
+                       shuffle=False)
+    predictor = Predictor(cfg, model, batch_size=CLI_BATCH, top_k=1,
+                          device="cuda")
+    hits = total = 0
+    for b in loader.epoch():
+        n = int(b.mask.sum())
+        top = predictor(b.features[:n])[2][:, 0]
+        hits += int((top == b.labels[:n]).sum())
+        total += n
+    return 100.0 * hits / total
 
 
 def comparison_phase(gen, stores, dev, root):
@@ -1904,7 +2043,8 @@ def main() -> int:
               "card only", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's TF32 flag stays at its default (True), as the CLIs' users
+    # run it: the TCL and the RNN pin float32 themselves (cudnn_f32)
     kind = torch.cuda.get_device_name(0)
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")

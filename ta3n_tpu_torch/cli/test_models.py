@@ -11,6 +11,9 @@ reference-format ``.pth.tar``: the original code's, one that the port's
 Trainer wrote, or a JAX checkpoint exported with
 ``python -m ta3n_tpu.cli.export_checkpoint DIR out.pth.tar``.
 
+The frame baseline, the default, is scored on its frame logits averaged
+over the segments, as in the JAX CLI.
+
 Outputs: the ``average ... sec/video`` and ``Pred@k`` lines, the confusion
 PNG and per-class top-K txt (``--save_confusion``), the attention txt
 (``--save_attention``) and the scores ``.npz`` sorted by video path
@@ -117,13 +120,6 @@ def _check_ported(args) -> None:
             (args.data_parallel, "--data_parallel", "10")):
         if on:
             raise NotImplementedError(_later(what, item))
-    if args.baseline_type != "video":
-        raise NotImplementedError(
-            _later(f"--baseline_type {args.baseline_type}", "6: the frame "
-                   "and tsn baselines")
-            + "; the port runs the video baseline: pass --baseline_type "
-            "video --frame_aggregation trn-m (or avgpool, trn) (the CLI's "
-            "defaults are frame and avgpool)")
 
 
 def main(argv=None):

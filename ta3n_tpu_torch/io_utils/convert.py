@@ -10,12 +10,15 @@ The port's modules carry the reference ``state_dict`` names
     leaves) and its BN statistics onto those names, as
     `torch_export.export_state_dict` does (`torch_export.py:41-125`):
     Dense kernels ``[in, out]`` become Linear weights ``[out, in]``
-    (`torch_export.py:37`).  Only live parameters come out.
+    (`torch_export.py:37`), the RNN's ``[in, G*H]`` weights are
+    transposed, the TCL's flax kernel ``[k, 1, in, out]`` becomes the
+    Conv2d weight ``[out, in, k, 1]``.  Only live parameters come out.
   * ``load_reference_checkpoint`` reads a reference-format ``.pth.tar``
     (the original code's, or one written by
     ``python -m ta3n_tpu.cli.export_checkpoint``), strips the DataParallel
     ``module.`` prefix, drops the reference's dead parameters and
-    strict-loads the rest.
+    strict-loads the rest (temconv's ``bn_1`` pair counts as dead without
+    AdaBN/AutoDIAL, whose ``bn_shared`` pair the checkpoint then lacks).
 
 One way out: ``export_reference_state`` gives a model's state in the
 layout the export writes, dead parameters included, so the Trainer's
@@ -69,8 +72,9 @@ _DENSE = (
     "fc_classifier_video_source", "fc_classifier_video_source_2",
     "fc_classifier_video_target", "fc_classifier_video_target_2",
 )
-# BN pairs of AdaBN/AutoDIAL that the video baseline runs
-_BN = ("bn_shared_S", "bn_shared_T")
+# BN pairs of AdaBN/AutoDIAL: after the first shared FC and, in temconv,
+# after the TCL (a copy of `torch_import.py::_BN_DIRECT`)
+_BN = ("bn_shared_S", "bn_shared_T", "bn_1_S", "bn_1_T")
 # general-attention MLPs: JAX name -> the port's module; attn_layer_frame
 # has no reference name (`ta3n_tpu/io_utils/torch_export.py` raises on it)
 _ATTN = ("attn_layer", "attn_layer_frame")
@@ -154,6 +158,18 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
                 _linear(out, f"{name}.{slot}", params[name][jax_name]["kernel"],
                         params[name][jax_name]["bias"])
             consumed.add(name)
+    if "tcl_3_1" in params:  # flax [k, 1, in, out] -> torch [out, in, k, 1]
+        conv = params["tcl_3_1"]["Conv_0"]
+        out["tcl_3_1.conv2d.weight"] = _tensor(
+            np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+        out["tcl_3_1.conv2d.bias"] = _tensor(conv["bias"])
+        consumed.add("tcl_3_1")
+    if "rnn" in params:  # torch's names; weights stored [in, G*H]
+        for name, v in params["rnn"].items():
+            out[f"rnn.{name}"] = _tensor(np.asarray(v).T
+                                         if name.startswith("weight_")
+                                         else v)
+        consumed.add("rnn")
     extra = set(params) - consumed
     if extra:
         raise KeyError(f"no port module for JAX parameters {sorted(extra)}")
@@ -165,7 +181,7 @@ def export_reference_state(model: VideoModel) -> Dict[str, torch.Tensor]:
     `ta3n_tpu/io_utils/torch_export.py::export_state_dict` writes it: the
     live parameters and BN statistics, plus the reference's dead modules
     (models.py:150-200, 214-243, 309-312), which its strict load needs,
-    BNs at their init values and Linears zeroed.  Raises KeyError, as the
+    BNs at their init values, Linears and convs zeroed.  Raises KeyError, as the
     export does, for a module the reference has no name for
     (``attn_layer_frame``)."""
     out = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -186,11 +202,28 @@ def export_reference_state(model: VideoModel) -> Dict[str, torch.Tensor]:
                     f"{name}.running_var": torch.ones(dim),
                     f"{name}.num_batches_tracked": torch.tensor(0)})
 
+    def dead_conv(name, c_out, c_in, k):
+        out[f"{name}.weight"] = torch.zeros(c_out, c_in, k, 1)
+        out[f"{name}.bias"] = torch.zeros(c_out)
+
     trn_bias = out.get("TRN.classifier.1.bias",
                        out.get("TRN.fc_fusion_scales.0.1.bias"))
     if trn_bias is not None:  # models.py:217-226
         for s in "ST":
             dead_bn(f"bn_trn_{s}", trn_bias.shape[0])
+    if "rnn.weight_ih_l0" in out:  # BatchNorm2d(1) pair, models.py:214-215
+        dead_bn("bn_before_rnn", 1)
+        dead_bn("bn_after_rnn", 1)
+    if "tcl_3_1.conv2d.weight" in out:  # models.py:228-243
+        frame = out["fc_classifier_source.weight"].shape[1]
+        dead_conv("tcl_5_1.conv2d", 1, 1, 5)
+        dead_conv("tcl_3_2.conv2d", 1, 1, 3)
+        dead_conv("tcl_5_2.conv2d", 2, 2, 5)
+        dead_conv("conv_fusion.0", 1, 2, 1)
+        for s in "ST":
+            dead_bn(f"bn_2_{s}", frame)
+            if f"bn_1_{s}.weight" not in out:  # live only under BN
+                dead_bn(f"bn_1_{s}", frame)
     if "bn_shared_S.weight" in out:  # models.py:198-199, 309-312
         shared = out["bn_shared_S.weight"].shape[0]
         video = out["fc_classifier_video_source.weight"].shape[1]
@@ -229,8 +262,13 @@ def live_state(state: Mapping[str, torch.Tensor]
     model strict-loads."""
     state = {(k[len("module."):] if k.startswith("module.") else k): v
              for k, v in state.items()}
-    return {k: v for k, v in state.items()
-            if not k.startswith(DEAD_PREFIXES)}
+    dead = DEAD_PREFIXES
+    if "bn_shared_S.weight" not in state:
+        # temconv builds its bn_1 pair whatever use_bn says, and runs it
+        # only under AdaBN/AutoDIAL (models.py:232-233, 662-663), as
+        # `ta3n_tpu/io_utils/torch_import.py` reads it
+        dead += ("bn_1_S.", "bn_1_T.")
+    return {k: v for k, v in state.items() if not k.startswith(dead)}
 
 
 def load_reference_checkpoint(path: str, model_cfg: ModelConfig,

@@ -1,6 +1,8 @@
 """Building blocks of the port: the reference's init policy, the
-TransAttn weights, general attention and the masked BatchNorm of AdaBN and
-AutoDIAL.
+TransAttn weights, general attention, the masked BatchNorm of AdaBN and
+AutoDIAL, the temporal conv layer of temconv aggregation, and
+``cudnn_f32``, which runs a cuDNN convolution or RNN in float32 forward
+and backward whatever ``torch.backends.cudnn.allow_tf32`` says.
 
 Init policy (`ta3n_tpu/models/layers.py:17-44`, PARITY §2.2, load-bearing):
 the Linears that the reference's init loop touches get
@@ -12,16 +14,19 @@ scale and training stalls.  Both draw from an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ta3n_tpu_torch.losses.losses import entropy_from_logits
 
 __all__ = ["linear", "normal_001_", "torch_default_uniform_",
-           "trans_attn_weights", "GeneralAttn", "MaskedBatchNorm"]
+           "trans_attn_weights", "GeneralAttn", "MaskedBatchNorm", "TCL",
+           "cudnn_f32"]
 
 
 @torch.no_grad()
@@ -143,3 +148,83 @@ class MaskedBatchNorm(nn.Module):
                 self.num_batches_tracked.add_(1)
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
             + self.bias
+
+
+@contextlib.contextmanager
+def _no_cudnn_tf32():
+    """cuDNN without TF32 for the duration; the previous setting
+    restored.  ``torch.backends.cudnn.allow_tf32`` is True by default, and
+    then cuDNN runs float32 convolutions and RNNs on TF32 tensor cores
+    (10-bit mantissa)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _CudnnF32(torch.autograd.Function):
+    """``fn(x)`` with cuDNN's TF32 off in the forward and in the backward:
+    the backward recomputes ``fn(x)`` under the same setting and takes the
+    gradients of x and of ``params``, the parameters that ``fn`` reads.
+    cuDNN reads the flag when a kernel runs, so a context around the
+    forward alone would leave the backward on TF32."""
+
+    @staticmethod
+    def forward(ctx, fn, x, *params):
+        ctx.fn, ctx.params = fn, params
+        ctx.save_for_backward(x)
+        with _no_cudnn_tf32():
+            return fn(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        x = x.detach().requires_grad_(ctx.needs_input_grad[1])
+        inputs = [t for t, need in zip((x, *ctx.params),
+                                       ctx.needs_input_grad[1:]) if need]
+        with torch.enable_grad(), _no_cudnn_tf32():
+            grads = iter(torch.autograd.grad(ctx.fn(x), inputs, grad,
+                                             allow_unused=True))
+        return (None, *(next(grads) if need else None
+                        for need in ctx.needs_input_grad[1:]))
+
+
+def cudnn_f32(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+              params: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``fn(x)``, a call of a module whose parameters are ``params``, in
+    float32 on cuDNN: TF32 off in its forward and in its backward (which
+    recomputes the forward).  The TCL and the RNN aggregator run through
+    it, so that their numbers do not depend on the process's global
+    ``torch.backends.cudnn.allow_tf32``.  On the CPU the flag changes
+    nothing."""
+    return _CudnnF32.apply(fn, x, *params)
+
+
+class TCL(nn.Module):
+    """Temporal conv layer: a Conv2d(1, 1, (conv_size, 1)) over the
+    segment axis, padding conv_size // 2, kaiming-normal weight.  Port of
+    `ta3n_tpu/models/layers.py::TCL` (reference TCL, models.py:44-56):
+    [B, S, D] -> [B, S, D].  The conv is ``conv2d``, the reference's
+    parameter name (``tcl_3_1.conv2d.weight``), and runs through
+    ``cudnn_f32``.  Its bias keeps torch's default init, U(±1/sqrt(fan_in))
+    (the reference initialises only the weight)."""
+
+    def __init__(self, conv_size: int, generator: Optional[torch.Generator]):
+        super().__init__()
+        with torch.device("meta"):  # no draw from the global RNG
+            conv = nn.Conv2d(1, 1, (conv_size, 1),
+                             padding=(conv_size // 2, 0))
+        self.conv2d = conv.to_empty(device="cpu")
+        with torch.no_grad():
+            nn.init.kaiming_normal_(self.conv2d.weight, generator=generator)
+            bound = 1.0 / math.sqrt(conv_size)
+            self.conv2d.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.conv2d
+        y = cudnn_f32(lambda t: F.conv2d(t, conv.weight, conv.bias,
+                                         padding=conv.padding),
+                      x[:, None], (conv.weight, conv.bias))
+        return y[:, 0]

@@ -1,13 +1,22 @@
-"""The TA3N video domain-adaptation model, video baseline.
+"""The TA3N video domain-adaptation model.
 
 Port of `ta3n_tpu/models/video_model.py:130-391` (reference VideoModel,
-models.py:58-722) for the video baseline: one to three shared FC layers,
-shared or per-domain parameters (``share_params``), AdaBN/AutoDIAL
-alignment after the first shared layer, frame-level TransAttn or general
-attention, avgpool, single-scale TRN or multi-scale TRN aggregation with
-TransAttn, general or no relation attention, softmax outputs, and MCD's
-second video classifier, in float32.  The other configuration values
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+models.py:58-722): the video, frame and tsn baselines; one to three
+shared FC layers, shared or per-domain parameters (``share_params``),
+AdaBN/AutoDIAL alignment after the first shared layer, frame-level
+TransAttn or general attention; avgpool, RNN (`models/rnn.py`), temconv,
+single-scale TRN or multi-scale TRN aggregation with TransAttn, general or
+no relation attention; softmax outputs and MCD's second video classifier,
+in float32.  int8 and bf16 raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
+
+The frame baseline's output ``out`` is the frame classifier's logits
+[B, S, C]; the tsn baseline's is their mean over the segments [B, C]; the
+video baseline's is the video classifier's [B, C].  ``feat`` is the
+reference's reversed ``feat_all``: the video baseline's
+(video logits, video feature, shared layers last to first), the frame
+baseline's (frame logits [B, S, C], shared layers), the tsn baseline's
+(shared layers).
 
 As in the JAX package the two streams run as one batch (source videos
 first) and are split at the end; the outputs are two `StreamOutput`s with
@@ -26,8 +35,10 @@ import torch
 from torch import nn
 
 from ta3n_tpu_torch.config import ModelConfig
-from ta3n_tpu_torch.models.layers import (GeneralAttn, MaskedBatchNorm,
-                                          linear, trans_attn_weights)
+from ta3n_tpu_torch.models.layers import (TCL, GeneralAttn,
+                                          MaskedBatchNorm, linear,
+                                          trans_attn_weights)
+from ta3n_tpu_torch.models.rnn import build_rnn, rnn_aggregate
 from ta3n_tpu_torch.models.trn import (RelationModule,
                                        RelationModuleMultiScale)
 from ta3n_tpu_torch.ops.grl import grad_reverse
@@ -37,9 +48,6 @@ __all__ = ["VideoModel", "StreamOutput"]
 # field -> (the values the port runs, the ROADMAP.md queue-1 item porting
 # the others)
 _PORTED = {
-    "baseline_type": (("video",), "6: the frame and tsn baselines"),
-    "frame_aggregation": (("avgpool", "trn", "trn-m"),
-                          "6: rnn and temconv aggregation"),
     "quantize": (("none",), "10: int8 inference"),
     "compute_dtype": (("float32",), "8: the bf16 compute path"),
     "param_dtype": (("float32",), "8: the bf16 compute path"),
@@ -81,8 +89,8 @@ def _dropout(x: torch.Tensor, p: float, training: bool,
 class StreamOutput(NamedTuple):
     """Per-domain forward outputs, as `ta3n_tpu.models.StreamOutput`."""
 
-    attn: torch.Tensor                      # [B, R] (TRN) or [B] (avgpool)
-    out: torch.Tensor                       # logits [B, C]
+    attn: torch.Tensor                      # [B, R] (TRN) or [B] (others)
+    out: torch.Tensor                       # logits [B, C] ([B, S, C]: frame)
     out_2: torch.Tensor                     # MCD's second classifier (or out)
     pred_domain: Tuple[torch.Tensor, ...]   # relation, video, frame
     feat: Tuple[torch.Tensor, ...]          # reversed feat_all
@@ -156,6 +164,19 @@ class VideoModel(nn.Module):
                 for _ in range(num_relation))
             if cfg.use_attn == "general":
                 self.attn_layer = GeneralAttn(d_agg, g)
+        if cfg.frame_aggregation == "rnn":
+            self.rnn = build_rnn(cfg, g)
+            # cuDNN's fast path wants the weights in one buffer: .to()
+            # flattens them (RNNBase._apply), and so does every load
+            self.register_load_state_dict_post_hook(
+                lambda module, _: module.rnn.flatten_parameters())
+        elif cfg.frame_aggregation == "temconv":
+            # the first TCL and its BN pair (models.py:228-233); the rest
+            # of the reference's temconv modules never run in its forward
+            self.tcl_3_1 = TCL(3, g)
+            if cfg.use_bn != "none":
+                self.bn_1_S = MaskedBatchNorm(d_sh)
+                self.bn_1_T = MaskedBatchNorm(d_sh)
         dual("fc_classifier_video", d_agg, cfg.num_class)
         if cfg.ens_DA == "MCD":
             for dom in domains:
@@ -230,11 +251,12 @@ class VideoModel(nn.Module):
                                    is_train, reverse, generator,
                                    mask_source, mask_target)
 
-    def _domain_align(self, x: torch.Tensor, is_train: bool, bs: int,
-                      bt: int, rows_per_video: int,
+    def _domain_align(self, x: torch.Tensor, bn_name: str, is_train: bool,
+                      bs: int, bt: int, rows_per_video: int,
                       mask_s: Optional[torch.Tensor],
                       mask_t: Optional[torch.Tensor]) -> torch.Tensor:
-        """AdaBN / AutoDIAL: each row normalised by BN_S or BN_T, each BN's
+        """AdaBN / AutoDIAL at the BN pair ``{bn_name}_S`` /
+        ``{bn_name}_T``: each row normalised by BN_S or BN_T, each BN's
         statistics over the rows routed to it (`ta3n_tpu/models/
         video_model.py::_domain_align`, reference domainAlign,
         models.py:490-543, with the JAX package's two documented fixes).
@@ -267,9 +289,25 @@ class VideoModel(nn.Module):
             valid = torch.cat([mask_s, mask_t]).to(x.dtype) \
                 .repeat_interleave(rows_per_video)
             w_s, w_t = w_s * valid, w_t * valid
-        y_s = self.bn_shared_S(x, w_s, use_running_average=not is_train)
-        y_t = self.bn_shared_T(x, w_t, use_running_average=not is_train)
+        bn_s = getattr(self, f"{bn_name}_S")
+        bn_t = getattr(self, f"{bn_name}_T")
+        y_s = bn_s(x, w_s, use_running_average=not is_train)
+        y_t = bn_t(x, w_t, use_running_average=not is_train)
         return torch.where(w_s[:, None] > 0, y_s, y_t)
+
+    def temconv_pre(self, feat_seg: torch.Tensor, is_train: bool, bs: int,
+                    bt: int, mask_s: Optional[torch.Tensor],
+                    mask_t: Optional[torch.Tensor]) -> torch.Tensor:
+        """temconv's frame rows before their relu [B, S, D]: the first TCL
+        over the segments, then, under AdaBN/AutoDIAL, the bn_1 pair's
+        alignment with per-row statistic weights repeated per frame
+        (models.py:654-663)."""
+        b, s = feat_seg.shape[:2]
+        x = self.tcl_3_1(feat_seg)
+        if self.cfg.use_bn != "none":
+            x = self._domain_align(x.reshape(b * s, -1), "bn_1", is_train,
+                                   bs, bt, s, mask_s, mask_t)
+        return x.reshape(b, s, -1)
 
     def forward_shared(self, pre: torch.Tensor, bs: int, bt: int, beta, mu,
                        is_train: bool = True, reverse: bool = False,
@@ -299,8 +337,9 @@ class VideoModel(nn.Module):
             if li > 0:
                 f = self._dual(f"fc_feature_shared_{li + 1}", f, n_src_rows)
             elif cfg.use_bn != "none":
-                f = self._domain_align(f, is_train, bs, bt, num_segments,
-                                       mask_source, mask_target)
+                f = self._domain_align(f, "bn_shared", is_train, bs, bt,
+                                       num_segments, mask_source,
+                                       mask_target)
             f = torch.relu(f)
             f = _dropout(f, cfg.dropout_i, is_train, generator)
             feat_all.append(f.reshape(b_all, num_segments, -1))
@@ -322,14 +361,27 @@ class VideoModel(nn.Module):
 
         # the frame classifier (models.py:616-621) feeds only the frame and
         # tsn baselines: the video baseline never reads it
+        video = cfg.baseline_type == "video"
+        if not video:
+            pred_frame = self._dual("fc_classifier", f, n_src_rows) \
+                .reshape(b_all, num_segments, -1)
+            if cfg.baseline_type == "frame":
+                feat_all.append(pred_frame)
 
-        # aggregation: frames -> video (models.py:623-651)
+        # aggregation: frames -> video (models.py:623-672)
         feat_seg = f.reshape(b_all, num_segments, -1)
-        if cfg.frame_aggregation == "avgpool":
-            if cfg.use_attn == "TransAttn":  # models.py:427-430
-                w = trans_attn_weights(pred_domain_frame_3d)
-                feat_seg = (w[..., None] + 1) * feat_seg
-            feat_video = feat_seg.mean(dim=1)
+        if cfg.frame_aggregation in ("avgpool", "rnn", "temconv"):
+            if cfg.frame_aggregation == "rnn":
+                feat_video = rnn_aggregate(self.rnn, feat_seg, cfg.n_ts)
+            elif cfg.frame_aggregation == "temconv":
+                feat_video = torch.relu(self.temconv_pre(
+                    feat_seg, is_train, bs, bt, mask_source,
+                    mask_target)).mean(dim=1)
+            else:
+                if cfg.use_attn == "TransAttn":  # models.py:427-430
+                    w = trans_attn_weights(pred_domain_frame_3d)
+                    feat_seg = (w[..., None] + 1) * feat_seg
+                feat_video = feat_seg.mean(dim=1)
             attn = feat_video[:, 0]  # the reference's junk value
             pred_domain_relation = None
         else:
@@ -349,15 +401,17 @@ class VideoModel(nn.Module):
             else:
                 attn = rel[:, :, 0]
             feat_video = rel.sum(dim=1)
-        feat_all.append(feat_video)
+        if video:
+            feat_all.append(feat_video)
 
         # video-level classifier (models.py:678-691)
         feat_video = _dropout(feat_video, cfg.dropout_v, is_train,
                               generator)
         if reverse:
             feat_video = grad_reverse(feat_video, mu)  # MCD step 2
-        pred_video = self._dual("fc_classifier_video", feat_video, bs)
-        feat_all.append(pred_video)
+        if video:
+            pred_video = self._dual("fc_classifier_video", feat_video, bs)
+            feat_all.append(pred_video)
 
         # video-level adversarial branch (models.py:693-698)
         hv = grad_reverse(feat_video, beta[1])
@@ -368,15 +422,22 @@ class VideoModel(nn.Module):
             # (models.py:705-707)
             pred_domain_relation = pred_domain_video
 
-        # outputs (models.py:437-454, 709-720)
+        # outputs (models.py:437-454, 709-720): the frame logits keep
+        # their segment axis, as in the JAX package
         def final(logits):
             return logits if cfg.before_softmax else torch.softmax(logits,
                                                                    dim=-1)
 
-        out = final(pred_video)
-        out_2 = (final(self._dual("fc_classifier_video", feat_video, bs,
-                                  suffix="_2"))
-                 if cfg.ens_DA == "MCD" else out)
+        if video:
+            out = final(pred_video)
+            out_2 = (final(self._dual("fc_classifier_video", feat_video,
+                                      bs, suffix="_2"))
+                     if cfg.ens_DA == "MCD" else out)
+        else:
+            # MCD's second output is the frame classifier's as well
+            out = out_2 = final(pred_frame.mean(dim=1)
+                                if cfg.baseline_type == "tsn"
+                                else pred_frame)
 
         # split the fused batch back into the two streams
         pred_domain = (pred_domain_relation, pred_domain_video,

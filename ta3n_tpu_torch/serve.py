@@ -18,7 +18,8 @@ The JAX predictor feeds every chunk as both streams and keeps the target
 half; every row is independent in eval (dropout off, BN on its running
 statistics), so the port feeds it once, as the target stream with an
 empty source stream (under share_params N the target layers, as the JAX
-target half).
+target half).  The frame baseline's frame logits are averaged over the
+segments, as in the JAX predictor.
 
 AOT export, sweep ensembles, ``mesh=`` data parallelism and int8 are not
 ported yet (ROADMAP.md queue 1, item 10).
@@ -36,6 +37,7 @@ import torch
 from ta3n_tpu_torch.config import ModelConfig
 from ta3n_tpu_torch.io_utils.convert import load_reference_checkpoint
 from ta3n_tpu_torch.models.video_model import VideoModel
+from ta3n_tpu_torch.train.step import video_logits
 
 __all__ = ["Predictor", "make_http_server", "run_http_server"]
 
@@ -85,7 +87,7 @@ class Predictor:
     def _predict(self, chunk: np.ndarray):
         x = torch.from_numpy(chunk).to(self.device)
         _, out = self.model(self._empty, x, self._beta, 0.0, False, False)
-        probs = torch.softmax(out.out, dim=-1)
+        probs = torch.softmax(video_logits(out.out), dim=-1)
         top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
         return probs.cpu().numpy(), top_p.cpu().numpy(), top_i.cpu().numpy()
 

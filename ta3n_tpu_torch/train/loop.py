@@ -4,16 +4,17 @@ Port of `ta3n_tpu/train/loop.py` (reference main.py:33-306 ``main()``,
 ``train()`` and ``validate()``) for one card: one optimizer step per call
 of the train step (`train/step.py`), fed from the host loaders or, with
 ``device_store``, by index batches into feature stores uploaded once
-(``FeatureStore.to_device``, ``TSNLoader.index_epoch``).  Per-step Python
-work is schedule arithmetic and meter updates; metrics stay on the device
-until the print-frequency flush, which fetches them in one copy.
+(``FeatureStore.to_device``, ``TSNLoader.index_epoch``).  With
+``pretrain_source`` a classification-only step runs on every batch before
+the train step (main.py:387-414).  Per-step Python work is schedule
+arithmetic and meter updates; metrics stay on the device until the
+print-frequency flush, which fetches them in one copy.
 
 What the JAX Trainer runs and the port does not yet raises
 ``NotImplementedError`` naming its ROADMAP.md item: several steps per call
 (queue 1, item 4), gradient accumulation and narrow stores (item 8),
 shard streaming, the device sampler and more than one device (item 9),
-``pretrain_source`` (item 6), tensorboard and the profiler window
-(item 5).
+tensorboard and the profiler window (item 5).
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ from ta3n_tpu_torch.train.step import (StepScalars, TrainState,
 __all__ = ["Trainer", "TrainingDivergedError", "build_loaders",
            "class_weights_from_list"]
 
-_METRICS = ("loss", "loss_c", "loss_a", "loss_e", "loss_s", "top1",
-            "top5", "n")
+_METRICS = ("loss", "loss_c", "loss_d", "loss_a", "loss_e", "loss_s",
+            "top1", "top5", "n")
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -152,7 +153,8 @@ class Trainer:
 
     The model's initial weights come from a CPU generator seeded from
     ``seed``, the dropout masks from a generator on ``device`` seeded from
-    ``seed``.  Without the JAX Trainer's ``use_mesh`` and
+    ``seed`` (those of ``pretrain_source``'s step from one seeded from
+    ``seed + 7919``, as the JAX Trainer's key).  Without the JAX Trainer's ``use_mesh`` and
     ``prefetch_depth``: one device, and no prefetch thread."""
 
     def __init__(self, model_cfg: ModelConfig, da_cfg: DAConfig,
@@ -189,7 +191,6 @@ class Trainer:
                 (model_parallel > 1, "model_parallel > 1", "9"),
                 (num_devices is not None and num_devices > 1,
                  "num_devices > 1", "9"),
-                (da_cfg.pretrain_source, "pretrain_source", "6"),
                 (tensorboard_dir is not None, "tensorboard", "5"),
                 (profile_dir is not None, "profile_dir", "5")):
             if on:
@@ -225,6 +226,17 @@ class Trainer:
         self.train_step = make_train_step(
             model, da_cfg, train_cfg, class_weights, domain_weights,
             gather_on_device=device_store, return_aux=save_attention >= 0)
+        # --pretrain_source: a classification-only step before each train
+        # step on the same batch (main.py:387-414): two updates a batch,
+        # one momentum buffer and lr
+        self.pretrain_step = None
+        if da_cfg.pretrain_source:
+            self.pretrain_step = make_train_step(
+                model, da_cfg, train_cfg, class_weights, domain_weights,
+                gather_on_device=device_store,
+                pretrain_classification_only=True)
+            self.pretrain_generator = torch.Generator(
+                self.device).manual_seed(seed + 7919)
         self.eval_step = make_eval_step(model, class_weights,
                                         gather_on_device=device_store)
         if device_store:
@@ -336,7 +348,7 @@ class Trainer:
                 # weighted by batch size like the reference (main.py:569)
                 meters["loss"].update(m["loss"], n)
                 meters["loss_c"].update(m["loss_c"], n)
-                for key in ("loss_a", "loss_e", "loss_s"):
+                for key in ("loss_d", "loss_a", "loss_e", "loss_s"):
                     if key in m:
                         meters[key].update(m[key], n)
                 meters["top1"].update(100.0 * m["top1"] / max(n, 1), n)
@@ -359,12 +371,17 @@ class Trainer:
             else:
                 args = (bs.features, bs.labels, bs.mask,
                         bt.features, bt.labels, bt.mask)
+            if self.pretrain_step is not None:
+                self.state, _ = self.pretrain_step(
+                    self.state, *args, scalars, self.pretrain_generator)
             self.state, m = self.train_step(self.state, *args, scalars,
                                             self.generator)
             if self.save_attention >= 0:
-                # attention rows of the selected class (main.py:623-628)
-                a_s = m.pop("attn_s").cpu().numpy()
-                a_t = m.pop("attn_t").cpu().numpy()
+                # attention rows of the selected class (main.py:623-628);
+                # a value per video without relations (avgpool, rnn,
+                # temconv)
+                a_s = m.pop("attn_s").cpu().numpy().reshape(len(bs.mask), -1)
+                a_t = m.pop("attn_t").cpu().numpy().reshape(len(bt.mask), -1)
                 sel_s = (bs.labels == self.save_attention) & (bs.mask > 0)
                 sel_t = (bt.labels == self.save_attention) & (bt.mask > 0)
                 attn_src_epoch.append(a_s[sel_s])

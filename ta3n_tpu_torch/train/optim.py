@@ -10,10 +10,16 @@ step's lr written into its ``param_groups``.
 
 Gradient reachability needs no mask here.  The train step clears the
 gradients with ``zero_grad(set_to_none=True)``, so a parameter that
-backprop never reaches keeps ``grad=None``; clipping and SGD skip it (no
-weight decay, no momentum), which is what the JAX package imitates with
-``structural_participation`` (`optim.py:29`).  ``FlatOptimizer``, a TPU
-dispatch workaround, is not ported (ROADMAP.md queue 1, item 11).
+backprop does not reach in a step has ``grad=None``; clipping and SGD
+skip it (no weight decay), which is what the JAX package imitates with
+``structural_participation`` (`optim.py:29`).  One difference remains,
+and ``optimizer_step`` closes it: the JAX chain still runs the momentum
+of such a parameter on a zero gradient, so a parameter that an earlier
+step reached coasts on its momentum buffer.  That happens where steps of
+two kinds alternate (``--pretrain_source``'s classification-only step
+before each train step); where every step reaches the same parameters it
+never does.  ``FlatOptimizer``, a TPU dispatch workaround, is not ported
+(ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -43,11 +49,23 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
 def optimizer_step(optimizer: torch.optim.Optimizer, lr: float,
                    clip_gradient: Optional[float]) -> None:
     """Clip the global gradient norm to ``clip_gradient`` (None: no clip),
-    then take one step at learning rate ``lr``."""
+    then take one step at learning rate ``lr``.  A parameter without a
+    gradient that has a momentum buffer moves on it as on a zero gradient
+    without weight decay, as in the JAX optax chain: buf = m * buf, then
+    p -= lr * m * buf (Nesterov)."""
     if clip_gradient is not None:
         torch.nn.utils.clip_grad_norm_(
             [p for group in optimizer.param_groups for p in group["params"]],
             clip_gradient)
+    coasting = []
     for group in optimizer.param_groups:
         group["lr"] = lr
+        for p in group["params"]:
+            buf = optimizer.state.get(p, {}).get("momentum_buffer")
+            if p.grad is None and buf is not None:
+                coasting.append((p, buf, group["momentum"]))
     optimizer.step()
+    with torch.no_grad():
+        for p, buf, m in coasting:
+            buf.mul_(m)
+            p.add_(buf, alpha=-lr * m)

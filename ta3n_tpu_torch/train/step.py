@@ -1,14 +1,15 @@
 """The train step (one forward of both streams, the TA3N losses, backward
 and one optimizer update) and the validation steps.
 
-Port of `ta3n_tpu/train/step.py:175-289, 413-766, 1064-1168` (reference
+Port of `ta3n_tpu/train/step.py:175-389, 413-766, 1064-1168` (reference
 main.py:348-628 loss assembly, backward and optimizer, and validate(),
 main.py:669-761): the classification loss on the source stream (uSv) or
-on both (Sv), RevGrad adversarial losses at the layers that ``place_adv``
-marks, target entropy or attentive entropy with its layer-pick rule, the
-'uncertainty' logit scaling of ``pred_normalize``, and MCD's second
-forward with its discrepancy.  The other ``DAConfig`` values raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+on both (Sv), per frame for the frame baseline; the discrepancy losses
+DAN, JAN and CORAL at the layers that ``place_dis`` marks; RevGrad
+adversarial losses at the layers that ``place_adv`` marks; target entropy
+or attentive entropy with its layer-pick rule; the 'uncertainty' logit
+scaling of ``pred_normalize``; MCD's second forward with its discrepancy;
+and ``pretrain_source``'s classification-only step.
 
 Padded videos are masked, not removed: ``mask_s`` and ``mask_t`` weight
 every loss and keep the padded videos out of the BN statistics, as in the
@@ -39,8 +40,9 @@ import numpy as np
 import torch
 
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
-from ta3n_tpu_torch.losses import (attentive_entropy, cross_entropy_soft,
-                                   dis_MCD, weighted_cross_entropy)
+from ta3n_tpu_torch.losses import (CORAL, JAN, attentive_entropy,
+                                   cross_entropy_soft, dis_MCD, mmd_rbf,
+                                   weighted_cross_entropy)
 from ta3n_tpu_torch.models.video_model import StreamOutput, VideoModel
 from ta3n_tpu_torch.ops.gather_gemm import (RowIndex, gathered_gemm,
                                             gathered_linear, row_index)
@@ -48,7 +50,8 @@ from ta3n_tpu_torch.train.optim import make_optimizer, optimizer_step
 
 __all__ = ["TrainState", "StepScalars", "create_train_state",
            "make_train_step", "make_eval_step", "make_multi_eval_step",
-           "make_infer_step", "device_gather", "topk_correct"]
+           "make_infer_step", "device_gather", "topk_correct",
+           "video_logits"]
 
 
 class TrainState(NamedTuple):
@@ -70,24 +73,6 @@ class StepScalars(NamedTuple):
     lr: float
 
 
-# DAConfig field -> (the values the port runs, the ROADMAP.md queue-1 item
-# porting the others)
-_DA_PORTED = {
-    "dis_DA": (("none",), "7: the discrepancy losses DAN, JAN and CORAL"),
-    "pretrain_source": ((False,), "6: --pretrain_source"),
-}
-
-
-def _check_da(da: DAConfig) -> None:
-    for field, (ported, item) in _DA_PORTED.items():
-        got = getattr(da, field)
-        if got not in ported:
-            raise NotImplementedError(
-                f"DAConfig.{field}={got!r} is not ported yet; the port runs "
-                f"{' or '.join(map(repr, ported))} (ROADMAP.md queue 1, "
-                f"item {item})")
-
-
 def create_train_state(cfg: ModelConfig, train_cfg: TrainConfig,
                        generator: Optional[torch.Generator] = None,
                        device="cuda") -> TrainState:
@@ -105,6 +90,18 @@ def topk_correct(logits: torch.Tensor, labels: torch.Tensor,
     top = torch.topk(logits, k, dim=-1).indices
     hit = (top == labels[:, None]).any(dim=-1).to(mask.dtype)
     return (hit * mask).sum()
+
+
+def _flatten_out(out: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor):
+    """The frame baseline's logits [B, S, C] as rows [B*S, C], with the
+    labels and the video mask repeated per frame (main.py:380-385); other
+    logits as they are."""
+    if out.dim() == 3:
+        s = out.shape[1]
+        return (out.reshape(-1, out.shape[-1]), labels.repeat_interleave(s),
+                mask.repeat_interleave(s))
+    return out, labels, mask
 
 
 def _rows(p: torch.Tensor, m: torch.Tensor):
@@ -174,6 +171,73 @@ def _entropy_domain(selected, out_s, out_t, mask_s, mask_t, rows: int):
     return torch.cat([ps, pt]), torch.cat([ms, mt])
 
 
+# rows per sub-batch of DAN and CORAL: the reference's size_batch
+# (main.py:488)
+_DIS_CHUNK_ROWS = 256
+
+
+def _discrepancy_loss(feat_s, feat_t, da: DAConfig, add_fc: int,
+                      n_pair: int, mask_s: torch.Tensor,
+                      mask_t: torch.Tensor) -> torch.Tensor:
+    """DAN / JAN / CORAL at the layers of ``feat`` (the reversed
+    feat_all) that ``da.place_dis`` marks (main.py:454-505;
+    `ta3n_tpu/train/step.py::_discrepancy_loss`, with its documented
+    divergences).
+
+    The first ``n_pair`` videos of each stream pair up, each video's
+    features flattened to one row (the shared layers' [B, S, d] too, where
+    the reference crashes).  DAN and CORAL average over sub-batches of
+    _DIS_CHUNK_ROWS rows, the last one smaller where the rows do not
+    divide; a sub-batch counts only if it holds a valid source and a valid
+    target row, so an all-padded trailing one adds nothing.  JAN takes
+    every layer but the shared ones, in one batch (main.py:462-471).  The
+    masks keep padded videos out of every bandwidth, kernel mean and
+    covariance."""
+    kernel_muls, kernel_nums = [2.0, 2.0], [2, 5]
+    ms, mt = mask_s[:n_pair], mask_t[:n_pair]
+
+    def flat(x):
+        return x[:n_pair].reshape(n_pair, -1)
+
+    if da.dis_DA == "JAN":
+        fs = [flat(f) for f in feat_s[:-add_fc]]
+        ft = [flat(f) for f in feat_t[:-add_fc]]
+        if not fs:
+            raise ValueError(
+                "JAN requires frame- or video-level features; "
+                "baseline_type 'tsn' provides none beyond the shared "
+                "layers (the reference crashes on this config too)")
+        return JAN(fs, ft, kernel_muls, kernel_nums, [None, None], 2, ms, mt)
+
+    def chunked_mean(fn, fs, ft):
+        size = min(_DIS_CHUNK_ROWS, fs.shape[0])
+        losses, weights = [], []
+        for i in range(0, fs.shape[0], size):
+            cs, ct = ms[i:i + size], mt[i:i + size]
+            losses.append(fn(fs[i:i + size], ft[i:i + size], cs, ct))
+            weights.append(((cs.sum() > 0) & (ct.sum() > 0)).to(fs.dtype))
+        w = torch.stack(weights)
+        return (torch.stack(losses) * w).sum() / w.sum().clamp(min=1.0)
+
+    if da.dis_DA not in ("DAN", "CORAL"):
+        raise ValueError(f"unknown dis_DA {da.dis_DA}")
+    muls = kernel_muls + [kernel_muls[-1]] * add_fc
+    nums = kernel_nums + [kernel_nums[-1]] * add_fc
+    loss = 0.0
+    for layer in range(min(add_fc + 2, len(da.place_dis), len(feat_s))):
+        if da.place_dis[layer] != "Y":
+            continue
+        fs, ft = flat(feat_s[layer]), flat(feat_t[layer])
+        if da.dis_DA == "CORAL":
+            loss = loss + chunked_mean(CORAL, fs, ft)
+        else:
+            loss = loss + chunked_mean(
+                lambda a, b, wa, wb, layer=layer: mmd_rbf(
+                    a, b, muls[layer], nums[layer], None, 2, wa, wb),
+                fs, ft)
+    return torch.as_tensor(loss, dtype=torch.float32, device=ms.device)
+
+
 def _as(t, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(t).to(device=device, dtype=dtype)
 
@@ -209,7 +273,8 @@ def _store_part(store: torch.Tensor, idx, mask: torch.Tensor):
 
 def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
                     class_weights=None, domain_weights=None,
-                    gather_on_device: bool = False, return_aux: bool = False):
+                    gather_on_device: bool = False, return_aux: bool = False,
+                    pretrain_classification_only: bool = False):
     """Build the train step for ``model``'s configuration, on the model's
     device.
 
@@ -221,9 +286,16 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
     device), ``scalars`` a `StepScalars`, ``generator`` a torch.Generator on
     the model's device for the dropout masks.  The step updates
     ``state.model`` in place and returns the state with ``step + 1`` and
-    the metrics loss_c, loss_a, loss_e, loss_s (where the configuration
-    has them), loss, top1, top5 and n, as 0-d tensors; with ``return_aux``
-    also the attention values attn_s and attn_t (main.py:623-628).
+    the metrics loss_c, loss_d, loss_a, loss_e, loss_s (where the
+    configuration has them), loss, top1, top5 and n, as 0-d tensors; with
+    ``return_aux`` also the attention values attn_s and attn_t
+    (main.py:623-628).  The frame baseline's loss_c, top1, top5 and n are
+    over frames.
+
+    With ``pretrain_classification_only`` the step trains the
+    classification loss alone (and reports loss_c, loss, top1, top5, n):
+    ``--pretrain_source``'s extra step, which the Trainer runs before the
+    train step on every batch (main.py:387-414).
 
     With ``gather_on_device=True`` the features stay on the device
     (`FeatureStore.to_device`) and only index batches cross from the host:
@@ -242,7 +314,6 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
         raise ValueError(
             f"ModelConfig.quantize={cfg.quantize!r} is inference-only "
             "(eval CLI / serve.Predictor); train with quantize='none'")
-    _check_da(da)
     use_tgt = da.use_target != "none"
     mcd = da.ens_DA == "MCD" and use_tgt
     if mcd and cfg.ens_DA != "MCD":
@@ -251,6 +322,14 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
         raise ValueError("DAConfig.ens_DA='MCD' requires "
                          "ModelConfig.ens_DA='MCD' (the second video "
                          "classifier lives in the model)")
+    if da.dis_DA == "JAN" and use_tgt and cfg.baseline_type == "tsn":
+        # tsn exposes only shared-layer features, which JAN ignores
+        # (main.py:463-465): the reference crashes on an empty list
+        raise ValueError(
+            "dis_DA='JAN' is incompatible with baseline_type='tsn': JAN "
+            "ignores shared-layer features and tsn provides no others "
+            "(the reference crashes on this config, loss.py:86)")
+    discrepancy = da.dis_DA != "none" and use_tgt
     adversarial = da.adv_DA != "none" and use_tgt
     target_entropy = da.add_loss_DA == "target_entropy" and use_tgt
     entropy = (da.add_loss_DA == "attentive_entropy"
@@ -272,25 +351,36 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
                                           mask_t)
         metrics: Dict[str, torch.Tensor] = {}
 
-        # (1) classification loss (main.py:424-451): pred_normalize scales
-        # both streams' logits once, and the scaled ones feed Sv and the
-        # entropy losses below
-        o_s, o_t = out_s.out, out_t.out
+        # (1) classification loss (main.py:424-451), per frame for the
+        # frame baseline: pred_normalize scales both streams' logits once,
+        # and the scaled ones feed Sv and the entropy losses below
+        o_s, ys_r, ms_r = _flatten_out(out_s.out, ys, mask_s)
+        o_t, yt_r, mt_r = _flatten_out(out_t.out, yt, mask_t)
         if normalize:
-            o_s = _masked_var_log_scale(o_s, mask_s)
-            o_t = _masked_var_log_scale(o_t, mask_t)
+            o_s = _masked_var_log_scale(o_s, ms_r)
+            o_t = _masked_var_log_scale(o_t, mt_r)
         if da.use_target == "Sv":
-            o, lab, m = (torch.cat([o_s, o_t]), torch.cat([ys, yt]),
-                         torch.cat([mask_s, mask_t]))
+            o, lab, m = (torch.cat([o_s, o_t]), torch.cat([ys_r, yt_r]),
+                         torch.cat([ms_r, mt_r]))
         else:
-            o, lab, m = o_s, ys, mask_s
+            o, lab, m = o_s, ys_r, ms_r
         loss = weighted_cross_entropy(o, lab, class_weights, m)
         if mcd:  # the second classifier's, unscaled
-            loss = loss + weighted_cross_entropy(out_s.out_2, ys,
-                                                 class_weights, mask_s)
+            o2, y2, m2 = _flatten_out(out_s.out_2, ys, mask_s)
+            loss = loss + weighted_cross_entropy(o2, y2, class_weights, m2)
         metrics["loss_c"] = loss
 
-        # (2) adversarial loss (main.py:507-538)
+        if pretrain_classification_only:
+            return loss, finish(metrics, loss, o, lab, m, out_s, out_t)
+
+        # (2) discrepancy loss (main.py:454-505)
+        if discrepancy:
+            loss_d = metrics["loss_d"] = _discrepancy_loss(
+                out_s.feat, out_t.feat, da, cfg.add_fc, min(bs, bt), mask_s,
+                mask_t)
+            loss = loss + scalars.alpha * loss_d
+
+        # (3) adversarial loss (main.py:507-538)
         selected = []
         if adversarial:
             loss_a, selected = _domain_adversarial_loss(
@@ -299,37 +389,42 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
             metrics["loss_a"] = loss_a
             loss = loss + loss_a
 
-        # (3) target entropy (main.py:541-545) or attentive entropy
+        # (4) target entropy (main.py:541-545) or attentive entropy
         # (main.py:558-562)
         if target_entropy:
-            loss_e = metrics["loss_e"] = cross_entropy_soft(o_t, mask_t)
+            loss_e = metrics["loss_e"] = cross_entropy_soft(o_t, mt_r)
             loss = loss + scalars.gamma * loss_e
         elif entropy:
             pred_all = torch.cat([o_s, o_t])
-            m_all = torch.cat([mask_s, mask_t])
+            m_all = torch.cat([ms_r, mt_r])
             dom_logits, dom_m = _entropy_domain(
                 selected, out_s, out_t, mask_s, mask_t, pred_all.shape[0])
             loss_e = attentive_entropy(pred_all, dom_logits, m_all * dom_m)
             metrics["loss_e"] = loss_e
             loss = loss + scalars.gamma * loss_e
 
-        # (4) MCD: a second forward with GRL(mu) on the video feature and
+        # (5) MCD: a second forward with GRL(mu) on the video feature and
         # its own dropout masks; the discrepancy of its two target-stream
         # classifiers, maximised (main.py:547-556, models.py:682-684)
         if mcd:
             _, out_t_rev = net.forward_shared(*fwd, True, generator, mask_s,
                                               mask_t)
-            loss_s = metrics["loss_s"] = -dis_MCD(out_t_rev.out,
-                                                  out_t_rev.out_2, mask_t)
+            o1, _, m1 = _flatten_out(out_t_rev.out, yt, mask_t)
+            o2 = _flatten_out(out_t_rev.out_2, yt, mask_t)[0]
+            loss_s = metrics["loss_s"] = -dis_MCD(o1, o2, m1)
             loss = loss + loss_s
 
+        return loss, finish(metrics, loss, o, lab, m, out_s, out_t)
+
+    def finish(metrics, loss, o, lab, m, out_s, out_t):
+        """The loss and accuracy metrics (main.py:564-571)."""
         metrics["loss"] = loss
         metrics["top1"] = topk_correct(o, lab, m, 1)
         metrics["top5"] = topk_correct(o, lab, m, 5)
         metrics["n"] = m.sum()
         if return_aux:
             metrics["attn_s"], metrics["attn_t"] = out_s.attn, out_t.attn
-        return loss, metrics
+        return metrics
 
     f32, i64 = torch.float32, torch.long
 
@@ -373,12 +468,21 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
 _EVAL_BETA = (0.0, 0.0, 0.0)
 
 
+def video_logits(out: torch.Tensor) -> torch.Tensor:
+    """A model output as video-level logits: the frame baseline's [B, S, C]
+    averaged over the segments (the JAX eval CLI and Predictor,
+    `ta3n_tpu/cli/test_models.py:165-166`, `ta3n_tpu/serve.py:91`)."""
+    return out.mean(dim=1) if out.dim() == 3 else out
+
+
 def _eval_metrics(out: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
                   class_weights: Optional[torch.Tensor]):
-    """(loss, top1, top5, n) of one val batch (main.py:669-761)."""
+    """(logits, loss, top1, top5, n) of one val batch (main.py:669-761);
+    the frame baseline's over frames, its logits as rows [B*S, C]."""
+    out, y, mask = _flatten_out(out, y, mask)
     loss = weighted_cross_entropy(out, y, class_weights, mask)
-    return (loss, topk_correct(out, y, mask, 1), topk_correct(out, y, mask, 5),
-            mask.sum())
+    return (out, loss, topk_correct(out, y, mask, 1),
+            topk_correct(out, y, mask, 5), mask.sum())
 
 
 def _eval_gathered(model: VideoModel, part, b: int) -> StreamOutput:
@@ -406,8 +510,10 @@ def make_eval_step(model: VideoModel, class_weights=None,
     or, with ``gather_on_device=True``, ev(store, idx, y, mask): x is then
     gathered from ``store`` on the device by the index batch idx [B, T]
     (on CUDA the K3 kernel, without the gathered rows).  Metrics: loss,
-    top1, top5 and n as 0-d tensors, the logits [B, C] and feat, the
-    video-level feature [B, H] (main.py:430).  The JAX step feeds the
+    top1, top5 and n as 0-d tensors, the logits [B, C] (the frame
+    baseline's per frame, [B*S, C], as its loss and counts) and feat, the
+    video-level feature [B, H] (main.py:430; the tsn baseline's only
+    feature, that of the shared layer).  The JAX step feeds the
     batch as both streams and reads the target side; in eval every row is
     independent (BN normalises with its running statistics), so the
     target side of x alone is the same function, and the port runs x
@@ -418,9 +524,11 @@ def make_eval_step(model: VideoModel, class_weights=None,
         class_weights = _as(class_weights, device, torch.float32)
 
     def metrics(out: StreamOutput, y, mask):
-        loss, top1, top5, n = _eval_metrics(out.out, y, mask, class_weights)
+        logits, loss, top1, top5, n = _eval_metrics(out.out, y, mask,
+                                                    class_weights)
         return {"loss": loss, "top1": top1, "top5": top5, "n": n,
-                "logits": out.out, "feat": out.feat[1]}
+                "logits": logits,
+                "feat": out.feat[min(1, len(out.feat) - 1)]}
 
     @torch.inference_mode()
     def ev(x, y, mask):
@@ -478,8 +586,8 @@ def make_multi_eval_step(model: VideoModel, class_weights=None):
         sums = torch.zeros(4, device=device)
         for i, part in enumerate(_stacked_parts(store, idx, mask)):
             out = _eval_gathered(model, part, mask.shape[1])
-            loss, top1, top5, n = _eval_metrics(out.out, ys[i], mask[i],
-                                                class_weights)
+            _, loss, top1, top5, n = _eval_metrics(out.out, ys[i], mask[i],
+                                                   class_weights)
             sums += torch.stack([loss * n, top1, top5, n])
         return dict(zip(("loss_sum", "top1", "top5", "n"), sums.unbind()))
 
@@ -491,7 +599,8 @@ def make_infer_step(model: VideoModel, top_k: int,
     """Inference of the eval CLI, on the model's device, under
     ``torch.inference_mode()`` (the counterpart of the JAX CLI's ``_infer``
     and ``_infer_all``, `ta3n_tpu/cli/test_models.py:158-187`): softmax
-    probabilities of the video-level logits, their ``top_k`` (at most the
+    probabilities of the video-level logits (the frame baseline's frame
+    logits averaged over the segments), their ``top_k`` (at most the
     class count) and the attention values.
 
     Returned signature:
@@ -511,7 +620,7 @@ def make_infer_step(model: VideoModel, top_k: int,
     k = min(top_k, model.cfg.num_class)
 
     def head(out: StreamOutput):
-        probs = torch.softmax(out.out, dim=-1)
+        probs = torch.softmax(video_logits(out.out), dim=-1)
         top_p, top_i = torch.topk(probs, k, dim=-1)
         return probs, top_p, top_i, out.attn
 

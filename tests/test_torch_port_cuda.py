@@ -2,8 +2,10 @@
 forward, training forward and backward, and the fused gather + first-FC
 GEMM, also with a weight for each part) against their plain versions, and
 the flagship model's CUDA forward, backward, train steps (features from
-the host or from stores on the card) and eval steps, and the AdaBN and
-MCD device-store steps, against the CPU.
+the host or from stores on the card) and eval steps, the device-store
+steps of the comparison rows (AdaBN, MCD, DAN, JAN, CORAL, RNN, temconv,
+the frame and tsn baselines), against the CPU; and the TCL and the RNN
+in float32 on cuDNN with its TF32 flag at the default.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs where jax is not installed:
@@ -20,7 +22,8 @@ import torch
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.data import TSNLoader, make_domain_pair
 from ta3n_tpu_torch.models import VideoModel
-from ta3n_tpu_torch.models.layers import torch_default_uniform_
+from ta3n_tpu_torch.models.layers import TCL, torch_default_uniform_
+from ta3n_tpu_torch.models.rnn import build_rnn, chunk_frames, rnn_aggregate
 from ta3n_tpu_torch.ops import _build, gather_gemm, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
 from ta3n_tpu_torch.train import (StepScalars, create_train_state,
@@ -893,3 +896,131 @@ def test_comparison_config_store_step_on_cuda_matches_cpu(name, fields, da,
     for key, ref in results[0][1].items():
         torch.testing.assert_close(results[1][1][key], ref, rtol=1e-3,
                                    atol=2e-5, msg=lambda m: f"{key}: {m}")
+
+
+_RECIPE = dict(use_target="uSv", adv_DA="RevGrad",
+               add_loss_DA="attentive_entropy", place_adv=("Y", "Y", "Y"))
+_AVGPOOL = dict(frame_aggregation="avgpool", use_attn="none")
+_NYY = dict(use_target="uSv", adv_DA="RevGrad", place_adv=("N", "Y", "Y"))
+
+
+@pytest.mark.parametrize("name,fields,da,per_step", [
+    ("tempooling_dan", _AVGPOOL, dict(use_target="uSv", dis_DA="DAN",
+                                      place_dis=("Y", "Y", "N")),
+     (2, 0, 0, 0)),
+    ("tempooling_jan", _AVGPOOL, dict(use_target="uSv", dis_DA="JAN"),
+     (2, 0, 0, 0)),
+    ("ta3n_dan_all", {}, dict(_RECIPE, dis_DA="DAN",
+                              place_dis=("Y", "Y", "Y")), (2, 0, 1, 1)),
+    ("ta3n_coral_all", {}, dict(_RECIPE, dis_DA="CORAL",
+                                place_dis=("Y", "Y", "Y")), (2, 0, 1, 1)),
+    ("rnn_bilstm", dict(frame_aggregation="rnn", rnn_cell="LSTM", n_rnn=2,
+                        n_directions=2, n_ts=3, use_attn="none"), _NYY,
+     (2, 0, 0, 0)),
+    ("rnn_gru", dict(frame_aggregation="rnn", rnn_cell="GRU", n_ts=2,
+                     use_attn="none"), _NYY, (2, 0, 0, 0)),
+    ("temconv_adabn", dict(frame_aggregation="temconv", use_bn="AdaBN",
+                           use_attn="none"), _NYY, (2, 0, 0, 0)),
+    ("frame_ta3n", dict(baseline_type="frame"), _RECIPE, (2, 0, 1, 1)),
+    ("tsn_tempooling", dict(baseline_type="tsn", **_AVGPOOL),
+     dict(use_target="uSv", adv_DA="RevGrad", place_adv=("N", "N", "Y")),
+     (2, 0, 0, 0)),
+])
+def test_new_rows_store_step_on_cuda_matches_cpu(name, fields, da,
+                                                 per_step):
+    """Three device-store steps of each row that the discrepancy losses,
+    the RNN and temconv aggregations and the frame and tsn baselines add,
+    at small widths, dropout 0, alpha 1, the target stream padded: the
+    kernels' launches per step, the losses, parameters and BN running
+    stats against the same steps on the CPU (the plain versions), with
+    cuDNN's TF32 flag at its default."""
+    stores = make_domain_pair(num_source=24, num_target=13, num_val=4,
+                              num_class=6, feature_dim=96)
+    results = []
+    for device in ("cpu", "cuda"):
+        state = _small_state(device, **fields)
+        step = make_train_step(state.model, DAConfig(**da),
+                               TrainConfig(lr=0.03), gather_on_device=True)
+        dev = [s.to_device(device) for s in stores[:2]]
+        ls = TSNLoader(stores[0], batch_size=8, num_segments=5, seed=1)
+        lt = TSNLoader(stores[1], batch_size=5, num_segments=5, seed=2)
+        _reset_counts()
+        losses = []
+        for bs, bt in zip(ls.index_epoch(), lt.index_epoch()):
+            state, metrics = step(state, dev[0], *bs, dev[1], *bt,
+                                  StepScalars((0.75, 0.75, 0.5), 0.5, 1.0,
+                                              0.003, 0.03), None)
+            losses.append([float(metrics[k]) for k in sorted(metrics)])
+        torch.cuda.synchronize()
+        assert _counts() == (tuple(3 * n for n in per_step)
+                             if device == "cuda" else (0, 0, 0, 0)), name
+        results.append((losses, {k: v.to("cpu", copy=True) for k, v in
+                                 state.model.state_dict().items()}))
+    assert torch.backends.cudnn.allow_tf32
+    np.testing.assert_allclose(results[1][0], results[0][0], rtol=2e-4)
+    for key, ref in results[0][1].items():
+        torch.testing.assert_close(results[1][1][key], ref, rtol=1e-3,
+                                   atol=2e-5, msg=lambda m: f"{key}: {m}")
+
+
+def _rel(got, want):
+    return ((got - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.parametrize("module", ["lstm", "gru", "tcl"])
+def test_tcl_and_rnn_are_f32_with_cudnn_tf32_at_its_default(module):
+    """The flagship widths (202 videos, 5 frames, 512 units): the TCL and
+    the bidirectional two-layer LSTM / GRU of the RNN aggregator on the
+    card, with ``torch.backends.cudnn.allow_tf32`` left at its default
+    (True), give the CPU float32 output and gradients of the input and of
+    every parameter within 5e-5 of their largest value; the module called
+    without the port's pin (cudnn_f32), under the same flag, is printed
+    for the record.  The bound: a parameter gradient sums up to 517,120
+    products (the TCL's) in another order on each side, which costs up to
+    1.6e-5 in float32 on the H100, while TF32 shows from 1.6e-4 up (the
+    unpinned RNN: 1.6e-4 to 1.1e-3)."""
+    assert torch.backends.cudnn.allow_tf32
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(202, 5, 512)).astype(np.float32))
+    if module == "tcl":
+        layer = TCL(3, gen)
+        pinned = layer
+
+        def unpinned(t):
+            return layer.conv2d(t[:, None])[:, 0]
+    else:
+        layer = build_rnn(ModelConfig(
+            num_class=12, feature_dim=2048, fc_dim=512,
+            frame_aggregation="rnn", n_rnn=2, n_directions=2, n_ts=3,
+            rnn_cell=module.upper()), gen)
+
+        def pinned(t):
+            return rnn_aggregate(layer, t, 3)
+
+        def unpinned(t):
+            return layer(chunk_frames(t, 3))[0][:, -1]
+
+    def run(fn, device, g=None):
+        layer.to(device)
+        xd = x.to(device, copy=True).requires_grad_()
+        out = fn(xd)
+        if g is None:
+            g = torch.from_numpy(rng.normal(size=tuple(out.shape))
+                                 .astype(np.float32))
+        layer.zero_grad(set_to_none=True)
+        (out * g.to(device)).sum().backward()
+        return [t.detach().cpu() for t in (out, xd.grad,
+                                           *(p.grad for p in
+                                             layer.parameters()))], g
+
+    want, g = run(pinned, "cpu")
+    got, _ = run(pinned, "cuda", g)
+    loose, _ = run(unpinned, "cuda", g)
+    errs = [_rel(a, b) for a, b in zip(got, want)]
+    print(f"{module}: pinned output and gradient errors "
+          f"{['%.1e' % e for e in errs]}; unpinned "
+          f"{['%.1e' % _rel(a, b) for a, b in zip(loose, want)]}")
+    assert torch.backends.cudnn.allow_tf32
+    assert max(errs) <= 5e-5, errs

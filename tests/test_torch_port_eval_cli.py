@@ -127,7 +127,6 @@ def test_eval_cli_max_num(workspace):
     (["--store_dtype", "bfloat16"], "item 8"),
     (["--quantize", "int8"], "item 10"),
     (["--data_parallel"], "item 10"),
-    (["--baseline_type", "frame"], "item 6"),
 ])
 def test_eval_cli_unported_flags_raise(workspace, flags, item):
     with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
@@ -135,17 +134,6 @@ def test_eval_cli_unported_flags_raise(workspace, flags, item):
                        str(workspace / "val" / "list.txt"),
                        str(workspace / "model.pth.tar"), *MODEL_FLAGS,
                        "--device", "cpu", *flags])
-
-
-def test_eval_cli_defaults_name_the_flagship_flags(workspace):
-    """The JAX CLI's defaults select the frame baseline with avgpool: the
-    port names the flags that select the model it runs."""
-    with pytest.raises(NotImplementedError,
-                       match="--baseline_type video --frame_aggregation "
-                             "trn-m"):
-        port_cli.main([str(workspace / "class.txt"), "RGB",
-                       str(workspace / "val" / "list.txt"),
-                       str(workspace / "model.pth.tar"), "--device", "cpu"])
 
 
 def test_eval_cli_needs_a_card_by_default(workspace, monkeypatch):

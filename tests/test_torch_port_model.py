@@ -14,6 +14,7 @@ from ta3n_tpu.io_utils import torch_import
 from ta3n_tpu.io_utils.torch_export import export_state_dict
 from ta3n_tpu.models import VideoModel as JaxVideoModel
 from ta3n_tpu.train import create_train_state
+from ta3n_tpu_torch.io_utils import convert
 from ta3n_tpu_torch.io_utils.convert import (DEAD_PREFIXES,
                                              state_dict_from_jax_params)
 from ta3n_tpu_torch.models import VideoModel
@@ -73,18 +74,23 @@ def test_converter_matches_torch_export(jax_params):
 
 def test_dead_prefixes_match_jax_package():
     assert DEAD_PREFIXES == torch_import._DEAD_PREFIXES
+    # and the BN pairs and Dense layers the converter maps
+    assert convert._BN == tuple(torch_import._BN_DIRECT)
+    assert convert._DENSE == tuple(torch_import._DENSE_DIRECT)
 
 
 def test_converter_rejects_unknown_parameters(jax_params):
-    """Collections of what the port does not run (the RNN, temconv's TCL)
-    and BN statistics without their BN are refused."""
-    with pytest.raises(KeyError, match="rnn"):
-        state_dict_from_jax_params({**jax_params, "rnn": {}})
-    with pytest.raises(KeyError, match="tcl_3_1"):
-        state_dict_from_jax_params({**jax_params, "tcl_3_1": {}})
-    with pytest.raises(KeyError, match="bn_shared_S"):
-        state_dict_from_jax_params(jax_params,
-                                   {"bn_shared_S": {"mean": np.zeros(2)}})
+    """Collections that the port has no module for (the JAX model never
+    holds the reference's dead temconv convs) and BN statistics without
+    their BN are refused."""
+    with pytest.raises(KeyError, match="tcl_5_1"):
+        state_dict_from_jax_params({**jax_params, "tcl_5_1": {}})
+    with pytest.raises(KeyError, match="conv_fusion"):
+        state_dict_from_jax_params({**jax_params, "conv_fusion": {}})
+    for bn in ("bn_shared_S", "bn_1_T"):
+        with pytest.raises(KeyError, match=bn):
+            state_dict_from_jax_params(jax_params,
+                                       {bn: {"mean": np.zeros(2)}})
 
 
 def _assert_stream_close(ours, ref, label):
@@ -147,8 +153,6 @@ def test_grl_reverses_domain_head_gradients(jax_params):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("frame_aggregation", "rnn"), ("frame_aggregation", "temconv"),
-    ("baseline_type", "tsn"), ("baseline_type", "frame"),
     ("quantize", "int8"), ("compute_dtype", "bfloat16"),
     ("param_dtype", "bfloat16"),
 ])

@@ -276,19 +276,6 @@ def test_dropout_draws_from_the_step_generator():
         one_step(None)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("dis_DA", "DAN", "item 7"), ("dis_DA", "JAN", "item 7"),
-    ("dis_DA", "CORAL", "item 7"), ("pretrain_source", True, "item 6"),
-])
-def test_unported_da_options_raise(field, value, item):
-    state = create_train_state(ModelConfig(**MODEL), TrainConfig(),
-                               device="cpu")
-    da = dataclasses.replace(DAConfig(**DA), **{field: value})
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1, {item}"):
-        make_train_step(state.model, da, TrainConfig())
-
-
 def test_unported_optimizer_and_quantized_training_raise():
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue 1, item 8"):

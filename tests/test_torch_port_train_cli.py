@@ -3,8 +3,9 @@ the JAX CLI's command line with ``--device cpu`` trains, writes the log
 files and reference-format checkpoints, resumes with ``--resume_hp``, and
 evaluates; its ``model_best.pth.tar`` gives the port's and the JAX
 package's eval CLIs the same ``Pred@k`` line, whose Pred@1 is the best
-Prec@1 the training printed.  Flags whose path is not ported raise,
-naming their ROADMAP.md item, and the default device is the card."""
+Prec@1 the training printed.  The model and loss flags of every
+configuration train.  Flags whose path is not ported raise, naming their
+ROADMAP.md item, and the default device is the card."""
 
 import re
 
@@ -123,13 +124,38 @@ def test_train_cli_evaluate(workspace, trained):
     (["--compute_dtype", "bfloat16"], "item 8"),
     (["--store_budget_rows", "10"], "item 9"),
     (["--device_sampler"], "item 9"), (["--model_parallel", "2"], "item 9"),
-    (["--num_devices", "2"], "item 9"), (["--pretrain_source"], "item 6"),
+    (["--num_devices", "2"], "item 9"),
     (["--tensorboard"], "item 5"), (["--profile_dir", "prof"], "item 5"),
-    (["--dis_DA", "DAN"], "item 7"),
 ])
 def test_train_cli_unported_flags_raise(workspace, flags, item):
     with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
         main(_argv(workspace, "exp_bad", "--epochs", "1", *flags))
+
+
+@pytest.mark.parametrize("flags,logged", [
+    (["--pretrain_source", "--dis_DA", "DAN", "--place_dis", "Y", "Y",
+      "Y"], "loss_d"),
+    (["--dis_DA", "CORAL", "--alpha", "0.5"], "alpha 0.500"),
+    (["--baseline_type", "frame", "--frame_aggregation", "temconv",
+      "--use_bn", "AdaBN", "--use_attn", "none"], "loss_a"),
+    (["--baseline_type", "tsn", "--frame_aggregation", "rnn",
+      "--rnn_cell", "GRU", "--n_directions", "2", "--n_ts", "2",
+      "--use_attn", "none", "--dis_DA", "JAN", "--device_store"], None),
+])
+def test_train_cli_runs_the_model_and_loss_flags(workspace, flags, logged):
+    """The discrepancy losses, --pretrain_source, RNN and temconv
+    aggregation and the frame and tsn baselines train through the CLI
+    (JAN with tsn is refused, as in the JAX step); the train log carries
+    the discrepancy's columns."""
+    exp = "exp_" + "_".join(f.strip("-") for f in flags[:2])
+    argv = _argv(workspace, exp, "--epochs", "1", *flags)
+    if logged is None:
+        with pytest.raises(ValueError, match="incompatible"):
+            main(argv)
+        return
+    assert 0.0 <= main(argv) <= 100.0
+    log = (workspace / exp / "RGB" / "train.log").read_text()
+    assert logged in log
 
 
 def test_train_cli_accepts_the_jax_only_flags(workspace):

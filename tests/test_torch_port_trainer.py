@@ -221,14 +221,6 @@ def test_trainer_unported_options_raise(workspace, kw, item):
                 device="cpu", **kw)
 
 
-def test_trainer_pretrain_source_raises(workspace):
-    cfg = (ModelConfig(**MODEL), DAConfig(**DA, pretrain_source=True),
-           TrainConfig(**TRAIN))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        Trainer(*cfg, *build_loaders(_args(workspace), cfg[0], cfg[2])[:3],
-                device="cpu")
-
-
 def test_trainer_runs_on_the_card_by_default(workspace, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = (ModelConfig(**MODEL), DAConfig(**DA), TrainConfig(**TRAIN))
