@@ -53,6 +53,19 @@ seed):
     --pretrain_source through the train CLI for one epoch and the eval CLI
     on its model_best.pth.tar (the frame baseline's with no
     --baseline_type flag, its default).
+The bfloat16 compute path and the narrow stores (bf16 and int8): the
+bfloat16 variants of K1 (infer) at B = 1, 64, 202, and of K1 (train) and
+K2 at B = 202, at S = 5 and 17, and K3's five store x compute variants
+beyond float32 x float32 at 640, 320, 37 and 0 rows, each against its
+plain version in the same dtype and timed with it (at bfloat16 compute
+K3 also against index_select + mm in bfloat16); the bfloat16 flagship
+served by Predictors at batch 64 and 1 against their plain path; 5
+bfloat16 device-store steps from an int8 and from a bfloat16 store
+against the plain path from the same start (2 K3, 1 K1 (train), 1 K2 of
+the bfloat16 variants a step), then timed and profiled; the train CLI
+with --device_store --store_dtype int8 --compute_dtype bfloat16
+--optimizer Adam for 2 epochs, the eval CLI on its best checkpoint
+(Pred@1 the best Prec@1) and an --accum_steps 2 epoch from host features.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -232,6 +245,36 @@ PEAK_OPS = {"trn_fused_fwd": PEAK_TF32 / 3,
 # plain sum)
 TENSOR_CORE_KERNELS = ("trn_fused_fwd_kernel", "gather_gemm_kernel",
                        "trn_fused_bwd_kernel")
+# the bfloat16 compute path and the narrow stores: the bfloat16 flagship,
+# the dense bfloat16 tensor-core peak (H100 SXM data sheet, 700 W), and
+# K3's variants beyond float32 x float32 ("{store}_{compute}")
+BF16_FLAGSHIP = dataclasses.replace(FLAGSHIP, compute_dtype="bfloat16")
+PEAK_BF16 = 989e12
+K3_VARIANTS = ("bf16_f32", "int8_f32", "f32_bf16", "bf16_bf16", "int8_bf16")
+# bfloat16 kernel against its plain version in bfloat16: one bfloat16 ulp
+# of the element (at most 2**-7 of it: float32 sums on either side of a
+# rounding midpoint round to neighbours) plus float32 summation-order
+# differences at the tensor's scale, a tenth of RTOL
+BF16_ULP, BF16_ABS = 2.0 ** -7, 1e-5
+# a relu mask that the two sides flip at bfloat16 widths: the inputs of
+# the TRN differ by an ulp where the two sides' shared FC rounded apart,
+# which moves z by up to about 2**-8 of its terms, so a tie is |z| within
+# 2**-6 of the largest
+BF16_TIE_RTOL = 2.0 ** -6
+# a bfloat16 step against the plain path from the same start: the losses
+# are bfloat16 values (2**-8 apart) of bfloat16 activations; and each
+# gradient is a sum over the batch of terms that carry bfloat16 roundings,
+# which the two paths (K3 or cuBLAS, the TRN kernels or their plain
+# versions) take an ulp apart here and there, so a row whose terms cancel
+# can move by a percent of the tensor's largest update (3.4e-4 in a
+# classifier row on the H100, where PARAM_TOL's atol is 2e-5): each
+# tensor's update is held to BF16_UPDATE_RTOL of its largest
+BF16_STEP_RTOL = 2e-2
+BF16_UPDATE_RTOL = 5e-2
+# probabilities (float32 softmax of bfloat16 logits) of the bfloat16
+# Predictor against its plain path: logits an ulp or two apart
+BF16_PROB_TOL = 2.0 ** -6
+BF16_STEPS = 5
 
 
 def log(msg: str) -> None:
@@ -276,8 +319,13 @@ def check_sass() -> None:
     for name, (hmma, ldgsts) in sorted(counts.items()):
         log(f"  sass: {hmma:4d} HMMA, {ldgsts:4d} LDGSTS  {name[:80]}")
     for kernel in TENSOR_CORE_KERNELS:
-        found = [c for n, c in counts.items() if kernel in n]
-        if not found or not all(h and g for h, g in found):
+        found = [(n, c) for n, c in counts.items() if kernel in n]
+        # an instance with 4-byte copies (template flag false, Lb0E) and
+        # a bfloat16 operand stages that operand by plain loads: it needs
+        # HMMA only
+        if not found or not all(
+                h and (g or ("Lb0E" in n and "nv_bfloat16" in n))
+                for n, (h, g) in found):
             raise AssertionError(f"{kernel}: no HMMA or no LDGSTS in its "
                                  "SASS")
 
@@ -402,15 +450,18 @@ def grid_inputs(b, s, d, h, rng):
 
 
 def preacts(x, weights, biases, s):
-    """z of every subset, [B, n_sub*H], in the masks' layout."""
+    """z of every subset, [B, n_sub*H], in the masks' layout; in float32
+    from bfloat16 inputs (the kernels' z)."""
     plan = build_relation_plan(s)
     b, _, d = x.shape
     zs = []
+    up = (lambda t: t.float()) if x.dtype == torch.bfloat16 else \
+        (lambda t: t)
     for w, bias, k, subsets in zip(weights, biases, plan.scales,
                                    plan.subsets):
         idx = torch.as_tensor(subsets.reshape(-1), device=x.device)
-        g = x[:, idx].reshape(b, subsets.shape[0], k * d)
-        zs.append((torch.relu(g) @ w.T + bias).reshape(b, -1))
+        g = up(x)[:, idx].reshape(b, subsets.shape[0], k * d)
+        zs.append((torch.relu(g) @ up(w).T + up(bias)).reshape(b, -1))
     return torch.cat(zs, dim=1)
 
 
@@ -529,16 +580,18 @@ def time_train_kernels(gen, b=202):
     return fwd, bwd
 
 
-def trn_work(b, s=5, d=512, h=256):
-    """FLOPs and the least bytes of the TRN kernels at these shapes: each
-    input read once, each output written once."""
+def trn_work(b, s=5, d=512, h=256, esize=4):
+    """FLOPs and the least bytes of the TRN kernels at these shapes, with
+    x, the weights, the biases, g and the outputs of ``esize`` bytes (4
+    float32, 2 bfloat16): each input read once, each output written
+    once."""
     plan = build_relation_plan(s)
     n_sub = sum(len(sub) for sub in plan.subsets)
     flops = 2 * b * h * d * sum(len(sub) * k
                                 for k, sub in zip(plan.scales, plan.subsets))
-    w_bytes = 4 * h * d * sum(plan.scales)
-    b_bytes = 4 * h * len(plan.scales)
-    x_bytes, out_bytes = 4 * b * s * d, 4 * b * (s - 1) * h
+    w_bytes = esize * h * d * sum(plan.scales)
+    b_bytes = esize * h * len(plan.scales)
+    x_bytes, out_bytes = esize * b * s * d, esize * b * (s - 1) * h
     mask_bytes = b * n_sub * h
     fwd_bytes = x_bytes + w_bytes + b_bytes + out_bytes
     return {
@@ -566,10 +619,11 @@ class PlainTRN(nn.Module):
         self.trn = trn
 
     def forward(self, x, infer=False):
-        seqs = self.trn.fc_fusion_scales
+        seqs, dt = self.trn.fc_fusion_scales, self.trn.dtype
         return trn_fused.trn_multiscale_plain(
-            x, [q[1].weight for q in seqs], [q[1].bias for q in seqs],
-            self.trn.num_frames, self.trn.subsample_num)
+            x.to(dt), [q[1].weight.to(dt) for q in seqs],
+            [q[1].bias.to(dt) for q in seqs], self.trn.num_frames,
+            self.trn.subsample_num)
 
 
 def post(url, payload):
@@ -701,6 +755,10 @@ def reset_counts():
     trn_fused.launches = trn_fused.train_launches = 0
     trn_fused.bwd_launches = 0
     gather_gemm.launches = 0
+    trn_fused.bf16_launches = trn_fused.bf16_train_launches = 0
+    trn_fused.bf16_bwd_launches = 0
+    for variant in gather_gemm.variant_launches:
+        gather_gemm.variant_launches[variant] = 0
 
 
 def counts():
@@ -708,6 +766,16 @@ def counts():
             "trn_fused_fwd_train": trn_fused.train_launches,
             "trn_fused_bwd": trn_fused.bwd_launches,
             "gather_gemm": gather_gemm.launches}
+
+
+def bf16_counts():
+    """The launches of the bfloat16 and narrow-store variants (the float32
+    kernels' are counts())."""
+    return {"trn_fused_fwd_bf16": trn_fused.bf16_launches,
+            "trn_fused_fwd_train_bf16": trn_fused.bf16_train_launches,
+            "trn_fused_bwd_bf16": trn_fused.bf16_bwd_launches,
+            **{f"gather_gemm_{v}": gather_gemm.variant_launches[v]
+               for v in K3_VARIANTS}}
 
 
 def flagship_model(gen, dropout=0.0, **fields):
@@ -795,8 +863,9 @@ def record_trn(model, calls=None):
 
     def hook(_, args, out):
         x = args[0].detach()
-        ws = [q[1].weight.detach() for q in trn.fc_fusion_scales]
-        bs = [q[1].bias.detach() for q in trn.fc_fusion_scales]
+        ws = [q[1].weight.detach().to(trn.dtype)
+              for q in trn.fc_fusion_scales]
+        bs = [q[1].bias.detach().to(trn.dtype) for q in trn.fc_fusion_scales]
         with torch.no_grad():
             z = preacts(x, ws, bs, trn.num_frames)
             masks = (trn_fused.trn_multiscale_fwd_masks_plain(
@@ -809,7 +878,7 @@ def record_trn(model, calls=None):
     return rec, model.TRN.register_forward_hook(hook)
 
 
-def trn_ties(ours, ref, rows):
+def trn_ties(ours, ref, rows, tie_rtol=RTOL):
     """Add to ``rows`` the TRN weight rows that a TRN relu mask flipped at
     a rounding tie may have moved (tie_rows); the number of masks
     flipped."""
@@ -818,7 +887,7 @@ def trn_ties(ours, ref, rows):
     h = ref["z"].shape[1] // len(scale_of)
     differ = ours["masks"] != ref["masks"]
     z = ref["z"].abs()
-    if (differ & (z > RTOL * max(1.0, z.max().item()))).any():
+    if (differ & (z > tie_rtol * max(1.0, z.max().item()))).any():
         raise AssertionError("a TRN mask differs where z is not a rounding "
                              "tie")
     for b, col in differ.nonzero().tolist():
@@ -830,7 +899,8 @@ def trn_ties(ours, ref, rows):
     return int(differ.sum())
 
 
-def relu_ties(ours, ref, names, rows, what="shared-FC relu"):
+def relu_ties(ours, ref, names, rows, what="shared-FC relu",
+              tie_rtol=RTOL):
     """Add to ``rows`` the rows u of the parameters ``names(b)`` (for
     video b) that a relu mask of unit u flipped at a rounding tie may have
     moved (a name given as (name, row) names that row whatever u);
@@ -839,7 +909,8 @@ def relu_ties(ours, ref, names, rows, what="shared-FC relu"):
     a tie.  The number of masks flipped."""
     differ = (ours > 0) != (ref > 0)
     top = torch.maximum(ours, ref)
-    if (differ & (top > RTOL * max(1.0, ref.max().item()))).any():
+    if (differ & (top.float() > tie_rtol * max(1.0, ref.max().item()))
+            ).any():
         raise AssertionError(f"a {what} mask differs where its input is "
                              "not a rounding tie")
     for b, f, u in differ.nonzero().tolist():
@@ -851,7 +922,7 @@ def relu_ties(ours, ref, names, rows, what="shared-FC relu"):
     return int(differ.sum())
 
 
-def tie_rows(ours, ref):
+def tie_rows(ours, ref, tie_rtol=RTOL):
     """The parameter rows that a relu mask flipped at a rounding tie may
     have moved in this step, ``{name: {row: why}}``, and the number of
     masks flipped (TRN, shared FC), from the two sides' records (record_trn; ``ref`` gives z).  A TRN mask of subset s (scale
@@ -861,26 +932,28 @@ def tie_rows(ours, ref):
     the row past PARAM_TOL after the step (on the H100: one TRN mask
     flipped at |z| = 5.0e-8 moved 5 entries of one row of W_2 by up to
     3.1e-5).  Raise where a mask differs at a value that is not a tie,
-    beyond RTOL of the largest."""
+    beyond ``tie_rtol`` of the largest (RTOL; BF16_TIE_RTOL at bfloat16
+    compute)."""
     rows = {}
     shared = ("fc_feature_shared_source.weight",
               "fc_feature_shared_source.bias")
-    flipped = (trn_ties(ours, ref, rows),
-               relu_ties(ours["x"], ref["x"], lambda b: shared, rows))
+    flipped = (trn_ties(ours, ref, rows, tie_rtol),
+               relu_ties(ours["x"], ref["x"], lambda b: shared, rows,
+                         tie_rtol=tie_rtol))
     return rows, flipped
 
 
-def check_params(i, ours, ref, label, ties):
-    """Hold the parameters after step i to PARAM_TOL, all but the rows
-    that ``ties`` (tie_rows) names, and log each of those let through.
-    Returns the largest difference of the rows held and the number let
-    through."""
+def check_params(i, ours, ref, label, ties, tol=PARAM_TOL):
+    """Hold the parameters after step i to ``tol`` (PARAM_TOL), all but
+    the rows that ``ties`` (tie_rows) names, and log each of those let
+    through.  Returns the largest difference of the rows held and the
+    number let through."""
     ours, ref = named(ours), named(ref)
     worst, let_through = 0.0, 0
     for name, want in ref.items():
         diff = (ours[name] - want).abs()
-        tol = PARAM_TOL["rtol"] * want.abs() + PARAM_TOL["atol"]
-        beyond = (diff > tol).reshape(want.shape[0] if want.dim() else 1,
+        bound_at = tol["rtol"] * want.abs() + tol["atol"]
+        beyond = (diff > bound_at).reshape(want.shape[0] if want.dim() else 1,
                                       -1).any(dim=1)
         rows = beyond.nonzero()[:, 0].tolist()
         allowed = ties.get(name, {})
@@ -1139,14 +1212,16 @@ def check_gather_kernel(store):
     return worst
 
 
-def gather_work(rows, d, h, with_rows):
+def gather_work(rows, d, h, with_rows, store_size=4, compute_size=4):
     """FLOPs and the least bytes of K3 for these index rows: each distinct
-    store row read once, idx and scale read, W read once, z written and,
-    with x_res, the gathered rows written."""
+    store row read once (``store_size`` bytes a value; an int8 row also
+    its 4-byte scale), idx and scale read, W read once, z written and,
+    with x_res, the gathered rows written (``compute_size`` bytes a
+    value)."""
     n = rows.rows.shape[0]
     distinct = torch.unique(rows.rows).numel()
-    nbytes = 4 * (distinct * d + 2 * n + h * d + n * h
-                  + (n * d if with_rows else 0))
+    nbytes = (distinct * (store_size * d + 4 * (store_size == 1)) + 8 * n
+              + compute_size * (h * d + n * h + (n * d if with_rows else 0)))
     return 2 * n * d * h, nbytes
 
 
@@ -1636,7 +1711,7 @@ def trainer_records():
         torch.cuda.synchronize()
         rec = {"kind": kind, "epoch": epoch, "lr": lr, "out": out,
                "seconds": time.perf_counter() - t0, "launches": counts(),
-               "store": self.device_store}
+               "bf16_launches": bf16_counts(), "store": self.device_store}
         if kind == "train":
             rec["steps"] = min(len(self.source_loader),
                                len(self.target_loader))
@@ -2037,6 +2112,573 @@ def comparison_phase(gen, stores, dev, root):
     return launches
 
 
+# ---- the bfloat16 compute path and the narrow stores ----
+
+def bf16_err(got, want):
+    """The largest |got - want| over the elements and whether every one
+    lies within BF16_ULP * |want| + BF16_ABS * max(1, max|want|)."""
+    if want.numel() == 0:
+        return 0.0, got.shape == want.shape
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    bound_at = (BF16_ULP * want.abs()
+                + BF16_ABS * max(1.0, want.abs().max().item()))
+    return diff.max().item(), bool((diff <= bound_at).all())
+
+
+def bf16_trn_inputs(b, s, gen, signed=True):
+    """trn_inputs at the flagship widths, as bfloat16."""
+    x, w, bi = trn_inputs(b, s, 512, 256, gen, signed=signed)
+    bf = torch.bfloat16
+    return x.to(bf), [t.to(bf) for t in w], [t.to(bf) for t in bi]
+
+
+def check_bf16_trn(gen):
+    """K1 (infer) in bfloat16 at B = 1, 64, 202 and S = 5, 17, K1 (train)
+    and K2 in bfloat16 at B = 202 and S = 5, 17, against their plain
+    versions in bfloat16 (bf16_err; the masks equal but where |z| is
+    within RTOL of the largest; K2 from the kernel's masks).  Returns the
+    largest error of each."""
+    worst = dict.fromkeys(("trn_fused_fwd_bf16", "trn_fused_fwd_train_bf16",
+                           "trn_fused_bwd_bf16"), 0.0)
+    for s in (5, 17):
+        for b in (1, 64, 202):
+            x, w, bi = bf16_trn_inputs(b, s, gen, signed=False)
+            with torch.inference_mode():
+                got = trn_fused.trn_multiscale_infer(x, w, bi, s)
+                want = trn_fused.trn_multiscale_plain(x, w, bi, s)
+            torch.cuda.synchronize()
+            err, ok = bf16_err(got, want)
+            log(f"  K1 (infer) bf16 B={b} S={s}: max|kernel-plain| "
+                f"{err:.3e}")
+            if got.dtype != torch.bfloat16 or not ok:
+                raise AssertionError(f"K1 (infer) bf16 disagrees at B={b} "
+                                     f"S={s}")
+            worst["trn_fused_fwd_bf16"] = max(worst["trn_fused_fwd_bf16"],
+                                              err)
+        x, w, bi = bf16_trn_inputs(202, s, gen)
+        g = torch.randn((202, s - 1, 256), generator=gen).cuda() \
+            .to(torch.bfloat16)
+        with torch.no_grad():
+            out, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+            want, want_masks = trn_fused.trn_multiscale_fwd_masks_plain(
+                x, w, bi, s)
+            z = preacts(x, w, bi, s).abs()
+            grads = trn_fused.trn_multiscale_bwd(x, w, masks, g, s)
+            want_grads = trn_fused.trn_multiscale_bwd_plain(x, w, masks, g,
+                                                            s)
+        torch.cuda.synchronize()
+        differ = masks != want_masks
+        fwd_err, fwd_ok = bf16_err(out, want)
+        flat = lambda r: (r[0], *r[1], *r[2])
+        bwd = [bf16_err(a, c) for a, c in zip(flat(grads),
+                                              flat(want_grads))]
+        bwd_err = max(e for e, _ in bwd)
+        log(f"  K1 (train) bf16 B=202 S={s}: max|kernel-plain| "
+            f"{fwd_err:.3e}, {int(differ.sum())} of {masks.numel()} masks "
+            f"differ (at |z| <= {z[differ].max().item() if differ.any() else 0:.2e}); "
+            f"K2 bf16: max|kernel-plain| over dx, dW, db {bwd_err:.3e}")
+        if not fwd_ok or not all(ok for _, ok in bwd) or (
+                differ & (z > RTOL * z.max())).any():
+            raise AssertionError(f"K1 (train) or K2 bf16 disagrees at S={s}")
+        worst["trn_fused_fwd_train_bf16"] = max(
+            worst["trn_fused_fwd_train_bf16"], fwd_err)
+        worst["trn_fused_bwd_bf16"] = max(worst["trn_fused_bwd_bf16"],
+                                          bwd_err)
+    return worst
+
+
+def narrow_stores(store, source):
+    """The source store in every store dtype on the card: float32 (as
+    uploaded), bfloat16 and int8 (``FeatureStore.to_device``)."""
+    return {"f32": store, "bf16": source.to_device("cuda", "bfloat16"),
+            "int8": source.to_device("cuda", "int8")}
+
+
+def check_gather_variants(stores):
+    """K3's five variants beyond float32 x float32 against the plain
+    version on the same store: at N = 640 with x_res, 320 without, 37
+    (ragged) and 0; z within RTOL * max(1, max|plain|) at float32 compute
+    and bf16_err at bfloat16 compute, x_res bitwise equal (an int8 store's
+    rows dequantized as float(q) * scale, then * row scale).  Returns the
+    largest error of each variant."""
+    rng = np.random.default_rng(6)
+    h, d = FLAGSHIP.fc_dim, stores["f32"].shape[1]
+    w32 = (torch.from_numpy(rng.uniform(-1, 1, (h, d)).astype(np.float32))
+           / math.sqrt(d)).cuda()
+    weights = {"f32": w32, "bf16": w32.to(torch.bfloat16)}
+    worst = {}
+    for variant in K3_VARIANTS:
+        kind, compute = variant.split("_")
+        store, w = stores[kind], weights[compute]
+        errs = []
+        for n, with_rows in ((640, True), (320, False), (37, True),
+                             (0, True)):
+            rows, scale = gather_case(n, store_rows(store), rng)
+            reset_counts()
+            z, x_res = gather_gemm.gathered_gemm(store, rows, w, scale,
+                                                 with_rows)
+            launched = gather_gemm.variant_launches[variant]
+            want, want_x = gather_gemm.gathered_gemm_plain(store, rows.rows,
+                                                           w, scale)
+            torch.cuda.synchronize()
+            if compute == "f32":
+                err = (z - want).abs().max().item() if n else 0.0
+                ok = err <= RTOL * max(1.0, want.abs().max().item()
+                                       if n else 0.0)
+            else:
+                err, ok = bf16_err(z, want)
+            exact = (x_res is None) != with_rows and (
+                x_res is None or torch.equal(x_res, want_x))
+            if not ok or not exact or z.dtype != w.dtype or \
+                    launched != (1 if n else 0):
+                raise AssertionError(f"K3 {variant} disagrees with plain "
+                                     f"at N={n}")
+            errs.append(err)
+        log(f"  K3 {variant} (store_compute): N = 640, 320, 37, 0: "
+            f"max|kernel-plain| " + ", ".join(f"{e:.3e}" for e in errs)
+            + "; x_res bitwise equal to plain")
+        worst[variant] = max(errs)
+    return worst
+
+
+def store_rows(store):
+    """The rows of a store tensor or of an int8 pair."""
+    return (store[0] if isinstance(store, tuple) else store).shape[0]
+
+
+def time_bf16_kernels(gen, stores):
+    """Device times of every bfloat16 and narrow-store variant and of its
+    plain version, medians of 41 in turns, at the shapes of their paths:
+    K1 (infer) at B = 1, 64, 202, K1 (train) and K2 at the train batch,
+    K3 at the train shape (640 rows with x_res) and the eval shape (320
+    rows without); at bfloat16 compute also index_select + mm in
+    bfloat16.  Returns {name: (ms, plain_ms, library_ms, work)} and the
+    K1 (infer) times by batch."""
+    out, k1 = {}, {}
+    with torch.inference_mode():
+        for b in TIMED_BATCHES:
+            x, w, bi = bf16_trn_inputs(b, 5, gen, signed=False)
+            k1[b] = time_pair({
+                "kernel": lambda: trn_fused.trn_multiscale_infer(x, w, bi,
+                                                                 5),
+                "plain": lambda: trn_fused.trn_multiscale_plain(x, w, bi,
+                                                                5)})
+    t = k1[SERVE_BATCH]
+    out["trn_fused_fwd_bf16"] = (t["kernel"], t["plain"], None,
+                                 trn_work(SERVE_BATCH, esize=2)[
+                                     "trn_fused_fwd"])
+    b = sum(TRAIN.batch_size[:2])
+    x, w, bi = bf16_trn_inputs(b, 5, gen)
+    g = torch.randn((b, 4, 256), generator=gen).cuda().to(torch.bfloat16)
+    with torch.no_grad():
+        _, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, 5)
+        fwd = time_pair({
+            "kernel": lambda: trn_fused.trn_multiscale_fwd_masks(x, w, bi, 5),
+            "plain": lambda: trn_fused.trn_multiscale_fwd_masks_plain(
+                x, w, bi, 5)})
+        bwd = time_pair({
+            "kernel": lambda: trn_fused.trn_multiscale_bwd(x, w, masks, g, 5),
+            "plain": lambda: trn_fused.trn_multiscale_bwd_plain(
+                x, w, masks, g, 5)})
+    work = trn_work(b, esize=2)
+    out["trn_fused_fwd_train_bf16"] = (fwd["kernel"], fwd["plain"], None,
+                                       work["trn_fused_fwd_train"])
+    out["trn_fused_bwd_bf16"] = (bwd["kernel"], bwd["plain"], None,
+                                 work["trn_fused_bwd"])
+    for name in ("trn_fused_fwd_train_bf16", "trn_fused_bwd_bf16"):
+        log(f"  B={b} {name}: kernel {out[name][0]:.4f} ms, plain "
+            f"{out[name][1]:.4f} ms device (medians of 41, in turns)")
+    for bb, tt in k1.items():
+        log(f"  B={bb} trn_fused_fwd_bf16: kernel {tt['kernel']:.4f} ms, "
+            f"plain {tt['plain']:.4f} ms device (medians of 41, in turns)")
+    rng = np.random.default_rng(7)
+    h, d = FLAGSHIP.fc_dim, stores["f32"].shape[1]
+    w32 = (torch.rand((h, d), generator=torch.Generator().manual_seed(7))
+           * 2 - 1).cuda() / math.sqrt(d)
+    weights = {"f32": w32, "bf16": w32.to(torch.bfloat16)}
+    sizes = {"f32": 4, "bf16": 2, "int8": 1}
+    eval_times = {}
+    with torch.no_grad():
+        for variant in K3_VARIANTS:
+            kind, compute = variant.split("_")
+            store, wc = stores[kind], weights[compute]
+            for n, with_rows in K3_TIMED:
+                rows, scale = gather_case(n, store_rows(store), rng)
+                fns = {"kernel": lambda: gather_gemm.gathered_gemm(
+                           store, rows, wc, scale, with_rows),
+                       "plain": lambda: gather_gemm.gathered_gemm_plain(
+                           store, rows.rows, wc, scale)}
+                if compute == "bf16":
+                    rows_bf = stores["bf16"]
+                    fns["library"] = lambda: torch.mm(
+                        rows_bf.index_select(0, rows.rows), wc.t())
+                tt = time_pair(fns)
+                work = gather_work(rows, d, h, with_rows, sizes[kind],
+                                   sizes[compute])
+                least, by = bound(*work, PEAK_BF16 if compute == "bf16"
+                                  else PEAK_TF32 / 3)
+                log(f"  K3 {variant} N={n} "
+                    f"{'with' if with_rows else 'without'} x_res: kernel "
+                    f"{tt['kernel']:.4f} ms, plain {tt['plain']:.4f} ms"
+                    + (f", index_select + mm in bfloat16 "
+                       f"{tt['library']:.4f} ms" if "library" in tt else "")
+                    + f" device; bound {least:.4f} ms by {by}")
+                entry = (tt["kernel"], tt["plain"], tt.get("library"), work)
+                if with_rows:
+                    out[f"gather_gemm_{variant}"] = entry
+                else:
+                    eval_times[f"gather_gemm_{variant}"] = entry
+    return out, k1, eval_times
+
+
+def train_bf16_store(gen, stores):
+    """The bfloat16 flagship, BF16_STEPS device-store steps from an int8
+    store and from a bfloat16 store (2 K3 of the store's bfloat16
+    variant, 1 K1 (train) and 1 K2 in bfloat16 each, nothing else),
+    against as many steps of the plain path on the same batches: host
+    features (the int8 store's dequantized by the host gather, as K3
+    dequantizes them; the float32 ones for the bfloat16 store, rounded
+    as the model's entry cast rounds them) through a copy whose TRN is
+    the plain version.  Each step from the same parameters; the metrics
+    held to BF16_STEP_RTOL, the updated parameters to BF16_PARAM_TOL but
+    for the rows fed by a relu mask flipped at a bfloat16 tie
+    (BF16_TIE_RTOL).  Returns the launches of the device-store steps."""
+    launches = dict.fromkeys(bf16_counts(), 0)
+    for store_dtype in ("int8", "bfloat16"):
+        model = flagship_model(gen, compute_dtype="bfloat16")
+        plain_model = copy.deepcopy(model)
+        plain_model.TRN = PlainTRN(plain_model.TRN)
+        host = [st.quantize() if store_dtype == "int8" else st
+                for st in stores[:2]]
+        dev = [st.to_device("cuda", store_dtype) for st in stores[:2]]
+        steps = [scalars(i, BF16_STEPS, (-1.0, -1.0, -1.0))
+                 for i in range(BF16_STEPS)]
+        idx_s, idx_t = store_loaders(host)
+        feat_s, feat_t = store_loaders(host)
+        index = zip(endless(idx_s.index_epoch), endless(idx_t.index_epoch))
+        feats = zip(endless(feat_s.epoch), endless(feat_t.epoch))
+        state = TrainState(model, make_optimizer(model.parameters(), TRAIN),
+                           0)
+        step = make_train_step(model, DA, TRAIN, gather_on_device=True)
+        ref = TrainState(plain_model,
+                         make_optimizer(plain_model.parameters(), TRAIN), 0)
+        ref_step = make_train_step(plain_model, DA, TRAIN)
+        (rec, hook), (ref_rec, ref_hook) = map(record_trn,
+                                               (model, plain_model))
+        variant = f"gather_gemm_{'int8' if store_dtype == 'int8' else 'bf16'}_bf16"
+        want_launched = {**dict.fromkeys(bf16_counts(), 0), variant: 2,
+                         "trn_fused_fwd_train_bf16": 1,
+                         "trn_fused_bwd_bf16": 1}
+        worst_rel = worst = 0.0
+        ties, flips = 0, (0, 0)
+        for i, sc, (bs, bt), (hs, ht) in zip(range(BF16_STEPS), steps,
+                                             index, feats):
+            same_start(state, ref)
+            before = {k: v.clone() for k, v in named(plain_model).items()}
+            reset_counts()
+            state, got = step(state, dev[0], *bs, dev[1], *bt, sc, None)
+            torch.cuda.synchronize()
+            launched = bf16_counts()
+            if launched != want_launched or any(counts().values()):
+                raise AssertionError(f"bf16 step {i} launched {launched}, "
+                                     f"{counts()}")
+            launches = {k: launches[k] + launched[k] for k in launches}
+            ref, want = ref_step(ref, *hs, *ht, sc, None)
+            got = {k: float(v) for k, v in got.items()}
+            want = {k: float(v) for k, v in want.items()}
+            for key in want:
+                if not math.isfinite(got[key]) or not math.isclose(
+                        got[key], want[key], rel_tol=BF16_STEP_RTOL,
+                        abs_tol=1e-6):
+                    raise AssertionError(f"bf16 step {i} ({store_dtype} "
+                                         f"store): {key} {got[key]} differs "
+                                         f"from the plain path's "
+                                         f"{want[key]}")
+                worst_rel = max(worst_rel, abs(got[key] - want[key])
+                                / max(abs(want[key]), 1e-30))
+            allowed, flipped = tie_rows(rec, ref_rec, BF16_TIE_RTOL)
+            diff, rows = check_updates(i, model, plain_model, before,
+                                       allowed)
+            worst, ties = max(worst, diff), ties + rows
+            flips = tuple(map(sum, zip(flips, flipped)))
+            log(f"  {store_dtype} store, step {i}: " + ", ".join(
+                f"{k} {got[k]:.5f}/{want[k]:.5f}" for k in
+                ("loss_c", "loss_a", "loss_e", "loss"))
+                + " (device store/plain path)")
+        hook.remove()
+        ref_hook.remove()
+        log(f"  {store_dtype} store: each step from the same parameters: "
+            f"metrics within {worst_rel:.3e} relative (tolerance "
+            f"{BF16_STEP_RTOL}), each tensor's update within {worst:.3e} of "
+            f"its largest (tolerance {BF16_UPDATE_RTOL}; masks flipped at "
+            f"bfloat16 ties: {flips[0]} TRN, {flips[1]} shared FC; {ties} "
+            f"rows let through); launches per step "
+            f"{ {k: v for k, v in want_launched.items() if v} }")
+        profile_bf16_step(model, step, dev, store_loaders(host, seed=5),
+                          store_dtype)
+    return launches
+
+
+def check_updates(i, ours, ref, before, ties):
+    """Hold the update of step i of every parameter tensor (the tensor
+    after the step less ``before``, the same start of both sides) to
+    BF16_UPDATE_RTOL of the reference update's largest value, all but the
+    rows that ``ties`` (tie_rows) names, which are logged.  Returns the
+    largest such ratio of the rows held and the number let through."""
+    ours, ref = named(ours), named(ref)
+    worst, let_through = 0.0, 0
+    for name, want in ref.items():
+        if not want.is_floating_point():
+            continue
+        step_ref = (want - before[name]).float()
+        diff = ((ours[name] - before[name]).float() - step_ref).abs()
+        scale = step_ref.abs().max().item()
+        beyond = (diff > BF16_UPDATE_RTOL * scale + 1e-9).reshape(
+            want.shape[0] if want.dim() else 1, -1).any(dim=1)
+        rows = beyond.nonzero()[:, 0].tolist()
+        allowed = ties.get(name, {})
+        stray = [r for r in rows if r not in allowed]
+        if stray:
+            raise AssertionError(
+                f"{name}: the update of step {i} differs from the plain "
+                f"path's beyond {BF16_UPDATE_RTOL} of its largest "
+                f"({scale:.3e}) in {len(stray)} rows fed by no tie (first "
+                f"{stray[:5]}), max|d| {diff.max().item():.3e}")
+        for r in rows:
+            log(f"    {name} row {r} let through, max|d| "
+                f"{diff[r].max().item():.3e}: {allowed[r]}")
+            diff[r] = 0.0
+        let_through += len(rows)
+        worst = max(worst, diff.max().item() / max(scale, 1e-30))
+    return worst, let_through
+
+
+def profile_bf16_step(model, step, dev, loaders, label, n=5):
+    """The bfloat16 device-store step back to back (dropout 0 model, its
+    own loaders): ms per step and, under the profiler, device busy ms per
+    step and the idle share."""
+    state = TrainState(model, make_optimizer(model.parameters(), TRAIN), 0)
+    batches = zip(endless(loaders[0].index_epoch),
+                  endless(loaders[1].index_epoch))
+
+    def run(k):
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            bs, bt = next(batches)
+            state, m = step(state, dev[0], *bs, dev[1], *bt,
+                            scalars(state.step, 100, TRAIN.beta), None)
+        torch.cuda.synchronize()
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError("bf16 step loss is not finite")
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    run(3)
+    step_ms = statistics.median(run(TIMED_STEPS) for _ in range(2))
+    log(f"  bf16 step from the {label} store: {step_ms:.3f} ms per step "
+        f"({TIMED_STEPS} back to back, median of 2)")
+    device_profile(run, n, step_ms, f"bf16 {label}-store steps")
+
+
+def serve_bf16(gen):
+    """A Predictor on the bfloat16 flagship at batch 64 (130 videos, three
+    padded chunks) and at batch 1 (5 calls), against Predictors of a copy
+    whose TRN is the plain version: float32 probabilities within
+    BF16_PROB_TOL, top-1 equal where the plain path's top two are further
+    apart than that.  Returns the launches of the kernel Predictors."""
+    model = flagship_model(gen, compute_dtype="bfloat16")
+    plain_model = copy.deepcopy(model)
+    plain_model.TRN = PlainTRN(plain_model.TRN)
+    feats = np.random.default_rng(8).random(
+        (130, BF16_FLAGSHIP.val_segments, BF16_FLAGSHIP.input_feature_dim),
+        np.float32)
+    launches = dict.fromkeys(bf16_counts(), 0)
+    for batch, data in ((SERVE_BATCH, feats), (1, feats[:5])):
+        pred = Predictor(BF16_FLAGSHIP, model, batch_size=batch,
+                         device="cuda")
+        plain = Predictor(BF16_FLAGSHIP, plain_model, batch_size=batch,
+                          device="cuda")
+        reset_counts()
+        probs, _, top_i = pred(data)
+        torch.cuda.synchronize()
+        launched = bf16_counts()
+        want, want_p, want_i = plain(data)
+        chunks = -(-len(data) // batch)
+        err = np.abs(probs - want).max()
+        top2 = np.sort(want, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > BF16_PROB_TOL
+        log(f"  bf16 Predictor at batch {batch}: {len(data)} videos, "
+            f"max|probs - plain| {err:.3e} (tolerance {BF16_PROB_TOL:.3e}),"
+            f" top-1 equal on {int((top_i[:, 0] == want_i[:, 0]).sum())} "
+            f"of {len(data)}; probs {probs.dtype}; launches "
+            f"{ {k: v for k, v in launched.items() if v} }")
+        if probs.dtype != np.float32 or not err <= BF16_PROB_TOL or \
+                (top_i[clear, 0] != want_i[clear, 0]).any() or \
+                launched["trn_fused_fwd_bf16"] != chunks or \
+                any(counts().values()):
+            raise AssertionError(f"the bf16 Predictor at batch {batch} "
+                                 "disagrees with its plain path")
+        launches = {k: launches[k] + launched[k] for k in launches}
+    return launches
+
+
+def train_cli_bf16(root):
+    """The train CLI with --device_store --store_dtype int8
+    --compute_dtype bfloat16 --optimizer Adam for 2 epochs on the stores
+    of the published split sizes (each train batch 2 K3 int8 x bf16, 1 K1
+    (train) and 1 K2 in bfloat16; each val batch 1 K3 and 1 K1 (infer)),
+    then the eval CLI with --device_store --store_dtype int8
+    --compute_dtype bfloat16 on its model_best.pth.tar, whose Pred@1 must
+    be the best Prec@1 printed; then one host-feature epoch with
+    --accum_steps 2 (float32: K1 (train) and K2 per micro-batch), which
+    must run the accumulation epoch.  Returns the launches (bfloat16
+    variants, float32 kernels)."""
+    lists = [os.path.join(root, n, "list.txt") for n in ("src", "tgt", "val")]
+    exp = os.path.join(root, "exp_bf16")
+
+    def argv(exp_dir, *extra):
+        return [os.path.join(root, "class.txt"), "RGB", *lists, *MODEL_FLAGS,
+                *RECIPE_FLAGS, "--exp_path", exp_dir + "/",
+                "--save_best_log", os.path.join(exp_dir, "best.log"), *extra]
+
+    narrow = ["--device_store", "--store_dtype", "int8", "--compute_dtype",
+              "bfloat16"]
+    launches = dict.fromkeys(bf16_counts(), 0)
+    launches32 = dict.fromkeys(counts(), 0)
+    best_seen = 0.0
+    with trainer_records() as records:
+        best, out = run_cli(cli_train.main, argv(
+            exp, *narrow, "--optimizer", "Adam", "--lr", "0.001",
+            "--save_model", "--epochs", "2"))
+    for rec in records:
+        if rec["kind"] == "train":
+            n = rec["steps"]
+            want = {"gather_gemm_int8_bf16": 2 * n,
+                    "trn_fused_fwd_train_bf16": n, "trn_fused_bwd_bf16": n}
+            log(f"  bf16, int8 store, Adam: epoch {rec['epoch']} "
+                f"{rec['seconds']:.3f} s, {n} steps, "
+                f"{rec['videos'] / rec['seconds']:.0f} videos/s")
+        else:
+            n = rec["batches"]
+            want = {"gather_gemm_int8_bf16": n, "trn_fused_fwd_bf16": n}
+            best_seen = max(best_seen, rec["out"])
+            log(f"  bf16, int8 store: validation after epoch {rec['epoch']}"
+                f": Prec@1 {rec['out']:.3f} in {rec['seconds'] * 1e3:.1f} ms")
+        want = {**dict.fromkeys(bf16_counts(), 0), **want}
+        if rec["bf16_launches"] != want or any(rec["launches"].values()):
+            raise AssertionError(f"{rec['kind']} epoch {rec['epoch']} "
+                                 f"launched {rec['bf16_launches']}, "
+                                 f"{rec['launches']}; expected {want}")
+        launches = {k: launches[k] + rec["bf16_launches"][k]
+                    for k in launches}
+    log(f"  bf16, int8 store, Adam: best {best:.3f}; "
+        + out.strip().splitlines()[-1].strip())
+    reset_counts()
+    line, _ = run_cli(cli_test_models.main, eval_cli_args(
+        root, os.path.join(exp, "RGB", "model_best.pth.tar"), *narrow))
+    launched = bf16_counts()
+    pred1 = float(line.split()[1].rstrip("%"))
+    log(f"  eval CLI --store_dtype int8 --compute_dtype bfloat16 on "
+        f"model_best.pth.tar: {line.strip()} (best Prec@1 printed "
+        f"{best_seen:.3f}); launches "
+        f"{ {k: v for k, v in launched.items() if v} }")
+    if abs(pred1 - best_seen) > 0.006 or not launched[
+            "gather_gemm_int8_bf16"] or any(counts().values()):
+        raise AssertionError(f"Pred@1 {pred1} is not the best Prec@1 "
+                             f"{best_seen}, or the eval ran other kernels")
+    launches = {k: launches[k] + launched[k] for k in launches}
+    accum_epochs = []
+    inner = Trainer._train_epoch_accum
+
+    def counted(self, epoch, *args):
+        accum_epochs.append(epoch)
+        return inner(self, epoch, *args)
+
+    Trainer._train_epoch_accum = counted
+    try:
+        with trainer_records() as records:
+            best, out = run_cli(cli_train.main, argv(
+                os.path.join(root, "exp_accum"), "--accum_steps", "2",
+                "--epochs", "1"))
+    finally:
+        Trainer._train_epoch_accum = inner
+    for rec in records:
+        check_trainer_launches(rec)
+        launches32 = {k: launches32[k] + rec["launches"][k]
+                      for k in launches32}
+        if rec["kind"] == "train":
+            log(f"  host features, --accum_steps 2: epoch {rec['epoch']} "
+                f"{rec['seconds']:.3f} s, {rec['steps']} micro-batches, "
+                f"launches {rec['launches']}")
+    if accum_epochs != [1]:
+        raise AssertionError("--accum_steps 2 did not run the accumulation "
+                             "epoch")
+    log(f"  host features, --accum_steps 2: best {best:.3f}; "
+        + out.strip().splitlines()[-1].strip())
+    return launches, launches32
+
+
+def eval_cli_narrow(root, weights):
+    """The eval CLI on the bfloat16 run's model_best.pth.tar from narrow
+    stores and in mixed dtypes, each device-store run against a
+    host-feature run on the same values: float32 compute from a store
+    quantized on disk (its own int8 rows: K3 int8 x f32) against the host
+    gather of that store (it dequantizes in the same order), float32
+    compute from a store uploaded as bfloat16 (K3 bf16 x f32) against
+    host features rounded to bfloat16, both with scores within PROB_TOL
+    and the same Pred@k line; bfloat16 compute from the float32 store (K3
+    f32 x bf16) against host features (cuBLAS's bfloat16 GEMM), scores
+    within BF16_PROB_TOL.  Returns the launches (bfloat16 variants,
+    float32 kernels)."""
+    val = FeatureStore.load(os.path.join(root, "val"))
+    val.quantize().save(os.path.join(root, "val_q"))
+    rounded = torch.from_numpy(np.array(val.features, np.float32)).to(
+        torch.bfloat16).float().numpy()
+    FeatureStore(rounded, val.offsets, val.paths, val.labels).save(
+        os.path.join(root, "val_b"))
+    nb = -(-len(val.paths) // CLI_BATCH)
+    bf16 = ["--compute_dtype", "bfloat16"]
+    cases = (
+        ("int8_f32", ["--store", os.path.join(root, "val_q")],
+         ["--store", os.path.join(root, "val_q")], ["--device_store"],
+         PROB_TOL),
+        ("bf16_f32", ["--store", os.path.join(root, "val_b")],
+         ["--store", os.path.join(root, "val")],
+         ["--device_store", "--store_dtype", "bfloat16"], PROB_TOL),
+        ("f32_bf16", bf16, bf16, ["--device_store"], BF16_PROB_TOL))
+    launches = dict.fromkeys(bf16_counts(), 0)
+    launches32 = dict.fromkeys(counts(), 0)
+    for variant, host_flags, dev_flags, store_flags, tol in cases:
+        runs = {}
+        for label, extra in (("host", host_flags),
+                             ("store", dev_flags + store_flags)):
+            prefix = os.path.join(root, f"narrow_{variant}_{label}")
+            reset_counts()
+            line, _ = run_cli(cli_test_models.main, eval_cli_args(
+                root, weights, "--save_scores", prefix, *extra))
+            runs[label] = (line, np.load(prefix + ".npz")["scores"],
+                           bf16_counts(), counts())
+        (h_line, h_scores, _, _), (line, scores, got16, got32) = \
+            runs["host"], runs["store"]
+        err = np.abs(scores - h_scores).max()
+        log(f"  eval CLI {variant}: {line.strip()} (host features: "
+            f"{h_line.strip()}); max|scores - host| {err:.3e}; launches "
+            f"{ {k: v for k, v in {**got16, **got32}.items() if v} }")
+        k1 = "trn_fused_fwd_bf16" if variant.endswith("bf16") else \
+            "trn_fused_fwd"
+        if got16[f"gather_gemm_{variant}"] != nb or \
+                {**got16, **got32}[k1] != nb or not err <= tol or (
+                    tol == PROB_TOL and line != h_line):
+            raise AssertionError(f"the eval CLI's {variant} store run "
+                                 "disagrees with host features or ran "
+                                 "other kernels")
+        launches = {k: launches[k] + got16[k] for k in launches}
+        launches32 = {k: launches32[k] + got32[k] for k in launches32}
+    return launches, launches32
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
@@ -2075,6 +2717,13 @@ def main() -> int:
         + f" (made and uploaded in {time.perf_counter() - t0:.1f} s)")
     log("K3 vs plain")
     max_err["gather_gemm"] = check_gather_kernel(dev[0])
+    log("K1 (infer), K1 (train) and K2 in bfloat16 vs plain in bfloat16")
+    max_err.update(check_bf16_trn(gen))
+    log("K3's store x compute variants vs plain (source store as float32, "
+        "bfloat16 and int8)")
+    variants = narrow_stores(dev[0], stores[0])
+    max_err.update({f"gather_gemm_{k}": v for k, v in
+                    check_gather_variants(variants).items()})
 
     log("kernel times")
     times = time_trn(gen)
@@ -2093,17 +2742,29 @@ def main() -> int:
           "trn_fused_bwd": (bwd_t["kernel"], bwd_t["plain"], None),
           "gather_gemm": (k3_t["kernel"], k3_t["plain"], k3_t["library"])}
 
+    log("bfloat16 and narrow-store kernel times")
+    bf16_ms, bf16_k1, bf16_eval = time_bf16_kernels(gen, variants)
+    del variants
+
     # each path's launches, counted from 0 over its own run, summed per
-    # kernel over the paths that launch it
+    # kernel over the paths that launch it (the bfloat16 and narrow-store
+    # variants apart)
     launches = dict.fromkeys(counts(), 0)
+    launches16 = dict.fromkeys(bf16_counts(), 0)
 
     def add(path_launches):
         for name, n in path_launches.items():
             launches[name] += n
 
+    def add16(path_launches):
+        for name, n in path_launches.items():
+            launches16[name] += n
+
     log("flagship serving over HTTP")
     with tempfile.TemporaryDirectory() as workdir:
         add({"trn_fused_fwd": serve_flagship(gen, workdir)})
+    log("bfloat16 flagship served by a Predictor at batch 64 and 1")
+    add16(serve_bf16(gen))
 
     log(f"flagship train step, {TRAIN.batch_size[0]} + "
         f"{TRAIN.batch_size[1]} videos: kernel TRN vs plain TRN")
@@ -2119,6 +2780,10 @@ def main() -> int:
 
     log("device-store eval: one val epoch")
     add(eval_device_store(gen, stores[2], dev[2]))
+    log(f"bfloat16 flagship, device-store train steps from an int8 and a "
+        f"bfloat16 store, {TRAIN.batch_size[0]} + {TRAIN.batch_size[1]} "
+        "videos: against the plain path")
+    add16(train_bf16_store(gen, stores))
 
     log(f"the TRN beyond 16 segments: S = {MANY_FRAMES}")
     many_launches, many = trn_many_frames(gen)
@@ -2136,6 +2801,20 @@ def main() -> int:
         t0 = time.perf_counter()
         add(comparison_phase(gen, stores, dev, root))
         log(f"comparison configurations: {time.perf_counter() - t0:.1f} s")
+        log("the bfloat16 flagship through the train CLI from int8 stores "
+            "with Adam, the eval CLI on its best checkpoint, and an "
+            "--accum_steps 2 epoch from host features")
+        t0 = time.perf_counter()
+        got16, got32 = train_cli_bf16(root)
+        add16(got16)
+        add(got32)
+        log("the eval CLI from narrow stores and in mixed dtypes")
+        got16, got32 = eval_cli_narrow(root, os.path.join(
+            root, "exp_bf16", "RGB", "model_best.pth.tar"))
+        add16(got16)
+        add(got32)
+        log(f"bfloat16 and accumulation CLIs: {time.perf_counter() - t0:.1f}"
+            " s")
         log(card_line())
 
     # the shapes each kernel runs at on its path: serving batch, train batch
@@ -2193,6 +2872,38 @@ def main() -> int:
         eval_ms=k3_eval_t["kernel"], eval_plain_ms=k3_eval_t["plain"],
         eval_library_ms=k3_eval_t["library"],
         eval_bound_ms=bound(*k3_eval_work, PEAK_OPS["gather_gemm"])[0])
+    # the bfloat16 and narrow-store variants: the bfloat16 ones bound by
+    # the dense bfloat16 rate, K3 from a narrow store at float32 compute by
+    # 3xTF32's
+    log(f"launches of the bfloat16 and narrow-store variants on the paths: "
+        f"{launches16}")
+    for name, (ms_k, ms_p, ms_lib, work_k) in bf16_ms.items():
+        if launches16[name] < 1:
+            raise AssertionError(f"{name} was not launched on its path")
+        peak = (PEAK_BF16 if name.startswith("trn") or name.endswith("bf16")
+                else PEAK_TF32 / 3)
+        bound_ms, bound_by = bound(*work_k, peak)
+        source, replaces = (sources["gather_gemm"] if name.startswith(
+            "gather") else sources[name.removesuffix("_bf16")])
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches16[name],
+                 "max_abs_err": max_err[name], "ms": ms_k,
+                 "plain_ms": ms_p, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": ms_lib}
+        if name in bf16_eval:
+            ev_k, ev_p, ev_lib, ev_work = bf16_eval[name]
+            entry.update(eval_ms=ev_k, eval_plain_ms=ev_p,
+                         eval_library_ms=ev_lib,
+                         eval_bound_ms=bound(*ev_work, peak)[0])
+        if name == "trn_fused_fwd_bf16":
+            for b in TIMED_BATCHES:
+                if b != SERVE_BATCH:
+                    entry.update({
+                        f"b{b}_ms": bf16_k1[b]["kernel"],
+                        f"b{b}_plain_ms": bf16_k1[b]["plain"],
+                        f"b{b}_bound_ms": bound(*trn_work(b, esize=2)[
+                            "trn_fused_fwd"], peak)[0]})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,8 +6,10 @@ as `ta3n_tpu.cli.test_models` runs it, on one card.
 
 The positionals, flags and defaults are the JAX CLI's, plus ``--device``
 (default ``cuda``; without a CUDA device the CLI exits with an error
-rather than run on the CPU: pass ``--device cpu``).  WEIGHTS is a
-reference-format ``.pth.tar``: the original code's, one that the port's
+rather than run on the CPU: pass ``--device cpu``) and ``--compute_dtype``
+(default float32, the JAX CLI's only compute dtype; bfloat16 evaluates a
+model as the train CLI's ``--compute_dtype bfloat16`` trained it).
+WEIGHTS is a reference-format ``.pth.tar``: the original code's, one that the port's
 Trainer wrote, or a JAX checkpoint exported with
 ``python -m ta3n_tpu.cli.export_checkpoint DIR out.pth.tar``.
 
@@ -18,8 +20,9 @@ Outputs: the ``average ... sec/video`` and ``Pred@k`` lines, the confusion
 PNG and per-class top-K txt (``--save_confusion``), the attention txt
 (``--save_attention``) and the scores ``.npz`` sorted by video path
 (``--save_scores``).  With ``--device_store`` the test store is uploaded
-once and the whole test set runs in one call, gathered on the device, with
-one fetch.
+once, as float32, bfloat16 or int8 (``--store_dtype``; a store quantized
+on disk uploads its own int8 rows), and the whole test set runs in one
+call, gathered on the device, with one fetch.
 """
 
 from __future__ import annotations
@@ -96,8 +99,15 @@ def build_parser():
                         help=_later('larger-than-memory streaming', '9'))
     parser.add_argument('--store_dtype', type=str, default='float32',
                         choices=['float32', 'bfloat16', 'int8'],
-                        help='store dtype on the card; ' + _later(
-                            'bfloat16 and int8', '8'))
+                        help='dtype of the store on the card (device_store '
+                             'only): bfloat16 halves its bytes; int8 '
+                             'quarters them (per-row symmetric '
+                             'quantization, dequantized by the gather '
+                             'kernel)')
+    parser.add_argument('--compute_dtype', type=str, default='float32',
+                        choices=['float32', 'bfloat16'],
+                        help='the model\'s compute dtype (the JAX CLI '
+                             'evaluates in float32)')
     parser.add_argument('--quantize', type=str, default='none',
                         choices=['none', 'int8'],
                         help=_later('int8 inference', '10'))
@@ -114,8 +124,6 @@ def _check_ported(args) -> None:
     run, naming its ROADMAP.md item."""
     for on, what, item in (
             (args.store_budget_rows, "--store_budget_rows", "9"),
-            (args.store_dtype != "float32",
-             f"--store_dtype {args.store_dtype}", "8"),
             (args.quantize == "int8", "--quantize int8", "10"),
             (args.data_parallel, "--data_parallel", "10")):
         if on:
@@ -143,7 +151,7 @@ def main(argv=None):
         n_directions=args.n_directions, n_ts=args.n_ts,
         use_attn=args.use_attn, n_attn=args.n_attn,
         use_attn_frame=args.use_attn_frame, share_params=args.share_params,
-        quantize=args.quantize)
+        quantize=args.quantize, compute_dtype=args.compute_dtype)
     model = load_reference_checkpoint(args.weights, model_cfg, device).eval()
     meta = torch.load(args.weights, map_location="cpu", weights_only=True)
     print("model epoch {} prec@1: {}".format(meta.get("epoch"),
@@ -162,7 +170,7 @@ def main(argv=None):
     infer = make_infer_step(model, max_top,
                             gather_on_device=args.device_store)
     if args.device_store:
-        store_dev = store.to_device(device)
+        store_dev = store.to_device(device, args.store_dtype)
 
     all_scores, all_labels, all_topk, all_attn = [], [], [], []
     start = time.time()

@@ -1,5 +1,6 @@
-// Fused row gather + first-FC GEMM, float32 at f32 accuracy on the tensor
-// cores (3xTF32), for Hopper (sm_90a).
+// Fused row gather + first-FC GEMM, for Hopper (sm_90a): float32 at f32
+// accuracy on the tensor cores (3xTF32) or bfloat16 with float32
+// accumulation, from a float32, bfloat16 or int8 store.
 //
 // Replaces ta3n_tpu/ops/gather_gemm.py::_kernel (launched through
 // gathered_gemm): the device-store steps gather the B*T frame rows of a
@@ -53,20 +54,45 @@
 //    twice; without x_res (eval, inference) that write is skipped.
 // Indices are not checked here: the Python wrapper only launches with
 // indices it checked on the host (0 <= idx < R).
+//
+// Store and compute variants (six kernels of one template: store float32,
+// bfloat16 or int8, compute float32 or bfloat16).  The store stays in its
+// dtype in device memory and is staged so (an int8 row of 32 values is 32
+// bytes, a bfloat16 one 64), a quarter or half the float32 bytes.  An int8
+// store's row q comes with its float32 scale (one per store row, for all
+// its streams); the value staged into the product and x_res is
+//     __fmul_rn(__fmul_rn(float(q), scale[row]), row_scale)
+// two rounded multiplies in that order and no FMA: the JAX step's
+// device_gather (q.astype(f32) * scale) followed by x * mask, bit for bit.
+// A bfloat16 store's value is float(v) * row_scale.  At float32 compute
+// every value is split for 3xTF32 (a bfloat16 row times a 0/1 mask is
+// exact in TF32 and its small term is then 0, but the kernel does not
+// assume the mask).  At bfloat16 compute (W bfloat16) the value is rounded
+// to bfloat16 (the JAX model's entry cast after the mask), one mma.sync
+// m16n8k16 bf16 per tile and 16-deep step accumulates in float32
+// (bf16.cuh), z is rounded to bfloat16 once (after the split-K sum), and
+// x_res holds the bfloat16 values.  At the flagship train shape and
+// bfloat16 compute from an int8 store the bound is about 4.3 MB of bytes
+// (1.3 us at 3.35 TB/s) against 1.34 GFLOP (1.4 us at 989 TFLOP/s).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace {
+
+using ta3n::bf16;
 
 constexpr int kTileM = 64;
 constexpr int kTileH = 64;
 constexpr int kTileK = 32;
 constexpr int kThreads = 128;  // 4 warps: 2 along M x 2 along H
 constexpr int kStages = 4;
-constexpr int kStride = kTileK + 4;  // padded row: bank 4g + t, 16-byte rows
-constexpr int kRun = 16;             // floats staged per thread and row
+constexpr int kRun = 16;             // values staged per thread and row
 constexpr int kMaxSplits = 8;
 
 static_assert(kTileK == 2 * kRun && 2 * kTileM == kThreads &&
@@ -74,27 +100,75 @@ static_assert(kTileK == 2 * kRun && 2 * kTileM == kThreads &&
               "two threads per staged row of each tile");
 static_assert(kTileM == 2 * 32 && kTileH == 2 * 32, "4 warps of 32 x 32");
 
+// padded staged rows, 16-byte aligned: float32 36 values (bank 4g + t),
+// bfloat16 40 (bank 20g + t), int8 48 bytes
+template <class T>
+constexpr int kStride = std::is_same_v<T, float>  ? kTileK + 4
+                        : std::is_same_v<T, bf16> ? kTileK + 8
+                                                  : kTileK + 16;
+
+// S: the store's element type (float, bf16, int8_t); C: the compute type,
+// W's (float, bf16)
+template <class S, class C>
 struct Stage {
-  float x[kTileM][kStride];  // scaled on use, not here
-  float w[kTileH][kStride];
-  float scale[kTileM];
+  S x[kTileM][kStride<S>];  // scaled on use, not here
+  C w[kTileH][kStride<C>];
+  float scale[kTileM];      // row_scale of each staged row
+  // an int8 store's scale of each staged row (4 unused floats otherwise)
+  float qscale[std::is_same_v<S, int8_t> ? kTileM : 4];
 };
-constexpr int kSmem = kStages * static_cast<int>(sizeof(Stage));
-static_assert(sizeof(Stage) % 16 == 0, "16-byte aligned stages");
+template <class S, class C>
+constexpr int kSmem = kStages * static_cast<int>(sizeof(Stage<S, C>));
+
+// A run of 16 int8 values: the byte copy of tf32x3.cuh.
+template <bool kVec>
+__device__ __forceinline__ void copy_run16(int8_t* dst, const int8_t* src,
+                                           const int8_t* fallback,
+                                           int valid) {
+  ta3n::copy_run16<kVec>(reinterpret_cast<unsigned char*>(dst),
+                         reinterpret_cast<const unsigned char*>(src),
+                         reinterpret_cast<const unsigned char*>(fallback),
+                         valid);
+}
+template <bool kVec, class T>
+__device__ __forceinline__ void copy_run16(T* dst, const T* src,
+                                           const T* fallback, int valid) {
+  ta3n::copy_run16<kVec>(dst, src, fallback, valid);
+}
+
+// The staged value x[r][k] as the product and x_res see it (see the head
+// of the file): float32 rows times row_scale; bfloat16 and int8 rows with
+// rounded multiplies only.
+template <class S, class C>
+__device__ __forceinline__ float value(const Stage<S, C>& st, int r, int k,
+                                       float rs) {
+  if constexpr (std::is_same_v<S, float>)
+    return st.x[r][k] * rs;
+  else if constexpr (std::is_same_v<S, bf16>)
+    return __fmul_rn(__bfloat162float(st.x[r][k]), rs);
+  else
+    return __fmul_rn(__fmul_rn(static_cast<float>(st.x[r][k]), st.qscale[r]),
+                     rs);
+}
 
 // grid (ceil(M/kTileM), ceil(H/kTileH), splits): one block per output tile
-// and K slice.  kVec4: 16-byte copies (D % 4 == 0, 16-byte aligned store,
-// W and x_res).
-template <bool kVec4>
+// and K slice.  kVec: 16-byte copies and x_res stores (D a multiple of a
+// 16-byte run of the store's and of W's type, 16-byte aligned store, W and
+// x_res).  With splits > 1 the block writes float32 partials
+// into part, else C values into z.
+template <class S, class C, bool kVec>
 __global__ void __launch_bounds__(kThreads, 3)
-    gather_gemm_kernel(const float* __restrict__ store,
+    gather_gemm_kernel(const S* __restrict__ store,
+                       const float* __restrict__ qscale,
                        const int* __restrict__ idx,
                        const float* __restrict__ scale,
-                       const float* __restrict__ w, float* __restrict__ out,
-                       float* __restrict__ x_res, long long m_rows,
-                       int streams, int d, int k_rows, int h) {
+                       const C* __restrict__ w, C* __restrict__ z,
+                       float* __restrict__ part, C* __restrict__ x_res,
+                       long long m_rows, int streams, int d, int k_rows,
+                       int h) {
+  constexpr bool kInt8 = std::is_same_v<S, int8_t>;
   extern __shared__ __align__(128) unsigned char smem[];
-  Stage* stage = reinterpret_cast<Stage*>(smem);
+  Stage<S, C>* stage = reinterpret_cast<Stage<S, C>*>(smem);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -105,7 +179,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   const long long kdim = static_cast<long long>(k_rows) * d;  // W row
   const bool write_rows = x_res != nullptr && blockIdx.y == 0;
   if (gridDim.z > 1)
-    out += static_cast<long long>(blockIdx.z) * m_rows * h;
+    part += static_cast<long long>(blockIdx.z) * m_rows * h;
 
   // this block's K slice, in chunks of kTileK within one gathered row
   const int per_row = (d + kTileK - 1) / kTileK;
@@ -113,37 +187,40 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int c_begin = static_cast<int>(chunks * blockIdx.z / gridDim.z);
   const int c_end = static_cast<int>(chunks * (blockIdx.z + 1) / gridDim.z);
 
-  // what this thread stages: floats [col, col + kRun) of a chunk, of row
+  // what this thread stages: values [col, col + kRun) of a chunk, of row
   // m0 + srow and of W row h0 + srow
   const int srow = tid / 2, col = kRun * (tid % 2);
   const long long m = m0 + srow;
   const int gh = h0 + srow;
   int row_j = -1;
-  const float* row = nullptr;
-  float row_scale = 0.f;
+  const S* row = nullptr;
+  float row_scale = 0.f, row_q = 1.f;
 
   auto issue = [&](int c, int s) {
     c += c_begin;
     const int j = c / per_row;
     const int c0 = (c % per_row) * kTileK + col;
-    Stage& st = stage[s];
+    Stage<S, C>& st = stage[s];
     if (j != row_j) {
       row_j = j;
       row = nullptr;
       if (m < m_rows) {
         const long long q = m * k_rows + j;
         const long long n = q / streams;
-        row = store + (static_cast<long long>(idx[n]) * streams +
-                       q % streams) * d;
+        const long long r = idx[n];
+        row = store + (r * streams + q % streams) * d;
         row_scale = scale != nullptr ? scale[n] : 1.f;
+        if constexpr (kInt8) row_q = qscale[r];
       }
     }
-    if (tid % 2 == 0) st.scale[srow] = row != nullptr ? row_scale : 0.f;
-    ta3n::copy_run16<kVec4>(&st.x[srow][col],
-                            row != nullptr ? row + c0 : store, store,
-                            row != nullptr ? d - c0 : 0);
+    if (tid % 2 == 0) {
+      st.scale[srow] = row != nullptr ? row_scale : 0.f;
+      if constexpr (kInt8) st.qscale[srow] = row_q;
+    }
+    copy_run16<kVec>(&st.x[srow][col], row != nullptr ? row + c0 : store,
+                     store, row != nullptr ? d - c0 : 0);
     const bool w_in = gh < h;
-    ta3n::copy_run16<kVec4>(
+    copy_run16<kVec>(
         &st.w[srow][col],
         w_in ? w + gh * kdim + static_cast<long long>(j) * d + c0 : w, w,
         w_in ? d - c0 : 0);
@@ -151,42 +228,70 @@ __global__ void __launch_bounds__(kThreads, 3)
 
   float acc[2][4][4] = {};
   auto compute = [&](int c, int s) {
-    const Stage& st = stage[s];
-    float part[2][4][4] = {};
+    const Stage<S, C>& st = stage[s];
     float sc[2][2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       sc[i][0] = st.scale[wm + 16 * i + g];
       sc[i][1] = st.scale[wm + 16 * i + g + 8];
     }
+    if constexpr (std::is_same_v<C, float>) {
+      float part_acc[2][4][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < kTileK; kk += 8) {
-      float a[2][4], b[4][2];
+      for (int kk = 0; kk < kTileK; kk += 8) {
+        float a[2][4], b[4][2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + 16 * i + g;
-        a[i][0] = st.x[r][kk + t] * sc[i][0];
-        a[i][1] = st.x[r + 8][kk + t] * sc[i][1];
-        a[i][2] = st.x[r][kk + t + 4] * sc[i][0];
-        a[i][3] = st.x[r + 8][kk + t + 4] * sc[i][1];
+        for (int i = 0; i < 2; ++i) {
+          const int r = wm + 16 * i + g;
+          a[i][0] = value(st, r, kk + t, sc[i][0]);
+          a[i][1] = value(st, r + 8, kk + t, sc[i][1]);
+          a[i][2] = value(st, r, kk + t + 4, sc[i][0]);
+          a[i][3] = value(st, r + 8, kk + t + 4, sc[i][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn + 8 * j + g;
+          b[j][0] = st.w[n][kk + t];
+          b[j][1] = st.w[n][kk + t + 4];
+        }
+        ta3n::mma_3xtf32(part_acc, a, b);
       }
+      ta3n::add_to(acc, part_acc);
+    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn + 8 * j + g;
-        b[j][0] = st.w[n][kk + t];
-        b[j][1] = st.w[n][kk + t + 4];
+      for (int kk = 0; kk < kTileK; kk += 16) {
+        unsigned a[2][4], b[4][2];
+        const int k0 = kk + 2 * t;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = wm + 16 * i + g;
+          a[i][0] = ta3n::pack2f(value(st, r, k0, sc[i][0]),
+                                 value(st, r, k0 + 1, sc[i][0]));
+          a[i][1] = ta3n::pack2f(value(st, r + 8, k0, sc[i][1]),
+                                 value(st, r + 8, k0 + 1, sc[i][1]));
+          a[i][2] = ta3n::pack2f(value(st, r, k0 + 8, sc[i][0]),
+                                 value(st, r, k0 + 9, sc[i][0]));
+          a[i][3] = ta3n::pack2f(value(st, r + 8, k0 + 8, sc[i][1]),
+                                 value(st, r + 8, k0 + 9, sc[i][1]));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn + 8 * j + g;
+          b[j][0] = ta3n::ld2(&st.w[n][k0]);
+          b[j][1] = ta3n::ld2(&st.w[n][k0 + 8]);
+        }
+        ta3n::mma_bf16_tiles(acc, a, b);
       }
-      ta3n::mma_3xtf32(part, a, b);
     }
-    ta3n::add_to(acc, part);
     if (write_rows && m < m_rows) {
       c += c_begin;
       const int j = c / per_row;
       const int c0 = (c % per_row) * kTileK + col;
-      float* dst = x_res + (m * k_rows + j) * d + c0;
+      C* dst = x_res + (m * k_rows + j) * d + c0;
       const float rs = st.scale[srow];
-      const float* src = &st.x[srow][col];
-      if constexpr (kVec4) {
+      if constexpr (kVec && std::is_same_v<S, float> &&
+                    std::is_same_v<C, float>) {
+        const float* src = &st.x[srow][col];
 #pragma unroll
         for (int v = 0; v < kRun / 4; ++v) {
           if (4 * v >= d - c0) break;
@@ -194,10 +299,26 @@ __global__ void __launch_bounds__(kThreads, 3)
           *reinterpret_cast<float4*>(dst + 4 * v) =
               make_float4(x4.x * rs, x4.y * rs, x4.z * rs, x4.w * rs);
         }
+      } else if constexpr (kVec) {
+        // 16-byte stores of the values as the product saw them: D is a
+        // multiple of 8 here, so a run holds whole 16-byte pieces
+        constexpr int kPer = 16 / static_cast<int>(sizeof(C));
+#pragma unroll
+        for (int v = 0; v < kRun / kPer; ++v) {
+          if (kPer * v >= d - c0) break;
+          alignas(16) C vals[kPer];
+#pragma unroll
+          for (int e = 0; e < kPer; ++e)
+            vals[e] = ta3n::from_f32<C>(value(st, srow, col + kPer * v + e,
+                                              rs));
+          *reinterpret_cast<uint4*>(dst + kPer * v) =
+              *reinterpret_cast<const uint4*>(vals);
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < kRun; ++e)
-          if (e < d - c0) dst[e] = src[e] * rs;
+          if (e < d - c0)
+            dst[e] = ta3n::from_f32<C>(value(st, srow, col + e, rs));
       }
     }
   };
@@ -212,50 +333,50 @@ __global__ void __launch_bounds__(kThreads, 3)
         const long long om = m0 + wm + 16 * i + g + 8 * half;
         const int oh = h0 + wn + 8 * j + 2 * t;
         if (om >= m_rows) continue;
-        if (oh < h) out[om * h + oh] = acc[i][j][2 * half];
-        if (oh + 1 < h) out[om * h + oh + 1] = acc[i][j][2 * half + 1];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (oh + e >= h) continue;
+          const float v = acc[i][j][2 * half + e];
+          if (gridDim.z > 1)
+            part[om * h + oh + e] = v;
+          else
+            z[om * h + oh + e] = ta3n::from_f32<C>(v);
+        }
       }
 }
 
-// z[i] = sum over s of part[s][i], s in order: the split-K reduction.
+// z[i] = sum over s of part[s][i], s in order, rounded to C once: the
+// split-K reduction.
+template <class C>
 __global__ void gather_gemm_reduce(const float* __restrict__ part,
-                                   float* __restrict__ z, long long count,
+                                   C* __restrict__ z, long long count,
                                    int splits) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < count; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     float sum = part[i];
     for (int s = 1; s < splits; ++s) sum += part[s * count + i];
-    z[i] = sum;
+    z[i] = ta3n::from_f32<C>(sum);
   }
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, once.
-template <bool kVec4>
+template <class S, class C, bool kVec>
 cudaError_t allow_smem() {
   static const cudaError_t err = cudaFuncSetAttribute(
-      gather_gemm_kernel<kVec4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      gather_gemm_kernel<S, C, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<S, C>);
   return err;
 }
 
-}  // namespace
-
-// store [rows*streams, d], w [h, k_rows*d], z [m, h] and (unless null)
-// x_res [m, k_rows*d]: contiguous f32 on the current device, where
-// m = n_idx*streams/k_rows.  idx [n_idx] int32 and scale [n_idx] f32 (null:
-// every scale 1) on the same device.  Every idx must lie in [0, rows): the
-// caller checks.  splits (1..8) K slices; with more than one, part is
-// scratch of [splits, m, h] f32.  Launches on `stream` and returns
-// cudaGetLastError().
-extern "C" int ta3n_gather_gemm_f32(const void* store, const void* idx,
-                                    const void* scale, const void* w,
-                                    void* z, void* x_res, void* part,
-                                    int n_idx, int streams, int d,
-                                    int k_rows, int h, int splits,
-                                    void* stream) {
+template <class S, class C>
+int launch(const void* store, const void* qscale, const void* idx,
+           const void* scale, const void* w, void* z, void* x_res,
+           void* part, int n_idx, int streams, int d, int k_rows, int h,
+           int splits, void* stream) {
   if (n_idx < 1 || streams < 1 || d < 1 || k_rows < 1 || h < 1 ||
-      splits < 1 || splits > kMaxSplits || (splits > 1 && part == nullptr))
+      splits < 1 || splits > kMaxSplits || (splits > 1 && part == nullptr) ||
+      (std::is_same_v<S, int8_t> != (qscale != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long gathered = static_cast<long long>(n_idx) * streams;
   if (gathered % k_rows != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -269,25 +390,64 @@ extern "C" int ta3n_gather_gemm_f32(const void* store, const void* idx,
   const auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
-  const bool vec4 = d % 4 == 0 && aligned(store) && aligned(w) &&
-                    (x_res == nullptr || aligned(x_res));
-  const cudaError_t attr = vec4 ? allow_smem<true>() : allow_smem<false>();
+  const bool vec = d % (16 / static_cast<int>(sizeof(S))) == 0 &&
+                   d % (16 / static_cast<int>(sizeof(C))) == 0 &&
+                   aligned(store) && aligned(w) &&
+                   (x_res == nullptr || aligned(x_res));
+  const cudaError_t attr =
+      vec ? allow_smem<S, C, true>() : allow_smem<S, C, false>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(tiles), (h + kTileH - 1) / kTileH,
                   splits);
-  (vec4 ? gather_gemm_kernel<true> : gather_gemm_kernel<false>)
-      <<<grid, kThreads, kSmem, s>>>(
-          static_cast<const float*>(store), static_cast<const int*>(idx),
-          static_cast<const float*>(scale), static_cast<const float*>(w),
-          static_cast<float*>(splits > 1 ? part : z),
-          static_cast<float*>(x_res), m_rows, streams, d, k_rows, h);
+  (vec ? gather_gemm_kernel<S, C, true> : gather_gemm_kernel<S, C, false>)
+      <<<grid, kThreads, kSmem<S, C>, s>>>(
+          static_cast<const S*>(store), static_cast<const float*>(qscale),
+          static_cast<const int*>(idx), static_cast<const float*>(scale),
+          static_cast<const C*>(w), static_cast<C*>(z),
+          static_cast<float*>(part), static_cast<C*>(x_res), m_rows,
+          streams, d, k_rows, h);
   if (splits > 1) {
     const long long count = m_rows * h;
     const long long blocks = (count + 255) / 256;
-    gather_gemm_reduce<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
-                         256, 0, s>>>(static_cast<const float*>(part),
-                                      static_cast<float*>(z), count, splits);
+    gather_gemm_reduce<C>
+        <<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+            static_cast<const float*>(part), static_cast<C*>(z), count,
+            splits);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// store [rows*streams, d] of the element type store_kind (0 float32, 1
+// bfloat16, 2 int8, whose qscale [rows] f32 holds each store row's scale;
+// null for the others), w [h, k_rows*d], z [m, h] and (unless null) x_res
+// [m, k_rows*d] of the compute type compute_kind (0 float32, 1 bfloat16):
+// contiguous on the current device, where m = n_idx*streams/k_rows.  idx
+// [n_idx] int32 and scale [n_idx] f32 (null: every scale 1) on the same
+// device.  Every idx must lie in [0, rows): the caller checks.  splits
+// (1..8) K slices; with more than one, part is scratch of [splits, m, h]
+// f32.  An unknown kind is refused.  Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int ta3n_gather_gemm(const void* store, const void* qscale,
+                                const void* idx, const void* scale,
+                                const void* w, void* z, void* x_res,
+                                void* part, int n_idx, int streams, int d,
+                                int k_rows, int h, int splits, int store_kind,
+                                int compute_kind, void* stream) {
+#define TA3N_GATHER(S, C)                                                  \
+  return launch<S, C>(store, qscale, idx, scale, w, z, x_res, part, n_idx, \
+                      streams, d, k_rows, h, splits, stream)
+  if (compute_kind == 0) {
+    if (store_kind == 0) TA3N_GATHER(float, float);
+    if (store_kind == 1) TA3N_GATHER(bf16, float);
+    if (store_kind == 2) TA3N_GATHER(int8_t, float);
+  } else if (compute_kind == 1) {
+    if (store_kind == 0) TA3N_GATHER(float, bf16);
+    if (store_kind == 1) TA3N_GATHER(bf16, bf16);
+    if (store_kind == 2) TA3N_GATHER(int8_t, bf16);
+  }
+#undef TA3N_GATHER
+  return static_cast<int>(cudaErrorInvalidValue);
 }

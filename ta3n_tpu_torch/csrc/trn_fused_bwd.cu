@@ -1,5 +1,6 @@
 // Fused multi-scale TRN backward, float32 at f32 accuracy on the tensor
-// cores (3xTF32), for Hopper (sm_90a).
+// cores (3xTF32) or bfloat16 with float32 accumulation, for Hopper
+// (sm_90a).
 //
 // Replaces ta3n_tpu/ops/trn_fused.py::_bwd_kernel (launched by
 // _fused_backward_pallas, the backward of trn_multiscale_fused's custom
@@ -66,14 +67,32 @@
 //    the weights come as an array of pointers.
 // Ragged B, H and D edges are zero-filled by the copies and masked in the
 // stores.
+//
+// The bfloat16 variant (x, g and the weights bfloat16; dx, dW and db
+// written in bfloat16, as the JAX package rounds them,
+// ta3n_tpu/ops/trn_fused.py:287, 310-312) keeps the tiles, the ring and
+// the fixed-order reductions.  Every operand is exactly a bfloat16 value:
+// relu(x) and W are, and m = mask ? g : 0 is g or +0.  So one mma.sync
+// m16n8k16 bf16 per tile and 16-deep step, with float32 accumulation
+// summed directly (bf16.cuh), reproduces the Pallas kernel's float32-
+// promoted dots up to the order of the sum.  The tiles are staged as
+// bfloat16 (K-major rows padded to 40 values, MN-major rows to 72), half
+// the bytes; fragments of MN-major tiles are packed from two 16-bit
+// loads.  Bound at the flagship train shape: about 10 MB moved at
+// bfloat16 (3.0 us at 3.35 TB/s) against 3.39 GFLOP (3.4 us at 989
+// TFLOP/s).
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "tf32x3.cuh"
 #include "trn_plan.cuh"
 
 namespace {
 
+using ta3n::bf16;
 using ta3n::Plan;
 
 constexpr int kThreads = 128;  // 4 warps: 2 x 2, each 32 x 32 outputs
@@ -81,59 +100,86 @@ constexpr int kTile = 64;      // output tile, both families
 constexpr int kTileK = 32;     // K chunk: H (dx) or batch rows (dW)
 constexpr int kStages = 3;
 constexpr int kRun = 16;       // elements staged per thread and row
-// shared rows: K-major (dx's g), MN-major (W, x, dW's g), and the masks
-constexpr int kKStride = kTileK + 4;
+// shared rows: K-major (dx's g; float32 36 values, bfloat16 40),
+// MN-major (W, x, dW's g), and the masks
+template <class T>
+constexpr int kKStride = std::is_same_v<T, float> ? kTileK + 4 : kTileK + 8;
 constexpr int kNStride = kTile + 8;
 constexpr int kDxMaskStride = 48, kDwMaskStride = 80;
 // a stage: g, masks, then W (dx) or x (dW)
-constexpr int kGBytes = kTile * kKStride * 4;
+template <class T>
+constexpr int kGBytes = kTile * kKStride<T> * static_cast<int>(sizeof(T));
 constexpr int kMaskBytes = kTile * kDxMaskStride;
-constexpr int kBBytes = kTileK * kNStride * 4;
-constexpr int kStageBytes = kGBytes + kMaskBytes + kBBytes;
-constexpr int kSmem = kStages * kStageBytes;
-static_assert(kTileK * kNStride * 4 <= kGBytes &&
-                  kTileK * kDwMaskStride <= kMaskBytes,
-              "dW's tiles fit dx's");
-static_assert(kGBytes % 16 == 0 && kMaskBytes % 16 == 0 &&
-                  kStageBytes % 16 == 0,
-              "16-byte aligned tiles");
+template <class T>
+constexpr int kBBytes = kTileK * kNStride * static_cast<int>(sizeof(T));
+template <class T>
+constexpr int kStageBytes = kGBytes<T> + kMaskBytes + kBBytes<T>;
+template <class T>
+constexpr int kSmem = kStages * kStageBytes<T>;
+
+template <class T>
+constexpr bool tiles_fit() {
+  return kTileK * kNStride * static_cast<int>(sizeof(T)) <= kGBytes<T> &&
+         kTileK * kDwMaskStride <= kMaskBytes && kGBytes<T> % 16 == 0 &&
+         kMaskBytes % 16 == 0 && kStageBytes<T> % 16 == 0;
+}
+static_assert(tiles_fit<float>() && tiles_fit<bf16>(),
+              "dW's tiles fit dx's, 16-byte aligned tiles");
 static_assert(kTile * kTileK == kThreads * kRun &&
                   kTile * kTileK / kThreads == kRun,
               "one run of 16 per thread and tile");
 
 // A triple of a dx block's frame, staged after the ring: W_i at the
 // triple's position, W_i's row length k_i*D, scale i and global subset.
+template <class T>
 struct Triple {
-  const float* w;
+  const T* w;
   int row, scale, sub, pad;
 };
-static_assert(kStageBytes % alignof(Triple) == 0, "triples after the ring");
+static_assert(kStageBytes<float> % alignof(Triple<float>) == 0 &&
+                  kStageBytes<bf16> % alignof(Triple<bf16>) == 0,
+              "triples after the ring");
 
+template <class T>
 struct Stage {
-  float* g;
+  T* g;
   unsigned char* mask;
-  float* b;  // W (dx) or x (dW)
+  T* b;  // W (dx) or x (dW)
 };
 
-__device__ __forceinline__ Stage stage_at(unsigned char* smem, int s) {
-  unsigned char* base = smem + s * kStageBytes;
-  return {reinterpret_cast<float*>(base), base + kGBytes,
-          reinterpret_cast<float*>(base + kGBytes + kMaskBytes)};
+template <class T>
+__device__ __forceinline__ Stage<T> stage_at(unsigned char* smem, int s) {
+  unsigned char* base = smem + s * kStageBytes<T>;
+  return {reinterpret_cast<T*>(base), base + kGBytes<T>,
+          reinterpret_cast<T*>(base + kGBytes<T> + kMaskBytes)};
 }
 
 // m = mask ? g : 0 from a staged tile
-__device__ __forceinline__ float masked(const Stage& st, int g_at,
+__device__ __forceinline__ float masked(const Stage<float>& st, int g_at,
                                         int mask_at) {
   return st.mask[mask_at] ? st.g[g_at] : 0.f;
 }
+__device__ __forceinline__ bf16 masked(const Stage<bf16>& st, int g_at,
+                                       int mask_at) {
+  return st.mask[mask_at] ? st.g[g_at] : __ushort_as_bfloat16(0);
+}
+
+// The pair m[r][k], m[r][k+1] of a K-major bfloat16 tile as one register.
+__device__ __forceinline__ unsigned masked_pair(const Stage<bf16>& st,
+                                                int g_at, int mask_at) {
+  const unsigned keep = (st.mask[mask_at] ? 0x0000ffffu : 0u) |
+                        (st.mask[mask_at + 1] ? 0xffff0000u : 0u);
+  return ta3n::ld2(st.g + g_at) & keep;
+}
 
 // The dx tile `blk`: frame f, batch rows b0.., D columns d0...
-template <bool kVec4>
+template <class T, bool kVec>
 __device__ __forceinline__ void dx_tile(
     const Plan& plan, const long long* __restrict__ ptrs,
-    const float* __restrict__ x, const float* __restrict__ g,
-    const unsigned char* __restrict__ masks, float* __restrict__ dx,
-    int batch, int num_frames, int d, int h, int blk, unsigned char* smem) {
+    const T* __restrict__ x, const T* __restrict__ g,
+    const unsigned char* __restrict__ masks, T* __restrict__ dx, int batch,
+    int num_frames, int d, int h, int blk, unsigned char* smem) {
+  constexpr int kKS = kKStride<T>;
   const int tiles_b = (batch + kTile - 1) / kTile;
   const int tiles_d = (d + kTile - 1) / kTile;
   const int f = blk / (tiles_b * tiles_d);
@@ -154,7 +200,7 @@ __device__ __forceinline__ void dx_tile(
   const bool row_in = gb < batch;
 
   // the frame's triples, decoded once into shared memory after the ring
-  Triple* trips = reinterpret_cast<Triple*>(smem + kSmem);
+  Triple<T>* trips = reinterpret_cast<Triple<T>*>(smem + kSmem<T>);
   const int t_begin = __ldg(&plan.trip0[f]);
   const int n_trip = __ldg(&plan.trip0[f + 1]) - t_begin;
   for (int q = tid; q < n_trip; q += kThreads) {
@@ -163,30 +209,30 @@ __device__ __forceinline__ void dx_tile(
     const int4 u0 = __ldg(&plan.units[3 * z]);      // i, p, n_sub, slot
     const int4 u1 = __ldg(&plan.units[3 * z + 1]);  // counts, sub0
     const int k = __ldg(&plan.units[3 * z + 2]).w;
-    trips[q] = {ta3n::ptr_at<const float>(ptrs, z) +
+    trips[q] = {ta3n::ptr_at<const T>(ptrs, z) +
                     static_cast<long long>(u0.y) * d,
                 k * d, u0.x, u1.w + (code & 3), 0};
   }
   __syncthreads();
 
   auto issue = [&](int c, int s) {
-    const Triple tr = trips[c / h_chunks];
+    const Triple<T> tr = trips[c / h_chunks];
     const int i = tr.scale, sub = tr.sub;
     const int hk = c % h_chunks * kTileK;
-    const Stage st = stage_at(smem, s);
+    const Stage<T> st = stage_at<T>(smem, s);
     const int hh = hk + ac;
-    ta3n::copy_run16<kVec4>(
-        st.g + ar * kKStride + ac,
+    ta3n::copy_run16<kVec>(
+        st.g + ar * kKS + ac,
         row_in ? g + (static_cast<long long>(gb) * n_scales + i) * h + hh : g,
         g, row_in ? h - hh : 0);
-    ta3n::copy_run16<kVec4>(
+    ta3n::copy_run16<kVec>(
         st.mask + ar * kDxMaskStride + ac,
         row_in ? masks + (static_cast<long long>(gb) * plan.n_sub_total +
                           sub) * h + hh
                : masks,
         masks, row_in ? h - hh : 0);
     const int wh = hk + br;
-    ta3n::copy_run16<kVec4>(
+    ta3n::copy_run16<kVec>(
         st.b + br * kNStride + bc,
         wh < h ? tr.w + static_cast<long long>(wh) * tr.row + d0 + bc : tr.w,
         tr.w, wh < h ? d - d0 - bc : 0);
@@ -194,32 +240,59 @@ __device__ __forceinline__ void dx_tile(
 
   float acc[2][4][4] = {};
   auto compute = [&](int, int s) {
-    const Stage st = stage_at(smem, s);
-    float part[2][4][4] = {};
+    const Stage<T> st = stage_at<T>(smem, s);
+    if constexpr (std::is_same_v<T, float>) {
+      float part[2][4][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < kTileK; kk += 8) {
-      float a[2][4], b[4][2];
+      for (int kk = 0; kk < kTileK; kk += 8) {
+        float a[2][4], b[4][2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + 16 * i + gq;
-        const int k0 = kk + t;
-        a[i][0] = masked(st, r * kKStride + k0, r * kDxMaskStride + k0);
-        a[i][1] = masked(st, (r + 8) * kKStride + k0,
-                         (r + 8) * kDxMaskStride + k0);
-        a[i][2] = masked(st, r * kKStride + k0 + 4,
-                         r * kDxMaskStride + k0 + 4);
-        a[i][3] = masked(st, (r + 8) * kKStride + k0 + 4,
-                         (r + 8) * kDxMaskStride + k0 + 4);
+        for (int i = 0; i < 2; ++i) {
+          const int r = wm + 16 * i + gq;
+          const int k0 = kk + t;
+          a[i][0] = masked(st, r * kKS + k0, r * kDxMaskStride + k0);
+          a[i][1] = masked(st, (r + 8) * kKS + k0,
+                           (r + 8) * kDxMaskStride + k0);
+          a[i][2] = masked(st, r * kKS + k0 + 4, r * kDxMaskStride + k0 + 4);
+          a[i][3] = masked(st, (r + 8) * kKS + k0 + 4,
+                           (r + 8) * kDxMaskStride + k0 + 4);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn + 8 * j + gq;
+          b[j][0] = st.b[(kk + t) * kNStride + n];
+          b[j][1] = st.b[(kk + t + 4) * kNStride + n];
+        }
+        ta3n::mma_3xtf32(part, a, b);
       }
+      ta3n::add_to(acc, part);
+    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn + 8 * j + gq;
-        b[j][0] = st.b[(kk + t) * kNStride + n];
-        b[j][1] = st.b[(kk + t + 4) * kNStride + n];
+      for (int kk = 0; kk < kTileK; kk += 16) {
+        unsigned a[2][4], b[4][2];
+        const int k0 = kk + 2 * t;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = wm + 16 * i + gq;
+          a[i][0] = masked_pair(st, r * kKS + k0, r * kDxMaskStride + k0);
+          a[i][1] = masked_pair(st, (r + 8) * kKS + k0,
+                                (r + 8) * kDxMaskStride + k0);
+          a[i][2] = masked_pair(st, r * kKS + k0 + 8,
+                                r * kDxMaskStride + k0 + 8);
+          a[i][3] = masked_pair(st, (r + 8) * kKS + k0 + 8,
+                                (r + 8) * kDxMaskStride + k0 + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn + 8 * j + gq;
+          b[j][0] = ta3n::pack2(st.b[k0 * kNStride + n],
+                                st.b[(k0 + 1) * kNStride + n]);
+          b[j][1] = ta3n::pack2(st.b[(k0 + 8) * kNStride + n],
+                                st.b[(k0 + 9) * kNStride + n]);
+        }
+        ta3n::mma_bf16_tiles(acc, a, b);
       }
-      ta3n::mma_3xtf32(part, a, b);
     }
-    ta3n::add_to(acc, part);
   };
   ta3n::pipeline<kStages>(n_trip * h_chunks, issue, compute);
 
@@ -237,7 +310,8 @@ __device__ __forceinline__ void dx_tile(
           if (col >= d) continue;
           const long long at =
               (static_cast<long long>(b) * num_frames + f) * d + col;
-          dx[at] = x[at] > 0.f ? acc[i][j][2 * half + e] : 0.f;
+          dx[at] = ta3n::from_f32<T>(
+              ta3n::to_f32(x[at]) > 0.f ? acc[i][j][2 * half + e] : 0.f);
         }
       }
 }
@@ -245,12 +319,12 @@ __device__ __forceinline__ void dx_tile(
 // The dW tile `blk`: unit (scale, position) z, H rows h0.., D columns
 // d0...  dw and db: the flat gradient buffers (dW_i at h*d*(its first
 // unit), db_i at h*i).
-template <bool kVec4>
+template <class T, bool kVec>
 __device__ __forceinline__ void dw_tile(
-    const Plan& plan, const float* __restrict__ x,
-    const float* __restrict__ g, const unsigned char* __restrict__ masks,
-    float* __restrict__ dw, float* __restrict__ db, int batch,
-    int num_frames, int d, int h, int blk, unsigned char* smem) {
+    const Plan& plan, const T* __restrict__ x, const T* __restrict__ g,
+    const unsigned char* __restrict__ masks, T* __restrict__ dw,
+    T* __restrict__ db, int batch, int num_frames, int d, int h, int blk,
+    unsigned char* smem) {
   const int tiles_d = (d + kTile - 1) / kTile;
   const int tiles_h = (h + kTile - 1) / kTile;
   const int z = blk / (tiles_h * tiles_d);
@@ -279,19 +353,19 @@ __device__ __forceinline__ void dw_tile(
     const int f = j == 0 ? u2.x : j == 1 ? u2.y : u2.z;
     const int sub = sub0 + j;
     const bool in = gb < batch;
-    const Stage st = stage_at(smem, s);
+    const Stage<T> st = stage_at<T>(smem, s);
     const int hh = h0 + sc;
-    ta3n::copy_run16<kVec4>(
+    ta3n::copy_run16<kVec>(
         st.g + sr * kNStride + sc,
         in ? g + (static_cast<long long>(gb) * n_scales + scale) * h + hh : g,
         g, in ? h - hh : 0);
-    ta3n::copy_run16<kVec4>(
+    ta3n::copy_run16<kVec>(
         st.mask + sr * kDwMaskStride + sc,
         in ? masks + (static_cast<long long>(gb) * plan.n_sub_total + sub) *
                          h + hh
            : masks,
         masks, in ? h - hh : 0);
-    ta3n::copy_run16<kVec4>(
+    ta3n::copy_run16<kVec>(
         st.b + sr * kNStride + sc,
         in ? x + (static_cast<long long>(gb) * num_frames + f) * d + d0 + sc
            : x,
@@ -301,36 +375,67 @@ __device__ __forceinline__ void dw_tile(
   float acc[2][4][4] = {};
   float db_acc = 0.f;
   auto compute = [&](int, int s) {
-    const Stage st = stage_at(smem, s);
-    float part[2][4][4] = {};
+    const Stage<T> st = stage_at<T>(smem, s);
+    if constexpr (std::is_same_v<T, float>) {
+      float part[2][4][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < kTileK; kk += 8) {
-      float a[2][4], b[4][2];
-      const int k0 = kk + t, k1 = kk + t + 4;
+      for (int kk = 0; kk < kTileK; kk += 8) {
+        float a[2][4], b[4][2];
+        const int k0 = kk + t, k1 = kk + t + 4;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        // A = m^T: row r of A is column r of the staged m
-        const int r = wm + 16 * i + gq;
-        a[i][0] = masked(st, k0 * kNStride + r, k0 * kDwMaskStride + r);
-        a[i][1] = masked(st, k0 * kNStride + r + 8,
-                         k0 * kDwMaskStride + r + 8);
-        a[i][2] = masked(st, k1 * kNStride + r, k1 * kDwMaskStride + r);
-        a[i][3] = masked(st, k1 * kNStride + r + 8,
-                         k1 * kDwMaskStride + r + 8);
+        for (int i = 0; i < 2; ++i) {
+          // A = m^T: row r of A is column r of the staged m
+          const int r = wm + 16 * i + gq;
+          a[i][0] = masked(st, k0 * kNStride + r, k0 * kDwMaskStride + r);
+          a[i][1] = masked(st, k0 * kNStride + r + 8,
+                           k0 * kDwMaskStride + r + 8);
+          a[i][2] = masked(st, k1 * kNStride + r, k1 * kDwMaskStride + r);
+          a[i][3] = masked(st, k1 * kNStride + r + 8,
+                           k1 * kDwMaskStride + r + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn + 8 * j + gq;
+          b[j][0] = fmaxf(st.b[k0 * kNStride + n], 0.f);
+          b[j][1] = fmaxf(st.b[k1 * kNStride + n], 0.f);
+        }
+        ta3n::mma_3xtf32(part, a, b);
       }
+      ta3n::add_to(acc, part);
+    } else {
+      // A = m^T and B = relu(x), both MN-major: each register packs the
+      // rows k and k + 1 of one column
+      const auto m_at = [&](int k, int r) {
+        return masked(st, k * kNStride + r, k * kDwMaskStride + r);
+      };
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn + 8 * j + gq;
-        b[j][0] = fmaxf(st.b[k0 * kNStride + n], 0.f);
-        b[j][1] = fmaxf(st.b[k1 * kNStride + n], 0.f);
+      for (int kk = 0; kk < kTileK; kk += 16) {
+        unsigned a[2][4], b[4][2];
+        const int k0 = kk + 2 * t;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = wm + 16 * i + gq;
+          a[i][0] = ta3n::pack2(m_at(k0, r), m_at(k0 + 1, r));
+          a[i][1] = ta3n::pack2(m_at(k0, r + 8), m_at(k0 + 1, r + 8));
+          a[i][2] = ta3n::pack2(m_at(k0 + 8, r), m_at(k0 + 9, r));
+          a[i][3] = ta3n::pack2(m_at(k0 + 8, r + 8), m_at(k0 + 9, r + 8));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn + 8 * j + gq;
+          b[j][0] = ta3n::relu2(ta3n::pack2(st.b[k0 * kNStride + n],
+                                            st.b[(k0 + 1) * kNStride + n]));
+          b[j][1] = ta3n::relu2(ta3n::pack2(st.b[(k0 + 8) * kNStride + n],
+                                            st.b[(k0 + 9) * kNStride + n]));
+        }
+        ta3n::mma_bf16_tiles(acc, a, b);
       }
-      ta3n::mma_3xtf32(part, a, b);
     }
-    ta3n::add_to(acc, part);
     if (db_block && tid < kTile) {
 #pragma unroll 8
       for (int k = 0; k < kTileK; ++k)
-        db_acc += masked(st, k * kNStride + tid, k * kDwMaskStride + tid);
+        db_acc += ta3n::to_f32(
+            masked(st, k * kNStride + tid, k * kDwMaskStride + tid));
     }
   };
   ta3n::pipeline<kStages>(u0.z * b_chunks, issue, compute);
@@ -351,59 +456,55 @@ __device__ __forceinline__ void dw_tile(
           const int col = d0 + wn + 8 * j + 2 * t + e;
           if (col < d)
             dw[gh * row + static_cast<long long>(p) * d + col] =
-                acc[i][j][2 * half + e];
+                ta3n::from_f32<T>(acc[i][j][2 * half + e]);
         }
       }
   if (db_block && tid < kTile && h0 + tid < h)
-    db[static_cast<long long>(scale) * h + h0 + tid] = db_acc;
+    db[static_cast<long long>(scale) * h + h0 + tid] =
+        ta3n::from_f32<T>(db_acc);
 }
 
 // grid (dx_blocks + dW blocks): the dx tiles first, then the dW tiles.
-// kVec4: 16-byte copies (D % 4 == 0, H % 16 == 0, aligned pointers).
-// ptrs: each unit's weight (its scale's).  Dynamic shared memory: the
-// ring, then the triples of the frame with the most.
-template <bool kVec4>
+// kVec: 16-byte copies (D and H multiples of a 16-byte run, H % 16 == 0,
+// aligned pointers).  ptrs: each unit's weight (its scale's).  Dynamic
+// shared memory: the ring, then the triples of the frame with the most.
+template <class T, bool kVec>
 __global__ void __launch_bounds__(kThreads, 3)
     trn_fused_bwd_kernel(const Plan plan, const long long* __restrict__ ptrs,
-                         const float* __restrict__ x,
-                         const float* __restrict__ g,
+                         const T* __restrict__ x, const T* __restrict__ g,
                          const unsigned char* __restrict__ masks,
-                         float* __restrict__ dx, float* __restrict__ dw,
-                         float* __restrict__ db, int batch, int num_frames,
+                         T* __restrict__ dx, T* __restrict__ dw,
+                         T* __restrict__ db, int batch, int num_frames,
                          int d, int h, int dx_blocks) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int blk = static_cast<int>(blockIdx.x);
   if (blk < dx_blocks)
-    dx_tile<kVec4>(plan, ptrs, x, g, masks, dx, batch, num_frames, d, h, blk,
-                   smem);
+    dx_tile<T, kVec>(plan, ptrs, x, g, masks, dx, batch, num_frames, d, h,
+                     blk, smem);
   else
-    dw_tile<kVec4>(plan, x, g, masks, dw, db, batch, num_frames, d, h,
-                   blk - dx_blocks, smem);
+    dw_tile<T, kVec>(plan, x, g, masks, dw, db, batch, num_frames, d, h,
+                     blk - dx_blocks, smem);
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in: raised to
 // `bytes` when a plan needs more than any before.
-template <bool kVec4>
+template <class T, bool kVec>
 cudaError_t allow_smem(int bytes) {
   static int allowed = 0;
   if (bytes <= allowed) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      trn_fused_bwd_kernel<kVec4>,
+      trn_fused_bwd_kernel<T, kVec>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) allowed = bytes;
   return err;
 }
 
-}  // namespace
-
-// ta3n_trn_fused_bwd_f32 with a choice of tiles: parts & 1 the dx tiles,
-// parts & 2 the dW/db tiles (3: both, the backward).  One family alone
-// is for timing each one's share; it writes only its own outputs.
-extern "C" int ta3n_trn_fused_bwd_parts_f32(
-    const void* x, const void* ptrs, const void* const* host_ptrs,
-    const void* masks, const void* g, void* dx, void* dw, void* db,
-    const int* plan_table, int plan_len, const int* plan_dev, int batch,
-    int num_frames, int d, int h, int parts, void* stream) {
+template <class T>
+int launch_bwd(const void* x, const void* ptrs, const void* const* host_ptrs,
+               const void* masks, const void* g, void* dx, void* dw, void* db,
+               const int* plan_table, int plan_len, const int* plan_dev,
+               int batch, int num_frames, int d, int h, int parts,
+               void* stream) {
   if (num_frames < 2 || batch < 0 || d < 1 || h < 1 || parts < 1 ||
       parts > 3 || ptrs == nullptr || host_ptrs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -421,30 +522,45 @@ extern "C" int ta3n_trn_fused_bwd_parts_f32(
       (parts & 2 ? tiles_d * ((h + kTile - 1) / kTile) * info.plan.n_units
                  : 0);
   const long long smem =
-      kSmem + static_cast<long long>(info.max_trip) * sizeof(Triple);
+      kSmem<T> + static_cast<long long>(info.max_trip) * sizeof(Triple<T>);
   if (blocks > 0x7fffffffLL || smem > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   const auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
-  bool vec4 = d % 4 == 0 && h % 16 == 0 && aligned(x) && aligned(g) &&
-              aligned(masks);
+  bool vec = d % (16 / static_cast<int>(sizeof(T))) == 0 && h % 16 == 0 &&
+             aligned(x) && aligned(g) && aligned(masks);
   for (int z = 0; z < info.plan.n_units; ++z)
-    vec4 = vec4 && aligned(host_ptrs[z]);
+    vec = vec && aligned(host_ptrs[z]);
   const int bytes = static_cast<int>(smem);
   const cudaError_t attr =
-      vec4 ? allow_smem<true>(bytes) : allow_smem<false>(bytes);
+      vec ? allow_smem<T, true>(bytes) : allow_smem<T, false>(bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  (vec4 ? trn_fused_bwd_kernel<true> : trn_fused_bwd_kernel<false>)
+  (vec ? trn_fused_bwd_kernel<T, true> : trn_fused_bwd_kernel<T, false>)
       <<<static_cast<unsigned>(blocks), kThreads, bytes,
          static_cast<cudaStream_t>(stream)>>>(
           info.plan, static_cast<const long long*>(ptrs),
-          static_cast<const float*>(x), static_cast<const float*>(g),
-          static_cast<const unsigned char*>(masks), static_cast<float*>(dx),
-          static_cast<float*>(dw), static_cast<float*>(db), batch, num_frames,
-          d, h, static_cast<int>(dx_blocks));
+          static_cast<const T*>(x), static_cast<const T*>(g),
+          static_cast<const unsigned char*>(masks), static_cast<T*>(dx),
+          static_cast<T*>(dw), static_cast<T*>(db), batch, num_frames, d, h,
+          static_cast<int>(dx_blocks));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ta3n_trn_fused_bwd_f32 with a choice of tiles: parts & 1 the dx tiles,
+// parts & 2 the dW/db tiles (3: both, the backward).  One family alone
+// is for timing each one's share; it writes only its own outputs.
+extern "C" int ta3n_trn_fused_bwd_parts_f32(
+    const void* x, const void* ptrs, const void* const* host_ptrs,
+    const void* masks, const void* g, void* dx, void* dw, void* db,
+    const int* plan_table, int plan_len, const int* plan_dev, int batch,
+    int num_frames, int d, int h, int parts, void* stream) {
+  return launch_bwd<float>(x, ptrs, host_ptrs, masks, g, dx, dw, db,
+                           plan_table, plan_len, plan_dev, batch, num_frames,
+                           d, h, parts, stream);
 }
 
 // x [batch, num_frames, d] f32, masks [batch, n_sub_total*h] uint8 (from
@@ -465,7 +581,22 @@ extern "C" int ta3n_trn_fused_bwd_f32(const void* x, const void* ptrs,
                                       const int* plan_dev, int batch,
                                       int num_frames, int d, int h,
                                       void* stream) {
-  return ta3n_trn_fused_bwd_parts_f32(x, ptrs, host_ptrs, masks, g, dx, dw,
-                                      db, plan_table, plan_len, plan_dev,
-                                      batch, num_frames, d, h, 3, stream);
+  return launch_bwd<float>(x, ptrs, host_ptrs, masks, g, dx, dw, db,
+                           plan_table, plan_len, plan_dev, batch, num_frames,
+                           d, h, 3, stream);
+}
+
+// The bfloat16 variant: as ta3n_trn_fused_bwd_f32 with x, g, the weights,
+// dx, dw and db bfloat16 (the masks from ta3n_trn_fused_fwd_train_bf16).
+extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
+                                       const void* const* host_ptrs,
+                                       const void* masks, const void* g,
+                                       void* dx, void* dw, void* db,
+                                       const int* plan_table, int plan_len,
+                                       const int* plan_dev, int batch,
+                                       int num_frames, int d, int h,
+                                       void* stream) {
+  return launch_bwd<bf16>(x, ptrs, host_ptrs, masks, g, dx, dw, db,
+                          plan_table, plan_len, plan_dev, batch, num_frames,
+                          d, h, 3, stream);
 }

@@ -14,9 +14,9 @@ Layout on disk (directory), as the JAX package writes it:
                     "num_streams": 1|2}
 Flow modality stores x/y stream features interleaved per frame:
     features.npy   [total_frames, 2, D]
-
-Quantized (int8) stores, which add ``scales.npy``, are not ported yet
-(ROADMAP.md queue 1, item 8): they raise.
+Int8-quantized stores (``quantize()``, `data/quantized.py`) add
+    scales.npy     [total_frames] float32, one scale per frame row
+and ``"store_dtype": "int8"`` in meta.json; their host gathers dequantize.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ta3n_tpu_torch.data.manifest import VideoRecord
+from ta3n_tpu_torch.data.quantized import quantize_rows
 
 __all__ = ["FeatureStore"]
 
@@ -37,10 +38,6 @@ class FeatureStore:
     def __init__(self, features: np.ndarray, offsets: np.ndarray,
                  paths: Sequence[str], labels: Sequence[int],
                  scales: np.ndarray = None):
-        if scales is not None:
-            raise NotImplementedError(
-                "int8-quantized feature stores are not ported yet "
-                "(ROADMAP.md queue 1, item 8)")
         if offsets.shape[0] != len(paths) + 1:
             raise ValueError(f"{offsets.shape[0]} offsets for "
                              f"{len(paths)} videos")
@@ -48,6 +45,7 @@ class FeatureStore:
         self.offsets = np.asarray(offsets, dtype=np.int64)
         self.paths = list(paths)
         self.labels = np.asarray(labels, dtype=np.int64)
+        self.scales = scales  # [total_frames] f32 iff int8-quantized
         self._path_index = {p: i for i, p in enumerate(self.paths)}
 
     # ---- properties ----
@@ -62,6 +60,19 @@ class FeatureStore:
     @property
     def num_streams(self) -> int:
         return self.features.shape[1] if self.features.ndim == 3 else 1
+
+    @property
+    def quantized(self) -> bool:
+        return self.scales is not None
+
+    def quantize(self) -> "FeatureStore":
+        """Int8-quantized copy (per-row symmetric, data/quantized.py):
+        4x smaller rows; gathers dequantize transparently."""
+        if self.quantized:
+            return self
+        q, s = quantize_rows(np.asarray(self.features))
+        return FeatureStore(q, self.offsets, self.paths, self.labels,
+                            scales=s)
 
     def num_frames(self, video_idx: np.ndarray) -> np.ndarray:
         video_idx = np.asarray(video_idx)
@@ -83,34 +94,63 @@ class FeatureStore:
         video_idx: [B]; frame_idx: [B, T] 0-based within-video indices.
         Flow stores return [B, T*streams, D] with x/y interleaved per frame
         (parity with dataset.py:62-66 extending [x, y] per step).
+        A quantized store's rows are dequantized in the order of
+        ``dequantize_rows`` (cast, then multiply), as the JAX package's.
         """
         abs_idx = (self.offsets[np.asarray(video_idx)][:, None]
                    + np.asarray(frame_idx))
-        out = np.asarray(self.features[abs_idx], dtype=dtype)
+        rows = self.features[abs_idx]
+        if self.quantized:
+            s = np.asarray(self.scales[abs_idx], np.float32)
+            rows = rows.astype(np.float32) * s.reshape(
+                s.shape + (1,) * (rows.ndim - 2))
+        out = np.asarray(rows, dtype=dtype)
         if out.ndim == 4:  # [B, T, streams, D] -> [B, T*streams, D]
             b, t, s, d = out.shape
             out = out.reshape(b, t * s, d)
         return out
 
-    def to_device(self, device="cuda") -> torch.Tensor:
-        """The features as one contiguous float32 tensor on ``device``,
-        [total_frames, D] or [total_frames, streams, D], uploaded once.  A
-        float16 store becomes float32, which is exact (the JAX model casts
-        gathered float16 rows to float32 in the same way)."""
-        return torch.tensor(np.asarray(self.features), dtype=torch.float32,
-                            device=device)
+    def to_device(self, device="cuda", dtype=None):
+        """The features on ``device``, uploaded once, for the device-store
+        steps: a contiguous tensor [total_frames, D] or [total_frames,
+        streams, D], or an int8 store's pair ``(q, scale)`` (q int8 of that
+        shape, scale float32 [total_frames]).
+
+        ``dtype`` (a name or a torch dtype, the Trainer's ``store_dtype``):
+        None or float32 gives float32 (a float16 store's rows upcast
+        exactly, as the JAX model casts them); bfloat16 rounds to bfloat16
+        on the host (round to nearest even, as numpy's ``astype``); int8
+        quantizes per row on the host (``quantize_rows``).  A store that
+        is quantized on disk uploads its own pair whatever ``dtype`` says,
+        as the JAX Trainer does."""
+        name = _dtype_name(dtype)
+        if self.quantized or name == "int8":
+            q, scale = ((self.features, self.scales) if self.quantized
+                        else quantize_rows(np.asarray(self.features)))
+            return (torch.tensor(np.asarray(q), dtype=torch.int8,
+                                 device=device),
+                    torch.tensor(np.asarray(scale), dtype=torch.float32,
+                                 device=device))
+        rows = torch.tensor(np.asarray(self.features), dtype=torch.float32)
+        if name == "bfloat16":
+            rows = rows.to(torch.bfloat16)
+        return rows.to(device).contiguous()
 
     # ---- persistence ----
     def save(self, directory: str) -> None:
         os.makedirs(directory, exist_ok=True)
         np.save(os.path.join(directory, "features.npy"), self.features)
         np.save(os.path.join(directory, "offsets.npy"), self.offsets)
+        if self.quantized:
+            np.save(os.path.join(directory, "scales.npy"), self.scales)
         meta = {
             "paths": self.paths,
             "labels": self.labels.tolist(),
             "feature_dim": int(self.feature_dim),
             "num_streams": int(self.num_streams),
         }
+        if self.quantized:
+            meta["store_dtype"] = "int8"
         with open(os.path.join(directory, "meta.json"), "w") as f:
             json.dump(meta, f)
 
@@ -141,6 +181,23 @@ class FeatureStore:
     def subset(self, indices: Sequence[int]) -> "FeatureStore":
         feats = [self.features[self.offsets[i]:self.offsets[i + 1]]
                  for i in indices]
-        return FeatureStore.from_arrays(
+        sub = FeatureStore.from_arrays(
             feats, [self.paths[i] for i in indices],
             [int(self.labels[i]) for i in indices])
+        if self.quantized:
+            sub.scales = np.concatenate(
+                [self.scales[self.offsets[i]:self.offsets[i + 1]]
+                 for i in indices])
+        return sub
+
+
+def _dtype_name(dtype) -> str:
+    """A store dtype as its name: None and float32 as "float32"; raise on
+    what the device-store steps do not take."""
+    if dtype in (None, "", "float32", torch.float32):
+        return "float32"
+    name = {torch.bfloat16: "bfloat16", torch.int8: "int8"}.get(dtype, dtype)
+    if name not in ("bfloat16", "int8"):
+        raise ValueError(f"store dtype {dtype!r}: the device-store steps take "
+                         "float32, bfloat16 or int8 stores")
+    return name

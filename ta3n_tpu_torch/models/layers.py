@@ -1,5 +1,5 @@
-"""Building blocks of the port: the reference's init policy, the
-TransAttn weights, general attention, the masked BatchNorm of AdaBN and
+"""Building blocks of the port: the reference's init policy, the Linear
+that computes in the model's compute dtype, the TransAttn weights, general attention, the masked BatchNorm of AdaBN and
 AutoDIAL, the temporal conv layer of temconv aggregation, and
 ``cudnn_f32``, which runs a cuDNN convolution or RNN in float32 forward
 and backward whatever ``torch.backends.cudnn.allow_tf32`` says.
@@ -10,6 +10,16 @@ the Linears that the reference's init loop touches get
 the relation-domain heads keep torch's default Linear init, weight and bias
 U(±1/sqrt(fan_in)).  With normal(0.001) there the TRN output is ~1e-3 in
 scale and training stalls.  Both draw from an explicit ``torch.Generator``.
+
+Compute dtype (`ta3n_tpu/models/layers.py:165-186`): parameters are
+float32 whatever ``ModelConfig.param_dtype`` says, as in the JAX package,
+which reads that field nowhere.  A ``Linear`` whose ``compute_dtype`` is
+bfloat16 computes as flax ``nn.Dense(dtype=bfloat16)``: input, weight and
+bias cast to bfloat16, the product rounded to bfloat16, then the bias
+added in bfloat16.  One with ``compute_dtype`` None computes in the
+promoted type of its input and weight, as ``nn.Dense(dtype=None)``: a
+bfloat16 input to such a layer (general attention's) is computed in
+float32.  The BN statistics are float32 whatever the input's dtype.
 """
 
 from __future__ import annotations
@@ -24,9 +34,9 @@ from torch.nn import functional as F
 
 from ta3n_tpu_torch.losses.losses import entropy_from_logits
 
-__all__ = ["linear", "normal_001_", "torch_default_uniform_",
+__all__ = ["Linear", "linear", "normal_001_", "torch_default_uniform_",
            "trans_attn_weights", "GeneralAttn", "MaskedBatchNorm", "TCL",
-           "cudnn_f32"]
+           "cudnn_f32", "bf16_f32_reduction"]
 
 
 @torch.no_grad()
@@ -50,12 +60,29 @@ def torch_default_uniform_(layer: nn.Linear,
     return layer
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` (the same parameters and state_dict keys) that
+    computes in ``compute_dtype``: None (the default) in the promoted type
+    of its input and weight, which for a float32 input is ``nn.Linear``'s
+    own arithmetic; bfloat16 as flax ``nn.Dense(dtype=bfloat16)``, the
+    product and the bias add each rounded to bfloat16."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or torch.promote_types(x.dtype,
+                                                       self.weight.dtype)
+        if dt == self.weight.dtype:
+            return F.linear(x.to(dt), self.weight, self.bias)
+        return x.to(dt) @ self.weight.to(dt).T + self.bias.to(dt)
+
+
 def linear(in_features: int, out_features: int, init: str,
-           generator: Optional[torch.Generator]) -> nn.Linear:
-    """An ``nn.Linear`` on the CPU with the reference's init policy:
-    ``init`` is "normal001" or "torch_default".  Built without torch's own
-    init, so the global RNG is not touched."""
-    layer = nn.utils.skip_init(nn.Linear, in_features, out_features)
+           generator: Optional[torch.Generator]) -> Linear:
+    """A `Linear` on the CPU with the reference's init policy: ``init`` is
+    "normal001" or "torch_default".  Built without torch's own init, so
+    the global RNG is not touched."""
+    layer = nn.utils.skip_init(Linear, in_features, out_features)
     if init == "normal001":
         return normal_001_(layer, generator)
     if init == "torch_default":
@@ -105,7 +132,9 @@ class MaskedBatchNorm(nn.Module):
 
     Which statistics it uses is the ``use_running_average`` argument of
     the forward, never ``self.training``: the steps pass it from their
-    ``is_train``.  Parameters and buffers carry torch's BN names
+    ``is_train``.  The statistics and the normalisation are computed in
+    float32 and the output has the input's dtype, as in the JAX package
+    (a bfloat16 input is normalised in float32 and rounded once).  Parameters and buffers carry torch's BN names
     (``weight``, ``bias``, ``running_mean``, ``running_var``,
     ``num_batches_tracked``), so a reference state_dict loads as it is.
     """
@@ -124,6 +153,8 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor,
                 stats_weight: Optional[torch.Tensor] = None,
                 use_running_average: bool = False) -> torch.Tensor:
+        out_dtype = x.dtype
+        x = x.float()
         if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
@@ -146,8 +177,26 @@ class MaskedBatchNorm(nn.Module):
                 self.running_var.copy_((1 - m) * self.running_var
                                        + m * unbiased)
                 self.num_batches_tracked.add_(1)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
-            + self.bias
+        return ((x - mean) * torch.rsqrt(var + self.eps) * self.weight
+                + self.bias).to(out_dtype)
+
+
+@contextlib.contextmanager
+def bf16_f32_reduction():
+    """cuBLAS's bfloat16 matrix products with float32 reductions for the
+    duration, as XLA's: ``torch.backends.cuda.matmul.
+    allow_bf16_reduced_precision_reduction`` is True by default, and then
+    cuBLAS may sum a split-K product's partials in bfloat16.  The
+    previous setting is restored.  The train, eval and infer steps
+    (`train/step.py`) and the Predictor (`serve.py`) run inside it; it
+    changes nothing for float32 products or on the CPU."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
 
 
 @contextlib.contextmanager
@@ -209,7 +258,9 @@ class TCL(nn.Module):
     [B, S, D] -> [B, S, D].  The conv is ``conv2d``, the reference's
     parameter name (``tcl_3_1.conv2d.weight``), and runs through
     ``cudnn_f32``.  Its bias keeps torch's default init, U(±1/sqrt(fan_in))
-    (the reference initialises only the weight)."""
+    (the reference initialises only the weight).  A bfloat16 input is
+    computed in float32, as the JAX TCL (an ``nn.Conv`` without a dtype)
+    promotes it to its float32 kernel."""
 
     def __init__(self, conv_size: int, generator: Optional[torch.Generator]):
         super().__init__()
@@ -226,5 +277,5 @@ class TCL(nn.Module):
         conv = self.conv2d
         y = cudnn_f32(lambda t: F.conv2d(t, conv.weight, conv.bias,
                                          padding=conv.padding),
-                      x[:, None], (conv.weight, conv.bias))
+                      x.float()[:, None], (conv.weight, conv.bias))
         return y[:, 0]

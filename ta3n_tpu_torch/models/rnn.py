@@ -16,6 +16,14 @@ reference checkpoint strict-loads.  Weights take kaiming-normal init
 bias vectors are kept, as torch and the JAX package keep them.  The net
 runs through `layers.cudnn_f32`: float32 whatever
 ``torch.backends.cudnn.allow_tf32`` says.
+
+Under ``compute_dtype="bfloat16"`` the chunk maxima are taken on the
+bfloat16 frame features and the recurrent net runs in float32, with a
+float32 video feature, as in the JAX package: its scans compute
+``x @ w_ih`` with float32 parameters, which promotes the bfloat16 input
+(`ta3n_tpu/models/rnn.py:52-75, 111`).  So ``cudnn_f32`` keeps its one
+meaning under bfloat16 as well: float32 on cuDNN with TF32 off (TF32 has
+no bearing on a bfloat16 product, and none is made here).
 """
 
 from __future__ import annotations
@@ -76,7 +84,8 @@ def rnn_aggregate(rnn: nn.RNNBase, feat_seg: torch.Tensor,
                   n_ts: int) -> torch.Tensor:
     """The video feature [B, H * n_directions] of frame features
     feat_seg [B, S, D]: the chunk maxima through ``rnn`` from a zero
-    state, its output at the last time step (models.py:409-422)."""
-    x = chunk_frames(feat_seg, n_ts)
+    state, its output at the last time step (models.py:409-422), in
+    float32 whatever feat_seg's dtype."""
+    x = chunk_frames(feat_seg, n_ts).float()
     out = cudnn_f32(lambda t: rnn(t)[0], x, tuple(rnn.parameters()))
     return out[:, -1]

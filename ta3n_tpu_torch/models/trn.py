@@ -8,6 +8,13 @@ reference ``state_dict`` loads as it is.  The multi-scale forward runs the
 fused ops (`ops/trn_fused.py`) on each scale's Linear parameters; the
 single-scale one is a plain Linear, as in the JAX package, which never
 gives it the Pallas path.
+
+``dtype`` is the model's compute dtype.  Under bfloat16 the multi-scale
+module casts x, the weights and the biases to bfloat16 before the fused
+ops, as the JAX module does before its Pallas kernels
+(`ta3n_tpu/models/trn.py:138-143`): the products accumulate in float32,
+the bias is added in float32, the output is bfloat16.  The single-scale
+Linear computes as a bfloat16 ``nn.Dense`` (`models/layers.py::Linear`).
 """
 
 from __future__ import annotations
@@ -38,12 +45,14 @@ class RelationModule(nn.Module):
 
     def __init__(self, img_feature_dim: int, num_bottleneck: int,
                  num_frames: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_frames = num_frames
-        self.classifier = nn.Sequential(
-            nn.ReLU(), linear(num_frames * img_feature_dim, num_bottleneck,
-                              "torch_default", generator), nn.ReLU())
+        fc = linear(num_frames * img_feature_dim, num_bottleneck,
+                    "torch_default", generator)
+        fc.compute_dtype = dtype
+        self.classifier = nn.Sequential(nn.ReLU(), fc, nn.ReLU())
 
     def forward(self, x: torch.Tensor, infer: bool = False) -> torch.Tensor:
         """``infer`` is accepted for the multi-scale module's signature;
@@ -64,10 +73,12 @@ class RelationModuleMultiScale(nn.Module):
 
     def __init__(self, img_feature_dim: int, num_bottleneck: int,
                  num_frames: int, subsample_num: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_frames = num_frames
         self.subsample_num = subsample_num
+        self.dtype = dtype
         plan = build_relation_plan(num_frames, subsample_num)
         self.fc_fusion_scales = nn.ModuleList(
             nn.Sequential(nn.ReLU(),
@@ -84,7 +95,9 @@ class RelationModuleMultiScale(nn.Module):
         if x.shape[1] != self.num_frames:
             raise ValueError(f"expected {self.num_frames} segments, got "
                              f"{x.shape[1]}")
-        weights = [seq[1].weight for seq in self.fc_fusion_scales]
-        biases = [seq[1].bias for seq in self.fc_fusion_scales]
+        dt = self.dtype
+        weights = [seq[1].weight.to(dt) for seq in self.fc_fusion_scales]
+        biases = [seq[1].bias.to(dt) for seq in self.fc_fusion_scales]
         fused = trn_multiscale_infer if infer else trn_multiscale_fused
-        return fused(x, weights, biases, self.num_frames, self.subsample_num)
+        return fused(x.to(dt), weights, biases, self.num_frames,
+                     self.subsample_num)

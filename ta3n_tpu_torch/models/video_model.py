@@ -7,8 +7,21 @@ AdaBN/AutoDIAL alignment after the first shared layer, frame-level
 TransAttn or general attention; avgpool, RNN (`models/rnn.py`), temconv,
 single-scale TRN or multi-scale TRN aggregation with TransAttn, general or
 no relation attention; softmax outputs and MCD's second video classifier,
-in float32.  int8 and bf16 raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+in float32 or bfloat16 (``compute_dtype``).  int8 inference raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
+
+Under ``compute_dtype="bfloat16"`` the model casts where the JAX model
+casts (`ta3n_tpu/models/video_model.py`), with explicit ``.to(dtype)``
+and never ``torch.autocast``, which rounds at other places: the frame
+rows enter in bfloat16 (:171-175); every Dense layer computes as a
+bfloat16 ``nn.Dense`` (`models/layers.py::Linear`); TransAttn weights
+are computed on float32 domain logits and cast back (:208, :234, :292);
+the relation heads (:279-287), the video heads (:340-346) and the TRN
+(`models/trn.py`) compute in bfloat16; general attention, the TCL and the
+RNN compute in float32, as flax promotes their bfloat16 inputs to their
+float32 parameters.  The parameters stay float32 whatever
+``param_dtype`` says (the JAX package reads that field nowhere), so
+every ``StreamOutput`` field has its JAX counterpart's dtype.
 
 The frame baseline's output ``out`` is the frame classifier's logits
 [B, S, C]; the tsn baseline's is their mean over the segments [B, C]; the
@@ -49,9 +62,9 @@ __all__ = ["VideoModel", "StreamOutput"]
 # the others)
 _PORTED = {
     "quantize": (("none",), "10: int8 inference"),
-    "compute_dtype": (("float32",), "8: the bf16 compute path"),
-    "param_dtype": (("float32",), "8: the bf16 compute path"),
 }
+# the compute dtypes whose kernels the port has (float16 has none)
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the reference builds at most three shared FC layers: its parameter names
 # stop at fc_feature_shared_3_* (models.py:141-192)
 _MAX_FC = 3
@@ -67,9 +80,18 @@ def _check_ported(cfg: ModelConfig) -> None:
                 f"{field}={got!r} is not ported yet; the port runs "
                 f"{field}={' or '.join(map(repr, ported))} (ROADMAP.md "
                 f"queue 1, item {item})")
+    if cfg.compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: the port "
+                         f"computes in {' or '.join(_COMPUTE_DTYPES)}")
     if cfg.add_fc > _MAX_FC:
         raise ValueError(f"add_fc={cfg.add_fc}: the reference has at most "
                          f"{_MAX_FC} shared FC layers")
+
+
+def _in(layer, dtype: torch.dtype):
+    """``layer`` (a `Linear`) computing in ``dtype``."""
+    layer.compute_dtype = dtype
+    return layer
 
 
 def _dropout(x: torch.Tensor, p: float, training: bool,
@@ -114,6 +136,7 @@ class VideoModel(nn.Module):
                              f"== val_segments, got {cfg.train_segments} "
                              f"and {cfg.val_segments}")
         self.cfg = cfg
+        self.dtype = dt = _COMPUTE_DTYPES[cfg.compute_dtype]
         d_in, d_sh = cfg.input_feature_dim, cfg.shared_dim
         d_agg = cfg.aggregated_dim
         g = generator
@@ -121,7 +144,9 @@ class VideoModel(nn.Module):
                                                                "target")
 
         def n001(i, o):
-            return linear(i, o, "normal001", g)
+            """A Dense layer of the compute dtype (``dense(dtype=dtype)``
+            in the JAX model)."""
+            return _in(linear(i, o, "normal001", g), dt)
 
         def dual(name, i, o):
             """The source layer and, under share_params N, the target
@@ -149,18 +174,19 @@ class VideoModel(nn.Module):
             d_rel = cfg.num_bottleneck
             if cfg.frame_aggregation == "trn":
                 self.TRN = RelationModule(d_sh, d_rel, cfg.train_segments,
-                                          generator=g)
+                                          generator=g, dtype=dt)
                 num_relation = 1
             else:
                 self.TRN = RelationModuleMultiScale(
-                    d_sh, d_rel, cfg.train_segments, generator=g)
+                    d_sh, d_rel, cfg.train_segments, generator=g, dtype=dt)
                 num_relation = cfg.train_segments - 1
             # relation domain heads: torch default init, built outside the
             # reference's normal_(0.001) loop (models.py:286-294)
             self.relation_domain_classifier_all = nn.ModuleList(
-                nn.Sequential(linear(d_rel, d_agg, "torch_default", g),
-                              nn.ReLU(),
-                              linear(d_agg, 2, "torch_default", g))
+                nn.Sequential(
+                    _in(linear(d_rel, d_agg, "torch_default", g), dt),
+                    nn.ReLU(),
+                    _in(linear(d_agg, 2, "torch_default", g), dt))
                 for _ in range(num_relation))
             if cfg.use_attn == "general":
                 self.attn_layer = GeneralAttn(d_agg, g)
@@ -219,7 +245,8 @@ class VideoModel(nn.Module):
             raise ValueError(f"the streams have {s} and "
                              f"{input_target.shape[1]} segments")
         x = torch.cat([input_source, input_target], dim=0)
-        return self._dual("fc_feature_shared", x.reshape(-1, x.shape[-1]),
+        return self._dual("fc_feature_shared",
+                          x.reshape(-1, x.shape[-1]).to(self.dtype),
                           input_source.shape[0] * s)
 
     def forward(self, input_source: torch.Tensor, input_target: torch.Tensor,
@@ -353,11 +380,13 @@ class VideoModel(nn.Module):
 
         # frame-level attention (models.py:368-377, 612-614), keyed by
         # use_attn_frame as in the JAX package
+        dt = self.dtype
         if cfg.use_attn_frame == "TransAttn":
-            f = (trans_attn_weights(pred_domain_frame)[:, None] + 1) * f
+            w = trans_attn_weights(pred_domain_frame.float())
+            f = (w[:, None].to(dt) + 1) * f
         elif cfg.use_attn_frame == "general":
             w = self.attn_layer_frame(f.reshape(b_all, num_segments, -1))
-            f = (w.reshape(-1, 1) + 1) * f
+            f = (w.reshape(-1, 1).to(dt) + 1) * f
 
         # the frame classifier (models.py:616-621) feeds only the frame and
         # tsn baselines: the video baseline never reads it
@@ -379,8 +408,8 @@ class VideoModel(nn.Module):
                     mask_target)).mean(dim=1)
             else:
                 if cfg.use_attn == "TransAttn":  # models.py:427-430
-                    w = trans_attn_weights(pred_domain_frame_3d)
-                    feat_seg = (w[..., None] + 1) * feat_seg
+                    w = trans_attn_weights(pred_domain_frame_3d.float())
+                    feat_seg = (w[..., None].to(dt) + 1) * feat_seg
                 feat_video = feat_seg.mean(dim=1)
             attn = feat_video[:, 0]  # the reference's junk value
             pred_domain_relation = None
@@ -392,11 +421,11 @@ class VideoModel(nn.Module):
                  for i, head in enumerate(self.relation_domain_classifier_all)],
                 dim=1)                                        # [B, R, 2]
             if cfg.use_attn == "TransAttn":  # models.py:379-388, 643-648
-                attn = trans_attn_weights(pred_domain_relation)   # [B, R]
-                rel = (attn[..., None] + 1) * rel
+                attn = trans_attn_weights(pred_domain_relation.float())
+                rel = (attn[..., None].to(dt) + 1) * rel      # attn [B, R]
             elif cfg.use_attn == "general":
                 w = self.attn_layer(rel)                      # [B, R, 1]
-                rel = (w + 1) * rel
+                rel = (w.to(dt) + 1) * rel
                 attn = w[:, :, 0]
             else:
                 attn = rel[:, :, 0]

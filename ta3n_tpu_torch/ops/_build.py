@@ -48,6 +48,11 @@ _ENTRIES = {
     # length, plan (device), batch, frames, d, h, splits, stream
     "ta3n_trn_fused_fwd_train_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
                                      _I, _I, _I, _I, _P],
+    # the bfloat16 variants of the two, with the same arguments
+    "ta3n_trn_fused_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                                _I, _I, _P],
+    "ta3n_trn_fused_fwd_train_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                      _I, _I, _I, _I, _I, _P],
     # x, w ptrs (device), w ptrs (host), masks, g, dx, dw, db, plan table,
     # its length, plan (device), batch, frames, d, h, stream
     "ta3n_trn_fused_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
@@ -55,10 +60,13 @@ _ENTRIES = {
     # the same and parts (1: dx tiles, 2: dW/db tiles, 3: both), stream
     "ta3n_trn_fused_bwd_parts_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _P, _I, _I, _I, _I, _I, _P],
-    # store, idx, scale, w, z, x_res, part, n_idx, streams, d, k_rows, h,
-    # splits, stream
-    "ta3n_gather_gemm_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _P],
+    # the bfloat16 variant of the backward, with its arguments
+    "ta3n_trn_fused_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                _I, _I, _I, _I, _P],
+    # store, its int8 scales, idx, scale, w, z, x_res, part, n_idx,
+    # streams, d, k_rows, h, splits, store kind, compute kind, stream
+    "ta3n_gather_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P],
 }
 
 

@@ -23,9 +23,23 @@ at row 0 with scale 0, so their rows are exactly 0, as JAX's ``x * mask``):
     weight (the JAX package leaves dW to XLA too).  The stores and indices
     get no gradient.
 
+Stores and compute dtypes.  A store is a float32 or bfloat16 tensor, or an
+int8 store's pair ``(q, scale)`` (`data/quantized.py`: q int8, one float32
+scale per store row), whose rows are dequantized as they are gathered:
+``float(q) * scale``, then ``* row_scale``, two rounded multiplies in that
+order, the JAX step's ``device_gather`` followed by ``x * mask``
+(`ta3n_tpu/train/step.py:400-404, 764`), bit for bit.  The weight's dtype
+is the compute dtype: float32, or bfloat16, where the scaled rows are
+rounded to bfloat16 (the JAX model's entry cast, ``video_model.py:175``),
+multiplied with float32 accumulation, and z is rounded to bfloat16; x_res
+then holds the bfloat16 rows.  Each of the six (store, compute) pairs is a
+variant of the kernel with its own count of launches (``launches`` is the
+float32 store at float32 compute, ``variant_launches`` every variant).
+
 Shapes: a store is [R, D], or [R, S, D] for a Flow store whose S stream
 rows interleave per frame (row r, stream s is gathered row r·S + s, the
-order of ``device_gather``); ``weight`` is in torch layout [H, k·D], where
+order of ``device_gather``; an int8 store's scale is one per row r, for
+all its streams); ``weight`` is in torch layout [H, k·D], where
 k consecutive gathered rows form one FC input row, as the model's
 ``x.reshape(B*S, -1)`` groups them (k = 1 for RGB at new_length 1).  The
 outputs are z [M, H] and x_res [M, k·D], M = N·S/k for N indices.
@@ -44,14 +58,25 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ta3n_tpu_torch.ops.trn_fused import _call, _check_tensor, _no_kernel
+from ta3n_tpu_torch.ops.trn_fused import (_acc, _call, _check_tensor,
+                                          _no_kernel)
 
 __all__ = ["RowIndex", "row_index", "gathered_gemm_plain", "gathered_gemm",
-           "gathered_linear", "launches"]
+           "gathered_linear", "launches", "variant_launches"]
 
 # kernel launches made by gathered_gemm and gathered_linear (plain-version
-# calls are not counted); callers reset it to 0 to count one run's launches
+# calls are not counted); callers reset them to count one run's launches:
+# ``launches`` for the float32 store at float32 compute, and
+# ``variant_launches["{store}_{compute}"]`` (e.g. "int8_bf16") for every
+# variant, that one included
 launches = 0
+# the store and compute dtypes the kernel takes, and their codes in the C
+# entry (csrc/gather_gemm.cu)
+_STORE_KINDS = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1),
+                torch.int8: ("int8", 2)}
+_COMPUTE_KINDS = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1)}
+variant_launches = {f"{s}_{c}": 0 for s, _ in _STORE_KINDS.values()
+                    for c, _ in _COMPUTE_KINDS.values()}
 
 # the kernel's tiles (csrc/gather_gemm.cu): output rows and columns per
 # block, K per chunk; and how many K slices share an output tile: as many
@@ -86,8 +111,37 @@ def row_index(idx, num_rows: int, device="cuda") -> RowIndex:
     return RowIndex(torch.tensor(a, dtype=torch.int32, device=device), end)
 
 
+def _split_store(store) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(rows, per-row scales or None) of a store tensor or (q, scale)
+    pair."""
+    if isinstance(store, (tuple, list)):
+        q, scale = store
+        if q.dtype != torch.int8 or scale.dtype != torch.float32 or \
+                tuple(scale.shape) != (q.shape[0],):
+            raise TypeError(f"an int8 store is (q int8 [R, ...], scale "
+                            f"float32 [R]), got {q.dtype} {tuple(q.shape)} "
+                            f"and {scale.dtype} {tuple(scale.shape)}")
+        if scale.device != q.device:
+            raise ValueError(f"store scales on {scale.device}, rows on "
+                             f"{q.device}")
+        return q, scale
+    return store, None
+
+
+def _variant(store, weight: torch.Tensor) -> str:
+    """The kernel variant of a store (tensor or pair) and a weight, e.g.
+    ``"int8_bf16"``: the store's dtype, then the compute dtype."""
+    rows, _ = _split_store(store)
+    if rows.dtype not in _STORE_KINDS or weight.dtype not in _COMPUTE_KINDS:
+        raise TypeError(f"the gather kernel takes float32, bfloat16 or int8 "
+                        f"stores and float32 or bfloat16 weights, got "
+                        f"{rows.dtype} and {weight.dtype}")
+    return f"{_STORE_KINDS[rows.dtype][0]}_{_COMPUTE_KINDS[weight.dtype][0]}"
+
+
 def _rows_of(idx, store: torch.Tensor) -> torch.Tensor:
-    """The int32 index tensor that may be read against ``store``."""
+    """The int32 index tensor that may be read against ``store`` (its row
+    tensor)."""
     if isinstance(idx, RowIndex):
         rows = idx.rows
         if rows.device != store.device:
@@ -128,25 +182,32 @@ def _geometry(store, n, weight, row_scale) -> Tuple[int, int, int, int]:
     return streams, d, k, n * streams // k
 
 
-def gathered_gemm_plain(store: torch.Tensor, idx: torch.Tensor,
-                        weight: torch.Tensor,
+def gathered_gemm_plain(store, idx: torch.Tensor, weight: torch.Tensor,
                         row_scale: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: ``(z, x_res)`` with x_res the gathered rows,
-    each scaled by its row_scale, viewed as [M, k*D], and
-    ``z = x_res @ weight.T``.  idx: [N] integer tensor on the store's
-    device."""
-    rows = store.index_select(0, idx)               # [N, D] or [N, S, D]
+    """Plain PyTorch version: ``(z, x_res)`` with x_res the gathered rows
+    (an int8 store's dequantized), each scaled by its row_scale, viewed as
+    [M, k*D] in the weight's dtype, and ``z = x_res @ weight.T`` (at
+    bfloat16: float32 products of the bfloat16 values, rounded once).
+    idx: [N] integer tensor on the store's device."""
+    data, scale = _split_store(store)
+    rows = data.index_select(0, idx)                # [N, D] or [N, S, D]
+    shape = (-1, *([1] * (rows.dim() - 1)))
+    if scale is not None:
+        rows = rows.to(scale.dtype) * scale.index_select(0, idx).reshape(
+            shape)
+    rows = _acc(rows)
     if row_scale is not None:
-        rows = rows * row_scale.reshape(-1, *([1] * (rows.dim() - 1)))
-    x = rows.reshape(-1, weight.shape[1])
-    return x @ weight.T, x
+        rows = rows * row_scale.reshape(shape)
+    x = rows.reshape(-1, weight.shape[1]).to(weight.dtype)
+    return (_acc(x) @ _acc(weight).T).to(weight.dtype), x
 
 
 def _prepare(store, idx, weight, row_scale):
     """The checked index tensor and the geometry of one gather."""
-    rows = _rows_of(idx, store)
-    return rows, _geometry(store, rows.shape[0], weight, row_scale)
+    data, _ = _split_store(store)
+    rows = _rows_of(idx, data)
+    return rows, _geometry(data, rows.shape[0], weight, row_scale)
 
 
 def _gather_into(store, rows, geometry, weight, row_scale, z,
@@ -154,31 +215,44 @@ def _gather_into(store, rows, geometry, weight, row_scale, z,
     """One gather + GEMM written into z [M, H] and, unless None, x_res
     [M, k*D]: the kernel on a CUDA store, the plain version on a CPU one."""
     global launches
-    if store.device.type == "cpu":
+    data, scale = _split_store(store)
+    if data.device.type == "cpu":
         got_z, got_x = gathered_gemm_plain(store, rows, weight, row_scale)
         z.copy_(got_z)
         if x_res is not None:
             x_res.copy_(got_x)
         return
-    if store.device.type != "cuda":
-        raise _no_kernel("gathered_gemm", store.device)
-    for t in (store, weight, z, *(t for t in (row_scale, x_res)
-                                  if t is not None)):
-        _check_tensor(t, store.device, torch.float32)
+    if data.device.type != "cuda":
+        raise _no_kernel("gathered_gemm", data.device)
+    variant = _variant(store, weight)
+    if (data.dtype == torch.int8) != (scale is not None):
+        raise TypeError("an int8 store comes with its scales, as the pair "
+                        "(q, scale); other stores without")
+    _check_tensor(data, data.device, data.dtype)
+    for t in (weight, z, x_res):
+        if t is not None:
+            _check_tensor(t, data.device, weight.dtype)
+    for t in (scale, row_scale):
+        if t is not None:
+            _check_tensor(t, data.device, torch.float32)
     streams, d, k, m = geometry
     if m == 0:  # a grid of 0 blocks is refused
         return
     h = weight.shape[0]
     splits = _splits(m, h, k * -(-d // _TILE_K))
-    part = (torch.empty((splits, m, h), dtype=z.dtype, device=z.device)
-            if splits > 1 else None)
-    _call("ta3n_gather_gemm_f32", store, store.data_ptr(), rows.data_ptr(),
+    part = (torch.empty((splits, m, h), dtype=torch.float32,
+                        device=z.device) if splits > 1 else None)
+    _call("ta3n_gather_gemm", data, data.data_ptr(),
+          None if scale is None else scale.data_ptr(), rows.data_ptr(),
           None if row_scale is None else row_scale.data_ptr(),
           weight.data_ptr(), z.data_ptr(),
           None if x_res is None else x_res.data_ptr(),
           None if part is None else part.data_ptr(), rows.shape[0], streams,
-          d, k, h, splits)
-    launches += 1
+          d, k, h, splits, _STORE_KINDS[data.dtype][1],
+          _COMPUTE_KINDS[weight.dtype][1])
+    variant_launches[variant] += 1
+    if variant == "f32_f32":
+        launches += 1
 
 
 def _splits(m: int, h: int, chunks: int) -> int:
@@ -189,20 +263,22 @@ def _splits(m: int, h: int, chunks: int) -> int:
     return max(1, min(_MAX_SPLITS, chunks, _TARGET_BLOCKS // tiles))
 
 
-def gathered_gemm(store: torch.Tensor, idx, weight: torch.Tensor,
+def gathered_gemm(store, idx, weight: torch.Tensor,
                   row_scale: Optional[torch.Tensor] = None,
                   with_rows: bool = True
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Fused gather + GEMM, no bias: ``(z [M, H], x_res [M, k*D])``, x_res
-    None unless ``with_rows``.
+    """Fused gather + GEMM, no bias: ``(z [M, H], x_res [M, k*D])`` in the
+    weight's dtype, x_res None unless ``with_rows``.
 
-    A CUDA ``store`` launches the hand-written kernel (float32, contiguous,
-    everything on its device, idx a ``RowIndex``; anything else raises, and
-    nothing falls back).  A CPU ``store`` takes ``gathered_gemm_plain``.
+    A CUDA ``store`` (a float32 or bfloat16 tensor, or an int8 ``(q,
+    scale)`` pair) launches the hand-written kernel's variant for its
+    dtype and the weight's (float32 or bfloat16; contiguous, everything on
+    its device, idx a ``RowIndex``; anything else raises, and nothing
+    falls back).  A CPU ``store`` takes ``gathered_gemm_plain``.
     """
     rows, geometry = _prepare(store, idx, weight, row_scale)
     m = geometry[3]
-    kw = dict(dtype=store.dtype, device=store.device)
+    kw = dict(dtype=weight.dtype, device=_split_store(store)[0].device)
     z = torch.empty((m, weight.shape[0]), **kw)
     x_res = torch.empty((m, weight.shape[1]), **kw) if with_rows else None
     _gather_into(store, rows, geometry, weight, row_scale, z, x_res)
@@ -236,7 +312,7 @@ class _GatheredLinear(torch.autograd.Function):
             runs[w] = [min(runs[w][0], start), end]
             start = end
         for (a, b), bias in zip(runs, biases):
-            z[a:b].add_(bias)
+            z[a:b].add_(bias)  # in z's dtype, as flax Dense adds it
         ctx.runs = runs
         ctx.save_for_backward(x_res)
         return z
@@ -257,7 +333,10 @@ class _GatheredLinear(torch.autograd.Function):
 def gathered_linear(parts: Sequence[tuple], weight, bias) -> torch.Tensor:
     """Differentiable ``gathered rows @ W.T + b`` over ``parts``, a sequence
     of (store, idx, row_scale or None), each written at its row offset
-    into one [sum M, H] output (no concat).  ``weight`` and ``bias`` are
+    into one [sum M, H] output (no concat), in the weights' dtype (float32
+    or bfloat16, whose bias add rounds to bfloat16 as a bfloat16 flax
+    ``Dense``; its backward's ``dzᵀ x_res`` is a bfloat16 ``torch.mm``,
+    which the steps run with cuBLAS's reduced-precision reduction off).  ``weight`` and ``bias`` are
     one tensor for every part, or a sequence with one for each part:
     under share_params N the source store takes the source layer and the
     target store the target layer.  The parts of one weight must be

@@ -8,6 +8,14 @@ summed over min(3, C(S,k)) statically-selected subsets, for k = S..2
 ``[H, k*D]``: the JAX package keeps ``[k*D, H]``
 (`ta3n_tpu/io_utils/torch_export.py:37`).
 
+Every function takes float32 or bfloat16 tensors, x, the weights and the
+biases of one dtype (the plain versions any float dtype).  bfloat16
+computes as the JAX package's Pallas
+kernels do on bfloat16 operands: every product exact in float32, sums in
+float32, the bias added in float32, the relu masks taken from the float32
+z, and the outputs rounded to bfloat16 once (the backward's dx, dW and db
+too, as `ta3n_tpu/ops/trn_fused.py:287, 310-312` round them).
+
 Plain PyTorch versions, which run on any device (CPU tensors take them;
 ``chip_smoke.py`` holds the kernels against them on the card):
 
@@ -20,16 +28,17 @@ Plain PyTorch versions, which run on any device (CPU tensors take them;
 
 Wrappers of the hand-written CUDA kernels (``csrc/``).  A CUDA tensor
 launches the kernel or raises, never falls back; a CPU tensor takes the
-plain version.  Each kernel has a count of its launches:
+plain version.  Each kernel has a count of its launches, float32 and
+bfloat16 variants apart:
 
-  * ``trn_multiscale_infer`` (``launches``): the inference forward,
-    ``csrc/trn_fused_fwd.cu``, the port of the Pallas ``_fwd_kernel``
-    with ``with_masks=False``.
-  * ``trn_multiscale_fwd_masks`` (``train_launches``): the training
-    forward, the same source with the mask write, the port of
-    ``_fwd_kernel`` with ``with_masks=True``.
-  * ``trn_multiscale_bwd`` (``bwd_launches``): the backward,
-    ``csrc/trn_fused_bwd.cu``, the port of ``_bwd_kernel``.
+  * ``trn_multiscale_infer`` (``launches``, ``bf16_launches``): the
+    inference forward, ``csrc/trn_fused_fwd.cu``, the port of the Pallas
+    ``_fwd_kernel`` with ``with_masks=False``.
+  * ``trn_multiscale_fwd_masks`` (``train_launches``,
+    ``bf16_train_launches``): the training forward, the same source with
+    the mask write, the port of ``_fwd_kernel`` with ``with_masks=True``.
+  * ``trn_multiscale_bwd`` (``bwd_launches``, ``bf16_bwd_launches``): the
+    backward, ``csrc/trn_fused_bwd.cu``, the port of ``_bwd_kernel``.
 
 ``trn_multiscale_fused`` joins the last two in one
 ``torch.autograd.Function``, as ``trn_multiscale_fused``'s custom VJP
@@ -60,13 +69,20 @@ __all__ = ["trn_multiscale_plain", "trn_multiscale_fwd_masks_plain",
            "trn_multiscale_bwd_plain", "trn_multiscale_infer",
            "trn_multiscale_fwd_masks", "trn_multiscale_bwd",
            "trn_multiscale_fused", "launches", "train_launches",
-           "bwd_launches"]
+           "bwd_launches", "bf16_launches", "bf16_train_launches",
+           "bf16_bwd_launches"]
 
 # kernel launches made by each wrapper (plain-version calls are not
 # counted); callers reset them to 0 to count the launches of one run
 launches = 0          # inference forward, csrc/trn_fused_fwd.cu
 train_launches = 0    # training forward, csrc/trn_fused_fwd.cu
 bwd_launches = 0      # backward, csrc/trn_fused_bwd.cu
+bf16_launches = 0        # the same three, bfloat16 variants
+bf16_train_launches = 0
+bf16_bwd_launches = 0
+
+# the kernels' element types, and the suffix of their C entries
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # the kernels take at most 3 subsets per scale (csrc/trn_plan.cuh)
 _MAX_SUBSETS = 3
@@ -81,21 +97,27 @@ _FWD_TILE_M, _FWD_TILE_H, _FWD_TILE_K = 64, 64, 32
 _FWD_MAX_SPLITS, _FWD_TARGET_BLOCKS = 8, 132
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the type its products are summed in: bfloat16 as float32,
+    any other type as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def trn_multiscale_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                          biases: Sequence[torch.Tensor], num_frames: int,
                          subsample_num: int = 3) -> torch.Tensor:
     """Plain PyTorch multi-scale TRN.  x: [B, S, D]; weights[i]: [H, k_i*D];
-    biases[i]: [H] -> [B, S-1, H]."""
+    biases[i]: [H] -> [B, S-1, H] in x's dtype, computed in float32."""
     plan = build_relation_plan(num_frames, subsample_num)
     b, _, d = x.shape
     outs = []
     for w, bias, k, subsets, idx in zip(
             weights, biases, plan.scales, plan.subsets,
             _subset_index(num_frames, subsample_num, x.device)):
-        g = x.index_select(1, idx).reshape(b, subsets.shape[0], k * d)
-        z = torch.relu(g) @ w.T + bias
+        g = _acc(x).index_select(1, idx).reshape(b, subsets.shape[0], k * d)
+        z = torch.relu(g) @ _acc(w).T + _acc(bias)
         outs.append(torch.relu(z).sum(dim=1))
-    return torch.stack(outs, dim=1)
+    return torch.stack(outs, dim=1).to(x.dtype)
 
 
 def trn_multiscale_fwd_masks_plain(
@@ -105,19 +127,20 @@ def trn_multiscale_fwd_masks_plain(
     """Plain training forward: ``(out [B, S-1, H], masks)``, where masks
     [B, n_sub*H] uint8 holds (z > 0) of every selected subset in the
     plan's order (scale by scale), the comparison that selects what
-    ``out`` sums."""
+    ``out`` sums; z in float32, out in x's dtype."""
     plan = build_relation_plan(num_frames, subsample_num)
     b, _, d = x.shape
     outs, masks = [], []
     for w, bias, k, subsets, idx in zip(
             weights, biases, plan.scales, plan.subsets,
             _subset_index(num_frames, subsample_num, x.device)):
-        g = x.index_select(1, idx).reshape(b, subsets.shape[0], k * d)
-        z = torch.relu(g) @ w.T + bias                 # [B, n_sub, H]
+        g = _acc(x).index_select(1, idx).reshape(b, subsets.shape[0], k * d)
+        z = torch.relu(g) @ _acc(w).T + _acc(bias)     # [B, n_sub, H]
         on = z > 0
         outs.append(torch.where(on, z, 0.0).sum(dim=1))
         masks.append(on.reshape(b, -1))
-    return torch.stack(outs, dim=1), torch.cat(masks, dim=1).to(torch.uint8)
+    return (torch.stack(outs, dim=1).to(x.dtype),
+            torch.cat(masks, dim=1).to(torch.uint8))
 
 
 def trn_multiscale_bwd_plain(
@@ -126,26 +149,28 @@ def trn_multiscale_bwd_plain(
         subsample_num: int = 3) -> Tuple[torch.Tensor, tuple, tuple]:
     """Plain backward from the forward's masks: ``(dx [B, S, D], dWs, dbs)``
     with dWs[i] [H, k_i*D] (torch layout) and dbs[i] [H], for the upstream
-    gradient g [B, S-1, H]."""
+    gradient g [B, S-1, H]; computed in float32, dx returned in x's dtype
+    and dWs, dbs in the weights'."""
     plan = build_relation_plan(num_frames, subsample_num)
     b, _, d = x.shape
     h = weights[0].shape[0]
-    xr = torch.relu(x)
-    dx = torch.zeros_like(x)
+    xf = _acc(x)
+    xr = torch.relu(xf)
+    dx = torch.zeros_like(xf)
     dws, dbs = [], []
     sub = 0
     for i, (w, k, subsets, idx) in enumerate(zip(
             weights, plan.scales, plan.subsets,
             _subset_index(num_frames, subsample_num, x.device))):
         n = subsets.shape[0]
-        m = (masks[:, sub * h:(sub + n) * h].reshape(b, n, h).to(g.dtype)
-             * g[:, i, None, :])                       # [B, n_sub, H]
+        m = (masks[:, sub * h:(sub + n) * h].reshape(b, n, h).to(xf.dtype)
+             * _acc(g[:, i, None, :]))                 # [B, n_sub, H]
         sub += n
         xs = xr.index_select(1, idx).reshape(b * n, k * d)
-        dws.append(m.reshape(b * n, h).T @ xs)
-        dbs.append(m.sum(dim=(0, 1)))
-        dx.index_add_(1, idx, (m @ w).reshape(b, n * k, d))
-    return dx * (x > 0), tuple(dws), tuple(dbs)
+        dws.append((m.reshape(b * n, h).T @ xs).to(w.dtype))
+        dbs.append(m.sum(dim=(0, 1)).to(w.dtype))
+        dx.index_add_(1, idx, (m @ _acc(w)).reshape(b, n * k, d))
+    return (dx * (xf > 0)).to(x.dtype), tuple(dws), tuple(dbs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -281,8 +306,11 @@ def _check_inputs(x, weights, biases, num_frames, subsample_num) -> None:
                          f"{len(weights)} and {len(biases)}")
     d = x.shape[2]
     h = weights[0].shape[0]
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"the TRN kernels take float32 or bfloat16, got "
+                        f"{x.dtype}")
     for t in (x, *weights, *biases):
-        _check_tensor(t, x.device, torch.float32)
+        _check_tensor(t, x.device, x.dtype)
     for i, (k, w) in enumerate(zip(plan.scales, weights)):
         if tuple(w.shape) != (h, k * d) or (
                 biases and tuple(biases[i].shape) != (h,)):
@@ -298,7 +326,8 @@ def _check_tensor(t: torch.Tensor, device: torch.device,
         raise ValueError(f"all tensors must be on {device}, got one on "
                          f"{t.device}")
     if t.dtype != dtype:
-        raise TypeError(f"the CUDA kernels take {dtype}, got {t.dtype}")
+        raise TypeError(f"this CUDA kernel takes {dtype} here, got "
+                        f"{t.dtype}")
     if not t.is_contiguous():
         raise ValueError("the CUDA kernels take contiguous tensors")
 
@@ -326,7 +355,7 @@ def _launch_fwd(entry, x, weights, biases, num_frames, subsample_num,
     h = weights[0].shape[0]
     splits = _fwd_splits(num_frames, subsample_num, b, d, h)
     slots = sum(n for _, _, n in _fwd_units(num_frames, subsample_num))
-    part = torch.empty((splits * slots, b, h), dtype=x.dtype,
+    part = torch.empty((splits * slots, b, h), dtype=torch.float32,
                        device=x.device)
     _call(entry, x, x.data_ptr(),
           *_pointer_args(weights, biases, num_frames, subsample_num,
@@ -338,7 +367,7 @@ def _launch_fwd(entry, x, weights, biases, num_frames, subsample_num,
 
 def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
     """The inference forward kernel."""
-    global launches
+    global launches, bf16_launches
     _check_inputs(x, weights, biases, num_frames, subsample_num)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *weights, *biases)):
@@ -351,9 +380,12 @@ def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
     out = torch.empty((b, s - 1, h), dtype=x.dtype, device=x.device)
     if b == 0:  # a grid of 0 blocks is refused
         return out
-    _launch_fwd("ta3n_trn_fused_fwd_f32", x, weights, biases, num_frames,
-                subsample_num, out)
-    launches += 1
+    _launch_fwd(f"ta3n_trn_fused_fwd_{_SUFFIX[x.dtype]}", x, weights,
+                biases, num_frames, subsample_num, out)
+    if x.dtype == torch.float32:
+        launches += 1
+    else:
+        bf16_launches += 1
     return out
 
 
@@ -365,7 +397,7 @@ def _n_subsets(num_frames: int, subsample_num: int) -> int:
 def _launch_train(x, weights, biases, num_frames, subsample_num
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward kernel: (out, uint8 masks)."""
-    global train_launches
+    global train_launches, bf16_train_launches
     _check_inputs(x, weights, biases, num_frames, subsample_num)
     b, s, _ = x.shape
     h = weights[0].shape[0]
@@ -374,9 +406,12 @@ def _launch_train(x, weights, biases, num_frames, subsample_num
     masks = torch.empty((b, n_sub * h), dtype=torch.uint8, device=x.device)
     if b == 0:  # a grid of 0 blocks is refused
         return out, masks
-    _launch_fwd("ta3n_trn_fused_fwd_train_f32", x, weights, biases,
-                num_frames, subsample_num, out, masks)
-    train_launches += 1
+    _launch_fwd(f"ta3n_trn_fused_fwd_train_{_SUFFIX[x.dtype]}", x, weights,
+                biases, num_frames, subsample_num, out, masks)
+    if x.dtype == torch.float32:
+        train_launches += 1
+    else:
+        bf16_train_launches += 1
     return out, masks
 
 
@@ -384,13 +419,13 @@ def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
                 ) -> Tuple[torch.Tensor, tuple, tuple]:
     """The backward kernel (one grid of dx and dW/db tiles): (dx, dWs,
     dbs)."""
-    global bwd_launches
+    global bwd_launches, bf16_bwd_launches
     _check_inputs(x, weights, None, num_frames, subsample_num)
     b, s, d = x.shape
     h = weights[0].shape[0]
     n_sub = _n_subsets(num_frames, subsample_num)
     _check_tensor(masks, x.device, torch.uint8)
-    _check_tensor(g, x.device, torch.float32)
+    _check_tensor(g, x.device, x.dtype)
     if tuple(masks.shape) != (b, n_sub * h) or \
             tuple(g.shape) != (b, s - 1, h):
         raise ValueError(f"expected masks {(b, n_sub * h)} and g "
@@ -401,12 +436,15 @@ def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
     dw = torch.empty((sum(w.numel() for w in weights),), dtype=x.dtype,
                      device=x.device)
     db = torch.empty((len(weights), h), dtype=x.dtype, device=x.device)
-    _call("ta3n_trn_fused_bwd_f32", x, x.data_ptr(),
+    _call(f"ta3n_trn_fused_bwd_{_SUFFIX[x.dtype]}", x, x.data_ptr(),
           *_pointer_args(weights, (), num_frames, subsample_num, x.device),
           masks.data_ptr(), g.data_ptr(),
           dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
           *_plan_args(num_frames, subsample_num, x.device), b, s, d, h)
-    bwd_launches += 1
+    if x.dtype == torch.float32:
+        bwd_launches += 1
+    else:
+        bf16_bwd_launches += 1
     return dx, _split_flat(dw, weights), tuple(db.unbind())
 
 
@@ -428,9 +466,9 @@ def trn_multiscale_infer(x: torch.Tensor, weights: Sequence[torch.Tensor],
                          subsample_num: int = 3) -> torch.Tensor:
     """Inference-only fused forward: [B, S, D] -> [B, S-1, H].
 
-    A CUDA ``x`` launches the hand-written kernel (float32, contiguous, on
-    one device; anything else raises, and so does a call that would need
-    a gradient).  A CPU ``x`` takes ``trn_multiscale_plain``.
+    A CUDA ``x`` launches the hand-written kernel (float32 or bfloat16,
+    contiguous, on one device; anything else raises, and so does a call
+    that would need a gradient).  A CPU ``x`` takes ``trn_multiscale_plain``.
     """
     if x.device.type == "cuda":
         return _launch(x, weights, biases, num_frames, subsample_num)
@@ -447,8 +485,8 @@ def trn_multiscale_fwd_masks(x: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward: ``(out [B, S-1, H], uint8 masks [B, n_sub*H])``.
 
-    A CUDA ``x`` launches the hand-written kernel (float32, contiguous, on
-    one device; anything else raises).  A CPU ``x`` takes
+    A CUDA ``x`` launches the hand-written kernel (float32 or bfloat16,
+    contiguous, on one device; anything else raises).  A CPU ``x`` takes
     ``trn_multiscale_fwd_masks_plain``.  Not differentiable itself: train
     through ``trn_multiscale_fused``.
     """

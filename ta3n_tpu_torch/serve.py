@@ -36,6 +36,7 @@ import torch
 
 from ta3n_tpu_torch.config import ModelConfig
 from ta3n_tpu_torch.io_utils.convert import load_reference_checkpoint
+from ta3n_tpu_torch.models.layers import bf16_f32_reduction
 from ta3n_tpu_torch.models.video_model import VideoModel
 from ta3n_tpu_torch.train.step import video_logits
 
@@ -84,10 +85,15 @@ class Predictor:
         raise NotImplementedError(f"ensemble serving {_LATER}")
 
     @torch.inference_mode()
+    @bf16_f32_reduction()
     def _predict(self, chunk: np.ndarray):
+        """Probabilities and top-k of one batch: a float32 softmax of the
+        video-level logits, whatever dtype the model computes in (a
+        ``compute_dtype="bfloat16"`` model runs its bfloat16 kernels and
+        answers in float32)."""
         x = torch.from_numpy(chunk).to(self.device)
         _, out = self.model(self._empty, x, self._beta, 0.0, False, False)
-        probs = torch.softmax(video_logits(out.out), dim=-1)
+        probs = torch.softmax(video_logits(out.out).float(), dim=-1)
         top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
         return probs.cpu().numpy(), top_p.cpu().numpy(), top_i.cpu().numpy()
 

@@ -4,17 +4,19 @@ Port of `ta3n_tpu/train/loop.py` (reference main.py:33-306 ``main()``,
 ``train()`` and ``validate()``) for one card: one optimizer step per call
 of the train step (`train/step.py`), fed from the host loaders or, with
 ``device_store``, by index batches into feature stores uploaded once
-(``FeatureStore.to_device``, ``TSNLoader.index_epoch``).  With
-``pretrain_source`` a classification-only step runs on every batch before
-the train step (main.py:387-414).  Per-step Python work is schedule
-arithmetic and meter updates; metrics stay on the device until the
-print-frequency flush, which fetches them in one copy.
+(``FeatureStore.to_device``, ``TSNLoader.index_epoch``) as float32,
+bfloat16 or int8 (``store_dtype``).  With ``pretrain_source`` a
+classification-only step runs on every batch before the train step
+(main.py:387-414).  With ``accum_steps`` G > 1 every G host-feature
+batch pairs make one update with averaged gradients
+(``_train_epoch_accum``), under the JAX Trainer's conditions.  Per-step
+Python work is schedule arithmetic and meter updates; metrics stay on the
+device until the print-frequency flush, which fetches them in one copy.
 
 What the JAX Trainer runs and the port does not yet raises
 ``NotImplementedError`` naming its ROADMAP.md item: several steps per call
-(queue 1, item 4), gradient accumulation and narrow stores (item 8),
-shard streaming, the device sampler and more than one device (item 9),
-tensorboard and the profiler window (item 5).
+(queue 1, item 4), shard streaming, the device sampler and more than one
+device (item 9), tensorboard and the profiler window (item 5).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import os
 import signal
 import threading
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -43,6 +46,7 @@ from ta3n_tpu_torch.train.schedules import (alpha_schedule, dann_lr,
                                             progress, step_decay_lr)
 from ta3n_tpu_torch.train.step import (StepScalars, TrainState,
                                        create_train_state, make_eval_step,
+                                       make_grad_accum_step,
                                        make_multi_eval_step, make_train_step)
 
 __all__ = ["Trainer", "TrainingDivergedError", "build_loaders",
@@ -181,10 +185,6 @@ class Trainer:
         for on, what, item in (
                 (steps_per_call > 1, "steps_per_call > 1 (several steps "
                  "per call)", "4"),
-                (accum_steps > 1, "accum_steps > 1 (gradient "
-                 "accumulation)", "8"),
-                (store_dtype not in (None, "", "float32"),
-                 f"store_dtype={store_dtype!r}", "8"),
                 (bool(store_budget_rows), "store_budget_rows (shard "
                  "streaming)", "9"),
                 (device_sampler, "device_sampler", "9"),
@@ -213,6 +213,12 @@ class Trainer:
         self.logs = log_files
         self.nan_guard = nan_guard
         self.device_store = device_store
+        if store_dtype not in (None, "", "float32", "bfloat16", "int8"):
+            raise ValueError(f"store_dtype={store_dtype!r}: the device "
+                             "stores are float32, bfloat16 or int8")
+        # the dtype of the stores on the device (device_store only): None
+        # keeps float32; a store quantized on disk uploads its own pair
+        self.store_dtype = store_dtype or None
 
         self.state = create_train_state(
             model_cfg, train_cfg, torch.Generator().manual_seed(seed),
@@ -245,7 +251,8 @@ class Trainer:
 
             def put(store):
                 if id(store) not in uploaded:
-                    uploaded[id(store)] = store.to_device(self.device)
+                    uploaded[id(store)] = store.to_device(self.device,
+                                                          self.store_dtype)
                 return uploaded[id(store)]
 
             self._dev_store_s = put(source_loader.store)
@@ -257,6 +264,31 @@ class Trainer:
             make_multi_eval_step(model, class_weights)
             if device_store and not val_loader.shuffle else None)
         self._val_stack = None
+
+        # gradient accumulation (--accum_steps): G host-fed micro-batch
+        # pairs -> averaged gradients -> ONE optimizer update, under the
+        # JAX Trainer's conditions and with its warning otherwise
+        self.accum_step = None
+        self.accum_steps = 1
+        if accum_steps > 1:
+            unmet = []
+            if device_store:
+                unmet.append("--device_store")
+            if steps_per_call > 1:
+                unmet.append("--steps_per_call > 1")
+            if da_cfg.pretrain_source:
+                unmet.append("--pretrain_source")
+            if save_attention >= 0 or tensorboard_dir is not None:
+                unmet.append("attention/tensorboard collection")
+            if unmet:
+                warnings.warn(
+                    "--accum_steps ignored with " + ", ".join(unmet)
+                    + " — falling back to per-batch updates", stacklevel=2)
+            else:
+                self.accum_steps = accum_steps
+                self.accum_step = make_grad_accum_step(
+                    model, da_cfg, train_cfg, class_weights, domain_weights,
+                    accum_steps=accum_steps)
 
         self.lr_current = train_cfg.lr
         self.best_prec1 = 0.0
@@ -358,6 +390,10 @@ class Trainer:
                    self.target_loader.index_epoch()) if self.device_store
                   else (self.source_loader.epoch(),
                         self.target_loader.epoch()))
+        if self.accum_step is not None:
+            return self._train_epoch_accum(epoch, meters, zip(*epochs), flush,
+                                           pending, alpha, start_steps,
+                                           total_steps, len_loader)
         for i, (bs, bt) in enumerate(zip(*epochs)):
             p = progress(i, start_steps, total_steps)
             beta = effective_beta(tc.beta, p)
@@ -412,6 +448,82 @@ class Trainer:
                 rows = np.concatenate(buf) if buf else np.zeros((0, 1))
                 store.append(rows.mean(axis=0) if len(rows) else
                              np.zeros(rows.shape[1]))
+        if self.logs and last_line:
+            self.logs.write("train_short.log", last_line)
+        return meters["loss_c"].avg
+
+    def _train_epoch_accum(self, epoch, meters, pairs, flush, pending,
+                           alpha, start_steps, total_steps, len_loader):
+        """Gradient-accumulation epoch (`ta3n_tpu/train/loop.py::
+        _train_epoch_accum`): every G consecutive micro-batch pairs become
+        ONE optimizer update with averaged gradients
+        (``make_grad_accum_step``).  Schedule scalars (beta, lr) are
+        evaluated once per update at the chunk's first micro-step index; a
+        tail of fewer than G pairs falls back to plain per-batch updates
+        so that no data is dropped."""
+        tc = self.train_cfg
+        g_steps = self.accum_steps
+        end = time.time()
+        last_line = ""
+        i = 0
+
+        def scalars_at(step_i):
+            p = progress(step_i, start_steps, total_steps)
+            beta = effective_beta(tc.beta, p)
+            return (StepScalars(beta, tc.mu, alpha, tc.gamma,
+                                self.lr_current), p, beta)
+
+        def run_chunk(chunk):
+            nonlocal last_line, end, i
+            k = len(chunk)
+            if k == g_steps:
+                # one update: scalars at the chunk's first micro-step index,
+                # the lr decays once
+                scalars, p, beta = scalars_at(i)
+                bs_list, bt_list = zip(*chunk)
+                self.state, m = self.accum_step(
+                    self.state,
+                    np.stack([b.features for b in bs_list]),
+                    np.stack([b.labels for b in bs_list]),
+                    np.stack([b.mask for b in bs_list]),
+                    np.stack([b.features for b in bt_list]),
+                    np.stack([b.labels for b in bt_list]),
+                    np.stack([b.mask for b in bt_list]),
+                    scalars, self.generator)
+                pending.extend({key: v[j] for key, v in m.items()}
+                               for j in range(k))
+                if tc.lr_adaptive == "dann":  # per-update lr decay
+                    self.lr_current = dann_lr(tc.lr, p)
+            else:  # tail: plain per-batch updates, per-step schedules
+                for j, (bs, bt) in enumerate(chunk):
+                    scalars, p, beta = scalars_at(i + j)
+                    self.state, m = self.train_step(
+                        self.state, bs.features, bs.labels, bs.mask,
+                        bt.features, bt.labels, bt.mask, scalars,
+                        self.generator)
+                    pending.append(m)
+                    if tc.lr_adaptive == "dann":
+                        self.lr_current = dann_lr(tc.lr, p)
+            meters["batch_time"].update((time.time() - end) / k, k)
+            end = time.time()
+            i += k
+            if (i - k) // g_steps % max(self.print_freq // g_steps, 1) == 0:
+                flush(keep_last=2 * g_steps)
+                last_line = self._format_train_line(
+                    epoch, i - 1, len_loader, meters, alpha, beta, tc)
+                if self.logs:
+                    self.logs.write("train.log", last_line)
+                print(last_line)
+
+        chunk = []
+        for pair in pairs:
+            chunk.append(pair)
+            if len(chunk) == g_steps:
+                run_chunk(chunk)
+                chunk = []
+        if chunk:
+            run_chunk(chunk)
+        flush()
         if self.logs and last_line:
             self.logs.write("train_short.log", last_line)
         return meters["loss_c"].avg

@@ -30,6 +30,15 @@ gather and the first shared FC then run as one fused op
 (`ops/gather_gemm.py`, on CUDA the K3 kernel, one launch per store), and
 only a few KB of indices cross per step.  Either way the first shared
 FC's output is computed once per step: MCD's second forward reuses it.
+
+Stores on the device are float32 or bfloat16 tensors, or int8 ``(q,
+scale)`` pairs (`data/quantized.py`), which K3 dequantizes as it gathers.
+Under ``compute_dtype="bfloat16"`` the first FC computes in bfloat16 (K3's
+bfloat16 variants) and the model as `models/video_model.py` says; the
+metrics come back as float32 whatever the compute dtype.  Every step runs
+inside ``models.layers.bf16_f32_reduction``, so that cuBLAS sums bfloat16
+products in float32, as XLA does.  ``make_grad_accum_step`` averages the
+gradients of G micro-batch pairs into one update (``--accum_steps``).
 """
 
 from __future__ import annotations
@@ -43,15 +52,16 @@ from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.losses import (CORAL, JAN, attentive_entropy,
                                    cross_entropy_soft, dis_MCD, mmd_rbf,
                                    weighted_cross_entropy)
+from ta3n_tpu_torch.models.layers import bf16_f32_reduction
 from ta3n_tpu_torch.models.video_model import StreamOutput, VideoModel
 from ta3n_tpu_torch.ops.gather_gemm import (RowIndex, gathered_gemm,
                                             gathered_linear, row_index)
 from ta3n_tpu_torch.train.optim import make_optimizer, optimizer_step
 
 __all__ = ["TrainState", "StepScalars", "create_train_state",
-           "make_train_step", "make_eval_step", "make_multi_eval_step",
-           "make_infer_step", "device_gather", "topk_correct",
-           "video_logits"]
+           "make_train_step", "make_grad_accum_step", "make_eval_step",
+           "make_multi_eval_step", "make_infer_step", "device_gather",
+           "topk_correct", "video_logits"]
 
 
 class TrainState(NamedTuple):
@@ -244,22 +254,30 @@ def _as(t, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 def device_gather(store, abs_idx: torch.Tensor) -> torch.Tensor:
     """Row gather from a store on the device, as `ta3n_tpu/train/step.py::
-    device_gather`: store [R, D] or [R, streams, D] (Flow), abs_idx [B, T]
-    (a tensor on the store's device) -> [B, T(*streams), D], the streams
-    interleaved per frame.  The device-store steps fuse this gather into
-    the shared FC (`ops/gather_gemm.py`); this is its plain form."""
+    device_gather`: store [R, D] or [R, streams, D] (Flow), or an int8
+    ``(q, scale)`` pair whose gathered rows are dequantized to float32 as
+    ``q.float() * scale[idx]``; abs_idx [B, T] (a tensor on the store's
+    device) -> [B, T(*streams), D], the streams interleaved per frame.  The
+    device-store steps fuse this gather into the shared FC
+    (`ops/gather_gemm.py`); this is its plain form."""
     if isinstance(store, (tuple, list)):
-        raise NotImplementedError(
-            "int8 (q, scale) stores are not ported yet (ROADMAP.md queue 1, "
-            "item 8)")
-    x = store[abs_idx]
+        q, scale = store
+        x = q[abs_idx].to(scale.dtype) * scale[abs_idx].reshape(
+            tuple(abs_idx.shape) + (1,) * (q.dim() - 1))
+    else:
+        x = store[abs_idx]
     if x.dim() == 4:  # interleave streams (dataset.py:62-66 semantics)
         b, t, s, d = x.shape
         x = x.reshape(b, t * s, d)
     return x
 
 
-def _store_part(store: torch.Tensor, idx, mask: torch.Tensor):
+def _store_rows(store) -> torch.Tensor:
+    """The row tensor of a store: the store, or an int8 pair's q."""
+    return store[0] if isinstance(store, (tuple, list)) else store
+
+
+def _store_part(store, idx, mask: torch.Tensor):
     """(store, checked indices, per-row scale) of one index batch [B, T]
     for `gathered_linear` / `gathered_gemm`: every row of a video is scaled
     by its mask, so the loader's padded videos, which point at row 0, give
@@ -267,8 +285,21 @@ def _store_part(store: torch.Tensor, idx, mask: torch.Tensor):
     idx = np.asarray(idx)
     if idx.ndim != 2:
         raise ValueError(f"index batches are [B, T], got {idx.shape}")
-    return (store, row_index(idx, store.shape[0], store.device),
+    rows = _store_rows(store)
+    return (store, row_index(idx, rows.shape[0], rows.device),
             mask.repeat_interleave(idx.shape[1]))
+
+
+def _first_fc(net: VideoModel, domains=("target",)) -> list:
+    """The (weight, bias) of each domain's first shared FC in the model's
+    compute dtype (the gather kernel computes in the weight's dtype),
+    cast once for a layer that the domains share (share_params Y)."""
+    cast = {}
+    for domain in domains:
+        fc = net.shared_fc(domain)
+        if fc not in cast:
+            cast[fc] = (fc.weight.to(net.dtype), fc.bias.to(net.dtype))
+    return [cast[net.shared_fc(domain)] for domain in domains]
 
 
 def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
@@ -306,7 +337,12 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
     domains' first-FC pre-activations come from `gathered_linear`, one
     gather + GEMM per store into one buffer (on CUDA the K3 kernel, twice
     per step), each store with its domain's layer under share_params N,
-    and the model runs on from them (`forward_shared`).
+    and the model runs on from them (`forward_shared`).  A store is a
+    float32 or bfloat16 tensor or an int8 ``(q, scale)`` pair
+    (``FeatureStore.to_device``).
+
+    The returned step also carries ``loss_fn``, the forward(s) and losses
+    of one micro-batch, which ``make_grad_accum_step`` builds on.
     """
     cfg = model.cfg
     if cfg.quantize != "none":
@@ -428,25 +464,31 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
 
     f32, i64 = torch.float32, torch.long
 
-    def update(state: TrainState, pre, ys, mask_s, yt, mask_t, scalars,
+    def update(state: TrainState, pre_fn, ys, mask_s, yt, mask_t, scalars,
                generator):
-        """The losses, backward and one update."""
-        dev = pre.device
-        loss, metrics = loss_fn(state.model, pre, _as(ys, dev, i64), mask_s,
-                                _as(yt, dev, i64), mask_t, scalars,
-                                generator)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer_step(state.optimizer, scalars.lr, train_cfg.clip_gradient)
+        """The first FC's output ``pre_fn()``, the losses, backward and one
+        update, with cuBLAS's bfloat16 reductions in float32."""
+        with bf16_f32_reduction():
+            pre = pre_fn()
+            dev = pre.device
+            loss, metrics = loss_fn(state.model, pre, _as(ys, dev, i64),
+                                    mask_s, _as(yt, dev, i64), mask_t,
+                                    scalars, generator)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer_step(state.optimizer, scalars.lr,
+                           train_cfg.clip_gradient)
         return (TrainState(state.model, state.optimizer, state.step + 1),
-                {k: v.detach() for k, v in metrics.items()})
+                {k: v.detach().float() for k, v in metrics.items()})
 
     def step(state: TrainState, xs, ys, mask_s, xt, yt, mask_t,
              scalars: StepScalars, generator: Optional[torch.Generator]):
         dev = next(state.model.parameters()).device
-        pre = state.model.shared_pre(_as(xs, dev, f32), _as(xt, dev, f32))
-        return update(state, pre, ys, _as(mask_s, dev, f32), yt,
-                      _as(mask_t, dev, f32), scalars, generator)
+        return update(
+            state, lambda: state.model.shared_pre(_as(xs, dev, f32),
+                                                  _as(xt, dev, f32)),
+            ys, _as(mask_s, dev, f32), yt, _as(mask_t, dev, f32), scalars,
+            generator)
 
     def gather_step(state: TrainState, store_s, idx_s, ys, mask_s, store_t,
                     idx_t, yt, mask_t, scalars: StepScalars,
@@ -454,15 +496,72 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
         net = state.model
         dev = next(net.parameters()).device
         mask_s, mask_t = _as(mask_s, dev, f32), _as(mask_t, dev, f32)
-        fcs = (net.shared_fc("source"), net.shared_fc("target"))
-        pre = gathered_linear([_store_part(store_s, idx_s, mask_s),
-                               _store_part(store_t, idx_t, mask_t)],
-                              [fc.weight for fc in fcs],
-                              [fc.bias for fc in fcs])
+
+        def pre():
+            fcs = _first_fc(net, ("source", "target"))
+            return gathered_linear([_store_part(store_s, idx_s, mask_s),
+                                    _store_part(store_t, idx_t, mask_t)],
+                                   [w for w, _ in fcs], [b for _, b in fcs])
+
         return update(state, pre, ys, mask_s, yt, mask_t, scalars,
                       generator)
 
-    return gather_step if gather_on_device else step
+    built = gather_step if gather_on_device else step
+    built.loss_fn = loss_fn
+    return built
+
+
+def make_grad_accum_step(model: VideoModel, da: DAConfig,
+                         train_cfg: TrainConfig, class_weights=None,
+                         domain_weights=None, accum_steps: int = 2):
+    """Gradient accumulation (`ta3n_tpu/train/step.py::
+    make_grad_accum_step`): G = ``accum_steps`` micro-batch pairs of host
+    features, each through the train step's forward and losses, their
+    gradients averaged (each micro-batch's loss scaled by 1/G before its
+    backward), then ONE clipped, weight-decayed update.  The BN running
+    statistics are carried through the micro-batches (each forward updates
+    them).  A parameter that no micro-batch reaches keeps ``grad=None`` and
+    gets no weight decay, as the JAX step gates it by
+    ``structural_participation``.
+
+    Returned signature:
+      step(state, xs [G, Bs, S, D], ys [G, Bs], mask_s [G, Bs],
+           xt [G, Bt, S, D], yt [G, Bt], mask_t [G, Bt], scalars,
+           generator) -> (new_state, metrics, each [G])
+    """
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    loss_fn = make_train_step(model, da, train_cfg, class_weights,
+                              domain_weights).loss_fn
+    f32, i64 = torch.float32, torch.long
+
+    def accum_step(state: TrainState, xs, ys, mask_s, xt, yt, mask_t,
+                   scalars: StepScalars,
+                   generator: Optional[torch.Generator]):
+        net = state.model
+        dev = next(net.parameters()).device
+        if len(xs) != accum_steps or len(xt) != accum_steps:
+            raise ValueError(f"expected {accum_steps} micro-batches, got "
+                             f"{len(xs)} and {len(xt)}")
+        state.optimizer.zero_grad(set_to_none=True)
+        per = []
+        with bf16_f32_reduction():
+            for g in range(accum_steps):
+                ms, mt = _as(mask_s[g], dev, f32), _as(mask_t[g], dev, f32)
+                pre = net.shared_pre(_as(xs[g], dev, f32),
+                                     _as(xt[g], dev, f32))
+                loss, metrics = loss_fn(net, pre, _as(ys[g], dev, i64), ms,
+                                        _as(yt[g], dev, i64), mt, scalars,
+                                        generator)
+                (loss / accum_steps).backward()
+                per.append(metrics)
+            optimizer_step(state.optimizer, scalars.lr,
+                           train_cfg.clip_gradient)
+        return (TrainState(net, state.optimizer, state.step + 1),
+                {k: torch.stack([m[k].detach().float() for m in per])
+                 for k in per[0]})
+
+    return accum_step
 
 
 _EVAL_BETA = (0.0, 0.0, 0.0)
@@ -491,10 +590,10 @@ def _eval_gathered(model: VideoModel, part, b: int) -> StreamOutput:
     the model from the pre-activations.  The videos run as the target
     stream, so under share_params N they take the target layers, as in
     the JAX eval step, which reads the target side."""
-    fc = model.shared_fc("target")
+    (weight, bias), = _first_fc(model)
     store, rows, scale = part
-    z, _ = gathered_gemm(store, rows, fc.weight, scale, with_rows=False)
-    _, out = model.forward_shared(z.add_(fc.bias), 0, b, _EVAL_BETA, 0.0,
+    z, _ = gathered_gemm(store, rows, weight, scale, with_rows=False)
+    _, out = model.forward_shared(z.add_(bias), 0, b, _EVAL_BETA, 0.0,
                                   False, False)
     return out
 
@@ -526,11 +625,12 @@ def make_eval_step(model: VideoModel, class_weights=None,
     def metrics(out: StreamOutput, y, mask):
         logits, loss, top1, top5, n = _eval_metrics(out.out, y, mask,
                                                     class_weights)
-        return {"loss": loss, "top1": top1, "top5": top5, "n": n,
+        return {"loss": loss.float(), "top1": top1, "top5": top5, "n": n,
                 "logits": logits,
                 "feat": out.feat[min(1, len(out.feat) - 1)]}
 
     @torch.inference_mode()
+    @bf16_f32_reduction()
     def ev(x, y, mask):
         x = _as(x, device, torch.float32)
         _, out = model(x[:0], x, _EVAL_BETA, 0.0, False, False)
@@ -538,6 +638,7 @@ def make_eval_step(model: VideoModel, class_weights=None,
                        _as(mask, device, torch.float32))
 
     @torch.inference_mode()
+    @bf16_f32_reduction()
     def ev_gather(store, idx, y, mask):
         mask = _as(mask, device, torch.float32)
         out = _eval_gathered(model, _store_part(store, idx, mask),
@@ -547,7 +648,7 @@ def make_eval_step(model: VideoModel, class_weights=None,
     return ev_gather if gather_on_device else ev
 
 
-def _stacked_parts(store: torch.Tensor, idx, mask: torch.Tensor) -> list:
+def _stacked_parts(store, idx, mask: torch.Tensor) -> list:
     """The store part (`_store_part`) of each of the stacked index batches
     idx [Nb, B, T], whose masks are mask [Nb, B] on the store's device: the
     indices checked and uploaded once for all the batches."""
@@ -556,7 +657,8 @@ def _stacked_parts(store: torch.Tensor, idx, mask: torch.Tensor) -> list:
         raise ValueError(f"stacked index batches are [Nb, B, T], got "
                          f"{idx.shape}")
     nb, b, t = idx.shape
-    rows = row_index(idx, store.shape[0], store.device)
+    data = _store_rows(store)
+    rows = row_index(idx, data.shape[0], data.device)
     scale = mask.repeat_interleave(t, dim=1)               # [Nb, B*T]
     return [(store, RowIndex(rows.rows[i * b * t:(i + 1) * b * t], rows.end),
              scale[i]) for i in range(nb)]
@@ -580,6 +682,7 @@ def make_multi_eval_step(model: VideoModel, class_weights=None):
         class_weights = _as(class_weights, device, torch.float32)
 
     @torch.inference_mode()
+    @bf16_f32_reduction()
     def multi_eval(store, idx, ys, mask):
         ys = _as(ys, device, torch.long)
         mask = _as(mask, device, torch.float32)
@@ -588,7 +691,7 @@ def make_multi_eval_step(model: VideoModel, class_weights=None):
             out = _eval_gathered(model, part, mask.shape[1])
             _, loss, top1, top5, n = _eval_metrics(out.out, ys[i], mask[i],
                                                    class_weights)
-            sums += torch.stack([loss * n, top1, top5, n])
+            sums += torch.stack([loss.float() * n, top1, top5, n])
         return dict(zip(("loss_sum", "top1", "top5", "n"), sums.unbind()))
 
     return multi_eval
@@ -614,23 +717,27 @@ def make_infer_step(model: VideoModel, top_k: int,
     Each batch then runs the fused gather + FC without the gathered rows
     (on CUDA the K3 kernel) and the model from its pre-activations (K1
     (infer)); padded videos (mask 0) read zero rows, as the JAX CLI's
-    ``x * mask``.
+    ``x * mask``.  The probabilities are the float32 softmax of the
+    video-level logits in whatever dtype the model computes, so their
+    ranking is the logits', and the attention values are float32.
     """
     device = next(model.parameters()).device
     k = min(top_k, model.cfg.num_class)
 
     def head(out: StreamOutput):
-        probs = torch.softmax(video_logits(out.out), dim=-1)
+        probs = torch.softmax(video_logits(out.out).float(), dim=-1)
         top_p, top_i = torch.topk(probs, k, dim=-1)
-        return probs, top_p, top_i, out.attn
+        return probs, top_p, top_i, out.attn.float()
 
     @torch.inference_mode()
+    @bf16_f32_reduction()
     def infer(x):
         x = _as(x, device, torch.float32)
         _, out = model(x[:0], x, _EVAL_BETA, 0.0, False, False)
         return head(out)
 
     @torch.inference_mode()
+    @bf16_f32_reduction()
     def infer_all(store, idx, mask):
         mask = _as(mask, device, torch.float32)
         outs = [head(_eval_gathered(model, part, mask.shape[1]))

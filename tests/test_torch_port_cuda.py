@@ -5,7 +5,11 @@ the flagship model's CUDA forward, backward, train steps (features from
 the host or from stores on the card) and eval steps, the device-store
 steps of the comparison rows (AdaBN, MCD, DAN, JAN, CORAL, RNN, temconv,
 the frame and tsn baselines), against the CPU; and the TCL and the RNN
-in float32 on cuDNN with its TF32 flag at the default.
+in float32 on cuDNN with its TF32 flag at the default.  The bfloat16
+variants of the TRN kernels and the six store x compute variants of the
+gather kernel against their plain versions in the same dtype, the
+refusals of what they do not take, and a bfloat16 train step with
+cuBLAS's bfloat16 reductions in float32.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs where jax is not installed:
@@ -1024,3 +1028,254 @@ def test_tcl_and_rnn_are_f32_with_cudnn_tf32_at_its_default(module):
           f"{['%.1e' % _rel(a, b) for a, b in zip(loose, want)]}")
     assert torch.backends.cudnn.allow_tf32
     assert max(errs) <= 5e-5, errs
+
+
+# ---- bfloat16 and narrow-store variants ----
+
+# One bfloat16 ulp of the element (at most 2**-7 of it: a float32 sum on
+# either side of a rounding midpoint rounds to neighbours), plus float32
+# summation-order differences at the tensor's scale, a tenth of the
+# float32 checks' 1e-4 * max.
+def _bf16_ok(got, want):
+    got, want = got.float(), want.float()
+    if want.numel() == 0:
+        return got.shape == want.shape
+    bound = 2.0 ** -7 * want.abs() + 1e-5 * max(1.0, want.abs().max().item())
+    return bool(((got - want).abs() <= bound).all())
+
+
+BF16_CASES = [(1, 5, 512, 256), (64, 5, 512, 256), (202, 5, 512, 256),
+              (202, 17, 512, 256), (13, 4, 24, 8), (5, 3, 37, 19),
+              (3, 2, 40, 33)]
+
+
+def _bf16_trn_inputs(b, s, d, h, seed=0):
+    x, w, bi = _trn_inputs(b, s, d, h, seed)
+    bf = torch.bfloat16
+    return x.to(bf), [t.to(bf) for t in w], [t.to(bf) for t in bi]
+
+
+def _subset_z(x, w, bi, s):
+    """z of every subset [B, n_sub*H] in float32 from the bfloat16 inputs,
+    in the masks' order."""
+    b = x.shape[0]
+    zs = []
+    for wi, bias, k, subsets in zip(w, bi, build_relation_plan(s).scales,
+                                    build_relation_plan(s).subsets):
+        idx = torch.as_tensor(subsets.reshape(-1), device=x.device)
+        g = x.float().index_select(1, idx).reshape(b, len(subsets),
+                                                   k * x.shape[2])
+        zs.append((torch.relu(g) @ wi.float().T + bias.float())
+                  .reshape(b, -1))
+    return torch.cat(zs, dim=1)
+
+
+@pytest.mark.parametrize("b,s,d,h", BF16_CASES)
+def test_bf16_fwd_kernels_match_plain(b, s, d, h):
+    """K1 (infer) and K1 (train) in bfloat16 against the plain version in
+    bfloat16 (_bf16_ok); masks equal except where |z| is within float32
+    summation order of 0; one launch of each bfloat16 variant per call,
+    none of the float32 ones; bitwise equal on a second call."""
+    x, w, bi = _bf16_trn_inputs(b, s, d, h)
+    trn_fused.bf16_launches = trn_fused.bf16_train_launches = 0
+    _reset_counts()
+    with torch.inference_mode():
+        got = trn_fused.trn_multiscale_infer(x, w, bi, s)
+        again = trn_fused.trn_multiscale_infer(x, w, bi, s)
+        out, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+        want = trn_fused.trn_multiscale_plain(x, w, bi, s)
+        want_out, want_masks = trn_fused.trn_multiscale_fwd_masks_plain(
+            x, w, bi, s)
+        z = _subset_z(x, w, bi, s)
+    torch.cuda.synchronize()
+    assert (trn_fused.bf16_launches, trn_fused.bf16_train_launches) == (2, 1)
+    assert _counts() == (0, 0, 0, 0)
+    assert got.dtype == out.dtype == torch.bfloat16
+    assert got.shape == (b, s - 1, h)
+    assert _bf16_ok(got, want) and _bf16_ok(out, want_out)
+    assert torch.equal(got, again) and torch.equal(got, out)
+    differ = masks != want_masks
+    assert (z[differ].abs() <= 1e-5 * z.abs().max()).all()
+
+
+@pytest.mark.parametrize("b,s,d,h", BF16_CASES)
+def test_bf16_bwd_kernel_matches_plain(b, s, d, h):
+    """K2 in bfloat16 from the plain version's masks: dx, every dW and db
+    in bfloat16 within _bf16_ok of the plain version; one launch of the
+    bfloat16 variant."""
+    x, w, bi = _bf16_trn_inputs(b, s, d, h)
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(b, s - 1, h)).astype(np.float32)).cuda().to(torch.bfloat16)
+    _, masks = trn_fused.trn_multiscale_fwd_masks_plain(x, w, bi, s)
+    trn_fused.bf16_bwd_launches = 0
+    dx, dws, dbs = trn_fused.trn_multiscale_bwd(x, w, masks, g, s)
+    want = trn_fused.trn_multiscale_bwd_plain(x, w, masks, g, s)
+    torch.cuda.synchronize()
+    assert trn_fused.bf16_bwd_launches == 1
+    assert dx.dtype == torch.bfloat16 and dws[0].dtype == torch.bfloat16
+    assert _bf16_ok(dx, want[0])
+    for a, c in zip((*dws, *dbs), (*want[1], *want[2])):
+        assert a.shape == c.shape and _bf16_ok(a, c)
+
+
+def _narrow_store(store, kind):
+    """A float32 store as the given store kind: itself, bfloat16, or an
+    int8 (q, scale) pair quantized per row on the host."""
+    if kind == "f32":
+        return store
+    if kind == "bf16":
+        return store.to(torch.bfloat16)
+    from ta3n_tpu_torch.data.quantized import quantize_rows
+    q, sc = quantize_rows(store.cpu().numpy())
+    return torch.from_numpy(q).cuda(), torch.from_numpy(sc).cuda()
+
+
+@pytest.mark.parametrize("n,with_rows", [(640, True), (320, False),
+                                         (37, True), (0, True)])
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_gather_gemm_variants_match_plain(kind, compute, n, with_rows):
+    """Every store x compute variant of K3 against the plain version on the
+    same store: z within the float32 check's tolerance at float32 compute
+    and _bf16_ok at bfloat16 compute, x_res bitwise equal (an int8 store's
+    rows dequantized as float(q) * scale, then * row_scale); one launch of
+    the variant per call, none at N = 0."""
+    store, idx, scale, w = _gather_inputs(n, d=512, h=128)
+    store = _narrow_store(store, kind)
+    if compute == "bf16":
+        w = w.to(torch.bfloat16)
+    rows = gather_gemm.row_index(idx, 500, "cuda")
+    name = f"{kind}_{compute}"
+    gather_gemm.variant_launches[name] = 0
+    z, x_res = gather_gemm.gathered_gemm(store, rows, w, scale,
+                                         with_rows=with_rows)
+    want, want_x = gather_gemm.gathered_gemm_plain(store, rows.rows, w,
+                                                   scale)
+    torch.cuda.synchronize()
+    assert gather_gemm.variant_launches[name] == (1 if n else 0)
+    assert z.dtype == w.dtype and z.shape == (n, 128)
+    if compute == "f32":
+        assert (z - want).abs().max().item() <= _tol(want) if n else True
+    else:
+        assert _bf16_ok(z, want)
+    if with_rows:
+        assert x_res.dtype == w.dtype and torch.equal(x_res, want_x)
+    else:
+        assert x_res is None
+
+
+def test_bf16_kernels_refuse_other_layouts():
+    """A bfloat16 CUDA tensor of a layout the kernels do not take raises:
+    non-contiguous, mixed with float32 weights, an int8 store without its
+    scales; nothing is launched."""
+    x, w, bi = _bf16_trn_inputs(4, 5, 32, 16)
+    trn_fused.bf16_launches = 0
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="contiguous"):
+            trn_fused.trn_multiscale_infer(
+                x.transpose(0, 1).contiguous().transpose(0, 1), w, bi, 5)
+        with pytest.raises(TypeError):
+            trn_fused.trn_multiscale_infer(x, [t.float() for t in w], bi, 5)
+    store, idx, scale, wg = _gather_inputs(8)
+    rows = gather_gemm.row_index(idx, 500, "cuda")
+    q = _narrow_store(store, "int8")
+    with pytest.raises(TypeError):
+        gather_gemm.gathered_gemm(q[0], rows, wg.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_gemm.gathered_gemm(store.to(torch.bfloat16), rows,
+                                  wg.t().contiguous().t().to(torch.bfloat16))
+    assert trn_fused.bf16_launches == 0
+    assert not any(gather_gemm.variant_launches[k] for k in
+                   ("int8_bf16", "bf16_bf16"))
+
+
+def test_f16_refused_by_every_kernel():
+    """float16 has no kernel: each wrapper raises TypeError on it."""
+    x, w, bi = _trn_inputs(4, 5, 32, 16)
+    half = [t.half() for t in w], [t.half() for t in bi]
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            trn_fused.trn_multiscale_infer(x.half(), *half, 5)
+        with pytest.raises(TypeError):
+            trn_fused.trn_multiscale_fwd_masks(x.half(), *half, 5)
+        with pytest.raises(TypeError):
+            trn_fused.trn_multiscale_bwd(
+                x.half(), half[0],
+                torch.zeros((4, 160), dtype=torch.uint8, device="cuda"),
+                torch.zeros((4, 4, 16), device="cuda").half(), 5)
+    store, idx, scale, wg = _gather_inputs(8)
+    rows = gather_gemm.row_index(idx, 500, "cuda")
+    for st, ww in ((store.half(), wg), (store, wg.half())):
+        with pytest.raises(TypeError):
+            gather_gemm.gathered_gemm(st, rows, ww)
+
+
+def test_bf16_step_reduces_in_f32():
+    """A bfloat16 device-store train step from an int8 store runs its
+    bfloat16 kernels (two K3 int8 x bf16, one K1 (train) and one K2 in
+    bfloat16) with cuBLAS's bfloat16 reduced-precision reduction off in
+    its forward and backward, and restores the flag afterwards."""
+    stores = make_domain_pair(num_source=16, num_target=10, num_val=4,
+                              num_class=6, feature_dim=96)
+    cfg = ModelConfig(num_class=6, baseline_type="video",
+                      frame_aggregation="trn-m", train_segments=5,
+                      val_segments=5, feature_dim=96, fc_dim=64,
+                      use_attn="TransAttn", dropout_i=0.0, dropout_v=0.0,
+                      compute_dtype="bfloat16")
+    state = create_train_state(cfg, TrainConfig(lr=0.03),
+                               torch.Generator().manual_seed(0), "cuda")
+    da = DAConfig(use_target="uSv", adv_DA="RevGrad",
+                  add_loss_DA="attentive_entropy")
+    step = make_train_step(state.model, da, TrainConfig(lr=0.03),
+                           gather_on_device=True)
+    seen = []
+    flag = lambda *_: seen.append(
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    fc = state.model.fc_feature_domain_video
+    fc.register_forward_hook(flag)
+    fc.register_full_backward_hook(flag)
+    dev = [s.to_device("cuda", "int8") for s in stores[:2]]
+    bs = next(TSNLoader(stores[0], batch_size=8, num_segments=5).index_epoch())
+    bt = next(TSNLoader(stores[1], batch_size=5, num_segments=5).index_epoch())
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    for t in (gather_gemm.variant_launches,):
+        t["int8_bf16"] = 0
+    trn_fused.bf16_train_launches = trn_fused.bf16_bwd_launches = 0
+    state, metrics = step(state, dev[0], *bs, dev[1], *bt,
+                          StepScalars((0.75, 0.75, 0.5), 0.0, 0.0, 0.003,
+                                      0.03), None)
+    torch.cuda.synchronize()
+    assert seen == [False, False]
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    assert gather_gemm.variant_launches["int8_bf16"] == 2
+    assert (trn_fused.bf16_train_launches, trn_fused.bf16_bwd_launches) == \
+        (1, 1)
+    assert metrics["loss"].dtype == torch.float32
+    assert math.isfinite(float(metrics["loss"]))
+
+
+@pytest.mark.parametrize("n,streams,k,d", [(30, 2, 2, 256), (21, 2, 1, 256),
+                                           (45, None, 1, 37),
+                                           (20, 2, 2, 22), (70, None, 1, 100)])
+@pytest.mark.parametrize("variant", ["bf16_f32", "int8_f32", "f32_bf16",
+                                     "bf16_bf16", "int8_bf16"])
+def test_gather_gemm_variants_flow_and_ragged_d(variant, n, streams, k, d):
+    """The narrow variants on Flow stores (two streams a frame row, one
+    int8 scale for both) and at widths D that take the plain-load and
+    4-byte copies (D = 37, 22) or a ragged K chunk (D = 100): z and x_res
+    as in test_gather_gemm_variants_match_plain."""
+    kind, compute = variant.split("_")
+    store, idx, scale, w = _gather_inputs(n, d=d, streams=streams, k=k)
+    store = _narrow_store(store, kind)
+    if compute == "bf16":
+        w = w.to(torch.bfloat16)
+    rows = gather_gemm.row_index(idx, 500, "cuda")
+    z, x_res = gather_gemm.gathered_gemm(store, rows, w, scale)
+    want, want_x = gather_gemm.gathered_gemm_plain(store, rows.rows, w,
+                                                   scale)
+    torch.cuda.synchronize()
+    if compute == "f32":
+        assert (z - want).abs().max().item() <= _tol(want)
+    else:
+        assert _bf16_ok(z, want)
+    assert torch.equal(x_res, want_x)

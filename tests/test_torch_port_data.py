@@ -80,7 +80,8 @@ def test_store_round_trips_between_packages(tmp_path):
 
 def test_to_device_uploads_float32_once():
     """float16 rows become float32 exactly; Flow stores keep their stream
-    axis; a quantized store raises, naming its ROADMAP item."""
+    axis; a store quantized on disk uploads its own (q, scale) pair, as
+    the JAX Trainer does, whatever dtype is asked for."""
     port, _ = _stores()
     half = FeatureStore(port.features.astype(np.float16), port.offsets,
                         port.paths, port.labels)
@@ -90,9 +91,15 @@ def test_to_device_uploads_float32_once():
         got.numpy(), port.features.astype(np.float16).astype(np.float32))
     flow, _ = _stores(streams=2)
     assert flow.to_device("cpu").shape == flow.features.shape
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        FeatureStore(port.features.astype(np.int8), port.offsets, port.paths,
-                     port.labels, scales=np.ones(len(port.features)))
+    q = np.clip(port.features * 40, -127, 127).astype(np.int8)
+    scales = np.linspace(0.5, 2.0, len(q)).astype(np.float32)
+    quantized = FeatureStore(q, port.offsets, port.paths, port.labels,
+                             scales=scales)
+    for dtype in (None, "bfloat16", "int8"):
+        got_q, got_s = quantized.to_device("cpu", dtype)
+        assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+        np.testing.assert_array_equal(got_q.numpy(), q)
+        np.testing.assert_array_equal(got_s.numpy(), scales)
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         TSNLoader(port).shard_index_epoch(None)
 

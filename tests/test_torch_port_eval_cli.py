@@ -122,9 +122,24 @@ def test_eval_cli_max_num(workspace):
         np.testing.assert_allclose(got[1], want[1], **TOL)
 
 
+@pytest.mark.parametrize("store_dtype", ["bfloat16", "int8"])
+def test_eval_cli_store_dtype_matches_jax(workspace, store_dtype):
+    """``--device_store --store_dtype``: the store on the device in
+    bfloat16, or quantized to int8 on the host, against the JAX eval CLI
+    with the same flags: the same Pred@k line, per-class accuracies and
+    labels, scores and attention within TOL."""
+    flags = ("--device_store", "--store_dtype", store_dtype)
+    want = _run(jax_cli.main, workspace, f"jax_{store_dtype}", *flags)
+    got = _run(port_cli.main, workspace, f"port_{store_dtype}", "--device",
+               "cpu", *flags)
+    assert got[0] == want[0] and got[4] == want[4]
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[1], want[1], **TOL)
+    np.testing.assert_allclose(got[3], want[3], **TOL)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--store_budget_rows", "10"], "item 9"),
-    (["--store_dtype", "bfloat16"], "item 8"),
     (["--quantize", "int8"], "item 10"),
     (["--data_parallel"], "item 10"),
 ])

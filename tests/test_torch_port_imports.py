@@ -104,12 +104,13 @@ def test_config_copies_match_jax_package(name):
 
 
 @pytest.mark.parametrize("module", ["manifest", "samplers", "feature_store",
-                                    "loader", "synthetic"])
+                                    "loader", "synthetic", "quantized"])
 def test_data_copies_match_jax_package(module):
     """The port's copies of the JAX package's data modules: every public
     name they share has the same signature and defaults (functions and
-    the methods of classes) and the same fields (named tuples,
-    dataclasses); test_torch_port_data.py holds their behaviour."""
+    the methods of classes), the same fields (named tuples, dataclasses)
+    or the same value (constants); test_torch_port_data.py and
+    test_torch_port_quantized.py hold their behaviour."""
     import importlib
     import inspect
 
@@ -118,6 +119,9 @@ def test_data_copies_match_jax_package(module):
     assert set(ours.__all__) <= set(ref.__all__) | {"IndexBatch"}
     for name in ours.__all__:
         a, b = getattr(ours, name), getattr(ref, name)
+        if not callable(a):  # a constant (quantized.QINT8_MAX)
+            assert a == b, name
+            continue
         if not inspect.isclass(a):
             assert inspect.signature(a) == inspect.signature(b), name
             continue
@@ -223,9 +227,12 @@ def test_eval_parser_matches_jax_package():
     from ta3n_tpu_torch.cli.test_models import build_parser
 
     ours = build_parser()
-    assert _actions(ours, skip=("device",)) == _actions(jax_parser())
+    assert _actions(ours, skip=("device", "compute_dtype")) == \
+        _actions(jax_parser())
     assert ours._actions[-1].dest == "device"
     assert ours._actions[-1].default == "cuda"
+    # the port's own --compute_dtype defaults to the JAX CLI's float32
+    assert ours.parse_args(["c", "RGB", "l", "w"]).compute_dtype == "float32"
 
 
 @pytest.mark.parametrize("argv", [

@@ -152,10 +152,63 @@ def test_grl_reverses_domain_head_gradients(jax_params):
     assert grads[0].abs().max() > 0
 
 
-@pytest.mark.parametrize("field,value", [
-    ("quantize", "int8"), ("compute_dtype", "bfloat16"),
-    ("param_dtype", "bfloat16"),
-])
+# bfloat16 against bfloat16: both round at their own places (the JAX CPU
+# path fuses elementwise ops in float32), so every output within 3e-2 of
+# its largest value
+BF16_TOL = 3e-2
+
+
+def _dtype_name(t):
+    return str(t.dtype).replace("torch.", "")
+
+
+@pytest.mark.parametrize("field", ["compute_dtype", "param_dtype"])
+@pytest.mark.parametrize("is_train", [False, True])
+def test_precision_config_matches_jax(jax_params, field, is_train):
+    """compute_dtype bfloat16: both streams' every output has the dtype of
+    its JAX counterpart and lies within BF16_TOL of its largest value.
+    param_dtype bfloat16, which the JAX package reads nowhere: parameters
+    float32 on both sides and the outputs those of the float32 model, at
+    MODEL_TOL."""
+    import dataclasses
+    rng = np.random.default_rng(1)
+    xs = rng.normal(size=(3, 5, 32)).astype(np.float32)
+    xt = rng.normal(size=(2, 5, 32)).astype(np.float32)
+    beta = np.asarray([0.75, 0.75, 0.5], np.float32)
+    cfg = dataclasses.replace(CFG, **{field: "bfloat16"})
+    jmodel = JaxVideoModel(cfg)
+    ref = jmodel.apply({"params": jax_params}, jnp.asarray(xs),
+                       jnp.asarray(xt), jnp.asarray(beta), jnp.asarray(0.0),
+                       is_train, False)
+    model = VideoModel(cfg)
+    model.load_state_dict(state_dict_from_jax_params(jax_params))
+    ours = model(torch.from_numpy(xs), torch.from_numpy(xt),
+                 torch.from_numpy(beta), 0.0, is_train, False)
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    init = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(xs),
+                       jnp.asarray(xt), jnp.asarray(beta), jnp.asarray(0.0),
+                       False)
+    assert {str(v.dtype) for v in jax.tree_util.tree_leaves(init)} == \
+        {"float32"}
+    if field == "param_dtype":
+        for label, a, b in zip(("source", "target"), ours, ref):
+            _assert_stream_close(a, b, label)
+        return
+    for label, a, b in zip(("source", "target"), ours, ref):
+        for name, x, y in [("attn", a.attn, b.attn), ("out", a.out, b.out),
+                           ("out_2", a.out_2, b.out_2),
+                           *((f"pred_domain {i}", x, y) for i, (x, y) in
+                             enumerate(zip(a.pred_domain, b.pred_domain))),
+                           *((f"feat {i}", x, y) for i, (x, y) in
+                             enumerate(zip(a.feat, b.feat)))]:
+            assert _dtype_name(x) == str(y.dtype), (label, name)
+            want = np.asarray(y, np.float32)
+            got = x.detach().float().numpy()
+            assert np.abs(got - want).max() <= BF16_TOL * max(
+                np.abs(want).max(), 1e-6), (label, name)
+
+
+@pytest.mark.parametrize("field,value", [("quantize", "int8")])
 def test_unported_config_raises(field, value):
     import dataclasses
     cfg = dataclasses.replace(CFG, **{field: value})

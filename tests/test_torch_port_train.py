@@ -277,10 +277,15 @@ def test_dropout_draws_from_the_step_generator():
 
 
 def test_unported_optimizer_and_quantized_training_raise():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 8"):
+    """An optimizer neither package has is refused by both, as is a train
+    step of a model whose configuration asks for int8 inference.  (Adam
+    runs: test_torch_port_optim.py.)"""
+    from ta3n_tpu.train.optim import make_optimizer as jax_make_optimizer
+    with pytest.raises(ValueError, match="optimizer not supported"):
+        jax_make_optimizer("RMSprop")
+    with pytest.raises(ValueError, match="optimizer not supported"):
         create_train_state(ModelConfig(**MODEL),
-                           TrainConfig(optimizer="Adam"), device="cpu")
+                           TrainConfig(optimizer="RMSprop"), device="cpu")
     state = create_train_state(ModelConfig(**MODEL), TrainConfig(),
                                device="cpu")
 

@@ -118,10 +118,57 @@ def test_train_cli_evaluate(workspace, trained):
     assert prec1 == pytest.approx(max(best, best_again), abs=1e-9)
 
 
+def _train_lines(main, argv):
+    """Run a train CLI; its best Prec@1 and its printed Train: lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        best = main(argv)
+    return best, re.findall(r"Train: \[\d+\]\[\d+/\d+\]", buf.getvalue())
+
+
+@pytest.mark.parametrize("flags,eval_flags", [
+    (["--accum_steps", "2"], []),
+    (["--device_store", "--store_dtype", "bfloat16"],
+     ["--device_store", "--store_dtype", "bfloat16"]),
+    (["--compute_dtype", "bfloat16", "--device_store", "--store_dtype",
+      "int8", "--optimizer", "Adam", "--lr", "0.001"],
+     ["--compute_dtype", "bfloat16", "--device_store", "--store_dtype",
+      "int8"]),
+], ids=["accum_steps", "store_dtype", "compute_dtype"])
+def test_train_cli_precision_flags_run(workspace, flags, eval_flags):
+    """The optimizer and precision flags through the port's train CLI for
+    one epoch, as through the JAX train CLI with the same flags: the same
+    Train: lines (--accum_steps 2: one line an update, the tail batch a
+    plain step); model_best.pth.tar through the port's eval CLI, at the
+    compute dtype and store dtype it trained with, gives the best Prec@1
+    the training printed; and the JAX eval CLI and the port's in float32
+    print the same Pred@k line on it."""
+    from ta3n_tpu.cli.train import main as jax_main
+
+    tag = "prec_" + flags[1]
+    argv = _argv(workspace, tag, "--epochs", "1", "--save_model", *flags)
+    best, lines = _train_lines(main, argv)
+    jax_argv = [a for a in _argv(workspace, "jax_" + tag, "--epochs", "1",
+                                 *flags) if a not in ("--device", "cpu")]
+    _, jax_lines = _train_lines(jax_main, jax_argv)
+    assert lines == jax_lines and lines
+    evaluate = [str(workspace / "class.txt"), "RGB",
+                str(workspace / "val" / "list.txt"),
+                str(workspace / tag / "RGB" / "model_best.pth.tar"),
+                *MODEL_FLAGS, "--test_segments", "5", "--bS", "8", "--top",
+                "1", "3"]
+    port = port_eval_cli.main(evaluate + ["--device", "cpu", *eval_flags])
+    pred1 = float(re.match(r"Pred@1 ([0-9.]+)%", port).group(1))
+    assert pred1 == pytest.approx(best, abs=0.006)
+    assert port_eval_cli.main(evaluate + ["--device", "cpu"]) == \
+        jax_eval_cli.main(evaluate)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--steps_per_call", "2"], "item 4"), (["--accum_steps", "2"], "item 8"),
-    (["--store_dtype", "bfloat16"], "item 8"),
-    (["--compute_dtype", "bfloat16"], "item 8"),
+    (["--steps_per_call", "2"], "item 4"),
     (["--store_budget_rows", "10"], "item 9"),
     (["--device_sampler"], "item 9"), (["--model_parallel", "2"], "item 9"),
     (["--num_devices", "2"], "item 9"),

@@ -99,28 +99,32 @@ def _record(trainer, to_float):
     return steps, vals
 
 
-def _trainers(root, device_store, jax_params=None):
+def _trainers(root, device_store, da=(), train=(), tag="", **kw):
     """The JAX Trainer (one device, no mesh) and the port's on the CPU,
-    the port's model holding the JAX one's (redrawn) initial weights."""
-    jcfg = (JaxModelConfig(**MODEL), JaxDAConfig(**DA),
-            JaxTrainConfig(**TRAIN))
+    the port's model holding the JAX one's (redrawn) initial weights.
+    ``da`` and ``train`` override fields of DA and TRAIN; ``kw`` goes to
+    both Trainers; ``tag`` names their experiment directories."""
+    da, train = {**DA, **dict(da)}, {**TRAIN, **dict(train)}
+    name = f"{device_store}{tag}"
+    jcfg = (JaxModelConfig(**MODEL), JaxDAConfig(**da),
+            JaxTrainConfig(**train))
     jt = JaxTrainer(*jcfg, *jax_build_loaders(_args(root), jcfg[0],
                                               jcfg[2])[:3],
-                    path_exp=str(root / f"jax_{device_store}") + "/",
+                    path_exp=str(root / f"jax_{name}") + "/",
                     use_mesh=False, device_store=device_store,
-                    log_files=JaxLogFiles(str(root / f"jax_{device_store}"),
+                    log_files=JaxLogFiles(str(root / f"jax_{name}"),
                                           best_log=str(root / "jbest.log")),
-                    print_freq=1)
+                    print_freq=1, **kw)
     params = _redraw(jax.tree_util.tree_map(np.asarray, jt.state.params),
                      np.random.default_rng(0))
     jt.state = jt.state._replace(
         params=jax.tree_util.tree_map(jnp.asarray, params))
-    cfg = (ModelConfig(**MODEL), DAConfig(**DA), TrainConfig(**TRAIN))
+    cfg = (ModelConfig(**MODEL), DAConfig(**da), TrainConfig(**train))
     pt = Trainer(*cfg, *build_loaders(_args(root), cfg[0], cfg[2])[:3],
-                 path_exp=str(root / f"port_{device_store}") + "/",
+                 path_exp=str(root / f"port_{name}") + "/",
                  device_store=device_store, print_freq=1, device="cpu",
-                 log_files=LogFiles(str(root / f"port_{device_store}"),
-                                    best_log=str(root / "pbest.log")))
+                 log_files=LogFiles(str(root / f"port_{name}"),
+                                    best_log=str(root / "pbest.log")), **kw)
     pt.state.model.load_state_dict(state_dict_from_jax_params(params))
     return jt, pt
 
@@ -206,9 +210,49 @@ def test_resume_restores_what_was_saved(workspace, tmp_path):
     np.testing.assert_allclose(probs.sum(1), 1.0, atol=1e-5)
 
 
+def _fit_and_compare(jt, pt, updates, param_tol=PARAM_TOL):
+    """Fit both Trainers; the port's per-step losses (of the steps the
+    train step records), val Prec@1, best, lr, update count and final
+    parameters against the JAX Trainer's, at the tolerances above (the
+    parameters at ``param_tol``)."""
+    j_steps, j_vals = _record(jt, lambda v: float(v))
+    p_steps, p_vals = _record(pt, lambda v: v.item())
+    j_best, p_best = jt.fit(), pt.fit()
+    assert len(p_steps) == len(j_steps) and len(p_vals) == len(j_vals) > 0
+    for i, (got, want) in enumerate(zip(p_steps, j_steps)):
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=LOSS_RTOL,
+                                       err_msg=f"step {i} {key}")
+    assert p_vals == j_vals and p_best == j_best
+    assert pt.lr_current == pytest.approx(jt.lr_current, rel=1e-12)
+    assert pt.state.step == int(jt.state.step) == updates
+    want = state_dict_from_jax_params(
+        jax.tree_util.tree_map(np.asarray, jt.state.params))
+    got = pt.state.model.state_dict()
+    for name in want:
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                   err_msg=name, **param_tol)
+
+
+@pytest.mark.parametrize("kw,device_store,updates", [
+    (dict(accum_steps=2), False, 4),
+    (dict(store_dtype="bfloat16"), True, 6),
+], ids=["accum_steps", "store_dtype"])
+def test_trainer_precision_options_match_jax(workspace, kw, device_store,
+                                             updates):
+    """--accum_steps 2 on host features (each epoch of 3 batch pairs: one
+    update from 2 micro-batches, then a plain step on the tail) and a
+    bfloat16 device store, against the JAX Trainer with the same option:
+    as test_trainer_matches_jax."""
+    jt, pt = _trainers(workspace, device_store,
+                       tag="_" + "_".join(map(str, kw.values())), **kw)
+    if "accum_steps" in kw:
+        assert pt.accum_step is not None and jt.accum_step is not None
+    _fit_and_compare(jt, pt, updates)
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(steps_per_call=2), "item 4"), (dict(accum_steps=2), "item 8"),
-    (dict(store_dtype="bfloat16"), "item 8"),
+    (dict(steps_per_call=2), "item 4"),
     (dict(store_budget_rows=10), "item 9"),
     (dict(device_sampler=True), "item 9"), (dict(model_parallel=2), "item 9"),
     (dict(num_devices=2), "item 9"), (dict(tensorboard_dir="tb"), "item 5"),
