@@ -1,6 +1,7 @@
 // Fused row gather + first-FC GEMM, for Hopper (sm_90a): float32 at f32
-// accuracy on the tensor cores (3xTF32) or bfloat16 with float32
-// accumulation, from a float32, bfloat16 or int8 store.
+// accuracy on the tensor cores (3xTF32), from a float32, bfloat16 or int8
+// store; and the C entry of every variant (bfloat16 compute:
+// gather_gemm_bf16.cu).
 //
 // Replaces ta3n_tpu/ops/gather_gemm.py::_kernel (launched through
 // gathered_gemm): the device-store steps gather the B*T frame rows of a
@@ -55,25 +56,21 @@
 // Indices are not checked here: the Python wrapper only launches with
 // indices it checked on the host (0 <= idx < R).
 //
-// Store and compute variants (six kernels of one template: store float32,
-// bfloat16 or int8, compute float32 or bfloat16).  The store stays in its
-// dtype in device memory and is staged so (an int8 row of 32 values is 32
-// bytes, a bfloat16 one 64), a quarter or half the float32 bytes.  An int8
-// store's row q comes with its float32 scale (one per store row, for all
-// its streams); the value staged into the product and x_res is
+// Store variants (three kernels of one template: store float32, bfloat16
+// or int8, W float32).  The store stays in its dtype in device memory and
+// is staged so (an int8 row of 32 values is 32 bytes, a bfloat16 one 64),
+// a quarter or half the float32 bytes.  An int8 store's row q comes with
+// its float32 scale (one per store row, for all its streams); the value
+// staged into the product and x_res is
 //     __fmul_rn(__fmul_rn(float(q), scale[row]), row_scale)
 // two rounded multiplies in that order and no FMA: the JAX step's
 // device_gather (q.astype(f32) * scale) followed by x * mask, bit for bit.
-// A bfloat16 store's value is float(v) * row_scale.  At float32 compute
-// every value is split for 3xTF32 (a bfloat16 row times a 0/1 mask is
-// exact in TF32 and its small term is then 0, but the kernel does not
-// assume the mask).  At bfloat16 compute (W bfloat16) the value is rounded
-// to bfloat16 (the JAX model's entry cast after the mask), one mma.sync
-// m16n8k16 bf16 per tile and 16-deep step accumulates in float32
-// (bf16.cuh), z is rounded to bfloat16 once (after the split-K sum), and
-// x_res holds the bfloat16 values.  At the flagship train shape and
-// bfloat16 compute from an int8 store the bound is about 4.3 MB of bytes
-// (1.3 us at 3.35 TB/s) against 1.34 GFLOP (1.4 us at 989 TFLOP/s).
+// A bfloat16 store's value is float(v) * row_scale.  Every value is split
+// for 3xTF32 (a bfloat16 row times a 0/1 mask is exact in TF32 and its
+// small term is then 0, but the kernel does not assume the mask).
+// bfloat16 compute (W bfloat16) is the wgmma kernel of
+// gather_gemm_bf16.cu, which the C entry below launches for compute kind
+// 1, followed by the same split-K sum.
 
 #include <cuda_runtime.h>
 
@@ -107,18 +104,17 @@ constexpr int kStride = std::is_same_v<T, float>  ? kTileK + 4
                         : std::is_same_v<T, bf16> ? kTileK + 8
                                                   : kTileK + 16;
 
-// S: the store's element type (float, bf16, int8_t); C: the compute type,
-// W's (float, bf16)
-template <class S, class C>
+// S: the store's element type (float, bf16, int8_t)
+template <class S>
 struct Stage {
   S x[kTileM][kStride<S>];  // scaled on use, not here
-  C w[kTileH][kStride<C>];
+  float w[kTileH][kStride<float>];
   float scale[kTileM];      // row_scale of each staged row
   // an int8 store's scale of each staged row (4 unused floats otherwise)
   float qscale[std::is_same_v<S, int8_t> ? kTileM : 4];
 };
-template <class S, class C>
-constexpr int kSmem = kStages * static_cast<int>(sizeof(Stage<S, C>));
+template <class S>
+constexpr int kSmem = kStages * static_cast<int>(sizeof(Stage<S>));
 
 // A run of 16 int8 values: the byte copy of tf32x3.cuh.
 template <bool kVec>
@@ -139,8 +135,8 @@ __device__ __forceinline__ void copy_run16(T* dst, const T* src,
 // The staged value x[r][k] as the product and x_res see it (see the head
 // of the file): float32 rows times row_scale; bfloat16 and int8 rows with
 // rounded multiplies only.
-template <class S, class C>
-__device__ __forceinline__ float value(const Stage<S, C>& st, int r, int k,
+template <class S>
+__device__ __forceinline__ float value(const Stage<S>& st, int r, int k,
                                        float rs) {
   if constexpr (std::is_same_v<S, float>)
     return st.x[r][k] * rs;
@@ -153,22 +149,22 @@ __device__ __forceinline__ float value(const Stage<S, C>& st, int r, int k,
 
 // grid (ceil(M/kTileM), ceil(H/kTileH), splits): one block per output tile
 // and K slice.  kVec: 16-byte copies and x_res stores (D a multiple of a
-// 16-byte run of the store's and of W's type, 16-byte aligned store, W and
-// x_res).  With splits > 1 the block writes float32 partials
-// into part, else C values into z.
-template <class S, class C, bool kVec>
+// 16-byte run of the store's type and of float32, 16-byte aligned store, W
+// and x_res).  With splits > 1 the block writes float32 partials into
+// part, else z.
+template <class S, bool kVec>
 __global__ void __launch_bounds__(kThreads, 3)
     gather_gemm_kernel(const S* __restrict__ store,
                        const float* __restrict__ qscale,
                        const int* __restrict__ idx,
                        const float* __restrict__ scale,
-                       const C* __restrict__ w, C* __restrict__ z,
-                       float* __restrict__ part, C* __restrict__ x_res,
+                       const float* __restrict__ w, float* __restrict__ z,
+                       float* __restrict__ part, float* __restrict__ x_res,
                        long long m_rows, int streams, int d, int k_rows,
                        int h) {
   constexpr bool kInt8 = std::is_same_v<S, int8_t>;
   extern __shared__ __align__(128) unsigned char smem[];
-  Stage<S, C>* stage = reinterpret_cast<Stage<S, C>*>(smem);
+  Stage<S>* stage = reinterpret_cast<Stage<S>*>(smem);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -200,7 +196,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     c += c_begin;
     const int j = c / per_row;
     const int c0 = (c % per_row) * kTileK + col;
-    Stage<S, C>& st = stage[s];
+    Stage<S>& st = stage[s];
     if (j != row_j) {
       row_j = j;
       row = nullptr;
@@ -228,69 +224,41 @@ __global__ void __launch_bounds__(kThreads, 3)
 
   float acc[2][4][4] = {};
   auto compute = [&](int c, int s) {
-    const Stage<S, C>& st = stage[s];
+    const Stage<S>& st = stage[s];
     float sc[2][2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       sc[i][0] = st.scale[wm + 16 * i + g];
       sc[i][1] = st.scale[wm + 16 * i + g + 8];
     }
-    if constexpr (std::is_same_v<C, float>) {
-      float part_acc[2][4][4] = {};
+    float part_acc[2][4][4] = {};
 #pragma unroll
-      for (int kk = 0; kk < kTileK; kk += 8) {
-        float a[2][4], b[4][2];
+    for (int kk = 0; kk < kTileK; kk += 8) {
+      float a[2][4], b[4][2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = wm + 16 * i + g;
-          a[i][0] = value(st, r, kk + t, sc[i][0]);
-          a[i][1] = value(st, r + 8, kk + t, sc[i][1]);
-          a[i][2] = value(st, r, kk + t + 4, sc[i][0]);
-          a[i][3] = value(st, r + 8, kk + t + 4, sc[i][1]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = wn + 8 * j + g;
-          b[j][0] = st.w[n][kk + t];
-          b[j][1] = st.w[n][kk + t + 4];
-        }
-        ta3n::mma_3xtf32(part_acc, a, b);
+      for (int i = 0; i < 2; ++i) {
+        const int r = wm + 16 * i + g;
+        a[i][0] = value(st, r, kk + t, sc[i][0]);
+        a[i][1] = value(st, r + 8, kk + t, sc[i][1]);
+        a[i][2] = value(st, r, kk + t + 4, sc[i][0]);
+        a[i][3] = value(st, r + 8, kk + t + 4, sc[i][1]);
       }
-      ta3n::add_to(acc, part_acc);
-    } else {
 #pragma unroll
-      for (int kk = 0; kk < kTileK; kk += 16) {
-        unsigned a[2][4], b[4][2];
-        const int k0 = kk + 2 * t;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = wm + 16 * i + g;
-          a[i][0] = ta3n::pack2f(value(st, r, k0, sc[i][0]),
-                                 value(st, r, k0 + 1, sc[i][0]));
-          a[i][1] = ta3n::pack2f(value(st, r + 8, k0, sc[i][1]),
-                                 value(st, r + 8, k0 + 1, sc[i][1]));
-          a[i][2] = ta3n::pack2f(value(st, r, k0 + 8, sc[i][0]),
-                                 value(st, r, k0 + 9, sc[i][0]));
-          a[i][3] = ta3n::pack2f(value(st, r + 8, k0 + 8, sc[i][1]),
-                                 value(st, r + 8, k0 + 9, sc[i][1]));
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = wn + 8 * j + g;
-          b[j][0] = ta3n::ld2(&st.w[n][k0]);
-          b[j][1] = ta3n::ld2(&st.w[n][k0 + 8]);
-        }
-        ta3n::mma_bf16_tiles(acc, a, b);
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn + 8 * j + g;
+        b[j][0] = st.w[n][kk + t];
+        b[j][1] = st.w[n][kk + t + 4];
       }
+      ta3n::mma_3xtf32(part_acc, a, b);
     }
+    ta3n::add_to(acc, part_acc);
     if (write_rows && m < m_rows) {
       c += c_begin;
       const int j = c / per_row;
       const int c0 = (c % per_row) * kTileK + col;
-      C* dst = x_res + (m * k_rows + j) * d + c0;
+      float* dst = x_res + (m * k_rows + j) * d + c0;
       const float rs = st.scale[srow];
-      if constexpr (kVec && std::is_same_v<S, float> &&
-                    std::is_same_v<C, float>) {
+      if constexpr (kVec && std::is_same_v<S, float>) {
         const float* src = &st.x[srow][col];
 #pragma unroll
         for (int v = 0; v < kRun / 4; ++v) {
@@ -300,17 +268,16 @@ __global__ void __launch_bounds__(kThreads, 3)
               make_float4(x4.x * rs, x4.y * rs, x4.z * rs, x4.w * rs);
         }
       } else if constexpr (kVec) {
-        // 16-byte stores of the values as the product saw them: D is a
-        // multiple of 8 here, so a run holds whole 16-byte pieces
-        constexpr int kPer = 16 / static_cast<int>(sizeof(C));
+        // 16-byte stores of the values as the product saw them: a run
+        // holds whole 16-byte pieces
+        constexpr int kPer = 4;
 #pragma unroll
         for (int v = 0; v < kRun / kPer; ++v) {
           if (kPer * v >= d - c0) break;
-          alignas(16) C vals[kPer];
+          alignas(16) float vals[kPer];
 #pragma unroll
           for (int e = 0; e < kPer; ++e)
-            vals[e] = ta3n::from_f32<C>(value(st, srow, col + kPer * v + e,
-                                              rs));
+            vals[e] = value(st, srow, col + kPer * v + e, rs);
           *reinterpret_cast<uint4*>(dst + kPer * v) =
               *reinterpret_cast<const uint4*>(vals);
         }
@@ -318,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 3)
 #pragma unroll
         for (int e = 0; e < kRun; ++e)
           if (e < d - c0)
-            dst[e] = ta3n::from_f32<C>(value(st, srow, col + e, rs));
+            dst[e] = value(st, srow, col + e, rs);
       }
     }
   };
@@ -340,7 +307,7 @@ __global__ void __launch_bounds__(kThreads, 3)
           if (gridDim.z > 1)
             part[om * h + oh + e] = v;
           else
-            z[om * h + oh + e] = ta3n::from_f32<C>(v);
+            z[om * h + oh + e] = v;
         }
       }
 }
@@ -361,64 +328,55 @@ __global__ void gather_gemm_reduce(const float* __restrict__ part,
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, once.
-template <class S, class C, bool kVec>
+template <class S, bool kVec>
 cudaError_t allow_smem() {
   static const cudaError_t err = cudaFuncSetAttribute(
-      gather_gemm_kernel<S, C, kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<S, C>);
+      gather_gemm_kernel<S, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<S>);
   return err;
 }
 
-template <class S, class C>
+template <class S>
 int launch(const void* store, const void* qscale, const void* idx,
            const void* scale, const void* w, void* z, void* x_res,
-           void* part, int n_idx, int streams, int d, int k_rows, int h,
-           int splits, void* stream) {
-  if (n_idx < 1 || streams < 1 || d < 1 || k_rows < 1 || h < 1 ||
-      splits < 1 || splits > kMaxSplits || (splits > 1 && part == nullptr) ||
-      (std::is_same_v<S, int8_t> != (qscale != nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long gathered = static_cast<long long>(n_idx) * streams;
-  if (gathered % k_rows != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long m_rows = gathered / k_rows;
+           void* part, long long m_rows, int streams, int d, int k_rows,
+           int h, int splits, cudaStream_t stream) {
   const long long tiles = (m_rows + kTileM - 1) / kTileM;
-  const long long chunks =
-      static_cast<long long>(k_rows) * ((d + kTileK - 1) / kTileK);
-  if (tiles > 0x7fffffffLL || (h + kTileH - 1) / kTileH > 65535 ||
-      chunks > 0x7fffffffLL)
+  if (tiles > 0x7fffffffLL || (h + kTileH - 1) / kTileH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
   const bool vec = d % (16 / static_cast<int>(sizeof(S))) == 0 &&
-                   d % (16 / static_cast<int>(sizeof(C))) == 0 &&
-                   aligned(store) && aligned(w) &&
+                   d % 4 == 0 && aligned(store) && aligned(w) &&
                    (x_res == nullptr || aligned(x_res));
   const cudaError_t attr =
-      vec ? allow_smem<S, C, true>() : allow_smem<S, C, false>();
+      vec ? allow_smem<S, true>() : allow_smem<S, false>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(tiles), (h + kTileH - 1) / kTileH,
                   splits);
-  (vec ? gather_gemm_kernel<S, C, true> : gather_gemm_kernel<S, C, false>)
-      <<<grid, kThreads, kSmem<S, C>, s>>>(
+  (vec ? gather_gemm_kernel<S, true> : gather_gemm_kernel<S, false>)
+      <<<grid, kThreads, kSmem<S>, stream>>>(
           static_cast<const S*>(store), static_cast<const float*>(qscale),
           static_cast<const int*>(idx), static_cast<const float*>(scale),
-          static_cast<const C*>(w), static_cast<C*>(z),
-          static_cast<float*>(part), static_cast<C*>(x_res), m_rows,
+          static_cast<const float*>(w), static_cast<float*>(z),
+          static_cast<float*>(part), static_cast<float*>(x_res), m_rows,
           streams, d, k_rows, h);
-  if (splits > 1) {
-    const long long count = m_rows * h;
-    const long long blocks = (count + 255) / 256;
-    gather_gemm_reduce<C>
-        <<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
-            static_cast<const float*>(part), static_cast<C*>(z), count,
-            splits);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+namespace ta3n {
+// gather_gemm_bf16.cu: the bfloat16-compute kernel, without its split-K
+// sum
+int launch_gather_gemm_bf16(const void* store, const void* qscale,
+                            const void* idx, const void* scale,
+                            const void* w, void* z, void* x_res, void* part,
+                            long long m_rows, int streams, int d, int k_rows,
+                            int h, int splits, int store_kind,
+                            cudaStream_t stream);
+}  // namespace ta3n
 
 // store [rows*streams, d] of the element type store_kind (0 float32, 1
 // bfloat16, 2 int8, whose qscale [rows] f32 holds each store row's scale;
@@ -428,26 +386,51 @@ int launch(const void* store, const void* qscale, const void* idx,
 // [n_idx] int32 and scale [n_idx] f32 (null: every scale 1) on the same
 // device.  Every idx must lie in [0, rows): the caller checks.  splits
 // (1..8) K slices; with more than one, part is scratch of [splits, m, h]
-// f32.  An unknown kind is refused.  Launches on `stream` and returns
-// cudaGetLastError().
+// f32, summed into z by a second kernel in a fixed order.  An unknown kind
+// is refused.  Compute kind 1 launches gather_gemm_bf16.cu's kernel.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int ta3n_gather_gemm(const void* store, const void* qscale,
                                 const void* idx, const void* scale,
                                 const void* w, void* z, void* x_res,
                                 void* part, int n_idx, int streams, int d,
                                 int k_rows, int h, int splits, int store_kind,
                                 int compute_kind, void* stream) {
-#define TA3N_GATHER(S, C)                                                  \
-  return launch<S, C>(store, qscale, idx, scale, w, z, x_res, part, n_idx, \
-                      streams, d, k_rows, h, splits, stream)
-  if (compute_kind == 0) {
-    if (store_kind == 0) TA3N_GATHER(float, float);
-    if (store_kind == 1) TA3N_GATHER(bf16, float);
-    if (store_kind == 2) TA3N_GATHER(int8_t, float);
-  } else if (compute_kind == 1) {
-    if (store_kind == 0) TA3N_GATHER(float, bf16);
-    if (store_kind == 1) TA3N_GATHER(bf16, bf16);
-    if (store_kind == 2) TA3N_GATHER(int8_t, bf16);
-  }
-#undef TA3N_GATHER
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (n_idx < 1 || streams < 1 || d < 1 || k_rows < 1 || h < 1 ||
+      splits < 1 || splits > kMaxSplits || (splits > 1 && part == nullptr) ||
+      store_kind < 0 || store_kind > 2 || compute_kind < 0 ||
+      compute_kind > 1 || ((store_kind == 2) != (qscale != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long gathered = static_cast<long long>(n_idx) * streams;
+  if (gathered % k_rows != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long m_rows = gathered / k_rows;
+  if (static_cast<long long>(k_rows) * d > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  if (compute_kind == 1)
+    err = ta3n::launch_gather_gemm_bf16(store, qscale, idx, scale, w, z,
+                                        x_res, part, m_rows, streams, d,
+                                        k_rows, h, splits, store_kind, s);
+  else if (store_kind == 0)
+    err = launch<float>(store, qscale, idx, scale, w, z, x_res, part, m_rows,
+                        streams, d, k_rows, h, splits, s);
+  else if (store_kind == 1)
+    err = launch<bf16>(store, qscale, idx, scale, w, z, x_res, part, m_rows,
+                       streams, d, k_rows, h, splits, s);
+  else
+    err = launch<int8_t>(store, qscale, idx, scale, w, z, x_res, part,
+                         m_rows, streams, d, k_rows, h, splits, s);
+  if (err != 0 || splits == 1) return err;
+  const long long count = m_rows * h;
+  const long long blocks = (count + 255) / 256;
+  const unsigned grid = static_cast<unsigned>(blocks < 4096 ? blocks : 4096);
+  if (compute_kind == 1)
+    gather_gemm_reduce<bf16><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(part), static_cast<bf16*>(z), count,
+        splits);
+  else
+    gather_gemm_reduce<float><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(part), static_cast<float*>(z), count,
+        splits);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,8 @@ __all__ = ["SOURCES", "library_path", "compile_library", "load_library"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (_CSRC / "trn_fused_fwd.cu", _CSRC / "trn_fused_bwd.cu",
-           _CSRC / "gather_gemm.cu")
+           _CSRC / "trn_fused_bwd_bf16.cu", _CSRC / "gather_gemm.cu",
+           _CSRC / "gather_gemm_bf16.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ta3n_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,11 +61,12 @@ _ENTRIES = {
     # the same and parts (1: dx tiles, 2: dW/db tiles, 3: both), stream
     "ta3n_trn_fused_bwd_parts_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _P, _I, _I, _I, _I, _I, _P],
-    # the bfloat16 variant of the backward, with its arguments
+    # the bfloat16 backward (trn_fused_bwd_bf16.cu), with its arguments
     "ta3n_trn_fused_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                                 _I, _I, _I, _I, _P],
     # store, its int8 scales, idx, scale, w, z, x_res, part, n_idx,
-    # streams, d, k_rows, h, splits, store kind, compute kind, stream
+    # streams, d, k_rows, h, splits, store kind, compute kind (1:
+    # gather_gemm_bf16.cu's kernel), stream
     "ta3n_gather_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],
 }

@@ -13,8 +13,9 @@ at row 0 with scale 0, so their rows are exactly 0, as JAX's ``x * mask``):
   * ``gathered_gemm_plain``: the plain PyTorch version, which CPU stores
     take and ``chip_smoke.py`` holds the kernel against on the card.
   * ``gathered_gemm``: on a CUDA store, the hand-written kernel
-    (``csrc/gather_gemm.cu``), counted in ``launches``; on a CPU store, the
-    plain version.
+    (``csrc/gather_gemm.cu`` at float32 compute, ``csrc/gather_gemm_bf16.cu``
+    at bfloat16), counted in ``launches``; on a CPU store, the plain
+    version.
   * ``gathered_linear``: the FC as a ``torch.autograd.Function`` over one
     or more (store, indices, row scale) parts written into one output
     buffer (source rows first), each part with its own weight and bias or
@@ -34,7 +35,9 @@ rounded to bfloat16 (the JAX model's entry cast, ``video_model.py:175``),
 multiplied with float32 accumulation, and z is rounded to bfloat16; x_res
 then holds the bfloat16 rows.  Each of the six (store, compute) pairs is a
 variant of the kernel with its own count of launches (``launches`` is the
-float32 store at float32 compute, ``variant_launches`` every variant).
+float32 store at float32 compute, ``variant_launches`` every variant); the
+three at bfloat16 compute run the wgmma kernel, whose grid ``bf16_grid``
+chooses.
 
 Shapes: a store is [R, D], or [R, S, D] for a Flow store whose S stream
 rows interleave per frame (row r, stream s is gathered row r·S + s, the
@@ -62,7 +65,7 @@ from ta3n_tpu_torch.ops.trn_fused import (_acc, _call, _check_tensor,
                                           _no_kernel)
 
 __all__ = ["RowIndex", "row_index", "gathered_gemm_plain", "gathered_gemm",
-           "gathered_linear", "launches", "variant_launches"]
+           "gathered_linear", "bf16_grid", "launches", "variant_launches"]
 
 # kernel launches made by gathered_gemm and gathered_linear (plain-version
 # calls are not counted); callers reset them to count one run's launches:
@@ -85,6 +88,13 @@ variant_launches = {f"{s}_{c}": 0 for s, _ in _STORE_KINDS.values()
 # shape, 320 x 512: the fastest of 1-8 slices measured at both)
 _TILE_M, _TILE_H, _TILE_K = 64, 64, 32
 _MAX_SPLITS, _TARGET_BLOCKS = 8, 264
+# the bfloat16-compute kernel's tiles (csrc/gather_gemm_bf16.cu): 64 rows
+# x 128 columns per warpgroup block, 64-deep K chunks; and the blocks an
+# SM holds by store dtype (its ring of raw rows: 117.5 KB of shared memory
+# for a float32 store, 93.5 KB for bfloat16, 81.5 KB for int8)
+_BF16_TILE_M, _BF16_TILE_N, _BF16_TILE_K = 64, 128, 64
+_SMS = 132
+_BF16_BLOCKS_PER_SM = {torch.float32: 1, torch.bfloat16: 2, torch.int8: 2}
 
 
 class RowIndex(NamedTuple):
@@ -239,7 +249,10 @@ def _gather_into(store, rows, geometry, weight, row_scale, z,
     if m == 0:  # a grid of 0 blocks is refused
         return
     h = weight.shape[0]
-    splits = _splits(m, h, k * -(-d // _TILE_K))
+    if weight.dtype == torch.bfloat16:
+        splits = bf16_grid(m, h, d, k, data.dtype)[2]
+    else:
+        splits = _splits(m, h, k * -(-d // _TILE_K))
     part = (torch.empty((splits, m, h), dtype=torch.float32,
                         device=z.device) if splits > 1 else None)
     _call("ta3n_gather_gemm", data, data.data_ptr(),
@@ -261,6 +274,21 @@ def _splits(m: int, h: int, chunks: int) -> int:
     per K chunk."""
     tiles = -(-m // _TILE_M) * -(-h // _TILE_H)
     return max(1, min(_MAX_SPLITS, chunks, _TARGET_BLOCKS // tiles))
+
+
+def bf16_grid(m: int, h: int, d: int, k: int,
+              store_dtype: torch.dtype) -> Tuple[int, int, int]:
+    """The bfloat16-compute kernel's grid for M output rows, H columns and
+    k gathered rows of D per FC input row: (row tiles, column tiles, K
+    slices).  K is split only where the output tiles leave SMs of the card
+    without a block: into as many slices as keep the grid within the
+    blocks the H100's 132 SMs hold at once (by ``store_dtype``), at least
+    1, at most _MAX_SPLITS and at most one per 64-deep chunk (a chunk never
+    crosses a gathered row: k * ceil(D / 64) of them)."""
+    tiles_m, tiles_h = -(-m // _BF16_TILE_M), -(-h // _BF16_TILE_N)
+    chunks = k * -(-d // _BF16_TILE_K)
+    room = _SMS * _BF16_BLOCKS_PER_SM[store_dtype] // (tiles_m * tiles_h)
+    return tiles_m, tiles_h, max(1, min(_MAX_SPLITS, chunks, room))
 
 
 def gathered_gemm(store, idx, weight: torch.Tensor,
