@@ -70,7 +70,7 @@
 // small term is then 0, but the kernel does not assume the mask).
 // bfloat16 compute (W bfloat16) is the wgmma kernel of
 // gather_gemm_bf16.cu, which the C entry below launches for compute kind
-// 1, followed by the same split-K sum.
+// 1, with its own split-K sum.
 
 #include <cuda_runtime.h>
 
@@ -312,18 +312,16 @@ __global__ void __launch_bounds__(kThreads, 3)
       }
 }
 
-// z[i] = sum over s of part[s][i], s in order, rounded to C once: the
-// split-K reduction.
-template <class C>
+// z[i] = sum over s of part[s][i], s in order: the split-K reduction.
 __global__ void gather_gemm_reduce(const float* __restrict__ part,
-                                   C* __restrict__ z, long long count,
+                                   float* __restrict__ z, long long count,
                                    int splits) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < count; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     float sum = part[i];
     for (int s = 1; s < splits; ++s) sum += part[s * count + i];
-    z[i] = ta3n::from_f32<C>(sum);
+    z[i] = sum;
   }
 }
 
@@ -368,8 +366,7 @@ int launch(const void* store, const void* qscale, const void* idx,
 }  // namespace
 
 namespace ta3n {
-// gather_gemm_bf16.cu: the bfloat16-compute kernel, without its split-K
-// sum
+// gather_gemm_bf16.cu: the bfloat16-compute kernel and its split-K sum
 int launch_gather_gemm_bf16(const void* store, const void* qscale,
                             const void* idx, const void* scale,
                             const void* w, void* z, void* x_res, void* part,
@@ -386,8 +383,8 @@ int launch_gather_gemm_bf16(const void* store, const void* qscale,
 // [n_idx] int32 and scale [n_idx] f32 (null: every scale 1) on the same
 // device.  Every idx must lie in [0, rows): the caller checks.  splits
 // (1..8) K slices; with more than one, part is scratch of [splits, m, h]
-// f32, summed into z by a second kernel in a fixed order.  An unknown kind
-// is refused.  Compute kind 1 launches gather_gemm_bf16.cu's kernel.
+// f32, summed into z by a second kernel in a fixed order.  Compute kind 1
+// launches gather_gemm_bf16.cu's kernels.  An unknown kind is refused.
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int ta3n_gather_gemm(const void* store, const void* qscale,
                                 const void* idx, const void* scale,
@@ -406,12 +403,12 @@ extern "C" int ta3n_gather_gemm(const void* store, const void* qscale,
   if (static_cast<long long>(k_rows) * d > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
   if (compute_kind == 1)
-    err = ta3n::launch_gather_gemm_bf16(store, qscale, idx, scale, w, z,
-                                        x_res, part, m_rows, streams, d,
-                                        k_rows, h, splits, store_kind, s);
-  else if (store_kind == 0)
+    return ta3n::launch_gather_gemm_bf16(store, qscale, idx, scale, w, z,
+                                         x_res, part, m_rows, streams, d,
+                                         k_rows, h, splits, store_kind, s);
+  int err;
+  if (store_kind == 0)
     err = launch<float>(store, qscale, idx, scale, w, z, x_res, part, m_rows,
                         streams, d, k_rows, h, splits, s);
   else if (store_kind == 1)
@@ -423,14 +420,8 @@ extern "C" int ta3n_gather_gemm(const void* store, const void* qscale,
   if (err != 0 || splits == 1) return err;
   const long long count = m_rows * h;
   const long long blocks = (count + 255) / 256;
-  const unsigned grid = static_cast<unsigned>(blocks < 4096 ? blocks : 4096);
-  if (compute_kind == 1)
-    gather_gemm_reduce<bf16><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(part), static_cast<bf16*>(z), count,
-        splits);
-  else
-    gather_gemm_reduce<float><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(part), static_cast<float*>(z), count,
-        splits);
+  gather_gemm_reduce<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
+                       256, 0, s>>>(static_cast<const float*>(part),
+                                    static_cast<float*>(z), count, splits);
   return static_cast<int>(cudaGetLastError());
 }

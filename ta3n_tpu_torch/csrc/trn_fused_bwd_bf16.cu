@@ -37,22 +37,31 @@
 //    rows [B, D], MN-major.  So every tile is staged as it lies in memory,
 //    rows of 64 bfloat16 values in the 128-byte swizzled layout.
 //  * 64-deep K chunks (H for dx, batch rows for dW), four k16 products a
-//    chunk, in a ring of 3 stages filled by 16-byte cp.async straight into
-//    the swizzled tiles (plain loads where H % 16 or D % 8 is not 0 or a
-//    pointer is not 16-byte aligned: H = 19, 33, D = 37).  Ragged B, H and
-//    D are zero-filled by the copies and masked in the stores.
+//    chunk, in a ring of 3 stages, each filled by four TMA boxes, one from
+//    each warp, completing on the stage's mbarrier: the g rows (a 3-d
+//    map over [B, S-1, H]), the mask rows (a 2-d map over [B, n_sub*H]
+//    uint8), and two 64-column panels of the W_i slice (a 2-d map per
+//    scale, in device memory) or of the x rows (a 3-d map over [B, S, D]),
+//    each landing in the 128-byte swizzled layout.  Out of range the boxes
+//    are zero-filled (ragged B, H and D; a mask or W box that runs into
+//    the next subset or position meets zeros of g or of A), and the
+//    stores are masked.  Where H % 16 or D % 8 is not 0 or a pointer is not
+//    16-byte aligned (H = 19, 33, D = 37) the tiles are staged by plain
+//    loads.
 //  * Convert passes, once per staged element, in place: each thread turns
 //    8 staged g values of a row into m = mask ? g : 0 from the uint8 mask
 //    tile, and in the dW blocks 8 staged x values into relu(x); the db
 //    blocks sum their m columns in the same pass, in registers, reduced
 //    across threads in a fixed order at the end.
-//  * 2 blocks an SM (91 KB of shared memory each).
+//  * 2 blocks an SM (85 KB of shared memory each).
 // dx tiles take H / 64 chunks per triple of their frame (26-32 at S = 5),
 // the dW tiles B / 64 per subset of their scale (4-12).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <vector>
 
 #include "bf16.cuh"
 #include "tf32x3.cuh"
@@ -64,129 +73,145 @@ namespace {
 using ta3n::bf16;
 using ta3n::Plan;
 
-constexpr int kThreads = 128;  // one warpgroup
+constexpr int kThreads = 256;  // two warpgroups, one per 64 D columns
 constexpr int kTileM = 64;     // batch rows (dx) or H rows (dW)
 constexpr int kTileN = 128;    // D columns, both families
 constexpr int kTileK = 64;     // H (dx) or batch rows (dW)
 constexpr int kStages = 3;
-constexpr int kMaskPitch = 80;  // a staged mask row: 64 bytes and padding
+constexpr int kMaskPitch = 64;  // a staged mask row
 // a stage: the g tile (m after the mask pass), the B tile (W slice or x,
-// two panels), the mask tile; 1024-byte aligned
+// two panels), the mask tile
 constexpr int kBOffset = ta3n::kPanelBytes;
 constexpr int kMaskOffset = kBOffset + 2 * ta3n::kPanelBytes;
-constexpr int kStageBytes =
-    (kMaskOffset + kTileK * kMaskPitch + 1023) / 1024 * 1024;
+constexpr int kMaskBytes = kTileK * kMaskPitch;
+constexpr int kStageBytes = kMaskOffset + kMaskBytes;
+// the threads that arm a stage's mbarrier, each with its own box: the
+// first of warps 0-3
+constexpr int kIssuers = 4;
+// rows of a 64-row tile per thread, 8 threads (16-byte pieces) a row
+constexpr int kRowsPer = kTileK * 8 / kThreads, kRowStep = kThreads / 8;
 constexpr int kRing = kStages * kStageBytes;
+constexpr int kBars = kRing;  // then the stages' mbarriers, then triples
+constexpr int kTrips = kBars + kStages * 8;
+static_assert(kStageBytes % 1024 == 0, "1024-byte aligned stages");
 static_assert(kTileN == 2 * 64 && kTileM == 64 && kTileK == 64,
               "an A panel, two B panels");
-static_assert(16 * kTileM * 4 <= kRing, "db's reduction fits the ring");
+static_assert(kRowStep * kTileM * 4 <= kRing, "db's reduction fits the ring");
+
+// The tensor maps of the tiles that are not weights: g [B, S-1, H] and x
+// [B, S, D] (3-d, boxes of 64 x 1 x 64, 128-byte swizzle), the masks [B,
+// n_sub*H] (2-d, 64 x 64 bytes).
+struct Maps {
+  CUtensorMap g, mask, x;
+};
 
 // A triple of a dx block's frame, staged after the ring: W_i at the
-// triple's position, W_i's row length k_i*D, scale i and global subset.
+// triple's position (its column p*D), W_i's row length k_i*D, scale i and
+// global subset.
 struct Triple {
   const bf16* w;
-  int row, scale, sub, pad;
+  int row, scale, sub, col0;
 };
-static_assert(kRing % alignof(Triple) == 0, "triples after the ring");
+static_assert(kTrips % alignof(Triple) == 0, "triples after the bars");
 
 // 16 bytes from src into shared dst, of which the first `valid` values of
-// T exist (none when valid <= 0: src is then not read): one 16-byte
-// cp.async (kVec: both 16-byte aligned, valid 0 or a whole piece), else
-// plain loads and shared stores, which the ring's barrier publishes; the
-// rest zero-filled.
-template <bool kVec, class T>
-__device__ __forceinline__ void copy16(void* dst, const T* src,
-                                       const void* fallback, int valid) {
-  if constexpr (kVec) {
-    ta3n::cp_async16(dst, valid > 0 ? static_cast<const void*>(src)
-                                    : fallback,
-                     valid > 0 ? 16 : 0);
-  } else {
-    const int bytes = valid * static_cast<int>(sizeof(T));
-    const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
-    unsigned char* d = static_cast<unsigned char*>(dst);
+// T exist (none when valid <= 0: src is then not read), by plain loads and
+// shared stores, which the ring's barrier publishes; the rest zero-filled.
+template <class T>
+__device__ __forceinline__ void copy_bytes16(void* dst, const T* src,
+                                             int valid) {
+  const int bytes = valid * static_cast<int>(sizeof(T));
+  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
+  unsigned char* d = static_cast<unsigned char*>(dst);
 #pragma unroll
-    for (int b = 0; b < 16; ++b) d[b] = b < bytes ? s[b] : 0;
-  }
+  for (int b = 0; b < 16; ++b) d[b] = b < bytes ? s[b] : 0;
 }
 
-// The staging of one chunk's tiles, both families: the g rows (row r of
-// the A tile: batch row b_row0 + r) with their mask rows, and the 64 rows
-// of the B tile.  a_row(r) / b_row(r): the global rows (nullptr past the
-// edge); cols: the valid H values from the chunk's first, and of D from
-// the block's first.
-template <bool kVec, class ARow, class MRow, class BRow>
-__device__ __forceinline__ void stage_tiles(unsigned char* st, int tid,
+// The plain staging of one chunk's tiles (widths the maps do not take):
+// the g rows with their mask rows, and the 64 rows of the B tile.
+// a_row(r) / m_row(r) / b_row(r): the global rows (nullptr past the
+// edge); h_valid, d_valid: the valid H values from the chunk's first, and
+// D values from the block's first.
+template <class ARow, class MRow, class BRow>
+__device__ __forceinline__ void stage_plain(unsigned char* st, int tid,
                                             ARow&& a_row, MRow&& m_row,
                                             BRow&& b_row, int h_valid,
-                                            int d_valid,
-                                            const bf16* g_any,
-                                            const unsigned char* m_any,
-                                            const bf16* b_any) {
+                                            int d_valid) {
   const int piece = tid % 8, row0 = tid / 8;
 #pragma unroll
-  for (int i = 0; i < kTileK / 16; ++i) {
-    const int r = row0 + 16 * i;
+  for (int i = 0; i < kRowsPer; ++i) {
+    const int r = row0 + kRowStep * i;
     const bf16* src = a_row(r);
-    copy16<kVec>(st + ta3n::swizzle128(r * 128 + piece * 16),
-                 src != nullptr ? src + 8 * piece : g_any, g_any,
+    copy_bytes16(st + ta3n::swizzle128(r * 128 + piece * 16),
+                 src != nullptr ? src + 8 * piece : src,
                  src != nullptr ? h_valid - 8 * piece : 0);
   }
   const int mpiece = tid % 4, mrow0 = tid / 4;
 #pragma unroll
-  for (int i = 0; i < kTileK / 32; ++i) {
-    const int r = mrow0 + 32 * i;
+  for (int i = 0; i < kTileK * 4 / kThreads; ++i) {
+    const int r = mrow0 + kThreads / 4 * i;
     const unsigned char* src = m_row(r);
-    copy16<kVec>(st + kMaskOffset + r * kMaskPitch + 16 * mpiece,
-                 src != nullptr ? src + 16 * mpiece : m_any, m_any,
+    copy_bytes16(st + kMaskOffset + r * kMaskPitch + 16 * mpiece,
+                 src != nullptr ? src + 16 * mpiece : src,
                  src != nullptr ? h_valid - 16 * mpiece : 0);
   }
 #pragma unroll
-  for (int i = 0; i < kTileK / 16; ++i) {
-    const int r = row0 + 16 * i;
+  for (int i = 0; i < kRowsPer; ++i) {
+    const int r = row0 + kRowStep * i;
     const bf16* src = b_row(r);
 #pragma unroll
     for (int pn = 0; pn < 2; ++pn) {
       const int col = 64 * pn + 8 * piece;
-      copy16<kVec>(st + kBOffset + ta3n::tile_offset(r, col),
-                   src != nullptr ? src + col : b_any, b_any,
+      copy_bytes16(st + kBOffset + ta3n::tile_offset(r, col),
+                   src != nullptr ? src + col : src,
                    src != nullptr ? d_valid - col : 0);
     }
   }
 }
 
 // The mask pass over a stage: g -> m = mask ? g : 0 in place, eight
-// values (one 16-byte piece) of rows tid / 8 + 16p; returns them for db.
+// values (one 16-byte piece) of rows tid / 8 + 32p, handed to sum (db).
+// All loads first, then the stores: the compiler cannot tell the shared
+// addresses apart, and would otherwise wait out each load in turn.
 template <class Sum>
 __device__ __forceinline__ void mask_pass(unsigned char* st, int tid,
                                           Sum&& sum) {
+  constexpr int kRows = kRowsPer;
   const int piece = tid % 8, row0 = tid / 8;
+  unsigned char* at = st + ta3n::swizzle128(row0 * 128 + piece * 16);
+  const unsigned char* mk_at = st + kMaskOffset + row0 * kMaskPitch +
+                               8 * piece;
+  uint4 v[kRows];
+  uint2 mk[kRows];
 #pragma unroll
-  for (int p = 0; p < kTileK / 16; ++p) {
-    const int r = row0 + 16 * p;
-    uint4* at = reinterpret_cast<uint4*>(
-        st + ta3n::swizzle128(r * 128 + piece * 16));
-    const uint2 mk = *reinterpret_cast<const uint2*>(
-        st + kMaskOffset + r * kMaskPitch + 8 * piece);
-    uint4 v = *at;
-    unsigned* words = reinterpret_cast<unsigned*>(&v);
-    const unsigned char* bytes = reinterpret_cast<const unsigned char*>(&mk);
+  for (int p = 0; p < kRows; ++p) {  // rows 32 apart: pieces 4096 apart
+    v[p] = *reinterpret_cast<const uint4*>(at + kRowStep * 128 * p);
+    mk[p] = *reinterpret_cast<const uint2*>(mk_at +
+                                            kRowStep * kMaskPitch * p);
+  }
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      words[e] &= (bytes[2 * e] ? 0x0000ffffu : 0u) |
-                  (bytes[2 * e + 1] ? 0xffff0000u : 0u);
-    *at = v;
-    sum(v);
+  for (int p = 0; p < kRows; ++p) {
+    unsigned* words = reinterpret_cast<unsigned*>(&v[p]);
+    const unsigned m[2] = {mk[p].x, mk[p].y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const unsigned pair = m[e / 2] >> (16 * (e % 2));
+      words[e] &= ((pair & 0xffu) ? 0x0000ffffu : 0u) |
+                  ((pair & 0xff00u) ? 0xffff0000u : 0u);
+    }
+    *reinterpret_cast<uint4*>(at + kRowStep * 128 * p) = v[p];
+    sum(v[p]);
   }
 }
 
 // The dx tile `blk`: frame f, batch rows b0.., D columns d0...
 template <bool kVec>
 __device__ __forceinline__ void dx_tile(
-    const Plan& plan, const long long* __restrict__ ptrs,
-    const bf16* __restrict__ x, const bf16* __restrict__ g,
-    const unsigned char* __restrict__ masks, bf16* __restrict__ dx,
-    int batch, int num_frames, int d, int h, int blk, unsigned char* smem) {
+    const Plan& plan, const Maps& maps, const CUtensorMap* w_maps,
+    const long long* __restrict__ ptrs, const bf16* __restrict__ x,
+    const bf16* __restrict__ g, const unsigned char* __restrict__ masks,
+    bf16* __restrict__ dx, int batch, int num_frames, int d, int h, int blk,
+    unsigned char* smem) {
   const int tiles_b = (batch + kTileM - 1) / kTileM;
   const int tiles_d = (d + kTileN - 1) / kTileN;
   const int f = blk / (tiles_b * tiles_d);
@@ -195,9 +220,11 @@ __device__ __forceinline__ void dx_tile(
   const int n_scales = num_frames - 1;
   const int h_chunks = (h + kTileK - 1) / kTileK;
   const int tid = threadIdx.x;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBars);
 
-  // the frame's triples, decoded once into shared memory after the ring
-  Triple* trips = reinterpret_cast<Triple*>(smem + kRing);
+  // the frame's triples, decoded once into shared memory after the ring;
+  // the weights' maps were written by the host before the launch
+  Triple* trips = reinterpret_cast<Triple*>(smem + kTrips);
   const int t_begin = __ldg(&plan.trip0[f]);
   const int n_trip = __ldg(&plan.trip0[f + 1]) - t_begin;
   for (int q = tid; q < n_trip; q += kThreads) {
@@ -208,59 +235,89 @@ __device__ __forceinline__ void dx_tile(
     const int k = __ldg(&plan.units[3 * z + 2]).w;
     trips[q] = {ta3n::ptr_at<const bf16>(ptrs, z) +
                     static_cast<long long>(u0.y) * d,
-                k * d, u0.x, u1.w + (code & 3), 0};
+                k * d, u0.x, u1.w + (code & 3), u0.y * d};
   }
+  if (kVec && tid == 0)
+    for (int i = 0; i < n_scales; ++i) ta3n::tensormap_acquire(&w_maps[i]);
   __syncthreads();
 
   auto issue = [&](int c, int s) {
     const Triple tr = trips[c / h_chunks];
     const int hk = c % h_chunks * kTileK;
-    stage_tiles<kVec>(
-        smem + s * kStageBytes, tid,
-        [&](int r) -> const bf16* {
-          const int b = b0 + r;
-          return b < batch ? g + (static_cast<long long>(b) * n_scales +
-                                  tr.scale) * h + hk
-                           : nullptr;
-        },
-        [&](int r) -> const unsigned char* {
-          const int b = b0 + r;
-          return b < batch ? masks + (static_cast<long long>(b) *
-                                          plan.n_sub_total + tr.sub) * h + hk
-                           : nullptr;
-        },
-        [&](int r) -> const bf16* {
-          const int wh = hk + r;
-          return wh < h ? tr.w + static_cast<long long>(wh) * tr.row + d0
-                        : nullptr;
-        },
-        h - hk, d - d0, g, masks, tr.w);
+    unsigned char* st = smem + s * kStageBytes;
+    if constexpr (kVec) {
+      // a box from the first thread of each of warps 0-3
+      if (tid % 32 == 0 && tid / 32 < kIssuers) {
+        const int box = tid / 32;
+        uint64_t* bar = &bars[s];
+        ta3n::mbar_arrive_expect_tx(bar, box == 1 ? kMaskBytes
+                                                  : ta3n::kPanelBytes);
+        if (box == 0)
+          ta3n::tma_load_3d(st, &maps.g, hk, tr.scale, b0, bar);
+        else if (box == 1)
+          ta3n::tma_load_2d(st + kMaskOffset, &maps.mask, tr.sub * h + hk,
+                            b0, bar);
+        else
+          ta3n::tma_load_2d(st + kBOffset + (box - 2) * ta3n::kPanelBytes,
+                            &w_maps[tr.scale], tr.col0 + d0 + 64 * (box - 2),
+                            hk, bar);
+      }
+    } else {
+      stage_plain(
+          st, tid,
+          [&](int r) -> const bf16* {
+            const int b = b0 + r;
+            return b < batch ? g + (static_cast<long long>(b) * n_scales +
+                                    tr.scale) * h + hk
+                             : nullptr;
+          },
+          [&](int r) -> const unsigned char* {
+            const int b = b0 + r;
+            return b < batch ? masks + (static_cast<long long>(b) *
+                                            plan.n_sub_total + tr.sub) * h +
+                                   hk
+                             : nullptr;
+          },
+          [&](int r) -> const bf16* {
+            const int wh = hk + r;
+            return wh < h ? tr.w + static_cast<long long>(wh) * tr.row + d0
+                          : nullptr;
+          },
+          h - hk, d - d0);
+    }
+  };
+  auto land = [&](int c, int s) {
+    if constexpr (kVec) ta3n::mbar_wait(&bars[s], (c / kStages) & 1);
   };
   auto convert = [&](int, int s) {
     mask_pass(smem + s * kStageBytes, tid, [](const uint4&) {});
   };
-  float acc[kTileN / 2] = {};
+  // each warpgroup's half of the tile: D columns d0 + 64wg.., panel wg
+  const int wg = tid / 128;
+  float acc[kTileN / 4] = {};
   auto mma = [&](int, int s) {
     unsigned char* st = smem + s * kStageBytes;
     const uint64_t a = ta3n::kmajor_desc(st);
-    const uint64_t b = ta3n::mnmajor_desc(st + kBOffset);
+    const uint64_t b =
+        ta3n::mnmajor_desc(st + kBOffset + wg * ta3n::kPanelBytes);
 #pragma unroll
     for (int k = 0; k < kTileK / 16; ++k)
       ta3n::wgmma<0, 1>(acc, a + k * ta3n::kKMajorStep,
                         b + k * ta3n::kMNMajorStep);
   };
-  ta3n::wgmma_pipeline<kStages>(n_trip * h_chunks, acc, issue, convert, mma);
+  ta3n::wgmma_pipeline<kStages>(n_trip * h_chunks, acc, issue, land,
+                                convert, mma);
 
-  const int lane = tid % 32, warp = tid / 32;
+  const int lane = tid % 32, warp = tid % 128 / 32;
 #pragma unroll
-  for (int j = 0; j < kTileN / 8; ++j)
+  for (int j = 0; j < kTileN / 16; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int b = b0 + 16 * warp + lane / 4 + 8 * i;
       if (b >= batch) continue;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = d0 + 8 * j + 2 * (lane % 4) + e;
+        const int col = d0 + kTileN / 2 * wg + 8 * j + 2 * (lane % 4) + e;
         if (col >= d) continue;
         const long long at =
             (static_cast<long long>(b) * num_frames + f) * d + col;
@@ -275,10 +332,10 @@ __device__ __forceinline__ void dx_tile(
 // unit), db_i at h*i).
 template <bool kVec>
 __device__ __forceinline__ void dw_tile(
-    const Plan& plan, const bf16* __restrict__ x, const bf16* __restrict__ g,
-    const unsigned char* __restrict__ masks, bf16* __restrict__ dw,
-    bf16* __restrict__ db, int batch, int num_frames, int d, int h, int blk,
-    unsigned char* smem) {
+    const Plan& plan, const Maps& maps, const bf16* __restrict__ x,
+    const bf16* __restrict__ g, const unsigned char* __restrict__ masks,
+    bf16* __restrict__ dw, bf16* __restrict__ db, int batch, int num_frames,
+    int d, int h, int blk, unsigned char* smem) {
   const int tiles_d = (d + kTileN - 1) / kTileN;
   const int tiles_h = (h + kTileM - 1) / kTileM;
   const int z = blk / (tiles_h * tiles_d);
@@ -293,33 +350,56 @@ __device__ __forceinline__ void dw_tile(
   // one block per H tile of each scale also reduces db
   const bool db_block = p == 0 && d0 == 0;
   const int tid = threadIdx.x;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBars);
 
   auto issue = [&](int c, int s) {
     const int j = c / b_chunks;
     const int bk = c % b_chunks * kTileK;
     const int f = j == 0 ? u2.x : j == 1 ? u2.y : u2.z;
     const int sub = sub0 + j;
-    stage_tiles<kVec>(
-        smem + s * kStageBytes, tid,
-        [&](int r) -> const bf16* {
-          const int b = bk + r;
-          return b < batch ? g + (static_cast<long long>(b) * n_scales +
-                                  scale) * h + h0
-                           : nullptr;
-        },
-        [&](int r) -> const unsigned char* {
-          const int b = bk + r;
-          return b < batch ? masks + (static_cast<long long>(b) *
-                                          plan.n_sub_total + sub) * h + h0
-                           : nullptr;
-        },
-        [&](int r) -> const bf16* {
-          const int b = bk + r;
-          return b < batch ? x + (static_cast<long long>(b) * num_frames +
-                                  f) * d + d0
-                           : nullptr;
-        },
-        h - h0, d - d0, g, masks, x);
+    unsigned char* st = smem + s * kStageBytes;
+    if constexpr (kVec) {
+      // a box from the first thread of each of warps 0-3
+      if (tid % 32 == 0 && tid / 32 < kIssuers) {
+        const int box = tid / 32;
+        uint64_t* bar = &bars[s];
+        ta3n::mbar_arrive_expect_tx(bar, box == 1 ? kMaskBytes
+                                                  : ta3n::kPanelBytes);
+        if (box == 0)
+          ta3n::tma_load_3d(st, &maps.g, h0, scale, bk, bar);
+        else if (box == 1)
+          ta3n::tma_load_2d(st + kMaskOffset, &maps.mask, sub * h + h0, bk,
+                            bar);
+        else
+          ta3n::tma_load_3d(st + kBOffset + (box - 2) * ta3n::kPanelBytes,
+                            &maps.x, d0 + 64 * (box - 2), f, bk, bar);
+      }
+    } else {
+      stage_plain(
+          st, tid,
+          [&](int r) -> const bf16* {
+            const int b = bk + r;
+            return b < batch ? g + (static_cast<long long>(b) * n_scales +
+                                    scale) * h + h0
+                             : nullptr;
+          },
+          [&](int r) -> const unsigned char* {
+            const int b = bk + r;
+            return b < batch ? masks + (static_cast<long long>(b) *
+                                            plan.n_sub_total + sub) * h + h0
+                             : nullptr;
+          },
+          [&](int r) -> const bf16* {
+            const int b = bk + r;
+            return b < batch ? x + (static_cast<long long>(b) * num_frames +
+                                    f) * d + d0
+                             : nullptr;
+          },
+          h - h0, d - d0);
+    }
+  };
+  auto land = [&](int c, int s) {
+    if constexpr (kVec) ta3n::mbar_wait(&bars[s], (c / kStages) & 1);
   };
   // db: this thread's sums of columns h0 + 8 * (tid % 8) + e over its rows
   float db_part[8] = {};
@@ -331,56 +411,66 @@ __device__ __forceinline__ void dw_tile(
 #pragma unroll
       for (int e = 0; e < 8; ++e) db_part[e] += __bfloat162float(vals[e]);
     });
-    // relu(x) in place: eight values of rows tid / 8 + 16p, both panels
-    const int piece = tid % 8, row0 = tid / 8;
+    // relu(x) in place: eight values of rows tid / 8 + 32q, both panels
+    unsigned char* at =
+        st + kBOffset + ta3n::swizzle128((tid / 8) * 128 + (tid % 8) * 16);
+    uint4 v[kRowsPer][2];
 #pragma unroll
-    for (int q = 0; q < kTileK / 16; ++q)
+    for (int q = 0; q < kRowsPer; ++q)
+#pragma unroll
+      for (int pn = 0; pn < 2; ++pn)
+        v[q][pn] = *reinterpret_cast<const uint4*>(
+            at + kRowStep * 128 * q + pn * ta3n::kPanelBytes);
+#pragma unroll
+    for (int q = 0; q < kRowsPer; ++q)
 #pragma unroll
       for (int pn = 0; pn < 2; ++pn) {
-        uint4* at = reinterpret_cast<uint4*>(
-            st + kBOffset + ta3n::tile_offset(row0 + 16 * q,
-                                              64 * pn + 8 * piece));
-        uint4 v = *at;
-        v.x = ta3n::relu2(v.x);
-        v.y = ta3n::relu2(v.y);
-        v.z = ta3n::relu2(v.z);
-        v.w = ta3n::relu2(v.w);
-        *at = v;
+        uint4 r = v[q][pn];
+        r.x = ta3n::relu2(r.x);
+        r.y = ta3n::relu2(r.y);
+        r.z = ta3n::relu2(r.z);
+        r.w = ta3n::relu2(r.w);
+        *reinterpret_cast<uint4*>(at + kRowStep * 128 * q +
+                                  pn * ta3n::kPanelBytes) = r;
       }
   };
-  float acc[kTileN / 2] = {};
+  // each warpgroup's half of the tile: D columns d0 + 64wg.., panel wg
+  const int wg = tid / 128;
+  float acc[kTileN / 4] = {};
   auto mma = [&](int, int s) {
     unsigned char* st = smem + s * kStageBytes;
     const uint64_t a = ta3n::mnmajor_desc(st);
-    const uint64_t b = ta3n::mnmajor_desc(st + kBOffset);
+    const uint64_t b =
+        ta3n::mnmajor_desc(st + kBOffset + wg * ta3n::kPanelBytes);
 #pragma unroll
     for (int k = 0; k < kTileK / 16; ++k)
       ta3n::wgmma<1, 1>(acc, a + k * ta3n::kMNMajorStep,
                         b + k * ta3n::kMNMajorStep);
   };
-  ta3n::wgmma_pipeline<kStages>(u0.z * b_chunks, acc, issue, convert, mma);
+  ta3n::wgmma_pipeline<kStages>(u0.z * b_chunks, acc, issue, land, convert,
+                                mma);
 
   // dW_i [h, k*d] starts at the unit of its position 0, z - p
   dw += static_cast<long long>(h) * d * (z - p);
   const long long row = static_cast<long long>(u2.w) * d;
-  const int lane = tid % 32, warp = tid / 32;
+  const int lane = tid % 32, warp = tid % 128 / 32;
 #pragma unroll
-  for (int j = 0; j < kTileN / 8; ++j)
+  for (int j = 0; j < kTileN / 16; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int gh = h0 + 16 * warp + lane / 4 + 8 * i;
       if (gh >= h) continue;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = d0 + 8 * j + 2 * (lane % 4) + e;
+        const int col = d0 + kTileN / 2 * wg + 8 * j + 2 * (lane % 4) + e;
         if (col < d)
           dw[gh * row + static_cast<long long>(p) * d + col] =
               __float2bfloat16_rn(acc[4 * j + 2 * i + e]);
       }
     }
   if (db_block) {
-    // the 16 threads of each column group in a fixed order; the ring is
-    // free after the pipeline
+    // the kRowStep threads of each column group in a fixed order; the
+    // ring is free after the pipeline
     float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
     for (int e = 0; e < 8; ++e)
@@ -388,7 +478,7 @@ __device__ __forceinline__ void dw_tile(
     __syncthreads();
     if (tid < kTileM && h0 + tid < h) {
       float sum = 0.f;
-      for (int r = 0; r < 16; ++r) sum += red[r * kTileM + tid];
+      for (int r = 0; r < kRowStep; ++r) sum += red[r * kTileM + tid];
       db[static_cast<long long>(scale) * h + h0 + tid] =
           __float2bfloat16_rn(sum);
     }
@@ -396,12 +486,15 @@ __device__ __forceinline__ void dw_tile(
 }
 
 // grid (dx_blocks + dW blocks): the dx tiles first, then the dW tiles.
-// kVec: 16-byte copies (D % 8 == 0, H % 16 == 0, aligned pointers).
-// ptrs: each unit's weight (its scale's).  Dynamic shared memory: the
-// ring, then the triples of the frame with the most.
+// kVec: the tiles by TMA (D % 8 == 0, H % 16 == 0, 16-byte aligned
+// pointers); maps and w_maps (one per scale, in device memory) then name
+// them.  ptrs: each unit's weight (its scale's).  Dynamic shared memory:
+// the ring, its mbarriers, then the triples of the frame with the most.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
-    trn_fused_bwd_bf16_kernel(const Plan plan,
+    trn_fused_bwd_bf16_kernel(const __grid_constant__ Maps maps,
+                              const CUtensorMap* __restrict__ w_maps,
+                              const Plan plan,
                               const long long* __restrict__ ptrs,
                               const bf16* __restrict__ x,
                               const bf16* __restrict__ g,
@@ -412,12 +505,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (ta3n::smem_addr(smem_raw) & 1023)) & 1023);
+  if (kVec && threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBars);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) ta3n::mbar_init(&bars[s], kIssuers);
+    ta3n::mbar_fence_init();
+  }
+  __syncthreads();
   const int blk = static_cast<int>(blockIdx.x);
   if (blk < dx_blocks)
-    dx_tile<kVec>(plan, ptrs, x, g, masks, dx, batch, num_frames, d, h, blk,
-                  smem);
+    dx_tile<kVec>(plan, maps, w_maps, ptrs, x, g, masks, dx, batch,
+                  num_frames, d, h, blk, smem);
   else
-    dw_tile<kVec>(plan, x, g, masks, dw, db, batch, num_frames, d, h,
+    dw_tile<kVec>(plan, maps, x, g, masks, dw, db, batch, num_frames, d, h,
                   blk - dx_blocks, smem);
 }
 
@@ -438,8 +538,10 @@ cudaError_t allow_smem(int bytes) {
 
 // The bfloat16 backward: as ta3n_trn_fused_bwd_f32 (trn_fused_bwd.cu)
 // with x, g, the weights, dx, dw and db bfloat16 (the masks from
-// ta3n_trn_fused_fwd_train_bf16).  Launches one grid of dx and dW/db
-// tiles on `stream`; returns cudaGetLastError().
+// ta3n_trn_fused_fwd_train_bf16), and w_maps device scratch for one
+// tensor map (128 bytes, 64-byte aligned) per scale, written here on
+// `stream` before the launch.  Launches one grid of dx and dW/db tiles on
+// `stream`; returns cudaGetLastError().
 extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
                                        const void* const* host_ptrs,
                                        const void* masks, const void* g,
@@ -447,13 +549,16 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
                                        const int* plan_table, int plan_len,
                                        const int* plan_dev, int batch,
                                        int num_frames, int d, int h,
-                                       void* stream) {
+                                       void* w_maps, void* stream) {
   if (num_frames < 2 || batch < 0 || d < 1 || h < 1 || ptrs == nullptr ||
-      host_ptrs == nullptr)
+      host_ptrs == nullptr || w_maps == nullptr ||
+      reinterpret_cast<unsigned long long>(w_maps) % 64 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const ta3n::PlanInfo info =
       ta3n::check_plan(plan_table, plan_len, plan_dev, num_frames);
-  if (!info.ok || static_cast<long long>(info.max_k) * d > 0x7fffffffLL)
+  if (!info.ok || static_cast<long long>(info.max_k) * d > 0x7fffffffLL ||
+      static_cast<long long>(batch) * num_frames * d > 0x7fffffffLL ||
+      static_cast<long long>(info.plan.n_sub_total) * h > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles_d = (d + kTileN - 1) / kTileN;
   const long long dx_blocks =
@@ -461,7 +566,7 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
       num_frames;
   const long long blocks =
       dx_blocks + tiles_d * ((h + kTileM - 1) / kTileM) * info.plan.n_units;
-  const long long smem = kRing + 1024 +
+  const long long smem = kTrips + 1024 +
                          static_cast<long long>(info.max_trip) *
                              sizeof(Triple);
   if (blocks > 0x7fffffffLL || smem > 0x7fffffffLL)
@@ -473,15 +578,58 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
              aligned(masks);
   for (int z = 0; z < info.plan.n_units; ++z)
     vec = vec && aligned(host_ptrs[z]);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Maps maps{};
+  if (vec && batch > 0) {
+    const int n_scales = num_frames - 1;
+    const cuuint64_t bf = 2;
+    int err = ta3n::encode_map(
+        &maps.g, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, g,
+        {static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n_scales),
+         static_cast<cuuint64_t>(batch)},
+        {bf * h, bf * h * n_scales}, {kTileK, 1, kTileM},
+        CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == 0)
+      err = ta3n::encode_map(
+          &maps.mask, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, masks,
+          {static_cast<cuuint64_t>(info.plan.n_sub_total) * h,
+           static_cast<cuuint64_t>(batch)},
+          {static_cast<cuuint64_t>(info.plan.n_sub_total) * h}, {kTileK, kTileM},
+          CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err == 0)
+      err = ta3n::encode_map(
+          &maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x,
+          {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(num_frames),
+           static_cast<cuuint64_t>(batch)},
+          {bf * d, bf * d * num_frames}, {64, 1, kTileK},
+          CU_TENSOR_MAP_SWIZZLE_128B);
+    // each scale's weight [h, k*d]: its first unit's pointer
+    std::vector<CUtensorMap> wm(n_scales);
+    const int* scales = plan_table + ta3n::kPlanHeader;
+    for (int i = 0, z = 0; err == 0 && i < n_scales;
+         z += scales[ta3n::kScaleInts * i], ++i) {
+      const cuuint64_t row =
+          static_cast<cuuint64_t>(scales[ta3n::kScaleInts * i]) * d;
+      err = ta3n::encode_map(&wm[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                             host_ptrs[z], {row, static_cast<cuuint64_t>(h)},
+                             {bf * row}, {64, kTileK},
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+    }
+    if (err == 0)
+      err = static_cast<int>(cudaMemcpyAsync(
+          w_maps, wm.data(), wm.size() * sizeof(CUtensorMap),
+          cudaMemcpyHostToDevice, s));
+    if (err != 0) return err;
+  }
   const int bytes = static_cast<int>(smem);
   const cudaError_t attr =
       vec ? allow_smem<true>(bytes) : allow_smem<false>(bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   (vec ? trn_fused_bwd_bf16_kernel<true> : trn_fused_bwd_bf16_kernel<false>)
-      <<<static_cast<unsigned>(blocks), kThreads, bytes,
-         static_cast<cudaStream_t>(stream)>>>(
-          info.plan, static_cast<const long long*>(ptrs),
-          static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+      <<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(
+          maps, static_cast<const CUtensorMap*>(w_maps), info.plan,
+          static_cast<const long long*>(ptrs), static_cast<const bf16*>(x),
+          static_cast<const bf16*>(g),
           static_cast<const unsigned char*>(masks), static_cast<bf16*>(dx),
           static_cast<bf16*>(dw), static_cast<bf16*>(db), batch, num_frames,
           d, h, static_cast<int>(dx_blocks));

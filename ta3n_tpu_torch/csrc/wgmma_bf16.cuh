@@ -38,9 +38,11 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
 
 #include "tf32x3.cuh"
 
@@ -96,6 +98,118 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers and the bulk copies that complete on them.  A stage's
+// barrier is armed by one thread with the bytes its copies bring
+// (arrive.expect_tx) and completes once they have all landed; the copies
+// of other threads may land before it is armed (the transaction count
+// goes below zero meanwhile, and the arrival keeps the phase open).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// The box at coordinates (c0 innermost, c1) of the 2-d tensor map `map`
+// (a __grid_constant__ kernel parameter) into shared dst, completing on
+// bar; out-of-range elements are zero-filled.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The same for a 3-d tensor map.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+// Before the first box of a tensor map that lies in device memory: the
+// map's bytes as the host last wrote them, not a copy the TMA unit kept.
+__device__ __forceinline__ void tensormap_acquire(const void* map) {
+  asm volatile("fence.proxy.tensormap::generic.acquire.gpu [%0], 128;\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// A tiled tensor map on the host (rank 2 or 3): dims innermost first, the
+// byte strides of the outer dims (multiples of 16), the box, unit element
+// steps, zeros out of range.  cuTensorMapEncodeTiled is fetched from the
+// driver through the runtime, so the library links only cudart.  Returns a
+// cudaError_t.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                      const void* base, std::initializer_list<cuuint64_t> dims,
+                      std::initializer_list<cuuint64_t> strides,
+                      std::initializer_list<cuuint32_t> box,
+                      CUtensorMapSwizzle swizzle) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+      CUtensorMapFloatOOBfill);
+  static const Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (static_cast<int>(dims.size()) != rank ||
+      static_cast<int>(strides.size()) != rank - 1 ||
+      static_cast<int>(box.size()) != rank)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, type, static_cast<cuuint32_t>(rank),
+                const_cast<void*>(base), dims.begin(), strides.begin(),
+                box.begin(), steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? static_cast<int>(cudaSuccess)
+             : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Keeps the compiler from moving accesses of the accumulators across the
@@ -240,26 +354,26 @@ __device__ __forceinline__ void wgmma(float (&d)[N], uint64_t a, uint64_t b) {
 
 // A ring of kStages shared-memory stages over n chunks, for one
 // warpgroup's products into acc: issue(c, s) starts the asynchronous
-// copies of chunk c into stage s; once they have landed and every thread
-// sees them, convert(c, s) rewrites what the products read (plain shared
-// stores), and mma(c, s) issues the chunk's products into acc, committed
-// as one batch.  The next chunk's copies are issued once the previous
-// batch has finished reading its stage, so one batch runs while the next
-// chunk is waited for and converted.  Two barriers a chunk.  Ends with no
-// copy and no product in flight.
-template <int kStages, int N, class Issue, class Convert, class Mma>
+// copies of chunk c into stage s; land(c, s) waits until they are in
+// place for this thread, and after a barrier, convert(c, s) rewrites what
+// the products read (plain shared stores) and mma(c, s) issues the
+// chunk's products into acc, committed as one batch.  The next chunk's
+// copies are issued once the previous batch has finished reading its
+// stage, so one batch runs while the next chunk lands and is converted.
+// Two barriers a chunk.  Ends with no product in flight and every stage
+// free.
+template <int kStages, int N, class Issue, class Land, class Convert,
+          class Mma>
 __device__ __forceinline__ void wgmma_pipeline(int n, float (&acc)[N],
-                                               Issue&& issue,
+                                               Issue&& issue, Land&& land,
                                                Convert&& convert, Mma&& mma) {
   static_assert(kStages >= 2, "a ring of at least two stages");
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kStages - 1; ++s)
     if (s < n) issue(s, s);
-    cp_async_commit();
-  }
   for (int c = 0; c < n; ++c) {
     const int s = c % kStages;
-    cp_async_wait<kStages - 2>();
+    land(c, s);
     __syncthreads();
     convert(c, s);
     fence_proxy_async();
@@ -272,12 +386,22 @@ __device__ __forceinline__ void wgmma_pipeline(int n, float (&acc)[N],
     fence_operands(acc);
     const int next = c + kStages - 1;
     if (next < n) issue(next, next % kStages);
-    cp_async_commit();
   }
   wgmma_wait<0>();
   fence_operands(acc);
-  cp_async_wait<0>();
   __syncthreads();
+}
+
+// land() of a ring filled by cp.async, one commit group a chunk: chunk c
+// is complete once at most min(kStages - 2, n - 1 - c) later groups are
+// pending.
+template <int kStages>
+__device__ __forceinline__ void cp_async_land(int c, int n) {
+  static_assert(kStages == 3, "one later group in flight");
+  if (c + 1 < n)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
 }
 
 }  // namespace ta3n

@@ -61,9 +61,10 @@ _ENTRIES = {
     # the same and parts (1: dx tiles, 2: dW/db tiles, 3: both), stream
     "ta3n_trn_fused_bwd_parts_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _P, _I, _I, _I, _I, _I, _P],
-    # the bfloat16 backward (trn_fused_bwd_bf16.cu), with its arguments
+    # the bfloat16 backward (trn_fused_bwd_bf16.cu): the same arguments and
+    # device scratch for one tensor map per scale, stream
     "ta3n_trn_fused_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                                _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _P, _P],
     # store, its int8 scales, idx, scale, w, z, x_res, part, n_idx,
     # streams, d, k_rows, h, splits, store kind, compute kind (1:
     # gather_gemm_bf16.cu's kernel), stream

@@ -436,11 +436,16 @@ def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
     dw = torch.empty((sum(w.numel() for w in weights),), dtype=x.dtype,
                      device=x.device)
     db = torch.empty((len(weights), h), dtype=x.dtype, device=x.device)
+    # the bfloat16 kernel's TMA descriptor of each scale's weight, written
+    # by the C entry before its launch (128 bytes each)
+    maps = [torch.empty((len(weights), 128), dtype=torch.uint8,
+                        device=x.device)] if x.dtype == torch.bfloat16 else []
     _call(f"ta3n_trn_fused_bwd_{_SUFFIX[x.dtype]}", x, x.data_ptr(),
           *_pointer_args(weights, (), num_frames, subsample_num, x.device),
           masks.data_ptr(), g.data_ptr(),
           dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-          *_plan_args(num_frames, subsample_num, x.device), b, s, d, h)
+          *_plan_args(num_frames, subsample_num, x.device), b, s, d, h,
+          *(t.data_ptr() for t in maps))
     if x.dtype == torch.float32:
         bwd_launches += 1
     else:
