@@ -74,7 +74,7 @@ using ta3n::bf16;
 constexpr int kTileM = 64;     // a warpgroup's wgmma rows
 constexpr int kTileN = 128;    // output columns per block: m64n128k16
 constexpr int kTileK = 64;     // one 128-byte row of bfloat16
-constexpr int kThreads = 256;  // two warpgroups, one per 64 columns
+constexpr int kThreads = ta3n::kConsumers;  // two warpgroups, one per 64 columns
 constexpr int kStages = 3;
 constexpr int kWBytes = kTileN * 128;  // a W tile, K-major
 

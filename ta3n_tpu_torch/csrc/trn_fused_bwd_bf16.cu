@@ -73,7 +73,8 @@ namespace {
 using ta3n::bf16;
 using ta3n::Plan;
 
-constexpr int kThreads = 256;  // two warpgroups, one per 64 D columns
+// two consumer warpgroups, one per 64 D columns, and a producer warp
+constexpr int kThreads = ta3n::kConsumers + 32;
 constexpr int kTileM = 64;     // batch rows (dx) or H rows (dW)
 constexpr int kTileN = 128;    // D columns, both families
 constexpr int kTileK = 64;     // H (dx) or batch rows (dW)
@@ -85,14 +86,14 @@ constexpr int kBOffset = ta3n::kPanelBytes;
 constexpr int kMaskOffset = kBOffset + 2 * ta3n::kPanelBytes;
 constexpr int kMaskBytes = kTileK * kMaskPitch;
 constexpr int kStageBytes = kMaskOffset + kMaskBytes;
-// the threads that arm a stage's mbarrier, each with its own box: the
-// first of warps 0-3
-constexpr int kIssuers = 4;
-// rows of a 64-row tile per thread, 8 threads (16-byte pieces) a row
-constexpr int kRowsPer = kTileK * 8 / kThreads, kRowStep = kThreads / 8;
+// rows of a 64-row tile per consumer thread, 8 threads (16-byte pieces) a
+// row
+constexpr int kRowsPer = kTileK * 8 / ta3n::kConsumers;
+constexpr int kRowStep = ta3n::kConsumers / 8;
 constexpr int kRing = kStages * kStageBytes;
-constexpr int kBars = kRing;  // then the stages' mbarriers, then triples
-constexpr int kTrips = kBars + kStages * 8;
+// then each stage's full and empty mbarriers, then the triples
+constexpr int kBars = kRing;
+constexpr int kTrips = kBars + 2 * kStages * 8;
 static_assert(kStageBytes % 1024 == 0, "1024-byte aligned stages");
 static_assert(kTileN == 2 * 64 && kTileM == 64 && kTileK == 64,
               "an A panel, two B panels");
@@ -148,8 +149,8 @@ __device__ __forceinline__ void stage_plain(unsigned char* st, int tid,
   }
   const int mpiece = tid % 4, mrow0 = tid / 4;
 #pragma unroll
-  for (int i = 0; i < kTileK * 4 / kThreads; ++i) {
-    const int r = mrow0 + kThreads / 4 * i;
+  for (int i = 0; i < kTileK * 4 / ta3n::kConsumers; ++i) {
+    const int r = mrow0 + ta3n::kConsumers / 4 * i;
     const unsigned char* src = m_row(r);
     copy_bytes16(st + kMaskOffset + r * kMaskPitch + 16 * mpiece,
                  src != nullptr ? src + 16 * mpiece : src,
@@ -237,33 +238,29 @@ __device__ __forceinline__ void dx_tile(
                     static_cast<long long>(u0.y) * d,
                 k * d, u0.x, u1.w + (code & 3), u0.y * d};
   }
-  if (kVec && tid == 0)
+  if (kVec && tid == ta3n::kConsumers)  // the thread that issues the boxes
     for (int i = 0; i < n_scales; ++i) ta3n::tensormap_acquire(&w_maps[i]);
   __syncthreads();
 
-  auto issue = [&](int c, int s) {
+  auto produce = [&](int c, int s, uint64_t* full) {
+    if (tid != ta3n::kConsumers) return;  // one thread issues the boxes
     const Triple tr = trips[c / h_chunks];
     const int hk = c % h_chunks * kTileK;
     unsigned char* st = smem + s * kStageBytes;
-    if constexpr (kVec) {
-      // a box from the first thread of each of warps 0-3
-      if (tid % 32 == 0 && tid / 32 < kIssuers) {
-        const int box = tid / 32;
-        uint64_t* bar = &bars[s];
-        ta3n::mbar_arrive_expect_tx(bar, box == 1 ? kMaskBytes
-                                                  : ta3n::kPanelBytes);
-        if (box == 0)
-          ta3n::tma_load_3d(st, &maps.g, hk, tr.scale, b0, bar);
-        else if (box == 1)
-          ta3n::tma_load_2d(st + kMaskOffset, &maps.mask, tr.sub * h + hk,
-                            b0, bar);
-        else
-          ta3n::tma_load_2d(st + kBOffset + (box - 2) * ta3n::kPanelBytes,
-                            &w_maps[tr.scale], tr.col0 + d0 + 64 * (box - 2),
-                            hk, bar);
-      }
-    } else {
-      stage_plain(
+    ta3n::mbar_arrive_expect_tx(full, kStageBytes);
+    ta3n::tma_load_3d(st, &maps.g, hk, tr.scale, b0, full);
+    ta3n::tma_load_2d(st + kMaskOffset, &maps.mask, tr.sub * h + hk, b0,
+                      full);
+#pragma unroll
+    for (int pn = 0; pn < 2; ++pn)
+      ta3n::tma_load_2d(st + kBOffset + pn * ta3n::kPanelBytes,
+                        &w_maps[tr.scale], tr.col0 + d0 + 64 * pn, hk, full);
+  };
+  auto issue_plain = [&](int c, int s) {
+    const Triple tr = trips[c / h_chunks];
+    const int hk = c % h_chunks * kTileK;
+    unsigned char* st = smem + s * kStageBytes;
+    stage_plain(
           st, tid,
           [&](int r) -> const bf16* {
             const int b = b0 + r;
@@ -284,10 +281,6 @@ __device__ __forceinline__ void dx_tile(
                           : nullptr;
           },
           h - hk, d - d0);
-    }
-  };
-  auto land = [&](int c, int s) {
-    if constexpr (kVec) ta3n::mbar_wait(&bars[s], (c / kStages) & 1);
   };
   auto convert = [&](int, int s) {
     mask_pass(smem + s * kStageBytes, tid, [](const uint4&) {});
@@ -305,8 +298,14 @@ __device__ __forceinline__ void dx_tile(
       ta3n::wgmma<0, 1>(acc, a + k * ta3n::kKMajorStep,
                         b + k * ta3n::kMNMajorStep);
   };
-  ta3n::wgmma_pipeline<kStages>(n_trip * h_chunks, acc, issue, land,
-                                convert, mma);
+  if constexpr (kVec)
+    ta3n::wgmma_pipeline_ws<kStages>(n_trip * h_chunks, acc, bars,
+                                     bars + kStages, tid, produce, convert,
+                                     mma);
+  else if (tid < ta3n::kConsumers)
+    ta3n::wgmma_pipeline<kStages>(n_trip * h_chunks, acc, issue_plain,
+                                  [](int, int) {}, convert, mma);
+  if (tid >= ta3n::kConsumers) return;
 
   const int lane = tid % 32, warp = tid % 128 / 32;
 #pragma unroll
@@ -352,30 +351,28 @@ __device__ __forceinline__ void dw_tile(
   const int tid = threadIdx.x;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBars);
 
-  auto issue = [&](int c, int s) {
+  auto produce = [&](int c, int s, uint64_t* full) {
+    if (tid != ta3n::kConsumers) return;  // one thread issues the boxes
+    const int j = c / b_chunks;
+    const int bk = c % b_chunks * kTileK;
+    const int f = j == 0 ? u2.x : j == 1 ? u2.y : u2.z;
+    unsigned char* st = smem + s * kStageBytes;
+    ta3n::mbar_arrive_expect_tx(full, kStageBytes);
+    ta3n::tma_load_3d(st, &maps.g, h0, scale, bk, full);
+    ta3n::tma_load_2d(st + kMaskOffset, &maps.mask, (sub0 + j) * h + h0, bk,
+                      full);
+#pragma unroll
+    for (int pn = 0; pn < 2; ++pn)
+      ta3n::tma_load_3d(st + kBOffset + pn * ta3n::kPanelBytes, &maps.x,
+                        d0 + 64 * pn, f, bk, full);
+  };
+  auto issue_plain = [&](int c, int s) {
     const int j = c / b_chunks;
     const int bk = c % b_chunks * kTileK;
     const int f = j == 0 ? u2.x : j == 1 ? u2.y : u2.z;
     const int sub = sub0 + j;
     unsigned char* st = smem + s * kStageBytes;
-    if constexpr (kVec) {
-      // a box from the first thread of each of warps 0-3
-      if (tid % 32 == 0 && tid / 32 < kIssuers) {
-        const int box = tid / 32;
-        uint64_t* bar = &bars[s];
-        ta3n::mbar_arrive_expect_tx(bar, box == 1 ? kMaskBytes
-                                                  : ta3n::kPanelBytes);
-        if (box == 0)
-          ta3n::tma_load_3d(st, &maps.g, h0, scale, bk, bar);
-        else if (box == 1)
-          ta3n::tma_load_2d(st + kMaskOffset, &maps.mask, sub * h + h0, bk,
-                            bar);
-        else
-          ta3n::tma_load_3d(st + kBOffset + (box - 2) * ta3n::kPanelBytes,
-                            &maps.x, d0 + 64 * (box - 2), f, bk, bar);
-      }
-    } else {
-      stage_plain(
+    stage_plain(
           st, tid,
           [&](int r) -> const bf16* {
             const int b = bk + r;
@@ -396,10 +393,6 @@ __device__ __forceinline__ void dw_tile(
                              : nullptr;
           },
           h - h0, d - d0);
-    }
-  };
-  auto land = [&](int c, int s) {
-    if constexpr (kVec) ta3n::mbar_wait(&bars[s], (c / kStages) & 1);
   };
   // db: this thread's sums of columns h0 + 8 * (tid % 8) + e over its rows
   float db_part[8] = {};
@@ -447,8 +440,14 @@ __device__ __forceinline__ void dw_tile(
       ta3n::wgmma<1, 1>(acc, a + k * ta3n::kMNMajorStep,
                         b + k * ta3n::kMNMajorStep);
   };
-  ta3n::wgmma_pipeline<kStages>(u0.z * b_chunks, acc, issue, land, convert,
-                                mma);
+  if constexpr (kVec)
+    ta3n::wgmma_pipeline_ws<kStages>(u0.z * b_chunks, acc, bars,
+                                     bars + kStages, tid, produce, convert,
+                                     mma);
+  else if (tid < ta3n::kConsumers)
+    ta3n::wgmma_pipeline<kStages>(u0.z * b_chunks, acc, issue_plain,
+                                  [](int, int) {}, convert, mma);
+  if (tid >= ta3n::kConsumers) return;
 
   // dW_i [h, k*d] starts at the unit of its position 0, z - p
   dw += static_cast<long long>(h) * d * (z - p);
@@ -475,7 +474,7 @@ __device__ __forceinline__ void dw_tile(
 #pragma unroll
     for (int e = 0; e < 8; ++e)
       red[(tid / 8) * kTileM + 8 * (tid % 8) + e] = db_part[e];
-    __syncthreads();
+    ta3n::named_sync(ta3n::kConsumers);
     if (tid < kTileM && h0 + tid < h) {
       float sum = 0.f;
       for (int r = 0; r < kRowStep; ++r) sum += red[r * kTileM + tid];
@@ -508,7 +507,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (kVec && threadIdx.x == 0) {
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBars);
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) ta3n::mbar_init(&bars[s], kIssuers);
+    for (int s = 0; s < kStages; ++s) {
+      ta3n::mbar_init(&bars[s], 1);                // full: the producer
+      ta3n::mbar_init(&bars[kStages + s], 2);      // empty: the consumers
+    }
     ta3n::mbar_fence_init();
   }
   __syncthreads();

@@ -86,6 +86,13 @@ __device__ __forceinline__ uint64_t mnmajor_desc(const void* tile) {
 constexpr uint64_t kKMajorStep = 32 >> 4;
 constexpr uint64_t kMNMajorStep = (2 * kAtomBytes) >> 4;
 
+// A barrier of the first `count` threads of the block (barrier 1; 0 is
+// __syncthreads'), for the consumer warpgroups when a producer warp runs
+// beside them.
+__device__ __forceinline__ void named_sync(int count) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(count) : "memory");
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -119,6 +126,18 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(smem_addr(bar)),
                "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// an arrival on bar once this thread's cp.async copies so far have landed
+// (counted in the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
                : "memory");
 }
 // wait until the phase of the given parity has completed
@@ -352,16 +371,19 @@ __device__ __forceinline__ void wgmma(float (&d)[N], uint64_t a, uint64_t b) {
   }
 }
 
-// A ring of kStages shared-memory stages over n chunks, for one
-// warpgroup's products into acc: issue(c, s) starts the asynchronous
+// The consumer warpgroups of a block: threads [0, kConsumers).
+constexpr int kConsumers = 256;
+
+// A ring of kStages shared-memory stages over n chunks, for the consumer
+// warpgroups' products into acc: issue(c, s) starts the asynchronous
 // copies of chunk c into stage s; land(c, s) waits until they are in
 // place for this thread, and after a barrier, convert(c, s) rewrites what
 // the products read (plain shared stores) and mma(c, s) issues the
 // chunk's products into acc, committed as one batch.  The next chunk's
-// copies are issued once the previous batch has finished reading its
-// stage, so one batch runs while the next chunk lands and is converted.
-// Two barriers a chunk.  Ends with no product in flight and every stage
-// free.
+// copies are issued once both warpgroups' previous batches have finished
+// reading its stage, so one batch runs while the next chunk lands and is
+// converted.  Three barriers a chunk.  Ends with no product in flight and
+// every stage free.
 template <int kStages, int N, class Issue, class Land, class Convert,
           class Mma>
 __device__ __forceinline__ void wgmma_pipeline(int n, float (&acc)[N],
@@ -374,22 +396,65 @@ __device__ __forceinline__ void wgmma_pipeline(int n, float (&acc)[N],
   for (int c = 0; c < n; ++c) {
     const int s = c % kStages;
     land(c, s);
-    __syncthreads();
+    named_sync(kConsumers);
     convert(c, s);
     fence_proxy_async();
-    __syncthreads();
+    named_sync(kConsumers);
     fence_operands(acc);
     wgmma_fence();
     mma(c, s);
     wgmma_commit();
-    wgmma_wait<1>();  // chunk c - 1's products are done with their stage
+    wgmma_wait<1>();  // this warpgroup's chunk c - 1 products are done
     fence_operands(acc);
     const int next = c + kStages - 1;
-    if (next < n) issue(next, next % kStages);
+    if (next < n) {
+      named_sync(kConsumers);  // and the other's: their stage is free
+      issue(next, next % kStages);
+    }
   }
   wgmma_wait<0>();
   fence_operands(acc);
-  __syncthreads();
+  named_sync(kConsumers);
+}
+
+// The same ring with a producer warp (threads kConsumers.. of the block,
+// beside the consumer warpgroups), which runs up to kStages chunks ahead:
+// produce(c, s, full), called by all its threads, fills stage s with
+// chunk c by asynchronous copies that complete on full, once both consumer
+// warpgroups have released the stage (empty, two arrivals a use).  The
+// consumers wait for full, convert (each thread only what it reads), and
+// release the stage of chunk c - 1 once their products of it are done.
+// The producer warp returns from here; the consumers end with no product
+// in flight.
+template <int kStages, int N, class Produce, class Convert, class Mma>
+__device__ __forceinline__ void wgmma_pipeline_ws(
+    int n, float (&acc)[N], uint64_t* full, uint64_t* empty, int tid,
+    Produce&& produce, Convert&& convert, Mma&& mma) {
+  if (tid >= kConsumers) {
+    for (int c = 0; c < n; ++c) {
+      const int s = c % kStages;
+      if (c >= kStages) mbar_wait(&empty[s], (c / kStages - 1) & 1);
+      produce(c, s, &full[s]);
+    }
+    return;
+  }
+  for (int c = 0; c < n; ++c) {
+    const int s = c % kStages;
+    mbar_wait(&full[s], (c / kStages) & 1);
+    convert(c, s);
+    fence_proxy_async();
+    named_sync(kConsumers);
+    fence_operands(acc);
+    wgmma_fence();
+    mma(c, s);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(acc);
+    if (c > 0 && tid % 128 == 0) mbar_arrive(&empty[(c - 1) % kStages]);
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  named_sync(kConsumers);
 }
 
 // land() of a ring filled by cp.async, one commit group a chunk: chunk c
