@@ -4,11 +4,13 @@
 
 Builds the port's CUDA kernels from ta3n_tpu_torch/csrc (one nvcc per
 source, in parallel), checks in their SASS that the tensor-core kernels
-(K1, K2, K3) hold mma (HMMA) and cp.async (LDGSTS) instructions, holds each
-kernel against its plain PyTorch version at the flagship shapes and times
-both (K1 (infer) at batch 1 and the serve and train batches, K2 also by
-its dx and dW families, K3 at the train and eval shapes, each against the
-bound of the arithmetic it runs), then drives the port's main paths at
+(K1, K2, K3) hold mma (HMMA) and cp.async (LDGSTS) instructions and their
+bfloat16 variants on wgmma (K2 in bfloat16, K3 at bfloat16 compute) HGMMA
+and no HMMA, holds each kernel against its plain PyTorch version at the
+flagship shapes and times both (K1 (infer) at batch 1 and the serve and
+train batches, K2 also by its dx and dW families, K3 at the train and
+eval shapes, each against the bound of the arithmetic it runs), then
+drives the port's main paths at
 the flagship widths (UCF->HMDB_full: trn-m over 5 segments, 2048-d features,
 fc 512, TRN bottleneck 256, TransAttn, 12 classes, random weights from a
 seed):
@@ -57,8 +59,9 @@ The bfloat16 compute path and the narrow stores (bf16 and int8): the
 bfloat16 variants of K1 (infer) at B = 1, 64, 202, and of K1 (train) and
 K2 at B = 202, at S = 5 and 17, and K3's five store x compute variants
 beyond float32 x float32 at 640, 320, 37 and 0 rows, each against its
-plain version in the same dtype and timed with it (at bfloat16 compute
-K3 also against index_select + mm in bfloat16); the bfloat16 flagship
+plain version in the same dtype and timed with it (K2 in bfloat16 also
+at S = 17 and 25; at bfloat16 compute K3 also at 370 rows and against
+index_select + mm in bfloat16); the bfloat16 flagship
 served by Predictors at batch 64 and 1 against their plain path; 5
 bfloat16 device-store steps from an int8 and from a bfloat16 store
 against the plain path from the same start (2 K3, 1 K1 (train), 1 K2 of
@@ -133,6 +136,8 @@ PARAM_TOL = dict(rtol=1e-3, atol=2e-5)
 SPLITS = dict(num_source=1438, num_target=840, num_val=360)
 K3_CASES = (640, 370, 320, 37, 1, 0)   # rows: train source/target, eval
 K3_TIMED = ((640, True), (320, False))  # (rows, with x_res): train, eval
+# K3 at bfloat16 compute: the source and target train batches, and eval
+K3_BF16_TIMED = ((640, True), (370, True), (320, False))
 EVAL_RTOL = 1e-5               # the val epoch's summed loss
 MANY_FRAMES = (17, 25)         # segments beyond the earlier cap of 16
 CLI_BATCH = 128                # the eval CLI's --bS and the val batch
@@ -240,11 +245,18 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"trn_fused_fwd": PEAK_TF32 / 3,
             "trn_fused_fwd_train": PEAK_TF32 / 3,
             "trn_fused_bwd": PEAK_TF32 / 3, "gather_gemm": PEAK_TF32 / 3}
-# kernels on the tensor cores, fed by cp.async: their SASS must hold HMMA
-# and LDGSTS instructions (K1's epilogue, trn_fused_fwd_epilogue, is a
-# plain sum)
+# kernels on the tensor cores through mma.sync, fed by cp.async: their
+# SASS must hold HMMA and LDGSTS instructions (K1's epilogue,
+# trn_fused_fwd_epilogue, is a plain sum)
 TENSOR_CORE_KERNELS = ("trn_fused_fwd_kernel", "gather_gemm_kernel",
                        "trn_fused_bwd_kernel")
+# the bfloat16 kernels on wgmma: HGMMA in their SASS and no HMMA; and the
+# sources of the variants they run
+WGMMA_KERNELS = ("gather_gemm_bf16_kernel", "trn_fused_bwd_bf16_kernel")
+WGMMA_SOURCES = {
+    "trn_fused_bwd_bf16": "ta3n_tpu_torch/csrc/trn_fused_bwd_bf16.cu",
+    **{f"gather_gemm_{s}_bf16": "ta3n_tpu_torch/csrc/gather_gemm_bf16.cu"
+       for s in ("f32", "bf16", "int8")}}
 # the bfloat16 compute path and the narrow stores: the bfloat16 flagship,
 # the dense bfloat16 tensor-core peak (H100 SXM data sheet, 700 W), and
 # K3's variants beyond float32 x float32 ("{store}_{compute}")
@@ -301,9 +313,10 @@ def build_kernels() -> float:
 
 
 def check_sass() -> None:
-    """Count the tensor-core (HMMA) and asynchronous-copy (LDGSTS)
-    instructions of each kernel in the built library's SASS; fail unless
-    every kernel of TENSOR_CORE_KERNELS has both."""
+    """Count the tensor-core (HMMA, and wgmma's HGMMA) and asynchronous-copy
+    (LDGSTS) instructions of each kernel in the built library's SASS; fail
+    unless every kernel of TENSOR_CORE_KERNELS has HMMA and LDGSTS, and
+    every kernel of WGMMA_KERNELS HGMMA and no HMMA."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
                           check=True, capture_output=True,
@@ -312,22 +325,31 @@ def check_sass() -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = [0, 0]
+            counts[name] = [0, 0, 0]
         elif name is not None:
             counts[name][0] += " HMMA." in line
             counts[name][1] += " LDGSTS" in line
-    for name, (hmma, ldgsts) in sorted(counts.items()):
-        log(f"  sass: {hmma:4d} HMMA, {ldgsts:4d} LDGSTS  {name[:80]}")
+            counts[name][2] += " HGMMA." in line
+    for name, (hmma, ldgsts, hgmma) in sorted(counts.items()):
+        log(f"  sass: {hmma:4d} HMMA, {hgmma:4d} HGMMA, {ldgsts:4d} LDGSTS  "
+            f"{name[:80]}")
     for kernel in TENSOR_CORE_KERNELS:
-        found = [(n, c) for n, c in counts.items() if kernel in n]
+        # the mangled name holds the kernel's length-prefixed name
+        found = [(n, c) for n, c in counts.items()
+                 if f"{len(kernel)}{kernel}" in n]
         # an instance with 4-byte copies (template flag false, Lb0E) and
         # a bfloat16 operand stages that operand by plain loads: it needs
         # HMMA only
         if not found or not all(
                 h and (g or ("Lb0E" in n and "nv_bfloat16" in n))
-                for n, (h, g) in found):
+                for n, (h, g, _) in found):
             raise AssertionError(f"{kernel}: no HMMA or no LDGSTS in its "
                                  "SASS")
+    for kernel in WGMMA_KERNELS:
+        found = [c for n, c in counts.items()
+                 if f"{len(kernel)}{kernel}" in n]
+        if not found or not all(hg and not h for h, _, hg in found):
+            raise AssertionError(f"{kernel}: no HGMMA, or HMMA, in its SASS")
 
 
 def trn_inputs(b, s, d, h, gen, signed=False):
@@ -2250,11 +2272,13 @@ def store_rows(store):
 def time_bf16_kernels(gen, stores):
     """Device times of every bfloat16 and narrow-store variant and of its
     plain version, medians of 41 in turns, at the shapes of their paths:
-    K1 (infer) at B = 1, 64, 202, K1 (train) and K2 at the train batch,
-    K3 at the train shape (640 rows with x_res) and the eval shape (320
-    rows without); at bfloat16 compute also index_select + mm in
-    bfloat16.  Returns {name: (ms, plain_ms, library_ms, work)} and the
-    K1 (infer) times by batch."""
+    K1 (infer) at B = 1, 64, 202, K1 (train) at the train batch, K2 at the
+    train batch and S = 5, 17, 25, K3 at the train shape (640 rows with
+    x_res) and the eval shape (320 rows without), at bfloat16 compute also
+    at the target batch's 370 rows with x_res and against index_select +
+    mm in bfloat16.  Returns {name: (ms, plain_ms, library_ms, work)}, the
+    K1 (infer) times by batch, K3's at the eval shape and the others by
+    their shape's key (K3 "n370", K2 "s17", "s25")."""
     out, k1 = {}, {}
     with torch.inference_mode():
         for b in TIMED_BATCHES:
@@ -2289,6 +2313,24 @@ def time_bf16_kernels(gen, stores):
     for name in ("trn_fused_fwd_train_bf16", "trn_fused_bwd_bf16"):
         log(f"  B={b} {name}: kernel {out[name][0]:.4f} ms, plain "
             f"{out[name][1]:.4f} ms device (medians of 41, in turns)")
+    more = {"trn_fused_bwd_bf16": {}}
+    for s in MANY_FRAMES:
+        x, w, bi = bf16_trn_inputs(b, s, gen)
+        g = torch.randn((b, s - 1, 256), generator=gen).cuda().to(
+            torch.bfloat16)
+        with torch.no_grad():
+            _, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+            tt = time_pair({
+                "kernel": lambda: trn_fused.trn_multiscale_bwd(x, w, masks,
+                                                               g, s),
+                "plain": lambda: trn_fused.trn_multiscale_bwd_plain(
+                    x, w, masks, g, s)})
+        more["trn_fused_bwd_bf16"][f"s{s}"] = (
+            tt["kernel"], tt["plain"], None,
+            trn_work(b, s=s, esize=2)["trn_fused_bwd"])
+        log(f"  B={b} S={s} trn_fused_bwd_bf16: kernel {tt['kernel']:.4f} "
+            f"ms, plain {tt['plain']:.4f} ms device (medians of 41, in "
+            "turns)")
     for bb, tt in k1.items():
         log(f"  B={bb} trn_fused_fwd_bf16: kernel {tt['kernel']:.4f} ms, "
             f"plain {tt['plain']:.4f} ms device (medians of 41, in turns)")
@@ -2303,7 +2345,8 @@ def time_bf16_kernels(gen, stores):
         for variant in K3_VARIANTS:
             kind, compute = variant.split("_")
             store, wc = stores[kind], weights[compute]
-            for n, with_rows in K3_TIMED:
+            for n, with_rows in (K3_BF16_TIMED if compute == "bf16"
+                                 else K3_TIMED):
                 rows, scale = gather_case(n, store_rows(store), rng)
                 fns = {"kernel": lambda: gather_gemm.gathered_gemm(
                            store, rows, wc, scale, with_rows),
@@ -2325,11 +2368,14 @@ def time_bf16_kernels(gen, stores):
                        f"{tt['library']:.4f} ms" if "library" in tt else "")
                     + f" device; bound {least:.4f} ms by {by}")
                 entry = (tt["kernel"], tt["plain"], tt.get("library"), work)
-                if with_rows:
+                if not with_rows:
+                    eval_times[f"gather_gemm_{variant}"] = entry
+                elif n == K3_TIMED[0][0]:
                     out[f"gather_gemm_{variant}"] = entry
                 else:
-                    eval_times[f"gather_gemm_{variant}"] = entry
-    return out, k1, eval_times
+                    more.setdefault(f"gather_gemm_{variant}", {})[
+                        f"n{n}"] = entry
+    return out, k1, eval_times, more
 
 
 def train_bf16_store(gen, stores):
@@ -2743,7 +2789,8 @@ def main() -> int:
           "gather_gemm": (k3_t["kernel"], k3_t["plain"], k3_t["library"])}
 
     log("bfloat16 and narrow-store kernel times")
-    bf16_ms, bf16_k1, bf16_eval = time_bf16_kernels(gen, variants)
+    bf16_ms, bf16_k1, bf16_eval, bf16_more = time_bf16_kernels(gen,
+                                                               variants)
     del variants
 
     # each path's launches, counted from 0 over its own run, summed per
@@ -2883,8 +2930,11 @@ def main() -> int:
         peak = (PEAK_BF16 if name.startswith("trn") or name.endswith("bf16")
                 else PEAK_TF32 / 3)
         bound_ms, bound_by = bound(*work_k, peak)
+        # at bfloat16 compute K2 and K3 are the wgmma kernels' own sources
         source, replaces = (sources["gather_gemm"] if name.startswith(
             "gather") else sources[name.removesuffix("_bf16")])
+        if name in WGMMA_SOURCES:
+            source = WGMMA_SOURCES[name]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches16[name],
                  "max_abs_err": max_err[name], "ms": ms_k,
@@ -2895,6 +2945,12 @@ def main() -> int:
             entry.update(eval_ms=ev_k, eval_plain_ms=ev_p,
                          eval_library_ms=ev_lib,
                          eval_bound_ms=bound(*ev_work, peak)[0])
+        for key, (k_ms, p_ms, lib_ms, k_work) in bf16_more.get(
+                name, {}).items():
+            entry.update({f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms,
+                          f"{key}_bound_ms": bound(*k_work, peak)[0]})
+            if lib_ms is not None:
+                entry[f"{key}_library_ms"] = lib_ms
         if name == "trn_fused_fwd_bf16":
             for b in TIMED_BATCHES:
                 if b != SERVE_BATCH:

@@ -1,20 +1,26 @@
 """Probes of the port's tensor-core kernels on one CUDA card (an H100):
 the numbers behind the design of K1 (csrc/trn_fused_fwd.cu), K2
-(csrc/trn_fused_bwd.cu) and K3 (csrc/gather_gemm.cu), and behind the
-tf32x3.cuh helpers they share.
+(csrc/trn_fused_bwd.cu, and in bfloat16 csrc/trn_fused_bwd_bf16.cu) and
+K3 (csrc/gather_gemm.cu, and at bfloat16 compute csrc/gather_gemm_bf16.cu),
+and behind the tf32x3.cuh and wgmma_bf16.cuh helpers they share.
 
     PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
         [PROBE ...] [--k3-slices N]
     PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
         k1-earlier --earlier-k1 PATH
+    PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
+        k3-bf16-earlier --earlier-csrc DIR
 
-Probes (all but k1-earlier by default):
+Probes (all but k1-earlier and k3-bf16-earlier by default):
   mma-rate        mma.sync m16n8k8 TF32 throughput: bare, and as one 3xTF32
                   step of the kernels (24 mma.sync over 16 fresh f32 values)
                   with the split done by integer rounding (tf32x3.cuh) or by
                   cvt.rna.tf32.f32
   k3-splits       K3 device time at the train (640 rows, x_res) and eval
-                  (320 rows) shapes for 1..8 K slices, beside index_select + mm
+                  (320 rows) shapes for 1..8 K slices, beside index_select + mm;
+                  at bfloat16 compute from bfloat16 and int8 stores also at
+                  the target batch's 370 rows, and K3's kernels and the
+                  library pair's by the profiler at the chosen slices
   split-variants  the 3xTF32 split with a_lo left raw, rounded by integer
                   operations (the tree) and by cvt.rna: K3's error against
                   float64, and chip_smoke.py's five device-store steps
@@ -28,6 +34,19 @@ Probes (all but k1-earlier by default):
                   (K1_VARIANTS) at one and two D slices, each checked
                   against the plain version and timed in turns; its GEMM
                   and epilogue kernels by the profiler
+  wgmma-phases    clock64 cycles a chunk spends, in the wgmma rings of K3 at
+                  bfloat16 compute (its rows landing, converting them,
+                  issuing the products, waiting for the previous batch
+                  and staging the next chunk) and of K2 in bfloat16 (its
+                  boxes landing, converting, issuing the products, and
+                  waiting for the previous batch)
+  k3-bf16-earlier only when named, with --earlier-csrc DIR: K3 at
+                  bfloat16 compute built from DIR, an earlier csrc/ (its
+                  ta3n_gather_gemm with the same arguments; e.g. `git
+                  archive 8024ae0 ta3n_tpu_torch/csrc | tar -x -C
+                  build/earlier`, the first wgmma design, whose W tiles
+                  came by cp.async), against the current one, both checked
+                  against the plain version and timed in turns
   k1-earlier      only when named, with --earlier-k1 PATH: K1 against
                   the f32-FMA design it replaced, built from PATH, that
                   design's trn_fused_fwd.cu (its C entries take no scratch
@@ -312,6 +331,58 @@ def probe_k3_splits() -> None:
         log(f"  N={n} x_res={with_rows}: ms by K slices {', '.join(line)}; "
             f"index_select + mm {library:.4f}; the wrapper picks "
             f"{chosen(n, w.shape[0], 64)}")
+    chosen = gather_gemm.bf16_grid
+    w16 = w.to(torch.bfloat16)
+    stores = {"bf16": store.to(torch.bfloat16), "int8": int8_store(store)}
+    for n, with_rows in chip_smoke.K3_BF16_TIMED:
+        rows = gather_gemm.row_index(rng.integers(0, store.shape[0], n),
+                                     store.shape[0], "cuda")
+        pair = lambda: torch.mm(stores["bf16"].index_select(0, rows.rows),
+                                w16.t())
+        library = statistics.median(dev_ms(pair) for _ in range(21))
+        for kind, st in stores.items():
+            fn = lambda: gather_gemm.gathered_gemm(st, rows, w16, None,
+                                                   with_rows)
+            line = []
+            for splits in range(1, gather_gemm._MAX_SPLITS + 1):
+                gather_gemm.bf16_grid = (
+                    lambda m, h, d, k, dt, s=splits: (0, 0, s))
+                for _ in range(3):
+                    fn()
+                line.append(f"{splits}: {statistics.median(dev_ms(fn) for _ in range(21)):.4f}")
+            gather_gemm.bf16_grid = chosen
+            pick = chosen(n, w.shape[0], w.shape[1], 1, st[0].dtype
+                          if isinstance(st, tuple) else st.dtype)[2]
+            log(f"  bf16 compute, {kind} store, N={n} x_res={with_rows}: ms "
+                f"by K slices {', '.join(line)}; index_select + mm in "
+                f"bfloat16 {library:.4f}; the wrapper picks {pick}")
+            log("    by the profiler: " + kernel_times(fn))
+        log("    index_select + mm by the profiler: " + kernel_times(pair))
+
+
+def int8_store(rows):
+    """A float32 store on the card quantized per row, as the int8 pair
+    ``(q, scale)`` on the card."""
+    from ta3n_tpu_torch.data.quantized import quantize_rows
+    q, scale = quantize_rows(rows.cpu().numpy())
+    return torch.from_numpy(q).cuda(), torch.from_numpy(scale).cuda()
+
+
+def kernel_times(fn, n=20) -> str:
+    """Device time of each kernel a call of fn launches, by the profiler:
+    microseconds a call, by name."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return ", ".join(
+        f"{e.key[:48]} {e.self_device_time_total / n:.1f} us"
+        for e in prof.key_averages()
+        if e.device_type.name == "CUDA" and e.count)
 
 
 def probe_split_variants() -> None:
@@ -410,6 +481,170 @@ extern "C" void probe_phases_STEM(unsigned long long* out, int reset) {
             measure(f"K2 {label} tiles",
                     lambda parts=parts: chip_smoke.bwd_parts(
                         x, wt, masks, g, parts), "trn_fused_bwd")
+
+
+WGMMA_LOOP = """    const int s = c % kStages;
+    land(c, s);
+    named_sync(kConsumers);
+    convert(c, s);
+    fence_proxy_async();
+    named_sync(kConsumers);
+    fence_operands(acc);
+    wgmma_fence();
+    mma(c, s);
+    wgmma_commit();
+    wgmma_wait<1>();  // this warpgroup's chunk c - 1 products are done
+    fence_operands(acc);
+    const int next = c + kStages - 1;
+    if (next < n) {
+      named_sync(kConsumers);  // and the other's: their stage is free
+      issue(next, next % kStages);
+    }"""
+
+WGMMA_WS_LOOP = """    const int s = c % kStages;
+    mbar_wait(&full[s], (c / kStages) & 1);
+    convert(c, s);
+    fence_proxy_async();
+    named_sync(kConsumers);
+    fence_operands(acc);
+    wgmma_fence();
+    mma(c, s);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(acc);
+    if (c > 0 && tid % 128 == 0) mbar_arrive(&empty[(c - 1) % kStages]);"""
+
+
+def wgmma_stamped(loop: str, marks) -> str:
+    """``loop`` with clock64 read after each line that starts with one of
+    ``marks`` (in order), the differences added to wphases[0..] by thread
+    0 of each block at the end of each chunk."""
+    lines, out, k = loop.split("\n"), [], 0
+    out.append("    long long t_prev = clock64();")
+    for line in lines:
+        out.append(line)
+        if k < len(marks) and line.strip().startswith(marks[k]):
+            out.append(f"    {{ const long long t = clock64(); "
+                       f"if (threadIdx.x == 0) atomicAdd(&wphases[{k}], "
+                       f"(unsigned long long)(t - t_prev)); t_prev = t; }}")
+            k += 1
+    if k != len(marks):
+        raise RuntimeError(f"the ring's loop has changed: {marks[k:]}")
+    out.append("    if (threadIdx.x == 0) atomicAdd(&wphases[5], 1ull);")
+    return "\n".join(out)
+
+
+def probe_wgmma_phases() -> None:
+    log("wgmma-phases (thread 0 of every block; cycles a chunk, summed "
+        "over blocks and divided by block-chunks)")
+    read = """
+extern "C" void probe_wphases_STEM(unsigned long long* out, int reset) {
+  if (reset) {
+    const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+    cudaMemcpyToSymbol(ta3n::wphases, zero, sizeof(zero));
+  } else {
+    cudaMemcpyFromSymbol(out, ta3n::wphases, sizeof(unsigned long long) * 6);
+  }
+}
+"""
+    edits = {"wgmma_bf16.cuh": [
+        ("namespace ta3n {", "namespace ta3n {\n"
+         "static __device__ unsigned long long wphases[6];"),
+        (WGMMA_LOOP, wgmma_stamped(WGMMA_LOOP, (
+            "land(", "convert(", "mma(", "fence_operands(acc);",
+            "issue("))),
+        (WGMMA_WS_LOOP, wgmma_stamped(WGMMA_WS_LOOP, (
+            "mbar_wait(", "convert(", "mma(", "fence_operands(acc);")))]}
+    for name in ("gather_gemm_bf16.cu", "trn_fused_bwd_bf16.cu"):
+        stem = name.removesuffix(".cu")
+        edits[name] = [('#include "wgmma_bf16.cuh"\n',
+                        '#include "wgmma_bf16.cuh"\n' +
+                        read.replace("STEM", stem))]
+    lib = variant_library("wgmma phases", lambda text: text, edits=edits)[0]
+    with_library(lib)
+    counts = (ctypes.c_ulonglong * 6)()
+
+    def measure(label, fn, stem, phases):
+        read_fn = getattr(lib, f"probe_wphases_{stem}")
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        read_fn(counts, 1)
+        fn()
+        torch.cuda.synchronize()
+        read_fn(counts, 0)
+        n = counts[5]
+        log(f"  {label}: " + ", ".join(
+            f"{p} {counts[i] / n:.0f}" for i, p in enumerate(phases))
+            + f" cycles a chunk ({n} block-chunks)")
+
+    store, w = store_and_weight()
+    w16 = w.to(torch.bfloat16)
+    rows = gather_gemm.row_index(
+        np.random.default_rng(0).integers(0, store.shape[0], 640),
+        store.shape[0], "cuda")
+    k3_phases = ("land", "convert", "products", "previous batch", "stage")
+    for kind, st in (("bf16", store.to(torch.bfloat16)),
+                     ("int8", int8_store(store))):
+        measure(f"K3 bf16 compute, {kind} store, N=640 x_res",
+                lambda: gather_gemm.gathered_gemm(st, rows, w16),
+                "gather_gemm_bf16", k3_phases)
+    x, wt, bi = chip_smoke.bf16_trn_inputs(202, 5,
+                                           torch.Generator().manual_seed(0))
+    g = torch.randn((202, 4, 256), device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        _, masks = trn_fused.trn_multiscale_fwd_masks(x, wt, bi, 5)
+        measure("K2 bf16 B=202 S=5",
+                lambda: trn_fused.trn_multiscale_bwd(x, wt, masks, g, 5),
+                "trn_fused_bwd_bf16",
+                ("land", "convert", "products", "previous batch"))
+
+
+def probe_k3_bf16_earlier(csrc: Path) -> None:
+    log(f"k3-bf16-earlier (K3 at bfloat16 compute from {csrc}; device "
+        "time, medians of 41 in turns)")
+    out_dir = PROBE_DIR / "earlier_csrc"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(csrc, out_dir)
+    sources = sorted(out_dir.glob("*.cu"))
+    objs = [str(src.with_suffix(".o")) for src in sources]
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o", obj,
+                      str(src)] for src, obj in zip(sources, objs)])
+    lib_path = out_dir / "lib.so"
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                      str(lib_path), *objs]])
+    earlier = ctypes.CDLL(str(lib_path))
+    earlier.ta3n_gather_gemm.argtypes = _build._ENTRIES["ta3n_gather_gemm"]
+    earlier.ta3n_gather_gemm.restype = ctypes.c_int
+    current = _build.load_library()
+    store, w = store_and_weight()
+    w16 = w.to(torch.bfloat16)
+    stores = {"f32": store, "bf16": store.to(torch.bfloat16),
+              "int8": int8_store(store)}
+    rng = np.random.default_rng(0)
+
+    def on(lib, fn):
+        with_library(lib)
+        return fn()
+
+    for n, with_rows in chip_smoke.K3_BF16_TIMED:
+        rows, scale = chip_smoke.gather_case(n, store.shape[0], rng)
+        for kind, st in stores.items():
+            fn = lambda: gather_gemm.gathered_gemm(st, rows, w16, scale,
+                                                   with_rows)
+            want = gather_gemm.gathered_gemm_plain(st, rows.rows, w16,
+                                                   scale)[0]
+            for label, lib in (("earlier", earlier), ("current", current)):
+                ok, _ = chip_smoke.bf16_err(on(lib, fn)[0], want)
+                if not ok:
+                    raise AssertionError(f"{label} K3 {kind} N={n}")
+            t = chip_smoke.time_pair({
+                "earlier": lambda: on(earlier, fn),
+                "current": lambda: on(current, fn)})
+            log(f"  {kind} store N={n} x_res={with_rows}: earlier "
+                f"{t['earlier']:.4f} ms, current {t['current']:.4f} ms "
+                f"({t['earlier'] / t['current']:.2f}x)")
+    with_library(current)
 
 
 def k1_cases():
@@ -574,7 +809,8 @@ def probe_k1_earlier(path: Path) -> None:
 
 PROBES = {"mma-rate": probe_mma_rate, "k3-splits": probe_k3_splits,
           "split-variants": probe_split_variants, "phases": probe_phases,
-          "k1-splits": probe_k1_splits, "k1-variants": probe_k1_variants}
+          "k1-splits": probe_k1_splits, "k1-variants": probe_k1_variants,
+          "wgmma-phases": probe_wgmma_phases}
 
 
 def main(argv) -> int:
@@ -594,7 +830,13 @@ def main(argv) -> int:
         path = Path(argv[at + 1]).resolve()
         del argv[at:at + 2]
         PROBES["k1-earlier"] = lambda: probe_k1_earlier(path)
-    names = argv or [n for n in PROBES if n != "k1-earlier"]
+    if "--earlier-csrc" in argv:
+        at = argv.index("--earlier-csrc")
+        csrc = Path(argv[at + 1]).resolve()
+        del argv[at:at + 2]
+        PROBES["k3-bf16-earlier"] = lambda: probe_k3_bf16_earlier(csrc)
+    names = argv or [n for n in PROBES
+                     if n not in ("k1-earlier", "k3-bf16-earlier")]
     unknown = [n for n in names if n not in PROBES]
     if unknown:
         print(f"unknown probes {unknown}; choose from {list(PROBES)}",

@@ -1,7 +1,9 @@
-// Building blocks of the kernels' bfloat16 variants (trn_fused_fwd.cu,
-// trn_fused_bwd.cu, gather_gemm.cu): bfloat16 products on the tensor
-// cores with float32 accumulation, the fragments they take, and staging
-// of bfloat16 rows.
+// Building blocks of the kernels' bfloat16 work on mma.sync (K1's
+// bfloat16 variant, trn_fused_fwd.cu) and of bfloat16 staging and
+// packing (gather_gemm.cu's bfloat16 store; gather_gemm_bf16.cu and
+// trn_fused_bwd_bf16.cu, whose products are wgmma_bf16.cuh's):
+// bfloat16 products on the tensor cores with float32 accumulation, the
+// fragments they take, and staging of bfloat16 rows.
 //
 // A product of two bfloat16 values (8 significant bits each) is exact in
 // float32, so one mma.sync.m16n8k16 bf16 product per pair, accumulated in

@@ -13,46 +13,50 @@
 // bit the plain version's.  z = rows @ W^T with float32 accumulation,
 // rounded to bfloat16 once (after the split-K sum); x_res holds the
 // bfloat16 rows.  gather_gemm.cu's C entry ta3n_gather_gemm launches this
-// kernel for compute kind 1 and then its split-K sum.
+// kernel and its split-K sum for compute kind 1.
 //
 // What bounds it on the card.  At the flagship train shape (N = 640 rows,
 // D = 2048, H = 512) the work is 1.34 GFLOP, 1.4 us at the dense bfloat16
 // rate of 989 TFLOP/s, against 2.0 MB of W, 2.6 MB of x_res, 0.7 MB of z
 // and the rows (1.3 MB from an int8 store, 5.2 MB from a float32 one):
-// 2.0-4.5 us at 3.35 TB/s.  So it is bound by bytes, and more by latency:
-// each block runs only 5-11 K chunks.  What the mma.sync design lost to
-// was per-fragment work: every A value scaled, rounded and packed by every
-// warp that read it, two k16 products per barrier.
+// 2.0-4.5 us at 3.35 TB/s.  So the bound is bytes; what takes the time
+// is latency: a block runs only a few K chunks, and each chunk's loads,
+// conversion and barriers follow one another.  So the work per staged
+// value and per barrier has to be small: no value scaled, rounded and
+// packed again by every warp that reads it, many products a barrier.
 //
 // What the design does about that.
-//  * One warpgroup per 64 x 128 output tile runs wgmma.mma_async
-//    m64n128k16 bf16 (wgmma_bf16.cuh), float32 accumulators in registers,
-//    both operands K-major from 128-byte swizzled shared tiles: the
-//    converted rows [64, 64] and W [128, 64] in nn.Linear layout.  At H =
-//    512 a gathered row is read by 4 column tiles (8 in the mma.sync
-//    design).
+//  * A 64 x 128 output tile per block of two warpgroups, each running
+//    wgmma.mma_async m64n64k16 bf16 (wgmma_bf16.cuh) on 64 of the columns
+//    with float32 accumulators in registers; both operands K-major from
+//    128-byte swizzled shared tiles, the converted rows [64, 64] (shared
+//    by the two warpgroups) and W [128, 64] in nn.Linear layout.  At H =
+//    512 a gathered row is read by 4 column tiles.
 //  * 64-deep K chunks: one 128-byte bfloat16 row fills one swizzle row,
 //    four k16 products a chunk.  A chunk never crosses a gathered row, so
-//    a staged row has one address and one scale; D that is not a multiple
-//    of 64 is zero-filled.
-//  * A ring of 3 stages filled by cp.async: the raw rows in their store
-//    type (16-byte copies, eight consecutive threads on consecutive
-//    pieces of a row, the row addresses of a thread's rows held in
-//    registers and recomputed only when the chunk passes to the next
-//    gathered row), and W straight into its swizzled tile.  Widths whose
-//    rows are not 16-byte aligned (D = 37, 22) are staged by plain loads.
+//    a staged row has one address and one scale; values past D are zero.
+//  * A ring of 3 stages: W by one TMA box a chunk (a 2-d tensor map of W
+//    with the 128-byte swizzle, made once per weight, completing on the
+//    stage's mbarrier), and the raw rows in their store type by 16-byte
+//    cp.async (eight consecutive threads on consecutive pieces of a row,
+//    each thread's row addresses in registers, located again only when a
+//    chunk passes to the next gathered row).  Widths whose rows are not
+//    16-byte aligned (D = 37, 22) are staged by plain loads.
 //  * A convert pass, once per block and element: each thread turns eight
-//    staged values of a row into bfloat16 as above and writes them as one
-//    16-byte piece of the swizzled A tile (double-buffered, so the next
-//    chunk is converted while this one's products run) and, with x_res,
-//    as one 16-byte store of x_res.  The blocks of a row tile's column
-//    tiles share that write: block y writes the rows 16p..16p+15 with
+//    staged values of a row into bfloat16 as above (at the common row
+//    scale 1 the multiply by it is skipped, exactly) and writes them as
+//    one 16-byte piece of the A tile (double-buffered, so the next chunk is
+//    converted while this one's products run) and, with x_res, as one
+//    16-byte store of x_res.  The blocks of a row tile's column tiles
+//    share that write: block y writes the rows of 16-row group p when
 //    p % min(column tiles, 4) == y.
-//  * Split K only where the tiles do not fill the card: gridDim.z blocks
-//    share an output tile over slices of the chunks into float32 partials
-//    [splits, M, H], summed in a fixed order by gather_gemm.cu's second
-//    kernel (no atomics: a second call gives the same bits); the host's
-//    choice is ops/gather_gemm.py::bf16_grid.
+//  * Split K only where the tiles leave SMs without a block: gridDim.z
+//    blocks share an output tile over slices of the chunks into float32
+//    partials [splits, M, H], summed in a fixed order and rounded once by
+//    gather_gemm_bf16_sum, launched as a programmatic dependent launch so
+//    that its launch overlaps this kernel's end (no atomics: a second call
+//    gives the same bits); the host's choice is
+//    ops/gather_gemm.py::bf16_grid.
 // Indices are not checked here: the Python wrapper only launches with
 // indices it checked on the host (0 <= idx < R).
 
@@ -72,9 +76,9 @@ namespace {
 using ta3n::bf16;
 
 constexpr int kTileM = 64;     // a warpgroup's wgmma rows
-constexpr int kTileN = 128;    // output columns per block: m64n128k16
+constexpr int kTileN = 128;    // output columns per block, 64 a warpgroup
 constexpr int kTileK = 64;     // one 128-byte row of bfloat16
-constexpr int kThreads = ta3n::kConsumers;  // two warpgroups, one per 64 columns
+constexpr int kThreads = ta3n::kConsumers;  // two warpgroups
 constexpr int kStages = 3;
 constexpr int kWBytes = kTileN * 128;  // a W tile, K-major
 
@@ -104,20 +108,6 @@ struct Layout {
   static constexpr int kEnd = kBars + kStages * 8;
   static constexpr int kSmem = kEnd + 1024;  // room to align the base
 };
-
-// 16 bytes from src into shared dst, of which the first `valid` elements
-// of T exist (none when valid <= 0: src is then not read), by plain byte
-// loads and shared stores, which the ring's barrier publishes; the rest
-// zero-filled.  For widths whose rows are not 16-byte aligned.
-template <class T>
-__device__ __forceinline__ void copy_bytes16(void* dst, const T* src,
-                                             int valid) {
-  const int bytes = valid * static_cast<int>(sizeof(T));
-  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
-  unsigned char* d = static_cast<unsigned char*>(dst);
-#pragma unroll
-  for (int b = 0; b < 16; ++b) d[b] = b < bytes ? s[b] : 0;
-}
 
 // Eight staged values from p (16-byte aligned) as float32, exactly (and a
 // bfloat16 piece's bits as they are).
@@ -193,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     part += static_cast<long long>(blockIdx.z) * m_rows * h;
   const int valid_rows =
       m_rows - m0 < kTileM ? static_cast<int>(m_rows - m0) : kTileM;
-  // the x_res rows 16p..16p+15 this block writes: p % writers == y
+  // the x_res rows of 16-row group p this block writes: p % writers == y
   const int writers = gridDim.y < 4 ? static_cast<int>(gridDim.y) : 4;
   const bool write_any = x_res != nullptr && blockIdx.y < 4;
 
@@ -251,8 +241,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                     s * 2 * kTileM;
     const int cols = d - c0 < kTileK ? d - c0 : kTileK;
     if constexpr (kVec) {
-      // W first (it needs no index), by the last warp, whose rows are
-      // staged by the others meanwhile
+      // W first (it needs no index), by one thread of the last warp
       if (tid == kThreads - 32) {
         ta3n::mbar_arrive_expect_tx(&bars[s], kWBytes);
         ta3n::tma_load_2d(wt, &w_map, static_cast<int>(j * d + c0), h0,
@@ -284,20 +273,19 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int pc = 0; pc < R::P / 4; ++pc) {
         const int col = (quarter * R::P / 4 + pc) * R::E;
-        copy_bytes16(raw + srow0 * R::kPitch + col,
-                     rows[0] != nullptr ? rows[0] + c0 + col : store,
-                     rows[0] != nullptr ? cols - col : 0);
+        ta3n::copy_bytes16(raw + srow0 * R::kPitch + col,
+                           rows[0] != nullptr ? rows[0] + c0 + col : store,
+                           rows[0] != nullptr ? cols - col : 0);
       }
       const int wpiece = tid % 8, wrow0 = tid / 8;
 #pragma unroll
       for (int i = 0; i < kTileN * 8 / kThreads; ++i) {
         const int r = wrow0 + kThreads / 8 * i;
         const int gh = h0 + r;
-        copy_bytes16(wt + ta3n::swizzle128(r * 128 + wpiece * 16),
-                     gh < h ? w + gh * kdim + static_cast<long long>(j) * d +
-                                  c0 + 8 * wpiece
-                            : w,
-                     gh < h ? cols - 8 * wpiece : 0);
+        const bf16* src =
+            w + gh * kdim + static_cast<long long>(j) * d + c0 + 8 * wpiece;
+        ta3n::copy_bytes16(wt + ta3n::swizzle128(r * 128 + wpiece * 16),
+                           gh < h ? src : w, gh < h ? cols - 8 * wpiece : 0);
       }
     }
   };
@@ -396,6 +384,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                         b + k * ta3n::kKMajorStep);
   };
   ta3n::wgmma_pipeline<kStages>(n_chunks, acc, issue, land, convert, mma);
+  // the split-K sum may be launched now; it waits for this grid's stores
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   const bool pairs = h % 2 == 0;
 #pragma unroll
@@ -431,6 +421,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 __global__ void gather_gemm_bf16_sum(const float* __restrict__ part,
                                      bf16* __restrict__ z, long long count,
                                      int splits) {
+  // the partials of the kernel before it on the stream, complete
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first =
       blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
@@ -531,13 +523,24 @@ int launch(const void* store, const void* qscale, const void* idx,
           static_cast<bf16*>(z), static_cast<float*>(part),
           static_cast<bf16*>(x_res), m_rows, streams, d, k_rows, h);
   if (splits > 1) {
+    // launched while the first kernel runs (programmatic dependent
+    // launch); it waits for that kernel's partials before reading them
     const long long count = m_rows * h;
     const long long blocks = (count / 4 + 255) / 256;
-    gather_gemm_bf16_sum<<<static_cast<unsigned>(
-                               blocks < 1024 ? blocks + 1 : 1024),
-                           256, 0, stream>>>(static_cast<const float*>(part),
-                                             static_cast<bf16*>(z), count,
-                                             splits);
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(static_cast<unsigned>(blocks < 1024 ? blocks + 1
+                                                              : 1024));
+    config.blockDim = dim3(256);
+    config.stream = stream;
+    cudaLaunchAttribute early[1];
+    early[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    early[0].val.programmaticStreamSerializationAllowed = 1;
+    config.attrs = early;
+    config.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &config, gather_gemm_bf16_sum, static_cast<const float*>(part),
+        static_cast<bf16*>(z), count, splits);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -70,8 +70,6 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "tf32x3.cuh"
 #include "trn_plan.cuh"
 
@@ -370,7 +368,8 @@ __device__ __forceinline__ void dw_tile(
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 3)
     trn_fused_bwd_kernel(const Plan plan, const long long* __restrict__ ptrs,
-                         const float* __restrict__ x, const float* __restrict__ g,
+                         const float* __restrict__ x,
+                         const float* __restrict__ g,
                          const unsigned char* __restrict__ masks,
                          float* __restrict__ dx, float* __restrict__ dw,
                          float* __restrict__ db, int batch, int num_frames,
@@ -441,8 +440,8 @@ int launch_bwd(const void* x, const void* ptrs, const void* const* host_ptrs,
           info.plan, static_cast<const long long*>(ptrs),
           static_cast<const float*>(x), static_cast<const float*>(g),
           static_cast<const unsigned char*>(masks), static_cast<float*>(dx),
-          static_cast<float*>(dw), static_cast<float*>(db), batch, num_frames, d, h,
-          static_cast<int>(dx_blocks));
+          static_cast<float*>(dw), static_cast<float*>(db), batch, num_frames,
+          d, h, static_cast<int>(dx_blocks));
   return static_cast<int>(cudaGetLastError());
 }
 

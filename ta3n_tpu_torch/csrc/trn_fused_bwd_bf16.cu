@@ -23,39 +23,42 @@
 //
 // What bounds it on the card.  At B = 202, S = 5 and the flagship widths
 // it does 3.39 GFLOP (3.4 us at the dense bfloat16 rate of 989 TFLOP/s)
-// and must move about 10 MB (3.0 us at 3.35 TB/s).  What the mma.sync
-// design lost to: W, x and m^T are MN-major in memory, so their fragments
-// were packed from two 16-bit shared loads each; m = mask ? g : 0 and
-// relu(x) were applied per fragment by every warp that read the value;
-// two k16 products a barrier.
+// and must move about 10 MB (3.0 us at 3.35 TB/s).  W, x and m^T are
+// MN-major in memory, and m = mask ? g : 0 and relu(x) are computed from
+// what is staged: done per fragment (two 16-bit loads a register, the
+// mask and relu by every warp that reads a value), that work outweighs
+// the products.
 //
 // What the design does about that.
-//  * One warpgroup per 64 x 128 output tile runs wgmma.mma_async
-//    m64n128k16 bf16 (wgmma_bf16.cuh).  dx: A = m, K-major ([B rows, H]),
-//    and B = the W_i slice [H, D], MN-major (transpose bit).  dW: A = m^T,
-//    MN-major ([B rows, H] read with the transpose bit), and B = relu(x)
-//    rows [B, D], MN-major.  So every tile is staged as it lies in memory,
-//    rows of 64 bfloat16 values in the 128-byte swizzled layout.
+//  * A 64 x 128 output tile per block of two consumer warpgroups, each
+//    running wgmma.mma_async m64n64k16 bf16 (wgmma_bf16.cuh) on one 64-
+//    column panel.  dx: A = m, K-major ([B rows, H]), and B = the W_i
+//    slice [H, D], MN-major (transpose bit).  dW: A = m^T, MN-major ([B
+//    rows, H] read with the transpose bit), and B = relu(x) rows [B, D],
+//    MN-major.  So every tile is staged as it lies in memory, rows of 64
+//    bfloat16 values in the 128-byte swizzled layout.
 //  * 64-deep K chunks (H for dx, batch rows for dW), four k16 products a
-//    chunk, in a ring of 3 stages, each filled by four TMA boxes, one from
-//    each warp, completing on the stage's mbarrier: the g rows (a 3-d
-//    map over [B, S-1, H]), the mask rows (a 2-d map over [B, n_sub*H]
-//    uint8), and two 64-column panels of the W_i slice (a 2-d map per
-//    scale, in device memory) or of the x rows (a 3-d map over [B, S, D]),
-//    each landing in the 128-byte swizzled layout.  Out of range the boxes
-//    are zero-filled (ragged B, H and D; a mask or W box that runs into
-//    the next subset or position meets zeros of g or of A), and the
-//    stores are masked.  Where H % 16 or D % 8 is not 0 or a pointer is not
-//    16-byte aligned (H = 19, 33, D = 37) the tiles are staged by plain
-//    loads.
+//    chunk, in a ring of 3 stages.  A producer warp beside the consumers
+//    fills a stage with four TMA boxes, up to three chunks ahead, once both
+//    warpgroups have released it (an empty mbarrier), completing on its
+//    full mbarrier: the g rows (a 3-d map over [B, S-1, H]), the mask rows
+//    (a 2-d map over [B, n_sub*H] uint8), and two 64-column panels of the
+//    W_i slice (a 2-d map per scale, written by the host into device
+//    memory before the launch) or of the x rows (a 3-d map over [B, S,
+//    D]).  Out of range the boxes are zero-filled (ragged B, H and D; a
+//    mask or W box that runs into the next subset or position meets zeros
+//    of g or of A), and the stores are masked.  Where H % 16 or D % 8 is
+//    not 0 or a pointer is not 16-byte aligned (H = 19, 33, D = 37) the
+//    consumers stage the tiles by plain loads instead.
 //  * Convert passes, once per staged element, in place: each thread turns
 //    8 staged g values of a row into m = mask ? g : 0 from the uint8 mask
 //    tile, and in the dW blocks 8 staged x values into relu(x); the db
 //    blocks sum their m columns in the same pass, in registers, reduced
 //    across threads in a fixed order at the end.
 //  * 2 blocks an SM (85 KB of shared memory each).
-// dx tiles take H / 64 chunks per triple of their frame (26-32 at S = 5),
-// the dW tiles B / 64 per subset of their scale (4-12).
+// dx tiles take H / 64 chunks per triple of their frame (20-32 at S = 5:
+// the frames with 8 triples are the kernel's longest blocks), the dW
+// tiles B / 64 per subset of their scale (4-12).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -115,19 +118,6 @@ struct Triple {
 };
 static_assert(kTrips % alignof(Triple) == 0, "triples after the bars");
 
-// 16 bytes from src into shared dst, of which the first `valid` values of
-// T exist (none when valid <= 0: src is then not read), by plain loads and
-// shared stores, which the ring's barrier publishes; the rest zero-filled.
-template <class T>
-__device__ __forceinline__ void copy_bytes16(void* dst, const T* src,
-                                             int valid) {
-  const int bytes = valid * static_cast<int>(sizeof(T));
-  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
-  unsigned char* d = static_cast<unsigned char*>(dst);
-#pragma unroll
-  for (int b = 0; b < 16; ++b) d[b] = b < bytes ? s[b] : 0;
-}
-
 // The plain staging of one chunk's tiles (widths the maps do not take):
 // the g rows with their mask rows, and the 64 rows of the B tile.
 // a_row(r) / m_row(r) / b_row(r): the global rows (nullptr past the
@@ -143,18 +133,18 @@ __device__ __forceinline__ void stage_plain(unsigned char* st, int tid,
   for (int i = 0; i < kRowsPer; ++i) {
     const int r = row0 + kRowStep * i;
     const bf16* src = a_row(r);
-    copy_bytes16(st + ta3n::swizzle128(r * 128 + piece * 16),
-                 src != nullptr ? src + 8 * piece : src,
-                 src != nullptr ? h_valid - 8 * piece : 0);
+    ta3n::copy_bytes16(st + ta3n::swizzle128(r * 128 + piece * 16),
+                       src != nullptr ? src + 8 * piece : src,
+                       src != nullptr ? h_valid - 8 * piece : 0);
   }
   const int mpiece = tid % 4, mrow0 = tid / 4;
 #pragma unroll
   for (int i = 0; i < kTileK * 4 / ta3n::kConsumers; ++i) {
     const int r = mrow0 + ta3n::kConsumers / 4 * i;
     const unsigned char* src = m_row(r);
-    copy_bytes16(st + kMaskOffset + r * kMaskPitch + 16 * mpiece,
-                 src != nullptr ? src + 16 * mpiece : src,
-                 src != nullptr ? h_valid - 16 * mpiece : 0);
+    ta3n::copy_bytes16(st + kMaskOffset + r * kMaskPitch + 16 * mpiece,
+                       src != nullptr ? src + 16 * mpiece : src,
+                       src != nullptr ? h_valid - 16 * mpiece : 0);
   }
 #pragma unroll
   for (int i = 0; i < kRowsPer; ++i) {
@@ -163,9 +153,9 @@ __device__ __forceinline__ void stage_plain(unsigned char* st, int tid,
 #pragma unroll
     for (int pn = 0; pn < 2; ++pn) {
       const int col = 64 * pn + 8 * piece;
-      copy_bytes16(st + kBOffset + ta3n::tile_offset(r, col),
-                   src != nullptr ? src + col : src,
-                   src != nullptr ? d_valid - col : 0);
+      ta3n::copy_bytes16(st + kBOffset + ta3n::tile_offset(r, col),
+                         src != nullptr ? src + col : src,
+                         src != nullptr ? d_valid - col : 0);
     }
   }
 }
@@ -596,8 +586,8 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
           &maps.mask, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, masks,
           {static_cast<cuuint64_t>(info.plan.n_sub_total) * h,
            static_cast<cuuint64_t>(batch)},
-          {static_cast<cuuint64_t>(info.plan.n_sub_total) * h}, {kTileK, kTileM},
-          CU_TENSOR_MAP_SWIZZLE_NONE);
+          {static_cast<cuuint64_t>(info.plan.n_sub_total) * h},
+          {kTileK, kTileM}, CU_TENSOR_MAP_SWIZZLE_NONE);
     if (err == 0)
       err = ta3n::encode_map(
           &maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x,

@@ -31,10 +31,19 @@
 // Ordering.  Shared stores of the generic proxy (plain st.shared and
 // cp.async) are made visible to wgmma, which reads through the async
 // proxy, by fence.proxy.async.shared::cta in the writing threads and then
-// a barrier; wgmma.fence orders the accumulator registers and shared
-// memory before the first product of a batch; commit_group closes a batch
-// and wait_group<N> waits until at most N batches are in flight, after
-// which their tiles may be overwritten.
+// a barrier; TMA boxes land in the async proxy and are visible once their
+// mbarrier phase completes.  wgmma.fence orders the accumulator registers
+// and shared memory before the first product of a batch; commit_group
+// closes a batch and wait_group<N> waits until at most N batches of this
+// warpgroup are in flight, after which their tiles may be overwritten
+// (once the other warpgroup's batches are done with them too).
+//
+// Rings.  wgmma_pipeline: every thread stages, converts and multiplies, a
+// chunk ahead (K3).  wgmma_pipeline_ws: a producer warp issues TMA boxes up
+// to three chunks ahead, the consumer warpgroups convert and multiply
+// (K2's tiles are all TMA boxes; K3's gathered rows are not, and their
+// cp.async copies are quicker spread over every thread than from one
+// warp).
 
 #pragma once
 
@@ -107,11 +116,9 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// mbarriers and the bulk copies that complete on them.  A stage's
-// barrier is armed by one thread with the bytes its copies bring
-// (arrive.expect_tx) and completes once they have all landed; the copies
-// of other threads may land before it is armed (the transaction count
-// goes below zero meanwhile, and the arrival keeps the phase open).
+// mbarriers and the TMA copies that complete on them: a stage's barrier
+// is armed by the thread that issues its boxes, with the bytes they bring
+// (arrive.expect_tx), and its phase completes once they have all landed.
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_addr(bar)),
@@ -133,13 +140,6 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                    smem_addr(bar))
                : "memory");
 }
-// an arrival on bar once this thread's cp.async copies so far have landed
-// (counted in the barrier's expected arrivals)
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
 // wait until the phase of the given parity has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   asm volatile(
@@ -148,16 +148,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
       "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
-      : "memory");
-}
-// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
-// aligned, completing on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 // The box at coordinates (c0 innermost, c1) of the 2-d tensor map `map`
@@ -229,6 +219,20 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? static_cast<int>(cudaSuccess)
              : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// 16 bytes from src into shared dst, of which the first `valid` elements
+// of T exist (none when valid <= 0: src is then not read), by plain byte
+// loads and shared stores, which a ring's barrier publishes; the rest
+// zero-filled.  For widths whose rows are not 16-byte aligned.
+template <class T>
+__device__ __forceinline__ void copy_bytes16(void* dst, const T* src,
+                                             int valid) {
+  const int bytes = valid * static_cast<int>(sizeof(T));
+  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
+  unsigned char* d = static_cast<unsigned char*>(dst);
+#pragma unroll
+  for (int b = 0; b < 16; ++b) d[b] = b < bytes ? s[b] : 0;
 }
 
 // Keeps the compiler from moving accesses of the accumulators across the

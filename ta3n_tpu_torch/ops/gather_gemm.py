@@ -81,17 +81,18 @@ _COMPUTE_KINDS = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1)}
 variant_launches = {f"{s}_{c}": 0 for s, _ in _STORE_KINDS.values()
                     for c, _ in _COMPUTE_KINDS.values()}
 
-# the kernel's tiles (csrc/gather_gemm.cu): output rows and columns per
-# block, K per chunk; and how many K slices share an output tile: as many
-# as _TARGET_BLOCKS blocks hold, two per SM of the H100's 132 (240 blocks
-# in three K slices at the train shape, 640 x 512; 240 in six at the eval
-# shape, 320 x 512: the fastest of 1-8 slices measured at both)
+# the float32-compute kernel's tiles (csrc/gather_gemm.cu): output rows
+# and columns per block, K per chunk; and how many K slices share an
+# output tile: as many as _TARGET_BLOCKS blocks hold, two per SM of the
+# H100's 132 (240 blocks in three K slices at the train shape, 640 x 512;
+# 240 in six at the eval shape, 320 x 512: the fastest of 1-8 slices
+# measured at both)
 _TILE_M, _TILE_H, _TILE_K = 64, 64, 32
 _MAX_SPLITS, _TARGET_BLOCKS = 8, 264
 # the bfloat16-compute kernel's tiles (csrc/gather_gemm_bf16.cu): 64 rows
-# x 128 columns per warpgroup block, 64-deep K chunks; and the blocks an
-# SM holds by store dtype (its ring of raw rows: 117.5 KB of shared memory
-# for a float32 store, 93.5 KB for bfloat16, 81.5 KB for int8)
+# x 128 columns per block of two warpgroups, 64-deep K chunks; and the
+# blocks an SM holds by store dtype (by its shared memory: 117.5 KB with a
+# float32 store's raw rows, 93.5 KB with bfloat16, 81.5 KB with int8)
 _BF16_TILE_M, _BF16_TILE_N, _BF16_TILE_K = 64, 128, 64
 _SMS = 132
 _BF16_BLOCKS_PER_SM = {torch.float32: 1, torch.bfloat16: 2, torch.int8: 2}

@@ -38,7 +38,9 @@ bfloat16 variants apart:
     ``bf16_train_launches``): the training forward, the same source with
     the mask write, the port of ``_fwd_kernel`` with ``with_masks=True``.
   * ``trn_multiscale_bwd`` (``bwd_launches``, ``bf16_bwd_launches``): the
-    backward, ``csrc/trn_fused_bwd.cu``, the port of ``_bwd_kernel``.
+    backward, ``csrc/trn_fused_bwd.cu`` (float32) and
+    ``csrc/trn_fused_bwd_bf16.cu`` (bfloat16, on ``wgmma``), the port of
+    ``_bwd_kernel``.
 
 ``trn_multiscale_fused`` joins the last two in one
 ``torch.autograd.Function``, as ``trn_multiscale_fused``'s custom VJP
@@ -79,7 +81,7 @@ train_launches = 0    # training forward, csrc/trn_fused_fwd.cu
 bwd_launches = 0      # backward, csrc/trn_fused_bwd.cu
 bf16_launches = 0        # the same three, bfloat16 variants
 bf16_train_launches = 0
-bf16_bwd_launches = 0
+bf16_bwd_launches = 0    # csrc/trn_fused_bwd_bf16.cu
 
 # the kernels' element types, and the suffix of their C entries
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}

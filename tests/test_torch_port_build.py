@@ -1,10 +1,12 @@
 """The port's kernel build on the CPU: what names the built library, the C
-entry points against their ctypes bindings, and K3's choice of K slices.
-Nothing here compiles: nvcc runs only where there is a card."""
+entry points against their ctypes bindings, and K3's choice of K slices
+and, at bfloat16 compute, of its grid.  Nothing here compiles: nvcc runs
+only where there is a card."""
 
 import re
 
 import pytest
+import torch
 
 from ta3n_tpu_torch.ops import _build, gather_gemm
 
@@ -81,3 +83,41 @@ def test_gather_splits_fill_at_most_the_target(m, h, chunks):
     assert splits == 1 or tiles * splits <= gather_gemm._TARGET_BLOCKS
     if (m, h) == (640, 512):
         assert (splits, tiles * splits) == (3, 240)
+
+
+@pytest.mark.parametrize("n,streams,k,d,h,store", [
+    (640, 1, 1, 2048, 512, "bf16"), (370, 1, 1, 2048, 512, "int8"),
+    (320, 1, 1, 2048, 512, "f32"), (1, 1, 1, 2048, 512, "int8"),
+    (63, 1, 1, 512, 128, "bf16"), (65, 1, 1, 512, 500, "f32"),
+    (1010, 1, 1, 512, 500, "int8"), (30, 2, 2, 256, 96, "bf16"),
+    (21, 2, 1, 256, 96, "int8"), (45, 1, 1, 37, 19, "f32"),
+    (20, 2, 2, 22, 33, "bf16"), (70, 1, 3, 100, 1024, "int8"),
+    (20000, 1, 1, 2048, 512, "bf16"), (640, 5, 5, 2048, 64, "f32")])
+def test_bf16_grid_covers_every_tile_and_chunk_once(n, streams, k, d, h,
+                                                    store):
+    """K3 at bfloat16 compute: the grid's row and column tiles cover M and
+    H exactly (64 x 128 tiles), within CUDA's grid limits; the K slices
+    number 1 to min(8, chunks), each non-empty, and the kernel's slice
+    bounds (chunks * z / splits) give every 64-deep chunk to one slice;
+    K is split only while the grid stays within the blocks the card
+    holds."""
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}[store]
+    m = n * streams // k
+    tiles_m, tiles_h, splits = gather_gemm.bf16_grid(m, h, d, k, dtype)
+    tm, tn = gather_gemm._BF16_TILE_M, gather_gemm._BF16_TILE_N
+    assert (tiles_m - 1) * tm < m <= tiles_m * tm
+    assert (tiles_h - 1) * tn < h <= tiles_h * tn
+    assert tiles_m <= 2 ** 31 - 1 and tiles_h <= 65535
+    chunks = k * -(-d // gather_gemm._BF16_TILE_K)
+    assert 1 <= splits <= min(gather_gemm._MAX_SPLITS, chunks)
+    owner = []
+    for z in range(splits):
+        begin, end = chunks * z // splits, chunks * (z + 1) // splits
+        assert end > begin
+        owner.extend([z] * (end - begin))
+    assert owner == sorted(owner) and len(owner) == chunks
+    held = gather_gemm._SMS * gather_gemm._BF16_BLOCKS_PER_SM[dtype]
+    assert splits == 1 or tiles_m * tiles_h * splits <= held
+    if (m, h, store) == (640, 512, "bf16"):
+        assert (tiles_m, tiles_h, splits) == (10, 4, 6)

@@ -7,9 +7,10 @@ steps of the comparison rows (AdaBN, MCD, DAN, JAN, CORAL, RNN, temconv,
 the frame and tsn baselines), against the CPU; and the TCL and the RNN
 in float32 on cuDNN with its TF32 flag at the default.  The bfloat16
 variants of the TRN kernels and the six store x compute variants of the
-gather kernel against their plain versions in the same dtype, the
-refusals of what they do not take, and a bfloat16 train step with
-cuBLAS's bfloat16 reductions in float32.
+gather kernel against their plain versions in the same dtype (the
+backward and the gather at bfloat16 compute, on wgmma, also bit for bit
+on exact inputs), the refusals of what they do not take, and a bfloat16
+train step with cuBLAS's bfloat16 reductions in float32.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs where jax is not installed:
@@ -1098,24 +1099,39 @@ def test_bf16_fwd_kernels_match_plain(b, s, d, h):
     assert (z[differ].abs() <= 1e-5 * z.abs().max()).all()
 
 
-@pytest.mark.parametrize("b,s,d,h", BF16_CASES)
+@pytest.mark.parametrize("b,s,d,h", BF16_CASES + [(202, 25, 512, 256)])
 def test_bf16_bwd_kernel_matches_plain(b, s, d, h):
     """K2 in bfloat16 from the plain version's masks: dx, every dW and db
-    in bfloat16 within _bf16_ok of the plain version; one launch of the
-    bfloat16 variant."""
+    in bfloat16 within _bf16_ok of the plain version, a second call
+    bitwise equal; on bfloat16 inputs on dyadic grids (every product and
+    float32 sum exact) bitwise equal to the plain version; one launch of
+    the bfloat16 variant a call."""
     x, w, bi = _bf16_trn_inputs(b, s, d, h)
     g = torch.from_numpy(np.random.default_rng(3).normal(
         size=(b, s - 1, h)).astype(np.float32)).cuda().to(torch.bfloat16)
     _, masks = trn_fused.trn_multiscale_fwd_masks_plain(x, w, bi, s)
+    bf = torch.bfloat16
+    gx, gw, gb, gg = _grid_inputs(b, s, d, h, seed=1)
+    gx, gw, gb, gg = (gx.to(bf), [t.to(bf) for t in gw],
+                      [t.to(bf) for t in gb], gg.to(bf))
+    _, grid_masks = trn_fused.trn_multiscale_fwd_masks_plain(gx, gw, gb, s)
     trn_fused.bf16_bwd_launches = 0
-    dx, dws, dbs = trn_fused.trn_multiscale_bwd(x, w, masks, g, s)
+    got = trn_fused.trn_multiscale_bwd(x, w, masks, g, s)
+    again = trn_fused.trn_multiscale_bwd(x, w, masks, g, s)
+    grid_got = trn_fused.trn_multiscale_bwd(gx, gw, grid_masks, gg, s)
     want = trn_fused.trn_multiscale_bwd_plain(x, w, masks, g, s)
+    grid_want = trn_fused.trn_multiscale_bwd_plain(gx, gw, grid_masks, gg,
+                                                   s)
     torch.cuda.synchronize()
-    assert trn_fused.bf16_bwd_launches == 1
+    assert trn_fused.bf16_bwd_launches == 3
+    flat = lambda r: (r[0], *r[1], *r[2])
+    dx, dws = got[0], got[1]
     assert dx.dtype == torch.bfloat16 and dws[0].dtype == torch.bfloat16
-    assert _bf16_ok(dx, want[0])
-    for a, c in zip((*dws, *dbs), (*want[1], *want[2])):
+    for a, c, a2 in zip(flat(got), flat(want), flat(again)):
         assert a.shape == c.shape and _bf16_ok(a, c)
+        assert torch.equal(a, a2)
+    for a, c in zip(flat(grid_got), flat(grid_want)):
+        assert torch.equal(a, c)
 
 
 def _narrow_store(store, kind):
@@ -1130,38 +1146,62 @@ def _narrow_store(store, kind):
     return torch.from_numpy(q).cuda(), torch.from_numpy(sc).cuda()
 
 
-@pytest.mark.parametrize("n,with_rows", [(640, True), (320, False),
-                                         (37, True), (0, True)])
+@pytest.mark.parametrize("n,with_rows,h", [
+    pytest.param(n, with_rows, h, id=f"{n}-{with_rows}" + (
+        f"-h{h}" if h != 128 else ""))
+    for n, with_rows, h in [
+        (640, True, 128), (320, False, 128), (37, True, 128), (0, True, 128),
+        (1, True, 128), (63, True, 128), (64, True, 128), (65, True, 128),
+        (370, True, 128), (1010, True, 128), (640, True, 500)]])
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-def test_gather_gemm_variants_match_plain(kind, compute, n, with_rows):
+def test_gather_gemm_variants_match_plain(kind, compute, n, with_rows, h):
     """Every store x compute variant of K3 against the plain version on the
     same store: z within the float32 check's tolerance at float32 compute
     and _bf16_ok at bfloat16 compute, x_res bitwise equal (an int8 store's
-    rows dequantized as float(q) * scale, then * row_scale); one launch of
-    the variant per call, none at N = 0."""
-    store, idx, scale, w = _gather_inputs(n, d=512, h=128)
+    rows dequantized as float(q) * scale, then * row_scale), a second call
+    bitwise equal; at bfloat16 compute from a float32 or bfloat16 store on
+    dyadic grids, with a weight on one (every product and float32 sum
+    exact), z bitwise equal to plain; one launch of the variant per call,
+    none at N = 0.  Row counts around
+    the 64-row tile and the train and eval shapes, and H = 500 (not a
+    multiple of the 128-column tile of the bfloat16 kernel)."""
+    store, idx, scale, w = _gather_inputs(n, d=512, h=h)
     store = _narrow_store(store, kind)
+    gstore, gidx, gscale, gw = _gather_inputs(n, d=512, h=h, seed=1,
+                                              grid=True)
+    gstore = _narrow_store(gstore, kind)
     if compute == "bf16":
-        w = w.to(torch.bfloat16)
+        w, gw = w.to(torch.bfloat16), gw.to(torch.bfloat16)
     rows = gather_gemm.row_index(idx, 500, "cuda")
+    grows = gather_gemm.row_index(gidx, 500, "cuda")
     name = f"{kind}_{compute}"
     gather_gemm.variant_launches[name] = 0
     z, x_res = gather_gemm.gathered_gemm(store, rows, w, scale,
                                          with_rows=with_rows)
+    again, x_again = gather_gemm.gathered_gemm(store, rows, w, scale,
+                                               with_rows=with_rows)
+    grid_z, _ = gather_gemm.gathered_gemm(gstore, grows, gw, gscale,
+                                          with_rows=with_rows)
     want, want_x = gather_gemm.gathered_gemm_plain(store, rows.rows, w,
                                                    scale)
+    grid_want, _ = gather_gemm.gathered_gemm_plain(gstore, grows.rows, gw,
+                                                   gscale)
     torch.cuda.synchronize()
-    assert gather_gemm.variant_launches[name] == (1 if n else 0)
-    assert z.dtype == w.dtype and z.shape == (n, 128)
+    assert gather_gemm.variant_launches[name] == (3 if n else 0)
+    assert z.dtype == w.dtype and z.shape == (n, h)
+    assert torch.equal(z, again)
     if compute == "f32":
         assert (z - want).abs().max().item() <= _tol(want) if n else True
     else:
         assert _bf16_ok(z, want)
+        # an int8 store's dequantized rows are off the grid
+        assert kind == "int8" or torch.equal(grid_z, grid_want)
     if with_rows:
         assert x_res.dtype == w.dtype and torch.equal(x_res, want_x)
+        assert torch.equal(x_res, x_again)
     else:
-        assert x_res is None
+        assert x_res is None and x_again is None
 
 
 def test_bf16_kernels_refuse_other_layouts():
@@ -1170,6 +1210,8 @@ def test_bf16_kernels_refuse_other_layouts():
     scales; nothing is launched."""
     x, w, bi = _bf16_trn_inputs(4, 5, 32, 16)
     trn_fused.bf16_launches = 0
+    for name in ("int8_bf16", "bf16_bf16"):
+        gather_gemm.variant_launches[name] = 0
     with torch.inference_mode():
         with pytest.raises(ValueError, match="contiguous"):
             trn_fused.trn_multiscale_infer(
