@@ -17,8 +17,8 @@ Probes (all but k1-earlier and k3-bf16-earlier by default):
                   with the split done by integer rounding (tf32x3.cuh) or by
                   cvt.rna.tf32.f32
   k3-splits       K3 device time at the train (640 rows, x_res) and eval
-                  (320 rows) shapes for 1..8 K slices, beside index_select + mm;
-                  at bfloat16 compute from bfloat16 and int8 stores also at
+                  (320 rows) shapes for 1..8 K slices, beside index_select
+                  + mm; at bfloat16 compute from bfloat16 and int8 stores also at
                   the target batch's 370 rows, and K3's kernels and the
                   library pair's by the profiler at the chosen slices
   split-variants  the 3xTF32 split with a_lo left raw, rounded by integer
@@ -349,7 +349,8 @@ def probe_k3_splits() -> None:
                     lambda m, h, d, k, dt, s=splits: (0, 0, s))
                 for _ in range(3):
                     fn()
-                line.append(f"{splits}: {statistics.median(dev_ms(fn) for _ in range(21)):.4f}")
+                ms = statistics.median(dev_ms(fn) for _ in range(21))
+                line.append(f"{splits}: {ms:.4f}")
             gather_gemm.bf16_grid = chosen
             pick = chosen(n, w.shape[0], w.shape[1], 1, st[0].dtype
                           if isinstance(st, tuple) else st.dtype)[2]
