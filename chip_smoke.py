@@ -5,8 +5,9 @@
 Builds the port's CUDA kernels from ta3n_tpu_torch/csrc (one nvcc per
 source, in parallel), checks in their SASS that the tensor-core kernels
 (K1, K2, K3) hold mma (HMMA) and cp.async (LDGSTS) instructions and their
-bfloat16 variants on wgmma (K2 in bfloat16, K3 at bfloat16 compute) HGMMA
-and no HMMA, holds each kernel against its plain PyTorch version at the
+bfloat16 variants on wgmma (K1 and K2 in bfloat16, K3 at bfloat16 compute)
+HGMMA and no HMMA, and that no bfloat16 instance of K1's float32 kernel
+is left, holds each kernel against its plain PyTorch version at the
 flagship shapes and times both (K1 (infer) at batch 1 and the serve and
 train batches, K2 also by its dx and dW families, K3 at the train and
 eval shapes, each against the bound of the arithmetic it runs), then
@@ -59,9 +60,10 @@ The bfloat16 compute path and the narrow stores (bf16 and int8): the
 bfloat16 variants of K1 (infer) at B = 1, 64, 202, and of K1 (train) and
 K2 at B = 202, at S = 5 and 17, and K3's five store x compute variants
 beyond float32 x float32 at 640, 320, 37 and 0 rows, each against its
-plain version in the same dtype and timed with it (K2 in bfloat16 also
-at S = 17 and 25; at bfloat16 compute K3 also at 370 rows and against
-index_select + mm in bfloat16); the bfloat16 flagship
+plain version in the same dtype and timed with it (K1 in bfloat16 also
+at S = 17, K2 in bfloat16 at S = 17 and 25; at bfloat16 compute K3 also
+at 370 rows and against index_select + mm in bfloat16); the bfloat16
+flagship
 served by Predictors at batch 64 and 1 against their plain path; 5
 bfloat16 device-store steps from an int8 and from a bfloat16 store
 against the plain path from the same start (2 K3, 1 K1 (train), 1 K2 of
@@ -252,8 +254,11 @@ TENSOR_CORE_KERNELS = ("trn_fused_fwd_kernel", "gather_gemm_kernel",
                        "trn_fused_bwd_kernel")
 # the bfloat16 kernels on wgmma: HGMMA in their SASS and no HMMA; and the
 # sources of the variants they run
-WGMMA_KERNELS = ("gather_gemm_bf16_kernel", "trn_fused_bwd_bf16_kernel")
+WGMMA_KERNELS = ("gather_gemm_bf16_kernel", "trn_fused_bwd_bf16_kernel",
+                 "trn_fused_fwd_bf16_kernel")
 WGMMA_SOURCES = {
+    "trn_fused_fwd_bf16": "ta3n_tpu_torch/csrc/trn_fused_fwd_bf16.cu",
+    "trn_fused_fwd_train_bf16": "ta3n_tpu_torch/csrc/trn_fused_fwd_bf16.cu",
     "trn_fused_bwd_bf16": "ta3n_tpu_torch/csrc/trn_fused_bwd_bf16.cu",
     **{f"gather_gemm_{s}_bf16": "ta3n_tpu_torch/csrc/gather_gemm_bf16.cu"
        for s in ("f32", "bf16", "int8")}}
@@ -316,7 +321,9 @@ def check_sass() -> None:
     """Count the tensor-core (HMMA, and wgmma's HGMMA) and asynchronous-copy
     (LDGSTS) instructions of each kernel in the built library's SASS; fail
     unless every kernel of TENSOR_CORE_KERNELS has HMMA and LDGSTS, and
-    every kernel of WGMMA_KERNELS HGMMA and no HMMA."""
+    every kernel of WGMMA_KERNELS HGMMA and no HMMA, and that K1's float32
+    kernel has no bfloat16 instance left (trn_fused_fwd_bf16.cu took
+    them)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
                           check=True, capture_output=True,
@@ -350,6 +357,9 @@ def check_sass() -> None:
                  if f"{len(kernel)}{kernel}" in n]
         if not found or not all(hg and not h for h, _, hg in found):
             raise AssertionError(f"{kernel}: no HGMMA, or HMMA, in its SASS")
+    k1 = "trn_fused_fwd_kernel"
+    if any(f"{len(k1)}{k1}" in n and "nv_bfloat16" in n for n in counts):
+        raise AssertionError(f"{k1}: a bfloat16 instance is left")
 
 
 def trn_inputs(b, s, d, h, gen, signed=False):
@@ -2272,13 +2282,14 @@ def store_rows(store):
 def time_bf16_kernels(gen, stores):
     """Device times of every bfloat16 and narrow-store variant and of its
     plain version, medians of 41 in turns, at the shapes of their paths:
-    K1 (infer) at B = 1, 64, 202, K1 (train) at the train batch, K2 at the
-    train batch and S = 5, 17, 25, K3 at the train shape (640 rows with
-    x_res) and the eval shape (320 rows without), at bfloat16 compute also
-    at the target batch's 370 rows with x_res and against index_select +
-    mm in bfloat16.  Returns {name: (ms, plain_ms, library_ms, work)}, the
-    K1 (infer) times by batch, K3's at the eval shape and the others by
-    their shape's key (K3 "n370", K2 "s17", "s25")."""
+    K1 (infer) at B = 1, 64, 202 and S = 5, 17, K1 (train) at the train
+    batch and S = 5, 17, K2 at the train batch and S = 5, 17, 25, K3 at the
+    train shape (640 rows with x_res) and the eval shape (320 rows
+    without), at bfloat16 compute also at the target batch's 370 rows with
+    x_res and against index_select + mm in bfloat16.  Returns {name: (ms,
+    plain_ms, library_ms, work)}, the K1 (infer) times by batch at S=5,
+    K3's at the eval shape and the others by their shape's key (K3 "n370",
+    K1 and K2 "s17", K1 (infer) "s17_b1", "s17_b202", K2 "s25")."""
     out, k1 = {}, {}
     with torch.inference_mode():
         for b in TIMED_BATCHES:
@@ -2313,7 +2324,37 @@ def time_bf16_kernels(gen, stores):
     for name in ("trn_fused_fwd_train_bf16", "trn_fused_bwd_bf16"):
         log(f"  B={b} {name}: kernel {out[name][0]:.4f} ms, plain "
             f"{out[name][1]:.4f} ms device (medians of 41, in turns)")
-    more = {"trn_fused_bwd_bf16": {}}
+    more = {"trn_fused_bwd_bf16": {}, "trn_fused_fwd_bf16": {},
+            "trn_fused_fwd_train_bf16": {}}
+    # K1 in bfloat16 at S=17: infer at B = 1, 64 ("s17"), 202, train at b
+    s = MANY_FRAMES[0]
+    for bb in TIMED_BATCHES:
+        x, w, bi = bf16_trn_inputs(bb, s, gen, signed=False)
+        with torch.inference_mode():
+            tt = time_pair({
+                "kernel": lambda: trn_fused.trn_multiscale_infer(x, w, bi,
+                                                                 s),
+                "plain": lambda: trn_fused.trn_multiscale_plain(x, w, bi,
+                                                                s)})
+        key = f"s{s}" if bb == SERVE_BATCH else f"s{s}_b{bb}"
+        more["trn_fused_fwd_bf16"][key] = (
+            tt["kernel"], tt["plain"], None,
+            trn_work(bb, s=s, esize=2)["trn_fused_fwd"])
+        log(f"  B={bb} S={s} trn_fused_fwd_bf16: kernel "
+            f"{tt['kernel']:.4f} ms, plain {tt['plain']:.4f} ms device "
+            "(medians of 41, in turns)")
+    x, w, bi = bf16_trn_inputs(b, s, gen)
+    with torch.no_grad():
+        tt = time_pair({
+            "kernel": lambda: trn_fused.trn_multiscale_fwd_masks(x, w, bi,
+                                                                 s),
+            "plain": lambda: trn_fused.trn_multiscale_fwd_masks_plain(
+                x, w, bi, s)})
+    more["trn_fused_fwd_train_bf16"][f"s{s}"] = (
+        tt["kernel"], tt["plain"], None,
+        trn_work(b, s=s, esize=2)["trn_fused_fwd_train"])
+    log(f"  B={b} S={s} trn_fused_fwd_train_bf16: kernel {tt['kernel']:.4f} "
+        f"ms, plain {tt['plain']:.4f} ms device (medians of 41, in turns)")
     for s in MANY_FRAMES:
         x, w, bi = bf16_trn_inputs(b, s, gen)
         g = torch.randn((b, s - 1, 256), generator=gen).cuda().to(

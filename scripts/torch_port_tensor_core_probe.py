@@ -9,9 +9,10 @@ and behind the tf32x3.cuh and wgmma_bf16.cuh helpers they share.
     PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
         k1-earlier --earlier-k1 PATH
     PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
-        k3-bf16-earlier --earlier-csrc DIR
+        k3-bf16-earlier k1-bf16-earlier --earlier-csrc DIR
 
-Probes (all but k1-earlier and k3-bf16-earlier by default):
+Probes (all but k1-earlier, k3-bf16-earlier and k1-bf16-earlier by
+default):
   mma-rate        mma.sync m16n8k8 TF32 throughput: bare, and as one 3xTF32
                   step of the kernels (24 mma.sync over 16 fresh f32 values)
                   with the split done by integer rounding (tf32x3.cuh) or by
@@ -39,7 +40,13 @@ Probes (all but k1-earlier and k3-bf16-earlier by default):
                   issuing the products, waiting for the previous batch
                   and staging the next chunk) and of K2 in bfloat16 (its
                   boxes landing, converting, issuing the products, and
-                  waiting for the previous batch)
+                  waiting for the previous batch), and of K1 in bfloat16
+                  (the same phases as K2's)
+  k1-bf16-profile K1's bfloat16 variants at S = 5 and 17: device time,
+                  and its GEMM and epilogue kernels by the profiler
+  k1-bf16-splits  the same at 1..8 D slices
+  k1-bf16-variants K1 in bfloat16 with its source varied (K1_BF16_VARIANTS),
+                  each checked against the plain version and timed in turns
   k3-bf16-earlier only when named, with --earlier-csrc DIR: K3 at
                   bfloat16 compute built from DIR, an earlier csrc/ (its
                   ta3n_gather_gemm with the same arguments; e.g. `git
@@ -47,6 +54,12 @@ Probes (all but k1-earlier and k3-bf16-earlier by default):
                   build/earlier`, the first wgmma design, whose W tiles
                   came by cp.async), against the current one, both checked
                   against the plain version and timed in turns
+  k1-bf16-earlier only when named, with --earlier-csrc DIR: K1 in
+                  bfloat16 built from DIR, an earlier csrc/ whose bfloat16
+                  K1 is the mma.sync design (e.g. `git archive feeb357
+                  ta3n_tpu_torch/csrc | tar -x -C build/earlier`), against
+                  the current one, both checked against the plain version
+                  and timed in turns
   k1-earlier      only when named, with --earlier-k1 PATH: K1 against
                   the f32-FMA design it replaced, built from PATH, that
                   design's trn_fused_fwd.cu (its C entries take no scratch
@@ -515,7 +528,6 @@ WGMMA_WS_LOOP = """    const int s = c % kStages;
     fence_operands(acc);
     if (c > 0 && tid % 128 == 0) mbar_arrive(&empty[(c - 1) % kStages]);"""
 
-
 def wgmma_stamped(loop: str, marks) -> str:
     """``loop`` with clock64 read after each line that starts with one of
     ``marks`` (in order), the differences added to wphases[0..] by thread
@@ -556,7 +568,8 @@ extern "C" void probe_wphases_STEM(unsigned long long* out, int reset) {
             "issue("))),
         (WGMMA_WS_LOOP, wgmma_stamped(WGMMA_WS_LOOP, (
             "mbar_wait(", "convert(", "mma(", "fence_operands(acc);")))]}
-    for name in ("gather_gemm_bf16.cu", "trn_fused_bwd_bf16.cu"):
+    for name in ("gather_gemm_bf16.cu", "trn_fused_bwd_bf16.cu",
+                 "trn_fused_fwd_bf16.cu"):
         stem = name.removesuffix(".cu")
         edits[name] = [('#include "wgmma_bf16.cuh"\n',
                         '#include "wgmma_bf16.cuh"\n' +
@@ -599,11 +612,18 @@ extern "C" void probe_wphases_STEM(unsigned long long* out, int reset) {
                 lambda: trn_fused.trn_multiscale_bwd(x, wt, masks, g, 5),
                 "trn_fused_bwd_bf16",
                 ("land", "convert", "products", "previous batch"))
+        for label, fn in (
+                ("K1 (train) bf16 B=202 S=5",
+                 lambda: trn_fused.trn_multiscale_fwd_masks(x, wt, bi, 5)),
+                ("K1 (infer) bf16 B=202 S=5",
+                 lambda: trn_fused.trn_multiscale_infer(x, wt, bi, 5))):
+            measure(label, fn, "trn_fused_fwd_bf16",
+                    ("land", "convert", "products", "previous batch"))
 
 
-def probe_k3_bf16_earlier(csrc: Path) -> None:
-    log(f"k3-bf16-earlier (K3 at bfloat16 compute from {csrc}; device "
-        "time, medians of 41 in turns)")
+def earlier_library(csrc: Path) -> ctypes.CDLL:
+    """Every .cu of ``csrc`` (an earlier csrc/) built as _build does into
+    one library, unbound."""
     out_dir = PROBE_DIR / "earlier_csrc"
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.copytree(csrc, out_dir)
@@ -614,7 +634,13 @@ def probe_k3_bf16_earlier(csrc: Path) -> None:
     lib_path = out_dir / "lib.so"
     _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
                       str(lib_path), *objs]])
-    earlier = ctypes.CDLL(str(lib_path))
+    return ctypes.CDLL(str(lib_path))
+
+
+def probe_k3_bf16_earlier(csrc: Path) -> None:
+    log(f"k3-bf16-earlier (K3 at bfloat16 compute from {csrc}; device "
+        "time, medians of 41 in turns)")
+    earlier = earlier_library(csrc)
     earlier.ta3n_gather_gemm.argtypes = _build._ENTRIES["ta3n_gather_gemm"]
     earlier.ta3n_gather_gemm.restype = ctypes.c_int
     current = _build.load_library()
@@ -747,6 +773,231 @@ def probe_k1_variants() -> None:
     trn_fused._fwd_splits, _build.load_library = chosen, tree
 
 
+def k1_timeline(prof) -> str:
+    """From a profile of K1 calls, the means over the calls of the GEMM's
+    span and of the epilogue's tail past the GEMM's end (its blocks start
+    early and wait for the GEMM: a programmatic dependent launch), in ms."""
+    kernels = sorted((e for e in prof.events() if "trn_fused_fwd" in e.name
+                      and e.time_range.end > e.time_range.start),
+                     key=lambda e: e.time_range.start)
+    gemms = [e for e in kernels if "epilogue" not in e.name]
+    epis = [e for e in kernels if "epilogue" in e.name]
+    if not gemms or len(gemms) != len(epis):
+        return "timeline not read"
+    span = statistics.mean(g.time_range.end - g.time_range.start
+                           for g in gemms) / 1e3
+    tail = statistics.mean(e.time_range.end - g.time_range.end
+                           for g, e in zip(gemms, epis)) / 1e3
+    return f"GEMM span {span:.4f}, epilogue tail past it {tail:.4f}"
+
+
+def k1_bf16_profile(label, fn, runs=20):
+    """Means over ``runs`` calls of K1's GEMM and epilogue kernels by the
+    profiler (ms a call): (GEMM, epilogue, the timeline of k1_timeline)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that saw no kernel is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if "trn_fused_fwd" in e.key]
+        if events:
+            break
+    else:
+        log(f"  {label}: the profiler saw no K1 kernel")
+        return float("nan"), float("nan"), "not measured"
+    gemm = sum(e.self_device_time_total for e in events
+               if "epilogue" not in e.key) / 1e3 / runs
+    epi = sum(e.self_device_time_total for e in events
+              if "epilogue" in e.key) / 1e3 / runs
+    return gemm, epi, k1_timeline(prof)
+
+
+def probe_k1_bf16_profile() -> None:
+    """K1's bfloat16 variants at S = 5 (infer at B = 1, 64, 202, train at
+    B = 202) and S = 17 (infer at B = 64, train at 202): device time
+    (median of 41) and its GEMM and epilogue kernels by the profiler."""
+    log("k1-bf16-profile (device ms, median of 41; GEMM and epilogue by "
+        "the profiler, means of 20)")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for s, label, b in ((5, "infer", 1), (5, "infer", 64),
+                            (5, "infer", 202), (5, "train", 202),
+                            (17, "infer", 64), (17, "train", 202)):
+            x, w, bi = chip_smoke.bf16_trn_inputs(b, s, gen)
+            if label == "infer":
+                fn = lambda: trn_fused.trn_multiscale_infer(x, w, bi, s)
+            else:
+                fn = lambda: trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+            ms = chip_smoke.time_pair({"kernel": fn})["kernel"]
+            gemm, epi, timeline = k1_bf16_profile(label, fn)
+            log(f"  K1 ({label}) bf16 S={s} B={b}: {ms:.4f} ms (GEMM "
+                f"{gemm:.4f}, epilogue {epi:.4f}; {timeline})")
+
+
+def k1_bf16_cases():
+    """K1's bfloat16 cases: (variant, S, B)."""
+    return (("infer", 5, 1), ("infer", 5, 64), ("infer", 5, 202),
+            ("train", 5, 202), ("infer", 17, 64), ("train", 17, 202))
+
+
+def k1_bf16_fn(variant, x, w, bi, s):
+    if variant == "infer":
+        return lambda: trn_fused.trn_multiscale_infer(x, w, bi, s)
+    return lambda: trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+
+
+def probe_k1_bf16_splits() -> None:
+    """K1 in bfloat16 at 1..8 D slices (bf16_fwd_grid's row and H tiles):
+    device time (median of 21) and its GEMM and epilogue by the profiler."""
+    log("k1-bf16-splits (device ms, median of 21; GEMM + epilogue by the "
+        "profiler)")
+    chosen = trn_fused.bf16_fwd_grid
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for variant, s, b in k1_bf16_cases():
+            x, w, bi = chip_smoke.bf16_trn_inputs(b, s, gen)
+            fn = k1_bf16_fn(variant, x, w, bi, s)
+            line = []
+            for splits in range(1, trn_fused._FWD_MAX_SPLITS + 1):
+                trn_fused.bf16_fwd_grid = \
+                    lambda *a, n=splits: chosen(*a)[:2] + (n,)
+                ms = statistics.median(dev_ms(fn) for _ in range(21))
+                gemm, epi, _ = k1_bf16_profile(variant, fn)
+                line.append(f"{splits}: {ms:.4f} ({gemm:.4f} + {epi:.4f})")
+            trn_fused.bf16_fwd_grid = chosen
+            log(f"  K1 ({variant}) bf16 S={s} B={b}: {'; '.join(line)}; "
+                f"the wrapper picks {chosen(s, 3, b, 512, 256)[2]}")
+
+
+
+# K1 in bfloat16 (csrc/trn_fused_fwd_bf16.cu) variants: edits of the
+# source: the GEMM's trigger of its epilogue's launch at the start of each
+# block in place of after its products, the epilogue launched without the
+# programmatic dependence (once the GEMM has ended), and the tensor maps
+# brought to the TMA unit's cache at the block's start
+K1_BF16_VARIANTS = {
+    "trigger after the products (the tree)": [],
+    "trigger at the block's start": [
+        ("""  // the epilogue may be launched now; it waits for this grid's stores
+  asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");
+""", ""),
+        ("""  const int tid = threadIdx.x;
+  long long rest = blockIdx.x;""",
+         """  const int tid = threadIdx.x;
+  asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");
+  long long rest = blockIdx.x;""")],
+    "the epilogue launched after the GEMM": [
+        ("  config.numAttrs = 1;\n", "  config.numAttrs = 0;\n")],
+    "tensor maps prefetched": [
+        ("""  const int tid = threadIdx.x;
+  long long rest = blockIdx.x;""",
+         """  const int tid = threadIdx.x;
+  if (kVec && tid == ta3n::kConsumers)
+    asm volatile("prefetch.tensormap [%0];" ::"l"(&maps.x) : "memory");
+  long long rest = blockIdx.x;"""),
+        ("""  const bf16* w_p = unit_w + static_cast<long long>(p) * d;
+""", """  const bf16* w_p = unit_w + static_cast<long long>(p) * d;
+  if (kVec && tid == ta3n::kConsumers)
+    asm volatile("prefetch.tensormap [%0];" ::"l"(&maps.w.w[scale])
+                 : "memory");
+""")],
+}
+
+
+def probe_k1_bf16_variants() -> None:
+    """K1 in bfloat16 built in each variant of K1_BF16_VARIANTS, checked
+    against the plain version and timed in turns, with the GEMM's span
+    and the epilogue's tail past it by the profiler."""
+    log("k1-bf16-variants (device ms, medians of 41 in turns)")
+    libs = {name: variant_library(f"k1 bf16 {name}", lambda text: text, "",
+                                  {"trn_fused_fwd_bf16.cu": edits})[0]
+            for name, edits in K1_BF16_VARIANTS.items()}
+    tree = _build.load_library
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for variant, s, b in k1_bf16_cases():
+            x, w, bi = chip_smoke.bf16_trn_inputs(b, s, gen)
+            fn = k1_bf16_fn(variant, x, w, bi, s)
+            want = trn_fused.trn_multiscale_plain(x, w, bi, s)
+            fns = {}
+            for name, lib in libs.items():
+                def run(lib=lib):
+                    with_library(lib)
+                    return fn()
+                got = run()
+                got = got[0] if isinstance(got, tuple) else got
+                if not chip_smoke.bf16_err(got, want)[1]:
+                    raise AssertionError(f"{name}: K1 ({variant}) bf16 "
+                                         f"S={s} B={b}")
+                fns[name] = run
+            t = chip_smoke.time_pair(fns)
+            for name, run in fns.items():
+                log(f"  K1 ({variant}) bf16 S={s} B={b}, {name}: "
+                    f"{t[name]:.4f} ms ({k1_bf16_profile(variant, run)[2]})")
+    _build.load_library = tree
+
+
+def probe_k1_bf16_earlier(csrc: Path) -> None:
+    """K1 in bfloat16 built from an earlier csrc/ (the mma.sync design, whose
+    C entries take the D slices of _fwd_splits in place of a grid) against
+    the current kernel, both checked against the plain version and timed
+    in turns."""
+    log(f"k1-bf16-earlier (K1 in bfloat16 from {csrc}; device time, "
+        "medians of 41 in turns)")
+    earlier = earlier_library(csrc)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    infer, train = (earlier.ta3n_trn_fused_fwd_bf16,
+                    earlier.ta3n_trn_fused_fwd_train_bf16)
+    infer.argtypes = [P] * 6 + [I, P] + [I] * 5 + [P]
+    train.argtypes = [P] * 7 + [I, P] + [I] * 5 + [P]
+    infer.restype = train.restype = ctypes.c_int
+
+    def run_earlier(variant, x, w, bi, s):
+        b, _, d = x.shape
+        h = w[0].shape[0]
+        splits = trn_fused._fwd_splits(s, 3, b, d, h)
+        slots = sum(n for _, _, n in trn_fused._fwd_units(s, 3))
+        out = torch.empty((b, s - 1, h), dtype=x.dtype, device=x.device)
+        masks = torch.empty((b, trn_fused._n_subsets(s, 3) * h),
+                            dtype=torch.uint8, device=x.device)
+        part = torch.empty((splits * slots, b, h), device=x.device)
+        outs = [out] if variant == "infer" else [out, masks]
+        entry = infer if variant == "infer" else train
+        err = entry(x.data_ptr(),
+                    *trn_fused._pointer_args(w, bi, s, 3, x.device),
+                    *(o.data_ptr() for o in outs), part.data_ptr(),
+                    *trn_fused._plan_args(s, 3, x.device), b, s, d, h,
+                    splits, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"earlier K1 bf16 launch failed: {err}")
+        return out
+
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for variant, s, b in k1_bf16_cases():
+            x, w, bi = chip_smoke.bf16_trn_inputs(b, s, gen)
+            current = k1_bf16_fn(variant, x, w, bi, s)
+            want = trn_fused.trn_multiscale_plain(x, w, bi, s)
+            for label, got in (("earlier", run_earlier(variant, x, w, bi,
+                                                       s)),
+                               ("current", current())):
+                got = got[0] if isinstance(got, tuple) else got
+                if not chip_smoke.bf16_err(got, want)[1]:
+                    raise AssertionError(f"{label} K1 ({variant}) bf16 "
+                                         f"S={s} B={b}")
+            t = chip_smoke.time_pair({
+                "earlier": lambda: run_earlier(variant, x, w, bi, s),
+                "current": current})
+            log(f"  K1 ({variant}) bf16 S={s} B={b}: earlier "
+                f"{t['earlier']:.4f} ms, current {t['current']:.4f} ms "
+                f"({t['earlier'] / t['current']:.2f}x)")
+
+
 def probe_k1_earlier(path: Path) -> None:
     log(f"k1-earlier ({path.name} from {path.parent}; device time, "
         "medians of 41 in turns)")
@@ -811,7 +1062,10 @@ def probe_k1_earlier(path: Path) -> None:
 PROBES = {"mma-rate": probe_mma_rate, "k3-splits": probe_k3_splits,
           "split-variants": probe_split_variants, "phases": probe_phases,
           "k1-splits": probe_k1_splits, "k1-variants": probe_k1_variants,
-          "wgmma-phases": probe_wgmma_phases}
+          "wgmma-phases": probe_wgmma_phases,
+          "k1-bf16-profile": probe_k1_bf16_profile,
+          "k1-bf16-splits": probe_k1_bf16_splits,
+          "k1-bf16-variants": probe_k1_bf16_variants}
 
 
 def main(argv) -> int:
@@ -836,8 +1090,9 @@ def main(argv) -> int:
         csrc = Path(argv[at + 1]).resolve()
         del argv[at:at + 2]
         PROBES["k3-bf16-earlier"] = lambda: probe_k3_bf16_earlier(csrc)
-    names = argv or [n for n in PROBES
-                     if n not in ("k1-earlier", "k3-bf16-earlier")]
+        PROBES["k1-bf16-earlier"] = lambda: probe_k1_bf16_earlier(csrc)
+    names = argv or [n for n in PROBES if n not in (
+        "k1-earlier", "k3-bf16-earlier", "k1-bf16-earlier")]
     unknown = [n for n in names if n not in PROBES]
     if unknown:
         print(f"unknown probes {unknown}; choose from {list(PROBES)}",

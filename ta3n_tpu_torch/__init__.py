@@ -1,8 +1,9 @@
 """TA3N in PyTorch for one NVIDIA H100: the port of the JAX package
 `ta3n_tpu` (its reference, held against it by the tests).
 
-The port runs every model and loss configuration of the JAX package in
-float32 (the flagship is the `trn-m` + TransAttn video model): the serving
+The port runs every model, loss, optimizer and precision configuration
+of the JAX package, in float32 or bfloat16 compute (the flagship is the
+`trn-m` + TransAttn video model): the serving
 path (`serve.Predictor`, `cli.serve`), the train step
 (`train.make_train_step`) with features from the host or from stores on
 the card, the eval CLI (`cli.test_models`), and the Trainer

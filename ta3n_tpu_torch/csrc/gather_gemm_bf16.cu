@@ -64,7 +64,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <mutex>
 #include <type_traits>
 
 #include "bf16.cuh"
@@ -448,39 +447,6 @@ __global__ void gather_gemm_bf16_sum(const float* __restrict__ part,
   }
 }
 
-// W's tensor map ([h, kdim] bfloat16, boxes of 64 columns x 128 rows, the
-// 128-byte swizzle of the B tile, zeros out of range), made once per
-// pointer and shape: a map holds only those, so it stays right for any
-// weight later allocated there.
-int w_tensor_map(const void* w, long long kdim, int h, CUtensorMap* out) {
-  struct Entry {
-    const void* w;
-    long long kdim;
-    int h;
-    CUtensorMap map;
-  };
-  constexpr int kCache = 16;
-  static std::mutex mu;
-  static Entry cache[kCache];
-  static int cached = 0, next = 0;
-  const std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < cached; ++i)
-    if (cache[i].w == w && cache[i].kdim == kdim && cache[i].h == h) {
-      *out = cache[i].map;
-      return 0;
-    }
-  const int err = ta3n::encode_map(
-      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w,
-      {static_cast<cuuint64_t>(kdim), static_cast<cuuint64_t>(h)},
-      {static_cast<cuuint64_t>(kdim) * 2}, {kTileK, kTileN},
-      CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err != 0) return err;
-  cache[next] = {w, kdim, h, *out};
-  next = (next + 1) % kCache;
-  if (cached < kCache) ++cached;
-  return 0;
-}
-
 // Above 48 KB of dynamic shared memory a kernel must opt in, once.
 template <class S, bool kVec>
 cudaError_t allow_smem() {
@@ -505,8 +471,8 @@ int launch(const void* store, const void* qscale, const void* idx,
                    aligned(w) && (x_res == nullptr || aligned(x_res));
   CUtensorMap map{};
   if (vec) {
-    const int err =
-        w_tensor_map(w, static_cast<long long>(k_rows) * d, h, &map);
+    const int err = ta3n::weight_map(w, static_cast<long long>(k_rows) * d,
+                                     h, kTileK, kTileN, &map);
     if (err != 0) return err;
   }
   const cudaError_t attr =

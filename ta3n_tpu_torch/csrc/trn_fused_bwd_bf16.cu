@@ -43,11 +43,12 @@
 //    warpgroups have released it (an empty mbarrier), completing on its
 //    full mbarrier: the g rows (a 3-d map over [B, S-1, H]), the mask rows
 //    (a 2-d map over [B, n_sub*H] uint8), and two 64-column panels of the
-//    W_i slice (a 2-d map per scale, written by the host into device
-//    memory before the launch) or of the x rows (a 3-d map over [B, S,
-//    D]).  Out of range the boxes are zero-filled (ragged B, H and D; a
-//    mask or W box that runs into the next subset or position meets zeros
-//    of g or of A), and the stores are masked.  Where H % 16 or D % 8 is
+//    W_i slice (a 2-d map per scale, made once per weight and passed with
+//    the others as a kernel parameter, wgmma_bf16.cuh's WeightMaps) or of
+//    the x rows (a 3-d map over [B, S, D]).  Out of range the boxes are
+//    zero-filled (ragged B, H and D; a mask or W box that runs into the
+//    next subset or position meets zeros of g or of A), and the stores
+//    are masked.  Where H % 16 or D % 8 is
 //    not 0 or a pointer is not 16-byte aligned (H = 19, 33, D = 37) the
 //    consumers stage the tiles by plain loads instead.
 //  * Convert passes, once per staged element, in place: each thread turns
@@ -64,7 +65,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <vector>
 
 #include "bf16.cuh"
 #include "tf32x3.cuh"
@@ -102,12 +102,16 @@ static_assert(kTileN == 2 * 64 && kTileM == 64 && kTileK == 64,
               "an A panel, two B panels");
 static_assert(kRowStep * kTileM * 4 <= kRing, "db's reduction fits the ring");
 
-// The tensor maps of the tiles that are not weights: g [B, S-1, H] and x
-// [B, S, D] (3-d, boxes of 64 x 1 x 64, 128-byte swizzle), the masks [B,
-// n_sub*H] (2-d, 64 x 64 bytes).
+// The tensor maps: g [B, S-1, H] and x [B, S, D] (3-d, boxes of 64 x 1 x
+// 64, 128-byte swizzle), the masks [B, n_sub*H] (2-d, 64 x 64 bytes), and
+// each scale's weight [H, k_i*D] (boxes of 64 x 64).
 struct Maps {
   CUtensorMap g, mask, x;
+  ta3n::WeightMaps w;
 };
+// and the kernel's other parameters, under 256 bytes
+static_assert(sizeof(Maps) + 256 <= ta3n::kParamLimit,
+              "the maps fit the kernel parameters");
 
 // A triple of a dx block's frame, staged after the ring: W_i at the
 // triple's position (its column p*D), W_i's row length k_i*D, scale i and
@@ -198,9 +202,9 @@ __device__ __forceinline__ void mask_pass(unsigned char* st, int tid,
 // The dx tile `blk`: frame f, batch rows b0.., D columns d0...
 template <bool kVec>
 __device__ __forceinline__ void dx_tile(
-    const Plan& plan, const Maps& maps, const CUtensorMap* w_maps,
-    const long long* __restrict__ ptrs, const bf16* __restrict__ x,
-    const bf16* __restrict__ g, const unsigned char* __restrict__ masks,
+    const Plan& plan, const Maps& maps, const long long* __restrict__ ptrs,
+    const bf16* __restrict__ x, const bf16* __restrict__ g,
+    const unsigned char* __restrict__ masks,
     bf16* __restrict__ dx, int batch, int num_frames, int d, int h, int blk,
     unsigned char* smem) {
   const int tiles_b = (batch + kTileM - 1) / kTileM;
@@ -213,8 +217,7 @@ __device__ __forceinline__ void dx_tile(
   const int tid = threadIdx.x;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBars);
 
-  // the frame's triples, decoded once into shared memory after the ring;
-  // the weights' maps were written by the host before the launch
+  // the frame's triples, decoded once into shared memory after the ring
   Triple* trips = reinterpret_cast<Triple*>(smem + kTrips);
   const int t_begin = __ldg(&plan.trip0[f]);
   const int n_trip = __ldg(&plan.trip0[f + 1]) - t_begin;
@@ -228,8 +231,6 @@ __device__ __forceinline__ void dx_tile(
                     static_cast<long long>(u0.y) * d,
                 k * d, u0.x, u1.w + (code & 3), u0.y * d};
   }
-  if (kVec && tid == ta3n::kConsumers)  // the thread that issues the boxes
-    for (int i = 0; i < n_scales; ++i) ta3n::tensormap_acquire(&w_maps[i]);
   __syncthreads();
 
   auto produce = [&](int c, int s, uint64_t* full) {
@@ -244,7 +245,8 @@ __device__ __forceinline__ void dx_tile(
 #pragma unroll
     for (int pn = 0; pn < 2; ++pn)
       ta3n::tma_load_2d(st + kBOffset + pn * ta3n::kPanelBytes,
-                        &w_maps[tr.scale], tr.col0 + d0 + 64 * pn, hk, full);
+                        &maps.w.w[tr.scale], tr.col0 + d0 + 64 * pn, hk,
+                        full);
   };
   auto issue_plain = [&](int c, int s) {
     const Triple tr = trips[c / h_chunks];
@@ -476,13 +478,12 @@ __device__ __forceinline__ void dw_tile(
 
 // grid (dx_blocks + dW blocks): the dx tiles first, then the dW tiles.
 // kVec: the tiles by TMA (D % 8 == 0, H % 16 == 0, 16-byte aligned
-// pointers); maps and w_maps (one per scale, in device memory) then name
-// them.  ptrs: each unit's weight (its scale's).  Dynamic shared memory:
-// the ring, its mbarriers, then the triples of the frame with the most.
+// pointers); maps then name them.  ptrs: each unit's weight (its
+// scale's).  Dynamic shared memory: the ring, its mbarriers, then the
+// triples of the frame with the most.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     trn_fused_bwd_bf16_kernel(const __grid_constant__ Maps maps,
-                              const CUtensorMap* __restrict__ w_maps,
                               const Plan plan,
                               const long long* __restrict__ ptrs,
                               const bf16* __restrict__ x,
@@ -506,7 +507,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
   const int blk = static_cast<int>(blockIdx.x);
   if (blk < dx_blocks)
-    dx_tile<kVec>(plan, maps, w_maps, ptrs, x, g, masks, dx, batch,
+    dx_tile<kVec>(plan, maps, ptrs, x, g, masks, dx, batch,
                   num_frames, d, h, blk, smem);
   else
     dw_tile<kVec>(plan, maps, x, g, masks, dw, db, batch, num_frames, d, h,
@@ -530,10 +531,9 @@ cudaError_t allow_smem(int bytes) {
 
 // The bfloat16 backward: as ta3n_trn_fused_bwd_f32 (trn_fused_bwd.cu)
 // with x, g, the weights, dx, dw and db bfloat16 (the masks from
-// ta3n_trn_fused_fwd_train_bf16), and w_maps device scratch for one
-// tensor map (128 bytes, 64-byte aligned) per scale, written here on
-// `stream` before the launch.  Launches one grid of dx and dW/db tiles on
-// `stream`; returns cudaGetLastError().
+// ta3n_trn_fused_fwd_train_bf16), for at most kMaxWeightMaps scales
+// (wgmma_bf16.cuh).  Launches one grid of dx and dW/db tiles on `stream`;
+// returns cudaGetLastError().
 extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
                                        const void* const* host_ptrs,
                                        const void* masks, const void* g,
@@ -541,10 +541,9 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
                                        const int* plan_table, int plan_len,
                                        const int* plan_dev, int batch,
                                        int num_frames, int d, int h,
-                                       void* w_maps, void* stream) {
-  if (num_frames < 2 || batch < 0 || d < 1 || h < 1 || ptrs == nullptr ||
-      host_ptrs == nullptr || w_maps == nullptr ||
-      reinterpret_cast<unsigned long long>(w_maps) % 64 != 0)
+                                       void* stream) {
+  if (num_frames < 2 || num_frames - 1 > ta3n::kMaxWeightMaps || batch < 0 ||
+      d < 1 || h < 1 || ptrs == nullptr || host_ptrs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const ta3n::PlanInfo info =
       ta3n::check_plan(plan_table, plan_len, plan_dev, num_frames);
@@ -595,22 +594,9 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
            static_cast<cuuint64_t>(batch)},
           {bf * d, bf * d * num_frames}, {64, 1, kTileK},
           CU_TENSOR_MAP_SWIZZLE_128B);
-    // each scale's weight [h, k*d]: its first unit's pointer
-    std::vector<CUtensorMap> wm(n_scales);
-    const int* scales = plan_table + ta3n::kPlanHeader;
-    for (int i = 0, z = 0; err == 0 && i < n_scales;
-         z += scales[ta3n::kScaleInts * i], ++i) {
-      const cuuint64_t row =
-          static_cast<cuuint64_t>(scales[ta3n::kScaleInts * i]) * d;
-      err = ta3n::encode_map(&wm[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                             host_ptrs[z], {row, static_cast<cuuint64_t>(h)},
-                             {bf * row}, {64, kTileK},
-                             CU_TENSOR_MAP_SWIZZLE_128B);
-    }
     if (err == 0)
-      err = static_cast<int>(cudaMemcpyAsync(
-          w_maps, wm.data(), wm.size() * sizeof(CUtensorMap),
-          cudaMemcpyHostToDevice, s));
+      err = ta3n::scale_weight_maps(plan_table, n_scales, host_ptrs, d, h,
+                                    64, kTileK, &maps.w);
     if (err != 0) return err;
   }
   const int bytes = static_cast<int>(smem);
@@ -619,7 +605,7 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   (vec ? trn_fused_bwd_bf16_kernel<true> : trn_fused_bwd_bf16_kernel<false>)
       <<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(
-          maps, static_cast<const CUtensorMap*>(w_maps), info.plan,
+          maps, info.plan,
           static_cast<const long long*>(ptrs), static_cast<const bf16*>(x),
           static_cast<const bf16*>(g),
           static_cast<const unsigned char*>(masks), static_cast<bf16*>(dx),

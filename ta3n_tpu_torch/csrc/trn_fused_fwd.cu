@@ -1,7 +1,7 @@
 // Fused multi-scale TRN forward, float32 at f32 accuracy on the tensor
-// cores (3xTF32) or bfloat16 with float32 accumulation, for Hopper
-// (sm_90a): the inference variant and the training variant that also
-// writes the relu mask of every subset, each in both element types.
+// cores (3xTF32), for Hopper (sm_90a): the inference variant and the
+// training variant that also writes the relu mask of every subset.  The
+// bfloat16 variants are trn_fused_fwd_bf16.cu, on wgmma.
 //
 // Replaces ta3n_tpu/ops/trn_fused.py::_fwd_kernel, both variants:
 // with_masks=False (launched through trn_multiscale_infer) and
@@ -70,33 +70,14 @@
 //    fixed for the whole K loop.
 // Ragged B, H and D edges are zero-filled by the copies and masked in the
 // stores, so any widths are taken.
-//
-// The bfloat16 variants (x, W and b bfloat16, as the JAX module casts them
-// before its Pallas kernel under compute_dtype="bfloat16") keep the unit
-// split, the ring and the epilogue, and differ where the element type
-// does: x and W are staged as bfloat16 (rows of 32 padded to 40 values,
-// 80 bytes: fragment loads conflict-free, bank 20g + t), half the bytes;
-// each 16-deep step is one mma.sync m16n8k16 bf16 per tile with float32
-// accumulation, whose products are exact (bf16.cuh), summed directly into
-// the accumulator; relu is applied to the packed pair by its sign bits.
-// The partials stay float32, the epilogue adds the bias in float32, takes
-// the mask from the float32 z, and rounds out to bfloat16 once, as the
-// Pallas kernel's acc.astype(out dtype).  At the flagship train shape the
-// bound is then the bytes, about 5.4 MB in and 0.8 MB out at bfloat16
-// (1.9 us at 3.35 TB/s), against 1.69 GFLOP (1.7 us at the dense bfloat16
-// rate of 989 TFLOP/s).
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
-#include "bf16.cuh"
 #include "tf32x3.cuh"
 #include "trn_plan.cuh"
 
 namespace {
 
-using ta3n::bf16;
 using ta3n::Plan;
 constexpr int kTileM = 64;  // unit rows (subset, video)
 constexpr int kTileH = 64;
@@ -114,20 +95,15 @@ static_assert(kTileK == 2 * kRun && 2 * kTileM == kThreads,
 static_assert(kTileH % (kThreads / 2) == 0, "whole W rows per thread");
 static_assert(kTileM == 2 * 32 && kWarpN % 8 == 0, "4 warps of 32 x kWarpN");
 
-// padded staged row: float32 36 (bank 4g + t), bfloat16 40 (bank 20g + t);
-// 16-byte rows either way
-template <class T>
-constexpr int kStride = std::is_same_v<T, float> ? kTileK + 4 : kTileK + 8;
+// padded staged row of 36 (bank 4g + t), 16-byte rows
+constexpr int kStride = kTileK + 4;
 
-template <class T>
 struct Stage {
-  T x[kTileM][kStride<T>];  // relu applied on use, not here
-  T w[kTileH][kStride<T>];
+  float x[kTileM][kStride];  // relu applied on use, not here
+  float w[kTileH][kStride];
 };
-template <class T>
-constexpr int kSmem = kStages * static_cast<int>(sizeof(Stage<T>));
-static_assert(sizeof(Stage<float>) % 16 == 0 && sizeof(Stage<bf16>) % 16 == 0,
-              "16-byte aligned stages");
+constexpr int kSmem = kStages * static_cast<int>(sizeof(Stage));
+static_assert(sizeof(Stage) % 16 == 0, "16-byte aligned stages");
 
 // The row tiles of a unit of n subsets: n*B rows of 64.
 __device__ __forceinline__ int unit_m_tiles(int n, int mt1, int mt2,
@@ -137,21 +113,20 @@ __device__ __forceinline__ int unit_m_tiles(int n, int mt1, int mt2,
 
 // One block: unit (scale i, position p), H tile, row tile and D slice, in
 // that order from the slowest; it writes the partial z of its rows and
-// columns into part (float32 in both variants).  A unit of n subsets has
-// m_tiles(n) * h_tiles * splits blocks; mt1..mt3 are the row tiles of 1..3
-// subsets at this B.  ptrs: each unit's weight (its scale's), then each
-// scale's bias.  T: float or bf16, the type of x and the weights.  kVec:
+// columns into part.  A unit of n subsets has m_tiles(n) * h_tiles *
+// splits blocks; mt1..mt3 are the row tiles of 1..3 subsets at this B.
+// ptrs: each unit's weight (its scale's), then each scale's bias.  kVec:
 // 16-byte copies.
-template <class T, bool kVec>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     trn_fused_fwd_kernel(const Plan plan, const long long* __restrict__ ptrs,
-                         const T* __restrict__ x, float* __restrict__ part,
+                         const float* __restrict__ x, float* __restrict__ part,
                          int batch, int num_frames, int d, int h, int splits,
                          int mt1, int mt2, int mt3) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Stage<T>* stage = reinterpret_cast<Stage<T>*>(smem);
+  Stage* stage = reinterpret_cast<Stage*>(smem);
   __shared__ int4 unit_at, unit_frames;  // {i, p, n_sub, slot}, frames/k
-  __shared__ const T* unit_w;
+  __shared__ const float* unit_w;
   __shared__ long long unit_b0;
 
   const int h_tiles = (h + kTileH - 1) / kTileH;
@@ -161,7 +136,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int4 a = __ldg(&plan.units[3 * z]);
     const int4 c = __ldg(&plan.units[3 * z + 1]);
     const int4 f = __ldg(&plan.units[3 * z + 2]);
-    const T* w = ta3n::ptr_at<const T>(ptrs, z);
+    const float* w = ta3n::ptr_at<const float>(ptrs, z);
     const long long b0 = per_tile * (static_cast<long long>(c.x) * mt1 +
                                      static_cast<long long>(c.y) * mt2 +
                                      static_cast<long long>(c.z) * mt3);
@@ -183,7 +158,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int h0 = static_cast<int>(rest / m_tiles) * kTileH;
   const int rows = n_sub * batch;
   const int m0 = mt * kTileM;
-  const T* w_i = unit_w;
+  const float* w_i = unit_w;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -199,13 +174,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // row m0 + srow (video b of subset j) and of W rows h0 + srow + 64q
   const int srow = tid / 2, col = kRun * (tid % 2);
   const int r = m0 + srow;
-  const T* xrow = nullptr;
+  const float* xrow = nullptr;
   if (r < rows) {
     const int j = r / batch, b = r % batch;
     const int f = j == 0 ? u2.x : j == 1 ? u2.y : u2.z;
     xrow = x + (static_cast<long long>(b) * num_frames + f) * d;
   }
-  const T* wrow[kTileH / 64];
+  const float* wrow[kTileH / 64];
 #pragma unroll
   for (int q = 0; q < kTileH / 64; ++q) {
     const int gh = h0 + srow + 64 * q;
@@ -216,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   auto issue = [&](int c, int s) {
     const int c0 = (c_begin + c) * kTileK + col;
-    Stage<T>& st = stage[s];
+    Stage& st = stage[s];
     ta3n::copy_run16<kVec>(&st.x[srow][col],
                            xrow != nullptr ? xrow + c0 : x, x,
                            xrow != nullptr ? d - c0 : 0);
@@ -229,51 +204,28 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   float acc[2][kNT][4] = {};
   auto compute = [&](int, int s) {
-    const Stage<T>& st = stage[s];
-    if constexpr (std::is_same_v<T, float>) {
-      float part_z[2][kNT][4] = {};
+    const Stage& st = stage[s];
+    float part_z[2][kNT][4] = {};
 #pragma unroll
-      for (int kk = 0; kk < kTileK; kk += 8) {
-        float a[2][4], bw[kNT][2];
+    for (int kk = 0; kk < kTileK; kk += 8) {
+      float a[2][4], bw[kNT][2];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int row = wm + 16 * mi + g;
-          a[mi][0] = fmaxf(st.x[row][kk + t], 0.f);
-          a[mi][1] = fmaxf(st.x[row + 8][kk + t], 0.f);
-          a[mi][2] = fmaxf(st.x[row][kk + t + 4], 0.f);
-          a[mi][3] = fmaxf(st.x[row + 8][kk + t + 4], 0.f);
-        }
-#pragma unroll
-        for (int nj = 0; nj < kNT; ++nj) {
-          const int n = wn + 8 * nj + g;
-          bw[nj][0] = st.w[n][kk + t];
-          bw[nj][1] = st.w[n][kk + t + 4];
-        }
-        ta3n::mma_3xtf32(part_z, a, bw);
+      for (int mi = 0; mi < 2; ++mi) {
+        const int row = wm + 16 * mi + g;
+        a[mi][0] = fmaxf(st.x[row][kk + t], 0.f);
+        a[mi][1] = fmaxf(st.x[row + 8][kk + t], 0.f);
+        a[mi][2] = fmaxf(st.x[row][kk + t + 4], 0.f);
+        a[mi][3] = fmaxf(st.x[row + 8][kk + t + 4], 0.f);
       }
-      ta3n::add_to(acc, part_z);
-    } else {
 #pragma unroll
-      for (int kk = 0; kk < kTileK; kk += 16) {
-        unsigned a[2][4], bw[kNT][2];
-        const int k0 = kk + 2 * t;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int row = wm + 16 * mi + g;
-          a[mi][0] = ta3n::relu2(ta3n::ld2(&st.x[row][k0]));
-          a[mi][1] = ta3n::relu2(ta3n::ld2(&st.x[row + 8][k0]));
-          a[mi][2] = ta3n::relu2(ta3n::ld2(&st.x[row][k0 + 8]));
-          a[mi][3] = ta3n::relu2(ta3n::ld2(&st.x[row + 8][k0 + 8]));
-        }
-#pragma unroll
-        for (int nj = 0; nj < kNT; ++nj) {
-          const int n = wn + 8 * nj + g;
-          bw[nj][0] = ta3n::ld2(&st.w[n][k0]);
-          bw[nj][1] = ta3n::ld2(&st.w[n][k0 + 8]);
-        }
-        ta3n::mma_bf16_tiles(acc, a, bw);
+      for (int nj = 0; nj < kNT; ++nj) {
+        const int n = wn + 8 * nj + g;
+        bw[nj][0] = st.w[n][kk + t];
+        bw[nj][1] = st.w[n][kk + t + 4];
       }
+      ta3n::mma_3xtf32(part_z, a, bw);
     }
+    ta3n::add_to(acc, part_z);
   };
   ta3n::pipeline<kStages>(c_end - c_begin, issue, compute);
 
@@ -299,13 +251,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // The epilogue, one thread per (b, i, h) in out's order: z of each subset
 // j of scale i is the sum of its float32 partials, positions p in order
 // and within each the D slices in order, plus the bias (in float32);
-// out = sum_j relu(z_j), rounded to T once, and the training variant
-// writes (z_j > 0).
-template <class T, bool kWithMasks>
+// out = sum_j relu(z_j), and the training variant writes (z_j > 0).
+template <bool kWithMasks>
 __global__ void trn_fused_fwd_epilogue(const Plan plan,
                                        const long long* __restrict__ ptrs,
                                        const float* __restrict__ part,
-                                       T* __restrict__ out,
+                                       float* __restrict__ out,
                                        unsigned char* __restrict__ masks,
                                        int batch, int h, int splits) {
   const int n_scales = plan.n_scales;
@@ -321,8 +272,7 @@ __global__ void trn_fused_fwd_epilogue(const Plan plan,
     const int4 sc = __ldg(&plan.scales[i]);  // k, n_sub, sub0, slot0
     const int k = sc.x, n_sub = sc.y;
     const float* base = part + static_cast<long long>(sc.w) * plane + b * h + hh;
-    const float bias =
-        ta3n::to_f32(ta3n::ptr_at<const T>(ptrs, plan.n_units + i)[hh]);
+    const float bias = ta3n::ptr_at<const float>(ptrs, plan.n_units + i)[hh];
     float sum = 0.f;
     for (int j = 0; j < n_sub; ++j) {
       float z = 0.f;
@@ -337,20 +287,20 @@ __global__ void trn_fused_fwd_epilogue(const Plan plan,
       if constexpr (kWithMasks)
         masks[(b * plan.n_sub_total + sc.z + j) * h + hh] = on;
     }
-    out[e] = ta3n::from_f32<T>(sum);
+    out[e] = sum;
   }
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, once.
-template <class T, bool kVec>
+template <bool kVec>
 cudaError_t allow_smem() {
   static const cudaError_t err = cudaFuncSetAttribute(
-      trn_fused_fwd_kernel<T, kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<T>);
+      trn_fused_fwd_kernel<kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   return err;
 }
 
-template <class T, bool kWithMasks>
+template <bool kWithMasks>
 int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
            void* out, void* masks, void* part, const int* plan_table,
            int plan_len, const int* plan_dev, int batch, int num_frames,
@@ -378,26 +328,26 @@ int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
     return reinterpret_cast<unsigned long long>(ptr) % 16 == 0;
   };
   // 16-byte copies: every row start 16-byte aligned
-  bool vec = d % (16 / static_cast<int>(sizeof(T))) == 0 && aligned(x);
+  bool vec = d % 4 == 0 && aligned(x);
   for (int z = 0; z < info.plan.n_units; ++z)
     vec = vec && aligned(host_ptrs[z]);
   const cudaError_t attr =
-      vec ? allow_smem<T, true>() : allow_smem<T, false>();
+      vec ? allow_smem<true>() : allow_smem<false>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* dev_ptrs = static_cast<const long long*>(ptrs);
-  (vec ? trn_fused_fwd_kernel<T, true> : trn_fused_fwd_kernel<T, false>)
-      <<<static_cast<unsigned>(blocks), kThreads, kSmem<T>, s>>>(
-          info.plan, dev_ptrs, static_cast<const T*>(x),
+  (vec ? trn_fused_fwd_kernel<true> : trn_fused_fwd_kernel<false>)
+      <<<static_cast<unsigned>(blocks), kThreads, kSmem, s>>>(
+          info.plan, dev_ptrs, static_cast<const float*>(x),
           static_cast<float*>(part), batch, num_frames, d, h, splits, mt[1],
           mt[2], mt[3]);
   const long long count = static_cast<long long>(batch) * (num_frames - 1) * h;
   const long long epi = (count + 255) / 256;
-  trn_fused_fwd_epilogue<T, kWithMasks>
+  trn_fused_fwd_epilogue<kWithMasks>
       <<<static_cast<unsigned>(epi < 8192 ? epi : 8192), 256, 0, s>>>(
           info.plan, dev_ptrs, static_cast<const float*>(part),
-          static_cast<T*>(out), static_cast<unsigned char*>(masks), batch, h,
-          splits);
+          static_cast<float*>(out), static_cast<unsigned char*>(masks),
+          batch, h, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,7 +368,7 @@ extern "C" int ta3n_trn_fused_fwd_f32(const void* x, const void* ptrs,
                                       int plan_len, const int* plan_dev,
                                       int batch, int num_frames, int d, int h,
                                       int splits, void* stream) {
-  return launch<float, false>(x, ptrs, host_ptrs, out, nullptr, part,
+  return launch<false>(x, ptrs, host_ptrs, out, nullptr, part,
                               plan_table, plan_len, plan_dev, batch,
                               num_frames, d, h, splits, stream);
 }
@@ -431,33 +381,7 @@ extern "C" int ta3n_trn_fused_fwd_train_f32(
     void* masks, void* part, const int* plan_table, int plan_len,
     const int* plan_dev, int batch, int num_frames, int d, int h, int splits,
     void* stream) {
-  return launch<float, true>(x, ptrs, host_ptrs, out, masks, part,
+  return launch<true>(x, ptrs, host_ptrs, out, masks, part,
                              plan_table, plan_len, plan_dev, batch,
                              num_frames, d, h, splits, stream);
-}
-
-// The bfloat16 inference variant: as ta3n_trn_fused_fwd_f32 with x, every
-// weight and bias and out bfloat16; part stays f32 scratch.
-extern "C" int ta3n_trn_fused_fwd_bf16(const void* x, const void* ptrs,
-                                       const void* const* host_ptrs,
-                                       void* out, void* part,
-                                       const int* plan_table, int plan_len,
-                                       const int* plan_dev, int batch,
-                                       int num_frames, int d, int h,
-                                       int splits, void* stream) {
-  return launch<bf16, false>(x, ptrs, host_ptrs, out, nullptr, part,
-                             plan_table, plan_len, plan_dev, batch,
-                             num_frames, d, h, splits, stream);
-}
-
-// The bfloat16 training variant: as ta3n_trn_fused_fwd_train_f32 with x,
-// every weight and bias and out bfloat16; the masks from the f32 z.
-extern "C" int ta3n_trn_fused_fwd_train_bf16(
-    const void* x, const void* ptrs, const void* const* host_ptrs, void* out,
-    void* masks, void* part, const int* plan_table, int plan_len,
-    const int* plan_dev, int batch, int num_frames, int d, int h, int splits,
-    void* stream) {
-  return launch<bf16, true>(x, ptrs, host_ptrs, out, masks, part, plan_table,
-                            plan_len, plan_dev, batch, num_frames, d, h,
-                            splits, stream);
 }

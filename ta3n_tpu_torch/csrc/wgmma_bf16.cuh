@@ -41,9 +41,16 @@
 // Rings.  wgmma_pipeline: every thread stages, converts and multiplies, a
 // chunk ahead (K3).  wgmma_pipeline_ws: a producer warp issues TMA boxes up
 // to three chunks ahead, the consumer warpgroups convert and multiply
-// (K2's tiles are all TMA boxes; K3's gathered rows are not, and their
-// cp.async copies are quicker spread over every thread than from one
+// (K1's and K2's tiles are all TMA boxes; K3's gathered rows are not, and
+// their cp.async copies are quicker spread over every thread than from one
 // warp).
+//
+// Weight maps.  The tensor map of a weight is made on the host once per
+// pointer, shape and box (weight_map, a cache: a map holds only those, so
+// it stays right for any weight later allocated there) and reaches the
+// kernel by value, as a __grid_constant__ parameter (WeightMaps: one per
+// TRN scale, up to kMaxWeightMaps), so a launch copies nothing to the
+// device and a captured CUDA graph replays it as it is.
 
 #pragma once
 
@@ -52,8 +59,10 @@
 
 #include <cstdint>
 #include <initializer_list>
+#include <mutex>
 
 #include "tf32x3.cuh"
+#include "trn_plan.cuh"
 
 namespace ta3n {
 
@@ -174,14 +183,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       "r"(smem_addr(bar))
       : "memory");
 }
-// Before the first box of a tensor map that lies in device memory: the
-// map's bytes as the host last wrote them, not a copy the TMA unit kept.
-__device__ __forceinline__ void tensormap_acquire(const void* map) {
-  asm volatile("fence.proxy.tensormap::generic.acquire.gpu [%0], 128;\n" ::
-                   "l"(reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
 // A tiled tensor map on the host (rank 2 or 3): dims innermost first, the
 // byte strides of the outer dims (multiples of 16), the box, unit element
 // steps, zeros out of range.  cuTensorMapEncodeTiled is fetched from the
@@ -219,6 +220,75 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? static_cast<int>(cudaSuccess)
              : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor map of a bfloat16 weight [rows, row] (row-major, 128-byte
+// swizzle, zeros out of range) in boxes of box_k columns x box_rows rows,
+// made once per pointer, shape and box and then taken from a cache.
+// Returns a cudaError_t.
+inline int weight_map(const void* w, long long row, int rows, int box_k,
+                      int box_rows, CUtensorMap* out) {
+  struct Entry {
+    const void* w;
+    long long row;
+    int rows, box_k, box_rows;
+    CUtensorMap map;
+  };
+  constexpr int kCache = 64;
+  static std::mutex mu;
+  static Entry cache[kCache];
+  static int cached = 0, next = 0;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < cached; ++i) {
+    const Entry& e = cache[i];
+    if (e.w == w && e.row == row && e.rows == rows && e.box_k == box_k &&
+        e.box_rows == box_rows) {
+      *out = e.map;
+      return 0;
+    }
+  }
+  const int err = encode_map(
+      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w,
+      {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(rows)},
+      {static_cast<cuuint64_t>(row) * 2},
+      {static_cast<cuuint32_t>(box_k), static_cast<cuuint32_t>(box_rows)},
+      CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  cache[next] = {w, row, rows, box_k, box_rows, *out};
+  next = (next + 1) % kCache;
+  if (cached < kCache) ++cached;
+  return 0;
+}
+
+// The most TRN scales (S - 1) whose weight maps a kernel takes by value:
+// 32, 4 KB of maps.  CUDA 12.1 and later take up to 32764 bytes of kernel
+// parameters on sm_70 and above; the kernels' other parameters take well
+// under 1 KB.
+constexpr int kMaxWeightMaps = 32;
+constexpr int kParamLimit = 32764;
+struct WeightMaps {
+  CUtensorMap w[kMaxWeightMaps];
+};
+static_assert(sizeof(WeightMaps) + 1024 <= kParamLimit,
+              "the weight maps fit the kernel parameters");
+
+// Each scale's weight map: the weight [h, k_i*d] of scale i, whose pointer
+// is host_ptrs at the scale's first unit (the plan table's scale records
+// give k_i), in boxes of box_k columns x box_rows rows.  Returns a
+// cudaError_t.
+inline int scale_weight_maps(const int* plan_table, int n_scales,
+                             const void* const* host_ptrs, int d, int h,
+                             int box_k, int box_rows, WeightMaps* maps) {
+  if (n_scales > kMaxWeightMaps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* scales = plan_table + kPlanHeader;
+  for (int i = 0, z = 0; i < n_scales; z += scales[kScaleInts * i], ++i) {
+    const int err = weight_map(
+        host_ptrs[z], static_cast<long long>(scales[kScaleInts * i]) * d, h,
+        box_k, box_rows, &maps->w[i]);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // 16 bytes from src into shared dst, of which the first `valid` elements

@@ -31,9 +31,9 @@ from pathlib import Path
 __all__ = ["SOURCES", "library_path", "compile_library", "load_library"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (_CSRC / "trn_fused_fwd.cu", _CSRC / "trn_fused_bwd.cu",
-           _CSRC / "trn_fused_bwd_bf16.cu", _CSRC / "gather_gemm.cu",
-           _CSRC / "gather_gemm_bf16.cu")
+SOURCES = (_CSRC / "trn_fused_fwd.cu", _CSRC / "trn_fused_fwd_bf16.cu",
+           _CSRC / "trn_fused_bwd.cu", _CSRC / "trn_fused_bwd_bf16.cu",
+           _CSRC / "gather_gemm.cu", _CSRC / "gather_gemm_bf16.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ta3n_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,11 +49,12 @@ _ENTRIES = {
     # length, plan (device), batch, frames, d, h, splits, stream
     "ta3n_trn_fused_fwd_train_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
                                      _I, _I, _I, _I, _P],
-    # the bfloat16 variants of the two, with the same arguments
+    # the bfloat16 variants of the two (trn_fused_fwd_bf16.cu): the same
+    # arguments with the grid (row tiles, H tiles, D slices) for splits
     "ta3n_trn_fused_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                                _I, _I, _P],
+                                _I, _I, _I, _I, _P],
     "ta3n_trn_fused_fwd_train_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _P,
-                                      _I, _I, _I, _I, _I, _P],
+                                      _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w ptrs (device), w ptrs (host), masks, g, dx, dw, db, plan table,
     # its length, plan (device), batch, frames, d, h, stream
     "ta3n_trn_fused_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
@@ -61,10 +62,9 @@ _ENTRIES = {
     # the same and parts (1: dx tiles, 2: dW/db tiles, 3: both), stream
     "ta3n_trn_fused_bwd_parts_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _P, _I, _I, _I, _I, _I, _P],
-    # the bfloat16 backward (trn_fused_bwd_bf16.cu): the same arguments and
-    # device scratch for one tensor map per scale, stream
+    # the bfloat16 backward (trn_fused_bwd_bf16.cu): the same arguments
     "ta3n_trn_fused_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                                _I, _I, _I, _I, _P, _P],
+                                _I, _I, _I, _I, _P],
     # store, its int8 scales, idx, scale, w, z, x_res, part, n_idx,
     # streams, d, k_rows, h, splits, store kind, compute kind (1:
     # gather_gemm_bf16.cu's kernel), stream

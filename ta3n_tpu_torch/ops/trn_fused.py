@@ -32,10 +32,11 @@ plain version.  Each kernel has a count of its launches, float32 and
 bfloat16 variants apart:
 
   * ``trn_multiscale_infer`` (``launches``, ``bf16_launches``): the
-    inference forward, ``csrc/trn_fused_fwd.cu``, the port of the Pallas
-    ``_fwd_kernel`` with ``with_masks=False``.
+    inference forward, ``csrc/trn_fused_fwd.cu`` (float32) and
+    ``csrc/trn_fused_fwd_bf16.cu`` (bfloat16, on ``wgmma``), the port of
+    the Pallas ``_fwd_kernel`` with ``with_masks=False``.
   * ``trn_multiscale_fwd_masks`` (``train_launches``,
-    ``bf16_train_launches``): the training forward, the same source with
+    ``bf16_train_launches``): the training forward, the same sources with
     the mask write, the port of ``_fwd_kernel`` with ``with_masks=True``.
   * ``trn_multiscale_bwd`` (``bwd_launches``, ``bf16_bwd_launches``): the
     backward, ``csrc/trn_fused_bwd.cu`` (float32) and
@@ -53,7 +54,10 @@ as a table in device memory (``_plan_table``, the layout of
 the weights and biases through an array of device pointers (one weight
 per (scale, position) unit, so that no load in the kernels waits on
 another), uploaded once per set of pointers (the optimizer updates the
-weights in place, so a training run uploads it once).
+weights in place, so a training run uploads it once).  The bfloat16
+kernels read the weights by TMA through a tensor map of each scale's
+weight, made once per weight and passed by value at each launch, so they
+take at most ``BF16_MAX_SCALES`` scales (S - 1).
 """
 
 from __future__ import annotations
@@ -70,17 +74,17 @@ from ta3n_tpu_torch.ops.relation import build_relation_plan
 __all__ = ["trn_multiscale_plain", "trn_multiscale_fwd_masks_plain",
            "trn_multiscale_bwd_plain", "trn_multiscale_infer",
            "trn_multiscale_fwd_masks", "trn_multiscale_bwd",
-           "trn_multiscale_fused", "launches", "train_launches",
-           "bwd_launches", "bf16_launches", "bf16_train_launches",
-           "bf16_bwd_launches"]
+           "trn_multiscale_fused", "bf16_fwd_grid", "BF16_MAX_SCALES",
+           "launches", "train_launches", "bwd_launches", "bf16_launches",
+           "bf16_train_launches", "bf16_bwd_launches"]
 
 # kernel launches made by each wrapper (plain-version calls are not
 # counted); callers reset them to 0 to count the launches of one run
 launches = 0          # inference forward, csrc/trn_fused_fwd.cu
 train_launches = 0    # training forward, csrc/trn_fused_fwd.cu
 bwd_launches = 0      # backward, csrc/trn_fused_bwd.cu
-bf16_launches = 0        # the same three, bfloat16 variants
-bf16_train_launches = 0
+bf16_launches = 0        # the same three, bfloat16 variants:
+bf16_train_launches = 0  # csrc/trn_fused_fwd_bf16.cu
 bf16_bwd_launches = 0    # csrc/trn_fused_bwd_bf16.cu
 
 # the kernels' element types, and the suffix of their C entries
@@ -89,14 +93,27 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the kernels take at most 3 subsets per scale (csrc/trn_plan.cuh)
 _MAX_SUBSETS = 3
 
-# the forward kernel's tiles (csrc/trn_fused_fwd.cu): unit rows (subset,
-# video) and H columns per block, D per chunk; and how many D slices share
-# an output tile: as many as _FWD_TARGET_BLOCKS blocks hold, one per SM of
-# the H100's 132 (one slice at B=64, 128 blocks, and at B=202, 440: on
-# the H100 one slice beat two to eight at B=64 and was within 1% of the
-# best at B=202, PERF.md)
+# the float32 forward kernel's tiles (csrc/trn_fused_fwd.cu): unit rows
+# (subset, video) and H columns per block, D per chunk; and how many D
+# slices share an output tile: as many as _FWD_TARGET_BLOCKS blocks hold,
+# one per SM of the H100's 132 (one slice at B=64, 128 blocks, and at
+# B=202, 440: on the H100 one slice beat two to eight at B=64 and was
+# within 1% of the best at B=202, PERF.md)
 _FWD_TILE_M, _FWD_TILE_H, _FWD_TILE_K = 64, 64, 32
 _FWD_MAX_SPLITS, _FWD_TARGET_BLOCKS = 8, 132
+
+# the bfloat16 forward kernel's tiles (csrc/trn_fused_fwd_bf16.cu): 64
+# videos of one subset by 128 H columns a block, D in chunks of 64; D
+# slices are added while the grid stays within _BF16_FWD_TARGET_BLOCKS,
+# one block an SM (two slices at B = 1 and 64, S=5: within 2% of one on
+# the H100, and three or more slower, PERF.md)
+_BF16_FWD_TILE_M, _BF16_FWD_TILE_H, _BF16_FWD_TILE_K = 64, 128, 64
+_BF16_FWD_TARGET_BLOCKS = 132
+
+# the most scales (S - 1) the bfloat16 kernels take: their weights' tensor
+# maps are a kernel parameter of fixed size (csrc/wgmma_bf16.cuh,
+# kMaxWeightMaps)
+BF16_MAX_SCALES = 32
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
@@ -287,12 +304,34 @@ def _fwd_splits(num_frames: int, subsample_num: int, b: int, d: int,
                       _FWD_TARGET_BLOCKS // tiles))
 
 
+def bf16_fwd_grid(num_frames: int, subsample_num: int, b: int, d: int,
+                  h: int) -> Tuple[int, int, int]:
+    """The bfloat16 forward kernel's grid for B videos, D features and H
+    outputs: (row tiles of 64 videos, H tiles of 128, D slices).  Its
+    blocks are one per scratch slot (a subset of a (scale, position) unit,
+    ``_fwd_units``), row tile, H tile and D slice; D is split only where
+    the tiles leave SMs of the H100 without a block: into as many slices as
+    keep the grid within _BF16_FWD_TARGET_BLOCKS, at least 1, at most
+    _FWD_MAX_SPLITS and at most one per 64-deep chunk."""
+    row_tiles = -(-b // _BF16_FWD_TILE_M)
+    h_tiles = -(-h // _BF16_FWD_TILE_H)
+    slots = sum(n for _, _, n in _fwd_units(num_frames, subsample_num))
+    room = _BF16_FWD_TARGET_BLOCKS // (slots * row_tiles * h_tiles)
+    return row_tiles, h_tiles, max(1, min(_FWD_MAX_SPLITS,
+                                          -(-d // _BF16_FWD_TILE_K), room))
+
+
 def _check_inputs(x, weights, biases, num_frames, subsample_num) -> None:
     """Raise on anything the kernels do not take (``biases`` None: the
     backward, which takes none)."""
     if num_frames < 2:
         raise ValueError(f"the TRN kernel takes 2 or more frames, got "
                          f"{num_frames}")
+    if x.dtype == torch.bfloat16 and num_frames - 1 > BF16_MAX_SCALES:
+        raise ValueError(
+            f"the bfloat16 TRN kernels take at most {BF16_MAX_SCALES} "
+            f"scales (num_frames <= {BF16_MAX_SCALES + 1}: one tensor map "
+            f"per scale in a kernel parameter), got num_frames={num_frames}")
     plan = build_relation_plan(num_frames, subsample_num)
     if max(len(s) for s in plan.subsets) > _MAX_SUBSETS:
         raise ValueError(f"the TRN kernel takes at most {_MAX_SUBSETS} "
@@ -352,19 +391,24 @@ def _launch_fwd(entry, x, weights, biases, num_frames, subsample_num,
     """The forward kernel and its epilogue into ``outs`` (out, and the
     masks in the training variant), with their scratch of partial z:
     [splits * n_slots, B, H] f32, n_slots = sum_k(k * n_sub_k): 32 slots
-    at S=5 (6.6 MB at B=202, H=256), 922 at S=25 (190 MB)."""
+    at S=5 (6.6 MB at B=202, H=256), 922 at S=25 (190 MB).  The bfloat16
+    kernel takes its whole grid (``bf16_fwd_grid``), the float32 one its
+    D slices."""
     b, s, d = x.shape
     h = weights[0].shape[0]
-    splits = _fwd_splits(num_frames, subsample_num, b, d, h)
+    if x.dtype == torch.bfloat16:
+        grid = bf16_fwd_grid(num_frames, subsample_num, b, d, h)
+    else:
+        grid = (_fwd_splits(num_frames, subsample_num, b, d, h),)
     slots = sum(n for _, _, n in _fwd_units(num_frames, subsample_num))
-    part = torch.empty((splits * slots, b, h), dtype=torch.float32,
+    part = torch.empty((grid[-1] * slots, b, h), dtype=torch.float32,
                        device=x.device)
     _call(entry, x, x.data_ptr(),
           *_pointer_args(weights, biases, num_frames, subsample_num,
                          x.device),
           *(t.data_ptr() for t in outs), part.data_ptr(),
           *_plan_args(num_frames, subsample_num, x.device), b, s, d, h,
-          splits)
+          *grid)
 
 
 def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
@@ -438,16 +482,11 @@ def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
     dw = torch.empty((sum(w.numel() for w in weights),), dtype=x.dtype,
                      device=x.device)
     db = torch.empty((len(weights), h), dtype=x.dtype, device=x.device)
-    # the bfloat16 kernel's TMA descriptor of each scale's weight, written
-    # by the C entry before its launch (128 bytes each)
-    maps = [torch.empty((len(weights), 128), dtype=torch.uint8,
-                        device=x.device)] if x.dtype == torch.bfloat16 else []
     _call(f"ta3n_trn_fused_bwd_{_SUFFIX[x.dtype]}", x, x.data_ptr(),
           *_pointer_args(weights, (), num_frames, subsample_num, x.device),
           masks.data_ptr(), g.data_ptr(),
           dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-          *_plan_args(num_frames, subsample_num, x.device), b, s, d, h,
-          *(t.data_ptr() for t in maps))
+          *_plan_args(num_frames, subsample_num, x.device), b, s, d, h)
     if x.dtype == torch.float32:
         bwd_launches += 1
     else:

@@ -8,7 +8,7 @@ import re
 import pytest
 import torch
 
-from ta3n_tpu_torch.ops import _build, gather_gemm
+from ta3n_tpu_torch.ops import _build, gather_gemm, trn_fused
 
 
 def _csrc(tmp_path, files):
@@ -69,6 +69,14 @@ def test_c_entries_match_their_bindings():
     assert set(entries) == set(_build._ENTRIES)
     for name, argtypes in _build._ENTRIES.items():
         assert entries[name] == len(argtypes), name
+
+
+def test_bf16_scale_limit_is_the_kernels():
+    """The wrapper's limit on the bfloat16 TRN kernels' scales is the
+    capacity of the weight maps they take as a kernel parameter."""
+    text = (_build._CSRC / "wgmma_bf16.cuh").read_text()
+    limit, = re.findall(r"constexpr int kMaxWeightMaps = (\d+);", text)
+    assert trn_fused.BF16_MAX_SCALES == int(limit)
 
 
 @pytest.mark.parametrize("m,h,chunks", [

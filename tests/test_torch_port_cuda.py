@@ -1071,13 +1071,19 @@ def _subset_z(x, w, bi, s):
     return torch.cat(zs, dim=1)
 
 
-@pytest.mark.parametrize("b,s,d,h", BF16_CASES)
+@pytest.mark.parametrize("b,s,d,h", BF16_CASES + [(202, 25, 512, 256)])
 def test_bf16_fwd_kernels_match_plain(b, s, d, h):
     """K1 (infer) and K1 (train) in bfloat16 against the plain version in
     bfloat16 (_bf16_ok); masks equal except where |z| is within float32
     summation order of 0; one launch of each bfloat16 variant per call,
-    none of the float32 ones; bitwise equal on a second call."""
+    none of the float32 ones; bitwise equal on a second call; on bfloat16
+    inputs on dyadic grids (every product and float32 sum exact) output
+    and masks bitwise equal to the plain version's, which a wrong
+    descriptor, swizzle or box would break."""
     x, w, bi = _bf16_trn_inputs(b, s, d, h)
+    bf = torch.bfloat16
+    gx, gw, gb, _ = _grid_inputs(b, s, d, h, seed=1)
+    gx, gw, gb = gx.to(bf), [t.to(bf) for t in gw], [t.to(bf) for t in gb]
     trn_fused.bf16_launches = trn_fused.bf16_train_launches = 0
     _reset_counts()
     with torch.inference_mode():
@@ -1088,8 +1094,13 @@ def test_bf16_fwd_kernels_match_plain(b, s, d, h):
         want_out, want_masks = trn_fused.trn_multiscale_fwd_masks_plain(
             x, w, bi, s)
         z = _subset_z(x, w, bi, s)
+        grid_got = trn_fused.trn_multiscale_infer(gx, gw, gb, s)
+        grid_out, grid_masks = trn_fused.trn_multiscale_fwd_masks(gx, gw,
+                                                                  gb, s)
+        grid_want, grid_want_masks = \
+            trn_fused.trn_multiscale_fwd_masks_plain(gx, gw, gb, s)
     torch.cuda.synchronize()
-    assert (trn_fused.bf16_launches, trn_fused.bf16_train_launches) == (2, 1)
+    assert (trn_fused.bf16_launches, trn_fused.bf16_train_launches) == (3, 2)
     assert _counts() == (0, 0, 0, 0)
     assert got.dtype == out.dtype == torch.bfloat16
     assert got.shape == (b, s - 1, h)
@@ -1097,6 +1108,78 @@ def test_bf16_fwd_kernels_match_plain(b, s, d, h):
     assert torch.equal(got, again) and torch.equal(got, out)
     differ = masks != want_masks
     assert (z[differ].abs() <= 1e-5 * z.abs().max()).all()
+    assert torch.equal(grid_got, grid_want) and torch.equal(grid_out,
+                                                            grid_want)
+    assert torch.equal(grid_masks, grid_want_masks)
+
+
+@pytest.mark.parametrize("b,d", [(63, 512), (65, 512), (128, 512),
+                                 (129, 512), (129, 37), (70, 100)])
+def test_bf16_fwd_kernel_batch_edges(b, d):
+    """K1 in bfloat16 around its 64-video row tiles and with D off TMA's
+    16-byte rule (37, 100: plain staging):
+    infer and train within _bf16_ok of the plain version, masks equal
+    except at ties, and bitwise equal on exact inputs."""
+    s, h = 5, 72
+    x, w, bi = _bf16_trn_inputs(b, s, d, h)
+    bf = torch.bfloat16
+    gx, gw, gb, _ = _grid_inputs(b, s, d, h, seed=2)
+    gx, gw, gb = gx.to(bf), [t.to(bf) for t in gw], [t.to(bf) for t in gb]
+    with torch.inference_mode():
+        got = trn_fused.trn_multiscale_infer(x, w, bi, s)
+        out, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+        want, want_masks = trn_fused.trn_multiscale_fwd_masks_plain(
+            x, w, bi, s)
+        z = _subset_z(x, w, bi, s)
+        grid_out, grid_masks = trn_fused.trn_multiscale_fwd_masks(gx, gw,
+                                                                  gb, s)
+        grid_want, grid_want_masks = \
+            trn_fused.trn_multiscale_fwd_masks_plain(gx, gw, gb, s)
+    torch.cuda.synchronize()
+    assert _bf16_ok(got, want) and torch.equal(got, out)
+    differ = masks != want_masks
+    assert (z[differ].abs() <= 1e-5 * z.abs().max()).all()
+    assert torch.equal(grid_out, grid_want)
+    assert torch.equal(grid_masks, grid_want_masks)
+
+
+def test_bf16_fwd_kernel_takes_new_weights():
+    """K1 in bfloat16 called with one set of weights, then with new weight
+    tensors of the same shapes at other addresses (the first set still
+    alive), then with the first again: each call right against the plain
+    version, so no tensor map made for one weight serves another."""
+    x, w1, b1 = _bf16_trn_inputs(202, 5, 512, 256, seed=0)
+    _, w2, b2 = _bf16_trn_inputs(202, 5, 512, 256, seed=4)
+    assert all(a.data_ptr() != c.data_ptr() for a, c in zip(w1, w2))
+    with torch.inference_mode():
+        for w, bi in ((w1, b1), (w2, b2), (w1, b1)):
+            got = trn_fused.trn_multiscale_infer(x, w, bi, 5)
+            out, _ = trn_fused.trn_multiscale_fwd_masks(x, w, bi, 5)
+            want = trn_fused.trn_multiscale_plain(x, w, bi, 5)
+            torch.cuda.synchronize()
+            assert _bf16_ok(got, want) and torch.equal(got, out)
+
+
+def test_bf16_kernels_refuse_more_scales_than_their_maps():
+    """The bfloat16 TRN kernels take BF16_MAX_SCALES scales: one more
+    raises, naming the limit, and launches nothing."""
+    s = trn_fused.BF16_MAX_SCALES + 2
+    x, w, bi = _bf16_trn_inputs(2, s, 16, 8)
+    trn_fused.bf16_launches = trn_fused.bf16_train_launches = 0
+    trn_fused.bf16_bwd_launches = 0
+    limit = f"at most {trn_fused.BF16_MAX_SCALES} scales"
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match=limit):
+            trn_fused.trn_multiscale_infer(x, w, bi, s)
+        with pytest.raises(ValueError, match=limit):
+            trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+        masks = torch.zeros((2, trn_fused._n_subsets(s, 3) * 8),
+                            dtype=torch.uint8, device="cuda")
+        g = torch.zeros((2, s - 1, 8), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match=limit):
+            trn_fused.trn_multiscale_bwd(x, w, masks, g, s)
+    assert (trn_fused.bf16_launches, trn_fused.bf16_train_launches,
+            trn_fused.bf16_bwd_launches) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("b,s,d,h", BF16_CASES + [(202, 25, 512, 256)])
