@@ -62,8 +62,9 @@ K2 at B = 202, at S = 5 and 17, and K3's five store x compute variants
 beyond float32 x float32 at 640, 320, 37 and 0 rows, each against its
 plain version in the same dtype and timed with it (K1 in bfloat16 also
 at S = 17, K2 in bfloat16 at S = 17 and 25; at bfloat16 compute K3 also
-at 370 rows and against index_select + mm in bfloat16); the bfloat16
-flagship
+at 370 rows and against index_select + mm in bfloat16, at float32
+compute against index_select, the convert or dequantize and mm in
+float32); the bfloat16 flagship
 served by Predictors at batch 64 and 1 against their plain path; 5
 bfloat16 device-store steps from an int8 and from a bfloat16 store
 against the plain path from the same start (2 K3, 1 K1 (train), 1 K2 of
@@ -71,6 +72,19 @@ the bfloat16 variants a step), then timed and profiled; the train CLI
 with --device_store --store_dtype int8 --compute_dtype bfloat16
 --optimizer Adam for 2 epochs, the eval CLI on its best checkpoint
 (Pred@1 the best Prec@1) and an --accum_steps 2 epoch from host features.
+The chunked training modes at the flagship's widths: K = 4 steps per
+call against 4 single steps from one start, the step timed at K = 1 and
+K = 4 with its busy time, idle share and host-to-device copies; the
+device sampler's val batches bitwise the host loader's, its random
+batches bitwise equal on the card and the CPU, and a sampled K = 4 call
+against the K-step call on the same indices; one epoch streamed in
+shards (the source store in at least 3) bitwise against the resident
+stores, with the shard uploads and their overlap with compute; the
+train CLI for one epoch with --steps_per_call 4, with --device_sampler
+as well, and streamed with --store_budget_rows and --device_sampler, its
+launches per step and its Prec@1 against the resident single-step
+Trainer's on the same weights; and the eval CLI streamed against the
+resident run, bitwise.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -100,8 +114,12 @@ from torch import nn
 
 from ta3n_tpu_torch.cli import test_models as cli_test_models
 from ta3n_tpu_torch.cli import train as cli_train
+from ta3n_tpu_torch.cli.opts import build_parser, configs_from_args
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.data import FeatureStore, TSNLoader, make_domain_pair
+from ta3n_tpu_torch.data.device_sampler import (DeviceSampler,
+                                                StreamingDeviceSampler)
+from ta3n_tpu_torch.data.streaming import ShardPlan, ShardStream
 from ta3n_tpu_torch.io_utils.convert import load_reference_checkpoint
 from ta3n_tpu_torch.models import VideoModel
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
@@ -109,8 +127,10 @@ from ta3n_tpu_torch.ops import _build, gather_gemm, relation, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
 from ta3n_tpu_torch.serve import Predictor, make_http_server
 from ta3n_tpu_torch.train import (StepScalars, TrainState, make_eval_step,
+                                  make_multi_train_step,
+                                  make_sampled_multi_step,
                                   make_multi_eval_step, make_train_step)
-from ta3n_tpu_torch.train.loop import Trainer
+from ta3n_tpu_torch.train.loop import Trainer, build_loaders
 from ta3n_tpu_torch.train.optim import make_optimizer
 from ta3n_tpu_torch.train.schedules import dann_lr, effective_beta, progress
 
@@ -292,6 +312,15 @@ BF16_UPDATE_RTOL = 5e-2
 # Predictor against its plain path: logits an ulp or two apart
 BF16_PROB_TOL = 2.0 ** -6
 BF16_STEPS = 5
+# K3 from a narrow store at float32 compute has a library counterpart of
+# three calls: index_select, then this, then mm in float32
+LIBRARY_CAST = {"bf16": "convert", "int8": "dequantize"}
+# the chunked training modes: K steps per call, the timed steps of each
+# run (in calls of K), and the shards the source store streams in (at
+# least)
+CHUNK_K = 4
+CHUNK_TIMED = 20
+CHUNK_SHARDS = 3
 
 
 def log(msg: str) -> None:
@@ -1102,11 +1131,11 @@ def train_flagship(gen):
     return launches
 
 
-def device_profile(run, n, step_ms, label, top=8):
+def device_profile(run, n, step_ms, label, top=8, copies=False):
     """Profile ``run(n)`` (n steps back to back): device time per step of
     the ``top`` kernels that take most, and the device's idle share
-    against ``step_ms``, the unprofiled time of a step run back to
-    back."""
+    against ``step_ms``, the unprofiled time of a step run back to back;
+    with ``copies`` also the host-to-device copies per step."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1116,14 +1145,16 @@ def device_profile(run, n, step_ms, label, top=8):
                and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     idle = 1 - busy_ms / step_ms
+    h2d = sum(e.count for e in kernels if "HtoD" in e.key) / n
     log(f"  profile of {n} {label}: device busy {busy_ms:.4f} ms per step, "
         f"{sum(e.count for e in kernels) // n} kernels per step; against "
         f"{step_ms:.3f} ms per step back to back, the device is idle "
-        f"{100 * idle:.1f}% of the time")
+        f"{100 * idle:.1f}% of the time"
+        + (f"; {h2d:.2f} host-to-device copies per step" if copies else ""))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/step "
             f"{e.count // n:4d}x  {e.key[:90]}")
-    return busy_ms, idle
+    return (busy_ms, idle, h2d) if copies else (busy_ms, idle)
 
 
 def time_train_step(gen, warmup=3):
@@ -1745,12 +1776,16 @@ def trainer_records():
                "seconds": time.perf_counter() - t0, "launches": counts(),
                "bf16_launches": bf16_counts(), "store": self.device_store}
         if kind == "train":
-            rec["steps"] = min(len(self.source_loader),
-                               len(self.target_loader))
+            rec["steps"] = (min(
+                self.source_loader.shard_epoch_len(self._plan_s),
+                self.target_loader.shard_epoch_len(self._plan_t))
+                if self.streaming else min(len(self.source_loader),
+                                           len(self.target_loader)))
             rec["videos"] = (self.source_loader.num_videos
                              + self.target_loader.num_videos)
         else:
-            rec["batches"] = len(self.val_loader)
+            rec["batches"] = (self.val_loader.shard_epoch_len(self._plan_v)
+                              if self.streaming else len(self.val_loader))
         records.append(rec)
         return out
 
@@ -2286,7 +2321,9 @@ def time_bf16_kernels(gen, stores):
     batch and S = 5, 17, K2 at the train batch and S = 5, 17, 25, K3 at the
     train shape (640 rows with x_res) and the eval shape (320 rows
     without), at bfloat16 compute also at the target batch's 370 rows with
-    x_res and against index_select + mm in bfloat16.  Returns {name: (ms,
+    x_res and against index_select + mm in bfloat16, at float32 compute
+    from a narrow store against index_select, the convert (bfloat16) or
+    ``float() * scale`` (int8) and mm in float32.  Returns {name: (ms,
     plain_ms, library_ms, work)}, the K1 (infer) times by batch at S=5,
     K3's at the eval shape and the others by their shape's key (K3 "n370",
     K1 and K2 "s17", K1 (infer) "s17_b1", "s17_b202", K2 "s25")."""
@@ -2397,6 +2434,14 @@ def time_bf16_kernels(gen, stores):
                     rows_bf = stores["bf16"]
                     fns["library"] = lambda: torch.mm(
                         rows_bf.index_select(0, rows.rows), wc.t())
+                elif kind == "bf16":  # gather, convert, mm in float32
+                    fns["library"] = lambda: torch.mm(
+                        store.index_select(0, rows.rows).float(), wc.t())
+                else:  # gather, dequantize, mm in float32
+                    fns["library"] = lambda: torch.mm(
+                        store[0].index_select(0, rows.rows).float()
+                        * store[1].index_select(0, rows.rows)[:, None],
+                        wc.t())
                 tt = time_pair(fns)
                 work = gather_work(rows, d, h, with_rows, sizes[kind],
                                    sizes[compute])
@@ -2406,7 +2451,9 @@ def time_bf16_kernels(gen, stores):
                     f"{'with' if with_rows else 'without'} x_res: kernel "
                     f"{tt['kernel']:.4f} ms, plain {tt['plain']:.4f} ms"
                     + (f", index_select + mm in bfloat16 "
-                       f"{tt['library']:.4f} ms" if "library" in tt else "")
+                       f"{tt['library']:.4f} ms" if compute == "bf16" else
+                       f", index_select, {LIBRARY_CAST[kind]} and mm in "
+                       f"float32 {tt['library']:.4f} ms")
                     + f" device; bound {least:.4f} ms by {by}")
                 entry = (tt["kernel"], tt["plain"], tt.get("library"), work)
                 if not with_rows:
@@ -2766,6 +2813,438 @@ def eval_cli_narrow(root, weights):
     return launches, launches32
 
 
+def stacked_pairs(pairs):
+    """Index-batch pairs stacked [k, ...]: (source arrays, target
+    arrays)."""
+    return ([np.stack(x) for x in zip(*(bs for bs, _ in pairs))],
+            [np.stack(x) for x in zip(*(bt for _, bt in pairs))])
+
+
+def chunk_scalars(i0, k, total, beta_cfg):
+    """The schedule values of steps [i0, i0 + k) of ``total`` for one
+    K-step call: a StepScalars of k-long lists."""
+    return StepScalars(*(list(f) for f in zip(
+        *(scalars(i, total, beta_cfg) for i in range(i0, i0 + k)))))
+
+
+def per_call(steps):
+    """The launches of ``steps`` flagship device-store steps: 2 K3, 1 K1
+    (train) and 1 K2 each."""
+    return {"trn_fused_fwd": 0, "trn_fused_fwd_train": steps,
+            "trn_fused_bwd": steps, "gather_gemm": 2 * steps}
+
+
+def check_same(label, got_state, want_state, got_metrics, want_metrics):
+    """The metrics of each step within STEP_RTOL and the parameters after
+    within PARAM_TOL (no rows let through), of a chunked run against its
+    reference from the same start; whether they are bitwise equal."""
+    worst = max(check_metrics(j, g, w, label) for j, (g, w) in
+                enumerate(zip(got_metrics, want_metrics)))
+    diff, _ = check_params(len(got_metrics) - 1, got_state.model,
+                           want_state.model, label, {})
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        got_state.model.state_dict().values(),
+        want_state.model.state_dict().values()))
+    return worst, diff, bitwise
+
+
+def unstack(m, k):
+    """A K-step call's metrics [k] as k dicts of numbers."""
+    host = {key: v.tolist() for key, v in m.items()}
+    return [{key: v[j] for key, v in host.items()} for j in range(k)]
+
+
+def multi_step_phase(gen, stores, dev):
+    """Phase 1, K steps per call: make_multi_train_step at K = CHUNK_K
+    from the stores against CHUNK_K calls of the device-store step from
+    the same start (dropout 0), launches checked (2 K3, 1 K1 (train), 1
+    K2 a step); then the published step (dropout 0.5) timed at K = 1 and
+    K = CHUNK_K, in turns, with the device's busy time, idle share and
+    host-to-device copies per step by the profiler.  Returns the launches
+    of the K-step call."""
+    k = CHUNK_K
+    model = flagship_model(gen)
+    ref_model = copy.deepcopy(model)
+    idx_s, idx_t = store_loaders(stores)
+    pairs = list(zip(idx_s.index_epoch(), idx_t.index_epoch()))[:k]
+    stacked_s, stacked_t = stacked_pairs(pairs)
+    sc = chunk_scalars(0, k, 100, (-1.0, -1.0, -1.0))
+    state = TrainState(model, make_optimizer(model.parameters(), TRAIN), 0)
+    multi = make_multi_train_step(model, DA, TRAIN)
+    reset_counts()
+    state, got = multi(state, dev[0], *stacked_s, dev[1], *stacked_t, sc,
+                       None)
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != per_call(k):
+        raise AssertionError(f"the K-step call launched {launches}")
+    ref = TrainState(ref_model, make_optimizer(ref_model.parameters(),
+                                               TRAIN), 0)
+    single = make_train_step(ref_model, DA, TRAIN, gather_on_device=True)
+    want = []
+    for j, (bs, bt) in enumerate(pairs):
+        ref, m = single(ref, dev[0], *bs, dev[1], *bt,
+                        StepScalars(*(f[j] for f in sc)), None)
+        want.append({key: float(v) for key, v in m.items()})
+    worst, diff, bitwise = check_same(f"{k} single steps'", state, ref,
+                                      unstack(got, k), want)
+    log(f"  K = {k} in one call against {k} single steps from one start: "
+        f"metrics within {worst:.3e} relative (tolerance {STEP_RTOL}), "
+        f"parameters within {diff:.3e} (PARAM_TOL), bitwise equal: "
+        f"{bitwise}; launches {launches}")
+
+    # the published step timed at K = 1 (the single device-store step, as
+    # the Trainer runs it) and K = CHUNK_K
+    timed_model = flagship_model(gen, dropout=0.5)
+    runs = {}
+    for kk in (1, k):
+        net = copy.deepcopy(timed_model)
+        loaders = store_loaders(stores, seed=5)
+        runs[kk] = [TrainState(net, make_optimizer(net.parameters(), TRAIN),
+                               0),
+                    make_train_step(net, DA, TRAIN, gather_on_device=True)
+                    if kk == 1 else make_multi_train_step(net, DA, TRAIN),
+                    zip(endless(loaders[0].index_epoch),
+                        endless(loaders[1].index_epoch)),
+                    torch.Generator("cuda").manual_seed(0)]
+
+    def run(kk, n):
+        state, step, batches, rng = runs[kk]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n // kk):
+            if kk == 1:
+                bs, bt = next(batches)
+                state, m = step(state, dev[0], *bs, dev[1], *bt,
+                                scalars(state.step, 1000, TRAIN.beta), rng)
+                continue
+            s_, t_ = stacked_pairs([next(batches) for _ in range(kk)])
+            state, m = step(state, dev[0], *s_, dev[1], *t_,
+                            chunk_scalars(state.step, kk, 1000, TRAIN.beta),
+                            rng)
+        torch.cuda.synchronize()
+        runs[kk][0] = state
+        if not torch.isfinite(m["loss"]).all():
+            raise AssertionError("a chunked step's loss is not finite")
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    for kk in runs:
+        run(kk, 2 * kk)
+    times = {kk: [] for kk in runs}
+    for order in ((1, k), (k, 1), (1, k), (k, 1)):
+        for kk in order:
+            times[kk].append(run(kk, CHUNK_TIMED))
+    for kk, t in times.items():
+        step_ms = statistics.median(t)
+        log(f"  K = {kk}: {step_ms:.3f} ms per step ({CHUNK_TIMED} steps "
+            f"in calls of {kk}, median of {len(t)}; {card_line()})")
+        device_profile(lambda n: run(kk, n), 2 * k, step_ms,
+                       f"steps at K = {kk}", top=4, copies=True)
+    return launches
+
+
+def sampler_phase(gen, stores, dev):
+    """Phase 2, the device sampler: val mode without shuffle bitwise the
+    host loader's index_epoch(); random mode with shuffle on the card
+    bitwise the same sampler on the CPU over an epoch and a step; one
+    make_sampled_multi_step call at K = CHUNK_K against
+    make_multi_train_step fed the same indices stacked on the host.
+    Returns the launches of the sampled call."""
+    val = TSNLoader(stores[2], batch_size=TRAIN.batch_size[2],
+                    num_segments=FLAGSHIP.val_segments, mode="val",
+                    shuffle=False)
+    card = DeviceSampler(val, seed=1).to("cuda")
+    for step, hb in enumerate(val.index_epoch()):
+        for got, want in zip(card.batch(step), hb):
+            if not np.array_equal(got.cpu().numpy(), want):
+                raise AssertionError(f"val batch {step} differs from the "
+                                     "host loader's")
+    log(f"  val mode: {len(val)} batches bitwise the host loader's")
+
+    def random_loader(store, b, seed):
+        return TSNLoader(store, batch_size=b,
+                         num_segments=FLAGSHIP.train_segments,
+                         mode="random", shuffle=True, seed=seed)
+
+    cpu = DeviceSampler(random_loader(stores[0], TRAIN.batch_size[0], 1),
+                        seed=101)
+    card = DeviceSampler(random_loader(stores[0], TRAIN.batch_size[0], 1),
+                         seed=101).to("cuda")
+    for step in range(cpu.steps_per_epoch + 1):
+        for a, b in zip(cpu.batch(step), card.batch(step)):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"random batch {step}: card and CPU "
+                                     "differ")
+    log(f"  random mode, shuffled: {cpu.steps_per_epoch + 1} batches on the"
+        " card bitwise the CPU's")
+
+    k = CHUNK_K
+    samplers = [DeviceSampler(random_loader(st, b, i + 1),
+                              seed=101 * (i + 1)).to("cuda")
+                for i, (st, b) in enumerate(zip(stores[:2],
+                                                TRAIN.batch_size[:2]))]
+    spe = min(sp.steps_per_epoch for sp in samplers)
+    for sp in samplers:
+        sp.steps_per_epoch = spe
+    model = flagship_model(gen)
+    ref_model = copy.deepcopy(model)
+    sc = chunk_scalars(0, k, 100, (-1.0, -1.0, -1.0))
+    state = TrainState(model, make_optimizer(model.parameters(), TRAIN), 0)
+    step = make_sampled_multi_step(model, DA, TRAIN, *samplers)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, got = step(state, dev[0], dev[1], sc, None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    if launches != per_call(k):
+        raise AssertionError(f"the sampled call launched {launches}")
+    stacked = [[torch.stack(x).cpu().numpy() for x in zip(
+        *(sp.batch(j) for j in range(k)))] for sp in samplers]
+    ref = TrainState(ref_model, make_optimizer(ref_model.parameters(),
+                                               TRAIN), 0)
+    ref, want = make_multi_train_step(ref_model, DA, TRAIN)(
+        ref, dev[0], *stacked[0], dev[1], *stacked[1], sc, None)
+    worst, diff, bitwise = check_same(
+        "the K-step call on host-stacked indices'", state, ref,
+        unstack(got, k), unstack(want, k))
+    log(f"  one sampled call of K = {k} ({seconds * 1e3:.1f} ms, "
+        f"{card_line()}) against the K-step call on the same indices "
+        f"stacked on the host: metrics within {worst:.3e}, parameters "
+        f"within {diff:.3e}, bitwise equal: {bitwise}; launches {launches}")
+    return launches
+
+
+def copy_overlap(prof, min_us=50.0):
+    """The host-to-device copies of at least ``min_us`` in a profile: their
+    device times, and how much of them ran while a kernel ran (ms); None
+    where the profile holds no device intervals."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [(e.time_range.start, e.time_range.end) for e in events
+              if "HtoD" in e.name and e.time_range.elapsed_us() >= min_us]
+    if not events:
+        return None
+    merged = []
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events if not e.name.startswith("Mem")):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    over = sum(max(0, min(b, d) - max(a, c)) for a, b in copies
+               for c, d in merged)
+    return [(b - a) / 1e3 for a, b in copies], over / 1e3
+
+
+def budget_rows(store, shards=CHUNK_SHARDS):
+    """A shard budget that splits ``store`` into at least ``shards``
+    shards."""
+    rows = int(store.offsets[-1]) // shards
+    if ShardPlan(store.offsets, rows).num_shards < shards:
+        raise AssertionError(f"{rows} rows make fewer than {shards} shards")
+    return rows
+
+
+def streaming_phase(gen, stores, dev):
+    """Phase 3, shard streaming: one epoch of shard-local batches in
+    K-step calls (a call never spans a shard pair) through ShardStream,
+    the source store in at least CHUNK_SHARDS shards, against the
+    resident stores on the same batches with global indices, from one
+    start at dropout 0.5 with one generator seed: bitwise equal
+    parameters (K3's grid depends on the batch's rows, not on the store's
+    row count).  The shard uploads and their overlap with compute by the
+    profiler.  Returns the launches of the streamed run."""
+    from torch.profiler import ProfilerActivity, profile
+    n = budget_rows(stores[0])
+    plans = [ShardPlan(st.offsets, n) for st in stores[:2]]
+    loaders = store_loaders(stores)
+    pairs = list(zip(loaders[0].shard_index_epoch(plans[0]),
+                     loaders[1].shard_index_epoch(plans[1])))
+    chunks, i = [], 0
+    while i < len(pairs):
+        key = (pairs[i][0][0], pairs[i][1][0])
+        j = i + 1
+        while j < len(pairs) and j - i < CHUNK_K and (
+                pairs[j][0][0], pairs[j][1][0]) == key:
+            j += 1
+        chunks.append((key, [(bs, bt) for (_, bs), (_, bt) in pairs[i:j]]))
+        i = j
+    total = len(pairs)
+    model = flagship_model(gen, dropout=0.5)
+    results = []
+    # streamed, resident, then streamed again under the profiler
+    for run, streamed in enumerate((True, False, True)):
+        net = copy.deepcopy(model)
+        state = TrainState(net, make_optimizer(net.parameters(), TRAIN), 0)
+        multi = make_multi_train_step(net, DA, TRAIN)
+        rng = torch.Generator("cuda").manual_seed(3)
+        streams = [ShardStream(st.features, p, "cuda")
+                   for st, p in zip(stores[:2], plans)]
+        metrics = []
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) if run == 2
+              else contextlib.nullcontext()) as prof:
+            for (sid_s, sid_t), chunk in chunks:
+                sc = chunk_scalars(state.step, len(chunk), total,
+                                   TRAIN.beta)
+                if streamed:
+                    s_, t_ = stacked_pairs(chunk)
+                    state, m = multi(state, streams[0].get(sid_s), *s_,
+                                     streams[1].get(sid_t), *t_, sc, rng)
+                else:
+                    glob = [(bs._replace(abs_indices=np.where(
+                        bs.mask[:, None] > 0, bs.abs_indices + np.int32(
+                            plans[0].row_lo[sid_s]), 0).astype(np.int32)),
+                             bt._replace(abs_indices=np.where(
+                                 bt.mask[:, None] > 0, bt.abs_indices
+                                 + np.int32(plans[1].row_lo[sid_t]),
+                                 0).astype(np.int32)))
+                            for bs, bt in chunk]
+                    s_, t_ = stacked_pairs(glob)
+                    state, m = multi(state, dev[0], *s_, dev[1], *t_, sc,
+                                     rng)
+                metrics.extend(unstack(m, len(chunk)))
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts()
+        if launched != per_call(total):
+            raise AssertionError(f"the streamed epoch launched {launched}")
+        results.append((state, metrics, launched))
+        label = ["streamed", "resident", "streamed, profiled"][run]
+        log(f"  {label}: {total} steps in {len(chunks)} calls, "
+            f"{seconds:.3f} s ({card_line()}); launches {launched}")
+        if run == 2:
+            overlap = copy_overlap(prof)
+            log(f"  shards: source {plans[0].num_shards}, target "
+                f"{plans[1].num_shards} of {n} rows, uploads "
+                f"{streams[0].uploads} + {streams[1].uploads}; "
+                + ("copies of >= 50 us: not measured (no device intervals "
+                   "in the profile)" if overlap is None else
+                   f"copies of >= 50 us: {len(overlap[0])}, ms on the "
+                   f"device {[round(t, 4) for t in overlap[0]]}, "
+                   f"{overlap[1]:.3f} ms of them while a kernel ran"))
+    for got in (results[0], results[2]):
+        worst, diff, bitwise = check_same("the resident stores'", got[0],
+                                          results[1][0], got[1],
+                                          results[1][1])
+        if not bitwise:
+            raise AssertionError("streamed training is not bitwise the "
+                                 "resident stores'")
+    log(f"  streamed against resident over one epoch: bitwise equal "
+        f"parameters (metrics within {worst:.3e})")
+    return results[0][2]
+
+
+def resident_prec1(argv, ckpt):
+    """The val Prec@1 of the resident single-step Trainer (--device_store
+    alone) of the train CLI line ``argv`` on the weights of ``ckpt``."""
+    args = build_parser().parse_args(argv)
+    model_cfg, da_cfg, train_cfg = configs_from_args(args,
+                                                     FLAGSHIP.num_class)
+    trainer = Trainer(model_cfg, da_cfg, train_cfg,
+                      *build_loaders(args, model_cfg, train_cfg)[:3],
+                      device_store=True)
+    trainer.resume(ckpt)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return trainer.validate(1)
+
+
+def chunked_cli(root):
+    """Phase 4, the train CLI for one epoch from the stores in each
+    chunked mode: --steps_per_call CHUNK_K; with --device_sampler; and
+    with --store_budget_rows N (the source store in at least
+    CHUNK_SHARDS shards) and --device_sampler.  Every epoch's and
+    validation's launches checked per batch (check_trainer_launches), the
+    epoch's seconds and videos/s logged, and the validation's Prec@1
+    equal to that of the resident single-step Trainer on the same
+    weights.  Returns the summed launches and the last run's checkpoint."""
+    lists = [os.path.join(root, n, "list.txt") for n in ("src", "tgt", "val")]
+    n = budget_rows(FeatureStore.load(os.path.join(root, "src")))
+    base = ["--device_store", "--steps_per_call", str(CHUNK_K)]
+    runs = (("K steps per call", base),
+            ("device sampler", base + ["--device_sampler"]),
+            ("streamed, device sampler",
+             base + ["--store_budget_rows", str(n), "--device_sampler"]))
+    launches = dict.fromkeys(counts(), 0)
+    for i, (label, flags) in enumerate(runs):
+        exp = os.path.join(root, f"exp_chunked{i}")
+        argv = [os.path.join(root, "class.txt"), "RGB", *lists, *MODEL_FLAGS,
+                *RECIPE_FLAGS, "--exp_path", exp + "/", "--save_best_log",
+                os.path.join(exp, "best.log"), "--epochs", "1",
+                "--save_model", *flags]
+        with trainer_records() as records:
+            best, out = run_cli(cli_train.main, argv)
+        prec1 = None
+        for rec in records:
+            check_trainer_launches(rec)
+            launches = {k: launches[k] + v
+                        for k, v in rec["launches"].items()}
+            if rec["kind"] == "train":
+                log(f"  {label}: epoch {rec['seconds']:.3f} s, "
+                    f"{rec['steps']} steps, {rec['videos']} videos, "
+                    f"{rec['videos'] / rec['seconds']:.0f} videos/s "
+                    f"({card_line()}); launches {rec['launches']}")
+            else:
+                prec1 = rec["out"]
+                log(f"  {label}: validation Prec@1 {prec1:.3f} in "
+                    f"{rec['seconds'] * 1e3:.1f} ms ({rec['batches']} "
+                    f"batches)")
+        ckpt = os.path.join(exp, "RGB", "checkpoint.pth.tar")
+        want = resident_prec1(argv[:argv.index("--steps_per_call")], ckpt)
+        if prec1 != want:
+            raise AssertionError(f"{label}: validation Prec@1 {prec1}, the "
+                                 f"resident single-step Trainer's {want}")
+        log(f"  {label}: Prec@1 equal to the resident single-step "
+            f"Trainer's on the same weights ({want:.3f})")
+    return launches, ckpt
+
+
+def streamed_eval_cli(root, weights):
+    """Phase 5, the eval CLI with --device_store --store_budget_rows N
+    (the val store in at least CHUNK_SHARDS shards) against the resident
+    --device_store run: the same Pred@k line, bitwise the same scores and
+    attention; one K3 and one K1 (infer) per streamed batch.  Returns the
+    streamed run's launches."""
+    val = FeatureStore.load(os.path.join(root, "val"))
+    n = budget_rows(val)
+    plan = ShardPlan(val.offsets, n)
+    nb = TSNLoader(val, batch_size=CLI_BATCH, num_segments=5,
+                   shuffle=False).shard_epoch_len(plan)
+    outs = {}
+    for label, extra in (("resident", []),
+                         ("streamed", ["--store_budget_rows", str(n)])):
+        prefix = os.path.join(root, f"eval_{label}")
+        reset_counts()
+        t0 = time.perf_counter()
+        line, _ = run_cli(cli_test_models.main, eval_cli_args(
+            root, weights, "--device_store", "--save_scores",
+            prefix + "_scores", "--save_attention", prefix + "_attn",
+            *extra))
+        seconds = time.perf_counter() - t0
+        launched = counts()
+        outs[label] = (line, np.load(prefix + "_scores.npz")["scores"],
+                       np.loadtxt(prefix + "_attn.txt"), launched)
+        log(f"  {label}: {line.strip()} in {seconds:.2f} s "
+            f"({card_line()}); launches {launched}")
+    line, scores, attn, launched = outs["streamed"]
+    want = outs["resident"]
+    if line != want[0] or not np.array_equal(scores, want[1]) or \
+            not np.array_equal(attn, want[2]):
+        raise AssertionError("the streamed eval CLI's outputs differ from "
+                             "the resident run's")
+    if launched != {"trn_fused_fwd": nb, "trn_fused_fwd_train": 0,
+                    "trn_fused_bwd": 0, "gather_gemm": nb}:
+        raise AssertionError(f"the streamed eval CLI launched {launched}, "
+                             f"expected {nb} K1 and {nb} K3")
+    log(f"  streamed ({plan.num_shards} shards of {n} rows, {nb} batches): "
+        "scores and attention bitwise the resident run's")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
@@ -2876,6 +3355,18 @@ def main() -> int:
     log(f"the TRN beyond 16 segments: S = {MANY_FRAMES}")
     many_launches, many = trn_many_frames(gen)
     add(many_launches)
+    t_chunked = time.perf_counter()
+    log(f"K = {CHUNK_K} steps per call, {TRAIN.batch_size[0]} + "
+        f"{TRAIN.batch_size[1]} videos: against {CHUNK_K} single steps, "
+        f"and timed at K = 1 and {CHUNK_K} ({card_line()})")
+    add(multi_step_phase(gen, stores, dev))
+    log("the device sampler: val batches, random batches on the card and "
+        f"the CPU, a sampled call of K = {CHUNK_K}")
+    add(sampler_phase(gen, stores, dev))
+    log(f"shard streaming: one epoch in shards, K = {CHUNK_K}, against the "
+        "resident stores")
+    add(streaming_phase(gen, stores, dev))
+    t_chunked = time.perf_counter() - t_chunked
     with tempfile.TemporaryDirectory() as root:
         write_workspace(root, stores)
         log(f"eval CLI: {len(stores[2].paths)} videos at --bS {CLI_BATCH}")
@@ -2883,6 +3374,14 @@ def main() -> int:
         log("Trainer through the train CLI: the published recipe on "
             "stores of the published split sizes")
         add(train_cli(root))
+        t0 = time.perf_counter()
+        log("the chunked modes through the train CLI: one epoch each")
+        got, ckpt = chunked_cli(root)
+        add(got)
+        log("the eval CLI from a streamed store against the resident one")
+        add(streamed_eval_cli(root, ckpt))
+        t_chunked += time.perf_counter() - t0
+        log(f"the chunked modes: {t_chunked:.1f} s in all ({card_line()})")
         log("comparison configurations: " + ", ".join(COMPARISON) + " at "
             f"{TRAIN.batch_size[0]} + {TRAIN.batch_size[1]} videos; "
             + " and ".join(COMPARISON_CLI) + " through the CLIs")

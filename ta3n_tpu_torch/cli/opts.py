@@ -153,31 +153,37 @@ def build_parser() -> argparse.ArgumentParser:
                              'XLA programs)')
     parser.add_argument('--device_store', default=False,
                         action='store_true',
-                        help='keep the packed feature stores resident in '
-                             'HBM and gather batches on device (only '
-                             'indices cross the host boundary)')
+                        help='keep the packed feature stores on the card '
+                             'and gather batches there (only indices '
+                             'cross from the host)')
     parser.add_argument('--steps_per_call', type=int, default=1,
-                        help='optimizer steps per dispatch (lax.scan); '
-                             'amortizes dispatch latency; device_store '
-                             'only')
+                        help='optimizer steps per call of the train '
+                             'step: K index batches stacked and uploaded '
+                             'once per call; device_store only (1 with '
+                             '--save_attention or --pretrain_source)')
     parser.add_argument('--store_budget_rows', type=int, default=0,
-                        help='larger-than-HBM streaming: max feature-store '
-                             'rows resident per shard (device_store only; '
-                             '0 = fully resident). Peak device residency '
-                             'is 2 shards (current + prefetched)')
+                        help='larger-than-memory streaming: at most this '
+                             'many feature-store rows per shard on the '
+                             'card, the next shard uploaded on a side '
+                             'stream meanwhile (device_store only; 0 = '
+                             'fully resident). Peak device residency is 2 '
+                             'shards (current + prefetched)')
     parser.add_argument('--device_sampler', default=False,
                         action='store_true',
-                        help='generate index batches ON DEVICE (epoch '
-                             'permutation + TSN sampling inside the '
-                             'compiled scan): no per-step host sampling '
+                        help='make the index batches on the card (epoch '
+                             'orders and TSN sampling as torch ops inside '
+                             'the K-step call): no per-step host sampling '
                              'or index upload. Requires --device_store '
                              'and --steps_per_call > 1. With '
-                             '--store_budget_rows, batches are generated '
-                             'shard-locally against the resident shard '
-                             '(bitwise host parity in deterministic '
-                             'modes); random-mode sampling uses a keyed '
-                             'PRNG stream (deterministic per seed, '
-                             'distribution-equal to the host sampler)')
+                             '--store_budget_rows, batches are made '
+                             'shard-locally against the shard on the card '
+                             '(bitwise the host loader\'s in '
+                             'deterministic modes without shuffle); '
+                             'random sampling and shuffled orders come '
+                             'from a counter-keyed integer hash '
+                             '(deterministic per seed, bitwise equal on '
+                             'the CPU and the card, distribution-equal to '
+                             'the host sampler)')
     parser.add_argument('--model_parallel', type=int, default=1,
                         help='tensor parallelism degree: devices form a '
                              '(data x model) mesh; large dense kernels '

@@ -22,7 +22,12 @@ PNG and per-class top-K txt (``--save_confusion``), the attention txt
 (``--save_scores``).  With ``--device_store`` the test store is uploaded
 once, as float32, bfloat16 or int8 (``--store_dtype``; a store quantized
 on disk uploads its own int8 rows), and the whole test set runs in one
-call, gathered on the device, with one fetch.
+call, gathered on the device, with one fetch.  With ``--store_budget_rows
+N`` as well the store goes to the card in shards of at most N rows
+(`data/streaming.py`), the next one uploaded while the current one is
+evaluated; the batches of each shard run in one call with one fetch, and
+the outputs are put back in the list's order, so that they are those of
+the resident store.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 from ta3n_tpu_torch.config import ModelConfig
 from ta3n_tpu_torch.data import (FeatureStore, TSNLoader, load_class_names,
                                  parse_list_file)
+from ta3n_tpu_torch.data.streaming import ShardPlan, ShardStream
 from ta3n_tpu_torch.io_utils.confusion import (confusion_matrix,
                                                per_class_topk_accuracy,
                                                plot_confusion_matrix)
@@ -96,7 +102,10 @@ def build_parser():
                         help='keep the feature store on the card; gather on '
                              'the device (indices-only host traffic)')
     parser.add_argument('--store_budget_rows', type=int, default=0,
-                        help=_later('larger-than-memory streaming', '9'))
+                        help='larger-than-memory streaming (with '
+                             '--device_store): the store goes to the card '
+                             'in shards of at most this many rows, two on '
+                             'the card at a time; 0 = resident')
     parser.add_argument('--store_dtype', type=str, default='float32',
                         choices=['float32', 'bfloat16', 'int8'],
                         help='dtype of the store on the card (device_store '
@@ -123,7 +132,6 @@ def _check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose path the port does not
     run, naming its ROADMAP.md item."""
     for on, what, item in (
-            (args.store_budget_rows, "--store_budget_rows", "9"),
             (args.quantize == "int8", "--quantize int8", "10"),
             (args.data_parallel, "--data_parallel", "10")):
         if on:
@@ -169,10 +177,16 @@ def main(argv=None):
     max_top = min(max(args.top), num_class)
     infer = make_infer_step(model, max_top,
                             gather_on_device=args.device_store)
-    if args.device_store:
+    streaming = bool(args.device_store and args.store_budget_rows)
+    if streaming:
+        plan = ShardPlan(store.offsets, args.store_budget_rows)
+        stream = ShardStream(store.features, plan, device, args.store_dtype,
+                             scales=store.scales)
+    elif args.device_store:
         store_dev = store.to_device(device, args.store_dtype)
 
     all_scores, all_labels, all_topk, all_attn = [], [], [], []
+    positions = None  # the videos' places in the list, where not 0..n-1
     start = time.time()
     count = 0
 
@@ -191,7 +205,27 @@ def main(argv=None):
         return (probs.cpu().numpy(), top_i.cpu().numpy(),
                 attn.cpu().numpy())
 
-    if args.device_store:
+    if streaming:
+        # each shard's batches in one call and one fetch, in shard order
+        # (as the JAX CLI runs them), then the videos back in list order
+        order = np.concatenate(loader._shard_groups(plan))
+        by_shard = {}
+        for sid, b in loader.shard_index_epoch(plan):
+            by_shard.setdefault(sid, []).append(b)
+        for sid, bs in by_shard.items():
+            probs_a, top_i_a, attn_a = fetch(infer(
+                stream.get(sid), np.stack([b.abs_indices for b in bs]),
+                np.stack([b.mask for b in bs])))
+            for bi, b in enumerate(bs):
+                if accumulate(b, probs_a[bi], top_i_a[bi], attn_a[bi]):
+                    break
+            if args.max_num > 0 and count >= args.max_num:
+                break
+        back = np.argsort(order[:count], kind="stable")
+        for out in (all_scores, all_topk, all_labels, all_attn):
+            out[:] = [np.concatenate(out)[back]]
+        positions = order[:count][back]
+    elif args.device_store:
         bs_all = list(loader.index_epoch())
         if args.max_num > 0:
             # run no batch past the --max_num cap
@@ -246,6 +280,8 @@ def main(argv=None):
         # ordered by sorted video path (test_models.py:232-246), with the
         # scores themselves (the reference saves empty arrays)
         name_list = [r.path for r in records][:len(scores)]
+        if positions is not None:
+            name_list = [records[i].path for i in positions]
         order = np.argsort(np.array(name_list), kind="stable")
         np.savez(args.save_scores, scores=scores[order],
                  labels=labels[order])

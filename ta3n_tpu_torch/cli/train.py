@@ -8,7 +8,10 @@ The positionals and flags are the JAX CLI's (`cli/opts.py`), plus
 ``--device`` (default ``cuda``; without a CUDA device the CLI exits with an
 error rather than train on the CPU: pass ``--device cpu``).  Feature stores
 are the packed FeatureStore directories the JAX package writes, by default
-the directory of each list file.  Checkpoints are reference-format
+the directory of each list file.  With ``--device_store``,
+``--steps_per_call K`` runs K steps a call, ``--device_sampler`` makes the
+index batches on the card and ``--store_budget_rows N`` streams the stores
+in shards, as the Trainer says.  Checkpoints are reference-format
 ``checkpoint.pth.tar`` / ``model_best.pth.tar`` under
 ``EXP_PATH/MODALITY/``, which ``--resume`` reads back.
 """

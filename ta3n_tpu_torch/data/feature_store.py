@@ -123,17 +123,9 @@ class FeatureStore:
         quantizes per row on the host (``quantize_rows``).  A store that
         is quantized on disk uploads its own pair whatever ``dtype`` says,
         as the JAX Trainer does."""
-        name = _dtype_name(dtype)
-        if self.quantized or name == "int8":
-            q, scale = ((self.features, self.scales) if self.quantized
-                        else quantize_rows(np.asarray(self.features)))
-            return (torch.tensor(np.asarray(q), dtype=torch.int8,
-                                 device=device),
-                    torch.tensor(np.asarray(scale), dtype=torch.float32,
-                                 device=device))
-        rows = torch.tensor(np.asarray(self.features), dtype=torch.float32)
-        if name == "bfloat16":
-            rows = rows.to(torch.bfloat16)
+        rows = host_rows(self.features, dtype, self.scales)
+        if isinstance(rows, tuple):
+            return tuple(t.to(device) for t in rows)
         return rows.to(device).contiguous()
 
     # ---- persistence ----
@@ -189,6 +181,25 @@ class FeatureStore:
                 [self.scales[self.offsets[i]:self.offsets[i + 1]]
                  for i in indices])
         return sub
+
+
+def host_rows(features: np.ndarray, dtype=None, scales=None):
+    """Feature rows as the CPU tensor(s) that go to the card: float32
+    (float16 rows upcast exactly), bfloat16 (rounded to nearest even, as
+    numpy's ``astype``), or an int8 ``(q, scale)`` pair, quantized here per
+    row unless ``scales`` says the rows are quantized already, whatever
+    ``dtype`` asks for (`FeatureStore.to_device`).  Every conversion is
+    per row, so a slice of the rows converts to the slice of the
+    converted rows: a streamed shard (`data/streaming.py`) holds exactly
+    the bytes of the resident store."""
+    name = _dtype_name(dtype)
+    if scales is not None or name == "int8":
+        q, scale = ((features, scales) if scales is not None
+                    else quantize_rows(np.asarray(features)))
+        return (torch.tensor(np.asarray(q), dtype=torch.int8),
+                torch.tensor(np.asarray(scale), dtype=torch.float32))
+    rows = torch.tensor(np.asarray(features), dtype=torch.float32)
+    return rows.to(torch.bfloat16) if name == "bfloat16" else rows
 
 
 def _dtype_name(dtype) -> str:

@@ -6,7 +6,9 @@ A vectorised host pipeline (reference: torch DataLoader workers,
 main.py:169-200): one numpy gather per batch, or only indices for the
 device-store steps, with static batch shapes and validity masks instead of
 dummy-row padding (main.py:358-372).  Given the same seed, it samples and
-pads exactly as the JAX loader does.  Index batches are a few KB, so the
+pads exactly as the JAX loader does, also the shard-local batches of a
+streamed store (``shard_index_epoch``, `data/streaming.py`), whose methods
+are the JAX loader's, line for line.  Index batches are a few KB, so the
 port has no prefetch thread.
 """
 
@@ -24,10 +26,6 @@ from ta3n_tpu_torch.data.samplers import (expand_new_length,
                                           sample_indices_val)
 
 __all__ = ["Batch", "IndexBatch", "TSNLoader"]
-
-_STREAMING = ("larger-than-memory shard streaming is not ported yet "
-              "(ROADMAP.md queue 1, item 9)")
-
 
 class Batch(NamedTuple):
     features: np.ndarray   # [B, T, D]
@@ -144,9 +142,49 @@ class TSNLoader:
             abs_idx[n_real:] = 0  # masked rows read row 0 harmlessly
             yield IndexBatch(abs_idx, labels, mask)
 
-    # ---- larger-than-memory streaming ----
+    # ---- larger-than-memory streaming (data/streaming.py) ----
+    def _shard_groups(self, plan):
+        """Record positions grouped by the shard their video lives in,
+        shuffled within each shard (shard-local shuffle window)."""
+        sid_of_record = plan.shard_of(self.video_idx)
+        groups = []
+        for sid in range(plan.num_shards):
+            g = np.nonzero(sid_of_record == sid)[0]
+            if self.shuffle:
+                g = self._rng.permutation(g)
+            groups.append(g)
+        return groups
+
     def shard_epoch_len(self, plan) -> int:
-        raise NotImplementedError(_STREAMING)
+        """Batches per streamed epoch: per-shard tails are padded, so
+        this is >= len(self) by up to num_shards-1 batches."""
+        sid_of_record = plan.shard_of(self.video_idx)
+        counts = np.bincount(sid_of_record, minlength=plan.num_shards)
+        b = self.batch_size
+        return int(sum(-(-int(c) // b) for c in counts if c))
 
     def shard_index_epoch(self, plan) -> Iterator[tuple]:
-        raise NotImplementedError(_STREAMING)
+        """(shard_id, IndexBatch) stream with shard-LOCAL row indices,
+        shards in ascending order (ShardStream prefetch contract).
+        Batches never span shards; shard tails are padded + masked."""
+        b = self.batch_size
+        p = max(self.pad_to, b)
+        for sid, g in enumerate(self._shard_groups(plan)):
+            row0 = int(plan.row_lo[sid])
+            for start in range(0, len(g), b):
+                sel = g[start:start + b]
+                n_real = sel.shape[0]
+                if n_real == 0:
+                    continue
+                if n_real < p:
+                    sel = np.concatenate(
+                        [sel, np.zeros(p - n_real, dtype=sel.dtype)])
+                vids = self.video_idx[sel]
+                frames = self._sample(self.num_frames[sel])
+                labels = self.labels[sel]
+                mask = np.zeros(p, dtype=np.float32)
+                mask[:n_real] = 1.0
+                abs_idx = (self.store.offsets[vids][:, None] + frames
+                           - row0).astype(np.int32)
+                abs_idx[n_real:] = 0  # masked rows read local row 0
+                yield sid, IndexBatch(abs_idx, labels, mask)

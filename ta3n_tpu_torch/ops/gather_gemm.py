@@ -51,7 +51,11 @@ Indices.  A kernel cannot raise on a bad index, so indices are checked on
 the host, where the loader makes them, before they reach the card:
 ``row_index`` checks 0 <= idx < R and uploads them as a ``RowIndex``.  A
 CUDA store takes only a ``RowIndex`` on its device; a CPU store also takes
-an integer array, which it checks the same way.
+an integer array, which it checks the same way.  Indices that the device
+sampler makes on the card (`data/device_sampler.py`) never visit the host:
+their ``RowIndex`` carries the bound that the sampler's records give,
+known on the host when the sampler is built, and every gather checks
+that bound against its store.
 """
 
 from __future__ import annotations
@@ -64,7 +68,8 @@ import torch
 from ta3n_tpu_torch.ops.trn_fused import (_acc, _call, _check_tensor,
                                           _no_kernel)
 
-__all__ = ["RowIndex", "row_index", "gathered_gemm_plain", "gathered_gemm",
+__all__ = ["RowIndex", "row_index", "upload", "gathered_gemm_plain",
+           "gathered_gemm",
            "gathered_linear", "bf16_grid", "launches", "variant_launches"]
 
 # kernel launches made by gathered_gemm and gathered_linear (plain-version
@@ -119,7 +124,20 @@ def row_index(idx, num_rows: int, device="cuda") -> RowIndex:
     if a.size and (a.min() < 0 or end > num_rows):
         raise IndexError(f"row indices must lie in [0, {num_rows}), got "
                          f"[{int(a.min())}, {end - 1}]")
-    return RowIndex(torch.tensor(a, dtype=torch.int32, device=device), end)
+    return RowIndex(upload(a, torch.int32, device), end)
+
+
+def upload(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host array (numpy or CPU tensor) as a new tensor of ``dtype`` on
+    ``device``: to a CUDA device through a pinned buffer, as a
+    ``non_blocking`` copy on the current stream (the host does not wait
+    for it; the caching host allocator keeps the buffer until the copy is
+    done), elsewhere a plain copy."""
+    t = torch.as_tensor(np.asarray(a)).to(dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device, copy=True)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _split_store(store) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

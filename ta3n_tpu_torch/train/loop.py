@@ -9,14 +9,22 @@ bfloat16 or int8 (``store_dtype``).  With ``pretrain_source`` a
 classification-only step runs on every batch before the train step
 (main.py:387-414).  With ``accum_steps`` G > 1 every G host-feature
 batch pairs make one update with averaged gradients
-(``_train_epoch_accum``), under the JAX Trainer's conditions.  Per-step
-Python work is schedule arithmetic and meter updates; metrics stay on the
-device until the print-frequency flush, which fetches them in one copy.
+(``_train_epoch_accum``), under the JAX Trainer's conditions.
 
-What the JAX Trainer runs and the port does not yet raises
-``NotImplementedError`` naming its ROADMAP.md item: several steps per call
-(queue 1, item 4), shard streaming, the device sampler and more than one
-device (item 9), tensorboard and the profiler window (item 5).
+The JAX Trainer's chunked modes, under its conditions and with its
+warnings: ``steps_per_call`` K > 1 runs K device-store steps per call
+(``make_multi_train_step``, ``_train_epoch_multi``); ``store_budget_rows``
+streams each store to the card in shards of at most that many rows
+(`data/streaming.py`), the epoch's batches shard-local; ``device_sampler``
+with K > 1 makes the index batches on the device (`data/device_sampler.py`,
+``make_sampled_multi_step``, ``make_sampled_shard_multi_step``).  All of
+them take their schedule values from ``_chunk_scalars``.
+
+Per-step Python work is schedule arithmetic and meter updates; metrics
+stay on the device until the print-frequency flush, which fetches them in
+one copy.  What the JAX Trainer runs and the port does not yet raises
+``NotImplementedError`` naming its ROADMAP.md item: more than one device
+(queue 1, item 9), tensorboard and the profiler window (item 5).
 """
 
 from __future__ import annotations
@@ -36,6 +44,10 @@ import torch
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.data import (FeatureStore, TSNLoader,
                                  epoch_balance_counts, parse_list_file)
+from ta3n_tpu_torch.data.device_sampler import (DeviceSampler,
+                                                StreamingDeviceSampler,
+                                                plan_zip_shard_chunks)
+from ta3n_tpu_torch.data.streaming import ShardPlan, ShardStream
 from ta3n_tpu_torch.io_utils.checkpoint import (load_checkpoint,
                                                 save_checkpoint)
 from ta3n_tpu_torch.io_utils.convert import (export_reference_state,
@@ -47,7 +59,11 @@ from ta3n_tpu_torch.train.schedules import (alpha_schedule, dann_lr,
 from ta3n_tpu_torch.train.step import (StepScalars, TrainState,
                                        create_train_state, make_eval_step,
                                        make_grad_accum_step,
-                                       make_multi_eval_step, make_train_step)
+                                       make_multi_eval_step,
+                                       make_multi_train_step,
+                                       make_sampled_multi_step,
+                                       make_sampled_shard_multi_step,
+                                       make_train_step)
 
 __all__ = ["Trainer", "TrainingDivergedError", "build_loaders",
            "class_weights_from_list"]
@@ -158,8 +174,12 @@ class Trainer:
     The model's initial weights come from a CPU generator seeded from
     ``seed``, the dropout masks from a generator on ``device`` seeded from
     ``seed`` (those of ``pretrain_source``'s step from one seeded from
-    ``seed + 7919``, as the JAX Trainer's key).  Without the JAX Trainer's ``use_mesh`` and
-    ``prefetch_depth``: one device, and no prefetch thread."""
+    ``seed + 7919``, as the JAX Trainer's key); the device samplers on
+    ``seed + 101`` and ``seed + 202``, as the JAX Trainer's.  Checkpoints
+    hold the step counter and the generators' states, so a resumed run
+    continues the same index and dropout streams.  Without the JAX
+    Trainer's ``use_mesh`` and ``prefetch_depth``: one device, and no
+    prefetch thread."""
 
     def __init__(self, model_cfg: ModelConfig, da_cfg: DAConfig,
                  train_cfg: TrainConfig, source_loader: TSNLoader,
@@ -183,11 +203,6 @@ class Trainer:
                  nan_guard: bool = True,
                  device="cuda"):
         for on, what, item in (
-                (steps_per_call > 1, "steps_per_call > 1 (several steps "
-                 "per call)", "4"),
-                (bool(store_budget_rows), "store_budget_rows (shard "
-                 "streaming)", "9"),
-                (device_sampler, "device_sampler", "9"),
                 (model_parallel > 1, "model_parallel > 1", "9"),
                 (num_devices is not None and num_devices > 1,
                  "num_devices > 1", "9"),
@@ -228,7 +243,14 @@ class Trainer:
             # the first save
             export_reference_state(self.state.model)
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.pretrain_generator = None
         model = self.state.model
+        # K optimizer steps per call: device stores only, and 1 where the
+        # steps' attention values are collected or with pretrain_source
+        # (the JAX Trainer's rule)
+        self.steps_per_call = steps_per_call if (
+            device_store and save_attention < 0
+            and not da_cfg.pretrain_source) else 1
         self.train_step = make_train_step(
             model, da_cfg, train_cfg, class_weights, domain_weights,
             gather_on_device=device_store, return_aux=save_attention >= 0)
@@ -245,7 +267,25 @@ class Trainer:
                 self.device).manual_seed(seed + 7919)
         self.eval_step = make_eval_step(model, class_weights,
                                         gather_on_device=device_store)
-        if device_store:
+        self.multi_step = None
+        if self.steps_per_call > 1:
+            self.multi_step = make_multi_train_step(
+                model, da_cfg, train_cfg, class_weights, domain_weights)
+        self.streaming = bool(device_store and store_budget_rows)
+        if self.streaming:
+            # larger-than-memory stores: shards of at most budget rows
+            # streamed through a double buffer (data/streaming.py); the
+            # same gather steps run against the shard on the card
+            def plan_stream(loader):
+                plan = ShardPlan(loader.store.offsets, store_budget_rows)
+                return plan, ShardStream(loader.store.features, plan,
+                                         self.device, self.store_dtype,
+                                         scales=loader.store.scales)
+
+            self._plan_s, self._stream_s = plan_stream(source_loader)
+            self._plan_t, self._stream_t = plan_stream(target_loader)
+            self._plan_v, self._stream_v = plan_stream(val_loader)
+        elif device_store:
             # stores uploaded once; each step then sends index batches
             uploaded = {}
 
@@ -258,11 +298,56 @@ class Trainer:
             self._dev_store_s = put(source_loader.store)
             self._dev_store_t = put(target_loader.store)
             self._dev_store_v = put(val_loader.store)
+
+        # the index pipeline on the device (data/device_sampler.py): the
+        # K-step call makes its own batches; with K > 1 from device stores
+        # only, as in the JAX Trainer
+        self.sampled_step = None
+        self.shard_sampled_step = None
+        if device_sampler and not (device_store and self.steps_per_call > 1):
+            unmet = []
+            if not device_store:
+                unmet.append("--device_store")
+            if self.steps_per_call <= 1:
+                unmet.append("--steps_per_call > 1")
+            warnings.warn(
+                "--device_sampler ignored; requires " + ", ".join(unmet)
+                + " — falling back to host-side sampling", stacklevel=2)
+        elif device_sampler and self.streaming:
+            # shard-local batches made on the device against the shard
+            # on the card
+            self._ssampler_s = StreamingDeviceSampler(
+                source_loader, self._plan_s, seed=seed + 101).to(self.device)
+            self._ssampler_t = StreamingDeviceSampler(
+                target_loader, self._plan_t, seed=seed + 202).to(self.device)
+            # zip-shortest steps per epoch: the epoch of a step on the
+            # device
+            self._stream_spe = min(
+                sum(s.shard_steps(i) for i in range(s.num_shards))
+                for s in (self._ssampler_s, self._ssampler_t))
+            self.shard_sampled_step = make_sampled_shard_multi_step(
+                model, da_cfg, train_cfg, self._ssampler_s, self._ssampler_t,
+                self._stream_spe, class_weights, domain_weights)
+        elif device_sampler:
+            self._sampler_s = DeviceSampler(source_loader,
+                                            seed=seed + 101).to(self.device)
+            self._sampler_t = DeviceSampler(target_loader,
+                                            seed=seed + 202).to(self.device)
+            # zip-shortest epochs (main.py:330): both samplers advance on
+            # one steps-per-epoch; each epoch drops the longer one's tail
+            spe = min(len(source_loader), len(target_loader))
+            self._sampler_s.steps_per_epoch = spe
+            self._sampler_t.steps_per_epoch = spe
+            self.sampled_step = make_sampled_multi_step(
+                model, da_cfg, train_cfg, self._sampler_s, self._sampler_t,
+                class_weights, domain_weights)
+
         # a whole validation in one call and one fetch: resident store and
         # a deterministic val epoch, whose stacked indices are cached
         self.multi_eval_step = (
             make_multi_eval_step(model, class_weights)
-            if device_store and not val_loader.shuffle else None)
+            if device_store and not self.streaming
+            and not val_loader.shuffle else None)
         self._val_stack = None
 
         # gradient accumulation (--accum_steps): G host-fed micro-batch
@@ -274,7 +359,7 @@ class Trainer:
             unmet = []
             if device_store:
                 unmet.append("--device_store")
-            if steps_per_call > 1:
+            if self.steps_per_call > 1:
                 unmet.append("--steps_per_call > 1")
             if da_cfg.pretrain_source:
                 unmet.append("--pretrain_source")
@@ -316,11 +401,18 @@ class Trainer:
                 self.lr_current = float(payload["lr_current"])
         self.start_epoch = int(payload["epoch"]) + 1
         self.best_prec1 = float(payload["best_prec1"])
+        # the step counter keys the device samplers' epochs and orders,
+        # and the generators' states continue the dropout streams, so a
+        # resumed run continues the streams of an uninterrupted one
         step = int(payload.get("step", 0))
         if step == 0 and self.start_epoch > 1:
             spe = min(len(self.source_loader), len(self.target_loader))
             step = (self.start_epoch - 1) * spe
         self.state = self.state._replace(step=step)
+        for key, gen in (("rng_state", self.generator),
+                         ("pretrain_rng_state", self.pretrain_generator)):
+            if gen is not None and key in payload:
+                gen.set_state(payload[key])
         return self.start_epoch
 
     def _ckpt_payload(self, epoch: int, prec1: float) -> dict:
@@ -334,6 +426,9 @@ class Trainer:
             "prec1": prec1,
             "lr_current": float(self.lr_current),
             "step": int(self.state.step),
+            "rng_state": self.generator.get_state(),
+            **({"pretrain_rng_state": self.pretrain_generator.get_state()}
+               if self.pretrain_generator is not None else {}),
         }
 
     def save(self, epoch: int, prec1: float, is_best: bool):
@@ -346,7 +441,13 @@ class Trainer:
         meters = {k: AverageMeter() for k in
                   ("batch_time", "data_time", "loss", "loss_c", "loss_d",
                    "loss_a", "loss_e", "loss_s", "top1", "top5")}
-        len_loader = len(self.source_loader)
+        if self.streaming:
+            # the schedules' denominator: the source stream's streamed
+            # length (main.py:347 uses len(source_loader)), in every
+            # streamed mode
+            len_loader = self.source_loader.shard_epoch_len(self._plan_s)
+        else:
+            len_loader = len(self.source_loader)
         start_steps = epoch * len_loader
         total_steps = tc.epochs * len_loader
         alpha = alpha_schedule(tc.alpha, epoch, tc.epochs)
@@ -358,18 +459,24 @@ class Trainer:
 
         def flush(keep_last: int = 0):
             """Move the pending metrics into the meters, all but the newest
-            ``keep_last`` (still running on the device), as the JAX
-            Trainer does (printed values lag up to keep_last steps; the
-            meters' averages are exact)."""
+            ``keep_last`` entries (still running on the device), as the
+            JAX Trainer does (printed values lag up to keep_last steps or
+            chunks; the meters' averages are exact).  An entry is one
+            step's metrics or a K-step call's, ``("stacked", m, k)`` with
+            each of m's values [k]; all the entries taken come to the host
+            in one copy."""
             if meters["loss"].count == 0:
                 keep_last = 0  # first print of the epoch: real values
             if len(pending) <= keep_last:
                 return
             take = pending[:len(pending) - keep_last]
             del pending[:len(pending) - keep_last]
-            keys = [k for k in _METRICS if k in take[0]]
-            host = torch.stack([torch.stack([m[k] for k in keys])
-                                for m in take]).cpu().tolist()
+            first = take[0][1] if isinstance(take[0], tuple) else take[0]
+            keys = [k for k in _METRICS if k in first]
+            host = torch.cat([
+                torch.stack([m[1][k] for k in keys], dim=1)
+                if isinstance(m, tuple) else torch.stack(
+                    [m[k] for k in keys])[None] for m in take]).cpu().tolist()
             for row in host:
                 m = dict(zip(keys, row))
                 n = m["n"]
@@ -386,10 +493,26 @@ class Trainer:
                 meters["top1"].update(100.0 * m["top1"] / max(n, 1), n)
                 meters["top5"].update(100.0 * m["top5"] / max(n, 1), n)
 
-        epochs = ((self.source_loader.index_epoch(),
-                   self.target_loader.index_epoch()) if self.device_store
-                  else (self.source_loader.epoch(),
-                        self.target_loader.epoch()))
+        chunked = (epoch, meters, flush, pending, alpha, start_steps,
+                   total_steps)
+        if self.shard_sampled_step is not None:
+            # streamed and sampled on the device: the host walks the
+            # chunk plan and rotates the shards
+            return self._train_epoch_sampled_stream(*chunked)
+        if self.sampled_step is not None:
+            # sampled on the device: no host iterators at all
+            return self._train_epoch_sampled(*chunked)
+        if self.streaming:
+            epochs = (self.source_loader.shard_index_epoch(self._plan_s),
+                      self.target_loader.shard_index_epoch(self._plan_t))
+        elif self.device_store:
+            epochs = (self.source_loader.index_epoch(),
+                      self.target_loader.index_epoch())
+        else:
+            epochs = (self.source_loader.epoch(), self.target_loader.epoch())
+        if self.multi_step is not None:
+            return self._train_epoch_multi(*chunked, zip(*epochs),
+                                           len_loader)
         if self.accum_step is not None:
             return self._train_epoch_accum(epoch, meters, zip(*epochs), flush,
                                            pending, alpha, start_steps,
@@ -400,7 +523,12 @@ class Trainer:
             meters["data_time"].update(time.time() - end)
             scalars = StepScalars(beta, tc.mu, alpha, tc.gamma,
                                   self.lr_current)
-            if self.device_store:
+            if self.streaming:
+                (sid_s, bs), (sid_t, bt) = bs, bt
+                args = (self._stream_s.get(sid_s), bs.abs_indices, bs.labels,
+                        bs.mask, self._stream_t.get(sid_t), bt.abs_indices,
+                        bt.labels, bt.mask)
+            elif self.device_store:
                 args = (self._dev_store_s, bs.abs_indices, bs.labels,
                         bs.mask, self._dev_store_t, bt.abs_indices,
                         bt.labels, bt.mask)
@@ -451,6 +579,136 @@ class Trainer:
         if self.logs and last_line:
             self.logs.write("train_short.log", last_line)
         return meters["loss_c"].avg
+
+    def _chunk_scalars(self, i, k, alpha, start_steps, total_steps):
+        """The schedule values of steps [i, i + k) for one K-step call, a
+        `StepScalars` of k-long lists (host numbers), and the betas; the
+        DANN lr decays after each step (main.py:619-621).  Every K-step
+        path takes its schedules from here, as in the JAX Trainer."""
+        tc = self.train_cfg
+        betas, lrs = [], []
+        for j in range(k):
+            p = progress(i + j, start_steps, total_steps)
+            betas.append(effective_beta(tc.beta, p))
+            lrs.append(self.lr_current)
+            if tc.lr_adaptive == "dann":
+                self.lr_current = dann_lr(tc.lr, p)
+        return StepScalars(betas, [tc.mu] * k, [alpha] * k, [tc.gamma] * k,
+                           lrs), betas
+
+    def _run_chunks(self, epoch, meters, flush, pending, alpha, start_steps,
+                    total_steps, len_loader, chunks):
+        """The K-step epoch loop: ``chunks`` yields (k, call), where
+        ``call(scalars)`` runs k steps and returns (state, metrics each
+        [k]); their metrics wait on the device until the print
+        frequency's flush, which prints a line (the JAX Trainer's
+        cadence)."""
+        tc = self.train_cfg
+        big_k = self.steps_per_call
+        end = time.time()
+        last_line = ""
+        i = 0
+        for k, call in chunks:
+            sc, betas = self._chunk_scalars(i, k, alpha, start_steps,
+                                            total_steps)
+            self.state, m = call(sc)
+            pending.append(("stacked", m, k))
+            meters["batch_time"].update((time.time() - end) / k, k)
+            end = time.time()
+            i += k
+            if (i - k) // big_k % max(self.print_freq // big_k, 1) == 0:
+                flush(keep_last=2)
+                last_line = self._format_train_line(
+                    epoch, i - 1, len_loader, meters, alpha, betas[-1], tc)
+                if self.logs:
+                    self.logs.write("train.log", last_line)
+                print(last_line)
+        flush()
+        if self.logs and last_line:
+            self.logs.write("train_short.log", last_line)
+        return meters["loss_c"].avg
+
+    def _train_epoch_multi(self, epoch, meters, flush, pending, alpha,
+                           start_steps, total_steps, pairs, len_loader):
+        """K steps per call from the device stores
+        (``make_multi_train_step``): K index batches stacked on the host
+        with their schedule values.  Streamed, a call never spans a shard
+        switch of either stream (one shard each per call)."""
+        big_k = self.steps_per_call
+
+        def call(chunk, key):
+            """(k, the K-step call on ``chunk``), on the shards ``key``
+            when streamed."""
+            store_s, store_t = (
+                (self._stream_s.get(key[0]), self._stream_t.get(key[1]))
+                if self.streaming else (self._dev_store_s, self._dev_store_t))
+            bs_list, bt_list = zip(*chunk)
+            return len(chunk), lambda sc: self.multi_step(
+                self.state, store_s,
+                np.stack([b.abs_indices for b in bs_list]),
+                np.stack([b.labels for b in bs_list]),
+                np.stack([b.mask for b in bs_list]), store_t,
+                np.stack([b.abs_indices for b in bt_list]),
+                np.stack([b.labels for b in bt_list]),
+                np.stack([b.mask for b in bt_list]), sc, self.generator)
+
+        def chunks():
+            chunk, key = [], None
+            for bs, bt in pairs:
+                if self.streaming:
+                    (sid_s, bs), (sid_t, bt) = bs, bt
+                    if chunk and (sid_s, sid_t) != key:
+                        yield call(chunk, key)
+                        chunk = []
+                    key = (sid_s, sid_t)
+                chunk.append((bs, bt))
+                if len(chunk) == big_k:
+                    yield call(chunk, key)
+                    chunk = []
+            if chunk:
+                yield call(chunk, key)
+
+        return self._run_chunks(epoch, meters, flush, pending, alpha,
+                                start_steps, total_steps, len_loader,
+                                chunks())
+
+    def _train_epoch_sampled(self, epoch, meters, flush, pending, alpha,
+                             start_steps, total_steps):
+        """Sampled on the device (``make_sampled_multi_step``): each call
+        makes its own index batches from the step counter; the host sends
+        the schedule values alone."""
+        spe = self._sampler_s.steps_per_epoch
+        big_k = self.steps_per_call
+
+        def chunks():
+            for i in range(0, spe, big_k):
+                yield min(big_k, spe - i), lambda sc: self.sampled_step(
+                    self.state, self._dev_store_s, self._dev_store_t, sc,
+                    self.generator)
+
+        return self._run_chunks(epoch, meters, flush, pending, alpha,
+                                start_steps, total_steps, spe, chunks())
+
+    def _train_epoch_sampled_stream(self, epoch, meters, flush, pending,
+                                    alpha, start_steps, total_steps):
+        """Streamed and sampled on the device
+        (``make_sampled_shard_multi_step``): per call the host hands over
+        the shards on the card (``ShardStream``, double-buffered), the
+        shard ids and offsets and the schedule values; the call makes
+        every batch shard-locally on the device."""
+        plan = plan_zip_shard_chunks(self._ssampler_s, self._ssampler_t,
+                                     self.steps_per_call)
+
+        def chunks():
+            for sid_s, j0_s, sid_t, j0_t, k in plan:
+                yield k, lambda sc: self.shard_sampled_step(
+                    self.state, self._stream_s.get(sid_s),
+                    self._stream_t.get(sid_t), sc, self.generator, sid_s,
+                    j0_s, sid_t, j0_t)
+
+        return self._run_chunks(epoch, meters, flush, pending, alpha,
+                                start_steps, total_steps, self._stream_spe,
+                                chunks())
 
     def _train_epoch_accum(self, epoch, meters, pairs, flush, pending,
                            alpha, start_steps, total_steps, len_loader):
@@ -573,10 +831,18 @@ class Trainer:
                 loss_sum / n
         else:
             meters = {k: AverageMeter() for k in ("loss", "top1", "top5")}
-            batches = (self.val_loader.index_epoch() if self.device_store
-                       else self.val_loader.epoch())
+            if self.streaming:
+                batches = self.val_loader.shard_index_epoch(self._plan_v)
+            elif self.device_store:
+                batches = self.val_loader.index_epoch()
+            else:
+                batches = self.val_loader.epoch()
             for b in batches:
-                if self.device_store:
+                if self.streaming:
+                    sid, b = b
+                    r = self.eval_step(self._stream_v.get(sid),
+                                       b.abs_indices, b.labels, b.mask)
+                elif self.device_store:
                     r = self.eval_step(self._dev_store_v, b.abs_indices,
                                        b.labels, b.mask)
                 else:

@@ -55,11 +55,14 @@ from ta3n_tpu_torch.losses import (CORAL, JAN, attentive_entropy,
 from ta3n_tpu_torch.models.layers import bf16_f32_reduction
 from ta3n_tpu_torch.models.video_model import StreamOutput, VideoModel
 from ta3n_tpu_torch.ops.gather_gemm import (RowIndex, gathered_gemm,
-                                            gathered_linear, row_index)
+                                            gathered_linear, row_index,
+                                            upload)
 from ta3n_tpu_torch.train.optim import make_optimizer, optimizer_step
 
 __all__ = ["TrainState", "StepScalars", "create_train_state",
-           "make_train_step", "make_grad_accum_step", "make_eval_step",
+           "make_train_step", "make_grad_accum_step",
+           "make_multi_train_step", "make_sampled_multi_step",
+           "make_sampled_shard_multi_step", "make_eval_step",
            "make_multi_eval_step", "make_infer_step", "device_gather",
            "topk_correct", "video_logits"]
 
@@ -490,24 +493,34 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
             ys, _as(mask_s, dev, f32), yt, _as(mask_t, dev, f32), scalars,
             generator)
 
-    def gather_step(state: TrainState, store_s, idx_s, ys, mask_s, store_t,
-                    idx_t, yt, mask_t, scalars: StepScalars,
-                    generator: Optional[torch.Generator]):
+    def parts_step(state: TrainState, part_s, ys, mask_s, part_t, yt,
+                   mask_t, scalars: StepScalars,
+                   generator: Optional[torch.Generator]):
+        """The device-store step from store parts (`_store_part`) whose
+        indices are on the device already, and the masks as float32
+        tensors there."""
         net = state.model
-        dev = next(net.parameters()).device
-        mask_s, mask_t = _as(mask_s, dev, f32), _as(mask_t, dev, f32)
 
         def pre():
             fcs = _first_fc(net, ("source", "target"))
-            return gathered_linear([_store_part(store_s, idx_s, mask_s),
-                                    _store_part(store_t, idx_t, mask_t)],
-                                   [w for w, _ in fcs], [b for _, b in fcs])
+            return gathered_linear([part_s, part_t], [w for w, _ in fcs],
+                                   [b for _, b in fcs])
 
         return update(state, pre, ys, mask_s, yt, mask_t, scalars,
                       generator)
 
+    def gather_step(state: TrainState, store_s, idx_s, ys, mask_s, store_t,
+                    idx_t, yt, mask_t, scalars: StepScalars,
+                    generator: Optional[torch.Generator]):
+        dev = next(state.model.parameters()).device
+        mask_s, mask_t = _as(mask_s, dev, f32), _as(mask_t, dev, f32)
+        return parts_step(state, _store_part(store_s, idx_s, mask_s), ys,
+                          mask_s, _store_part(store_t, idx_t, mask_t), yt,
+                          mask_t, scalars, generator)
+
     built = gather_step if gather_on_device else step
     built.loss_fn = loss_fn
+    built.parts_step = parts_step
     return built
 
 
@@ -562,6 +575,181 @@ def make_grad_accum_step(model: VideoModel, da: DAConfig,
                  for k in per[0]})
 
     return accum_step
+
+
+def _per_step(scalars: StepScalars) -> list:
+    """The K steps' `StepScalars` of a `StepScalars` of K-long sequences
+    (beta: K triples)."""
+    k = len(scalars.lr)
+    if any(len(f) != k for f in scalars):
+        raise ValueError("the stacked StepScalars need one value of each "
+                         f"field per step, got lengths "
+                         f"{[len(f) for f in scalars]}")
+    return [StepScalars(*(f[j] for f in scalars)) for j in range(k)]
+
+
+def _stack(metrics: list) -> Dict[str, torch.Tensor]:
+    """K steps' metrics, each key stacked [K] on the device."""
+    return {key: torch.stack([m[key] for m in metrics])
+            for key in metrics[0]}
+
+
+def make_multi_train_step(model: VideoModel, da: DAConfig,
+                          train_cfg: TrainConfig, class_weights=None,
+                          domain_weights=None):
+    """K optimizer steps per call over stacked index batches into stores on
+    the device (`ta3n_tpu/train/step.py::make_multi_train_step`, its
+    ``lax.scan`` a loop over the device-store step's body).
+
+    Returned signature:
+      multi_step(state, store_s, idx_s [K, Bs, T], ys [K, Bs],
+                 mask_s [K, Bs], store_t, idx_t [K, Bt, T], yt, mask_t,
+                 scalars, generator) -> (state, metrics each [K])
+    ``scalars`` is a `StepScalars` of K-long sequences (beta K triples of
+    numbers), ``generator`` as for the single step: it advances across the
+    K steps exactly as across K single calls, so the K steps are bitwise
+    those K single calls.  Each stacked index array is checked on the host
+    once for the call (``row_index`` over the whole stack) and uploaded
+    once, from pinned memory without waiting; labels and masks likewise.
+    Step k reads a contiguous view of its rows.  Nothing in the call waits
+    for the device; the metrics stay there, stacked [K]."""
+    parts_step = make_train_step(model, da, train_cfg, class_weights,
+                                 domain_weights,
+                                 gather_on_device=True).parts_step
+
+    def multi_step(state: TrainState, store_s, idx_s, ys, mask_s, store_t,
+                   idx_t, yt, mask_t, scalars: StepScalars,
+                   generator: Optional[torch.Generator]):
+        per_step = _per_step(scalars)
+        dev = next(state.model.parameters()).device
+        streams = []
+        for store, idx, y, mask in ((store_s, idx_s, ys, mask_s),
+                                    (store_t, idx_t, yt, mask_t)):
+            mask = upload(mask, torch.float32, dev)
+            parts = _stacked_parts(store, idx, mask)
+            if len(parts) != len(per_step):
+                raise ValueError(f"{len(parts)} stacked index batches for "
+                                 f"{len(per_step)} steps")
+            streams.append((parts, upload(y, torch.long, dev), mask))
+        (parts_s, ys, mask_s), (parts_t, yt, mask_t) = streams
+        metrics = []
+        for j, sc in enumerate(per_step):
+            state, m = parts_step(state, parts_s[j], ys[j], mask_s[j],
+                                  parts_t[j], yt[j], mask_t[j], sc,
+                                  generator)
+            metrics.append(m)
+        return state, _stack(metrics)
+
+    return multi_step
+
+
+def _sampled_part(store, sampler, batch) -> tuple:
+    """The store part, labels and mask of a batch that ``sampler`` made on
+    the device: the indices' bound is the sampler's, known on the host."""
+    idx, labels, mask = batch
+    return ((store, RowIndex(idx.reshape(-1), sampler.end),
+             mask.repeat_interleave(idx.shape[1])), labels, mask)
+
+
+def make_sampled_multi_step(model: VideoModel, da: DAConfig,
+                            train_cfg: TrainConfig, sampler_s, sampler_t,
+                            class_weights=None, domain_weights=None):
+    """K steps per call with the index batches made on the device by
+    ``sampler_s`` and ``sampler_t`` (`data/device_sampler.py::
+    DeviceSampler`), the counterpart of `ta3n_tpu/train/step.py::
+    make_sampled_multi_step`: no index, label or mask crosses from the
+    host; only the schedule scalars, which stay host numbers.
+
+    Returned signature:
+      step(state, store_s, store_t, scalars, generator)
+        -> (state, metrics each [K])
+    with K the length of ``scalars``' sequences.  Step i of the run (the
+    host's ``state.step``) takes batch ``i % spe`` of epoch ``i // spe``
+    of both samplers, whose ``steps_per_epoch`` must agree (the reference's
+    zip-shortest epochs, main.py:330); the epoch orders of a call are made
+    once for the call.  The indices are never read back: their bound is
+    the samplers' ``end``, which every gather checks against its store."""
+    if sampler_s.steps_per_epoch != sampler_t.steps_per_epoch:
+        raise ValueError(
+            "sampler_s and sampler_t must share steps_per_epoch (the "
+            "zip-shortest epoch coupling, main.py:330): set both to "
+            "min(len(source_loader), len(target_loader)) — otherwise "
+            "target batches silently desync from their epoch "
+            "permutation")
+    parts_step = make_train_step(model, da, train_cfg, class_weights,
+                                 domain_weights,
+                                 gather_on_device=True).parts_step
+    spe = sampler_s.steps_per_epoch
+
+    def multi_step(state: TrainState, store_s, store_t,
+                   scalars: StepScalars,
+                   generator: Optional[torch.Generator]):
+        per_step = _per_step(scalars)
+        # the epoch orders of the call's epochs, once for the call
+        e0 = state.step // spe
+        n_epochs = -(-len(per_step) // spe) + 1
+        orders = [(sampler_s.epoch_order(e), sampler_t.epoch_order(e))
+                  for e in range(e0, e0 + n_epochs)]
+        metrics = []
+        for sc in per_step:
+            order_s, order_t = orders[state.step // spe - e0]
+            part_s, ys, ms = _sampled_part(
+                store_s, sampler_s, sampler_s.batch(state.step, order_s))
+            part_t, yt, mt = _sampled_part(
+                store_t, sampler_t, sampler_t.batch(state.step, order_t))
+            state, m = parts_step(state, part_s, ys, ms, part_t, yt, mt, sc,
+                                  generator)
+            metrics.append(m)
+        return state, _stack(metrics)
+
+    return multi_step
+
+
+def make_sampled_shard_multi_step(model: VideoModel, da: DAConfig,
+                                  train_cfg: TrainConfig, sampler_s,
+                                  sampler_t, steps_per_epoch: int,
+                                  class_weights=None, domain_weights=None):
+    """The device-sampled K steps over streamed shards
+    (`ta3n_tpu/train/step.py::make_sampled_shard_multi_step`): the batches
+    are made shard-locally on the device by ``sampler_s`` and
+    ``sampler_t`` (`data/device_sampler.py::StreamingDeviceSampler`)
+    against the shards on the card (`data/streaming.py::ShardStream`).
+
+    Returned signature:
+      step(state, shard_s, shard_t, scalars, generator, sid_s, j0_s, sid_t,
+           j0_t) -> (state, metrics each [K])
+    Step j of the call takes batch ``j0 + j`` of shard ``sid`` of each
+    stream; a call never spans a shard or an epoch (the chunk plan,
+    ``plan_zip_shard_chunks``), so the shard orders are made once for the
+    call, for the epoch ``state.step // steps_per_epoch``.  The indices'
+    bound is the shards' ``budget_rows``."""
+    parts_step = make_train_step(model, da, train_cfg, class_weights,
+                                 domain_weights,
+                                 gather_on_device=True).parts_step
+
+    def shard_step(state: TrainState, shard_s, shard_t,
+                   scalars: StepScalars,
+                   generator: Optional[torch.Generator], sid_s: int,
+                   j0_s: int, sid_t: int, j0_t: int):
+        epoch = state.step // steps_per_epoch
+        order_s = sampler_s.shard_order(sid_s, epoch)
+        order_t = sampler_t.shard_order(sid_t, epoch)
+        metrics = []
+        for j, sc in enumerate(_per_step(scalars)):
+            part_s, ys, ms = _sampled_part(shard_s, sampler_s,
+                                           sampler_s.shard_batch(
+                                               sid_s, j0_s + j, order_s,
+                                               state.step))
+            part_t, yt, mt = _sampled_part(shard_t, sampler_t,
+                                           sampler_t.shard_batch(
+                                               sid_t, j0_t + j, order_t,
+                                               state.step))
+            state, m = parts_step(state, part_s, ys, ms, part_t, yt, mt, sc,
+                                  generator)
+            metrics.append(m)
+        return state, _stack(metrics)
+
+    return shard_step
 
 
 _EVAL_BETA = (0.0, 0.0, 0.0)

@@ -10,7 +10,13 @@ variants of the TRN kernels and the six store x compute variants of the
 gather kernel against their plain versions in the same dtype (the
 backward and the gather at bfloat16 compute, on wgmma, also bit for bit
 on exact inputs), the refusals of what they do not take, and a bfloat16
-train step with cuBLAS's bfloat16 reductions in float32.
+train step with cuBLAS's bfloat16 reductions in float32.  The chunked
+training modes: K device-store steps per call against K single steps,
+the sampled and the shard-sampled calls at K = 1, at a call shorter than
+K and on a one-shard plan against the K-step call on the same indices,
+ShardStream's side-stream uploads read back exactly, the hash sampler
+bitwise equal on the CPU and the card, and the Trainer in each chunked
+mode on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs where jax is not installed:
@@ -33,6 +39,9 @@ from ta3n_tpu_torch.ops import _build, gather_gemm, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
 from ta3n_tpu_torch.train import (StepScalars, create_train_state,
                                   make_eval_step, make_multi_eval_step,
+                                  make_multi_train_step,
+                                  make_sampled_multi_step,
+                                  make_sampled_shard_multi_step,
                                   make_train_step)
 
 CASES = [(1, 5, 512, 256), (64, 5, 512, 256), (202, 5, 512, 256),
@@ -1404,3 +1413,271 @@ def test_gather_gemm_variants_flow_and_ragged_d(variant, n, streams, k, d):
     else:
         assert _bf16_ok(z, want)
     assert torch.equal(x_res, want_x)
+
+
+# ---- the chunked training modes ----
+
+_CHUNK_DA = DAConfig(use_target="uSv", adv_DA="RevGrad",
+                     add_loss_DA="attentive_entropy")
+
+
+def _chunk_scalars(k):
+    return StepScalars([(0.75, 0.75, 0.5)] * k, [0.0] * k, [0.0] * k,
+                       [0.003] * k, [0.03 - 0.001 * j for j in range(k)])
+
+
+def _chunk_stores():
+    return make_domain_pair(num_source=24, num_target=13, num_val=4,
+                            num_class=6, feature_dim=96)
+
+
+def _assert_same_states(a, b):
+    for (name, x), y in zip(a.model.state_dict().items(),
+                            b.model.state_dict().values()):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_multi_step_on_cuda_matches_single_steps(k):
+    """K device-store steps in one call on the card == K single steps on
+    the card, bitwise (dropout 0.5, one CUDA generator each from the same
+    seed): 2 K3, 1 K1 (train) and 1 K2 launches a step either way."""
+    from ta3n_tpu_torch.data.device_sampler import DeviceSampler
+    stores = _chunk_stores()
+    dev = [st.to_device("cuda") for st in stores[:2]]
+    batches = []
+    for store, b in zip(stores[:2], (8, 5)):
+        sampler = DeviceSampler(TSNLoader(store, batch_size=b,
+                                          num_segments=5, seed=1))
+        batches.append([torch.stack(x).numpy() for x in zip(
+            *(sampler.batch(i) for i in range(k)))])
+    runs = []
+    for multi in (False, True):
+        state = _small_state("cuda", dropout_i=0.5, dropout_v=0.5)
+        gen = torch.Generator("cuda").manual_seed(4)
+        _reset_counts()
+        if multi:
+            step = make_multi_train_step(state.model, _CHUNK_DA,
+                                         TrainConfig(lr=0.03))
+            state, m = step(state, dev[0], *batches[0], dev[1], *batches[1],
+                            _chunk_scalars(k), gen)
+        else:
+            step = make_train_step(state.model, _CHUNK_DA,
+                                   TrainConfig(lr=0.03),
+                                   gather_on_device=True)
+            per = []
+            for j, sc in enumerate(
+                    StepScalars(*(f[i] for f in _chunk_scalars(k)))
+                    for i in range(k)):
+                state, mj = step(state, dev[0], *(a[j] for a in batches[0]),
+                                 dev[1], *(a[j] for a in batches[1]), sc,
+                                 gen)
+                per.append(mj)
+            m = {key: torch.stack([x[key] for x in per]) for key in per[0]}
+        assert _counts() == (2 * k, 0, k, k)
+        runs.append((state, m))
+    for key in runs[0][1]:
+        assert torch.equal(runs[0][1][key], runs[1][1][key]), key
+    _assert_same_states(runs[0][0], runs[1][0])
+
+
+def test_hash_sampler_cpu_and_card_bitwise():
+    """Random sampling and shuffled orders (the counter hash) make the
+    same indices on the card as on the CPU: whole epochs across an epoch
+    boundary, at new_length 2, and the shard-local sampler's orders and
+    batches."""
+    from ta3n_tpu_torch.data.device_sampler import (DeviceSampler,
+                                                    StreamingDeviceSampler)
+    from ta3n_tpu_torch.data.streaming import ShardPlan
+    store = _chunk_stores()[0]
+    for new_length in (1, 2):
+        def loader():
+            return TSNLoader(store, batch_size=7, num_segments=5,
+                             new_length=new_length, mode="random",
+                             shuffle=True, seed=1)
+        cpu, card = (DeviceSampler(loader(), seed=9).to(d)
+                     for d in ("cpu", "cuda"))
+        for step in range(2 * cpu.steps_per_epoch + 1):
+            for a, b in zip(cpu.batch(step), card.batch(step)):
+                assert b.is_cuda and torch.equal(a, b.cpu()), step
+        plan = ShardPlan(store.offsets, 120)
+        assert plan.num_shards >= 3
+        cpu, card = (StreamingDeviceSampler(loader(), plan, seed=9).to(d)
+                     for d in ("cpu", "cuda"))
+        for sid in range(plan.num_shards):
+            for epoch in (0, 3):
+                oc, og = cpu.shard_order(sid, epoch), card.shard_order(sid,
+                                                                       epoch)
+                assert torch.equal(oc, og.cpu())
+                for j in range(cpu.shard_steps(sid)):
+                    for a, b in zip(cpu.shard_batch(sid, j, oc, 11),
+                                    card.shard_batch(sid, j, og, 11)):
+                        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("ks", [(1,), (2, 1)], ids=["k1", "short_last"])
+def test_sampled_step_on_cuda_matches_stacked(ks):
+    """Sampled calls of ``ks`` steps on the card (random mode, shuffled,
+    K = 1, and a call of 2 then a shorter last one of 1 ending an epoch
+    of 3) == the K-step call fed the same sampler's batches stacked on
+    the host, bitwise, with the K-step path's launches; the indices never
+    come back to the host."""
+    from ta3n_tpu_torch.data.device_sampler import DeviceSampler
+    stores = _chunk_stores()
+    dev = [st.to_device("cuda") for st in stores[:2]]
+    samplers = [DeviceSampler(TSNLoader(st, batch_size=b, num_segments=5,
+                                        mode="random", seed=1),
+                              seed=s).to("cuda")
+                for st, b, s in zip(stores[:2], (8, 5), (101, 202))]
+    spe = min(sp.steps_per_epoch for sp in samplers)
+    assert spe == 3
+    for sp in samplers:
+        sp.steps_per_epoch = spe
+    runs = []
+    for sampled in (True, False):
+        state = _small_state("cuda", dropout_i=0.5, dropout_v=0.5)
+        gen = torch.Generator("cuda").manual_seed(4)
+        sampled_step = make_sampled_multi_step(
+            state.model, _CHUNK_DA, TrainConfig(lr=0.03), *samplers)
+        multi = make_multi_train_step(state.model, _CHUNK_DA,
+                                      TrainConfig(lr=0.03))
+        metrics = []
+        _reset_counts()
+        for k in ks:
+            if sampled:
+                state, m = sampled_step(state, dev[0], dev[1],
+                                        _chunk_scalars(k), gen)
+            else:
+                stacked = [[torch.stack(x).cpu().numpy() for x in zip(
+                    *(sp.batch(state.step + j) for j in range(k)))]
+                    for sp in samplers]
+                state, m = multi(state, dev[0], *stacked[0], dev[1],
+                                 *stacked[1], _chunk_scalars(k), gen)
+            metrics.append(m)
+        assert _counts() == (2 * sum(ks), 0, sum(ks), sum(ks))
+        runs.append((state, metrics))
+    for m1, m2 in zip(runs[0][1], runs[1][1]):
+        for key in m1:
+            assert torch.equal(m1[key], m2[key]), key
+    _assert_same_states(runs[0][0], runs[1][0])
+
+
+def test_shard_sampled_step_one_shard_plan_on_cuda():
+    """A one-shard plan (the budget holds the store): the shard-sampled
+    call on the card, K = 2 then a shorter last call of 1, equals the
+    K-step call on the resident store fed the same (shard-local = global)
+    indices, bitwise."""
+    from ta3n_tpu_torch.data.device_sampler import StreamingDeviceSampler
+    from ta3n_tpu_torch.data.streaming import ShardPlan, ShardStream
+    stores = _chunk_stores()
+    plans = [ShardPlan(st.offsets, int(st.offsets[-1])) for st in stores[:2]]
+    assert all(p.num_shards == 1 for p in plans)
+    samplers = [StreamingDeviceSampler(
+        TSNLoader(st, batch_size=b, num_segments=5, seed=1), p,
+        seed=7).to("cuda")
+        for st, b, p in zip(stores[:2], (8, 5), plans)]
+    streams = [ShardStream(st.features, p, "cuda")
+               for st, p in zip(stores[:2], plans)]
+    dev = [st.to_device("cuda") for st in stores[:2]]
+    runs = []
+    for sampled in (True, False):
+        state = _small_state("cuda")
+        gen = torch.Generator("cuda").manual_seed(4)
+        shard_step = make_sampled_shard_multi_step(
+            state.model, _CHUNK_DA, TrainConfig(lr=0.03), *samplers, 3)
+        multi = make_multi_train_step(state.model, _CHUNK_DA,
+                                      TrainConfig(lr=0.03))
+        _reset_counts()
+        j0 = 0
+        for k in (2, 1):
+            if sampled:
+                state, m = shard_step(state, streams[0].get(0),
+                                      streams[1].get(0), _chunk_scalars(k),
+                                      gen, 0, j0, 0, j0)
+            else:
+                stacked = [[torch.stack(x).cpu().numpy() for x in zip(
+                    *(sp.shard_batch(0, j0 + j, sp.shard_order(0, 0),
+                                     state.step + j) for j in range(k)))]
+                    for sp in samplers]
+                state, m = multi(state, dev[0], *stacked[0], dev[1],
+                                 *stacked[1], _chunk_scalars(k), gen)
+            j0 += k
+        assert _counts() == (6, 0, 3, 3)
+        runs.append(state)
+    _assert_same_states(*runs)
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16", "int8", "on_disk"])
+def test_shard_stream_side_stream_upload_reads_back_exactly(dtype):
+    """Every shard uploaded on the side stream reads back on the compute
+    stream as exactly the host's padded shard; a K3 launch right after
+    ``get`` gathers from it as from the resident store's rows."""
+    from ta3n_tpu_torch.data.feature_store import host_rows
+    from ta3n_tpu_torch.data.streaming import ShardPlan, ShardStream
+    store = _chunk_stores()[0]
+    if dtype == "on_disk":
+        store, dtype = store.quantize(), None
+    plan = ShardPlan(store.offsets, 150)
+    assert plan.num_shards >= 3
+    stream = ShardStream(store.features, plan, "cuda", dtype,
+                         scales=store.scales)
+    weight = torch.randn((64, 96), generator=torch.Generator().manual_seed(
+        1)).cuda() / 10
+    for sid in list(range(plan.num_shards)) + [0]:
+        shard = stream.get(sid)
+        rows = torch.arange(0, 40, dtype=torch.int32, device="cuda")
+        z, _ = gather_gemm.gathered_gemm(
+            shard, gather_gemm.RowIndex(rows, 40), weight, with_rows=False)
+        scales = (None if store.scales is None
+                  else plan.shard_array(store.scales, sid))
+        want = host_rows(plan.shard_array(store.features, sid), dtype,
+                         scales)
+        got = shard if isinstance(shard, tuple) else (shard,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w), sid
+        plain, _ = gather_gemm.gathered_gemm_plain(
+            tuple(w.cuda() for w in want) if len(want) > 1
+            else want[0].cuda(), rows, weight)
+        torch.testing.assert_close(z, plain, rtol=1e-4, atol=1e-4)
+    assert stream.uploads == plan.num_shards + 2
+
+
+@pytest.mark.parametrize("kw", [
+    dict(steps_per_call=2), dict(steps_per_call=2, device_sampler=True),
+    dict(steps_per_call=2, device_sampler=True, store_budget_rows=150),
+    dict(store_budget_rows=150)],
+    ids=["k2", "sampler", "streamed_sampler", "streamed"])
+def test_trainer_chunked_modes_on_cuda_match_cpu(kw, tmp_path):
+    """One epoch of the Trainer in each chunked mode at small widths,
+    dropout 0, on the card against the CPU: the val Prec@1 equal and the
+    parameters within rtol 1e-3, atol 2e-5; on the card 2 K3, 1 K1
+    (train) and 1 K2 launches a step."""
+    from ta3n_tpu_torch.train.loop import Trainer
+    stores = _chunk_stores()
+    results = []
+    for device in ("cpu", "cuda"):
+        loaders = [TSNLoader(st, batch_size=b, num_segments=5, seed=i + 1,
+                             shuffle=i < 2)
+                   for i, (st, b) in enumerate(zip(stores, (8, 5, 4)))]
+        trainer = Trainer(ModelConfig(**_SMALL), _CHUNK_DA,
+                          TrainConfig(lr=0.03, epochs=1,
+                                      batch_size=(8, 5, 4)),
+                          *loaders, path_exp=str(tmp_path / device) + "/",
+                          device_store=True, print_freq=1, device=device,
+                          **kw)
+        trainer.state.model.load_state_dict(
+            _small_state("cpu").model.state_dict())
+        _reset_counts()
+        trainer.train_epoch(1)
+        steps = trainer.state.step
+        assert steps >= 3
+        assert _counts() == ((2 * steps, 0, steps, steps)
+                             if device == "cuda" else (0, 0, 0, 0))
+        results.append((trainer.validate(1), {
+            k: v.to("cpu", copy=True)
+            for k, v in trainer.state.model.state_dict().items()}))
+    assert results[0][0] == results[1][0]
+    for name, ref in results[0][1].items():
+        torch.testing.assert_close(results[1][1][name], ref, rtol=1e-3,
+                                   atol=2e-5, msg=lambda m: f"{name}: {m}")

@@ -100,8 +100,18 @@ def test_to_device_uploads_float32_once():
         assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
         np.testing.assert_array_equal(got_q.numpy(), q)
         np.testing.assert_array_equal(got_s.numpy(), scales)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        TSNLoader(port).shard_index_epoch(None)
+    # a streamed epoch of the store: the JAX loader's, shard for shard
+    from ta3n_tpu.data.streaming import ShardPlan as JaxShardPlan
+    from ta3n_tpu_torch.data.streaming import ShardPlan
+    plan, jplan = ShardPlan(port.offsets, 60), JaxShardPlan(port.offsets, 60)
+    got = list(TSNLoader(port, batch_size=4, seed=5).shard_index_epoch(plan))
+    want = list(JaxTSNLoader(_stores()[1], batch_size=4, seed=5)
+                .shard_index_epoch(jplan))
+    assert len(got) == len(want) > plan.num_shards > 1
+    for (sid, b), (jsid, jb) in zip(got, want):
+        assert sid == jsid
+        for x, y in zip(b, jb):
+            np.testing.assert_array_equal(x, y)
 
 
 def test_synthetic_stores_match_jax():

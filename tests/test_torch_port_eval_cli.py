@@ -2,8 +2,9 @@
 JAX package's (`ta3n_tpu.cli.test_models`) on one synthetic store and one
 `.pth.tar` exported from JAX parameters (`save_torch_checkpoint`), from
 host features and with `--device_store`, on the CPU: the same `Pred@k`
-line and per-class top-K file, scores and attention within 1e-5.  Flags
-whose path is not ported raise, naming their ROADMAP.md item."""
+line and per-class top-K file, scores and attention within 1e-5, also
+with the store streamed in shards.  Flags whose path is not ported raise,
+naming their ROADMAP.md item."""
 
 import jax
 import numpy as np
@@ -138,8 +139,34 @@ def test_eval_cli_store_dtype_matches_jax(workspace, store_dtype):
     np.testing.assert_allclose(got[3], want[3], **TOL)
 
 
+@pytest.mark.parametrize("budget", ["40"])
+def test_eval_cli_streamed_matches_jax(workspace, jax_outputs, budget):
+    """``--device_store --store_budget_rows 40``: the store on the device
+    in shards (at least 3), the next uploaded while one is evaluated.
+    Against the JAX eval CLI with the same flags: the same Pred@k line
+    and per-class accuracies; the scores, labels and attention, which
+    the port puts back in the list's order, bitwise those of the port's
+    resident --device_store run and within TOL of the JAX CLI's resident
+    outputs."""
+    from ta3n_tpu_torch.data import FeatureStore
+    from ta3n_tpu_torch.data.streaming import ShardPlan
+    store = FeatureStore.load(str(workspace / "val"))
+    assert ShardPlan(store.offsets, int(budget)).num_shards >= 3
+    flags = ("--device_store", "--store_budget_rows", budget)
+    want = _run(jax_cli.main, workspace, "jax_streamed", *flags)
+    got = _run(port_cli.main, workspace, "port_streamed", "--device",
+               "cpu", *flags)
+    resident = _run(port_cli.main, workspace, "port_resident", "--device",
+                    "cpu", "--device_store")
+    assert got[0] == want[0] == jax_outputs[0] and got[4] == want[4]
+    for a, b in zip(got[1:4], resident[1:4]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got[2], jax_outputs[2])
+    np.testing.assert_allclose(got[1], jax_outputs[1], **TOL)
+    np.testing.assert_allclose(got[3], jax_outputs[3], **TOL)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--store_budget_rows", "10"], "item 9"),
     (["--quantize", "int8"], "item 10"),
     (["--data_parallel"], "item 10"),
 ])

@@ -104,18 +104,31 @@ def test_config_copies_match_jax_package(name):
 
 
 @pytest.mark.parametrize("module", ["manifest", "samplers", "feature_store",
-                                    "loader", "synthetic", "quantized"])
+                                    "loader", "synthetic", "quantized",
+                                    "streaming", "device_sampler"])
 def test_data_copies_match_jax_package(module):
     """The port's copies of the JAX package's data modules: every public
     name they share has the same signature and defaults (functions and
     the methods of classes), the same fields (named tuples, dataclasses)
-    or the same value (constants); test_torch_port_data.py and
-    test_torch_port_quantized.py hold their behaviour."""
+    or the same value (constants); test_torch_port_data.py,
+    test_torch_port_quantized.py, test_torch_port_streaming.py and
+    test_torch_port_device_sampler.py hold their behaviour.  The device
+    sampler's methods take host ints and torch tensors where the JAX
+    one's take traced arrays: their parameters and defaults are compared
+    without the annotations."""
     import importlib
     import inspect
 
     ours = importlib.import_module(f"ta3n_tpu_torch.data.{module}")
     ref = importlib.import_module(f"ta3n_tpu.data.{module}")
+
+    def signature(fn):
+        sig = inspect.signature(fn)
+        if module != "device_sampler":
+            return sig
+        return [(p.name, p.kind, p.default)
+                for p in sig.parameters.values()]
+
     assert set(ours.__all__) <= set(ref.__all__) | {"IndexBatch"}
     for name in ours.__all__:
         a, b = getattr(ours, name), getattr(ref, name)
@@ -123,7 +136,7 @@ def test_data_copies_match_jax_package(module):
             assert a == b, name
             continue
         if not inspect.isclass(a):
-            assert inspect.signature(a) == inspect.signature(b), name
+            assert signature(a) == signature(b), name
             continue
         if dataclasses.is_dataclass(a):
             assert [(f.name, f.type) for f in dataclasses.fields(a)] == \
@@ -133,8 +146,8 @@ def test_data_copies_match_jax_package(module):
                   and (m == "__init__" or not m.startswith("_"))
                   and callable(getattr(a, m))]
         for m in shared:
-            assert inspect.signature(getattr(a, m)) == \
-                inspect.signature(getattr(b, m)), f"{name}.{m}"
+            assert signature(getattr(a, m)) == \
+                signature(getattr(b, m)), f"{name}.{m}"
 
 
 def test_manifest_copy_matches_jax_package(tmp_path):
@@ -185,6 +198,10 @@ def test_chip_smoke_fails_without_the_program(tmp_path):
       "dann_lr", "step_decay_lr", "loss_plateau_lr"]),
     ("ta3n_tpu_torch.data.manifest", "ta3n_tpu.data.manifest",
      ["parse_list_file"]),
+    ("ta3n_tpu_torch.data.streaming", "ta3n_tpu.data.streaming",
+     ["ShardPlan"]),
+    ("ta3n_tpu_torch.data.device_sampler", "ta3n_tpu.data.device_sampler",
+     ["plan_zip_shard_chunks"]),
     ("ta3n_tpu_torch.cli.opts", "ta3n_tpu.cli.opts", ["configs_from_args"]),
 ])
 def test_copied_code_matches_jax_package(port_module, jax_module, names):

@@ -3,10 +3,13 @@ package's (`ta3n_tpu.train.loop`) on the CPU: the published recipe at small
 widths, 2 epochs of 3 steps from the same converted initial weights at
 dropout 0, from host features and from device stores: equal per-epoch
 val Prec@1, per-step losses within 2e-4 relative, final parameters within
-rtol 1e-3, atol 2e-5.  Then resume: the port's Trainer holds exactly what
-it saved, and its checkpoint is read by `Predictor.from_checkpoint`."""
+rtol 1e-3, atol 2e-5.  The chunked modes (K steps per call, streamed
+stores, the device sampler) the same way over 2 epochs, their printed
+meters too.  Then resume: the port's Trainer holds exactly what it saved,
+and its checkpoint is read by `Predictor.from_checkpoint`."""
 
 import argparse
+import re
 
 import jax
 import jax.numpy as jnp
@@ -99,17 +102,28 @@ def _record(trainer, to_float):
     return steps, vals
 
 
-def _trainers(root, device_store, da=(), train=(), tag="", **kw):
+def _loaders(build, args, cfg, shuffle):
+    """The loaders of ``build`` (build_loaders of either package), the
+    training ones unshuffled unless ``shuffle``."""
+    loaders = build(args, cfg[0], cfg[2])[:3]
+    for loader in loaders[:2]:
+        loader.shuffle = loader.shuffle and shuffle
+    return loaders
+
+
+def _trainers(root, device_store, da=(), train=(), tag="", shuffle=True,
+              **kw):
     """The JAX Trainer (one device, no mesh) and the port's on the CPU,
     the port's model holding the JAX one's (redrawn) initial weights.
     ``da`` and ``train`` override fields of DA and TRAIN; ``kw`` goes to
-    both Trainers; ``tag`` names their experiment directories."""
+    both Trainers; ``tag`` names their experiment directories; without
+    ``shuffle`` the training loaders keep the list's order."""
     da, train = {**DA, **dict(da)}, {**TRAIN, **dict(train)}
     name = f"{device_store}{tag}"
     jcfg = (JaxModelConfig(**MODEL), JaxDAConfig(**da),
             JaxTrainConfig(**train))
-    jt = JaxTrainer(*jcfg, *jax_build_loaders(_args(root), jcfg[0],
-                                              jcfg[2])[:3],
+    jt = JaxTrainer(*jcfg, *_loaders(jax_build_loaders, _args(root), jcfg,
+                                     shuffle),
                     path_exp=str(root / f"jax_{name}") + "/",
                     use_mesh=False, device_store=device_store,
                     log_files=JaxLogFiles(str(root / f"jax_{name}"),
@@ -120,7 +134,7 @@ def _trainers(root, device_store, da=(), train=(), tag="", **kw):
     jt.state = jt.state._replace(
         params=jax.tree_util.tree_map(jnp.asarray, params))
     cfg = (ModelConfig(**MODEL), DAConfig(**da), TrainConfig(**train))
-    pt = Trainer(*cfg, *build_loaders(_args(root), cfg[0], cfg[2])[:3],
+    pt = Trainer(*cfg, *_loaders(build_loaders, _args(root), cfg, shuffle),
                  path_exp=str(root / f"port_{name}") + "/",
                  device_store=device_store, print_freq=1, device="cpu",
                  log_files=LogFiles(str(root / f"port_{name}"),
@@ -251,10 +265,52 @@ def test_trainer_precision_options_match_jax(workspace, kw, device_store,
     _fit_and_compare(jt, pt, updates)
 
 
+def _meters(path):
+    """The numbers of every Train: line of a train.log but its times."""
+    lines = [line for line in path.read_text().splitlines()
+             if line.startswith("Train:")]
+    cut = re.compile(r"Time \S+ \(\S+\)\tData \S+ \(\S+\)")
+    return [[float(x) for x in re.findall(r"-?\d+\.?\d*(?:e-?\d+)?",
+                                          cut.sub("", line))]
+            for line in lines]
+
+
+@pytest.mark.parametrize("kw,shuffle,epochs", [
+    (dict(steps_per_call=3), True, 2),
+    (dict(store_budget_rows=80), True, 1),
+    (dict(steps_per_call=3, device_sampler=True), False, 2),
+], ids=["steps_per_call", "store_budget_rows", "device_sampler"])
+def test_trainer_chunked_options_match_jax(workspace, kw, shuffle, epochs):
+    """K = 3 steps per call, stores streamed in shards of 80 rows (at
+    least 3 shards; one epoch of 6 steps, as many as the others take in
+    2), and K = 3 with the device sampler (the training loaders
+    unshuffled, where the port's order is the JAX one's), from device
+    stores, against the JAX Trainer with the same options: as
+    test_trainer_matches_jax, and each printed Train: line's numbers (lr,
+    Prec@1, Prec@5, the losses) within LOSS_RTOL or 1e-4 of the JAX
+    Trainer's."""
+    jt, pt = _trainers(workspace, True, train=dict(epochs=epochs),
+                       tag="_" + "_".join(kw), shuffle=shuffle, **kw)
+    assert pt.steps_per_call == jt.steps_per_call == kw.get(
+        "steps_per_call", 1)
+    assert (pt.sampled_step is None) == (jt.sampled_step is None)
+    updates = epochs * 3
+    if "store_budget_rows" in kw:
+        assert pt.streaming and jt.streaming
+        assert pt._plan_s.num_shards >= 3
+        updates = epochs * min(pt.source_loader.shard_epoch_len(pt._plan_s),
+                               pt.target_loader.shard_epoch_len(pt._plan_t))
+    _fit_and_compare(jt, pt, updates)
+    name = "True_" + "_".join(kw)
+    got = _meters(workspace / f"port_{name}" / "train.log")
+    want = _meters(workspace / f"jax_{name}" / "train.log")
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=LOSS_RTOL, atol=1e-4)
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(steps_per_call=2), "item 4"),
-    (dict(store_budget_rows=10), "item 9"),
-    (dict(device_sampler=True), "item 9"), (dict(model_parallel=2), "item 9"),
+    (dict(model_parallel=2), "item 9"),
     (dict(num_devices=2), "item 9"), (dict(tensorboard_dir="tb"), "item 5"),
     (dict(profile_dir="prof"), "item 5"),
 ])
