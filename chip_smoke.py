@@ -85,6 +85,19 @@ as well, and streamed with --store_budget_rows and --device_sampler, its
 launches per step and its Prec@1 against the resident single-step
 Trainer's on the same weights; and the eval CLI streamed against the
 resident run, bitwise.
+Ensembles (N members in one step, train/ensemble.py): the member-batched
+K1 (infer, train), K2 and K3 bitwise against N solo launches (B = 1, 64,
+202; S = 5, 17; N = 1, 3, 8; K3 from one index set and one each) and
+within RTOL of plain, timed at N = 1, 4, 8 against N solo launches; 5
+device-store steps of a 4-member flagship ensemble (seeds 0-3, two lrs),
+each member held to its solo step from the same start (the tie rule of
+the other parity checks), with K3 2x, K1 (train) 1x and K2 1x a step and
+no vmap fallback; the ensemble step timed against 4 solo steps in turns
+with its profile; an ensemble val batch (K3 1x, K1 1x); a sweep's member
+checkpoints served over HTTP by Predictor.from_sweep (the averaged
+probabilities equal to the mean of the members' solo Predictors'); and
+the sweep CLI for one epoch of 2 seeds x 2 lrs, then the eval CLI on a
+member's checkpoint (its Pred@1 the member's reported top-1).
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -112,6 +125,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ta3n_tpu_torch.cli import sweep as cli_sweep
 from ta3n_tpu_torch.cli import test_models as cli_test_models
 from ta3n_tpu_torch.cli import train as cli_train
 from ta3n_tpu_torch.cli.opts import build_parser, configs_from_args
@@ -120,7 +134,9 @@ from ta3n_tpu_torch.data import FeatureStore, TSNLoader, make_domain_pair
 from ta3n_tpu_torch.data.device_sampler import (DeviceSampler,
                                                 StreamingDeviceSampler)
 from ta3n_tpu_torch.data.streaming import ShardPlan, ShardStream
-from ta3n_tpu_torch.io_utils.convert import load_reference_checkpoint
+from ta3n_tpu_torch.io_utils.checkpoint import save_checkpoint
+from ta3n_tpu_torch.io_utils.convert import (export_reference_state,
+                                             load_reference_checkpoint)
 from ta3n_tpu_torch.models import VideoModel
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
 from ta3n_tpu_torch.ops import _build, gather_gemm, relation, trn_fused
@@ -130,6 +146,11 @@ from ta3n_tpu_torch.train import (StepScalars, TrainState, make_eval_step,
                                   make_multi_train_step,
                                   make_sampled_multi_step,
                                   make_multi_eval_step, make_train_step)
+from ta3n_tpu_torch.train.ensemble import (ensemble_generators,
+                                           extract_member,
+                                           make_ensemble_eval_step,
+                                           make_ensemble_step, stack_members,
+                                           stack_scalars)
 from ta3n_tpu_torch.train.loop import Trainer, build_loaders
 from ta3n_tpu_torch.train.optim import make_optimizer
 from ta3n_tpu_torch.train.schedules import dann_lr, effective_beta, progress
@@ -321,6 +342,25 @@ LIBRARY_CAST = {"bf16": "convert", "int8": "dequantize"}
 CHUNK_K = 4
 CHUNK_TIMED = 20
 CHUNK_SHARDS = 3
+# ensembles: the members (seeds 0-3, two lrs) of the flagship ensemble,
+# its parity steps and timed steps; the member-batched kernels against N
+# solo launches at (N, B, S) for the TRN and (N, rows, per-member indices)
+# for K3, and their times at N members
+ENSEMBLE_SEEDS = (0, 1, 2, 3)
+ENSEMBLE_LRS = (0.03, 0.01, 0.03, 0.01)
+ENSEMBLE_STEPS = 5
+ENSEMBLE_TIMED = 10
+MEMBER_TRN_CASES = ((1, 64, 5), (3, 1, 5), (8, 64, 5), (3, 202, 5),
+                    (8, 202, 5), (3, 202, 17))
+MEMBER_K3_CASES = ((1, 640, False), (3, 640, False), (8, 640, False),
+                   (4, 640, True), (8, 370, True), (3, 320, True))
+MEMBER_TIMED = (1, 4, 8)
+# the member-batched kernels' entries of the kernels line: the kernel each
+# extends (its source and TPU kernel) and its count
+MEMBER_KERNELS = {"trn_fused_fwd_members": "trn_fused_fwd",
+                  "trn_fused_fwd_train_members": "trn_fused_fwd_train",
+                  "trn_fused_bwd_members": "trn_fused_bwd",
+                  "gather_gemm_members": "gather_gemm"}
 
 
 def log(msg: str) -> None:
@@ -3245,6 +3285,549 @@ def streamed_eval_cli(root, weights):
     return launched
 
 
+# ---- ensembles: N members in one step (train/ensemble.py) ----
+
+def member_stacks(sets):
+    """Stack N (x, weights, biases) sets of trn_inputs, members first."""
+    x = torch.stack([t[0] for t in sets])
+    w = [torch.stack([t[1][i] for t in sets]) for i in range(len(sets[0][1]))]
+    bi = [torch.stack([t[2][i] for t in sets])
+          for i in range(len(sets[0][2]))]
+    return x, w, bi
+
+
+def member_trn(n, b, s, gen):
+    """N members' TRN inputs at the flagship widths (x of both signs)."""
+    return member_stacks([trn_inputs(b, s, 512, 256, gen, signed=True)
+                          for _ in range(n)])
+
+
+def solo(t, k):
+    return [w[k] for w in t]
+
+
+def check_member_trn(gen):
+    """The member-batched K1 (infer, train) and K2 against N solo launches
+    on the members' inputs, bitwise, and against the plain version within
+    RTOL, at MEMBER_TRN_CASES; each call one launch.  The worst errors
+    against plain."""
+    worst = dict.fromkeys(("trn_fused_fwd_members",
+                           "trn_fused_fwd_train_members",
+                           "trn_fused_bwd_members"), 0.0)
+    with torch.no_grad():
+        for n, b, s in MEMBER_TRN_CASES:
+            x, w, bi = member_trn(n, b, s, gen)
+            g = torch.randn((n, b, s - 1, 256), generator=gen).cuda()
+            reset_counts()
+            out = trn_fused.trn_multiscale_infer_members(x, w, bi, s)
+            tout, masks = trn_fused.trn_multiscale_fwd_masks_members(
+                x, w, bi, s)
+            dx, dws, dbs = trn_fused.trn_multiscale_bwd_members(
+                x, w, masks, g, s)
+            torch.cuda.synchronize()
+            if counts() != {"trn_fused_fwd": 1, "trn_fused_fwd_train": 1,
+                            "trn_fused_bwd": 1, "gather_gemm": 0}:
+                raise AssertionError(f"member TRN launches {counts()}")
+            same, errs = [], [0.0, 0.0, 0.0]
+            for k in range(n):
+                so = trn_fused.trn_multiscale_infer(x[k], solo(w, k),
+                                                    solo(bi, k), s)
+                st, sm = trn_fused.trn_multiscale_fwd_masks(
+                    x[k], solo(w, k), solo(bi, k), s)
+                sdx, sdw, sdb = trn_fused.trn_multiscale_bwd(
+                    x[k], solo(w, k), masks[k], g[k], s)
+                same.append(all([
+                    torch.equal(out[k], so), torch.equal(tout[k], st),
+                    torch.equal(masks[k], sm), torch.equal(dx[k], sdx),
+                    *(torch.equal(a[k], c) for a, c in zip(dws, sdw)),
+                    *(torch.equal(a[k], c) for a, c in zip(dbs, sdb))]))
+                plain = trn_fused.trn_multiscale_plain(x[k], solo(w, k),
+                                                       solo(bi, k), s)
+                pdx, pdw, pdb = trn_fused.trn_multiscale_bwd_plain(
+                    x[k], solo(w, k), masks[k], g[k], s)
+                for j, (got, want) in enumerate((
+                        (out[k], plain), (tout[k], plain), (dx[k], pdx),
+                        *((a[k], c) for a, c in zip(dws, pdw)),
+                        *((a[k], c) for a, c in zip(dbs, pdb)))):
+                    err = (got - want).abs().max().item()
+                    tol = RTOL * max(1.0, want.abs().max().item())
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"member TRN output {j} differs from plain at "
+                            f"N={n} B={b} S={s}: {err} > {tol}")
+                    errs[min(j, 2)] = max(errs[min(j, 2)], err)
+            log(f"  N={n} B={b} S={s}: K1 (infer), K1 (train) with its "
+                f"masks and K2's dx, dW, db bitwise equal to {n} solo "
+                f"launches: {all(same)}; max|kernel-plain| {errs[0]:.2e}, "
+                f"{errs[1]:.2e}, {errs[2]:.2e}; one launch each")
+            if not all(same):
+                raise AssertionError(f"member TRN kernels differ from solo "
+                                     f"launches at N={n} B={b} S={s}")
+            for key, e in zip(worst, errs):
+                worst[key] = max(worst[key], e)
+    return worst
+
+
+def member_gather_case(n, rows, store, per_member, rng):
+    """N members' weights [N, 512, 2048], their indices (one set for all
+    or one each) and scales."""
+    h, d = FLAGSHIP.fc_dim, store.shape[1]
+    w = (torch.from_numpy(rng.uniform(-1, 1, (n, h, d)).astype(np.float32))
+         / math.sqrt(d)).cuda()
+    sets = [gather_case(rows, store.shape[0], rng)
+            for _ in range(n if per_member else 1)]
+    if per_member:
+        idx = gather_gemm.RowIndex(torch.stack([r.rows for r, _ in sets]),
+                                   max(r.end for r, _ in sets))
+        scale = torch.stack([sc for _, sc in sets])
+    else:
+        idx, scale = sets[0]
+    return w, idx, scale, sets
+
+
+def check_member_gather(store):
+    """K3 over N members, shared and per-member indices, at
+    MEMBER_K3_CASES: z bitwise N solo launches and within RTOL of plain,
+    x_res bitwise; one launch a call.  The worst error against plain."""
+    rng = np.random.default_rng(7)
+    worst = 0.0
+    for n, rows, per_member in MEMBER_K3_CASES:
+        w, idx, scale, sets = member_gather_case(n, rows, store, per_member,
+                                                 rng)
+        reset_counts()
+        z, x_res = gather_gemm.gathered_gemm_members(store, idx, w, scale)
+        torch.cuda.synchronize()
+        if gather_gemm.launches != 1:
+            raise AssertionError("member K3 launched more than once")
+        same, err = [], 0.0
+        for k in range(n):
+            rk, sk = sets[k if per_member else 0]
+            sz, sx = gather_gemm.gathered_gemm(store, rk, w[k], sk)
+            pz, _ = gather_gemm.gathered_gemm_plain(store, rk.rows, w[k], sk)
+            got_x = x_res[k] if per_member else x_res
+            same.append(torch.equal(z[k], sz) and torch.equal(got_x, sx))
+            e = (z[k] - pz).abs().max().item()
+            if not e <= RTOL * max(1.0, pz.abs().max().item()):
+                raise AssertionError(f"member K3 differs from plain at "
+                                     f"N={n} rows={rows}: {e}")
+            err = max(err, e)
+        log(f"  K3 N={n} rows={rows} "
+            f"{'per-member' if per_member else 'shared'} indices: z and "
+            f"x_res bitwise equal to {n} solo launches: {all(same)}; "
+            f"max|kernel-plain| {err:.2e}; one launch")
+        if not all(same):
+            raise AssertionError(f"member K3 differs from solo launches at "
+                                 f"N={n} rows={rows}")
+        worst = max(worst, err)
+    return worst
+
+
+def time_members(gen, store):
+    """Device times of each member-batched kernel at N = 1, 4 and 8
+    against N solo launches and the plain version member by member, in
+    turns (K1 (infer) at B=64, K1 (train) and K2 at B=202, K3 at the train
+    shape, 640 rows with x_res, from one index set); and, for K3,
+    index_select + matmul over the stacked weights.  {name: {N: (times,
+    work)}}."""
+    out = {k: {} for k in ("trn_fused_fwd_members",
+                           "trn_fused_fwd_train_members",
+                           "trn_fused_bwd_members", "gather_gemm_members")}
+    rng = np.random.default_rng(9)
+    with torch.no_grad():
+        for n in MEMBER_TIMED:
+            x, w, bi = member_trn(n, SERVE_BATCH, 5, gen)
+            t = time_pair({
+                "kernel": lambda: trn_fused.trn_multiscale_infer_members(
+                    x, w, bi, 5),
+                "solo": lambda: [trn_fused.trn_multiscale_infer(
+                    x[k], solo(w, k), solo(bi, k), 5) for k in range(n)],
+                "plain": lambda: [trn_fused.trn_multiscale_plain(
+                    x[k], solo(w, k), solo(bi, k), 5) for k in range(n)]},
+                runs=21)
+            flops, nbytes = trn_work(SERVE_BATCH)["trn_fused_fwd"]
+            out["trn_fused_fwd_members"][n] = (t, (n * flops, n * nbytes))
+            b = sum(TRAIN.batch_size[:2])
+            x, w, bi = member_trn(n, b, 5, gen)
+            g = torch.randn((n, b, 4, 256), generator=gen).cuda()
+            _, masks = trn_fused.trn_multiscale_fwd_masks_members(x, w, bi,
+                                                                  5)
+            work = trn_work(b)
+            t = time_pair({
+                "kernel": lambda: trn_fused.trn_multiscale_fwd_masks_members(
+                    x, w, bi, 5),
+                "solo": lambda: [trn_fused.trn_multiscale_fwd_masks(
+                    x[k], solo(w, k), solo(bi, k), 5) for k in range(n)],
+                "plain": lambda: [trn_fused.trn_multiscale_fwd_masks_plain(
+                    x[k], solo(w, k), solo(bi, k), 5) for k in range(n)]},
+                runs=21)
+            f, nb = work["trn_fused_fwd_train"]
+            out["trn_fused_fwd_train_members"][n] = (t, (n * f, n * nb))
+            t = time_pair({
+                "kernel": lambda: trn_fused.trn_multiscale_bwd_members(
+                    x, w, masks, g, 5),
+                "solo": lambda: [trn_fused.trn_multiscale_bwd(
+                    x[k], solo(w, k), masks[k], g[k], 5) for k in range(n)],
+                "plain": lambda: [trn_fused.trn_multiscale_bwd_plain(
+                    x[k], solo(w, k), masks[k], g[k], 5) for k in range(n)]},
+                runs=21)
+            f, nb = work["trn_fused_bwd"]
+            out["trn_fused_bwd_members"][n] = (t, (n * f, n * nb))
+            rows = K3_TIMED[0][0]
+            w, idx, scale, sets = member_gather_case(n, rows, store, False,
+                                                     rng)
+            t = time_pair({
+                "kernel": lambda: gather_gemm.gathered_gemm_members(
+                    store, idx, w, scale),
+                "solo": lambda: [gather_gemm.gathered_gemm(
+                    store, idx, w[k], scale) for k in range(n)],
+                "plain": lambda: [gather_gemm.gathered_gemm_plain(
+                    store, idx.rows, w[k], scale) for k in range(n)],
+                "library": lambda: torch.matmul(
+                    store.index_select(0, idx.rows), w.transpose(1, 2))},
+                runs=21)
+            f, nb = gather_work(idx, store.shape[1], FLAGSHIP.fc_dim, True)
+            d, h = store.shape[1], FLAGSHIP.fc_dim
+            # N weights and N outputs; the rows and x_res once
+            nb += (n - 1) * 4 * (h * d + rows * h)
+            out["gather_gemm_members"][n] = (t, (n * f, nb))
+    for name, by_n in out.items():
+        for n, (t, work) in by_n.items():
+            least, by = bound(*work, PEAK_TF32 / 3)
+            log(f"  {name} N={n}: kernel {t['kernel']:.4f} ms, {n} solo "
+                f"launches {t['solo']:.4f} ms, plain {t['plain']:.4f} ms"
+                + (f", index_select + matmul {t['library']:.4f} ms"
+                   if "library" in t else "")
+                + f" device; bound {least:.4f} ms by {by} (medians of 21, "
+                "in turns)")
+    return out
+
+
+def ensemble_models(seeds, dropout=0.0):
+    """The members: flagship models redrawn at torch's default scale, each
+    from its seed."""
+    return [flagship_model(torch.Generator().manual_seed(s), dropout)
+            for s in seeds]
+
+
+def member_scalars(i, total, lrs):
+    """Step i's per-member scalars: DANN lr of each member's base lr, the
+    DANN beta ramp."""
+    p = progress(i, 0, total)
+    return stack_scalars([StepScalars(effective_beta((-1.0, -1.0, -1.0), p),
+                                      0.0, 0.0, TRAIN.gamma,
+                                      dann_lr(lr, p)) for lr in lrs])
+
+
+def record_member_trn():
+    """Record the member-batched TRN training forward's inputs and masks
+    (the ensemble side's TRN record, member by member, for tie_rows)."""
+    rec, original = {}, trn_fused.trn_multiscale_fwd_masks_members
+
+    def recording(x, weights, biases, s, sub=3):
+        out = original(x, weights, biases, s, sub)
+        rec.update(x=x.detach().clone(), masks=out[1].clone(),
+                   weights=[w.detach().clone() for w in weights],
+                   biases=[b.detach().clone() for b in biases])
+        return out
+
+    return rec, recording, original
+
+
+def train_ensemble(stores, dev):
+    """ENSEMBLE_STEPS device-store steps of ENSEMBLE_SEEDS members (two
+    lrs), dropout 0: each step launches K3 2x, K1 (train) 1x and K2 1x
+    with no vmap fallback, and each member's updated parameters are held to
+    its solo step from the same start (extract_member) on the same batch,
+    at STEP_RTOL and PARAM_TOL but for rows fed by a relu mask flipped at a
+    rounding tie (tie_rows, the ensemble side's TRN record taken from the
+    member-batched kernel's inputs).  Returns the launches and the count of
+    vmap fallbacks."""
+    import warnings
+
+    n = len(ENSEMBLE_SEEDS)
+    ens = stack_members(ensemble_models(ENSEMBLE_SEEDS), TRAIN)
+    step = make_ensemble_step(ens.model, DA, TRAIN, gather_on_device=True)
+    gens = ensemble_generators(ENSEMBLE_SEEDS, "cuda")
+    ls, lt = store_loaders(stores)
+    batches = zip(endless(ls.index_epoch), endless(lt.index_epoch))
+    rec, recording, original = record_member_trn()
+    launches = dict.fromkeys(counts(), 0)
+    fallbacks, worst_rel, worst, ties = 0, 0.0, 0.0, 0
+    for i in range(ENSEMBLE_STEPS):
+        bs, bt = next(batches)
+        sc = member_scalars(i, ENSEMBLE_STEPS, ENSEMBLE_LRS)
+        solos = [extract_member(ens, k, TRAIN) for k in range(n)]
+        trn_fused.trn_multiscale_fwd_masks_members = recording
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                reset_counts()
+                ens, got = step(ens, dev[0], *bs, dev[1], *bt, sc, gens)
+                torch.cuda.synchronize()
+                launched = counts()
+        finally:
+            trn_fused.trn_multiscale_fwd_masks_members = original
+        fallbacks += sum("performance drop" in str(w.message)
+                         for w in caught)
+        if launched != {"trn_fused_fwd": 0, "trn_fused_fwd_train": 1,
+                        "trn_fused_bwd": 1, "gather_gemm": 2}:
+            raise AssertionError(f"ensemble step {i} launched {launched}")
+        launches = {k: launches[k] + launched[k] for k in launches}
+        for k, st in enumerate(solos):
+            ref_rec, hook = record_trn(st.model)
+            solo_step = make_train_step(st.model, DA, TRAIN,
+                                        gather_on_device=True)
+            st, want = solo_step(st, dev[0], *bs, dev[1], *bt,
+                                 StepScalars(*(f[k] for f in sc)), None)
+            hook.remove()
+            ours = {"x": rec["x"][k], "masks": rec["masks"][k]}
+            ours["z"] = preacts(ours["x"], solo(rec["weights"], k),
+                                solo(rec["biases"], k), 5)
+            allowed, _ = tie_rows(ours, ref_rec)
+            member = extract_member(ens, k, TRAIN).model
+            worst_rel = max(worst_rel, check_metrics(
+                i, {key: float(v[k]) for key, v in got.items()},
+                {key: float(v) for key, v in want.items()},
+                f"member {k}'s solo step"))
+            diff, let = check_params(i, member, st.model,
+                                     f"member {k}'s solo step", allowed)
+            worst, ties = max(worst, diff), ties + let
+        log(f"  step {i}: losses {[round(float(v), 5) for v in got['loss']]}"
+            f", launched {launched}, vmap fallbacks so far {fallbacks}")
+    log(f"  {n} members x {ENSEMBLE_STEPS} steps, each member against its "
+        f"solo step from the same start: metrics within {worst_rel:.3e} "
+        f"relative (tolerance {STEP_RTOL}), parameters within {worst:.3e} "
+        f"(rtol {PARAM_TOL['rtol']}, atol {PARAM_TOL['atol']}; {ties} rows "
+        f"let through); vmap fallbacks {fallbacks}; launches {launches}")
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} vmap fallbacks in the flagship "
+                             "ensemble step")
+    return launches, fallbacks
+
+
+def time_ensemble_step(stores, dev, warmup=3):
+    """ms per ensemble step of ENSEMBLE_SEEDS members against as many solo
+    steps (one after another, one model each), dropout 0.5, in turns; the
+    device's busy time and idle share of each under the profiler."""
+    n = len(ENSEMBLE_SEEDS)
+    models = ensemble_models(ENSEMBLE_SEEDS, dropout=0.5)
+    ens = stack_members(models, TRAIN)
+    estep = make_ensemble_step(ens.model, DA, TRAIN, gather_on_device=True)
+    gens = ensemble_generators(ENSEMBLE_SEEDS, "cuda")
+    solos = [TrainState(m, make_optimizer(m.parameters(), TRAIN), 0)
+             for m in models]
+    sstep = [make_train_step(m, DA, TRAIN, gather_on_device=True)
+             for m in models]
+    sgens = ensemble_generators(ENSEMBLE_SEEDS, "cuda")
+    ls, lt = store_loaders(stores, seed=5)
+    batches = zip(endless(ls.index_epoch), endless(lt.index_epoch))
+    state = {"ens": ens, "solo": solos}
+    sc = member_scalars(0, 100, ENSEMBLE_LRS)
+
+    def run(name, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            bs, bt = next(batches)
+            if name == "ensemble":
+                state["ens"], m = estep(state["ens"], dev[0], *bs, dev[1],
+                                        *bt, sc, gens)
+            else:
+                for k in range(n):
+                    state["solo"][k], m = sstep[k](
+                        state["solo"][k], dev[0], *bs, dev[1], *bt,
+                        StepScalars(*(f[k] for f in sc)), sgens[k])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    for name in ("ensemble", "solo"):
+        run(name, warmup)
+    times = {"ensemble": [], "solo": []}
+    for order in (("solo", "ensemble"), ("ensemble", "solo"),
+                  ("solo", "ensemble")):
+        for name in order:
+            times[name].append(run(name, ENSEMBLE_TIMED))
+    result = {}
+    for name, t in times.items():
+        ms = statistics.median(t)
+        label = (f"ensemble steps of {n} members" if name == "ensemble"
+                 else f"rounds of {n} solo steps")
+        log(f"  {label}: {ms:.3f} ms each ({ENSEMBLE_TIMED} back to back, "
+            f"median of {len(t)}, in turns)")
+        busy, idle = device_profile(lambda s: run(name, s), 3, ms, label)
+        result[name] = (ms, busy, idle)
+    return result
+
+
+def eval_ensemble(stores, val_dev):
+    """One val batch of CLI_BATCH videos through the ensemble eval step
+    from the store: K3 1x and K1 (infer) 1x for all members, each member's
+    logits within RTOL of its solo eval step's."""
+    n = len(ENSEMBLE_SEEDS)
+    ens = stack_members(ensemble_models(ENSEMBLE_SEEDS), TRAIN)
+    ev = make_ensemble_eval_step(ens.model, gather_on_device=True)
+    lv = TSNLoader(stores[2], batch_size=CLI_BATCH,
+                   num_segments=FLAGSHIP.val_segments, mode="test",
+                   shuffle=False)
+    b = next(iter(lv.index_epoch()))
+    reset_counts()
+    m = ev(ens, val_dev, b.abs_indices, b.labels, b.mask)
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched != {"trn_fused_fwd": 1, "trn_fused_fwd_train": 0,
+                    "trn_fused_bwd": 0, "gather_gemm": 1}:
+        raise AssertionError(f"ensemble val batch launched {launched}")
+    err = 0.0
+    for k in range(n):
+        member = extract_member(ens, k, TRAIN).model
+        want = make_eval_step(member, gather_on_device=True)(
+            val_dev, b.abs_indices, b.labels, b.mask)["logits"]
+        e = (m["logits"][k] - want).abs().max().item()
+        if not e <= RTOL * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"member {k}'s ensemble eval logits differ "
+                                 f"from its solo eval: {e}")
+        err = max(err, e)
+    log(f"  one val batch of {CLI_BATCH} videos, {n} members: launched "
+        f"{launched}; each member's logits within {err:.2e} of its solo "
+        "eval step")
+    return launched
+
+
+def serve_ensemble(workdir):
+    """A sweep directory of the members' checkpoints served over HTTP by
+    Predictor.from_sweep: K1 (infer) once a chunk for every member, and
+    the averaged probabilities equal to the mean of the members' solo
+    Predictors' within PROB_TOL."""
+    sweep = os.path.join(workdir, "sweep")
+    for k, model in enumerate(ensemble_models(ENSEMBLE_SEEDS)):
+        save_checkpoint(os.path.join(sweep, f"member_{k:02d}"), {
+            "epoch": 1, "arch": "resnet101", "best_prec1": 0.0,
+            "prec1": 0.0, "state_dict": {
+                f"module.{key}": v for key, v in
+                export_reference_state(model).items()}})
+    predictor = Predictor.from_sweep(sweep, FLAGSHIP, device="cuda",
+                                     batch_size=SERVE_BATCH)
+    solos = [Predictor.from_checkpoint(
+        os.path.join(sweep, f"member_{k:02d}", "checkpoint.pth.tar"),
+        FLAGSHIP, device="cuda", batch_size=SERVE_BATCH)
+        for k in range(len(ENSEMBLE_SEEDS))]
+    rng = np.random.default_rng(1)
+    requests = [rng.random((n, 5, FLAGSHIP.input_feature_dim), np.float32)
+                for n in REQUEST_SIZES]
+    server = make_http_server(predictor, [f"class_{i}" for i in range(12)],
+                              "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        for label in ("warm-up", "served"):
+            reset_counts()
+            answers = []
+            for feats in requests:
+                t0 = time.perf_counter()
+                answers.append(post(f"{url}/predict",
+                                    {"features": feats.tolist()}))
+                log(f"  POST /predict ({label}), {feats.shape[0]} videos, "
+                    f"{predictor.n_members} members: "
+                    f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        launches = counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    chunks = sum(-(-n // SERVE_BATCH) for n in REQUEST_SIZES)
+    if launches != {"trn_fused_fwd": chunks, "trn_fused_fwd_train": 0,
+                    "trn_fused_bwd": 0, "gather_gemm": 0}:
+        raise AssertionError(f"ensemble serving launched {launches}")
+    for feats, ans in zip(requests, answers):
+        probs, top_p, top_i = predictor(feats)
+        mean = np.mean([p(feats)[0] for p in solos], axis=0)
+        err = np.abs(probs - mean).max()
+        top = np.sort(mean, axis=1)[:, ::-1][:, :5]
+        log(f"  {feats.shape[0]} videos: |averaged - mean of solo "
+            f"Predictors| = {err:.2e}; served top-5 probabilities within "
+            f"{np.abs(np.asarray(ans['top_probs']) - top).max():.2e}")
+        if not err <= PROB_TOL or not np.allclose(
+                np.asarray(ans["top_probs"]), top, atol=PROB_TOL):
+            raise AssertionError("ensemble probabilities differ from the "
+                                 "mean of the members' solo Predictors")
+    return launches
+
+
+def sweep_cli(root):
+    """cli.sweep on the stores of the published split sizes: 1 epoch, 2
+    seeds x 2 lrs, one JSON line per member and a summary; then the eval
+    CLI on member 0's checkpoint, whose Pred@1 must be the member's
+    reported top-1."""
+    out_dir = os.path.join(root, "sweep_cli")
+    argv = [os.path.join(root, "class.txt"), "RGB",
+            os.path.join(root, "src", "list.txt"),
+            os.path.join(root, "tgt", "list.txt"),
+            os.path.join(root, "val", "list.txt"),
+            "--exp_path", os.path.join(root, "sweep_exp") + "/",
+            *MODEL_FLAGS, *RECIPE_FLAGS, "--epochs", "1", "--sweep_seeds",
+            "0", "1", "--sweep_lrs", "0.03", "0.01", "--sweep_dir", out_dir]
+    reset_counts()
+    t0 = time.perf_counter()
+    result, text = run_cli(cli_sweep.main, argv)
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    lines = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+    for line in lines:
+        log(f"  {json.dumps(line)}")
+    rows = result["results"]
+    if len(rows) != 4 or len(lines) != 5 or any(
+            r["final_loss"] is None for r in rows):
+        raise AssertionError("the sweep CLI did not train 4 members")
+    log(f"  cli.sweep: 4 members, 1 epoch, {seconds:.1f} s with the build "
+        f"of its steps and its validation; launches {launched}")
+    _, text = run_cli(cli_test_models.main, eval_cli_args(
+        root, os.path.join(out_dir, "member_00", "checkpoint.pth.tar"),
+        "--device_store"))
+    want = f"Pred@1 {rows[0]['top1']:.2f}%"
+    log(f"  eval CLI on member_00: {text.strip().splitlines()[-1][:100]}")
+    if want not in text:
+        raise AssertionError(f"the eval CLI does not reproduce member 0's "
+                             f"top-1 ({want})")
+    return launched
+
+
+def ensemble_phase(gen, stores, dev, root):
+    """The ensemble slice: the member-batched kernels against N solo
+    launches, then each path with the counts set to 0 just before it and
+    read just after.  Returns (launches of the member-batched kernels on
+    the paths, their worst errors against plain, their times)."""
+    log("member-batched K1 (infer, train) and K2 against N solo launches")
+    errs = check_member_trn(gen)
+    log("member-batched K3 against N solo launches")
+    errs["gather_gemm_members"] = check_member_gather(dev[0])
+    log(f"member-batched kernel times at N = {MEMBER_TIMED} ({card_line()})")
+    times = time_members(gen, dev[0])
+    log(f"ensemble of {len(ENSEMBLE_SEEDS)} members (seeds "
+        f"{ENSEMBLE_SEEDS}, lrs {ENSEMBLE_LRS}), {TRAIN.batch_size[0]} + "
+        f"{TRAIN.batch_size[1]} videos from the stores: against each "
+        "member's solo step")
+    launches = dict.fromkeys(counts(), 0)
+
+    def add(got):
+        for key, v in got.items():
+            launches[key] += v
+
+    steps, _ = train_ensemble(stores, dev)
+    add(steps)
+    log(f"ensemble step timing ({card_line()})")
+    step_t = time_ensemble_step(stores, dev)
+    log("ensemble eval: one val batch")
+    add(eval_ensemble(stores, dev[2]))
+    log("deep-ensemble serving over HTTP (Predictor.from_sweep)")
+    with tempfile.TemporaryDirectory() as workdir:
+        add(serve_ensemble(workdir))
+    log("the sweep CLI for one epoch, then the eval CLI on a member")
+    add(sweep_cli(root))
+    log(f"member-batched launches on the ensemble paths: {launches}")
+    return launches, errs, times, step_t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
@@ -3402,6 +3985,12 @@ def main() -> int:
         add(got32)
         log(f"bfloat16 and accumulation CLIs: {time.perf_counter() - t0:.1f}"
             " s")
+        t0 = time.perf_counter()
+        log("ensembles: member-batched kernels, the flagship ensemble's "
+            "steps, eval, serving and the sweep CLI")
+        member_launches, member_errs, member_t, ens_t = ensemble_phase(
+            gen, stores, dev, root)
+        log(f"ensembles: {time.perf_counter() - t0:.1f} s")
         log(card_line())
 
     # the shapes each kernel runs at on its path: serving batch, train batch
@@ -3500,6 +4089,38 @@ def main() -> int:
                         f"b{b}_bound_ms": bound(*trn_work(b, esize=2)[
                             "trn_fused_fwd"], peak)[0]})
         kernels.append(entry)
+    # the member-batched kernels (the float32 kernels' member grid axis):
+    # their launches on the ensemble paths, times at N = 4 members with
+    # N = 1 and 8 beside, each against N solo launches
+    for name, base in MEMBER_KERNELS.items():
+        n_launch = member_launches[base]
+        if n_launch < 1:
+            raise AssertionError(f"{name} was not launched on its path")
+        by_n = member_t[name]
+        t4, work4 = by_n[4]
+        bound_ms, bound_by = bound(*work4, PEAK_OPS[base])
+        entry = {"name": name, "route": "cuda", "source": sources[base][0],
+                 "replaces": sources[base][1], "launches": n_launch,
+                 "max_abs_err": member_errs[name], "ms": t4["kernel"],
+                 "plain_ms": t4["plain"], "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": t4.get("library"),
+                 "members": 4, "solo_ms": t4["solo"]}
+        for n in MEMBER_TIMED:
+            if n != 4:
+                t, work = by_n[n]
+                entry.update({f"n{n}_ms": t["kernel"],
+                              f"n{n}_solo_ms": t["solo"],
+                              f"n{n}_plain_ms": t["plain"],
+                              f"n{n}_bound_ms": bound(*work,
+                                                      PEAK_OPS[base])[0]})
+                if "library" in t:
+                    entry[f"n{n}_library_ms"] = t["library"]
+        kernels.append(entry)
+    log(f"ensemble step of {len(ENSEMBLE_SEEDS)} members: "
+        f"{ens_t['ensemble'][0]:.3f} ms (busy {ens_t['ensemble'][1]:.3f}, "
+        f"idle {100 * ens_t['ensemble'][2]:.1f}%); {len(ENSEMBLE_SEEDS)} "
+        f"solo steps: {ens_t['solo'][0]:.3f} ms (busy "
+        f"{ens_t['solo'][1]:.3f}, idle {100 * ens_t['solo'][2]:.1f}%)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

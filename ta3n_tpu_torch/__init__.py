@@ -7,7 +7,9 @@ of the JAX package, in float32 or bfloat16 compute (the flagship is the
 path (`serve.Predictor`, `cli.serve`), the train step
 (`train.make_train_step`) with features from the host or from stores on
 the card, the eval CLI (`cli.test_models`), and the Trainer
-(`train.loop.Trainer`) with its train CLI (`cli.train`); the multi-scale
+(`train.loop.Trainer`) with its train CLI (`cli.train`), ensembles of N
+members in one step (`train.ensemble`) with the sweep runner and CLI
+(`train.sweep`, `cli.sweep`) and deep-ensemble serving; the multi-scale
 TRN's forward and backward and the store gather + shared FC are
 hand-written CUDA kernels (`csrc/`).  ROADMAP.md lists what is still to
 port.  The package imports torch and nothing of the JAX package.

@@ -7,7 +7,11 @@ The positionals and model flags are those of `ta3n_tpu.cli.serve`, plus
 ``--device`` (default ``cuda``; without a CUDA device it exits with an
 error rather than serve on the CPU).  WEIGHTS is a reference-format
 ``.pth.tar``; export a JAX checkpoint directory first with
-``python -m ta3n_tpu.cli.export_checkpoint DIR out.pth.tar``.
+``python -m ta3n_tpu.cli.export_checkpoint DIR out.pth.tar``.  WEIGHTS may
+also be a sweep's output directory (``python -m ta3n_tpu_torch.cli.sweep
+... --sweep_dir DIR``): every member is then served as one deep ensemble
+(``Predictor.from_sweep``), each member's final checkpoint or, with
+``--sweep_best``, its model_best.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from ta3n_tpu_torch.serve import _LATER, Predictor, run_http_server
 def build_parser():
     p = argparse.ArgumentParser(description="TA3N serving (PyTorch port)")
     p.add_argument("class_file")
-    p.add_argument("weights", help="reference-format .pth.tar")
+    p.add_argument("weights", help="reference-format .pth.tar, or a sweep "
+                   "output dir (served as a deep ensemble)")
     p.add_argument("--arch", default="resnet101")
     p.add_argument("--feature_dim", type=int, default=None)
     p.add_argument("--test_segments", type=int, default=5)
@@ -43,7 +48,9 @@ def build_parser():
     p.add_argument("--data_parallel", default=False, action="store_true",
                    help=_LATER)
     p.add_argument("--sweep_best", default=False, action="store_true",
-                   help=_LATER)
+                   help="when WEIGHTS is a sweep dir: serve each member's "
+                        "best-validation state (model_best, written by -ef "
+                        "sweeps) instead of its final checkpoint")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--export", default=None, metavar="DIR", help=_LATER)
@@ -56,7 +63,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     for flag, on in (("--export", args.export is not None),
                      ("--data_parallel", args.data_parallel),
-                     ("--sweep_best", args.sweep_best),
                      ("--quantize int8", args.quantize == "int8")):
         if on:
             raise SystemExit(f"{flag} {_LATER}")
@@ -74,9 +80,23 @@ def main(argv=None):
         fc_dim=args.fc_dim, use_attn=args.use_attn,
         use_attn_frame=args.use_attn_frame, use_bn=args.use_bn,
         share_params=args.share_params, quantize=args.quantize)
-    predictor = Predictor.from_checkpoint(
-        args.weights, cfg, device=device, batch_size=args.batch_size,
-        top_k=args.top_k)
+    if args.sweep_best and not Predictor.is_sweep(args.weights):
+        raise SystemExit(
+            f"--sweep_best: {args.weights} is not a sweep output dir (no "
+            "member_XX checkpoints) — for a solo training run point WEIGHTS "
+            "at its model_best.pth.tar directly")
+    if Predictor.is_sweep(args.weights):
+        # every member as one deep ensemble (member-averaged softmax, one
+        # vmapped pass)
+        which = "model_best" if args.sweep_best else "checkpoint"
+        predictor = Predictor.from_sweep(
+            args.weights, cfg, which=which, device=device,
+            batch_size=args.batch_size, top_k=args.top_k)
+        print(f"ensemble serving: {predictor.n_members} members ({which})")
+    else:
+        predictor = Predictor.from_checkpoint(
+            args.weights, cfg, device=device, batch_size=args.batch_size,
+            top_k=args.top_k)
     run_http_server(predictor, class_names, args.host, args.port)
 
 

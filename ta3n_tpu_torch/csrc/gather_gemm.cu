@@ -56,6 +56,13 @@
 // Indices are not checked here: the Python wrapper only launches with
 // indices it checked on the host (0 <= idx < R).
 //
+// Members (ensembles): N weights [N, H, K] over one store in one launch,
+// the member folded into blockIdx.y beside the H tiles; with one index set
+// for every member the rows are gathered N times (from L2 after the
+// first) and x_res is written once, by member 0's blocks.  The K slices
+// are chosen from one member's tiles, so each member's z is bitwise its
+// solo launch's.
+//
 // Store variants (three kernels of one template: store float32, bfloat16
 // or int8, W float32).  The store stays in its dtype in device memory and
 // is staged so (an int8 row of 32 values is 32 bytes, a bfloat16 one 64),
@@ -147,8 +154,11 @@ __device__ __forceinline__ float value(const Stage<S>& st, int r, int k,
                      rs);
 }
 
-// grid (ceil(M/kTileM), ceil(H/kTileH), splits): one block per output tile
-// and K slice.  kVec: 16-byte copies and x_res stores (D a multiple of a
+// grid (ceil(M/kTileM), members * ceil(H/kTileH), splits): one block per
+// output tile, member and K slice; blockIdx.y = member * H tiles + H tile.
+// Member m reads W and writes z and part at m times one member's size, and
+// reads idx and scale at m * idx_stride (0: one index set for all, whose
+// x_res member 0 writes; n_idx: its own, and its own x_res).  kVec: 16-byte copies and x_res stores (D a multiple of a
 // 16-byte run of the store's type and of float32, 16-byte aligned store, W
 // and x_res).  With splits > 1 the block writes float32 partials into
 // part, else z.
@@ -161,7 +171,7 @@ __global__ void __launch_bounds__(kThreads, 3)
                        const float* __restrict__ w, float* __restrict__ z,
                        float* __restrict__ part, float* __restrict__ x_res,
                        long long m_rows, int streams, int d, int k_rows,
-                       int h) {
+                       int h, long long idx_stride) {
   constexpr bool kInt8 = std::is_same_v<S, int8_t>;
   extern __shared__ __align__(128) unsigned char smem[];
   Stage<S>* stage = reinterpret_cast<Stage<S>*>(smem);
@@ -171,11 +181,19 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int g = lane / 4, t = lane % 4;
   const int wm = 32 * (warp % 2), wn = 32 * (warp / 2);
   const long long m0 = static_cast<long long>(blockIdx.x) * kTileM;
-  const int h0 = blockIdx.y * kTileH;
+  const int h_tiles = (h + kTileH - 1) / kTileH;
+  const long long member = blockIdx.y / h_tiles;
+  const int h0 = blockIdx.y % h_tiles * kTileH;
   const long long kdim = static_cast<long long>(k_rows) * d;  // W row
-  const bool write_rows = x_res != nullptr && blockIdx.y == 0;
+  w += member * h * kdim;
+  z += member * m_rows * h;
+  idx += member * idx_stride;
+  if (scale != nullptr) scale += member * idx_stride;
+  const bool write_rows = x_res != nullptr && h0 == 0 &&
+                          (idx_stride != 0 || member == 0);
+  if (write_rows) x_res += member * m_rows * kdim;
   if (gridDim.z > 1)
-    part += static_cast<long long>(blockIdx.z) * m_rows * h;
+    part += (member * gridDim.z + blockIdx.z) * m_rows * h;
 
   // this block's K slice, in chunks of kTileK within one gathered row
   const int per_row = (d + kTileK - 1) / kTileK;
@@ -312,16 +330,20 @@ __global__ void __launch_bounds__(kThreads, 3)
       }
 }
 
-// z[i] = sum over s of part[s][i], s in order: the split-K reduction.
+// z[i] = sum over s of part[s][i], s in order: the split-K reduction,
+// of each member (member-major, `count` elements each).
 __global__ void gather_gemm_reduce(const float* __restrict__ part,
                                    float* __restrict__ z, long long count,
-                                   int splits) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                                   int splits, int members) {
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
-       i < count; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float sum = part[i];
-    for (int s = 1; s < splits; ++s) sum += part[s * count + i];
-    z[i] = sum;
+       e < count * members;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long m = e / count, i = e % count;
+    const float* p = part + m * splits * count + i;
+    float sum = p[0];
+    for (int s = 1; s < splits; ++s) sum += p[s * count];
+    z[e] = sum;
   }
 }
 
@@ -338,9 +360,11 @@ template <class S>
 int launch(const void* store, const void* qscale, const void* idx,
            const void* scale, const void* w, void* z, void* x_res,
            void* part, long long m_rows, int streams, int d, int k_rows,
-           int h, int splits, cudaStream_t stream) {
+           int h, int splits, int members, long long idx_stride,
+           cudaStream_t stream) {
   const long long tiles = (m_rows + kTileM - 1) / kTileM;
-  if (tiles > 0x7fffffffLL || (h + kTileH - 1) / kTileH > 65535)
+  if (tiles > 0x7fffffffLL ||
+      static_cast<long long>((h + kTileH - 1) / kTileH) * members > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
@@ -351,15 +375,15 @@ int launch(const void* store, const void* qscale, const void* idx,
   const cudaError_t attr =
       vec ? allow_smem<S, true>() : allow_smem<S, false>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>(tiles), (h + kTileH - 1) / kTileH,
-                  splits);
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  (h + kTileH - 1) / kTileH * members, splits);
   (vec ? gather_gemm_kernel<S, true> : gather_gemm_kernel<S, false>)
       <<<grid, kThreads, kSmem<S>, stream>>>(
           static_cast<const S*>(store), static_cast<const float*>(qscale),
           static_cast<const int*>(idx), static_cast<const float*>(scale),
           static_cast<const float*>(w), static_cast<float*>(z),
           static_cast<float*>(part), static_cast<float*>(x_res), m_rows,
-          streams, d, k_rows, h);
+          streams, d, k_rows, h, idx_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -385,17 +409,24 @@ int launch_gather_gemm_bf16(const void* store, const void* qscale,
 // (1..8) K slices; with more than one, part is scratch of [splits, m, h]
 // f32, summed into z by a second kernel in a fixed order.  Compute kind 1
 // launches gather_gemm_bf16.cu's kernels.  An unknown kind is refused.
-// Launches on `stream` and returns cudaGetLastError().
-extern "C" int ta3n_gather_gemm(const void* store, const void* qscale,
-                                const void* idx, const void* scale,
-                                const void* w, void* z, void* x_res,
-                                void* part, int n_idx, int streams, int d,
-                                int k_rows, int h, int splits, int store_kind,
-                                int compute_kind, void* stream) {
+// members (float32 compute; 1 for bfloat16) stacked members, one after
+// another in w [members, h, k_rows*d], z [members, m, h] and part
+// [members, splits, m, h]; with per_member_idx 0 they share idx and
+// scale, and x_res [m, k_rows*d] is written once; with 1, idx and scale
+// are [members, n_idx] and x_res [members, m, k_rows*d].  Each member's
+// blocks do the work of a one-member launch on its inputs.  Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int ta3n_gather_gemm_members(
+    const void* store, const void* qscale, const void* idx, const void* scale,
+    const void* w, void* z, void* x_res, void* part, int n_idx, int streams,
+    int d, int k_rows, int h, int splits, int store_kind, int compute_kind,
+    int members, int per_member_idx, void* stream) {
   if (n_idx < 1 || streams < 1 || d < 1 || k_rows < 1 || h < 1 ||
       splits < 1 || splits > kMaxSplits || (splits > 1 && part == nullptr) ||
       store_kind < 0 || store_kind > 2 || compute_kind < 0 ||
-      compute_kind > 1 || ((store_kind == 2) != (qscale != nullptr)))
+      compute_kind > 1 || ((store_kind == 2) != (qscale != nullptr)) ||
+      members < 1 || (compute_kind == 1 && members != 1) ||
+      per_member_idx < 0 || per_member_idx > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long gathered = static_cast<long long>(n_idx) * streams;
   if (gathered % k_rows != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -407,21 +438,36 @@ extern "C" int ta3n_gather_gemm(const void* store, const void* qscale,
     return ta3n::launch_gather_gemm_bf16(store, qscale, idx, scale, w, z,
                                          x_res, part, m_rows, streams, d,
                                          k_rows, h, splits, store_kind, s);
+  const long long stride = per_member_idx ? n_idx : 0;
   int err;
   if (store_kind == 0)
     err = launch<float>(store, qscale, idx, scale, w, z, x_res, part, m_rows,
-                        streams, d, k_rows, h, splits, s);
+                        streams, d, k_rows, h, splits, members, stride, s);
   else if (store_kind == 1)
     err = launch<bf16>(store, qscale, idx, scale, w, z, x_res, part, m_rows,
-                       streams, d, k_rows, h, splits, s);
+                       streams, d, k_rows, h, splits, members, stride, s);
   else
     err = launch<int8_t>(store, qscale, idx, scale, w, z, x_res, part,
-                         m_rows, streams, d, k_rows, h, splits, s);
+                         m_rows, streams, d, k_rows, h, splits, members,
+                         stride, s);
   if (err != 0 || splits == 1) return err;
   const long long count = m_rows * h;
-  const long long blocks = (count + 255) / 256;
+  const long long blocks = (count * members + 255) / 256;
   gather_gemm_reduce<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
                        256, 0, s>>>(static_cast<const float*>(part),
-                                    static_cast<float*>(z), count, splits);
+                                    static_cast<float*>(z), count, splits,
+                                    members);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One member: ta3n_gather_gemm_members with members 1.
+extern "C" int ta3n_gather_gemm(const void* store, const void* qscale,
+                                const void* idx, const void* scale,
+                                const void* w, void* z, void* x_res,
+                                void* part, int n_idx, int streams, int d,
+                                int k_rows, int h, int splits, int store_kind,
+                                int compute_kind, void* stream) {
+  return ta3n_gather_gemm_members(store, qscale, idx, scale, w, z, x_res,
+                                  part, n_idx, streams, d, k_rows, h, splits,
+                                  store_kind, compute_kind, 1, 0, stream);
 }

@@ -67,6 +67,11 @@
 //    the weights come as an array of pointers.
 // Ragged B, H and D edges are zero-filled by the copies and masked in the
 // stores.
+//
+// Members (ensembles): blockIdx.y is the member, whose x, g, masks, dx, dW
+// and db lie one member's size past the one before and whose weights are
+// the pointers' + member * h*k_i*d; each member's blocks do a one-member
+// launch's work, so its gradients are bitwise a solo launch's.
 
 #include <cuda_runtime.h>
 
@@ -129,10 +134,11 @@ __device__ __forceinline__ float masked(const Stage& st, int g_at,
   return st.mask[mask_at] ? st.g[g_at] : 0.f;
 }
 
-// The dx tile `blk`: frame f, batch rows b0.., D columns d0...
+// The dx tile `blk`: frame f, batch rows b0.., D columns d0...; the
+// weights of member `member` (the pointers' + member * h*k*d).
 template <bool kVec>
 __device__ __forceinline__ void dx_tile(
-    const Plan& plan, const long long* __restrict__ ptrs,
+    const Plan& plan, const long long* __restrict__ ptrs, long long member,
     const float* __restrict__ x, const float* __restrict__ g,
     const unsigned char* __restrict__ masks, float* __restrict__ dx, int batch,
     int num_frames, int d, int h, int blk, unsigned char* smem) {
@@ -166,7 +172,7 @@ __device__ __forceinline__ void dx_tile(
     const int4 u0 = __ldg(&plan.units[3 * z]);      // i, p, n_sub, slot
     const int4 u1 = __ldg(&plan.units[3 * z + 1]);  // counts, sub0
     const int k = __ldg(&plan.units[3 * z + 2]).w;
-    trips[q] = {ta3n::ptr_at<const float>(ptrs, z) +
+    trips[q] = {ta3n::ptr_at<const float>(ptrs, z) + member * h * k * d +
                     static_cast<long long>(u0.y) * d,
                 k * d, u0.x, u1.w + (code & 3), 0};
   }
@@ -361,7 +367,10 @@ __device__ __forceinline__ void dw_tile(
         db_acc;
 }
 
-// grid (dx_blocks + dW blocks): the dx tiles first, then the dW tiles.
+// grid (dx_blocks + dW blocks, members): the dx tiles first, then the dW
+// tiles, of member blockIdx.y, whose x, g, masks, dx, dw and db follow
+// the members before it (each of one member's size) and whose weights are
+// the pointers' + member * h*k_i*d.
 // kVec: 16-byte copies (D and H multiples of a 16-byte run, H % 16 == 0,
 // aligned pointers).  ptrs: each unit's weight (its scale's).  Dynamic
 // shared memory: the ring, then the triples of the frame with the most.
@@ -376,9 +385,17 @@ __global__ void __launch_bounds__(kThreads, 3)
                          int d, int h, int dx_blocks) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int blk = static_cast<int>(blockIdx.x);
+  const long long member = blockIdx.y;
+  const long long x_size = static_cast<long long>(batch) * num_frames * d;
+  x += member * x_size;
+  dx += member * x_size;
+  g += member * batch * plan.n_scales * h;
+  masks += member * batch * plan.n_sub_total * h;
+  dw += member * h * d * plan.n_units;
+  db += member * plan.n_scales * h;
   if (blk < dx_blocks)
-    dx_tile<kVec>(plan, ptrs, x, g, masks, dx, batch, num_frames, d, h,
-                     blk, smem);
+    dx_tile<kVec>(plan, ptrs, member, x, g, masks, dx, batch, num_frames, d,
+                  h, blk, smem);
   else
     dw_tile<kVec>(plan, x, g, masks, dw, db, batch, num_frames, d, h,
                      blk - dx_blocks, smem);
@@ -401,9 +418,10 @@ int launch_bwd(const void* x, const void* ptrs, const void* const* host_ptrs,
                const void* masks, const void* g, void* dx, void* dw, void* db,
                const int* plan_table, int plan_len, const int* plan_dev,
                int batch, int num_frames, int d, int h, int parts,
-               void* stream) {
+               int members, void* stream) {
   if (num_frames < 2 || batch < 0 || d < 1 || h < 1 || parts < 1 ||
-      parts > 3 || ptrs == nullptr || host_ptrs == nullptr)
+      parts > 3 || members < 1 || members > 65535 || ptrs == nullptr ||
+      host_ptrs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const ta3n::PlanInfo info =
       ta3n::check_plan(plan_table, plan_len, plan_dev, num_frames);
@@ -435,7 +453,7 @@ int launch_bwd(const void* x, const void* ptrs, const void* const* host_ptrs,
       vec ? allow_smem<true>(bytes) : allow_smem<false>(bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   (vec ? trn_fused_bwd_kernel<true> : trn_fused_bwd_kernel<false>)
-      <<<static_cast<unsigned>(blocks), kThreads, bytes,
+      <<<dim3(static_cast<unsigned>(blocks), members), kThreads, bytes,
          static_cast<cudaStream_t>(stream)>>>(
           info.plan, static_cast<const long long*>(ptrs),
           static_cast<const float*>(x), static_cast<const float*>(g),
@@ -457,7 +475,7 @@ extern "C" int ta3n_trn_fused_bwd_parts_f32(
     int num_frames, int d, int h, int parts, void* stream) {
   return launch_bwd(x, ptrs, host_ptrs, masks, g, dx, dw, db,
                            plan_table, plan_len, plan_dev, batch, num_frames,
-                           d, h, parts, stream);
+                           d, h, parts, 1, stream);
 }
 
 // x [batch, num_frames, d] f32, masks [batch, n_sub_total*h] uint8 (from
@@ -468,8 +486,12 @@ extern "C" int ta3n_trn_fused_bwd_parts_f32(
 // host_ptrs the same pointers on the host.  dw
 // (h*d*n_units f32) receives every scale's dW_i [h, k_i*d] side by side,
 // db (n_scales*h f32) every db_i; both written whole.  plan_table,
-// plan_len and plan_dev as for ta3n_trn_fused_fwd_f32.  Launches one grid
-// of dx and dW/db tiles on `stream`; returns cudaGetLastError().
+// plan_len and plan_dev as for ta3n_trn_fused_fwd_f32.  members
+// (1..65535) stacked members, as for ta3n_trn_fused_fwd_f32: every tensor
+// above holds them one after another, and member m's weight of scale i is
+// the pointer's + m * h*k_i*d; each member's blocks do a one-member
+// launch's work.  Launches one grid of dx and dW/db tiles on `stream`;
+// returns cudaGetLastError().
 extern "C" int ta3n_trn_fused_bwd_f32(const void* x, const void* ptrs,
                                       const void* const* host_ptrs,
                                       const void* masks, const void* g,
@@ -477,8 +499,8 @@ extern "C" int ta3n_trn_fused_bwd_f32(const void* x, const void* ptrs,
                                       const int* plan_table, int plan_len,
                                       const int* plan_dev, int batch,
                                       int num_frames, int d, int h,
-                                      void* stream) {
+                                      int members, void* stream) {
   return launch_bwd(x, ptrs, host_ptrs, masks, g, dx, dw, db,
                            plan_table, plan_len, plan_dev, batch, num_frames,
-                           d, h, 3, stream);
+                           d, h, 3, members, stream);
 }

@@ -70,6 +70,16 @@
 //    fixed for the whole K loop.
 // Ragged B, H and D edges are zero-filled by the copies and masked in the
 // stores, so any widths are taken.
+//
+// Members (the ensembles, where the Pallas kernel runs under jax.vmap with
+// a grid axis over members): blockIdx.y is the member.  Each member reads
+// its x, weights and biases and writes its scratch, out and masks at one
+// member's size past the one before; the pointer table holds member 0's
+// weights, and member m's are m times the weight's h*k*d elements further.
+// A member's blocks do exactly a one-member launch's work (the wrapper
+// slices D by one member's shape), so its outputs are bitwise a solo
+// launch's; N members fill N times the blocks, which the card needs at
+// the serve batch (128 blocks at B=64).
 
 #include <cuda_runtime.h>
 
@@ -112,8 +122,8 @@ __device__ __forceinline__ int unit_m_tiles(int n, int mt1, int mt2,
 }
 
 // One block: unit (scale i, position p), H tile, row tile and D slice, in
-// that order from the slowest; it writes the partial z of its rows and
-// columns into part.  A unit of n subsets has m_tiles(n) * h_tiles *
+// that order from the slowest, of member blockIdx.y; it writes the partial
+// z of its rows and columns into the member's part.  A unit of n subsets has m_tiles(n) * h_tiles *
 // splits blocks; mt1..mt3 are the row tiles of 1..3 subsets at this B.
 // ptrs: each unit's weight (its scale's), then each scale's bias.  kVec:
 // 16-byte copies.
@@ -129,6 +139,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   __shared__ const float* unit_w;
   __shared__ long long unit_b0;
 
+  // the member's x and scratch; its weights below, at the unit's stride
+  const long long member = blockIdx.y;
+  x += member * batch * num_frames * d;
+  part += member * splits * plan.n_slots * batch * h;
   const int h_tiles = (h + kTileH - 1) / kTileH;
   const long long per_tile = static_cast<long long>(h_tiles) * splits;
   const long long blk = blockIdx.x;
@@ -136,7 +150,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int4 a = __ldg(&plan.units[3 * z]);
     const int4 c = __ldg(&plan.units[3 * z + 1]);
     const int4 f = __ldg(&plan.units[3 * z + 2]);
-    const float* w = ta3n::ptr_at<const float>(ptrs, z);
+    const float* w = ta3n::ptr_at<const float>(ptrs, z) +
+                     member * h * f.w * d;
     const long long b0 = per_tile * (static_cast<long long>(c.x) * mt1 +
                                      static_cast<long long>(c.y) * mt2 +
                                      static_cast<long long>(c.z) * mt3);
@@ -251,7 +266,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // The epilogue, one thread per (b, i, h) in out's order: z of each subset
 // j of scale i is the sum of its float32 partials, positions p in order
 // and within each the D slices in order, plus the bias (in float32);
-// out = sum_j relu(z_j), and the training variant writes (z_j > 0).
+// out = sum_j relu(z_j), and the training variant writes (z_j > 0).  Of
+// member blockIdx.y: its scratch, bias, out and masks.
 template <bool kWithMasks>
 __global__ void trn_fused_fwd_epilogue(const Plan plan,
                                        const long long* __restrict__ ptrs,
@@ -262,6 +278,10 @@ __global__ void trn_fused_fwd_epilogue(const Plan plan,
   const int n_scales = plan.n_scales;
   const long long count = static_cast<long long>(batch) * n_scales * h;
   const long long plane = static_cast<long long>(batch) * h;  // one slot
+  const long long member = blockIdx.y;
+  part += member * splits * plan.n_slots * plane;
+  out += member * count;
+  if constexpr (kWithMasks) masks += member * batch * plan.n_sub_total * h;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        e < count; e += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -272,7 +292,8 @@ __global__ void trn_fused_fwd_epilogue(const Plan plan,
     const int4 sc = __ldg(&plan.scales[i]);  // k, n_sub, sub0, slot0
     const int k = sc.x, n_sub = sc.y;
     const float* base = part + static_cast<long long>(sc.w) * plane + b * h + hh;
-    const float bias = ta3n::ptr_at<const float>(ptrs, plan.n_units + i)[hh];
+    const float bias =
+        ta3n::ptr_at<const float>(ptrs, plan.n_units + i)[member * h + hh];
     float sum = 0.f;
     for (int j = 0; j < n_sub; ++j) {
       float z = 0.f;
@@ -304,10 +325,10 @@ template <bool kWithMasks>
 int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
            void* out, void* masks, void* part, const int* plan_table,
            int plan_len, const int* plan_dev, int batch, int num_frames,
-           int d, int h, int splits, void* stream) {
+           int d, int h, int splits, int members, void* stream) {
   if (num_frames < 2 || batch < 1 || d < 1 || h < 1 || splits < 1 ||
-      splits > kMaxSplits || part == nullptr || ptrs == nullptr ||
-      host_ptrs == nullptr)
+      splits > kMaxSplits || members < 1 || members > 65535 ||
+      part == nullptr || ptrs == nullptr || host_ptrs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const ta3n::PlanInfo info =
       ta3n::check_plan(plan_table, plan_len, plan_dev, num_frames);
@@ -337,14 +358,15 @@ int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* dev_ptrs = static_cast<const long long*>(ptrs);
   (vec ? trn_fused_fwd_kernel<true> : trn_fused_fwd_kernel<false>)
-      <<<static_cast<unsigned>(blocks), kThreads, kSmem, s>>>(
+      <<<dim3(static_cast<unsigned>(blocks), members), kThreads, kSmem, s>>>(
           info.plan, dev_ptrs, static_cast<const float*>(x),
           static_cast<float*>(part), batch, num_frames, d, h, splits, mt[1],
           mt[2], mt[3]);
   const long long count = static_cast<long long>(batch) * (num_frames - 1) * h;
   const long long epi = (count + 255) / 256;
   trn_fused_fwd_epilogue<kWithMasks>
-      <<<static_cast<unsigned>(epi < 8192 ? epi : 8192), 256, 0, s>>>(
+      <<<dim3(static_cast<unsigned>(epi < 8192 ? epi : 8192), members), 256,
+         0, s>>>(
           info.plan, dev_ptrs, static_cast<const float*>(part),
           static_cast<float*>(out), static_cast<unsigned char*>(masks),
           batch, h, splits);
@@ -361,27 +383,34 @@ int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
 // plan_dev (the same ints on the device, 16-byte aligned) are the relation
 // plan of trn_plan.cuh; a malformed table is refused.  splits (1..8) D
 // slices per output tile; part is scratch of [splits * n_slots, batch, h]
-// f32.  Launches both kernels on `stream` and returns cudaGetLastError().
+// f32.  members (1..65535) stacked members, one grid row each (blockIdx.y):
+// x, out and part hold them one after another (each of the shapes above),
+// and member m's weight of scale i and bias are the pointers' + m times
+// the weight's h*k_i*d and the bias's h elements (weights [members, h,
+// k_i*d], biases [members, h]).  Each member's blocks do the work of a
+// one-member launch on its inputs.  Launches both kernels on `stream` and
+// returns cudaGetLastError().
 extern "C" int ta3n_trn_fused_fwd_f32(const void* x, const void* ptrs,
                                       const void* const* host_ptrs, void* out,
                                       void* part, const int* plan_table,
                                       int plan_len, const int* plan_dev,
                                       int batch, int num_frames, int d, int h,
-                                      int splits, void* stream) {
+                                      int splits, int members, void* stream) {
   return launch<false>(x, ptrs, host_ptrs, out, nullptr, part,
                               plan_table, plan_len, plan_dev, batch,
-                              num_frames, d, h, splits, stream);
+                              num_frames, d, h, splits, members, stream);
 }
 
 // The training variant: as above, and masks [batch, n_sub_total*h] uint8
 // (contiguous, on the current device) receives (z > 0) of every subset, in
-// the plan's subset order.
+// the plan's subset order (with members > 1, [members, batch,
+// n_sub_total*h]).
 extern "C" int ta3n_trn_fused_fwd_train_f32(
     const void* x, const void* ptrs, const void* const* host_ptrs, void* out,
     void* masks, void* part, const int* plan_table, int plan_len,
     const int* plan_dev, int batch, int num_frames, int d, int h, int splits,
-    void* stream) {
+    int members, void* stream) {
   return launch<true>(x, ptrs, host_ptrs, out, masks, part,
                              plan_table, plan_len, plan_dev, batch,
-                             num_frames, d, h, splits, stream);
+                             num_frames, d, h, splits, members, stream);
 }

@@ -20,6 +20,9 @@ The port's modules carry the reference ``state_dict`` names
     strict-loads the rest (temconv's ``bn_1`` pair counts as dead without
     AdaBN/AutoDIAL, whose ``bn_shared`` pair the checkpoint then lacks).
 
+A JAX ensemble (`ta3n_tpu/train/ensemble.py`, every leaf stacked [N, ...])
+comes in member by member through ``ensemble_from_jax_params``.
+
 One way out: ``export_reference_state`` gives a model's state in the
 layout the export writes, dead parameters included, so the Trainer's
 checkpoints strict-load into the reference and import into the JAX
@@ -41,8 +44,7 @@ from ta3n_tpu_torch.models.video_model import VideoModel
 
 __all__ = ["state_dict_from_jax_params", "reference_state_dict",
            "load_reference_checkpoint", "export_reference_state",
-           "live_state",
-           "DEAD_PREFIXES"]
+           "live_state", "ensemble_from_jax_params", "DEAD_PREFIXES"]
 
 # reference parameters that exist but never take part in the forward pass
 # (a copy of `ta3n_tpu/io_utils/torch_import.py::_DEAD_PREFIXES`, whose
@@ -287,3 +289,40 @@ def load_reference_checkpoint(path: str, model_cfg: ModelConfig,
     model = VideoModel(model_cfg, torch.Generator(), device)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _member_tree(tree, k: int):
+    """Member k of a tree (nested mappings) of stacked arrays."""
+    if isinstance(tree, Mapping):
+        return {key: _member_tree(v, k) for key, v in tree.items()}
+    return np.asarray(tree)[k]
+
+
+def ensemble_from_jax_params(params: Mapping[str, Any],
+                             batch_stats: Optional[Mapping],
+                             model_cfg: ModelConfig, train_cfg,
+                             device="cuda"):
+    """A stacked JAX ensemble's parameters (and BN statistics), every leaf
+    [N, ...] as `ta3n_tpu/train/ensemble.py` keeps them (numpy leaves), as
+    the port's ensemble state (`train/ensemble.py::EnsembleState`, fresh
+    optimizer state, step 0) on ``device``: each member converted by
+    ``state_dict_from_jax_params``, then stacked."""
+    from ta3n_tpu_torch.train.ensemble import stack_members
+
+    n = len(np.asarray(next(iter(_leaves(params)))))
+    models = []
+    for k in range(n):
+        model = VideoModel(model_cfg, torch.Generator(), device)
+        model.load_state_dict(state_dict_from_jax_params(
+            _member_tree(params, k),
+            _member_tree(batch_stats, k) if batch_stats else None))
+        models.append(model)
+    return stack_members(models, train_cfg)
+
+
+def _leaves(tree):
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

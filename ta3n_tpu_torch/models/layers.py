@@ -36,7 +36,7 @@ from ta3n_tpu_torch.losses.losses import entropy_from_logits
 
 __all__ = ["Linear", "linear", "normal_001_", "torch_default_uniform_",
            "trans_attn_weights", "GeneralAttn", "MaskedBatchNorm", "TCL",
-           "cudnn_f32", "bf16_f32_reduction"]
+           "cudnn_f32", "no_cudnn_tf32", "bf16_f32_reduction"]
 
 
 @torch.no_grad()
@@ -200,11 +200,13 @@ def bf16_f32_reduction():
 
 
 @contextlib.contextmanager
-def _no_cudnn_tf32():
+def no_cudnn_tf32():
     """cuDNN without TF32 for the duration; the previous setting
     restored.  ``torch.backends.cudnn.allow_tf32`` is True by default, and
     then cuDNN runs float32 convolutions and RNNs on TF32 tensor cores
-    (10-bit mantissa)."""
+    (10-bit mantissa).  The ensemble steps (`train/ensemble.py`) run whole
+    inside it, forward and backward, where ``cudnn_f32`` runs ``fn``
+    as it is."""
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -218,14 +220,19 @@ class _CudnnF32(torch.autograd.Function):
     the backward recomputes ``fn(x)`` under the same setting and takes the
     gradients of x and of ``params``, the parameters that ``fn`` reads.
     cuDNN reads the flag when a kernel runs, so a context around the
-    forward alone would leave the backward on TF32."""
+    forward alone would leave the backward on TF32.  In the
+    ``setup_context`` form that ``torch.func`` asks of a Function."""
 
     @staticmethod
-    def forward(ctx, fn, x, *params):
+    def forward(fn, x, *params):
+        with no_cudnn_tf32():
+            return fn(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        fn, x, *params = inputs
         ctx.fn, ctx.params = fn, params
         ctx.save_for_backward(x)
-        with _no_cudnn_tf32():
-            return fn(x)
 
     @staticmethod
     def backward(ctx, grad):
@@ -233,7 +240,7 @@ class _CudnnF32(torch.autograd.Function):
         x = x.detach().requires_grad_(ctx.needs_input_grad[1])
         inputs = [t for t, need in zip((x, *ctx.params),
                                        ctx.needs_input_grad[1:]) if need]
-        with torch.enable_grad(), _no_cudnn_tf32():
+        with torch.enable_grad(), no_cudnn_tf32():
             grads = iter(torch.autograd.grad(ctx.fn(x), inputs, grad,
                                              allow_unused=True))
         return (None, *(next(grads) if need else None
@@ -247,7 +254,11 @@ def cudnn_f32(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     recomputes the forward).  The TCL and the RNN aggregator run through
     it, so that their numbers do not depend on the process's global
     ``torch.backends.cudnn.allow_tf32``.  On the CPU the flag changes
-    nothing."""
+    nothing.  Under a ``torch.func`` transform (whose backward cannot call
+    ``torch.autograd.grad``) it is ``fn(x)``: the ensemble steps turn
+    TF32 off around the whole transform (``no_cudnn_tf32``)."""
+    if torch._C._are_functorch_transforms_active():
+        return fn(x)
     return _CudnnF32.apply(fn, x, *params)
 
 

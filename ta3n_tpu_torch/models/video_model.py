@@ -42,7 +42,7 @@ reference-format checkpoint strict-loads (`io_utils/convert.py`).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -56,7 +56,7 @@ from ta3n_tpu_torch.models.trn import (RelationModule,
                                        RelationModuleMultiScale)
 from ta3n_tpu_torch.ops.grl import grad_reverse
 
-__all__ = ["VideoModel", "StreamOutput"]
+__all__ = ["VideoModel", "StreamOutput", "MemberGenerators"]
 
 # field -> (the values the port runs, the ROADMAP.md queue-1 item porting
 # the others)
@@ -94,17 +94,39 @@ def _in(layer, dtype: torch.dtype):
     return layer
 
 
+class MemberGenerators(NamedTuple):
+    """The dropout generators of N stacked members, for a forward under
+    ``torch.func.vmap`` (`train/ensemble.py`): passed where a forward takes
+    its generator, with ``member`` the batched member id (a 0-d tensor under
+    the transform).  Each dropout site draws member k's mask from
+    ``generators[k]``, in the order and shape of a solo forward, so member
+    k's masks are bitwise those of the solo run seeded k."""
+
+    generators: Sequence[torch.Generator]
+    member: torch.Tensor
+
+    def keep(self, x: torch.Tensor, p: float) -> torch.Tensor:
+        """Member-batched keep mask for x (x's shape per member)."""
+        masks = torch.stack([
+            torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            .bernoulli_(1.0 - p, generator=g) for g in self.generators])
+        return masks.index_select(0, self.member.reshape(1))[0]
+
+
 def _dropout(x: torch.Tensor, p: float, training: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator) -> torch.Tensor:
     """Inverted dropout (torch's ``F.dropout`` arithmetic) whose mask is
-    drawn from ``generator``, a generator on x's device, not from torch's
-    global RNG."""
+    drawn from ``generator``, a generator on x's device (or the members'
+    `MemberGenerators`), not from torch's global RNG."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator on "
                          f"{x.device} (the train step passes one)")
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    if isinstance(generator, MemberGenerators):
+        keep = generator.keep(x, p)
+    else:
+        keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
     return x * keep / (1.0 - p)
 
 

@@ -42,13 +42,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (every pointer and the stream c_void_p)
 _ENTRIES = {
     # x, ptrs (device), ptrs (host), out, part, plan table, its length,
-    # plan (device), batch, frames, d, h, splits, stream
+    # plan (device), batch, frames, d, h, splits, members, stream
     "ta3n_trn_fused_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                               _I, _I, _P],
+                               _I, _I, _I, _P],
     # x, ptrs (device), ptrs (host), out, masks, part, plan table, its
-    # length, plan (device), batch, frames, d, h, splits, stream
+    # length, plan (device), batch, frames, d, h, splits, members, stream
     "ta3n_trn_fused_fwd_train_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
-                                     _I, _I, _I, _I, _P],
+                                     _I, _I, _I, _I, _I, _P],
     # the bfloat16 variants of the two (trn_fused_fwd_bf16.cu): the same
     # arguments with the grid (row tiles, H tiles, D slices) for splits
     "ta3n_trn_fused_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
@@ -56,10 +56,11 @@ _ENTRIES = {
     "ta3n_trn_fused_fwd_train_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w ptrs (device), w ptrs (host), masks, g, dx, dw, db, plan table,
-    # its length, plan (device), batch, frames, d, h, stream
+    # its length, plan (device), batch, frames, d, h, members, stream
     "ta3n_trn_fused_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                               _I, _I, _I, _I, _P],
-    # the same and parts (1: dx tiles, 2: dW/db tiles, 3: both), stream
+                               _I, _I, _I, _I, _I, _P],
+    # the same without members and with parts (1: dx tiles, 2: dW/db
+    # tiles, 3: both), stream
     "ta3n_trn_fused_bwd_parts_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _P, _I, _I, _I, _I, _I, _P],
     # the bfloat16 backward (trn_fused_bwd_bf16.cu): the same arguments
@@ -70,6 +71,10 @@ _ENTRIES = {
     # gather_gemm_bf16.cu's kernel), stream
     "ta3n_gather_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],
+    # the same with members and per-member indices (0 or 1) before the
+    # stream
+    "ta3n_gather_gemm_members": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

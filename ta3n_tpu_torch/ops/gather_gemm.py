@@ -47,6 +47,15 @@ k consecutive gathered rows form one FC input row, as the model's
 ``x.reshape(B*S, -1)`` groups them (k = 1 for RGB at new_length 1).  The
 outputs are z [M, H] and x_res [M, k·D], M = N·S/k for N indices.
 
+Members.  ``gathered_gemm_members`` runs N members' stacked weights [N,
+H, k*D] over one store in one launch of the float32-compute kernel (a
+member axis folded into the grid's y beside the H tiles), from one index
+set for all members (x_res then written once) or one each; K is sliced by
+one member's shape, so member k's z is bitwise its solo launch's.
+``gathered_linear``'s and ``gathered_gemm``'s Functions carry vmap rules
+that call it under ``torch.func.vmap`` (`train/ensemble.py`); the
+backward's ``dzᵀ x_res`` stays a batched ``torch.mm``.
+
 Indices.  A kernel cannot raise on a bad index, so indices are checked on
 the host, where the loader makes them, before they reach the card:
 ``row_index`` checks 0 <= idx < R and uploads them as a ``RowIndex``.  A
@@ -66,10 +75,10 @@ import numpy as np
 import torch
 
 from ta3n_tpu_torch.ops.trn_fused import (_acc, _call, _check_tensor,
-                                          _no_kernel)
+                                          _no_kernel, _stacked)
 
 __all__ = ["RowIndex", "row_index", "upload", "gathered_gemm_plain",
-           "gathered_gemm",
+           "gathered_gemm", "gathered_gemm_members",
            "gathered_linear", "bf16_grid", "launches", "variant_launches"]
 
 # kernel launches made by gathered_gemm and gathered_linear (plain-version
@@ -323,6 +332,14 @@ def gathered_gemm(store, idx, weight: torch.Tensor,
     its device, idx a ``RowIndex``; anything else raises, and nothing
     falls back).  A CPU ``store`` takes ``gathered_gemm_plain``.
     """
+    if torch._C._are_functorch_transforms_active():
+        # under vmap over stacked members (ensemble eval and serving): a
+        # Function whose vmap rule launches the kernel once for all
+        return _GatheredGemm.apply(store, idx, weight, row_scale, with_rows)
+    return _solo_gemm(store, idx, weight, row_scale, with_rows)
+
+
+def _solo_gemm(store, idx, weight, row_scale, with_rows):
     rows, geometry = _prepare(store, idx, weight, row_scale)
     m = geometry[3]
     kw = dict(dtype=weight.dtype, device=_split_store(store)[0].device)
@@ -332,15 +349,173 @@ def gathered_gemm(store, idx, weight: torch.Tensor,
     return z, x_res
 
 
+# the member axis: stacked weights [N, H, k*D] (members first, as
+# ``torch.func.stack_module_state`` stacks them, `train/ensemble.py`) over
+# one store, with one index set for every member or one each
+
+def _member_rows(rows: torch.Tensor, end: int, store: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """Checked [N, n_idx] (per member) or [n_idx] (shared) int32 indices
+    of a member-batched gather."""
+    if rows.device != store.device:
+        raise ValueError(f"indices on {rows.device} for a store on "
+                         f"{store.device}")
+    if rows.dtype != torch.int32 or rows.dim() not in (1, 2) or (
+            rows.dim() == 2 and rows.shape[0] != n):
+        raise TypeError(f"member indices are int32 [n_idx] or [{n}, n_idx],"
+                        f" got {rows.dtype} of shape {tuple(rows.shape)}")
+    if end > store.shape[0]:
+        raise IndexError(f"indices checked for {end} rows, the store has "
+                         f"{store.shape[0]}")
+    return rows.contiguous()
+
+
+def gathered_gemm_members(store, idx: RowIndex, weight: torch.Tensor,
+                          row_scale: Optional[torch.Tensor] = None,
+                          with_rows: bool = True
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``gathered_gemm`` of N members in one call: weight [N, H, k*D]
+    (stacked, members first) over one store; ``idx`` a ``RowIndex`` whose
+    rows are [n_idx] (one index set for every member) or [N, n_idx] (one
+    each), row_scale [n_idx] or [N, n_idx] likewise.  Returns z [N, M, H]
+    and, with ``with_rows``, x_res: [M, k*D] for shared indices (the
+    members gather the same rows), else [N, M, k*D].  A CUDA store launches
+    the float32-compute kernel once for every member (a member grid axis;
+    K is sliced by one member's shape, so member k's z is bitwise the solo
+    launch's); a CPU store takes the plain version member by member."""
+    data, _ = _split_store(store)
+    n = weight.shape[0]
+    rows = _member_rows(idx.rows, idx.end, data, n)
+    per_member = rows.dim() == 2 or (row_scale is not None
+                                     and row_scale.dim() == 2)
+    if per_member:
+        rows = rows.expand(n, rows.shape[-1]).contiguous()
+        if row_scale is not None:
+            row_scale = row_scale.expand(n, rows.shape[-1]).contiguous()
+    geometry = _geometry(data, rows.shape[-1], weight[0],
+                         None if row_scale is None else row_scale[0]
+                         if per_member else row_scale)
+    m = geometry[3]
+    kw = dict(dtype=weight.dtype, device=data.device)
+    z = torch.empty((n, m, weight.shape[1]), **kw)
+    x_res = (torch.empty(((n,) if per_member else ()) + (m, weight.shape[2]),
+                         **kw) if with_rows else None)
+    _gather_members_into(store, rows, geometry, weight, row_scale, z, x_res)
+    return z, x_res
+
+
+def _gather_members_into(store, rows, geometry, weight, row_scale, z,
+                         x_res) -> None:
+    """``_gather_into`` of N members: weight [N, H, k*D] into z [N, M, H]
+    and, unless None, x_res ([N, M, k*D] when rows are [N, n_idx], else
+    [M, k*D], written once)."""
+    data, scale = _split_store(store)
+    n = weight.shape[0]
+    per_member = rows.dim() == 2
+    if data.device.type == "cpu":
+        for k in range(n):
+            _gather_into(store, rows[k] if per_member else rows, geometry,
+                         weight[k], row_scale[k] if per_member and
+                         row_scale is not None else row_scale, z[k],
+                         x_res[k] if per_member and x_res is not None
+                         else x_res if k == 0 else None)
+        return
+    if data.device.type != "cuda":
+        raise _no_kernel("gathered_gemm_members", data.device)
+    global launches
+    variant = _variant(store, weight[0])
+    if weight.dtype != torch.float32:
+        raise NotImplementedError(
+            "the member-batched gather kernel computes in float32: the "
+            "bfloat16 kernels' member axis is not ported yet (ROADMAP.md "
+            "queue 1, item 13)")
+    if (data.dtype == torch.int8) != (scale is not None):
+        raise TypeError("an int8 store comes with its scales, as the pair "
+                        "(q, scale); other stores without")
+    _check_tensor(data, data.device, data.dtype)
+    for t in (weight, z, x_res):
+        if t is not None:
+            _check_tensor(t, data.device, weight.dtype)
+    for t in (scale, row_scale):
+        if t is not None:
+            _check_tensor(t, data.device, torch.float32)
+    streams, d, k, m = geometry
+    if m == 0:  # a grid of 0 blocks is refused
+        return
+    h = weight.shape[1]
+    splits = _splits(m, h, k * -(-d // _TILE_K))
+    part = (torch.empty((n, splits, m, h), dtype=torch.float32,
+                        device=z.device) if splits > 1 else None)
+    _call("ta3n_gather_gemm_members", data, data.data_ptr(),
+          None if scale is None else scale.data_ptr(), rows.data_ptr(),
+          None if row_scale is None else row_scale.data_ptr(),
+          weight.data_ptr(), z.data_ptr(),
+          None if x_res is None else x_res.data_ptr(),
+          None if part is None else part.data_ptr(), rows.shape[-1], streams,
+          d, k, h, splits, _STORE_KINDS[data.dtype][1],
+          _COMPUTE_KINDS[weight.dtype][1], n, int(per_member))
+    variant_launches[variant] += 1
+    if variant == "f32_f32":
+        launches += 1
+
+
+def _batched_part(part, dims):
+    """A (store, RowIndex, row_scale) part as the member-batched gather
+    takes it: the store unbatched, the indices and scales with their member
+    axis first (or unbatched)."""
+    store, idx, row_scale = part
+    store_dims, idx_dims, scale_dim = dims
+    if any(d is not None for d in (store_dims if isinstance(
+            store_dims, (tuple, list)) else (store_dims,))):
+        raise ValueError("the members share one store: a store cannot be "
+                         "batched")
+    rows = idx.rows if idx_dims.rows is None else idx.rows.movedim(
+        idx_dims.rows, 0)
+    if row_scale is not None and scale_dim is not None:
+        row_scale = row_scale.movedim(scale_dim, 0)
+    return store, RowIndex(rows, idx.end), row_scale
+
+
+class _GatheredGemm(torch.autograd.Function):
+    """``gathered_gemm`` as a Function with a vmap rule, for the
+    inference paths under ``torch.func.vmap`` over stacked members.  Not
+    differentiable (train through ``gathered_linear``)."""
+
+    @staticmethod
+    def forward(store, idx, weight, row_scale, with_rows):
+        return _solo_gemm(store, idx, weight, row_scale, with_rows)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("gathered_gemm has no backward; train through "
+                           "gathered_linear")
+
+    @staticmethod
+    def vmap(info, in_dims, store, idx, weight, row_scale, with_rows):
+        store, idx, row_scale = _batched_part(
+            (store, idx, row_scale), in_dims[:2] + (in_dims[3],))
+        weight, = _stacked(info.batch_size, in_dims[2:3], (weight,))
+        z, x_res = gathered_gemm_members(store, idx, weight, row_scale,
+                                         with_rows)
+        return (z, x_res), (0, None if x_res is None or x_res.dim() == 2
+                            else 0)
+
+
 class _GatheredLinear(torch.autograd.Function):
     """Forward: every part's gather + GEMM with its weight into one buffer,
     then its bias; backward: dW and db of each weight from the saved
     gathered rows of its parts.  ``part_weight[i]`` is the index of part
     i's weight; the parts of one weight are consecutive, so its rows are
-    one range of the output."""
+    one range of the output.  In the ``setup_context`` form that
+    ``torch.func`` takes; under ``vmap`` over stacked weights its vmap
+    rule launches the member-batched gather once per part."""
 
     @staticmethod
-    def forward(ctx, parts, part_weight, *weights_and_biases):
+    def forward(parts, part_weight, *weights_and_biases):
         n = len(weights_and_biases) // 2
         weights, biases = weights_and_biases[:n], weights_and_biases[n:]
         prepared = [_prepare(store, idx, weights[w], row_scale)
@@ -349,24 +524,30 @@ class _GatheredLinear(torch.autograd.Function):
         kw = dict(dtype=weights[0].dtype, device=weights[0].device)
         z = torch.empty((total, weights[0].shape[0]), **kw)
         x_res = torch.empty((total, weights[0].shape[1]), **kw)
-        runs = [[total, 0] for _ in weights]  # each weight's output rows
+        runs = _runs([g[3] for _, g in prepared], part_weight, n)
         start = 0
         for (store, _, row_scale), (rows, geometry), w in zip(
                 parts, prepared, part_weight):
             end = start + geometry[3]
             _gather_into(store, rows, geometry, weights[w], row_scale,
                          z[start:end], x_res[start:end])
-            runs[w] = [min(runs[w][0], start), end]
             start = end
         for (a, b), bias in zip(runs, biases):
             z[a:b].add_(bias)  # in z's dtype, as flax Dense adds it
-        ctx.runs = runs
-        ctx.save_for_backward(x_res)
-        return z
+        return z, x_res
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dz):
+    def setup_context(ctx, inputs, output) -> None:
+        parts, part_weight, *weights_and_biases = inputs
+        x_res = output[1]
+        ctx.mark_non_differentiable(x_res)
+        ctx.runs = _runs([_part_rows(part, weights_and_biases[w])
+                          for part, w in zip(parts, part_weight)],
+                         part_weight, len(weights_and_biases) // 2)
+        ctx.save_for_backward(x_res)
+
+    @staticmethod
+    def backward(ctx, dz, _):
         (x_res,) = ctx.saved_tensors
         runs, need = ctx.runs, ctx.needs_input_grad[2:]
         n = len(runs)
@@ -375,6 +556,55 @@ class _GatheredLinear(torch.autograd.Function):
         dbs = [dz[a:b].sum(0) if need[n + i] else None
                for i, (a, b) in enumerate(runs)]
         return (None, None, *dws, *dbs)
+
+    @staticmethod
+    def vmap(info, in_dims, parts, part_weight, *weights_and_biases):
+        m = info.batch_size
+        n = len(weights_and_biases) // 2
+        stacked = _stacked(m, in_dims[2:], weights_and_biases)
+        weights, biases = stacked[:n], stacked[n:]
+        parts = [_batched_part(part, dims)
+                 for part, dims in zip(parts, in_dims[0])]
+        per_member = any(idx.rows.dim() == 2 or (
+            scale is not None and scale.dim() == 2)
+            for _, idx, scale in parts)
+        outs = [gathered_gemm_members(store, idx, weights[w], scale)
+                for (store, idx, scale), w in zip(parts, part_weight)]
+        z = torch.cat([o[0] for o in outs], dim=1)
+        x_res = torch.cat([o[1].expand(m, *o[1].shape) if per_member and
+                           o[1].dim() == 2 else o[1] for o in outs],
+                          dim=-2)
+        runs = _runs([o[0].shape[1] for o in outs], part_weight, n)
+        for (a, b), bias in zip(runs, biases):
+            z[:, a:b].add_(bias[:, None])
+        return (z, x_res), (0, 0 if per_member else None)
+
+
+def _part_rows(part, weight: torch.Tensor) -> int:
+    """The output rows M of a (store, idx, row_scale) part with
+    ``weight``, from the shapes alone."""
+    store, idx, _ = part
+    data, _ = _split_store(store)
+    if isinstance(idx, RowIndex):
+        n_idx = idx.rows.shape[-1]
+    else:
+        n_idx = idx.numel() if isinstance(idx, torch.Tensor) \
+            else np.asarray(idx).size
+    return _geometry(data, n_idx, weight, None)[3]
+
+
+def _runs(sizes, part_weight, n_weights: int) -> list:
+    """The output rows [start, end) of each weight's parts (consecutive),
+    from each part's output rows ``sizes``."""
+    runs = [[None, 0] for _ in range(n_weights)]
+    start = 0
+    for size, w in zip(sizes, part_weight):
+        end = start + size
+        if runs[w][0] is None:
+            runs[w][0] = start
+        runs[w][1] = end
+        start = end
+    return [(a if a is not None else start, b) for a, b in runs]
 
 
 def gathered_linear(parts: Sequence[tuple], weight, bias) -> torch.Tensor:
@@ -409,4 +639,4 @@ def gathered_linear(parts: Sequence[tuple], weight, bias) -> torch.Tensor:
             raise ValueError("parts that share a weight share its bias")
         part_weight.append(len(weights) - 1)
     return _GatheredLinear.apply(parts, tuple(part_weight), *weights,
-                                 *biases)
+                                 *biases)[0]

@@ -5,6 +5,8 @@ Port of `ta3n_tpu/ops/grl.py::grad_reverse` (reference GradReverse,
 models.py:20-30).  ``beta`` is a tensor or a Python number, so a schedule
 that changes it every step changes no code path; a number stays on the
 host (no host-to-device copy, which would stall the step on the stream).
+Under ``torch.func.vmap`` (the ensembles of `train/ensemble.py`) a batched
+``beta`` gives each member its own strength.
 """
 
 from __future__ import annotations
@@ -15,14 +17,24 @@ __all__ = ["grad_reverse"]
 
 
 class _GradReverse(torch.autograd.Function):
+    """In the ``setup_context`` form, with a generated vmap rule, so that
+    ``torch.func`` transforms it (`train/ensemble.py`): under ``vmap`` a
+    tensor ``beta`` may be batched, each member reversing by its own."""
+
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x: torch.Tensor, beta) -> torch.Tensor:
+    def forward(x: torch.Tensor, beta) -> torch.Tensor:
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        _, beta = inputs
         if isinstance(beta, torch.Tensor):
             ctx.save_for_backward(beta)
             ctx.beta = None
         else:
             ctx.beta = float(beta)
-        return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

@@ -48,6 +48,20 @@ bfloat16 variants apart:
 joins them in the JAX package.  It saves x, the weights and the uint8
 masks, never z.
 
+The member axis (the ensembles of `train/ensemble.py`, the counterpart of
+``jax.vmap`` giving each ``pallas_call`` a grid axis over members):
+``trn_multiscale_infer_members``, ``trn_multiscale_fwd_masks_members`` and
+``trn_multiscale_bwd_members`` take N members' stacked inputs ([N, ...],
+members first) and launch the float32 kernels once for all of them, one
+grid row (``blockIdx.y``) a member, counted as the solo launches are; CPU
+tensors take the plain versions member by member.  The Functions are in
+the ``setup_context`` form and carry vmap rules, so that
+``torch.func.vmap`` over stacked weights runs those wrappers: the
+training forward (``_TRNFused``), its backward (``_TRNBackward``, which
+the backward calls under a transform: batched tensors have no data
+pointer) and the inference forward (``_TRNInfer``, taken only under a
+transform).  The bfloat16 kernels have no member axis yet.
+
 The kernels take any number of frames S >= 2: they read the relation plan
 as a table in device memory (``_plan_table``, the layout of
 ``csrc/trn_plan.cuh``), uploaded once per (S, subsample_num, device), and
@@ -74,7 +88,9 @@ from ta3n_tpu_torch.ops.relation import build_relation_plan
 __all__ = ["trn_multiscale_plain", "trn_multiscale_fwd_masks_plain",
            "trn_multiscale_bwd_plain", "trn_multiscale_infer",
            "trn_multiscale_fwd_masks", "trn_multiscale_bwd",
-           "trn_multiscale_fused", "bf16_fwd_grid", "BF16_MAX_SCALES",
+           "trn_multiscale_fused", "trn_multiscale_infer_members",
+           "trn_multiscale_fwd_masks_members", "trn_multiscale_bwd_members",
+           "bf16_fwd_grid", "BF16_MAX_SCALES",
            "launches", "train_launches", "bwd_launches", "bf16_launches",
            "bf16_train_launches", "bf16_bwd_launches"]
 
@@ -387,22 +403,28 @@ def _call(entry: str, x: torch.Tensor, *args) -> None:
 
 
 def _launch_fwd(entry, x, weights, biases, num_frames, subsample_num,
-                *outs) -> None:
+                *outs, members: int = 0) -> None:
     """The forward kernel and its epilogue into ``outs`` (out, and the
     masks in the training variant), with their scratch of partial z:
     [splits * n_slots, B, H] f32, n_slots = sum_k(k * n_sub_k): 32 slots
     at S=5 (6.6 MB at B=202, H=256), 922 at S=25 (190 MB).  The bfloat16
     kernel takes its whole grid (``bf16_fwd_grid``), the float32 one its
-    D slices."""
-    b, s, d = x.shape
-    h = weights[0].shape[0]
+    D slices and its members: ``members`` > 0 stacked sets of x, weights
+    and biases (each [N, ...], members first), one scratch each; 0 for
+    one unstacked set (the float32 kernel's one member).  D is sliced by
+    one member's shape, so each member's blocks do a solo launch's
+    work."""
+    b, s, d = x.shape[-3:]
+    h = weights[0].shape[-2]
     if x.dtype == torch.bfloat16:
         grid = bf16_fwd_grid(num_frames, subsample_num, b, d, h)
     else:
-        grid = (_fwd_splits(num_frames, subsample_num, b, d, h),)
+        grid = (_fwd_splits(num_frames, subsample_num, b, d, h),
+                max(members, 1))
     slots = sum(n for _, _, n in _fwd_units(num_frames, subsample_num))
-    part = torch.empty((grid[-1] * slots, b, h), dtype=torch.float32,
-                       device=x.device)
+    splits = grid[0] if x.dtype == torch.float32 else grid[-1]
+    part = torch.empty((max(members, 1) * splits * slots, b, h),
+                       dtype=torch.float32, device=x.device)
     _call(entry, x, x.data_ptr(),
           *_pointer_args(weights, biases, num_frames, subsample_num,
                          x.device),
@@ -465,9 +487,8 @@ def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
                 ) -> Tuple[torch.Tensor, tuple, tuple]:
     """The backward kernel (one grid of dx and dW/db tiles): (dx, dWs,
     dbs)."""
-    global bwd_launches, bf16_bwd_launches
     _check_inputs(x, weights, None, num_frames, subsample_num)
-    b, s, d = x.shape
+    b, s, _ = x.shape
     h = weights[0].shape[0]
     n_sub = _n_subsets(num_frames, subsample_num)
     _check_tensor(masks, x.device, torch.uint8)
@@ -477,21 +498,38 @@ def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
         raise ValueError(f"expected masks {(b, n_sub * h)} and g "
                          f"{(b, s - 1, h)}, got {tuple(masks.shape)} and "
                          f"{tuple(g.shape)}")
+    dx, dw, db = _bwd_kernel(x, weights, masks, g, num_frames,
+                             subsample_num)
+    return dx, _split_flat(dw, weights), tuple(db.unbind())
+
+
+def _bwd_kernel(x, weights, masks, g, num_frames, subsample_num,
+                members: int = 0):
+    """Launch the backward kernel on checked inputs: (dx, the flat dW
+    buffer, db [n_scales, H]), each with the members first when
+    ``members`` > 0 (stacked inputs, as ``_launch_fwd`` takes them)."""
+    global bwd_launches, bf16_bwd_launches
+    b, s, d = x.shape[-3:]
+    h = weights[0].shape[-2]
+    n = (members,) if members else ()
     dx = torch.empty_like(x)
     # every dW_i side by side in one buffer, every db_i in another
-    dw = torch.empty((sum(w.numel() for w in weights),), dtype=x.dtype,
-                     device=x.device)
-    db = torch.empty((len(weights), h), dtype=x.dtype, device=x.device)
-    _call(f"ta3n_trn_fused_bwd_{_SUFFIX[x.dtype]}", x, x.data_ptr(),
-          *_pointer_args(weights, (), num_frames, subsample_num, x.device),
-          masks.data_ptr(), g.data_ptr(),
-          dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-          *_plan_args(num_frames, subsample_num, x.device), b, s, d, h)
+    dw = torch.empty(n + (sum(w[0].numel() if members else w.numel()
+                              for w in weights),),
+                     dtype=x.dtype, device=x.device)
+    db = torch.empty(n + (len(weights), h), dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(),
+            *_pointer_args(weights, (), num_frames, subsample_num, x.device),
+            masks.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            *_plan_args(num_frames, subsample_num, x.device), b, s, d, h)
     if x.dtype == torch.float32:
+        _call("ta3n_trn_fused_bwd_f32", x, *args, max(members, 1))
         bwd_launches += 1
     else:
+        _call("ta3n_trn_fused_bwd_bf16", x, *args)
         bf16_bwd_launches += 1
-    return dx, _split_flat(dw, weights), tuple(db.unbind())
+    return dx, dw, db
 
 
 def _split_flat(flat: torch.Tensor, like) -> tuple:
@@ -515,7 +553,16 @@ def trn_multiscale_infer(x: torch.Tensor, weights: Sequence[torch.Tensor],
     A CUDA ``x`` launches the hand-written kernel (float32 or bfloat16,
     contiguous, on one device; anything else raises, and so does a call
     that would need a gradient).  A CPU ``x`` takes ``trn_multiscale_plain``.
+    Under a ``torch.func`` transform it goes through a Function whose
+    vmap rule runs ``trn_multiscale_infer_members``.
     """
+    if torch._C._are_functorch_transforms_active():
+        return _TRNInfer.apply(x, num_frames, subsample_num, *weights,
+                               *biases)
+    return _solo_infer(x, weights, biases, num_frames, subsample_num)
+
+
+def _solo_infer(x, weights, biases, num_frames, subsample_num):
     if x.device.type == "cuda":
         return _launch(x, weights, biases, num_frames, subsample_num)
     if x.device.type == "cpu":
@@ -564,26 +611,255 @@ def trn_multiscale_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
     raise _no_kernel("trn_multiscale_bwd", x.device)
 
 
+# the member axis: each argument [N, ...] with the members first, as
+# ``torch.func.stack_module_state`` stacks parameters (`train/ensemble.py`)
+
+def _check_members(x, weights, biases, num_frames, subsample_num) -> int:
+    """The member count N of stacked inputs; raise on anything the
+    member-batched kernels do not take (``biases`` None: the backward)."""
+    biases = list(biases) if biases is not None else []
+    n = x.shape[0] if x.dim() == 4 else -1
+    if n < 1 or any(t.dim() < 1 or t.shape[0] != n
+                    for t in (*weights, *biases)):
+        raise ValueError(
+            "member-batched inputs carry N >= 1 members first: x [N, B, "
+            "S, D], each weight [N, H, k*D] and bias [N, H]; got x "
+            f"{tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the member-batched TRN kernels take float32, got {x.dtype}: "
+            "the bfloat16 kernels' member axis is not ported yet "
+            "(ROADMAP.md queue 1, item 13)")
+    for t in (x, *weights, *biases):
+        _check_tensor(t, x.device, x.dtype)
+    _check_inputs(x[0], [w[0] for w in weights],
+                  [b[0] for b in biases] or None, num_frames, subsample_num)
+    return n
+
+
+def _each_member(fn, *stacked):
+    """``fn`` on each member's slice of the stacked tensor sequences
+    ``stacked``, its outputs stacked back: the plain versions' member
+    axis, member k computed exactly as a solo call on member k."""
+    n = stacked[0].shape[0]
+    outs = [fn(*(a[k] if isinstance(a, torch.Tensor) else [t[k] for t in a]
+                 for a in stacked)) for k in range(n)]
+    return _stack_outputs(outs)
+
+
+def _stack_outputs(outs):
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    return type(first)(_stack_outputs(list(o)) for o in zip(*outs))
+
+
+def trn_multiscale_infer_members(x: torch.Tensor,
+                                 weights: Sequence[torch.Tensor],
+                                 biases: Sequence[torch.Tensor],
+                                 num_frames: int, subsample_num: int = 3
+                                 ) -> torch.Tensor:
+    """``trn_multiscale_infer`` of N members in one call: x [N, B, S, D],
+    weights[i] [N, H, k_i*D], biases[i] [N, H] -> [N, B, S-1, H].  A CUDA
+    ``x`` launches the float32 kernel once for every member (a member grid
+    axis; member k's blocks do the solo launch's work on member k's
+    inputs, so its output is bitwise the solo one); anything it does not
+    take raises.  A CPU ``x`` takes the plain version member by member."""
+    if x.device.type == "cpu":
+        return _each_member(
+            lambda xk, wk, bk: trn_multiscale_plain(
+                xk, wk, bk, num_frames, subsample_num), x, weights, biases)
+    if x.device.type != "cuda":
+        raise _no_kernel("trn_multiscale_infer_members", x.device)
+    global launches
+    n = _check_members(x, weights, biases, num_frames, subsample_num)
+    out = torch.empty((n, x.shape[1], num_frames - 1, weights[0].shape[1]),
+                      dtype=x.dtype, device=x.device)
+    if x.shape[1] == 0:  # a grid of 0 blocks is refused
+        return out
+    _launch_fwd("ta3n_trn_fused_fwd_f32", x, weights, biases, num_frames,
+                subsample_num, out, members=n)
+    launches += 1
+    return out
+
+
+def trn_multiscale_fwd_masks_members(
+        x: torch.Tensor, weights: Sequence[torch.Tensor],
+        biases: Sequence[torch.Tensor], num_frames: int,
+        subsample_num: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``trn_multiscale_fwd_masks`` of N members in one call: ``(out [N,
+    B, S-1, H], masks [N, B, n_sub*H])`` from stacked inputs as for
+    ``trn_multiscale_infer_members``: one launch of the float32 training
+    kernel on a CUDA ``x``, the plain version member by member on a CPU
+    one."""
+    if x.device.type == "cpu":
+        return _each_member(
+            lambda xk, wk, bk: trn_multiscale_fwd_masks_plain(
+                xk, wk, bk, num_frames, subsample_num), x, weights, biases)
+    if x.device.type != "cuda":
+        raise _no_kernel("trn_multiscale_fwd_masks_members", x.device)
+    global train_launches
+    n = _check_members(x, weights, biases, num_frames, subsample_num)
+    b, h = x.shape[1], weights[0].shape[1]
+    out = torch.empty((n, b, num_frames - 1, h), dtype=x.dtype,
+                      device=x.device)
+    masks = torch.empty((n, b, _n_subsets(num_frames, subsample_num) * h),
+                        dtype=torch.uint8, device=x.device)
+    if b == 0:  # a grid of 0 blocks is refused
+        return out, masks
+    _launch_fwd("ta3n_trn_fused_fwd_train_f32", x, weights, biases,
+                num_frames, subsample_num, out, masks, members=n)
+    train_launches += 1
+    return out, masks
+
+
+def trn_multiscale_bwd_members(
+        x: torch.Tensor, weights: Sequence[torch.Tensor],
+        masks: torch.Tensor, g: torch.Tensor, num_frames: int,
+        subsample_num: int = 3) -> Tuple[torch.Tensor, tuple, tuple]:
+    """``trn_multiscale_bwd`` of N members in one call: ``(dx [N, B, S,
+    D], dWs [N, H, k_i*D], dbs [N, H])`` from stacked x, weights, masks
+    [N, B, n_sub*H] and g [N, B, S-1, H]: one launch of the float32
+    backward kernel on a CUDA ``x`` (g may be non-contiguous), the plain
+    version member by member on a CPU one."""
+    if x.device.type == "cpu":
+        return _each_member(
+            lambda xk, wk, mk, gk: trn_multiscale_bwd_plain(
+                xk, wk, mk, gk, num_frames, subsample_num),
+            x, weights, masks, g)
+    if x.device.type != "cuda":
+        raise _no_kernel("trn_multiscale_bwd_members", x.device)
+    n = _check_members(x, weights, None, num_frames, subsample_num)
+    g = g.contiguous()
+    b, s, _ = x.shape[1:]
+    h = weights[0].shape[1]
+    _check_tensor(masks, x.device, torch.uint8)
+    _check_tensor(g, x.device, x.dtype)
+    want_m = (n, b, _n_subsets(num_frames, subsample_num) * h)
+    if tuple(masks.shape) != want_m or tuple(g.shape) != (n, b, s - 1, h):
+        raise ValueError(f"expected masks {want_m} and g {(n, b, s - 1, h)},"
+                         f" got {tuple(masks.shape)} and {tuple(g.shape)}")
+    dx, dw, db = _bwd_kernel(x, weights, masks, g, num_frames,
+                             subsample_num, members=n)
+    dws, at = [], 0
+    for w in weights:
+        dws.append(dw[:, at:at + w[0].numel()].view(w.shape))
+        at += w[0].numel()
+    return dx, tuple(dws), tuple(db.unbind(1))
+
+
+def _stacked(n: int, in_dims, tensors) -> list:
+    """Each tensor with its member axis (``in_dims``, None: unbatched,
+    then the same for every member) first, contiguous: the kernels' member
+    layout."""
+    out = []
+    for t, dim in zip(tensors, in_dims):
+        t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+        out.append(t.contiguous())
+    return out
+
+
+class _TRNInfer(torch.autograd.Function):
+    """The inference forward as a Function with a vmap rule, so that
+    ``torch.func.vmap`` over stacked members (ensemble eval and serving)
+    launches the kernel once for every member.  Not differentiable."""
+
+    @staticmethod
+    def forward(x, num_frames, subsample_num, *params):
+        n = len(params) // 2
+        return _solo_infer(x, params[:n], params[n:], num_frames,
+                           subsample_num)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("trn_multiscale_infer has no backward; train "
+                           "through trn_multiscale_fused")
+
+    @staticmethod
+    def vmap(info, in_dims, x, num_frames, subsample_num, *params):
+        n = len(params) // 2
+        x, *params = _stacked(info.batch_size, (in_dims[0], *in_dims[3:]),
+                              (x, *params))
+        return (trn_multiscale_infer_members(x, params[:n], params[n:],
+                                             num_frames, subsample_num), 0)
+
+
 class _TRNFused(torch.autograd.Function):
     """The training forward (out and masks) and the backward from the
-    masks."""
+    masks, in the ``setup_context`` form that ``torch.func`` takes.  Under
+    ``vmap`` (stacked members) its vmap rule launches the member-batched
+    training forward once, and the backward goes through
+    ``_TRNBackward``, whose vmap rule launches the member-batched
+    backward once."""
 
     @staticmethod
-    def forward(ctx, x, num_frames, subsample_num, *params):
+    def forward(x, num_frames, subsample_num, *params):
         n = len(params) // 2
-        weights, biases = params[:n], params[n:]
-        out, masks = trn_multiscale_fwd_masks(x, weights, biases, num_frames,
-                                              subsample_num)
-        ctx.save_for_backward(x, masks, *weights)
-        ctx.plan = (num_frames, subsample_num)
-        return out
+        return trn_multiscale_fwd_masks(x, params[:n], params[n:],
+                                        num_frames, subsample_num)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output) -> None:
+        x, num_frames, subsample_num, *params = inputs
+        masks = output[1]
+        ctx.mark_non_differentiable(masks)
+        ctx.save_for_backward(x, masks, *params[:len(params) // 2])
+        ctx.plan = (num_frames, subsample_num)
+
+    @staticmethod
+    def backward(ctx, g, _):
         x, masks, *weights = ctx.saved_tensors
-        dx, dws, dbs = trn_multiscale_bwd(x, weights, masks, g, *ctx.plan)
-        return (dx, None, None, *dws, *dbs)
+        if torch._C._are_functorch_transforms_active():
+            # batched tensors have no data pointer: the backward goes
+            # through a Function of its own, whose vmap rule stacks them
+            dx, *grads = _TRNBackward.apply(x, masks, g, *ctx.plan, *weights)
+        else:
+            dx, dws, dbs = trn_multiscale_bwd(x, weights, masks, g,
+                                              *ctx.plan)
+            grads = (*dws, *dbs)
+        return (dx, None, None, *grads)
+
+    @staticmethod
+    def vmap(info, in_dims, x, num_frames, subsample_num, *params):
+        n = len(params) // 2
+        x, *params = _stacked(info.batch_size, (in_dims[0], *in_dims[3:]),
+                              (x, *params))
+        return (trn_multiscale_fwd_masks_members(
+            x, params[:n], params[n:], num_frames, subsample_num), (0, 0))
+
+
+class _TRNBackward(torch.autograd.Function):
+    """``trn_multiscale_bwd`` as a Function with a vmap rule: the backward
+    of ``_TRNFused`` under ``torch.func`` transforms.  Not differentiable
+    itself (the TRN is differentiable once, as the JAX custom VJP)."""
+
+    @staticmethod
+    def forward(x, masks, g, num_frames, subsample_num, *weights):
+        dx, dws, dbs = trn_multiscale_bwd(x, weights, masks, g, num_frames,
+                                          subsample_num)
+        return (dx, *dws, *dbs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the fused TRN's backward is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, x, masks, g, num_frames, subsample_num,
+             *weights):
+        x, masks, g, *weights = _stacked(
+            info.batch_size, (*in_dims[:3], *in_dims[5:]),
+            (x, masks, g, *weights))
+        dx, dws, dbs = trn_multiscale_bwd_members(x, weights, masks, g,
+                                                  num_frames, subsample_num)
+        return (dx, *dws, *dbs), (0,) * (1 + len(dws) + len(dbs))
 
 
 def trn_multiscale_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -596,4 +872,5 @@ def trn_multiscale_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
     on what they do not take and never fall back; on a CPU ``x`` their
     plain versions.
     """
-    return _TRNFused.apply(x, num_frames, subsample_num, *weights, *biases)
+    return _TRNFused.apply(x, num_frames, subsample_num, *weights,
+                           *biases)[0]

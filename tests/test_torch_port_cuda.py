@@ -1681,3 +1681,218 @@ def test_trainer_chunked_modes_on_cuda_match_cpu(kw, tmp_path):
     for name, ref in results[0][1].items():
         torch.testing.assert_close(results[1][1][name], ref, rtol=1e-3,
                                    atol=2e-5, msg=lambda m: f"{name}: {m}")
+
+
+# ---- the member axis (ensembles): each member-batched kernel is one
+# launch for N members and, member by member, bitwise N solo launches on
+# the members' inputs; and within _tol of the plain version ----
+
+def _member_trn_inputs(n, b, s, d, h):
+    """N members' x, weights and biases, stacked [N, ...]."""
+    sets = [_trn_inputs(b, s, d, h, seed=10 + k) for k in range(n)]
+    x = torch.stack([t[0] for t in sets])
+    w = [torch.stack([t[1][i] for t in sets]) for i in range(s - 1)]
+    bi = [torch.stack([t[2][i] for t in sets]) for i in range(s - 1)]
+    return x, w, bi
+
+
+# (N, B, S, D, H): the smoke's N and batches at the flagship widths, S 17,
+# ragged widths, one member, and an empty batch
+MEMBER_CASES = [(1, 64, 5, 512, 256), (3, 1, 5, 512, 256),
+                (4, 202, 5, 512, 256), (8, 64, 5, 512, 256),
+                (3, 13, 17, 37, 19), (3, 0, 5, 32, 16)]
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["infer", "train"])
+@pytest.mark.parametrize("n,b,s,d,h", MEMBER_CASES)
+def test_member_fwd_kernels_bitwise_solo(n, b, s, d, h, train):
+    x, w, bi = _member_trn_inputs(n, b, s, d, h)
+    with torch.no_grad():
+        if train:
+            _reset_counts()
+            got, masks = trn_fused.trn_multiscale_fwd_masks_members(
+                x, w, bi, s)
+            assert trn_fused.train_launches == (1 if b else 0)
+            solo = [trn_fused.trn_multiscale_fwd_masks(
+                x[k], [t[k] for t in w], [t[k] for t in bi], s)
+                for k in range(n)]
+            assert torch.equal(masks, torch.stack([m for _, m in solo]))
+            solo = [o for o, _ in solo]
+        else:
+            _reset_counts()
+            got = trn_fused.trn_multiscale_infer_members(x, w, bi, s)
+            assert trn_fused.launches == (1 if b else 0)
+            solo = [trn_fused.trn_multiscale_infer(
+                x[k], [t[k] for t in w], [t[k] for t in bi], s)
+                for k in range(n)]
+        plain = torch.stack([trn_fused.trn_multiscale_plain(
+            x[k], [t[k] for t in w], [t[k] for t in bi], s)
+            for k in range(n)])
+    torch.cuda.synchronize()
+    assert got.shape == (n, b, s - 1, h)
+    assert torch.equal(got, torch.stack(solo))
+    if b:
+        assert (got - plain).abs().max().item() <= _tol(plain)
+
+
+@pytest.mark.parametrize("n,b,s,d,h", MEMBER_CASES)
+def test_member_bwd_kernel_bitwise_solo(n, b, s, d, h):
+    x, w, bi = _member_trn_inputs(n, b, s, d, h)
+    g = torch.randn((n, b, s - 1, h), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5))
+    with torch.no_grad():
+        _, masks = trn_fused.trn_multiscale_fwd_masks_members(x, w, bi, s)
+        _reset_counts()
+        dx, dws, dbs = trn_fused.trn_multiscale_bwd_members(x, w, masks, g,
+                                                            s)
+        assert trn_fused.bwd_launches == 1
+        for k in range(n):
+            sx, sw, sb = trn_fused.trn_multiscale_bwd(
+                x[k], [t[k] for t in w], masks[k], g[k], s)
+            px, pw, pb = trn_fused.trn_multiscale_bwd_plain(
+                x[k], [t[k] for t in w], masks[k], g[k], s)
+            assert torch.equal(dx[k], sx)
+            for got, want, plain in [*zip([t[k] for t in dws], sw, pw),
+                                     *zip([t[k] for t in dbs], sb, pb)]:
+                assert torch.equal(got, want)
+                assert (got - plain).abs().max().item() <= _tol(plain)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("per_member", [False, True],
+                         ids=["shared", "per_member"])
+@pytest.mark.parametrize("n,rows,with_rows", [
+    (1, 640, True), (3, 640, True), (4, 370, True), (8, 320, False),
+    (3, 37, True), (3, 0, True)])
+def test_member_gather_kernel_bitwise_solo(n, rows, with_rows, per_member):
+    """K3 over N members: weights [N, H, K], one index set for all or one
+    each, z bitwise the solo launches' (K sliced by one member's shape)
+    and x_res written once for shared indices."""
+    store, _, _, _ = _gather_inputs(8, d=2048, h=512)
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy((rng.uniform(-1, 1, (n, 512, 2048)) / 45.0)
+                         .astype(np.float32)).cuda()
+    m = n if per_member else 1
+    idx = rng.integers(0, store.shape[0], (m, rows))
+    scale = torch.from_numpy(rng.choice([1.0, 0.0, 0.5], (m, rows))
+                             .astype(np.float32)).cuda()
+    checked = gather_gemm.row_index(idx, store.shape[0], "cuda")
+    if per_member:
+        member_idx = gather_gemm.RowIndex(checked.rows.reshape(n, rows),
+                                          checked.end)
+        member_scale = scale
+    else:
+        member_idx = checked
+        member_scale = scale[0]
+    _reset_counts()
+    z, x_res = gather_gemm.gathered_gemm_members(store, member_idx, w,
+                                                 member_scale, with_rows)
+    assert gather_gemm.launches == (1 if rows else 0)
+    for k in range(n):
+        j = k if per_member else 0
+        rows_k = gather_gemm.row_index(idx[j], store.shape[0], "cuda")
+        sz, sx = gather_gemm.gathered_gemm(store, rows_k, w[k], scale[j],
+                                           with_rows)
+        pz, px = gather_gemm.gathered_gemm_plain(store, rows_k.rows.long(),
+                                                 w[k], scale[j])
+        assert torch.equal(z[k], sz)
+        if rows:
+            assert (z[k] - pz).abs().max().item() <= _tol(pz)
+        if with_rows:
+            got_x = x_res[k] if per_member else x_res
+            assert torch.equal(got_x, sx) and torch.equal(got_x, px)
+    if not with_rows:
+        assert x_res is None
+
+
+def _ensemble_setup(n=3):
+    from ta3n_tpu_torch.train.ensemble import (create_ensemble_state,
+                                               ensemble_generators)
+    cfg = ModelConfig(num_class=5, baseline_type="video",
+                      frame_aggregation="trn-m", train_segments=5,
+                      val_segments=5, feature_dim=64, fc_dim=32,
+                      use_attn="TransAttn", dropout_i=0.0, dropout_v=0.0)
+    da = DAConfig(use_target="uSv", adv_DA="RevGrad",
+                  add_loss_DA="attentive_entropy")
+    tc = TrainConfig(lr=0.03, batch_size=(16, 12, 16))
+    stores = make_domain_pair(num_source=40, num_target=30, num_val=16,
+                              num_class=5, feature_dim=64, seed=2)
+    return cfg, da, tc, stores, list(range(n)), create_ensemble_state, \
+        ensemble_generators
+
+
+def test_ensemble_store_step_on_cuda_matches_cpu():
+    """Two device-store ensemble steps of 3 members on the card against
+    the CPU ensemble (each member within the train steps' tolerance), with
+    K3 2x, K1 (train) 1x and K2 1x a step and no vmap fallback."""
+    import warnings
+
+    from ta3n_tpu_torch.train.ensemble import (make_ensemble_step,
+                                               stack_scalars)
+    cfg, da, tc, stores, seeds, create, gens = _ensemble_setup()
+    ls = TSNLoader(stores[0], batch_size=16, num_segments=5, seed=1)
+    lt = TSNLoader(stores[1], batch_size=12, num_segments=5, seed=2)
+    batches = list(zip(ls.index_epoch(), lt.index_epoch()))[:2]
+    sc = stack_scalars([StepScalars((0.5, 0.5, 0.5), 0.0, 1.0, 0.01,
+                                    0.03 * (k + 1)) for k in seeds])
+    results = {}
+    for dev in ("cpu", "cuda"):
+        state = create(cfg, tc, seeds, dev)
+        step = make_ensemble_step(state.model, da, tc, gather_on_device=True)
+        s_dev = [st.to_device(dev) for st in stores[:2]]
+        g = gens(seeds, dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for bs, bt in batches:
+                _reset_counts()
+                state, m = step(state, s_dev[0], bs.abs_indices, bs.labels,
+                                bs.mask, s_dev[1], bt.abs_indices, bt.labels,
+                                bt.mask, sc, g)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    assert _counts() == (2, 0, 1, 1)
+        assert not [w for w in caught if "performance drop" in
+                    str(w.message)]
+        results[dev] = (state, m)
+    (cpu, m_cpu), (card, m_card) = results["cpu"], results["cuda"]
+    np.testing.assert_allclose(m_card["loss"].cpu().numpy(),
+                               m_cpu["loss"].numpy(), rtol=2e-4)
+    for name, t in cpu.params.items():
+        np.testing.assert_allclose(card.params[name].cpu().numpy(),
+                                   t.numpy(), rtol=1e-3, atol=2e-5,
+                                   err_msg=name)
+
+
+def test_ensemble_eval_and_predictor_on_cuda_match_cpu():
+    """The ensemble eval step from a store (K3 1x, K1 (infer) 1x for all
+    members) and the deep-ensemble Predictor on the card against the
+    CPU."""
+    from ta3n_tpu_torch.serve import Predictor
+    from ta3n_tpu_torch.train.ensemble import (extract_member,
+                                               make_ensemble_eval_step)
+    cfg, _, tc, stores, seeds, create, _ = _ensemble_setup()
+    lv = TSNLoader(stores[2], batch_size=16, num_segments=5, mode="test",
+                   shuffle=False)
+    b = next(iter(lv.index_epoch()))
+    x = np.random.default_rng(4).normal(size=(7, 5, 64)).astype(np.float32)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        state = create(cfg, tc, seeds, dev)
+        ev = make_ensemble_eval_step(state.model, gather_on_device=True)
+        _reset_counts()
+        m = ev(state, stores[2].to_device(dev), b.abs_indices, b.labels,
+               b.mask)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert _counts() == (1, 1, 0, 0)
+        members = [extract_member(state, k, tc).model for k in seeds]
+        pred = Predictor(cfg, members, batch_size=4, top_k=3, device=dev,
+                         n_members=len(seeds))
+        _reset_counts()
+        probs = pred(x)[0]
+        if dev == "cuda":
+            assert trn_fused.launches == 2  # two chunks of 4
+        got[dev] = (m["logits"].cpu().numpy(), probs)
+    np.testing.assert_allclose(got["cuda"][0], got["cpu"][0], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["cuda"][1], got["cpu"][1], atol=1e-5)

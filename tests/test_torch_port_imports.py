@@ -47,6 +47,28 @@ def test_port_imports_with_jax_blocked():
     assert "loaded: []" in proc.stdout
 
 
+# the ensemble and sweep slice's modules, which the walk above must reach
+_ENSEMBLE_MODULES = ("ta3n_tpu_torch.train.ensemble",
+                     "ta3n_tpu_torch.train.sweep", "ta3n_tpu_torch.cli.sweep")
+
+
+@pytest.mark.parametrize("module", _ENSEMBLE_MODULES)
+def test_ensemble_modules_import_with_jax_blocked(module):
+    """Each module of the ensembles and sweeps imports with the JAX stack
+    and the JAX package blocked, and names its public entry points."""
+    code = (f"import sys\nfor m in {BLOCKED!r}:\n    sys.modules[m] = None\n"
+            f"import importlib\nmod = importlib.import_module({module!r})\n"
+            "print(sorted(getattr(mod, '__all__', ['main'])))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    names = {"ta3n_tpu_torch.train.ensemble": "make_ensemble_step",
+             "ta3n_tpu_torch.train.sweep": "run_sweep",
+             "ta3n_tpu_torch.cli.sweep": "main"}[module]
+    assert names in proc.stdout
+
+
 def test_no_jax_import_in_port_sources():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flax|optax|orbax|ta3n_tpu\b(?!_torch))\b",

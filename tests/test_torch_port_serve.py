@@ -1,6 +1,13 @@
 """PyTorch port, serving: the port's Predictor serves a reference-format
 checkpoint written by the JAX package and answers as the JAX Predictor
-does (CPU), over HTTP too; the CLI refuses what is not ported."""
+does (CPU), over HTTP too; a sweep's member checkpoints as one deep
+ensemble (``from_sweep``, the CLI with a sweep dir and ``--sweep_best``)
+whose probabilities are the mean of the members' solo Predictors' and the
+JAX ensemble Predictor's (``n_members``) on the same weights, within
+PROB_TOL; the CLI refuses what is not ported."""
+
+import os
+import shutil
 
 import inspect
 import json
@@ -132,14 +139,93 @@ def test_checkpoint_directory_raises_with_export_hint(tmp_path):
         Predictor.from_checkpoint(str(tmp_path), CFG, device="cpu")
 
 
-def test_unported_serving_extras_raise(predictor, tmp_path):
+def test_unported_serving_extras_raise(checkpoint, predictor, tmp_path):
+    """AOT export and data-parallel serving raise; ensemble serving is
+    ported: a sweep dir of two copies of one checkpoint serves that
+    checkpoint's answers."""
     for call in (lambda: predictor.export(str(tmp_path)),
                  lambda: Predictor.from_exported(str(tmp_path)),
-                 lambda: Predictor.from_sweep(str(tmp_path), CFG),
                  lambda: Predictor(CFG, predictor.model, device="cpu",
                                    mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    sweep = _sweep_dir(tmp_path, [checkpoint[0]] * 2)
+    ens = Predictor.from_sweep(sweep, CFG, device="cpu", batch_size=4,
+                               top_k=3)
+    assert ens.n_members == 2
+    x = np.random.default_rng(5).normal(size=(5, 3, 16)).astype(np.float32)
+    np.testing.assert_allclose(ens(x)[0], predictor(x)[0], rtol=0,
+                               atol=PROB_TOL)
+
+
+def _sweep_dir(root, checkpoints, best=()):
+    """A sweep's output layout: member_XX/checkpoint.pth.tar of each given
+    checkpoint, and model_best.pth.tar for the members in ``best``."""
+    for k, path in enumerate(checkpoints):
+        d = os.path.join(str(root), "sweep", f"member_{k:02d}")
+        os.makedirs(d, exist_ok=True)
+        shutil.copyfile(path, os.path.join(d, "checkpoint.pth.tar"))
+        if k in best:
+            shutil.copyfile(path, os.path.join(d, "model_best.pth.tar"))
+    return os.path.join(str(root), "sweep")
+
+
+@pytest.fixture(scope="module")
+def members(tmp_path_factory):
+    """Three members' JAX params, redrawn as ``checkpoint``'s, each saved
+    as a reference-format .pth.tar."""
+    root = tmp_path_factory.mktemp("members")
+    state = create_train_state(JaxVideoModel(CFG), jax.random.PRNGKey(0),
+                               4, 4, TrainConfig(batch_size=(4, 4, 4)))
+    out = []
+    for k in range(3):
+        rng = np.random.default_rng(20 + k)
+        params = jax.tree_util.tree_map(
+            lambda leaf: rng.uniform(
+                -(1.0 / np.sqrt(leaf.shape[0]) if leaf.ndim == 2 else 0.25),
+                1.0 / np.sqrt(leaf.shape[0]) if leaf.ndim == 2 else 0.25,
+                leaf.shape).astype(np.float32), state.params)
+        path = str(root / f"m{k}.pth.tar")
+        save_torch_checkpoint(path, params)
+        out.append((path, params))
+    return out
+
+
+def test_from_sweep_is_the_member_mean_and_the_jax_ensemble(members,
+                                                            tmp_path):
+    """from_sweep over three members at batch 4 (two chunks, the second
+    padded): the mean of the members' solo Predictors, and the JAX
+    Predictor(n_members=3) on the stacked weights; model_best refused
+    where a member has none; members= selects."""
+    paths = [p for p, _ in members]
+    sweep = _sweep_dir(tmp_path, paths, best=(0, 2))
+    x = np.random.default_rng(6).normal(size=(6, 3, 16)).astype(np.float32)
+    ens = Predictor.from_sweep(sweep, CFG, device="cpu", batch_size=4,
+                               top_k=3)
+    probs, tp, ti = ens(x)
+    solo = [Predictor.from_checkpoint(p, CFG, device="cpu", batch_size=4,
+                                      top_k=3)(x)[0] for p in paths]
+    np.testing.assert_allclose(probs, np.mean(solo, axis=0), rtol=0,
+                               atol=PROB_TOL)
+    stacked = jax.tree_util.tree_map(lambda *ls: np.stack(ls),
+                                     *[p for _, p in members])
+    want_p, want_tp, want_ti = JaxPredictor(CFG, stacked, batch_size=4,
+                                            top_k=3, n_members=3)(x)
+    np.testing.assert_allclose(probs, want_p, rtol=0, atol=PROB_TOL)
+    np.testing.assert_allclose(tp, want_tp, rtol=0, atol=PROB_TOL)
+    np.testing.assert_array_equal(ti, want_ti)
+    with pytest.raises(FileNotFoundError, match="member_01"):
+        Predictor.from_sweep(sweep, CFG, which="model_best", device="cpu")
+    best = Predictor.from_sweep(sweep, CFG, members=[0, 2],
+                                which="model_best", device="cpu",
+                                batch_size=4, top_k=3)
+    np.testing.assert_allclose(best(x)[0], (solo[0] + solo[2]) / 2, rtol=0,
+                               atol=PROB_TOL)
+    with pytest.raises(ValueError, match="which="):
+        Predictor.from_sweep(sweep, CFG, which="last", device="cpu")
+    with pytest.raises(FileNotFoundError, match="no member_"):
+        Predictor.from_sweep(str(tmp_path / "empty"), CFG, device="cpu")
+    assert Predictor.is_sweep(sweep) and not Predictor.is_sweep(paths[0])
 
 
 def _class_file(tmp_path):
@@ -154,10 +240,28 @@ _MODEL_FLAGS = ["--feature_dim", "16", "--fc_dim", "16",
 
 @pytest.mark.parametrize("flags", [["--export", "out"], ["--data_parallel"],
                                    ["--sweep_best"], ["--quantize", "int8"]])
-def test_cli_refuses_unported_flags(tmp_path, checkpoint, flags):
-    with pytest.raises(SystemExit, match="not ported yet"):
+def test_cli_refuses_unported_flags(tmp_path, checkpoint, flags,
+                                    monkeypatch):
+    """The unported flags exit naming their ROADMAP item.  --sweep_best is
+    ported: on a sweep dir the CLI serves the members' model_best as one
+    ensemble; on a solo checkpoint it exits with the JAX CLI's
+    message."""
+    if flags != ["--sweep_best"]:
+        with pytest.raises(SystemExit, match="not ported yet"):
+            cli_serve.main([_class_file(tmp_path), checkpoint[0],
+                            *_MODEL_FLAGS, "--device", "cpu", *flags])
+        return
+    with pytest.raises(SystemExit, match="is not a sweep output dir"):
         cli_serve.main([_class_file(tmp_path), checkpoint[0], *_MODEL_FLAGS,
                         "--device", "cpu", *flags])
+    served = {}
+    monkeypatch.setattr(cli_serve, "run_http_server",
+                        lambda p, names, host, port: served.update(
+                            predictor=p))
+    sweep = _sweep_dir(tmp_path, [checkpoint[0]] * 2, best=(0, 1))
+    cli_serve.main([_class_file(tmp_path), sweep, *_MODEL_FLAGS, "--device",
+                    "cpu", "--top_k", "3", "--batch_size", "4", *flags])
+    assert served["predictor"].n_members == 2
 
 
 def test_cli_cuda_without_a_card_exits(tmp_path, checkpoint, monkeypatch):
