@@ -160,6 +160,35 @@ def test_members_are_solo_runs_bitwise():
             assert buf is None or torch.equal(want[k], buf), name
 
 
+@pytest.mark.parametrize("mode", ["per_member_data", "shared_scalars"])
+def test_host_feature_modes_are_solo_runs_bitwise(mode):
+    """From host features: each member its own batches
+    (``per_member_data``, every field [N, ...]), or one StepScalars of
+    numbers for every member (``per_member_scalars=False``); either way
+    member k is its solo run, bitwise."""
+    cfg, da, tc = _cfg(), DAConfig(**DA), _tc()
+    ens = create_ensemble_state(cfg, tc, SEEDS, "cpu")
+    gens = ensemble_generators(SEEDS, "cpu")
+    if mode == "per_member_data":
+        lrs = (0.03, 0.02, 0.01)
+        batches = _batches(2, members=3)
+        step = make_ensemble_step(ens.model, da, tc, per_member_data=True)
+        for i, b in enumerate(batches):
+            ens, _ = step(ens, *b, stack_scalars(_scalars(i, lrs)), gens)
+        solo = _solo_runs(cfg, da, tc, SEEDS, lambda k: [
+            tuple(f[k] for f in b) for b in batches], lrs)
+    else:
+        lrs = (0.03,) * 3
+        batches = _batches(2)
+        step = make_ensemble_step(ens.model, da, tc,
+                                  per_member_scalars=False)
+        for i, b in enumerate(batches):
+            ens, _ = step(ens, *b, _scalars(i, lrs)[0], gens)
+        solo = _solo_runs(cfg, da, tc, SEEDS, lambda k: batches, lrs)
+    for k, (st, _, _) in enumerate(solo):
+        _assert_member_is_solo(ens, k, st)
+
+
 def _jax_members(jcfg, jtc, seeds):
     """A JAX ensemble whose members' parameters are redrawn at a
     trained-like scale (`_redraw`, member by member), with fresh optimizer
