@@ -16,7 +16,11 @@ the sampled and the shard-sampled calls at K = 1, at a call shorter than
 K and on a one-shard plan against the K-step call on the same indices,
 ShardStream's side-stream uploads read back exactly, the hash sampler
 bitwise equal on the CPU and the card, and the Trainer in each chunked
-mode on the card against the CPU.
+mode on the card against the CPU.  The member axis of the ensembles: the
+member-batched TRN kernels and gather + FC bitwise N solo launches and
+within the plain version's tolerance, and a 3-member ensemble's
+device-store steps (one index stream or one each), eval step and
+Predictor on the card against the CPU, with their launches.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs where jax is not installed:
@@ -1821,10 +1825,13 @@ def _ensemble_setup(n=3):
         ensemble_generators
 
 
-def test_ensemble_store_step_on_cuda_matches_cpu():
+@pytest.mark.parametrize("per_member", [False, True],
+                         ids=["shared", "per_member"])
+def test_ensemble_store_step_on_cuda_matches_cpu(per_member):
     """Two device-store ensemble steps of 3 members on the card against
-    the CPU ensemble (each member within the train steps' tolerance), with
-    K3 2x, K1 (train) 1x and K2 1x a step and no vmap fallback."""
+    the CPU ensemble (each member within the train steps' tolerance), from
+    one index stream or one each, with K3 2x, K1 (train) 1x and K2 1x a
+    step and no vmap fallback."""
     import warnings
 
     from ta3n_tpu_torch.train.ensemble import (make_ensemble_step,
@@ -1832,22 +1839,35 @@ def test_ensemble_store_step_on_cuda_matches_cpu():
     cfg, da, tc, stores, seeds, create, gens = _ensemble_setup()
     ls = TSNLoader(stores[0], batch_size=16, num_segments=5, seed=1)
     lt = TSNLoader(stores[1], batch_size=12, num_segments=5, seed=2)
-    batches = list(zip(ls.index_epoch(), lt.index_epoch()))[:2]
+    pairs = list(zip(ls.index_epoch(), lt.index_epoch()))
     sc = stack_scalars([StepScalars((0.5, 0.5, 0.5), 0.0, 1.0, 0.01,
                                     0.03 * (k + 1)) for k in seeds])
+
+    def args(i):
+        """Step i's index batches: the stream's, or member k's i + k."""
+        if not per_member:
+            bs, bt = pairs[i]
+            return (bs.abs_indices, bs.labels, bs.mask, bt.abs_indices,
+                    bt.labels, bt.mask)
+        per = [pairs[(i + k) % len(pairs)] for k in range(len(seeds))]
+        return tuple(np.stack([getattr(p[j], f) for p in per])
+                     for j in (0, 1) for f in ("abs_indices", "labels",
+                                               "mask"))
+
     results = {}
     for dev in ("cpu", "cuda"):
         state = create(cfg, tc, seeds, dev)
-        step = make_ensemble_step(state.model, da, tc, gather_on_device=True)
+        step = make_ensemble_step(state.model, da, tc, gather_on_device=True,
+                                  per_member_data=per_member)
         s_dev = [st.to_device(dev) for st in stores[:2]]
         g = gens(seeds, dev)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            for bs, bt in batches:
+            for i in range(2):
                 _reset_counts()
-                state, m = step(state, s_dev[0], bs.abs_indices, bs.labels,
-                                bs.mask, s_dev[1], bt.abs_indices, bt.labels,
-                                bt.mask, sc, g)
+                a = args(i)
+                state, m = step(state, s_dev[0], *a[:3], s_dev[1], *a[3:],
+                                sc, g)
                 if dev == "cuda":
                     torch.cuda.synchronize()
                     assert _counts() == (2, 0, 1, 1)
