@@ -49,7 +49,7 @@ default):
                   each checked against the plain version and timed in turns
   k3-bf16-earlier only when named, with --earlier-csrc DIR: K3 at
                   bfloat16 compute built from DIR, an earlier csrc/ (its
-                  ta3n_gather_gemm with the same arguments; e.g. `git
+                  ta3n_gather_gemm, one member's entry; e.g. `git
                   archive 8024ae0 ta3n_tpu_torch/csrc | tar -x -C
                   build/earlier`, the first wgmma design, whose W tiles
                   came by cp.async), against the current one, both checked
@@ -637,12 +637,29 @@ def earlier_library(csrc: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib_path))
 
 
+class _OneMemberGather:
+    """An earlier library whose K3 entry, ``ta3n_gather_gemm``, has no
+    member arguments, called as the current wrappers call
+    ``ta3n_gather_gemm_members`` with one member and shared indices."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        entry = lib.ta3n_gather_gemm
+        members = _build._ENTRIES["ta3n_gather_gemm_members"]
+        entry.argtypes = members[:-3] + members[-1:]
+        entry.restype = ctypes.c_int
+        self._entry = entry
+
+    def ta3n_gather_gemm_members(self, *args):
+        *args, members, per_member, stream = args
+        if (members, per_member) != (1, 0):
+            raise ValueError("the earlier K3 entry takes one member")
+        return self._entry(*args, stream)
+
+
 def probe_k3_bf16_earlier(csrc: Path) -> None:
     log(f"k3-bf16-earlier (K3 at bfloat16 compute from {csrc}; device "
         "time, medians of 41 in turns)")
-    earlier = earlier_library(csrc)
-    earlier.ta3n_gather_gemm.argtypes = _build._ENTRIES["ta3n_gather_gemm"]
-    earlier.ta3n_gather_gemm.restype = ctypes.c_int
+    earlier = _OneMemberGather(earlier_library(csrc))
     current = _build.load_library()
     store, w = store_and_weight()
     w16 = w.to(torch.bfloat16)

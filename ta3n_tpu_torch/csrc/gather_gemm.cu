@@ -409,7 +409,8 @@ int launch_gather_gemm_bf16(const void* store, const void* qscale,
 // (1..8) K slices; with more than one, part is scratch of [splits, m, h]
 // f32, summed into z by a second kernel in a fixed order.  Compute kind 1
 // launches gather_gemm_bf16.cu's kernels.  An unknown kind is refused.
-// members (float32 compute; 1 for bfloat16) stacked members, one after
+// members (float32 compute; 1 for bfloat16, and for a solo call) stacked
+// members, one after
 // another in w [members, h, k_rows*d], z [members, m, h] and part
 // [members, splits, m, h]; with per_member_idx 0 they share idx and
 // scale, and x_res [m, k_rows*d] is written once; with 1, idx and scale
@@ -458,16 +459,4 @@ extern "C" int ta3n_gather_gemm_members(
                                     static_cast<float*>(z), count, splits,
                                     members);
   return static_cast<int>(cudaGetLastError());
-}
-
-// One member: ta3n_gather_gemm_members with members 1.
-extern "C" int ta3n_gather_gemm(const void* store, const void* qscale,
-                                const void* idx, const void* scale,
-                                const void* w, void* z, void* x_res,
-                                void* part, int n_idx, int streams, int d,
-                                int k_rows, int h, int splits, int store_kind,
-                                int compute_kind, void* stream) {
-  return ta3n_gather_gemm_members(store, qscale, idx, scale, w, z, x_res,
-                                  part, n_idx, streams, d, k_rows, h, splits,
-                                  store_kind, compute_kind, 1, 0, stream);
 }

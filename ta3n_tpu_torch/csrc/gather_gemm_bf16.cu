@@ -12,8 +12,8 @@
 // then __float2bfloat16_rn: the value the product and x_res see, bit for
 // bit the plain version's.  z = rows @ W^T with float32 accumulation,
 // rounded to bfloat16 once (after the split-K sum); x_res holds the
-// bfloat16 rows.  gather_gemm.cu's C entry ta3n_gather_gemm launches this
-// kernel and its split-K sum for compute kind 1.
+// bfloat16 rows.  gather_gemm.cu's C entry ta3n_gather_gemm_members
+// launches this kernel and its split-K sum for compute kind 1.
 //
 // What bounds it on the card.  At the flagship train shape (N = 640 rows,
 // D = 2048, H = 512) the work is 1.34 GFLOP, 1.4 us at the dense bfloat16
@@ -516,8 +516,9 @@ int launch(const void* store, const void* qscale, const void* idx,
 namespace ta3n {
 
 // The kernel's launch for store_kind 0 (float32), 1 (bfloat16) or 2
-// (int8), on arguments that ta3n_gather_gemm (gather_gemm.cu) checked,
-// and with splits > 1 its split-K sum from part [splits, m, h] float32.
+// (int8), on arguments that ta3n_gather_gemm_members (gather_gemm.cu)
+// checked, and with splits > 1 its split-K sum from part [splits, m, h]
+// float32.
 // Returns cudaGetLastError().
 int launch_gather_gemm_bf16(const void* store, const void* qscale,
                             const void* idx, const void* scale,

@@ -204,9 +204,9 @@ def no_cudnn_tf32():
     """cuDNN without TF32 for the duration; the previous setting
     restored.  ``torch.backends.cudnn.allow_tf32`` is True by default, and
     then cuDNN runs float32 convolutions and RNNs on TF32 tensor cores
-    (10-bit mantissa).  The ensemble steps (`train/ensemble.py`) run whole
-    inside it, forward and backward, where ``cudnn_f32`` runs ``fn``
-    as it is."""
+    (10-bit mantissa).  ``cudnn_f32`` runs its forward inside it; the
+    ensemble train step (`train/ensemble.py`) runs whole inside it, for
+    the backward of a transform, which ``cudnn_f32`` cannot reach."""
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -255,10 +255,13 @@ def cudnn_f32(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     it, so that their numbers do not depend on the process's global
     ``torch.backends.cudnn.allow_tf32``.  On the CPU the flag changes
     nothing.  Under a ``torch.func`` transform (whose backward cannot call
-    ``torch.autograd.grad``) it is ``fn(x)``: the ensemble steps turn
-    TF32 off around the whole transform (``no_cudnn_tf32``)."""
+    ``torch.autograd.grad``) it is ``fn(x)`` with TF32 off: every forward,
+    the ensembles' vmapped ones too, runs in float32; a transform's
+    backward runs where its caller puts it (the ensemble train step runs
+    whole inside ``no_cudnn_tf32``)."""
     if torch._C._are_functorch_transforms_active():
-        return fn(x)
+        with no_cudnn_tf32():
+            return fn(x)
     return _CudnnF32.apply(fn, x, *params)
 
 

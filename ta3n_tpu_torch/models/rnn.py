@@ -15,7 +15,9 @@ reference checkpoint strict-loads.  Weights take kaiming-normal init
 (models.py:210-212), biases torch's RNN default U(±1/sqrt(hidden)); both
 bias vectors are kept, as torch and the JAX package keep them.  The net
 runs through `layers.cudnn_f32`: float32 whatever
-``torch.backends.cudnn.allow_tf32`` says.
+``torch.backends.cudnn.allow_tf32`` says.  Under a ``torch.func``
+transform (the ensembles) it runs as ``recurrence``, the same recurrence
+in plain tensor ops, which vmap batches over members.
 
 Under ``compute_dtype="bfloat16"`` the chunk maxima are taken on the
 bfloat16 frame features and the recurrent net runs in float32, with a
@@ -37,7 +39,7 @@ from torch import nn
 from ta3n_tpu_torch.config import ModelConfig
 from ta3n_tpu_torch.models.layers import cudnn_f32
 
-__all__ = ["build_rnn", "chunk_frames", "rnn_aggregate"]
+__all__ = ["build_rnn", "chunk_frames", "recurrence", "rnn_aggregate"]
 
 
 def build_rnn(cfg: ModelConfig,
@@ -87,5 +89,49 @@ def rnn_aggregate(rnn: nn.RNNBase, feat_seg: torch.Tensor,
     state, its output at the last time step (models.py:409-422), in
     float32 whatever feat_seg's dtype."""
     x = chunk_frames(feat_seg, n_ts).float()
+    if torch._C._are_functorch_transforms_active():
+        # cuDNN's and oneDNN's RNN have no batching rule (an inference
+        # pass under vmap cannot run them at all): the recurrence itself
+        return recurrence(rnn, x)[:, -1]
     out = cudnn_f32(lambda t: rnn(t)[0], x, tuple(rnn.parameters()))
     return out[:, -1]
+
+
+def recurrence(rnn: nn.RNNBase, x: torch.Tensor) -> torch.Tensor:
+    """``rnn(x)[0]`` from a zero state in plain tensor ops, a step at a
+    time (the JAX package's scan): the output [B, T, H * n_directions] of
+    the last layer, each direction's hidden states side by side.  Gates in
+    torch's order and form: LSTM (i, f, g, o), GRU (r, z, n) with
+    n = tanh(W_in x + b_in + r * (W_hn h + b_hn)).  It reads the
+    parameters by name, so under ``torch.func.functional_call`` it reads
+    the ones passed in; the ensembles (`train/ensemble.py`, `serve.py`)
+    run it under vmap, where every op here has a batching rule."""
+    lstm = isinstance(rnn, nn.LSTM)
+    for layer in range(rnn.num_layers):
+        outs = []
+        for reverse in range(2 if rnn.bidirectional else 1):
+            sfx = f"_l{layer}" + ("_reverse" if reverse else "")
+            w_ih, w_hh, b_ih, b_hh = (getattr(rnn, f"{n}{sfx}") for n in (
+                "weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+            gi = x @ w_ih.T + b_ih                     # [B, T, gates * H]
+            h = x.new_zeros(x.shape[0], rnn.hidden_size)
+            c = torch.zeros_like(h)
+            steps = []
+            for t in (reversed(range(x.shape[1])) if reverse
+                      else range(x.shape[1])):
+                gh = h @ w_hh.T + b_hh
+                if lstm:
+                    i, f, g, o = (gi[:, t] + gh).chunk(4, dim=-1)
+                    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                    h = torch.sigmoid(o) * torch.tanh(c)
+                else:
+                    ir, iz, i_n = gi[:, t].chunk(3, dim=-1)
+                    hr, hz, h_n = gh.chunk(3, dim=-1)
+                    r, z = torch.sigmoid(ir + hr), torch.sigmoid(iz + hz)
+                    h = (1 - z) * torch.tanh(i_n + r * h_n) + z * h
+                steps.append(h)
+            if reverse:
+                steps.reverse()
+            outs.append(torch.stack(steps, dim=1))
+        x = torch.cat(outs, dim=-1)
+    return x

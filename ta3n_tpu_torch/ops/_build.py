@@ -68,10 +68,7 @@ _ENTRIES = {
                                 _I, _I, _I, _I, _P],
     # store, its int8 scales, idx, scale, w, z, x_res, part, n_idx,
     # streams, d, k_rows, h, splits, store kind, compute kind (1:
-    # gather_gemm_bf16.cu's kernel), stream
-    "ta3n_gather_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P],
-    # the same with members and per-member indices (0 or 1) before the
+    # gather_gemm_bf16.cu's kernel), members, per-member indices (0 or 1),
     # stream
     "ta3n_gather_gemm_members": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P],

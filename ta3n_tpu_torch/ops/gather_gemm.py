@@ -51,7 +51,9 @@ Members.  ``gathered_gemm_members`` runs N members' stacked weights [N,
 H, k*D] over one store in one launch of the float32-compute kernel (a
 member axis folded into the grid's y beside the H tiles), from one index
 set for all members (x_res then written once) or one each; K is sliced by
-one member's shape, so member k's z is bitwise its solo launch's.
+one member's shape, so member k's z is bitwise its solo launch's.  A solo
+call is that launch with one member (at bfloat16 compute, which has no
+member axis yet, the only one): one launch path, one count a variant.
 ``gathered_linear``'s and ``gathered_gemm``'s Functions carry vmap rules
 that call it under ``torch.func.vmap`` (`train/ensemble.py`); the
 backward's ``dzᵀ x_res`` stays a batched ``torch.mm``.
@@ -251,49 +253,9 @@ def _prepare(store, idx, weight, row_scale):
 def _gather_into(store, rows, geometry, weight, row_scale, z,
                  x_res) -> None:
     """One gather + GEMM written into z [M, H] and, unless None, x_res
-    [M, k*D]: the kernel on a CUDA store, the plain version on a CPU one."""
-    global launches
-    data, scale = _split_store(store)
-    if data.device.type == "cpu":
-        got_z, got_x = gathered_gemm_plain(store, rows, weight, row_scale)
-        z.copy_(got_z)
-        if x_res is not None:
-            x_res.copy_(got_x)
-        return
-    if data.device.type != "cuda":
-        raise _no_kernel("gathered_gemm", data.device)
-    variant = _variant(store, weight)
-    if (data.dtype == torch.int8) != (scale is not None):
-        raise TypeError("an int8 store comes with its scales, as the pair "
-                        "(q, scale); other stores without")
-    _check_tensor(data, data.device, data.dtype)
-    for t in (weight, z, x_res):
-        if t is not None:
-            _check_tensor(t, data.device, weight.dtype)
-    for t in (scale, row_scale):
-        if t is not None:
-            _check_tensor(t, data.device, torch.float32)
-    streams, d, k, m = geometry
-    if m == 0:  # a grid of 0 blocks is refused
-        return
-    h = weight.shape[0]
-    if weight.dtype == torch.bfloat16:
-        splits = bf16_grid(m, h, d, k, data.dtype)[2]
-    else:
-        splits = _splits(m, h, k * -(-d // _TILE_K))
-    part = (torch.empty((splits, m, h), dtype=torch.float32,
-                        device=z.device) if splits > 1 else None)
-    _call("ta3n_gather_gemm", data, data.data_ptr(),
-          None if scale is None else scale.data_ptr(), rows.data_ptr(),
-          None if row_scale is None else row_scale.data_ptr(),
-          weight.data_ptr(), z.data_ptr(),
-          None if x_res is None else x_res.data_ptr(),
-          None if part is None else part.data_ptr(), rows.shape[0], streams,
-          d, k, h, splits, _STORE_KINDS[data.dtype][1],
-          _COMPUTE_KINDS[weight.dtype][1])
-    variant_launches[variant] += 1
-    if variant == "f32_f32":
-        launches += 1
+    [M, k*D]: one member of ``_gather_members_into``."""
+    _gather_members_into(store, rows, geometry, weight[None], row_scale,
+                         z[None], x_res)
 
 
 def _splits(m: int, h: int, chunks: int) -> int:
@@ -406,25 +368,29 @@ def gathered_gemm_members(store, idx: RowIndex, weight: torch.Tensor,
 
 def _gather_members_into(store, rows, geometry, weight, row_scale, z,
                          x_res) -> None:
-    """``_gather_into`` of N members: weight [N, H, k*D] into z [N, M, H]
+    """N members' gathers + GEMMs: weight [N, H, k*D] into z [N, M, H]
     and, unless None, x_res ([N, M, k*D] when rows are [N, n_idx], else
-    [M, k*D], written once)."""
+    [M, k*D], written once): the kernel on a CUDA store, one launch for
+    every member (at bfloat16 compute, one member), the plain version
+    member by member on a CPU one."""
+    global launches
     data, scale = _split_store(store)
     n = weight.shape[0]
     per_member = rows.dim() == 2
     if data.device.type == "cpu":
         for k in range(n):
-            _gather_into(store, rows[k] if per_member else rows, geometry,
-                         weight[k], row_scale[k] if per_member and
-                         row_scale is not None else row_scale, z[k],
-                         x_res[k] if per_member and x_res is not None
-                         else x_res if k == 0 else None)
+            got_z, got_x = gathered_gemm_plain(
+                store, rows[k] if per_member else rows, weight[k],
+                row_scale[k] if per_member and row_scale is not None
+                else row_scale)
+            z[k].copy_(got_z)
+            if x_res is not None and (per_member or k == 0):
+                (x_res[k] if per_member else x_res).copy_(got_x)
         return
     if data.device.type != "cuda":
-        raise _no_kernel("gathered_gemm_members", data.device)
-    global launches
+        raise _no_kernel("gathered_gemm", data.device)
     variant = _variant(store, weight[0])
-    if weight.dtype != torch.float32:
+    if weight.dtype != torch.float32 and n > 1:
         raise NotImplementedError(
             "the member-batched gather kernel computes in float32: the "
             "bfloat16 kernels' member axis is not ported yet (ROADMAP.md "
@@ -443,7 +409,10 @@ def _gather_members_into(store, rows, geometry, weight, row_scale, z,
     if m == 0:  # a grid of 0 blocks is refused
         return
     h = weight.shape[1]
-    splits = _splits(m, h, k * -(-d // _TILE_K))
+    if weight.dtype == torch.bfloat16:
+        splits = bf16_grid(m, h, d, k, data.dtype)[2]
+    else:
+        splits = _splits(m, h, k * -(-d // _TILE_K))
     part = (torch.empty((n, splits, m, h), dtype=torch.float32,
                         device=z.device) if splits > 1 else None)
     _call("ta3n_gather_gemm_members", data, data.data_ptr(),

@@ -53,8 +53,9 @@ The member axis (the ensembles of `train/ensemble.py`, the counterpart of
 ``trn_multiscale_infer_members``, ``trn_multiscale_fwd_masks_members`` and
 ``trn_multiscale_bwd_members`` take N members' stacked inputs ([N, ...],
 members first) and launch the float32 kernels once for all of them, one
-grid row (``blockIdx.y``) a member, counted as the solo launches are; CPU
-tensors take the plain versions member by member.  The Functions are in
+grid row (``blockIdx.y``) a member; a solo float32 call is the same
+launch with one member (one launch path a kernel, one count); CPU tensors
+take the plain versions member by member.  The Functions are in
 the ``setup_context`` form and carry vmap rules, so that
 ``torch.func.vmap`` over stacked weights runs those wrappers: the
 training forward (``_TRNFused``), its backward (``_TRNBackward``, which
@@ -403,27 +404,27 @@ def _call(entry: str, x: torch.Tensor, *args) -> None:
 
 
 def _launch_fwd(entry, x, weights, biases, num_frames, subsample_num,
-                *outs, members: int = 0) -> None:
+                *outs) -> None:
     """The forward kernel and its epilogue into ``outs`` (out, and the
     masks in the training variant), with their scratch of partial z:
-    [splits * n_slots, B, H] f32, n_slots = sum_k(k * n_sub_k): 32 slots
-    at S=5 (6.6 MB at B=202, H=256), 922 at S=25 (190 MB).  The bfloat16
-    kernel takes its whole grid (``bf16_fwd_grid``), the float32 one its
-    D slices and its members: ``members`` > 0 stacked sets of x, weights
-    and biases (each [N, ...], members first), one scratch each; 0 for
-    one unstacked set (the float32 kernel's one member).  D is sliced by
-    one member's shape, so each member's blocks do a solo launch's
-    work."""
+    [splits * n_slots, B, H] f32 a member, n_slots = sum_k(k * n_sub_k):
+    32 slots at S=5 (6.6 MB at B=202, H=256), 922 at S=25 (190 MB).  The
+    float32 kernel takes stacked inputs (x [N, B, S, D], each weight [N,
+    H, k*D] and bias [N, H], members first), its D slices and its N
+    members, one scratch each; D is sliced by one member's shape, so each
+    member's blocks do a one-member launch's work.  The bfloat16 kernel
+    takes one unstacked set and its whole grid (``bf16_fwd_grid``)."""
     b, s, d = x.shape[-3:]
     h = weights[0].shape[-2]
     if x.dtype == torch.bfloat16:
         grid = bf16_fwd_grid(num_frames, subsample_num, b, d, h)
+        splits, members = grid[-1], 1
     else:
-        grid = (_fwd_splits(num_frames, subsample_num, b, d, h),
-                max(members, 1))
+        splits, members = (_fwd_splits(num_frames, subsample_num, b, d, h),
+                           x.shape[0])
+        grid = (splits, members)
     slots = sum(n for _, _, n in _fwd_units(num_frames, subsample_num))
-    splits = grid[0] if x.dtype == torch.float32 else grid[-1]
-    part = torch.empty((max(members, 1) * splits * slots, b, h),
+    part = torch.empty((members * splits * slots, b, h),
                        dtype=torch.float32, device=x.device)
     _call(entry, x, x.data_ptr(),
           *_pointer_args(weights, biases, num_frames, subsample_num,
@@ -433,9 +434,15 @@ def _launch_fwd(entry, x, weights, biases, num_frames, subsample_num,
           *grid)
 
 
+def _one(t: torch.Tensor) -> torch.Tensor:
+    """An unstacked tensor as a stack of one member (a view)."""
+    return t[None]
+
+
 def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
-    """The inference forward kernel."""
-    global launches, bf16_launches
+    """The inference forward kernel: the float32 one as one member of
+    ``_infer_kernel``, the bfloat16 one on its own."""
+    global bf16_launches
     _check_inputs(x, weights, biases, num_frames, subsample_num)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *weights, *biases)):
@@ -443,17 +450,34 @@ def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
             "trn_multiscale_infer's CUDA kernel has no backward; call it "
             "under torch.no_grad() or torch.inference_mode(), or train "
             "through trn_multiscale_fused")
+    if x.dtype == torch.float32:
+        return _infer_kernel(_one(x), [_one(w) for w in weights],
+                             [_one(b) for b in biases], num_frames,
+                             subsample_num)[0]
     b, s, _ = x.shape
-    h = weights[0].shape[0]
-    out = torch.empty((b, s - 1, h), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, s - 1, weights[0].shape[0]), dtype=x.dtype,
+                      device=x.device)
     if b == 0:  # a grid of 0 blocks is refused
         return out
-    _launch_fwd(f"ta3n_trn_fused_fwd_{_SUFFIX[x.dtype]}", x, weights,
-                biases, num_frames, subsample_num, out)
-    if x.dtype == torch.float32:
-        launches += 1
-    else:
-        bf16_launches += 1
+    _launch_fwd("ta3n_trn_fused_fwd_bf16", x, weights, biases, num_frames,
+                subsample_num, out)
+    bf16_launches += 1
+    return out
+
+
+def _infer_kernel(x, weights, biases, num_frames, subsample_num
+                  ) -> torch.Tensor:
+    """The float32 inference forward on checked stacked inputs (x [N, B,
+    S, D]): one launch for every member, [N, B, S-1, H]."""
+    global launches
+    n, b = x.shape[:2]
+    out = torch.empty((n, b, num_frames - 1, weights[0].shape[1]),
+                      dtype=x.dtype, device=x.device)
+    if b == 0:  # a grid of 0 blocks is refused
+        return out
+    _launch_fwd("ta3n_trn_fused_fwd_f32", x, weights, biases, num_frames,
+                subsample_num, out)
+    launches += 1
     return out
 
 
@@ -464,14 +488,29 @@ def _n_subsets(num_frames: int, subsample_num: int) -> int:
 
 def _launch_train(x, weights, biases, num_frames, subsample_num
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The training forward kernel: (out, uint8 masks)."""
-    global train_launches, bf16_train_launches
+    """The training forward kernel: (out, uint8 masks); the float32 one
+    as one member of ``_train_kernel``."""
     _check_inputs(x, weights, biases, num_frames, subsample_num)
-    b, s, _ = x.shape
-    h = weights[0].shape[0]
+    if x.dtype == torch.float32:
+        out, masks = _train_kernel(_one(x), [_one(w) for w in weights],
+                                   [_one(b) for b in biases], num_frames,
+                                   subsample_num)
+        return out[0], masks[0]
+    return _train_kernel(x, weights, biases, num_frames, subsample_num)
+
+
+def _train_kernel(x, weights, biases, num_frames, subsample_num
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward on checked inputs: float32 stacked (x [N, B,
+    S, D]; out and masks with the members first, one launch for every
+    member), bfloat16 one unstacked set."""
+    global train_launches, bf16_train_launches
+    lead, (b, s, _) = x.shape[:-3], x.shape[-3:]
+    h = weights[0].shape[-2]
     n_sub = _n_subsets(num_frames, subsample_num)
-    out = torch.empty((b, s - 1, h), dtype=x.dtype, device=x.device)
-    masks = torch.empty((b, n_sub * h), dtype=torch.uint8, device=x.device)
+    out = torch.empty(lead + (b, s - 1, h), dtype=x.dtype, device=x.device)
+    masks = torch.empty(lead + (b, n_sub * h), dtype=torch.uint8,
+                        device=x.device)
     if b == 0:  # a grid of 0 blocks is refused
         return out, masks
     _launch_fwd(f"ta3n_trn_fused_fwd_train_{_SUFFIX[x.dtype]}", x, weights,
@@ -483,61 +522,71 @@ def _launch_train(x, weights, biases, num_frames, subsample_num
     return out, masks
 
 
-def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
-                ) -> Tuple[torch.Tensor, tuple, tuple]:
-    """The backward kernel (one grid of dx and dW/db tiles): (dx, dWs,
-    dbs)."""
-    _check_inputs(x, weights, None, num_frames, subsample_num)
-    b, s, _ = x.shape
-    h = weights[0].shape[0]
+def _check_bwd(x, weights, masks, g, num_frames, subsample_num) -> None:
+    """Raise on masks or g that do not fit x [..., B, S, D] and the
+    weights [..., H, k*D] (the leading member axis, if any, included)."""
+    lead, (b, s, _) = x.shape[:-3], x.shape[-3:]
+    h = weights[0].shape[-2]
     n_sub = _n_subsets(num_frames, subsample_num)
     _check_tensor(masks, x.device, torch.uint8)
     _check_tensor(g, x.device, x.dtype)
-    if tuple(masks.shape) != (b, n_sub * h) or \
-            tuple(g.shape) != (b, s - 1, h):
-        raise ValueError(f"expected masks {(b, n_sub * h)} and g "
-                         f"{(b, s - 1, h)}, got {tuple(masks.shape)} and "
-                         f"{tuple(g.shape)}")
-    dx, dw, db = _bwd_kernel(x, weights, masks, g, num_frames,
-                             subsample_num)
-    return dx, _split_flat(dw, weights), tuple(db.unbind())
+    want_m, want_g = lead + (b, n_sub * h), lead + (b, s - 1, h)
+    if tuple(masks.shape) != want_m or tuple(g.shape) != want_g:
+        raise ValueError(f"expected masks {want_m} and g {want_g}, got "
+                         f"{tuple(masks.shape)} and {tuple(g.shape)}")
 
 
-def _bwd_kernel(x, weights, masks, g, num_frames, subsample_num,
-                members: int = 0):
-    """Launch the backward kernel on checked inputs: (dx, the flat dW
-    buffer, db [n_scales, H]), each with the members first when
-    ``members`` > 0 (stacked inputs, as ``_launch_fwd`` takes them)."""
+def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
+                ) -> Tuple[torch.Tensor, tuple, tuple]:
+    """The backward kernel (one grid of dx and dW/db tiles): (dx, dWs,
+    dbs); the float32 one as one member of ``_bwd_kernel``."""
+    _check_inputs(x, weights, None, num_frames, subsample_num)
+    _check_bwd(x, weights, masks, g, num_frames, subsample_num)
+    if x.dtype == torch.float32:
+        dx, dws, dbs = _bwd_kernel(_one(x), [_one(w) for w in weights],
+                                   _one(masks), _one(g), num_frames,
+                                   subsample_num)
+        return dx[0], tuple(t[0] for t in dws), tuple(t[0] for t in dbs)
+    return _bwd_kernel(x, weights, masks, g, num_frames, subsample_num)
+
+
+def _bwd_kernel(x, weights, masks, g, num_frames, subsample_num):
+    """Launch the backward kernel on checked inputs: (dx, dWs, dbs),
+    float32 stacked (each input and output with its members first, one
+    launch for every member), bfloat16 one unstacked set."""
     global bwd_launches, bf16_bwd_launches
-    b, s, d = x.shape[-3:]
+    lead, (b, s, d) = x.shape[:-3], x.shape[-3:]
     h = weights[0].shape[-2]
-    n = (members,) if members else ()
     dx = torch.empty_like(x)
     # every dW_i side by side in one buffer, every db_i in another
-    dw = torch.empty(n + (sum(w[0].numel() if members else w.numel()
-                              for w in weights),),
+    dw = torch.empty(lead + (sum(w.shape[-2] * w.shape[-1]
+                                 for w in weights),),
                      dtype=x.dtype, device=x.device)
-    db = torch.empty(n + (len(weights), h), dtype=x.dtype, device=x.device)
+    db = torch.empty(lead + (len(weights), h), dtype=x.dtype,
+                     device=x.device)
     args = (x.data_ptr(),
             *_pointer_args(weights, (), num_frames, subsample_num, x.device),
             masks.data_ptr(), g.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
             *_plan_args(num_frames, subsample_num, x.device), b, s, d, h)
     if x.dtype == torch.float32:
-        _call("ta3n_trn_fused_bwd_f32", x, *args, max(members, 1))
+        _call("ta3n_trn_fused_bwd_f32", x, *args, x.shape[0])
         bwd_launches += 1
     else:
         _call("ta3n_trn_fused_bwd_bf16", x, *args)
         bf16_bwd_launches += 1
-    return dx, dw, db
+    return dx, _split_flat(dw, weights), tuple(db.unbind(-2))
 
 
 def _split_flat(flat: torch.Tensor, like) -> tuple:
-    """Views of ``flat`` shaped as the tensors ``like``, side by side."""
+    """Views of ``flat`` [..., total] shaped as the tensors ``like`` [...,
+    H, K] (the leading dims ``flat``'s), side by side in its last dim."""
     out, at = [], 0
     for t in like:
-        out.append(flat[at:at + t.numel()].view(t.shape))
-        at += t.numel()
+        size = t.shape[-2] * t.shape[-1]
+        out.append(flat[..., at:at + size].view(*flat.shape[:-1],
+                                                *t.shape[-2:]))
+        at += size
     return tuple(out)
 
 
@@ -614,9 +663,9 @@ def trn_multiscale_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
 # the member axis: each argument [N, ...] with the members first, as
 # ``torch.func.stack_module_state`` stacks parameters (`train/ensemble.py`)
 
-def _check_members(x, weights, biases, num_frames, subsample_num) -> int:
-    """The member count N of stacked inputs; raise on anything the
-    member-batched kernels do not take (``biases`` None: the backward)."""
+def _check_members(x, weights, biases, num_frames, subsample_num) -> None:
+    """Raise on stacked inputs that the member-batched kernels do not take
+    (``biases`` None: the backward)."""
     biases = list(biases) if biases is not None else []
     n = x.shape[0] if x.dim() == 4 else -1
     if n < 1 or any(t.dim() < 1 or t.shape[0] != n
@@ -634,7 +683,6 @@ def _check_members(x, weights, biases, num_frames, subsample_num) -> int:
         _check_tensor(t, x.device, x.dtype)
     _check_inputs(x[0], [w[0] for w in weights],
                   [b[0] for b in biases] or None, num_frames, subsample_num)
-    return n
 
 
 def _each_member(fn, *stacked):
@@ -662,25 +710,18 @@ def trn_multiscale_infer_members(x: torch.Tensor,
     """``trn_multiscale_infer`` of N members in one call: x [N, B, S, D],
     weights[i] [N, H, k_i*D], biases[i] [N, H] -> [N, B, S-1, H].  A CUDA
     ``x`` launches the float32 kernel once for every member (a member grid
-    axis; member k's blocks do the solo launch's work on member k's
-    inputs, so its output is bitwise the solo one); anything it does not
-    take raises.  A CPU ``x`` takes the plain version member by member."""
+    axis; member k's blocks do a one-member launch's work on member k's
+    inputs, so its output is bitwise the solo call's); anything it does
+    not take raises.  A CPU ``x`` takes the plain version member by
+    member."""
     if x.device.type == "cpu":
         return _each_member(
             lambda xk, wk, bk: trn_multiscale_plain(
                 xk, wk, bk, num_frames, subsample_num), x, weights, biases)
     if x.device.type != "cuda":
         raise _no_kernel("trn_multiscale_infer_members", x.device)
-    global launches
-    n = _check_members(x, weights, biases, num_frames, subsample_num)
-    out = torch.empty((n, x.shape[1], num_frames - 1, weights[0].shape[1]),
-                      dtype=x.dtype, device=x.device)
-    if x.shape[1] == 0:  # a grid of 0 blocks is refused
-        return out
-    _launch_fwd("ta3n_trn_fused_fwd_f32", x, weights, biases, num_frames,
-                subsample_num, out, members=n)
-    launches += 1
-    return out
+    _check_members(x, weights, biases, num_frames, subsample_num)
+    return _infer_kernel(x, weights, biases, num_frames, subsample_num)
 
 
 def trn_multiscale_fwd_masks_members(
@@ -698,19 +739,8 @@ def trn_multiscale_fwd_masks_members(
                 xk, wk, bk, num_frames, subsample_num), x, weights, biases)
     if x.device.type != "cuda":
         raise _no_kernel("trn_multiscale_fwd_masks_members", x.device)
-    global train_launches
-    n = _check_members(x, weights, biases, num_frames, subsample_num)
-    b, h = x.shape[1], weights[0].shape[1]
-    out = torch.empty((n, b, num_frames - 1, h), dtype=x.dtype,
-                      device=x.device)
-    masks = torch.empty((n, b, _n_subsets(num_frames, subsample_num) * h),
-                        dtype=torch.uint8, device=x.device)
-    if b == 0:  # a grid of 0 blocks is refused
-        return out, masks
-    _launch_fwd("ta3n_trn_fused_fwd_train_f32", x, weights, biases,
-                num_frames, subsample_num, out, masks, members=n)
-    train_launches += 1
-    return out, masks
+    _check_members(x, weights, biases, num_frames, subsample_num)
+    return _train_kernel(x, weights, biases, num_frames, subsample_num)
 
 
 def trn_multiscale_bwd_members(
@@ -729,23 +759,10 @@ def trn_multiscale_bwd_members(
             x, weights, masks, g)
     if x.device.type != "cuda":
         raise _no_kernel("trn_multiscale_bwd_members", x.device)
-    n = _check_members(x, weights, None, num_frames, subsample_num)
+    _check_members(x, weights, None, num_frames, subsample_num)
     g = g.contiguous()
-    b, s, _ = x.shape[1:]
-    h = weights[0].shape[1]
-    _check_tensor(masks, x.device, torch.uint8)
-    _check_tensor(g, x.device, x.dtype)
-    want_m = (n, b, _n_subsets(num_frames, subsample_num) * h)
-    if tuple(masks.shape) != want_m or tuple(g.shape) != (n, b, s - 1, h):
-        raise ValueError(f"expected masks {want_m} and g {(n, b, s - 1, h)},"
-                         f" got {tuple(masks.shape)} and {tuple(g.shape)}")
-    dx, dw, db = _bwd_kernel(x, weights, masks, g, num_frames,
-                             subsample_num, members=n)
-    dws, at = [], 0
-    for w in weights:
-        dws.append(dw[:, at:at + w[0].numel()].view(w.shape))
-        at += w[0].numel()
-    return dx, tuple(dws), tuple(db.unbind(1))
+    _check_bwd(x, weights, masks, g, num_frames, subsample_num)
+    return _bwd_kernel(x, weights, masks, g, num_frames, subsample_num)
 
 
 def _stacked(n: int, in_dims, tensors) -> list:
@@ -818,6 +835,12 @@ class _TRNFused(torch.autograd.Function):
             # through a Function of its own, whose vmap rule stacks them
             dx, *grads = _TRNBackward.apply(x, masks, g, *ctx.plan, *weights)
         else:
+            if torch.is_grad_enabled():
+                # create_graph: the kernel's gradients carry no graph, so
+                # a second backward would take zeros for its terms
+                raise RuntimeError(
+                    "the fused TRN is differentiable once: its backward "
+                    "cannot build a graph (create_graph=True)")
             dx, dws, dbs = trn_multiscale_bwd(x, weights, masks, g,
                                               *ctx.plan)
             grads = (*dws, *dbs)

@@ -292,6 +292,8 @@ def make_ensemble_step(model: VideoModel, da: DAConfig,
         vstep = vmap(member_grad,
                      in_dims=(0, 0, 0, data_dims, d, d, d, d, sc, None),
                      randomness="same")
+        # TF32 off for the transform's backward: cudnn_f32 pins only the
+        # forwards under a transform
         with bf16_f32_reduction(), no_cudnn_tf32():
             grads, metrics = vstep(params, buffers,
                                    torch.arange(n, device=device), data,
@@ -454,19 +456,16 @@ def make_ensemble_eval_step(model: VideoModel, class_weights=None, *,
     @bf16_f32_reduction()
     def ev(state, x, y, mask):
         params, buffers = _prefixed(state)
-        with no_cudnn_tf32():
-            return veval(params, buffers, _as(x, device, torch.float32),
-                         _as(y, device, torch.long),
-                         _as(mask, device, torch.float32))
+        return veval(params, buffers, _as(x, device, torch.float32),
+                     _as(y, device, torch.long),
+                     _as(mask, device, torch.float32))
 
     @torch.no_grad()
     @bf16_f32_reduction()
     def ev_gather(state, store, idx, y, mask):
         mask = _as(mask, device, torch.float32)
         params, buffers = _prefixed(state)
-        with no_cudnn_tf32():
-            return veval(params, buffers,
-                         _member_part(store, idx, mask, None),
-                         _as(y, device, torch.long), mask)
+        return veval(params, buffers, _member_part(store, idx, mask, None),
+                     _as(y, device, torch.long), mask)
 
     return ev_gather if gather_on_device else ev

@@ -1916,3 +1916,59 @@ def test_ensemble_eval_and_predictor_on_cuda_match_cpu():
     np.testing.assert_allclose(got["cuda"][0], got["cpu"][0], rtol=1e-4,
                                atol=1e-5)
     np.testing.assert_allclose(got["cuda"][1], got["cpu"][1], atol=1e-5)
+
+
+@pytest.mark.parametrize("aggregation", ["rnn", "temconv"])
+def test_from_sweep_rnn_and_temconv_are_f32_at_cudnn_tf32_default(
+        aggregation, tmp_path):
+    """A deep ensemble of 3 RNN (two-layer bidirectional LSTM) or temconv
+    members at the flagship widths (2048-d features, fc 512), served by
+    ``from_sweep`` on the card with ``torch.backends.cudnn.allow_tf32``
+    at its default (True): its probabilities are the mean of the members'
+    solo Predictors within 1e-6.  The solo Predictors pin cuDNN to
+    float32 (``cudnn_f32``), and so does the vmapped pass (temconv's
+    convolution; the RNN, which has no batching rule in torch, runs as
+    the plain recurrence under vmap).  At these shapes the TCL's
+    convolution shows no TF32 difference on the H100, so the pin itself
+    is held by ``test_cudnn_f32_pins_tf32_off_under_a_transform`` on the
+    CPU.  Parameters are redrawn at a trained-like scale (kernels
+    U(+-1/sqrt(fan_in)), vectors U(+-0.25))."""
+    from ta3n_tpu_torch.io_utils.checkpoint import save_checkpoint
+    from ta3n_tpu_torch.io_utils.convert import export_reference_state
+    from ta3n_tpu_torch.serve import Predictor
+
+    assert torch.backends.cudnn.allow_tf32
+    fields = (dict(frame_aggregation="rnn", rnn_cell="LSTM", n_rnn=2,
+                   n_directions=2, n_ts=3) if aggregation == "rnn" else
+              dict(frame_aggregation="temconv"))
+    cfg = ModelConfig(num_class=12, baseline_type="video", train_segments=5,
+                      val_segments=5, feature_dim=2048, fc_dim=512,
+                      use_attn="none", dropout_i=0.0, dropout_v=0.0,
+                      **fields)
+    sweep = tmp_path / "sweep"
+    paths = []
+    for k in range(3):
+        gen = torch.Generator().manual_seed(k)
+        model = VideoModel(cfg, gen, "cpu")
+        with torch.no_grad():
+            for p in model.parameters():
+                bound = (1.0 / math.sqrt(p[0].numel()) if p.dim() >= 2
+                         else 0.25)
+                p.uniform_(-bound, bound, generator=gen)
+        paths.append(save_checkpoint(str(sweep / f"member_{k:02d}"), {
+            "epoch": 1, "arch": "TBN",
+            "state_dict": {f"module.{name}": v for name, v in
+                           export_reference_state(model).items()}}))
+    x = np.random.default_rng(7).normal(size=(8, 5, 2048)).astype(
+        np.float32)
+    ens = Predictor.from_sweep(str(sweep), cfg, device="cuda", batch_size=8,
+                               top_k=3)
+    probs = ens(x)[0]
+    solo = np.mean([Predictor.from_checkpoint(p, cfg, device="cuda",
+                                              batch_size=8, top_k=3)(x)[0]
+                    for p in paths], axis=0)
+    err = float(np.abs(probs - solo).max())
+    print(f"{aggregation}: from_sweep against the solo mean {err:.1e} "
+          f"(largest probability {float(solo.max()):.3f})")
+    assert torch.backends.cudnn.allow_tf32
+    np.testing.assert_allclose(probs, solo, rtol=0, atol=1e-6)

@@ -416,9 +416,9 @@ def test_extract_member_is_a_solo_state(tmp_path):
      dict(place_adv=("N", "Y", "Y")), False)])
 def test_rnn_and_adabn_members_match_solo(name, fields, da_fields, exact):
     """AdaBN (BN statistics updated in place on the stacked buffers):
-    bitwise.  A two-layer bidirectional LSTM, whose recurrent net has no
-    batching rule and runs member by member under vmap: within
-    PARAM_TOL."""
+    bitwise.  A two-layer bidirectional LSTM, whose recurrent net (no
+    batching rule in torch) runs under vmap as the plain recurrence
+    (``models.rnn.recurrence``): within PARAM_TOL."""
     cfg, tc = _cfg(**fields), _tc()
     da = DAConfig(**{**DA, **da_fields})
     batches = _batches(2)
@@ -601,3 +601,137 @@ def test_vmapped_gathered_linear_equals_member_calls(per_member):
         sz, sx = gather_gemm.gathered_gemm(store, rk, w[k], scale[j])
         assert torch.equal(z[k], sz)
         assert torch.equal(x_res[k] if per_member else x_res, sx)
+
+
+# ---- the Functions in the setup_context form, outside a transform ----
+
+def test_fused_trn_refuses_a_second_backward():
+    """The fused TRN is differentiable once: a backward that would build a
+    graph (``create_graph=True``, for a second backward) raises, where the
+    kernel's gradients would carry none; a plain backward still runs."""
+    x, w, bi, g = _inputs(4, 5, 16, 8)
+    tx, tw, tb = _torch(x, w, bi)
+    tx.requires_grad_(True)
+    for t in (*tw, *tb):
+        t.requires_grad_(True)
+    out = trn_fused.trn_multiscale_fused(tx, tw, tb, 5)
+    loss = (out * torch.from_numpy(g)).sum()
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        torch.autograd.grad(loss, [tx, *tw], create_graph=True)
+    dx, = torch.autograd.grad(loss, [tx])
+    assert torch.isfinite(dx).all()
+
+
+def test_gathered_linear_second_backward_matches_autograd():
+    """gathered_linear's backward (dzᵀ x_res and dz summed, torch ops on
+    the saved rows) builds a graph under ``create_graph=True``: the
+    gradient of a function of the first gradients equals plain autograd's
+    through ``gathered_gemm_plain`` + bias in float64."""
+    rng = np.random.default_rng(3)
+    store = torch.from_numpy(rng.normal(size=(30, 6)))
+    idx = rng.integers(0, 30, 10)
+    scale = torch.from_numpy(rng.choice([0.0, 0.5, 1.0], 10))
+    w0 = torch.from_numpy(rng.normal(size=(4, 6)))
+    b0 = torch.from_numpy(rng.normal(size=(4,)))
+    rows = gather_gemm.row_index(idx, 30, "cpu")
+
+    def second(linear):
+        w = w0.clone().requires_grad_(True)
+        b = b0.clone().requires_grad_(True)
+        z = linear(w, b)
+        gw, gb = torch.autograd.grad((z.tanh() ** 2).sum(), [w, b],
+                                     create_graph=True)
+        return torch.autograd.grad((gw ** 2).sum() + (gb ** 3).sum(),
+                                   [w, b])
+
+    got = second(lambda w, b: gather_gemm.gathered_linear(
+        [(store, rows, scale)], w, b))
+    want = second(lambda w, b: gather_gemm.gathered_gemm_plain(
+        store, rows.rows.long(), w, scale)[0] + b)
+    for a, e in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), e.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+@pytest.mark.parametrize("directions", [1, 2])
+def test_recurrence_is_torch_rnn(cell, directions):
+    """The plain recurrence that the ensembles run under vmap against
+    torch's two-layer LSTM / GRU from a zero state, output and gradients
+    of the input and every parameter within 1e-5 of their largest value
+    (float32 sums in another order); and under vmap over 3 members'
+    stacked parameters, member k the plain recurrence of member k within
+    the same bound (batched products sum in another order)."""
+    from ta3n_tpu_torch.models.rnn import recurrence
+    gen = torch.Generator().manual_seed(0)
+    rnn = getattr(torch.nn, cell)(12, 6, num_layers=2, batch_first=True,
+                                  bidirectional=directions == 2)
+    with torch.no_grad():
+        for p in rnn.parameters():
+            p.uniform_(-0.5, 0.5, generator=gen)
+    x = torch.randn((5, 3, 12), generator=gen)
+    g = torch.randn((5, 3, 6 * directions), generator=gen)
+
+    def run(fn):
+        xd = x.clone().requires_grad_(True)
+        rnn.zero_grad(set_to_none=True)
+        out = fn(xd)
+        (out * g).sum().backward()
+        return [out.detach(), xd.grad, *(p.grad for p in rnn.parameters())]
+
+    for got, want in zip(run(lambda t: recurrence(rnn, t)),
+                         run(lambda t: rnn(t)[0])):
+        assert (got - want).abs().max() <= 1e-5 * max(
+            1.0, want.abs().max().item())
+    wrapper = _Recurrence(rnn)
+    stacked = {f"rnn.{name}": torch.stack([p.detach() * (1 + 0.1 * k)
+                                           for k in range(3)])
+               for name, p in rnn.named_parameters()}
+    with torch.no_grad():
+        batched = torch.func.vmap(lambda p: torch.func.functional_call(
+            wrapper, p, (x,)))(stacked)
+        for k in range(3):
+            one = {n: t[k] for n, t in stacked.items()}
+            want = torch.func.functional_call(wrapper, one, (x,))
+            assert (batched[k] - want).abs().max() <= 1e-5 * max(
+                1.0, want.abs().max().item())
+
+
+class _Recurrence(torch.nn.Module):
+    """``recurrence`` of the held net as a module's forward, for
+    ``functional_call``."""
+
+    def __init__(self, rnn):
+        super().__init__()
+        self.rnn = rnn
+
+    def forward(self, x):
+        from ta3n_tpu_torch.models.rnn import recurrence
+        return recurrence(self.rnn, x)
+
+
+def test_cudnn_f32_pins_tf32_off_under_a_transform():
+    """Under ``torch.func.vmap`` (the ensembles' forwards, served or
+    evaluated, where no step wraps the call) ``cudnn_f32`` still runs its
+    module with cuDNN's TF32 off, and restores the flag after; outside a
+    transform too.  The flag is read where the module runs, so a record
+    of it there is what a cuDNN kernel would see."""
+    from ta3n_tpu_torch.models.layers import cudnn_f32
+    seen = []
+
+    def fn(t):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return t * 2.0
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        x = torch.ones((3, 4))
+        with torch.no_grad():
+            out = torch.func.vmap(lambda r: cudnn_f32(fn, r, ()))(x)
+        assert torch.equal(out, 2.0 * x)
+        cudnn_f32(fn, x.requires_grad_(True), ()).sum().backward()
+        assert seen == [False, False, False]  # vmap, forward, backward
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

@@ -283,3 +283,45 @@ def test_cli_builds_the_predictor(tmp_path, checkpoint, predictor,
     assert served["names"] == ["a", "b", "c", "d"] and served["port"] == 0
     x = np.random.default_rng(3).normal(size=(2, 3, 16)).astype(np.float32)
     np.testing.assert_array_equal(served["predictor"](x)[2], predictor(x)[2])
+
+
+@pytest.mark.parametrize("aggregation", ["rnn", "temconv"])
+def test_from_sweep_serves_rnn_and_temconv_members(aggregation, tmp_path):
+    """Deep-ensemble serving of the aggregations whose nets are not the
+    TRN: 3 members of a two-layer bidirectional LSTM (run under vmap as
+    the plain recurrence) or of temconv, saved as the sweep saves them;
+    from_sweep's probabilities are the mean of the members' solo
+    Predictors within PROB_TOL."""
+    from ta3n_tpu_torch.config import ModelConfig as PortModelConfig
+    from ta3n_tpu_torch.io_utils.checkpoint import save_checkpoint
+    from ta3n_tpu_torch.io_utils.convert import export_reference_state
+    from ta3n_tpu_torch.models import VideoModel
+
+    fields = (dict(frame_aggregation="rnn", rnn_cell="LSTM", n_rnn=2,
+                   n_directions=2, n_ts=2) if aggregation == "rnn" else
+              dict(frame_aggregation="temconv"))
+    cfg = PortModelConfig(num_class=4, baseline_type="video",
+                          train_segments=3, val_segments=3, fc_dim=16,
+                          feature_dim=16, use_attn="none", dropout_i=0.0,
+                          dropout_v=0.0, **fields)
+    paths = []
+    for k in range(3):
+        gen = torch.Generator().manual_seed(30 + k)
+        model = VideoModel(cfg, gen, "cpu")
+        with torch.no_grad():
+            for p in model.parameters():
+                bound = (1.0 / np.sqrt(p[0].numel()) if p.dim() >= 2
+                         else 0.25)
+                p.uniform_(-bound, bound, generator=gen)
+        paths.append(save_checkpoint(
+            str(tmp_path / "sweep" / f"member_{k:02d}"),
+            {"epoch": 1, "arch": "TBN",
+             "state_dict": {f"module.{name}": v for name, v in
+                            export_reference_state(model).items()}}))
+    x = np.random.default_rng(8).normal(size=(6, 3, 16)).astype(np.float32)
+    probs = Predictor.from_sweep(str(tmp_path / "sweep"), cfg, device="cpu",
+                                 batch_size=4, top_k=3)(x)[0]
+    solo = [Predictor.from_checkpoint(p, cfg, device="cpu", batch_size=4,
+                                      top_k=3)(x)[0] for p in paths]
+    np.testing.assert_allclose(probs, np.mean(solo, axis=0), rtol=0,
+                               atol=PROB_TOL)
