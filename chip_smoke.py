@@ -97,7 +97,19 @@ with its profile; an ensemble val batch (K3 1x, K1 1x); a sweep's member
 checkpoints served over HTTP by Predictor.from_sweep (the averaged
 probabilities equal to the mean of the members' solo Predictors'); and
 the sweep CLI for one epoch of 2 seeds x 2 lrs, then the eval CLI on a
-member's checkpoint (its Pred@1 the member's reported top-1).
+member's checkpoint (its Pred@1 the member's reported top-1).  The same
+phase in bfloat16: the bfloat16 member-batched K1 (infer, train) and K2
+bitwise against N solo bfloat16 launches at the same (N, B, S) and
+within one bfloat16 ulp of plain, K3 at bfloat16 compute from float32,
+bfloat16 and int8 stores at N = 1, 3, 8, shared and per-member indices,
+all timed at N = 1, 4, 8 (K3 also against index_select + matmul in
+bfloat16 over the stacked weights); a 4-member bfloat16 flagship
+ensemble from int8 stores, 5 steps, each member held to its solo
+bfloat16 step by the bfloat16 steps' rule (check_updates), with no vmap
+fallback, timed against 4 solo bfloat16 steps; a bfloat16 ensemble val
+batch; from_sweep of bfloat16 members over HTTP; and cli.sweep
+--compute_dtype bfloat16 --store_dtype int8 for one epoch, then the eval
+CLI on member_00.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -301,8 +313,8 @@ WGMMA_SOURCES = {
     "trn_fused_fwd_bf16": "ta3n_tpu_torch/csrc/trn_fused_fwd_bf16.cu",
     "trn_fused_fwd_train_bf16": "ta3n_tpu_torch/csrc/trn_fused_fwd_bf16.cu",
     "trn_fused_bwd_bf16": "ta3n_tpu_torch/csrc/trn_fused_bwd_bf16.cu",
-    **{f"gather_gemm_{s}_bf16": "ta3n_tpu_torch/csrc/gather_gemm_bf16.cu"
-       for s in ("f32", "bf16", "int8")}}
+    **{f"gather_gemm{s}_bf16": "ta3n_tpu_torch/csrc/gather_gemm_bf16.cu"
+       for s in ("_f32", "_bf16", "_int8", "")}}
 # the bfloat16 compute path and the narrow stores: the bfloat16 flagship,
 # the dense bfloat16 tensor-core peak (H100 SXM data sheet, 700 W), and
 # K3's variants beyond float32 x float32 ("{store}_{compute}")
@@ -354,13 +366,22 @@ MEMBER_TRN_CASES = ((1, 64, 5), (3, 1, 5), (8, 64, 5), (3, 202, 5),
                     (8, 202, 5), (3, 202, 17))
 MEMBER_K3_CASES = ((1, 640, False), (3, 640, False), (8, 640, False),
                    (4, 640, True), (8, 370, True), (3, 320, True))
+# K3 at bfloat16 compute, from each store dtype: (N, per-member indices)
+BF16_MEMBER_K3_CASES = ((1, False), (3, False), (8, False), (1, True),
+                        (3, True), (8, True))
 MEMBER_TIMED = (1, 4, 8)
 # the member-batched kernels' entries of the kernels line: the kernel each
-# extends (its source and TPU kernel) and its count
+# extends (its source and TPU kernel) and its count, float32 and bfloat16
+# (K3 at bfloat16 compute from any store as one, gather_gemm_bf16)
 MEMBER_KERNELS = {"trn_fused_fwd_members": "trn_fused_fwd",
                   "trn_fused_fwd_train_members": "trn_fused_fwd_train",
                   "trn_fused_bwd_members": "trn_fused_bwd",
-                  "gather_gemm_members": "gather_gemm"}
+                  "gather_gemm_members": "gather_gemm",
+                  "trn_fused_fwd_bf16_members": "trn_fused_fwd_bf16",
+                  "trn_fused_fwd_train_bf16_members":
+                      "trn_fused_fwd_train_bf16",
+                  "trn_fused_bwd_bf16_members": "trn_fused_bwd_bf16",
+                  "gather_gemm_bf16_members": "gather_gemm_bf16"}
 
 
 def log(msg: str) -> None:
@@ -936,13 +957,13 @@ def named(model):
             for k, v in model.state_dict().items()}
 
 
-def check_metrics(i, got, want, ref):
-    """Hold one step's metrics to STEP_RTOL; the largest relative
-    difference."""
+def check_metrics(i, got, want, ref, rtol=STEP_RTOL, abs_tol=0.0):
+    """Hold one step's metrics to ``rtol`` (STEP_RTOL); the largest
+    relative difference."""
     worst = 0.0
     for key in want:
         if not math.isfinite(got[key]) or not math.isclose(
-                got[key], want[key], rel_tol=STEP_RTOL):
+                got[key], want[key], rel_tol=rtol, abs_tol=abs_tol):
             raise AssertionError(f"step {i}: {key} {got[key]} differs from "
                                  f"{ref} {want[key]}")
         worst = max(worst, abs(got[key] - want[key])
@@ -3296,28 +3317,69 @@ def member_stacks(sets):
     return x, w, bi
 
 
-def member_trn(n, b, s, gen):
-    """N members' TRN inputs at the flagship widths (x of both signs)."""
-    return member_stacks([trn_inputs(b, s, 512, 256, gen, signed=True)
-                          for _ in range(n)])
+def member_trn(n, b, s, gen, dtype=torch.float32):
+    """N members' TRN inputs at the flagship widths (x of both signs), in
+    ``dtype``."""
+    x, w, bi = member_stacks([trn_inputs(b, s, 512, 256, gen, signed=True)
+                              for _ in range(n)])
+    return x.to(dtype), [t.to(dtype) for t in w], [t.to(dtype) for t in bi]
 
 
 def solo(t, k):
     return [w[k] for w in t]
 
 
-def check_member_trn(gen):
-    """The member-batched K1 (infer, train) and K2 against N solo launches
-    on the members' inputs, bitwise, and against the plain version within
-    RTOL, at MEMBER_TRN_CASES; each call one launch.  The worst errors
-    against plain."""
-    worst = dict.fromkeys(("trn_fused_fwd_members",
-                           "trn_fused_fwd_train_members",
-                           "trn_fused_bwd_members"), 0.0)
+def member_counts(bf16=False):
+    """The launches of the member-batched kernels of one dtype by their
+    base names: the float32 kernels' counts(), or the bfloat16 ones' (K3
+    at bfloat16 compute from any store as one, gather_gemm_bf16)."""
+    if not bf16:
+        return counts()
+    c = bf16_counts()
+    return {"trn_fused_fwd_bf16": c["trn_fused_fwd_bf16"],
+            "trn_fused_fwd_train_bf16": c["trn_fused_fwd_train_bf16"],
+            "trn_fused_bwd_bf16": c["trn_fused_bwd_bf16"],
+            "gather_gemm_bf16": sum(c[f"gather_gemm_{s}_bf16"]
+                                    for s in ("f32", "bf16", "int8"))}
+
+
+def check_launched(what, want, bf16=False):
+    """Raise unless the member-batched kernels of the path's dtype launched
+    as ``want`` says (by base name, 0 where missing) and those of the other
+    dtype not at all; return the path's counts."""
+    got = member_counts(bf16)
+    if got != {k: want.get(k, 0) for k in got} or any(
+            member_counts(not bf16).values()):
+        raise AssertionError(f"{what} launched {got}, "
+                             f"{member_counts(not bf16)}")
+    return got
+
+
+def kernel_err(got, want, bf16=False):
+    """The largest |kernel - plain| and whether it is within the kernel's
+    tolerance: RTOL * max(1, max|plain|) in float32, bf16_err in
+    bfloat16."""
+    if not bf16:
+        err = (got - want).abs().max().item() if want.numel() else 0.0
+        return err, err <= RTOL * max(1.0, want.abs().max().item()
+                                      if want.numel() else 0.0)
+    return bf16_err(got, want)
+
+
+def check_member_trn(gen, bf16=False):
+    """The member-batched K1 (infer, train) and K2 of one dtype against N
+    solo launches on the members' inputs, bitwise, and against the plain
+    version (kernel_err), at MEMBER_TRN_CASES; each call one launch.  The
+    worst errors against plain."""
+    sfx = "_bf16" if bf16 else ""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    worst = dict.fromkeys((f"trn_fused_fwd{sfx}_members",
+                           f"trn_fused_fwd_train{sfx}_members",
+                           f"trn_fused_bwd{sfx}_members"), 0.0)
     with torch.no_grad():
         for n, b, s in MEMBER_TRN_CASES:
-            x, w, bi = member_trn(n, b, s, gen)
-            g = torch.randn((n, b, s - 1, 256), generator=gen).cuda()
+            x, w, bi = member_trn(n, b, s, gen, dt)
+            g = torch.randn((n, b, s - 1, 256), generator=gen).cuda().to(dt)
             reset_counts()
             out = trn_fused.trn_multiscale_infer_members(x, w, bi, s)
             tout, masks = trn_fused.trn_multiscale_fwd_masks_members(
@@ -3325,9 +3387,9 @@ def check_member_trn(gen):
             dx, dws, dbs = trn_fused.trn_multiscale_bwd_members(
                 x, w, masks, g, s)
             torch.cuda.synchronize()
-            if counts() != {"trn_fused_fwd": 1, "trn_fused_fwd_train": 1,
-                            "trn_fused_bwd": 1, "gather_gemm": 0}:
-                raise AssertionError(f"member TRN launches {counts()}")
+            check_launched("member TRN", {f"trn_fused_fwd{sfx}": 1,
+                                          f"trn_fused_fwd_train{sfx}": 1,
+                                          f"trn_fused_bwd{sfx}": 1}, bf16)
             same, errs = [], [0.0, 0.0, 0.0]
             for k in range(n):
                 so = trn_fused.trn_multiscale_infer(x[k], solo(w, k),
@@ -3349,12 +3411,11 @@ def check_member_trn(gen):
                         (out[k], plain), (tout[k], plain), (dx[k], pdx),
                         *((a[k], c) for a, c in zip(dws, pdw)),
                         *((a[k], c) for a, c in zip(dbs, pdb)))):
-                    err = (got - want).abs().max().item()
-                    tol = RTOL * max(1.0, want.abs().max().item())
-                    if not err <= tol:
+                    err, ok = kernel_err(got, want, bf16)
+                    if not ok:
                         raise AssertionError(
                             f"member TRN output {j} differs from plain at "
-                            f"N={n} B={b} S={s}: {err} > {tol}")
+                            f"N={n} B={b} S={s}: {err}")
                     errs[min(j, 2)] = max(errs[min(j, 2)], err)
             log(f"  N={n} B={b} S={s}: K1 (infer), K1 (train) with its "
                 f"masks and K2's dx, dW, db bitwise equal to {n} solo "
@@ -3368,13 +3429,15 @@ def check_member_trn(gen):
     return worst
 
 
-def member_gather_case(n, rows, store, per_member, rng):
-    """N members' weights [N, 512, 2048], their indices (one set for all
-    or one each) and scales."""
-    h, d = FLAGSHIP.fc_dim, store.shape[1]
+def member_gather_case(n, rows, store, per_member, rng,
+                       dtype=torch.float32):
+    """N members' weights [N, 512, 2048] in ``dtype``, their indices (one
+    set for all or one each) and scales."""
+    h, d = FLAGSHIP.fc_dim, (store[0] if isinstance(store, tuple)
+                             else store).shape[1]
     w = (torch.from_numpy(rng.uniform(-1, 1, (n, h, d)).astype(np.float32))
-         / math.sqrt(d)).cuda()
-    sets = [gather_case(rows, store.shape[0], rng)
+         / math.sqrt(d)).cuda().to(dtype)
+    sets = [gather_case(rows, store_rows(store), rng)
             for _ in range(n if per_member else 1)]
     if per_member:
         idx = gather_gemm.RowIndex(torch.stack([r.rows for r, _ in sets]),
@@ -3385,20 +3448,31 @@ def member_gather_case(n, rows, store, per_member, rng):
     return w, idx, scale, sets
 
 
-def check_member_gather(store):
-    """K3 over N members, shared and per-member indices, at
-    MEMBER_K3_CASES: z bitwise N solo launches and within RTOL of plain,
-    x_res bitwise; one launch a call.  The worst error against plain."""
+def check_member_gather(stores, bf16=False):
+    """K3 over N members, shared and per-member indices: z bitwise N solo
+    launches and within kernel_err of plain, x_res bitwise; one launch a
+    call.  At float32 compute from the float32 store at
+    MEMBER_K3_CASES; at bfloat16 compute from each store dtype at
+    BF16_MEMBER_K3_CASES and the train rows.  The worst error against
+    plain."""
     rng = np.random.default_rng(7)
+    compute = "bf16" if bf16 else "f32"
+    cases = ([(kind, n, 640, pm) for kind in ("f32", "bf16", "int8")
+              for n, pm in BF16_MEMBER_K3_CASES] if bf16 else
+             [("f32", n, rows, pm) for n, rows, pm in MEMBER_K3_CASES])
     worst = 0.0
-    for n, rows, per_member in MEMBER_K3_CASES:
-        w, idx, scale, sets = member_gather_case(n, rows, store, per_member,
-                                                 rng)
+    for kind, n, rows, per_member in cases:
+        store = stores[kind]
+        w, idx, scale, sets = member_gather_case(
+            n, rows, store, per_member, rng,
+            torch.bfloat16 if bf16 else torch.float32)
         reset_counts()
         z, x_res = gather_gemm.gathered_gemm_members(store, idx, w, scale)
         torch.cuda.synchronize()
-        if gather_gemm.launches != 1:
-            raise AssertionError("member K3 launched more than once")
+        if gather_gemm.variant_launches[f"{kind}_{compute}"] != 1 or sum(
+                gather_gemm.variant_launches.values()) != 1:
+            raise AssertionError(f"member K3 launched "
+                                 f"{gather_gemm.variant_launches}")
         same, err = [], 0.0
         for k in range(n):
             rk, sk = sets[k if per_member else 0]
@@ -3406,36 +3480,42 @@ def check_member_gather(store):
             pz, _ = gather_gemm.gathered_gemm_plain(store, rk.rows, w[k], sk)
             got_x = x_res[k] if per_member else x_res
             same.append(torch.equal(z[k], sz) and torch.equal(got_x, sx))
-            e = (z[k] - pz).abs().max().item()
-            if not e <= RTOL * max(1.0, pz.abs().max().item()):
+            e, ok = kernel_err(z[k], pz, bf16)
+            if not ok:
                 raise AssertionError(f"member K3 differs from plain at "
-                                     f"N={n} rows={rows}: {e}")
+                                     f"N={n} rows={rows} ({kind} store): "
+                                     f"{e}")
             err = max(err, e)
-        log(f"  K3 N={n} rows={rows} "
+        log(f"  K3 {kind}_{compute} N={n} rows={rows} "
             f"{'per-member' if per_member else 'shared'} indices: z and "
             f"x_res bitwise equal to {n} solo launches: {all(same)}; "
             f"max|kernel-plain| {err:.2e}; one launch")
         if not all(same):
             raise AssertionError(f"member K3 differs from solo launches at "
-                                 f"N={n} rows={rows}")
+                                 f"N={n} rows={rows} ({kind} store)")
         worst = max(worst, err)
     return worst
 
 
-def time_members(gen, store):
-    """Device times of each member-batched kernel at N = 1, 4 and 8
-    against N solo launches and the plain version member by member, in
-    turns (K1 (infer) at B=64, K1 (train) and K2 at B=202, K3 at the train
-    shape, 640 rows with x_res, from one index set); and, for K3,
-    index_select + matmul over the stacked weights.  {name: {N: (times,
-    work)}}."""
-    out = {k: {} for k in ("trn_fused_fwd_members",
-                           "trn_fused_fwd_train_members",
-                           "trn_fused_bwd_members", "gather_gemm_members")}
+def time_members(gen, store, bf16=False):
+    """Device times of each member-batched kernel of one dtype at N = 1, 4
+    and 8 against N solo launches and the plain version member by member,
+    in turns (K1 (infer) at B=64, K1 (train) and K2 at B=202, K3 at the
+    train shape, 640 rows with x_res, from one index set of ``store``: the
+    float32 store at float32 compute, the bfloat16 one at bfloat16); and,
+    for K3, index_select + matmul over the stacked weights (in the compute
+    dtype).  {name: {N: (times, work)}}."""
+    sfx = "_bf16" if bf16 else ""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    esize = 2 if bf16 else 4
+    out = {f"{k}{sfx}_members": {} for k in (
+        "trn_fused_fwd", "trn_fused_fwd_train", "trn_fused_bwd",
+        "gather_gemm")}
+    names = list(out)
     rng = np.random.default_rng(9)
     with torch.no_grad():
         for n in MEMBER_TIMED:
-            x, w, bi = member_trn(n, SERVE_BATCH, 5, gen)
+            x, w, bi = member_trn(n, SERVE_BATCH, 5, gen, dt)
             t = time_pair({
                 "kernel": lambda: trn_fused.trn_multiscale_infer_members(
                     x, w, bi, 5),
@@ -3444,14 +3524,15 @@ def time_members(gen, store):
                 "plain": lambda: [trn_fused.trn_multiscale_plain(
                     x[k], solo(w, k), solo(bi, k), 5) for k in range(n)]},
                 runs=21)
-            flops, nbytes = trn_work(SERVE_BATCH)["trn_fused_fwd"]
-            out["trn_fused_fwd_members"][n] = (t, (n * flops, n * nbytes))
+            flops, nbytes = trn_work(SERVE_BATCH,
+                                     esize=esize)["trn_fused_fwd"]
+            out[names[0]][n] = (t, (n * flops, n * nbytes))
             b = sum(TRAIN.batch_size[:2])
-            x, w, bi = member_trn(n, b, 5, gen)
-            g = torch.randn((n, b, 4, 256), generator=gen).cuda()
+            x, w, bi = member_trn(n, b, 5, gen, dt)
+            g = torch.randn((n, b, 4, 256), generator=gen).cuda().to(dt)
             _, masks = trn_fused.trn_multiscale_fwd_masks_members(x, w, bi,
                                                                   5)
-            work = trn_work(b)
+            work = trn_work(b, esize=esize)
             t = time_pair({
                 "kernel": lambda: trn_fused.trn_multiscale_fwd_masks_members(
                     x, w, bi, 5),
@@ -3461,7 +3542,7 @@ def time_members(gen, store):
                     x[k], solo(w, k), solo(bi, k), 5) for k in range(n)]},
                 runs=21)
             f, nb = work["trn_fused_fwd_train"]
-            out["trn_fused_fwd_train_members"][n] = (t, (n * f, n * nb))
+            out[names[1]][n] = (t, (n * f, n * nb))
             t = time_pair({
                 "kernel": lambda: trn_fused.trn_multiscale_bwd_members(
                     x, w, masks, g, 5),
@@ -3471,10 +3552,10 @@ def time_members(gen, store):
                     x[k], solo(w, k), masks[k], g[k], 5) for k in range(n)]},
                 runs=21)
             f, nb = work["trn_fused_bwd"]
-            out["trn_fused_bwd_members"][n] = (t, (n * f, n * nb))
+            out[names[2]][n] = (t, (n * f, n * nb))
             rows = K3_TIMED[0][0]
             w, idx, scale, sets = member_gather_case(n, rows, store, False,
-                                                     rng)
+                                                     rng, dt)
             t = time_pair({
                 "kernel": lambda: gather_gemm.gathered_gemm_members(
                     store, idx, w, scale),
@@ -3485,14 +3566,15 @@ def time_members(gen, store):
                 "library": lambda: torch.matmul(
                     store.index_select(0, idx.rows), w.transpose(1, 2))},
                 runs=21)
-            f, nb = gather_work(idx, store.shape[1], FLAGSHIP.fc_dim, True)
             d, h = store.shape[1], FLAGSHIP.fc_dim
+            f, nb = gather_work(idx, d, h, True, store_size=esize,
+                                compute_size=esize)
             # N weights and N outputs; the rows and x_res once
-            nb += (n - 1) * 4 * (h * d + rows * h)
-            out["gather_gemm_members"][n] = (t, (n * f, nb))
+            nb += (n - 1) * esize * (h * d + rows * h)
+            out[names[3]][n] = (t, (n * f, nb))
     for name, by_n in out.items():
         for n, (t, work) in by_n.items():
-            least, by = bound(*work, PEAK_TF32 / 3)
+            least, by = bound(*work, PEAK_BF16 if bf16 else PEAK_TF32 / 3)
             log(f"  {name} N={n}: kernel {t['kernel']:.4f} ms, {n} solo "
                 f"launches {t['solo']:.4f} ms, plain {t['plain']:.4f} ms"
                 + (f", index_select + matmul {t['library']:.4f} ms"
@@ -3502,11 +3584,11 @@ def time_members(gen, store):
     return out
 
 
-def ensemble_models(seeds, dropout=0.0):
-    """The members: flagship models redrawn at torch's default scale, each
-    from its seed."""
-    return [flagship_model(torch.Generator().manual_seed(s), dropout)
-            for s in seeds]
+def ensemble_models(seeds, dropout=0.0, **fields):
+    """The members: flagship models (or with other model ``fields``)
+    redrawn at torch's default scale, each from its seed."""
+    return [flagship_model(torch.Generator().manual_seed(s), dropout,
+                           **fields) for s in seeds]
 
 
 def member_scalars(i, total, lrs):
@@ -3533,26 +3615,38 @@ def record_member_trn():
     return rec, recording, original
 
 
-def train_ensemble(stores, dev):
+def dtype_fields(bf16):
+    return {"compute_dtype": "bfloat16"} if bf16 else {}
+
+
+def train_ensemble(stores, dev, bf16=False):
     """ENSEMBLE_STEPS device-store steps of ENSEMBLE_SEEDS members (two
-    lrs), dropout 0: each step launches K3 2x, K1 (train) 1x and K2 1x
-    with no vmap fallback, and each member's updated parameters are held to
-    its solo step from the same start (extract_member) on the same batch,
-    at STEP_RTOL and PARAM_TOL but for rows fed by a relu mask flipped at a
-    rounding tie (tie_rows, the ensemble side's TRN record taken from the
-    member-batched kernel's inputs).  Returns the launches and the count of
-    vmap fallbacks."""
+    lrs), dropout 0, from the stores ``dev`` (float32; at bfloat16
+    compute int8): each step launches K3 2x, K1 (train) 1x and K2 1x of
+    the compute dtype with no vmap fallback, and each member's updated
+    parameters are held to its solo step from the same start
+    (extract_member) on the same batch: in float32 at STEP_RTOL and
+    PARAM_TOL, in bfloat16 by the bfloat16 steps' rule (BF16_STEP_RTOL,
+    check_updates), but for rows fed by a relu mask flipped at a rounding
+    tie (tie_rows, the ensemble side's TRN record taken from the
+    member-batched kernel's inputs).  Returns the launches and the count
+    of vmap fallbacks."""
     import warnings
 
     n = len(ENSEMBLE_SEEDS)
-    ens = stack_members(ensemble_models(ENSEMBLE_SEEDS), TRAIN)
+    ens = stack_members(ensemble_models(ENSEMBLE_SEEDS, **dtype_fields(bf16)),
+                        TRAIN)
     step = make_ensemble_step(ens.model, DA, TRAIN, gather_on_device=True)
     gens = ensemble_generators(ENSEMBLE_SEEDS, "cuda")
     ls, lt = store_loaders(stores)
     batches = zip(endless(ls.index_epoch), endless(lt.index_epoch))
     rec, recording, original = record_member_trn()
-    launches = dict.fromkeys(counts(), 0)
+    sfx = "_bf16" if bf16 else ""
+    per_step = {f"trn_fused_fwd_train{sfx}": 1, f"trn_fused_bwd{sfx}": 1,
+                f"gather_gemm{sfx}": 2}
+    launches = dict.fromkeys(member_counts(bf16), 0)
     fallbacks, worst_rel, worst, ties = 0, 0.0, 0.0, 0
+    tie_rtol = BF16_TIE_RTOL if bf16 else RTOL
     for i in range(ENSEMBLE_STEPS):
         bs, bt = next(batches)
         sc = member_scalars(i, ENSEMBLE_STEPS, ENSEMBLE_LRS)
@@ -3564,16 +3658,15 @@ def train_ensemble(stores, dev):
                 reset_counts()
                 ens, got = step(ens, dev[0], *bs, dev[1], *bt, sc, gens)
                 torch.cuda.synchronize()
-                launched = counts()
+                launched = check_launched(f"ensemble step {i}", per_step,
+                                          bf16)
         finally:
             trn_fused.trn_multiscale_fwd_masks_members = original
         fallbacks += sum("performance drop" in str(w.message)
                          for w in caught)
-        if launched != {"trn_fused_fwd": 0, "trn_fused_fwd_train": 1,
-                        "trn_fused_bwd": 1, "gather_gemm": 2}:
-            raise AssertionError(f"ensemble step {i} launched {launched}")
         launches = {k: launches[k] + launched[k] for k in launches}
         for k, st in enumerate(solos):
+            before = {key: v.clone() for key, v in named(st.model).items()}
             ref_rec, hook = record_trn(st.model)
             solo_step = make_train_step(st.model, DA, TRAIN,
                                         gather_on_device=True)
@@ -3583,34 +3676,44 @@ def train_ensemble(stores, dev):
             ours = {"x": rec["x"][k], "masks": rec["masks"][k]}
             ours["z"] = preacts(ours["x"], solo(rec["weights"], k),
                                 solo(rec["biases"], k), 5)
-            allowed, _ = tie_rows(ours, ref_rec)
+            allowed, _ = tie_rows(ours, ref_rec, tie_rtol)
             member = extract_member(ens, k, TRAIN).model
             worst_rel = max(worst_rel, check_metrics(
                 i, {key: float(v[k]) for key, v in got.items()},
                 {key: float(v) for key, v in want.items()},
-                f"member {k}'s solo step"))
-            diff, let = check_params(i, member, st.model,
-                                     f"member {k}'s solo step", allowed)
+                f"member {k}'s solo step",
+                *((BF16_STEP_RTOL, 1e-6) if bf16 else ())))
+            if bf16:
+                diff, let = check_updates(i, member, st.model, before,
+                                          allowed)
+            else:
+                diff, let = check_params(i, member, st.model,
+                                         f"member {k}'s solo step", allowed)
             worst, ties = max(worst, diff), ties + let
         log(f"  step {i}: losses {[round(float(v), 5) for v in got['loss']]}"
             f", launched {launched}, vmap fallbacks so far {fallbacks}")
+    held = (f"each tensor's update within {worst:.3e} of its largest "
+            f"(tolerance {BF16_UPDATE_RTOL}" if bf16 else
+            f"parameters within {worst:.3e} (rtol {PARAM_TOL['rtol']}, "
+            f"atol {PARAM_TOL['atol']}")
     log(f"  {n} members x {ENSEMBLE_STEPS} steps, each member against its "
         f"solo step from the same start: metrics within {worst_rel:.3e} "
-        f"relative (tolerance {STEP_RTOL}), parameters within {worst:.3e} "
-        f"(rtol {PARAM_TOL['rtol']}, atol {PARAM_TOL['atol']}; {ties} rows "
-        f"let through); vmap fallbacks {fallbacks}; launches {launches}")
+        f"relative (tolerance {BF16_STEP_RTOL if bf16 else STEP_RTOL}), "
+        f"{held}; {ties} rows let through); vmap fallbacks {fallbacks}; "
+        f"launches {launches}")
     if fallbacks:
         raise AssertionError(f"{fallbacks} vmap fallbacks in the flagship "
                              "ensemble step")
     return launches, fallbacks
 
 
-def time_ensemble_step(stores, dev, warmup=3):
+def time_ensemble_step(stores, dev, bf16=False):
     """ms per ensemble step of ENSEMBLE_SEEDS members against as many solo
     steps (one after another, one model each), dropout 0.5, in turns; the
     device's busy time and idle share of each under the profiler."""
     n = len(ENSEMBLE_SEEDS)
-    models = ensemble_models(ENSEMBLE_SEEDS, dropout=0.5)
+    models = ensemble_models(ENSEMBLE_SEEDS, dropout=0.5,
+                             **dtype_fields(bf16))
     ens = stack_members(models, TRAIN)
     estep = make_ensemble_step(ens.model, DA, TRAIN, gather_on_device=True)
     gens = ensemble_generators(ENSEMBLE_SEEDS, "cuda")
@@ -3641,17 +3744,18 @@ def time_ensemble_step(stores, dev, warmup=3):
         return (time.perf_counter() - t0) * 1e3 / steps
 
     for name in ("ensemble", "solo"):
-        run(name, warmup)
+        run(name, 3)
     times = {"ensemble": [], "solo": []}
     for order in (("solo", "ensemble"), ("ensemble", "solo"),
                   ("solo", "ensemble")):
         for name in order:
             times[name].append(run(name, ENSEMBLE_TIMED))
     result = {}
+    kind = "bfloat16 " if bf16 else ""
     for name, t in times.items():
         ms = statistics.median(t)
-        label = (f"ensemble steps of {n} members" if name == "ensemble"
-                 else f"rounds of {n} solo steps")
+        label = (f"{kind}ensemble steps of {n} members" if name == "ensemble"
+                 else f"rounds of {n} solo {kind}steps")
         log(f"  {label}: {ms:.3f} ms each ({ENSEMBLE_TIMED} back to back, "
             f"median of {len(t)}, in turns)")
         busy, idle = device_profile(lambda s: run(name, s), 3, ms, label)
@@ -3659,57 +3763,62 @@ def time_ensemble_step(stores, dev, warmup=3):
     return result
 
 
-def eval_ensemble(stores, val_dev):
+def eval_ensemble(stores, val_dev, bf16=False):
     """One val batch of CLI_BATCH videos through the ensemble eval step
-    from the store: K3 1x and K1 (infer) 1x for all members, each member's
-    logits within RTOL of its solo eval step's."""
+    from the store ``val_dev``: K3 1x and K1 (infer) 1x for all members,
+    each member's logits within kernel_err of its solo eval step's."""
     n = len(ENSEMBLE_SEEDS)
-    ens = stack_members(ensemble_models(ENSEMBLE_SEEDS), TRAIN)
+    ens = stack_members(ensemble_models(ENSEMBLE_SEEDS, **dtype_fields(bf16)),
+                        TRAIN)
     ev = make_ensemble_eval_step(ens.model, gather_on_device=True)
     lv = TSNLoader(stores[2], batch_size=CLI_BATCH,
                    num_segments=FLAGSHIP.val_segments, mode="test",
                    shuffle=False)
     b = next(iter(lv.index_epoch()))
+    sfx = "_bf16" if bf16 else ""
     reset_counts()
     m = ev(ens, val_dev, b.abs_indices, b.labels, b.mask)
     torch.cuda.synchronize()
-    launched = counts()
-    if launched != {"trn_fused_fwd": 1, "trn_fused_fwd_train": 0,
-                    "trn_fused_bwd": 0, "gather_gemm": 1}:
-        raise AssertionError(f"ensemble val batch launched {launched}")
-    err = 0.0
+    launched = check_launched("ensemble val batch",
+                              {f"trn_fused_fwd{sfx}": 1,
+                               f"gather_gemm{sfx}": 1}, bf16)
+    worst = 0.0
     for k in range(n):
         member = extract_member(ens, k, TRAIN).model
         want = make_eval_step(member, gather_on_device=True)(
             val_dev, b.abs_indices, b.labels, b.mask)["logits"]
-        e = (m["logits"][k] - want).abs().max().item()
-        if not e <= RTOL * max(1.0, want.abs().max().item()):
+        err, ok = kernel_err(m["logits"][k], want, bf16)
+        if not ok:
             raise AssertionError(f"member {k}'s ensemble eval logits differ "
-                                 f"from its solo eval: {e}")
-        err = max(err, e)
+                                 f"from its solo eval: {err}")
+        worst = max(worst, err)
     log(f"  one val batch of {CLI_BATCH} videos, {n} members: launched "
-        f"{launched}; each member's logits within {err:.2e} of its solo "
+        f"{launched}; each member's logits within {worst:.2e} of its solo "
         "eval step")
     return launched
 
 
-def serve_ensemble(workdir):
+def serve_ensemble(workdir, bf16=False):
     """A sweep directory of the members' checkpoints served over HTTP by
     Predictor.from_sweep: K1 (infer) once a chunk for every member, and
     the averaged probabilities equal to the mean of the members' solo
-    Predictors' within PROB_TOL."""
+    Predictors' within PROB_TOL (in bfloat16 BF16_PROB_TOL: the logits an
+    ulp or two apart where the members' products sum in other orders)."""
+    cfg = BF16_FLAGSHIP if bf16 else FLAGSHIP
+    tol = BF16_PROB_TOL if bf16 else PROB_TOL
     sweep = os.path.join(workdir, "sweep")
-    for k, model in enumerate(ensemble_models(ENSEMBLE_SEEDS)):
+    for k, model in enumerate(ensemble_models(ENSEMBLE_SEEDS,
+                                              **dtype_fields(bf16))):
         save_checkpoint(os.path.join(sweep, f"member_{k:02d}"), {
             "epoch": 1, "arch": "resnet101", "best_prec1": 0.0,
             "prec1": 0.0, "state_dict": {
                 f"module.{key}": v for key, v in
                 export_reference_state(model).items()}})
-    predictor = Predictor.from_sweep(sweep, FLAGSHIP, device="cuda",
+    predictor = Predictor.from_sweep(sweep, cfg, device="cuda",
                                      batch_size=SERVE_BATCH)
     solos = [Predictor.from_checkpoint(
         os.path.join(sweep, f"member_{k:02d}", "checkpoint.pth.tar"),
-        FLAGSHIP, device="cuda", batch_size=SERVE_BATCH)
+        cfg, device="cuda", batch_size=SERVE_BATCH)
         for k in range(len(ENSEMBLE_SEEDS))]
     rng = np.random.default_rng(1)
     requests = [rng.random((n, 5, FLAGSHIP.input_feature_dim), np.float32)
@@ -3730,15 +3839,15 @@ def serve_ensemble(workdir):
                 log(f"  POST /predict ({label}), {feats.shape[0]} videos, "
                     f"{predictor.n_members} members: "
                     f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-        launches = counts()
+        chunks = sum(-(-n // SERVE_BATCH) for n in REQUEST_SIZES)
+        launches = check_launched(
+            "ensemble serving",
+            {"trn_fused_fwd_bf16" if bf16 else "trn_fused_fwd": chunks},
+            bf16)
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    chunks = sum(-(-n // SERVE_BATCH) for n in REQUEST_SIZES)
-    if launches != {"trn_fused_fwd": chunks, "trn_fused_fwd_train": 0,
-                    "trn_fused_bwd": 0, "gather_gemm": 0}:
-        raise AssertionError(f"ensemble serving launched {launches}")
     for feats, ans in zip(requests, answers):
         probs, top_p, top_i = predictor(feats)
         mean = np.mean([p(feats)[0] for p in solos], axis=0)
@@ -3747,31 +3856,35 @@ def serve_ensemble(workdir):
         log(f"  {feats.shape[0]} videos: |averaged - mean of solo "
             f"Predictors| = {err:.2e}; served top-5 probabilities within "
             f"{np.abs(np.asarray(ans['top_probs']) - top).max():.2e}")
-        if not err <= PROB_TOL or not np.allclose(
-                np.asarray(ans["top_probs"]), top, atol=PROB_TOL):
+        if not err <= tol or not np.allclose(
+                np.asarray(ans["top_probs"]), top, atol=tol):
             raise AssertionError("ensemble probabilities differ from the "
                                  "mean of the members' solo Predictors")
     return launches
 
 
-def sweep_cli(root):
+def sweep_cli(root, bf16=False):
     """cli.sweep on the stores of the published split sizes: 1 epoch, 2
-    seeds x 2 lrs, one JSON line per member and a summary; then the eval
-    CLI on member 0's checkpoint, whose Pred@1 must be the member's
-    reported top-1."""
-    out_dir = os.path.join(root, "sweep_cli")
+    seeds x 2 lrs, one JSON line per member and a summary (at bfloat16
+    compute from int8 stores: --compute_dtype bfloat16 --store_dtype
+    int8); then the eval CLI, with the same dtypes, on member 0's
+    checkpoint, whose Pred@1 must be the member's reported top-1."""
+    dtypes = (["--compute_dtype", "bfloat16", "--store_dtype", "int8"]
+              if bf16 else [])
+    out_dir = os.path.join(root, "sweep_cli_bf16" if bf16 else "sweep_cli")
     argv = [os.path.join(root, "class.txt"), "RGB",
             os.path.join(root, "src", "list.txt"),
             os.path.join(root, "tgt", "list.txt"),
             os.path.join(root, "val", "list.txt"),
             "--exp_path", os.path.join(root, "sweep_exp") + "/",
             *MODEL_FLAGS, *RECIPE_FLAGS, "--epochs", "1", "--sweep_seeds",
-            "0", "1", "--sweep_lrs", "0.03", "0.01", "--sweep_dir", out_dir]
+            "0", "1", "--sweep_lrs", "0.03", "0.01", "--sweep_dir", out_dir,
+            *dtypes]
     reset_counts()
     t0 = time.perf_counter()
     result, text = run_cli(cli_sweep.main, argv)
     seconds = time.perf_counter() - t0
-    launched = counts()
+    launched = check_launched("the sweep CLI", member_counts(bf16), bf16)
     lines = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
     for line in lines:
         log(f"  {json.dumps(line)}")
@@ -3779,11 +3892,12 @@ def sweep_cli(root):
     if len(rows) != 4 or len(lines) != 5 or any(
             r["final_loss"] is None for r in rows):
         raise AssertionError("the sweep CLI did not train 4 members")
-    log(f"  cli.sweep: 4 members, 1 epoch, {seconds:.1f} s with the build "
-        f"of its steps and its validation; launches {launched}")
+    log(f"  cli.sweep {' '.join(dtypes)}: 4 members, 1 epoch, "
+        f"{seconds:.1f} s with the build of its steps and its validation; "
+        f"launches {launched}")
     _, text = run_cli(cli_test_models.main, eval_cli_args(
         root, os.path.join(out_dir, "member_00", "checkpoint.pth.tar"),
-        "--device_store"))
+        "--device_store", *dtypes))
     want = f"Pred@1 {rows[0]['top1']:.2f}%"
     log(f"  eval CLI on member_00: {text.strip().splitlines()[-1][:100]}")
     if want not in text:
@@ -3792,39 +3906,51 @@ def sweep_cli(root):
     return launched
 
 
-def ensemble_phase(gen, stores, dev, root):
-    """The ensemble slice: the member-batched kernels against N solo
-    launches, then each path with the counts set to 0 just before it and
-    read just after.  Returns (launches of the member-batched kernels on
-    the paths, their worst errors against plain, their times)."""
-    log("member-batched K1 (infer, train) and K2 against N solo launches")
-    errs = check_member_trn(gen)
-    log("member-batched K3 against N solo launches")
-    errs["gather_gemm_members"] = check_member_gather(dev[0])
-    log(f"member-batched kernel times at N = {MEMBER_TIMED} ({card_line()})")
-    times = time_members(gen, dev[0])
-    log(f"ensemble of {len(ENSEMBLE_SEEDS)} members (seeds "
+def ensemble_phase(gen, stores, dev, root, bf16=False):
+    """The ensemble slice at one compute dtype: the member-batched kernels
+    against N solo launches, then each path with the counts set to 0 just
+    before it and read just after (at bfloat16 compute from int8 stores,
+    as the bfloat16 steps' users run them).  Returns (launches of the
+    member-batched kernels on the paths, their worst errors against plain,
+    their times, the ensemble step's times)."""
+    kind = "bfloat16" if bf16 else "float32"
+    log(f"member-batched K1 (infer, train) and K2 in {kind} against N solo "
+        "launches")
+    errs = check_member_trn(gen, bf16)
+    log(f"member-batched K3 at {kind} compute against N solo launches")
+    k3_stores = (narrow_stores(dev[0], stores[0]) if bf16
+                 else {"f32": dev[0]})
+    errs[f"gather_gemm{'_bf16' if bf16 else ''}_members"] = \
+        check_member_gather(k3_stores, bf16)
+    log(f"member-batched {kind} kernel times at N = {MEMBER_TIMED} "
+        f"({card_line()})")
+    times = time_members(gen, k3_stores["bf16" if bf16 else "f32"], bf16)
+    del k3_stores
+    path_dev = ([st.to_device("cuda", "int8") for st in stores] if bf16
+                else dev)
+    log(f"{kind} ensemble of {len(ENSEMBLE_SEEDS)} members (seeds "
         f"{ENSEMBLE_SEEDS}, lrs {ENSEMBLE_LRS}), {TRAIN.batch_size[0]} + "
-        f"{TRAIN.batch_size[1]} videos from the stores: against each "
-        "member's solo step")
-    launches = dict.fromkeys(counts(), 0)
+        f"{TRAIN.batch_size[1]} videos from the {'int8 ' if bf16 else ''}"
+        "stores: against each member's solo step")
+    launches = dict.fromkeys(member_counts(bf16), 0)
 
     def add(got):
         for key, v in got.items():
             launches[key] += v
 
-    steps, _ = train_ensemble(stores, dev)
+    steps, _ = train_ensemble(stores, path_dev, bf16)
     add(steps)
-    log(f"ensemble step timing ({card_line()})")
-    step_t = time_ensemble_step(stores, dev)
-    log("ensemble eval: one val batch")
-    add(eval_ensemble(stores, dev[2]))
-    log("deep-ensemble serving over HTTP (Predictor.from_sweep)")
+    log(f"{kind} ensemble step timing ({card_line()})")
+    step_t = time_ensemble_step(stores, path_dev, bf16)
+    log(f"{kind} ensemble eval: one val batch")
+    add(eval_ensemble(stores, path_dev[2], bf16))
+    log(f"{kind} deep-ensemble serving over HTTP (Predictor.from_sweep)")
     with tempfile.TemporaryDirectory() as workdir:
-        add(serve_ensemble(workdir))
-    log("the sweep CLI for one epoch, then the eval CLI on a member")
-    add(sweep_cli(root))
-    log(f"member-batched launches on the ensemble paths: {launches}")
+        add(serve_ensemble(workdir, bf16))
+    log(f"the sweep CLI for one epoch at {kind} compute, then the eval CLI "
+        "on a member")
+    add(sweep_cli(root, bf16))
+    log(f"member-batched {kind} launches on the ensemble paths: {launches}")
     return launches, errs, times, step_t
 
 
@@ -3991,6 +4117,16 @@ def main() -> int:
         member_launches, member_errs, member_t, ens_t = ensemble_phase(
             gen, stores, dev, root)
         log(f"ensembles: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log("bfloat16 ensembles: the bfloat16 member-batched kernels, the "
+            "bfloat16 flagship ensemble's steps from int8 stores, eval, "
+            "serving and the sweep CLI")
+        got = ensemble_phase(gen, stores, dev, root, bf16=True)
+        for mine, theirs in zip((member_launches, member_errs, member_t),
+                                got):
+            mine.update(theirs)
+        ens16_t = got[3]
+        log(f"bfloat16 ensembles: {time.perf_counter() - t0:.1f} s")
         log(card_line())
 
     # the shapes each kernel runs at on its path: serving batch, train batch
@@ -4089,18 +4225,21 @@ def main() -> int:
                         f"b{b}_bound_ms": bound(*trn_work(b, esize=2)[
                             "trn_fused_fwd"], peak)[0]})
         kernels.append(entry)
-    # the member-batched kernels (the float32 kernels' member grid axis):
-    # their launches on the ensemble paths, times at N = 4 members with
-    # N = 1 and 8 beside, each against N solo launches
+    # the member-batched kernels (the member grid axis of the float32 and
+    # the bfloat16 kernels): their launches on the ensemble paths, times at
+    # N = 4 members with N = 1 and 8 beside, each against N solo launches
     for name, base in MEMBER_KERNELS.items():
         n_launch = member_launches[base]
         if n_launch < 1:
             raise AssertionError(f"{name} was not launched on its path")
         by_n = member_t[name]
         t4, work4 = by_n[4]
-        bound_ms, bound_by = bound(*work4, PEAK_OPS[base])
-        entry = {"name": name, "route": "cuda", "source": sources[base][0],
-                 "replaces": sources[base][1], "launches": n_launch,
+        peak = PEAK_BF16 if base.endswith("bf16") else PEAK_OPS[base]
+        bound_ms, bound_by = bound(*work4, peak)
+        source, replaces = sources[base.removesuffix("_bf16")]
+        entry = {"name": name, "route": "cuda",
+                 "source": WGMMA_SOURCES.get(base, source),
+                 "replaces": replaces, "launches": n_launch,
                  "max_abs_err": member_errs[name], "ms": t4["kernel"],
                  "plain_ms": t4["plain"], "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": t4.get("library"),
@@ -4111,8 +4250,7 @@ def main() -> int:
                 entry.update({f"n{n}_ms": t["kernel"],
                               f"n{n}_solo_ms": t["solo"],
                               f"n{n}_plain_ms": t["plain"],
-                              f"n{n}_bound_ms": bound(*work,
-                                                      PEAK_OPS[base])[0]})
+                              f"n{n}_bound_ms": bound(*work, peak)[0]})
                 if "library" in t:
                     entry[f"n{n}_library_ms"] = t["library"]
         kernels.append(entry)
@@ -4120,7 +4258,12 @@ def main() -> int:
         f"{ens_t['ensemble'][0]:.3f} ms (busy {ens_t['ensemble'][1]:.3f}, "
         f"idle {100 * ens_t['ensemble'][2]:.1f}%); {len(ENSEMBLE_SEEDS)} "
         f"solo steps: {ens_t['solo'][0]:.3f} ms (busy "
-        f"{ens_t['solo'][1]:.3f}, idle {100 * ens_t['solo'][2]:.1f}%)")
+        f"{ens_t['solo'][1]:.3f}, idle {100 * ens_t['solo'][2]:.1f}%); in "
+        f"bfloat16 from int8 stores {ens16_t['ensemble'][0]:.3f} ms (busy "
+        f"{ens16_t['ensemble'][1]:.3f}, idle "
+        f"{100 * ens16_t['ensemble'][2]:.1f}%) against "
+        f"{ens16_t['solo'][0]:.3f} ms (busy {ens16_t['solo'][1]:.3f}, idle "
+        f"{100 * ens16_t['solo'][2]:.1f}%)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

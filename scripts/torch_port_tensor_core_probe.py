@@ -904,21 +904,21 @@ K1_BF16_VARIANTS = {
   asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");
 """, ""),
         ("""  const int tid = threadIdx.x;
-  long long rest = blockIdx.x;""",
+  const int member = blockIdx.y;""",
          """  const int tid = threadIdx.x;
   asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");
-  long long rest = blockIdx.x;""")],
+  const int member = blockIdx.y;""")],
     "the epilogue launched after the GEMM": [
         ("  config.numAttrs = 1;\n", "  config.numAttrs = 0;\n")],
     "tensor maps prefetched": [
         ("""  const int tid = threadIdx.x;
-  long long rest = blockIdx.x;""",
+  const int member = blockIdx.y;""",
          """  const int tid = threadIdx.x;
   if (kVec && tid == ta3n::kConsumers)
     asm volatile("prefetch.tensormap [%0];" ::"l"(&maps.x) : "memory");
-  long long rest = blockIdx.x;"""),
-        ("""  const bf16* w_p = unit_w + static_cast<long long>(p) * d;
-""", """  const bf16* w_p = unit_w + static_cast<long long>(p) * d;
+  const int member = blockIdx.y;"""),
+        ("""      static_cast<long long>(p) * d;
+""", """      static_cast<long long>(p) * d;
   if (kVec && tid == ta3n::kConsumers)
     asm volatile("prefetch.tensormap [%0];" ::"l"(&maps.w.w[scale])
                  : "memory");

@@ -395,8 +395,8 @@ int launch_gather_gemm_bf16(const void* store, const void* qscale,
                             const void* idx, const void* scale,
                             const void* w, void* z, void* x_res, void* part,
                             long long m_rows, int streams, int d, int k_rows,
-                            int h, int splits, int store_kind,
-                            cudaStream_t stream);
+                            int h, int splits, int store_kind, int members,
+                            long long idx_stride, cudaStream_t stream);
 }  // namespace ta3n
 
 // store [rows*streams, d] of the element type store_kind (0 float32, 1
@@ -409,10 +409,9 @@ int launch_gather_gemm_bf16(const void* store, const void* qscale,
 // (1..8) K slices; with more than one, part is scratch of [splits, m, h]
 // f32, summed into z by a second kernel in a fixed order.  Compute kind 1
 // launches gather_gemm_bf16.cu's kernels.  An unknown kind is refused.
-// members (float32 compute; 1 for bfloat16, and for a solo call) stacked
-// members, one after
-// another in w [members, h, k_rows*d], z [members, m, h] and part
-// [members, splits, m, h]; with per_member_idx 0 they share idx and
+// members (1 for a solo call) stacked members, at either compute kind,
+// one after another in w [members, h, k_rows*d], z [members, m, h] and
+// part [members, splits, m, h]; with per_member_idx 0 they share idx and
 // scale, and x_res [m, k_rows*d] is written once; with 1, idx and scale
 // are [members, n_idx] and x_res [members, m, k_rows*d].  Each member's
 // blocks do the work of a one-member launch on its inputs.  Launches on
@@ -426,8 +425,7 @@ extern "C" int ta3n_gather_gemm_members(
       splits < 1 || splits > kMaxSplits || (splits > 1 && part == nullptr) ||
       store_kind < 0 || store_kind > 2 || compute_kind < 0 ||
       compute_kind > 1 || ((store_kind == 2) != (qscale != nullptr)) ||
-      members < 1 || (compute_kind == 1 && members != 1) ||
-      per_member_idx < 0 || per_member_idx > 1)
+      members < 1 || per_member_idx < 0 || per_member_idx > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long gathered = static_cast<long long>(n_idx) * streams;
   if (gathered % k_rows != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -435,11 +433,12 @@ extern "C" int ta3n_gather_gemm_members(
   if (static_cast<long long>(k_rows) * d > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long stride = per_member_idx ? n_idx : 0;
   if (compute_kind == 1)
     return ta3n::launch_gather_gemm_bf16(store, qscale, idx, scale, w, z,
                                          x_res, part, m_rows, streams, d,
-                                         k_rows, h, splits, store_kind, s);
-  const long long stride = per_member_idx ? n_idx : 0;
+                                         k_rows, h, splits, store_kind,
+                                         members, stride, s);
   int err;
   if (store_kind == 0)
     err = launch<float>(store, qscale, idx, scale, w, z, x_res, part, m_rows,

@@ -59,6 +59,15 @@
 //    ops/gather_gemm.py::bf16_grid.
 // Indices are not checked here: the Python wrapper only launches with
 // indices it checked on the host (0 <= idx < R).
+//
+// Members (ensembles): N weights [N, H, K] over one store in one launch,
+// the member folded into blockIdx.y beside the column tiles (member *
+// column tiles + tile), W by one rank-3 map with the member outermost
+// (wgmma_bf16.cuh).  With one index set for every member the rows are
+// gathered N times (from L2 after the first) and x_res is written once,
+// by member 0's blocks; with one each, every member writes its own x_res.
+// The K slices are chosen from one member's tiles, so each member's z is
+// bitwise its solo launch's; a solo launch is N = 1.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -147,13 +156,16 @@ __device__ __forceinline__ float value(float v, float rs, float qs) {
     return __fmul_rn(__fmul_rn(v, qs), rs);
 }
 
-// grid (ceil(M/64), ceil(H/128), splits).  kVec (D a multiple of 8 and
-// of a 16-byte piece of the store, 16-byte aligned store, W and x_res):
-// the rows are staged by 16-byte cp.async, each W tile is one TMA box of
-// w_map completing on the stage's mbarrier, and x_res is stored 16 bytes
-// at a time; else plain loads.  With splits > 1 the block writes float32
-// partials into part (summed by gather_gemm_bf16_sum), else bfloat16
-// values into z.
+// grid (ceil(M/64), members * ceil(H/128), splits): blockIdx.y = member
+// * column tiles + column tile.  Member m reads W and writes z and part
+// at m times one member's size, and reads idx and scale at m * idx_stride
+// (0: one index set for all, whose x_res member 0 writes; n_idx: its own,
+// and its own x_res).  kVec (D a multiple of 8 and of a 16-byte piece of
+// the store, 16-byte aligned store, W and x_res): the rows are staged by
+// 16-byte cp.async, each W tile is one TMA box of w_map completing on the
+// stage's mbarrier, and x_res is stored 16 bytes at a time; else plain
+// loads.  With splits > 1 the block writes float32 partials into part
+// (summed by gather_gemm_bf16_sum), else bfloat16 values into z.
 template <class S, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     gather_gemm_bf16_kernel(const __grid_constant__ CUtensorMap w_map,
@@ -164,7 +176,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                             const bf16* __restrict__ w, bf16* __restrict__ z,
                             float* __restrict__ part,
                             bf16* __restrict__ x_res, long long m_rows,
-                            int streams, int d, int k_rows, int h) {
+                            int streams, int d, int k_rows, int h,
+                            long long idx_stride) {
   using R = Raw<S>;
   using L = Layout<S>;
   constexpr bool kInt8 = std::is_same_v<S, int8_t>;
@@ -176,15 +189,25 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int tid = threadIdx.x, lane = tid % 32;
   const int wg = tid / 128, warp = tid % 128 / 32;  // warp of its group
   const long long m0 = static_cast<long long>(blockIdx.x) * kTileM;
-  const int h0 = blockIdx.y * kTileN;
+  const int h_tiles = (h + kTileN - 1) / kTileN;
+  const int member = blockIdx.y / h_tiles, h_tile = blockIdx.y % h_tiles;
+  const int h0 = h_tile * kTileN;
   const long long kdim = static_cast<long long>(k_rows) * d;  // W row
+  w += static_cast<long long>(member) * h * kdim;
+  z += static_cast<long long>(member) * m_rows * h;
+  idx += member * idx_stride;
+  if (scale != nullptr) scale += member * idx_stride;
   if (gridDim.z > 1)
-    part += static_cast<long long>(blockIdx.z) * m_rows * h;
+    part += (static_cast<long long>(member) * gridDim.z + blockIdx.z) *
+            m_rows * h;
   const int valid_rows =
       m_rows - m0 < kTileM ? static_cast<int>(m_rows - m0) : kTileM;
-  // the x_res rows of 16-row group p this block writes: p % writers == y
-  const int writers = gridDim.y < 4 ? static_cast<int>(gridDim.y) : 4;
-  const bool write_any = x_res != nullptr && blockIdx.y < 4;
+  // the x_res rows of 16-row group p this block writes: p % writers ==
+  // its column tile; of shared indices only member 0's blocks write
+  const int writers = h_tiles < 4 ? h_tiles : 4;
+  const bool write_any = x_res != nullptr && h_tile < 4 &&
+                         (idx_stride != 0 || member == 0);
+  if (write_any) x_res += static_cast<long long>(member) * m_rows * kdim;
 
   // this block's K slice, in chunks of kTileK within one gathered row
   const int per_row = (d + kTileK - 1) / kTileK;
@@ -243,8 +266,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       // W first (it needs no index), by one thread of the last warp
       if (tid == kThreads - 32) {
         ta3n::mbar_arrive_expect_tx(&bars[s], kWBytes);
-        ta3n::tma_load_2d(wt, &w_map, static_cast<int>(j * d + c0), h0,
-                          &bars[s]);
+        ta3n::tma_load_3d(wt, &w_map, static_cast<int>(j * d + c0), h0,
+                          member, &bars[s]);
       }
     }
     if (j != row_j) locate(j);
@@ -355,8 +378,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const uint4 piece = make_uint4(packed[0], packed[1], packed[2],
                                      packed[3]);
       *reinterpret_cast<uint4*>(a_piece + kConvStep * 128 * p) = piece;
-      if (write_any && r / 16 % writers == static_cast<int>(blockIdx.y) &&
-          row_in && col < d) {
+      if (write_any && r / 16 % writers == h_tile && row_in && col < d) {
         bf16* dst = x_row + x_step * p;
         if constexpr (kVec) {
           *reinterpret_cast<uint4*>(dst) = piece;
@@ -416,33 +438,38 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // z[i] = sum over s of part[s][i], s in order, rounded to bfloat16 once:
-// the split-K sum, four elements a thread where count % 4 == 0.
+// the split-K sum of each member (part [members, splits, count], z
+// [members, count]), four elements a thread where count % 4 == 0.
 __global__ void gather_gemm_bf16_sum(const float* __restrict__ part,
                                      bf16* __restrict__ z, long long count,
-                                     int splits) {
+                                     int splits, int members) {
   // the partials of the kernel before it on the stream, complete
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first =
       blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (count % 4 == 0) {
-    for (long long i = first; i < count / 4; i += step) {
-      float4 sum = reinterpret_cast<const float4*>(part)[i];
+    const long long n4 = count / 4;
+    const float4* part4 = reinterpret_cast<const float4*>(part);
+    for (long long e = first; e < n4 * members; e += step) {
+      const float4* p = part4 + e / n4 * splits * n4 + e % n4;
+      float4 sum = p[0];
       for (int s = 1; s < splits; ++s) {
-        const float4 v = reinterpret_cast<const float4*>(part + s * count)[i];
+        const float4 v = p[s * n4];
         sum.x += v.x;
         sum.y += v.y;
         sum.z += v.z;
         sum.w += v.w;
       }
-      reinterpret_cast<uint2*>(z)[i] =
+      reinterpret_cast<uint2*>(z)[e] =
           make_uint2(ta3n::pack2f(sum.x, sum.y), ta3n::pack2f(sum.z, sum.w));
     }
   } else {
-    for (long long i = first; i < count; i += step) {
-      float sum = part[i];
-      for (int s = 1; s < splits; ++s) sum += part[s * count + i];
-      z[i] = __float2bfloat16_rn(sum);
+    for (long long e = first; e < count * members; e += step) {
+      const float* p = part + e / count * splits * count + e % count;
+      float sum = p[0];
+      for (int s = 1; s < splits; ++s) sum += p[s * count];
+      z[e] = __float2bfloat16_rn(sum);
     }
   }
 }
@@ -460,26 +487,30 @@ template <class S>
 int launch(const void* store, const void* qscale, const void* idx,
            const void* scale, const void* w, void* z, void* x_res,
            void* part, long long m_rows, int streams, int d, int k_rows,
-           int h, int splits, cudaStream_t stream) {
+           int h, int splits, int members, long long idx_stride,
+           cudaStream_t stream) {
   const long long tiles = (m_rows + kTileM - 1) / kTileM;
-  if (tiles > 0x7fffffffLL || (h + kTileN - 1) / kTileN > 65535)
+  const long long h_tiles = (h + kTileN - 1) / kTileN;
+  if (tiles > 0x7fffffffLL || h_tiles * members > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
+  // (D % 8 == 0 makes W's strides, the members' too, multiples of 16
+  // bytes, and each member's x_res and W 16-byte aligned)
   const bool vec = d % 8 == 0 && d % Raw<S>::E == 0 && aligned(store) &&
                    aligned(w) && (x_res == nullptr || aligned(x_res));
   CUtensorMap map{};
   if (vec) {
     const int err = ta3n::weight_map(w, static_cast<long long>(k_rows) * d,
-                                     h, kTileK, kTileN, &map);
+                                     h, members, kTileK, kTileN, &map);
     if (err != 0) return err;
   }
   const cudaError_t attr =
       vec ? allow_smem<S, true>() : allow_smem<S, false>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>(tiles), (h + kTileN - 1) / kTileN,
-                  splits);
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  static_cast<unsigned>(h_tiles * members), splits);
   (vec ? gather_gemm_bf16_kernel<S, true>
        : gather_gemm_bf16_kernel<S, false>)
       <<<grid, kThreads, Layout<S>::kSmem, stream>>>(
@@ -487,12 +518,13 @@ int launch(const void* store, const void* qscale, const void* idx,
           static_cast<const float*>(qscale), static_cast<const int*>(idx),
           static_cast<const float*>(scale), static_cast<const bf16*>(w),
           static_cast<bf16*>(z), static_cast<float*>(part),
-          static_cast<bf16*>(x_res), m_rows, streams, d, k_rows, h);
+          static_cast<bf16*>(x_res), m_rows, streams, d, k_rows, h,
+          idx_stride);
   if (splits > 1) {
     // launched while the first kernel runs (programmatic dependent
     // launch); it waits for that kernel's partials before reading them
     const long long count = m_rows * h;
-    const long long blocks = (count / 4 + 255) / 256;
+    const long long blocks = (count * members / 4 + 255) / 256;
     cudaLaunchConfig_t config = {};
     config.gridDim = dim3(static_cast<unsigned>(blocks < 1024 ? blocks + 1
                                                               : 1024));
@@ -505,7 +537,7 @@ int launch(const void* store, const void* qscale, const void* idx,
     config.numAttrs = 1;
     const cudaError_t err = cudaLaunchKernelEx(
         &config, gather_gemm_bf16_sum, static_cast<const float*>(part),
-        static_cast<bf16*>(z), count, splits);
+        static_cast<bf16*>(z), count, splits, members);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -517,24 +549,27 @@ namespace ta3n {
 
 // The kernel's launch for store_kind 0 (float32), 1 (bfloat16) or 2
 // (int8), on arguments that ta3n_gather_gemm_members (gather_gemm.cu)
-// checked, and with splits > 1 its split-K sum from part [splits, m, h]
-// float32.
-// Returns cudaGetLastError().
+// checked, of `members` members (idx and scale idx_stride apart: 0 when
+// shared), and with splits > 1 its split-K sum from part [members,
+// splits, m, h] float32.  Returns cudaGetLastError().
 int launch_gather_gemm_bf16(const void* store, const void* qscale,
                             const void* idx, const void* scale,
                             const void* w, void* z, void* x_res, void* part,
                             long long m_rows, int streams, int d, int k_rows,
-                            int h, int splits, int store_kind,
-                            cudaStream_t stream) {
+                            int h, int splits, int store_kind, int members,
+                            long long idx_stride, cudaStream_t stream) {
   if (store_kind == 0)
     return launch<float>(store, qscale, idx, scale, w, z, x_res, part,
-                         m_rows, streams, d, k_rows, h, splits, stream);
+                         m_rows, streams, d, k_rows, h, splits, members,
+                         idx_stride, stream);
   if (store_kind == 1)
     return launch<bf16>(store, qscale, idx, scale, w, z, x_res, part,
-                        m_rows, streams, d, k_rows, h, splits, stream);
+                        m_rows, streams, d, k_rows, h, splits, members,
+                        idx_stride, stream);
   if (store_kind == 2)
     return launch<int8_t>(store, qscale, idx, scale, w, z, x_res, part,
-                          m_rows, streams, d, k_rows, h, splits, stream);
+                          m_rows, streams, d, k_rows, h, splits, members,
+                          idx_stride, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -59,7 +59,16 @@
 //  * 2 blocks an SM (85 KB of shared memory each).
 // dx tiles take H / 64 chunks per triple of their frame (20-32 at S = 5:
 // the frames with 8 triples are the kernel's longest blocks), the dW
-// tiles B / 64 per subset of their scale (4-12).
+// tiles B / 64 per subset of their scale (4-12).  The grid (dx blocks,
+// dW/db blocks) is chosen by the wrapper (ops/trn_fused.py::
+// bf16_bwd_grid) and checked here.
+//
+// Members (ensembles): blockIdx.y is the member.  x and dx are [N, B, S,
+// D], g [N, B, S-1, H], the masks [N, B, n_sub*H] (maps of one more rank,
+// the member outermost), the weights [N, H, k_i*D] (one rank-3 map a
+// scale, wgmma_bf16.cuh), and dW and db one member's size apart.  Each
+// member's blocks are a one-member launch's grid on its inputs, so its
+// gradients are bitwise a solo launch's; a solo launch is N = 1.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -102,9 +111,10 @@ static_assert(kTileN == 2 * 64 && kTileM == 64 && kTileK == 64,
               "an A panel, two B panels");
 static_assert(kRowStep * kTileM * 4 <= kRing, "db's reduction fits the ring");
 
-// The tensor maps: g [B, S-1, H] and x [B, S, D] (3-d, boxes of 64 x 1 x
-// 64, 128-byte swizzle), the masks [B, n_sub*H] (2-d, 64 x 64 bytes), and
-// each scale's weight [H, k_i*D] (boxes of 64 x 64).
+// The tensor maps: g [N, B, S-1, H] and x [N, B, S, D] (4-d, boxes of 64
+// x 1 x 64 x 1, 128-byte swizzle), the masks [N, B, n_sub*H] (3-d, 64 x 64
+// bytes x 1), and each scale's weights [N, H, k_i*D] (boxes of 64 x 64 x
+// 1).
 struct Maps {
   CUtensorMap g, mask, x;
   ta3n::WeightMaps w;
@@ -199,11 +209,13 @@ __device__ __forceinline__ void mask_pass(unsigned char* st, int tid,
   }
 }
 
-// The dx tile `blk`: frame f, batch rows b0.., D columns d0...
+// The dx tile `blk`: frame f, batch rows b0.., D columns d0..., of
+// member `member` (x, g, masks and dx already its own; its weights the
+// pointers' + member * h*k*d).
 template <bool kVec>
 __device__ __forceinline__ void dx_tile(
     const Plan& plan, const Maps& maps, const long long* __restrict__ ptrs,
-    const bf16* __restrict__ x, const bf16* __restrict__ g,
+    int member, const bf16* __restrict__ x, const bf16* __restrict__ g,
     const unsigned char* __restrict__ masks,
     bf16* __restrict__ dx, int batch, int num_frames, int d, int h, int blk,
     unsigned char* smem) {
@@ -228,6 +240,7 @@ __device__ __forceinline__ void dx_tile(
     const int4 u1 = __ldg(&plan.units[3 * z + 1]);  // counts, sub0
     const int k = __ldg(&plan.units[3 * z + 2]).w;
     trips[q] = {ta3n::ptr_at<const bf16>(ptrs, z) +
+                    static_cast<long long>(member) * h * k * d +
                     static_cast<long long>(u0.y) * d,
                 k * d, u0.x, u1.w + (code & 3), u0.y * d};
   }
@@ -239,14 +252,14 @@ __device__ __forceinline__ void dx_tile(
     const int hk = c % h_chunks * kTileK;
     unsigned char* st = smem + s * kStageBytes;
     ta3n::mbar_arrive_expect_tx(full, kStageBytes);
-    ta3n::tma_load_3d(st, &maps.g, hk, tr.scale, b0, full);
-    ta3n::tma_load_2d(st + kMaskOffset, &maps.mask, tr.sub * h + hk, b0,
-                      full);
+    ta3n::tma_load_4d(st, &maps.g, hk, tr.scale, b0, member, full);
+    ta3n::tma_load_3d(st + kMaskOffset, &maps.mask, tr.sub * h + hk, b0,
+                      member, full);
 #pragma unroll
     for (int pn = 0; pn < 2; ++pn)
-      ta3n::tma_load_2d(st + kBOffset + pn * ta3n::kPanelBytes,
+      ta3n::tma_load_3d(st + kBOffset + pn * ta3n::kPanelBytes,
                         &maps.w.w[tr.scale], tr.col0 + d0 + 64 * pn, hk,
-                        full);
+                        member, full);
   };
   auto issue_plain = [&](int c, int s) {
     const Triple tr = trips[c / h_chunks];
@@ -319,11 +332,12 @@ __device__ __forceinline__ void dx_tile(
 }
 
 // The dW tile `blk`: unit (scale, position) z, H rows h0.., D columns
-// d0...  dw and db: the flat gradient buffers (dW_i at h*d*(its first
-// unit), db_i at h*i).
+// d0..., of member `member` (x, g, masks, dw and db already its own).  dw
+// and db: the flat gradient buffers (dW_i at h*d*(its first unit), db_i
+// at h*i).
 template <bool kVec>
 __device__ __forceinline__ void dw_tile(
-    const Plan& plan, const Maps& maps, const bf16* __restrict__ x,
+    const Plan& plan, const Maps& maps, int member, const bf16* __restrict__ x,
     const bf16* __restrict__ g, const unsigned char* __restrict__ masks,
     bf16* __restrict__ dw, bf16* __restrict__ db, int batch, int num_frames,
     int d, int h, int blk, unsigned char* smem) {
@@ -350,13 +364,13 @@ __device__ __forceinline__ void dw_tile(
     const int f = j == 0 ? u2.x : j == 1 ? u2.y : u2.z;
     unsigned char* st = smem + s * kStageBytes;
     ta3n::mbar_arrive_expect_tx(full, kStageBytes);
-    ta3n::tma_load_3d(st, &maps.g, h0, scale, bk, full);
-    ta3n::tma_load_2d(st + kMaskOffset, &maps.mask, (sub0 + j) * h + h0, bk,
-                      full);
+    ta3n::tma_load_4d(st, &maps.g, h0, scale, bk, member, full);
+    ta3n::tma_load_3d(st + kMaskOffset, &maps.mask, (sub0 + j) * h + h0, bk,
+                      member, full);
 #pragma unroll
     for (int pn = 0; pn < 2; ++pn)
-      ta3n::tma_load_3d(st + kBOffset + pn * ta3n::kPanelBytes, &maps.x,
-                        d0 + 64 * pn, f, bk, full);
+      ta3n::tma_load_4d(st + kBOffset + pn * ta3n::kPanelBytes, &maps.x,
+                        d0 + 64 * pn, f, bk, member, full);
   };
   auto issue_plain = [&](int c, int s) {
     const int j = c / b_chunks;
@@ -476,11 +490,13 @@ __device__ __forceinline__ void dw_tile(
   }
 }
 
-// grid (dx_blocks + dW blocks): the dx tiles first, then the dW tiles.
-// kVec: the tiles by TMA (D % 8 == 0, H % 16 == 0, 16-byte aligned
-// pointers); maps then name them.  ptrs: each unit's weight (its
-// scale's).  Dynamic shared memory: the ring, its mbarriers, then the
-// triples of the frame with the most.
+// grid (dx_blocks + dW blocks, members): the dx tiles first, then the dW
+// tiles, of member blockIdx.y, whose x, g, masks, dx, dw and db follow the
+// members before it (each of one member's size).  kVec: the tiles by TMA
+// (D % 8 == 0, H % 16 == 0, 16-byte aligned pointers); maps then name
+// them.  ptrs: each unit's weight (its scale's, member 0's).  Dynamic
+// shared memory: the ring, its mbarriers, then the triples of the frame
+// with the most.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     trn_fused_bwd_bf16_kernel(const __grid_constant__ Maps maps,
@@ -506,12 +522,20 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   __syncthreads();
   const int blk = static_cast<int>(blockIdx.x);
+  const int member = blockIdx.y;
+  const long long x_size = static_cast<long long>(batch) * num_frames * d;
+  x += member * x_size;
+  dx += member * x_size;
+  g += static_cast<long long>(member) * batch * plan.n_scales * h;
+  masks += static_cast<long long>(member) * batch * plan.n_sub_total * h;
+  dw += static_cast<long long>(member) * h * d * plan.n_units;
+  db += static_cast<long long>(member) * plan.n_scales * h;
   if (blk < dx_blocks)
-    dx_tile<kVec>(plan, maps, ptrs, x, g, masks, dx, batch,
+    dx_tile<kVec>(plan, maps, ptrs, member, x, g, masks, dx, batch,
                   num_frames, d, h, blk, smem);
   else
-    dw_tile<kVec>(plan, maps, x, g, masks, dw, db, batch, num_frames, d, h,
-                  blk - dx_blocks, smem);
+    dw_tile<kVec>(plan, maps, member, x, g, masks, dw, db, batch, num_frames,
+                  d, h, blk - dx_blocks, smem);
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in: raised to
@@ -532,8 +556,14 @@ cudaError_t allow_smem(int bytes) {
 // The bfloat16 backward: as ta3n_trn_fused_bwd_f32 (trn_fused_bwd.cu)
 // with x, g, the weights, dx, dw and db bfloat16 (the masks from
 // ta3n_trn_fused_fwd_train_bf16), for at most kMaxWeightMaps scales
-// (wgmma_bf16.cuh).  Launches one grid of dx and dW/db tiles on `stream`;
-// returns cudaGetLastError().
+// (wgmma_bf16.cuh).  dx_blocks and dw_blocks: one member's grid,
+// ceil(batch / 64) * ceil(d / 128) * num_frames dx tiles and ceil(d /
+// 128) * ceil(h / 64) * n_units dW/db tiles (ops/trn_fused.py::
+// bf16_bwd_grid), refused if other.  members (1..65535) stacked members,
+// as for ta3n_trn_fused_fwd_bf16: every tensor above holds them one after
+// another, and member m's weight of scale i is the pointer's + m *
+// h*k_i*d.  Launches one grid of dx and dW/db tiles on `stream`; returns
+// cudaGetLastError().
 extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
                                        const void* const* host_ptrs,
                                        const void* masks, const void* g,
@@ -541,9 +571,11 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
                                        const int* plan_table, int plan_len,
                                        const int* plan_dev, int batch,
                                        int num_frames, int d, int h,
-                                       void* stream) {
+                                       int dx_blocks, int dw_blocks,
+                                       int members, void* stream) {
   if (num_frames < 2 || num_frames - 1 > ta3n::kMaxWeightMaps || batch < 0 ||
-      d < 1 || h < 1 || ptrs == nullptr || host_ptrs == nullptr)
+      d < 1 || h < 1 || members < 1 || members > 65535 || ptrs == nullptr ||
+      host_ptrs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const ta3n::PlanInfo info =
       ta3n::check_plan(plan_table, plan_len, plan_dev, num_frames);
@@ -552,19 +584,21 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
       static_cast<long long>(info.plan.n_sub_total) * h > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles_d = (d + kTileN - 1) / kTileN;
-  const long long dx_blocks =
-      static_cast<long long>((batch + kTileM - 1) / kTileM) * tiles_d *
-      num_frames;
-  const long long blocks =
-      dx_blocks + tiles_d * ((h + kTileM - 1) / kTileM) * info.plan.n_units;
+  const long long blocks = static_cast<long long>(dx_blocks) + dw_blocks;
   const long long smem = kTrips + 1024 +
                          static_cast<long long>(info.max_trip) *
                              sizeof(Triple);
-  if (blocks > 0x7fffffffLL || smem > 0x7fffffffLL)
+  if (dx_blocks != static_cast<long long>((batch + kTileM - 1) / kTileM) *
+                       tiles_d * num_frames ||
+      dw_blocks != tiles_d * ((h + kTileM - 1) / kTileM) *
+                       info.plan.n_units ||
+      blocks > 0x7fffffffLL || smem > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
+  // (D % 8 == 0 and H % 16 == 0 make every stride of the maps, the
+  // members' too, a multiple of 16 bytes)
   bool vec = d % 8 == 0 && h % 16 == 0 && aligned(x) && aligned(g) &&
              aligned(masks);
   for (int z = 0; z < info.plan.n_units; ++z)
@@ -573,30 +607,32 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
   Maps maps{};
   if (vec && batch > 0) {
     const int n_scales = num_frames - 1;
-    const cuuint64_t bf = 2;
+    const cuuint64_t bf = 2, n = static_cast<cuuint64_t>(members),
+                     b = static_cast<cuuint64_t>(batch);
+    const cuuint64_t g_row = bf * h, g_video = g_row * n_scales;
+    const cuuint64_t m_row = static_cast<cuuint64_t>(info.plan.n_sub_total) *
+                             h;
+    const cuuint64_t x_row = bf * d, x_video = x_row * num_frames;
     int err = ta3n::encode_map(
-        &maps.g, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, g,
-        {static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n_scales),
-         static_cast<cuuint64_t>(batch)},
-        {bf * h, bf * h * n_scales}, {kTileK, 1, kTileM},
+        &maps.g, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, g,
+        {static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n_scales), b,
+         n},
+        {g_row, g_video, g_video * b}, {kTileK, 1, kTileM, 1},
         CU_TENSOR_MAP_SWIZZLE_128B);
     if (err == 0)
-      err = ta3n::encode_map(
-          &maps.mask, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, masks,
-          {static_cast<cuuint64_t>(info.plan.n_sub_total) * h,
-           static_cast<cuuint64_t>(batch)},
-          {static_cast<cuuint64_t>(info.plan.n_sub_total) * h},
-          {kTileK, kTileM}, CU_TENSOR_MAP_SWIZZLE_NONE);
+      err = ta3n::encode_map(&maps.mask, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                             masks, {m_row, b, n}, {m_row, m_row * b},
+                             {kTileK, kTileM, 1}, CU_TENSOR_MAP_SWIZZLE_NONE);
     if (err == 0)
       err = ta3n::encode_map(
-          &maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x,
-          {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(num_frames),
-           static_cast<cuuint64_t>(batch)},
-          {bf * d, bf * d * num_frames}, {64, 1, kTileK},
+          &maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x,
+          {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(num_frames), b,
+           n},
+          {x_row, x_video, x_video * b}, {64, 1, kTileK, 1},
           CU_TENSOR_MAP_SWIZZLE_128B);
     if (err == 0)
       err = ta3n::scale_weight_maps(plan_table, n_scales, host_ptrs, d, h,
-                                    64, kTileK, &maps.w);
+                                    members, 64, kTileK, &maps.w);
     if (err != 0) return err;
   }
   const int bytes = static_cast<int>(smem);
@@ -604,12 +640,12 @@ extern "C" int ta3n_trn_fused_bwd_bf16(const void* x, const void* ptrs,
       vec ? allow_smem<true>(bytes) : allow_smem<false>(bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   (vec ? trn_fused_bwd_bf16_kernel<true> : trn_fused_bwd_bf16_kernel<false>)
-      <<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(
+      <<<dim3(static_cast<unsigned>(blocks), members), kThreads, bytes, s>>>(
           maps, info.plan,
           static_cast<const long long*>(ptrs), static_cast<const bf16*>(x),
           static_cast<const bf16*>(g),
           static_cast<const unsigned char*>(masks), static_cast<bf16*>(dx),
           static_cast<bf16*>(dw), static_cast<bf16*>(db), batch, num_frames,
-          d, h, static_cast<int>(dx_blocks));
+          d, h, dx_blocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -73,6 +73,16 @@
 // Ragged B, H and D are zero-filled and masked, so any widths are taken.
 // PERF.md (section 6) has the measured split between the two kernels and
 // the variants tried.
+//
+// Members (ensembles, where the Pallas kernel runs under jax.vmap with a
+// grid axis over members): blockIdx.y is the member, in the GEMM and in
+// the epilogue.  x is [N, B, S, D] (a rank-4 map, the member its outermost
+// coordinate), each scale's weights [N, H, k_i*D] (one rank-3 map,
+// wgmma_bf16.cuh), each bias [N, H], and the member's scratch, out and
+// masks lie one member's size past the one before.  The grid of a member
+// is the one-member grid the wrapper chose from one member's shape, so
+// its blocks sum the same partials in the same order as a solo launch:
+// its outputs are bitwise a solo launch's.  A solo launch is N = 1.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -106,8 +116,8 @@ constexpr int kSmem = kBars + 2 * kStages * 8 + 1024;  // + 1024 alignment
 static_assert(kStageBytes % 1024 == 0, "1024-byte aligned stages");
 static_assert(kTileM * 8 == 2 * ta3n::kConsumers, "two x pieces a thread");
 
-// The tensor maps: x [B, S, D] (3-d, boxes of 64 x 1 x 64) and each
-// scale's weight [H, k_i*D] (boxes of 64 x 128), 128-byte swizzle.
+// The tensor maps: x [N, B, S, D] (4-d, boxes of 64 x 1 x 64 x 1) and each
+// scale's weights [N, H, k_i*D] (boxes of 64 x 128 x 1), 128-byte swizzle.
 struct Maps {
   CUtensorMap x;
   ta3n::WeightMaps w;
@@ -117,9 +127,11 @@ static_assert(sizeof(Maps) + 256 <= ta3n::kParamLimit,
               "the maps fit the kernel parameters");
 
 // One block: scratch slot q (a subset j of unit (i, p)), H tile, row tile
-// and D slice, in that order from the slowest; it writes the partial z of
-// its 64 videos and 128 columns into part's plane split * n_slots + q.
-// ptrs: each unit's weight (its scale's).  kVec: the tiles by TMA.
+// and D slice, in that order from the slowest, of member blockIdx.y; it
+// writes the partial z of its 64 videos and 128 columns into the member's
+// plane split * n_slots + q of part.  ptrs: each unit's weight (its
+// scale's, member 0's; member m's is m * h * k * d further).  kVec: the
+// tiles by TMA.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     trn_fused_fwd_bf16_kernel(const __grid_constant__ Maps maps,
@@ -135,6 +147,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ int4 unit_at, unit_frames;  // {i, p, n_sub, slot}, frames/k
   __shared__ const bf16* unit_w;
   const int tid = threadIdx.x;
+  const int member = blockIdx.y;
+  x += static_cast<long long>(member) * batch * num_frames * d;
   long long rest = blockIdx.x;
   const int split = static_cast<int>(rest % splits);
   rest /= splits;
@@ -165,7 +179,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int f = j == 0 ? unit_frames.x : j == 1 ? unit_frames.y
                                                 : unit_frames.z;
   const long long w_row = static_cast<long long>(unit_frames.w) * d;
-  const bf16* w_p = unit_w + static_cast<long long>(p) * d;
+  const bf16* w_p =
+      unit_w + static_cast<long long>(member) * h * w_row +
+      static_cast<long long>(p) * d;
 
   // this block's D slice, in chunks of kTileK
   const int chunks = (d + kTileK - 1) / kTileK;
@@ -177,9 +193,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int col = (c_begin + c) * kTileK;
     unsigned char* st = smem + s * kStageBytes;
     ta3n::mbar_arrive_expect_tx(full, kStageBytes);
-    ta3n::tma_load_3d(st, &maps.x, col, f, b0, full);
-    ta3n::tma_load_2d(st + kBOffset, &maps.w.w[scale], p * d + col, h0,
-                      full);
+    ta3n::tma_load_4d(st, &maps.x, col, f, b0, member, full);
+    ta3n::tma_load_3d(st + kBOffset, &maps.w.w[scale], p * d + col, h0,
+                      member, full);
   };
   // the plain staging: 16-byte pieces of the 64 x rows and the 128 W rows
   auto issue_plain = [&](int c, int s) {
@@ -245,8 +261,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   if (tid >= ta3n::kConsumers) return;
 
-  float* out = part + (static_cast<long long>(split) * plan.n_slots + slot) *
-                          batch * h;
+  float* out =
+      part + ((static_cast<long long>(member) * splits + split) *
+                  plan.n_slots +
+              slot) *
+                 batch * h;
   const int lane = tid % 32, warp = tid % 128 / 32;
   const bool pairs = h % 2 == 0;
 #pragma unroll
@@ -273,7 +292,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 // float32); out = sum_j relu(z_j) rounded to bfloat16 once, and the
 // training variant writes (z_j > 0).  The loads of four (position, slice)
 // steps of every subset are issued together.  ptrs: each unit's weight,
-// then each scale's bias.
+// then each scale's bias (member 0's; member m's is m * h further).  Of
+// member blockIdx.y: its scratch, bias, out and masks.
 template <bool kWithMasks>
 __global__ void __launch_bounds__(kEpilogueThreads)
     trn_fused_fwd_bf16_epilogue(const Plan plan,
@@ -291,7 +311,12 @@ __global__ void __launch_bounds__(kEpilogueThreads)
   const int4 sc = __ldg(&plan.scales[i]);  // k, n_sub, sub0, slot0
   const int n_sub = sc.y, n_steps = sc.x * splits;
   const long long plane = static_cast<long long>(batch) * h;  // one slot
-  const bf16* bias_i = ta3n::ptr_at<const bf16>(ptrs, plan.n_units + i);
+  const long long member = blockIdx.y;
+  part += member * splits * plan.n_slots * plane;
+  out += member * batch * n_scales * h;
+  if constexpr (kWithMasks) masks += member * batch * plan.n_sub_total * h;
+  const bf16* bias_i =
+      ta3n::ptr_at<const bf16>(ptrs, plan.n_units + i) + member * h;
   // the partials of the GEMM before it on the stream, complete
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   for (int hh = threadIdx.x; hh < h; hh += kEpilogueThreads) {
@@ -347,11 +372,12 @@ template <bool kWithMasks>
 int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
            void* out, void* masks, void* part, const int* plan_table,
            int plan_len, const int* plan_dev, int batch, int num_frames,
-           int d, int h, int row_tiles, int h_tiles, int splits,
+           int d, int h, int row_tiles, int h_tiles, int splits, int members,
            void* stream) {
   const int chunks = (d + kTileK - 1) / kTileK;
   if (num_frames < 2 || num_frames - 1 > ta3n::kMaxWeightMaps ||
-      batch < 1 || d < 1 || h < 1 || part == nullptr || ptrs == nullptr ||
+      batch < 1 || d < 1 || h < 1 || members < 1 || members > 65535 ||
+      part == nullptr || ptrs == nullptr ||
       host_ptrs == nullptr || row_tiles != (batch + kTileM - 1) / kTileM ||
       h_tiles != (h + kTileN - 1) / kTileN || splits < 1 ||
       splits > kMaxSplits || splits > chunks)
@@ -370,22 +396,25 @@ int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
   const auto aligned = [](const void* ptr) {
     return reinterpret_cast<unsigned long long>(ptr) % 16 == 0;
   };
-  // TMA: every row start and stride 16-byte aligned
+  // TMA: every row start and stride 16-byte aligned (D % 8 == 0 makes
+  // every stride of x and of the weights, the members' too, a multiple of
+  // 16 bytes)
   bool vec = d % 8 == 0 && aligned(x);
   for (int z = 0; z < info.plan.n_units; ++z)
     vec = vec && aligned(host_ptrs[z]);
   Maps maps{};
   if (vec) {
     const cuuint64_t bf = 2;
+    const cuuint64_t row = bf * d, video = row * num_frames;
     int err = ta3n::encode_map(
-        &maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x,
+        &maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x,
         {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(num_frames),
-         static_cast<cuuint64_t>(batch)},
-        {bf * d, bf * d * num_frames}, {kTileK, 1, kTileM},
+         static_cast<cuuint64_t>(batch), static_cast<cuuint64_t>(members)},
+        {row, video, video * batch}, {kTileK, 1, kTileM, 1},
         CU_TENSOR_MAP_SWIZZLE_128B);
     if (err == 0)
       err = ta3n::scale_weight_maps(plan_table, num_frames - 1, host_ptrs,
-                                    d, h, kTileK, kTileN, &maps.w);
+                                    d, h, members, kTileK, kTileN, &maps.w);
     if (err != 0) return err;
   }
   const cudaError_t attr = vec ? allow_smem<true>() : allow_smem<false>();
@@ -393,7 +422,7 @@ int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* dev_ptrs = static_cast<const long long*>(ptrs);
   (vec ? trn_fused_fwd_bf16_kernel<true> : trn_fused_fwd_bf16_kernel<false>)
-      <<<static_cast<unsigned>(blocks), kThreads, kSmem, s>>>(
+      <<<dim3(static_cast<unsigned>(blocks), members), kThreads, kSmem, s>>>(
           maps, info.plan, dev_ptrs, static_cast<const bf16*>(x),
           static_cast<float*>(part), batch, num_frames, d, h, row_tiles,
           h_tiles, splits);
@@ -402,7 +431,7 @@ int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
   // launched while the GEMM runs (programmatic dependent launch); it waits
   // for the GEMM's partials before reading them
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(rows));
+  config.gridDim = dim3(static_cast<unsigned>(rows), members);
   config.blockDim = dim3(kEpilogueThreads);
   config.stream = s;
   cudaLaunchAttribute early[1];
@@ -429,10 +458,15 @@ int launch(const void* x, const void* ptrs, const void* const* host_ptrs,
 // plan_table (plan_len ints, on the host) and plan_dev (the same ints on
 // the device, 16-byte aligned) are the relation plan of trn_plan.cuh, of
 // at most kMaxWeightMaps scales (wgmma_bf16.cuh); a malformed table is
-// refused.  The grid: row_tiles = ceil(batch / 64), h_tiles = ceil(h /
-// 128) and splits D slices (1..8, at most one per 64-deep chunk); part is
-// float32 scratch of [splits * n_slots, batch, h].  Launches the GEMM and
-// its epilogue on `stream` and returns the first error.
+// refused.  The grid of one member: row_tiles = ceil(batch / 64),
+// h_tiles = ceil(h / 128) and splits D slices (1..8, at most one per
+// 64-deep chunk); part is float32 scratch of [splits * n_slots, batch, h]
+// a member.  members (1..65535) stacked members, one grid row each: x,
+// out and part hold them one after another (each of the shapes above),
+// and member m's weight of scale i and bias are the pointers' + m times
+// the weight's h*k_i*d and the bias's h elements (weights [members, h,
+// k_i*d], biases [members, h]).  Launches the GEMM and its epilogue on
+// `stream` and returns the first error.
 extern "C" int ta3n_trn_fused_fwd_bf16(const void* x, const void* ptrs,
                                        const void* const* host_ptrs,
                                        void* out, void* part,
@@ -440,21 +474,23 @@ extern "C" int ta3n_trn_fused_fwd_bf16(const void* x, const void* ptrs,
                                        const int* plan_dev, int batch,
                                        int num_frames, int d, int h,
                                        int row_tiles, int h_tiles,
-                                       int splits, void* stream) {
+                                       int splits, int members,
+                                       void* stream) {
   return launch<false>(x, ptrs, host_ptrs, out, nullptr, part, plan_table,
                        plan_len, plan_dev, batch, num_frames, d, h,
-                       row_tiles, h_tiles, splits, stream);
+                       row_tiles, h_tiles, splits, members, stream);
 }
 
 // The training variant: as above, and masks [batch, n_sub_total*h] uint8
 // (contiguous, on the current device) receives (z > 0) of every subset, in
-// the plan's subset order, from the float32 z.
+// the plan's subset order, from the float32 z ([members, batch,
+// n_sub_total*h] with members > 1).
 extern "C" int ta3n_trn_fused_fwd_train_bf16(
     const void* x, const void* ptrs, const void* const* host_ptrs, void* out,
     void* masks, void* part, const int* plan_table, int plan_len,
     const int* plan_dev, int batch, int num_frames, int d, int h,
-    int row_tiles, int h_tiles, int splits, void* stream) {
+    int row_tiles, int h_tiles, int splits, int members, void* stream) {
   return launch<true>(x, ptrs, host_ptrs, out, masks, part, plan_table,
                       plan_len, plan_dev, batch, num_frames, d, h, row_tiles,
-                      h_tiles, splits, stream);
+                      h_tiles, splits, members, stream);
 }

@@ -46,11 +46,16 @@
 // warp).
 //
 // Weight maps.  The tensor map of a weight is made on the host once per
-// pointer, shape and box (weight_map, a cache: a map holds only those, so
-// it stays right for any weight later allocated there) and reaches the
-// kernel by value, as a __grid_constant__ parameter (WeightMaps: one per
-// TRN scale, up to kMaxWeightMaps), so a launch copies nothing to the
-// device and a captured CUDA graph replays it as it is.
+// pointer, shape, member count and box (weight_map, a cache: a map holds
+// only those, so it stays right for any weight later allocated there) and
+// reaches the kernel by value, as a __grid_constant__ parameter
+// (WeightMaps: one per TRN scale, up to kMaxWeightMaps), so a launch
+// copies nothing to the device and a captured CUDA graph replays it as it
+// is.  Members (ensembles, one launch for N members' stacked weights [N,
+// rows, row]): a map is rank 3, the member its outermost coordinate (a
+// box depth of 1, the member stride rows * row * 2 bytes), so one map per
+// scale serves every member and the parameter's size does not grow with
+// N; a solo launch is N = 1.
 
 #pragma once
 
@@ -183,7 +188,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       "r"(smem_addr(bar))
       : "memory");
 }
-// A tiled tensor map on the host (rank 2 or 3): dims innermost first, the
+
+// The same for a 4-d tensor map.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+// A tiled tensor map on the host (rank 2 to 4): dims innermost first, the
 // byte strides of the outer dims (multiples of 16), the box, unit element
 // steps, zeros out of range.  cuTensorMapEncodeTiled is fetched from the
 // driver through the runtime, so the library links only cudart.  Returns a
@@ -208,11 +225,11 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
     return reinterpret_cast<Encode>(fn);
   }();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  if (static_cast<int>(dims.size()) != rank ||
+  if (rank < 1 || rank > 4 || static_cast<int>(dims.size()) != rank ||
       static_cast<int>(strides.size()) != rank - 1 ||
       static_cast<int>(box.size()) != rank)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cuuint32_t steps[3] = {1, 1, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
   return encode(map, type, static_cast<cuuint32_t>(rank),
                 const_cast<void*>(base), dims.begin(), strides.begin(),
                 box.begin(), steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -222,16 +239,17 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
              : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor map of a bfloat16 weight [rows, row] (row-major, 128-byte
-// swizzle, zeros out of range) in boxes of box_k columns x box_rows rows,
-// made once per pointer, shape and box and then taken from a cache.
-// Returns a cudaError_t.
-inline int weight_map(const void* w, long long row, int rows, int box_k,
-                      int box_rows, CUtensorMap* out) {
+// The tensor map of `members` stacked bfloat16 weights [members, rows,
+// row] (row-major, 128-byte swizzle, zeros out of range), rank 3 with the
+// member outermost, in boxes of box_k columns x box_rows rows of one
+// member, made once per pointer, shape, member count and box and then
+// taken from a cache.  Returns a cudaError_t.
+inline int weight_map(const void* w, long long row, int rows, int members,
+                      int box_k, int box_rows, CUtensorMap* out) {
   struct Entry {
     const void* w;
     long long row;
-    int rows, box_k, box_rows;
+    int rows, members, box_k, box_rows;
     CUtensorMap map;
   };
   constexpr int kCache = 64;
@@ -241,20 +259,22 @@ inline int weight_map(const void* w, long long row, int rows, int box_k,
   const std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < cached; ++i) {
     const Entry& e = cache[i];
-    if (e.w == w && e.row == row && e.rows == rows && e.box_k == box_k &&
-        e.box_rows == box_rows) {
+    if (e.w == w && e.row == row && e.rows == rows &&
+        e.members == members && e.box_k == box_k && e.box_rows == box_rows) {
       *out = e.map;
       return 0;
     }
   }
+  const cuuint64_t pitch = static_cast<cuuint64_t>(row) * 2;
   const int err = encode_map(
-      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w,
-      {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(rows)},
-      {static_cast<cuuint64_t>(row) * 2},
-      {static_cast<cuuint32_t>(box_k), static_cast<cuuint32_t>(box_rows)},
+      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w,
+      {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(rows),
+       static_cast<cuuint64_t>(members)},
+      {pitch, pitch * static_cast<cuuint64_t>(rows)},
+      {static_cast<cuuint32_t>(box_k), static_cast<cuuint32_t>(box_rows), 1},
       CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
-  cache[next] = {w, row, rows, box_k, box_rows, *out};
+  cache[next] = {w, row, rows, members, box_k, box_rows, *out};
   next = (next + 1) % kCache;
   if (cached < kCache) ++cached;
   return 0;
@@ -272,20 +292,21 @@ struct WeightMaps {
 static_assert(sizeof(WeightMaps) + 1024 <= kParamLimit,
               "the weight maps fit the kernel parameters");
 
-// Each scale's weight map: the weight [h, k_i*d] of scale i, whose pointer
-// is host_ptrs at the scale's first unit (the plan table's scale records
-// give k_i), in boxes of box_k columns x box_rows rows.  Returns a
-// cudaError_t.
+// Each scale's weight map: the members' weights [members, h, k_i*d] of
+// scale i, whose pointer is host_ptrs at the scale's first unit (the plan
+// table's scale records give k_i), in boxes of box_k columns x box_rows
+// rows of one member.  Returns a cudaError_t.
 inline int scale_weight_maps(const int* plan_table, int n_scales,
                              const void* const* host_ptrs, int d, int h,
-                             int box_k, int box_rows, WeightMaps* maps) {
+                             int members, int box_k, int box_rows,
+                             WeightMaps* maps) {
   if (n_scales > kMaxWeightMaps)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* scales = plan_table + kPlanHeader;
   for (int i = 0, z = 0; i < n_scales; z += scales[kScaleInts * i], ++i) {
     const int err = weight_map(
         host_ptrs[z], static_cast<long long>(scales[kScaleInts * i]) * d, h,
-        box_k, box_rows, &maps->w[i]);
+        members, box_k, box_rows, &maps->w[i]);
     if (err != 0) return err;
   }
   return 0;

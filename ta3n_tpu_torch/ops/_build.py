@@ -52,9 +52,9 @@ _ENTRIES = {
     # the bfloat16 variants of the two (trn_fused_fwd_bf16.cu): the same
     # arguments with the grid (row tiles, H tiles, D slices) for splits
     "ta3n_trn_fused_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _P],
     "ta3n_trn_fused_fwd_train_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _P,
-                                      _I, _I, _I, _I, _I, _I, _I, _P],
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w ptrs (device), w ptrs (host), masks, g, dx, dw, db, plan table,
     # its length, plan (device), batch, frames, d, h, members, stream
     "ta3n_trn_fused_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
@@ -64,12 +64,13 @@ _ENTRIES = {
     "ta3n_trn_fused_bwd_parts_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _P, _I, _I, _I, _I, _I, _P],
     # the bfloat16 backward (trn_fused_bwd_bf16.cu): the same arguments
+    # with its grid (dx blocks, dW/db blocks) before members
     "ta3n_trn_fused_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                                _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _P],
     # store, its int8 scales, idx, scale, w, z, x_res, part, n_idx,
     # streams, d, k_rows, h, splits, store kind, compute kind (1:
-    # gather_gemm_bf16.cu's kernel), members, per-member indices (0 or 1),
-    # stream
+    # gather_gemm_bf16.cu's kernel), members (either compute kind),
+    # per-member indices (0 or 1), stream
     "ta3n_gather_gemm_members": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
 }

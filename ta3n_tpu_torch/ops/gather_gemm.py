@@ -48,12 +48,12 @@ k consecutive gathered rows form one FC input row, as the model's
 outputs are z [M, H] and x_res [M, k·D], M = N·S/k for N indices.
 
 Members.  ``gathered_gemm_members`` runs N members' stacked weights [N,
-H, k*D] over one store in one launch of the float32-compute kernel (a
-member axis folded into the grid's y beside the H tiles), from one index
-set for all members (x_res then written once) or one each; K is sliced by
-one member's shape, so member k's z is bitwise its solo launch's.  A solo
-call is that launch with one member (at bfloat16 compute, which has no
-member axis yet, the only one): one launch path, one count a variant.
+H, k*D] over one store in one launch of the kernel of their dtype (a
+member axis folded into the grid's y beside the H tiles, at either
+compute dtype), from one index set for all members (x_res then written
+once) or one each; K is sliced by one member's shape, so member k's z is
+bitwise its solo launch's.  A solo call is that launch with one member:
+one launch path, one count a variant.
 ``gathered_linear``'s and ``gathered_gemm``'s Functions carry vmap rules
 that call it under ``torch.func.vmap`` (`train/ensemble.py`); the
 backward's ``dzᵀ x_res`` stays a batched ``torch.mm``.
@@ -342,9 +342,10 @@ def gathered_gemm_members(store, idx: RowIndex, weight: torch.Tensor,
     each), row_scale [n_idx] or [N, n_idx] likewise.  Returns z [N, M, H]
     and, with ``with_rows``, x_res: [M, k*D] for shared indices (the
     members gather the same rows), else [N, M, k*D].  A CUDA store launches
-    the float32-compute kernel once for every member (a member grid axis;
-    K is sliced by one member's shape, so member k's z is bitwise the solo
-    launch's); a CPU store takes the plain version member by member."""
+    the kernel of the weight's dtype (float32 or bfloat16 compute) once
+    for every member (a member grid axis; K is sliced by one member's
+    shape, so member k's z is bitwise the solo launch's); a CPU store
+    takes the plain version member by member."""
     data, _ = _split_store(store)
     n = weight.shape[0]
     rows = _member_rows(idx.rows, idx.end, data, n)
@@ -371,8 +372,9 @@ def _gather_members_into(store, rows, geometry, weight, row_scale, z,
     """N members' gathers + GEMMs: weight [N, H, k*D] into z [N, M, H]
     and, unless None, x_res ([N, M, k*D] when rows are [N, n_idx], else
     [M, k*D], written once): the kernel on a CUDA store, one launch for
-    every member (at bfloat16 compute, one member), the plain version
-    member by member on a CPU one."""
+    every member at either compute dtype, its grid (K slices) chosen by
+    one member's shape, the plain version member by member on a CPU
+    one."""
     global launches
     data, scale = _split_store(store)
     n = weight.shape[0]
@@ -390,11 +392,6 @@ def _gather_members_into(store, rows, geometry, weight, row_scale, z,
     if data.device.type != "cuda":
         raise _no_kernel("gathered_gemm", data.device)
     variant = _variant(store, weight[0])
-    if weight.dtype != torch.float32 and n > 1:
-        raise NotImplementedError(
-            "the member-batched gather kernel computes in float32: the "
-            "bfloat16 kernels' member axis is not ported yet (ROADMAP.md "
-            "queue 1, item 13)")
     if (data.dtype == torch.int8) != (scale is not None):
         raise TypeError("an int8 store comes with its scales, as the pair "
                         "(q, scale); other stores without")

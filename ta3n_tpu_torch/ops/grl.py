@@ -41,8 +41,11 @@ class _GradReverse(torch.autograd.Function):
         # beta is a schedule scalar, not trained: no gradient for it
         if ctx.beta is not None:
             return -ctx.beta * g, None
+        # in float32 and rounded once, as a number beta multiplies a
+        # bfloat16 g: a member's beta under vmap then reverses its
+        # gradient bitwise as the solo run's number does
         (beta,) = ctx.saved_tensors
-        return -beta.to(g.dtype) * g, None
+        return (-beta * g.float()).to(g.dtype), None
 
 
 def grad_reverse(x: torch.Tensor, beta) -> torch.Tensor:

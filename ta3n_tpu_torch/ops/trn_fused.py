@@ -52,16 +52,18 @@ The member axis (the ensembles of `train/ensemble.py`, the counterpart of
 ``jax.vmap`` giving each ``pallas_call`` a grid axis over members):
 ``trn_multiscale_infer_members``, ``trn_multiscale_fwd_masks_members`` and
 ``trn_multiscale_bwd_members`` take N members' stacked inputs ([N, ...],
-members first) and launch the float32 kernels once for all of them, one
-grid row (``blockIdx.y``) a member; a solo float32 call is the same
-launch with one member (one launch path a kernel, one count); CPU tensors
-take the plain versions member by member.  The Functions are in
+members first) and launch the kernels, float32 or bfloat16, once for all
+of them, one grid row (``blockIdx.y``) a member, each member's blocks on
+the grid of a one-member launch; a solo call is the same launch with one
+member (one launch path a kernel, one count a dtype).  They check their
+inputs on every device and take the plain versions member by member on
+CPU tensors.  The Functions are in
 the ``setup_context`` form and carry vmap rules, so that
 ``torch.func.vmap`` over stacked weights runs those wrappers: the
 training forward (``_TRNFused``), its backward (``_TRNBackward``, which
 the backward calls under a transform: batched tensors have no data
 pointer) and the inference forward (``_TRNInfer``, taken only under a
-transform).  The bfloat16 kernels have no member axis yet.
+transform).
 
 The kernels take any number of frames S >= 2: they read the relation plan
 as a table in device memory (``_plan_table``, the layout of
@@ -71,8 +73,9 @@ per (scale, position) unit, so that no load in the kernels waits on
 another), uploaded once per set of pointers (the optimizer updates the
 weights in place, so a training run uploads it once).  The bfloat16
 kernels read the weights by TMA through a tensor map of each scale's
-weight, made once per weight and passed by value at each launch, so they
-take at most ``BF16_MAX_SCALES`` scales (S - 1).
+members' weights ([N, H, k*D], the member the outermost coordinate), made
+once per weight and member count and passed by value at each launch, so
+they take at most ``BF16_MAX_SCALES`` scales (S - 1) whatever N is.
 """
 
 from __future__ import annotations
@@ -91,7 +94,7 @@ __all__ = ["trn_multiscale_plain", "trn_multiscale_fwd_masks_plain",
            "trn_multiscale_fwd_masks", "trn_multiscale_bwd",
            "trn_multiscale_fused", "trn_multiscale_infer_members",
            "trn_multiscale_fwd_masks_members", "trn_multiscale_bwd_members",
-           "bf16_fwd_grid", "BF16_MAX_SCALES",
+           "bf16_fwd_grid", "bf16_bwd_grid", "BF16_MAX_SCALES",
            "launches", "train_launches", "bwd_launches", "bf16_launches",
            "bf16_train_launches", "bf16_bwd_launches"]
 
@@ -126,6 +129,9 @@ _FWD_MAX_SPLITS, _FWD_TARGET_BLOCKS = 8, 132
 # the H100, and three or more slower, PERF.md)
 _BF16_FWD_TILE_M, _BF16_FWD_TILE_H, _BF16_FWD_TILE_K = 64, 128, 64
 _BF16_FWD_TARGET_BLOCKS = 132
+# the bfloat16 backward kernel's tiles (csrc/trn_fused_bwd_bf16.cu): 64
+# videos (dx) or 64 H rows (dW) by 128 D columns a block
+_BF16_BWD_TILE_M, _BF16_BWD_TILE_N = 64, 128
 
 # the most scales (S - 1) the bfloat16 kernels take: their weights' tensor
 # maps are a kernel parameter of fixed size (csrc/wgmma_bf16.cuh,
@@ -408,30 +414,27 @@ def _launch_fwd(entry, x, weights, biases, num_frames, subsample_num,
     """The forward kernel and its epilogue into ``outs`` (out, and the
     masks in the training variant), with their scratch of partial z:
     [splits * n_slots, B, H] f32 a member, n_slots = sum_k(k * n_sub_k):
-    32 slots at S=5 (6.6 MB at B=202, H=256), 922 at S=25 (190 MB).  The
-    float32 kernel takes stacked inputs (x [N, B, S, D], each weight [N,
-    H, k*D] and bias [N, H], members first), its D slices and its N
-    members, one scratch each; D is sliced by one member's shape, so each
-    member's blocks do a one-member launch's work.  The bfloat16 kernel
-    takes one unstacked set and its whole grid (``bf16_fwd_grid``)."""
-    b, s, d = x.shape[-3:]
+    32 slots at S=5 (6.6 MB at B=202, H=256), 922 at S=25 (190 MB).  Both
+    kernels take stacked inputs (x [N, B, S, D], each weight [N, H, k*D]
+    and bias [N, H], members first), one scratch a member, and their grid
+    (float32: its D slices; bfloat16: ``bf16_fwd_grid``) chosen by one
+    member's shape, so each member's blocks do a one-member launch's
+    work."""
+    n, b, s, d = x.shape
     h = weights[0].shape[-2]
     if x.dtype == torch.bfloat16:
         grid = bf16_fwd_grid(num_frames, subsample_num, b, d, h)
-        splits, members = grid[-1], 1
     else:
-        splits, members = (_fwd_splits(num_frames, subsample_num, b, d, h),
-                           x.shape[0])
-        grid = (splits, members)
-    slots = sum(n for _, _, n in _fwd_units(num_frames, subsample_num))
-    part = torch.empty((members * splits * slots, b, h),
-                       dtype=torch.float32, device=x.device)
+        grid = (_fwd_splits(num_frames, subsample_num, b, d, h),)
+    slots = sum(c for _, _, c in _fwd_units(num_frames, subsample_num))
+    part = torch.empty((n * grid[-1] * slots, b, h), dtype=torch.float32,
+                       device=x.device)
     _call(entry, x, x.data_ptr(),
           *_pointer_args(weights, biases, num_frames, subsample_num,
                          x.device),
           *(t.data_ptr() for t in outs), part.data_ptr(),
           *_plan_args(num_frames, subsample_num, x.device), b, s, d, h,
-          *grid)
+          *grid, n)
 
 
 def _one(t: torch.Tensor) -> torch.Tensor:
@@ -440,9 +443,7 @@ def _one(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
-    """The inference forward kernel: the float32 one as one member of
-    ``_infer_kernel``, the bfloat16 one on its own."""
-    global bf16_launches
+    """The inference forward kernel: one member of ``_infer_kernel``."""
     _check_inputs(x, weights, biases, num_frames, subsample_num)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *weights, *biases)):
@@ -450,34 +451,27 @@ def _launch(x, weights, biases, num_frames, subsample_num) -> torch.Tensor:
             "trn_multiscale_infer's CUDA kernel has no backward; call it "
             "under torch.no_grad() or torch.inference_mode(), or train "
             "through trn_multiscale_fused")
-    if x.dtype == torch.float32:
-        return _infer_kernel(_one(x), [_one(w) for w in weights],
-                             [_one(b) for b in biases], num_frames,
-                             subsample_num)[0]
-    b, s, _ = x.shape
-    out = torch.empty((b, s - 1, weights[0].shape[0]), dtype=x.dtype,
-                      device=x.device)
-    if b == 0:  # a grid of 0 blocks is refused
-        return out
-    _launch_fwd("ta3n_trn_fused_fwd_bf16", x, weights, biases, num_frames,
-                subsample_num, out)
-    bf16_launches += 1
-    return out
+    return _infer_kernel(_one(x), [_one(w) for w in weights],
+                         [_one(b) for b in biases], num_frames,
+                         subsample_num)[0]
 
 
 def _infer_kernel(x, weights, biases, num_frames, subsample_num
                   ) -> torch.Tensor:
-    """The float32 inference forward on checked stacked inputs (x [N, B,
-    S, D]): one launch for every member, [N, B, S-1, H]."""
-    global launches
+    """The inference forward on checked stacked inputs (x [N, B, S, D]):
+    one launch for every member, [N, B, S-1, H]."""
+    global launches, bf16_launches
     n, b = x.shape[:2]
     out = torch.empty((n, b, num_frames - 1, weights[0].shape[1]),
                       dtype=x.dtype, device=x.device)
     if b == 0:  # a grid of 0 blocks is refused
         return out
-    _launch_fwd("ta3n_trn_fused_fwd_f32", x, weights, biases, num_frames,
-                subsample_num, out)
-    launches += 1
+    _launch_fwd(f"ta3n_trn_fused_fwd_{_SUFFIX[x.dtype]}", x, weights,
+                biases, num_frames, subsample_num, out)
+    if x.dtype == torch.float32:
+        launches += 1
+    else:
+        bf16_launches += 1
     return out
 
 
@@ -488,28 +482,25 @@ def _n_subsets(num_frames: int, subsample_num: int) -> int:
 
 def _launch_train(x, weights, biases, num_frames, subsample_num
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The training forward kernel: (out, uint8 masks); the float32 one
-    as one member of ``_train_kernel``."""
+    """The training forward kernel: (out, uint8 masks), one member of
+    ``_train_kernel``."""
     _check_inputs(x, weights, biases, num_frames, subsample_num)
-    if x.dtype == torch.float32:
-        out, masks = _train_kernel(_one(x), [_one(w) for w in weights],
-                                   [_one(b) for b in biases], num_frames,
-                                   subsample_num)
-        return out[0], masks[0]
-    return _train_kernel(x, weights, biases, num_frames, subsample_num)
+    out, masks = _train_kernel(_one(x), [_one(w) for w in weights],
+                               [_one(b) for b in biases], num_frames,
+                               subsample_num)
+    return out[0], masks[0]
 
 
 def _train_kernel(x, weights, biases, num_frames, subsample_num
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The training forward on checked inputs: float32 stacked (x [N, B,
-    S, D]; out and masks with the members first, one launch for every
-    member), bfloat16 one unstacked set."""
+    """The training forward on checked stacked inputs (x [N, B, S, D]):
+    out and masks with the members first, one launch for every member."""
     global train_launches, bf16_train_launches
-    lead, (b, s, _) = x.shape[:-3], x.shape[-3:]
+    n, b, s = x.shape[:3]
     h = weights[0].shape[-2]
     n_sub = _n_subsets(num_frames, subsample_num)
-    out = torch.empty(lead + (b, s - 1, h), dtype=x.dtype, device=x.device)
-    masks = torch.empty(lead + (b, n_sub * h), dtype=torch.uint8,
+    out = torch.empty((n, b, s - 1, h), dtype=x.dtype, device=x.device)
+    masks = torch.empty((n, b, n_sub * h), dtype=torch.uint8,
                         device=x.device)
     if b == 0:  # a grid of 0 blocks is refused
         return out, masks
@@ -536,44 +527,57 @@ def _check_bwd(x, weights, masks, g, num_frames, subsample_num) -> None:
                          f"{tuple(masks.shape)} and {tuple(g.shape)}")
 
 
+def bf16_bwd_grid(num_frames: int, subsample_num: int, b: int, d: int,
+                  h: int) -> Tuple[int, int]:
+    """The bfloat16 backward kernel's grid of one member for B videos, D
+    features and H outputs: (dx blocks, dW/db blocks).  A dx block is one
+    tile of 64 videos by 128 D columns of one frame (frames slowest, then
+    row tiles, then D tiles); a dW block one tile of 64 H rows by 128 D
+    columns of one (scale, position) unit (units slowest, then H tiles,
+    then D tiles), those at position 0 and the first D tile also summing
+    db.  No dx blocks at B = 0: the dW blocks then write zeros."""
+    tiles_d = -(-d // _BF16_BWD_TILE_N)
+    dx_blocks = -(-b // _BF16_BWD_TILE_M) * tiles_d * num_frames
+    units = len(_fwd_units(num_frames, subsample_num))
+    return dx_blocks, tiles_d * -(-h // _BF16_BWD_TILE_M) * units
+
+
 def _launch_bwd(x, weights, masks, g, num_frames, subsample_num
                 ) -> Tuple[torch.Tensor, tuple, tuple]:
     """The backward kernel (one grid of dx and dW/db tiles): (dx, dWs,
-    dbs); the float32 one as one member of ``_bwd_kernel``."""
+    dbs), one member of ``_bwd_kernel``."""
     _check_inputs(x, weights, None, num_frames, subsample_num)
     _check_bwd(x, weights, masks, g, num_frames, subsample_num)
-    if x.dtype == torch.float32:
-        dx, dws, dbs = _bwd_kernel(_one(x), [_one(w) for w in weights],
-                                   _one(masks), _one(g), num_frames,
-                                   subsample_num)
-        return dx[0], tuple(t[0] for t in dws), tuple(t[0] for t in dbs)
-    return _bwd_kernel(x, weights, masks, g, num_frames, subsample_num)
+    dx, dws, dbs = _bwd_kernel(_one(x), [_one(w) for w in weights],
+                               _one(masks), _one(g), num_frames,
+                               subsample_num)
+    return dx[0], tuple(t[0] for t in dws), tuple(t[0] for t in dbs)
 
 
 def _bwd_kernel(x, weights, masks, g, num_frames, subsample_num):
-    """Launch the backward kernel on checked inputs: (dx, dWs, dbs),
-    float32 stacked (each input and output with its members first, one
-    launch for every member), bfloat16 one unstacked set."""
+    """Launch the backward kernel on checked stacked inputs (each input
+    and output with its members first): (dx, dWs, dbs), one launch for
+    every member; the bfloat16 kernel's grid is one member's
+    (``bf16_bwd_grid``)."""
     global bwd_launches, bf16_bwd_launches
-    lead, (b, s, d) = x.shape[:-3], x.shape[-3:]
+    n, b, s, d = x.shape
     h = weights[0].shape[-2]
     dx = torch.empty_like(x)
     # every dW_i side by side in one buffer, every db_i in another
-    dw = torch.empty(lead + (sum(w.shape[-2] * w.shape[-1]
-                                 for w in weights),),
+    dw = torch.empty((n, sum(w.shape[-2] * w.shape[-1] for w in weights)),
                      dtype=x.dtype, device=x.device)
-    db = torch.empty(lead + (len(weights), h), dtype=x.dtype,
-                     device=x.device)
+    db = torch.empty((n, len(weights), h), dtype=x.dtype, device=x.device)
     args = (x.data_ptr(),
             *_pointer_args(weights, (), num_frames, subsample_num, x.device),
             masks.data_ptr(), g.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
             *_plan_args(num_frames, subsample_num, x.device), b, s, d, h)
     if x.dtype == torch.float32:
-        _call("ta3n_trn_fused_bwd_f32", x, *args, x.shape[0])
+        _call("ta3n_trn_fused_bwd_f32", x, *args, n)
         bwd_launches += 1
     else:
-        _call("ta3n_trn_fused_bwd_bf16", x, *args)
+        _call("ta3n_trn_fused_bwd_bf16", x, *args,
+              *bf16_bwd_grid(num_frames, subsample_num, b, d, h), n)
         bf16_bwd_launches += 1
     return dx, _split_flat(dw, weights), tuple(db.unbind(-2))
 
@@ -665,7 +669,8 @@ def trn_multiscale_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 def _check_members(x, weights, biases, num_frames, subsample_num) -> None:
     """Raise on stacked inputs that the member-batched kernels do not take
-    (``biases`` None: the backward)."""
+    (``biases`` None: the backward), on any device, so that the CPU
+    refuses what the card refuses."""
     biases = list(biases) if biases is not None else []
     n = x.shape[0] if x.dim() == 4 else -1
     if n < 1 or any(t.dim() < 1 or t.shape[0] != n
@@ -674,15 +679,10 @@ def _check_members(x, weights, biases, num_frames, subsample_num) -> None:
             "member-batched inputs carry N >= 1 members first: x [N, B, "
             "S, D], each weight [N, H, k*D] and bias [N, H]; got x "
             f"{tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the member-batched TRN kernels take float32, got {x.dtype}: "
-            "the bfloat16 kernels' member axis is not ported yet "
-            "(ROADMAP.md queue 1, item 13)")
-    for t in (x, *weights, *biases):
-        _check_tensor(t, x.device, x.dtype)
     _check_inputs(x[0], [w[0] for w in weights],
                   [b[0] for b in biases] or None, num_frames, subsample_num)
+    for t in (x, *weights, *biases):
+        _check_tensor(t, x.device, x.dtype)
 
 
 def _each_member(fn, *stacked):
@@ -709,18 +709,18 @@ def trn_multiscale_infer_members(x: torch.Tensor,
                                  ) -> torch.Tensor:
     """``trn_multiscale_infer`` of N members in one call: x [N, B, S, D],
     weights[i] [N, H, k_i*D], biases[i] [N, H] -> [N, B, S-1, H].  A CUDA
-    ``x`` launches the float32 kernel once for every member (a member grid
-    axis; member k's blocks do a one-member launch's work on member k's
-    inputs, so its output is bitwise the solo call's); anything it does
-    not take raises.  A CPU ``x`` takes the plain version member by
-    member."""
+    ``x`` launches the kernel of its dtype (float32 or bfloat16) once for
+    every member (a member grid axis; member k's blocks do a one-member
+    launch's work on member k's inputs, so its output is bitwise the solo
+    call's).  Anything the kernels do not take raises, on any device.  A
+    CPU ``x`` takes the plain version member by member."""
+    _check_members(x, weights, biases, num_frames, subsample_num)
     if x.device.type == "cpu":
         return _each_member(
             lambda xk, wk, bk: trn_multiscale_plain(
                 xk, wk, bk, num_frames, subsample_num), x, weights, biases)
     if x.device.type != "cuda":
         raise _no_kernel("trn_multiscale_infer_members", x.device)
-    _check_members(x, weights, biases, num_frames, subsample_num)
     return _infer_kernel(x, weights, biases, num_frames, subsample_num)
 
 
@@ -730,16 +730,16 @@ def trn_multiscale_fwd_masks_members(
         subsample_num: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
     """``trn_multiscale_fwd_masks`` of N members in one call: ``(out [N,
     B, S-1, H], masks [N, B, n_sub*H])`` from stacked inputs as for
-    ``trn_multiscale_infer_members``: one launch of the float32 training
-    kernel on a CUDA ``x``, the plain version member by member on a CPU
-    one."""
+    ``trn_multiscale_infer_members``: one launch of the training kernel
+    of x's dtype on a CUDA ``x``, the plain version member by member on a
+    CPU one."""
+    _check_members(x, weights, biases, num_frames, subsample_num)
     if x.device.type == "cpu":
         return _each_member(
             lambda xk, wk, bk: trn_multiscale_fwd_masks_plain(
                 xk, wk, bk, num_frames, subsample_num), x, weights, biases)
     if x.device.type != "cuda":
         raise _no_kernel("trn_multiscale_fwd_masks_members", x.device)
-    _check_members(x, weights, biases, num_frames, subsample_num)
     return _train_kernel(x, weights, biases, num_frames, subsample_num)
 
 
@@ -749,9 +749,12 @@ def trn_multiscale_bwd_members(
         subsample_num: int = 3) -> Tuple[torch.Tensor, tuple, tuple]:
     """``trn_multiscale_bwd`` of N members in one call: ``(dx [N, B, S,
     D], dWs [N, H, k_i*D], dbs [N, H])`` from stacked x, weights, masks
-    [N, B, n_sub*H] and g [N, B, S-1, H]: one launch of the float32
-    backward kernel on a CUDA ``x`` (g may be non-contiguous), the plain
-    version member by member on a CPU one."""
+    [N, B, n_sub*H] and g [N, B, S-1, H]: one launch of the backward
+    kernel of x's dtype on a CUDA ``x`` (g may be non-contiguous), the
+    plain version member by member on a CPU one."""
+    _check_members(x, weights, None, num_frames, subsample_num)
+    g = g.contiguous()
+    _check_bwd(x, weights, masks, g, num_frames, subsample_num)
     if x.device.type == "cpu":
         return _each_member(
             lambda xk, wk, mk, gk: trn_multiscale_bwd_plain(
@@ -759,9 +762,6 @@ def trn_multiscale_bwd_members(
             x, weights, masks, g)
     if x.device.type != "cuda":
         raise _no_kernel("trn_multiscale_bwd_members", x.device)
-    _check_members(x, weights, None, num_frames, subsample_num)
-    g = g.contiguous()
-    _check_bwd(x, weights, masks, g, num_frames, subsample_num)
     return _bwd_kernel(x, weights, masks, g, num_frames, subsample_num)
 
 

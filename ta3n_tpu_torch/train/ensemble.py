@@ -29,9 +29,11 @@ Axes of variation per member, as in the JAX package:
     The feature stores are never stacked: one copy on the card serves
     every member.
 
-The float32 kernels carry the member axis; an ensemble at bfloat16
-compute raises (ROADMAP.md queue 1, item 13), and so does ``mesh=``: the
-multi-card member axis is queue 1, item 9.
+At either compute dtype: under ``compute_dtype="bfloat16"`` each member
+casts its float32 parameters to bfloat16 where the solo model does, the
+bfloat16 kernels launch once for all members, and the optimizer updates
+the float32 parameters, as a solo bfloat16 step does.  ``mesh=`` raises:
+the multi-card member axis is ROADMAP.md queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -86,14 +88,9 @@ class EnsembleState(NamedTuple):
         return next(iter(self.params.values())).shape[0]
 
 
-def _refuse(cfg, mesh) -> None:
+def _refuse(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(f"mesh=: {_MULTI_CARD}")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"ensembles at compute_dtype={cfg.compute_dtype!r}: the "
-            "bfloat16 kernels' member axis is not ported yet (ROADMAP.md "
-            "queue 1, item 13); ensembles compute in float32")
 
 
 def make_ensemble_mesh(member_shards: int, devices=None):
@@ -116,7 +113,6 @@ def create_ensemble_state(cfg, train_cfg: TrainConfig, seeds: Sequence[int],
     ``torch.Generator().manual_seed(seeds[k])`` as ``create_train_state``
     initialises a solo run, stacked, with fresh optimizer state and step
     0."""
-    _refuse(cfg, None)
     return stack_members(
         [VideoModel(cfg, torch.Generator().manual_seed(int(s)), device)
          for s in seeds], train_cfg)
@@ -127,7 +123,6 @@ def stack_members(models: Sequence[VideoModel], train_cfg: TrainConfig,
                   ) -> EnsembleState:
     """An ensemble of given solo models (their tensors copied), with fresh
     optimizer state unless ``opt`` is given."""
-    _refuse(models[0].cfg, None)
     params, buffers = stack_module_state(list(models))
     params = {k: v.detach() for k, v in params.items()}
     template = copy.deepcopy(models[0])
@@ -255,7 +250,7 @@ def make_ensemble_step(model: VideoModel, da: DAConfig,
     in place and returns the state with ``step + 1``.  The returned step
     carries ``parts_step`` (store parts already on the device) and
     ``reached`` (`reached_parameters`)."""
-    _refuse(model.cfg, mesh)
+    _refuse(mesh)
     loss_fn = make_train_step(model, da, train_cfg, class_weights,
                               domain_weights).loss_fn
     reached = reached_parameters(model, da, train_cfg, class_weights,
@@ -362,7 +357,7 @@ def make_ensemble_multi_step(model: VideoModel, da: DAConfig,
     shared scalars are a `StepScalars` of K-long sequences.  The stacked
     indices are checked and uploaded once for the call, labels and masks
     likewise; the K steps are bitwise K single steps."""
-    _refuse(model.cfg, mesh)
+    _refuse(mesh)
     parts_step = make_ensemble_step(
         model, da, train_cfg, class_weights, domain_weights,
         gather_on_device=True, per_member_data=per_member_data,
@@ -440,7 +435,7 @@ def make_ensemble_eval_step(model: VideoModel, class_weights=None, *,
       ev(state, x, y, mask) or, with ``gather_on_device``,
       ev(state, store, idx [B, T], y, mask) -> metrics with a leading
       member axis [N, ...] (those of ``make_eval_step``)."""
-    _refuse(model.cfg, mesh)
+    _refuse(mesh)
     device = next(model.parameters()).device
     if class_weights is not None:
         class_weights = _as(class_weights, device, torch.float32)

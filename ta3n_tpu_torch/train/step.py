@@ -293,6 +293,14 @@ def _store_part(store, idx, mask: torch.Tensor):
             mask.repeat_interleave(idx.shape[1]))
 
 
+def _scaled(s, t: torch.Tensor) -> torch.Tensor:
+    """``s * t`` in t's dtype, as a Python number ``s`` gives it (the
+    product in float32 for a bfloat16 t, then rounded), whether ``s`` is a
+    number or a float32 tensor (an ensemble member's schedule scalar under
+    ``vmap``, which would otherwise promote a bfloat16 loss to float32)."""
+    return (s * t).to(t.dtype)
+
+
 def _first_fc(net: VideoModel, domains=("target",)) -> list:
     """The (weight, bias) of each domain's first shared FC in the model's
     compute dtype (the gather kernel computes in the weight's dtype),
@@ -417,7 +425,7 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
             loss_d = metrics["loss_d"] = _discrepancy_loss(
                 out_s.feat, out_t.feat, da, cfg.add_fc, min(bs, bt), mask_s,
                 mask_t)
-            loss = loss + scalars.alpha * loss_d
+            loss = loss + _scaled(scalars.alpha, loss_d)
 
         # (3) adversarial loss (main.py:507-538)
         selected = []
@@ -432,7 +440,7 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
         # (main.py:558-562)
         if target_entropy:
             loss_e = metrics["loss_e"] = cross_entropy_soft(o_t, mt_r)
-            loss = loss + scalars.gamma * loss_e
+            loss = loss + _scaled(scalars.gamma, loss_e)
         elif entropy:
             pred_all = torch.cat([o_s, o_t])
             m_all = torch.cat([ms_r, mt_r])
@@ -440,7 +448,7 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
                 selected, out_s, out_t, mask_s, mask_t, pred_all.shape[0])
             loss_e = attentive_entropy(pred_all, dom_logits, m_all * dom_m)
             metrics["loss_e"] = loss_e
-            loss = loss + scalars.gamma * loss_e
+            loss = loss + _scaled(scalars.gamma, loss_e)
 
         # (5) MCD: a second forward with GRL(mu) on the video feature and
         # its own dropout masks; the discrepancy of its two target-stream

@@ -129,3 +129,43 @@ def test_bf16_grid_covers_every_tile_and_chunk_once(n, streams, k, d, h,
     assert splits == 1 or tiles_m * tiles_h * splits <= held
     if (m, h, store) == (640, 512, "bf16"):
         assert (tiles_m, tiles_h, splits) == (10, 4, 6)
+
+
+@pytest.mark.parametrize("s,b,d,h", [
+    (5, 202, 512, 256), (5, 64, 512, 256), (5, 1, 512, 256),
+    (5, 0, 512, 256), (17, 202, 512, 256), (25, 13, 37, 19),
+    (4, 65, 100, 129), (33, 3, 16, 8)])
+def test_bf16_bwd_grid_covers_every_tile_once(s, b, d, h):
+    """K2 in bfloat16: the grid that bf16_bwd_grid chooses, decoded as
+    trn_fused_bwd_bf16.cu's kernel decodes blockIdx.x (dx blocks first:
+    frame, then 64-video row tile, then 128-column D tile; then the dW/db
+    blocks: unit, then 64-row H tile, then D tile), covers every dx tile
+    of every frame and every (unit, dW tile) exactly once, with db summed
+    by one block per (scale, H tile); the blocks within CUDA's limit on
+    gridDim.x (the members, blockIdx.y, are at most 65535, which the C
+    entry checks)."""
+    dx_blocks, dw_blocks = trn_fused.bf16_bwd_grid(s, 3, b, d, h)
+    tm, tn = trn_fused._BF16_BWD_TILE_M, trn_fused._BF16_BWD_TILE_N
+    tiles_b, tiles_d, tiles_h = -(-b // tm), -(-d // tn), -(-h // tm)
+    units = trn_fused._fwd_units(s, 3)
+    assert dx_blocks + dw_blocks <= 2 ** 31 - 1
+    dx_seen, dw_seen, db_seen = [], [], []
+    for blk in range(dx_blocks + dw_blocks):
+        if blk < dx_blocks:
+            f, rem = divmod(blk, tiles_b * tiles_d)
+            dx_seen.append((f, rem // tiles_d * tm, rem % tiles_d * tn))
+        else:
+            z, rem = divmod(blk - dx_blocks, tiles_h * tiles_d)
+            h0, d0 = rem // tiles_d * tm, rem % tiles_d * tn
+            dw_seen.append((z, h0, d0))
+            scale, p, _ = units[z]
+            if p == 0 and d0 == 0:
+                db_seen.append((scale, h0))
+    assert sorted(dx_seen) == [(f, b0, d0) for f in range(s)
+                               for b0 in range(0, b, tm)
+                               for d0 in range(0, d, tn)]
+    assert sorted(dw_seen) == [(z, h0, d0) for z in range(len(units))
+                               for h0 in range(0, h, tm)
+                               for d0 in range(0, d, tn)]
+    assert sorted(db_seen) == [(i, h0) for i in range(s - 1)
+                               for h0 in range(0, h, tm)]

@@ -17,10 +17,12 @@ K and on a one-shard plan against the K-step call on the same indices,
 ShardStream's side-stream uploads read back exactly, the hash sampler
 bitwise equal on the CPU and the card, and the Trainer in each chunked
 mode on the card against the CPU.  The member axis of the ensembles: the
-member-batched TRN kernels and gather + FC bitwise N solo launches and
-within the plain version's tolerance, and a 3-member ensemble's
-device-store steps (one index stream or one each), eval step and
-Predictor on the card against the CPU, with their launches.
+member-batched TRN kernels and gather + FC, float32 and bfloat16, bitwise
+N solo launches and within the plain version's tolerance (bfloat16 also
+where the members' strides are not 16-byte multiples), and a 3-member
+ensemble's device-store steps (one index stream or one each), eval step
+and Predictor (bfloat16: from_sweep) on the card against the CPU, with
+their launches, at float32 and at bfloat16 compute.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs where jax is not installed:
@@ -1972,3 +1974,350 @@ def test_from_sweep_rnn_and_temconv_are_f32_at_cudnn_tf32_default(
           f"(largest probability {float(solo.max()):.3f})")
     assert torch.backends.cudnn.allow_tf32
     np.testing.assert_allclose(probs, solo, rtol=0, atol=1e-6)
+
+
+# ---- the bfloat16 kernels' member axis: each member-batched bfloat16
+# kernel is one launch for N members and, member by member, bitwise N solo
+# bfloat16 launches; and within _bf16_ok of the plain version ----
+
+def _reset_bf16_counts():
+    trn_fused.bf16_launches = trn_fused.bf16_train_launches = 0
+    trn_fused.bf16_bwd_launches = 0
+    for variant in gather_gemm.variant_launches:
+        gather_gemm.variant_launches[variant] = 0
+
+
+def _bf16_member_inputs(n, b, s, d, h):
+    bf = torch.bfloat16
+    x, w, bi = _member_trn_inputs(n, b, s, d, h)
+    return x.to(bf), [t.to(bf) for t in w], [t.to(bf) for t in bi]
+
+
+# (N, B, S, D, H): N = 1, 3, 4, 8 at the serve, train and single-video
+# batches of the flagship widths, S = 17, a ragged batch, an empty one
+BF16_MEMBER_CASES = [(1, 64, 5, 512, 256), (3, 1, 5, 512, 256),
+                     (4, 202, 5, 512, 256), (8, 64, 5, 512, 256),
+                     (8, 202, 5, 512, 256), (3, 202, 17, 512, 256),
+                     (3, 13, 5, 512, 256), (3, 0, 5, 512, 256)]
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["infer", "train"])
+@pytest.mark.parametrize("n,b,s,d,h", BF16_MEMBER_CASES)
+def test_bf16_member_fwd_kernels_bitwise_solo(n, b, s, d, h, train):
+    """K1 (infer, train) in bfloat16 over N members: one launch of the
+    bfloat16 variant, out (and masks) bitwise the N solo launches, within
+    _bf16_ok of the plain version."""
+    x, w, bi = _bf16_member_inputs(n, b, s, d, h)
+    with torch.no_grad():
+        _reset_bf16_counts()
+        if train:
+            got, masks = trn_fused.trn_multiscale_fwd_masks_members(
+                x, w, bi, s)
+            assert trn_fused.bf16_train_launches == (1 if b else 0)
+        else:
+            got = trn_fused.trn_multiscale_infer_members(x, w, bi, s)
+            assert trn_fused.bf16_launches == (1 if b else 0)
+        for k in range(n):
+            args = (x[k], [t[k] for t in w], [t[k] for t in bi], s)
+            if train:
+                so, sm = trn_fused.trn_multiscale_fwd_masks(*args)
+                assert torch.equal(masks[k], sm)
+            else:
+                so = trn_fused.trn_multiscale_infer(*args)
+            assert torch.equal(got[k], so)
+            assert _bf16_ok(got[k], trn_fused.trn_multiscale_plain(*args))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (n, b, s - 1, h)
+
+
+@pytest.mark.parametrize("n,b,s,d,h", BF16_MEMBER_CASES)
+def test_bf16_member_bwd_kernel_bitwise_solo(n, b, s, d, h):
+    """K2 in bfloat16 over N members on the grid bf16_bwd_grid chooses for
+    one member: one launch, dx, every dW and db bitwise the N solo
+    launches, within _bf16_ok of the plain version."""
+    x, w, bi = _bf16_member_inputs(n, b, s, d, h)
+    g = torch.randn((n, b, s - 1, h), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5)).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        _, masks = trn_fused.trn_multiscale_fwd_masks_members(x, w, bi, s)
+        _reset_bf16_counts()
+        dx, dws, dbs = trn_fused.trn_multiscale_bwd_members(x, w, masks, g,
+                                                            s)
+        assert trn_fused.bf16_bwd_launches == 1
+        for k in range(n):
+            args = (x[k], [t[k] for t in w], masks[k], g[k], s)
+            sx, sw, sb = trn_fused.trn_multiscale_bwd(*args)
+            px, pw, pb = trn_fused.trn_multiscale_bwd_plain(*args)
+            assert torch.equal(dx[k], sx) and _bf16_ok(dx[k], px)
+            for got, want, plain in [*zip([t[k] for t in dws], sw, pw),
+                                     *zip([t[k] for t in dbs], sb, pb)]:
+                assert torch.equal(got, want) and _bf16_ok(got, plain)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("per_member", [False, True],
+                         ids=["shared", "per_member"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("n,rows", [(1, 640), (3, 640), (8, 370), (3, 37),
+                                    (3, 0)])
+def test_bf16_member_gather_kernel_bitwise_solo(n, rows, kind, per_member):
+    """K3 at bfloat16 compute over N members from a float32, bfloat16 or
+    int8 store, one index set for all or one each: one launch of the
+    variant, z bitwise the N solo launches (K sliced by one member's
+    shape), x_res bitwise the solo launches' and written once for shared
+    indices, z within _bf16_ok of the plain version."""
+    store, _, _, _ = _gather_inputs(8, d=2048, h=512)
+    store = _narrow_store(store, kind)
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy((rng.uniform(-1, 1, (n, 512, 2048)) / 45.0)
+                         .astype(np.float32)).cuda().to(torch.bfloat16)
+    m = n if per_member else 1
+    r = (store[0] if kind == "int8" else store).shape[0]
+    idx = rng.integers(0, r, (m, rows))
+    scale = torch.from_numpy(rng.choice([1.0, 0.0, 0.5], (m, rows))
+                             .astype(np.float32)).cuda()
+    checked = gather_gemm.row_index(idx, r, "cuda")
+    member_idx = (gather_gemm.RowIndex(checked.rows.reshape(n, rows),
+                                       checked.end) if per_member
+                  else checked)
+    _reset_bf16_counts()
+    z, x_res = gather_gemm.gathered_gemm_members(
+        store, member_idx, w, scale if per_member else scale[0])
+    assert gather_gemm.variant_launches[f"{kind}_bf16"] == (1 if rows
+                                                            else 0)
+    assert x_res.shape == ((n,) if per_member else ()) + (rows, 2048)
+    for k in range(n):
+        j = k if per_member else 0
+        rows_k = gather_gemm.row_index(idx[j], r, "cuda")
+        sz, sx = gather_gemm.gathered_gemm(store, rows_k, w[k], scale[j])
+        pz, _ = gather_gemm.gathered_gemm_plain(store, rows_k.rows.long(),
+                                                w[k], scale[j])
+        assert torch.equal(z[k], sz) and _bf16_ok(z[k], pz)
+        assert torch.equal(x_res[k] if per_member else x_res, sx)
+    torch.cuda.synchronize()
+
+
+def test_bf16_member_kernels_unaligned_member_stride():
+    """D = 37 (and K3's D = 22): rows, and so every member's stride, that
+    are not multiples of 16 bytes, which TMA cannot take: the kernels
+    stage the members' tiles by plain loads, and every member is still
+    bitwise its solo launch, one launch a call."""
+    n, b, s, d, h = 3, 13, 5, 37, 19
+    x, w, bi = _bf16_member_inputs(n, b, s, d, h)
+    g = torch.randn((n, b, s - 1, h), device="cuda").to(torch.bfloat16)
+    _reset_bf16_counts()
+    with torch.no_grad():
+        out = trn_fused.trn_multiscale_infer_members(x, w, bi, s)
+        tout, masks = trn_fused.trn_multiscale_fwd_masks_members(x, w, bi, s)
+        dx, dws, dbs = trn_fused.trn_multiscale_bwd_members(x, w, masks, g,
+                                                            s)
+        for k in range(n):
+            args = (x[k], [t[k] for t in w], [t[k] for t in bi], s)
+            assert torch.equal(out[k], trn_fused.trn_multiscale_infer(*args))
+            so, sm = trn_fused.trn_multiscale_fwd_masks(*args)
+            assert torch.equal(tout[k], so) and torch.equal(masks[k], sm)
+            sx, sw, sb = trn_fused.trn_multiscale_bwd(
+                x[k], [t[k] for t in w], masks[k], g[k], s)
+            assert torch.equal(dx[k], sx)
+            assert all(torch.equal(a[k], c) for a, c in zip(dws, sw))
+            assert all(torch.equal(a[k], c) for a, c in zip(dbs, sb))
+    store, idx, scale, _ = _gather_inputs(40, d=22, h=33)
+    store = store.to(torch.bfloat16)
+    wg = torch.randn((n, 33, 22), device="cuda").to(torch.bfloat16)
+    rows = gather_gemm.row_index(idx, 500, "cuda")
+    z, x_res = gather_gemm.gathered_gemm_members(store, rows, wg, scale)
+    for k in range(n):
+        sz, sx = gather_gemm.gathered_gemm(store, rows, wg[k], scale)
+        assert torch.equal(z[k], sz) and torch.equal(x_res, sx)
+    torch.cuda.synchronize()
+    assert (trn_fused.bf16_launches, trn_fused.bf16_train_launches,
+            trn_fused.bf16_bwd_launches) == (1 + n, 1 + n, 1 + n)
+    assert gather_gemm.variant_launches["bf16_bf16"] == 1 + n
+
+
+def _bf16_ensemble_setup(n=3):
+    import dataclasses
+    cfg, da, tc, stores, seeds, create, gens = _ensemble_setup(n)
+    return (dataclasses.replace(cfg, compute_dtype="bfloat16"), da, tc,
+            stores, seeds, create, gens)
+
+
+# bfloat16 steps against each other (a member and its solo step on the
+# card, the card and the CPU): the losses (bfloat16 values, an ulp 2**-8
+# of them) within BF16_LOSS_RTOL, and each tensor's update within
+# BF16_UPDATE_RTOL of its largest (chip_smoke.py's rule for the bfloat16
+# steps: the two sides round the same bfloat16 values an ulp apart here
+# and there, summing in other orders)
+BF16_LOSS_RTOL, BF16_UPDATE_RTOL = 2e-2, 5e-2
+
+
+def _bf16_members(cfg, tc, seeds, dev):
+    """An ensemble of the members seeded ``seeds`` with every Linear
+    redrawn at torch's default scale (as chip_smoke.py's flagship_model
+    draws them): away from the reference init's near-zero activations,
+    where an ulp between the two sides flips relu masks at ties and moves
+    whole rows of the gradient."""
+    from ta3n_tpu_torch.train.ensemble import stack_members
+    models = []
+    for k in seeds:
+        gen = torch.Generator().manual_seed(k)
+        model = VideoModel(cfg, gen, "cpu")
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Linear):
+                torch_default_uniform_(mod, gen)
+        models.append(model.to(dev))
+    return stack_members(models, tc)
+
+
+def _update_within(got, want, before):
+    """Whether the update ``got - before`` is within BF16_UPDATE_RTOL of
+    the largest of ``want - before``, elementwise."""
+    got, want = (got - before).float(), (want - before).float()
+    return bool(((got - want).abs() <= BF16_UPDATE_RTOL
+                 * want.abs().max().item() + 1e-9).all())
+
+
+@pytest.mark.parametrize("per_member", [False, True],
+                         ids=["shared", "per_member"])
+def test_bf16_ensemble_store_step_on_cuda_matches_cpu(per_member):
+    """Two bfloat16 device-store ensemble steps of 3 members (redrawn at
+    torch's default scale, _bf16_members) from an int8 store on the card:
+    the first step of each member against its solo bfloat16 step on the
+    card and against the CPU ensemble's first step, all from the same
+    start, each within BF16_LOSS_RTOL and BF16_UPDATE_RTOL (a second step
+    would start from parameters an ulp apart); the second step's losses
+    against the CPU's within BF16_LOSS_RTOL; from one index stream or one
+    each; each step one launch of K1 (train) and K2 in bfloat16 and two of
+    K3 int8 x bf16, none of the float32 kernels, and no vmap fallback."""
+    import warnings
+
+    from ta3n_tpu_torch.train.ensemble import (extract_member,
+                                               make_ensemble_step,
+                                               stack_scalars)
+    cfg, da, tc, stores, seeds, _, gens = _bf16_ensemble_setup()
+    ls = TSNLoader(stores[0], batch_size=16, num_segments=5, seed=1)
+    lt = TSNLoader(stores[1], batch_size=12, num_segments=5, seed=2)
+    pairs = list(zip(ls.index_epoch(), lt.index_epoch()))
+    scalars = [StepScalars((0.3, 0.3, 0.3), 0.0, 1.0, 0.003, 0.03 * (k + 1))
+               for k in seeds]
+    sc = stack_scalars(scalars)
+
+    def args(i, k=None):
+        """Step i's index batches: the stream's, or member k's i + k (all
+        members' stacked when k is None)."""
+        if not per_member:
+            per = [pairs[i]]
+        elif k is not None:
+            per = [pairs[(i + k) % len(pairs)]]
+        else:
+            per = [pairs[(i + m) % len(pairs)] for m in range(len(seeds))]
+        out = tuple(np.stack([getattr(p[j], f) for p in per])
+                    for j in (0, 1) for f in ("abs_indices", "labels",
+                                              "mask"))
+        return out if per_member and k is None else tuple(a[0] for a in out)
+
+    results = {}
+    start = {k: v.clone() for k, v in
+             _bf16_members(cfg, tc, seeds, "cpu").params.items()}
+    for dev in ("cpu", "cuda"):
+        state = _bf16_members(cfg, tc, seeds, dev)
+        step = make_ensemble_step(state.model, da, tc, gather_on_device=True,
+                                  per_member_data=per_member)
+        s_dev = [st.to_device(dev, "int8") for st in stores[:2]]
+        g = gens(seeds, dev)
+        solos = ([extract_member(state, k, tc) for k in seeds]
+                 if dev == "cuda" else [])
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in range(2):
+                _reset_counts()
+                _reset_bf16_counts()
+                a = args(i)
+                state, m = step(state, s_dev[0], *a[:3], s_dev[1], *a[3:],
+                                sc, g)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    assert _counts() == (0, 0, 0, 0)
+                    assert (trn_fused.bf16_train_launches,
+                            trn_fused.bf16_bwd_launches,
+                            gather_gemm.variant_launches["int8_bf16"]) == \
+                        (1, 1, 2)
+                if i == 0:
+                    first = {n: t.detach().cpu().clone()
+                             for n, t in state.params.items()}
+                    first_loss = m["loss"].cpu()
+                if dev == "cuda" and i == 0:
+                    for k, solo in enumerate(solos):
+                        before = {n: p.detach().clone() for n, p in
+                                  solo.model.named_parameters()}
+                        a_k = args(0, k)
+                        solo, want = make_train_step(
+                            solo.model, da, tc, gather_on_device=True)(
+                            solo, s_dev[0], *a_k[:3], s_dev[1], *a_k[3:],
+                            scalars[k], None)
+                        assert abs(float(m["loss"][k]) - float(
+                            want["loss"])) <= BF16_LOSS_RTOL * abs(
+                            float(want["loss"]))
+                        for n, p in solo.model.named_parameters():
+                            assert _update_within(state.params[n][k], p,
+                                                  before[n]), n
+        assert not [w for w in caught if "performance drop" in
+                    str(w.message)]
+        assert {t.dtype for t in state.params.values()} == {torch.float32}
+        results[dev] = (first, first_loss, m["loss"].cpu())
+    (cpu, cpu_first, cpu_last), (card, card_first, card_last) = \
+        results["cpu"], results["cuda"]
+    for got, want in ((card_first, cpu_first), (card_last, cpu_last)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   rtol=BF16_LOSS_RTOL)
+    for name, t in cpu.items():
+        assert _update_within(card[name], t, start[name]), name
+
+
+def test_bf16_ensemble_eval_and_from_sweep_on_cuda_match_cpu(tmp_path):
+    """At bfloat16 compute: the ensemble eval step from an int8 store (K3
+    int8 x bf16 once, K1 (infer) in bfloat16 once for all members) and
+    from_sweep of the members' checkpoints (K1 (infer) in bfloat16 once a
+    chunk) on the card against the CPU: logits within 2**-6 of the
+    largest (bfloat16 values an ulp or two apart) and probabilities
+    within 2**-6."""
+    from ta3n_tpu_torch.io_utils.checkpoint import save_checkpoint
+    from ta3n_tpu_torch.io_utils.convert import export_reference_state
+    from ta3n_tpu_torch.serve import Predictor
+    from ta3n_tpu_torch.train.ensemble import (extract_member,
+                                               make_ensemble_eval_step)
+    cfg, _, tc, stores, seeds, create, _ = _bf16_ensemble_setup()
+    lv = TSNLoader(stores[2], batch_size=16, num_segments=5, mode="test",
+                   shuffle=False)
+    b = next(iter(lv.index_epoch()))
+    x = np.random.default_rng(4).normal(size=(7, 5, 64)).astype(np.float32)
+    state = create(cfg, tc, seeds, "cpu")
+    sweep = tmp_path / "sweep"
+    for k in seeds:
+        save_checkpoint(str(sweep / f"member_{k:02d}"), {
+            "epoch": 1, "arch": "TBN", "state_dict": {
+                f"module.{name}": v for name, v in export_reference_state(
+                    extract_member(state, k, tc).model).items()}})
+    got = {}
+    for dev in ("cpu", "cuda"):
+        st = create(cfg, tc, seeds, dev)
+        ev = make_ensemble_eval_step(st.model, gather_on_device=True)
+        _reset_counts()
+        _reset_bf16_counts()
+        m = ev(st, stores[2].to_device(dev, "int8"), b.abs_indices,
+               b.labels, b.mask)
+        pred = Predictor.from_sweep(str(sweep), cfg, device=dev,
+                                    batch_size=4, top_k=3)
+        probs = pred(x)[0]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert _counts() == (0, 0, 0, 0)
+            # the eval step's one launch, then two chunks of 4
+            assert trn_fused.bf16_launches == 3
+            assert gather_gemm.variant_launches["int8_bf16"] == 1
+        got[dev] = (m["logits"].float().cpu().numpy(), probs)
+    logits_cpu = got["cpu"][0]
+    assert np.abs(got["cuda"][0] - logits_cpu).max() <= \
+        2.0 ** -6 * np.abs(logits_cpu).max()
+    np.testing.assert_allclose(got["cuda"][1], got["cpu"][1], atol=2.0 ** -6)

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from test_torch_port_multi_step import _schedule
+from test_torch_port_precision import SLICE_TOL
 from test_torch_port_train import (DA, GAMMA, LOSS_RTOL, LR0, PARAM_TOL,
                                    _redraw)
 from test_torch_port_trn_train import BWD_TOL, FWD_TOL, _inputs, _torch
@@ -43,6 +44,7 @@ from ta3n_tpu.train.step import _build_tx
 from ta3n_tpu_torch.cli import test_models as cli_test_models
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.data import FeatureStore, TSNLoader, make_domain_pair
+from ta3n_tpu_torch.data.quantized import quantize_rows
 from ta3n_tpu_torch.io_utils.checkpoint import save_checkpoint
 from ta3n_tpu_torch.io_utils.convert import (ensemble_from_jax_params,
                                              export_reference_state,
@@ -57,7 +59,7 @@ from ta3n_tpu_torch.train.ensemble import (create_ensemble_state,
                                            make_ensemble_multi_step,
                                            make_ensemble_step,
                                            stack_scalars)
-from ta3n_tpu_torch.train.step import make_train_step
+from ta3n_tpu_torch.train.step import make_eval_step, make_train_step
 
 SEG, FDIM = 3, 16
 MODEL = dict(num_class=4, baseline_type="video", frame_aggregation="trn-m",
@@ -243,6 +245,173 @@ def test_ensemble_matches_jax_ensemble():
             np.testing.assert_allclose(ens.params[name][k].numpy(),
                                        t.numpy(), **PARAM_TOL,
                                        err_msg=name)
+
+
+# ---- bfloat16 compute ----
+
+def _ramp_scalars(i, lrs):
+    """Step i's per-member scalars on the DANN beta ramp (betas that are
+    not bfloat16 values, so a member's GRL must scale its bfloat16
+    gradient as the solo run's number does) and GAMMA (not one either)."""
+    betas, _ = _schedule()
+    return [s._replace(beta=tuple(betas[i])) for s in _scalars(i, lrs)]
+
+
+@pytest.mark.parametrize("mode", ["host", "host_per_member", "store_f32",
+                                  "store_int8_per_member"])
+def test_bf16_members_are_solo_runs_bitwise(mode):
+    """At compute_dtype="bfloat16", 3 members over 3 steps at dropout 0.25
+    and per-member lr on the beta ramp: each member's parameters, BN
+    statistics, momentum and metrics are its solo bfloat16 run's, bitwise,
+    from host features (one stream, or one each) and from a device store
+    (a float32 store with one stream, an int8 store with one each); the
+    parameters stay float32."""
+    cfg, da, tc = _cfg(compute_dtype="bfloat16"), DAConfig(**DA), _tc()
+    lrs = (0.03, 0.02, 0.01)
+    per_member = mode.endswith("per_member")
+    if mode.startswith("host"):
+        batches = _batches(3, members=3 if per_member else None)
+
+        def feed(k):
+            return ([tuple(f[k] for f in b) for b in batches] if per_member
+                    else batches)
+    else:
+        stores = make_domain_pair(num_source=60, num_target=50, num_val=4,
+                                  num_class=4, feature_dim=FDIM)
+        dev = [s.to_device("cpu", "int8" if "int8" in mode else None)
+               for s in stores[:2]]
+        pairs = _store_feed(stores, dev)
+
+        def feed(k):
+            return [_pair_args(dev, *pairs[(i + k) % len(pairs)
+                                           if per_member else i])
+                    for i in range(3)]
+    # the ensemble's step arguments: member k's feed(k), stacked [N, ...]
+    # per member but for the stores
+    calls = feed(0)
+    if per_member:
+        calls = [[a if j in (0, 4) and not mode.startswith("host")
+                  else np.stack([feed(k)[i][j] for k in range(3)])
+                  for j, a in enumerate(calls[i])] for i in range(3)]
+    out = []
+    for k, sd in enumerate(SEEDS):
+        st = create_train_state(cfg, tc, torch.Generator().manual_seed(sd),
+                                "cpu")
+        step = make_train_step(st.model, da, tc,
+                               gather_on_device=not mode.startswith("host"))
+        g = torch.Generator().manual_seed(sd)
+        for i, args in enumerate(feed(k)):
+            st, m = step(st, *args, _ramp_scalars(i, lrs)[k], g)
+        out.append((st, m, g))
+    ens = create_ensemble_state(cfg, tc, SEEDS, "cpu")
+    step = make_ensemble_step(ens.model, da, tc,
+                              gather_on_device=not mode.startswith("host"),
+                              per_member_data=per_member)
+    gens = ensemble_generators(SEEDS, "cpu")
+    for i, args in enumerate(calls):
+        ens, m = step(ens, *args, stack_scalars(_ramp_scalars(i, lrs)),
+                      gens)
+    assert {t.dtype for t in ens.params.values()} == {torch.float32}
+    for k, (st, metrics, g) in enumerate(out):
+        _assert_member_is_solo(ens, k, st)
+        assert torch.equal(gens[k].get_state(), g.get_state())
+        for key, v in metrics.items():
+            assert torch.equal(m[key][k], v), key
+        for name, p in st.model.named_parameters():
+            buf = st.optimizer.state.get(p, {}).get("momentum_buffer")
+            if buf is not None:
+                assert torch.equal(ens.opt["momentum_buffer"][name][k],
+                                   buf), name
+
+
+def test_bf16_eval_and_multi_step_are_member_runs():
+    """At bfloat16 compute: K = 3 ensemble steps in one call over stacked
+    index batches into an int8 store are 3 single ensemble steps,
+    bitwise; and the ensemble eval step from the store gives each member
+    its solo eval step's metrics, bitwise."""
+    cfg, da, tc = _cfg(compute_dtype="bfloat16"), DAConfig(**DA), _tc()
+    stores = make_domain_pair(num_source=60, num_target=50, num_val=12,
+                              num_class=4, feature_dim=FDIM)
+    dev = [s.to_device("cpu", "int8") for s in stores]
+    pairs = _store_feed(stores, dev)[:3]
+    lrs = (0.03, 0.02, 0.01)
+    runs = []
+    for multi in (False, True):
+        ens = create_ensemble_state(cfg, tc, SEEDS, "cpu")
+        gens = ensemble_generators(SEEDS, "cpu")
+        if multi:
+            step = make_ensemble_multi_step(ens.model, da, tc)
+            per = [_pair_args(dev, *p) for p in pairs]
+            stacked = [a if j in (0, 4) else np.stack([p[j] for p in per])
+                       for j, a in enumerate(per[0])]
+            sc = StepScalars(*(np.stack(f) for f in zip(
+                *[stack_scalars(_ramp_scalars(i, lrs)) for i in range(3)])))
+            ens, _ = step(ens, *stacked, sc, gens)
+        else:
+            step = make_ensemble_step(ens.model, da, tc,
+                                      gather_on_device=True)
+            for i, p in enumerate(pairs):
+                ens, _ = step(ens, *_pair_args(dev, *p),
+                              stack_scalars(_ramp_scalars(i, lrs)), gens)
+        runs.append(ens)
+    for name, t in runs[0].params.items():
+        assert torch.equal(t, runs[1].params[name]), name
+    lv = TSNLoader(stores[2], batch_size=12, num_segments=SEG, mode="test",
+                   shuffle=False)
+    b = next(iter(lv.index_epoch()))
+    got = make_ensemble_eval_step(runs[1].model, gather_on_device=True)(
+        runs[1], dev[2], b.abs_indices, b.labels, b.mask)
+    for k in range(len(SEEDS)):
+        member = extract_member(runs[1], k, tc).model
+        want = make_eval_step(member, gather_on_device=True)(
+            dev[2], b.abs_indices, b.labels, b.mask)
+        for key in ("loss", "top1", "logits"):
+            assert torch.equal(got[key][k], want[key]), key
+
+
+def test_bf16_ensemble_matches_jax_ensemble():
+    """The port's bfloat16 ensemble against the JAX ensemble at
+    compute_dtype="bfloat16" from the same converted members, 3
+    host-feature steps at dropout 0 with per-member lr on the beta ramp:
+    every step's losses within SLICE_TOL of the largest, and every
+    member's parameters after the first step within SLICE_TOL of the
+    tensor's largest (test_torch_port_precision.py's bound for the
+    bfloat16 slice: the two packages round to bfloat16 at other places)."""
+    fields = dict(MODEL, dropout_i=0.0, dropout_v=0.0,
+                  compute_dtype="bfloat16")
+    jcfg = JaxModelConfig(**fields)
+    jtc = JaxTrainConfig(lr=LR0, batch_size=(B_S, B_T, 8))
+    model, jstate = _jax_members(jcfg, jtc, SEEDS)
+    lrs = (0.03, 0.02, 0.01)
+    jstep = jax_ensemble_step(model, JaxDAConfig(**DA), jtc)
+    keys = ensemble_keys(SEEDS)
+    cfg, tc = ModelConfig(**fields), _tc()
+    ens = ensemble_from_jax_params(
+        jax.tree_util.tree_map(np.asarray, jstate.params), None, cfg, tc,
+        "cpu")
+    step = make_ensemble_step(ens.model, DAConfig(**DA), tc)
+    gens = ensemble_generators(SEEDS, "cpu")
+    for i, b in enumerate(_batches()):
+        sc = _ramp_scalars(i, lrs)
+        jsc = jax_stack_scalars([JaxStepScalars(
+            jnp.asarray(s.beta, jnp.float32), jnp.float32(s.mu),
+            jnp.float32(s.alpha), jnp.float32(s.gamma), jnp.float32(s.lr))
+            for s in sc])
+        jstate, want = jstep(jstate, *b, jsc, keys)
+        ens, got = step(ens, *b, stack_scalars(sc), gens)
+        want_loss = np.asarray(want["loss"], np.float32)
+        assert np.abs(got["loss"].numpy() - want_loss).max() <= \
+            SLICE_TOL * np.abs(want_loss).max(), i
+        if i > 0:
+            continue
+        host = jax.tree_util.tree_map(np.asarray, jstate.params)
+        for k in range(len(SEEDS)):
+            want_p = state_dict_from_jax_params(
+                jax.tree_util.tree_map(lambda l: l[k], host))
+            for name, t in want_p.items():
+                err = (ens.params[name][k] - t).abs().max().item()
+                assert err <= SLICE_TOL * max(t.abs().max().item(), 1e-6), \
+                    name
 
 
 def test_lr_zero_member_keeps_its_init():
@@ -463,6 +632,13 @@ def test_unreached_parameter_moves_as_in_the_solo_run():
     "mesh_step", "mesh_eval", "mesh_multi", "make_mesh", "bf16_state",
     "bf16_step", "generators", "scalar_shape"])
 def test_error_paths(case):
+    """``mesh=`` raises naming ROADMAP.md queue 1, item 9; a bfloat16
+    ensemble's member-batched TRN call with a float32 weight raises
+    TypeError (``bf16_state``: the kernels take one dtype) and one above
+    BF16_MAX_SCALES scales raises naming the limit (``bf16_step``: the
+    weight maps are a kernel parameter), on the CPU as on the card; the
+    ensemble step refuses too few generators and per-member scalars of
+    the wrong shape."""
     cfg, da, tc = _cfg(), DAConfig(**DA), _tc()
     ens = create_ensemble_state(cfg, tc, SEEDS, "cpu")
     err, match = NotImplementedError, "ROADMAP.md queue 1, item 9"
@@ -476,14 +652,24 @@ def test_error_paths(case):
     elif case == "make_mesh":
         call = lambda: make_ensemble_mesh(2)
     elif case == "bf16_state":
-        match = "item 13"
-        call = lambda: create_ensemble_state(
-            _cfg(compute_dtype="bfloat16"), tc, SEEDS, "cpu")
+        bf16 = create_ensemble_state(_cfg(compute_dtype="bfloat16"), tc,
+                                     SEEDS, "cpu")
+        bf = torch.bfloat16
+        weights = [bf16.params[f"TRN.fc_fusion_scales.{i}.1.weight"]
+                   for i in range(SEG - 1)]
+        biases = [bf16.params[f"TRN.fc_fusion_scales.{i}.1.bias"].to(bf)
+                  for i in range(SEG - 1)]
+        x = torch.ones((3, 2, SEG, 16), dtype=bf)
+        err, match = TypeError, "takes torch.bfloat16"
+        call = lambda: trn_fused.trn_multiscale_fwd_masks_members(
+            x, [weights[0].to(bf), weights[1]], biases, SEG)
     elif case == "bf16_step":
-        match = "item 13"
-        bf16 = create_train_state(_cfg(compute_dtype="bfloat16"), tc,
-                                  torch.Generator().manual_seed(0), "cpu")
-        call = lambda: make_ensemble_step(bf16.model, da, tc)
+        s = trn_fused.BF16_MAX_SCALES + 2
+        x = torch.ones((3, 2, s, 4), dtype=torch.bfloat16)
+        err, match = ValueError, f"at most {trn_fused.BF16_MAX_SCALES} scales"
+        call = lambda: trn_fused.trn_multiscale_infer_members(
+            x, [torch.ones((3, 4, 4), dtype=torch.bfloat16)] * (s - 1),
+            [torch.ones((3, 4), dtype=torch.bfloat16)] * (s - 1), s)
     else:
         step = make_ensemble_step(ens.model, da, tc)
         b = _batches(1)[0]
@@ -601,6 +787,106 @@ def test_vmapped_gathered_linear_equals_member_calls(per_member):
         sz, sx = gather_gemm.gathered_gemm(store, rk, w[k], scale[j])
         assert torch.equal(z[k], sz)
         assert torch.equal(x_res[k] if per_member else x_res, sx)
+
+
+@pytest.mark.parametrize("b,s,d,h", [(6, 5, 16, 8), (13, 4, 37, 19)])
+def test_vmapped_bf16_trn_ops_equal_member_calls(b, s, d, h):
+    """The bfloat16 TRN ops over 3 members' stacked bfloat16 inputs:
+    ``vmap(grad)`` through the fused TRN (its output and the gradients of
+    x, weights and biases) and the inference forward under vmap, bitwise
+    each member's solo call; the outputs and gradients stay bfloat16."""
+    bf = torch.bfloat16
+    members = [_torch(*_inputs(b, s, d, h, seed=k)[:3]) for k in range(3)]
+    tx = torch.stack([m[0] for m in members]).to(bf)
+    tw = [torch.stack([m[1][i] for m in members]).to(bf)
+          for i in range(s - 1)]
+    tb = [torch.stack([m[2][i] for m in members]).to(bf)
+          for i in range(s - 1)]
+    tg = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(3, b, s - 1, h)).astype(np.float32)).to(bf)
+
+    def loss(x, w, bi, g):
+        return (trn_fused.trn_multiscale_fused(x, w, bi, s).float()
+                * g.float()).sum()
+
+    grads = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(
+        tx, tw, tb, tg)
+    with torch.no_grad():
+        infer = torch.func.vmap(
+            lambda x, w, bi: trn_fused.trn_multiscale_infer(x, w, bi, s))(
+            tx, tw, tb)
+    assert infer.dtype == grads[0].dtype == grads[1][0].dtype == bf
+    for k in range(3):
+        x = tx[k].clone().requires_grad_(True)
+        w = [t[k].clone().requires_grad_(True) for t in tw]
+        bi = [t[k].clone().requires_grad_(True) for t in tb]
+        loss(x, w, bi, tg[k]).backward()
+        assert torch.equal(infer[k], trn_fused.trn_multiscale_infer(
+            tx[k], [t[k] for t in tw], [t[k] for t in tb], s))
+        assert torch.equal(grads[0][k], x.grad)
+        for i in range(s - 1):
+            assert torch.equal(grads[1][i][k], w[i].grad)
+            assert torch.equal(grads[2][i][k], bi[i].grad)
+
+
+@pytest.mark.parametrize("per_member", [False, True],
+                         ids=["shared", "per_member"])
+@pytest.mark.parametrize("store_kind", ["f32", "bf16", "int8"])
+def test_vmapped_bf16_gather_equals_member_calls(store_kind, per_member):
+    """At bfloat16 compute (bfloat16 weights) from a float32, bfloat16 or
+    int8 store, one index set or one each: gathered_linear under
+    ``vmap(grad)`` (z, dW and db), gathered_gemm under vmap and
+    gathered_gemm_members, bitwise each member's solo call."""
+    rng = np.random.default_rng(1)
+    rows_f32 = rng.normal(size=(50, FDIM)).astype(np.float32)
+    if store_kind == "int8":
+        q, qs = quantize_rows(rows_f32)
+        store = (torch.from_numpy(q), torch.from_numpy(qs))
+    else:
+        store = torch.from_numpy(rows_f32).to(
+            torch.bfloat16 if store_kind == "bf16" else torch.float32)
+    bf = torch.bfloat16
+    w = torch.from_numpy(rng.normal(size=(3, 8, FDIM)).astype(
+        np.float32)).to(bf)
+    bias = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32)).to(bf)
+    n_sets = 3 if per_member else 1
+    idx = rng.integers(0, 50, (n_sets, 12))
+    scale = torch.from_numpy(rng.choice([0.0, 0.5, 1.0], (n_sets, 12))
+                             .astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(3, 12, 8)).astype(np.float32))
+    checked = gather_gemm.row_index(idx, 50, "cpu")
+    rows = gather_gemm.RowIndex(checked.rows.reshape(idx.shape),
+                                checked.end)
+    if not per_member:
+        rows, scale = gather_gemm.RowIndex(rows.rows[0], rows.end), scale[0]
+    dims = (gather_gemm.RowIndex(0 if per_member else None, None),
+            0 if per_member else None)
+
+    def loss(w, b, rows, scale, g):
+        return (gather_gemm.gathered_linear([(store, rows, scale)], w, b)
+                .float() * g).sum()
+
+    gw, gb = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)),
+                             in_dims=(0, 0, *dims, 0))(w, bias, rows, scale,
+                                                       g)
+    with torch.no_grad():
+        vz, vx = torch.func.vmap(
+            lambda w, rows, scale: gather_gemm.gathered_gemm(
+                store, rows, w, scale), in_dims=(0, *dims))(w, rows, scale)
+    z, x_res = gather_gemm.gathered_gemm_members(store, rows, w, scale)
+    assert z.dtype == x_res.dtype == gw.dtype == bf
+    for k in range(3):
+        rk = gather_gemm.RowIndex(rows.rows[k] if per_member else rows.rows,
+                                  rows.end)
+        sk = scale[k] if per_member else scale
+        wk = w[k].clone().requires_grad_(True)
+        bk = bias[k].clone().requires_grad_(True)
+        loss(wk, bk, rk, sk, g[k]).backward()
+        assert torch.equal(gw[k], wk.grad) and torch.equal(gb[k], bk.grad)
+        sz, sx = gather_gemm.gathered_gemm(store, rk, w[k], sk)
+        assert torch.equal(z[k], sz) and torch.equal(vz[k], sz)
+        assert torch.equal(x_res[k] if per_member else x_res, sx)
+        assert torch.equal(vx[k], sx)  # vmap expands a shared x_res
 
 
 # ---- the Functions in the setup_context form, outside a transform ----

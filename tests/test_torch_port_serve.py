@@ -6,6 +6,7 @@ whose probabilities are the mean of the members' solo Predictors' and the
 JAX ensemble Predictor's (``n_members``) on the same weights, within
 PROB_TOL; the CLI refuses what is not ported."""
 
+import dataclasses
 import os
 import shutil
 
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_precision import SLICE_TOL
 from ta3n_tpu.config import ModelConfig, TrainConfig
 from ta3n_tpu.io_utils.torch_export import save_torch_checkpoint
 from ta3n_tpu.models import VideoModel as JaxVideoModel
@@ -226,6 +228,34 @@ def test_from_sweep_is_the_member_mean_and_the_jax_ensemble(members,
     with pytest.raises(FileNotFoundError, match="no member_"):
         Predictor.from_sweep(str(tmp_path / "empty"), CFG, device="cpu")
     assert Predictor.is_sweep(sweep) and not Predictor.is_sweep(paths[0])
+
+
+def test_bf16_from_sweep_is_the_member_mean_and_the_jax_ensemble(members,
+                                                                 tmp_path):
+    """from_sweep over the three members at compute_dtype="bfloat16"
+    (batch 4, two chunks, the second padded): a float32 softmax averaged
+    over the members, the mean of the members' solo bfloat16 Predictors
+    within PROB_TOL, and within SLICE_TOL of the JAX
+    Predictor(n_members=3) at bfloat16 (test_torch_port_precision.py's
+    bound for the bfloat16 slice); the same top classes."""
+    cfg = dataclasses.replace(CFG, compute_dtype="bfloat16")
+    paths = [p for p, _ in members]
+    sweep = _sweep_dir(tmp_path, paths)
+    x = np.random.default_rng(6).normal(size=(6, 3, 16)).astype(np.float32)
+    probs, tp, ti = Predictor.from_sweep(sweep, cfg, device="cpu",
+                                         batch_size=4, top_k=3)(x)
+    assert probs.dtype == np.float32
+    solo = [Predictor.from_checkpoint(p, cfg, device="cpu", batch_size=4,
+                                      top_k=3)(x)[0] for p in paths]
+    np.testing.assert_allclose(probs, np.mean(solo, axis=0), rtol=0,
+                               atol=PROB_TOL)
+    stacked = jax.tree_util.tree_map(lambda *ls: np.stack(ls),
+                                     *[p for _, p in members])
+    want_p, _, want_ti = JaxPredictor(cfg, stacked, batch_size=4, top_k=3,
+                                      n_members=3)(x)
+    want_p = np.asarray(want_p, np.float32)
+    assert np.abs(probs - want_p).max() <= SLICE_TOL * np.abs(want_p).max()
+    np.testing.assert_array_equal(ti[:, 0], np.asarray(want_ti)[:, 0])
 
 
 def _class_file(tmp_path):

@@ -16,6 +16,7 @@ import signal
 import pytest
 import torch
 
+from test_torch_port_precision import SLICE_TOL
 from ta3n_tpu.cli.sweep import main as jax_sweep_main
 from ta3n_tpu.data.synthetic import make_domain_pair as jax_domain_pair
 from ta3n_tpu_torch.cli import sweep as cli_sweep
@@ -251,3 +252,41 @@ def test_sweep_cli_lines_match_the_jax_cli(tmp_path):
     with pytest.raises(SystemExit, match="item 9"):
         cli_sweep.main(_sweep_argv(port_root, out_dir)
                        + ["--device", "cpu", "--sweep_mesh", "2"])
+
+
+def test_bf16_sweep_cli_matches_the_jax_cli(tmp_path):
+    """cli.sweep at --compute_dtype bfloat16 from int8 stores (the JAX
+    sweep's flags): one JSON line per member and a summary line with the
+    JAX CLI's keys, each member's first-epoch final loss within SLICE_TOL
+    of the JAX member's of the same seed and lr (test_torch_port_precision
+    .py's bound for the bfloat16 slice; at the reference's near-zero init
+    the losses are set by the data, not by the two packages' draws), and
+    the eval CLI at the same dtypes reproducing a member's top-1 from its
+    checkpoint."""
+    port_root, jax_root = tmp_path / "port", tmp_path / "jax"
+    port_root.mkdir()
+    jax_root.mkdir()
+    _workspace(port_root, make_domain_pair)
+    _workspace(jax_root, jax_domain_pair)
+    out_dir = port_root / "sweep"
+    flags = ["--compute_dtype", "bfloat16", "--store_dtype", "int8"]
+    ours = _json_lines(cli_sweep.main, _sweep_argv(port_root, out_dir)
+                       + flags + ["--device", "cpu"])
+    theirs = _json_lines(jax_sweep_main,
+                         _sweep_argv(jax_root, jax_root / "sweep") + flags)
+    assert len(ours) == len(theirs) == 5
+    assert [sorted(r) for r in ours] == [sorted(r) for r in theirs]
+    by_member = {(r["seed"], r["lr"]): r["final_loss"] for r in theirs[:4]}
+    for row in ours[:4]:
+        want = by_member[(row["seed"], row["lr"])]
+        assert abs(row["final_loss"] - want) <= SLICE_TOL * abs(want), row
+    line = cli_test_models.main([
+        str(port_root / "class.txt"), "RGB",
+        str(port_root / "val" / "list.txt"),
+        str(out_dir / "member_01" / "checkpoint.pth.tar"),
+        "--test_segments", str(SEG), "--fc_dim", "16", "--feature_dim",
+        str(FDIM), "--baseline_type", "video", "--frame_aggregation",
+        "avgpool", "--use_attn", "none", "--bS", "8", "--top", "1",
+        "--device", "cpu", "--device_store", *flags])
+    assert f"Pred@1 {ours[1]['top1']:.2f}%" in line
+
