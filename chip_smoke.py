@@ -110,6 +110,18 @@ fallback, timed against 4 solo bfloat16 steps; a bfloat16 ensemble val
 batch; from_sweep of bfloat16 members over HTTP; and cli.sweep
 --compute_dtype bfloat16 --store_dtype int8 for one epoch, then the eval
 CLI on member_00.
+The serving extras and the feature extractor: int8_matmul at the
+flagship's int8 shapes bitwise against the CPU; the int8 flagship served
+over HTTP at batch 64 and in process at batch 1 against the same weights'
+int8 path on the CPU, with its int8 products a forward and no K1, JAX's
+rule against float32 logged; a 2-member int8 from_sweep with no vmap
+fallback; the int8 eval CLI from host features and from the store; float32
+and int8 artifacts exported by cli.serve --export, loaded by
+Predictor.from_exported on the card and served over HTTP against the live
+Predictor; 640 videos through the pipelined Predictor against the chunks
+fetched one call each, bitwise, timed in turns; ResNet-101 and C3D (both
+activations) extracting features on the card against the CPU, the shards
+packed by video2feature --finalize, frames/s and clips/s.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -132,11 +144,13 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
 from torch import nn
 
+from ta3n_tpu_torch.cli import serve as cli_serve
 from ta3n_tpu_torch.cli import sweep as cli_sweep
 from ta3n_tpu_torch.cli import test_models as cli_test_models
 from ta3n_tpu_torch.cli import train as cli_train
@@ -150,9 +164,11 @@ from ta3n_tpu_torch.io_utils.checkpoint import save_checkpoint
 from ta3n_tpu_torch.io_utils.convert import (export_reference_state,
                                              load_reference_checkpoint)
 from ta3n_tpu_torch.models import VideoModel
+from ta3n_tpu_torch.models import layers
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
 from ta3n_tpu_torch.ops import _build, gather_gemm, relation, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
+from ta3n_tpu_torch.prep import video2feature
 from ta3n_tpu_torch.serve import Predictor, make_http_server
 from ta3n_tpu_torch.train import (StepScalars, TrainState, make_eval_step,
                                   make_multi_train_step,
@@ -3954,6 +3970,431 @@ def ensemble_phase(gen, stores, dev, root, bf16=False):
     return launches, errs, times, step_t
 
 
+# ---- serving extras and the feature extractor (int8, AOT, pipelining) ----
+
+INT8_FLAGSHIP = dataclasses.replace(FLAGSHIP, quantize="int8")
+INT8_CPU_TOL = 1e-5      # int8 on the card against int8 on the CPU (probs)
+INT8_RULE = 0.05         # JAX's rule against float32: same argmax, |dp| <
+INT8_RULE_VIDEOS = 8     # JAX's sample: standard-normal features
+# (M, K, N) of the flagship's int8 products at batch 64 and 1: the shared
+# FC, the frame domain FC, the TRN scales k = 5..2, the relation heads'
+# first layers and the video domain FC
+INT8_SHAPES = ((320, 2048, 512), (5, 2048, 512), (320, 512, 512),
+               (64, 2560, 256), (192, 2048, 256), (192, 1536, 256),
+               (192, 1024, 256), (1, 1024, 256), (64, 256, 256),
+               (1, 256, 256))
+INT8_MIN_GEMMS = 8       # int8 products a flagship forward at least makes
+EXPORT_TOL = 1e-5        # an artifact's probabilities against the live path
+PIPELINE_VIDEOS = 640    # one request of 10 chunks of SERVE_BATCH
+PIPELINE_ROUNDS = 5      # timed in turns: pipelined, one by one, ...
+EXTRACT_TOL = 1e-4       # card features within this share of their largest
+EXTRACT_FRAMES = 40      # per "video", preprocessed 224x224 frames
+EXTRACT_BATCH = 32       # --batch_size
+C3D_FRAMES = 20          # 112x112 frames a "video": 5 clips of 16
+CPU_FRAMES = 8           # frames (clips: 2) of each video checked on the CPU
+
+
+def int8_weights(cfg, seed):
+    """A model of ``cfg`` on the CPU, every Linear drawn from a seed at
+    torch's default scale, as the float32 serving phase draws them
+    (`serve_flagship`): logits far from uniform, not saturated."""
+    gen = torch.Generator().manual_seed(seed)
+    model = VideoModel(cfg, generator=gen)
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            torch_default_uniform_(mod, gen)
+    return model
+
+
+def save_weights(model, path):
+    """A model's reference-format .pth.tar."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"epoch": 0, "arch": "resnet101", "best_prec1": 0.0,
+                "prec1": 0.0,
+                "state_dict": {f"module.{k}": v.cpu() for k, v in
+                               export_reference_state(model).items()}},
+               path)
+    return path
+
+
+@contextlib.contextmanager
+def http_server(predictor):
+    """A predictor served over HTTP on a free port; yields its URL."""
+    server = make_http_server(predictor, [f"class_{i}" for i in range(12)],
+                              "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def serve_requests(predictor, requests, label):
+    """Warm-up and served rounds of POST /predict; the served answers, the
+    kernel launches and int8 products of the served round."""
+    with http_server(predictor) as url:
+        for rnd in ("warm-up", "served"):
+            reset_counts()
+            layers.int8_gemms = 0
+            answers = []
+            for feats in requests:
+                t0 = time.perf_counter()
+                answers.append(post(f"{url}/predict",
+                                    {"features": feats.tolist()}))
+                log(f"  POST /predict ({label}, {rnd}), {feats.shape[0]} "
+                    f"videos: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return answers, counts(), layers.int8_gemms
+
+
+def predictor_ms(pred, x_np):
+    """(device ms of one forward on an uploaded batch, call ms of one
+    Predictor call on the host batch, upload and fetch included), medians
+    of 11 after 3 warm-up calls."""
+    x = torch.from_numpy(x_np).cuda()
+    for _ in range(3):
+        pred(x_np)
+    dev = statistics.median(device_ms(lambda: pred._forward(x))
+                            for _ in range(11))
+    call = statistics.median(call_ms(lambda: pred(x_np)) for _ in range(11))
+    return dev, call
+
+
+def check_int8_ops():
+    """``int8_matmul`` at the flagship's shapes (INT8_SHAPES; torch._int_mm
+    padded past 16 rows at batch 1) on the card against the CPU, on the
+    same post-relu rows and weights: bitwise equal (the codes and the
+    int32 products are exact, the rescale elementwise)."""
+    gen = torch.Generator().manual_seed(9)
+    for m, k, n in INT8_SHAPES:
+        x = torch.relu(torch.randn(m, k, generator=gen))
+        w = torch.randn(n, k, generator=gen) * 0.05
+        got = layers.int8_matmul(x.cuda(), w.cuda()).cpu()
+        if not torch.equal(got, layers.int8_matmul(x, w)):
+            raise AssertionError(f"int8_matmul at {(m, k, n)} differs from "
+                                 "the CPU")
+    log(f"  int8_matmul at {len(INT8_SHAPES)} flagship shapes (M, K, N) "
+        f"{list(INT8_SHAPES)}: bitwise equal to the CPU")
+
+
+def int8_phase(workdir, root):
+    """int8 inference at the flagship's widths: its products bitwise the
+    CPU's at every flagship shape; the int8 Predictor served over HTTP at
+    batch 64 and in process at batch 1, held to the same weights' int8
+    plain path on the CPU, with its int8 products a forward and no K1;
+    against the float32 Predictor, JAX's rule (tests/test_int8_infer.py:
+    147-152) measured on the served videos and on JAX's sample, logged
+    (it holds or fails by the videos near a tie); a 2-member int8 from_sweep
+    with no vmap fallback; the int8 eval CLI on the val store from host
+    features and from the store.  Returns the weights and the times."""
+    check_int8_ops()
+    weights = save_weights(int8_weights(INT8_FLAGSHIP, 7),
+                           os.path.join(workdir, "int8", "model.pth.tar"))
+    rng = np.random.default_rng(3)
+    sample = rng.normal(size=(INT8_RULE_VIDEOS, 5,
+                              FLAGSHIP.input_feature_dim)).astype(np.float32)
+    requests = [rng.random((n, 5, FLAGSHIP.input_feature_dim), np.float32)
+                for n in REQUEST_SIZES]
+    times = {}
+    for batch in (SERVE_BATCH, 1):
+        q = Predictor.from_checkpoint(weights, INT8_FLAGSHIP,
+                                      batch_size=batch)
+        if batch == SERVE_BATCH:
+            answers, launched, gemms = serve_requests(q, requests, "int8")
+            chunks = sum(-(-n // batch) for n in REQUEST_SIZES)
+            feats = requests
+        else:
+            feats = [requests[0]]
+            q(feats[0])
+            reset_counts()
+            layers.int8_gemms = 0
+            answers = [q(feats[0]) for _ in range(5)][-1:]
+            launched, gemms, chunks = counts(), layers.int8_gemms, 5
+        per_forward = gemms / chunks
+        log(f"  int8 at batch {batch}: launches {launched}, {gemms} int8 "
+            f"products in {chunks} forwards ({per_forward:g} a forward)")
+        if any(launched.values()):
+            raise AssertionError(f"int8 serving launched {launched}")
+        if per_forward < INT8_MIN_GEMMS or per_forward != int(per_forward):
+            raise AssertionError(f"{per_forward} int8 products a forward")
+        cpu = Predictor.from_checkpoint(weights, INT8_FLAGSHIP, device="cpu",
+                                        batch_size=batch)
+        f32 = Predictor.from_checkpoint(weights, FLAGSHIP, batch_size=batch)
+        for x, ans in zip([*feats, sample], [*answers, None]):
+            got = q(x)
+            want = cpu(x)
+            ref = f32(x)
+            err = np.abs(got[0] - want[0]).max()
+            dps = np.abs(got[0] - ref[0]).max(1)
+            dp = dps.max()
+            agree = (got[0].argmax(1) == ref[0].argmax(1)).mean()
+            label = f"{x.shape[0]} videos" if ans is not None else \
+                "JAX's sample"
+            log(f"  int8 batch {batch}, {label}: |card - CPU| = {err:.2e}; "
+                f"against float32: argmax agreement {agree:.3f}, max |dp| "
+                f"= {dp:.2e}, median {np.median(dps):.2e}; mean top-1 "
+                f"probability {got[1][:, 0].mean():.3f}")
+            if not err <= INT8_CPU_TOL or not np.array_equal(
+                    got[2][:, 0], want[2][:, 0]):
+                raise AssertionError("int8 on the card differs from the CPU")
+            log(f"    JAX's rule (the same argmax, max |dp| < {INT8_RULE})"
+                f": {agree == 1.0 and dp < INT8_RULE}")
+            if ans is None:
+                continue
+            served = (np.asarray(ans["top_classes"]) if isinstance(ans, dict)
+                      else ans[2])
+            if not np.array_equal(served[:, 0], got[2][:, 0]):
+                raise AssertionError("served int8 top class differs")
+        x = requests[-1][:batch]
+        times[batch] = {"int8": predictor_ms(q, x),
+                        "f32": predictor_ms(f32, x)}
+        log(f"  batch {batch} ({card_line()}): int8 device "
+            f"{times[batch]['int8'][0]:.3f} ms, call "
+            f"{times[batch]['int8'][1]:.3f} ms; float32 device "
+            f"{times[batch]['f32'][0]:.3f} ms, call "
+            f"{times[batch]['f32'][1]:.3f} ms")
+
+    sweep = os.path.join(workdir, "int8_sweep")
+    for k in range(2):
+        save_weights(int8_weights(INT8_FLAGSHIP, 20 + k),
+                     os.path.join(sweep, f"member_{k:02d}",
+                                  "checkpoint.pth.tar"))
+    ens = Predictor.from_sweep(sweep, INT8_FLAGSHIP, batch_size=SERVE_BATCH)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reset_counts()
+        probs = ens(requests[-1])[0]
+    fallbacks = sum("performance drop" in str(w.message) for w in caught)
+    solos = np.mean([Predictor.from_checkpoint(
+        os.path.join(sweep, f"member_{k:02d}", "checkpoint.pth.tar"),
+        INT8_FLAGSHIP, batch_size=SERVE_BATCH)(requests[-1])[0]
+        for k in range(2)], axis=0)
+    err = np.abs(probs - solos).max()
+    log(f"  2-member int8 from_sweep: |averaged - mean of solos| = "
+        f"{err:.2e}; vmap fallbacks {fallbacks}; launches {counts()}")
+    if fallbacks or not err <= PROB_TOL or any(counts().values()):
+        raise AssertionError("the int8 ensemble is wrong")
+
+    lines = {}
+    for label, extra in (("host features", []),
+                         ("device store", ["--device_store"])):
+        prefix = os.path.join(root, "int8_" + label.replace(" ", "_"))
+        reset_counts()
+        line, _ = run_cli(cli_test_models.main, eval_cli_args(
+            root, weights, "--quantize", "int8", "--save_scores",
+            prefix + "_scores", *extra))
+        lines[label] = (line, np.load(prefix + "_scores.npz")["scores"])
+        log(f"  int8 eval CLI ({label}): {line.strip()}; launches "
+            f"{counts()}")
+        if any(counts().values()):
+            raise AssertionError("the int8 eval CLI launched a kernel")
+    (l1, s1), (l2, s2) = lines.values()
+    if l1 != l2 or not np.abs(s1 - s2).max() <= PROB_TOL:
+        raise AssertionError("int8 eval CLI from the store differs")
+    return weights, times
+
+
+def export_phase(workdir, root, weights):
+    """The flagship exported through cli.serve --export from a .pth.tar,
+    float32 and int8, loaded by Predictor.from_exported on the card and
+    served over HTTP: answers within EXPORT_TOL of the live Predictor's,
+    no K1; exported and live timed.  Returns (K1 launches of the live
+    paths, times)."""
+    rng = np.random.default_rng(4)
+    requests = [rng.random((n, 5, FLAGSHIP.input_feature_dim), np.float32)
+                for n in REQUEST_SIZES]
+    classes = os.path.join(root, "class.txt")
+    k1, times = 0, {}
+    for label, cfg, extra in (("float32", FLAGSHIP, []),
+                              ("int8", INT8_FLAGSHIP,
+                               ["--quantize", "int8"])):
+        out = os.path.join(workdir, f"export_{label}")
+        t0 = time.perf_counter()
+        _, text = run_cli(cli_serve.main, [classes, weights, "--export", out,
+                                           *extra])
+        log(f"  {text.strip()} in {time.perf_counter() - t0:.1f} s")
+        served = Predictor.from_exported(out)
+        live = Predictor.from_checkpoint(weights, cfg,
+                                         batch_size=SERVE_BATCH)
+        answers, launched, _ = serve_requests(served, requests,
+                                              f"{label} artifact")
+        if any(launched.values()):
+            raise AssertionError(f"the artifact launched {launched}")
+        for x, ans in zip(requests, answers):
+            reset_counts()
+            want = live(x)
+            k1 += counts()["trn_fused_fwd"]
+            got = served(x)
+            err = np.abs(got[0] - want[0]).max()
+            log(f"  {label} artifact, {x.shape[0]} videos: |artifact - "
+                f"live| = {err:.2e}")
+            if not err <= EXPORT_TOL or not np.array_equal(
+                    np.asarray(ans["top_classes"])[:, 0], want[2][:, 0]):
+                raise AssertionError(f"the {label} artifact differs")
+        x = requests[-1][:SERVE_BATCH]
+        reset_counts()
+        times[label] = {"exported": predictor_ms(served, x)[1],
+                        "live": predictor_ms(live, x)[1]}
+        k1 += counts()["trn_fused_fwd"]
+        log(f"  {label} at batch {SERVE_BATCH} ({card_line()}): exported "
+            f"{times[label]['exported']:.3f} ms a call, live "
+            f"{times[label]['live']:.3f} ms")
+    return k1, times
+
+
+def pipelined_phase():
+    """A request of PIPELINE_VIDEOS videos (10 chunks of SERVE_BATCH)
+    through the pipelined Predictor against the same chunks fetched one
+    call each: bitwise equal, and timed in turns.  Returns (K1 launches,
+    times)."""
+    pred = Predictor(FLAGSHIP, flagship_model(torch.Generator().manual_seed(
+        5)), batch_size=SERVE_BATCH)
+    x = np.random.default_rng(5).random(
+        (PIPELINE_VIDEOS, 5, FLAGSHIP.input_feature_dim), np.float32)
+
+    def one_by_one():
+        return [np.concatenate(o) for o in zip(*(
+            pred(x[lo:lo + SERVE_BATCH])
+            for lo in range(0, PIPELINE_VIDEOS, SERVE_BATCH)))]
+
+    reset_counts()
+    got, want = pred(x), one_by_one()
+    launched = counts()["trn_fused_fwd"]
+    equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+    chunks = PIPELINE_VIDEOS // SERVE_BATCH
+    log(f"  pipelined against one by one, {PIPELINE_VIDEOS} videos: "
+        f"bitwise equal {equal}; K1 launches {launched} (2 x {chunks})")
+    if not equal or launched != 2 * chunks:
+        raise AssertionError("the pipelined fetch differs")
+    runs = {"pipelined": [], "one by one": []}
+    for i in range(2 * PIPELINE_ROUNDS):
+        order = (("pipelined", lambda: pred(x)),
+                 ("one by one", one_by_one))
+        for name, fn in order if i % 2 == 0 else order[::-1]:
+            runs[name].append(call_ms(fn))
+    launched = counts()["trn_fused_fwd"]
+    times = {k: statistics.median(v) for k, v in runs.items()}
+    log(f"  {PIPELINE_VIDEOS} videos ({card_line()}): pipelined "
+        f"{times['pipelined']:.2f} ms, one by one "
+        f"{times['one by one']:.2f} ms (medians of "
+        f"{2 * PIPELINE_ROUNDS} in turns)")
+    return launched, times
+
+
+def backbone_state(net, seed):
+    """A seeded state_dict in the backbone's (torchvision's or the
+    reference's) format: He-normal weights, biases near 0, BN statistics
+    near identity."""
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, t in net.state_dict().items():   # t on "meta": shapes only
+        shape = t.shape
+        if name.endswith("num_batches_tracked"):
+            state[name] = torch.zeros(shape, dtype=t.dtype)
+        elif name.endswith("running_var"):
+            state[name] = torch.rand(shape, generator=gen) + 0.5
+        elif name.endswith(("running_mean", "bias")):
+            state[name] = torch.randn(shape, generator=gen) * 0.1
+        elif name.startswith("bn") or ".bn" in name or "downsample.1" in name:
+            state[name] = torch.rand(shape, generator=gen) * 0.5 + 0.5
+        else:
+            state[name] = torch.randn(shape, generator=gen) * math.sqrt(
+                2.0 / math.prod(shape[1:]))
+    return state
+
+
+def extract_phase(workdir):
+    """Feature extraction on the card: a seeded torchvision-format
+    resnet101 state_dict saved to disk, make_extractor + extract_batched
+    on 2 "videos" of EXTRACT_FRAMES preprocessed 224x224 frames at
+    --batch_size EXTRACT_BATCH, the shards written and packed by
+    ``video2feature --finalize``; C3D with both activations on
+    C3D_FRAMES-frame 112x112 videos; features within EXTRACT_TOL of the
+    same extractor on the CPU (its first frames or clips); frames/s and
+    clips/s, float32 with cuDNN's TF32 off.  Returns the rates."""
+    from ta3n_tpu_torch.models.backbones import (C3DFeatures,
+                                                 ResNetFeatures,
+                                                 clips_from_frames)
+    rng = np.random.default_rng(6)
+    rates = {}
+    cases = [("resnet101", "none", ResNetFeatures("resnet101", "meta"),
+              (EXTRACT_FRAMES, 224, 224, 3), 2048)]
+    cases += [("c3d", act, C3DFeatures(act, "meta"),
+               (C3D_FRAMES, 112, 112, 3), 4096) for act in ("none", "relu")]
+    for base, act, net, shape, dim in cases:
+        path = os.path.join(workdir, f"{base}.pth")
+        torch.save(backbone_state(net, 7), path)
+        root = os.path.join(workdir, f"{base}_{act}-features")
+        run = video2feature.make_extractor(base, path, EXTRACT_BATCH, act)
+        cpu = video2feature.make_extractor(base, path, EXTRACT_BATCH, act,
+                                           device="cpu")
+        feats = []
+        for v in range(2):
+            frames = rng.normal(size=shape).astype(np.float32)
+            inputs = clips_from_frames(frames) if base == "c3d" else frames
+            got = video2feature.extract_batched(inputs, run, EXTRACT_BATCH)
+            n_cpu = 2 if base == "c3d" else CPU_FRAMES
+            want = cpu(inputs[:n_cpu])
+            err = np.abs(got[:n_cpu] - want).max() / np.abs(want).max()
+            log(f"  {base} ({act}) video {v}: {got.shape}; card against "
+                f"CPU on {n_cpu}: {err:.2e} of the largest")
+            if got.shape != (inputs.shape[0], dim) or not err <= EXTRACT_TOL:
+                raise AssertionError(f"{base} features differ from the CPU")
+            os.makedirs(os.path.join(root, "shards", "class_0"),
+                        exist_ok=True)
+            np.save(os.path.join(root, "shards", "class_0", f"v{v}.npy"),
+                    got)
+            feats.append(got)
+        _, text = run_cli(video2feature.main, ["--finalize", root])
+        store = FeatureStore.load(root)
+        log(f"  {text.strip()}")
+        if store.paths != ["class_0/v0", "class_0/v1"] or not \
+                np.array_equal(np.asarray(store.features),
+                               np.concatenate(feats)):
+            raise AssertionError("the finalized store differs")
+        batch = np.ascontiguousarray(np.concatenate(
+            [inputs] * (-(-EXTRACT_BATCH // inputs.shape[0])))[
+                :EXTRACT_BATCH if base != "c3d" else 8])
+        run(batch)
+        ms = statistics.median(call_ms(lambda: run(batch)) for _ in range(5))
+        rate = batch.shape[0] * 1e3 / ms
+        unit = "clips" if base == "c3d" else "frames"
+        rates[f"{base}_{act}"] = rate
+        log(f"  {base} ({act}): {rate:.1f} {unit}/s at batch "
+            f"{batch.shape[0]}, float32, cuDNN TF32 off ({card_line()})")
+    return rates
+
+
+def serving_extras(root) -> dict:
+    """The int8, export, pipelined and extraction phases, in a scratch
+    directory of their own; their times, and the K1 launches of their
+    float32 live paths (``k1``)."""
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        log(f"int8 inference: the int8 flagship served over HTTP at batch "
+            f"{SERVE_BATCH} and in process at batch 1, a 2-member int8 "
+            "from_sweep and the int8 eval CLI")
+        weights, int8_t = int8_phase(workdir, root)
+        log(f"AOT artifacts: cli.serve --export, float32 and int8, served "
+            f"from Predictor.from_exported on the card")
+        k1, export_t = export_phase(workdir, root, weights)
+        log(f"the pipelined Predictor: {PIPELINE_VIDEOS} videos against "
+            "the chunks fetched one by one")
+        k1_pipe, pipe_t = pipelined_phase()
+        log("feature extraction: resnet101 and C3D (both activations) on "
+            "the card, shards and --finalize")
+        rates = extract_phase(workdir)
+        log(f"serving extras and extraction: {time.perf_counter() - t0:.1f}"
+            " s")
+    times = {"int8": int8_t, "export": export_t, "pipelined": pipe_t,
+             "extract": rates}
+    log("serving extras' times (ms; extraction frames/s or clips/s; "
+        f"{card_line()}): {json.dumps(times)}")
+    return {"k1": k1 + k1_pipe, **times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
@@ -4080,6 +4521,8 @@ def main() -> int:
         write_workspace(root, stores)
         log(f"eval CLI: {len(stores[2].paths)} videos at --bS {CLI_BATCH}")
         add(eval_cli(gen, root, stores[2]))
+        extras = serving_extras(root)
+        add({"trn_fused_fwd": extras.pop("k1")})
         log("Trainer through the train CLI: the published recipe on "
             "stores of the published split sizes")
         add(train_cli(root))

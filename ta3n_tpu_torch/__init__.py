@@ -9,8 +9,10 @@ path (`serve.Predictor`, `cli.serve`), the train step
 the card, the eval CLI (`cli.test_models`), and the Trainer
 (`train.loop.Trainer`) with its train CLI (`cli.train`), ensembles of N
 members in one step (`train.ensemble`) with the sweep runner and CLI
-(`train.sweep`, `cli.sweep`) and deep-ensemble serving; the multi-scale
-TRN's forward and backward and the store gather + shared FC are
-hand-written CUDA kernels (`csrc/`).  ROADMAP.md lists what is still to
+(`train.sweep`, `cli.sweep`) and deep-ensemble serving; int8
+inference, AOT serving artifacts (`Predictor.export`) and feature
+extraction on the card (`models.backbones`, `prep.video2feature`); the
+multi-scale TRN's forward and backward and the store gather + shared FC
+are hand-written CUDA kernels (`csrc/`).  ROADMAP.md lists what is still to
 port.  The package imports torch and nothing of the JAX package.
 """

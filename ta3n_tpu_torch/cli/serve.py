@@ -12,6 +12,13 @@ also be a sweep's output directory (``python -m ta3n_tpu_torch.cli.sweep
 ... --sweep_dir DIR``): every member is then served as one deep ensemble
 (``Predictor.from_sweep``), each member's final checkpoint or, with
 ``--sweep_best``, its model_best.
+
+``--quantize int8`` serves W8A8 int8 inference.  ``--export DIR`` writes
+an AOT artifact (``Predictor.export``: predict.pt2 and meta.json, for
+the devices ``--export_platforms`` lists) and exits; WEIGHTS may then be
+DIR, served by ``Predictor.from_exported`` with the model flags of its
+meta.json (the CLI's are ignored).  ``--data_parallel`` exits: it is not
+ported yet (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ from ta3n_tpu_torch.serve import _LATER, Predictor, run_http_server
 def build_parser():
     p = argparse.ArgumentParser(description="TA3N serving (PyTorch port)")
     p.add_argument("class_file")
-    p.add_argument("weights", help="reference-format .pth.tar, or a sweep "
-                   "output dir (served as a deep ensemble)")
+    p.add_argument("weights", help="reference-format .pth.tar, a sweep "
+                   "output dir (served as a deep ensemble), or an --export "
+                   "artifact dir")
     p.add_argument("--arch", default="resnet101")
     p.add_argument("--feature_dim", type=int, default=None)
     p.add_argument("--test_segments", type=int, default=5)
@@ -42,18 +50,26 @@ def build_parser():
     p.add_argument("--use_bn", default="none")
     p.add_argument("--share_params", default="Y")
     p.add_argument("--quantize", default="none", choices=["none", "int8"],
-                   help=f"int8 {_LATER}")
+                   help="int8: W8A8 dynamically quantized inference "
+                        "(per-channel weight / per-row activation scales; "
+                        "logits heads stay float32); recorded in --export "
+                        "artifacts' meta.json")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--top_k", type=int, default=5)
     p.add_argument("--data_parallel", default=False, action="store_true",
-                   help=_LATER)
+                   help=f"data-parallel serving {_LATER}")
     p.add_argument("--sweep_best", default=False, action="store_true",
                    help="when WEIGHTS is a sweep dir: serve each member's "
                         "best-validation state (model_best, written by -ef "
                         "sweeps) instead of its final checkpoint")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8500)
-    p.add_argument("--export", default=None, metavar="DIR", help=_LATER)
+    p.add_argument("--export", default=None, metavar="DIR",
+                   help="write an AOT artifact (predict.pt2 + meta.json) to "
+                        "DIR and exit instead of serving; WEIGHTS may later "
+                        "be DIR, served without model code or checkpoint")
+    p.add_argument("--export_platforms", nargs="+", default=["cpu", "cuda"],
+                   help="devices the exported artifact may be served on")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda)")
     return p
@@ -61,16 +77,30 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, on in (("--export", args.export is not None),
-                     ("--data_parallel", args.data_parallel),
-                     ("--quantize int8", args.quantize == "int8")):
-        if on:
-            raise SystemExit(f"{flag} {_LATER}")
+    if args.data_parallel:
+        raise SystemExit(f"--data_parallel {_LATER}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is "
                          "available (pass --device cpu to serve on the CPU)")
     class_names = load_class_names(args.class_file)
+    if Predictor.is_exported(args.weights):
+        # an artifact: the model flags come from its meta.json
+        predictor = Predictor.from_exported(args.weights, device=device)
+    else:
+        predictor = _live_predictor(args, class_names, device)
+    if args.export:
+        out = predictor.export(args.export, args.export_platforms)
+        print(f"exported {predictor.cfg.num_class}-class predictor (batch "
+              f"{predictor.batch_size}, platforms {args.export_platforms}) "
+              f"to {out}")
+        return
+    run_http_server(predictor, class_names, args.host, args.port)
+
+
+def _live_predictor(args, class_names, device) -> Predictor:
+    """The Predictor of a checkpoint or a sweep directory and the model
+    flags."""
     cfg = ModelConfig(
         num_class=len(class_names), baseline_type=args.baseline_type,
         frame_aggregation=args.frame_aggregation,
@@ -93,11 +123,10 @@ def main(argv=None):
             args.weights, cfg, which=which, device=device,
             batch_size=args.batch_size, top_k=args.top_k)
         print(f"ensemble serving: {predictor.n_members} members ({which})")
-    else:
-        predictor = Predictor.from_checkpoint(
-            args.weights, cfg, device=device, batch_size=args.batch_size,
-            top_k=args.top_k)
-    run_http_server(predictor, class_names, args.host, args.port)
+        return predictor
+    return Predictor.from_checkpoint(
+        args.weights, cfg, device=device, batch_size=args.batch_size,
+        top_k=args.top_k)
 
 
 if __name__ == "__main__":

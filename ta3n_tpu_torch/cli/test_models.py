@@ -9,6 +9,9 @@ The positionals, flags and defaults are the JAX CLI's, plus ``--device``
 rather than run on the CPU: pass ``--device cpu``) and ``--compute_dtype``
 (default float32, the JAX CLI's only compute dtype; bfloat16 evaluates a
 model as the train CLI's ``--compute_dtype bfloat16`` trained it).
+``--quantize int8`` evaluates with W8A8 int8 inference, at float32
+compute, from host features or a store on the card (whose rows are then
+gathered plain, K3 not launched, for the quantized first FC).
 WEIGHTS is a reference-format ``.pth.tar``: the original code's, one that the port's
 Trainer wrote, or a JAX checkpoint exported with
 ``python -m ta3n_tpu.cli.export_checkpoint DIR out.pth.tar``.
@@ -119,10 +122,13 @@ def build_parser():
                              'evaluates in float32)')
     parser.add_argument('--quantize', type=str, default='none',
                         choices=['none', 'int8'],
-                        help=_later('int8 inference', '10'))
+                        help='int8: run the Linears whose dims reach 128 as '
+                             'W8A8 dynamically quantized int8 products '
+                             '(per-channel weight / per-row activation '
+                             'scales); logits heads stay float32')
     parser.add_argument('--data_parallel', default=False,
                         action='store_true',
-                        help=_later('data-parallel eval', '10'))
+                        help=_later('data-parallel eval', '9'))
     parser.add_argument('--device', type=str, default='cuda',
                         help='torch device to evaluate on (default cuda)')
     return parser
@@ -131,11 +137,8 @@ def build_parser():
 def _check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose path the port does not
     run, naming its ROADMAP.md item."""
-    for on, what, item in (
-            (args.quantize == "int8", "--quantize int8", "10"),
-            (args.data_parallel, "--data_parallel", "10")):
-        if on:
-            raise NotImplementedError(_later(what, item))
+    if args.data_parallel:
+        raise NotImplementedError(_later("--data_parallel", "9"))
 
 
 def main(argv=None):

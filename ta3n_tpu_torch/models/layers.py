@@ -36,7 +36,155 @@ from ta3n_tpu_torch.losses.losses import entropy_from_logits
 
 __all__ = ["Linear", "linear", "normal_001_", "torch_default_uniform_",
            "trans_attn_weights", "GeneralAttn", "MaskedBatchNorm", "TCL",
-           "cudnn_f32", "no_cudnn_tf32", "bf16_f32_reduction"]
+           "cudnn_f32", "no_cudnn_tf32", "bf16_f32_reduction",
+           "QUANT_MIN_DIM", "quantize_weight", "quantize_rows", "int8_mm",
+           "int8_matmul", "int8_batched_matmul"]
+
+# int8 inference (ModelConfig.quantize="int8", `ta3n_tpu/models/layers.py:
+# 47-161`): a Linear is quantized only when both its dims reach 128; the
+# ones below are the logits heads (num_class and the 2-way domain
+# outputs), which stay float32 for accuracy.
+QUANT_MIN_DIM = 128
+# int8 x int8 -> int32 products made by int8_mm (torch._int_mm), on any
+# device; callers reset it to 0 to count the products of one run
+int8_gemms = 0
+
+
+def _div(t: torch.Tensor, c: float) -> torch.Tensor:
+    """t / c, a true division on every device: a Python divisor would let
+    CUDA multiply by its rounded reciprocal instead, an ulp off the CPU's
+    and JAX's quotient, and flip codes at rounding ties."""
+    return t / torch.full((), c, dtype=t.dtype, device=t.device)
+
+
+def _activation_scale(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Per-row scale of the asymmetric 256-level grid over [lo, hi].  A
+    degenerate row (hi == lo) falls back to the symmetric |hi|/127 grid,
+    which the zero-point correction reconstructs exactly; an all-zero row
+    keeps scale 1.0."""
+    rng = hi - lo
+    return torch.where(rng > 0, _div(rng, 255.0),
+                       torch.where(hi.abs() > 0, _div(hi.abs(), 127.0), 1.0))
+
+
+def quantize_weight(weight: torch.Tensor):
+    """(w8 [..., out, in] int8, sw [..., out], colsum [..., out]) of a
+    weight in torch layout [..., out, in]: symmetric per-output-channel
+    scales max|w|/127 (1.0 for an all-zero channel), codes
+    clip(round(w / sw), -127, 127), and the codes' sums over the input
+    axis for the zero-point correction.  The codes are JAX's
+    ``int8_matmul`` codes of the transposed kernel, element for
+    element."""
+    wf = weight.float()
+    sw = _div(wf.abs().amax(dim=-1), 127.0)
+    sw = torch.where(sw > 0, sw, 1.0)
+    w8 = torch.clamp(torch.round(wf / sw[..., None]), -127, 127).to(
+        torch.int8)
+    return w8, sw, w8.sum(dim=-1, dtype=torch.int32).float()
+
+
+def quantize_rows(x: torch.Tensor):
+    """(x8 int8, sx [..., 1], zp [..., 1]) of activations x [..., in]:
+    asymmetric per-row quantization, scale (max - min)/255
+    (`_activation_scale`), zero point round(min / sx) + 128, codes
+    clip(round(x / sx) - zp, -128, 127), so that x ~= sx * (x8 + zp).
+    ``torch.round`` rounds half to even, as ``jnp.round``."""
+    xf = x.float()
+    hi = xf.amax(dim=-1, keepdim=True)
+    lo = xf.amin(dim=-1, keepdim=True)
+    sx = _activation_scale(hi, lo)
+    zp = torch.round(lo / sx) + 128.0
+    x8 = torch.clamp(torch.round(xf / sx) - zp, -128, 127).to(torch.int8)
+    return x8, sx, zp
+
+
+def _int_mm(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """x8 [M, K] @ w8 [N, K]ᵀ in int32 through ``torch._int_mm`` (on CUDA
+    cuBLASLt's int8 tensor-core GEMM), w8 passed column-major.  On the
+    card ``_int_mm`` takes M > 16 and K, N multiples of 8: other shapes
+    are padded with zero rows and columns, which add nothing to a
+    product, and the result is cut back to [M, N]."""
+    global int8_gemms
+    m, k = x8.shape
+    n = w8.shape[0]
+    pad_k = -k % 8
+    if m <= 16 or pad_k:
+        x8 = F.pad(x8, (0, pad_k, 0, max(17 - m, 0)))
+    if pad_k or n % 8:
+        w8 = F.pad(w8, (0, pad_k, 0, -n % 8))
+    int8_gemms += 1
+    return torch._int_mm(x8.contiguous(), w8.contiguous().T)[:m, :n]
+
+
+class _Int8MM(torch.autograd.Function):
+    """`_int_mm` with a vmap rule, so that ``torch.func.vmap`` over an
+    ensemble's stacked weights (`serve.py`) needs no per-member fallback
+    (``aten::_int_mm`` has no batching rule): one product over the
+    members' stacked weights when the activations are shared, one over
+    the stacked rows when the weight is, else one a member."""
+
+    @staticmethod
+    def forward(x8, w8):
+        return _int_mm(x8, w8)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("int8 inference has no backward")
+
+    @staticmethod
+    def vmap(info, in_dims, x8, w8):
+        dx, dw = in_dims
+        if dx is None:                         # [M, K] @ [N_m, O, K]
+            w8 = w8.movedim(dw, 0)
+            acc = _int_mm(x8, w8.reshape(-1, w8.shape[-1]))
+            return acc.reshape(acc.shape[0], w8.shape[0], -1), 1
+        x8 = x8.movedim(dx, 0)
+        if dw is None:                         # [N_m, M, K] @ [O, K]
+            acc = _int_mm(x8.reshape(-1, x8.shape[-1]), w8)
+            return acc.reshape(x8.shape[0], x8.shape[1], -1), 0
+        w8 = w8.movedim(dw, 0)
+        return torch.stack([_int_mm(a, b) for a, b in zip(x8, w8)]), 0
+
+
+def int8_mm(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """int8 x8 [M, K] times int8 w8 [N, K] (torch layout) transposed, as
+    int32 [M, N]; under ``torch.func.vmap`` through `_Int8MM`'s rule."""
+    if torch._C._are_functorch_transforms_active():
+        return _Int8MM.apply(x8, w8)
+    return _int_mm(x8, w8)
+
+
+def int8_matmul(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """W8A8 dynamically quantized ``x @ weight.T`` in float32, the port
+    of `ta3n_tpu/models/layers.py::int8_matmul` (its kernel is
+    ``weight.T``): weight codes and scales from `quantize_weight`, row
+    codes from `quantize_rows`, an int8 x int8 -> int32 product
+    (`int8_mm`), then ``(acc + zp * colsum) * sx * sw`` in that order.
+    x: [..., in]; weight: [out, in] -> [..., out] float32."""
+    w8, sw, colsum = quantize_weight(weight)
+    x8, sx, zp = quantize_rows(x)
+    acc = int8_mm(x8.reshape(-1, x8.shape[-1]), w8)
+    acc = acc.reshape(*x8.shape[:-1], acc.shape[-1])
+    return (acc.float() + zp * colsum) * sx * sw
+
+
+def int8_batched_matmul(x: torch.Tensor,
+                        weight: torch.Tensor) -> torch.Tensor:
+    """W8A8 quantized ``einsum('bri,roi->bro', x, weight)``, R stacked
+    heads: the port of `ta3n_tpu/models/layers.py::int8_batched_matmul`
+    (its w is ``weight.transpose(1, 2)``), with per-(head, output) weight
+    scales and per-(row, head) activation scales, one int32 product a
+    head.  x: [B, R, in]; weight: [R, out, in] -> [B, R, out] float32.
+    Head r's columns are ``int8_matmul(x[:, r], weight[r])``'s."""
+    w8, sw, colsum = quantize_weight(weight)               # [R, O, I]
+    x8, sx, zp = quantize_rows(x)                          # [B, R, I]
+    acc = torch.stack([int8_mm(x8[:, r], w8[r])
+                       for r in range(w8.shape[0])], dim=1)
+    return (acc.float() + zp * colsum) * sx * sw
 
 
 @torch.no_grad()
@@ -65,11 +213,23 @@ class Linear(nn.Linear):
     computes in ``compute_dtype``: None (the default) in the promoted type
     of its input and weight, which for a float32 input is ``nn.Linear``'s
     own arithmetic; bfloat16 as flax ``nn.Dense(dtype=bfloat16)``, the
-    product and the bias add each rounded to bfloat16."""
+    product and the bias add each rounded to bfloat16.
+
+    ``quantize="int8"`` (inference only) makes it JAX's ``QuantDense``
+    (`ta3n_tpu/models/layers.py:134-161`): when both dims reach
+    `QUANT_MIN_DIM`, ``int8_matmul(x, weight) + bias`` in float32, then
+    cast to ``compute_dtype`` if one is set; below that, the float
+    arithmetic above."""
 
     compute_dtype: Optional[torch.dtype] = None
+    quantize: str = "none"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantize == "int8" and min(
+                self.in_features, self.out_features) >= QUANT_MIN_DIM:
+            y = int8_matmul(x, self.weight) + self.bias.float()
+            return y if self.compute_dtype is None else y.to(
+                self.compute_dtype)
         dt = self.compute_dtype or torch.promote_types(x.dtype,
                                                        self.weight.dtype)
         if dt == self.weight.dtype:
@@ -106,12 +266,16 @@ class GeneralAttn(nn.Sequential):
     [B, T, D] -> weights [B, T, 1].  The reference builds it outside its
     normal_(0.001) loop, so both Linears keep torch's default init; as a
     Sequential(Linear, Tanh, Linear) it has the reference's parameter
-    names, ``attn_layer.0`` and ``attn_layer.2``."""
+    names, ``attn_layer.0`` and ``attn_layer.2``.  ``quantize`` is set on
+    both Linears, as the JAX module passes it to both; the gate leaves the
+    1-wide one in float32."""
 
-    def __init__(self, dim: int, generator: Optional[torch.Generator]):
+    def __init__(self, dim: int, generator: Optional[torch.Generator],
+                 quantize: str = "none"):
         super().__init__(linear(dim, dim, "torch_default", generator),
                          nn.Tanh(),
                          linear(dim, 1, "torch_default", generator))
+        self[0].quantize = self[2].quantize = quantize
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
         return torch.softmax(super().forward(feat), dim=1)

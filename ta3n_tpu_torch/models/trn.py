@@ -15,6 +15,13 @@ ops, as the JAX module does before its Pallas kernels
 (`ta3n_tpu/models/trn.py:138-143`): the products accumulate in float32,
 the bias is added in float32, the output is bfloat16.  The single-scale
 Linear computes as a bfloat16 ``nn.Dense`` (`models/layers.py::Linear`).
+
+``quantize="int8"`` (inference only) is JAX's quantized TRN
+(`ta3n_tpu/models/trn.py:104-107, 146-160`): the multi-scale module takes
+no fused op, so K1 is never launched, but a gather and one GEMM a scale,
+``int8_matmul`` on the relu of the gathered subsets where k*D and H reach
+`QUANT_MIN_DIM`, else a float product with float32 accumulation; the
+single-scale module's Linear is quantized by its own gate.
 """
 
 from __future__ import annotations
@@ -24,9 +31,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ta3n_tpu_torch.models.layers import linear
+from ta3n_tpu_torch.models.layers import QUANT_MIN_DIM, int8_matmul, linear
 from ta3n_tpu_torch.ops.relation import build_relation_plan
-from ta3n_tpu_torch.ops.trn_fused import (trn_multiscale_fused,
+from ta3n_tpu_torch.ops.trn_fused import (_acc, _subset_index,
+                                          trn_multiscale_fused,
                                           trn_multiscale_infer)
 
 __all__ = ["RelationModule", "RelationModuleMultiScale"]
@@ -46,12 +54,14 @@ class RelationModule(nn.Module):
     def __init__(self, img_feature_dim: int, num_bottleneck: int,
                  num_frames: int,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 quantize: str = "none"):
         super().__init__()
         self.num_frames = num_frames
         fc = linear(num_frames * img_feature_dim, num_bottleneck,
                     "torch_default", generator)
         fc.compute_dtype = dtype
+        fc.quantize = quantize
         self.classifier = nn.Sequential(nn.ReLU(), fc, nn.ReLU())
 
     def forward(self, x: torch.Tensor, infer: bool = False) -> torch.Tensor:
@@ -74,11 +84,13 @@ class RelationModuleMultiScale(nn.Module):
     def __init__(self, img_feature_dim: int, num_bottleneck: int,
                  num_frames: int, subsample_num: int = 3,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 quantize: str = "none"):
         super().__init__()
         self.num_frames = num_frames
         self.subsample_num = subsample_num
         self.dtype = dtype
+        self.quantize = quantize
         plan = build_relation_plan(num_frames, subsample_num)
         self.fc_fusion_scales = nn.ModuleList(
             nn.Sequential(nn.ReLU(),
@@ -91,13 +103,35 @@ class RelationModuleMultiScale(nn.Module):
         """``infer=True`` (eval and serve) takes the fused inference op;
         ``infer=False`` (training) the fused training op, whose backward
         uses the relu masks its forward saved.  On CUDA both are the
-        hand-written kernels; on the CPU their plain versions."""
+        hand-written kernels; on the CPU their plain versions.  Under
+        ``quantize="int8"`` neither: `_quantized`."""
         if x.shape[1] != self.num_frames:
             raise ValueError(f"expected {self.num_frames} segments, got "
                              f"{x.shape[1]}")
+        if self.quantize == "int8":
+            return self._quantized(x)
         dt = self.dtype
         weights = [seq[1].weight.to(dt) for seq in self.fc_fusion_scales]
         biases = [seq[1].bias.to(dt) for seq in self.fc_fusion_scales]
         fused = trn_multiscale_infer if infer else trn_multiscale_fused
         return fused(x.to(dt), weights, biases, self.num_frames,
                      self.subsample_num)
+
+    def _quantized(self, x: torch.Tensor) -> torch.Tensor:
+        """The int8 forward, one gather and GEMM a scale, as the JAX
+        module's XLA path: relu(z + b) summed over the scale's subsets."""
+        dt = self.dtype
+        b, _, d = x.shape
+        plan = build_relation_plan(self.num_frames, self.subsample_num)
+        outs = []
+        for seq, k, idx in zip(self.fc_fusion_scales, plan.scales,
+                               _subset_index(self.num_frames,
+                                             self.subsample_num, x.device)):
+            fc = seq[1]
+            g = torch.relu(x.index_select(1, idx).reshape(b, -1, k * d))
+            if min(k * d, fc.out_features) >= QUANT_MIN_DIM:
+                z = int8_matmul(g, fc.weight)
+            else:
+                z = _acc(g.to(dt)) @ _acc(fc.weight.to(dt)).T
+            outs.append(torch.relu(z + fc.bias).sum(dim=1))
+        return torch.stack(outs, dim=1).to(dt)

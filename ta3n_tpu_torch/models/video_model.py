@@ -7,8 +7,20 @@ AdaBN/AutoDIAL alignment after the first shared layer, frame-level
 TransAttn or general attention; avgpool, RNN (`models/rnn.py`), temconv,
 single-scale TRN or multi-scale TRN aggregation with TransAttn, general or
 no relation attention; softmax outputs and MCD's second video classifier,
-in float32 or bfloat16 (``compute_dtype``).  int8 inference raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+in float32 or bfloat16 (``compute_dtype``), and int8 inference
+(``quantize="int8"``).
+
+Under ``quantize="int8"`` the Linears that the JAX model builds with
+``quantize=cfg.quantize`` (`ta3n_tpu/models/video_model.py:75, 79, 198,
+211, 246-252, 274-282, 296, 342`) compute as JAX's ``QuantDense``
+(`models/layers.py::Linear`): the shared FCs, the frame and video domain
+FCs, general attention, the TRN (`models/trn.py`, without the fused op)
+and the relation domain heads' first layers, head by head, which is
+``int8_batched_matmul``'s arithmetic (per-(head, output) weight scales,
+per-(row, head) activation scales).  The gate keeps every Linear with a
+dim below 128 in float32: the 2-way domain logits and, at the published
+class counts, the class logits.  Inference only (the train-step builders
+refuse it), and at float32 compute, as the JAX CLIs that quantize run.
 
 Under ``compute_dtype="bfloat16"`` the model casts where the JAX model
 casts (`ta3n_tpu/models/video_model.py`), with explicit ``.to(dtype)``
@@ -58,11 +70,6 @@ from ta3n_tpu_torch.ops.grl import grad_reverse
 
 __all__ = ["VideoModel", "StreamOutput", "MemberGenerators"]
 
-# field -> (the values the port runs, the ROADMAP.md queue-1 item porting
-# the others)
-_PORTED = {
-    "quantize": (("none",), "10: int8 inference"),
-}
 # the compute dtypes whose kernels the port has (float16 has none)
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the reference builds at most three shared FC layers: its parameter names
@@ -70,27 +77,25 @@ _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _MAX_FC = 3
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a configuration the port does not
-    run yet."""
-    for field, (ported, item) in _PORTED.items():
-        got = getattr(cfg, field)
-        if got not in ported:
-            raise NotImplementedError(
-                f"{field}={got!r} is not ported yet; the port runs "
-                f"{field}={' or '.join(map(repr, ported))} (ROADMAP.md "
-                f"queue 1, item {item})")
+def _check_config(cfg: ModelConfig) -> None:
+    """Raise ValueError for a configuration the port cannot build."""
     if cfg.compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: the port "
                          f"computes in {' or '.join(_COMPUTE_DTYPES)}")
     if cfg.add_fc > _MAX_FC:
         raise ValueError(f"add_fc={cfg.add_fc}: the reference has at most "
                          f"{_MAX_FC} shared FC layers")
+    if cfg.quantize == "int8" and cfg.compute_dtype != "float32":
+        # the JAX CLIs that quantize (eval, serve) compute in float32 only
+        raise ValueError(f"quantize='int8' computes in float32, got "
+                         f"compute_dtype={cfg.compute_dtype!r}")
 
 
-def _in(layer, dtype: torch.dtype):
-    """``layer`` (a `Linear`) computing in ``dtype``."""
+def _in(layer, dtype: torch.dtype, quantize: str = "none"):
+    """``layer`` (a `Linear`) computing in ``dtype``, quantized as
+    ``quantize`` says."""
     layer.compute_dtype = dtype
+    layer.quantize = quantize
     return layer
 
 
@@ -150,7 +155,7 @@ class VideoModel(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device="cpu"):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         trn = cfg.frame_aggregation in ("trn", "trn-m")
         if trn and cfg.train_segments != cfg.val_segments:
             # the TRN's parameters are sized by the segment count
@@ -162,13 +167,14 @@ class VideoModel(nn.Module):
         d_in, d_sh = cfg.input_feature_dim, cfg.shared_dim
         d_agg = cfg.aggregated_dim
         g = generator
+        q = cfg.quantize
         domains = ("source",) if cfg.share_params == "Y" else ("source",
                                                                "target")
 
-        def n001(i, o):
-            """A Dense layer of the compute dtype (``dense(dtype=dtype)``
-            in the JAX model)."""
-            return _in(linear(i, o, "normal001", g), dt)
+        def n001(i, o, quantize=q):
+            """A Dense layer of the compute dtype (``dense(dtype=dtype,
+            quantize=...)`` in the JAX model)."""
+            return _in(linear(i, o, "normal001", g), dt, quantize)
 
         def dual(name, i, o):
             """The source layer and, under share_params N, the target
@@ -186,32 +192,33 @@ class VideoModel(nn.Module):
             self.bn_shared_S = MaskedBatchNorm(d_sh)
             self.bn_shared_T = MaskedBatchNorm(d_sh)
         self.fc_feature_domain = n001(d_sh, d_sh)
-        self.fc_classifier_domain = n001(d_sh, 2)
+        self.fc_classifier_domain = n001(d_sh, 2, "none")
         dual("fc_classifier", d_sh, cfg.num_class)
         if cfg.use_attn_frame == "general":
             # no reference name: the reference reads use_attn here and
             # crashes when only use_attn_frame is set (models.py:369)
-            self.attn_layer_frame = GeneralAttn(d_sh, g)
+            self.attn_layer_frame = GeneralAttn(d_sh, g, q)
         if trn:
             d_rel = cfg.num_bottleneck
             if cfg.frame_aggregation == "trn":
                 self.TRN = RelationModule(d_sh, d_rel, cfg.train_segments,
-                                          generator=g, dtype=dt)
+                                          generator=g, dtype=dt, quantize=q)
                 num_relation = 1
             else:
                 self.TRN = RelationModuleMultiScale(
-                    d_sh, d_rel, cfg.train_segments, generator=g, dtype=dt)
+                    d_sh, d_rel, cfg.train_segments, generator=g, dtype=dt,
+                    quantize=q)
                 num_relation = cfg.train_segments - 1
             # relation domain heads: torch default init, built outside the
             # reference's normal_(0.001) loop (models.py:286-294)
             self.relation_domain_classifier_all = nn.ModuleList(
                 nn.Sequential(
-                    _in(linear(d_rel, d_agg, "torch_default", g), dt),
+                    _in(linear(d_rel, d_agg, "torch_default", g), dt, q),
                     nn.ReLU(),
                     _in(linear(d_agg, 2, "torch_default", g), dt))
                 for _ in range(num_relation))
             if cfg.use_attn == "general":
-                self.attn_layer = GeneralAttn(d_agg, g)
+                self.attn_layer = GeneralAttn(d_agg, g, q)
         if cfg.frame_aggregation == "rnn":
             self.rnn = build_rnn(cfg, g)
             # cuDNN's fast path wants the weights in one buffer: .to()
@@ -231,7 +238,7 @@ class VideoModel(nn.Module):
                 setattr(self, f"fc_classifier_video_{dom}_2",
                         n001(d_agg, cfg.num_class))
         self.fc_feature_domain_video = n001(d_agg, d_agg)
-        self.fc_classifier_domain_video = n001(d_agg, 2)
+        self.fc_classifier_domain_video = n001(d_agg, 2, "none")
         if cfg.use_bn == "AutoDIAL":
             # the reference's learned mixing weight (models.py:314-316)
             self.alpha = nn.Parameter(torch.ones(()))

@@ -222,15 +222,17 @@ def _geometry(store, n, weight, row_scale) -> Tuple[int, int, int, int]:
     return streams, d, k, n * streams // k
 
 
-def gathered_gemm_plain(store, idx: torch.Tensor, weight: torch.Tensor,
-                        row_scale: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: ``(z, x_res)`` with x_res the gathered rows
-    (an int8 store's dequantized), each scaled by its row_scale, viewed as
-    [M, k*D] in the weight's dtype, and ``z = x_res @ weight.T`` (at
-    bfloat16: float32 products of the bfloat16 values, rounded once).
-    idx: [N] integer tensor on the store's device."""
+def gathered_rows(store, idx, row_scale: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """The plain gather: the rows [N, D] or [N, S, D] of a store at idx
+    (an int8 store's dequantized, a bfloat16 store's as float32), each
+    scaled by its row_scale, as the JAX step's ``device_gather`` and
+    ``x * mask``.  idx: [N] integer tensor on the store's device, or a
+    `RowIndex`.  The int8 eval steps (`train/step.py`), whose first FC is
+    quantized, gather with it."""
     data, scale = _split_store(store)
+    if isinstance(idx, RowIndex):
+        idx = _rows_of(idx, data)
     rows = data.index_select(0, idx)                # [N, D] or [N, S, D]
     shape = (-1, *([1] * (rows.dim() - 1)))
     if scale is not None:
@@ -239,7 +241,19 @@ def gathered_gemm_plain(store, idx: torch.Tensor, weight: torch.Tensor,
     rows = _acc(rows)
     if row_scale is not None:
         rows = rows * row_scale.reshape(shape)
-    x = rows.reshape(-1, weight.shape[1]).to(weight.dtype)
+    return rows
+
+
+def gathered_gemm_plain(store, idx: torch.Tensor, weight: torch.Tensor,
+                        row_scale: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: ``(z, x_res)`` with x_res the gathered rows
+    (`gathered_rows`) viewed as [M, k*D] in the weight's dtype, and
+    ``z = x_res @ weight.T`` (at bfloat16: float32 products of the
+    bfloat16 values, rounded once).  idx: [N] integer tensor on the
+    store's device."""
+    x = gathered_rows(store, idx, row_scale).reshape(
+        -1, weight.shape[1]).to(weight.dtype)
     return (_acc(x) @ _acc(weight).T).to(weight.dtype), x
 
 

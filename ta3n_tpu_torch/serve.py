@@ -1,7 +1,7 @@
 """Inference and serving: a batch predictor and a local HTTP endpoint.
 
-Port of `ta3n_tpu/serve.py` (Predictor: 49-108 and 259-308; HTTP:
-311-365) for the models the port runs (`models/video_model.py`):
+Port of `ta3n_tpu/serve.py` (Predictor: 49-308; HTTP: 311-365) for the
+models the port runs (`models/video_model.py`):
 
     predictor = Predictor.from_checkpoint("model.pth.tar", model_cfg,
                                           device="cuda")
@@ -12,7 +12,13 @@ Port of `ta3n_tpu/serve.py` (Predictor: 49-108 and 259-308; HTTP:
 On CUDA a multi-scale TRN runs as the hand-written kernel
 (`ops/trn_fused.py`).  Requests are cut into chunks of ``batch_size``
 videos and the last chunk is zero-padded to it, as in the JAX package, so
-the device sees one shape.
+the device sees one shape.  The chunks are pipelined as in the JAX
+Predictor (`ta3n_tpu/serve.py:286-306`): chunk i+1 is uploaded through
+pinned memory and dispatched, and its outputs' copies to pinned host
+buffers started, before the host waits for chunk i's; two pairs of host
+buffers alternate by chunk, each written again only after its chunk's
+event was waited on and its rows copied out.  On the CPU the same code
+runs synchronously and gives the same answers.
 
 The JAX predictor feeds every chunk as both streams and keeps the target
 half; every row is independent in eval (dropout off, BN on its running
@@ -27,13 +33,32 @@ members' parameters are stacked and one ``torch.func.vmap`` pass under
 them (its vmap rule, `ops/trn_fused.py`); the softmax is averaged over the
 members, as the JAX ensemble Predictor averages it.
 
-AOT export, ``mesh=`` data parallelism and int8 are not ported yet
-(ROADMAP.md queue 1, item 10).
+int8 inference: a ``ModelConfig`` with ``quantize="int8"`` (CLI
+``--quantize int8``) runs every Linear whose dims reach 128 as a W8A8
+int8 x int8 -> int32 product (`models/layers.py`); it rides the model
+config into exported artifacts' meta.json.
+
+AOT artifacts (`ta3n_tpu/serve.py:110-189`): ``Predictor.export(dir)``
+writes the whole predict function, weights included, at the fixed batch
+``batch_size``, as a ``torch.export`` program (``predict.pt2``) beside a
+``meta.json`` with the JAX artifact's keys; ``Predictor.from_exported``
+serves it with ``torch.export.load``, no model code and no checkpoint.
+The program is traced from a CPU copy of the model, whose ops are the
+plain versions (the hand-written kernels are bound through ctypes and
+read data pointers, which a trace cannot follow), then moved to the
+serving device when loaded: an artifact runs no hand-written kernel, as
+the JAX artifact, traced under ``force_xla_trn``, runs no Pallas.  An
+ensemble's artifact scores its members one after the other (a trace
+cannot follow the live pass's vmap rules); the mean of the members'
+softmaxes is the same function.
+
+``mesh=`` data parallelism is not ported yet (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import glob
 import json
 import os
@@ -42,6 +67,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ta3n_tpu_torch.config import ModelConfig
 from ta3n_tpu_torch.io_utils.checkpoint import BEST_NAME, CKPT_NAME
@@ -49,27 +75,54 @@ from ta3n_tpu_torch.io_utils.convert import (load_reference_checkpoint,
                                              reference_state_dict)
 from ta3n_tpu_torch.models.layers import bf16_f32_reduction
 from ta3n_tpu_torch.models.video_model import VideoModel
+from ta3n_tpu_torch.ops.gather_gemm import upload
 from ta3n_tpu_torch.train.step import video_logits
 
 __all__ = ["Predictor", "make_http_server", "run_http_server"]
 
 
-_LATER = "is not ported yet (ROADMAP.md queue 1, item 10: serving extras)"
+_LATER = "is not ported yet (ROADMAP.md queue 1, item 9: multi-card)"
+_EXPORT_BIN = "predict.pt2"
+_EXPORT_META = "meta.json"
+_PLATFORMS = ("cpu", "cuda")
+_NO_GRL = (0.0, 0.0, 0.0)
 
 
-class _MemberProbs(torch.nn.Module):
-    """One member's float32 softmax of its video-level logits, as
-    ``forward`` of a module holding the template model (what
-    ``functional_call`` calls under the members' vmap)."""
+def _video_probs(net: VideoModel, x: torch.Tensor) -> torch.Tensor:
+    """The float32 softmax of a model's video-level logits for x, fed as
+    the target stream."""
+    _, out = net(x[:0], x, _NO_GRL, 0.0, False, False)
+    return torch.softmax(video_logits(out.out).float(), dim=-1)
 
-    def __init__(self, net: VideoModel, empty, beta):
+
+class _MemberProbs(nn.Module):
+    """One member's `_video_probs` as ``forward`` of a module holding the
+    template model (what ``functional_call`` calls under the members'
+    vmap)."""
+
+    def __init__(self, net: VideoModel):
         super().__init__()
         self.net = net
-        self.empty, self.beta = empty, beta
 
     def forward(self, x):
-        _, out = self.net(self.empty, x, self.beta, 0.0, False, False)
-        return torch.softmax(video_logits(out.out).float(), dim=-1)
+        return _video_probs(self.net, x)
+
+
+class _Program(nn.Module):
+    """What an artifact computes: (probs, top_p, top_i) of one batch, the
+    probabilities the mean of the members' softmaxes (one member: its
+    own), the members scored one after the other."""
+
+    def __init__(self, members: Sequence[VideoModel], top_k: int):
+        super().__init__()
+        self.members = nn.ModuleList(members)
+        self.top_k = top_k
+
+    def forward(self, x):
+        probs = [_video_probs(m, x) for m in self.members]
+        probs = probs[0] if len(probs) == 1 else torch.stack(probs).mean(0)
+        top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
+        return probs, top_p, top_i
 
 
 class Predictor:
@@ -100,12 +153,10 @@ class Predictor:
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
         self.top_k = min(top_k, model_cfg.num_class)
-        s = model_cfg.val_segments
-        self._empty = torch.zeros((0, s, model_cfg.input_feature_dim),
-                                  device=self.device)
-        self._beta = torch.zeros(3, device=self.device)
         if n_members:
-            self._probs = _MemberProbs(self.model, self._empty, self._beta)
+            self._probs = _MemberProbs(self.model)
+        self._exported = None
+        self._pinned = [None, None]
 
     @classmethod
     def from_checkpoint(cls, weights: str, model_cfg: ModelConfig,
@@ -115,12 +166,92 @@ class Predictor:
         model = load_reference_checkpoint(weights, model_cfg, device)
         return cls(model_cfg, model, device=device, **kw)
 
-    def export(self, path: str, platforms=None) -> str:
-        raise NotImplementedError(f"Predictor.export {_LATER}")
+    def _members_on_cpu(self) -> list:
+        """CPU copies of the served model, or of each ensemble member."""
+        if not self.n_members:
+            return [copy.deepcopy(self.model).cpu()]
+        state = {**self._stacked[0], **self._stacked[1]}
+        members = []
+        for k in range(self.n_members):
+            member = copy.deepcopy(self.model).cpu()
+            member.load_state_dict({name[len("net."):]: v[k].cpu()
+                                    for name, v in state.items()})
+            members.append(member)
+        return members
+
+    def export(self, path: str, platforms=_PLATFORMS) -> str:
+        """Write the predict function, weights included, at the fixed
+        batch ``batch_size`` to ``path/predict.pt2`` (``torch.export``)
+        and ``path/meta.json`` (model_cfg, batch_size, top_k, platforms,
+        input_shape, n_members), for `from_exported`.  Traced from a CPU
+        copy of the model, so the program holds no hand-written kernel;
+        ``platforms`` lists the devices (``cpu``, ``cuda``) it may be
+        served on.  A Predictor loaded from an artifact refuses."""
+        if self.model is None:
+            raise ValueError("this Predictor was loaded from an exported "
+                             "artifact; re-export from the checkpoint")
+        platforms = list(platforms)
+        unknown = sorted(set(platforms) - set(_PLATFORMS))
+        if unknown:
+            raise ValueError(f"platforms {unknown}: an artifact runs on "
+                             f"{' or '.join(_PLATFORMS)}")
+        program = _Program(self._members_on_cpu(), self.top_k).eval()
+        shape = (self.batch_size,
+                 self.cfg.val_segments * self.cfg.sample_new_length,
+                 self.cfg.input_feature_dim)
+        x = torch.zeros(shape)
+        with torch.no_grad():
+            # one call before the trace: the host-side caches it fills (the
+            # TRN's subset indices) then hold real tensors, which the trace
+            # records as constants
+            program(x)
+            exported = torch.export.export(program, (x,))
+        os.makedirs(path, exist_ok=True)
+        torch.export.save(exported, os.path.join(path, _EXPORT_BIN))
+        meta = {"model_cfg": dataclasses.asdict(self.cfg),
+                "batch_size": self.batch_size, "top_k": self.top_k,
+                "platforms": platforms, "input_shape": list(shape),
+                "n_members": self.n_members}
+        with open(os.path.join(path, _EXPORT_META), "w") as f:
+            json.dump(meta, f, indent=1)
+        return path
+
+    @staticmethod
+    def is_exported(path: str) -> bool:
+        """Whether ``path`` is an artifact that `export` wrote."""
+        return os.path.isfile(os.path.join(path, _EXPORT_BIN))
 
     @classmethod
-    def from_exported(cls, path: str, mesh=None) -> "Predictor":
-        raise NotImplementedError(f"Predictor.from_exported {_LATER}")
+    def from_exported(cls, path: str, mesh=None,
+                      device="cuda") -> "Predictor":
+        """Serve an `export` artifact on ``device`` (one of its
+        platforms): ``torch.export.load``, the program moved to the
+        device (``move_to_device_pass``), and the configuration, batch
+        size and top-k from its meta.json; no model code, no
+        checkpoint."""
+        if mesh is not None:
+            raise NotImplementedError(f"data-parallel serving {_LATER}")
+        from torch.export.passes import move_to_device_pass
+
+        with open(os.path.join(path, _EXPORT_META)) as f:
+            meta = json.load(f)
+        device = torch.device(device)
+        if device.type not in meta["platforms"]:
+            raise ValueError(f"the artifact at {path} was exported for "
+                             f"{meta['platforms']}, not {device.type}")
+        program = torch.export.load(os.path.join(path, _EXPORT_BIN))
+        if device.type != "cpu":
+            program = move_to_device_pass(program, device)
+        self = cls.__new__(cls)
+        self.cfg = ModelConfig(**meta["model_cfg"])
+        self.device = device
+        self.model = None
+        self.n_members = int(meta["n_members"])
+        self.batch_size = int(meta["batch_size"])
+        self.top_k = int(meta["top_k"])
+        self._exported = program.module()
+        self._pinned = [None, None]
+        return self
 
     @staticmethod
     def is_sweep(path: str) -> bool:
@@ -187,20 +318,18 @@ class Predictor:
 
     @torch.inference_mode()
     @bf16_f32_reduction()
-    def _predict(self, chunk: np.ndarray):
-        """Probabilities and top-k of one batch: a float32 softmax of the
-        video-level logits, whatever dtype the model computes in (a
-        ``compute_dtype="bfloat16"`` model runs its bfloat16 kernels and
-        answers in float32); of an ensemble, the members' mean."""
-        x = torch.from_numpy(chunk).to(self.device)
-        if self.n_members:
-            probs = self._ensemble_probs(x)
-        else:
-            _, out = self.model(self._empty, x, self._beta, 0.0, False,
-                                False)
-            probs = torch.softmax(video_logits(out.out).float(), dim=-1)
+    def _forward(self, x: torch.Tensor):
+        """(probs, top_p, top_i) of one batch on the device: a float32
+        softmax of the video-level logits, whatever dtype the model
+        computes in (a ``compute_dtype="bfloat16"`` model runs its
+        bfloat16 kernels and answers in float32); of an ensemble, the
+        members' mean; of an artifact, its program's."""
+        if self._exported is not None:
+            return self._exported(x)
+        probs = (self._ensemble_probs(x) if self.n_members
+                 else _video_probs(self.model, x))
         top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
-        return probs.cpu().numpy(), top_p.cpu().numpy(), top_i.cpu().numpy()
+        return probs, top_p, top_i
 
     def _ensemble_probs(self, x: torch.Tensor) -> torch.Tensor:
         """Every member's softmax in one vmapped pass (the transforms need
@@ -214,25 +343,57 @@ class Predictor:
                 in_dims=(0, 0, None))(params, buffers, x.clone())
             return probs.mean(dim=0)
 
+    def _fetch(self, outs, slot: int):
+        """Start the copies of one chunk's outputs to the host: on CUDA
+        into pinned buffer pair ``slot`` without waiting, an event
+        recorded after them; elsewhere the outputs are on the host
+        already.  Returns (host tensors, event or None)."""
+        if self.device.type != "cuda":
+            return outs, None
+        bufs = self._pinned[slot]
+        if bufs is None or [b.shape for b in bufs] != [o.shape
+                                                      for o in outs]:
+            bufs = self._pinned[slot] = tuple(
+                torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                for o in outs)
+        for dst, src in zip(bufs, outs):
+            dst.copy_(src, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return bufs, event
+
     def __call__(self, features: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """features: [N, S, D] -> (probs [N,C], top_p [N,K], top_i [N,K])."""
+        """features: [N, S, D] -> (probs [N,C], top_p [N,K], top_i [N,K]).
+        Chunk i+1 is dispatched and its copies started before chunk i is
+        read (see the module docstring)."""
         n = features.shape[0]
         b = self.batch_size
-        probs, tps, tis = [], [], []
-        for lo in range(0, n, b):
+        got = ([], [], [])
+
+        def take(fetched, real):
+            bufs, event = fetched
+            if event is not None:
+                event.synchronize()
+            for out, t in zip(got, bufs):
+                out.append(t[:real].numpy().copy())  # bufs are reused
+
+        in_flight = None
+        for i, lo in enumerate(range(0, n, b)):
             chunk = np.asarray(features[lo:lo + b], np.float32)
             real = chunk.shape[0]
             if real < b:
                 chunk = np.concatenate(
                     [chunk, np.zeros((b - real,) + chunk.shape[1:],
                                      np.float32)])
-            p, tp, ti = self._predict(chunk)
-            probs.append(p[:real])
-            tps.append(tp[:real])
-            tis.append(ti[:real])
-        return (np.concatenate(probs), np.concatenate(tps),
-                np.concatenate(tis))
+            x = upload(chunk, torch.float32, self.device)
+            fetched = self._fetch(self._forward(x), i % 2)
+            if in_flight is not None:
+                take(*in_flight)
+            in_flight = (fetched, real)
+        if in_flight is not None:
+            take(*in_flight)
+        return tuple(np.concatenate(out) for out in got)
 
 
 def make_http_server(predictor: Predictor, class_names: Sequence[str],

@@ -39,6 +39,9 @@ metrics come back as float32 whatever the compute dtype.  Every step runs
 inside ``models.layers.bf16_f32_reduction``, so that cuBLAS sums bfloat16
 products in float32, as XLA does.  ``make_grad_accum_step`` averages the
 gradients of G micro-batch pairs into one update (``--accum_steps``).
+int8 inference (``ModelConfig.quantize="int8"``) runs in the eval and
+infer steps only: every train-step builder refuses it, as JAX's
+``make_train_step`` does.
 """
 
 from __future__ import annotations
@@ -55,8 +58,8 @@ from ta3n_tpu_torch.losses import (CORAL, JAN, attentive_entropy,
 from ta3n_tpu_torch.models.layers import bf16_f32_reduction
 from ta3n_tpu_torch.models.video_model import StreamOutput, VideoModel
 from ta3n_tpu_torch.ops.gather_gemm import (RowIndex, gathered_gemm,
-                                            gathered_linear, row_index,
-                                            upload)
+                                            gathered_linear, gathered_rows,
+                                            row_index, upload)
 from ta3n_tpu_torch.train.optim import make_optimizer, optimizer_step
 
 __all__ = ["TrainState", "StepScalars", "create_train_state",
@@ -785,12 +788,19 @@ def _eval_gathered(model: VideoModel, part, b: int) -> StreamOutput:
     the fused gather + FC without the gathered rows (no backward), then
     the model from the pre-activations.  The videos run as the target
     stream, so under share_params N they take the target layers, as in
-    the JAX eval step, which reads the target side."""
-    (weight, bias), = _first_fc(model)
+    the JAX eval step, which reads the target side.  An int8 model's first
+    FC is quantized: its rows are gathered plain and go through the
+    model's quantized Linear, as in the JAX step, so K3 is not launched."""
     store, rows, scale = part
-    z, _ = gathered_gemm(store, rows, weight, scale, with_rows=False)
-    _, out = model.forward_shared(z.add_(bias), 0, b, _EVAL_BETA, 0.0,
-                                  False, False)
+    if model.cfg.quantize == "int8":
+        fc = model.shared_fc("target")
+        pre = fc(gathered_rows(store, rows, scale).reshape(
+            -1, fc.in_features))
+    else:
+        (weight, bias), = _first_fc(model)
+        z, _ = gathered_gemm(store, rows, weight, scale, with_rows=False)
+        pre = z.add_(bias)
+    _, out = model.forward_shared(pre, 0, b, _EVAL_BETA, 0.0, False, False)
     return out
 
 

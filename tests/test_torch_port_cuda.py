@@ -2321,3 +2321,128 @@ def test_bf16_ensemble_eval_and_from_sweep_on_cuda_match_cpu(tmp_path):
     assert np.abs(got["cuda"][0] - logits_cpu).max() <= \
         2.0 ** -6 * np.abs(logits_cpu).max()
     np.testing.assert_allclose(got["cuda"][1], got["cpu"][1], atol=2.0 ** -6)
+
+
+# ---- int8 inference, AOT artifacts, the pipelined fetch, the extractor ----
+
+def _int8_cfg(**over):
+    """The flagship's branches at widths that reach the int8 gate."""
+    return ModelConfig(**{**dict(
+        num_class=6, baseline_type="video", frame_aggregation="trn-m",
+        train_segments=5, val_segments=5, feature_dim=256, fc_dim=256,
+        use_attn="TransAttn", dropout_i=0.0, dropout_v=0.0,
+        quantize="int8"), **over})
+
+
+def _scaled_model(cfg, seed, device):
+    """Seeded weights, every matrix x20 (separated logits)."""
+    model = VideoModel(cfg, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() >= 2:
+                p.mul_(20.0)
+    return model.to(device).eval()
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_int8_predictor_on_cuda_matches_cpu(batch):
+    """The int8 Predictor at batch 1 (torch._int_mm's rows padded past 16)
+    and 64 on the card against the CPU's: probabilities within 1e-4, the
+    same top class, 11 int8 products a forward at 5 segments and no K1."""
+    from ta3n_tpu_torch.models import layers
+    from ta3n_tpu_torch.serve import Predictor
+    cfg = _int8_cfg()
+    x = np.random.default_rng(0).normal(size=(70, 5, 256)).astype(
+        np.float32)[:batch + 3]
+    cpu = Predictor(cfg, _scaled_model(cfg, 0, "cpu"), batch_size=batch,
+                    device="cpu")(x)
+    trn_fused.launches = layers.int8_gemms = 0
+    got = Predictor(cfg, _scaled_model(cfg, 0, "cuda"), batch_size=batch,
+                    device="cuda")(x)
+    chunks = -(-x.shape[0] // batch)
+    assert layers.int8_gemms == 11 * chunks and trn_fused.launches == 0
+    np.testing.assert_allclose(got[0], cpu[0], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got[2][:, 0], cpu[2][:, 0])
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_exported_artifact_on_cuda(tmp_path, quantize):
+    """An artifact traced on the CPU and loaded onto the card answers as
+    the live Predictor on the card (within 1e-5), running no hand-written
+    kernel."""
+    from ta3n_tpu_torch.serve import Predictor
+    cfg = _int8_cfg(quantize=quantize)
+    live = Predictor(cfg, _scaled_model(cfg, 1, "cuda"), batch_size=8)
+    served = Predictor.from_exported(live.export(str(tmp_path)))
+    x = np.random.default_rng(1).normal(size=(13, 5, 256)).astype(
+        np.float32)
+    trn_fused.launches = 0
+    got = served(x)
+    assert trn_fused.launches == 0
+    want = live(x)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[2][:, 0], want[2][:, 0])
+
+
+def test_pipelined_predictor_on_cuda_is_one_by_one():
+    """Ten chunks through the pinned double buffers, bitwise the chunks
+    fetched one call each, also for a ragged last chunk."""
+    from ta3n_tpu_torch.serve import Predictor
+    cfg = _int8_cfg(quantize="none")
+    pred = Predictor(cfg, _scaled_model(cfg, 2, "cuda"), batch_size=16)
+    x = np.random.default_rng(2).normal(size=(155, 5, 256)).astype(
+        np.float32)
+    got = pred(x)
+    one = [pred(x[lo:lo + 16]) for lo in range(0, 155, 16)]
+    for a, b in zip(got, zip(*one)):
+        np.testing.assert_array_equal(a, np.concatenate(b))
+
+
+@pytest.mark.parametrize("base_model", ["resnet18", "c3d"])
+def test_extractor_on_cuda_matches_cpu(tmp_path, base_model):
+    """make_extractor on the card (cuDNN with TF32 off) against the same
+    extractor on the CPU: resnet18 on 224x224 frames, C3D on 16-frame
+    112x112 clips, features within 1e-4 of their largest."""
+    from ta3n_tpu_torch.models.backbones import (C3DFeatures,
+                                                 ResNetFeatures)
+    from ta3n_tpu_torch.prep.video2feature import (extract_batched,
+                                                   make_extractor)
+    gen = torch.Generator().manual_seed(3)
+    if base_model == "c3d":
+        net = C3DFeatures()
+        shape = (3, 16, 112, 112, 3)
+    else:
+        net = ResNetFeatures("resnet18")
+        shape = (5, 224, 224, 3)
+    state = {}
+    for name, t in net.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            state[name] = torch.zeros_like(t)
+        elif name.endswith("running_var"):
+            state[name] = torch.rand(t.shape, generator=gen) + 0.5
+        else:
+            fan_in = t[0].numel() if t.dim() > 1 else 1
+            state[name] = torch.randn(t.shape, generator=gen) / math.sqrt(
+                fan_in)
+    path = str(tmp_path / "w.pth")
+    torch.save(state, path)
+    x = np.random.default_rng(3).normal(size=shape).astype(np.float32)
+    got = extract_batched(x, make_extractor(base_model, path, 2,
+                                            device="cuda"), 2)
+    want = extract_batched(x, make_extractor(base_model, path, 2,
+                                             device="cpu"), 2)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_int8_matmul_on_cuda_is_bitwise_the_cpu():
+    """int8_matmul at the flagship's shapes and at narrow unaligned ones
+    (torch._int_mm's rows, K and N padded) on the card, bitwise the CPU's:
+    the scales are true divisions on both devices."""
+    from ta3n_tpu_torch.models import layers
+    gen = torch.Generator().manual_seed(4)
+    for m, k, n in ((320, 2048, 512), (5, 2048, 512), (64, 2560, 256),
+                    (1, 256, 256), (3, 20, 6), (17, 136, 130)):
+        x = torch.relu(torch.randn(m, k, generator=gen))
+        w = torch.randn(n, k, generator=gen) * 0.05
+        got = layers.int8_matmul(x.cuda(), w.cuda()).cpu()
+        assert torch.equal(got, layers.int8_matmul(x, w)), (m, k, n)

@@ -71,6 +71,18 @@ B_S, B_T = 8, 6
 BETA = (0.75, 0.75, 0.5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small CPU steps: a pool of
+    every core gains them nothing and, with the other test workers'
+    pools, oversubscribes the machine (the module ran ~2-4x slower beside
+    two others).  The previous count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfg(**fields):
     return ModelConfig(**{**MODEL, **fields})
 

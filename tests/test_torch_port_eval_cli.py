@@ -3,8 +3,8 @@ JAX package's (`ta3n_tpu.cli.test_models`) on one synthetic store and one
 `.pth.tar` exported from JAX parameters (`save_torch_checkpoint`), from
 host features and with `--device_store`, on the CPU: the same `Pred@k`
 line and per-class top-K file, scores and attention within 1e-5, also
-with the store streamed in shards.  Flags whose path is not ported raise,
-naming their ROADMAP.md item."""
+with the store streamed in shards, and with --quantize int8.  Flags whose
+path is not ported raise, naming their ROADMAP.md item."""
 
 import jax
 import numpy as np
@@ -167,15 +167,30 @@ def test_eval_cli_streamed_matches_jax(workspace, jax_outputs, budget):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--quantize", "int8"], "item 10"),
-    (["--data_parallel"], "item 10"),
+    (["--quantize", "int8"], None),
+    (["--data_parallel"], "item 9"),
 ])
 def test_eval_cli_unported_flags_raise(workspace, flags, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
-        port_cli.main([str(workspace / "class.txt"), "RGB",
-                       str(workspace / "val" / "list.txt"),
-                       str(workspace / "model.pth.tar"), *MODEL_FLAGS,
-                       "--device", "cpu", *flags])
+    """--data_parallel raises, naming ROADMAP.md queue 1, item 9.
+    --quantize int8 is ported: the JAX CLI's --quantize int8 Pred@k line,
+    scores and attention (at the workspace's widths the TRN's 256-wide
+    bottleneck is quantized: the relation heads' first layers and the
+    video domain FC)."""
+    argv = [str(workspace / "class.txt"), "RGB",
+            str(workspace / "val" / "list.txt"),
+            str(workspace / "model.pth.tar"), *MODEL_FLAGS, "--device", "cpu",
+            *flags]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
+            port_cli.main(argv)
+        return
+    want = _run(jax_cli.main, workspace, "jax_int8", *flags)
+    got = _run(port_cli.main, workspace, "port_int8", "--device", "cpu",
+               *flags)
+    assert got[0] == want[0] and got[4] == want[4]
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[1], want[1], **TOL)
+    np.testing.assert_allclose(got[3], want[3], **TOL)
 
 
 def test_eval_cli_needs_a_card_by_default(workspace, monkeypatch):

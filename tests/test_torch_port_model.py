@@ -210,7 +210,27 @@ def test_precision_config_matches_jax(jax_params, field, is_train):
 
 @pytest.mark.parametrize("field,value", [("quantize", "int8")])
 def test_unported_config_raises(field, value):
+    """int8 inference is ported (tests/test_torch_port_int8.py holds it to
+    JAX's): the model builds and runs; at these widths only the TRN's
+    256-wide bottleneck reaches the int8 gate, so one forward makes 5
+    int8 products (the 4 relation heads' first layers and the video
+    domain FC) and the shared, frame and TRN layers are exactly the
+    float32 model's.  It computes in float32 only, so a bfloat16 compute
+    dtype raises."""
     import dataclasses
+    from ta3n_tpu_torch.models import layers
     cfg = dataclasses.replace(CFG, **{field: value})
-    with pytest.raises(NotImplementedError, match=f"{field}=.*ROADMAP"):
-        VideoModel(cfg)
+    model = VideoModel(cfg, torch.Generator().manual_seed(0)).eval()
+    ref = VideoModel(CFG, torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(3, CFG.val_segments, CFG.input_feature_dim)
+    layers.int8_gemms = 0
+    with torch.no_grad():
+        got = model(x[:0], x, (0.0, 0.0, 0.0), 0.0, False, False)[1]
+        want = ref(x[:0], x, (0.0, 0.0, 0.0), 0.0, False, False)[1]
+    assert layers.int8_gemms == CFG.val_segments
+    torch.testing.assert_close(got.feat[-1], want.feat[-1], rtol=0, atol=0)
+    torch.testing.assert_close(got.pred_domain[2], want.pred_domain[2],
+                               rtol=0, atol=0)
+    assert torch.isfinite(got.out).all() and got.out.shape == (3, 4)
+    with pytest.raises(ValueError, match="computes in float32"):
+        VideoModel(dataclasses.replace(cfg, compute_dtype="bfloat16"))

@@ -4,7 +4,8 @@ does (CPU), over HTTP too; a sweep's member checkpoints as one deep
 ensemble (``from_sweep``, the CLI with a sweep dir and ``--sweep_best``)
 whose probabilities are the mean of the members' solo Predictors' and the
 JAX ensemble Predictor's (``n_members``) on the same weights, within
-PROB_TOL; the CLI refuses what is not ported."""
+PROB_TOL; the pipelined fetch equal to chunks fetched one by one; the
+CLI's --export and --quantize, and its refusal of what is not ported."""
 
 import dataclasses
 import os
@@ -30,6 +31,7 @@ from ta3n_tpu.train import create_train_state
 from ta3n_tpu_torch.cli import serve as cli_serve
 from ta3n_tpu_torch.io_utils.convert import (load_reference_checkpoint,
                                              reference_state_dict)
+from ta3n_tpu_torch.models import layers
 from ta3n_tpu_torch.serve import Predictor, make_http_server
 
 CFG = ModelConfig(num_class=4, baseline_type="video",
@@ -97,6 +99,20 @@ def test_predictor_matches_jax_predictor(checkpoint, predictor):
                                atol=PROB_TOL)
 
 
+@pytest.mark.parametrize("n", [1, 4, 5, 9, 13])
+def test_pipelined_call_is_the_one_by_one_fetch(predictor, n):
+    """Ragged requests at batch 4 (up to four chunks, the last padded):
+    the pipelined call, which reads chunk i after dispatching chunk i+1,
+    answers bitwise as the chunks fetched one call each."""
+    x = np.random.default_rng(10 + n).normal(size=(n, 3, 16)).astype(
+        np.float32)
+    got = predictor(x)
+    one_by_one = [predictor(x[lo:lo + 4]) for lo in range(0, n, 4)]
+    for a, b in zip(got, zip(*one_by_one)):
+        np.testing.assert_array_equal(a, np.concatenate(b))
+    assert got[0].shape == (n, 4) and got[2].dtype == np.int64
+
+
 def test_http_round_trip(predictor):
     server = make_http_server(predictor, ["a", "b", "c", "d"], "127.0.0.1",
                               0)
@@ -142,20 +158,22 @@ def test_checkpoint_directory_raises_with_export_hint(tmp_path):
 
 
 def test_unported_serving_extras_raise(checkpoint, predictor, tmp_path):
-    """AOT export and data-parallel serving raise; ensemble serving is
-    ported: a sweep dir of two copies of one checkpoint serves that
+    """Data-parallel serving (mesh=) raises, naming ROADMAP.md queue 1,
+    item 9; AOT export is ported: the artifact answers as the Predictor
+    (tests/test_torch_port_export.py holds it to JAX's); ensemble serving
+    is ported: a sweep dir of two copies of one checkpoint serves that
     checkpoint's answers."""
-    for call in (lambda: predictor.export(str(tmp_path)),
-                 lambda: Predictor.from_exported(str(tmp_path)),
-                 lambda: Predictor(CFG, predictor.model, device="cpu",
-                                   mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        Predictor(CFG, predictor.model, device="cpu", mesh=object())
+    x = np.random.default_rng(5).normal(size=(5, 3, 16)).astype(np.float32)
+    served = Predictor.from_exported(predictor.export(str(tmp_path / "a")),
+                                     device="cpu")
+    np.testing.assert_allclose(served(x)[0], predictor(x)[0], rtol=0,
+                               atol=PROB_TOL)
     sweep = _sweep_dir(tmp_path, [checkpoint[0]] * 2)
     ens = Predictor.from_sweep(sweep, CFG, device="cpu", batch_size=4,
                                top_k=3)
     assert ens.n_members == 2
-    x = np.random.default_rng(5).normal(size=(5, 3, 16)).astype(np.float32)
     np.testing.assert_allclose(ens(x)[0], predictor(x)[0], rtol=0,
                                atol=PROB_TOL)
 
@@ -272,22 +290,45 @@ _MODEL_FLAGS = ["--feature_dim", "16", "--fc_dim", "16",
                                    ["--sweep_best"], ["--quantize", "int8"]])
 def test_cli_refuses_unported_flags(tmp_path, checkpoint, flags,
                                     monkeypatch):
-    """The unported flags exit naming their ROADMAP item.  --sweep_best is
-    ported: on a sweep dir the CLI serves the members' model_best as one
-    ensemble; on a solo checkpoint it exits with the JAX CLI's
+    """--data_parallel exits naming ROADMAP.md queue 1, item 9.  The
+    others are ported: --export writes an artifact and exits without
+    serving; --quantize int8 serves the int8 Predictor of the checkpoint
+    (at these widths only the TRN's 256-wide bottleneck reaches the int8
+    gate: the relation heads' first layers and the video domain FC);
+    --sweep_best on a sweep dir serves the members' model_best
+    as one ensemble, and on a solo checkpoint exits with the JAX CLI's
     message."""
-    if flags != ["--sweep_best"]:
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli_serve.main([_class_file(tmp_path), checkpoint[0],
-                            *_MODEL_FLAGS, "--device", "cpu", *flags])
-        return
-    with pytest.raises(SystemExit, match="is not a sweep output dir"):
-        cli_serve.main([_class_file(tmp_path), checkpoint[0], *_MODEL_FLAGS,
-                        "--device", "cpu", *flags])
     served = {}
     monkeypatch.setattr(cli_serve, "run_http_server",
                         lambda p, names, host, port: served.update(
                             predictor=p))
+    argv = [_class_file(tmp_path), checkpoint[0], *_MODEL_FLAGS, "--device",
+            "cpu", "--top_k", "3", "--batch_size", "4"]
+    if flags == ["--data_parallel"]:
+        with pytest.raises(SystemExit, match="queue 1, item 9"):
+            cli_serve.main([*argv, *flags])
+        return
+    if flags[0] == "--export":
+        out = str(tmp_path / flags[1])
+        cli_serve.main([*argv, "--export", out])
+        assert not served and Predictor.is_exported(out)
+        return
+    if flags[0] == "--quantize":
+        cli_serve.main([*argv, *flags])
+        assert served["predictor"].cfg.quantize == "int8"
+        x = np.random.default_rng(9).normal(size=(5, 3, 16)).astype(
+            np.float32)
+        ref = Predictor.from_checkpoint(
+            checkpoint[0], dataclasses.replace(CFG, quantize="int8"),
+            device="cpu", batch_size=4, top_k=3)
+        layers.int8_gemms = 0
+        np.testing.assert_array_equal(served["predictor"](x)[0], ref(x)[0])
+        # the 256-wide relation heads and video domain FC, at two chunks
+        assert layers.int8_gemms == 2 * 2 * (2 + 1)
+        return
+    with pytest.raises(SystemExit, match="is not a sweep output dir"):
+        cli_serve.main([_class_file(tmp_path), checkpoint[0], *_MODEL_FLAGS,
+                        "--device", "cpu", *flags])
     sweep = _sweep_dir(tmp_path, [checkpoint[0]] * 2, best=(0, 1))
     cli_serve.main([_class_file(tmp_path), sweep, *_MODEL_FLAGS, "--device",
                     "cpu", "--top_k", "3", "--batch_size", "4", *flags])

@@ -42,6 +42,18 @@ STEP_CONFIGS = sorted(n for n in CONFIGS if n != "frame_general")
 PAIR = dict(num_source=12, num_target=9, num_class=5, feature_dim=24)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small CPU steps: a pool of
+    every core gains them nothing and, with the other test workers'
+    pools, oversubscribes the machine (the module ran ~2-4x slower beside
+    two others).  The previous count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _scalars(i):
     """DANN beta and lr at step i of a 20-step run, MCD's mu."""
     p = progress(i, 0, 20)

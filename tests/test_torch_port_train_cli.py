@@ -24,6 +24,18 @@ MODEL_FLAGS = ["--baseline_type", "video", "--frame_aggregation", "trn-m",
                "--feature_dim", "32"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small CPU steps: a pool of
+    every core gains them nothing and, with the other test workers'
+    pools, oversubscribes the machine (the module ran ~2-4x slower beside
+    two others).  The previous count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def workspace(tmp_path_factory):
     root = tmp_path_factory.mktemp("train_cli")
