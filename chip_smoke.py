@@ -122,6 +122,20 @@ Predictor; 640 videos through the pipelined Predictor against the chunks
 fetched one call each, bitwise, timed in turns; ResNet-101 and C3D (both
 activations) extracting features on the card against the CPU, the shards
 packed by video2feature --finalize, frames/s and clips/s.
+The last single-card modules: FeatureStore.gather through the native
+host gather (data/native_gather.py, built with g++) bitwise the numpy
+fancy index (the store's default) over every video of the three stores
+as float32, float16 and int8, and timed against it at 128 x 5 and 74 x 5
+(median of 41 in turns, beside the fancy index's rows into a reused
+output), with the host-feature train step in turns with each; the val
+split written as .t7 files, converted by cli.convert_features at float32
+and int8 (bitwise the rows and FeatureStore.quantize), and the eval CLI
+on the converted store printing the original's line; the train CLI for
+one epoch with --profile_dir, single-step and at --steps_per_call 4, each
+trace holding its window's K1 (train), K2 and K3 and nothing more; the
+train CLI with --tensorboard through a recording tensorboardX (the JAX
+tags, one embedding row per real video, Prec@1 equal to the run
+without); and every entry point of python -m ta3n_tpu_torch imported.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -133,6 +147,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
 import io
 import json
 import math
@@ -150,6 +165,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ta3n_tpu_torch.cli import convert_features as cli_convert_features
 from ta3n_tpu_torch.cli import serve as cli_serve
 from ta3n_tpu_torch.cli import sweep as cli_sweep
 from ta3n_tpu_torch.cli import test_models as cli_test_models
@@ -157,6 +173,7 @@ from ta3n_tpu_torch.cli import train as cli_train
 from ta3n_tpu_torch.cli.opts import build_parser, configs_from_args
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.data import FeatureStore, TSNLoader, make_domain_pair
+from ta3n_tpu_torch.data import native_gather
 from ta3n_tpu_torch.data.device_sampler import (DeviceSampler,
                                                 StreamingDeviceSampler)
 from ta3n_tpu_torch.data.streaming import ShardPlan, ShardStream
@@ -4367,6 +4384,403 @@ def extract_phase(workdir):
     return rates
 
 
+# the last single-card modules (after every other phase): the native host
+# gather at the train batches (source, target), timed as a median of
+# GATHER_RUNS in turns with numpy's fancy index; NATIVE_STEPS host-feature
+# steps a turn with each; the tags the JAX Trainer writes to tensorboard
+GATHER_BATCHES = (128, 74)
+GATHER_RUNS = 41
+NATIVE_STEPS = 20
+TB_TAGS = ("train_source", "train_target", "train_DA", "train_DA_labels",
+           "validation", "Best_Accuracy")
+# a recording tensorboardX, written into a scratch directory on sys.path
+STUB_TENSORBOARDX = """CALLS = []
+
+
+class SummaryWriter:
+    def __init__(self, logdir):
+        CALLS.append(("init", logdir))
+
+    def add_embedding(self, mat, metadata=None, global_step=None, tag=None):
+        CALLS.append(("embedding", tag, tuple(mat.shape), len(metadata),
+                      global_step))
+
+    def add_text(self, tag, text, step):
+        CALLS.append(("text", tag, text, step))
+
+    def close(self):
+        CALLS.append(("close",))
+"""
+
+
+@contextlib.contextmanager
+def native_gather_on(on):
+    """FeatureStore's class switch set to ``on`` for the block."""
+    prev = FeatureStore.use_native_gather
+    FeatureStore.use_native_gather = on
+    try:
+        yield
+    finally:
+        FeatureStore.use_native_gather = prev
+
+
+def gather_batch(store, b, rng):
+    """b random videos of ``store`` and 5 frame indices of each."""
+    vids = rng.integers(0, store.num_videos, b)
+    return vids, np.stack([rng.integers(0, n, FLAGSHIP.train_segments)
+                           for n in store.num_frames(vids)])
+
+
+def check_native_gather(stores):
+    """(a) FeatureStore.gather through the native library bitwise the
+    numpy fancy index over every video of the three published-size
+    stores, as float32, float16 and int8 stores, in batches of 128 with
+    random frames.  Returns the int8 val store (for the conversion)."""
+    rng = np.random.default_rng(11)
+    int8_val = None
+    for name, store in zip(("source", "target", "val"), stores):
+        variants = {"float32": store,
+                    "float16": FeatureStore(store.features.astype(np.float16),
+                                            store.offsets, store.paths,
+                                            store.labels),
+                    "int8": store.quantize()}
+        for kind, variant in variants.items():
+            for start in range(0, variant.num_videos, 128):
+                vids = np.arange(start, min(start + 128, variant.num_videos))
+                frames = np.stack([rng.integers(0, n, FLAGSHIP.train_segments)
+                                   for n in variant.num_frames(vids)])
+                with native_gather_on(True):
+                    got = variant.gather(vids, frames)
+                with native_gather_on(False):
+                    want = variant.gather(vids, frames)
+                if got.dtype != want.dtype or not np.array_equal(got, want):
+                    raise AssertionError(f"native gather of the {kind} {name}"
+                                         f" store differs at videos {start}+")
+            log(f"  {name} ({variant.num_videos} videos), {kind}: every "
+                "video's batch bitwise the fancy index")
+        int8_val = variants["int8"]
+    return int8_val
+
+
+def time_native_gather(gen, stores):
+    """(a, timing) The gather per batch, native against the fancy index,
+    at 128 x 5 (source) and 74 x 5 (target) from float32 stores and at
+    128 x 5 from the int8 source store, GATHER_RUNS in turns, beside the
+    fancy index's rows taken into one reused output (what a fresh
+    output's first touch costs); then the
+    host-feature train step (128 + 74, dropout 0.5) with each, in turns
+    (numpy, native, native, numpy), NATIVE_STEPS steps a turn.  Returns
+    the medians (ms)."""
+    rng = np.random.default_rng(12)
+    cases = {f"{b}x5 float32": (stores[i], b)
+             for i, b in enumerate(GATHER_BATCHES)}
+    cases["128x5 int8"] = (stores[0].quantize(), GATHER_BATCHES[0])
+    result = {}
+    for label, (store, b) in cases.items():
+        # FeatureStore.gather with the switch on and off; the library
+        # alone on 8 threads (its rows only) beside its default of one;
+        # the fancy index's rows into a reused output
+        reused = np.empty((b, FLAGSHIP.train_segments)
+                          + store.features.shape[1:], store.features.dtype)
+        runs = {"native_ms": lambda v, f: store.gather(v, f),
+                "numpy_ms": lambda v, f: store.gather(v, f),
+                "native_8threads_rows_ms": lambda v, f: native_gather
+                .native_gather(store.features, store.offsets, v, f, 8),
+                # (mode "clip": with "raise" numpy takes into a buffer
+                # of its own first)
+                "numpy_rows_into_reused_ms": lambda v, f: np.take(
+                    store.features, store.offsets[v][:, None] + f, axis=0,
+                    out=reused, mode="clip")}
+        times = {name: [] for name in runs}
+        for r in range(GATHER_RUNS + 2):
+            vids, frames = gather_batch(store, b, rng)
+            names = list(runs) if r % 2 else list(runs)[::-1]
+            for name in names:
+                with native_gather_on(name != "numpy_ms"):
+                    t0 = time.perf_counter()
+                    runs[name](vids, frames)
+                    if r >= 2:  # two warm-up turns
+                        times[name].append((time.perf_counter() - t0) * 1e3)
+        result[label] = {name: statistics.median(t)
+                         for name, t in times.items()}
+        log(f"  gather {label}: native {result[label]['native_ms']:.4f} ms, "
+            f"fancy index {result[label]['numpy_ms']:.4f} ms, the library's "
+            f"rows on 8 threads "
+            f"{result[label]['native_8threads_rows_ms']:.4f} ms, the fancy "
+            f"index's rows into a reused output "
+            f"{result[label]['numpy_rows_into_reused_ms']:.4f} ms (median of "
+            f"{GATHER_RUNS} in turns)")
+    model = flagship_model(gen, dropout=0.5)
+    state = TrainState(model, make_optimizer(model.parameters(), TRAIN), 0)
+    step = make_train_step(model, DA, TRAIN)
+    feat_s, feat_t = store_loaders(stores, seed=7)
+    batches = zip(endless(feat_s.epoch), endless(feat_t.epoch))
+    rng_dev = torch.Generator("cuda").manual_seed(0)
+
+    def run(on, n):
+        nonlocal state
+        with native_gather_on(on):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                bs, bt = next(batches)
+                state, metrics = step(state, *bs, *bt,
+                                      scalars(state.step, 100, TRAIN.beta),
+                                      rng_dev)
+            torch.cuda.synchronize()
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError("host-feature step loss is not finite")
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    run(True, 3)
+    steps = {True: [], False: []}
+    for on in (False, True, True, False):
+        steps[on].append(run(on, NATIVE_STEPS))
+    result["host-feature step"] = {
+        "native_ms": statistics.median(steps[True]),
+        "numpy_ms": statistics.median(steps[False])}
+    log(f"  host-feature step (128 + 74 videos, its loader): native "
+        f"{result['host-feature step']['native_ms']:.3f} ms, fancy index "
+        f"{result['host-feature step']['numpy_ms']:.3f} ms per step "
+        f"(median of 2 turns of {NATIVE_STEPS})")
+    return result
+
+
+def write_t7_tree(workdir, store):
+    """``store`` as the original's layout, one .t7 per frame
+    (``<video>/img_%05d.t7``), and its list file; returns the list's
+    path."""
+    lines = []
+    for v, (path, label) in enumerate(zip(store.paths, store.labels)):
+        vdir = os.path.join(workdir, f"video_{v:04d}")
+        os.makedirs(vdir)
+        rows = store.features[store.offsets[v]:store.offsets[v + 1]]
+        for i, row in enumerate(rows, 1):
+            torch.save(torch.from_numpy(np.array(row)),
+                       os.path.join(vdir, f"img_{i:05d}.t7"))
+        lines.append(f"{vdir} {len(rows)} {label}\n")
+    list_file = os.path.join(workdir, "list.txt")
+    with open(list_file, "w") as f:
+        f.writelines(lines)
+    return list_file
+
+
+def conversion_check(root, workdir, val, int8_val):
+    """(b) The val split written as .t7 files, converted by
+    cli.convert_features at float32 and int8: the stores bitwise the
+    source rows and FeatureStore.quantize's codes and scales; the eval
+    CLI on the converted float32 store prints the original store's Pred@k
+    line.  Returns the eval CLIs' launches."""
+    t0 = time.perf_counter()
+    list_file = write_t7_tree(os.path.join(workdir, "t7"), val)
+    n_files = int(val.offsets[-1])
+    log(f"  wrote {n_files} .t7 files of {val.num_videos} videos in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for dtype in ("float32", "int8"):
+        out[dtype] = os.path.join(workdir, f"store_{dtype}")
+        t0 = time.perf_counter()
+        _, printed = run_cli(cli_convert_features.main,
+                             [list_file, out[dtype], "--dtype", dtype])
+        seconds = time.perf_counter() - t0
+        got = FeatureStore.load(out[dtype])
+        want = val if dtype == "float32" else int8_val
+        same = (np.array_equal(got.offsets, want.offsets)
+                and got.features.dtype == want.features.dtype
+                and np.array_equal(got.features, want.features)
+                and list(got.labels) == list(want.labels))
+        if dtype == "int8":
+            same = same and np.array_equal(got.scales, want.scales)
+        log(f"  {printed.strip()} in {seconds:.1f} s; bitwise the "
+            f"{'source rows' if dtype == 'float32' else 'quantized rows'}: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"the converted {dtype} store differs")
+    weights = os.path.join(root, "exp", "RGB", "model_best.pth.tar")
+    nb = -(-val.num_videos // CLI_BATCH)
+    lines, launches = {}, dict.fromkeys(counts(), 0)
+    for label, argv in (
+            ("original store", eval_cli_args(root, weights)),
+            ("converted store", [
+                os.path.join(root, "class.txt"), "RGB", list_file, weights,
+                *MODEL_FLAGS, "--test_segments", "5", "--bS", str(CLI_BATCH),
+                "--top", "1", "3", "5", "--store", out["float32"]])):
+        reset_counts()
+        lines[label], _ = run_cli(cli_test_models.main, argv)
+        launched = counts()
+        if launched != {"trn_fused_fwd": nb, "trn_fused_fwd_train": 0,
+                        "trn_fused_bwd": 0, "gather_gemm": 0}:
+            raise AssertionError(f"eval CLI ({label}) launched {launched}")
+        launches = {k: launches[k] + n for k, n in launched.items()}
+        log(f"  eval CLI on the {label}: {lines[label].strip()}")
+    if lines["original store"] != lines["converted store"]:
+        raise AssertionError(f"the eval CLI's lines differ: {lines}")
+    return launches
+
+
+def profile_dir_check(root, workdir):
+    """(c) The train CLI for one epoch from the stores with --profile_dir,
+    single-step (a window of steps 2-7) and with --steps_per_call 4 (the
+    second call, 4 steps): one Chrome trace each, holding device events
+    of K1 (train), K2 and K3, and no more than the window's launches (per
+    step 1, 1 and 2: a wider window would hold more; CUPTI may drop the
+    first kernels after the trace starts, so fewer are logged, not
+    failed); the trace's top device kernels logged.  Returns the runs'
+    launches."""
+    launches = dict.fromkeys(counts(), 0)
+    for label, extra, steps in (("single-step", [], 6),
+                                ("--steps_per_call 4",
+                                 ["--steps_per_call", "4"], 4)):
+        prof_dir = os.path.join(workdir, "prof_" + str(steps))
+        exp = os.path.join(workdir, "exp_prof_" + str(steps))
+        argv = [os.path.join(root, "class.txt"), "RGB",
+                *[os.path.join(root, n, "list.txt")
+                  for n in ("src", "tgt", "val")], *MODEL_FLAGS,
+                *RECIPE_FLAGS, "--exp_path", exp + "/", "--save_best_log",
+                os.path.join(exp, "best.log"), "--epochs", "1",
+                "--device_store", "--profile_dir", prof_dir, *extra]
+        with trainer_records() as records:
+            run_cli(cli_train.main, argv)
+        for rec in records:
+            check_trainer_launches(rec)
+            launches = {k: launches[k] + n
+                        for k, n in rec["launches"].items()}
+        traces = [f for f in os.listdir(prof_dir)
+                  if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"{label}: traces {traces}")
+        with open(os.path.join(prof_dir, traces[0])) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "kernel"]
+        by_kernel = {}
+        for e in events:
+            total, n = by_kernel.get(e["name"], (0.0, 0))
+            by_kernel[e["name"]] = (total + e.get("dur", 0.0), n + 1)
+        found = {k: sum(n for name, (_, n) in by_kernel.items() if k in name)
+                 for k in ("trn_fused_fwd_kernel", "trn_fused_bwd_kernel",
+                           "gather_gemm_kernel")}
+        want = {"trn_fused_fwd_kernel": steps, "trn_fused_bwd_kernel": steps,
+                "gather_gemm_kernel": 2 * steps}
+        size = os.path.getsize(os.path.join(prof_dir, traces[0]))
+        log(f"  {label}: {traces[0]} ({size / 1e6:.1f} MB), {len(events)} "
+            f"device kernels in the window; K1 (train), K2, K3: {found} "
+            f"(the window launched {want}; all in the trace: "
+            f"{found == want})")
+        for name, (total, n) in sorted(by_kernel.items(),
+                                       key=lambda kv: -kv[1][0])[:6]:
+            log(f"    {total / 1e3:8.4f} ms {n:4d}x  {name[:90]}")
+        if any(not 1 <= found[k] <= want[k] for k in want):
+            raise AssertionError(f"{label}: the trace holds {found}")
+    return launches
+
+
+def tensorboard_check(root, workdir):
+    """(d) The train CLI for one epoch from the stores with --tensorboard
+    through a recording tensorboardX, and without it, dropout 0: the JAX
+    Trainer's tags in order, the embeddings [n, feature] with n the
+    epoch's real videos (val: 360), and the same best Prec@1.  Returns
+    the runs' launches."""
+    stub = os.path.join(workdir, "stub")
+    os.makedirs(os.path.join(stub, "tensorboardX"))
+    with open(os.path.join(stub, "tensorboardX", "__init__.py"), "w") as f:
+        f.write(STUB_TENSORBOARDX)
+    saved = sys.modules.pop("tensorboardX", None)
+    sys.path.insert(0, stub)
+    launches = dict.fromkeys(counts(), 0)
+    best = {}
+    try:
+        for label, extra in (("plain", []), ("--tensorboard",
+                                             ["--tensorboard"])):
+            exp = os.path.join(workdir, "exp_tb_" + label.strip("-"))
+            argv = [os.path.join(root, "class.txt"), "RGB",
+                    *[os.path.join(root, n, "list.txt")
+                      for n in ("src", "tgt", "val")], *MODEL_FLAGS,
+                    *RECIPE_FLAGS, "--exp_path", exp + "/",
+                    "--save_best_log", os.path.join(exp, "best.log"),
+                    "--epochs", "1", "--device_store", "--dropout_i", "0",
+                    "--dropout_v", "0", *extra]
+            with trainer_records() as records:
+                best[label], _ = run_cli(cli_train.main, argv)
+            for rec in records:
+                check_trainer_launches(rec)
+                launches = {k: launches[k] + n
+                            for k, n in rec["launches"].items()}
+        import tensorboardX
+        calls = tensorboardX.CALLS
+    finally:
+        sys.path.remove(stub)
+        sys.modules.pop("tensorboardX", None)
+        if saved is not None:
+            sys.modules["tensorboardX"] = saved
+    # the real videos of the epoch's zip-shortest steps, in each stream
+    steps = [r["steps"] for r in records if r["kind"] == "train"][0]
+    n_src, n_tgt, n_val = (
+        len(open(os.path.join(root, n, "list.txt")).readlines())
+        for n in ("src", "tgt", "val"))
+    want = {"train_source": min(n_src, steps * TRAIN.batch_size[0]),
+            "train_target": min(n_tgt, steps * TRAIN.batch_size[1]),
+            "validation": n_val}
+    want["train_DA"] = want["train_source"] + want["train_target"]
+    tags = [c[1] for c in calls if c[0] in ("embedding", "text")]
+    rows = {c[1]: c[2] for c in calls if c[0] == "embedding"}
+    log(f"  tensorboardX calls: {[c[:3] for c in calls]}")
+    dims = {shape[1] for shape in rows.values() if len(shape) == 2}
+    if tags != list(TB_TAGS) or len(dims) != 1 or \
+            any(len(shape) != 2 for shape in rows.values()) or \
+            any(rows[tag][0] != n for tag, n in want.items()) or \
+            calls[-1] != ("close",):
+        raise AssertionError(f"tensorboard wrote {calls}, want rows {want}")
+    log(f"  tags {tags}, rows {want}; best Prec@1 "
+        f"{best['--tensorboard']:.3f} with --tensorboard, "
+        f"{best['plain']:.3f} without: equal "
+        f"{best['--tensorboard'] == best['plain']}")
+    if best["--tensorboard"] != best["plain"]:
+        raise AssertionError(f"Prec@1 differs: {best}")
+    return launches
+
+
+def entry_points_check():
+    """(e) Every module `python -m ta3n_tpu_torch` lists imports here
+    (a machine without jax) and has a main()."""
+    from ta3n_tpu_torch.__main__ import ENTRY_POINTS
+    for module, _ in ENTRY_POINTS:
+        if not callable(importlib.import_module(module).main):
+            raise AssertionError(f"{module} has no main()")
+    log(f"  {len(ENTRY_POINTS)} entry points import: "
+        + ", ".join(m for m, _ in ENTRY_POINTS))
+
+
+def train_extras_phase(gen, stores, root):
+    """The last single-card modules: (a) the native host gather against
+    the fancy index, bitwise and timed, with the host-feature step; (b)
+    .t7 conversion and the eval CLI on the converted store; (c)
+    --profile_dir traces; (d) --tensorboard; (e) the entry points.
+    Returns the launches of their CLI runs."""
+    log(f"  the native gather's library: "
+        f"{native_gather._lib_path().name}")
+    int8_val = check_native_gather(stores)
+    times = time_native_gather(gen, stores)
+    log(f"native gather against numpy's fancy index (ms; {card_line()}): "
+        f"{json.dumps(times)}")
+    launches = dict.fromkeys(counts(), 0)
+    with tempfile.TemporaryDirectory() as workdir:
+        for what, check in (
+                (".t7 conversion at float32 and int8, and the eval CLI on "
+                 "the converted store", lambda: conversion_check(
+                     root, workdir, stores[2], int8_val)),
+                ("--profile_dir: one epoch single-step and with "
+                 "--steps_per_call 4", lambda: profile_dir_check(root,
+                                                                 workdir)),
+                ("--tensorboard through a recording tensorboardX",
+                 lambda: tensorboard_check(root, workdir))):
+            log(what)
+            got = check()
+            launches = {k: launches[k] + got[k] for k in launches}
+    log("entry points of python -m ta3n_tpu_torch")
+    entry_points_check()
+    return launches
+
+
 def serving_extras(root) -> dict:
     """The int8, export, pipelined and extraction phases, in a scratch
     directory of their own; their times, and the K1 launches of their
@@ -4570,6 +4984,11 @@ def main() -> int:
             mine.update(theirs)
         ens16_t = got[3]
         log(f"bfloat16 ensembles: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log("the last single-card modules: the native host gather, .t7 "
+            "conversion, --profile_dir, --tensorboard and the entry points")
+        add(train_extras_phase(gen, stores, root))
+        log(f"the last single-card modules: {time.perf_counter() - t0:.1f} s")
         log(card_line())
 
     # the shapes each kernel runs at on its path: serving batch, train batch

@@ -12,6 +12,10 @@ members in one step (`train.ensemble`) with the sweep runner and CLI
 (`train.sweep`, `cli.sweep`) and deep-ensemble serving; int8
 inference, AOT serving artifacts (`Predictor.export`) and feature
 extraction on the card (`models.backbones`, `prep.video2feature`); the
+train CLI's profiler window and tensorboard embeddings, the native host
+gather (`data.native_gather`) and the data-preparation tools
+(`cli.convert_features`, `prep`; `python -m ta3n_tpu_torch` lists every
+entry point); the
 multi-scale TRN's forward and backward and the store gather + shared FC
 are hand-written CUDA kernels (`csrc/`).  ROADMAP.md lists what is still to
 port.  The package imports torch and nothing of the JAX package.

@@ -145,8 +145,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--num_devices', type=int, default=None,
                         help='use only the first N devices of the mesh')
     parser.add_argument('--profile_dir', type=str, default=None,
-                        help='capture a jax.profiler trace of steps 2-7 '
-                             'of the first epoch into this directory')
+                        help='write a torch.profiler trace (Chrome '
+                             'trace JSON: Perfetto, TensorBoard) of steps '
+                             '2-7 of the first epoch, or of the second '
+                             'call with --steps_per_call > 1, into this '
+                             'directory')
     parser.add_argument('--compilation_cache', type=str, default=None,
                         help='accepted so that a JAX command line runs '
                              'unchanged; no effect (the port compiles no '

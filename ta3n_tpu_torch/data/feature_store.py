@@ -5,7 +5,9 @@ device-store train and eval steps (`train/step.py`).
 
 All frame features of a split live in ONE contiguous array plus an offsets
 vector (reference: one ``.t7`` file per frame, dataset.py:53-66), so a
-batch gather is a single numpy fancy-index.
+batch gather is one numpy fancy index, or one call of the native row
+gather (`data/native_gather.py`) with the class switch
+``use_native_gather`` on.
 
 Layout on disk (directory), as the JAX package writes it:
     features.npy   [total_frames, D] (float32/float16) — memmap-able
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ta3n_tpu_torch.data.manifest import VideoRecord
+from ta3n_tpu_torch.data.native_gather import native_gather
 from ta3n_tpu_torch.data.quantized import quantize_rows
 
 __all__ = ["FeatureStore"]
@@ -87,6 +90,13 @@ class FeatureStore:
         return self._path_index[path]
 
     # ---- gather ----
+    # class switch, the JAX package's name: the native row gather
+    # (`data/native_gather.py`, built by the host compiler at first use)
+    # when on, numpy's fancy index, its plain version, when off.  Off by
+    # default: on the card's host the library is slower at the train
+    # batches (PERF.md §6)
+    use_native_gather = False
+
     def gather(self, video_idx: np.ndarray, frame_idx: np.ndarray,
                dtype=np.float32) -> np.ndarray:
         """Gather [B, T(, streams), D] features on the host.
@@ -94,12 +104,20 @@ class FeatureStore:
         video_idx: [B]; frame_idx: [B, T] 0-based within-video indices.
         Flow stores return [B, T*streams, D] with x/y interleaved per frame
         (parity with dataset.py:62-66 extending [x, y] per step).
-        A quantized store's rows are dequantized in the order of
+        The rows come through numpy's fancy index, or through the native
+        gather (bounds-checked: an index outside its video raises
+        ``IndexError``) while ``use_native_gather`` is on.  A
+        quantized store's rows are dequantized in the order of
         ``dequantize_rows`` (cast, then multiply), as the JAX package's.
         """
-        abs_idx = (self.offsets[np.asarray(video_idx)][:, None]
-                   + np.asarray(frame_idx))
-        rows = self.features[abs_idx]
+        video_idx = np.asarray(video_idx)
+        frame_idx = np.asarray(frame_idx)
+        abs_idx = self.offsets[video_idx][:, None] + frame_idx
+        if self.use_native_gather:
+            rows = native_gather(self.features, self.offsets, video_idx,
+                                 frame_idx)
+        else:
+            rows = self.features[abs_idx]
         if self.quantized:
             s = np.asarray(self.scales[abs_idx], np.float32)
             rows = rows.astype(np.float32) * s.reshape(

@@ -1,4 +1,5 @@
 """Files of the port: weight conversion between the JAX package,
 reference-format `.pth.tar` checkpoints and the port's modules
 (`convert.py`), the Trainer's checkpoints (`checkpoint.py`), log files and
-meters (`logs.py`) and confusion matrices (`confusion.py`)."""
+meters (`logs.py`), confusion matrices (`confusion.py`) and the
+tensorboard embedding writer (`tensorboard.py`)."""

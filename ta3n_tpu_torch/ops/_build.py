@@ -11,7 +11,9 @@ The library lands in ``build/ta3n_tpu_torch/`` at the root of the checkout
 flags, so an edited source is rebuilt and an unchanged one is reused.  It
 is written under a temporary name and moved into place with
 ``os.replace``, so a concurrent or interrupted build never leaves a
-half-written library behind.
+half-written library behind.  ``hashed_name`` and ``build_shared`` hold
+that policy for every library of the port (the host gather's too,
+`data/native_gather.py`, built by the host C++ compiler).
 
 Nothing here runs at import: a machine without ``nvcc`` imports the port
 and uses the plain PyTorch versions on CPU tensors.
@@ -28,7 +30,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["SOURCES", "library_path", "compile_library", "load_library"]
+__all__ = ["SOURCES", "hashed_name", "build_shared", "library_path",
+           "compile_library", "load_library"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (_CSRC / "trn_fused_fwd.cu", _CSRC / "trn_fused_fwd_bf16.cu",
@@ -90,46 +93,65 @@ def _nvcc() -> str:
     return found
 
 
+def hashed_name(stem: str, key: str, sources) -> str:
+    """``{stem}_{hash}.so``: the hash of ``key`` (the compiler and its
+    flags) and of each source's name and bytes, so an edited source or a
+    changed flag gets a build of its own."""
+    digest = hashlib.sha256(key.encode())
+    for src in sorted(sources, key=lambda p: p.name):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return f"{stem}_{digest.hexdigest()[:16]}.so"
+
+
 def library_path() -> Path:
     """Where the library for the current sources and flags lives: named by
     a hash of the flags and of every ``*.cu`` and ``*.cuh`` under
     ``csrc/``, so an edited header is rebuilt too."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")],
-                      key=lambda p: p.name):
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    return BUILD_DIR / f"libta3n_tpu_torch_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / hashed_name(
+        "libta3n_tpu_torch", " ".join(NVCC_FLAGS),
+        [*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")])
 
 
 def _run_all(cmds) -> str:
     """Run the commands concurrently; raise if any fails, else return
     their output in order."""
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for cmd in cmds]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+    except FileNotFoundError as e:
+        raise RuntimeError(f"no compiler {cmds[0][0]!r}: {e}") from e
     outs = [proc.communicate()[0] for proc in procs]
     for cmd, proc, out in zip(cmds, procs, outs):
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{out}")
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed "
+                               f"({proc.returncode}):\n{' '.join(cmd)}\n{out}")
     return "".join(outs)
 
 
-def compile_library(path: Path) -> str:
-    """Compile SOURCES into ``path``: one nvcc per source, concurrently,
-    then one link.  Return the compiler's output (ptxas prints each
-    kernel's registers, shared memory and spills)."""
+def build_shared(path: Path, compiler, flags, sources) -> str:
+    """Compile ``sources`` into the shared library ``path``: one
+    ``compiler`` process per source, concurrently, then one link, in a
+    temporary directory beside ``path``, moved into place with
+    ``os.replace``.  Return the compiler's output; raise with it if a
+    step fails."""
     path.parent.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
-        objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
-        out = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                        for src, obj in zip(SOURCES, objs)])
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
+        out = _run_all([[*compiler, *flags, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(sources, objs)])
         lib = os.path.join(tmp, path.name)
-        out += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        out += _run_all([[*compiler, *flags, "-shared", "-o", lib, *objs]])
         os.replace(lib, path)
     return out
+
+
+def compile_library(path: Path) -> str:
+    """Compile SOURCES into ``path`` with nvcc.  Return the compiler's
+    output (ptxas prints each kernel's registers, shared memory and
+    spills)."""
+    return build_shared(path, [_nvcc()], NVCC_FLAGS, SOURCES)
 
 
 @functools.cache

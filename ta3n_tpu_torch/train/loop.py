@@ -22,9 +22,14 @@ them take their schedule values from ``_chunk_scalars``.
 
 Per-step Python work is schedule arithmetic and meter updates; metrics
 stay on the device until the print-frequency flush, which fetches them in
-one copy.  What the JAX Trainer runs and the port does not yet raises
-``NotImplementedError`` naming its ROADMAP.md item: more than one device
-(queue 1, item 9), tensorboard and the profiler window (item 5).
+one copy.  ``tensorboard_dir`` writes the JAX Trainer's embeddings and
+best-accuracy text (`io_utils/tensorboard.py`; per-step video-level
+features, so one step per call and a per-batch validation), and
+``profile_dir`` a ``torch.profiler`` trace of the JAX Trainer's window:
+steps 2–7 of the first epoch, or the second K-step call of the run.  What
+the JAX Trainer runs and the port does not yet, more than one device,
+raises ``NotImplementedError`` naming its ROADMAP.md item (queue 1,
+item 9).
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from ta3n_tpu_torch.io_utils.checkpoint import (load_checkpoint,
 from ta3n_tpu_torch.io_utils.convert import (export_reference_state,
                                              live_state)
 from ta3n_tpu_torch.io_utils.logs import AverageMeter, LogFiles
+from ta3n_tpu_torch.io_utils.tensorboard import EmbeddingWriter
 from ta3n_tpu_torch.train.schedules import (alpha_schedule, dann_lr,
                                             effective_beta, loss_plateau_lr,
                                             progress, step_decay_lr)
@@ -205,9 +211,7 @@ class Trainer:
         for on, what, item in (
                 (model_parallel > 1, "model_parallel > 1", "9"),
                 (num_devices is not None and num_devices > 1,
-                 "num_devices > 1", "9"),
-                (tensorboard_dir is not None, "tensorboard", "5"),
-                (profile_dir is not None, "profile_dir", "5")):
+                 "num_devices > 1", "9")):
             if on:
                 raise _unported(what, item)
         self.device = torch.device(device)
@@ -226,7 +230,15 @@ class Trainer:
         self.save_model = save_model
         self.save_attention = save_attention
         self.logs = log_files
+        self.profile_dir = profile_dir
+        self._profiler = None
+        self._profile_chunks_seen = 0
+        self._profile_done = False
         self.nan_guard = nan_guard
+        # a no-op writer without tensorboardX, as the JAX Trainer's
+        self.tb = EmbeddingWriter(tensorboard_dir)
+        # per-step attention values or video-level features to fetch
+        self._need_aux = save_attention >= 0 or self.tb.active
         self.device_store = device_store
         if store_dtype not in (None, "", "float32", "bfloat16", "int8"):
             raise ValueError(f"store_dtype={store_dtype!r}: the device "
@@ -246,14 +258,14 @@ class Trainer:
         self.pretrain_generator = None
         model = self.state.model
         # K optimizer steps per call: device stores only, and 1 where the
-        # steps' attention values are collected or with pretrain_source
-        # (the JAX Trainer's rule)
+        # steps' attention values or features are collected or with
+        # pretrain_source (the JAX Trainer's rule)
         self.steps_per_call = steps_per_call if (
-            device_store and save_attention < 0
+            device_store and not self._need_aux
             and not da_cfg.pretrain_source) else 1
         self.train_step = make_train_step(
             model, da_cfg, train_cfg, class_weights, domain_weights,
-            gather_on_device=device_store, return_aux=save_attention >= 0)
+            gather_on_device=device_store, return_aux=self._need_aux)
         # --pretrain_source: a classification-only step before each train
         # step on the same batch (main.py:387-414): two updates a batch,
         # one momentum buffer and lr
@@ -344,9 +356,10 @@ class Trainer:
 
         # a whole validation in one call and one fetch: resident store and
         # a deterministic val epoch, whose stacked indices are cached
+        # (tensorboard needs the features of every batch)
         self.multi_eval_step = (
             make_multi_eval_step(model, class_weights)
-            if device_store and not self.streaming
+            if device_store and not self.streaming and not self.tb.active
             and not val_loader.shuffle else None)
         self._val_stack = None
 
@@ -363,7 +376,7 @@ class Trainer:
                 unmet.append("--steps_per_call > 1")
             if da_cfg.pretrain_source:
                 unmet.append("--pretrain_source")
-            if save_attention >= 0 or tensorboard_dir is not None:
+            if self._need_aux:
                 unmet.append("attention/tensorboard collection")
             if unmet:
                 warnings.warn(
@@ -435,8 +448,54 @@ class Trainer:
         save_checkpoint(self.path_exp, self._ckpt_payload(epoch, prec1),
                         is_best)
 
+    # ---- the profiler window (--profile_dir) ----
+    def _start_profile(self):
+        """Start a ``torch.profiler`` trace, of the host and, on the card,
+        of the device; `_stop_profile` writes it into ``profile_dir`` as
+        a Chrome trace (Perfetto, TensorBoard's profiler plugin)."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                self.profile_dir))
+        self._profiler.start()
+
+    def _stop_profile(self):
+        """Wait for the device's work in the window, then stop the trace
+        and write it."""
+        profiler, self._profiler = self._profiler, None
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            profiler.stop()
+
+    def _maybe_profile_chunk(self) -> bool:
+        """The window of the K-step paths: start a trace before the SECOND
+        call dispatched in this run, whatever epoch it falls in (the first
+        call warms up), as the JAX Trainer does; True if it started."""
+        if not self.profile_dir or self._profile_done:
+            return False
+        self._profile_chunks_seen += 1
+        if self._profile_chunks_seen == 2:
+            self._profile_done = True
+            self._start_profile()
+            return True
+        return False
+
     # ---- one epoch (main.py:309-667) ----
     def train_epoch(self, epoch: int) -> float:
+        """One epoch; a profiler window still open at its end (an epoch
+        shorter than the window, or an exception) is stopped here."""
+        try:
+            return self._train_epoch(epoch)
+        finally:
+            if self._profiler is not None:
+                self._stop_profile()
+
+    def _train_epoch(self, epoch: int) -> float:
         tc = self.train_cfg
         meters = {k: AverageMeter() for k in
                   ("batch_time", "data_time", "loss", "loss_c", "loss_d",
@@ -521,6 +580,8 @@ class Trainer:
             p = progress(i, start_steps, total_steps)
             beta = effective_beta(tc.beta, p)
             meters["data_time"].update(time.time() - end)
+            if self.profile_dir and epoch == self.start_epoch and i == 2:
+                self._start_profile()  # steps 2-7 of the first epoch
             scalars = StepScalars(beta, tc.mu, alpha, tc.gamma,
                                   self.lr_current)
             if self.streaming:
@@ -540,16 +601,25 @@ class Trainer:
                     self.state, *args, scalars, self.pretrain_generator)
             self.state, m = self.train_step(self.state, *args, scalars,
                                             self.generator)
-            if self.save_attention >= 0:
-                # attention rows of the selected class (main.py:623-628);
-                # a value per video without relations (avgpool, rnn,
-                # temconv)
-                a_s = m.pop("attn_s").cpu().numpy().reshape(len(bs.mask), -1)
-                a_t = m.pop("attn_t").cpu().numpy().reshape(len(bt.mask), -1)
-                sel_s = (bs.labels == self.save_attention) & (bs.mask > 0)
-                sel_t = (bt.labels == self.save_attention) & (bt.mask > 0)
-                attn_src_epoch.append(a_s[sel_s])
-                attn_tgt_epoch.append(a_t[sel_t])
+            if self._profiler is not None and i == 7:
+                self._stop_profile()
+            if self._need_aux:
+                aux = {k: m.pop(k) for k in ("attn_s", "attn_t", "feat_s",
+                                             "feat_t")}
+                if self.save_attention >= 0:
+                    # attention rows of the selected class
+                    # (main.py:623-628); a value per video without
+                    # relations (avgpool, rnn, temconv)
+                    a_s = aux["attn_s"].cpu().numpy().reshape(
+                        len(bs.mask), -1)
+                    a_t = aux["attn_t"].cpu().numpy().reshape(
+                        len(bt.mask), -1)
+                    sel_s = (bs.labels == self.save_attention) & (bs.mask > 0)
+                    sel_t = (bt.labels == self.save_attention) & (bt.mask > 0)
+                    attn_src_epoch.append(a_s[sel_s])
+                    attn_tgt_epoch.append(a_t[sel_t])
+                self.tb.collect(aux["feat_s"], bs.labels, aux["feat_t"],
+                                bt.labels, bs.mask, bt.mask)
             pending.append(m)
 
             meters["batch_time"].update(time.time() - end)
@@ -576,6 +646,7 @@ class Trainer:
                 rows = np.concatenate(buf) if buf else np.zeros((0, 1))
                 store.append(rows.mean(axis=0) if len(rows) else
                              np.zeros(rows.shape[1]))
+        self.tb.write_epoch(epoch * len_loader)
         if self.logs and last_line:
             self.logs.write("train_short.log", last_line)
         return meters["loss_c"].avg
@@ -611,7 +682,10 @@ class Trainer:
         for k, call in chunks:
             sc, betas = self._chunk_scalars(i, k, alpha, start_steps,
                                             total_steps)
+            profiling = self._maybe_profile_chunk()
             self.state, m = call(sc)
+            if profiling:
+                self._stop_profile()
             pending.append(("stacked", m, k))
             meters["batch_time"].update((time.time() - end) / k, k)
             end = time.time()
@@ -831,6 +905,7 @@ class Trainer:
                 loss_sum / n
         else:
             meters = {k: AverageMeter() for k in ("loss", "top1", "top5")}
+            feat_val, label_val = [], []
             if self.streaming:
                 batches = self.val_loader.shard_index_epoch(self._plan_v)
             elif self.device_store:
@@ -852,8 +927,16 @@ class Trainer:
                 meters["loss"].update(loss, n)
                 meters["top1"].update(100.0 * t1 / max(n, 1), n)
                 meters["top5"].update(100.0 * t5 / max(n, 1), n)
+                if self.tb.active:
+                    sel = np.asarray(b.mask) > 0
+                    feat_val.append(r["feat"].float().cpu().numpy()[sel])
+                    label_val.append(np.asarray(b.labels)[sel])
             top1, top5, loss = (meters["top1"].avg, meters["top5"].avg,
                                 meters["loss"].avg)
+            if feat_val:
+                self.tb.write_val_embedding(np.concatenate(feat_val),
+                                            np.concatenate(label_val),
+                                            epoch * len(self.val_loader))
         line = (f"Testing Results: Prec@1 {top1:.3f} Prec@5 {top5:.3f} "
                 f"Loss {loss:.5f}")
         print(line)
@@ -906,8 +989,16 @@ class Trainer:
                 if self.logs:
                     self.logs.write("val_short.log", "%.3f" % prec1)
                 self.best_prec1 = max(prec1, self.best_prec1)
+                self.tb.write_best_text(self.best_prec1, epoch)
                 if self.save_model:
                     self.save(epoch, prec1, is_best)
+        if (self.profile_dir and not self._profile_done
+                and self.steps_per_call > 1):
+            warnings.warn(
+                "--profile_dir produced no trace: the run dispatched "
+                f"only {self._profile_chunks_seen} chunk(s) and the "
+                "first chunk (warm-up) is never traced — run at "
+                "least 2 chunks", stacklevel=2)
         if self.logs:
             self.logs.write_best(self.best_prec1)
         if self.save_attention >= 0 and self.attn_epoch_source:
@@ -919,4 +1010,5 @@ class Trainer:
             np.savetxt(os.path.join(self.path_exp,
                                     f"attn_target_{self.save_attention}.log"),
                        np.stack(self.attn_epoch_target), fmt="%s")
+        self.tb.close()
         return self.best_prec1

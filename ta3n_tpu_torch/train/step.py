@@ -334,7 +334,8 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
     the metrics loss_c, loss_d, loss_a, loss_e, loss_s (where the
     configuration has them), loss, top1, top5 and n, as 0-d tensors; with
     ``return_aux`` also the attention values attn_s and attn_t
-    (main.py:623-628).  The frame baseline's loss_c, top1, top5 and n are
+    (main.py:623-628) and the video-level features feat_s and feat_t
+    (main.py:430-435).  The frame baseline's loss_c, top1, top5 and n are
     over frames.
 
     With ``pretrain_classification_only`` the step trains the
@@ -473,7 +474,13 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
         metrics["top5"] = topk_correct(o, lab, m, 5)
         metrics["n"] = m.sum()
         if return_aux:
+            # attention values and video-level features for the attention
+            # logs (main.py:623-628) and the tensorboard embeddings
+            # (main.py:428-435)
             metrics["attn_s"], metrics["attn_t"] = out_s.attn, out_t.attn
+            fi = min(1, len(out_s.feat) - 1)
+            metrics["feat_s"], metrics["feat_t"] = (out_s.feat[fi],
+                                                    out_t.feat[fi])
         return metrics
 
     f32, i64 = torch.float32, torch.long

@@ -4,6 +4,7 @@ configuration do not drift from it, and the smoke test refuses to run
 anywhere but on a CUDA card."""
 
 import dataclasses
+import json
 import os
 import pathlib
 import re
@@ -67,6 +68,84 @@ def test_ensemble_modules_import_with_jax_blocked(module):
              "ta3n_tpu_torch.train.sweep": "run_sweep",
              "ta3n_tpu_torch.cli.sweep": "main"}[module]
     assert names in proc.stdout
+
+
+# the modules of the last single-card slice: the tensorboard writer, the
+# native gather's binding and the data-preparation entry points
+_TOOL_MODULES = ("ta3n_tpu_torch.io_utils.tensorboard",
+                 "ta3n_tpu_torch.data.native_gather",
+                 "ta3n_tpu_torch.cli.convert_features",
+                 "ta3n_tpu_torch.prep.dataset2split",
+                 "ta3n_tpu_torch.prep.video_dataset2list",
+                 "ta3n_tpu_torch.prep.list2da",
+                 "ta3n_tpu_torch.prep.video_processing",
+                 "ta3n_tpu_torch.__main__", "ta3n_tpu_torch.version")
+
+
+@pytest.fixture(scope="module")
+def tool_imports():
+    """Each of _TOOL_MODULES imported in one process with the JAX stack
+    and the JAX package blocked: module -> its public names, or the
+    error."""
+    code = (f"import importlib, json, sys\nfor m in {BLOCKED!r}:\n"
+            "    sys.modules[m] = None\nout = {}\n"
+            f"for module in {_TOOL_MODULES!r}:\n"
+            "    try:\n"
+            "        mod = importlib.import_module(module)\n"
+            "        out[module] = sorted(getattr(mod, '__all__', vars(mod)))\n"
+            "    except Exception as e:\n"
+            "        out[module] = repr(e)\n"
+            "print(json.dumps(out))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", _TOOL_MODULES)
+def test_tool_modules_import_with_jax_blocked(tool_imports, module):
+    names = {"ta3n_tpu_torch.io_utils.tensorboard": "EmbeddingWriter",
+             "ta3n_tpu_torch.data.native_gather": "native_gather",
+             "ta3n_tpu_torch.__main__": "ENTRY_POINTS",
+             "ta3n_tpu_torch.version": "__version__"}.get(module, "main")
+    assert isinstance(tool_imports[module], list), tool_imports[module]
+    assert names in tool_imports[module]
+
+
+@pytest.mark.parametrize("port_module,jax_module", [
+    ("ta3n_tpu_torch.data.native_gather", "ta3n_tpu.data.native_gather"),
+    ("ta3n_tpu_torch.io_utils.tensorboard", "ta3n_tpu.io_utils.tensorboard"),
+])
+def test_copies_have_jax_names_and_signatures(port_module, jax_module):
+    """The public names of the native gather's binding and of the
+    tensorboard writer, and the parameters of their functions and
+    methods, are the JAX modules' (the gather raises where the JAX one
+    returns None, so return annotations differ; the writer takes tensors
+    too, so its bodies differ)."""
+    import importlib
+    import inspect
+
+    ours, ref = (importlib.import_module(m) for m in (port_module,
+                                                      jax_module))
+
+    def params(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+
+    assert ours.__all__ == ref.__all__
+    for name in ours.__all__:
+        a, b = getattr(ours, name), getattr(ref, name)
+        if not inspect.isclass(a):
+            assert params(a) == params(b), name
+            continue
+        public = sorted(m for m in vars(b) if not m.startswith("_")
+                        or m == "__init__")
+        assert public == sorted(m for m in vars(a) if not m.startswith("_")
+                                or m == "__init__")
+        for m in public:
+            if callable(vars(b)[m]):
+                assert params(getattr(a, m)) == params(getattr(b, m)), m
 
 
 def test_no_jax_import_in_port_sources():
@@ -225,6 +304,17 @@ def test_chip_smoke_fails_without_the_program(tmp_path):
     ("ta3n_tpu_torch.data.device_sampler", "ta3n_tpu.data.device_sampler",
      ["plan_zip_shard_chunks"]),
     ("ta3n_tpu_torch.cli.opts", "ta3n_tpu.cli.opts", ["configs_from_args"]),
+    ("ta3n_tpu_torch.cli.convert_features", "ta3n_tpu.cli.convert_features",
+     ["load_t7", "convert", "main"]),
+    ("ta3n_tpu_torch.prep.dataset2split", "ta3n_tpu.prep.dataset2split",
+     ["split_class", "main"]),
+    ("ta3n_tpu_torch.prep.video_dataset2list",
+     "ta3n_tpu.prep.video_dataset2list",
+     ["load_class_map", "count_frames", "build_list", "main"]),
+    ("ta3n_tpu_torch.prep.list2da", "ta3n_tpu.prep.list2da",
+     ["load_id_to_name", "class_from_filename", "convert", "main"]),
+    ("ta3n_tpu_torch.prep.video_processing", "ta3n_tpu.prep.video_processing",
+     ["count_frames", "overlay_text", "main"]),
 ])
 def test_copied_code_matches_jax_package(port_module, jax_module, names):
     """The port's copies of JAX modules that import no jax: each copied

@@ -5,11 +5,13 @@ evaluates; its ``model_best.pth.tar`` gives the port's and the JAX
 package's eval CLIs the same ``Pred@k`` line, whose Pred@1 is the best
 Prec@1 the training printed.  The model and loss flags of every
 configuration train, and so do the chunked modes: K steps per call,
-streamed stores and the device sampler.  Flags whose path is not ported
-raise, naming their ROADMAP.md item, and the default device is the
-card."""
+streamed stores and the device sampler; --tensorboard and --profile_dir
+write their embeddings and trace.  Flags whose path is not ported raise,
+naming their ROADMAP.md item, and the default device is the card."""
 
 import re
+import sys
+import types
 
 import pytest
 import torch
@@ -217,11 +219,52 @@ def test_train_cli_chunked_flags_run(workspace, flags):
 @pytest.mark.parametrize("flags,item", [
     (["--model_parallel", "2"], "item 9"),
     (["--num_devices", "2"], "item 9"),
-    (["--tensorboard"], "item 5"), (["--profile_dir", "prof"], "item 5"),
 ])
 def test_train_cli_unported_flags_raise(workspace, flags, item):
     with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
         main(_argv(workspace, "exp_bad", "--epochs", "1", *flags))
+
+
+@pytest.mark.parametrize("flag", ["--tensorboard", "--profile_dir"])
+def test_train_cli_tensorboard_and_profile_dir_run(workspace, flag,
+                                                   monkeypatch):
+    """--tensorboard writes through tensorboardX under the experiment's
+    RGB/tensorboard directory (a recording stand-in here) and --profile_dir a
+    trace of steps 2-7 of the first epoch (3 steps here: steps 2 to its
+    end); the best Prec@1 is the run's without either flag."""
+    written = []
+
+    class Writer:
+        def __init__(self, logdir):
+            written.append(logdir)
+
+        def add_embedding(self, mat, metadata=None, global_step=None,
+                          tag=None):
+            written.append(tag)
+
+        def add_text(self, tag, text, step):
+            written.append(tag)
+
+        def close(self):
+            written.append("close")
+
+    monkeypatch.setitem(sys.modules, "tensorboardX",
+                        types.SimpleNamespace(SummaryWriter=Writer))
+    argv = ["--epochs", "1", "--dropout_i", "0", "--dropout_v", "0"]
+    exp = "exp_" + flag.strip("-")
+    extra = ([flag] if flag == "--tensorboard"
+             else [flag, str(workspace / exp / "prof")])
+    plain = main(_argv(workspace, exp + "_plain", *argv))
+    assert main(_argv(workspace, exp, *argv, *extra)) == plain
+    if flag == "--tensorboard":
+        assert written == [str(workspace / exp / "RGB" / "tensorboard"),
+                           "train_source", "train_target", "train_DA",
+                           "train_DA_labels", "validation", "Best_Accuracy",
+                           "close"]
+    else:
+        assert written == []
+        traces = list((workspace / exp / "prof").iterdir())
+        assert len(traces) == 1 and traces[0].name.endswith(".pt.trace.json")
 
 
 @pytest.mark.parametrize("flags,logged", [

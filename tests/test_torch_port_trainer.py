@@ -6,10 +6,15 @@ val Prec@1, per-step losses within 2e-4 relative, final parameters within
 rtol 1e-3, atol 2e-5.  The chunked modes (K steps per call, streamed
 stores, the device sampler) the same way over 2 epochs, their printed
 meters too.  Then resume: the port's Trainer holds exactly what it saved,
-and its checkpoint is read by `Predictor.from_checkpoint`."""
+and its checkpoint is read by `Predictor.from_checkpoint`.  With a
+tensorboard_dir the Trainer writes the JAX Trainer's embeddings and text
+through a recording ``tensorboardX`` (test_torch_port_train_extras.py
+holds the writer against the JAX one and the profile_dir window)."""
 
 import argparse
 import re
+import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -311,14 +316,87 @@ def test_trainer_chunked_options_match_jax(workspace, kw, shuffle, epochs):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(model_parallel=2), "item 9"),
-    (dict(num_devices=2), "item 9"), (dict(tensorboard_dir="tb"), "item 5"),
-    (dict(profile_dir="prof"), "item 5"),
+    (dict(num_devices=2), "item 9"),
 ])
 def test_trainer_unported_options_raise(workspace, kw, item):
     cfg = (ModelConfig(**MODEL), DAConfig(**DA), TrainConfig(**TRAIN))
     with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
         Trainer(*cfg, *build_loaders(_args(workspace), cfg[0], cfg[2])[:3],
                 device="cpu", **kw)
+
+
+class RecordingWriter:
+    """A stand-in for tensorboardX's SummaryWriter: records every call."""
+
+    def __init__(self, logdir):
+        self.logdir = logdir
+        self.calls = []
+        RecordingWriter.made.append(self)
+
+    def add_embedding(self, mat, metadata=None, global_step=None, tag=None):
+        self.calls.append(("add_embedding", mat.clone(), list(metadata),
+                           global_step, tag))
+
+    def add_text(self, tag, text, step):
+        self.calls.append(("add_text", tag, text, step))
+
+    def close(self):
+        self.calls.append(("close",))
+
+
+@pytest.fixture
+def fake_tensorboardx(monkeypatch):
+    """A recording ``tensorboardX`` in sys.modules; yields the writers
+    made through it."""
+    RecordingWriter.made = []
+    module = types.ModuleType("tensorboardX")
+    module.SummaryWriter = RecordingWriter
+    monkeypatch.setitem(sys.modules, "tensorboardX", module)
+    yield RecordingWriter.made
+
+
+JAX_TAGS = ["train_source", "train_target", "train_DA", "train_DA_labels",
+            "validation"]
+
+
+def _port_trainer(root, batch_size, **kw):
+    cfg = (ModelConfig(**MODEL), DAConfig(**DA),
+           TrainConfig(**{**TRAIN, "batch_size": batch_size}))
+    return Trainer(*cfg, *build_loaders(_args(root), cfg[0], cfg[2])[:3],
+                   path_exp=str(root / "exp_tb") + "/", print_freq=10,
+                   device="cpu", **kw)
+
+
+@pytest.mark.parametrize("device_store", [False, True])
+def test_trainer_tensorboard_embeddings(workspace, fake_tensorboardx,
+                                        device_store):
+    """The Trainer with a tensorboard_dir (dropout 0): the JAX tags, each
+    epoch's embeddings one row per real video (source batches of 10 pad
+    the third to 10 with 4 videos; val batches of 8 the second with 4),
+    the validation per batch (no whole-epoch call), one step a call, and
+    Prec@1 bitwise the run without tensorboard."""
+    sizes = (10, 6, 8)
+    plain = _port_trainer(workspace, sizes, device_store=device_store).fit()
+    trainer = _port_trainer(workspace, sizes, device_store=device_store,
+                            steps_per_call=2,
+                            tensorboard_dir=str(workspace / "tb"))
+    assert trainer.tb.active and trainer.steps_per_call == 1
+    assert trainer.multi_eval_step is None
+    assert trainer.fit() == plain
+    (writer,) = fake_tensorboardx
+    tags = [c[4] if c[0] == "add_embedding" else c[1] for c in writer.calls
+            if c[0] != "close"]
+    assert tags == (JAX_TAGS + ["Best_Accuracy"]) * 2
+    assert writer.calls[-1] == ("close",)
+    assert len(trainer.source_loader) == len(trainer.target_loader) == 3
+    rows = {c[4]: c[1].shape for c in writer.calls[:5]}
+    dim = rows["validation"][1]
+    assert rows["train_source"] == (24, dim)
+    assert rows["train_target"] == (18, dim)
+    assert rows["train_DA"][0] == rows["train_source"][0] + \
+        rows["train_target"][0]
+    assert rows["validation"] == (len(trainer.val_loader.records), dim)
+    assert writer.calls[4][3] == len(trainer.val_loader)  # epoch 1's step
 
 
 def test_trainer_runs_on_the_card_by_default(workspace, monkeypatch):
