@@ -136,6 +136,18 @@ trace holding its window's K1 (train), K2 and K3 and nothing more; the
 train CLI with --tensorboard through a recording tensorboardX (the JAX
 tags, one embedding row per real video, Prec@1 equal to the run
 without); and every entry point of python -m ta3n_tpu_torch imported.
+Data parallelism over a process group: 5 flagship device-store steps
+through mesh= at world size 1 on NCCL, then at world size 2 on gloo (this
+process rank 0, a second process rank 1, both on the one card: NCCL
+refuses two ranks on one GPU) at 128 + 74 and at 128 + 75 videos (the
+target padded to 76), each step from the one-process step's parameters
+and held to it with the tie rule of the other parity checks, every rank
+launching K1 (train), K2 and K3, the ranks' parameters bitwise equal,
+and the step timed without a mesh, at W = 1 and at W = 2 with the
+gradient all-reduce; the Predictor over two replicas on the card (f32
+and int8, batch 64 and 1, and an artifact) against one device, and the
+eval CLI with --data_parallel; with more than one card, the train CLI
+with --num_devices over every card and the Predictor over them.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -147,6 +159,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import datetime
 import importlib
 import io
 import json
@@ -163,6 +176,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ta3n_tpu_torch.cli import convert_features as cli_convert_features
@@ -185,6 +199,8 @@ from ta3n_tpu_torch.models import layers
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
 from ta3n_tpu_torch.ops import _build, gather_gemm, relation, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
+from ta3n_tpu_torch.parallel import Mesh, make_mesh, pad_to_multiple
+from ta3n_tpu_torch.parallel.distributed import initialize_multihost
 from ta3n_tpu_torch.prep import video2feature
 from ta3n_tpu_torch.serve import Predictor, make_http_server
 from ta3n_tpu_torch.train import (StepScalars, TrainState, make_eval_step,
@@ -4809,6 +4825,368 @@ def serving_extras(root) -> dict:
     return {"k1": k1 + k1_pipe, **times}
 
 
+# ---- data parallelism (parallel/, the steps' mesh=) ----
+# the flagship's device-store steps over a process group: W = 1 on NCCL
+# (real collectives over one rank), W = 2 on gloo with CUDA tensors (two
+# processes on one card: NCCL refuses two ranks on one GPU); each held
+# step from the one-process step's parameters, then timed
+DP_STEPS = 5
+DP_TIMED = 10
+DP_SEED = 23                   # the flagship's weights, in every process
+DP_PAD_T = 75                  # a target batch padded to 76 for 2 ranks
+DP_TIMEOUT = 300               # seconds a collective waits for a peer
+
+
+def dp_model():
+    """The flagship from DP_SEED on the card: the same weights in every
+    process."""
+    return flagship_model(torch.Generator().manual_seed(DP_SEED))
+
+
+def dp_batches(stores, dev, bt=None):
+    """Endless device-store batches (store, idx, y, mask for each stream)
+    of the flagship loaders, the target batch ``bt`` padded to a multiple
+    of 2 when given."""
+    ls, lt = store_loaders(stores)
+    if bt is not None:
+        lt = TSNLoader(stores[1], batch_size=bt, num_segments=5, seed=2,
+                       pad_to=pad_to_multiple(bt, 2))
+    return ((dev[0], *bs, dev[1], *b) for bs, b in
+            zip(endless(ls.index_epoch), endless(lt.index_epoch)))
+
+
+def dp_sync(state, mesh):
+    """Rank 0's parameters, buffers and momentum on every rank."""
+    if not mesh.distributed or mesh.size == 1:
+        return
+    model = state.model
+    for t in (*model.parameters(), *model.buffers()):
+        dist.broadcast(t.data, 0)
+    for p in model.parameters():
+        for v in state.optimizer.state.get(p, {}).values():
+            if torch.is_tensor(v) and v.is_cuda:
+                dist.broadcast(v, 0)
+
+
+def dp_record(rec, mesh, bs, bt):
+    """The TRN record of the global batch (record_trn) from each rank's
+    record of its own rows (its source rows, then its target rows)."""
+    if mesh.size == 1:
+        return rec
+    out = {}
+    for key, t in rec.items():
+        parts = [torch.empty_like(t, dtype=torch.float32)
+                 for _ in range(mesh.size)]
+        dist.all_gather(parts, t.float().contiguous())
+        s, g = bs // mesh.size, bt // mesh.size
+        out[key] = torch.cat([p[:s] for p in parts]
+                             + [p[s:s + g] for p in parts]).to(t.dtype)
+    return out
+
+
+def dp_steps(mesh, batches, ref_batches=None):
+    """DP_STEPS device-store flagship steps over ``mesh``; on rank 0, each
+    from the one-process step's parameters and momentum, its metrics and
+    updated parameters held to STEP_RTOL and PARAM_TOL but for the rows a
+    relu mask flipped at a rounding tie feeds (tie_rows over the global
+    batch's TRN record).  Then DP_TIMED steps timed.  Returns (this
+    rank's launches of the held steps, ms a step, the model)."""
+    bs = TRAIN.batch_size[0]
+    model = dp_model()
+    state = TrainState(model, make_optimizer(model.parameters(), TRAIN), 0)
+    step = make_train_step(model, DA, TRAIN, gather_on_device=True,
+                           mesh=mesh)
+    steps = [scalars(i, DP_STEPS, (-1.0, -1.0, -1.0))
+             for i in range(DP_STEPS)]
+    rec, hook = record_trn(model)
+    primary = ref_batches is not None
+    if primary:
+        ref = dp_model()
+        ref_state = TrainState(ref, make_optimizer(ref.parameters(), TRAIN),
+                               0)
+        ref_step = make_train_step(ref, DA, TRAIN, gather_on_device=True)
+        ref_rec, ref_hook = record_trn(ref)
+    launches = dict.fromkeys(counts(), 0)
+    worst_rel = worst = 0.0
+    ties = 0
+    for i, (sc, args) in enumerate(zip(steps, batches)):
+        if primary:
+            same_start(state, ref_state)
+        dp_sync(state, mesh)
+        reset_counts()
+        state, got = step(state, *args, sc, None)
+        torch.cuda.synchronize()
+        launched = counts()
+        launches = {k: launches[k] + launched[k] for k in launches}
+        global_rec = dp_record(rec, mesh, bs, len(args[7]))
+        if not primary:
+            continue
+        ref_state, want = ref_step(ref_state, *next(ref_batches), sc, None)
+        got = {k: float(v) for k, v in got.items()}
+        want = {k: float(v) for k, v in want.items()}
+        worst_rel = max(worst_rel, check_metrics(
+            i, got, want, "the one-process step's"))
+        allowed, _ = tie_rows(global_rec, ref_rec)
+        diff, rows = check_params(i, model, ref, "the one-process step's",
+                                  allowed)
+        worst, ties = max(worst, diff), ties + rows
+    hook.remove()
+    if primary:
+        ref_hook.remove()
+        log(f"    held steps: metrics within {worst_rel:.3e} relative, "
+            f"parameters within {worst:.3e} ({ties} rows let through at "
+            f"rounding ties); this rank launched {launches}")
+    for _ in range(3):
+        state, _ = step(state, *next(batches), steps[-1], None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        state, _ = step(state, *next(batches), steps[-1], None)
+    torch.cuda.synchronize()
+    return launches, (time.perf_counter() - t0) * 1e3 / DP_TIMED, model
+
+
+def dp_allreduce_ms(model, mesh, reps=11):
+    """(ms, bytes) of the step's one flat gradient all-reduce at the
+    flagship's parameter count: the median of ``reps``."""
+    n = sum(p.numel() for p in model.parameters())
+    flat = torch.zeros(n, device="cuda")
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat, group=mesh.group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), 4 * n
+
+
+def dp_flat_params(model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def dp_world2(root, mesh, stores=None, dev=None):
+    """The two-rank run, on either rank (rank 0 with ``stores``' one-
+    process reference): the flagship's held and timed steps at 128 + 74,
+    then the held steps at 128 + 75 (the target padded to 76); every rank's
+    launches, the ranks' parameters bitwise equal.  Returns rank 0's
+    (launches, ms a step, all-reduce ms and bytes)."""
+    if stores is None:
+        stores = [FeatureStore.load(os.path.join(root, n))
+                  for n in ("src", "tgt")]
+        dev = [s.to_device() for s in stores]
+    primary = mesh.rank == 0
+    ref = (lambda bt=None: dp_batches(stores, dev, bt)) if primary else \
+        (lambda bt=None: None)
+    launches, ms, model = dp_steps(mesh, dp_batches(stores, dev), ref())
+    same = [torch.empty_like(dp_flat_params(model)) for _ in range(2)]
+    dist.all_gather(same, dp_flat_params(model))
+    if primary:
+        log(f"    padded target batch: {DP_PAD_T} -> "
+            f"{pad_to_multiple(DP_PAD_T, 2)} videos")
+    padded, _, _ = dp_steps(mesh, dp_batches(stores, dev, DP_PAD_T),
+                            ref(DP_PAD_T))
+    for k, v in padded.items():
+        launches[k] += v
+    mine = torch.tensor([launches[k] for k in counts()], dtype=torch.float32,
+                        device="cuda")
+    every = [torch.empty_like(mine) for _ in range(2)]
+    dist.all_gather(every, mine)
+    reduce_ms = dp_allreduce_ms(model, mesh)
+    if not primary:
+        return None
+    if not torch.equal(same[0], same[1]):
+        raise AssertionError("the two ranks' parameters differ")
+    for r, got in enumerate(every):
+        got = dict(zip(counts(), (int(v) for v in got.tolist())))
+        log(f"    rank {r} launched {got}")
+        if not all(got[k] > 0 for k in ("trn_fused_fwd_train",
+                                        "trn_fused_bwd", "gather_gemm")):
+            raise AssertionError(f"rank {r} did not launch K1 (train), K2 "
+                                 "and K3")
+    log("    the ranks' parameters after the timed steps: bitwise equal")
+    return launches, ms, reduce_ms
+
+
+def dp_peer(root, init):
+    """Rank 1 of the two-rank phase (``python3 -c``, started by
+    data_parallel_phase on the same card)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    initialize_multihost(init, 2, 1, backend="gloo",
+                         timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    try:
+        dp_world2(root, make_mesh())
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_predictors(root, workdir):
+    """Predictor(mesh=) with two replicas on the card, f32 and int8, at
+    batch 64 (130 videos: three chunks, the last padded) and at batch 1,
+    and an artifact served over the grid, against the one-device
+    Predictor; the eval CLI's --data_parallel against the plain run.
+    Returns the launches of the grid paths."""
+    grid = Mesh(["cuda:0", "cuda:0"])
+    rng = np.random.default_rng(6)
+    x = rng.random((130, 5, FLAGSHIP.input_feature_dim), np.float32)
+    launches = dict.fromkeys(counts(), 0)
+    for label, cfg in (("float32", FLAGSHIP), ("int8", INT8_FLAGSHIP)):
+        model = int8_weights(cfg, DP_SEED)
+        for batch in (SERVE_BATCH, 1):
+            one = Predictor(cfg, copy.deepcopy(model), batch_size=batch)
+            over = Predictor(cfg, copy.deepcopy(model), batch_size=batch,
+                             mesh=grid)
+            want = one(x[:batch * 2 + 2])
+            reset_counts()
+            got = over(x[:batch * 2 + 2])
+            torch.cuda.synchronize()
+            launched = counts()
+            launches = {k: launches[k] + launched[k] for k in launches}
+            err = np.abs(got[0] - want[0]).max()
+            log(f"    {label} at batch {batch} (grid batch "
+                f"{over.batch_size}, {over.batch_size // 2} a replica), "
+                f"{len(got[0])} videos: |grid - one device| = {err:.2e}, "
+                f"launches {launched}")
+            if not err <= PROB_TOL or not np.array_equal(got[2][:, 0],
+                                                         want[2][:, 0]):
+                raise AssertionError(f"the {label} grid Predictor differs")
+            if cfg is FLAGSHIP and launched["trn_fused_fwd"] < 2:
+                raise AssertionError("each replica must launch K1 (infer)")
+    model = int8_weights(FLAGSHIP, DP_SEED)
+    one = Predictor(FLAGSHIP, model, batch_size=SERVE_BATCH)
+    path = one.export(os.path.join(workdir, "dp_artifact"))
+    art = Predictor.from_exported(path, mesh=grid)
+    err = np.abs(art(x)[0] - one(x)[0]).max()
+    log(f"    float32 artifact over the grid, {len(x)} videos: |artifact - "
+        f"live| = {err:.2e}")
+    if not err <= EXPORT_TOL:
+        raise AssertionError("the artifact over the grid differs")
+    weights = save_weights(model, os.path.join(workdir, "dp.pth.tar"))
+    lines = {}
+    for label, extra in (("plain", []), ("--data_parallel",
+                                         ["--data_parallel"])):
+        line, out = run_cli(cli_test_models.main, eval_cli_args(
+            root, weights, "--device_store", *extra))
+        lines[label] = line
+        log(f"    eval CLI {label}: {line.strip()}")
+    if lines["plain"] != lines["--data_parallel"]:
+        raise AssertionError("--data_parallel changed the eval CLI's "
+                             "Pred@k line")
+    return launches
+
+
+def data_parallel_phase(stores, dev, root, workdir):
+    """W = 1 on NCCL, W = 2 on gloo (a spawned rank 1 on the same card),
+    the grid Predictor and the eval CLI's --data_parallel; with more than
+    one card, the train CLI over every card and the Predictor over them.
+    Returns (launches, times)."""
+    launches = dict.fromkeys(counts(), 0)
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    # W = 1 on NCCL
+    initialize_multihost(f"tcp://127.0.0.1:{cli_train._free_port()}", 1, 0,
+                         backend="nccl",
+                         timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    try:
+        mesh = make_mesh()
+        log(f"  W = 1 on NCCL ({mesh}): {DP_STEPS} device-store steps of "
+            f"{TRAIN.batch_size[0]} + {TRAIN.batch_size[1]} videos held to "
+            "the one-process step")
+        got, ms1, model = dp_steps(mesh, dp_batches(stores, dev),
+                                   dp_batches(stores, dev))
+        add(got)
+        reduce1 = dp_allreduce_ms(model, mesh)
+    finally:
+        dist.destroy_process_group()
+    # the step without a mesh, timed as dp_steps times it
+    plain = dp_model()
+    state = TrainState(plain, make_optimizer(plain.parameters(), TRAIN), 0)
+    step = make_train_step(plain, DA, TRAIN, gather_on_device=True)
+    batches = dp_batches(stores, dev)
+    sc = scalars(DP_STEPS - 1, DP_STEPS, (-1.0, -1.0, -1.0))
+    for _ in range(3):
+        state, _ = step(state, *next(batches), sc, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        state, _ = step(state, *next(batches), sc, None)
+    torch.cuda.synchronize()
+    ms0 = (time.perf_counter() - t0) * 1e3 / DP_TIMED
+
+    # W = 2 on gloo: this process is rank 0, a spawned one rank 1
+    init = "file://" + os.path.join(workdir, "dp_init")
+    here = os.path.dirname(os.path.abspath(__file__))
+    peer_log = open(os.path.join(workdir, "dp_peer.log"), "w")
+    peer = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.dp_peer("
+         f"{root!r}, {init!r})"], cwd=here, stdout=peer_log,
+        stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": here})
+    try:
+        initialize_multihost(init, 2, 0, backend="gloo",
+                             timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+        try:
+            mesh = make_mesh()
+            log(f"  W = 2 on gloo, two processes on one card ({mesh}): "
+                f"{DP_STEPS} steps at {TRAIN.batch_size[0] // 2} + "
+                f"{TRAIN.batch_size[1] // 2} videos a rank held to the "
+                "one-process step")
+            got, ms2, reduce2 = dp_world2(root, mesh, stores[:2], dev[:2])
+            add(got)
+        finally:
+            dist.destroy_process_group()
+        code = peer.wait(timeout=DP_TIMEOUT)
+    finally:
+        if peer.poll() is None:
+            peer.kill()
+            peer.wait()
+        peer_log.close()
+    if code != 0:
+        with open(os.path.join(workdir, "dp_peer.log")) as f:
+            log(f.read()[-4000:])
+        raise AssertionError(f"rank 1 exited with {code}")
+    log(f"  flagship device-store step ({card_line()}): no mesh "
+        f"{ms0:.3f} ms, W = 1 (NCCL) {ms1:.3f} ms, W = 2 (gloo, both ranks "
+        f"on one card) {ms2:.3f} ms; the gradient all-reduce, "
+        f"{reduce1[1]} bytes: {reduce1[0]:.3f} ms at W = 1 (NCCL), "
+        f"{reduce2[0]:.3f} ms at W = 2 (gloo)")
+
+    log("  Predictor over a grid of two replicas on the card")
+    add(dp_predictors(root, workdir))
+    n = torch.cuda.device_count()
+    if n > 1:
+        log(f"  {n} cards: the train CLI with --num_devices {n} over NCCL, "
+            "the Predictor over every card")
+        exp = os.path.join(workdir, "dp_exp") + "/"
+        run_cli(cli_train.main, [os.path.join(root, "class.txt"), "RGB",
+                                 *(os.path.join(root, s, "list.txt")
+                                   for s in ("src", "tgt", "val")),
+                                 "--exp_path", exp, *MODEL_FLAGS,
+                                 *RECIPE_FLAGS, "--epochs", "1",
+                                 "--device_store", "--num_devices", str(n)])
+        every = Predictor(FLAGSHIP, int8_weights(FLAGSHIP, DP_SEED),
+                          batch_size=SERVE_BATCH, mesh=make_mesh())
+        x = np.random.default_rng(7).random(
+            (130, 5, FLAGSHIP.input_feature_dim), np.float32)
+        one = Predictor(FLAGSHIP, int8_weights(FLAGSHIP, DP_SEED),
+                        batch_size=SERVE_BATCH)
+        err = np.abs(every(x)[0] - one(x)[0]).max()
+        log(f"    the Predictor over {n} cards: |grid - one| = {err:.2e}")
+        if not err <= PROB_TOL:
+            raise AssertionError("the Predictor over every card differs")
+    else:
+        log("  one card: the train CLI over NCCL on several cards and the "
+            "Predictor over several cards need more than one card")
+    return launches, {"no_mesh_ms": ms0, "w1_nccl_ms": ms1,
+                      "w2_gloo_ms": ms2, "allreduce_bytes": reduce1[1],
+                      "allreduce_w1_nccl_ms": reduce1[0],
+                      "allreduce_w2_gloo_ms": reduce2[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
@@ -4989,6 +5367,14 @@ def main() -> int:
             "conversion, --profile_dir, --tensorboard and the entry points")
         add(train_extras_phase(gen, stores, root))
         log(f"the last single-card modules: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log("data parallelism: the flagship's device-store steps over a "
+            "process group (W = 1 on NCCL, W = 2 on gloo on one card), the "
+            "Predictor over a grid and the eval CLI's --data_parallel")
+        with tempfile.TemporaryDirectory() as workdir:
+            got, dp_times = data_parallel_phase(stores, dev, root, workdir)
+        add(got)
+        log(f"data parallelism: {time.perf_counter() - t0:.1f} s")
         log(card_line())
 
     # the shapes each kernel runs at on its path: serving batch, train batch
@@ -5126,6 +5512,7 @@ def main() -> int:
         f"{100 * ens16_t['ensemble'][2]:.1f}%) against "
         f"{ens16_t['solo'][0]:.3f} ms (busy {ens16_t['solo'][1]:.3f}, idle "
         f"{100 * ens16_t['solo'][2]:.1f}%)")
+    log(json.dumps({"data_parallel": dp_times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -15,7 +15,9 @@ extraction on the card (`models.backbones`, `prep.video2feature`); the
 train CLI's profiler window and tensorboard embeddings, the native host
 gather (`data.native_gather`) and the data-preparation tools
 (`cli.convert_features`, `prep`; `python -m ta3n_tpu_torch` lists every
-entry point); the
+entry point); data parallelism over cards, one process a card in a
+`torch.distributed` group for training and one process over every card
+for eval and serving (`parallel`); the
 multi-scale TRN's forward and backward and the store gather + shared FC
 are hand-written CUDA kernels (`csrc/`).  ROADMAP.md lists what is still to
 port.  The package imports torch and nothing of the JAX package.

@@ -143,7 +143,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--compute_dtype', type=str, default='float32',
                         choices=['float32', 'bfloat16'])
     parser.add_argument('--num_devices', type=int, default=None,
-                        help='use only the first N devices of the mesh')
+                        help='data parallelism over N cards, one process '
+                             'a card (default: every visible card; one '
+                             'process with --device cpu, N gloo '
+                             'processes with --num_devices N)')
     parser.add_argument('--profile_dir', type=str, default=None,
                         help='write a torch.profiler trace (Chrome '
                              'trace JSON: Perfetto, TensorBoard) of steps '

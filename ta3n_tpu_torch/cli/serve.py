@@ -17,8 +17,11 @@ also be a sweep's output directory (``python -m ta3n_tpu_torch.cli.sweep
 an AOT artifact (``Predictor.export``: predict.pt2 and meta.json, for
 the devices ``--export_platforms`` lists) and exits; WEIGHTS may then be
 DIR, served by ``Predictor.from_exported`` with the model flags of its
-meta.json (the CLI's are ignored).  ``--data_parallel`` exits: it is not
-ported yet (ROADMAP.md queue 1, item 9).
+meta.json (the CLI's are ignored).  ``--data_parallel`` serves over
+every visible card from this one process (``parallel.make_mesh()``: one
+replica a card, each request batch split into one row block a card; with
+``--device cpu``, one CPU replica), the batch size rounded up to a card
+multiple.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 
 from ta3n_tpu_torch.config import ModelConfig
 from ta3n_tpu_torch.data.manifest import load_class_names
-from ta3n_tpu_torch.serve import _LATER, Predictor, run_http_server
+from ta3n_tpu_torch.parallel.mesh import Mesh, make_mesh
+from ta3n_tpu_torch.serve import Predictor, run_http_server
 
 
 def build_parser():
@@ -57,7 +61,8 @@ def build_parser():
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--top_k", type=int, default=5)
     p.add_argument("--data_parallel", default=False, action="store_true",
-                   help=f"data-parallel serving {_LATER}")
+                   help="split each request batch over every visible "
+                        "card, one replica a card, from this process")
     p.add_argument("--sweep_best", default=False, action="store_true",
                    help="when WEIGHTS is a sweep dir: serve each member's "
                         "best-validation state (model_best, written by -ef "
@@ -77,18 +82,22 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit(f"--data_parallel {_LATER}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is "
                          "available (pass --device cpu to serve on the CPU)")
+    mesh = None
+    if args.data_parallel:
+        mesh = make_mesh() if device.type == "cuda" else Mesh([device])
+        print(f"--data_parallel: {mesh.size} replica(s) on "
+              f"{[str(d) for d in mesh.devices]}")
     class_names = load_class_names(args.class_file)
     if Predictor.is_exported(args.weights):
         # an artifact: the model flags come from its meta.json
-        predictor = Predictor.from_exported(args.weights, device=device)
+        predictor = Predictor.from_exported(args.weights, mesh=mesh,
+                                            device=device)
     else:
-        predictor = _live_predictor(args, class_names, device)
+        predictor = _live_predictor(args, class_names, device, mesh)
     if args.export:
         out = predictor.export(args.export, args.export_platforms)
         print(f"exported {predictor.cfg.num_class}-class predictor (batch "
@@ -98,7 +107,7 @@ def main(argv=None):
     run_http_server(predictor, class_names, args.host, args.port)
 
 
-def _live_predictor(args, class_names, device) -> Predictor:
+def _live_predictor(args, class_names, device, mesh=None) -> Predictor:
     """The Predictor of a checkpoint or a sweep directory and the model
     flags."""
     cfg = ModelConfig(
@@ -121,12 +130,12 @@ def _live_predictor(args, class_names, device) -> Predictor:
         which = "model_best" if args.sweep_best else "checkpoint"
         predictor = Predictor.from_sweep(
             args.weights, cfg, which=which, device=device,
-            batch_size=args.batch_size, top_k=args.top_k)
+            batch_size=args.batch_size, top_k=args.top_k, mesh=mesh)
         print(f"ensemble serving: {predictor.n_members} members ({which})")
         return predictor
     return Predictor.from_checkpoint(
         args.weights, cfg, device=device, batch_size=args.batch_size,
-        top_k=args.top_k)
+        top_k=args.top_k, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -57,7 +57,7 @@ def main(argv=None):
     if args.sweep_mesh > 0:
         raise SystemExit("--sweep_mesh > 0: the multi-card member axis is "
                          "not ported yet (ROADMAP.md queue 1, item 9: "
-                         "scale-out, its multi-card part)")
+                         "the 2-D grids, member x data)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is "

@@ -1,5 +1,6 @@
 """Standalone evaluation CLI of the port: the reference `test_models.py`,
-as `ta3n_tpu.cli.test_models` runs it, on one card.
+as `ta3n_tpu.cli.test_models` runs it, on one card or, with
+``--data_parallel``, on every visible card from this one process.
 
     python -m ta3n_tpu_torch.cli.test_models CLASS_FILE MODALITY \
         TEST_LIST WEIGHTS.pth.tar [flags...]
@@ -31,6 +32,13 @@ N`` as well the store goes to the card in shards of at most N rows
 evaluated; the batches of each shard run in one call with one fetch, and
 the outputs are put back in the list's order, so that they are those of
 the resident store.
+
+``--data_parallel`` (`parallel/mesh.py`, the JAX CLI's single-controller
+mesh): one model replica a card of ``parallel.make_mesh()`` (with
+``--device cpu``, one CPU replica), ``--bS`` rounded up to a card
+multiple with JAX's message (the mask covers the padding), every batch
+split into one row block a card, and a store (or each streamed shard)
+uploaded to every card.
 """
 
 from __future__ import annotations
@@ -50,11 +58,8 @@ from ta3n_tpu_torch.io_utils.confusion import (confusion_matrix,
                                                per_class_topk_accuracy,
                                                plot_confusion_matrix)
 from ta3n_tpu_torch.io_utils.convert import load_reference_checkpoint
+from ta3n_tpu_torch.parallel.mesh import Mesh, make_mesh, pad_to_multiple
 from ta3n_tpu_torch.train.step import make_infer_step
-
-
-def _later(what: str, item: str) -> str:
-    return f"{what} is not ported yet (ROADMAP.md queue 1, item {item})"
 
 
 def build_parser():
@@ -128,26 +133,29 @@ def build_parser():
                              'scales); logits heads stay float32')
     parser.add_argument('--data_parallel', default=False,
                         action='store_true',
-                        help=_later('data-parallel eval', '9'))
+                        help='split every batch over every visible card, '
+                             'one replica a card, from this process')
     parser.add_argument('--device', type=str, default='cuda',
                         help='torch device to evaluate on (default cuda)')
     return parser
 
 
-def _check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose path the port does not
-    run, naming its ROADMAP.md item."""
-    if args.data_parallel:
-        raise NotImplementedError(_later("--data_parallel", "9"))
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is "
                          "available (pass --device cpu to run on the CPU)")
+    mesh = None
+    if args.data_parallel:
+        mesh = make_mesh() if device.type == "cuda" else Mesh([device])
+        device = mesh.device
+        padded = pad_to_multiple(args.bS, mesh.size)
+        if padded != args.bS:
+            print(f"--data_parallel: batch size {args.bS} -> {padded} "
+                  f"({mesh.size}-device multiple; mask covers the "
+                  f"padding)")
+            args.bS = padded
     class_names = load_class_names(args.class_file)
     num_class = len(class_names)
 
@@ -179,14 +187,23 @@ def main(argv=None):
     # k clamped to the class count (e.g. --top 1 3 5 on 3 classes)
     max_top = min(max(args.top), num_class)
     infer = make_infer_step(model, max_top,
-                            gather_on_device=args.device_store)
+                            gather_on_device=args.device_store, mesh=mesh)
+    # over a grid, the store (or each shard) on every card of it
+    devices = mesh.devices if mesh is not None and mesh.size > 1 else None
     streaming = bool(args.device_store and args.store_budget_rows)
     if streaming:
         plan = ShardPlan(store.offsets, args.store_budget_rows)
-        stream = ShardStream(store.features, plan, device, args.store_dtype,
-                             scales=store.scales)
+        streams = [ShardStream(store.features, plan, d, args.store_dtype,
+                               scales=store.scales)
+                   for d in (devices or [device])]
+
+        def shard(sid):
+            got = [s.get(sid) for s in streams]
+            return got if devices else got[0]
     elif args.device_store:
-        store_dev = store.to_device(device, args.store_dtype)
+        store_dev = ([store.to_device(d, args.store_dtype) for d in devices]
+                     if devices else store.to_device(device,
+                                                     args.store_dtype))
 
     all_scores, all_labels, all_topk, all_attn = [], [], [], []
     positions = None  # the videos' places in the list, where not 0..n-1
@@ -217,7 +234,7 @@ def main(argv=None):
             by_shard.setdefault(sid, []).append(b)
         for sid, bs in by_shard.items():
             probs_a, top_i_a, attn_a = fetch(infer(
-                stream.get(sid), np.stack([b.abs_indices for b in bs]),
+                shard(sid), np.stack([b.abs_indices for b in bs]),
                 np.stack([b.mask for b in bs])))
             for bi, b in enumerate(bs):
                 if accumulate(b, probs_a[bi], top_i_a[bi], attn_a[bi]):

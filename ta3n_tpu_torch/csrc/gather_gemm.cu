@@ -85,6 +85,7 @@
 #include <type_traits>
 
 #include "bf16.cuh"
+#include "smem_optin.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -347,13 +348,13 @@ __global__ void gather_gemm_reduce(const float* __restrict__ part,
   }
 }
 
-// Above 48 KB of dynamic shared memory a kernel must opt in, once.
+// Above 48 KB of dynamic shared memory a kernel must opt in, once on each
+// device (smem_optin.cuh).
 template <class S, bool kVec>
 cudaError_t allow_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      gather_gemm_kernel<S, kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<S>);
-  return err;
+  static std::atomic<int> granted[ta3n::kMaxDevices];
+  return ta3n::allow_smem_on_device(gather_gemm_kernel<S, kVec>, granted,
+                                    kSmem<S>);
 }
 
 template <class S>

@@ -76,6 +76,7 @@
 #include <type_traits>
 
 #include "bf16.cuh"
+#include "smem_optin.cuh"
 #include "tf32x3.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -474,13 +475,13 @@ __global__ void gather_gemm_bf16_sum(const float* __restrict__ part,
   }
 }
 
-// Above 48 KB of dynamic shared memory a kernel must opt in, once.
+// Above 48 KB of dynamic shared memory a kernel must opt in, once on each
+// device (smem_optin.cuh).
 template <class S, bool kVec>
 cudaError_t allow_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      gather_gemm_bf16_kernel<S, kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<S>::kSmem);
-  return err;
+  static std::atomic<int> granted[ta3n::kMaxDevices];
+  return ta3n::allow_smem_on_device(gather_gemm_bf16_kernel<S, kVec>,
+                                    granted, Layout<S>::kSmem);
 }
 
 template <class S>

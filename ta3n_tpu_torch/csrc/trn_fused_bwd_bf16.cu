@@ -76,6 +76,7 @@
 #include <cstdint>
 
 #include "bf16.cuh"
+#include "smem_optin.cuh"
 #include "tf32x3.cuh"
 #include "trn_plan.cuh"
 #include "wgmma_bf16.cuh"
@@ -539,16 +540,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in: raised to
-// `bytes` when a plan needs more than any before.
+// `bytes` on the current device when a plan needs more than any before
+// there (smem_optin.cuh).
 template <bool kVec>
 cudaError_t allow_smem(int bytes) {
-  static int allowed = 0;
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      trn_fused_bwd_bf16_kernel<kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) allowed = bytes;
-  return err;
+  static std::atomic<int> granted[ta3n::kMaxDevices];
+  return ta3n::allow_smem_on_device(trn_fused_bwd_bf16_kernel<kVec>,
+                                    granted, bytes);
 }
 
 }  // namespace

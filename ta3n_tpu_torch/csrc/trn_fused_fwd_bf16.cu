@@ -90,6 +90,7 @@
 #include <cstdint>
 
 #include "bf16.cuh"
+#include "smem_optin.cuh"
 #include "tf32x3.cuh"
 #include "trn_plan.cuh"
 #include "wgmma_bf16.cuh"
@@ -359,13 +360,13 @@ __global__ void __launch_bounds__(kEpilogueThreads)
   }
 }
 
-// Above 48 KB of dynamic shared memory a kernel must opt in, once.
+// Above 48 KB of dynamic shared memory a kernel must opt in, once on each
+// device (smem_optin.cuh).
 template <bool kVec>
 cudaError_t allow_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      trn_fused_fwd_bf16_kernel<kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  return err;
+  static std::atomic<int> granted[ta3n::kMaxDevices];
+  return ta3n::allow_smem_on_device(trn_fused_fwd_bf16_kernel<kVec>, granted,
+                                    kSmem);
 }
 
 template <bool kWithMasks>

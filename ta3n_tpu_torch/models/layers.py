@@ -33,6 +33,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ta3n_tpu_torch.losses.losses import entropy_from_logits
+from ta3n_tpu_torch.parallel.mesh import active as mesh_active
+from ta3n_tpu_torch.parallel.mesh import shard_sum
 
 __all__ = ["Linear", "linear", "normal_001_", "torch_default_uniform_",
            "trans_attn_weights", "GeneralAttn", "MaskedBatchNorm", "TCL",
@@ -301,6 +303,12 @@ class MaskedBatchNorm(nn.Module):
     (a bfloat16 input is normalised in float32 and rounded once).  Parameters and buffers carry torch's BN names
     (``weight``, ``bias``, ``running_mean``, ``running_var``,
     ``num_batches_tracked``), so a reference state_dict loads as it is.
+
+    Over a data mesh (``mesh``, `parallel/mesh.py`) x holds this rank's
+    rows and the statistics are those of every rank's rows: the weight
+    count and the weighted sums go through ``shard_sum``, so the moments,
+    the running statistics and the gradient through them are the global
+    batch's, as `tests/test_sharding.py:208` holds the JAX package's.
     """
 
     def __init__(self, features: int, momentum: float = 0.1,
@@ -316,22 +324,30 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 stats_weight: Optional[torch.Tensor] = None,
-                use_running_average: bool = False) -> torch.Tensor:
+                use_running_average: bool = False,
+                mesh=None) -> torch.Tensor:
         out_dtype = x.dtype
         x = x.float()
         if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
-            if stats_weight is None:
+            if stats_weight is None and not mesh_active(mesh):
                 n = float(x.shape[0])
                 mean = x.mean(dim=0)
                 var = (x - mean).square().mean(dim=0)
                 denom = max(n - 1.0, 1.0)
             else:
-                w = stats_weight.to(x.dtype)[:, None]
-                n = w.sum().clamp(min=1.0)
-                mean = (w * x).sum(dim=0) / n
-                var = (w * (x - mean).square()).sum(dim=0) / n
+                # weighted moments; over a mesh the global batch's (every
+                # row of weight 1 without stats_weight)
+                w = (torch.ones(x.shape[0], device=x.device)
+                     if stats_weight is None else stats_weight.float())
+                w = w[:, None]
+                sums = shard_sum(
+                    torch.cat([w.sum(dim=0), (w * x).sum(dim=0)]), mesh)
+                n = sums[0].clamp(min=1.0)
+                mean = sums[1:] / n
+                var = shard_sum((w * (x - mean).square()).sum(dim=0),
+                                mesh) / n
                 denom = (n - 1.0).clamp(min=1.0)
             with torch.no_grad():
                 m = self.momentum

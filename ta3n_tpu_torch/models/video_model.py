@@ -67,6 +67,8 @@ from ta3n_tpu_torch.models.rnn import build_rnn, rnn_aggregate
 from ta3n_tpu_torch.models.trn import (RelationModule,
                                        RelationModuleMultiScale)
 from ta3n_tpu_torch.ops.grl import grad_reverse
+from ta3n_tpu_torch.parallel.mesh import active as mesh_active
+from ta3n_tpu_torch.parallel.mesh import own_two_stream_rows
 
 __all__ = ["VideoModel", "StreamOutput", "MemberGenerators"]
 
@@ -118,11 +120,16 @@ class MemberGenerators(NamedTuple):
         return masks.index_select(0, self.member.reshape(1))[0]
 
 
-def _dropout(x: torch.Tensor, p: float, training: bool,
-             generator) -> torch.Tensor:
+def _dropout(x: torch.Tensor, p: float, training: bool, generator,
+             shard=None) -> torch.Tensor:
     """Inverted dropout (torch's ``F.dropout`` arithmetic) whose mask is
     drawn from ``generator``, a generator on x's device (or the members'
-    `MemberGenerators`), not from torch's global RNG."""
+    `MemberGenerators`), not from torch's global RNG.
+
+    Over a data mesh ``shard`` is (mesh, bs, bt, rows a video) of x, this
+    rank's rows of a two-stream batch: the mask is drawn at the global
+    batch's shape from the generator every rank holds alike, and this
+    rank keeps its rows of it, so W ranks drop what one card drops."""
     if not training or p == 0.0:
         return x
     if generator is None:
@@ -130,6 +137,12 @@ def _dropout(x: torch.Tensor, p: float, training: bool,
                          f"{x.device} (the train step passes one)")
     if isinstance(generator, MemberGenerators):
         keep = generator.keep(x, p)
+    elif shard is not None:
+        mesh, bs, bt, per = shard
+        keep = torch.empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]),
+                           dtype=x.dtype, device=x.device).bernoulli_(
+                               1.0 - p, generator=generator)
+        keep = own_two_stream_rows(keep, bs, bt, per, mesh)
     else:
         keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
     return x * keep / (1.0 - p)
@@ -310,7 +323,8 @@ class VideoModel(nn.Module):
     def _domain_align(self, x: torch.Tensor, bn_name: str, is_train: bool,
                       bs: int, bt: int, rows_per_video: int,
                       mask_s: Optional[torch.Tensor],
-                      mask_t: Optional[torch.Tensor]) -> torch.Tensor:
+                      mask_t: Optional[torch.Tensor],
+                      mesh=None) -> torch.Tensor:
         """AdaBN / AutoDIAL at the BN pair ``{bn_name}_S`` /
         ``{bn_name}_T``: each row normalised by BN_S or BN_T, each BN's
         statistics over the rows routed to it (`ta3n_tpu/models/
@@ -322,18 +336,24 @@ class VideoModel(nn.Module):
         to its own.  torch.round rounds half to even, as jnp.round.
         Padded videos count in neither BN's statistics.  alpha enters
         detached, so that it gets no gradient and SGD skips it (in the
-        JAX step its gradient through round() is a structural zero)."""
+        JAX step its gradient through round() is a structural zero).
+
+        Over a data mesh x holds this rank's bs + bt videos: the routing
+        counts the global batch's videos (W * bs and W * bt, this rank's
+        at their global places) and each BN's statistics are the global
+        batch's (``MaskedBatchNorm``'s mesh)."""
+        w_n, r = (mesh.size, mesh.rank) if mesh_active(mesh) else (1, 0)
         if self.cfg.use_bn == "AutoDIAL":
             alpha = self.alpha.detach()
         else:
             alpha = torch.ones((), device=x.device)
         alpha_c = alpha.clamp(min=0.5)
-        n_s1 = torch.round(bs * alpha_c)
-        n_t1 = torch.round(bt * alpha_c)
-        own_s = torch.arange(bs, device=x.device) < n_s1
-        own_t = torch.arange(bt, device=x.device) < n_t1
+        n_s1 = torch.round(w_n * bs * alpha_c)
+        n_t1 = torch.round(w_n * bt * alpha_c)
+        own_s = torch.arange(r * bs, (r + 1) * bs, device=x.device) < n_s1
+        own_t = torch.arange(r * bt, (r + 1) * bt, device=x.device) < n_t1
         if is_train:
-            mixing = (bs - n_s1 > 0) & (bt - n_t1 > 0)
+            mixing = (w_n * bs - n_s1 > 0) & (w_n * bt - n_t1 > 0)
             own_s = own_s | ~mixing
             own_t = own_t | ~mixing
         else:
@@ -347,13 +367,14 @@ class VideoModel(nn.Module):
             w_s, w_t = w_s * valid, w_t * valid
         bn_s = getattr(self, f"{bn_name}_S")
         bn_t = getattr(self, f"{bn_name}_T")
-        y_s = bn_s(x, w_s, use_running_average=not is_train)
-        y_t = bn_t(x, w_t, use_running_average=not is_train)
+        y_s = bn_s(x, w_s, use_running_average=not is_train, mesh=mesh)
+        y_t = bn_t(x, w_t, use_running_average=not is_train, mesh=mesh)
         return torch.where(w_s[:, None] > 0, y_s, y_t)
 
     def temconv_pre(self, feat_seg: torch.Tensor, is_train: bool, bs: int,
                     bt: int, mask_s: Optional[torch.Tensor],
-                    mask_t: Optional[torch.Tensor]) -> torch.Tensor:
+                    mask_t: Optional[torch.Tensor],
+                    mesh=None) -> torch.Tensor:
         """temconv's frame rows before their relu [B, S, D]: the first TCL
         over the segments, then, under AdaBN/AutoDIAL, the bn_1 pair's
         alignment with per-row statistic weights repeated per frame
@@ -362,22 +383,27 @@ class VideoModel(nn.Module):
         x = self.tcl_3_1(feat_seg)
         if self.cfg.use_bn != "none":
             x = self._domain_align(x.reshape(b * s, -1), "bn_1", is_train,
-                                   bs, bt, s, mask_s, mask_t)
+                                   bs, bt, s, mask_s, mask_t, mesh)
         return x.reshape(b, s, -1)
 
     def forward_shared(self, pre: torch.Tensor, bs: int, bt: int, beta, mu,
                        is_train: bool = True, reverse: bool = False,
                        generator: Optional[torch.Generator] = None,
                        mask_source: Optional[torch.Tensor] = None,
-                       mask_target: Optional[torch.Tensor] = None
-                       ) -> Tuple[StreamOutput, StreamOutput]:
+                       mask_target: Optional[torch.Tensor] = None,
+                       mesh=None) -> Tuple[StreamOutput, StreamOutput]:
         """The forward from the first shared FC's pre-activations on:
         ``pre`` [(bs+bt)*S, fc] holds the frame rows of the bs source
         videos, then of the bt target videos.  The device-store steps
         compute ``pre`` with the fused gather + FC (`ops/gather_gemm.py`),
         as the JAX model's ``combined_rows`` entry takes rows gathered on
         the device; ``forward`` computes it from feature arrays
-        (``shared_pre``).  The other arguments are those of ``forward``."""
+        (``shared_pre``).  The other arguments are those of ``forward``.
+
+        ``mesh`` (`parallel/mesh.py`): ``pre`` holds this rank's bs + bt
+        videos of the global batch, and what couples the batch's rows
+        (the BN statistics, the dropout masks) is computed as for the
+        global batch; the outputs are this rank's rows."""
         cfg = self.cfg
         num_segments = cfg.train_segments if is_train else cfg.val_segments
         b_all = bs + bt
@@ -386,6 +412,9 @@ class VideoModel(nn.Module):
                              f"for {b_all} videos, got {pre.shape[0]}")
         n_src_rows = bs * num_segments
         feat_all = []
+        shard = mesh_active(mesh)
+        frame_shard = (mesh, bs, bt, num_segments) if shard else None
+        video_shard = (mesh, bs, bt, 1) if shard else None
 
         # shared frame-level FC stack (models.py:565-603)
         f = pre
@@ -395,9 +424,9 @@ class VideoModel(nn.Module):
             elif cfg.use_bn != "none":
                 f = self._domain_align(f, "bn_shared", is_train, bs, bt,
                                        num_segments, mask_source,
-                                       mask_target)
+                                       mask_target, mesh)
             f = torch.relu(f)
-            f = _dropout(f, cfg.dropout_i, is_train, generator)
+            f = _dropout(f, cfg.dropout_i, is_train, generator, frame_shard)
             feat_all.append(f.reshape(b_all, num_segments, -1))
 
         # frame-level adversarial branch (models.py:605-610)
@@ -434,7 +463,7 @@ class VideoModel(nn.Module):
             elif cfg.frame_aggregation == "temconv":
                 feat_video = torch.relu(self.temconv_pre(
                     feat_seg, is_train, bs, bt, mask_source,
-                    mask_target)).mean(dim=1)
+                    mask_target, mesh)).mean(dim=1)
             else:
                 if cfg.use_attn == "TransAttn":  # models.py:427-430
                     w = trans_attn_weights(pred_domain_frame_3d.float())
@@ -464,7 +493,7 @@ class VideoModel(nn.Module):
 
         # video-level classifier (models.py:678-691)
         feat_video = _dropout(feat_video, cfg.dropout_v, is_train,
-                              generator)
+                              generator, video_shard)
         if reverse:
             feat_video = grad_reverse(feat_video, mu)  # MCD step 2
         if video:

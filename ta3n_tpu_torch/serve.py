@@ -52,7 +52,18 @@ ensemble's artifact scores its members one after the other (a trace
 cannot follow the live pass's vmap rules); the mean of the members'
 softmaxes is the same function.
 
-``mesh=`` data parallelism is not ported yet (ROADMAP.md queue 1, item 9).
+An artifact's batch axis is exported dynamic (any number of rows up to
+the traced one runs), except an int8 model's, whose trace fixes it.
+
+Data-parallel serving (``mesh=``, a single process's grid from
+``parallel.make_mesh()``, as the JAX Predictor's single-controller mesh):
+one replica a device, ``batch_size`` rounded up to a device multiple, and
+every chunk split into one row block a device; each block is uploaded and
+launched on its device's current stream, its outputs' copies started,
+with no wait between devices, and the blocks are put back in order when
+the chunk is read.  An ensemble is replicated whole.  An artifact served
+over a grid needs a batch size that divides by the devices (as the JAX
+Predictor's ``from_exported``) and a dynamic batch axis.
 """
 
 from __future__ import annotations
@@ -76,12 +87,13 @@ from ta3n_tpu_torch.io_utils.convert import (load_reference_checkpoint,
 from ta3n_tpu_torch.models.layers import bf16_f32_reduction
 from ta3n_tpu_torch.models.video_model import VideoModel
 from ta3n_tpu_torch.ops.gather_gemm import upload
+from ta3n_tpu_torch.parallel.mesh import (device_scope, pad_to_multiple,
+                                          split_rows)
 from ta3n_tpu_torch.train.step import video_logits
 
 __all__ = ["Predictor", "make_http_server", "run_http_server"]
 
 
-_LATER = "is not ported yet (ROADMAP.md queue 1, item 9: multi-card)"
 _EXPORT_BIN = "predict.pt2"
 _EXPORT_META = "meta.json"
 _PLATFORMS = ("cpu", "cuda")
@@ -125,17 +137,44 @@ class _Program(nn.Module):
         return probs, top_p, top_i
 
 
+def _grid(mesh):
+    """The devices of a single process's grid (None: no mesh)."""
+    if mesh is None:
+        return None
+    if mesh.group is not None and mesh.size > 1:
+        raise ValueError("a Predictor serves over a single process's grid "
+                         "(parallel.make_mesh() without a process group)")
+    return mesh.devices
+
+
 class Predictor:
     """Fixed-batch inference with padding, on ``device``.  With
     ``n_members`` N > 0, ``model`` is a sequence of N members (solo
     `VideoModel`s of one configuration) served as a deep ensemble: the
-    member-averaged softmax of one vmapped pass."""
+    member-averaged softmax of one vmapped pass.  With ``mesh`` (a single
+    process's grid) one replica a device of it (``device`` is then the
+    grid's first), as the module docstring says."""
 
     def __init__(self, model_cfg: ModelConfig, model, batch_size: int = 64,
                  top_k: int = 5, device="cuda", mesh=None,
                  n_members: int = 0):
-        if mesh is not None:
-            raise NotImplementedError(f"data-parallel serving {_LATER}")
+        devices = _grid(mesh)
+        if devices is not None:
+            # one replica a device, the first the caller's model(s): the
+            # grid serves through them and exports replica 0's
+            batch_size = pad_to_multiple(batch_size, len(devices))
+            model = list(model) if n_members else model
+            shards = [
+                (Predictor(model_cfg,
+                           model if i == 0 else copy.deepcopy(model),
+                           batch_size // len(devices), top_k, dev,
+                           n_members=n_members), rows)
+                for i, (dev, rows) in enumerate(zip(
+                    devices, split_rows(batch_size, mesh)))]
+            vars(self).update(vars(shards[0][0]), batch_size=batch_size,
+                              _shards=shards)
+            return
+        self._shards = None
         self.cfg = model_cfg
         self.device = torch.device(device)
         self.n_members = n_members
@@ -200,12 +239,21 @@ class Predictor:
                  self.cfg.val_segments * self.cfg.sample_new_length,
                  self.cfg.input_feature_dim)
         x = torch.zeros(shape)
+        # the batch axis dynamic up to batch_size (a grid serves row
+        # blocks of a batch), but for an int8 model, whose quantized
+        # products' trace fixes it, and at a batch of 1, which a trace
+        # specialises
+        dynamic = None
+        if self.cfg.quantize != "int8" and self.batch_size > 1:
+            dynamic = ({0: torch.export.Dim("batch", min=1,
+                                            max=self.batch_size)},)
         with torch.no_grad():
             # one call before the trace: the host-side caches it fills (the
             # TRN's subset indices) then hold real tensors, which the trace
             # records as constants
             program(x)
-            exported = torch.export.export(program, (x,))
+            exported = torch.export.export(program, (x,),
+                                           dynamic_shapes=dynamic)
         os.makedirs(path, exist_ok=True)
         torch.export.save(exported, os.path.join(path, _EXPORT_BIN))
         meta = {"model_cfg": dataclasses.asdict(self.cfg),
@@ -228,29 +276,55 @@ class Predictor:
         platforms): ``torch.export.load``, the program moved to the
         device (``move_to_device_pass``), and the configuration, batch
         size and top-k from its meta.json; no model code, no
-        checkpoint."""
-        if mesh is not None:
-            raise NotImplementedError(f"data-parallel serving {_LATER}")
+        checkpoint.  With ``mesh`` (a single process's grid) the program
+        on each device of it, each serving its row block of a batch: the
+        artifact's batch size must divide by the devices and its batch
+        axis be dynamic."""
         from torch.export.passes import move_to_device_pass
 
         with open(os.path.join(path, _EXPORT_META)) as f:
             meta = json.load(f)
+        devices = _grid(mesh)
+        batch_size = int(meta["batch_size"])
+        if devices is not None:
+            if batch_size % len(devices):
+                raise ValueError(
+                    f"exported batch size {batch_size} is not divisible "
+                    f"by the {len(devices)}-device mesh; re-export with "
+                    f"a device-multiple batch size")
+            device = devices[0]
         device = torch.device(device)
         if device.type not in meta["platforms"]:
             raise ValueError(f"the artifact at {path} was exported for "
                              f"{meta['platforms']}, not {device.type}")
-        program = torch.export.load(os.path.join(path, _EXPORT_BIN))
-        if device.type != "cpu":
-            program = move_to_device_pass(program, device)
-        self = cls.__new__(cls)
-        self.cfg = ModelConfig(**meta["model_cfg"])
-        self.device = device
-        self.model = None
-        self.n_members = int(meta["n_members"])
-        self.batch_size = int(meta["batch_size"])
-        self.top_k = int(meta["top_k"])
-        self._exported = program.module()
-        self._pinned = [None, None]
+
+        def load(dev):
+            self = cls.__new__(cls)
+            program = torch.export.load(os.path.join(path, _EXPORT_BIN))
+            if devices is not None and len(devices) > 1 \
+                    and not _dynamic_batch(program):
+                raise ValueError(
+                    f"the artifact at {path} was traced at a fixed batch "
+                    f"of {batch_size} (an int8 model's or a batch of 1): "
+                    "serve it on one device")
+            if dev.type != "cpu":
+                program = move_to_device_pass(program, dev)
+            self.cfg = ModelConfig(**meta["model_cfg"])
+            self.device = dev
+            self.model = None
+            self.n_members = int(meta["n_members"])
+            self.batch_size = batch_size
+            self.top_k = int(meta["top_k"])
+            self._exported = program.module()
+            self._pinned = [None, None]
+            self._shards = None
+            return self
+
+        self = load(device)
+        if devices is not None:
+            self._shards = [(self if i == 0 else load(dev), rows)
+                            for i, (dev, rows) in enumerate(zip(
+                                devices, split_rows(batch_size, mesh)))]
         return self
 
     @staticmethod
@@ -366,17 +440,20 @@ class Predictor:
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """features: [N, S, D] -> (probs [N,C], top_p [N,K], top_i [N,K]).
         Chunk i+1 is dispatched and its copies started before chunk i is
-        read (see the module docstring)."""
+        read (see the module docstring); over a grid each chunk's row
+        blocks are dispatched on their devices in turn, with no wait."""
         n = features.shape[0]
         b = self.batch_size
         got = ([], [], [])
+        shards = self._shards or [(self, slice(0, b))]
 
         def take(fetched, real):
-            bufs, event = fetched
-            if event is not None:
-                event.synchronize()
-            for out, t in zip(got, bufs):
-                out.append(t[:real].numpy().copy())  # bufs are reused
+            for bufs, event in fetched:
+                if event is not None:
+                    event.synchronize()
+            for j, out in enumerate(got):  # bufs are reused: copied out
+                out.append(np.concatenate(
+                    [bufs[j].numpy() for bufs, _ in fetched])[:real])
 
         in_flight = None
         for i, lo in enumerate(range(0, n, b)):
@@ -386,14 +463,27 @@ class Predictor:
                 chunk = np.concatenate(
                     [chunk, np.zeros((b - real,) + chunk.shape[1:],
                                      np.float32)])
-            x = upload(chunk, torch.float32, self.device)
-            fetched = self._fetch(self._forward(x), i % 2)
+            fetched = []
+            for shard, rows in shards:
+                with device_scope(shard.device):
+                    x = upload(chunk[rows], torch.float32, shard.device)
+                    fetched.append(shard._fetch(shard._forward(x), i % 2))
             if in_flight is not None:
                 take(*in_flight)
             in_flight = (fetched, real)
         if in_flight is not None:
             take(*in_flight)
         return tuple(np.concatenate(out) for out in got)
+
+
+def _dynamic_batch(exported) -> bool:
+    """Whether an exported program's input takes any batch (a symbolic
+    leading dimension)."""
+    for node in exported.graph.nodes:
+        if node.op == "placeholder" and node.name in (
+                exported.graph_signature.user_inputs):
+            return not isinstance(node.meta["val"].shape[0], int)
+    return False
 
 
 def make_http_server(predictor: Predictor, class_names: Sequence[str],

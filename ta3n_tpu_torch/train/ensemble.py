@@ -33,7 +33,8 @@ At either compute dtype: under ``compute_dtype="bfloat16"`` each member
 casts its float32 parameters to bfloat16 where the solo model does, the
 bfloat16 kernels launch once for all members, and the optimizer updates
 the float32 parameters, as a solo bfloat16 step does.  ``mesh=`` raises:
-the multi-card member axis is ROADMAP.md queue 1, item 9.
+the multi-card member axis is ROADMAP.md queue 1, item 9 (the 2-D
+grids; the 1-D data grid of solo steps is `parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ __all__ = ["EnsembleState", "ensemble_generators", "create_ensemble_state",
            "make_ensemble_mesh", "reached_parameters"]
 
 _MULTI_CARD = ("the multi-card member axis is not ported yet (ROADMAP.md "
-               "queue 1, item 9: scale-out, its multi-card part)")
+               "queue 1, item 9: the 2-D grids, member x data)")
 
 
 class EnsembleState(NamedTuple):

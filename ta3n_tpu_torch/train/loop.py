@@ -26,10 +26,22 @@ one copy.  ``tensorboard_dir`` writes the JAX Trainer's embeddings and
 best-accuracy text (`io_utils/tensorboard.py`; per-step video-level
 features, so one step per call and a per-batch validation), and
 ``profile_dir`` a ``torch.profiler`` trace of the JAX Trainer's window:
-steps 2–7 of the first epoch, or the second K-step call of the run.  What
-the JAX Trainer runs and the port does not yet, more than one device,
-raises ``NotImplementedError`` naming its ROADMAP.md item (queue 1,
-item 9).
+steps 2–7 of the first epoch, or the second K-step call of the run.
+
+Over several cards (``num_devices``, ``use_mesh``, as the JAX Trainer's):
+the process belongs to a ``torch.distributed`` group of one process a
+card (`parallel/distributed.py`; the train CLI starts it), the loaders'
+batches are padded to a multiple of the ranks with masked videos, and
+every step takes the global batch and computes its own rows of it
+(`parallel/mesh.py`), so every rank holds the same parameters and the
+same metrics.  Rank 0 alone prints and writes the logs, checkpoints, the
+``--tensorboard`` files and the ``--profile_dir`` trace; every rank
+restores the same checkpoint on resume.  A SIGTERM on any rank stops
+every rank at the next metric flush (the ranks agree on it there), with
+rank 0's emergency checkpoint; a rank whose peer has left fails at the
+process group's timeout rather than wait forever.  The 2-D grids
+(``model_parallel > 1``) raise ``NotImplementedError`` naming ROADMAP.md
+queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.data import (FeatureStore, TSNLoader,
@@ -59,6 +72,7 @@ from ta3n_tpu_torch.io_utils.convert import (export_reference_state,
                                              live_state)
 from ta3n_tpu_torch.io_utils.logs import AverageMeter, LogFiles
 from ta3n_tpu_torch.io_utils.tensorboard import EmbeddingWriter
+from ta3n_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple
 from ta3n_tpu_torch.train.schedules import (alpha_schedule, dann_lr,
                                             effective_beta, loss_plateau_lr,
                                             progress, step_decay_lr)
@@ -91,11 +105,14 @@ class TrainingDivergedError(RuntimeError):
 
 
 @contextlib.contextmanager
-def _sigterm_as_interrupt():
+def _sigterm_as_interrupt(stop: Optional[threading.Event] = None):
     """Deliver SIGTERM as KeyboardInterrupt for the duration of fit(), so
     that a scheduler's kill (or ``timeout``) goes through fit()'s
     emergency checkpoint.  Installed only in the main thread and only when
-    SIGTERM has its default disposition; the previous one is restored."""
+    SIGTERM has its default disposition; the previous one is restored.
+    Over several ranks (``stop`` given) the first SIGTERM sets ``stop``
+    instead, which the ranks agree on at their next metric flush; a second
+    one raises at once."""
     if threading.current_thread() is not threading.main_thread():
         yield
         return
@@ -105,6 +122,9 @@ def _sigterm_as_interrupt():
         return
 
     def _raise(signum, frame):
+        if stop is not None and not stop.is_set():
+            stop.set()
+            return
         raise KeyboardInterrupt("SIGTERM (preemption)")
 
     signal.signal(signal.SIGTERM, _raise)
@@ -183,9 +203,13 @@ class Trainer:
     ``seed + 7919``, as the JAX Trainer's key); the device samplers on
     ``seed + 101`` and ``seed + 202``, as the JAX Trainer's.  Checkpoints
     hold the step counter and the generators' states, so a resumed run
-    continues the same index and dropout streams.  Without the JAX
-    Trainer's ``use_mesh`` and ``prefetch_depth``: one device, and no
-    prefetch thread."""
+    continues the same index and dropout streams; over several ranks every
+    rank seeds them alike.  ``num_devices`` and ``use_mesh`` are the JAX
+    Trainer's: with ``use_mesh`` and a process group of more than one rank
+    (`parallel/distributed.py`) the Trainer trains over every rank of it;
+    ``num_devices`` must then be None or the group's size, and above 1
+    it needs the group (the train CLI starts one process a card).
+    Without the JAX Trainer's ``prefetch_depth``: no prefetch thread."""
 
     def __init__(self, model_cfg: ModelConfig, da_cfg: DAConfig,
                  train_cfg: TrainConfig, source_loader: TSNLoader,
@@ -207,18 +231,28 @@ class Trainer:
                  accum_steps: int = 1,
                  model_parallel: int = 1,
                  nan_guard: bool = True,
+                 use_mesh: bool = True,
                  device="cuda"):
-        for on, what, item in (
-                (model_parallel > 1, "model_parallel > 1", "9"),
-                (num_devices is not None and num_devices > 1,
-                 "num_devices > 1", "9")):
-            if on:
-                raise _unported(what, item)
+        if model_parallel > 1:
+            raise _unported("model_parallel > 1 (the 2-D grids)", "9")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; the Trainer "
                                "runs on the card by default (pass "
                                "device='cpu' for the CPU)")
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.mesh = self._make_mesh(num_devices, use_mesh)
+        self.primary = self.mesh is None or self.mesh.is_primary
+        if self.mesh is not None:
+            # batch divisibility by the ranks via masked padding (the
+            # static analogue of main.py:366-372), as the JAX Trainer
+            for loader in (source_loader, target_loader, val_loader):
+                loader.pad_to = pad_to_multiple(loader.batch_size,
+                                                self.mesh.size)
+            if not self.primary:
+                log_files, profile_dir = None, None
+        self._stop = threading.Event() if self.mesh is not None else None
         self.model_cfg, self.da_cfg, self.train_cfg = (model_cfg, da_cfg,
                                                        train_cfg)
         self.source_loader = source_loader
@@ -235,10 +269,20 @@ class Trainer:
         self._profile_chunks_seen = 0
         self._profile_done = False
         self.nan_guard = nan_guard
-        # a no-op writer without tensorboardX, as the JAX Trainer's
-        self.tb = EmbeddingWriter(tensorboard_dir)
+        # a no-op writer without tensorboardX, as the JAX Trainer's, and on
+        # every rank but rank 0
+        self.tb = EmbeddingWriter(tensorboard_dir if self.primary else None)
+        # whether rank 0 collects for the writer: every rank then takes the
+        # modes the collection needs (one step a call, a per-batch
+        # validation, no accumulation), so that all run the same steps and
+        # collectives
+        tb_on = self.tb.active
+        if self.mesh is not None:
+            flag = torch.tensor([float(tb_on)], device=self.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.mesh.group)
+            tb_on = flag.item() > 0
         # per-step attention values or video-level features to fetch
-        self._need_aux = save_attention >= 0 or self.tb.active
+        self._need_aux = save_attention >= 0 or tb_on
         self.device_store = device_store
         if store_dtype not in (None, "", "float32", "bfloat16", "int8"):
             raise ValueError(f"store_dtype={store_dtype!r}: the device "
@@ -263,9 +307,11 @@ class Trainer:
         self.steps_per_call = steps_per_call if (
             device_store and not self._need_aux
             and not da_cfg.pretrain_source) else 1
+        mesh = self.mesh
         self.train_step = make_train_step(
             model, da_cfg, train_cfg, class_weights, domain_weights,
-            gather_on_device=device_store, return_aux=self._need_aux)
+            gather_on_device=device_store, return_aux=self._need_aux,
+            mesh=mesh)
         # --pretrain_source: a classification-only step before each train
         # step on the same batch (main.py:387-414): two updates a batch,
         # one momentum buffer and lr
@@ -274,15 +320,17 @@ class Trainer:
             self.pretrain_step = make_train_step(
                 model, da_cfg, train_cfg, class_weights, domain_weights,
                 gather_on_device=device_store,
-                pretrain_classification_only=True)
+                pretrain_classification_only=True, mesh=mesh)
             self.pretrain_generator = torch.Generator(
                 self.device).manual_seed(seed + 7919)
         self.eval_step = make_eval_step(model, class_weights,
-                                        gather_on_device=device_store)
+                                        gather_on_device=device_store,
+                                        mesh=mesh)
         self.multi_step = None
         if self.steps_per_call > 1:
             self.multi_step = make_multi_train_step(
-                model, da_cfg, train_cfg, class_weights, domain_weights)
+                model, da_cfg, train_cfg, class_weights, domain_weights,
+                mesh=mesh)
         self.streaming = bool(device_store and store_budget_rows)
         if self.streaming:
             # larger-than-memory stores: shards of at most budget rows
@@ -339,7 +387,7 @@ class Trainer:
                 for s in (self._ssampler_s, self._ssampler_t))
             self.shard_sampled_step = make_sampled_shard_multi_step(
                 model, da_cfg, train_cfg, self._ssampler_s, self._ssampler_t,
-                self._stream_spe, class_weights, domain_weights)
+                self._stream_spe, class_weights, domain_weights, mesh=mesh)
         elif device_sampler:
             self._sampler_s = DeviceSampler(source_loader,
                                             seed=seed + 101).to(self.device)
@@ -352,14 +400,14 @@ class Trainer:
             self._sampler_t.steps_per_epoch = spe
             self.sampled_step = make_sampled_multi_step(
                 model, da_cfg, train_cfg, self._sampler_s, self._sampler_t,
-                class_weights, domain_weights)
+                class_weights, domain_weights, mesh=mesh)
 
         # a whole validation in one call and one fetch: resident store and
         # a deterministic val epoch, whose stacked indices are cached
         # (tensorboard needs the features of every batch)
         self.multi_eval_step = (
-            make_multi_eval_step(model, class_weights)
-            if device_store and not self.streaming and not self.tb.active
+            make_multi_eval_step(model, class_weights, mesh=mesh)
+            if device_store and not self.streaming and not tb_on
             and not val_loader.shuffle else None)
         self._val_stack = None
 
@@ -386,7 +434,7 @@ class Trainer:
                 self.accum_steps = accum_steps
                 self.accum_step = make_grad_accum_step(
                     model, da_cfg, train_cfg, class_weights, domain_weights,
-                    accum_steps=accum_steps)
+                    accum_steps=accum_steps, mesh=mesh)
 
         self.lr_current = train_cfg.lr
         self.best_prec1 = 0.0
@@ -396,6 +444,42 @@ class Trainer:
         self.attn_epoch_source = []
         self.attn_epoch_target = []
         self._last_epoch_done = 0
+
+    def _make_mesh(self, num_devices: Optional[int], use_mesh: bool):
+        """The data mesh of the process group this process belongs to, or
+        None: one device (no group, a group of one, or ``use_mesh``
+        off)."""
+        grouped = dist.is_available() and dist.is_initialized()
+        world = dist.get_world_size() if grouped else 1
+        if num_devices is not None and num_devices > 1 and world == 1:
+            raise ValueError(
+                f"num_devices={num_devices}: training on several cards "
+                "runs one process a card in a torch.distributed group; "
+                "start it with the train CLI's --num_devices or torchrun "
+                "(parallel/distributed.py::initialize_multihost)")
+        if num_devices is not None and world > 1 and num_devices != world:
+            raise ValueError(f"num_devices={num_devices} in a process "
+                             f"group of {world} ranks")
+        if not (use_mesh and world > 1):
+            return None
+        return make_mesh([self.device])
+
+    def _print(self, *args) -> None:
+        """print, on rank 0 only."""
+        if self.primary:
+            print(*args)
+
+    def _agree_stop(self) -> None:
+        """Over several ranks: whether any rank has been asked to stop
+        (SIGTERM), agreed on by every rank at once; then every rank raises
+        KeyboardInterrupt together, and rank 0 writes the emergency
+        checkpoint."""
+        if self._stop is None:
+            return
+        flag = torch.tensor([float(self._stop.is_set())], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        if flag.item() > 0:
+            raise KeyboardInterrupt("SIGTERM (preemption) on a rank")
 
     # ---- checkpoint (main.py:91-106,266-274) ----
     def resume(self, path: str, resume_hp: bool = False) -> int:
@@ -445,8 +529,11 @@ class Trainer:
         }
 
     def save(self, epoch: int, prec1: float, is_best: bool):
-        save_checkpoint(self.path_exp, self._ckpt_payload(epoch, prec1),
-                        is_best)
+        """Write the checkpoint (rank 0 only: every rank holds the same
+        state)."""
+        if self.primary:
+            save_checkpoint(self.path_exp, self._ckpt_payload(epoch, prec1),
+                            is_best)
 
     # ---- the profiler window (--profile_dir) ----
     def _start_profile(self):
@@ -524,6 +611,7 @@ class Trainer:
             step's metrics or a K-step call's, ``("stacked", m, k)`` with
             each of m's values [k]; all the entries taken come to the host
             in one copy."""
+            self._agree_stop()
             if meters["loss"].count == 0:
                 keep_last = 0  # first print of the epoch: real values
             if len(pending) <= keep_last:
@@ -630,7 +718,7 @@ class Trainer:
                 last_line = self._format_train_line(
                     epoch, i, len_loader, meters, alpha, beta, tc)
                 if i % self.show_freq == 0:
-                    print(last_line)
+                    self._print(last_line)
                 if self.logs:
                     self.logs.write("train.log", last_line)
 
@@ -696,7 +784,7 @@ class Trainer:
                     epoch, i - 1, len_loader, meters, alpha, betas[-1], tc)
                 if self.logs:
                     self.logs.write("train.log", last_line)
-                print(last_line)
+                self._print(last_line)
         flush()
         if self.logs and last_line:
             self.logs.write("train_short.log", last_line)
@@ -845,7 +933,7 @@ class Trainer:
                     epoch, i - 1, len_loader, meters, alpha, beta, tc)
                 if self.logs:
                     self.logs.write("train.log", last_line)
-                print(last_line)
+                self._print(last_line)
 
         chunk = []
         for pair in pairs:
@@ -939,7 +1027,7 @@ class Trainer:
                                             epoch * len(self.val_loader))
         line = (f"Testing Results: Prec@1 {top1:.3f} Prec@5 {top5:.3f} "
                 f"Loss {loss:.5f}")
-        print(line)
+        self._print(line)
         if self.logs:
             self.logs.write("val.log", line)
         return top1
@@ -951,13 +1039,13 @@ class Trainer:
         a resumable checkpoint before re-raising (the reference has no
         such recovery, SURVEY §5.3)."""
         try:
-            with _sigterm_as_interrupt():
+            with _sigterm_as_interrupt(self._stop):
                 return self._fit()
         except BaseException:
             if self.save_model and self._last_epoch_done >= 1:
                 self.save(self._last_epoch_done, self.best_prec1, False)
-                print(f"emergency checkpoint saved at epoch "
-                      f"{self._last_epoch_done} -> {self.path_exp}")
+                self._print(f"emergency checkpoint saved at epoch "
+                            f"{self._last_epoch_done} -> {self.path_exp}")
             raise
 
     def _fit(self):
@@ -984,8 +1072,8 @@ class Trainer:
                 is_best = prec1 > self.best_prec1
                 line_update = (' ==> updating the best accuracy'
                                if is_best else '')
-                print(f"Best score {self.best_prec1} vs current score "
-                      f"{prec1}{line_update}")
+                self._print(f"Best score {self.best_prec1} vs current "
+                            f"score {prec1}{line_update}")
                 if self.logs:
                     self.logs.write("val_short.log", "%.3f" % prec1)
                 self.best_prec1 = max(prec1, self.best_prec1)
@@ -1001,7 +1089,8 @@ class Trainer:
                 "least 2 chunks", stacklevel=2)
         if self.logs:
             self.logs.write_best(self.best_prec1)
-        if self.save_attention >= 0 and self.attn_epoch_source:
+        if (self.save_attention >= 0 and self.attn_epoch_source
+                and self.primary):
             # attention-value dumps (main.py:304-306), under the
             # experiment dir
             np.savetxt(os.path.join(self.path_exp,

@@ -42,6 +42,17 @@ gradients of G micro-batch pairs into one update (``--accum_steps``).
 int8 inference (``ModelConfig.quantize="int8"``) runs in the eval and
 infer steps only: every train-step builder refuses it, as JAX's
 ``make_train_step`` does.
+
+Every train and eval step builder takes ``mesh=`` (`parallel/mesh.py`):
+over a process group of W ranks each rank is given the full global batch,
+as every rank's loader or sampler draws it, and runs the model on its own
+rows (its slice of the features or of the index batches: K3, K1 and K2 at
+1/W of the batch, each rank gathering from its own whole copy of a
+store); the outputs are gathered, every rank computes the losses and
+metrics of the global batch, and the gradients are summed over the ranks
+in one flat all-reduce before the update, so the step is the one-card
+step on the global batch.  Without a mesh the steps launch what they
+launched before.
 """
 
 from __future__ import annotations
@@ -60,6 +71,10 @@ from ta3n_tpu_torch.models.video_model import StreamOutput, VideoModel
 from ta3n_tpu_torch.ops.gather_gemm import (RowIndex, gathered_gemm,
                                             gathered_linear, gathered_rows,
                                             row_index, upload)
+from ta3n_tpu_torch.parallel.mesh import (active, all_gather_rows,
+                                          all_reduce_grads, device_scope,
+                                          lift_to_global, replicas,
+                                          split_rows, stacked_rows)
 from ta3n_tpu_torch.train.optim import make_optimizer, optimizer_step
 
 __all__ = ["TrainState", "StepScalars", "create_train_state",
@@ -296,6 +311,12 @@ def _store_part(store, idx, mask: torch.Tensor):
             mask.repeat_interleave(idx.shape[1]))
 
 
+def _own_part(store, idx, mask: torch.Tensor, mesh):
+    """`_store_part` of this rank's rows of a global index batch."""
+    return _store_part(store, lift_to_global(np.asarray(idx), mesh),
+                       lift_to_global(mask, mesh))
+
+
 def _scaled(s, t: torch.Tensor) -> torch.Tensor:
     """``s * t`` in t's dtype, as a Python number ``s`` gives it (the
     product in float32 for a bfloat16 t, then rounded), whether ``s`` is a
@@ -316,10 +337,45 @@ def _first_fc(net: VideoModel, domains=("target",)) -> list:
     return [cast[net.shared_fc(domain)] for domain in domains]
 
 
+def _gather_outputs(outs, mesh) -> tuple:
+    """Each `StreamOutput` of this rank's rows as the global batch's: every
+    field of every output gathered in rank order in one collective."""
+    fields = [(o, f) for o in range(len(outs))
+              for f in StreamOutput._fields]
+    flat, sizes = [], []
+    for o, f in fields:
+        v = getattr(outs[o], f)
+        items = v if isinstance(v, tuple) else (v,)
+        flat.extend(items)
+        sizes.append(len(items) if isinstance(v, tuple) else -1)
+    gathered = iter(all_gather_rows(flat, mesh))
+    rebuilt = [dict() for _ in outs]
+    for (o, f), n in zip(fields, sizes):
+        rebuilt[o][f] = (next(gathered) if n < 0
+                         else tuple(next(gathered) for _ in range(n)))
+    return tuple(StreamOutput(**r) for r in rebuilt)
+
+
+def _forward_rows(net: VideoModel, pre, bs: int, bt: int, beta, mu,
+                  is_train: bool, reverse: bool, generator, mask_s, mask_t,
+                  mesh):
+    """The forward of the global batch's bs + bt videos from ``pre``, the
+    first FC's output of this rank's rows (of them all without a mesh):
+    over a mesh this rank's rows run and their outputs are gathered."""
+    if not active(mesh):
+        return net.forward_shared(pre, bs, bt, beta, mu, is_train, reverse,
+                                  generator, mask_s, mask_t)
+    rs, rt = mesh.rows(bs), mesh.rows(bt)
+    outs = net.forward_shared(pre, rs.stop - rs.start, rt.stop - rt.start,
+                              beta, mu, is_train, reverse, generator,
+                              mask_s[rs], mask_t[rt], mesh)
+    return _gather_outputs(outs, mesh)
+
+
 def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
                     class_weights=None, domain_weights=None,
                     gather_on_device: bool = False, return_aux: bool = False,
-                    pretrain_classification_only: bool = False):
+                    pretrain_classification_only: bool = False, mesh=None):
     """Build the train step for ``model``'s configuration, on the model's
     device.
 
@@ -358,6 +414,11 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
 
     The returned step also carries ``loss_fn``, the forward(s) and losses
     of one micro-batch, which ``make_grad_accum_step`` builds on.
+
+    ``mesh``: the step over a data mesh (see the module docstring); each
+    argument is the full global batch, whose sizes divide by the mesh
+    (the loaders pad to a multiple, ``pad_to_multiple``), and the metrics
+    are the global batch's on every rank.
     """
     cfg = model.cfg
     if cfg.quantize != "none":
@@ -394,12 +455,13 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
 
     def loss_fn(net: VideoModel, pre, ys, mask_s, yt, mask_t, scalars,
                 generator):
-        """The forward(s) from the first shared FC's output ``pre`` and
-        the losses (main.py:437-562; `ta3n_tpu/train/step.py::loss_fn`)."""
+        """The forward(s) from the first shared FC's output ``pre`` (this
+        rank's rows over a mesh) and the losses of the global batch
+        (main.py:437-562; `ta3n_tpu/train/step.py::loss_fn`)."""
         bs, bt = len(mask_s), len(mask_t)
         fwd = (pre, bs, bt, scalars.beta, scalars.mu, True)
-        out_s, out_t = net.forward_shared(*fwd, False, generator, mask_s,
-                                          mask_t)
+        out_s, out_t = _forward_rows(net, *fwd, False, generator, mask_s,
+                                     mask_t, mesh)
         metrics: Dict[str, torch.Tensor] = {}
 
         # (1) classification loss (main.py:424-451), per frame for the
@@ -458,8 +520,8 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
         # its own dropout masks; the discrepancy of its two target-stream
         # classifiers, maximised (main.py:547-556, models.py:682-684)
         if mcd:
-            _, out_t_rev = net.forward_shared(*fwd, True, generator, mask_s,
-                                              mask_t)
+            _, out_t_rev = _forward_rows(net, *fwd, True, generator, mask_s,
+                                         mask_t, mesh)
             o1, _, m1 = _flatten_out(out_t_rev.out, yt, mask_t)
             o2 = _flatten_out(out_t_rev.out_2, yt, mask_t)[0]
             loss_s = metrics["loss_s"] = -dis_MCD(o1, o2, m1)
@@ -497,6 +559,7 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
                                     scalars, generator)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            all_reduce_grads(state.model.parameters(), mesh)
             optimizer_step(state.optimizer, scalars.lr,
                            train_cfg.clip_gradient)
         return (TrainState(state.model, state.optimizer, state.step + 1),
@@ -506,8 +569,9 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
              scalars: StepScalars, generator: Optional[torch.Generator]):
         dev = next(state.model.parameters()).device
         return update(
-            state, lambda: state.model.shared_pre(_as(xs, dev, f32),
-                                                  _as(xt, dev, f32)),
+            state, lambda: state.model.shared_pre(
+                _as(lift_to_global(xs, mesh), dev, f32),
+                _as(lift_to_global(xt, mesh), dev, f32)),
             ys, _as(mask_s, dev, f32), yt, _as(mask_t, dev, f32), scalars,
             generator)
 
@@ -515,8 +579,8 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
                    mask_t, scalars: StepScalars,
                    generator: Optional[torch.Generator]):
         """The device-store step from store parts (`_store_part`) whose
-        indices are on the device already, and the masks as float32
-        tensors there."""
+        indices are on the device already (this rank's rows over a mesh),
+        and the global batch's labels and masks as tensors there."""
         net = state.model
 
         def pre():
@@ -532,19 +596,23 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
                     generator: Optional[torch.Generator]):
         dev = next(state.model.parameters()).device
         mask_s, mask_t = _as(mask_s, dev, f32), _as(mask_t, dev, f32)
-        return parts_step(state, _store_part(store_s, idx_s, mask_s), ys,
-                          mask_s, _store_part(store_t, idx_t, mask_t), yt,
-                          mask_t, scalars, generator)
+        return parts_step(state, _own_part(store_s, idx_s, mask_s, mesh), ys,
+                          mask_s, _own_part(store_t, idx_t, mask_t, mesh),
+                          yt, mask_t, scalars, generator)
 
     built = gather_step if gather_on_device else step
     built.loss_fn = loss_fn
     built.parts_step = parts_step
+    built.with_mesh = lambda m: make_train_step(
+        model, da, train_cfg, class_weights, domain_weights,
+        gather_on_device, return_aux, pretrain_classification_only, m)
     return built
 
 
 def make_grad_accum_step(model: VideoModel, da: DAConfig,
                          train_cfg: TrainConfig, class_weights=None,
-                         domain_weights=None, accum_steps: int = 2):
+                         domain_weights=None, accum_steps: int = 2,
+                         mesh=None):
     """Gradient accumulation (`ta3n_tpu/train/step.py::
     make_grad_accum_step`): G = ``accum_steps`` micro-batch pairs of host
     features, each through the train step's forward and losses, their
@@ -559,11 +627,14 @@ def make_grad_accum_step(model: VideoModel, da: DAConfig,
       step(state, xs [G, Bs, S, D], ys [G, Bs], mask_s [G, Bs],
            xt [G, Bt, S, D], yt [G, Bt], mask_t [G, Bt], scalars,
            generator) -> (new_state, metrics, each [G])
+
+    Over a ``mesh`` each micro-batch is split over the ranks and the
+    averaged gradients are summed over them once, before the update.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     loss_fn = make_train_step(model, da, train_cfg, class_weights,
-                              domain_weights).loss_fn
+                              domain_weights, mesh=mesh).loss_fn
     f32, i64 = torch.float32, torch.long
 
     def accum_step(state: TrainState, xs, ys, mask_s, xt, yt, mask_t,
@@ -579,13 +650,15 @@ def make_grad_accum_step(model: VideoModel, da: DAConfig,
         with bf16_f32_reduction():
             for g in range(accum_steps):
                 ms, mt = _as(mask_s[g], dev, f32), _as(mask_t[g], dev, f32)
-                pre = net.shared_pre(_as(xs[g], dev, f32),
-                                     _as(xt[g], dev, f32))
+                pre = net.shared_pre(
+                    _as(lift_to_global(xs[g], mesh), dev, f32),
+                    _as(lift_to_global(xt[g], mesh), dev, f32))
                 loss, metrics = loss_fn(net, pre, _as(ys[g], dev, i64), ms,
                                         _as(yt[g], dev, i64), mt, scalars,
                                         generator)
                 (loss / accum_steps).backward()
                 per.append(metrics)
+            all_reduce_grads(net.parameters(), mesh)
             optimizer_step(state.optimizer, scalars.lr,
                            train_cfg.clip_gradient)
         return (TrainState(net, state.optimizer, state.step + 1),
@@ -614,7 +687,7 @@ def _stack(metrics: list) -> Dict[str, torch.Tensor]:
 
 def make_multi_train_step(model: VideoModel, da: DAConfig,
                           train_cfg: TrainConfig, class_weights=None,
-                          domain_weights=None):
+                          domain_weights=None, mesh=None):
     """K optimizer steps per call over stacked index batches into stores on
     the device (`ta3n_tpu/train/step.py::make_multi_train_step`, its
     ``lax.scan`` a loop over the device-store step's body).
@@ -630,10 +703,11 @@ def make_multi_train_step(model: VideoModel, da: DAConfig,
     once for the call (``row_index`` over the whole stack) and uploaded
     once, from pinned memory without waiting; labels and masks likewise.
     Step k reads a contiguous view of its rows.  Nothing in the call waits
-    for the device; the metrics stay there, stacked [K]."""
+    for the device; the metrics stay there, stacked [K].  Over a ``mesh``
+    each rank's parts are its rows of the stacked batches."""
     parts_step = make_train_step(model, da, train_cfg, class_weights,
-                                 domain_weights,
-                                 gather_on_device=True).parts_step
+                                 domain_weights, gather_on_device=True,
+                                 mesh=mesh).parts_step
 
     def multi_step(state: TrainState, store_s, idx_s, ys, mask_s, store_t,
                    idx_t, yt, mask_t, scalars: StepScalars,
@@ -644,7 +718,8 @@ def make_multi_train_step(model: VideoModel, da: DAConfig,
         for store, idx, y, mask in ((store_s, idx_s, ys, mask_s),
                                     (store_t, idx_t, yt, mask_t)):
             mask = upload(mask, torch.float32, dev)
-            parts = _stacked_parts(store, idx, mask)
+            parts = _stacked_parts(store, stacked_rows(np.asarray(idx), mesh),
+                                   stacked_rows(mask, mesh))
             if len(parts) != len(per_step):
                 raise ValueError(f"{len(parts)} stacked index batches for "
                                  f"{len(per_step)} steps")
@@ -661,17 +736,20 @@ def make_multi_train_step(model: VideoModel, da: DAConfig,
     return multi_step
 
 
-def _sampled_part(store, sampler, batch) -> tuple:
-    """The store part, labels and mask of a batch that ``sampler`` made on
-    the device: the indices' bound is the sampler's, known on the host."""
+def _sampled_part(store, sampler, batch, mesh=None) -> tuple:
+    """The store part (this rank's rows over a mesh), labels and mask of a
+    batch that ``sampler`` made on the device: the indices' bound is the
+    sampler's, known on the host."""
     idx, labels, mask = batch
-    return ((store, RowIndex(idx.reshape(-1), sampler.end),
-             mask.repeat_interleave(idx.shape[1])), labels, mask)
+    own_idx, own_mask = lift_to_global(idx, mesh), lift_to_global(mask, mesh)
+    return ((store, RowIndex(own_idx.reshape(-1), sampler.end),
+             own_mask.repeat_interleave(idx.shape[1])), labels, mask)
 
 
 def make_sampled_multi_step(model: VideoModel, da: DAConfig,
                             train_cfg: TrainConfig, sampler_s, sampler_t,
-                            class_weights=None, domain_weights=None):
+                            class_weights=None, domain_weights=None,
+                            mesh=None):
     """K steps per call with the index batches made on the device by
     ``sampler_s`` and ``sampler_t`` (`data/device_sampler.py::
     DeviceSampler`), the counterpart of `ta3n_tpu/train/step.py::
@@ -686,7 +764,9 @@ def make_sampled_multi_step(model: VideoModel, da: DAConfig,
     of both samplers, whose ``steps_per_epoch`` must agree (the reference's
     zip-shortest epochs, main.py:330); the epoch orders of a call are made
     once for the call.  The indices are never read back: their bound is
-    the samplers' ``end``, which every gather checks against its store."""
+    the samplers' ``end``, which every gather checks against its store.
+    Over a ``mesh`` every rank's samplers draw the same global batches
+    (the same seeds) and each rank gathers its rows of them."""
     if sampler_s.steps_per_epoch != sampler_t.steps_per_epoch:
         raise ValueError(
             "sampler_s and sampler_t must share steps_per_epoch (the "
@@ -695,8 +775,8 @@ def make_sampled_multi_step(model: VideoModel, da: DAConfig,
             "target batches silently desync from their epoch "
             "permutation")
     parts_step = make_train_step(model, da, train_cfg, class_weights,
-                                 domain_weights,
-                                 gather_on_device=True).parts_step
+                                 domain_weights, gather_on_device=True,
+                                 mesh=mesh).parts_step
     spe = sampler_s.steps_per_epoch
 
     def multi_step(state: TrainState, store_s, store_t,
@@ -712,9 +792,11 @@ def make_sampled_multi_step(model: VideoModel, da: DAConfig,
         for sc in per_step:
             order_s, order_t = orders[state.step // spe - e0]
             part_s, ys, ms = _sampled_part(
-                store_s, sampler_s, sampler_s.batch(state.step, order_s))
+                store_s, sampler_s, sampler_s.batch(state.step, order_s),
+                mesh)
             part_t, yt, mt = _sampled_part(
-                store_t, sampler_t, sampler_t.batch(state.step, order_t))
+                store_t, sampler_t, sampler_t.batch(state.step, order_t),
+                mesh)
             state, m = parts_step(state, part_s, ys, ms, part_t, yt, mt, sc,
                                   generator)
             metrics.append(m)
@@ -726,7 +808,8 @@ def make_sampled_multi_step(model: VideoModel, da: DAConfig,
 def make_sampled_shard_multi_step(model: VideoModel, da: DAConfig,
                                   train_cfg: TrainConfig, sampler_s,
                                   sampler_t, steps_per_epoch: int,
-                                  class_weights=None, domain_weights=None):
+                                  class_weights=None, domain_weights=None,
+                                  mesh=None):
     """The device-sampled K steps over streamed shards
     (`ta3n_tpu/train/step.py::make_sampled_shard_multi_step`): the batches
     are made shard-locally on the device by ``sampler_s`` and
@@ -740,10 +823,11 @@ def make_sampled_shard_multi_step(model: VideoModel, da: DAConfig,
     stream; a call never spans a shard or an epoch (the chunk plan,
     ``plan_zip_shard_chunks``), so the shard orders are made once for the
     call, for the epoch ``state.step // steps_per_epoch``.  The indices'
-    bound is the shards' ``budget_rows``."""
+    bound is the shards' ``budget_rows``.  Over a ``mesh`` every rank
+    fills the same shards and gathers its rows of the same batches."""
     parts_step = make_train_step(model, da, train_cfg, class_weights,
-                                 domain_weights,
-                                 gather_on_device=True).parts_step
+                                 domain_weights, gather_on_device=True,
+                                 mesh=mesh).parts_step
 
     def shard_step(state: TrainState, shard_s, shard_t,
                    scalars: StepScalars,
@@ -757,11 +841,11 @@ def make_sampled_shard_multi_step(model: VideoModel, da: DAConfig,
             part_s, ys, ms = _sampled_part(shard_s, sampler_s,
                                            sampler_s.shard_batch(
                                                sid_s, j0_s + j, order_s,
-                                               state.step))
+                                               state.step), mesh)
             part_t, yt, mt = _sampled_part(shard_t, sampler_t,
                                            sampler_t.shard_batch(
                                                sid_t, j0_t + j, order_t,
-                                               state.step))
+                                               state.step), mesh)
             state, m = parts_step(state, part_s, ys, ms, part_t, yt, mt, sc,
                                   generator)
             metrics.append(m)
@@ -812,7 +896,7 @@ def _eval_gathered(model: VideoModel, part, b: int) -> StreamOutput:
 
 
 def make_eval_step(model: VideoModel, class_weights=None,
-                   gather_on_device: bool = False):
+                   gather_on_device: bool = False, mesh=None):
     """The validation step (reference validate(), main.py:669-761), on the
     model's device, under ``torch.inference_mode()`` (the TRN runs its
     inference kernel, K1).
@@ -830,22 +914,27 @@ def make_eval_step(model: VideoModel, class_weights=None,
     independent (BN normalises with its running statistics), so the
     target side of x alone is the same function, and the port runs x
     once, as the target stream.
+
+    Over a ``mesh`` (a process group) each rank is given the global batch,
+    runs its own rows and gathers their logits and features: the metrics
+    are the global batch's on every rank.
     """
     device = next(model.parameters()).device
     if class_weights is not None:
         class_weights = _as(class_weights, device, torch.float32)
 
     def metrics(out: StreamOutput, y, mask):
-        logits, loss, top1, top5, n = _eval_metrics(out.out, y, mask,
+        logits, feat = all_gather_rows(
+            (out.out, out.feat[min(1, len(out.feat) - 1)]), mesh)
+        logits, loss, top1, top5, n = _eval_metrics(logits, y, mask,
                                                     class_weights)
         return {"loss": loss.float(), "top1": top1, "top5": top5, "n": n,
-                "logits": logits,
-                "feat": out.feat[min(1, len(out.feat) - 1)]}
+                "logits": logits, "feat": feat}
 
     @torch.inference_mode()
     @bf16_f32_reduction()
     def ev(x, y, mask):
-        x = _as(x, device, torch.float32)
+        x = _as(lift_to_global(x, mesh), device, torch.float32)
         _, out = model(x[:0], x, _EVAL_BETA, 0.0, False, False)
         return metrics(out, _as(y, device, torch.long),
                        _as(mask, device, torch.float32))
@@ -854,8 +943,8 @@ def make_eval_step(model: VideoModel, class_weights=None,
     @bf16_f32_reduction()
     def ev_gather(store, idx, y, mask):
         mask = _as(mask, device, torch.float32)
-        out = _eval_gathered(model, _store_part(store, idx, mask),
-                             mask.shape[0])
+        part = _own_part(store, idx, mask, mesh)
+        out = _eval_gathered(model, part, len(lift_to_global(mask, mesh)))
         return metrics(out, _as(y, device, torch.long), mask)
 
     return ev_gather if gather_on_device else ev
@@ -877,7 +966,8 @@ def _stacked_parts(store, idx, mask: torch.Tensor) -> list:
              scale[i]) for i in range(nb)]
 
 
-def make_multi_eval_step(model: VideoModel, class_weights=None):
+def make_multi_eval_step(model: VideoModel, class_weights=None,
+                         mesh=None):
     """A whole validation epoch from a store on the device
     (`ta3n_tpu/train/step.py::make_multi_eval_step`): the stacked index
     batches are checked and uploaded once, every batch runs as the
@@ -888,7 +978,8 @@ def make_multi_eval_step(model: VideoModel, class_weights=None):
       ev(store, idx [Nb, B, T], ys [Nb, B], mask [Nb, B])
         -> {"loss_sum", "top1", "top5", "n"} (0-d tensors)
     with loss_sum the sum over batches of loss * n, as AverageMeter
-    accumulates it (main.py:669-761).
+    accumulates it (main.py:669-761).  Over a ``mesh`` each rank runs its
+    rows of every batch and the logits of them all are gathered once.
     """
     device = next(model.parameters()).device
     if class_weights is not None:
@@ -899,10 +990,17 @@ def make_multi_eval_step(model: VideoModel, class_weights=None):
     def multi_eval(store, idx, ys, mask):
         ys = _as(ys, device, torch.long)
         mask = _as(mask, device, torch.float32)
+        own = stacked_rows(mask, mesh)
+        logits = torch.stack([
+            _eval_gathered(model, part, own.shape[1]).out
+            for part in _stacked_parts(
+                store, stacked_rows(np.asarray(idx), mesh), own)])
+        if active(mesh):  # [Nb, B/W, ...] -> [Nb, B, ...]
+            logits, = all_gather_rows((logits.transpose(0, 1),), mesh)
+            logits = logits.transpose(0, 1)
         sums = torch.zeros(4, device=device)
-        for i, part in enumerate(_stacked_parts(store, idx, mask)):
-            out = _eval_gathered(model, part, mask.shape[1])
-            _, loss, top1, top5, n = _eval_metrics(out.out, ys[i], mask[i],
+        for i in range(len(logits)):
+            _, loss, top1, top5, n = _eval_metrics(logits[i], ys[i], mask[i],
                                                    class_weights)
             sums += torch.stack([loss.float() * n, top1, top5, n])
         return dict(zip(("loss_sum", "top1", "top5", "n"), sums.unbind()))
@@ -911,7 +1009,7 @@ def make_multi_eval_step(model: VideoModel, class_weights=None):
 
 
 def make_infer_step(model: VideoModel, top_k: int,
-                    gather_on_device: bool = False):
+                    gather_on_device: bool = False, mesh=None):
     """Inference of the eval CLI, on the model's device, under
     ``torch.inference_mode()`` (the counterpart of the JAX CLI's ``_infer``
     and ``_infer_all``, `ta3n_tpu/cli/test_models.py:158-187`): softmax
@@ -933,28 +1031,71 @@ def make_infer_step(model: VideoModel, top_k: int,
     ``x * mask``.  The probabilities are the float32 softmax of the
     video-level logits in whatever dtype the model computes, so their
     ranking is the logits', and the attention values are float32.
+
+    ``mesh``, a single process's grid of W devices (`parallel/mesh.py`,
+    the CLI's ``--data_parallel``): the model is replicated on each
+    device, every batch is split into W row blocks (its size a multiple
+    of W), each block runs on its device without a wait between devices,
+    and the outputs come back in order on the first device.  With
+    ``gather_on_device`` the store is then a sequence of its copies, one
+    a device (``store.to_device`` on each).
     """
-    device = next(model.parameters()).device
     k = min(top_k, model.cfg.num_class)
+    grid = mesh is not None and mesh.group is None and mesh.size > 1
+    if mesh is not None and not grid and mesh.size > 1:
+        raise ValueError("make_infer_step takes a single process's grid "
+                         "(make_mesh() without a process group)")
+    nets = replicas(model, mesh) if grid else [model]
+    devices = [next(net.parameters()).device for net in nets]
 
     def head(out: StreamOutput):
         probs = torch.softmax(video_logits(out.out).float(), dim=-1)
         top_p, top_i = torch.topk(probs, k, dim=-1)
         return probs, top_p, top_i, out.attn.float()
 
+    def one(net, device, x):
+        x = _as(x, device, torch.float32)
+        _, out = net(x[:0], x, _EVAL_BETA, 0.0, False, False)
+        return head(out)
+
+    def one_all(net, store, idx, mask):
+        mask = _as(mask, next(net.parameters()).device, torch.float32)
+        outs = [head(_eval_gathered(net, part, mask.shape[1]))
+                for part in _stacked_parts(store, idx, mask)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+
+    def blocks(n):
+        """Each replica's rows of a batch of n (a grid of one: all)."""
+        return split_rows(n, mesh) if grid else [slice(None)]
+
+    def join(outs, dim):
+        """The replicas' outputs in order, on the first device."""
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(torch.cat([o[i].to(devices[0]) for o in outs], dim=dim)
+                     for i in range(4))
+
     @torch.inference_mode()
     @bf16_f32_reduction()
     def infer(x):
-        x = _as(x, device, torch.float32)
-        _, out = model(x[:0], x, _EVAL_BETA, 0.0, False, False)
-        return head(out)
+        outs = []
+        for net, dev, rows in zip(nets, devices, blocks(len(x))):
+            with device_scope(dev):
+                outs.append(one(net, dev, x[rows]))
+        return join(outs, 0)
 
     @torch.inference_mode()
     @bf16_f32_reduction()
     def infer_all(store, idx, mask):
-        mask = _as(mask, device, torch.float32)
-        outs = [head(_eval_gathered(model, part, mask.shape[1]))
-                for part in _stacked_parts(store, idx, mask)]
-        return tuple(torch.stack(o) for o in zip(*outs))
+        stores = store if grid else [store]
+        if len(stores) != len(nets):
+            raise ValueError(f"{len(stores)} store copies for a grid of "
+                             f"{len(nets)} devices")
+        idx, outs = np.asarray(idx), []
+        for net, dev, part, rows in zip(nets, devices, stores,
+                                        blocks(idx.shape[1])):
+            with device_scope(dev):
+                outs.append(one_all(net, part, idx[:, rows], mask[:, rows]))
+        return join(outs, 1)
 
     return infer_all if gather_on_device else infer

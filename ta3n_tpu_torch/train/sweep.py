@@ -168,8 +168,8 @@ def run_sweep(model_cfg, da_cfg, train_cfg, source_loader, target_loader,
     if mesh is not None:
         raise NotImplementedError(
             "run_sweep(mesh=...): the multi-card member axis is not ported "
-            "yet (ROADMAP.md queue 1, item 9: scale-out, its multi-card "
-            "part)")
+            "yet (ROADMAP.md queue 1, item 9: the 2-D grids, member x "
+            "data)")
     device = torch.device(device)
     n = len(members)
     members = pad_members(members, 1, log=log)

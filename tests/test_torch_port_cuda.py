@@ -22,7 +22,10 @@ N solo launches and within the plain version's tolerance (bfloat16 also
 where the members' strides are not 16-byte multiples), and a 3-member
 ensemble's device-store steps (one index stream or one each), eval step
 and Predictor (bfloat16: from_sweep) on the card against the CPU, with
-their launches, at float32 and at bfloat16 compute.
+their launches, at float32 and at bfloat16 compute.  Data parallelism:
+two ranks in a gloo group on one card against one rank, NCCL at world
+size 1 against no mesh, and each kernel launched on a second card by the
+process that launched it on the first (which skips on one card).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs where jax is not installed:
@@ -2446,3 +2449,176 @@ def test_int8_matmul_on_cuda_is_bitwise_the_cpu():
         w = torch.randn(n, k, generator=gen) * 0.05
         got = layers.int8_matmul(x.cuda(), w.cuda()).cpu()
         assert torch.equal(got, layers.int8_matmul(x, w)), (m, k, n)
+
+
+# ---- data parallelism (parallel/, the steps' mesh=) on the card ----
+
+def _parallel_spec(device="cuda"):
+    """The flagship's host-feature and device-store steps at small widths
+    (batches of 8 + 6 videos, the last of each stream padded), its weights
+    redrawn at U(±1/sqrt(fan_in)) from a seed, as
+    tests/test_torch_port_parallel_worker.py reads them."""
+    model = dict(num_class=5, baseline_type="video",
+                 frame_aggregation="trn-m", train_segments=5,
+                 val_segments=5, feature_dim=64, fc_dim=32,
+                 use_attn="TransAttn", dropout_i=0.5, dropout_v=0.5)
+    state = create_train_state(ModelConfig(**model), TrainConfig(),
+                               torch.Generator().manual_seed(0),
+                               device="cpu")
+    rng = np.random.default_rng(0)
+    weights = {}
+    for name, v in state.model.state_dict().items():
+        if v.dtype.is_floating_point and "running" not in name:
+            bound = 1.0 / math.sqrt(v.shape[-1] if v.dim() > 1 else 32)
+            v = torch.from_numpy(rng.uniform(-bound, bound, tuple(v.shape))
+                                 .astype(np.float32))
+        weights[name] = v
+    store = rng.normal(size=(80, 64)).astype(np.float32)
+
+    def batch(seed, store_idx):
+        r = np.random.default_rng(seed)
+        ms, mt = np.ones(8, np.float32), np.ones(6, np.float32)
+        ms[-1] = mt[-1] = 0.0
+        xs = (r.integers(0, 80, (8, 5)).astype(np.int32) if store_idx
+              else r.normal(size=(8, 5, 64)).astype(np.float32))
+        xt = (r.integers(0, 80, (6, 5)).astype(np.int32) if store_idx
+              else r.normal(size=(6, 5, 64)).astype(np.float32))
+        return (xs, r.integers(0, 5, 8), ms, xt, r.integers(0, 5, 6), mt)
+
+    da = dict(use_target="uSv", adv_DA="RevGrad",
+              add_loss_DA="attentive_entropy", place_adv=("Y", "Y", "Y"))
+    scalars = [((-0.5, -0.5, -0.5), 0.0, 0.0, 0.003, 0.01)] * 3
+    common = dict(model=model, da=da, weights=weights, scalars=scalars,
+                  train=dict(lr=0.01), dropout_seed=5, device=device)
+    return {"host": dict(common, kind="host",
+                         batches=[batch(i, False) for i in range(3)]),
+            "store": dict(common, kind="store", store=store,
+                          batches=[batch(i, True) for i in range(3)])}
+
+
+def _parallel_close(got, want, what):
+    """Parameters and metrics within the tolerance of kernels at two batch
+    sizes (the kernels' sums in another order)."""
+    for key in want["params"]:
+        np.testing.assert_allclose(got["params"][key], want["params"][key],
+                                   rtol=1e-4, atol=1e-5,
+                                   err_msg=f"{what}: {key}")
+    for g, w in zip(got["metrics"], want["metrics"]):
+        for key in w:
+            np.testing.assert_allclose(g[key], w[key], rtol=1e-4,
+                                       atol=1e-5, err_msg=f"{what}: {key}")
+
+
+def test_two_rank_gloo_steps_on_the_card_match_one_rank(tmp_path):
+    """Two processes on cuda:0 in a gloo group (CUDA tensors): 3 flagship
+    steps at small widths with dropout 0.5, from host features and from a
+    store, against the one-rank steps; every rank launched K1 (train), K2
+    and K3 (the store case), and the ranks' parameters are bitwise
+    equal."""
+    import os
+    import subprocess
+    import sys
+
+    from test_torch_port_parallel_worker import run_cases
+
+    spec = _parallel_spec()
+    path = str(tmp_path / "spec.pt")
+    torch.save(spec, path)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = os.path.join(root, "tests",
+                          "test_torch_port_parallel_worker.py")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, path, str(tmp_path / f"r{r}.pt"), str(r),
+         "2", str(tmp_path / "init")],
+        env={**os.environ, "PYTHONPATH": root}) for r in range(2)]
+    try:
+        assert [p.wait(timeout=600) for p in procs] == [0, 0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    ranks = [torch.load(str(tmp_path / f"r{r}.pt"), weights_only=False)
+             for r in range(2)]
+    one = run_cases(spec)
+    for name in spec:
+        _parallel_close(ranks[0][name], one[name], name)
+        for key in ranks[0][name]["params"]:
+            assert np.array_equal(ranks[0][name]["params"][key],
+                                  ranks[1][name]["params"][key]), key
+        for rank in ranks:
+            launched = rank[name]["launches"]
+            assert launched["k1_train"] == launched["k2"] == 3
+            assert launched["k3"] == (6 if name == "store" else 0)
+
+
+def test_nccl_world_size_one_matches_no_mesh():
+    """NCCL at world size 1: the steps through mesh= with a real process
+    group (its gather and gradient all-reduce over one rank) equal the
+    steps without a mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    from test_torch_port_parallel_worker import run_cases
+    from ta3n_tpu_torch.parallel import make_mesh
+    from ta3n_tpu_torch.parallel.distributed import initialize_multihost
+
+    spec = _parallel_spec()
+    want = run_cases(spec)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        assert mesh.distributed and mesh.size == 1
+        got = run_cases(spec, mesh)
+    finally:
+        dist.destroy_process_group()
+    for name in spec:
+        _parallel_close(got[name], want[name], name)
+
+
+def test_kernels_launch_on_a_second_device():
+    """One process launching each kernel on cuda:0 and then on cuda:1:
+    every kernel opts in to its dynamic shared memory on each device
+    (csrc/smem_optin.cuh), so K1 (infer, train) and K2 in float32 and
+    bfloat16, and K3 at float32 and bfloat16 compute, run on the second
+    card and agree with their plain versions there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card (one process launching on two "
+                    "devices)")
+    b, s, d, h = 202, 5, 512, 256
+    for device in ("cuda:0", "cuda:1"):
+        x, w, bi = (_move(t, device) for t in _trn_inputs(b, s, d, h))
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, wd, bd = x.to(dtype), [t.to(dtype) for t in w], \
+                [t.to(dtype) for t in bi]
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            with torch.no_grad():
+                got = trn_fused.trn_multiscale_infer(xd, wd, bd, s)
+                want = trn_fused.trn_multiscale_plain(xd, wd, bd, s)
+                out, masks = trn_fused.trn_multiscale_fwd_masks(xd, wd, bd,
+                                                                s)
+                g = torch.ones_like(out)
+                dx, _, _ = trn_fused.trn_multiscale_bwd(xd, wd, masks, g, s)
+                dx_want, _, _ = trn_fused.trn_multiscale_bwd_plain(
+                    xd, wd, masks, g, s)
+            for a, ref in ((got, want), (out, want), (dx, dx_want)):
+                assert a.device == torch.device(device)
+                assert (a.float() - ref.float()).abs().max().item() <= \
+                    tol * max(1.0, ref.float().abs().max().item())
+        store, idx, scale, gw = (_move(t, device) if torch.is_tensor(t)
+                                 else t for t in _gather_inputs(640, d=2048))
+        rows = gather_gemm.row_index(idx, store.shape[0], device)
+        for weight, tol in ((gw, 1e-4), (gw.to(torch.bfloat16), 2e-2)):
+            z, _ = gather_gemm.gathered_gemm(store, rows, weight, scale)
+            ref, _ = gather_gemm.gathered_gemm_plain(store, rows.rows,
+                                                     weight, scale)
+            assert z.device == torch.device(device)
+            assert (z.float() - ref.float()).abs().max().item() <= \
+                tol * max(1.0, ref.float().abs().max().item())
+
+
+def _move(t, device):
+    return t.to(device) if torch.is_tensor(t) else [u.to(device) for u in t]

@@ -168,22 +168,12 @@ def test_eval_cli_streamed_matches_jax(workspace, jax_outputs, budget):
 
 @pytest.mark.parametrize("flags,item", [
     (["--quantize", "int8"], None),
-    (["--data_parallel"], "item 9"),
 ])
 def test_eval_cli_unported_flags_raise(workspace, flags, item):
-    """--data_parallel raises, naming ROADMAP.md queue 1, item 9.
-    --quantize int8 is ported: the JAX CLI's --quantize int8 Pred@k line,
+    """--quantize int8 is ported: the JAX CLI's --quantize int8 Pred@k line,
     scores and attention (at the workspace's widths the TRN's 256-wide
     bottleneck is quantized: the relation heads' first layers and the
     video domain FC)."""
-    argv = [str(workspace / "class.txt"), "RGB",
-            str(workspace / "val" / "list.txt"),
-            str(workspace / "model.pth.tar"), *MODEL_FLAGS, "--device", "cpu",
-            *flags]
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
-            port_cli.main(argv)
-        return
     want = _run(jax_cli.main, workspace, "jax_int8", *flags)
     got = _run(port_cli.main, workspace, "port_int8", "--device", "cpu",
                *flags)

@@ -136,14 +136,12 @@ def test_artifact_answers_as_live_and_jax(artifacts, kind):
 
 def test_loaded_artifact_refusals(artifacts, tmp_path):
     """An artifact's Predictor refuses to export again (JAX serve.py:
-    121-123), a device it was not exported for, and mesh= (ROADMAP.md
-    queue 1, item 9); export refuses an unknown platform."""
+    121-123) and a device it was not exported for; export refuses an
+    unknown platform.  (mesh= is tests/test_torch_port_parallel.py's.)"""
     live, path, _, _ = artifacts["f32"]
     served = Predictor.from_exported(path, device="cpu")
     with pytest.raises(ValueError, match="re-export from the checkpoint"):
         served.export(str(tmp_path / "again"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Predictor.from_exported(path, mesh=object(), device="cpu")
     cpu_only = live.export(str(tmp_path / "cpu_only"), platforms=["cpu"])
     with pytest.raises(ValueError, match="exported for"):
         Predictor.from_exported(cpu_only, device="cuda")

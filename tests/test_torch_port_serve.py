@@ -158,13 +158,11 @@ def test_checkpoint_directory_raises_with_export_hint(tmp_path):
 
 
 def test_unported_serving_extras_raise(checkpoint, predictor, tmp_path):
-    """Data-parallel serving (mesh=) raises, naming ROADMAP.md queue 1,
-    item 9; AOT export is ported: the artifact answers as the Predictor
+    """AOT export is ported: the artifact answers as the Predictor
     (tests/test_torch_port_export.py holds it to JAX's); ensemble serving
     is ported: a sweep dir of two copies of one checkpoint serves that
-    checkpoint's answers."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        Predictor(CFG, predictor.model, device="cpu", mesh=object())
+    checkpoint's answers.  (Data-parallel serving, mesh=, is
+    tests/test_torch_port_parallel.py's.)"""
     x = np.random.default_rng(5).normal(size=(5, 3, 16)).astype(np.float32)
     served = Predictor.from_exported(predictor.export(str(tmp_path / "a")),
                                      device="cpu")
@@ -286,12 +284,11 @@ _MODEL_FLAGS = ["--feature_dim", "16", "--fc_dim", "16",
                 "--test_segments", "3"]
 
 
-@pytest.mark.parametrize("flags", [["--export", "out"], ["--data_parallel"],
-                                   ["--sweep_best"], ["--quantize", "int8"]])
+@pytest.mark.parametrize("flags", [["--export", "out"], ["--sweep_best"],
+                                   ["--quantize", "int8"]])
 def test_cli_refuses_unported_flags(tmp_path, checkpoint, flags,
                                     monkeypatch):
-    """--data_parallel exits naming ROADMAP.md queue 1, item 9.  The
-    others are ported: --export writes an artifact and exits without
+    """Each flag is ported: --export writes an artifact and exits without
     serving; --quantize int8 serves the int8 Predictor of the checkpoint
     (at these widths only the TRN's 256-wide bottleneck reaches the int8
     gate: the relation heads' first layers and the video domain FC);
@@ -304,10 +301,6 @@ def test_cli_refuses_unported_flags(tmp_path, checkpoint, flags,
                             predictor=p))
     argv = [_class_file(tmp_path), checkpoint[0], *_MODEL_FLAGS, "--device",
             "cpu", "--top_k", "3", "--batch_size", "4"]
-    if flags == ["--data_parallel"]:
-        with pytest.raises(SystemExit, match="queue 1, item 9"):
-            cli_serve.main([*argv, *flags])
-        return
     if flags[0] == "--export":
         out = str(tmp_path / flags[1])
         cli_serve.main([*argv, "--export", out])

@@ -218,7 +218,6 @@ def test_train_cli_chunked_flags_run(workspace, flags):
 
 @pytest.mark.parametrize("flags,item", [
     (["--model_parallel", "2"], "item 9"),
-    (["--num_devices", "2"], "item 9"),
 ])
 def test_train_cli_unported_flags_raise(workspace, flags, item):
     with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):

@@ -316,7 +316,6 @@ def test_trainer_chunked_options_match_jax(workspace, kw, shuffle, epochs):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(model_parallel=2), "item 9"),
-    (dict(num_devices=2), "item 9"),
 ])
 def test_trainer_unported_options_raise(workspace, kw, item):
     cfg = (ModelConfig(**MODEL), DAConfig(**DA), TrainConfig(**TRAIN))
