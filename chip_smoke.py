@@ -148,6 +148,19 @@ gradient all-reduce; the Predictor over two replicas on the card (f32
 and int8, batch 64 and 1, and an artifact) against one device, and the
 eval CLI with --data_parallel; with more than one card, the train CLI
 with --num_devices over every card and the Predictor over them.
+The 2-D grids, two gloo processes on the one card: tensor parallelism on
+a (data 1 x model 2) grid, the flagship's first FC column-sharded so
+that K3 runs on its [256, 2048] slice, 10 device-store steps and 5 at
+bfloat16 compute from the bfloat16 store, each from the one-process
+step's state and held to it (the slices gathered whole), with the eval
+step, every rank launching K1 (train), K2 and K3, and the step, its
+forward all-gather and the clip's norm all-reduce timed; K3 alone on
+column slices of H = 256 and 128 (640 and 370 rows with x_res, 320
+without; float32 and bfloat16 compute) against its plain version and
+index_select + mm; and cli.sweep --sweep_mesh 2 --num_devices 2 (each
+rank two of the 4 members, the member K1, K2 and K3 at N = 2) in
+float32 and at bfloat16 from int8 stores, its rows and member
+checkpoints held to the one-process sweep CLI's.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -199,8 +212,12 @@ from ta3n_tpu_torch.models import layers
 from ta3n_tpu_torch.models.layers import torch_default_uniform_
 from ta3n_tpu_torch.ops import _build, gather_gemm, relation, trn_fused
 from ta3n_tpu_torch.ops.relation import build_relation_plan
-from ta3n_tpu_torch.parallel import Mesh, make_mesh, pad_to_multiple
+from ta3n_tpu_torch.parallel import (Mesh, make_mesh, make_mesh_2d,
+                                     pad_to_multiple)
 from ta3n_tpu_torch.parallel.distributed import initialize_multihost
+from ta3n_tpu_torch.parallel.mesh import gather_columns
+from ta3n_tpu_torch.parallel.tensor import (slice_optimizer_state,
+                                            slice_state_dict, whole_model)
 from ta3n_tpu_torch.prep import video2feature
 from ta3n_tpu_torch.serve import Predictor, make_http_server
 from ta3n_tpu_torch.train import (StepScalars, TrainState, make_eval_step,
@@ -5187,6 +5204,446 @@ def data_parallel_phase(stores, dev, root, workdir):
                       "allreduce_w2_gloo_ms": reduce2[0]}
 
 
+GRID_STEPS = 10                # f32 steps on the 1 x 2 grid, held
+GRID_BF16_STEPS = 5            # bf16-compute steps from the bf16 store
+GRID_TIMED = 10
+GRID_H = (256, 128)            # K3's column slice of fc 512 at M = 2, 4
+GRID_K3 = ((640, True), (370, True), (320, False))
+GRID_SWEEP_MEMBERS = 2         # each rank's members of the 4
+
+
+def grid_sync(state, ref_state):
+    """Every rank's state made rank 0's one-process state: its parameters
+    and momentum buffers (zero where the step made none: the same next
+    step) broadcast whole, each rank keeping its slices of the planned
+    weights."""
+    ref, opt = ref_state.model, ref_state.optimizer
+    for p in ref.parameters():
+        buf = opt.state[p].setdefault("momentum_buffer", torch.zeros_like(p))
+        dist.broadcast(p.data, 0)
+        dist.broadcast(buf, 0)
+    with torch.no_grad():
+        state.model.load_state_dict(slice_state_dict(ref.state_dict(),
+                                                     state.model))
+    state.optimizer.load_state_dict(copy.deepcopy(opt.state_dict()))
+    slice_optimizer_state(state.optimizer)
+
+
+def grid_launches(launched, keys):
+    """Every rank's launches of ``keys`` (this rank's ``launched``), by
+    rank."""
+    mine = torch.tensor([float(launched[k]) for k in keys], device="cuda")
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return [dict(zip(keys, (int(v) for v in t.tolist()))) for t in every]
+
+
+def grid_steps(mesh, stores, dev, primary, bf16=False):
+    """The flagship's device-store steps over the (data 1 x model 2) grid:
+    GRID_STEPS in float32 (GRID_BF16_STEPS at bfloat16 compute from the
+    bfloat16 store), each from rank 0's one-process state (grid_sync),
+    held on rank 0 to the one-process step (float32: metrics to STEP_RTOL,
+    the slices gathered whole to PARAM_TOL; bfloat16: BF16_STEP_RTOL and
+    each update to BF16_UPDATE_RTOL) but for the rows a relu mask flipped
+    at a rounding tie feeds; then, in float32, the eval step against the
+    one-process eval.  Then GRID_TIMED steps timed.  Returns (this rank's
+    launches of the held steps, ms a step, the one-process ms a step on
+    rank 0 or None)."""
+    fields = {"compute_dtype": "bfloat16"} if bf16 else {}
+    model = flagship_model(torch.Generator().manual_seed(DP_SEED), **fields)
+    ref = flagship_model(torch.Generator().manual_seed(DP_SEED), **fields)
+    state = TrainState(model, make_optimizer(model.parameters(), TRAIN), 0)
+    ref_state = TrainState(ref, make_optimizer(ref.parameters(), TRAIN), 0)
+    step = make_train_step(model, DA, TRAIN, gather_on_device=True,
+                           mesh=mesh)
+    ref_step = make_train_step(ref, DA, TRAIN, gather_on_device=True)
+    shape = tuple(model.fc_feature_shared_source.weight.shape)
+    if shape != (FLAGSHIP.fc_dim // mesh.model.size,
+                 FLAGSHIP.input_feature_dim):
+        raise AssertionError(f"the first FC's slice is {shape}")
+    if bf16:
+        dev = [s.to_device("cuda", "bfloat16") for s in stores[:2]]
+    batches = dp_batches(stores, dev)
+    n = GRID_BF16_STEPS if bf16 else GRID_STEPS
+    steps = [scalars(i, n, (-1.0, -1.0, -1.0)) for i in range(n)]
+    count = bf16_counts if bf16 else counts
+    (rec, hook), (ref_rec, ref_hook) = map(record_trn, (model, ref))
+    launches = dict.fromkeys(count(), 0)
+    worst_rel = worst = 0.0
+    ties = 0
+    for i, sc in enumerate(steps):
+        args = next(batches)
+        grid_sync(state, ref_state)
+        before = {k: v.clone() for k, v in named(ref).items()}
+        reset_counts()
+        state, got = step(state, *args, sc, None)
+        torch.cuda.synchronize()
+        launches = {k: launches[k] + v for k, v in count().items()}
+        whole = whole_model(state.model)
+        if not primary:
+            continue
+        ref_state, want = ref_step(ref_state, *args, sc, None)
+        got = {k: float(v) for k, v in got.items()}
+        want = {k: float(v) for k, v in want.items()}
+        worst_rel = max(worst_rel, check_metrics(
+            i, got, want, "the one-process step's",
+            *((BF16_STEP_RTOL, 1e-6) if bf16 else ())))
+        allowed, _ = tie_rows(rec, ref_rec,
+                              BF16_TIE_RTOL if bf16 else RTOL)
+        if bf16:
+            diff, rows = check_updates(i, whole, ref, before, allowed)
+        else:
+            diff, rows = check_params(i, whole, ref,
+                                      "the one-process step's", allowed)
+        worst, ties = max(worst, diff), ties + rows
+    hook.remove()
+    ref_hook.remove()
+    if primary:
+        log(f"    {n} held steps ({'bfloat16' if bf16 else 'float32'}): "
+            f"metrics within {worst_rel:.3e} relative, "
+            + (f"updates within {worst:.3e} of their largest"
+               if bf16 else f"parameters within {worst:.3e}")
+            + f" ({ties} rows let through at rounding ties); the first "
+            f"FC's slice {shape}; this rank launched {launches}")
+    if not bf16:
+        grid_eval(state, ref_state, mesh, stores, primary)
+    for _ in range(3):
+        state, _ = step(state, *next(batches), steps[-1], None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRID_TIMED):
+        state, _ = step(state, *next(batches), steps[-1], None)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / GRID_TIMED
+    ref_ms = None
+    if primary:
+        for _ in range(3):
+            ref_state, _ = ref_step(ref_state, *next(batches), steps[-1],
+                                    None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRID_TIMED):
+            ref_state, _ = ref_step(ref_state, *next(batches), steps[-1],
+                                    None)
+        torch.cuda.synchronize()
+        ref_ms = (time.perf_counter() - t0) * 1e3 / GRID_TIMED
+    return launches, ms, ref_ms
+
+
+def grid_eval(state, ref_state, mesh, stores, primary):
+    """The device-store eval step over the grid (K3 on the slice, its
+    output gathered) on a val batch of 64, from rank 0's one-process state,
+    against the one-process eval step: logits within RTOL of their
+    largest, the loss within STEP_RTOL."""
+    grid_sync(state, ref_state)
+    val = stores[2]
+    dev_val = val.to_device()
+    b = next(iter(TSNLoader(val, batch_size=TRAIN.batch_size[2],
+                            num_segments=5, seed=3).index_epoch()))
+    got = make_eval_step(state.model, gather_on_device=True, mesh=mesh)(
+        dev_val, b.abs_indices, b.labels, b.mask)
+    if not primary:
+        return
+    want = make_eval_step(ref_state.model, gather_on_device=True)(
+        dev_val, b.abs_indices, b.labels, b.mask)
+    err = (got["logits"] - want["logits"]).abs().max().item()
+    tol = RTOL * max(1.0, want["logits"].abs().max().item())
+    loss = (float(got["loss"]), float(want["loss"]))
+    log(f"    eval step over the grid, {len(b.labels)} videos: |logits - "
+        f"one process| = {err:.3e} (tolerance {tol:.3e}), loss "
+        f"{loss[0]:.6f} / {loss[1]:.6f}")
+    if not err <= tol or not math.isclose(*loss, rel_tol=STEP_RTOL):
+        raise AssertionError("the grid's eval step differs from one "
+                             "process's")
+
+
+def grid_collectives_ms(axis, reps=11):
+    """(ms, bytes) of the step's forward all-gather over the model group
+    (the first FC's output, 1010 frame rows of 256 columns a rank, 512
+    gathered) and the ms of the clip's norm all-reduce over it (4 bytes):
+    medians of ``reps``."""
+    rows = sum(TRAIN.batch_size[:2]) * FLAGSHIP.train_segments
+    z = torch.zeros((rows, FLAGSHIP.fc_dim // axis.size), device="cuda")
+    norm = torch.zeros(1, device="cuda")
+    times = {"gather": [], "reduce": []}
+    for _ in range(reps):
+        for name, fn in (("gather", lambda: gather_columns(z, axis)),
+                         ("reduce", lambda: dist.all_reduce(
+                             norm, group=axis.group))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return (statistics.median(times["gather"]), 4 * rows * FLAGSHIP.fc_dim,
+            statistics.median(times["reduce"]))
+
+
+@contextlib.contextmanager
+def member_widths():
+    """Record the member count N of every member-batched launch (K1
+    (train), K2, K3) while in the block: yields the set of (kernel, N)."""
+    seen = set()
+    patched = [(trn_fused, "trn_multiscale_fwd_masks_members", 0),
+               (trn_fused, "trn_multiscale_bwd_members", 0),
+               (gather_gemm, "gathered_gemm_members", 2)]
+    originals = [getattr(mod, name) for mod, name, _ in patched]
+
+    def wrap(fn, name, at):
+        def recording(*args, **kw):
+            seen.add((name, int(args[at].shape[0])))
+            return fn(*args, **kw)
+        return recording
+
+    for (mod, name, at), fn in zip(patched, originals):
+        setattr(mod, name, wrap(fn, name, at))
+    try:
+        yield seen
+    finally:
+        for (mod, name, _), fn in zip(patched, originals):
+            setattr(mod, name, fn)
+
+
+def grid_sweep_argv(root, out_dir, bf16):
+    """sweep_cli's command line (2 seeds x 2 lrs, 1 epoch) into
+    ``out_dir``."""
+    dtypes = (["--compute_dtype", "bfloat16", "--store_dtype", "int8"]
+              if bf16 else [])
+    return [os.path.join(root, "class.txt"), "RGB",
+            os.path.join(root, "src", "list.txt"),
+            os.path.join(root, "tgt", "list.txt"),
+            os.path.join(root, "val", "list.txt"),
+            "--exp_path", os.path.join(root, "sweep_exp") + "/",
+            *MODEL_FLAGS, *RECIPE_FLAGS, "--epochs", "1", "--sweep_seeds",
+            "0", "1", "--sweep_lrs", "0.03", "0.01", "--sweep_dir", out_dir,
+            *dtypes, "--sweep_mesh", "2", "--num_devices", "2"]
+
+
+def grid_sweep(root, workdir, bf16):
+    """cli.sweep --sweep_mesh 2 --num_devices 2 on this rank of the
+    group: its launches of the member kernels and the member counts they
+    launched at; (seconds, the directory) too."""
+    out_dir = os.path.join(workdir, "grid_sweep_bf16" if bf16 else
+                           "grid_sweep")
+    reset_counts()
+    t0 = time.perf_counter()
+    with member_widths() as widths:
+        run_cli(cli_sweep.main, grid_sweep_argv(root, out_dir, bf16))
+    torch.cuda.synchronize()
+    return member_counts(bf16), widths, time.perf_counter() - t0, out_dir
+
+
+def check_grid_sweep(grid_dir, one_dir, bf16):
+    """The member grid's sweep directory against the one-process sweep
+    CLI's: every member's row (top-1 equal) and checkpoint (PARAM_TOL)."""
+    with open(os.path.join(grid_dir, "sweep.json")) as f:
+        grid = json.load(f)
+    with open(os.path.join(one_dir, "sweep.json")) as f:
+        one = json.load(f)
+    if [(r["seed"], r["lr"], r["top1"]) for r in grid] != \
+            [(r["seed"], r["lr"], r["top1"]) for r in one]:
+        raise AssertionError(f"the grid sweep's rows {grid} differ from "
+                             f"one process's {one}")
+    worst = 0.0
+    for k in range(len(one)):
+        a, b = (torch.load(os.path.join(d, f"member_{k:02d}",
+                                        "checkpoint.pth.tar"),
+                           map_location="cpu", weights_only=False)
+                ["state_dict"] for d in (grid_dir, one_dir))
+        for name, want in b.items():
+            diff = (a[name] - want).abs()
+            if (diff > PARAM_TOL["rtol"] * want.abs()
+                    + PARAM_TOL["atol"]).any():
+                raise AssertionError(f"member {k}'s {name} differs from "
+                                     "the one-process sweep's")
+            worst = max(worst, diff.max().item())
+    log(f"    {'bfloat16 ' if bf16 else ''}sweep over the member grid: "
+        f"rows (seed, lr, top-1) equal to one process's "
+        f"{[(r['seed'], r['lr'], r['top1']) for r in one]}; member "
+        f"checkpoints within {worst:.3e}")
+
+
+def grid_world2(root, workdir, mesh, stores=None, dev=None):
+    """The two-rank grid work, on either rank (rank 0 with the smoke's
+    stores, whose one-process references it holds): the TP steps at both
+    dtypes, the collectives' times, then the member grid's sweeps.
+    Returns rank 0's (launches by dtype, times, sweeps) or None."""
+    if stores is None:
+        stores = [FeatureStore.load(os.path.join(root, n))
+                  for n in ("src", "tgt", "val")]
+        dev = [s.to_device() for s in stores[:2]]
+    primary = dist.get_rank() == 0
+    got32, ms32, ref32 = grid_steps(mesh, stores, dev, primary)
+    got16, ms16, ref16 = grid_steps(mesh, stores, dev, primary, bf16=True)
+    gather_ms, gather_bytes, reduce_ms = grid_collectives_ms(mesh.model)
+    every = (grid_launches(got32, list(got32)),
+             grid_launches(got16, list(got16)))
+    sweeps = {}
+    for bf16 in (False, True):
+        launched, widths, seconds, out_dir = grid_sweep(root, workdir, bf16)
+        sweeps[bf16] = (grid_launches(launched, list(launched)), widths,
+                        seconds, out_dir)
+        dist.barrier()
+    if not primary:
+        return None
+    for r, (g32, g16) in enumerate(zip(*every)):
+        log(f"    rank {r} launched {g32} (float32 steps), {g16} "
+            "(bfloat16 steps)")
+        if not (g32["trn_fused_fwd_train"] and g32["trn_fused_bwd"]
+                and g32["gather_gemm"] and g16["trn_fused_fwd_train_bf16"]
+                and g16["trn_fused_bwd_bf16"]
+                and g16["gather_gemm_bf16_bf16"]):
+            raise AssertionError(f"rank {r} did not launch K1 (train), K2 "
+                                 "and K3 at both dtypes")
+    times = {"tp_f32_ms": ms32, "one_f32_ms": ref32, "tp_bf16_ms": ms16,
+             "one_bf16_ms": ref16, "gather_ms": gather_ms,
+             "gather_bytes": gather_bytes, "norm_allreduce_ms": reduce_ms}
+    log(f"  1 x 2 grid ({card_line()}): flagship device-store step "
+        f"{ms32:.3f} ms (one process {ref32:.3f}), bfloat16 {ms16:.3f} "
+        f"(one process {ref16:.3f}); forward all-gather of the first FC's "
+        f"output {gather_bytes} bytes: {gather_ms:.3f} ms; the clip's "
+        f"norm all-reduce (4 bytes): {reduce_ms:.3f} ms; the flat "
+        "gradient all-reduce has no peer on a data axis of 1")
+    launches = {False: every[0][0], True: every[1][0]}
+    for bf16, (per_rank, widths, seconds, out_dir) in sweeps.items():
+        for r, got in enumerate(per_rank):
+            log(f"    sweep rank {r}: launched {got}")
+            if not all(got.values()):
+                raise AssertionError(f"sweep rank {r} did not launch the "
+                                     "member K1 (train), K2 and K3")
+        wanted = {(name, GRID_SWEEP_MEMBERS) for name, _ in widths}
+        if not widths or widths != wanted:
+            raise AssertionError(f"the sweep's member launches ran at "
+                                 f"{sorted(widths)}, not N = "
+                                 f"{GRID_SWEEP_MEMBERS}")
+        log(f"  cli.sweep --sweep_mesh 2 --num_devices 2"
+            f"{' (bfloat16, int8 stores)' if bf16 else ''}: {seconds:.1f} s;"
+            f" rank 0's member launches at N = {sorted(widths)}")
+        check_grid_sweep(out_dir, os.path.join(
+            root, "sweep_cli_bf16" if bf16 else "sweep_cli"), bf16)
+        sweeps[bf16] = per_rank[0]
+    return launches, times, sweeps
+
+
+def grid_peer(root, workdir, init):
+    """Rank 1 of the grid phase (``python3 -c``, started by grid_phase on
+    the same card)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    initialize_multihost(init, 2, 1, backend="gloo",
+                         timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    try:
+        grid_world2(root, workdir, make_mesh_2d(model_parallel=2))
+    finally:
+        dist.destroy_process_group()
+
+
+def grid_slice_kernels(store):
+    """K3 alone on the column slices of tensor parallelism (H = 256, 128)
+    at the train and eval row counts, from the float32 store at float32
+    and bfloat16 compute: each against its plain version (z within RTOL
+    or bf16_err, x_res bitwise) and timed against it and index_select +
+    mm at the same slice, medians of 41 in turns.  Returns {(compute, h,
+    n): (max error, times, work)}."""
+    rng = np.random.default_rng(8)
+    d = store.shape[1]
+    out = {}
+    for compute in ("f32", "bf16"):
+        for h in GRID_H:
+            w = (torch.from_numpy(rng.uniform(-1, 1, (h, d)).astype(
+                np.float32)) / math.sqrt(d)).cuda()
+            if compute == "bf16":
+                w = w.to(torch.bfloat16)
+            for n, with_rows in GRID_K3:
+                rows, scale = gather_case(n, store.shape[0], rng)
+                z, x_res = gather_gemm.gathered_gemm(store, rows, w, scale,
+                                                     with_rows)
+                want, want_x = gather_gemm.gathered_gemm_plain(
+                    store, rows.rows, w, scale)
+                torch.cuda.synchronize()
+                if compute == "f32":
+                    err = (z - want).abs().max().item()
+                    ok = err <= RTOL * max(1.0, want.abs().max().item())
+                else:
+                    err, ok = bf16_err(z, want)
+                if not ok or (with_rows and not torch.equal(x_res,
+                                                             want_x)):
+                    raise AssertionError(f"K3 on a slice H={h} ({compute}) "
+                                         f"disagrees with plain at N={n}")
+                lib_store = store.to(w.dtype) if compute == "bf16" else store
+                with torch.no_grad():
+                    t = time_pair({
+                        "kernel": lambda: gather_gemm.gathered_gemm(
+                            store, rows, w, scale, with_rows),
+                        "plain": lambda: gather_gemm.gathered_gemm_plain(
+                            store, rows.rows, w, scale),
+                        "library": lambda: torch.mm(
+                            lib_store.index_select(0, rows.rows), w.t())})
+                work = gather_work(rows, d, h, with_rows,
+                                   compute_size=2 if compute == "bf16"
+                                   else 4)
+                out[(compute, h, n)] = (err, t, work)
+                peak = PEAK_BF16 if compute == "bf16" else \
+                    PEAK_OPS["gather_gemm"]
+                least, by = bound(*work, peak)
+                log(f"  K3 slice H={h}, {compute} compute, N={n} "
+                    f"{'with' if with_rows else 'without'} x_res: "
+                    f"|kernel-plain| {err:.3e}; kernel {t['kernel']:.4f} "
+                    f"ms, plain {t['plain']:.4f}, index_select + mm "
+                    f"{t['library']:.4f}; bound {least:.4f} ms by {by}")
+    return out
+
+
+def grid_phase(stores, dev, root, workdir):
+    """The 2-D grids on the one card: K3 on column slices, then a (data 1
+    x model 2) grid and a (member 2 x data 1) grid as two gloo processes
+    (this one rank 0, a spawned one rank 1).  Returns (the float32 and
+    bfloat16 launches of the grid's paths, the slices' K3 results, the
+    times)."""
+    log("  K3 on the column slices of the first FC (tensor parallelism)")
+    slices = grid_slice_kernels(dev[0])
+    init = "file://" + os.path.join(workdir, "grid_init")
+    here = os.path.dirname(os.path.abspath(__file__))
+    peer_log = open(os.path.join(workdir, "grid_peer.log"), "w")
+    peer = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.grid_peer("
+         f"{root!r}, {workdir!r}, {init!r})"], cwd=here, stdout=peer_log,
+        stderr=subprocess.STDOUT, env={**os.environ, "PYTHONPATH": here})
+    try:
+        initialize_multihost(init, 2, 0, backend="gloo",
+                             timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+        try:
+            mesh = make_mesh_2d(model_parallel=2)
+            log(f"  tensor parallelism on {mesh}: {GRID_STEPS} float32 and "
+                f"{GRID_BF16_STEPS} bfloat16 device-store steps of "
+                f"{TRAIN.batch_size[0]} + {TRAIN.batch_size[1]} videos "
+                "held to the one-process step; then the member grid's "
+                "sweeps")
+            launches, times, sweeps = grid_world2(root, workdir, mesh,
+                                                  stores, dev)
+        finally:
+            dist.destroy_process_group()
+        code = peer.wait(timeout=DP_TIMEOUT)
+    finally:
+        if peer.poll() is None:
+            peer.kill()
+            peer.wait()
+        peer_log.close()
+    if code != 0:
+        with open(os.path.join(workdir, "grid_peer.log")) as f:
+            log(f.read()[-4000:])
+        raise AssertionError(f"rank 1 exited with {code}")
+    f32 = dict(launches[False])
+    for k, v in sweeps[False].items():
+        f32[k] += v
+    b16 = dict(launches[True])
+    b16["gather_gemm_int8_bf16"] += sweeps[True]["gather_gemm_bf16"]
+    for k in ("trn_fused_fwd_bf16", "trn_fused_fwd_train_bf16",
+              "trn_fused_bwd_bf16"):
+        b16[k] += sweeps[True][k]
+    return f32, b16, slices, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
@@ -5375,6 +5832,16 @@ def main() -> int:
             got, dp_times = data_parallel_phase(stores, dev, root, workdir)
         add(got)
         log(f"data parallelism: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log("the 2-D grids: K3 on column slices, tensor parallelism on a "
+            "(data 1 x model 2) grid and the sweep CLI over a (member 2 x "
+            "data 1) grid, two gloo processes on the card")
+        with tempfile.TemporaryDirectory() as workdir:
+            got32, got16, grid_k3, grid_times = grid_phase(stores, dev, root,
+                                                           workdir)
+        add(got32)
+        add16(got16)
+        log(f"the 2-D grids: {time.perf_counter() - t0:.1f} s")
         log(card_line())
 
     # the shapes each kernel runs at on its path: serving batch, train batch
@@ -5512,7 +5979,20 @@ def main() -> int:
         f"{100 * ens16_t['ensemble'][2]:.1f}%) against "
         f"{ens16_t['solo'][0]:.3f} ms (busy {ens16_t['solo'][1]:.3f}, idle "
         f"{100 * ens16_t['solo'][2]:.1f}%)")
-    log(json.dumps({"data_parallel": dp_times}))
+    # K3 on the column slices of tensor parallelism (H = 512 / M), beside
+    # the whole layer's rows: float32 compute in K3's entry, bfloat16 in
+    # the f32-store, bf16-compute variant's
+    by_name = {k["name"]: k for k in kernels}
+    for (compute, h, n), (err, t, work_k) in grid_k3.items():
+        entry = by_name["gather_gemm" if compute == "f32"
+                        else "gather_gemm_f32_bf16"]
+        peak = PEAK_BF16 if compute == "bf16" else PEAK_OPS["gather_gemm"]
+        key = f"h{h}_n{n}"
+        entry.update({f"{key}_ms": t["kernel"], f"{key}_plain_ms": t["plain"],
+                      f"{key}_library_ms": t["library"],
+                      f"{key}_bound_ms": bound(*work_k, peak)[0],
+                      f"{key}_max_abs_err": err})
+    log(json.dumps({"data_parallel": dp_times, "grid": grid_times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -191,11 +191,12 @@ def build_parser() -> argparse.ArgumentParser:
                              'the CPU and the card, distribution-equal to '
                              'the host sampler)')
     parser.add_argument('--model_parallel', type=int, default=1,
-                        help='tensor parallelism degree: devices form a '
-                             '(data x model) mesh; large dense kernels '
+                        help='tensor parallelism degree: the ranks form a '
+                             '(data x model) grid; large dense weights '
                              'are column-sharded over the model axis '
-                             '(XLA inserts the collectives). 1 = pure '
-                             'data parallelism')
+                             '(their outputs all-gathered in the '
+                             'forward). 1 = pure data parallelism; '
+                             'ignored on one process')
     parser.add_argument('--accum_steps', type=int, default=1,
                         help='gradient accumulation: average gradients '
                              'over this many consecutive micro-batch '

@@ -25,8 +25,10 @@ process, and ``--num_devices N`` starts N processes in a gloo group.  Rank
 stopping the others.  Under ``torchrun`` (``WORLD_SIZE`` set), on one
 machine or several, the process joins that group instead and trains as
 its rank (the multi-host path): run the same command on every machine.
-``--model_parallel`` above 1 (the 2-D grids) raises, naming ROADMAP.md
-queue 1, item 9.
+``--model_parallel M`` makes the group's ranks a (data x model) grid,
+tensor parallelism (`train/loop.py`): ``--num_devices 4 --model_parallel
+2`` is 2 data rows of 2 model ranks.  On one process it is ignored with
+a warning, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from ta3n_tpu_torch.data import load_class_names
 from ta3n_tpu_torch.io_utils.logs import LogFiles
 from ta3n_tpu_torch.parallel.distributed import (default_backend,
                                                  initialize_multihost)
-from ta3n_tpu_torch.train.loop import (Trainer, _unported, build_loaders,
+from ta3n_tpu_torch.train.loop import (Trainer, build_loaders,
                                        class_weights_from_list)
 
 # seconds the launcher gives the other workers to stop after one failed
@@ -59,8 +61,6 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is "
                          "available (pass --device cpu to train on the CPU)")
-    if args.model_parallel > 1:
-        raise _unported("--model_parallel > 1 (the 2-D grids)", "9")
     if int(os.environ.get("WORLD_SIZE", 1)) > 1:
         # torchrun (one machine or several): join its group
         world = int(os.environ["WORLD_SIZE"])
@@ -80,8 +80,14 @@ def main(argv=None):
             raise SystemExit(f"--num_devices {world}: "
                              f"{torch.cuda.device_count()} cards visible")
         return _launch(sys.argv[1:] if argv is None else list(argv),
-                       world, device)
+                       world, device, run_argv)
     return _run(args, device)
+
+
+def run_argv(argv):
+    """The run of one rank from its command line (``_launch``'s entry)."""
+    args = build_parser().parse_args(argv)
+    return _run(args, torch.device(args.device))
 
 
 def _free_port() -> int:
@@ -91,24 +97,25 @@ def _free_port() -> int:
 
 
 def _worker(rank: int, world: int, address: str, argv, device_type: str,
-            results) -> None:
+            results, entry) -> None:
     """One rank of ``_launch``: its card (under NCCL), the group, the
-    run; rank 0 puts the run's result on ``results``."""
+    run ``entry(argv)``; rank 0 puts the run's result on ``results``."""
     os.environ["LOCAL_RANK"] = str(rank)
     initialize_multihost(address, world, rank,
                          backend=default_backend(device_type))
     try:
-        args = build_parser().parse_args(argv)
-        best = _run(args, torch.device(args.device))
+        best = entry(argv)
         if rank == 0:
             results.put(best)
     finally:
         dist.destroy_process_group()
 
 
-def _launch(argv, world: int, device: torch.device):
+def _launch(argv, world: int, device: torch.device, entry):
     """``world`` worker processes of this command line, one a card (or,
-    on the CPU, gloo processes), spawned; the result of rank 0.  A failed
+    on the CPU, gloo processes), spawned, each running ``entry(argv)`` (a
+    module-level function: the spawn pickles it by name); the result of
+    rank 0.  A failed
     worker stops the others (SIGTERM, then SIGKILL after a grace period)
     and the CLI exits non-zero; a SIGTERM to the launcher goes on to every
     worker, which then stop together with rank 0's emergency
@@ -118,7 +125,7 @@ def _launch(argv, world: int, device: torch.device):
     address = f"tcp://127.0.0.1:{_free_port()}"
     procs = [ctx.Process(target=_worker,
                          args=(rank, world, address, argv, device.type,
-                               results), daemon=False)
+                               results, entry), daemon=False)
              for rank in range(world)]
     for p in procs:
         p.start()

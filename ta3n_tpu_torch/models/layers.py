@@ -34,7 +34,7 @@ from torch.nn import functional as F
 
 from ta3n_tpu_torch.losses.losses import entropy_from_logits
 from ta3n_tpu_torch.parallel.mesh import active as mesh_active
-from ta3n_tpu_torch.parallel.mesh import shard_sum
+from ta3n_tpu_torch.parallel.mesh import column_parallel, shard_sum
 
 __all__ = ["Linear", "linear", "normal_001_", "torch_default_uniform_",
            "trans_attn_weights", "GeneralAttn", "MaskedBatchNorm", "TCL",
@@ -221,22 +221,41 @@ class Linear(nn.Linear):
     (`ta3n_tpu/models/layers.py:134-161`): when both dims reach
     `QUANT_MIN_DIM`, ``int8_matmul(x, weight) + bias`` in float32, then
     cast to ``compute_dtype`` if one is set; below that, the float
-    arithmetic above."""
+    arithmetic above.
+
+    ``tp`` (`parallel/tensor.py`, a model axis of M ranks): the weight is
+    this rank's slice of rows [out / M, in] (``out_features`` stays the
+    whole layer's) and the layer is column-parallel
+    (`parallel/mesh.py::column_parallel`): the same arithmetic on the
+    slice, the slices' outputs gathered, then the whole bias added."""
 
     compute_dtype: Optional[torch.dtype] = None
     quantize: str = "none"
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quantize == "int8" and min(
                 self.in_features, self.out_features) >= QUANT_MIN_DIM:
-            y = int8_matmul(x, self.weight) + self.bias.float()
+            y = self._product(x, lambda v: int8_matmul(v, self.weight))
+            y = y + self.bias.float()
             return y if self.compute_dtype is None else y.to(
                 self.compute_dtype)
         dt = self.compute_dtype or torch.promote_types(x.dtype,
                                                        self.weight.dtype)
+        if self.tp is not None:
+            return self._product(
+                x.to(dt), lambda v: v @ self.weight.to(dt).T) \
+                + self.bias.to(dt)
         if dt == self.weight.dtype:
             return F.linear(x.to(dt), self.weight, self.bias)
         return x.to(dt) @ self.weight.to(dt).T + self.bias.to(dt)
+
+    def _product(self, x: torch.Tensor, product) -> torch.Tensor:
+        """``product(x)``, over the model axis when the layer is
+        column-parallel."""
+        if self.tp is None:
+            return product(x)
+        return column_parallel(x, product, self.tp)
 
 
 def linear(in_features: int, out_features: int, init: str,

@@ -112,10 +112,13 @@ class MemberGenerators(NamedTuple):
     generators: Sequence[torch.Generator]
     member: torch.Tensor
 
-    def keep(self, x: torch.Tensor, p: float) -> torch.Tensor:
-        """Member-batched keep mask for x (x's shape per member)."""
+    def keep(self, x: torch.Tensor, p: float,
+             shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Member-batched keep mask for x, of x's shape per member or of
+        ``shape`` (a data mesh's global batch)."""
+        shape = x.shape if shape is None else shape
         masks = torch.stack([
-            torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            torch.empty(shape, dtype=x.dtype, device=x.device)
             .bernoulli_(1.0 - p, generator=g) for g in self.generators])
         return masks.index_select(0, self.member.reshape(1))[0]
 
@@ -135,14 +138,18 @@ def _dropout(x: torch.Tensor, p: float, training: bool, generator,
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator on "
                          f"{x.device} (the train step passes one)")
-    if isinstance(generator, MemberGenerators):
-        keep = generator.keep(x, p)
-    elif shard is not None:
+    if shard is not None:
         mesh, bs, bt, per = shard
-        keep = torch.empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]),
-                           dtype=x.dtype, device=x.device).bernoulli_(
-                               1.0 - p, generator=generator)
+        shape = (mesh.size * x.shape[0],) + tuple(x.shape[1:])
+        if isinstance(generator, MemberGenerators):
+            keep = generator.keep(x, p, shape)
+        else:
+            keep = torch.empty(shape, dtype=x.dtype,
+                               device=x.device).bernoulli_(
+                                   1.0 - p, generator=generator)
         keep = own_two_stream_rows(keep, bs, bt, per, mesh)
+    elif isinstance(generator, MemberGenerators):
+        keep = generator.keep(x, p)
     else:
         keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
     return x * keep / (1.0 - p)

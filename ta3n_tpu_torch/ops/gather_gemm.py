@@ -81,7 +81,8 @@ from ta3n_tpu_torch.ops.trn_fused import (_acc, _call, _check_tensor,
 
 __all__ = ["RowIndex", "row_index", "upload", "gathered_gemm_plain",
            "gathered_gemm", "gathered_gemm_members",
-           "gathered_linear", "bf16_grid", "launches", "variant_launches"]
+           "gathered_linear", "part_rows", "bf16_grid", "launches",
+           "variant_launches"]
 
 # kernel launches made by gathered_gemm and gathered_linear (plain-version
 # calls are not counted); callers reset them to count one run's launches:
@@ -513,7 +514,8 @@ class _GatheredLinear(torch.autograd.Function):
                          z[start:end], x_res[start:end])
             start = end
         for (a, b), bias in zip(runs, biases):
-            z[a:b].add_(bias)  # in z's dtype, as flax Dense adds it
+            if bias is not None:
+                z[a:b].add_(bias)  # in z's dtype, as flax Dense adds it
         return z, x_res
 
     @staticmethod
@@ -521,7 +523,7 @@ class _GatheredLinear(torch.autograd.Function):
         parts, part_weight, *weights_and_biases = inputs
         x_res = output[1]
         ctx.mark_non_differentiable(x_res)
-        ctx.runs = _runs([_part_rows(part, weights_and_biases[w])
+        ctx.runs = _runs([part_rows(part, weights_and_biases[w])
                           for part, w in zip(parts, part_weight)],
                          part_weight, len(weights_and_biases) // 2)
         ctx.save_for_backward(x_res)
@@ -560,7 +562,7 @@ class _GatheredLinear(torch.autograd.Function):
         return (z, x_res), (0, 0 if per_member else None)
 
 
-def _part_rows(part, weight: torch.Tensor) -> int:
+def part_rows(part, weight: torch.Tensor) -> int:
     """The output rows M of a (store, idx, row_scale) part with
     ``weight``, from the shapes alone."""
     store, idx, _ = part
@@ -600,7 +602,7 @@ def gathered_linear(parts: Sequence[tuple], weight, bias) -> torch.Tensor:
     consecutive.  One K3 launch per non-empty part on CUDA stores; the
     plain version on CPU stores.  Gradients flow to the weights and biases
     only: each gets ``dzᵀ x_res`` (and ``dz.sum(0)``) over its own parts'
-    rows."""
+    rows.  A bias of None adds nothing and gets no gradient."""
     parts = tuple(parts)
     if isinstance(weight, torch.Tensor):
         weight, bias = [weight] * len(parts), [bias] * len(parts)

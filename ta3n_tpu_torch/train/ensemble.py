@@ -32,9 +32,20 @@ Axes of variation per member, as in the JAX package:
 At either compute dtype: under ``compute_dtype="bfloat16"`` each member
 casts its float32 parameters to bfloat16 where the solo model does, the
 bfloat16 kernels launch once for all members, and the optimizer updates
-the float32 parameters, as a solo bfloat16 step does.  ``mesh=`` raises:
-the multi-card member axis is ROADMAP.md queue 1, item 9 (the 2-D
-grids; the 1-D data grid of solo steps is `parallel/mesh.py`).
+the float32 parameters, as a solo bfloat16 step does.
+
+Over several cards (``mesh=``, the JAX package's ``_sharding_rules``):
+a (member x data) grid (``make_ensemble_mesh``) gives each of its S
+member shards, a row of ranks, N / S of the members, and each rank of a
+shard its rows of the global batch, as a solo step's 1-D data grid does
+(`parallel/mesh.py`):
+the outputs and BN sums are gathered over the shard's data group and
+the members' gradients summed over it in one all-reduce; members never
+communicate.  A 1-D mesh shards the members alone over its ranks, with
+no collective at all.  The steps take the state of this rank's members
+(``member_rows``) and every per-member argument (scalars, generators,
+per-member batches) for those members only; the batches' rows are the
+global batch's, and the metrics this rank's members'.
 """
 
 from __future__ import annotations
@@ -52,6 +63,9 @@ from ta3n_tpu_torch.models.layers import bf16_f32_reduction, no_cudnn_tf32
 from ta3n_tpu_torch.models.video_model import MemberGenerators, VideoModel
 from ta3n_tpu_torch.ops.gather_gemm import (RowIndex, gathered_linear,
                                             row_index, upload)
+from ta3n_tpu_torch.parallel.mesh import (Axis, active, all_gather_rows,
+                                          all_reduce_tensors, lift_to_global,
+                                          process_grid)
 from ta3n_tpu_torch.train.optim import (member_optimizer_state,
                                         member_optimizer_step,
                                         member_solo_optimizer)
@@ -64,10 +78,7 @@ from ta3n_tpu_torch.train.step import (_EVAL_BETA, StepScalars, TrainState,
 __all__ = ["EnsembleState", "ensemble_generators", "create_ensemble_state",
            "stack_scalars", "extract_member", "make_ensemble_step",
            "make_ensemble_multi_step", "make_ensemble_eval_step",
-           "make_ensemble_mesh", "reached_parameters"]
-
-_MULTI_CARD = ("the multi-card member axis is not ported yet (ROADMAP.md "
-               "queue 1, item 9: the 2-D grids, member x data)")
+           "make_ensemble_mesh", "member_rows", "reached_parameters"]
 
 
 class EnsembleState(NamedTuple):
@@ -89,14 +100,61 @@ class EnsembleState(NamedTuple):
         return next(iter(self.params.values())).shape[0]
 
 
-def _refuse(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"mesh=: {_MULTI_CARD}")
-
-
 def make_ensemble_mesh(member_shards: int, devices=None):
-    """The JAX package's (member x data) mesh: not ported (one card)."""
-    raise NotImplementedError(f"make_ensemble_mesh: {_MULTI_CARD}")
+    """The (member x data) grid of the initialised process group's ranks
+    (`ta3n_tpu/train/ensemble.py:92-106`): ``member_shards`` shards of the
+    members, each over W / member_shards ranks that split its batch,
+    rank r at (r // (W / member_shards), r % (W / member_shards)).
+    ``devices`` names this rank's device (default: its current one)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError("make_ensemble_mesh: the grid is one process a "
+                         "device; initialise the process group first "
+                         "(parallel/distributed.py::initialize_multihost)")
+    world = dist.get_world_size()
+    if world % member_shards:
+        raise ValueError(f"{world} devices not divisible by "
+                         f"member_shards={member_shards}")
+    return process_grid((member_shards, world // member_shards),
+                        ("member", "data"), devices)
+
+
+def _member_grid(mesh):
+    """(the member axis, the data mesh or None) of an ensemble step's
+    ``mesh``: a (member x data) grid's two axes; a 1-D mesh's ranks as
+    the member axis, without a data axis (the JAX package's 1-D rule)."""
+    if mesh is None:
+        return Axis(), None
+    if "member" in mesh.axis_names:
+        return mesh.member, (mesh if active(mesh) else None)
+    if mesh.group is None and mesh.size > 1:
+        raise ValueError("the ensemble steps take a process group's grid "
+                         "(make_ensemble_mesh or make_mesh under a group), "
+                         "not a single process's devices")
+    if mesh.model.size > 1:
+        raise ValueError("the ensemble steps take a (member x data) grid "
+                         "or a 1-D mesh, not a model axis")
+    return Axis(mesh.size, mesh.rank, mesh.group), None
+
+
+def member_rows(mesh, n: int) -> slice:
+    """The members of N = ``n`` that this rank's shard of ``mesh``'s
+    member axis holds (all of them without a mesh)."""
+    axis, _ = _member_grid(mesh)
+    if n % axis.size:
+        raise ValueError(f"{n} members do not divide over {axis.size} "
+                         "member shards: pad them (train/sweep.py::"
+                         "pad_members)")
+    per = n // axis.size
+    return slice(axis.rank * per, (axis.rank + 1) * per)
+
+
+def _own(a, data, dim: int):
+    """This rank's rows of ``a`` (numpy or a tensor) along ``dim``: the
+    batch's axis, after any member and step axes."""
+    if data is None:
+        return a
+    return a[(slice(None),) * dim + (data.rows(a.shape[dim]),)]
 
 
 def ensemble_generators(seeds: Sequence[int],
@@ -186,7 +244,7 @@ class _MemberLoss(nn.Module):
     """One member's first shared FC, forwards and losses, as ``forward``
     of a module holding the template model (``functional_call`` calls only
     ``forward``): from host features ``(xs, xt)`` or from store parts
-    ``(part_s, part_t)``."""
+    ``(part_s, part_t)``: this rank's rows over a data mesh."""
 
     def __init__(self, net: VideoModel, loss_fn, gather: bool):
         super().__init__()
@@ -250,10 +308,13 @@ def make_ensemble_step(model: VideoModel, da: DAConfig,
     The step updates the stacked parameters, buffers and optimizer state
     in place and returns the state with ``step + 1``.  The returned step
     carries ``parts_step`` (store parts already on the device) and
-    ``reached`` (`reached_parameters`)."""
-    _refuse(mesh)
+    ``reached`` (`reached_parameters`).
+
+    ``mesh``: see the module docstring; ``state`` then holds this rank's
+    members, and the per-member arguments are theirs."""
+    _, data = _member_grid(mesh)
     loss_fn = make_train_step(model, da, train_cfg, class_weights,
-                              domain_weights).loss_fn
+                              domain_weights, mesh=data).loss_fn
     reached = reached_parameters(model, da, train_cfg, class_weights,
                                  domain_weights)
     wrapper = _MemberLoss(model, loss_fn, gather_on_device)
@@ -274,7 +335,7 @@ def make_ensemble_step(model: VideoModel, da: DAConfig,
     # the batched leaves of per-member store parts: the indices and scales
     part_dims = (None, RowIndex(0, None), 0)
 
-    def run(state: EnsembleState, data, ys, mask_s, yt, mask_t,
+    def run(state: EnsembleState, feed, ys, mask_s, yt, mask_t,
             scalars: StepScalars, generators):
         n = state.members
         if len(generators) != n:
@@ -292,16 +353,21 @@ def make_ensemble_step(model: VideoModel, da: DAConfig,
         # forwards under a transform
         with bf16_f32_reduction(), no_cudnn_tf32():
             grads, metrics = vstep(params, buffers,
-                                   torch.arange(n, device=device), data,
+                                   torch.arange(n, device=device), feed,
                                    ys, mask_s, yt, mask_t, forward_sc,
                                    tuple(generators))
+            if data is not None:
+                all_reduce_tensors(list(grads.values()), data.group)
             member_optimizer_step(
                 state.params, {k[4:]: g for k, g in grads.items()},
                 state.opt, lr, train_cfg, reached)
         return state._replace(step=state.step + 1), metrics
 
+    row_dim = 0 if d is None else 1
+
     def step(state, xs, ys, mask_s, xt, yt, mask_t, scalars, generators):
-        return run(state, (_as(xs, device, f32), _as(xt, device, f32)),
+        return run(state, (_as(_own(xs, data, row_dim), device, f32),
+                           _as(_own(xt, data, row_dim), device, f32)),
                    _as(ys, device, i64), _as(mask_s, device, f32),
                    _as(yt, device, i64), _as(mask_t, device, f32), scalars,
                    generators)
@@ -309,17 +375,21 @@ def make_ensemble_step(model: VideoModel, da: DAConfig,
     def parts_step(state, part_s, ys, mask_s, part_t, yt, mask_t, scalars,
                    generators):
         """The device-store step from store parts whose indices, labels
-        and masks are on the device already."""
+        and masks are on the device already (the parts of this rank's rows
+        over a data mesh, the labels and masks the global batch's)."""
         return run(state, (part_s, part_t), ys, mask_s, yt, mask_t, scalars,
                    generators)
 
     def gather_step(state, store_s, idx_s, ys, mask_s, store_t, idx_t, yt,
                     mask_t, scalars, generators):
         mask_s, mask_t = _as(mask_s, device, f32), _as(mask_t, device, f32)
-        return parts_step(state, _member_part(store_s, idx_s, mask_s, d),
-                          _as(ys, device, i64), mask_s,
-                          _member_part(store_t, idx_t, mask_t, d),
-                          _as(yt, device, i64), mask_t, scalars, generators)
+        return parts_step(
+            state, _member_part(store_s, _own(idx_s, data, row_dim),
+                                _own(mask_s, data, row_dim), d),
+            _as(ys, device, i64), mask_s,
+            _member_part(store_t, _own(idx_t, data, row_dim),
+                         _own(mask_t, data, row_dim), d),
+            _as(yt, device, i64), mask_t, scalars, generators)
 
     built = gather_step if gather_on_device else step
     built.parts_step = parts_step
@@ -357,12 +427,14 @@ def make_ensemble_multi_step(model: VideoModel, da: DAConfig,
     per member (idx [K, N, B, T], scalars' fields [K, N], beta [K, N, 3]);
     shared scalars are a `StepScalars` of K-long sequences.  The stacked
     indices are checked and uploaded once for the call, labels and masks
-    likewise; the K steps are bitwise K single steps."""
-    _refuse(mesh)
+    likewise; the K steps are bitwise K single steps.  ``mesh`` as for
+    ``make_ensemble_step``."""
+    _, data = _member_grid(mesh)
     parts_step = make_ensemble_step(
         model, da, train_cfg, class_weights, domain_weights,
         gather_on_device=True, per_member_data=per_member_data,
-        per_member_scalars=per_member_scalars).parts_step
+        per_member_scalars=per_member_scalars, mesh=mesh).parts_step
+    row_dim = 2 if per_member_data else 1
     device = next(model.parameters()).device
 
     def per_step(scalars, k):
@@ -377,18 +449,20 @@ def make_ensemble_multi_step(model: VideoModel, da: DAConfig,
         for store, idx, y, mask in ((store_s, idx_s, ys, mask_s),
                                     (store_t, idx_t, yt, mask_t)):
             mask = upload(mask, torch.float32, device)
+            own = _own(mask, data, row_dim)
+            idx = _own(np.asarray(idx), data, row_dim)
             if per_member_data:
                 # [K, N, B, T]: each step's [N, B*T] indices and scales
                 idx = np.asarray(idx)
                 rows = _store_rows(store)
                 checked = row_index(idx, rows.shape[0], rows.device)
-                scale = mask.repeat_interleave(idx.shape[-1], dim=-1)
+                scale = own.repeat_interleave(idx.shape[-1], dim=-1)
                 parts = [(store, RowIndex(r.reshape(idx.shape[1], -1),
                                           checked.end), s)
                          for r, s in zip(checked.rows.reshape(
                              idx.shape[0], -1), scale)]
             else:
-                parts = _stacked_parts(store, idx, mask)
+                parts = _stacked_parts(store, idx, own)
             streams.append((parts, upload(y, torch.long, device), mask))
         (parts_s, ys, mask_s), (parts_t, yt, mask_t) = streams
         steps = per_step(scalars, len(parts_s))
@@ -409,24 +483,30 @@ def make_ensemble_multi_step(model: VideoModel, da: DAConfig,
 
 class _MemberEval(nn.Module):
     """One member's eval forward and metrics as ``forward`` of a module
-    holding the template model: from features x, or from a store part."""
+    holding the template model: from features x, or from a store part,
+    of this rank's rows over a data mesh (their logits and features then
+    gathered)."""
 
-    def __init__(self, net: VideoModel, class_weights, gather: bool):
+    def __init__(self, net: VideoModel, class_weights, gather: bool,
+                 mesh):
         super().__init__()
         self.net = net
         self.class_weights = class_weights
         self.gather = gather
+        self.mesh = mesh
 
     def forward(self, data, y, mask):
         if self.gather:
-            out = _eval_gathered(self.net, data, mask.shape[0])
+            ranks = 1 if self.mesh is None else self.mesh.size
+            out = _eval_gathered(self.net, data, mask.shape[0] // ranks)
         else:
             _, out = self.net(data[:0], data, _EVAL_BETA, 0.0, False, False)
-        logits, loss, top1, top5, n = _eval_metrics(out.out, y, mask,
+        logits, feat = all_gather_rows(
+            (out.out, out.feat[min(1, len(out.feat) - 1)]), self.mesh)
+        logits, loss, top1, top5, n = _eval_metrics(logits, y, mask,
                                                     self.class_weights)
         return {"loss": loss.float(), "top1": top1, "top5": top5, "n": n,
-                "logits": logits,
-                "feat": out.feat[min(1, len(out.feat) - 1)]}
+                "logits": logits, "feat": feat}
 
 
 def make_ensemble_eval_step(model: VideoModel, class_weights=None, *,
@@ -435,12 +515,14 @@ def make_ensemble_eval_step(model: VideoModel, class_weights=None, *,
     (infer) and, from a store, K3 launched once for all members):
       ev(state, x, y, mask) or, with ``gather_on_device``,
       ev(state, store, idx [B, T], y, mask) -> metrics with a leading
-      member axis [N, ...] (those of ``make_eval_step``)."""
-    _refuse(mesh)
+      member axis [N, ...] (those of ``make_eval_step``).  ``mesh`` as
+    for ``make_ensemble_step``: this rank's members, each rank of a shard
+    running its rows of the batch."""
+    _, data = _member_grid(mesh)
     device = next(model.parameters()).device
     if class_weights is not None:
         class_weights = _as(class_weights, device, torch.float32)
-    wrapper = _MemberEval(model, class_weights, gather_on_device)
+    wrapper = _MemberEval(model, class_weights, gather_on_device, data)
 
     def member_eval(params, buffers, data, y, mask):
         return functional_call(wrapper, {**params, **buffers},
@@ -452,7 +534,8 @@ def make_ensemble_eval_step(model: VideoModel, class_weights=None, *,
     @bf16_f32_reduction()
     def ev(state, x, y, mask):
         params, buffers = _prefixed(state)
-        return veval(params, buffers, _as(x, device, torch.float32),
+        return veval(params, buffers,
+                     _as(lift_to_global(x, data), device, torch.float32),
                      _as(y, device, torch.long),
                      _as(mask, device, torch.float32))
 
@@ -461,7 +544,9 @@ def make_ensemble_eval_step(model: VideoModel, class_weights=None, *,
     def ev_gather(state, store, idx, y, mask):
         mask = _as(mask, device, torch.float32)
         params, buffers = _prefixed(state)
-        return veval(params, buffers, _member_part(store, idx, mask, None),
+        return veval(params, buffers,
+                     _member_part(store, lift_to_global(idx, data),
+                                  lift_to_global(mask, data), None),
                      _as(y, device, torch.long), mask)
 
     return ev_gather if gather_on_device else ev

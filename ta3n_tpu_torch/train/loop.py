@@ -39,9 +39,18 @@ same metrics.  Rank 0 alone prints and writes the logs, checkpoints, the
 restores the same checkpoint on resume.  A SIGTERM on any rank stops
 every rank at the next metric flush (the ranks agree on it there), with
 rank 0's emergency checkpoint; a rank whose peer has left fails at the
-process group's timeout rather than wait forever.  The 2-D grids
-(``model_parallel > 1``) raise ``NotImplementedError`` naming ROADMAP.md
-queue 1, item 9.
+process group's timeout rather than wait forever.
+
+``model_parallel`` M > 1 (tensor parallelism, as the JAX Trainer's): the
+group's W ranks form a (W / M data x M model) grid (`parallel/mesh.py::
+make_mesh_2d`), the loaders are padded to a multiple of the data axis,
+and the planned Linears are column-sharded over the model axis
+(`train/step.py::tp_plan`, `parallel/tensor.py`).  Checkpoints stay
+whole: every rank of rank 0's model group gathers its weight slices and
+their optimizer state, and rank 0 writes them; a resume cuts them to the
+rank's slices, so a checkpoint moves between grids of any M, the 1-D
+grid and one card.  Without a group of at least two ranks M is ignored
+with a warning, as the JAX Trainer does.
 """
 
 from __future__ import annotations
@@ -72,7 +81,11 @@ from ta3n_tpu_torch.io_utils.convert import (export_reference_state,
                                              live_state)
 from ta3n_tpu_torch.io_utils.logs import AverageMeter, LogFiles
 from ta3n_tpu_torch.io_utils.tensorboard import EmbeddingWriter
-from ta3n_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple
+from ta3n_tpu_torch.parallel.mesh import make_mesh_2d, pad_to_multiple
+from ta3n_tpu_torch.parallel.tensor import (slice_optimizer_state,
+                                            slice_state_dict,
+                                            whole_model,
+                                            whole_optimizer_state)
 from ta3n_tpu_torch.train.schedules import (alpha_schedule, dann_lr,
                                             effective_beta, loss_plateau_lr,
                                             progress, step_decay_lr)
@@ -92,16 +105,16 @@ _METRICS = ("loss", "loss_c", "loss_d", "loss_a", "loss_e", "loss_s",
             "top1", "top5", "n")
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"queue 1, item {item})")
-
-
 class TrainingDivergedError(RuntimeError):
     """Raised by the Trainer's nan_guard when a training loss is
     non-finite at the metric flush (a host sync the loop makes anyway);
     fit() writes an emergency checkpoint before the exception propagates.
     The reference trains on through NaN (main.py:569)."""
+
+
+class _AgreedStop(KeyboardInterrupt):
+    """The stop that every rank raises at once, at the metric flush where
+    the ranks agree that one was asked to stop (``Trainer._agree_stop``)."""
 
 
 @contextlib.contextmanager
@@ -209,7 +222,9 @@ class Trainer:
     (`parallel/distributed.py`) the Trainer trains over every rank of it;
     ``num_devices`` must then be None or the group's size, and above 1
     it needs the group (the train CLI starts one process a card).
-    Without the JAX Trainer's ``prefetch_depth``: no prefetch thread."""
+    ``model_parallel`` above 1 makes the group a (data x model) grid (see
+    the module docstring).  Without the JAX Trainer's ``prefetch_depth``:
+    no prefetch thread."""
 
     def __init__(self, model_cfg: ModelConfig, da_cfg: DAConfig,
                  train_cfg: TrainConfig, source_loader: TSNLoader,
@@ -233,8 +248,6 @@ class Trainer:
                  nan_guard: bool = True,
                  use_mesh: bool = True,
                  device="cuda"):
-        if model_parallel > 1:
-            raise _unported("model_parallel > 1 (the 2-D grids)", "9")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; the Trainer "
@@ -242,7 +255,7 @@ class Trainer:
                                "device='cpu' for the CPU)")
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.mesh = self._make_mesh(num_devices, use_mesh)
+        self.mesh = self._make_mesh(num_devices, use_mesh, model_parallel)
         self.primary = self.mesh is None or self.mesh.is_primary
         if self.mesh is not None:
             # batch divisibility by the ranks via masked padding (the
@@ -279,7 +292,7 @@ class Trainer:
         tb_on = self.tb.active
         if self.mesh is not None:
             flag = torch.tensor([float(tb_on)], device=self.device)
-            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.mesh.group)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
             tb_on = flag.item() > 0
         # per-step attention values or video-level features to fetch
         self._need_aux = save_attention >= 0 or tb_on
@@ -312,6 +325,9 @@ class Trainer:
             model, da_cfg, train_cfg, class_weights, domain_weights,
             gather_on_device=device_store, return_aux=self._need_aux,
             mesh=mesh)
+        # the step has cut the planned weights to this rank's slices (a
+        # model grid): so is, once, Adam's state made with the optimizer
+        slice_optimizer_state(self.state.optimizer)
         # --pretrain_source: a classification-only step before each train
         # step on the same batch (main.py:387-414): two updates a batch,
         # one momentum buffer and lr
@@ -445,8 +461,10 @@ class Trainer:
         self.attn_epoch_target = []
         self._last_epoch_done = 0
 
-    def _make_mesh(self, num_devices: Optional[int], use_mesh: bool):
-        """The data mesh of the process group this process belongs to, or
+    def _make_mesh(self, num_devices: Optional[int], use_mesh: bool,
+                   model_parallel: int = 1):
+        """The data mesh, or with ``model_parallel`` > 1 the (data x
+        model) grid, of the process group this process belongs to; or
         None: one device (no group, a group of one, or ``use_mesh``
         off)."""
         grouped = dist.is_available() and dist.is_initialized()
@@ -460,9 +478,15 @@ class Trainer:
         if num_devices is not None and world > 1 and num_devices != world:
             raise ValueError(f"num_devices={num_devices} in a process "
                              f"group of {world} ranks")
+        if model_parallel > 1 and not (use_mesh and world > 1):
+            warnings.warn(
+                f"--model_parallel {model_parallel} ignored: requires a "
+                f"process group of several ranks (use_mesh={use_mesh}, "
+                f"{world} rank(s)) — training proceeds without tensor "
+                "parallelism", stacklevel=3)
         if not (use_mesh and world > 1):
             return None
-        return make_mesh([self.device])
+        return make_mesh_2d([self.device], model_parallel)
 
     def _print(self, *args) -> None:
         """print, on rank 0 only."""
@@ -472,14 +496,15 @@ class Trainer:
     def _agree_stop(self) -> None:
         """Over several ranks: whether any rank has been asked to stop
         (SIGTERM), agreed on by every rank at once; then every rank raises
-        KeyboardInterrupt together, and rank 0 writes the emergency
-        checkpoint."""
+        `_AgreedStop` (a KeyboardInterrupt) together, and rank 0 writes
+        the emergency checkpoint (on a model grid with every rank's
+        slices)."""
         if self._stop is None:
             return
         flag = torch.tensor([float(self._stop.is_set())], device=self.device)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
         if flag.item() > 0:
-            raise KeyboardInterrupt("SIGTERM (preemption) on a rank")
+            raise _AgreedStop("SIGTERM (preemption) on a rank")
 
     # ---- checkpoint (main.py:91-106,266-274) ----
     def resume(self, path: str, resume_hp: bool = False) -> int:
@@ -487,10 +512,13 @@ class Trainer:
         ``.pth.tar``; with ``resume_hp`` also the optimizer (its momentum
         buffers) and the current lr.  Returns the epoch to start at."""
         payload = load_checkpoint(path)
-        self.state.model.load_state_dict(live_state(payload["state_dict"]),
-                                         strict=True)
+        # a whole checkpoint, cut to this rank's slices on a model grid
+        self.state.model.load_state_dict(slice_state_dict(
+            live_state(payload["state_dict"]), self.state.model),
+            strict=True)
         if resume_hp:
             self.state.optimizer.load_state_dict(payload["optimizer"])
+            slice_optimizer_state(self.state.optimizer)
             # the reference's --resume_hp also restores the optimizer's
             # current lr (main.py:102-104); the DANN rule decays it after
             # every step (main.py:619-621), so it is saved as lr_current
@@ -512,13 +540,22 @@ class Trainer:
                 gen.set_state(payload[key])
         return self.start_epoch
 
+    @property
+    def _sharded(self) -> bool:
+        """Whether the ranks hold weight slices (a model grid)."""
+        return self.mesh is not None and self.mesh.model.size > 1
+
     def _ckpt_payload(self, epoch: int, prec1: float) -> dict:
+        """The checkpoint's payload, whole: on a model grid the weight
+        slices and their optimizer state are gathered over the model
+        group (a collective of every rank)."""
         return {
             "epoch": epoch,
             "arch": self.model_cfg.base_model,
             "state_dict": {f"module.{k}": v for k, v in
-                           export_reference_state(self.state.model).items()},
-            "optimizer": self.state.optimizer.state_dict(),
+                           export_reference_state(
+                               whole_model(self.state.model)).items()},
+            "optimizer": whole_optimizer_state(self.state.optimizer),
             "best_prec1": self.best_prec1,
             "prec1": prec1,
             "lr_current": float(self.lr_current),
@@ -530,10 +567,12 @@ class Trainer:
 
     def save(self, epoch: int, prec1: float, is_best: bool):
         """Write the checkpoint (rank 0 only: every rank holds the same
-        state)."""
-        if self.primary:
-            save_checkpoint(self.path_exp, self._ckpt_payload(epoch, prec1),
-                            is_best)
+        state, or on a model grid its slices, which every rank gathers
+        for rank 0)."""
+        if self.primary or self._sharded:
+            payload = self._ckpt_payload(epoch, prec1)
+            if self.primary:
+                save_checkpoint(self.path_exp, payload, is_best)
 
     # ---- the profiler window (--profile_dir) ----
     def _start_profile(self):
@@ -1041,8 +1080,15 @@ class Trainer:
         try:
             with _sigterm_as_interrupt(self._stop):
                 return self._fit()
-        except BaseException:
-            if self.save_model and self._last_epoch_done >= 1:
+        except BaseException as exc:
+            if self._sharded and not isinstance(exc, _AgreedStop):
+                # the slices are gathered over every model group, and the
+                # other ranks have not stopped with this one: a rank that
+                # failed, or an interrupt of this rank alone (SIGINT, a
+                # second SIGTERM), whose peers are still in the step
+                self._print("no emergency checkpoint: a model grid's "
+                            "weights are gathered from every rank")
+            elif self.save_model and self._last_epoch_done >= 1:
                 self.save(self._last_epoch_done, self.best_prec1, False)
                 self._print(f"emergency checkpoint saved at epoch "
                             f"{self._last_epoch_done} -> {self.path_exp}")

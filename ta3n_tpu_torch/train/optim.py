@@ -35,6 +35,7 @@ import math
 from typing import Dict, Iterable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.optim.adam import adam as _adam
 from torch.optim.sgd import sgd as _sgd
 
@@ -90,9 +91,8 @@ def optimizer_step(optimizer: torch.optim.Optimizer, lr: float,
     does, m = b1 * m, v = b2 * v, its count advanced, then
     p -= lr * m_hat / (sqrt(v_hat) + eps)."""
     if clip_gradient is not None:
-        torch.nn.utils.clip_grad_norm_(
-            [p for group in optimizer.param_groups for p in group["params"]],
-            clip_gradient)
+        _clip([p for group in optimizer.param_groups
+               for p in group["params"]], clip_gradient)
     adam = isinstance(optimizer, torch.optim.Adam)
     coasting = []
     for group in optimizer.param_groups:
@@ -115,6 +115,33 @@ def optimizer_step(optimizer: torch.optim.Optimizer, lr: float,
             for p, buf, m in coasting:
                 buf.mul_(m)
                 p.add_(buf, alpha=-lr * m)
+
+
+def _clip(params, clip: float) -> None:
+    """``clip_grad_norm_`` where some parameters may be a model rank's
+    column slices (`parallel/tensor.py`): the squared norms of the
+    slices' gradients are summed over their model group, so that every
+    rank clips by the norm of the whole weights' gradients.  Without
+    slices the norm is clip_grad_norm_'s own (sqrt(fl(x^2)) == |x|), and
+    so is the result."""
+    whole, sliced = [], {}
+    for p in params:
+        if p.grad is None:
+            continue
+        axis = getattr(p, "tp_axis", None)
+        (whole if axis is None else sliced.setdefault(axis, [])).append(p)
+    if not whole and not sliced:
+        return
+    sq = (torch.nn.utils.get_total_norm([p.grad for p in whole],
+                                        2.0).square() if whole else 0)
+    for axis, ps in sliced.items():
+        part = torch.nn.utils.get_total_norm([p.grad for p in ps],
+                                             2.0).square()
+        dist.all_reduce(part, group=axis.group)
+        sq = sq + part
+    torch.nn.utils.clip_grads_with_norm_(
+        whole + [p for ps in sliced.values() for p in ps], clip,
+        torch.sqrt(sq))
 
 
 def _adam_coast(p: torch.Tensor, state: dict, group: dict,

@@ -53,6 +53,22 @@ metrics of the global batch, and the gradients are summed over the ranks
 in one flat all-reduce before the update, so the step is the one-card
 step on the global batch.  Without a mesh the steps launch what they
 launched before.
+
+Over a (data x model) grid (`parallel/mesh.py::make_mesh_2d`, tensor
+parallelism) the rows are split over the data axis alone, and the
+Linears that ``tp_plan`` chooses (`ta3n_tpu/train/step.py:39-90`'s rule)
+are column-sharded over the model axis (`parallel/tensor.py`): each
+builder shards the model's planned weights in place when it is built.
+An optimizer state made at the whole weights' shape before that (Adam's,
+which ``make_optimizer`` makes at once) is cut to the slices once with
+`parallel/tensor.py::slice_optimizer_state`, as the Trainer does.  At the
+flagship's widths the plan is the first shared FC alone, so the
+device-store steps launch K3 (`ops/gather_gemm.py::gathered_linear`) on a
+column slice [512 / M, 2048] and gather its output over the model group
+before the whole bias is added.  The gradient
+all-reduce runs over the data axis, the slices' and the whole
+parameters' in one bucket, and gradient clipping takes the norm of the
+whole weights (`train/optim.py`).
 """
 
 from __future__ import annotations
@@ -66,15 +82,16 @@ from ta3n_tpu_torch.config import DAConfig, ModelConfig, TrainConfig
 from ta3n_tpu_torch.losses import (CORAL, JAN, attentive_entropy,
                                    cross_entropy_soft, dis_MCD, mmd_rbf,
                                    weighted_cross_entropy)
-from ta3n_tpu_torch.models.layers import bf16_f32_reduction
+from ta3n_tpu_torch.models.layers import Linear, bf16_f32_reduction
 from ta3n_tpu_torch.models.video_model import StreamOutput, VideoModel
 from ta3n_tpu_torch.ops.gather_gemm import (RowIndex, gathered_gemm,
                                             gathered_linear, gathered_rows,
-                                            row_index, upload)
+                                            part_rows, row_index, upload)
 from ta3n_tpu_torch.parallel.mesh import (active, all_gather_rows,
                                           all_reduce_grads, device_scope,
-                                          lift_to_global, replicas,
-                                          split_rows, stacked_rows)
+                                          gather_columns, lift_to_global,
+                                          replicas, split_rows, stacked_rows)
+from ta3n_tpu_torch.parallel.tensor import shard_linears
 from ta3n_tpu_torch.train.optim import make_optimizer, optimizer_step
 
 __all__ = ["TrainState", "StepScalars", "create_train_state",
@@ -82,7 +99,42 @@ __all__ = ["TrainState", "StepScalars", "create_train_state",
            "make_multi_train_step", "make_sampled_multi_step",
            "make_sampled_shard_multi_step", "make_eval_step",
            "make_multi_eval_step", "make_infer_step", "device_gather",
-           "topk_correct", "video_logits"]
+           "topk_correct", "video_logits", "tp_plan"]
+
+# Linears of fewer weight elements stay whole under tensor parallelism:
+# the collectives would cost more than the split saves
+# (`ta3n_tpu/train/step.py:45-49`); module-level so that tests with small
+# models can lower it
+_TP_MIN_SIZE = 2 ** 19
+
+
+def _tp_size(mesh) -> int:
+    """The model axis's size of a mesh (1: data parallelism alone)."""
+    return 1 if mesh is None else mesh.model.size
+
+
+def tp_plan(model: VideoModel, tp: int) -> list:
+    """The names of the Linears that tensor parallelism over ``tp`` model
+    ranks column-shards: the JAX rule's 2-D ``kernel`` leaves outside the
+    TRN with at least ``_TP_MIN_SIZE`` elements and an output width that
+    divides by ``tp`` (`ta3n_tpu/train/step.py::_tp_param_constrainer`),
+    under the reference names that `io_utils/convert.py` gives them (the
+    TRN's fusion layers, ``TRN.fc_fusion_scales.*``, are its ``w_scale_*``
+    leaves; the RNN's and the TCL's weights are no Dense kernels).  None
+    for ``tp`` 1."""
+    if tp <= 1:
+        return []
+    return [name for name, m in model.named_modules()
+            if isinstance(m, Linear) and "TRN" not in name.split(".")
+            and m.in_features * m.out_features >= _TP_MIN_SIZE
+            and m.out_features % tp == 0]
+
+
+def _shard(model: VideoModel, mesh) -> None:
+    """Column-shard the planned Linears of ``model`` over the mesh's model
+    axis (nothing without one; a layer already sharded stays)."""
+    shard_linears(model, tp_plan(model, _tp_size(mesh)),
+                  mesh.model if mesh is not None else None)
 
 
 class TrainState(NamedTuple):
@@ -441,6 +493,7 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
             "dis_DA='JAN' is incompatible with baseline_type='tsn': JAN "
             "ignores shared-layer features and tsn provides no others "
             "(the reference crashes on this config, loss.py:86)")
+    _shard(model, mesh)
     discrepancy = da.dis_DA != "none" and use_tgt
     adversarial = da.adv_DA != "none" and use_tgt
     target_entropy = da.add_loss_DA == "target_entropy" and use_tgt
@@ -585,8 +638,16 @@ def make_train_step(model: VideoModel, da: DAConfig, train_cfg: TrainConfig,
 
         def pre():
             fcs = _first_fc(net, ("source", "target"))
-            return gathered_linear([part_s, part_t], [w for w, _ in fcs],
-                                   [b for _, b in fcs])
+            parts, weights = [part_s, part_t], [w for w, _ in fcs]
+            tp = net.shared_fc("source").tp
+            if tp is None:
+                return gathered_linear(parts, weights, [b for _, b in fcs])
+            # K3 on this rank's column slices, the slices' outputs
+            # gathered over the model group, then the whole biases
+            z = gather_columns(gathered_linear(parts, weights, [None] * 2),
+                               tp)
+            n_s = part_rows(part_s, weights[0])
+            return torch.cat([z[:n_s] + fcs[0][1], z[n_s:] + fcs[1][1]])
 
         return update(state, pre, ys, mask_s, yt, mask_t, scalars,
                       generator)
@@ -890,6 +951,9 @@ def _eval_gathered(model: VideoModel, part, b: int) -> StreamOutput:
     else:
         (weight, bias), = _first_fc(model)
         z, _ = gathered_gemm(store, rows, weight, scale, with_rows=False)
+        tp = model.shared_fc("target").tp
+        if tp is not None:  # the slice's columns: all of them
+            z = gather_columns(z, tp)
         pre = z.add_(bias)
     _, out = model.forward_shared(pre, 0, b, _EVAL_BETA, 0.0, False, False)
     return out
@@ -919,6 +983,7 @@ def make_eval_step(model: VideoModel, class_weights=None,
     runs its own rows and gathers their logits and features: the metrics
     are the global batch's on every rank.
     """
+    _shard(model, mesh)
     device = next(model.parameters()).device
     if class_weights is not None:
         class_weights = _as(class_weights, device, torch.float32)
@@ -981,6 +1046,7 @@ def make_multi_eval_step(model: VideoModel, class_weights=None,
     accumulates it (main.py:669-761).  Over a ``mesh`` each rank runs its
     rows of every batch and the logits of them all are gathered once.
     """
+    _shard(model, mesh)
     device = next(model.parameters()).device
     if class_weights is not None:
         class_weights = _as(class_weights, device, torch.float32)

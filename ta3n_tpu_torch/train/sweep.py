@@ -14,6 +14,16 @@ order), the members differing in init and dropout seed and in lr and
 alpha: the classic controlled sweep.  The schedule follows the Trainer:
 the DANN lr decay with ``dann_lr_decay`` and the DANN beta ramp for
 negative beta entries (`train/schedules.py`).
+
+Over several cards (``mesh=``: ``make_ensemble_mesh(S)`` or a 1-D mesh,
+`train/ensemble.py`): the member list is padded to a multiple of the S
+member shards with copies of member 0, whose results are dropped, each
+shard trains its members, each of its ranks its rows of the batches, and
+the members' rows, validation counts and ensemble votes are gathered
+over the member axis.  Rank 0 receives every member's checkpoint and
+writes the one-process sweep's directory; an emergency save (a failure
+or a SIGTERM) needs no collective: each shard's first rank writes its
+own members there.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ta3n_tpu_torch.io_utils.checkpoint import (BEST_NAME, CKPT_NAME,
                                                 load_checkpoint,
@@ -33,12 +44,14 @@ from ta3n_tpu_torch.io_utils.checkpoint import (BEST_NAME, CKPT_NAME,
 from ta3n_tpu_torch.io_utils.convert import (export_reference_state,
                                              live_state)
 from ta3n_tpu_torch.models.video_model import VideoModel
-from ta3n_tpu_torch.train.ensemble import (create_ensemble_state,
+from ta3n_tpu_torch.train.ensemble import (_member_grid,
+                                           create_ensemble_state,
                                            ensemble_generators,
                                            extract_member,
                                            make_ensemble_eval_step,
                                            make_ensemble_multi_step,
-                                           stack_members, stack_scalars)
+                                           member_rows, stack_members,
+                                           stack_scalars)
 from ta3n_tpu_torch.train.loop import _sigterm_as_interrupt
 from ta3n_tpu_torch.train.optim import member_optimizer_state
 from ta3n_tpu_torch.train.schedules import dann_lr, effective_beta, progress
@@ -52,18 +65,19 @@ def _member_dir(save_dir: str, k: int) -> str:
 
 
 def _restack_members(save_dir: str, n: int, n_padded: int, model_cfg,
-                     train_cfg, device):
-    """Inverse of ``_save_members``: the member_XX/checkpoint.pth.tar
+                     train_cfg, device, rows: slice = slice(None)):
+    """Inverse of the member saves: the member_XX/checkpoint.pth.tar
     states (e.g. a preempted sweep's emergency saves) stacked back into
-    one ensemble; padded slots replay member 0.  Returns (state, the
-    generators' states, start_epoch)."""
+    one ensemble of the padded list's members ``rows``; padded slots
+    replay member 0.  Returns (state, the generators' states,
+    start_epoch)."""
     payloads = [load_checkpoint(os.path.join(_member_dir(save_dir, k),
                                              CKPT_NAME)) for k in range(n)]
     epochs = {int(p["epoch"]) for p in payloads}
     if len(epochs) != 1:
         raise ValueError("member checkpoints disagree on epoch: "
                          f"{sorted(epochs)} — not one sweep's save set")
-    idx = list(range(n)) + [0] * (n_padded - n)
+    idx = (list(range(n)) + [0] * (n_padded - n))[rows]
     models, opts = [], []
     for i in idx:
         model = VideoModel(model_cfg, torch.Generator().manual_seed(0),
@@ -96,32 +110,97 @@ def _stack_opt(state, opts, train_cfg) -> dict:
     return opt
 
 
-def _save_one_member(state, generators, k: int, save_dir: str, arch: str,
-                     epoch: int, prec1: float, best_prec1: float,
-                     lr_current: float, is_best: bool, train_cfg) -> str:
-    """Member k as a solo checkpoint under member_XX/ (``is_best`` also
-    copies it to member_XX/model_best.pth.tar, as Trainer.save does)."""
-    member = extract_member(state, k, train_cfg)
-    return save_checkpoint(_member_dir(save_dir, k), {
+def _member_payload(state, generators, j: int, arch: str, epoch: int,
+                    prec1: float, best_prec1: float, lr_current: float,
+                    train_cfg) -> dict:
+    """The state's member j as a solo checkpoint's payload (the
+    Trainer's), its tensors on the CPU."""
+    member = extract_member(state, j, train_cfg)
+
+    def cpu(v):
+        if torch.is_tensor(v):
+            return v.cpu()
+        if isinstance(v, dict):
+            return {k: cpu(x) for k, x in v.items()}
+        return v
+
+    return cpu({
         "epoch": epoch, "arch": arch,
         "state_dict": {f"module.{key}": v for key, v in
                        export_reference_state(member.model).items()},
         "optimizer": member.optimizer.state_dict(),
         "best_prec1": float(best_prec1), "prec1": float(prec1),
         "lr_current": float(lr_current), "step": int(member.step),
-        "rng_state": generators[k].get_state(),
-    }, is_best=is_best)
+        "rng_state": generators[j].get_state(),
+    })
 
 
-def _save_members(state, generators, n: int, save_dir, arch, epoch, top1,
-                  lrs, train_cfg, best=None) -> list:
-    """Members 0..n-1 as solo checkpoints; returns their paths.  ``best``:
-    each member's running best top-1 (default its top1), recorded as
-    best_prec1 like the Trainer's checkpoints."""
-    return [_save_one_member(
-        state, generators, k, save_dir, arch, epoch, float(top1[k]),
+class _Shard:
+    """This rank's members of a sweep's padded list of ``n_padded`` (all
+    of them without a mesh), the first ``n`` of which are real, and the
+    member axis they are gathered over."""
+
+    def __init__(self, mesh, n: int, n_padded: int):
+        self.axis, data = _member_grid(mesh)
+        self.rows = member_rows(mesh, n_padded)
+        self.n = n
+        # whether this rank writes its members when no collective may run
+        # (the first rank of its shard's data axis)
+        self.leader = data is None or data.rank == 0
+        self.primary = mesh is None or mesh.is_primary
+
+    def real(self) -> list:
+        """(global k, local j) of this rank's real members."""
+        return [(k, k - self.rows.start)
+                for k in range(self.rows.start, min(self.rows.stop,
+                                                    self.n))]
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's members' values [N_local, ...] as every member's
+        [N, ...], gathered over the member axis."""
+        if self.axis.size == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.axis.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.axis.group)
+        return torch.cat(parts)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the member axis's shards."""
+        if self.axis.size > 1:
+            t = t.clone()
+            dist.all_reduce(t, group=self.axis.group)
+        return t
+
+    def write(self, payloads: dict, save_dir: str, is_best: bool = False,
+              gather: bool = True) -> dict:
+        """Each member k's payload in ``payloads`` (this rank's) written to
+        member_XX/ (``is_best`` also to its model_best.pth.tar): gathered
+        on rank 0 over the member axis, or with ``gather`` off written
+        by each shard's first rank.  Returns {k: checkpoint path}."""
+        if gather and self.axis.size > 1:
+            every = [None] * self.axis.size
+            dist.all_gather_object(every, payloads, group=self.axis.group)
+            payloads = {k: p for part in every for k, p in part.items()}
+        if not (self.primary if gather else self.leader):
+            return {k: os.path.join(_member_dir(save_dir, k), CKPT_NAME)
+                    for k in payloads}
+        return {k: save_checkpoint(_member_dir(save_dir, k), p,
+                                   is_best=is_best)
+                for k, p in sorted(payloads.items())}
+
+
+def _save_members(shard, state, generators, save_dir, arch, epoch, top1,
+                  lrs, train_cfg, best=None, gather=True) -> list:
+    """The real members as solo checkpoints; returns their paths.
+    ``top1``, ``lrs`` and ``best`` (each member's running best top-1,
+    recorded as best_prec1 like the Trainer's checkpoints; default its
+    top1) are every member's."""
+    payloads = {k: _member_payload(
+        state, generators, j, arch, epoch, float(top1[k]),
         float(max(top1[k], best[k])) if best is not None else
-        float(top1[k]), lrs[k], False, train_cfg) for k in range(n)]
+        float(top1[k]), lrs[k], train_cfg) for k, j in shard.real()}
+    paths = shard.write(payloads, save_dir, gather=gather)
+    return [paths.get(k) for k in range(shard.n)]
 
 
 def pad_members(members: Sequence[Tuple], member_shards: int,
@@ -163,18 +242,28 @@ def run_sweep(model_cfg, da_cfg, train_cfg, source_loader, target_loader,
     sweep's identity in save_dir/sweep_meta.json must match.  A SIGTERM or
     a failure after a finished epoch saves every member first.  The
     deep-ensemble top-1 averages the members' softmax (skipped for the
-    frame and tsn baselines, whose eval rows are frames).  ``mesh``
-    raises: the multi-card member axis is ROADMAP.md queue 1, item 9."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sweep(mesh=...): the multi-card member axis is not ported "
-            "yet (ROADMAP.md queue 1, item 9: the 2-D grids, member x "
-            "data)")
+    frame and tsn baselines, whose eval rows are frames).  ``mesh``: the
+    member axis over several ranks (the module docstring); every batch
+    size must divide by its data axis, and rank 0 alone logs and returns
+    the rows."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     n = len(members)
-    members = pad_members(members, 1, log=log)
-    bs, bt = train_cfg.batch_size[0], train_cfg.batch_size[1]
-    seeds = [m[0] for m in members]
+    axis, data = _member_grid(mesh)
+    if data is not None:
+        # all three batches split over the data axis: the train batches in
+        # the multi-step, the val batch in the eval step
+        for b in train_cfg.batch_size:
+            if b % data.size:
+                raise ValueError(f"batch size {b} not divisible by the "
+                                 f"mesh's data axis ({data.size})")
+    if mesh is not None and not mesh.is_primary:
+        log = lambda *a: None  # noqa: E731 — rank 0 alone logs
+    members = pad_members(members, axis.size, log=log)
+    shard = _Shard(mesh, n, len(members))
+    mine = members[shard.rows]
+    seeds = [m[0] for m in mine]
     spe = min(len(source_loader), len(target_loader))
     best_top1 = np.full(len(members), -1.0)
     best_epoch = np.zeros(len(members), np.int64)
@@ -202,7 +291,8 @@ def run_sweep(model_cfg, da_cfg, train_cfg, source_loader, target_loader,
                     "resume with a different sweep configuration: "
                     f"saved {prev} vs current {ident}")
         state, rng, start_epoch = _restack_members(
-            save_dir, n, len(members), model_cfg, train_cfg, device)
+            save_dir, n, len(members), model_cfg, train_cfg, device,
+            shard.rows)
         for gen, st in zip(generators, rng):
             gen.set_state(st)
         # the step counter is authoritative: an interrupt between an
@@ -223,12 +313,13 @@ def run_sweep(model_cfg, da_cfg, train_cfg, source_loader, target_loader,
         log(f"# resumed sweep from {save_dir} at epoch {start_epoch}")
     else:
         state = create_ensemble_state(model_cfg, train_cfg, seeds, device)
-        if meta_path:
+        if meta_path and shard.primary:
             os.makedirs(save_dir, exist_ok=True)
             with open(meta_path, "w") as f:
                 json.dump(ident, f)
     multi = make_ensemble_multi_step(state.model, da_cfg, train_cfg,
-                                     class_weights, domain_weights)
+                                     class_weights, domain_weights,
+                                     mesh=mesh)
     total_steps = spe * train_cfg.epochs
     uploaded = {}
 
@@ -248,24 +339,28 @@ def run_sweep(model_cfg, da_cfg, train_cfg, source_loader, target_loader,
         step and the val store are made at the first validation."""
         if not _ev:
             _ev["step"] = make_ensemble_eval_step(
-                state.model, class_weights, gather_on_device=True)
+                state.model, class_weights, gather_on_device=True,
+                mesh=mesh)
             _ev["store"] = put(val_loader.store)
         ev, store_v = _ev["step"], _ev["store"]
-        hits = np.zeros(len(members))
-        count = np.zeros(len(members))
+        hits = torch.zeros(len(mine), dtype=torch.float64)
+        count = torch.zeros(len(mine), dtype=torch.float64)
+        real = [j for _, j in shard.real()]
         ens_hits, ens_count = 0.0, 0.0
         for b in val_loader.index_epoch():
             m = ev(state, store_v, b.abs_indices, b.labels, b.mask)
-            hits += m["top1"].cpu().numpy()
-            count += m["n"].cpu().numpy()
-            logits = m["logits"][:n].double().cpu().numpy()
+            hits += m["top1"].cpu().double()
+            count += m["n"].cpu().double()
+            logits = m["logits"][real].double()
             if logits.shape[1] == len(b.labels):
-                probs = np.exp(logits - logits.max(-1, keepdims=True))
-                probs /= probs.sum(-1, keepdims=True)
-                pred = probs.mean(axis=0).argmax(-1)
+                # the real members' mean softmax, summed over the shards
+                probs = shard.sum(torch.softmax(logits, -1).sum(0)) / n
+                pred = probs.cpu().numpy().argmax(-1)
                 mask = np.asarray(b.mask)
                 ens_hits += float(((pred == b.labels) * mask).sum())
                 ens_count += float(mask.sum())
+        hits, count = (shard.gather(t.to(device)).cpu().numpy()
+                       for t in (hits, count))
         top1 = 100.0 * hits / np.maximum(count, 1)
         ens = (round(100.0 * ens_hits / ens_count, 2)
                if ens_count else None)
@@ -301,7 +396,8 @@ def run_sweep(model_cfg, da_cfg, train_cfg, source_loader, target_loader,
                     steps.append(stack_scalars([
                         StepScalars(beta, train_cfg.mu, alpha,
                                     train_cfg.gamma, lr_k)
-                        for (_, _, alpha), lr_k in zip(members, lrs)]))
+                        for (_, _, alpha), lr_k in zip(
+                            mine, lrs[shard.rows])]))
                 sc = StepScalars(*(np.stack(f) for f in zip(*steps)))
                 state, metrics = multi(
                     state, store_s,
@@ -324,17 +420,18 @@ def run_sweep(model_cfg, da_cfg, train_cfg, source_loader, target_loader,
                     for k in improved:
                         best_top1[k] = top1_e[k]
                         best_epoch[k] = epoch
-                        if save_dir:
-                            _save_one_member(
-                                state, generators, k, save_dir, arch, epoch,
-                                float(top1_e[k]), float(best_top1[k]),
-                                lrs[k], True, train_cfg)
+                    if save_dir:
+                        shard.write({k: _member_payload(
+                            state, generators, j, arch, epoch,
+                            float(top1_e[k]), float(best_top1[k]), lrs[k],
+                            train_cfg) for k, j in shard.real()
+                            if k in improved}, save_dir, is_best=True)
                     if epoch == train_cfg.epochs:
                         final_scores = (top1_e, ens_e)
             # the last step's losses (one fetch; the calls above only
             # enqueue work on the card, so the wait is here, inside the
             # protected region)
-            final_loss = metrics["loss"][-1].cpu().numpy()
+            final_loss = shard.gather(metrics["loss"][-1]).cpu().numpy()
             train_s = time.time() - t0
             if final_scores is None:
                 final_scores = validate()
@@ -343,14 +440,15 @@ def run_sweep(model_cfg, da_cfg, train_cfg, source_loader, target_loader,
         # resumable state is saved before re-raising, as the Trainer's
         # emergency checkpoint
         if save_dir and epochs_done >= 1:
-            _save_members(state, generators, n, save_dir, arch, epochs_done,
-                          np.full(n, -1.0), lrs, train_cfg,
-                          best=best_top1[:n] if eval_freq else None)
+            _save_members(shard, state, generators, save_dir, arch,
+                          epochs_done, np.full(n, -1.0), lrs, train_cfg,
+                          best=best_top1[:n] if eval_freq else None,
+                          gather=False)
             log(f"emergency sweep checkpoints saved at epoch "
                 f"{epochs_done} -> {save_dir}")
         raise
     top1, ensemble_top1 = final_scores
-    paths = (_save_members(state, generators, n, save_dir, arch,
+    paths = (_save_members(shard, state, generators, save_dir, arch,
                            train_cfg.epochs, top1, lrs, train_cfg,
                            best=best_top1[:n] if eval_freq else None)
              if save_dir else None)
@@ -375,7 +473,7 @@ def run_sweep(model_cfg, da_cfg, train_cfg, source_loader, target_loader,
         if paths:
             row["checkpoint"] = paths[k]
         results.append(row)
-    if save_dir:
+    if save_dir and shard.primary:
         with open(os.path.join(save_dir, "sweep.json"), "w") as f:
             json.dump(results, f, indent=1)
         log(f"# saved {n} member checkpoints -> {save_dir}")

@@ -2622,3 +2622,78 @@ def test_kernels_launch_on_a_second_device():
 
 def _move(t, device):
     return t.to(device) if torch.is_tensor(t) else [u.to(device) for u in t]
+
+
+@pytest.mark.parametrize("n,with_rows", [(640, True), (370, True),
+                                         (320, False)])
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+@pytest.mark.parametrize("h", [256, 128])
+def test_gather_gemm_column_slice_matches_plain(h, compute, n, with_rows):
+    """K3 on a model rank's column slice of the flagship's first FC (H =
+    512 / M: 256 at M = 2, 128 at M = 4; D = 2048) from a float32 store,
+    at float32 and bfloat16 compute, against its plain version: z within
+    the float32 check's tolerance or _bf16_ok, x_res bitwise equal, one
+    launch a call; and the slices of a whole weight, gathered in column
+    order, are the whole weight's launch within the same bound."""
+    store, idx, scale, w = _gather_inputs(n, d=2048, h=512)
+    if compute == "bf16":
+        w = w.to(torch.bfloat16)
+    rows = gather_gemm.row_index(idx, 500, "cuda")
+    m = 512 // h
+    slices = [w[j * h:(j + 1) * h].contiguous() for j in range(m)]
+    name = f"f32_{compute}"
+    gather_gemm.variant_launches[name] = 0
+    got = [gather_gemm.gathered_gemm(store, rows, s, scale,
+                                     with_rows=with_rows) for s in slices]
+    whole, _ = gather_gemm.gathered_gemm(store, rows, w, scale,
+                                         with_rows=False)
+    torch.cuda.synchronize()
+    assert gather_gemm.variant_launches[name] == m + 1
+    for s, (z, x_res) in zip(slices, got):
+        want, want_x = gather_gemm.gathered_gemm_plain(store, rows.rows, s,
+                                                       scale)
+        assert z.shape == (n, h) and z.dtype == w.dtype
+        if compute == "f32":
+            assert (z - want).abs().max().item() <= _tol(want)
+        else:
+            assert _bf16_ok(z, want)
+        if with_rows:
+            assert torch.equal(x_res, want_x)
+    joined = torch.cat([z for z, _ in got], dim=1)
+    if compute == "f32":
+        assert (joined - whole).abs().max().item() <= _tol(whole)
+    else:
+        assert _bf16_ok(joined, whole.float())
+
+
+def test_nccl_make_mesh_2d_one_by_one_equals_no_mesh():
+    """NCCL at world size 1: the steps over ``make_mesh_2d(model_parallel=
+    1)``, a 1 x 1 grid (the 1-D mesh), equal the steps without a mesh
+    exactly: the gather and the all-reduce over one rank change no bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from test_torch_port_parallel_worker import run_cases
+    from ta3n_tpu_torch.parallel import make_mesh_2d
+    from ta3n_tpu_torch.parallel.distributed import initialize_multihost
+
+    spec = _parallel_spec()
+    want = run_cases(spec)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh_2d(model_parallel=1)
+        assert mesh.distributed and mesh.size == 1 and mesh.model.size == 1
+        got = run_cases(spec, mesh)
+    finally:
+        dist.destroy_process_group()
+    for name in spec:
+        for key in want[name]["params"]:
+            assert np.array_equal(got[name]["params"][key],
+                                  want[name]["params"][key]), (name, key)
+        for g, w in zip(got[name]["metrics"], want[name]["metrics"]):
+            for key in w:
+                assert np.array_equal(g[key], w[key]), (name, key)

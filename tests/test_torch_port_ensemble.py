@@ -50,6 +50,7 @@ from ta3n_tpu_torch.io_utils.convert import (ensemble_from_jax_params,
                                              export_reference_state,
                                              state_dict_from_jax_params)
 from ta3n_tpu_torch.ops import gather_gemm, trn_fused
+from ta3n_tpu_torch.parallel.mesh import Axis, Mesh
 from ta3n_tpu_torch.train import StepScalars, create_train_state
 from ta3n_tpu_torch.train.ensemble import (create_ensemble_state,
                                            ensemble_generators,
@@ -644,7 +645,8 @@ def test_unreached_parameter_moves_as_in_the_solo_run():
     "mesh_step", "mesh_eval", "mesh_multi", "make_mesh", "bf16_state",
     "bf16_step", "generators", "scalar_shape"])
 def test_error_paths(case):
-    """``mesh=`` raises naming ROADMAP.md queue 1, item 9; a bfloat16
+    """``mesh=`` refuses a single process's grid of devices and a model
+    axis, and ``make_ensemble_mesh`` a missing process group; a bfloat16
     ensemble's member-batched TRN call with a float32 weight raises
     TypeError (``bf16_state``: the kernels take one dtype) and one above
     BF16_MAX_SCALES scales raises naming the limit (``bf16_step``: the
@@ -653,15 +655,20 @@ def test_error_paths(case):
     the wrong shape."""
     cfg, da, tc = _cfg(), DAConfig(**DA), _tc()
     ens = create_ensemble_state(cfg, tc, SEEDS, "cpu")
-    err, match = NotImplementedError, "ROADMAP.md queue 1, item 9"
+    err, match = ValueError, "not a single process's devices"
+    devices = Mesh(["cpu", "cpu"])
     if case == "mesh_step":
-        call = lambda: make_ensemble_step(ens.model, da, tc, mesh=object())
+        call = lambda: make_ensemble_step(ens.model, da, tc, mesh=devices)
     elif case == "mesh_eval":
-        call = lambda: make_ensemble_eval_step(ens.model, mesh=object())
+        call = lambda: make_ensemble_eval_step(ens.model, mesh=devices)
     elif case == "mesh_multi":
+        model_axis = Mesh(["cpu"], axes={"model": Axis(2, 0, None)},
+                          axis_names=("data", "model"))
+        match = "not a model axis"
         call = lambda: make_ensemble_multi_step(ens.model, da, tc,
-                                                mesh=object())
+                                                mesh=model_axis)
     elif case == "make_mesh":
+        match = "initialise the process group"
         call = lambda: make_ensemble_mesh(2)
     elif case == "bf16_state":
         bf16 = create_ensemble_state(_cfg(compute_dtype="bfloat16"), tc,

@@ -382,7 +382,8 @@ def test_mesh_without_group_and_2d_grids():
     the CPU, named: without a card make_mesh() refuses rather than serve
     on the CPU), every step helper the identity; shard_train_step builds a
     step again over a mesh and refuses one without ``with_mesh``; the 2-D
-    grids raise naming ROADMAP.md queue 1, item 9."""
+    grids, one process a device, refuse to be made without a process
+    group, and a mesh's model and member axes default to size 1."""
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()
     mesh = make_mesh(["cpu"])
@@ -396,8 +397,9 @@ def test_mesh_without_group_and_2d_grids():
     assert callable(port_mesh.shard_train_step(step, mesh))
     with pytest.raises(ValueError, match="with_mesh"):
         port_mesh.shard_train_step(lambda *a: None, mesh)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    with pytest.raises(ValueError, match="initialise the process group"):
         make_mesh_2d(model_parallel=2)
+    assert mesh.model.size == mesh.member.size == 1 and mesh.is_primary
     with pytest.raises(ValueError, match="no coordinator"):
         distributed.initialize_multihost()
 

@@ -223,8 +223,8 @@ def _json_lines(fn, argv):
 def test_sweep_cli_lines_match_the_jax_cli(tmp_path):
     """cli.sweep on a workspace: a 2 seeds x 2 lrs grid, one JSON line per
     member and a summary line with the JAX CLI's keys, member checkpoints
-    the eval CLI reproduces a member's top-1 from, and --sweep_mesh
-    refused."""
+    the eval CLI reproduces a member's top-1 from, and --sweep_mesh 2
+    refused on one process (two member shards need two ranks)."""
     port_root, jax_root = tmp_path / "port", tmp_path / "jax"
     port_root.mkdir()
     jax_root.mkdir()
@@ -249,7 +249,8 @@ def test_sweep_cli_lines_match_the_jax_cli(tmp_path):
         "avgpool", "--use_attn", "none", "--bS", "8", "--top", "1",
         "--device", "cpu"])
     assert f"Pred@1 {ours[0]['top1']:.2f}%" in line
-    with pytest.raises(SystemExit, match="item 9"):
+    with pytest.raises(SystemExit, match="1 devices not divisible by "
+                       "member_shards=2"):
         cli_sweep.main(_sweep_argv(port_root, out_dir)
                        + ["--device", "cpu", "--sweep_mesh", "2"])
 

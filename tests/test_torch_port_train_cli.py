@@ -220,8 +220,13 @@ def test_train_cli_chunked_flags_run(workspace, flags):
     (["--model_parallel", "2"], "item 9"),
 ])
 def test_train_cli_unported_flags_raise(workspace, flags, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
-        main(_argv(workspace, "exp_bad", "--epochs", "1", *flags))
+    """The flags that raised until their ROADMAP item was ported: since
+    item 9, --model_parallel on one process is ignored with the JAX CLI's
+    warning and the run trains (tests/test_torch_port_grid_members.py
+    runs it over four processes)."""
+    with pytest.warns(UserWarning, match="--model_parallel 2 ignored"):
+        best = main(_argv(workspace, "exp_bad", "--epochs", "1", *flags))
+    assert best >= 0.0
 
 
 @pytest.mark.parametrize("flag", ["--tensorboard", "--profile_dir"])
