@@ -747,6 +747,39 @@ def time_pair(fns, runs=41, warmup=5):
     return {name: statistics.median(v) for name, v in times.items()}
 
 
+def kernel_ms(fn, n=20):
+    """Device ms per call of each kernel that ``fn`` launches, by the
+    profiler over ``n`` calls after three: {name: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / n
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
+
+
+# K3's two stages at bfloat16 compute (csrc/gather_gemm_bf16.cu): stage A
+# gathers and converts the rows (and, for a weight whose rows TMA cannot
+# take, copies it first), stage B is the GEMM
+K3_BF16_STAGES = {"stage_a": ("gather_gemm_bf16_rows",
+                              "gather_gemm_bf16_repitch"),
+                  "stage_b": ("gather_gemm_bf16_kernel",)}
+
+
+def k3_bf16_stages(fn):
+    """Device ms per call of K3's two stages at bfloat16 compute in
+    ``fn``, by the profiler: {"stage_a": ms, "stage_b": ms}."""
+    by_name = kernel_ms(fn)
+    return {stage: sum(ms for name, ms in by_name.items()
+                       if any(k in name for k in kernels))
+            for stage, kernels in K3_BF16_STAGES.items()}
+
+
 def time_train_kernels(gen, b=202):
     """Device times of K1 (train) and K2 against their plain versions at
     the train batch."""
@@ -3570,7 +3603,9 @@ def time_members(gen, store, bf16=False):
     train shape, 640 rows with x_res, from one index set of ``store``: the
     float32 store at float32 compute, the bfloat16 one at bfloat16); and,
     for K3, index_select + matmul over the stacked weights (in the compute
-    dtype).  {name: {N: (times, work)}}."""
+    dtype), medians of 41, and at bfloat16 compute its two stages apart
+    by the profiler ("stage_a", "stage_b" in its times).  {name: {N:
+    (times, work)}}."""
     sfx = "_bf16" if bf16 else ""
     dt = torch.bfloat16 if bf16 else torch.float32
     esize = 2 if bf16 else 4
@@ -3622,16 +3657,20 @@ def time_members(gen, store, bf16=False):
             rows = K3_TIMED[0][0]
             w, idx, scale, sets = member_gather_case(n, rows, store, False,
                                                      rng, dt)
+            member_call = lambda: gather_gemm.gathered_gemm_members(
+                store, idx, w, scale)
             t = time_pair({
-                "kernel": lambda: gather_gemm.gathered_gemm_members(
-                    store, idx, w, scale),
+                "kernel": member_call,
                 "solo": lambda: [gather_gemm.gathered_gemm(
                     store, idx, w[k], scale) for k in range(n)],
                 "plain": lambda: [gather_gemm.gathered_gemm_plain(
                     store, idx.rows, w[k], scale) for k in range(n)],
                 "library": lambda: torch.matmul(
-                    store.index_select(0, idx.rows), w.transpose(1, 2))},
-                runs=21)
+                    store.index_select(0, idx.rows), w.transpose(1, 2))})
+            if bf16:
+                t.update(k3_bf16_stages(member_call))
+                t["splits"] = gather_gemm.bf16_plan(
+                    rows, FLAGSHIP.fc_dim, store.shape[1], 1, n).splits
             d, h = store.shape[1], FLAGSHIP.fc_dim
             f, nb = gather_work(idx, d, h, True, store_size=esize,
                                 compute_size=esize)
@@ -3645,8 +3684,11 @@ def time_members(gen, store, bf16=False):
                 f"launches {t['solo']:.4f} ms, plain {t['plain']:.4f} ms"
                 + (f", index_select + matmul {t['library']:.4f} ms"
                    if "library" in t else "")
-                + f" device; bound {least:.4f} ms by {by} (medians of 21, "
-                "in turns)")
+                + f" device; bound {least:.4f} ms by {by} (medians of "
+                f"{41 if 'library' in t else 21}, in turns)"
+                + (f"; stage A {t['stage_a']:.4f} ms, stage B "
+                   f"{t['stage_b']:.4f} ms (profiler, 20 calls; "
+                   f"{t['splits']} K slices)" if "stage_a" in t else ""))
     return out
 
 
@@ -5968,6 +6010,11 @@ def main() -> int:
                               f"n{n}_bound_ms": bound(*work, peak)[0]})
                 if "library" in t:
                     entry[f"n{n}_library_ms"] = t["library"]
+        for n in MEMBER_TIMED:
+            for stage in K3_BF16_STAGES:
+                if stage in by_n[n][0]:
+                    key = stage if n == 4 else f"n{n}_{stage}"
+                    entry[f"{key}_ms"] = by_n[n][0][stage]
         kernels.append(entry)
     log(f"ensemble step of {len(ENSEMBLE_SEEDS)} members: "
         f"{ens_t['ensemble'][0]:.3f} ms (busy {ens_t['ensemble'][1]:.3f}, "

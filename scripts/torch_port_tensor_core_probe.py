@@ -19,9 +19,12 @@ default):
                   cvt.rna.tf32.f32
   k3-splits       K3 device time at the train (640 rows, x_res) and eval
                   (320 rows) shapes for 1..8 K slices, beside index_select
-                  + mm; at bfloat16 compute from bfloat16 and int8 stores also at
-                  the target batch's 370 rows, and K3's kernels and the
-                  library pair's by the profiler at the chosen slices
+                  + mm; at bfloat16 compute from bfloat16 and int8 stores
+                  for 1, 2, 4 and 8 K slices (the cluster sizes), also at
+                  the target batch's 370 rows and with 4 and 8 members,
+                  beside index_select + matmul, and K3's kernels (its two
+                  stages) and the library pair's by the profiler at the
+                  chosen slices
   split-variants  the 3xTF32 split with a_lo left raw, rounded by integer
                   operations (the tree) and by cvt.rna: K3's error against
                   float64, and chip_smoke.py's five device-store steps
@@ -35,24 +38,33 @@ default):
                   (K1_VARIANTS) at one and two D slices, each checked
                   against the plain version and timed in turns; its GEMM
                   and epilogue kernels by the profiler
-  wgmma-phases    clock64 cycles a chunk spends, in the wgmma rings of K3 at
-                  bfloat16 compute (its rows landing, converting them,
-                  issuing the products, waiting for the previous batch
-                  and staging the next chunk) and of K2 in bfloat16 (its
-                  boxes landing, converting, issuing the products, and
-                  waiting for the previous batch), and of K1 in bfloat16
-                  (the same phases as K2's)
+  wgmma-phases    clock64 cycles a chunk spends in the wgmma rings fed by a
+                  producer warp (its boxes landing, converting, issuing
+                  the products, and waiting for the previous batch): of
+                  K3's GEMM at bfloat16 compute (stage B, nothing to
+                  convert) at 1, 4 (also in one K slice) and 8 members,
+                  of K2 in bfloat16 and of K1 in bfloat16
   k1-bf16-profile K1's bfloat16 variants at S = 5 and 17: device time,
                   and its GEMM and epilogue kernels by the profiler
   k1-bf16-splits  the same at 1..8 D slices
   k1-bf16-variants K1 in bfloat16 with its source varied (K1_BF16_VARIANTS),
                   each checked against the plain version and timed in turns
+  k3-bf16-variants K3 at bfloat16 compute with its source varied
+                  (K3_BF16_VARIANTS: a cluster a tile where the tree folds
+                  the slices into one block, two blocks an SM where the
+                  tree spreads them, stage B without the programmatic
+                  dependent launch) at 1, 4 and 8 members, each checked
+                  against the tree's z and the plain version and timed in
+                  turns
   k3-bf16-earlier only when named, with --earlier-csrc DIR: K3 at
-                  bfloat16 compute built from DIR, an earlier csrc/ (its
-                  ta3n_gather_gemm, one member's entry; e.g. `git
-                  archive 8024ae0 ta3n_tpu_torch/csrc | tar -x -C
-                  build/earlier`, the first wgmma design, whose W tiles
-                  came by cp.async), against the current one, both checked
+                  bfloat16 compute built from DIR, an earlier csrc/ whose
+                  K3 is one kernel (e.g. `git archive 7575d3f
+                  ta3n_tpu_torch/csrc | tar -x -C build/earlier`, a
+                  64 x 128 tile a block converting its own rows, with
+                  members; or 8024ae0, one member's entry, whose W tiles
+                  came by cp.async), called with its own K slices and
+                  float32 partials, against the current one at 1 member
+                  (and 4 and 8 where it has members), both checked
                   against the plain version and timed in turns
   k1-bf16-earlier only when named, with --earlier-csrc DIR: K1 in
                   bfloat16 built from DIR, an earlier csrc/ whose bfloat16
@@ -344,34 +356,40 @@ def probe_k3_splits() -> None:
         log(f"  N={n} x_res={with_rows}: ms by K slices {', '.join(line)}; "
             f"index_select + mm {library:.4f}; the wrapper picks "
             f"{chosen(n, w.shape[0], 64)}")
-    chosen = gather_gemm.bf16_grid
+    chosen = gather_gemm.bf16_plan
     w16 = w.to(torch.bfloat16)
     stores = {"bf16": store.to(torch.bfloat16), "int8": int8_store(store)}
-    for n, with_rows in chip_smoke.K3_BF16_TIMED:
+    cases = [(n, with_rows, 1) for n, with_rows in chip_smoke.K3_BF16_TIMED]
+    cases += [(640, True, members) for members in (4, 8)]
+    for n, with_rows, members in cases:
         rows = gather_gemm.row_index(rng.integers(0, store.shape[0], n),
                                      store.shape[0], "cuda")
-        pair = lambda: torch.mm(stores["bf16"].index_select(0, rows.rows),
-                                w16.t())
+        ws = torch.stack([w16] + [w16.roll(i, 0) for i in
+                                  range(1, members)])
+        pair = lambda: torch.matmul(stores["bf16"].index_select(
+            0, rows.rows), ws.transpose(1, 2))
         library = statistics.median(dev_ms(pair) for _ in range(21))
         for kind, st in stores.items():
-            fn = lambda: gather_gemm.gathered_gemm(st, rows, w16, None,
-                                                   with_rows)
+            fn = lambda: gather_gemm.gathered_gemm_members(st, rows, ws,
+                                                           None, with_rows)
             line = []
-            for splits in range(1, gather_gemm._MAX_SPLITS + 1):
-                gather_gemm.bf16_grid = (
-                    lambda m, h, d, k, dt, s=splits: (0, 0, s))
+            for splits in (1, 2, 4, 8):
+                gather_gemm.bf16_plan = (
+                    lambda *a, s=splits, **kw: chosen(*a, **kw)._replace(
+                        splits=s))
                 for _ in range(3):
                     fn()
                 ms = statistics.median(dev_ms(fn) for _ in range(21))
                 line.append(f"{splits}: {ms:.4f}")
-            gather_gemm.bf16_grid = chosen
-            pick = chosen(n, w.shape[0], w.shape[1], 1, st[0].dtype
-                          if isinstance(st, tuple) else st.dtype)[2]
-            log(f"  bf16 compute, {kind} store, N={n} x_res={with_rows}: ms "
-                f"by K slices {', '.join(line)}; index_select + mm in "
-                f"bfloat16 {library:.4f}; the wrapper picks {pick}")
+            gather_gemm.bf16_plan = chosen
+            pick = chosen(n, w.shape[0], w.shape[1], 1, members).splits
+            log(f"  bf16 compute, {kind} store, N={n} x_res={with_rows} "
+                f"members={members}: ms by K slices {', '.join(line)}; "
+                f"index_select + matmul in bfloat16 {library:.4f}; the "
+                f"wrapper picks {pick}")
             log("    by the profiler: " + kernel_times(fn))
-        log("    index_select + mm by the profiler: " + kernel_times(pair))
+        log("    index_select + matmul by the profiler: "
+            + kernel_times(pair))
 
 
 def int8_store(rows):
@@ -517,16 +535,18 @@ WGMMA_LOOP = """    const int s = c % kStages;
 
 WGMMA_WS_LOOP = """    const int s = c % kStages;
     mbar_wait(&full[s], (c / kStages) & 1);
-    convert(c, s);
-    fence_proxy_async();
-    named_sync(kConsumers);
+    if constexpr (kConvert) {
+      convert(c, s);
+      fence_proxy_async();
+      named_sync(kConsumers);
+    }
     fence_operands(acc);
     wgmma_fence();
     mma(c, s);
     wgmma_commit();
     wgmma_wait<1>();
     fence_operands(acc);
-    if (c > 0 && tid % 128 == 0) mbar_arrive(&empty[(c - 1) % kStages]);"""
+    if (c > first && tid % 128 == 0) release_stage<kStages>(empty, c - 1);"""
 
 def wgmma_stamped(loop: str, marks) -> str:
     """``loop`` with clock64 read after each line that starts with one of
@@ -597,12 +617,21 @@ extern "C" void probe_wphases_STEM(unsigned long long* out, int reset) {
     rows = gather_gemm.row_index(
         np.random.default_rng(0).integers(0, store.shape[0], 640),
         store.shape[0], "cuda")
-    k3_phases = ("land", "convert", "products", "previous batch", "stage")
-    for kind, st in (("bf16", store.to(torch.bfloat16)),
-                     ("int8", int8_store(store))):
-        measure(f"K3 bf16 compute, {kind} store, N=640 x_res",
-                lambda: gather_gemm.gathered_gemm(st, rows, w16),
-                "gather_gemm_bf16", k3_phases)
+    ws_phases = ("land", "convert", "products", "previous batch")
+    st = store.to(torch.bfloat16)
+    chosen = gather_gemm.bf16_plan
+    for members, splits in ((1, None), (4, None), (4, 1), (8, None)):
+        ws = torch.stack([w16] * members)
+        if splits is not None:
+            gather_gemm.bf16_plan = (
+                lambda *a, s=splits, **kw: chosen(*a, **kw)._replace(
+                    splits=s))
+        plan = gather_gemm.bf16_plan(640, 512, 2048, 1, members)
+        measure(f"K3 bf16 compute (stage B), bf16 store, N=640 x_res, "
+                f"{members} members, {plan.splits} K slices",
+                lambda: gather_gemm.gathered_gemm_members(st, rows, ws),
+                "gather_gemm_bf16", ws_phases)
+        gather_gemm.bf16_plan = chosen
     x, wt, bi = chip_smoke.bf16_trn_inputs(202, 5,
                                            torch.Generator().manual_seed(0))
     g = torch.randn((202, 4, 256), device="cuda").to(torch.bfloat16)
@@ -610,15 +639,13 @@ extern "C" void probe_wphases_STEM(unsigned long long* out, int reset) {
         _, masks = trn_fused.trn_multiscale_fwd_masks(x, wt, bi, 5)
         measure("K2 bf16 B=202 S=5",
                 lambda: trn_fused.trn_multiscale_bwd(x, wt, masks, g, 5),
-                "trn_fused_bwd_bf16",
-                ("land", "convert", "products", "previous batch"))
+                "trn_fused_bwd_bf16", ws_phases)
         for label, fn in (
                 ("K1 (train) bf16 B=202 S=5",
                  lambda: trn_fused.trn_multiscale_fwd_masks(x, wt, bi, 5)),
                 ("K1 (infer) bf16 B=202 S=5",
                  lambda: trn_fused.trn_multiscale_infer(x, wt, bi, 5))):
-            measure(label, fn, "trn_fused_fwd_bf16",
-                    ("land", "convert", "products", "previous batch"))
+            measure(label, fn, "trn_fused_fwd_bf16", ws_phases)
 
 
 def earlier_library(csrc: Path) -> ctypes.CDLL:
@@ -637,29 +664,59 @@ def earlier_library(csrc: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib_path))
 
 
-class _OneMemberGather:
-    """An earlier library whose K3 entry, ``ta3n_gather_gemm``, has no
-    member arguments, called as the current wrappers call
-    ``ta3n_gather_gemm_members`` with one member and shared indices."""
+def earlier_bf16_splits(m: int, h: int, d: int, k: int,
+                        store_kind: int) -> int:
+    """The K slices of the single-kernel design at bfloat16 compute (its
+    ops/gather_gemm.py::bf16_grid): 64 x 128 tiles, as many slices as the
+    blocks an SM holds by store (1 for float32, else 2) leave room for."""
+    tiles = -(-m // 64) * -(-h // 128)
+    room = 132 * (1 if store_kind == 0 else 2) // tiles
+    return max(1, min(8, k * -(-d // 64), room))
+
+
+class _EarlierGather:
+    """An earlier library called as the current wrappers call
+    ``ta3n_gather_gemm_members``: at bfloat16 compute with the earlier
+    design's K slices and float32 partials [members, splits, m, h] in
+    place of the current plan's.  An entry without members
+    (``ta3n_gather_gemm``) takes one member and shared indices."""
 
     def __init__(self, lib: ctypes.CDLL):
-        entry = lib.ta3n_gather_gemm
         members = _build._ENTRIES["ta3n_gather_gemm_members"]
-        entry.argtypes = members[:-3] + members[-1:]
+        self._members = hasattr(lib, "ta3n_gather_gemm_members")
+        if self._members:
+            entry = lib.ta3n_gather_gemm_members
+            entry.argtypes = members
+        else:
+            entry = lib.ta3n_gather_gemm
+            entry.argtypes = members[:-3] + members[-1:]
         entry.restype = ctypes.c_int
         self._entry = entry
 
     def ta3n_gather_gemm_members(self, *args):
-        *args, members, per_member, stream = args
+        args = list(args)
+        (n_idx, streams, d, k, h, splits, store_kind, compute_kind,
+         members, per_member) = args[8:18]
+        self._part = None
+        if compute_kind == 1:
+            m = n_idx * streams // k
+            splits = earlier_bf16_splits(m, h, d, k, store_kind)
+            self._part = (torch.empty((members, splits, m, h),
+                                      dtype=torch.float32, device="cuda")
+                          if splits > 1 else None)
+            args[7] = None if self._part is None else self._part.data_ptr()
+            args[13] = splits
+        if self._members:
+            return self._entry(*args)
         if (members, per_member) != (1, 0):
             raise ValueError("the earlier K3 entry takes one member")
-        return self._entry(*args, stream)
+        return self._entry(*args[:16], args[-1])
 
 
 def probe_k3_bf16_earlier(csrc: Path) -> None:
     log(f"k3-bf16-earlier (K3 at bfloat16 compute from {csrc}; device "
         "time, medians of 41 in turns)")
-    earlier = _OneMemberGather(earlier_library(csrc))
+    earlier = _EarlierGather(earlier_library(csrc))
     current = _build.load_library()
     store, w = store_and_weight()
     w16 = w.to(torch.bfloat16)
@@ -671,23 +728,30 @@ def probe_k3_bf16_earlier(csrc: Path) -> None:
         with_library(lib)
         return fn()
 
-    for n, with_rows in chip_smoke.K3_BF16_TIMED:
+    cases = [(n, with_rows, 1) for n, with_rows in chip_smoke.K3_BF16_TIMED]
+    if earlier._members:
+        cases += [(640, True, 4), (640, True, 8)]
+    for n, with_rows, members in cases:
         rows, scale = chip_smoke.gather_case(n, store.shape[0], rng)
+        ws = torch.stack([w16] + [w16.roll(i, 0) for i in
+                                  range(1, members)])
         for kind, st in stores.items():
-            fn = lambda: gather_gemm.gathered_gemm(st, rows, w16, scale,
-                                                   with_rows)
-            want = gather_gemm.gathered_gemm_plain(st, rows.rows, w16,
-                                                   scale)[0]
+            fn = lambda: gather_gemm.gathered_gemm_members(st, rows, ws,
+                                                           scale, with_rows)
+            want = [gather_gemm.gathered_gemm_plain(st, rows.rows, ws[i],
+                                                    scale)[0]
+                    for i in range(members)]
             for label, lib in (("earlier", earlier), ("current", current)):
-                ok, _ = chip_smoke.bf16_err(on(lib, fn)[0], want)
-                if not ok:
+                got = on(lib, fn)[0]
+                if not all(chip_smoke.bf16_err(got[i], want[i])[1]
+                           for i in range(members)):
                     raise AssertionError(f"{label} K3 {kind} N={n}")
             t = chip_smoke.time_pair({
                 "earlier": lambda: on(earlier, fn),
                 "current": lambda: on(current, fn)})
-            log(f"  {kind} store N={n} x_res={with_rows}: earlier "
-                f"{t['earlier']:.4f} ms, current {t['current']:.4f} ms "
-                f"({t['earlier'] / t['current']:.2f}x)")
+            log(f"  {kind} store N={n} x_res={with_rows} members={members}: "
+                f"earlier {t['earlier']:.4f} ms, current "
+                f"{t['current']:.4f} ms ({t['earlier'] / t['current']:.2f}x)")
     with_library(current)
 
 
@@ -959,6 +1023,64 @@ def probe_k1_bf16_variants() -> None:
     _build.load_library = tree
 
 
+K3_BF16_VARIANTS = {
+    "the tree": [],
+    "a cluster a tile at any N (no folded slices)": [
+        ("const bool fold = splits > 1 && !spread;",
+         "const bool fold = false;")],
+    "never one block an SM": [
+        (": spread ? kSmemSpread", ": false ? kSmemSpread")],
+    "stage B launched after stage A": [
+        ("attrs[0].val.programmaticStreamSerializationAllowed = 1;",
+         "attrs[0].val.programmaticStreamSerializationAllowed = 0;")],
+}
+
+
+def probe_k3_bf16_variants() -> None:
+    """K3 at bfloat16 compute built in each variant of K3_BF16_VARIANTS,
+    from the bfloat16 store at 640 rows with x_res and 1, 4 and 8 members
+    over one index set: z bitwise the tree's and within bf16_err of the
+    plain version, timed in turns, each kernel by the profiler."""
+    log("k3-bf16-variants (device ms, medians of 41 in turns)")
+    libs = {name: variant_library(f"k3 bf16 {name}", lambda text: text, "",
+                                  {"gather_gemm_bf16.cu": edits})[0]
+            for name, edits in K3_BF16_VARIANTS.items()}
+    tree = _build.load_library
+    store, w = store_and_weight()
+    st, w16 = store.to(torch.bfloat16), w.to(torch.bfloat16)
+    rows = gather_gemm.row_index(
+        np.random.default_rng(0).integers(0, store.shape[0], 640),
+        store.shape[0], "cuda")
+    rows320 = gather_gemm.row_index(rows.rows[:320].cpu(),
+                                    store.shape[0], "cuda")
+    for members, idx, with_rows in ((1, rows, True), (1, rows320, False),
+                                    (4, rows, True), (8, rows, True)):
+        ws = torch.stack([w16] + [w16.roll(i, 0) for i in
+                                  range(1, members)])
+        fn = lambda: gather_gemm.gathered_gemm_members(st, idx, ws, None,
+                                                       with_rows)
+        want = [gather_gemm.gathered_gemm_plain(st, idx.rows, ws[i])[0]
+                for i in range(members)]
+        fns, first = {}, None
+        for name, lib in libs.items():
+            def run(lib=lib):
+                with_library(lib)
+                return fn()
+            got = run()[0]
+            first = got if first is None else first
+            if not torch.equal(got, first) or not all(
+                    chip_smoke.bf16_err(got[i], want[i])[1]
+                    for i in range(members)):
+                raise AssertionError(f"{name}: K3 bf16, {members} members")
+            fns[name] = run
+        t = chip_smoke.time_pair(fns)
+        for name, run in fns.items():
+            log(f"  {members} members, {idx.rows.shape[0]} rows, "
+                f"{name}: {t[name]:.4f} ms "
+                f"({kernel_times(run)})")
+    _build.load_library = tree
+
+
 def probe_k1_bf16_earlier(csrc: Path) -> None:
     """K1 in bfloat16 built from an earlier csrc/ (the mma.sync design, whose
     C entries take the D slices of _fwd_splits in place of a grid) against
@@ -1082,7 +1204,8 @@ PROBES = {"mma-rate": probe_mma_rate, "k3-splits": probe_k3_splits,
           "wgmma-phases": probe_wgmma_phases,
           "k1-bf16-profile": probe_k1_bf16_profile,
           "k1-bf16-splits": probe_k1_bf16_splits,
-          "k1-bf16-variants": probe_k1_bf16_variants}
+          "k1-bf16-variants": probe_k1_bf16_variants,
+          "k3-bf16-variants": probe_k3_bf16_variants}
 
 
 def main(argv) -> int:

@@ -75,9 +75,8 @@
 // A bfloat16 store's value is float(v) * row_scale.  Every value is split
 // for 3xTF32 (a bfloat16 row times a 0/1 mask is exact in TF32 and its
 // small term is then 0, but the kernel does not assume the mask).
-// bfloat16 compute (W bfloat16) is the wgmma kernel of
-// gather_gemm_bf16.cu, which the C entry below launches for compute kind
-// 1, with its own split-K sum.
+// bfloat16 compute (W bfloat16) is gather_gemm_bf16.cu's rows kernel and
+// wgmma GEMM, which the C entry below launches for compute kind 1.
 
 #include <cuda_runtime.h>
 
@@ -391,12 +390,13 @@ int launch(const void* store, const void* qscale, const void* idx,
 }  // namespace
 
 namespace ta3n {
-// gather_gemm_bf16.cu: the bfloat16-compute kernel and its split-K sum
+// gather_gemm_bf16.cu: the bfloat16-compute kernels
 int launch_gather_gemm_bf16(const void* store, const void* qscale,
                             const void* idx, const void* scale,
-                            const void* w, void* z, void* x_res, void* part,
-                            long long m_rows, int streams, int d, int k_rows,
-                            int h, int splits, int store_kind, int members,
+                            const void* w, void* z, void* x_res,
+                            void* scratch, long long m_rows, int streams,
+                            int d, int k_rows, int h, int splits,
+                            int store_kind, int members,
                             long long idx_stride, cudaStream_t stream);
 }  // namespace ta3n
 
@@ -407,23 +407,26 @@ int launch_gather_gemm_bf16(const void* store, const void* qscale,
 // contiguous on the current device, where m = n_idx*streams/k_rows.  idx
 // [n_idx] int32 and scale [n_idx] f32 (null: every scale 1) on the same
 // device.  Every idx must lie in [0, rows): the caller checks.  splits
-// (1..8) K slices; with more than one, part is scratch of [splits, m, h]
-// f32, summed into z by a second kernel in a fixed order.  Compute kind 1
-// launches gather_gemm_bf16.cu's kernels.  An unknown kind is refused.
-// members (1 for a solo call) stacked members, at either compute kind,
-// one after another in w [members, h, k_rows*d], z [members, m, h] and
-// part [members, splits, m, h]; with per_member_idx 0 they share idx and
-// scale, and x_res [m, k_rows*d] is written once; with 1, idx and scale
-// are [members, n_idx] and x_res [members, m, k_rows*d].  Each member's
+// (1..8) K slices; at compute kind 0 with more than one, part is scratch
+// of [members, splits, m, h] f32, summed into z by a second kernel in a
+// fixed order.  Compute kind 1 launches gather_gemm_bf16.cu's kernels:
+// splits 1, 2, 4 or 8, summed within a cluster, and part bfloat16 scratch
+// of ops/gather_gemm.py::bf16_plan's size (null when it is 0).  An
+// unknown kind is refused.  members (1 for a solo call) stacked members,
+// at either compute kind, one after another in w [members, h, k_rows*d]
+// and z [members, m, h]; with per_member_idx 0 they share idx and scale,
+// and x_res [m, k_rows*d] is written once; with 1, idx and scale are
+// [members, n_idx] and x_res [members, m, k_rows*d].  Each member's
 // blocks do the work of a one-member launch on its inputs.  Launches on
-// `stream` and returns cudaGetLastError().
+// `stream` and returns the first error.
 extern "C" int ta3n_gather_gemm_members(
     const void* store, const void* qscale, const void* idx, const void* scale,
     const void* w, void* z, void* x_res, void* part, int n_idx, int streams,
     int d, int k_rows, int h, int splits, int store_kind, int compute_kind,
     int members, int per_member_idx, void* stream) {
   if (n_idx < 1 || streams < 1 || d < 1 || k_rows < 1 || h < 1 ||
-      splits < 1 || splits > kMaxSplits || (splits > 1 && part == nullptr) ||
+      splits < 1 || splits > kMaxSplits ||
+      (compute_kind == 0 && splits > 1 && part == nullptr) ||
       store_kind < 0 || store_kind > 2 || compute_kind < 0 ||
       compute_kind > 1 || ((store_kind == 2) != (qscale != nullptr)) ||
       members < 1 || per_member_idx < 0 || per_member_idx > 1)

@@ -1,11 +1,11 @@
 // Fused row gather + first-FC GEMM at bfloat16 compute, for Hopper
-// (sm_90a): wgmma from 128-byte swizzled shared tiles, from a float32,
-// bfloat16 or int8 store.
+// (sm_90a), from a float32, bfloat16 or int8 store: the gathered rows
+// converted once, then one GEMM on wgmma fed by TMA boxes.
 //
 // Replaces ta3n_tpu/ops/gather_gemm.py::_kernel (launched through
 // gathered_gemm) under the JAX model's bfloat16 compute: the function of
 // gather_gemm.cu (see its head), with W bfloat16 [H, k*D], each gathered
-// value scaled and rounded to bfloat16 exactly as there,
+// value scaled and rounded to bfloat16 as
 //     float32 store  v * row_scale
 //     bfloat16 store __fmul_rn(float(v), row_scale)
 //     int8 store     __fmul_rn(__fmul_rn(float(q), qscale[row]), row_scale)
@@ -13,61 +13,71 @@
 // bit the plain version's.  z = rows @ W^T with float32 accumulation,
 // rounded to bfloat16 once (after the split-K sum); x_res holds the
 // bfloat16 rows.  gather_gemm.cu's C entry ta3n_gather_gemm_members
-// launches this kernel and its split-K sum for compute kind 1.
+// launches these kernels for compute kind 1.
 //
-// What bounds it on the card.  At the flagship train shape (N = 640 rows,
-// D = 2048, H = 512) the work is 1.34 GFLOP, 1.4 us at the dense bfloat16
-// rate of 989 TFLOP/s, against 2.0 MB of W, 2.6 MB of x_res, 0.7 MB of z
-// and the rows (1.3 MB from an int8 store, 5.2 MB from a float32 one):
-// 2.0-4.5 us at 3.35 TB/s.  So the bound is bytes; what takes the time
-// is latency: a block runs only a few K chunks, and each chunk's loads,
-// conversion and barriers follow one another.  So the work per staged
-// value and per barrier has to be small: no value scaled, rounded and
-// packed again by every warp that reads it, many products a barrier.
+// What bounds it on the card.  At the flagship train shape (M = 640 rows,
+// D = 2048, H = 512) one member's work is 1.34 GFLOP, 1.4 us at the dense
+// bfloat16 rate of 989 TFLOP/s, against 2.0 MB of W, 2.6 MB of x_res, 0.7
+// MB of z and the rows (1.3 MB from an int8 store, 5.2 MB from a float32
+// one): 2.0-4.5 us at 3.35 TB/s.  So one member is bound by bytes; N
+// members sharing one index set add N - 1 weights and outputs (2.7 MB
+// each) and 1.34 GFLOP each, so at N = 8 the operations bound it (10.7
+// GFLOP, 10.9 us).  The earlier design (one kernel, a 64 x 128 tile a
+// block) staged, scaled and rounded the same gathered rows in every block
+// that read them, 4 N times a value at H = 512, and ran each 64-deep
+// chunk's copy, conversion, barrier and products in turn: half of a
+// chunk's cycles converted, and latency, not the tensor cores, set the
+// pace (PERF.md, section 6).
 //
-// What the design does about that.
-//  * A 64 x 128 output tile per block of two warpgroups, each running
-//    wgmma.mma_async m64n64k16 bf16 (wgmma_bf16.cuh) on 64 of the columns
-//    with float32 accumulators in registers; both operands K-major from
-//    128-byte swizzled shared tiles, the converted rows [64, 64] (shared
-//    by the two warpgroups) and W [128, 64] in nn.Linear layout.  At H =
-//    512 a gathered row is read by 4 column tiles.
-//  * 64-deep K chunks: one 128-byte bfloat16 row fills one swizzle row,
-//    four k16 products a chunk.  A chunk never crosses a gathered row, so
-//    a staged row has one address and one scale; values past D are zero.
-//  * A ring of 3 stages: W by one TMA box a chunk (a 2-d tensor map of W
-//    with the 128-byte swizzle, made once per weight, completing on the
-//    stage's mbarrier), and the raw rows in their store type by 16-byte
-//    cp.async (eight consecutive threads on consecutive pieces of a row,
-//    each thread's row addresses in registers, located again only when a
-//    chunk passes to the next gathered row).  Widths whose rows are not
-//    16-byte aligned (D = 37, 22) are staged by plain loads.
-//  * A convert pass, once per block and element: each thread turns eight
-//    staged values of a row into bfloat16 as above (at the common row
-//    scale 1 the multiply by it is skipped, exactly) and writes them as
-//    one 16-byte piece of the A tile (double-buffered, so the next chunk is
-//    converted while this one's products run) and, with x_res, as one
-//    16-byte store of x_res.  The blocks of a row tile's column tiles
-//    share that write: block y writes the rows of 16-row group p when
-//    p % min(column tiles, 4) == y.
-//  * Split K only where the tiles leave SMs without a block: gridDim.z
-//    blocks share an output tile over slices of the chunks into float32
-//    partials [splits, M, H], summed in a fixed order and rounded once by
-//    gather_gemm_bf16_sum, launched as a programmatic dependent launch so
-//    that its launch overlaps this kernel's end (no atomics: a second call
-//    gives the same bits); the host's choice is
-//    ops/gather_gemm.py::bf16_grid.
+// What the design does about that: two stages, so the GEMM's loop does
+// nothing but wait for boxes and multiply.
+//  * Stage A, gather_gemm_bf16_rows: each gathered value is read once in
+//    its store type and converted once a call (per index set: once for
+//    every member when they share one), a 16-byte piece of 8 values a
+//    thread, into the bfloat16 operand A [sets, M, P] (P = k*D rounded up
+//    to 8 values, so TMA can take its rows): x_res itself when the caller
+//    asks for it and its rows are 16-byte aligned, else a scratch of the
+//    call (x_res then written as well, as it is).  Bound by bytes.
+//  * Stage B, gather_gemm_bf16_kernel, launched as a programmatic
+//    dependent of stage A (it sets up while A runs; its producer waits for
+//    A's rows before the first box): a 128 x 128 output tile of one member
+//    a block, two consumer warpgroups on 64 rows each, wgmma.mma_async
+//    m64n128k16 bf16 from 128-byte swizzled tiles with float32
+//    accumulators in registers, so each W box serves 128 rows; both
+//    operands K-major, each 64-deep chunk one TMA box of A (rank 3, the
+//    index set outermost) and one of W (the rank-3 map of wgmma_bf16.cuh,
+//    the member outermost, so a column tile never runs into the next
+//    member's rows), zero-filled past M, H and k*D; a producer warp keeps a
+//    ring of 3 stages in flight (4 in the folded blocks below;
+//    wgmma_pipeline_ws, no conversion), its first W boxes issued before
+//    it waits for A.  2 blocks an SM, or one where the grid fits the SMs
+//    so: the launch then asks for more than half an SM's shared memory,
+//    since a cluster's blocks packed two to an SM left SMs idle (a quarter
+//    slower at one member, PERF.md).
+//  * Members: N members' columns are N grid rows (blockIdx.y) of one
+//    launch, over one A when they share an index set, so the gather and
+//    conversion are not repeated per member.
+//  * Split K only where one member's tiles leave SMs without a block.
+//    Where the slices' blocks fit the SMs one each, gridDim.z blocks share
+//    a tile over slices of the chunks, as one thread block cluster; each
+//    leaves its float32 partial tile in its shared memory and each sums
+//    its share of the tile's rows over the cluster's partials
+//    (distributed shared memory) in slice order, then rounds once.  Where
+//    they do not (more members), one block a tile runs the slices in turn
+//    (kFold: the ring once a slice, a 4-stage ring, one block an SM) and
+//    adds each slice's sum to a running float32 sum in shared memory in
+//    the same order: the same bits, without a cluster's wave of short
+//    blocks and its exchange.  No atomics and no float32 partials in
+//    device memory: a second call gives the same bits.  The slices come
+//    from one member's shape (ops/gather_gemm.py::bf16_plan), never from
+//    N, so member k's z is bitwise its solo launch's; a solo launch is
+//    N = 1.
+//  * Widths whose rows TMA cannot take (k*D not a multiple of 8, a weight
+//    not 16-byte aligned): stage A pads A's rows to P, and
+//    gather_gemm_bf16_repitch copies W into a scratch of P-value rows
+//    first.
 // Indices are not checked here: the Python wrapper only launches with
 // indices it checked on the host (0 <= idx < R).
-//
-// Members (ensembles): N weights [N, H, K] over one store in one launch,
-// the member folded into blockIdx.y beside the column tiles (member *
-// column tiles + tile), W by one rank-3 map with the member outermost
-// (wgmma_bf16.cuh).  With one index set for every member the rows are
-// gathered N times (from L2 after the first) and x_res is written once,
-// by member 0's blocks; with one each, every member writes its own x_res.
-// The K slices are chosen from one member's tiles, so each member's z is
-// bitwise its solo launch's; a solo launch is N = 1.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -84,349 +94,315 @@ namespace {
 
 using ta3n::bf16;
 
-constexpr int kTileM = 64;     // a warpgroup's wgmma rows
-constexpr int kTileN = 128;    // output columns per block, 64 a warpgroup
-constexpr int kTileK = 64;     // one 128-byte row of bfloat16
-constexpr int kThreads = ta3n::kConsumers;  // two warpgroups
-constexpr int kStages = 3;
-constexpr int kWBytes = kTileN * 128;  // a W tile, K-major
+// stage A: one 16-byte piece (8 values) of a gathered row a thread
+constexpr int kRowsThreads = 256;
 
-// Raw rows staged in the store's type, 64 values and 16 bytes of padding
-// a row; E values make a 16-byte piece, P pieces a row, and each thread
-// stages piece tid % P of kRowsPer rows, kRowStep apart.
-template <class S>
-struct Raw {
-  static constexpr int E = 16 / static_cast<int>(sizeof(S));
-  static constexpr int P = kTileK / E;
-  static constexpr int kPitch = kTileK + E;
-  static constexpr int kRowsPer = kTileM * P / kThreads;
-  static constexpr int kRowStep = kThreads / P;
-  static constexpr int kBytes = kTileM * kPitch * static_cast<int>(sizeof(S));
+// stage B
+constexpr int kTileM = 128;  // output rows, 64 a consumer warpgroup
+constexpr int kTileN = 128;  // output columns of one member
+constexpr int kTileK = 64;   // one 128-byte row of bfloat16
+constexpr int kMaxSplits = 8;
+constexpr int kThreads = ta3n::kConsumers + 32;  // and a producer warp
+// a stage: the A box (128 rows of 128 bytes), then the W box (as many);
+// after the stages each one's full and empty mbarriers
+constexpr int kBoxBytes = kTileM * 128;
+constexpr int kStageBytes = 2 * kBoxBytes;
+// The ring's shared memory, from a 1024-byte aligned base: kStages stages
+// (3, two blocks an SM; 4 in the folded blocks, one an SM), their
+// mbarriers at kBars, and the folded blocks' running sum of their slices
+// at kDone (64 float32 a consumer thread).  kSmem is asked for with 1024
+// bytes to align the base; kSmemSpread instead where the grid fits the
+// SMs one block each: more than half an SM's 228 KB, so that the blocks
+// (and the clusters) spread over the SMs and none shares one.
+template <bool kFold>
+struct Ring {
+  static constexpr int kStages = kFold ? 4 : 3;
+  static constexpr int kBars = kStages * kStageBytes;
+  static constexpr int kDone = kBars + 2 * kStages * 8;
+  static constexpr int kSmem =
+      kDone + (kFold ? ta3n::kConsumers * 64 * 4 : 0) + 1024;
+  static_assert(kDone % 16 == 0 && kSmem <= 232448, "the 227 KB opt-in");
 };
+constexpr int kSmemSpread = 120 * 1024;
+// the float32 partial tile of a K slice, over the ring once the products
+// are done; rows padded so that a warp's stores fall in distinct banks
+constexpr int kRedPitch = kTileN + 8;
+static_assert(kTileM == 2 * 64 && kTileN == kTileM, "two m64n128 halves");
+static_assert(kTileM * kRedPitch * 4 <= Ring<false>::kBars,
+              "the partial tile fits");
+static_assert(Ring<false>::kSmem <= kSmemSpread &&
+                  2 * (kSmemSpread + 1024) > 228 * 1024,
+              "one block an SM");
 
-// Dynamic shared memory, from a 1024-byte aligned base: the W tiles of
-// the ring, the two converted A tiles, the raw rows of the ring, each
-// stage's row scales (an int8 store's scales after them), and each
-// stage's mbarrier.
+// The value as the product and x_res see it, rounded to bfloat16: a
+// bfloat16 value at row scale 1 is its own rounding and keeps its bits.
 template <class S>
-struct Layout {
-  static constexpr int kA = kStages * kWBytes;
-  static constexpr int kRaw = kA + 2 * ta3n::kPanelBytes;
-  static constexpr int kScales = kRaw + kStages * Raw<S>::kBytes;
-  static constexpr int kBars = kScales + kStages * 2 * kTileM * 4;
-  static constexpr int kEnd = kBars + kStages * 8;
-  static constexpr int kSmem = kEnd + 1024;  // room to align the base
-};
+__device__ __forceinline__ bf16 convert(S v, float rs, float qs) {
+  if constexpr (std::is_same_v<S, float>) {
+    return __float2bfloat16_rn(v * rs);
+  } else if constexpr (std::is_same_v<S, bf16>) {
+    return rs == 1.f ? v : __float2bfloat16_rn(__fmul_rn(__bfloat162float(v),
+                                                         rs));
+  } else {
+    return __float2bfloat16_rn(
+        __fmul_rn(__fmul_rn(static_cast<float>(v), qs), rs));
+  }
+}
 
-// Eight staged values from p (16-byte aligned) as float32, exactly (and a
-// bfloat16 piece's bits as they are).
-__device__ __forceinline__ void load8(const float* p, float (&v)[8],
-                                      unsigned (&)[4]) {
+// Eight values of a store row: one 16-byte load of bfloat16, two of
+// float32, one 8-byte load of int8.
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
   v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8],
-                                      unsigned (&bits)[4]) {
+__device__ __forceinline__ void load8(const bf16* p, bf16 (&v)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
-  bits[0] = u.x, bits[1] = u.y, bits[2] = u.z, bits[3] = u.w;
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(bits[i] << 16);
-    v[2 * i + 1] = __uint_as_float(bits[i] & 0xffff0000u);
+    v[2 * i] = __ushort_as_bfloat16(static_cast<unsigned short>(w[i]));
+    v[2 * i + 1] =
+        __ushort_as_bfloat16(static_cast<unsigned short>(w[i] >> 16));
   }
 }
-__device__ __forceinline__ void load8(const int8_t* p, float (&v)[8],
-                                      unsigned (&)[4]) {
+__device__ __forceinline__ void load8(const int8_t* p, int8_t (&v)[8]) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
 #pragma unroll
   for (int e = 0; e < 8; ++e)
-    v[e] = static_cast<float>(static_cast<int8_t>(
-        ((e < 4 ? u.x : u.y) >> (8 * (e % 4))) & 0xffu));
+    v[e] = static_cast<int8_t>((e < 4 ? u.x : u.y) >> (8 * (e % 4)));
 }
 
-// The staged value as the product and x_res see it, before rounding.
-template <class S>
-__device__ __forceinline__ float value(float v, float rs, float qs) {
-  if constexpr (std::is_same_v<S, float>)
-    return v * rs;
-  else if constexpr (std::is_same_v<S, bf16>)
-    return __fmul_rn(v, rs);
-  else
-    return __fmul_rn(__fmul_rn(v, qs), rs);
-}
-
-// grid (ceil(M/64), members * ceil(H/128), splits): blockIdx.y = member
-// * column tiles + column tile.  Member m reads W and writes z and part
-// at m times one member's size, and reads idx and scale at m * idx_stride
-// (0: one index set for all, whose x_res member 0 writes; n_idx: its own,
-// and its own x_res).  kVec (D a multiple of 8 and of a 16-byte piece of
-// the store, 16-byte aligned store, W and x_res): the rows are staged by
-// 16-byte cp.async, each W tile is one TMA box of w_map completing on the
-// stage's mbarrier, and x_res is stored 16 bytes at a time; else plain
-// loads.  With splits > 1 the block writes float32 partials into part
-// (summed by gather_gemm_bf16_sum), else bfloat16 values into z.
+// Stage A: thread p of index set blockIdx.y converts piece p % ceil(D/8)
+// (values 8*(p % pieces) ..) of gathered row q = p / pieces into x_res
+// (unless null) [sets, M*k, D] and a (unless null) [sets, M, pitch], at
+// a's row q / k, columns (q % k) * D ...  Gathered row q is store row
+// idx[q / streams] * streams + q % streams, scaled by scale[q / streams]
+// (1 where scale is null); set s reads idx and scale at s * idx_stride.
+// kVec: D % 8 == 0 and 16-byte aligned store and x_res, so a piece is
+// one load and one store.
 template <class S, bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
-    gather_gemm_bf16_kernel(const __grid_constant__ CUtensorMap w_map,
-                            const S* __restrict__ store,
-                            const float* __restrict__ qscale,
-                            const int* __restrict__ idx,
-                            const float* __restrict__ scale,
-                            const bf16* __restrict__ w, bf16* __restrict__ z,
-                            float* __restrict__ part,
-                            bf16* __restrict__ x_res, long long m_rows,
-                            int streams, int d, int k_rows, int h,
-                            long long idx_stride) {
-  using R = Raw<S>;
-  using L = Layout<S>;
-  constexpr bool kInt8 = std::is_same_v<S, int8_t>;
+__global__ void __launch_bounds__(kRowsThreads)
+    gather_gemm_bf16_rows(const S* __restrict__ store,
+                          const float* __restrict__ qscale,
+                          const int* __restrict__ idx,
+                          const float* __restrict__ scale,
+                          bf16* __restrict__ x_res, bf16* __restrict__ a,
+                          long long q_rows, int streams, int d, int k_rows,
+                          int pitch, long long idx_stride) {
+  // stage B may be launched now: it waits for this grid's stores
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int pieces = (d + 7) / 8;
+  const long long p =
+      static_cast<long long>(blockIdx.x) * kRowsThreads + threadIdx.x;
+  if (p >= q_rows * pieces) return;
+  const long long set = blockIdx.y;
+  const long long q = p / pieces;
+  const int col = static_cast<int>(p % pieces) * 8;
+  const long long n = q / streams;
+  const long long r = idx[set * idx_stride + n];
+  const S* src = store + (r * streams + q % streams) * d + col;
+  const float rs = scale != nullptr ? scale[set * idx_stride + n] : 1.f;
+  float qs = 1.f;
+  if constexpr (std::is_same_v<S, int8_t>) qs = qscale[r];
+  bf16 out[8];
+  if constexpr (kVec) {
+    S in[8];
+    load8(src, in);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) out[e] = convert<S>(in[e], rs, qs);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      out[e] = col + e < d ? convert<S>(src[e], rs, qs)
+                           : __ushort_as_bfloat16(0);
+  }
+  const long long m_rows = q_rows / k_rows;
+  bf16* dsts[2] = {
+      x_res != nullptr ? x_res + (set * q_rows + q) * d + col : nullptr,
+      a != nullptr ? a + (set * m_rows + q / k_rows) * pitch +
+                         (q % k_rows) * d + col
+                   : nullptr};
+#pragma unroll
+  for (bf16* dst : dsts) {
+    if (dst == nullptr) continue;
+    if constexpr (kVec) {
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(ta3n::pack2(out[0], out[1]), ta3n::pack2(out[2], out[3]),
+                     ta3n::pack2(out[4], out[5]), ta3n::pack2(out[6], out[7]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (col + e < d) dst[e] = out[e];
+    }
+  }
+}
+
+// The rows [rows, cols] of w into out, `pitch` values apart: a weight
+// whose rows TMA cannot take, for stage B.
+__global__ void gather_gemm_bf16_repitch(const bf16* __restrict__ w,
+                                         bf16* __restrict__ out,
+                                         long long rows, int cols,
+                                         int pitch) {
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < rows * cols; e += static_cast<long long>(gridDim.x) * blockDim.x)
+    out[e / cols * pitch + e % cols] = w[e];
+}
+
+// The tensor maps of stage B: A [sets, M, k*D] and W [members, H, k*D],
+// boxes of 64 x 128 x 1, 128-byte swizzle.
+struct Maps {
+  CUtensorMap a, w;
+};
+
+// A cluster-wide barrier of every thread of the cluster's blocks, which
+// orders their shared-memory stores before the reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Four float32 values at shared address `addr` of this block, read in the
+// block of rank `rank` of the cluster (after a cluster_sync that published
+// them; no write follows before the next one).
+__device__ __forceinline__ float4 ld_cluster4(unsigned addr, unsigned rank) {
+  unsigned remote;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
+      : "=r"(remote)
+      : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote));
+  return v;
+}
+
+// Stage B.  Block (blockIdx.x = row tile * col_tiles + column tile,
+// member blockIdx.y, K slice blockIdx.z of gridDim.z = slices, a cluster
+// along z): z[member, 128 rows, 128 columns] of z [members, M, H] from
+// A's index set (0 when shared, else the member) and the member's W.
+// kFold (gridDim.z 1, one block an SM by its shared memory): the block
+// runs all `slices` K slices in turn, each into fresh accumulators, and
+// keeps their float32 sum in slice order, as the cluster's sum adds them
+// (the same bits).  pairs / quads: z rows may be written 2 / 4 values at a
+// time (H even / a multiple of 4, z aligned to match).
+template <bool kFold>
+__global__ void __launch_bounds__(kThreads, kFold ? 1 : 2)
+    gather_gemm_bf16_kernel(const __grid_constant__ Maps maps,
+                            bf16* __restrict__ z, long long m_rows, int h,
+                            int kd, int col_tiles, int shared_rows,
+                            int slices, int pairs, int quads) {
+  constexpr int kStages = Ring<kFold>::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (ta3n::smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
-
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int wg = tid / 128, warp = tid % 128 / 32;  // warp of its group
-  const long long m0 = static_cast<long long>(blockIdx.x) * kTileM;
-  const int h_tiles = (h + kTileN - 1) / kTileN;
-  const int member = blockIdx.y / h_tiles, h_tile = blockIdx.y % h_tiles;
-  const int h0 = h_tile * kTileN;
-  const long long kdim = static_cast<long long>(k_rows) * d;  // W row
-  w += static_cast<long long>(member) * h * kdim;
-  z += static_cast<long long>(member) * m_rows * h;
-  idx += member * idx_stride;
-  if (scale != nullptr) scale += member * idx_stride;
-  if (gridDim.z > 1)
-    part += (static_cast<long long>(member) * gridDim.z + blockIdx.z) *
-            m_rows * h;
-  const int valid_rows =
-      m_rows - m0 < kTileM ? static_cast<int>(m_rows - m0) : kTileM;
-  // the x_res rows of 16-row group p this block writes: p % writers ==
-  // its column tile; of shared indices only member 0's blocks write
-  const int writers = h_tiles < 4 ? h_tiles : 4;
-  const bool write_any = x_res != nullptr && h_tile < 4 &&
-                         (idx_stride != 0 || member == 0);
-  if (write_any) x_res += static_cast<long long>(member) * m_rows * kdim;
-
-  // this block's K slice, in chunks of kTileK within one gathered row
-  const int per_row = (d + kTileK - 1) / kTileK;
-  const long long chunks = static_cast<long long>(k_rows) * per_row;
-  const int c_begin = static_cast<int>(chunks * blockIdx.z / gridDim.z);
-  const int c_end = static_cast<int>(chunks * (blockIdx.z + 1) / gridDim.z);
-
-  if constexpr (kVec) {
-    if (tid == 0) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + Ring<kFold>::kBars);
+  const int tid = threadIdx.x;
+  const int member = blockIdx.y;
+  const long long m0 =
+      static_cast<long long>(blockIdx.x / col_tiles) * kTileM;
+  const int h0 = static_cast<int>(blockIdx.x % col_tiles) * kTileN;
+  const int split = blockIdx.z, splits = gridDim.z;  // kFold: 0 of 1
+  const int set = shared_rows ? 0 : member;
+  // this block's K slice, in 64-deep chunks
+  const int chunks = (kd + kTileK - 1) / kTileK;
+  const int c_begin = chunks * split / splits;
+  const int n = chunks * (split + 1) / splits - c_begin;
+  if (tid == 0) {
 #pragma unroll
-      for (int s = 0; s < kStages; ++s) ta3n::mbar_init(&bars[s], 1);
-      ta3n::mbar_fence_init();
+    for (int s = 0; s < kStages; ++s) {
+      ta3n::mbar_init(&bars[s], 1);            // full: the producer
+      ta3n::mbar_init(&bars[kStages + s], 2);  // empty: the consumers
     }
-    __syncthreads();
+    ta3n::mbar_fence_init();
   }
+  __syncthreads();
 
-  // the rows this thread stages, of the current chunk's gathered row j
-  // (located again only when a chunk passes to the next gathered row):
-  // rows srow0 + kRowStep * i, i < kRowsPer (kVec), or row tid % 64 (a
-  // quarter of it each by four threads)
-  constexpr int kRows = kVec ? R::kRowsPer : 1;
-  const int piece = tid % R::P;
-  const int srow0 = kVec ? tid / R::P : tid % kTileM;
-  int row_j = -1;
-  const S* rows[kRows];
-  float row_scale[kRows], row_q[kRows];
-  auto locate = [&](int j) {
-    row_j = j;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const long long m = m0 + srow0 + R::kRowStep * i;
-      rows[i] = nullptr;
-      row_scale[i] = 0.f;
-      row_q[i] = 1.f;
-      if (m < m_rows) {
-        const long long q = m * k_rows + j;
-        const long long n = q / streams;
-        const long long r = idx[n];
-        rows[i] = store + (r * streams + q % streams) * d;
-        row_scale[i] = scale != nullptr ? scale[n] : 1.f;
-        if constexpr (kInt8) row_q[i] = qscale[r];
-      }
-    }
+  // chunk c's W box into stage s, counting both boxes on its barrier
+  auto produce_w = [&](int c, int s) {
+    ta3n::mbar_arrive_expect_tx(&bars[s], kStageBytes);
+    ta3n::tma_load_3d(smem + s * kStageBytes + kBoxBytes, &maps.w,
+                      (c_begin + c) * kTileK, h0, member, &bars[s]);
   };
-
-  auto issue = [&](int c, int s) {
-    c += c_begin;
-    const int j = c / per_row;
-    const int c0 = (c % per_row) * kTileK;
-    unsigned char* wt = smem + s * kWBytes;
-    S* raw = reinterpret_cast<S*>(smem + L::kRaw + s * R::kBytes);
-    float* scales = reinterpret_cast<float*>(smem + L::kScales) +
-                    s * 2 * kTileM;
-    const int cols = d - c0 < kTileK ? d - c0 : kTileK;
-    if constexpr (kVec) {
-      // W first (it needs no index), by one thread of the last warp
-      if (tid == kThreads - 32) {
-        ta3n::mbar_arrive_expect_tx(&bars[s], kWBytes);
-        ta3n::tma_load_3d(wt, &w_map, static_cast<int>(j * d + c0), h0,
-                          member, &bars[s]);
-      }
+  auto produce = [&](int c, int s, uint64_t* full) {
+    if (tid != ta3n::kConsumers) return;  // one thread issues the boxes
+    if (c == 0) {
+      // W is ready before stage A ends (a repitched W was written by a
+      // kernel that ended before A began): the ring's first W boxes, then
+      // wait for A's rows
+      for (int f = 0; f < kStages && f < n; ++f) produce_w(f, f);
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    } else if (c >= kStages) {
+      produce_w(c, s);
     }
-    if (j != row_j) locate(j);
-    if constexpr (kVec) {
-      const int col = piece * R::E;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = srow0 + R::kRowStep * i;
-        if (piece == 0) {
-          scales[r] = row_scale[i];
-          if constexpr (kInt8) scales[kTileM + r] = row_q[i];
-        }
-        const bool in = rows[i] != nullptr && col < cols;
-        ta3n::cp_async16(raw + r * R::kPitch + col,
-                         in ? rows[i] + c0 + col : store, in ? 16 : 0);
-      }
-      ta3n::cp_async_commit();
-    } else {
-      // the row chunk by four threads, a quarter each; W by pieces
-      const int quarter = tid / kTileM;
-      if (quarter == 0) {
-        scales[srow0] = row_scale[0];
-        if constexpr (kInt8) scales[kTileM + srow0] = row_q[0];
-      }
-#pragma unroll
-      for (int pc = 0; pc < R::P / 4; ++pc) {
-        const int col = (quarter * R::P / 4 + pc) * R::E;
-        ta3n::copy_bytes16(raw + srow0 * R::kPitch + col,
-                           rows[0] != nullptr ? rows[0] + c0 + col : store,
-                           rows[0] != nullptr ? cols - col : 0);
-      }
-      const int wpiece = tid % 8, wrow0 = tid / 8;
-#pragma unroll
-      for (int i = 0; i < kTileN * 8 / kThreads; ++i) {
-        const int r = wrow0 + kThreads / 8 * i;
-        const int gh = h0 + r;
-        const bf16* src =
-            w + gh * kdim + static_cast<long long>(j) * d + c0 + 8 * wpiece;
-        ta3n::copy_bytes16(wt + ta3n::swizzle128(r * 128 + wpiece * 16),
-                           gh < h ? src : w, gh < h ? cols - 8 * wpiece : 0);
-      }
-    }
+    ta3n::tma_load_3d(smem + s * kStageBytes, &maps.a,
+                      (c_begin + c) * kTileK, static_cast<int>(m0), set,
+                      full);
   };
-  const int n_chunks = c_end - c_begin;
-  auto land = [&](int c, int s) {
-    if constexpr (kVec) {
-      ta3n::cp_async_land<kStages>(c, n_chunks);
-      ta3n::mbar_wait(&bars[s], (c / kStages) & 1);
-    }
-  };
-
-  // convert: piece cp = tid % 8 (values 8cp..8cp+7) of rows
-  // tid / 8 + 32p, p = 0, 1; rows past M and values past D become 0
-  constexpr int kConv = kTileM * 8 / kThreads, kConvStep = kThreads / 8;
-  const int cp = tid % 8, crow0 = tid / 8;
-  auto convert = [&](int c, int s) {
-    const S* raw = reinterpret_cast<const S*>(smem + L::kRaw + s * R::kBytes);
-    const float* scales = reinterpret_cast<const float*>(smem + L::kScales) +
-                          s * 2 * kTileM;
-    unsigned char* a = smem + L::kA + (c % 2) * ta3n::kPanelBytes;
-    const int cg = c + c_begin;
-    const int j = cg / per_row;
-    const int col = (cg % per_row) * kTileK + 8 * cp;
-    // all loads first, then the stores (the compiler cannot tell the
-    // shared addresses apart and would wait out each load in turn); the
-    // rows are 32 apart, so their swizzled pieces 4096 bytes apart
-    float v[kConv][8], rs[kConv], qs[kConv];
-    unsigned raw_bits[kConv][4];  // a bfloat16 row's piece as staged
-#pragma unroll
-    for (int p = 0; p < kConv; ++p) {
-      const int r = crow0 + kConvStep * p;
-      rs[p] = scales[r];
-      qs[p] = kInt8 ? scales[kTileM + r] : 1.f;
-      load8(raw + r * R::kPitch + 8 * cp, v[p], raw_bits[p]);
-    }
-    unsigned char* a_piece = a + ta3n::swizzle128(crow0 * 128 + cp * 16);
-    bf16* x_row = x_res + ((m0 + crow0) * k_rows + j) * d + col;
-    const long long x_step = static_cast<long long>(kConvStep) * k_rows * d;
-#pragma unroll
-    for (int p = 0; p < kConv; ++p) {
-      const int r = crow0 + kConvStep * p;
-      const bool row_in = r < valid_rows;
-      unsigned packed[4];
-      if (kVec && rs[p] == 1.f) {
-        // the common row scale: the multiply by it is exact and skipped
-        // (a bfloat16 row is its own rounding, bit for bit but for a NaN's
-        // payload)
-        const bool in = row_in && col < d;
-#pragma unroll
-        for (int e = 0; e < 8; e += 2) {
-          if constexpr (std::is_same_v<S, bf16>)
-            packed[e / 2] = raw_bits[p][e / 2];
-          else
-            packed[e / 2] = ta3n::pack2f(value<S>(v[p][e], 1.f, qs[p]),
-                                         value<S>(v[p][e + 1], 1.f, qs[p]));
-          if (!in) packed[e / 2] = 0;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; e += 2) {
-          const bool in0 = row_in && (kVec ? col < d : col + e < d);
-          const bool in1 = row_in && (kVec ? col < d : col + e + 1 < d);
-          packed[e / 2] = ta3n::pack2f(
-              in0 ? value<S>(v[p][e], rs[p], qs[p]) : 0.f,
-              in1 ? value<S>(v[p][e + 1], rs[p], qs[p]) : 0.f);
-        }
-      }
-      const uint4 piece = make_uint4(packed[0], packed[1], packed[2],
-                                     packed[3]);
-      *reinterpret_cast<uint4*>(a_piece + kConvStep * 128 * p) = piece;
-      if (write_any && r / 16 % writers == h_tile && row_in && col < d) {
-        bf16* dst = x_row + x_step * p;
-        if constexpr (kVec) {
-          *reinterpret_cast<uint4*>(dst) = piece;
-        } else {
-          const bf16* vals = reinterpret_cast<const bf16*>(&piece);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (col + e < d) dst[e] = vals[e];
-        }
-      }
-    }
-  };
-
-  // each warpgroup's half of the tile: columns (W rows) 64wg..64wg+63
-  float acc[kTileN / 4] = {};
-  auto mma = [&](int c, int s) {
-    const uint64_t a =
-        ta3n::kmajor_desc(smem + L::kA + (c % 2) * ta3n::kPanelBytes);
-    const uint64_t b =
-        ta3n::kmajor_desc(smem + s * kWBytes + wg * (kTileN / 2) * 128);
+  // each warpgroup's half: rows 64wg.. of the A box, all 128 W rows
+  const int wg = tid / 128;
+  float acc[kTileN / 2] = {};
+  auto mma = [&](int, int s) {
+    unsigned char* st = smem + s * kStageBytes;
+    const uint64_t a = ta3n::kmajor_desc(st + wg * (kBoxBytes / 2));
+    const uint64_t b = ta3n::kmajor_desc(st + kBoxBytes);
 #pragma unroll
     for (int k = 0; k < kTileK / 16; ++k)
       ta3n::wgmma<0, 0>(acc, a + k * ta3n::kKMajorStep,
                         b + k * ta3n::kKMajorStep);
   };
-  ta3n::wgmma_pipeline<kStages>(n_chunks, acc, issue, land, convert, mma);
-  // the split-K sum may be launched now; it waits for this grid's stores
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if constexpr (kFold) {
+    // the ring run over one slice at a time, each into fresh accumulators,
+    // and the slices' sums added in order between the runs (outside the
+    // ring's loop, where reading the accumulators would hold back every
+    // batch of products), the running sum in shared memory (in registers
+    // beside the accumulators it spilled), each thread's own values
+    float* done = reinterpret_cast<float*>(smem + Ring<kFold>::kDone) + tid;
+    for (int g = 0; g < slices; ++g) {
+      const int first = chunks * g / slices;
+      if (g > 0) {
+#pragma unroll
+        for (int i = 0; i < kTileN / 2; ++i) acc[i] = 0.f;
+      }
+      ta3n::wgmma_pipeline_ws<kStages, false>(
+          chunks * (g + 1) / slices - first, acc, bars, bars + kStages, tid,
+          produce, [](int, int) {}, mma, first);
+      if (tid >= ta3n::kConsumers) continue;
+      if (g + 1 < slices) {
+#pragma unroll
+        for (int i = 0; i < kTileN / 2; ++i)
+          done[ta3n::kConsumers * i] =
+              g == 0 ? acc[i] : done[ta3n::kConsumers * i] + acc[i];
+        if (tid % 128 == 0)
+          ta3n::release_stage<kStages>(bars + kStages,
+                                       chunks * (g + 1) / slices - 1);
+      } else if (g > 0) {
+#pragma unroll
+        for (int i = 0; i < kTileN / 2; ++i)
+          acc[i] = done[ta3n::kConsumers * i] + acc[i];
+      }
+    }
+  } else {
+    ta3n::wgmma_pipeline_ws<kStages, false>(n, acc, bars, bars + kStages,
+                                            tid, produce, [](int, int) {},
+                                            mma);
+  }
 
-  const bool pairs = h % 2 == 0;
+  z += static_cast<long long>(member) * m_rows * h;
+  const int lane = tid % 32, warp = tid % 128 / 32;
+  if (splits == 1) {
+    if (tid >= ta3n::kConsumers) return;
 #pragma unroll
-  for (int jn = 0; jn < kTileN / 16; ++jn)
+    for (int jn = 0; jn < kTileN / 8; ++jn)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const long long om = m0 + 16 * warp + lane / 4 + 8 * i;
-      const int oh = h0 + kTileN / 2 * wg + 8 * jn + 2 * (lane % 4);
-      if (om >= m_rows || oh >= h) continue;
-      const float v0 = acc[4 * jn + 2 * i], v1 = acc[4 * jn + 2 * i + 1];
-      if (gridDim.z > 1) {
-        float* dst = part + om * h + oh;
-        if (pairs) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-        } else {
-          dst[0] = v0;
-          if (oh + 1 < h) dst[1] = v1;
-        }
-      } else {
+      for (int i = 0; i < 2; ++i) {
+        const long long om = m0 + 64 * wg + 16 * warp + lane / 4 + 8 * i;
+        const int oh = h0 + 8 * jn + 2 * (lane % 4);
+        if (om >= m_rows || oh >= h) continue;
+        const float v0 = acc[4 * jn + 2 * i], v1 = acc[4 * jn + 2 * i + 1];
         bf16* dst = z + om * h + oh;
         if (pairs) {
           *reinterpret_cast<unsigned*>(dst) = ta3n::pack2f(v0, v1);
@@ -435,112 +411,197 @@ __global__ void __launch_bounds__(kThreads, 2)
           if (oh + 1 < h) dst[1] = __float2bfloat16_rn(v1);
         }
       }
-    }
-}
+    return;
+  }
 
-// z[i] = sum over s of part[s][i], s in order, rounded to bfloat16 once:
-// the split-K sum of each member (part [members, splits, count], z
-// [members, count]), four elements a thread where count % 4 == 0.
-__global__ void gather_gemm_bf16_sum(const float* __restrict__ part,
-                                     bf16* __restrict__ z, long long count,
-                                     int splits, int members) {
-  // the partials of the kernel before it on the stream, complete
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first =
-      blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (count % 4 == 0) {
-    const long long n4 = count / 4;
-    const float4* part4 = reinterpret_cast<const float4*>(part);
-    for (long long e = first; e < n4 * members; e += step) {
-      const float4* p = part4 + e / n4 * splits * n4 + e % n4;
-      float4 sum = p[0];
-      for (int s = 1; s < splits; ++s) {
-        const float4 v = p[s * n4];
-        sum.x += v.x;
-        sum.y += v.y;
-        sum.z += v.z;
-        sum.w += v.w;
+  // the cluster's split-K sum: every slice's partial tile in its block's
+  // shared memory, then each block sums rows [r0, r1) of the tile over the
+  // slices in order and rounds once
+  float* red = reinterpret_cast<float*>(smem);
+  if (tid < ta3n::kConsumers) {
+#pragma unroll
+    for (int jn = 0; jn < kTileN / 8; ++jn)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = 64 * wg + 16 * warp + lane / 4 + 8 * i;
+        const int col = 8 * jn + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(red + row * kRedPitch + col) =
+            make_float2(acc[4 * jn + 2 * i], acc[4 * jn + 2 * i + 1]);
       }
-      reinterpret_cast<uint2*>(z)[e] =
-          make_uint2(ta3n::pack2f(sum.x, sum.y), ta3n::pack2f(sum.z, sum.w));
+  }
+  cluster_sync();
+  const int r0 = kTileM * split / splits;
+  const int r1 = kTileM * (split + 1) / splits;
+  const unsigned base = ta3n::smem_addr(red);
+  constexpr int kQuads = kTileN / 4;
+  for (int e = tid; e < (r1 - r0) * kQuads; e += kThreads) {
+    const int row = r0 + e / kQuads, col = e % kQuads * 4;
+    const unsigned at = base + (row * kRedPitch + col) * 4;
+    // every slice's four values first (the remote loads in flight
+    // together), then their sum in slice order
+    float4 v[kMaxSplits];
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s)
+      if (s < splits) v[s] = ld_cluster4(at, s);
+    float4 sum = v[0];
+#pragma unroll
+    for (int s = 1; s < kMaxSplits; ++s) {
+      if (s >= splits) break;
+      sum.x += v[s].x;
+      sum.y += v[s].y;
+      sum.z += v[s].z;
+      sum.w += v[s].w;
     }
-  } else {
-    for (long long e = first; e < count * members; e += step) {
-      const float* p = part + e / count * splits * count + e % count;
-      float sum = p[0];
-      for (int s = 1; s < splits; ++s) sum += p[s * count];
-      z[e] = __float2bfloat16_rn(sum);
+    const long long om = m0 + row;
+    const int oh = h0 + col;
+    if (om >= m_rows || oh >= h) continue;
+    bf16* dst = z + om * h + oh;
+    if (quads) {
+      *reinterpret_cast<uint2*>(dst) =
+          make_uint2(ta3n::pack2f(sum.x, sum.y), ta3n::pack2f(sum.z, sum.w));
+    } else {
+      const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (oh + u < h) dst[u] = __float2bfloat16_rn(v[u]);
     }
   }
+  // no block leaves while the others read its shared memory
+  cluster_sync();
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, once on each
 // device (smem_optin.cuh).
-template <class S, bool kVec>
+template <bool kFold>
 cudaError_t allow_smem() {
   static std::atomic<int> granted[ta3n::kMaxDevices];
-  return ta3n::allow_smem_on_device(gather_gemm_bf16_kernel<S, kVec>,
-                                    granted, Layout<S>::kSmem);
+  return ta3n::allow_smem_on_device(gather_gemm_bf16_kernel<kFold>, granted,
+                                    kFold ? Ring<true>::kSmem : kSmemSpread);
+}
+
+bool aligned(const void* p, unsigned bytes) {
+  return reinterpret_cast<unsigned long long>(p) % bytes == 0;
+}
+
+// The tensor map of a bfloat16 operand [layers, rows, cols] whose rows lie
+// `pitch` values apart (a multiple of 8), in boxes of 64 columns x 128
+// rows of one layer; zeros out of range.
+int operand_map(const void* base, long long cols, long long rows,
+                int layers, long long pitch, CUtensorMap* map) {
+  const cuuint64_t row = static_cast<cuuint64_t>(pitch) * 2;
+  return ta3n::encode_map(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base,
+      {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+       static_cast<cuuint64_t>(layers)},
+      {row, row * static_cast<cuuint64_t>(rows)}, {kTileK, kTileM, 1},
+      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <class S>
 int launch(const void* store, const void* qscale, const void* idx,
            const void* scale, const void* w, void* z, void* x_res,
-           void* part, long long m_rows, int streams, int d, int k_rows,
+           void* scratch, long long m_rows, int streams, int d, int k_rows,
            int h, int splits, int members, long long idx_stride,
            cudaStream_t stream) {
-  const long long tiles = (m_rows + kTileM - 1) / kTileM;
-  const long long h_tiles = (h + kTileN - 1) / kTileN;
-  if (tiles > 0x7fffffffLL || h_tiles * members > 65535)
+  const long long kd = static_cast<long long>(k_rows) * d;
+  const long long pitch = (kd + 7) / 8 * 8;
+  const long long chunks = (kd + kTileK - 1) / kTileK;
+  const long long tiles = (m_rows + kTileM - 1) / kTileM *
+                          ((h + kTileN - 1) / kTileN);
+  const int sets = idx_stride != 0 ? members : 1;
+  const long long q_rows = m_rows * k_rows;
+  const long long rows_blocks =
+      (q_rows * ((d + 7) / 8) + kRowsThreads - 1) / kRowsThreads;
+  if (members > 65535 || tiles > 0x7fffffffLL || rows_blocks > 0x7fffffffLL ||
+      splits < 1 || splits > kMaxSplits || (splits & (splits - 1)) != 0 ||
+      splits > chunks)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
-  };
-  // (D % 8 == 0 makes W's strides, the members' too, multiples of 16
-  // bytes, and each member's x_res and W 16-byte aligned)
-  const bool vec = d % 8 == 0 && d % Raw<S>::E == 0 && aligned(store) &&
-                   aligned(w) && (x_res == nullptr || aligned(x_res));
-  CUtensorMap map{};
-  if (vec) {
-    const int err = ta3n::weight_map(w, static_cast<long long>(k_rows) * d,
-                                     h, members, kTileK, kTileN, &map);
-    if (err != 0) return err;
-  }
-  const cudaError_t attr =
-      vec ? allow_smem<S, true>() : allow_smem<S, false>();
+  // the operands of stage B: x_res itself, and the weight, where TMA can
+  // take their rows; else scratch (ops/gather_gemm.py::bf16_plan sizes it
+  // alike): A's rows of `pitch` values, then W's
+  const bool a_direct = x_res != nullptr && kd % 8 == 0 && aligned(x_res, 16);
+  const bool w_direct = kd % 8 == 0 && aligned(w, 16);
+  bf16* a = a_direct ? static_cast<bf16*>(x_res) : static_cast<bf16*>(scratch);
+  bf16* w_rows = w_direct ? nullptr
+                          : static_cast<bf16*>(scratch) +
+                                (a_direct ? 0 : sets * m_rows * pitch);
+  if ((!a_direct || !w_direct) &&
+      (scratch == nullptr || !aligned(scratch, 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Maps maps{};
+  int err = operand_map(a, kd, m_rows, sets, pitch, &maps.a);
+  if (err == 0)
+    err = w_direct ? ta3n::weight_map(w, kd, h, members, kTileK, kTileN,
+                                      &maps.w)
+                   : operand_map(w_rows, kd, h, members, pitch, &maps.w);
+  if (err != 0) return err;
+  cudaError_t attr = allow_smem<false>();
+  if (attr == cudaSuccess) attr = allow_smem<true>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>(tiles),
-                  static_cast<unsigned>(h_tiles * members), splits);
-  (vec ? gather_gemm_bf16_kernel<S, true>
-       : gather_gemm_bf16_kernel<S, false>)
-      <<<grid, kThreads, Layout<S>::kSmem, stream>>>(
-          map, static_cast<const S*>(store),
-          static_cast<const float*>(qscale), static_cast<const int*>(idx),
-          static_cast<const float*>(scale), static_cast<const bf16*>(w),
-          static_cast<bf16*>(z), static_cast<float*>(part),
-          static_cast<bf16*>(x_res), m_rows, streams, d, k_rows, h,
-          idx_stride);
-  if (splits > 1) {
-    // launched while the first kernel runs (programmatic dependent
-    // launch); it waits for that kernel's partials before reading them
-    const long long count = m_rows * h;
-    const long long blocks = (count * members / 4 + 255) / 256;
-    cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(static_cast<unsigned>(blocks < 1024 ? blocks + 1
-                                                              : 1024));
-    config.blockDim = dim3(256);
-    config.stream = stream;
-    cudaLaunchAttribute early[1];
-    early[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    early[0].val.programmaticStreamSerializationAllowed = 1;
-    config.attrs = early;
-    config.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(
-        &config, gather_gemm_bf16_sum, static_cast<const float*>(part),
-        static_cast<bf16*>(z), count, splits, members);
-    if (err != cudaSuccess) return static_cast<int>(err);
+
+  if (!w_direct) {
+    const long long count = static_cast<long long>(members) * h * kd;
+    const long long blocks = (count + 255) / 256;
+    gather_gemm_bf16_repitch<<<static_cast<unsigned>(
+                                   blocks < 4096 ? blocks : 4096),
+                               256, 0, stream>>>(
+        static_cast<const bf16*>(w), w_rows,
+        static_cast<long long>(members) * h, static_cast<int>(kd),
+        static_cast<int>(pitch));
   }
+  // stage A: x_res (unless null), and A's scratch unless x_res is A
+  const bool vec = d % 8 == 0 && aligned(store, 16) &&
+                   (x_res == nullptr || aligned(x_res, 16));
+  (vec ? gather_gemm_bf16_rows<S, true> : gather_gemm_bf16_rows<S, false>)
+      <<<dim3(static_cast<unsigned>(rows_blocks), sets), kRowsThreads, 0,
+         stream>>>(static_cast<const S*>(store),
+                   static_cast<const float*>(qscale),
+                   static_cast<const int*>(idx),
+                   static_cast<const float*>(scale),
+                   static_cast<bf16*>(x_res), a_direct ? nullptr : a, q_rows,
+                   streams, d, k_rows, static_cast<int>(pitch), idx_stride);
+  const cudaError_t rows_err = cudaGetLastError();
+  if (rows_err != cudaSuccess) return static_cast<int>(rows_err);
+
+  // stage B, launched while stage A runs (programmatic dependent launch):
+  // a tile's K slices one cluster where the clusters fit the SMs one block
+  // each (and then asking for the shared memory that keeps them so), else
+  // folded into one block a tile
+  int device = 0, sms = 0;
+  cudaError_t err_sm = cudaGetDevice(&device);
+  if (err_sm == cudaSuccess)
+    err_sm = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device);
+  if (err_sm != cudaSuccess) return static_cast<int>(err_sm);
+  const long long blocks = tiles * members * splits;
+  const bool spread = blocks <= sms;
+  const bool fold = splits > 1 && !spread;
+  const int cluster = fold ? 1 : splits;
+  const int col_tiles = (h + kTileN - 1) / kTileN;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(tiles), members, cluster);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = fold     ? Ring<true>::kSmem
+                            : spread ? kSmemSpread
+                                     : Ring<false>::kSmem;
+  config.stream = stream;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = 1;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = static_cast<unsigned>(cluster);
+  config.attrs = attrs;
+  config.numAttrs = 2;
+  const cudaError_t gemm = cudaLaunchKernelEx(
+      &config,
+      fold ? gather_gemm_bf16_kernel<true> : gather_gemm_bf16_kernel<false>,
+      maps, static_cast<bf16*>(z), m_rows, h, static_cast<int>(kd),
+      col_tiles, idx_stride == 0 ? 1 : 0, splits,
+      h % 2 == 0 && aligned(z, 4) ? 1 : 0,
+      h % 4 == 0 && aligned(z, 8) ? 1 : 0);
+  if (gemm != cudaSuccess) return static_cast<int>(gemm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -548,27 +609,30 @@ int launch(const void* store, const void* qscale, const void* idx,
 
 namespace ta3n {
 
-// The kernel's launch for store_kind 0 (float32), 1 (bfloat16) or 2
+// The kernels' launches for store_kind 0 (float32), 1 (bfloat16) or 2
 // (int8), on arguments that ta3n_gather_gemm_members (gather_gemm.cu)
 // checked, of `members` members (idx and scale idx_stride apart: 0 when
-// shared), and with splits > 1 its split-K sum from part [members,
-// splits, m, h] float32.  Returns cudaGetLastError().
+// shared), in `splits` K slices (1, 2, 4 or 8, at most one a 64-deep
+// chunk of k*D); scratch: bfloat16 of bf16_plan's size
+// (ops/gather_gemm.py), A's rows where x_res is null or not 16-byte
+// aligned, then W's where W is not.  Returns the first error.
 int launch_gather_gemm_bf16(const void* store, const void* qscale,
                             const void* idx, const void* scale,
-                            const void* w, void* z, void* x_res, void* part,
-                            long long m_rows, int streams, int d, int k_rows,
-                            int h, int splits, int store_kind, int members,
+                            const void* w, void* z, void* x_res,
+                            void* scratch, long long m_rows, int streams,
+                            int d, int k_rows, int h, int splits,
+                            int store_kind, int members,
                             long long idx_stride, cudaStream_t stream) {
   if (store_kind == 0)
-    return launch<float>(store, qscale, idx, scale, w, z, x_res, part,
+    return launch<float>(store, qscale, idx, scale, w, z, x_res, scratch,
                          m_rows, streams, d, k_rows, h, splits, members,
                          idx_stride, stream);
   if (store_kind == 1)
-    return launch<bf16>(store, qscale, idx, scale, w, z, x_res, part,
+    return launch<bf16>(store, qscale, idx, scale, w, z, x_res, scratch,
                         m_rows, streams, d, k_rows, h, splits, members,
                         idx_stride, stream);
   if (store_kind == 2)
-    return launch<int8_t>(store, qscale, idx, scale, w, z, x_res, part,
+    return launch<int8_t>(store, qscale, idx, scale, w, z, x_res, scratch,
                           m_rows, streams, d, k_rows, h, splits, members,
                           idx_stride, stream);
   return static_cast<int>(cudaErrorInvalidValue);

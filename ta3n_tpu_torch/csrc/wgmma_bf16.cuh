@@ -1,8 +1,9 @@
 // Building blocks of the bfloat16 kernels on Hopper's warpgroup matrix
-// multiply (gather_gemm_bf16.cu, trn_fused_bwd_bf16.cu): shared-memory
-// tiles in the 128-byte swizzled layout, their matrix descriptors, the
-// asynchronous products wgmma.mma_async m64nNk16 bf16 with float32
-// accumulation, and the fences and waits around them.
+// multiply (gather_gemm_bf16.cu, trn_fused_fwd_bf16.cu,
+// trn_fused_bwd_bf16.cu): shared-memory tiles in the 128-byte swizzled
+// layout, their matrix descriptors, the asynchronous products
+// wgmma.mma_async m64nNk16 bf16 with float32 accumulation, and the fences
+// and waits around them.
 //
 // Tiles.  Every operand tile in shared memory is made of panels of rows
 // of 64 bfloat16 values (128 bytes), panels 8 KB apart, each panel
@@ -39,11 +40,10 @@
 // (once the other warpgroup's batches are done with them too).
 //
 // Rings.  wgmma_pipeline: every thread stages, converts and multiplies, a
-// chunk ahead (K3).  wgmma_pipeline_ws: a producer warp issues TMA boxes up
-// to three chunks ahead, the consumer warpgroups convert and multiply
-// (K1's and K2's tiles are all TMA boxes; K3's gathered rows are not, and
-// their cp.async copies are quicker spread over every thread than from one
-// warp).
+// chunk ahead (K1's and K2's plain-load variants).  wgmma_pipeline_ws: a
+// producer warp issues TMA boxes up to kStages chunks ahead, the consumer
+// warpgroups convert (K1, K2) or not (K3, whose rows were converted by a
+// kernel before it) and multiply.
 //
 // Weight maps.  The tensor map of a weight is made on the host once per
 // pointer, shape, member count and box (weight_map, a cache: a map holds
@@ -512,40 +512,54 @@ __device__ __forceinline__ void wgmma_pipeline(int n, float (&acc)[N],
   named_sync(kConsumers);
 }
 
+// The consumers' release of chunk c's stage to the producer (one arrival
+// a warpgroup, by its thread 0).
+template <int kStages>
+__device__ __forceinline__ void release_stage(uint64_t* empty, int c) {
+  mbar_arrive(&empty[c % kStages]);
+}
+
 // The same ring with a producer warp (threads kConsumers.. of the block,
 // beside the consumer warpgroups), which runs up to kStages chunks ahead:
 // produce(c, s, full), called by all its threads, fills stage s with
 // chunk c by asynchronous copies that complete on full, once both consumer
 // warpgroups have released the stage (empty, two arrivals a use).  The
-// consumers wait for full, convert (each thread only what it reads), and
-// release the stage of chunk c - 1 once their products of it are done.
-// The producer warp returns from here; the consumers end with no product
-// in flight.
-template <int kStages, int N, class Produce, class Convert, class Mma>
+// consumers wait for full, convert (each thread only what it reads; with
+// kConvert false there is nothing to convert, and each warpgroup runs on
+// without waiting for the other), and release the stage of chunk c - 1
+// once their products of it are done.  The producer warp returns from
+// here; the consumers end with no product in flight.  The chunks are
+// numbered first.. first + n - 1, so a ring can be run over in parts, one
+// call a part; the consumers release the stage of a part's last chunk
+// themselves (release_stage) before the next part.
+template <int kStages, bool kConvert = true, int N, class Produce,
+          class Convert, class Mma>
 __device__ __forceinline__ void wgmma_pipeline_ws(
     int n, float (&acc)[N], uint64_t* full, uint64_t* empty, int tid,
-    Produce&& produce, Convert&& convert, Mma&& mma) {
+    Produce&& produce, Convert&& convert, Mma&& mma, int first = 0) {
   if (tid >= kConsumers) {
-    for (int c = 0; c < n; ++c) {
+    for (int c = first; c < first + n; ++c) {
       const int s = c % kStages;
       if (c >= kStages) mbar_wait(&empty[s], (c / kStages - 1) & 1);
       produce(c, s, &full[s]);
     }
     return;
   }
-  for (int c = 0; c < n; ++c) {
+  for (int c = first; c < first + n; ++c) {
     const int s = c % kStages;
     mbar_wait(&full[s], (c / kStages) & 1);
-    convert(c, s);
-    fence_proxy_async();
-    named_sync(kConsumers);
+    if constexpr (kConvert) {
+      convert(c, s);
+      fence_proxy_async();
+      named_sync(kConsumers);
+    }
     fence_operands(acc);
     wgmma_fence();
     mma(c, s);
     wgmma_commit();
     wgmma_wait<1>();
     fence_operands(acc);
-    if (c > 0 && tid % 128 == 0) mbar_arrive(&empty[(c - 1) % kStages]);
+    if (c > first && tid % 128 == 0) release_stage<kStages>(empty, c - 1);
   }
   wgmma_wait<0>();
   fence_operands(acc);

@@ -36,8 +36,8 @@ multiplied with float32 accumulation, and z is rounded to bfloat16; x_res
 then holds the bfloat16 rows.  Each of the six (store, compute) pairs is a
 variant of the kernel with its own count of launches (``launches`` is the
 float32 store at float32 compute, ``variant_launches`` every variant); the
-three at bfloat16 compute run the wgmma kernel, whose grid ``bf16_grid``
-chooses.
+three at bfloat16 compute convert the gathered rows once and run one wgmma
+GEMM over them, as ``bf16_plan`` plans.
 
 Shapes: a store is [R, D], or [R, S, D] for a Flow store whose S stream
 rows interleave per frame (row r, stream s is gathered row r·S + s, the
@@ -48,12 +48,13 @@ k consecutive gathered rows form one FC input row, as the model's
 outputs are z [M, H] and x_res [M, k·D], M = N·S/k for N indices.
 
 Members.  ``gathered_gemm_members`` runs N members' stacked weights [N,
-H, k*D] over one store in one launch of the kernel of their dtype (a
-member axis folded into the grid's y beside the H tiles, at either
-compute dtype), from one index set for all members (x_res then written
-once) or one each; K is sliced by one member's shape, so member k's z is
-bitwise its solo launch's.  A solo call is that launch with one member:
-one launch path, one count a variant.
+H, k*D] over one store in one call of the kernel of their dtype (a
+member grid axis, at either compute dtype; at bfloat16 the rows of one
+index set are gathered and converted once for every member), from one
+index set for all members (x_res then written once) or one each; K is
+sliced by one member's shape, so member k's z is bitwise its solo
+launch's.  A solo call is that call with one member: one launch path, one
+count a variant.
 ``gathered_linear``'s and ``gathered_gemm``'s Functions carry vmap rules
 that call it under ``torch.func.vmap`` (`train/ensemble.py`); the
 backward's ``dzᵀ x_res`` stays a batched ``torch.mm``.
@@ -81,7 +82,8 @@ from ta3n_tpu_torch.ops.trn_fused import (_acc, _call, _check_tensor,
 
 __all__ = ["RowIndex", "row_index", "upload", "gathered_gemm_plain",
            "gathered_gemm", "gathered_gemm_members",
-           "gathered_linear", "part_rows", "bf16_grid", "launches",
+           "gathered_linear", "part_rows", "Bf16Plan", "bf16_plan",
+           "launches",
            "variant_launches"]
 
 # kernel launches made by gathered_gemm and gathered_linear (plain-version
@@ -106,13 +108,14 @@ variant_launches = {f"{s}_{c}": 0 for s, _ in _STORE_KINDS.values()
 # measured at both)
 _TILE_M, _TILE_H, _TILE_K = 64, 64, 32
 _MAX_SPLITS, _TARGET_BLOCKS = 8, 264
-# the bfloat16-compute kernel's tiles (csrc/gather_gemm_bf16.cu): 64 rows
-# x 128 columns per block of two warpgroups, 64-deep K chunks; and the
-# blocks an SM holds by store dtype (by its shared memory: 117.5 KB with a
-# float32 store's raw rows, 93.5 KB with bfloat16, 81.5 KB with int8)
-_BF16_TILE_M, _BF16_TILE_N, _BF16_TILE_K = 64, 128, 64
+# the bfloat16-compute kernels (csrc/gather_gemm_bf16.cu): stage A's
+# threads a block, each one 16-byte piece (8 values) of a gathered row;
+# stage B's output tile of one member a block (128 rows x 128 columns,
+# two warpgroups) and its 64-deep K chunks; its K slices (1, 2, 4 or 8)
+# fill the H100's 132 SMs where one member's tiles do not
+_BF16_ROWS_THREADS = 256
+_BF16_TILE_M, _BF16_TILE_N, _BF16_TILE_K = 128, 128, 64
 _SMS = 132
-_BF16_BLOCKS_PER_SM = {torch.float32: 1, torch.bfloat16: 2, torch.int8: 2}
 
 
 class RowIndex(NamedTuple):
@@ -281,19 +284,49 @@ def _splits(m: int, h: int, chunks: int) -> int:
     return max(1, min(_MAX_SPLITS, chunks, _TARGET_BLOCKS // tiles))
 
 
-def bf16_grid(m: int, h: int, d: int, k: int,
-              store_dtype: torch.dtype) -> Tuple[int, int, int]:
-    """The bfloat16-compute kernel's grid for M output rows, H columns and
-    k gathered rows of D per FC input row: (row tiles, column tiles, K
-    slices).  K is split only where the output tiles leave SMs of the card
-    without a block: into as many slices as keep the grid within the
-    blocks the H100's 132 SMs hold at once (by ``store_dtype``), at least
-    1, at most _MAX_SPLITS and at most one per 64-deep chunk (a chunk never
-    crosses a gathered row: k * ceil(D / 64) of them)."""
-    tiles_m, tiles_h = -(-m // _BF16_TILE_M), -(-h // _BF16_TILE_N)
-    chunks = k * -(-d // _BF16_TILE_K)
-    room = _SMS * _BF16_BLOCKS_PER_SM[store_dtype] // (tiles_m * tiles_h)
-    return tiles_m, tiles_h, max(1, min(_MAX_SPLITS, chunks, room))
+class Bf16Plan(NamedTuple):
+    """A call of the bfloat16-compute kernels (csrc/gather_gemm_bf16.cu)."""
+
+    rows_blocks: int  # stage A's blocks an index set, a 16-byte piece a thread
+    index_sets: int   # 1 (shared indices) or the members
+    row_tiles: int    # stage B's grid: row tiles x column tiles (x),
+    col_tiles: int    # the members (y) and the K slices (z, a cluster)
+    members: int
+    splits: int
+    pitch: int        # values a row of the A and W operands: k*D up to 8s
+    scratch: int      # bfloat16 values of scratch: A's rows, then W's
+
+
+def bf16_plan(m: int, h: int, d: int, k: int, members: int = 1,
+              per_member: bool = False, rows_aligned: bool = True,
+              weight_aligned: bool = True) -> Bf16Plan:
+    """The bfloat16-compute call for M output rows, H columns and k
+    gathered rows of D per FC input row, of ``members`` members with one
+    index set each (``per_member``) or one for all.  Stage A converts
+    every (gathered row, 16-byte piece) once an index set.  Stage B's
+    tiles are one member's; its K slices, a power of two up to 8 and at
+    most one per 64-deep chunk of k*D, are the most that keep one member's
+    tiles times slices within the 132 SMs, so they never depend on N and
+    member k's z is bitwise its solo call's (whether a cluster or one
+    block runs a tile's slices, and how many blocks an SM holds, the
+    launch decides by the card's count of SMs; the bits depend on
+    neither).  Scratch holds A's rows
+    unless x_res is given with 16-byte aligned rows (``rows_aligned``,
+    and k*D a multiple of 8), and W's rows unless the weight's are
+    (``weight_aligned``)."""
+    kd = k * d
+    pitch = -(-kd // 8) * 8
+    sets = members if per_member else 1
+    row_tiles, col_tiles = -(-m // _BF16_TILE_M), -(-h // _BF16_TILE_N)
+    most = min(_MAX_SPLITS, -(-kd // _BF16_TILE_K),
+               max(1, _SMS // (row_tiles * col_tiles)))
+    splits = 1 << (most.bit_length() - 1)
+    direct = kd % 8 == 0
+    scratch = ((0 if direct and rows_aligned else sets * m * pitch)
+               + (0 if direct and weight_aligned else members * h * pitch))
+    pieces = m * k * -(-d // 8)
+    return Bf16Plan(-(-pieces // _BF16_ROWS_THREADS), sets, row_tiles,
+                    col_tiles, members, splits, pitch, scratch)
 
 
 def gathered_gemm(store, idx, weight: torch.Tensor,
@@ -386,10 +419,9 @@ def _gather_members_into(store, rows, geometry, weight, row_scale, z,
                          x_res) -> None:
     """N members' gathers + GEMMs: weight [N, H, k*D] into z [N, M, H]
     and, unless None, x_res ([N, M, k*D] when rows are [N, n_idx], else
-    [M, k*D], written once): the kernel on a CUDA store, one launch for
-    every member at either compute dtype, its grid (K slices) chosen by
-    one member's shape, the plain version member by member on a CPU
-    one."""
+    [M, k*D], written once): the kernel on a CUDA store, one call for
+    every member at either compute dtype, its K slices chosen by one
+    member's shape, the plain version member by member on a CPU one."""
     global launches
     data, scale = _split_store(store)
     n = weight.shape[0]
@@ -422,11 +454,16 @@ def _gather_members_into(store, rows, geometry, weight, row_scale, z,
         return
     h = weight.shape[1]
     if weight.dtype == torch.bfloat16:
-        splits = bf16_grid(m, h, d, k, data.dtype)[2]
+        plan = bf16_plan(m, h, d, k, n, per_member,
+                         x_res is not None and x_res.data_ptr() % 16 == 0,
+                         weight.data_ptr() % 16 == 0)
+        splits = plan.splits
+        part = (torch.empty(plan.scratch, dtype=torch.bfloat16,
+                            device=z.device) if plan.scratch else None)
     else:
         splits = _splits(m, h, k * -(-d // _TILE_K))
-    part = (torch.empty((n, splits, m, h), dtype=torch.float32,
-                        device=z.device) if splits > 1 else None)
+        part = (torch.empty((n, splits, m, h), dtype=torch.float32,
+                            device=z.device) if splits > 1 else None)
     _call("ta3n_gather_gemm_members", data, data.data_ptr(),
           None if scale is None else scale.data_ptr(), rows.data_ptr(),
           None if row_scale is None else row_scale.data_ptr(),

@@ -1,12 +1,13 @@
 """The port's kernel build on the CPU: what names the built library, the C
 entry points against their ctypes bindings, and K3's choice of K slices
-and, at bfloat16 compute, of its grid.  Nothing here compiles: nvcc runs
-only where there is a card."""
+and, at bfloat16 compute, its plan (stage A's threads, stage B's grid and
+K slices, scratch).  Nothing here compiles: nvcc runs only where there is
+a card."""
 
 import re
 
+import numpy as np
 import pytest
-import torch
 
 from ta3n_tpu_torch.ops import _build, gather_gemm, trn_fused
 
@@ -93,6 +94,116 @@ def test_gather_splits_fill_at_most_the_target(m, h, chunks):
         assert (splits, tiles * splits) == (3, 240)
 
 
+def _bf16_source_constants():
+    """Stage A's threads a block and stage B's tile, chunk and ring as
+    csrc/gather_gemm_bf16.cu declares them."""
+    text = (_build._CSRC / "gather_gemm_bf16.cu").read_text()
+    fold, ring = re.search(
+        r"kStages = kFold \? (\d+) : (\d+);", text).groups()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                text).group(1))
+            for name in ("kRowsThreads", "kTileM", "kTileN", "kTileK",
+                         "kMaxSplits")} | {
+        "kStages": int(ring), "kFoldStages": int(fold),
+        "kSmemSpread": int(re.search(
+            r"constexpr int kSmemSpread = (\d+) \* 1024;", text).group(1))
+        * 1024}
+
+
+def _check_bf16_plan(n, streams, k, d, h, members=1, per_member=False):
+    """K3 at bfloat16 compute: the plan's stage A gives every (gathered
+    row, 16-byte piece) of each index set to one thread, and the pieces'
+    places in x_res and in A's rows of ``pitch`` values are each written
+    once; stage B's grid (row tile x column tile, member, K slice),
+    decoded as the kernel decodes it, covers every (member, row tile,
+    column tile) of one member's M x H once, its column tiles within
+    the member (no tile runs into the next member's columns), within
+    CUDA's grid limits and a cluster of at most 8; the K slices (a power
+    of two) give every 64-deep chunk of k*D to one slice and do not
+    depend on N (whether a cluster or one block runs a tile's slices,
+    and how many blocks an SM holds, may); stage B's shared memory
+    within the opt-in; scratch is A's rows then W's, each only where TMA
+    cannot take the caller's rows.  Returns the plan."""
+    m = n * streams // k
+    plan = gather_gemm.bf16_plan(m, h, d, k, members, per_member)
+    src = _bf16_source_constants()
+    tm, tn, tk = src["kTileM"], src["kTileN"], src["kTileK"]
+    assert (tm, tn, tk) == (gather_gemm._BF16_TILE_M,
+                            gather_gemm._BF16_TILE_N,
+                            gather_gemm._BF16_TILE_K)
+    # stage A
+    pieces, q_rows = -(-d // 8), m * k
+    threads = src["kRowsThreads"]
+    assert threads == gather_gemm._BF16_ROWS_THREADS
+    assert (plan.rows_blocks - 1) * threads < q_rows * pieces \
+        <= plan.rows_blocks * threads
+    assert plan.rows_blocks <= 2 ** 31 - 1
+    assert plan.index_sets == (members if per_member else 1) <= 65535
+    kd = k * d
+    assert plan.pitch % 8 == 0 and kd <= plan.pitch < kd + 8
+    if q_rows * pieces <= 1 << 20:
+        p = np.arange(q_rows * pieces)
+        q, col = p // pieces, p % pieces * 8
+        assert q.max() == q_rows - 1 and np.all(np.bincount(
+            q, minlength=q_rows) == pieces)
+        width = np.minimum(8, d - col)
+        for start in (q * d + col,
+                      q // k * plan.pitch + q % k * d + col):
+            order = np.argsort(start)
+            s, w = start[order], width[order]
+            assert np.all(s[:-1] + w[:-1] <= s[1:])  # each value once
+        assert width.sum() == q_rows * d
+    # stage B
+    assert (plan.row_tiles - 1) * tm < m <= plan.row_tiles * tm
+    assert (plan.col_tiles - 1) * tn < h <= plan.col_tiles * tn
+    assert plan.row_tiles * plan.col_tiles <= 2 ** 31 - 1
+    assert plan.members == members <= 65535
+    seen = set()
+    for x in range(plan.row_tiles * plan.col_tiles):
+        row_tile, col_tile = divmod(x, plan.col_tiles)
+        for member in range(members):
+            assert col_tile * tn < h  # the tile's first column is its own
+            seen.add((member, row_tile, col_tile))
+    assert len(seen) == members * plan.row_tiles * plan.col_tiles
+    chunks = -(-kd // tk)
+    splits = plan.splits
+    assert splits & (splits - 1) == 0
+    assert 1 <= splits <= min(src["kMaxSplits"], chunks)
+    owner = []
+    for z in range(splits):
+        begin, end = chunks * z // splits, chunks * (z + 1) // splits
+        assert end > begin
+        owner.extend([z] * (end - begin))
+    assert owner == sorted(owner) and len(owner) == chunks
+    assert splits == 1 or plan.row_tiles * plan.col_tiles * splits \
+        <= gather_gemm._SMS
+    for other in (1, 4, 8):
+        assert gather_gemm.bf16_plan(m, h, d, k, other,
+                                     per_member).splits == splits
+    # stage B's shared memory within the 227 KB opt-in: its ring (A and W
+    # boxes of 128 rows of 128 bytes), two blocks an SM; more than half an
+    # SM where it spreads its blocks one an SM; and the folded blocks' ring
+    # and their running sum, one an SM
+    ring, fold = src["kStages"], src["kFoldStages"]
+    smem = ring * 2 * tm * 128 + 2 * ring * 8 + 1024
+    assert 2 * (smem + 1024) <= 228 * 1024
+    assert smem <= src["kSmemSpread"] <= 232448
+    assert 2 * (src["kSmemSpread"] + 1024) > 228 * 1024
+    assert fold * 2 * tm * 128 + 2 * fold * 8 + 256 * 64 * 4 + 1024 \
+        <= 232448
+    # scratch: none where x_res and W are 16-byte aligned rows
+    sets = plan.index_sets
+    a_rows, w_rows = sets * m * plan.pitch, members * h * plan.pitch
+    for rows_ok in (True, False):
+        for weight_ok in (True, False):
+            got = gather_gemm.bf16_plan(m, h, d, k, members, per_member,
+                                        rows_ok, weight_ok).scratch
+            direct = kd % 8 == 0
+            assert got == (0 if direct and rows_ok else a_rows) + (
+                0 if direct and weight_ok else w_rows)
+    return plan
+
+
 @pytest.mark.parametrize("n,streams,k,d,h,store", [
     (640, 1, 1, 2048, 512, "bf16"), (370, 1, 1, 2048, 512, "int8"),
     (320, 1, 1, 2048, 512, "f32"), (1, 1, 1, 2048, 512, "int8"),
@@ -103,32 +214,30 @@ def test_gather_splits_fill_at_most_the_target(m, h, chunks):
     (20000, 1, 1, 2048, 512, "bf16"), (640, 5, 5, 2048, 64, "f32")])
 def test_bf16_grid_covers_every_tile_and_chunk_once(n, streams, k, d, h,
                                                     store):
-    """K3 at bfloat16 compute: the grid's row and column tiles cover M and
-    H exactly (64 x 128 tiles), within CUDA's grid limits; the K slices
-    number 1 to min(8, chunks), each non-empty, and the kernel's slice
-    bounds (chunks * z / splits) give every 64-deep chunk to one slice;
-    K is split only while the grid stays within the blocks the card
-    holds."""
-    dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
-             "int8": torch.int8}[store]
-    m = n * streams // k
-    tiles_m, tiles_h, splits = gather_gemm.bf16_grid(m, h, d, k, dtype)
-    tm, tn = gather_gemm._BF16_TILE_M, gather_gemm._BF16_TILE_N
-    assert (tiles_m - 1) * tm < m <= tiles_m * tm
-    assert (tiles_h - 1) * tn < h <= tiles_h * tn
-    assert tiles_m <= 2 ** 31 - 1 and tiles_h <= 65535
-    chunks = k * -(-d // gather_gemm._BF16_TILE_K)
-    assert 1 <= splits <= min(gather_gemm._MAX_SPLITS, chunks)
-    owner = []
-    for z in range(splits):
-        begin, end = chunks * z // splits, chunks * (z + 1) // splits
-        assert end > begin
-        owner.extend([z] * (end - begin))
-    assert owner == sorted(owner) and len(owner) == chunks
-    held = gather_gemm._SMS * gather_gemm._BF16_BLOCKS_PER_SM[dtype]
-    assert splits == 1 or tiles_m * tiles_h * splits <= held
-    if (m, h, store) == (640, 512, "bf16"):
-        assert (tiles_m, tiles_h, splits) == (10, 4, 6)
+    """K3 at bfloat16 compute, one member, at the shapes of every store
+    dtype's paths (the plan does not depend on the store: stage A reads
+    each in its own type): _check_bf16_plan.  At the flagship train shape
+    (640 x 512, D = 2048) stage A runs 640 blocks and stage B 5 x 4 tiles
+    of 128 x 128 in 4 K slices of 8 chunks: 80 blocks."""
+    plan = _check_bf16_plan(n, streams, k, d, h)
+    if (n, d, h, store) == (640, 2048, 512, "bf16"):
+        assert (plan.rows_blocks, plan.row_tiles, plan.col_tiles,
+                plan.splits) == (640, 5, 4, 4)
+
+
+@pytest.mark.parametrize("per_member", [False, True],
+                         ids=["shared", "per_member"])
+@pytest.mark.parametrize("members", [1, 4, 8])
+@pytest.mark.parametrize("n,streams,k,d,h", [
+    (640, 1, 1, 2048, 512), (370, 1, 1, 2048, 256), (37, 1, 1, 37, 19)])
+def test_bf16_plan_members_cover_every_tile_once(n, streams, k, d, h,
+                                                 members, per_member):
+    """The member axis of K3 at bfloat16 compute: N = 1, 4, 8 members with
+    one index set for all or one each, at the train shape, a column slice
+    of tensor parallelism and ragged widths: _check_bf16_plan, with stage
+    A over one index set when the members share it."""
+    plan = _check_bf16_plan(n, streams, k, d, h, members, per_member)
+    assert plan.index_sets == (members if per_member else 1)
 
 
 @pytest.mark.parametrize("s,b,d,h", [

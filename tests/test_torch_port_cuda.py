@@ -2063,7 +2063,7 @@ def test_bf16_member_bwd_kernel_bitwise_solo(n, b, s, d, h):
                          ids=["shared", "per_member"])
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("n,rows", [(1, 640), (3, 640), (8, 370), (3, 37),
-                                    (3, 0)])
+                                    (3, 0), (8, 640)])
 def test_bf16_member_gather_kernel_bitwise_solo(n, rows, kind, per_member):
     """K3 at bfloat16 compute over N members from a float32, bfloat16 or
     int8 store, one index set for all or one each: one launch of the
@@ -2098,6 +2098,72 @@ def test_bf16_member_gather_kernel_bitwise_solo(n, rows, kind, per_member):
                                                 w[k], scale[j])
         assert torch.equal(z[k], sz) and _bf16_ok(z[k], pz)
         assert torch.equal(x_res[k] if per_member else x_res, sx)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("per_member", [False, True],
+                         ids=["shared", "per_member"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_bf16_member_gather_kernel_ragged_bitwise_solo(kind, per_member):
+    """K3 at bfloat16 compute over 3 members at ragged widths, D = 37 and
+    H = 19: rows TMA cannot take (stage A writes x_res as it is and A's
+    rows padded to 40 values; W copied to rows of 40 first), column tiles
+    padded within each member: one launch of the variant, z bitwise the
+    solo launches and within _bf16_ok of the plain version, x_res bitwise
+    the plain version's."""
+    n, rows, d, h = 3, 45, 37, 19
+    store, _, _, _ = _gather_inputs(8, d=d, h=h)
+    store = _narrow_store(store, kind)
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.uniform(-1, 1, (n, h, d)).astype(np.float32)
+                         / 6.0).cuda().to(torch.bfloat16)
+    m = n if per_member else 1
+    r = (store[0] if kind == "int8" else store).shape[0]
+    idx = rng.integers(0, r, (m, rows))
+    scale = torch.from_numpy(rng.choice([1.0, 0.0, 0.5], (m, rows))
+                             .astype(np.float32)).cuda()
+    checked = gather_gemm.row_index(idx, r, "cuda")
+    member_idx = (gather_gemm.RowIndex(checked.rows.reshape(n, rows),
+                                       checked.end) if per_member
+                  else checked)
+    _reset_bf16_counts()
+    z, x_res = gather_gemm.gathered_gemm_members(
+        store, member_idx, w, scale if per_member else scale[0])
+    assert gather_gemm.variant_launches[f"{kind}_bf16"] == 1
+    for k in range(n):
+        j = k if per_member else 0
+        rows_k = gather_gemm.row_index(idx[j], r, "cuda")
+        sz, sx = gather_gemm.gathered_gemm(store, rows_k, w[k], scale[j])
+        pz, px = gather_gemm.gathered_gemm_plain(store, rows_k.rows, w[k],
+                                                 scale[j])
+        assert torch.equal(z[k], sz) and _bf16_ok(z[k], pz)
+        got_x = x_res[k] if per_member else x_res
+        assert torch.equal(got_x, sx) and torch.equal(got_x, px)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_bf16_gather_every_split_count(splits, monkeypatch):
+    """K3 at bfloat16 compute with its K slices forced to each cluster
+    size the kernel takes, at the train shape over 2 members: z within
+    _bf16_ok of the plain version, bitwise the solo launches at the same
+    slices and, on dyadic grids (every product and float32 sum exact),
+    bitwise the plain version; x_res bitwise."""
+    chosen = gather_gemm.bf16_plan
+    monkeypatch.setattr(gather_gemm, "bf16_plan", lambda *a, **kw: chosen(
+        *a, **kw)._replace(splits=splits))
+    for grid in (False, True):
+        store, idx, scale, w = _gather_inputs(640, d=2048, h=512,
+                                              grid=grid)
+        w = torch.stack([w, w.flip(0)]).to(torch.bfloat16)
+        rows = gather_gemm.row_index(idx, 500, "cuda")
+        z, x_res = gather_gemm.gathered_gemm_members(store, rows, w, scale)
+        for k in range(2):
+            sz, sx = gather_gemm.gathered_gemm(store, rows, w[k], scale)
+            pz, px = gather_gemm.gathered_gemm_plain(store, rows.rows, w[k],
+                                                     scale)
+            assert torch.equal(z[k], sz) and torch.equal(x_res, px)
+            assert torch.equal(z[k], pz) if grid else _bf16_ok(z[k], pz)
     torch.cuda.synchronize()
 
 
