@@ -3,14 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ta3n_tpu_torch/csrc (one nvcc per
-source, in parallel), checks in their SASS that the tensor-core kernels
-(K1, K2, K3) hold mma (HMMA) and cp.async (LDGSTS) instructions and their
-bfloat16 variants on wgmma (K1 and K2 in bfloat16, K3 at bfloat16 compute)
-HGMMA and no HMMA, and that no bfloat16 instance of K1's float32 kernel
-is left, holds each kernel against its plain PyTorch version at the
-flagship shapes and times both (K1 (infer) at batch 1 and the serve and
-train batches, K2 also by its dx and dW families, K3 at the train and
-eval shapes, each against the bound of the arithmetic it runs), then
+source, in parallel), checks in their SASS that the float32 TRN kernels
+(K1, K2) hold mma (HMMA) and cp.async (LDGSTS) instructions and the
+kernels on wgmma (K3's GEMM at float32 and at bfloat16 compute, K1 and K2
+in bfloat16) HGMMA and no HMMA, and that no bfloat16 instance of K1's
+float32 kernel is left, holds each kernel against its plain PyTorch
+version at the flagship shapes and times both (K1 (infer) at batch 1 and
+the serve and train batches, K2 also by its dx and dW families, K3 at
+the train and eval shapes with its two stages by the profiler, each
+against the bound of the arithmetic it runs), then
 drives the port's main paths at
 the flagship widths (UCF->HMDB_full: trn-m over 5 segments, 2048-d features,
 fc 512, TRN bottleneck 256, TransAttn, 12 classes, random weights from a
@@ -369,12 +370,12 @@ PEAK_OPS = {"trn_fused_fwd": PEAK_TF32 / 3,
 # kernels on the tensor cores through mma.sync, fed by cp.async: their
 # SASS must hold HMMA and LDGSTS instructions (K1's epilogue,
 # trn_fused_fwd_epilogue, is a plain sum)
-TENSOR_CORE_KERNELS = ("trn_fused_fwd_kernel", "gather_gemm_kernel",
-                       "trn_fused_bwd_kernel")
-# the bfloat16 kernels on wgmma: HGMMA in their SASS and no HMMA; and the
-# sources of the variants they run
-WGMMA_KERNELS = ("gather_gemm_bf16_kernel", "trn_fused_bwd_bf16_kernel",
-                 "trn_fused_fwd_bf16_kernel")
+TENSOR_CORE_KERNELS = ("trn_fused_fwd_kernel", "trn_fused_bwd_kernel")
+# the kernels on wgmma (K3's GEMM at float32 compute, 3xTF32, and the
+# bfloat16 kernels): HGMMA in their SASS and no HMMA; and the sources of
+# the bfloat16 variants they run
+WGMMA_KERNELS = ("gather_gemm_kernel", "gather_gemm_bf16_kernel",
+                 "trn_fused_bwd_bf16_kernel", "trn_fused_fwd_bf16_kernel")
 WGMMA_SOURCES = {
     "trn_fused_fwd_bf16": "ta3n_tpu_torch/csrc/trn_fused_fwd_bf16.cu",
     "trn_fused_fwd_train_bf16": "ta3n_tpu_torch/csrc/trn_fused_fwd_bf16.cu",
@@ -477,9 +478,9 @@ def check_sass() -> None:
     """Count the tensor-core (HMMA, and wgmma's HGMMA) and asynchronous-copy
     (LDGSTS) instructions of each kernel in the built library's SASS; fail
     unless every kernel of TENSOR_CORE_KERNELS has HMMA and LDGSTS, and
-    every kernel of WGMMA_KERNELS HGMMA and no HMMA, and that K1's float32
-    kernel has no bfloat16 instance left (trn_fused_fwd_bf16.cu took
-    them)."""
+    every kernel of WGMMA_KERNELS HGMMA and no HMMA (K3's float32 GEMM
+    included: its mma.sync body is gone), and that K1's float32 kernel has
+    no bfloat16 instance left (trn_fused_fwd_bf16.cu took them)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
                           check=True, capture_output=True,
@@ -748,8 +749,10 @@ def time_pair(fns, runs=41, warmup=5):
 
 
 def kernel_ms(fn, n=20):
-    """Device ms per call of each kernel that ``fn`` launches, by the
-    profiler over ``n`` calls after three: {name: ms}."""
+    """Device ms per launch of each kernel that ``fn`` launches, by the
+    profiler over ``n`` calls after three: the mean over the launches it
+    caught (CUPTI may drop events late in a long run, so a total over
+    ``n`` calls would undercount): {name: ms}."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -758,26 +761,30 @@ def kernel_ms(fn, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / n
+    return {e.key: e.self_device_time_total / 1e3 / e.count
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
 
 
-# K3's two stages at bfloat16 compute (csrc/gather_gemm_bf16.cu): stage A
-# gathers and converts the rows (and, for a weight whose rows TMA cannot
-# take, copies it first), stage B is the GEMM
-K3_BF16_STAGES = {"stage_a": ("gather_gemm_bf16_rows",
-                              "gather_gemm_bf16_repitch"),
-                  "stage_b": ("gather_gemm_bf16_kernel",)}
+# K3's two stages (csrc/gather_gemm.cu at float32 compute,
+# csrc/gather_gemm_bf16.cu at bfloat16): stage A gathers and splits or
+# converts the rows (and, for a weight whose rows TMA cannot take, copies
+# it first), stage B is the GEMM
+K3_STAGES = {"f32": {"stage_a": ("gather_gemm_rows", "gather_gemm_repitch"),
+                     "stage_b": ("gather_gemm_kernel",)},
+             "bf16": {"stage_a": ("gather_gemm_bf16_rows",
+                                  "gather_gemm_bf16_repitch"),
+                      "stage_b": ("gather_gemm_bf16_kernel",)}}
 
 
-def k3_bf16_stages(fn):
-    """Device ms per call of K3's two stages at bfloat16 compute in
-    ``fn``, by the profiler: {"stage_a": ms, "stage_b": ms}."""
+def k3_stages(fn, compute="bf16"):
+    """Device ms per call of K3's two stages at ``compute`` ("f32" or
+    "bf16") in ``fn`` (each of their kernels launches once a call), by
+    the profiler: {"stage_a": ms, "stage_b": ms}."""
     by_name = kernel_ms(fn)
     return {stage: sum(ms for name, ms in by_name.items()
                        if any(k in name for k in kernels))
-            for stage, kernels in K3_BF16_STAGES.items()}
+            for stage, kernels in K3_STAGES[compute].items()}
 
 
 def time_train_kernels(gen, b=202):
@@ -1451,7 +1458,8 @@ def gather_work(rows, d, h, with_rows, store_size=4, compute_size=4):
 def time_gather(store):
     """Device times of K3, its plain version and the index_select + mm
     pair at the train (with x_res) and eval (without) row counts, 41 runs
-    each in turns; the work and bound of each case."""
+    each in turns, and K3's two stages by the profiler ("stage_a",
+    "stage_b" in its times); the work and bound of each case."""
     rng = np.random.default_rng(3)
     h, d = FLAGSHIP.fc_dim, store.shape[1]
     w = (torch.rand((h, d), generator=torch.Generator().manual_seed(3))
@@ -1460,20 +1468,24 @@ def time_gather(store):
     with torch.no_grad():
         for n, with_rows in K3_TIMED:
             rows, scale = gather_case(n, store.shape[0], rng)
+            kernel = lambda: gather_gemm.gathered_gemm(store, rows, w, scale,
+                                                       with_rows)
             t = time_pair({
-                "kernel": lambda: gather_gemm.gathered_gemm(
-                    store, rows, w, scale, with_rows),
+                "kernel": kernel,
                 "plain": lambda: gather_gemm.gathered_gemm_plain(
                     store, rows.rows, w, scale),
                 "library": lambda: torch.mm(
                     store.index_select(0, rows.rows), w.t())})
+            t.update(k3_stages(kernel, "f32"))
             work = gather_work(rows, d, h, with_rows)
             results[n] = (t, work)
             least, by = bound(*work, PEAK_OPS["gather_gemm"])
             log(f"  K3 N={n} {'with' if with_rows else 'without'} x_res: "
                 f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
                 f"index_select + mm {t['library']:.4f} ms device; bound "
-                f"{least:.4f} ms by {by} (medians of 41, in turns)")
+                f"{least:.4f} ms by {by} (medians of 41, in turns); stage A "
+                f"{t['stage_a']:.4f} ms, stage B {t['stage_b']:.4f} ms "
+                "(profiler, 20 calls)")
     return results
 
 
@@ -2483,10 +2495,12 @@ def time_bf16_kernels(gen, stores):
     without), at bfloat16 compute also at the target batch's 370 rows with
     x_res and against index_select + mm in bfloat16, at float32 compute
     from a narrow store against index_select, the convert (bfloat16) or
-    ``float() * scale`` (int8) and mm in float32.  Returns {name: (ms,
-    plain_ms, library_ms, work)}, the K1 (infer) times by batch at S=5,
-    K3's at the eval shape and the others by their shape's key (K3 "n370",
-    K1 and K2 "s17", K1 (infer) "s17_b1", "s17_b202", K2 "s25")."""
+    ``float() * scale`` (int8) and mm in float32; K3's two stages by the
+    profiler.  Returns {name: (ms, plain_ms, library_ms, work)}, the K1
+    (infer) times by batch at S=5, K3's at the eval shape, the others by
+    their shape's key (K3 "n370", K1 and K2 "s17", K1 (infer) "s17_b1",
+    "s17_b202", K2 "s25"), and K3's stage times {name: {key prefix ("",
+    "eval_", "n370_"): {"stage_a": ms, "stage_b": ms}}}."""
     out, k1 = {}, {}
     with torch.inference_mode():
         for b in TIMED_BATCHES:
@@ -2578,7 +2592,7 @@ def time_bf16_kernels(gen, stores):
            * 2 - 1).cuda() / math.sqrt(d)
     weights = {"f32": w32, "bf16": w32.to(torch.bfloat16)}
     sizes = {"f32": 4, "bf16": 2, "int8": 1}
-    eval_times = {}
+    eval_times, k3_stage_t = {}, {}
     with torch.no_grad():
         for variant in K3_VARIANTS:
             kind, compute = variant.split("_")
@@ -2603,6 +2617,7 @@ def time_bf16_kernels(gen, stores):
                         * store[1].index_select(0, rows.rows)[:, None],
                         wc.t())
                 tt = time_pair(fns)
+                stage_t = k3_stages(fns["kernel"], compute)
                 work = gather_work(rows, d, h, with_rows, sizes[kind],
                                    sizes[compute])
                 least, by = bound(*work, PEAK_BF16 if compute == "bf16"
@@ -2614,16 +2629,22 @@ def time_bf16_kernels(gen, stores):
                        f"{tt['library']:.4f} ms" if compute == "bf16" else
                        f", index_select, {LIBRARY_CAST[kind]} and mm in "
                        f"float32 {tt['library']:.4f} ms")
-                    + f" device; bound {least:.4f} ms by {by}")
+                    + f" device; bound {least:.4f} ms by {by}; stage A "
+                    f"{stage_t['stage_a']:.4f} ms, stage B "
+                    f"{stage_t['stage_b']:.4f} ms (profiler, 20 calls)")
                 entry = (tt["kernel"], tt["plain"], tt.get("library"), work)
+                name = f"gather_gemm_{variant}"
                 if not with_rows:
-                    eval_times[f"gather_gemm_{variant}"] = entry
+                    eval_times[name] = entry
+                    prefix = "eval_"
                 elif n == K3_TIMED[0][0]:
-                    out[f"gather_gemm_{variant}"] = entry
+                    out[name] = entry
+                    prefix = ""
                 else:
-                    more.setdefault(f"gather_gemm_{variant}", {})[
-                        f"n{n}"] = entry
-    return out, k1, eval_times, more
+                    more.setdefault(name, {})[f"n{n}"] = entry
+                    prefix = f"n{n}_"
+                k3_stage_t.setdefault(name, {})[prefix] = stage_t
+    return out, k1, eval_times, more, k3_stage_t
 
 
 def train_bf16_store(gen, stores):
@@ -3603,9 +3624,8 @@ def time_members(gen, store, bf16=False):
     train shape, 640 rows with x_res, from one index set of ``store``: the
     float32 store at float32 compute, the bfloat16 one at bfloat16); and,
     for K3, index_select + matmul over the stacked weights (in the compute
-    dtype), medians of 41, and at bfloat16 compute its two stages apart
-    by the profiler ("stage_a", "stage_b" in its times).  {name: {N:
-    (times, work)}}."""
+    dtype), medians of 41, and its two stages apart by the profiler
+    ("stage_a", "stage_b" in its times).  {name: {N: (times, work)}}."""
     sfx = "_bf16" if bf16 else ""
     dt = torch.bfloat16 if bf16 else torch.float32
     esize = 2 if bf16 else 4
@@ -3667,10 +3687,10 @@ def time_members(gen, store, bf16=False):
                     store, idx.rows, w[k], scale) for k in range(n)],
                 "library": lambda: torch.matmul(
                     store.index_select(0, idx.rows), w.transpose(1, 2))})
-            if bf16:
-                t.update(k3_bf16_stages(member_call))
-                t["splits"] = gather_gemm.bf16_plan(
-                    rows, FLAGSHIP.fc_dim, store.shape[1], 1, n).splits
+            t.update(k3_stages(member_call, "bf16" if bf16 else "f32"))
+            t["splits"] = (gather_gemm.bf16_plan if bf16 else
+                           gather_gemm.f32_plan)(
+                rows, FLAGSHIP.fc_dim, store.shape[1], 1, n).splits
             d, h = store.shape[1], FLAGSHIP.fc_dim
             f, nb = gather_work(idx, d, h, True, store_size=esize,
                                 compute_size=esize)
@@ -5585,8 +5605,9 @@ def grid_slice_kernels(store):
     at the train and eval row counts, from the float32 store at float32
     and bfloat16 compute: each against its plain version (z within RTOL
     or bf16_err, x_res bitwise) and timed against it and index_select +
-    mm at the same slice, medians of 41 in turns.  Returns {(compute, h,
-    n): (max error, times, work)}."""
+    mm at the same slice, medians of 41 in turns, with K3's two stages by
+    the profiler.  Returns {(compute, h, n): (max error, times,
+    work)}."""
     rng = np.random.default_rng(8)
     d = store.shape[1]
     out = {}
@@ -5613,14 +5634,16 @@ def grid_slice_kernels(store):
                     raise AssertionError(f"K3 on a slice H={h} ({compute}) "
                                          f"disagrees with plain at N={n}")
                 lib_store = store.to(w.dtype) if compute == "bf16" else store
+                kernel = lambda: gather_gemm.gathered_gemm(
+                    store, rows, w, scale, with_rows)
                 with torch.no_grad():
                     t = time_pair({
-                        "kernel": lambda: gather_gemm.gathered_gemm(
-                            store, rows, w, scale, with_rows),
+                        "kernel": kernel,
                         "plain": lambda: gather_gemm.gathered_gemm_plain(
                             store, rows.rows, w, scale),
                         "library": lambda: torch.mm(
                             lib_store.index_select(0, rows.rows), w.t())})
+                    t.update(k3_stages(kernel, compute))
                 work = gather_work(rows, d, h, with_rows,
                                    compute_size=2 if compute == "bf16"
                                    else 4)
@@ -5632,7 +5655,9 @@ def grid_slice_kernels(store):
                     f"{'with' if with_rows else 'without'} x_res: "
                     f"|kernel-plain| {err:.3e}; kernel {t['kernel']:.4f} "
                     f"ms, plain {t['plain']:.4f}, index_select + mm "
-                    f"{t['library']:.4f}; bound {least:.4f} ms by {by}")
+                    f"{t['library']:.4f}; bound {least:.4f} ms by {by}; "
+                    f"stage A {t['stage_a']:.4f}, stage B "
+                    f"{t['stage_b']:.4f} (profiler)")
     return out
 
 
@@ -5750,8 +5775,8 @@ def main() -> int:
           "gather_gemm": (k3_t["kernel"], k3_t["plain"], k3_t["library"])}
 
     log("bfloat16 and narrow-store kernel times")
-    bf16_ms, bf16_k1, bf16_eval, bf16_more = time_bf16_kernels(gen,
-                                                               variants)
+    bf16_ms, bf16_k1, bf16_eval, bf16_more, k3_stage_t = time_bf16_kernels(
+        gen, variants)
     del variants
 
     # each path's launches, counted from 0 over its own run, summed per
@@ -5940,7 +5965,10 @@ def main() -> int:
     kernels[3].update(
         eval_ms=k3_eval_t["kernel"], eval_plain_ms=k3_eval_t["plain"],
         eval_library_ms=k3_eval_t["library"],
-        eval_bound_ms=bound(*k3_eval_work, PEAK_OPS["gather_gemm"])[0])
+        eval_bound_ms=bound(*k3_eval_work, PEAK_OPS["gather_gemm"])[0],
+        stage_a_ms=k3_t["stage_a"], stage_b_ms=k3_t["stage_b"],
+        eval_stage_a_ms=k3_eval_t["stage_a"],
+        eval_stage_b_ms=k3_eval_t["stage_b"])
     # the bfloat16 and narrow-store variants: the bfloat16 ones bound by
     # the dense bfloat16 rate, K3 from a narrow store at float32 compute by
     # 3xTF32's
@@ -5967,6 +5995,9 @@ def main() -> int:
             entry.update(eval_ms=ev_k, eval_plain_ms=ev_p,
                          eval_library_ms=ev_lib,
                          eval_bound_ms=bound(*ev_work, peak)[0])
+        for prefix, stage_t in k3_stage_t.get(name, {}).items():
+            entry.update({f"{prefix}{stage}_ms": ms
+                          for stage, ms in stage_t.items()})
         for key, (k_ms, p_ms, lib_ms, k_work) in bf16_more.get(
                 name, {}).items():
             entry.update({f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms,
@@ -6011,7 +6042,7 @@ def main() -> int:
                 if "library" in t:
                     entry[f"n{n}_library_ms"] = t["library"]
         for n in MEMBER_TIMED:
-            for stage in K3_BF16_STAGES:
+            for stage in K3_STAGES["f32"]:
                 if stage in by_n[n][0]:
                     key = stage if n == 4 else f"n{n}_{stage}"
                     entry[f"{key}_ms"] = by_n[n][0][stage]
@@ -6038,7 +6069,9 @@ def main() -> int:
         entry.update({f"{key}_ms": t["kernel"], f"{key}_plain_ms": t["plain"],
                       f"{key}_library_ms": t["library"],
                       f"{key}_bound_ms": bound(*work_k, peak)[0],
-                      f"{key}_max_abs_err": err})
+                      f"{key}_max_abs_err": err,
+                      f"{key}_stage_a_ms": t["stage_a"],
+                      f"{key}_stage_b_ms": t["stage_b"]})
     log(json.dumps({"data_parallel": dp_times, "grid": grid_times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

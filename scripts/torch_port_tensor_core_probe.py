@@ -1,28 +1,32 @@
 """Probes of the port's tensor-core kernels on one CUDA card (an H100):
 the numbers behind the design of K1 (csrc/trn_fused_fwd.cu), K2
 (csrc/trn_fused_bwd.cu, and in bfloat16 csrc/trn_fused_bwd_bf16.cu) and
-K3 (csrc/gather_gemm.cu, and at bfloat16 compute csrc/gather_gemm_bf16.cu),
-and behind the tf32x3.cuh and wgmma_bf16.cuh helpers they share.
+K3 (csrc/gather_gemm.cu at float32 compute, csrc/gather_gemm_bf16.cu at
+bfloat16), and behind the tf32x3.cuh and wgmma_bf16.cuh helpers they
+share.
 
     PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
         [PROBE ...] [--k3-slices N]
     PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
         k1-earlier --earlier-k1 PATH
     PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
-        k3-bf16-earlier k1-bf16-earlier --earlier-csrc DIR
+        k3-bf16-earlier k3-f32-earlier k1-bf16-earlier --earlier-csrc DIR
 
-Probes (all but k1-earlier, k3-bf16-earlier and k1-bf16-earlier by
+Probes (all but k1-earlier and the *-earlier probes of --earlier-csrc by
 default):
   mma-rate        mma.sync m16n8k8 TF32 throughput: bare, and as one 3xTF32
                   step of the kernels (24 mma.sync over 16 fresh f32 values)
                   with the split done by integer rounding (tf32x3.cuh) or by
                   cvt.rna.tf32.f32
-  k3-splits       K3 device time at the train (640 rows, x_res) and eval
-                  (320 rows) shapes for 1..8 K slices, beside index_select
-                  + mm; at bfloat16 compute from bfloat16 and int8 stores
-                  for 1, 2, 4 and 8 K slices (the cluster sizes), also at
+  k3-clusters     the thread block clusters of 1..16 blocks of K3's
+                  float32 GEMM the card holds at once (f32_plan's table)
+  k3-splits       K3 device time by K slices: at float32 compute (1..8)
+                  from the float32 store at the train (640 rows, x_res)
+                  and eval (320 rows) shapes, with 4 and 8 members and on
+                  the H = 128 column slice, beside index_select + mm; at
+                  bfloat16 compute from bfloat16 and int8 stores, also at
                   the target batch's 370 rows and with 4 and 8 members,
-                  beside index_select + matmul, and K3's kernels (its two
+                  beside index_select + matmul; K3's kernels (its two
                   stages) and the library pair's by the profiler at the
                   chosen slices
   split-variants  the 3xTF32 split with a_lo left raw, rounded by integer
@@ -30,8 +34,8 @@ default):
                   float64, and chip_smoke.py's five device-store steps
                   against the host-feature steps
   phases          clock64 cycles a chunk spends waiting for its copies,
-                  issuing the next copies and computing, in K3, in K2's
-                  dx and dW families and in K1
+                  issuing the next copies and computing, in K2's dx and dW
+                  families and in K1 (the mma.sync rings of tf32x3.cuh)
   k1-splits       K1 device time, (infer) at B=1, 64 and 202 and (train)
                   at B=202, for 1..8 D slices
   k1-variants     K1 with its tile width, ring and blocks an SM varied
@@ -56,6 +60,28 @@ default):
                   dependent launch) at 1, 4 and 8 members, each checked
                   against the tree's z and the plain version and timed in
                   turns
+  k3-f32-variants K3 at float32 compute with its source varied
+                  (K3_F32_VARIANTS: W split into TF32 planes by a kernel
+                  before stage A in place of the consumers' registers,
+                  stage B without the programmatic dependent launch, a
+                  ring of 3 stages, the consumer warpgroups taking turns
+                  at the tensor cores, the K slices by bf16_plan's rule
+                  (powers of two up to 8); and two diagnostics, one
+                  product a k step fewer and W unsplit) at 1, 4 and 8
+                  members, the eval shape
+                  and the H = 256 and 128 column slices, each checked
+                  against the tree's z (bitwise where the slices are the
+                  same) and the plain version, and timed in turns
+  k3-f32-earlier  only when named, with --earlier-csrc DIR: K3 at float32
+                  compute built from DIR, an earlier csrc/ whose K3 is the
+                  mma.sync design (e.g. `git archive 33e2418
+                  ta3n_tpu_torch/csrc | tar -x -C build/earlier`: a 64 x 64
+                  tile a block fed by cp.async, its K slices summed through
+                  float32 partials by a second kernel), called with its own
+                  K slices and partials, against the current one from each
+                  store at the train, target and eval shapes, at 4 and 8
+                  members and on the column slices, both checked against
+                  the plain version and timed in turns
   k3-bf16-earlier only when named, with --earlier-csrc DIR: K3 at
                   bfloat16 compute built from DIR, an earlier csrc/ whose
                   K3 is one kernel (e.g. `git archive 7575d3f
@@ -79,8 +105,8 @@ default):
                   a7f844d:ta3n_tpu_torch/csrc/trn_fused_fwd.cu`), both
                   checked against the plain version and timed in turns
 
---k3-slices N runs the split-variants probe with K3 at N K slices in
-place of the wrapper's choice.  Variants are built from a patched copy of
+--k3-slices N runs the split-variants probe with K3 at N K slices (1, 2,
+4 or 8, at most one a 32-deep chunk) in place of the wrapper's choice.  Variants are built from a patched copy of
 csrc/ under
 build/ta3n_tpu_torch/probe/ (gitignored); nothing in the tree changes.
 Fails on a machine without a CUDA device.
@@ -222,6 +248,46 @@ int main() {
 }
 """
 
+CLUSTERS_CU = r"""
+#include <cstdio>
+#include <cuda_runtime.h>
+
+// a kernel shaped as K3's float32 GEMM (csrc/gather_gemm.cu): 384
+// threads, one block an SM by its shared memory
+__global__ void __launch_bounds__(384, 1) shaped(int* out) {
+  extern __shared__ int smem[];
+  if (out != nullptr) out[0] = smem[0];
+}
+
+int main() {
+  const int smem = SMEM;
+  cudaFuncSetAttribute(shaped, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  cudaFuncSetAttribute(shaped,
+                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  for (int size = 1; size <= 16; ++size) {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(1, 1, size);
+    config.blockDim = dim3(384);
+    config.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 1;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = size;
+    config.attrs = &attr;
+    config.numAttrs = 1;
+    int clusters = -1;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveClusters(&clusters, shaped, &config);
+    printf("  clusters of %2d blocks: %3d resident at once (%3d blocks)%s\n",
+           size, clusters, clusters * size,
+           err == cudaSuccess ? "" : cudaGetErrorString(err));
+  }
+  return 0;
+}
+"""
+
 SPLITS = {  # the body of split_tf32 in each variant
     "raw lo": """  hi = to_tf32(a);
   lo = __float_as_uint(a - __uint_as_float(hi));""",
@@ -327,6 +393,27 @@ def probe_mma_rate() -> None:
     log(run.stdout.rstrip())
 
 
+def probe_k3_clusters() -> None:
+    """How many thread block clusters of 1..16 blocks of K3's float32 GEMM
+    (384 threads, its shared memory: one block an SM) the card holds at
+    once (cudaOccupancyMaxActiveClusters): the table behind
+    ops/gather_gemm.py::f32_plan's K slices."""
+    text = (_build._CSRC / "gather_gemm.cu").read_text()
+    stages = int(re.search(r"constexpr int kStages = (\d+);", text).group(1))
+    smem = stages * 3 * 128 * 128 + 2 * stages * 8 + 1024
+    log(f"k3-clusters (K3's float32 GEMM: 384 threads, {smem} bytes of "
+        "shared memory)")
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    src, exe = PROBE_DIR / "clusters.cu", PROBE_DIR / "clusters"
+    src.write_text(CLUSTERS_CU.replace("SMEM", str(smem)))
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-o", str(exe), str(src)],
+                   check=True)
+    run = subprocess.run([str(exe)], check=True, capture_output=True,
+                         text=True)
+    log(run.stdout.rstrip())
+
+
 def store_and_weight(rows=35000, d=2048, h=512):
     gen = torch.Generator().manual_seed(3)
     store = torch.randn((rows, d), generator=gen).cuda()
@@ -338,24 +425,35 @@ def probe_k3_splits() -> None:
     log("k3-splits (device time, median of 21 launches)")
     store, w = store_and_weight()
     rng = np.random.default_rng(0)
-    chosen = gather_gemm._splits
-    for n, with_rows in chip_smoke.K3_TIMED:
+    chosen = gather_gemm.f32_plan
+    cases = [(n, with_rows, 1, 512) for n, with_rows in chip_smoke.K3_TIMED]
+    cases += [(640, True, members, 512) for members in (4, 8)]
+    cases += [(370, True, 1, 128), (320, False, 1, 128)]
+    for n, with_rows, members, h in cases:
         rows = gather_gemm.row_index(rng.integers(0, store.shape[0], n),
                                      store.shape[0], "cuda")
-        library = statistics.median(dev_ms(lambda: torch.mm(
-            store.index_select(0, rows.rows), w.t())) for _ in range(21))
+        ws = torch.stack([w[:h]] + [w[:h].roll(i, 0)
+                                    for i in range(1, members)])
+        pair = lambda: torch.matmul(store.index_select(0, rows.rows),
+                                    ws.transpose(1, 2))
+        library = statistics.median(dev_ms(pair) for _ in range(21))
+        fn = lambda: gather_gemm.gathered_gemm_members(store, rows, ws, None,
+                                                       with_rows)
         line = []
-        for splits in range(1, gather_gemm._MAX_SPLITS + 1):
-            gather_gemm._splits = lambda m, h, c, s=splits: s
-            fn = lambda: gather_gemm.gathered_gemm(store, rows, w, None,
-                                                   with_rows)
+        for splits in range(1, 9):
+            gather_gemm.f32_plan = (
+                lambda *a, s=splits, **kw: chosen(*a, **kw)._replace(
+                    splits=s))
             for _ in range(3):
                 fn()
-            line.append(f"{splits}: {statistics.median(dev_ms(fn) for _ in range(21)):.4f}")
-        gather_gemm._splits = chosen
-        log(f"  N={n} x_res={with_rows}: ms by K slices {', '.join(line)}; "
-            f"index_select + mm {library:.4f}; the wrapper picks "
-            f"{chosen(n, w.shape[0], 64)}")
+            ms = statistics.median(dev_ms(fn) for _ in range(21))
+            line.append(f"{splits}: {ms:.4f}")
+        gather_gemm.f32_plan = chosen
+        pick = chosen(n, h, w.shape[1], 1, members).splits
+        log(f"  f32 compute, f32 store, N={n} x_res={with_rows} "
+            f"members={members} H={h}: ms by K slices {', '.join(line)}; "
+            f"index_select + matmul {library:.4f}; the wrapper picks {pick}")
+        log("    by the profiler: " + kernel_times(fn))
     chosen = gather_gemm.bf16_plan
     w16 = w.to(torch.bfloat16)
     stores = {"bf16": store.to(torch.bfloat16), "int8": int8_store(store)}
@@ -491,12 +589,6 @@ extern "C" void probe_phases_STEM(unsigned long long* out, int reset) {
         log(f"  {label}: wait + barrier {wait / n:.0f}, issue {issue / n:.0f}, "
             f"compute {comp / n:.0f} cycles a chunk ({n} block-chunks)")
 
-    store, w = store_and_weight()
-    rows = gather_gemm.row_index(
-        np.random.default_rng(0).integers(0, store.shape[0], 640),
-        store.shape[0], "cuda")
-    measure("K3 N=640", lambda: gather_gemm.gathered_gemm(store, rows, w),
-            "gather_gemm")
     with torch.no_grad():
         for b in (64, 202):
             x, wt, bi = chip_smoke.trn_inputs(
@@ -674,11 +766,21 @@ def earlier_bf16_splits(m: int, h: int, d: int, k: int,
     return max(1, min(8, k * -(-d // 64), room))
 
 
+def earlier_f32_splits(m: int, h: int, d: int, k: int) -> int:
+    """The K slices of the mma.sync design at float32 compute (its
+    ops/gather_gemm.py::_splits): 64 x 64 tiles, as many slices as keep
+    the grid within 264 blocks (two an SM), at most one a 32-deep
+    chunk."""
+    tiles = -(-m // 64) * -(-h // 64)
+    return max(1, min(8, k * -(-d // 32), 264 // tiles))
+
+
 class _EarlierGather:
     """An earlier library called as the current wrappers call
-    ``ta3n_gather_gemm_members``: at bfloat16 compute with the earlier
-    design's K slices and float32 partials [members, splits, m, h] in
-    place of the current plan's.  An entry without members
+    ``ta3n_gather_gemm_members``: with the earlier design's K slices and
+    float32 partials [members, splits, m, h] in place of the current
+    plan's, at bfloat16 compute where that design was one kernel, and at
+    float32 compute where it was mma.sync.  An entry without members
     (``ta3n_gather_gemm``) takes one member and shared indices."""
 
     def __init__(self, lib: ctypes.CDLL):
@@ -697,15 +799,14 @@ class _EarlierGather:
         args = list(args)
         (n_idx, streams, d, k, h, splits, store_kind, compute_kind,
          members, per_member) = args[8:18]
-        self._part = None
-        if compute_kind == 1:
-            m = n_idx * streams // k
-            splits = earlier_bf16_splits(m, h, d, k, store_kind)
-            self._part = (torch.empty((members, splits, m, h),
-                                      dtype=torch.float32, device="cuda")
-                          if splits > 1 else None)
-            args[7] = None if self._part is None else self._part.data_ptr()
-            args[13] = splits
+        m = n_idx * streams // k
+        splits = (earlier_f32_splits(m, h, d, k) if compute_kind == 0
+                  else earlier_bf16_splits(m, h, d, k, store_kind))
+        self._part = (torch.empty((members, splits, m, h),
+                                  dtype=torch.float32, device="cuda")
+                      if splits > 1 else None)
+        args[7] = None if self._part is None else self._part.data_ptr()
+        args[13] = splits
         if self._members:
             return self._entry(*args)
         if (members, per_member) != (1, 0):
@@ -753,6 +854,244 @@ def probe_k3_bf16_earlier(csrc: Path) -> None:
                 f"earlier {t['earlier']:.4f} ms, current "
                 f"{t['current']:.4f} ms ({t['earlier'] / t['current']:.2f}x)")
     with_library(current)
+
+
+def probe_k3_f32_earlier(csrc: Path) -> None:
+    """K3 at float32 compute built from an earlier csrc/ (the mma.sync
+    design) against the current two-stage design: from each store at the
+    train (640 rows, x_res), target (370, x_res) and eval (320, no x_res)
+    shapes, from the float32 store at 4 and 8 members over one index set
+    and on tensor parallelism's column slices (H = 256, 128), both checked
+    against the plain version and timed in turns with index_select + mm
+    beside them."""
+    log(f"k3-f32-earlier (K3 at float32 compute from {csrc}; device time, "
+        "medians of 41 in turns)")
+    earlier = _EarlierGather(earlier_library(csrc))
+    current = _build.load_library()
+    store, w = store_and_weight()
+    stores = {"f32": store, "bf16": store.to(torch.bfloat16),
+              "int8": int8_store(store)}
+    rng = np.random.default_rng(0)
+
+    def on(lib, fn):
+        with_library(lib)
+        return fn()
+
+    cases = [(kind, n, with_rows, 1, 512)
+             for kind in stores for n, with_rows in chip_smoke.K3_BF16_TIMED]
+    cases += [("f32", 640, True, members, 512) for members in (4, 8)]
+    cases += [("f32", n, with_rows, 1, h) for h in (256, 128)
+              for n, with_rows in chip_smoke.K3_BF16_TIMED]
+    for kind, n, with_rows, members, h in cases:
+        st = stores[kind]
+        rows, scale = chip_smoke.gather_case(n, store.shape[0], rng)
+        ws = torch.stack([w[:h]] + [w[:h].roll(i, 0)
+                                    for i in range(1, members)])
+        fn = lambda: gather_gemm.gathered_gemm_members(st, rows, ws, scale,
+                                                       with_rows)
+        want = [gather_gemm.gathered_gemm_plain(st, rows.rows, ws[i],
+                                                scale)[0]
+                for i in range(members)]
+        for label, lib in (("earlier", earlier), ("current", current)):
+            got = on(lib, fn)[0]
+            for i in range(members):
+                err = (got[i] - want[i]).abs().max().item()
+                if not err <= chip_smoke.RTOL * max(
+                        1.0, want[i].abs().max().item()):
+                    raise AssertionError(f"{label} K3 f32 {kind} N={n}")
+        library = (
+            (lambda: torch.matmul(st[0].index_select(0, rows.rows).float()
+                                  * st[1].index_select(0, rows.rows)[:, None],
+                                  ws.transpose(1, 2)))
+            if kind == "int8" else
+            (lambda: torch.matmul(st.index_select(0, rows.rows).float(),
+                                  ws.transpose(1, 2))))
+        t = chip_smoke.time_pair({
+            "earlier": lambda: on(earlier, fn),
+            "current": lambda: on(current, fn), "library": library})
+        log(f"  {kind} store N={n} x_res={with_rows} members={members} "
+            f"H={h}: earlier {t['earlier']:.4f} ms, current "
+            f"{t['current']:.4f} ms ({t['earlier'] / t['current']:.2f}x); "
+            f"index_select + mm {t['library']:.4f} ms")
+    with_library(current)
+
+
+# K3 at float32 compute with W split into TF32 hi and lo planes before
+# stage A (by the repitch kernel, for every weight), read by TMA beside
+# the rows' planes, in place of the consumers' split in registers: four
+# boxes a stage, so a ring of 3 stages (2 folded)
+_K3_W_PLANES = [
+    ("constexpr int kStageBytes = 3 * kBoxBytes;",
+     "constexpr int kStageBytes = 4 * kBoxBytes;"),
+    ("constexpr int kStages = 4;", "constexpr int kStages = 3;"),
+    ("""        ta3n::split_tf32(*reinterpret_cast<const float*>(st + at(kk, r)),
+                         w_hi[kk][r], w_lo[kk][r]);""",
+     """        w_hi[kk][r] = *reinterpret_cast<const unsigned*>(st + at(kk, r)),
+        w_lo[kk][r] = *reinterpret_cast<const unsigned*>(
+            st + 3 * kBoxBytes + at(kk, r));"""),
+    ("""        ta3n::tma_load_3d(smem + s * kStageBytes, &maps.w,
+                          (c_begin + i) * kTileK, h0, member, &full[s]);""",
+     """        ta3n::tma_load_3d(smem + s * kStageBytes, &maps.w,
+                          (c_begin + i) * kTileK, h0, member, &full[s]);
+        ta3n::tma_load_3d(smem + s * kStageBytes + 3 * kBoxBytes, &maps.w,
+                          (c_begin + i) * kTileK, h0, gridDim.y + member,
+                          &full[s]);"""),
+    ("const bool w_direct = kd % 4 == 0 && aligned(w, 16);",
+     "const bool w_direct = false;"),
+    (": operand_map(w_rows, kd, h, members, pitch, &maps.w);",
+     ": operand_map(w_rows, kd, h, 2 * members, pitch, &maps.w);"),
+    ("    out[e / cols * pitch + e % cols] = w[e];",
+     """  {
+    unsigned hi, lo;
+    ta3n::split_tf32(w[e], hi, lo);
+    out[e / cols * pitch + e % cols] = __uint_as_float(hi);
+    out[(rows + e / cols) * pitch + e % cols] = __uint_as_float(lo);
+  }"""),
+]
+
+# the tree's plan, which the variants' plans start from
+_F32_PLAN = gather_gemm.f32_plan
+
+
+def _k3_w_planes_plan(m, h, d, k, members=1, per_member=False,
+                      weight_aligned=True):
+    """f32_plan's call with scratch for W's two planes as well."""
+    plan = _F32_PLAN(m, h, d, k, members, per_member)
+    return plan._replace(scratch=2 * plan.index_sets * m * plan.pitch
+                         + 2 * members * h * plan.pitch)
+
+
+def _k3_pow2_plan(m, h, d, k, members=1, per_member=False,
+                  weight_aligned=True):
+    """f32_plan's call with bf16_plan's rule for the K slices: a power of
+    two up to 8, the most that keep one member's tiles times slices
+    within the 132 SMs."""
+    plan = _F32_PLAN(m, h, d, k, members, per_member, weight_aligned)
+    most = min(8, -(-k * d // 32),
+               max(1, 132 // (plan.row_tiles * plan.col_tiles)))
+    return plan._replace(splits=1 << (most.bit_length() - 1))
+
+
+# the two consumer warpgroups taking turns at the tensor cores (two named
+# barriers: one's wait, sum and next split while the other's products
+# run), with no branch on the warpgroup around the products
+_K3_TURNS = [
+    ("// Stage B.  Block (blockIdx.x",
+     """__device__ __forceinline__ void turn(int id, bool wait) {
+  if (wait)
+    asm volatile("bar.sync %0, 256;\\n" ::"r"(id) : "memory");
+  else
+    asm volatile("bar.arrive %0, 256;\\n" ::"r"(id) : "memory");
+}
+
+// Stage B.  Block (blockIdx.x"""),
+    ("  for (int i = 0; i < n; ++i) {\n    const int s = i % kStages;\n"
+     "    ta3n::mbar_wait(&full[s], (i / kStages) & 1);",
+     "  if (wg == 1) turn(2, false);\n"
+     "  for (int i = 0; i < n; ++i) {\n    const int s = i % kStages;\n"
+     "    ta3n::mbar_wait(&full[s], (i / kStages) & 1);"),
+    ("    ta3n::fence_operands(part);\n    ta3n::wgmma_fence();",
+     "    asm volatile(\"bar.sync %0, 256;\\n\" ::\"r\"(2 + wg) : \"memory\");\n"
+     "    ta3n::fence_operands(part);\n    ta3n::wgmma_fence();"),
+    ("    ta3n::wgmma_commit();\n    ta3n::wgmma_wait<0>();",
+     "    ta3n::wgmma_commit();\n"
+     "    asm volatile(\"bar.arrive %0, 256;\\n\" ::\"r\"(3 - wg) : \"memory\");\n"
+     "    ta3n::wgmma_wait<0>();"),
+    ("  // every slice's partial tile in its block's shared memory",
+     "  if (wg == 0) turn(2, true);\n\n"
+     "  // every slice's partial tile in its block's shared memory"),
+]
+
+
+# K3 at float32 compute in variants of csrc/gather_gemm.cu: name ->
+# (source edits, the plan the wrapper takes in place of f32_plan or
+# None).  "diagnostic:" variants compute another function (they only
+# time what a part of the work costs) and are not checked; a variant
+# with other K slices is held to the plain version only (its sums round
+# elsewhere).
+K3_F32_VARIANTS = {
+    "the tree": ([], None),
+    "W split into planes before stage A": (_K3_W_PLANES, _k3_w_planes_plan),
+    "stage B launched after stage A": ([
+        ("attrs[0].val.programmaticStreamSerializationAllowed = 1;",
+         "attrs[0].val.programmaticStreamSerializationAllowed = 0;")], None),
+    "a ring of 3 stages": ([
+        ("constexpr int kStages = 4;", "constexpr int kStages = 3;")], None),
+    "the warpgroups taking turns": (_K3_TURNS, None),
+    "K slices a power of two up to 8 (bf16_plan's rule)": (
+        [], _k3_pow2_plan),
+    "diagnostic: two products a k step (no W_lo A_hi)": ([
+        ("      wgmma_tf32(part, w_lo[kk], b_hi + step, kk > 0);\n"
+         "      wgmma_tf32(part, w_hi[kk], b_lo + step, 1);",
+         "      wgmma_tf32(part, w_hi[kk], b_lo + step, kk > 0);")], None),
+    "diagnostic: W not split (its raw bits as hi and lo)": ([
+        ("        ta3n::split_tf32(*reinterpret_cast<const float*>(st + "
+         "at(kk, r)),\n                         w_hi[kk][r], "
+         "w_lo[kk][r]);",
+         "        w_hi[kk][r] = w_lo[kk][r] =\n"
+         "            *reinterpret_cast<const unsigned*>(st + "
+         "at(kk, r));")], None),
+}
+
+
+def probe_k3_f32_variants() -> None:
+    """K3 at float32 compute built in each variant of K3_F32_VARIANTS,
+    from the float32 store at 640 rows with x_res and 1, 4 and 8 members
+    over one index set, at 320 rows without x_res, and on the column
+    slices H = 256 and 128 at 370 rows with x_res and 320 without: z
+    bitwise the tree's and within RTOL of the plain version (but for the
+    diagnostic variants), timed in turns, each kernel by the
+    profiler."""
+    log("k3-f32-variants (device ms, medians of 41 in turns)")
+    libs = {name: (variant_library(f"k3 f32 {name}", lambda text: text, "",
+                                   {"gather_gemm.cu": edits}), plan)
+            for name, (edits, plan) in K3_F32_VARIANTS.items()}
+    for name, ((_, ptxas), _) in libs.items():
+        log(f"  {name}: " + ptxas_lines(ptxas, "gather_gemm_kernel"))
+    tree, chosen = _build.load_library, gather_gemm.f32_plan
+    store, w = store_and_weight()
+    rows = gather_gemm.row_index(
+        np.random.default_rng(0).integers(0, store.shape[0], 640),
+        store.shape[0], "cuda")
+    part = {n: gather_gemm.row_index(rows.rows[:n].cpu(), store.shape[0],
+                                     "cuda") for n in (320, 370)}
+    for members, idx, with_rows, h in (
+            (1, rows, True, 512), (1, part[320], False, 512),
+            (4, rows, True, 512), (8, rows, True, 512),
+            (1, part[370], True, 256), (1, part[320], False, 256),
+            (1, part[370], True, 128), (1, part[320], False, 128)):
+        ws = torch.stack([w[:h]] + [w[:h].roll(i, 0)
+                                    for i in range(1, members)])
+        fn = lambda: gather_gemm.gathered_gemm_members(store, idx, ws, None,
+                                                       with_rows)
+        want = [gather_gemm.gathered_gemm_plain(store, idx.rows, ws[i])[0]
+                for i in range(members)]
+        fns, first = {}, None
+        for name, ((lib, _), plan) in libs.items():
+            def run(lib=lib, plan=plan):
+                with_library(lib)
+                gather_gemm.f32_plan = plan or chosen
+                try:
+                    return fn()
+                finally:
+                    gather_gemm.f32_plan = chosen
+            got = run()[0]
+            first = got if first is None else first
+            bitwise = plan in (None, _k3_w_planes_plan)
+            if not name.startswith("diagnostic") and (
+                    (bitwise and not torch.equal(got, first)) or not all(
+                        (got[i] - want[i]).abs().max().item()
+                        <= chip_smoke.RTOL
+                        * max(1.0, want[i].abs().max().item())
+                        for i in range(members))):
+                raise AssertionError(f"{name}: K3 f32, {members} members, "
+                                     f"H={h}")
+            fns[name] = run
+        t = chip_smoke.time_pair(fns)
+        for name, run in fns.items():
+            log(f"  {members} members, {idx.rows.shape[0]} rows, H={h}, "
+                f"{name}: {t[name]:.4f} ms ({kernel_times(run)})")
+    _build.load_library = tree
 
 
 def k1_cases():
@@ -1199,13 +1538,15 @@ def probe_k1_earlier(path: Path) -> None:
 
 
 PROBES = {"mma-rate": probe_mma_rate, "k3-splits": probe_k3_splits,
+          "k3-clusters": probe_k3_clusters,
           "split-variants": probe_split_variants, "phases": probe_phases,
           "k1-splits": probe_k1_splits, "k1-variants": probe_k1_variants,
           "wgmma-phases": probe_wgmma_phases,
           "k1-bf16-profile": probe_k1_bf16_profile,
           "k1-bf16-splits": probe_k1_bf16_splits,
           "k1-bf16-variants": probe_k1_bf16_variants,
-          "k3-bf16-variants": probe_k3_bf16_variants}
+          "k3-bf16-variants": probe_k3_bf16_variants,
+          "k3-f32-variants": probe_k3_f32_variants}
 
 
 def main(argv) -> int:
@@ -1218,7 +1559,9 @@ def main(argv) -> int:
         at = argv.index("--k3-slices")
         slices = int(argv[at + 1])
         del argv[at:at + 2]
-        gather_gemm._splits = lambda m, h, chunks: min(slices, chunks)
+        chosen = gather_gemm.f32_plan
+        gather_gemm.f32_plan = lambda *a, **kw: chosen(*a, **kw)._replace(
+            splits=slices)
         log(f"K3 at {slices} K slices")
     if "--earlier-k1" in argv:
         at = argv.index("--earlier-k1")
@@ -1230,9 +1573,11 @@ def main(argv) -> int:
         csrc = Path(argv[at + 1]).resolve()
         del argv[at:at + 2]
         PROBES["k3-bf16-earlier"] = lambda: probe_k3_bf16_earlier(csrc)
+        PROBES["k3-f32-earlier"] = lambda: probe_k3_f32_earlier(csrc)
         PROBES["k1-bf16-earlier"] = lambda: probe_k1_bf16_earlier(csrc)
     names = argv or [n for n in PROBES if n not in (
-        "k1-earlier", "k3-bf16-earlier", "k1-bf16-earlier")]
+        "k1-earlier", "k3-bf16-earlier", "k3-f32-earlier",
+        "k1-bf16-earlier")]
     unknown = [n for n in names if n not in PROBES]
     if unknown:
         print(f"unknown probes {unknown}; choose from {list(PROBES)}",

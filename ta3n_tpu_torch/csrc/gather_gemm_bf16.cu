@@ -257,29 +257,6 @@ struct Maps {
   CUtensorMap a, w;
 };
 
-// A cluster-wide barrier of every thread of the cluster's blocks, which
-// orders their shared-memory stores before the reads after it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// Four float32 values at shared address `addr` of this block, read in the
-// block of rank `rank` of the cluster (after a cluster_sync that published
-// them; no write follows before the next one).
-__device__ __forceinline__ float4 ld_cluster4(unsigned addr, unsigned rank) {
-  unsigned remote;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
-      : "=r"(remote)
-      : "r"(addr), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote));
-  return v;
-}
-
 // Stage B.  Block (blockIdx.x = row tile * col_tiles + column tile,
 // member blockIdx.y, K slice blockIdx.z of gridDim.z = slices, a cluster
 // along z): z[member, 128 rows, 128 columns] of z [members, M, H] from
@@ -429,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, kFold ? 1 : 2)
             make_float2(acc[4 * jn + 2 * i], acc[4 * jn + 2 * i + 1]);
       }
   }
-  cluster_sync();
+  ta3n::cluster_sync();
   const int r0 = kTileM * split / splits;
   const int r1 = kTileM * (split + 1) / splits;
   const unsigned base = ta3n::smem_addr(red);
@@ -442,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, kFold ? 1 : 2)
     float4 v[kMaxSplits];
 #pragma unroll
     for (int s = 0; s < kMaxSplits; ++s)
-      if (s < splits) v[s] = ld_cluster4(at, s);
+      if (s < splits) v[s] = ta3n::ld_cluster4(at, s);
     float4 sum = v[0];
 #pragma unroll
     for (int s = 1; s < kMaxSplits; ++s) {
@@ -467,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, kFold ? 1 : 2)
     }
   }
   // no block leaves while the others read its shared memory
-  cluster_sync();
+  ta3n::cluster_sync();
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, once on each

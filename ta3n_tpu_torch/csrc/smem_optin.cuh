@@ -19,11 +19,13 @@ namespace ta3n {
 constexpr int kMaxDevices = 64;
 
 // Raise `kernel`'s dynamic shared memory limit on the current device to at
-// least `bytes`.  `granted` is the kernel's own table, one slot a device
-// ordinal, holding the largest size granted there (0: none yet).
+// least `bytes` (and, with wide_clusters, let it launch in clusters of up
+// to 16 blocks, past the portable 8).  `granted` is the kernel's own
+// table, one slot a device ordinal, holding the largest size granted
+// there (0: none yet).
 template <class Kernel>
 cudaError_t allow_smem_on_device(Kernel kernel, std::atomic<int>* granted,
-                                 int bytes) {
+                                 int bytes, bool wide_clusters = false) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -33,6 +35,9 @@ cudaError_t allow_smem_on_device(Kernel kernel, std::atomic<int>* granted,
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
+  if (err == cudaSuccess && wide_clusters)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   int seen = slot.load(std::memory_order_relaxed);
   while (seen < bytes &&

@@ -1,7 +1,7 @@
 // Building blocks shared by the tensor-core kernels (trn_fused_fwd.cu,
-// trn_fused_bwd.cu, gather_gemm.cu): float32 products on the tensor cores
-// at float32 accuracy, and a ring of shared-memory stages filled by
-// cp.async.
+// trn_fused_bwd.cu; gather_gemm.cu takes the split for its wgmma
+// products): float32 products on the tensor cores at float32 accuracy,
+// and a ring of shared-memory stages filled by cp.async.
 //
 // 3xTF32 ("fast f32").  TF32 keeps 10 explicit mantissa bits, about three
 // decimal digits, so one TF32 product per pair would miss the port's f32

@@ -1,9 +1,11 @@
-// Building blocks of the bfloat16 kernels on Hopper's warpgroup matrix
-// multiply (gather_gemm_bf16.cu, trn_fused_fwd_bf16.cu,
-// trn_fused_bwd_bf16.cu): shared-memory tiles in the 128-byte swizzled
-// layout, their matrix descriptors, the asynchronous products
-// wgmma.mma_async m64nNk16 bf16 with float32 accumulation, and the fences
-// and waits around them.
+// Building blocks of the kernels on Hopper's warpgroup matrix multiply
+// (gather_gemm_bf16.cu, trn_fused_fwd_bf16.cu, trn_fused_bwd_bf16.cu, and
+// the float32 gather_gemm.cu, which issues its own tf32 products):
+// shared-memory tiles in the 128-byte swizzled layout, their matrix
+// descriptors, the asynchronous products wgmma.mma_async m64nNk16 bf16
+// with float32 accumulation, the fences and waits around them, TMA
+// tensor maps and mbarriers, and the exchange within a thread block
+// cluster.
 //
 // Tiles.  Every operand tile in shared memory is made of panels of rows
 // of 64 bfloat16 values (128 bytes), panels 8 KB apart, each panel
@@ -200,6 +202,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       "r"(c3), "r"(smem_addr(bar))
       : "memory");
 }
+// A cluster-wide barrier of every thread of the cluster's blocks, which
+// orders their shared-memory stores before the reads after it (a launch
+// without clusters is a cluster of one block).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Four float32 values at shared address `addr` of this block, read in the
+// block of rank `rank` of the cluster (after a cluster_sync that published
+// them; no write follows before the next one).
+__device__ __forceinline__ float4 ld_cluster4(unsigned addr, unsigned rank) {
+  unsigned remote;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
+      : "=r"(remote)
+      : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote));
+  return v;
+}
+
 // A tiled tensor map on the host (rank 2 to 4): dims innermost first, the
 // byte strides of the outer dims (multiples of 16), the box, unit element
 // steps, zeros out of range.  cuTensorMapEncodeTiled is fetched from the
@@ -239,15 +265,19 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
              : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor map of `members` stacked bfloat16 weights [members, rows,
-// row] (row-major, 128-byte swizzle, zeros out of range), rank 3 with the
-// member outermost, in boxes of box_k columns x box_rows rows of one
-// member, made once per pointer, shape, member count and box and then
-// taken from a cache.  Returns a cudaError_t.
+// The tensor map of `members` stacked bfloat16 (or, with `type` FLOAT32,
+// float32) weights [members, rows, row] (row-major, 128-byte swizzle,
+// zeros out of range), rank 3 with the member outermost, in boxes of box_k
+// columns x box_rows rows of one member, made once per pointer, type,
+// shape, member count and box and then taken from a cache.  Returns a
+// cudaError_t.
 inline int weight_map(const void* w, long long row, int rows, int members,
-                      int box_k, int box_rows, CUtensorMap* out) {
+                      int box_k, int box_rows, CUtensorMap* out,
+                      CUtensorMapDataType type =
+                          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   struct Entry {
     const void* w;
+    CUtensorMapDataType type;
     long long row;
     int rows, members, box_k, box_rows;
     CUtensorMap map;
@@ -259,22 +289,23 @@ inline int weight_map(const void* w, long long row, int rows, int members,
   const std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < cached; ++i) {
     const Entry& e = cache[i];
-    if (e.w == w && e.row == row && e.rows == rows &&
+    if (e.w == w && e.type == type && e.row == row && e.rows == rows &&
         e.members == members && e.box_k == box_k && e.box_rows == box_rows) {
       *out = e.map;
       return 0;
     }
   }
-  const cuuint64_t pitch = static_cast<cuuint64_t>(row) * 2;
+  const cuuint64_t pitch = static_cast<cuuint64_t>(row) *
+                           (type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2);
   const int err = encode_map(
-      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w,
+      out, type, 3, w,
       {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(rows),
        static_cast<cuuint64_t>(members)},
       {pitch, pitch * static_cast<cuuint64_t>(rows)},
       {static_cast<cuuint32_t>(box_k), static_cast<cuuint32_t>(box_rows), 1},
       CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
-  cache[next] = {w, row, rows, members, box_k, box_rows, *out};
+  cache[next] = {w, type, row, rows, members, box_k, box_rows, *out};
   next = (next + 1) % kCache;
   if (cached < kCache) ++cached;
   return 0;

@@ -37,7 +37,9 @@ then holds the bfloat16 rows.  Each of the six (store, compute) pairs is a
 variant of the kernel with its own count of launches (``launches`` is the
 float32 store at float32 compute, ``variant_launches`` every variant); the
 three at bfloat16 compute convert the gathered rows once and run one wgmma
-GEMM over them, as ``bf16_plan`` plans.
+GEMM over them, as ``bf16_plan`` plans; the three at float32 compute
+split the gathered rows into TF32 hi and lo planes once and run one
+3xTF32 wgmma GEMM over them, as ``f32_plan`` plans.
 
 Shapes: a store is [R, D], or [R, S, D] for a Flow store whose S stream
 rows interleave per frame (row r, stream s is gathered row r·S + s, the
@@ -49,8 +51,8 @@ outputs are z [M, H] and x_res [M, k·D], M = N·S/k for N indices.
 
 Members.  ``gathered_gemm_members`` runs N members' stacked weights [N,
 H, k*D] over one store in one call of the kernel of their dtype (a
-member grid axis, at either compute dtype; at bfloat16 the rows of one
-index set are gathered and converted once for every member), from one
+member grid axis, at either compute dtype; the rows of one index set are
+gathered, scaled and converted or split once for every member), from one
 index set for all members (x_res then written once) or one each; K is
 sliced by one member's shape, so member k's z is bitwise its solo
 launch's.  A solo call is that call with one member: one launch path, one
@@ -83,8 +85,7 @@ from ta3n_tpu_torch.ops.trn_fused import (_acc, _call, _check_tensor,
 __all__ = ["RowIndex", "row_index", "upload", "gathered_gemm_plain",
            "gathered_gemm", "gathered_gemm_members",
            "gathered_linear", "part_rows", "Bf16Plan", "bf16_plan",
-           "launches",
-           "variant_launches"]
+           "F32Plan", "f32_plan", "launches", "variant_launches"]
 
 # kernel launches made by gathered_gemm and gathered_linear (plain-version
 # calls are not counted); callers reset them to count one run's launches:
@@ -100,14 +101,18 @@ _COMPUTE_KINDS = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1)}
 variant_launches = {f"{s}_{c}": 0 for s, _ in _STORE_KINDS.values()
                     for c, _ in _COMPUTE_KINDS.values()}
 
-# the float32-compute kernel's tiles (csrc/gather_gemm.cu): output rows
-# and columns per block, K per chunk; and how many K slices share an
-# output tile: as many as _TARGET_BLOCKS blocks hold, two per SM of the
-# H100's 132 (240 blocks in three K slices at the train shape, 640 x 512;
-# 240 in six at the eval shape, 320 x 512: the fastest of 1-8 slices
-# measured at both)
-_TILE_M, _TILE_H, _TILE_K = 64, 64, 32
-_MAX_SPLITS, _TARGET_BLOCKS = 8, 264
+# the most K slices of an output tile at bfloat16 compute
+_MAX_SPLITS = 8
+# the float32-compute kernels (csrc/gather_gemm.cu): stage A's threads a
+# block, each one 16-byte piece (4 values) of a gathered row; stage B's
+# output tile of one member a block (128 rows x 128 columns, two
+# warpgroups of 64 columns), its 32-deep K chunks, and the thread block
+# clusters of 1..16 of its blocks (one an SM) that the H100 holds at once
+# (cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3:
+# scripts/torch_port_tensor_core_probe.py k3-clusters)
+_F32_ROWS_THREADS = 256
+_F32_TILE_M, _F32_TILE_N, _F32_TILE_K = 128, 128, 32
+_F32_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
 # the bfloat16-compute kernels (csrc/gather_gemm_bf16.cu): stage A's
 # threads a block, each one 16-byte piece (8 values) of a gathered row;
 # stage B's output tile of one member a block (128 rows x 128 columns,
@@ -276,14 +281,6 @@ def _gather_into(store, rows, geometry, weight, row_scale, z,
                          z[None], x_res)
 
 
-def _splits(m: int, h: int, chunks: int) -> int:
-    """K slices per output tile: as many as keep the grid within
-    _TARGET_BLOCKS blocks, at least 1, at most _MAX_SPLITS and at most one
-    per K chunk."""
-    tiles = -(-m // _TILE_M) * -(-h // _TILE_H)
-    return max(1, min(_MAX_SPLITS, chunks, _TARGET_BLOCKS // tiles))
-
-
 class Bf16Plan(NamedTuple):
     """A call of the bfloat16-compute kernels (csrc/gather_gemm_bf16.cu)."""
 
@@ -327,6 +324,50 @@ def bf16_plan(m: int, h: int, d: int, k: int, members: int = 1,
     pieces = m * k * -(-d // 8)
     return Bf16Plan(-(-pieces // _BF16_ROWS_THREADS), sets, row_tiles,
                     col_tiles, members, splits, pitch, scratch)
+
+
+class F32Plan(NamedTuple):
+    """A call of the float32-compute kernels (csrc/gather_gemm.cu)."""
+
+    rows_blocks: int  # stage A's blocks an index set, a 16-byte piece a thread
+    index_sets: int   # 1 (shared indices) or the members
+    row_tiles: int    # stage B's grid: row tiles x column tiles (x),
+    col_tiles: int    # the members (y) and the K slices (z, a cluster)
+    members: int
+    splits: int
+    pitch: int        # values a row of the planes and W's rows: k*D up to 4s
+    scratch: int      # float32 values of scratch: the planes, then W's rows
+
+
+def f32_plan(m: int, h: int, d: int, k: int, members: int = 1,
+             per_member: bool = False,
+             weight_aligned: bool = True) -> F32Plan:
+    """The float32-compute call for M output rows, H columns and k
+    gathered rows of D per FC input row, of ``members`` members with one
+    index set each (``per_member``) or one for all.  Stage A scales and
+    splits every (gathered row, 16-byte piece) once an index set, into a
+    TF32 hi and a lo plane of [sets, M, pitch] values.  Stage B's tiles
+    are one member's; its K slices, one thread block cluster a tile, are
+    the most (up to 16, at most one per 32-deep chunk of k*D) whose
+    clusters over one member's tiles the card holds at once
+    (_F32_CLUSTERS; 1 where even single blocks take more than one wave),
+    so they never depend on N and member k's z is bitwise its solo
+    call's.  Scratch holds the two planes, then W's rows at ``pitch``
+    unless the weight's rows are 16-byte aligned (``weight_aligned``, and
+    k*D a multiple of 4)."""
+    kd = k * d
+    pitch = -(-kd // 4) * 4
+    sets = members if per_member else 1
+    row_tiles, col_tiles = -(-m // _F32_TILE_M), -(-h // _F32_TILE_N)
+    chunks = -(-kd // _F32_TILE_K)
+    splits = max([s for s, held in enumerate(_F32_CLUSTERS, 1)
+                  if s <= chunks and row_tiles * col_tiles <= held],
+                 default=1)
+    scratch = 2 * sets * m * pitch + (
+        0 if kd % 4 == 0 and weight_aligned else members * h * pitch)
+    pieces = m * k * -(-d // 4)
+    return F32Plan(-(-pieces // _F32_ROWS_THREADS), sets, row_tiles,
+                   col_tiles, members, splits, pitch, scratch)
 
 
 def gathered_gemm(store, idx, weight: torch.Tensor,
@@ -457,13 +498,12 @@ def _gather_members_into(store, rows, geometry, weight, row_scale, z,
         plan = bf16_plan(m, h, d, k, n, per_member,
                          x_res is not None and x_res.data_ptr() % 16 == 0,
                          weight.data_ptr() % 16 == 0)
-        splits = plan.splits
-        part = (torch.empty(plan.scratch, dtype=torch.bfloat16,
-                            device=z.device) if plan.scratch else None)
     else:
-        splits = _splits(m, h, k * -(-d // _TILE_K))
-        part = (torch.empty((n, splits, m, h), dtype=torch.float32,
-                            device=z.device) if splits > 1 else None)
+        plan = f32_plan(m, h, d, k, n, per_member,
+                        weight.data_ptr() % 16 == 0)
+    splits = plan.splits
+    part = (torch.empty(plan.scratch, dtype=weight.dtype, device=z.device)
+            if plan.scratch else None)
     _call("ta3n_gather_gemm_members", data, data.data_ptr(),
           None if scale is None else scale.data_ptr(), rows.data_ptr(),
           None if row_scale is None else row_scale.data_ptr(),

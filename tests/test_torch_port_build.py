@@ -1,8 +1,8 @@
 """The port's kernel build on the CPU: what names the built library, the C
-entry points against their ctypes bindings, and K3's choice of K slices
-and, at bfloat16 compute, its plan (stage A's threads, stage B's grid and
-K slices, scratch).  Nothing here compiles: nvcc runs only where there is
-a card."""
+entry points against their ctypes bindings, and K3's plans at float32 and
+bfloat16 compute (stage A's threads, stage B's grid and K slices, pitch,
+scratch).  Nothing here compiles: nvcc runs only where there is a
+card."""
 
 import re
 
@@ -84,14 +84,176 @@ def test_bf16_scale_limit_is_the_kernels():
     (640, 512, 64), (370, 512, 64), (320, 512, 64), (37, 512, 64),
     (1, 512, 64), (45, 96, 2), (20000, 512, 64)])
 def test_gather_splits_fill_at_most_the_target(m, h, chunks):
-    """K3's K slices: 1..8, at most one per chunk, and the grid within
-    _TARGET_BLOCKS unless one slice per tile already exceeds it."""
-    splits = gather_gemm._splits(m, h, chunks)
-    tiles = -(-m // gather_gemm._TILE_M) * -(-h // gather_gemm._TILE_H)
-    assert 1 <= splits <= min(gather_gemm._MAX_SPLITS, chunks)
-    assert splits == 1 or tiles * splits <= gather_gemm._TARGET_BLOCKS
+    """K3's K slices at float32 compute (f32_plan, over 32-deep chunks of
+    k*D = 32 * chunks): 1..16, at most one per chunk, one member's tiles
+    in clusters of that many blocks all resident at once on the H100
+    (_F32_CLUSTERS, which holds as many single blocks as SMs) unless even
+    one slice a tile takes more than one wave; no larger count within
+    the limits keeps them so.  At the flagship train shape 5 slices over
+    20 tiles, 100 blocks; at the eval shape 8 over 12."""
+    plan = gather_gemm.f32_plan(m, h, 32 * chunks, 1)
+    splits, tiles = plan.splits, plan.row_tiles * plan.col_tiles
+    held = gather_gemm._F32_CLUSTERS
+    assert held[0] == gather_gemm._SMS and len(held) == 16
+    assert 1 <= splits <= min(len(held), chunks)
+    assert splits == 1 or tiles <= held[splits - 1]
+    for more in range(splits + 1, min(len(held), chunks) + 1):
+        assert tiles > held[more - 1]
     if (m, h) == (640, 512):
-        assert (splits, tiles * splits) == (3, 240)
+        assert (splits, tiles * splits) == (5, 100)
+    if (m, h) == (320, 512):
+        assert (splits, tiles * splits) == (8, 96)
+
+
+def _f32_source_constants():
+    """Stage A's threads a block and stage B's tiles, chunk, ring, slices
+    and registers as csrc/gather_gemm.cu declares them."""
+    text = (_build._CSRC / "gather_gemm.cu").read_text()
+    consts = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                  text).group(1))
+              for name in ("kRowsThreads", "kTileH", "kTileM", "kTileK",
+                           "kMaxSplits", "kStages")}
+    regs = re.search(r"constexpr int kProducerRegs = (\d+), "
+                     r"kConsumerRegs = (\d+);", text).groups()
+    return consts | {"kProducerRegs": int(regs[0]),
+                     "kConsumerRegs": int(regs[1])}
+
+
+def _check_f32_plan(n, streams, k, d, h, members=1, per_member=False):
+    """K3 at float32 compute: the plan's stage A gives every (gathered row,
+    16-byte piece of 4 values) of each index set to one thread, and the
+    pieces' places in x_res and in each plane's rows of ``pitch`` values
+    are each written once; stage B's grid (row tile x column tile,
+    member, K slice), decoded as the kernel decodes it, covers every
+    (member, row tile, column tile) of one member's M x H once, its
+    column tiles within the member, within CUDA's grid limits and a
+    cluster of at most 8; the K slices (a power of two) give every
+    32-deep chunk of k*D to one slice, one cluster a tile (of at most
+    the kernel's 16 blocks, resident at once by _F32_CLUSTERS), and do
+    not depend on N; stage B's shared memory within the opt-in, one
+    block an SM, and its registers (two consumer warpgroups raised by
+    setmaxnreg, a producer warpgroup lowered) within the SM's 65,536;
+    scratch is the two planes, then W's rows only where TMA cannot take
+    the weight's.  Returns the plan."""
+    m = n * streams // k
+    plan = gather_gemm.f32_plan(m, h, d, k, members, per_member)
+    src = _f32_source_constants()
+    tm, tn, tk = src["kTileM"], src["kTileH"], src["kTileK"]
+    assert (tm, tn, tk) == (gather_gemm._F32_TILE_M,
+                            gather_gemm._F32_TILE_N,
+                            gather_gemm._F32_TILE_K)
+    assert src["kMaxSplits"] == len(gather_gemm._F32_CLUSTERS)
+    # stage A
+    pieces, q_rows = -(-d // 4), m * k
+    threads = src["kRowsThreads"]
+    assert threads == gather_gemm._F32_ROWS_THREADS
+    assert (plan.rows_blocks - 1) * threads < q_rows * pieces \
+        <= plan.rows_blocks * threads
+    assert plan.rows_blocks <= 2 ** 31 - 1
+    assert plan.index_sets == (members if per_member else 1) <= 65535
+    kd = k * d
+    assert plan.pitch % 4 == 0 and kd <= plan.pitch < kd + 4
+    if q_rows * pieces <= 1 << 20:
+        p = np.arange(q_rows * pieces)
+        q, col = p // pieces, p % pieces * 4
+        assert q.max() == q_rows - 1 and np.all(np.bincount(
+            q, minlength=q_rows) == pieces)
+        width = np.minimum(4, d - col)
+        for start in (q * d + col,
+                      q // k * plan.pitch + q % k * d + col):
+            order = np.argsort(start)
+            s, w = start[order], width[order]
+            assert np.all(s[:-1] + w[:-1] <= s[1:])  # each value once
+        assert width.sum() == q_rows * d
+    # stage B
+    assert (plan.row_tiles - 1) * tm < m <= plan.row_tiles * tm
+    assert (plan.col_tiles - 1) * tn < h <= plan.col_tiles * tn
+    assert plan.row_tiles * plan.col_tiles <= 2 ** 31 - 1
+    assert m <= 2 ** 31 - 1  # TMA's row coordinate
+    assert plan.members == members <= 65535
+    seen = set()
+    for x in range(plan.row_tiles * plan.col_tiles):
+        row_tile, col_tile = divmod(x, plan.col_tiles)
+        for member in range(members):
+            assert col_tile * tn < h
+            seen.add((member, row_tile, col_tile))
+    assert len(seen) == members * plan.row_tiles * plan.col_tiles
+    chunks = -(-kd // tk)
+    splits = plan.splits
+    assert 1 <= splits <= min(src["kMaxSplits"], chunks)
+    assert splits == 1 or plan.row_tiles * plan.col_tiles \
+        <= gather_gemm._F32_CLUSTERS[splits - 1]
+    owner = []
+    for z in range(splits):
+        begin, end = chunks * z // splits, chunks * (z + 1) // splits
+        assert end > begin
+        owner.extend([z] * (end - begin))
+    assert owner == sorted(owner) and len(owner) == chunks
+    for other in (1, 4, 8):
+        assert gather_gemm.f32_plan(m, h, d, k, other,
+                                    per_member).splits == splits
+    # stage B's shared memory: the ring (W, hi and lo boxes of 128 rows of
+    # 128 bytes) and its mbarriers, one block an SM; the partial tile
+    # [128 rows, 128 + 4] over the ring
+    box, stages = 128 * 128, src["kStages"]
+    smem = stages * 3 * box + 2 * stages * 8 + 1024
+    assert smem <= 232448 and 2 * smem > 228 * 1024
+    assert tm * (tn + 4) * 4 <= stages * 3 * box
+    assert 2 * 128 * src["kConsumerRegs"] + 128 * src["kProducerRegs"] \
+        <= 65536
+    # scratch: the hi and lo planes, then W's rows where they are not
+    # 16-byte aligned
+    planes = 2 * plan.index_sets * m * plan.pitch
+    for weight_ok in (True, False):
+        got = gather_gemm.f32_plan(m, h, d, k, members, per_member,
+                                   weight_ok).scratch
+        assert got == planes + (0 if kd % 4 == 0 and weight_ok
+                                else members * h * plan.pitch)
+    return plan
+
+
+@pytest.mark.parametrize("n,streams,k,d,h", [
+    (640, 1, 1, 2048, 512), (370, 1, 1, 2048, 512), (320, 1, 1, 2048, 512),
+    (1, 1, 1, 2048, 512), (63, 1, 1, 512, 128), (65, 1, 1, 512, 500),
+    (1010, 1, 1, 512, 500), (30, 2, 2, 256, 96), (21, 2, 1, 256, 96),
+    (45, 1, 1, 37, 19), (20, 2, 2, 22, 33), (70, 1, 3, 100, 1024),
+    (70, 1, 1, 50, 96), (20000, 1, 1, 2048, 512), (640, 5, 5, 2048, 64)])
+def test_f32_grid_covers_every_tile_and_chunk_once(n, streams, k, d, h):
+    """K3 at float32 compute, one member, at the shapes of its paths and of
+    its card tests (the plan does not depend on the store): _check_f32_plan.
+    At the flagship train shape (640 x 512, D = 2048) stage A runs 1280
+    blocks and stage B 5 x 4 tiles of 128 x 128 in 5 K slices of 12-13
+    chunks: 100 blocks in clusters of 5; at the eval shape (320 rows) 3 x
+    4 tiles in 8 slices: 96 blocks."""
+    plan = _check_f32_plan(n, streams, k, d, h)
+    if (n, d, h) == (640, 2048, 512):
+        assert (plan.rows_blocks, plan.row_tiles, plan.col_tiles,
+                plan.splits) == (1280, 5, 4, 5)
+    if (n, d, h) == (320, 2048, 512):
+        assert (plan.row_tiles, plan.col_tiles, plan.splits) == (3, 4, 8)
+    if k * d % 4:  # rows TMA cannot take as they are: padded
+        assert plan.pitch > k * d
+
+
+@pytest.mark.parametrize("per_member", [False, True],
+                         ids=["shared", "per_member"])
+@pytest.mark.parametrize("members", [1, 4, 8])
+@pytest.mark.parametrize("n,streams,k,d,h", [
+    (640, 1, 1, 2048, 512), (370, 1, 1, 2048, 256), (320, 1, 1, 2048, 128),
+    (37, 1, 1, 37, 19)])
+def test_f32_plan_members_cover_every_tile_once(n, streams, k, d, h,
+                                                members, per_member):
+    """The member axis of K3 at float32 compute: N = 1, 4, 8 members with
+    one index set for all or one each, at the train shape, the column
+    slices of tensor parallelism (H = 256, 128) and ragged widths:
+    _check_f32_plan, with stage A over one index set when the members
+    share it, so the planes' scratch does not grow with N."""
+    plan = _check_f32_plan(n, streams, k, d, h, members, per_member)
+    assert plan.index_sets == (members if per_member else 1)
+    if not per_member:
+        assert plan.scratch == gather_gemm.f32_plan(
+            n * streams // k, h, d, k).scratch + (
+                0 if k * d % 4 == 0 else (members - 1) * h * plan.pitch)
 
 
 def _bf16_source_constants():

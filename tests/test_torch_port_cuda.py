@@ -9,7 +9,9 @@ in float32 on cuDNN with its TF32 flag at the default.  The bfloat16
 variants of the TRN kernels and the six store x compute variants of the
 gather kernel against their plain versions in the same dtype (the
 backward and the gather at bfloat16 compute, on wgmma, also bit for bit
-on exact inputs), the refusals of what they do not take, and a bfloat16
+on exact inputs), the gather at float32 compute (3xTF32 on wgmma) at
+every count of K slices, across waves of clusters and from unaligned
+pointers, the refusals of what they do not take, and a bfloat16
 train step with cuBLAS's bfloat16 reductions in float32.  The chunked
 training modes: K device-store steps per call against K single steps,
 the sampled and the shard-sampled calls at K = 1, at a call shorter than
@@ -512,11 +514,12 @@ def test_gather_gemm_kernel_matches_plain(n, streams, k, d):
 @pytest.mark.parametrize("splits", ["one", "most"])
 @pytest.mark.parametrize("n", [63, 64, 65, 129])
 def test_gather_gemm_row_tiles_and_splits(n, splits, monkeypatch):
-    """K3 around the 64-row tile (one K slice, and as many as the kernel
-    takes): the checks of test_gather_gemm_kernel_matches_plain."""
-    most = gather_gemm._MAX_SPLITS
-    monkeypatch.setattr(gather_gemm, "_splits", lambda m, h, chunks:
-                        1 if splits == "one" else min(most, chunks))
+    """K3 around the 64-row tile and the 128-row tile of float32 compute
+    (one K slice, and as many as the kernel takes: 8 over the 8 chunks of
+    D = 256): the checks of test_gather_gemm_kernel_matches_plain."""
+    chosen = gather_gemm.f32_plan
+    monkeypatch.setattr(gather_gemm, "f32_plan", lambda *a, **kw: chosen(
+        *a, **kw)._replace(splits=1 if splits == "one" else 8))
     _check_gather(n, None, 1, 256)
 
 
@@ -525,6 +528,114 @@ def test_gather_gemm_ragged_k_chunk(d):
     """K3 with D not a multiple of its 32-deep K chunk, with 16-byte copies
     (D = 100) and with 4-byte copies (D = 50)."""
     _check_gather(70, None, 1, d)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5, 6, 7, 8, 16])
+def test_f32_gather_every_split_count(splits, monkeypatch):
+    """K3 at float32 compute with its K slices forced to each cluster size
+    the kernel takes (1..8, and 16 past the portable limit), at the train
+    shape over 2 members: z within the float32 tolerance of the plain
+    version, bitwise the solo launches at the same slices and, on dyadic
+    grids (every product and float32 sum exact), bitwise the plain
+    version; x_res bitwise."""
+    chosen = gather_gemm.f32_plan
+    monkeypatch.setattr(gather_gemm, "f32_plan", lambda *a, **kw: chosen(
+        *a, **kw)._replace(splits=splits))
+    for grid in (False, True):
+        store, idx, scale, w = _gather_inputs(640, d=2048, h=512,
+                                              grid=grid)
+        w = torch.stack([w, w.flip(0)])
+        rows = gather_gemm.row_index(idx, 500, "cuda")
+        z, x_res = gather_gemm.gathered_gemm_members(store, rows, w, scale)
+        for k in range(2):
+            sz, sx = gather_gemm.gathered_gemm(store, rows, w[k], scale)
+            pz, px = gather_gemm.gathered_gemm_plain(store, rows.rows, w[k],
+                                                     scale)
+            assert torch.equal(z[k], sz) and torch.equal(x_res, px)
+            assert torch.equal(sx, px)
+            if grid:
+                assert torch.equal(z[k], pz)
+            else:
+                assert (z[k] - pz).abs().max().item() <= _tol(pz)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("per_member", [False, True],
+                         ids=["shared", "per_member"])
+@pytest.mark.parametrize("h,rows", [(512, 640), (128, 370)])
+def test_f32_member_gather_clusters_bitwise_solo(h, rows, per_member):
+    """K3 at float32 compute over 8 members, where one member's clusters
+    fill the card (the train shape's 20 tiles in clusters of 5, the H =
+    128 slice's 3 tiles in clusters of 16) so that 8 members take several
+    waves of clusters: each member's z bitwise its solo launch (one
+    member, one wave), x_res bitwise, z within the float32 tolerance of
+    the plain version."""
+    n = 8
+    store, _, _, _ = _gather_inputs(8, d=2048, h=h)
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy((rng.uniform(-1, 1, (n, h, 2048)) / 45.0)
+                         .astype(np.float32)).cuda()
+    m = n if per_member else 1
+    idx = rng.integers(0, store.shape[0], (m, rows))
+    scale = torch.from_numpy(rng.choice([1.0, 0.0, 0.5], (m, rows))
+                             .astype(np.float32)).cuda()
+    checked = gather_gemm.row_index(idx, store.shape[0], "cuda")
+    member_idx = (gather_gemm.RowIndex(checked.rows.reshape(n, rows),
+                                       checked.end) if per_member
+                  else checked)
+    splits = gather_gemm.f32_plan(rows, h, 2048, 1, n, per_member).splits
+    assert splits == (5 if h == 512 else 16)
+    _reset_counts()
+    z, x_res = gather_gemm.gathered_gemm_members(
+        store, member_idx, w, scale if per_member else scale[0])
+    assert gather_gemm.launches == 1
+    for k in range(n):
+        j = k if per_member else 0
+        rows_k = gather_gemm.row_index(idx[j], store.shape[0], "cuda")
+        sz, sx = gather_gemm.gathered_gemm(store, rows_k, w[k], scale[j])
+        pz, px = gather_gemm.gathered_gemm_plain(store, rows_k.rows, w[k],
+                                                 scale[j])
+        assert torch.equal(z[k], sz)
+        assert (z[k] - pz).abs().max().item() <= _tol(pz)
+        got_x = x_res[k] if per_member else x_res
+        assert torch.equal(got_x, sx) and torch.equal(got_x, px)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("d,k", [(2048, 1), (50, 1), (37, 3)])
+def test_f32_gather_unaligned_pointers(kind, d, k):
+    """K3 at float32 compute with a weight and an x_res that start 4
+    bytes past a 16-byte boundary (the weight's rows copied to aligned
+    rows of scratch first, stage A's plain stores), at D = 2048 and at
+    k*D not a multiple of 4 (D = 50; k = 3 rows of D = 37 a row, 111
+    values, padded to 112 in the planes): z bitwise the aligned call's
+    and within the float32 tolerance of the plain version, x_res bitwise
+    the plain version's."""
+    n = 60 * k
+    store, idx, scale, w = _gather_inputs(n, d=d, h=96, k=k)
+    store = _narrow_store(store, kind)
+    rows = gather_gemm.row_index(idx, 500, "cuda")
+    m, kd = n // k, k * d
+    w_buf = torch.empty(w.numel() + 1, device="cuda")
+    w_off = w_buf[1:].view_as(w)
+    w_off.copy_(w)
+    x_buf = torch.empty(m * kd + 1, device="cuda")
+    x_off = x_buf[1:].view(m, kd)
+    z_off = torch.empty((m, 96), device="cuda")
+    assert w_off.data_ptr() % 16 == 4 and x_off.data_ptr() % 16 == 4
+    streams_d_k_m = (1, d, k, m)
+    gather_gemm.variant_launches[f"{kind}_f32"] = 0
+    gather_gemm._gather_into(store, rows.rows, streams_d_k_m, w_off, scale,
+                             z_off, x_off)
+    z, x_res = gather_gemm.gathered_gemm(store, rows, w, scale)
+    want, want_x = gather_gemm.gathered_gemm_plain(store, rows.rows, w,
+                                                   scale)
+    torch.cuda.synchronize()
+    assert gather_gemm.variant_launches[f"{kind}_f32"] == 2
+    assert torch.equal(z_off, z)
+    assert (z - want).abs().max().item() <= _tol(want)
+    assert torch.equal(x_off, want_x) and torch.equal(x_res, want_x)
 
 
 def _check_gather(n, streams, k, d):
