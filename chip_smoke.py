@@ -3,15 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ta3n_tpu_torch/csrc (one nvcc per
-source, in parallel), checks in their SASS that the float32 TRN kernels
-(K1, K2) hold mma (HMMA) and cp.async (LDGSTS) instructions and the
-kernels on wgmma (K3's GEMM at float32 and at bfloat16 compute, K1 and K2
-in bfloat16) HGMMA and no HMMA, and that no bfloat16 instance of K1's
-float32 kernel is left, holds each kernel against its plain PyTorch
+source, in parallel), checks in their SASS that every kernel on wgmma
+(the float32 GEMMs of K1, K2 and K3, 3xTF32, and the bfloat16 kernels)
+holds HGMMA and no HMMA instructions and that no bfloat16 instance of
+K1's float32 GEMM is left, holds each kernel against its plain PyTorch
 version at the flagship shapes and times both (K1 (infer) at batch 1 and
-the serve and train batches, K2 also by its dx and dW families, K3 at
-the train and eval shapes with its two stages by the profiler, each
-against the bound of the arithmetic it runs), then
+the serve and train batches, K2 also by its dx and dW families; K1, K2
+and K3 by their stages through the profiler, each against the bound of
+the arithmetic it runs), then
 drives the port's main paths at
 the flagship widths (UCF->HMDB_full: trn-m over 5 segments, 2048-d features,
 fc 512, TRN bottleneck 256, TransAttn, 12 classes, random weights from a
@@ -160,8 +159,9 @@ column slices of H = 256 and 128 (640 and 370 rows with x_res, 320
 without; float32 and bfloat16 compute) against its plain version and
 index_select + mm; and cli.sweep --sweep_mesh 2 --num_devices 2 (each
 rank two of the 4 members, the member K1, K2 and K3 at N = 2) in
-float32 and at bfloat16 from int8 stores, its rows and member
-checkpoints held to the one-process sweep CLI's.
+float32 and at bfloat16 from int8 stores, its rows held to the
+one-process sweep CLI's and its member checkpoints bitwise those of the
+one-process sweeps of each rank's two members.
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after.  Any failure exits non-zero; so does a machine
 without a CUDA device.  The last line of the output is one JSON object:
@@ -367,14 +367,12 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"trn_fused_fwd": PEAK_TF32 / 3,
             "trn_fused_fwd_train": PEAK_TF32 / 3,
             "trn_fused_bwd": PEAK_TF32 / 3, "gather_gemm": PEAK_TF32 / 3}
-# kernels on the tensor cores through mma.sync, fed by cp.async: their
-# SASS must hold HMMA and LDGSTS instructions (K1's epilogue,
-# trn_fused_fwd_epilogue, is a plain sum)
-TENSOR_CORE_KERNELS = ("trn_fused_fwd_kernel", "trn_fused_bwd_kernel")
-# the kernels on wgmma (K3's GEMM at float32 compute, 3xTF32, and the
-# bfloat16 kernels): HGMMA in their SASS and no HMMA; and the sources of
-# the bfloat16 variants they run
-WGMMA_KERNELS = ("gather_gemm_kernel", "gather_gemm_bf16_kernel",
+# the kernels on wgmma (the float32 GEMMs of K1, K2 and K3, 3xTF32, and
+# the bfloat16 kernels): HGMMA in their SASS and no HMMA (no mma.sync
+# kernel is left; K1's epilogue and the stage A kernels are plain loads
+# and sums); and the sources of the bfloat16 variants they run
+WGMMA_KERNELS = ("trn_fused_fwd_kernel", "trn_fused_bwd_kernel",
+                 "gather_gemm_kernel", "gather_gemm_bf16_kernel",
                  "trn_fused_bwd_bf16_kernel", "trn_fused_fwd_bf16_kernel")
 WGMMA_SOURCES = {
     "trn_fused_fwd_bf16": "ta3n_tpu_torch/csrc/trn_fused_fwd_bf16.cu",
@@ -477,10 +475,10 @@ def build_kernels() -> float:
 def check_sass() -> None:
     """Count the tensor-core (HMMA, and wgmma's HGMMA) and asynchronous-copy
     (LDGSTS) instructions of each kernel in the built library's SASS; fail
-    unless every kernel of TENSOR_CORE_KERNELS has HMMA and LDGSTS, and
-    every kernel of WGMMA_KERNELS HGMMA and no HMMA (K3's float32 GEMM
-    included: its mma.sync body is gone), and that K1's float32 kernel has
-    no bfloat16 instance left (trn_fused_fwd_bf16.cu took them)."""
+    unless every kernel of WGMMA_KERNELS has HGMMA and no HMMA (the float32
+    GEMMs of K1, K2 and K3 included: their mma.sync bodies are gone), and
+    that K1's float32 GEMM has no bfloat16 instance left
+    (trn_fused_fwd_bf16.cu took them)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
                           check=True, capture_output=True,
@@ -497,19 +495,8 @@ def check_sass() -> None:
     for name, (hmma, ldgsts, hgmma) in sorted(counts.items()):
         log(f"  sass: {hmma:4d} HMMA, {hgmma:4d} HGMMA, {ldgsts:4d} LDGSTS  "
             f"{name[:80]}")
-    for kernel in TENSOR_CORE_KERNELS:
-        # the mangled name holds the kernel's length-prefixed name
-        found = [(n, c) for n, c in counts.items()
-                 if f"{len(kernel)}{kernel}" in n]
-        # an instance with 4-byte copies (template flag false, Lb0E) and
-        # a bfloat16 operand stages that operand by plain loads: it needs
-        # HMMA only
-        if not found or not all(
-                h and (g or ("Lb0E" in n and "nv_bfloat16" in n))
-                for n, (h, g, _) in found):
-            raise AssertionError(f"{kernel}: no HMMA or no LDGSTS in its "
-                                 "SASS")
     for kernel in WGMMA_KERNELS:
+        # the mangled name holds the kernel's length-prefixed name
         found = [c for n, c in counts.items()
                  if f"{len(kernel)}{kernel}" in n]
         if not found or not all(hg and not h for h, _, hg in found):
@@ -612,12 +599,22 @@ def time_trn(gen, runs=41, warmup=5):
                     for kind, meter in meters.items():
                         times[(name, kind)].append(meter(fns[name]))
             med = {key: statistics.median(v) for key, v in times.items()}
+            med["stages"] = stage_ms(fns["kernel"],
+                                     TRN_STAGES["trn_fused_fwd"])
             results[b] = med
             for name in fns:
                 log(f"  B={b} {name}: " + ", ".join(
                     f"{kind} {med[(name, kind)]:.4f} ms" for kind in meters)
                     + f" (medians of {runs})")
+            log(f"  B={b} kernel by stage: " + stage_text(med["stages"]))
     return results
+
+
+def stage_text(stages) -> str:
+    """A kernel's stages for the log, from stage_ms."""
+    return ", ".join(f"{stage.replace('_', ' ')} {ms_text(ms)}"
+                     for stage, ms in stages.items()) + \
+        " (profiler, 20 calls)"
 
 
 def grid_inputs(b, s, d, h, rng):
@@ -775,16 +772,36 @@ K3_STAGES = {"f32": {"stage_a": ("gather_gemm_rows", "gather_gemm_repitch"),
              "bf16": {"stage_a": ("gather_gemm_bf16_rows",
                                   "gather_gemm_bf16_repitch"),
                       "stage_b": ("gather_gemm_bf16_kernel",)}}
+# the float32 TRN kernels' stages (csrc/trn_fused_fwd.cu,
+# csrc/trn_fused_bwd.cu): stage A splits relu(x) (K1) or m and relu(x)^T
+# (K2) once a call (and copies the weights first where TMA cannot take
+# them), stage B is the GEMM, and K1's epilogue sums the slot partials
+TRN_STAGES = {
+    "trn_fused_fwd": {"stage_a": ("trn_fused_fwd_rows", "trn_fused_repitch"),
+                      "stage_b": ("trn_fused_fwd_kernel",),
+                      "epilogue": ("trn_fused_fwd_epilogue",)},
+    "trn_fused_bwd": {"stage_a": ("trn_fused_bwd_rows", "trn_fused_repitch"),
+                      "stage_b": ("trn_fused_bwd_kernel",)}}
 
 
-def k3_stages(fn, compute="bf16"):
-    """Device ms per call of K3's two stages at ``compute`` ("f32" or
-    "bf16") in ``fn`` (each of their kernels launches once a call), by
-    the profiler: {"stage_a": ms, "stage_b": ms}."""
+def stage_ms(fn, stages):
+    """Device ms per call of each stage of a kernel in ``fn`` (``stages``:
+    {stage: its kernels' names}, each launched once a call), by the
+    profiler: {stage: ms}, None for a stage of which the profiler caught
+    no launch (CUPTI may drop events late in a long run)."""
     by_name = kernel_ms(fn)
-    return {stage: sum(ms for name, ms in by_name.items()
-                       if any(k in name for k in kernels))
-            for stage, kernels in K3_STAGES[compute].items()}
+    out = {}
+    for stage, kernels in stages.items():
+        caught = [ms for name, ms in by_name.items()
+                  if any(k in name for k in kernels)]
+        out[stage] = sum(caught) if caught else None
+    return out
+
+
+def ms_text(ms) -> str:
+    """A stage's time for the log: "not caught" where the profiler caught
+    none of its launches."""
+    return "not caught" if ms is None else f"{ms:.4f} ms"
 
 
 def time_train_kernels(gen, b=202):
@@ -802,9 +819,16 @@ def time_train_kernels(gen, b=202):
             "kernel": lambda: trn_fused.trn_multiscale_bwd(x, w, masks, g, 5),
             "plain": lambda: trn_fused.trn_multiscale_bwd_plain(
                 x, w, masks, g, 5)})
+        fwd["stages"] = stage_ms(
+            lambda: trn_fused.trn_multiscale_fwd_masks(x, w, bi, 5),
+            TRN_STAGES["trn_fused_fwd"])
+        bwd["stages"] = stage_ms(
+            lambda: trn_fused.trn_multiscale_bwd(x, w, masks, g, 5),
+            TRN_STAGES["trn_fused_bwd"])
     for label, t in (("K1 (train)", fwd), ("K2", bwd)):
         log(f"  B={b} {label}: kernel {t['kernel']:.4f} ms, plain "
-            f"{t['plain']:.4f} ms device (medians of 41, in turns)")
+            f"{t['plain']:.4f} ms device (medians of 41, in turns); "
+            + stage_text(t["stages"]))
     return fwd, bwd
 
 
@@ -1476,7 +1500,7 @@ def time_gather(store):
                     store, rows.rows, w, scale),
                 "library": lambda: torch.mm(
                     store.index_select(0, rows.rows), w.t())})
-            t.update(k3_stages(kernel, "f32"))
+            t.update(stage_ms(kernel, K3_STAGES["f32"]))
             work = gather_work(rows, d, h, with_rows)
             results[n] = (t, work)
             least, by = bound(*work, PEAK_OPS["gather_gemm"])
@@ -1484,7 +1508,7 @@ def time_gather(store):
                 f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
                 f"index_select + mm {t['library']:.4f} ms device; bound "
                 f"{least:.4f} ms by {by} (medians of 41, in turns); stage A "
-                f"{t['stage_a']:.4f} ms, stage B {t['stage_b']:.4f} ms "
+                f"{ms_text(t['stage_a'])}, stage B {ms_text(t['stage_b'])} "
                 "(profiler, 20 calls)")
     return results
 
@@ -1499,19 +1523,24 @@ def bwd_parts(x, w, masks, g, parts):
     dx = torch.zeros_like(x)
     dw = torch.zeros((sum(t.numel() for t in w),), device=x.device)
     db = torch.zeros((len(w), h), device=x.device)
+    plan = trn_fused.f32_bwd_plan(s, 3, b, d, h, 1,
+                                  trn_fused._f32_by_unit(w, d))
+    scratch = torch.empty((plan.scratch,), device=x.device)
     trn_fused._call("ta3n_trn_fused_bwd_parts_f32", x, x.data_ptr(),
                     *trn_fused._pointer_args(w, (), s, 3, x.device),
                     masks.data_ptr(),
                     g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                    *trn_fused._plan_args(s, 3, x.device), b, s, d, h, parts)
+                    scratch.data_ptr(), *trn_fused._plan_args(s, 3, x.device),
+                    b, s, d, h, plan.splits, parts)
     return dx, trn_fused._split_flat(dw, w), tuple(db.unbind())
 
 
 def split_bwd(gen, b=202, n=20):
-    """K2's device time by the profiler at the train batch: the dx tiles
-    alone, the dW/db tiles alone and both in one grid (the backward), n
-    launches each; each family alone must give the backward's bits.
-    Returns ms per launch of each."""
+    """K2's GEMM's device time by the profiler at the train batch: the dx
+    tiles alone, the dW/db tiles alone and both in one grid (the
+    backward), n launches each (stage A runs whole before each); each
+    family alone must give the backward's bits.  Returns ms per launch of
+    each."""
     from torch.profiler import ProfilerActivity, profile
     x, w, bi = trn_inputs(b, 5, 512, 256, gen, signed=True)
     g = torch.randn((b, 4, 256), generator=gen).cuda()
@@ -1535,7 +1564,7 @@ def split_bwd(gen, b=202, n=20):
             result[name] = sum(
                 e.self_device_time_total for e in prof.key_averages()
                 if "trn_fused_bwd_kernel" in e.key) / 1e3 / n
-    log(f"  K2 at B={b} by the profiler: dx tiles alone "
+    log(f"  K2's GEMM at B={b} by the profiler: dx tiles alone "
         f"{result['dx']:.4f} ms, dW/db tiles alone {result['dW']:.4f} ms, "
         f"both in one grid {result['both']:.4f} ms (means of {n}; the "
         f"families alone sum to {result['dx'] + result['dW']:.4f} ms)")
@@ -2617,7 +2646,7 @@ def time_bf16_kernels(gen, stores):
                         * store[1].index_select(0, rows.rows)[:, None],
                         wc.t())
                 tt = time_pair(fns)
-                stage_t = k3_stages(fns["kernel"], compute)
+                stage_t = stage_ms(fns["kernel"], K3_STAGES[compute])
                 work = gather_work(rows, d, h, with_rows, sizes[kind],
                                    sizes[compute])
                 least, by = bound(*work, PEAK_BF16 if compute == "bf16"
@@ -2630,8 +2659,8 @@ def time_bf16_kernels(gen, stores):
                        f", index_select, {LIBRARY_CAST[kind]} and mm in "
                        f"float32 {tt['library']:.4f} ms")
                     + f" device; bound {least:.4f} ms by {by}; stage A "
-                    f"{stage_t['stage_a']:.4f} ms, stage B "
-                    f"{stage_t['stage_b']:.4f} ms (profiler, 20 calls)")
+                    f"{ms_text(stage_t['stage_a'])}, stage B "
+                    f"{ms_text(stage_t['stage_b'])} (profiler, 20 calls)")
                 entry = (tt["kernel"], tt["plain"], tt.get("library"), work)
                 name = f"gather_gemm_{variant}"
                 if not with_rows:
@@ -3687,7 +3716,8 @@ def time_members(gen, store, bf16=False):
                     store, idx.rows, w[k], scale) for k in range(n)],
                 "library": lambda: torch.matmul(
                     store.index_select(0, idx.rows), w.transpose(1, 2))})
-            t.update(k3_stages(member_call, "bf16" if bf16 else "f32"))
+            t.update(stage_ms(member_call,
+                              K3_STAGES["bf16" if bf16 else "f32"]))
             t["splits"] = (gather_gemm.bf16_plan if bf16 else
                            gather_gemm.f32_plan)(
                 rows, FLAGSHIP.fc_dim, store.shape[1], 1, n).splits
@@ -3706,8 +3736,8 @@ def time_members(gen, store, bf16=False):
                    if "library" in t else "")
                 + f" device; bound {least:.4f} ms by {by} (medians of "
                 f"{41 if 'library' in t else 21}, in turns)"
-                + (f"; stage A {t['stage_a']:.4f} ms, stage B "
-                   f"{t['stage_b']:.4f} ms (profiler, 20 calls; "
+                + (f"; stage A {ms_text(t['stage_a'])}, stage B "
+                   f"{ms_text(t['stage_b'])} (profiler, 20 calls; "
                    f"{t['splits']} K slices)" if "stage_a" in t else ""))
     return out
 
@@ -5495,9 +5525,39 @@ def grid_sweep(root, workdir, bf16):
     return member_counts(bf16), widths, time.perf_counter() - t0, out_dir
 
 
-def check_grid_sweep(grid_dir, one_dir, bf16):
+def shard_sweeps(root, bf16):
+    """The one-process sweep CLI over each member shard of the grid's
+    sweep alone (seed 0's two lrs, then seed 1's: the members and the
+    member count a launch, GRID_SWEEP_MEMBERS, of each rank of the grid),
+    before the grid's processes start.  Returns their directories."""
+    dirs = []
+    for seed in ("0", "1"):
+        out_dir = os.path.join(root, f"sweep_shard{seed}"
+                               + ("_bf16" if bf16 else ""))
+        argv = grid_sweep_argv(root, out_dir, bf16)[:-4]
+        at = argv.index("--sweep_seeds")
+        run_cli(cli_sweep.main, argv[:at + 1] + [seed] + argv[at + 3:])
+        dirs.append(out_dir)
+    return dirs
+
+
+def _member_state(sweep_dir, k):
+    return torch.load(os.path.join(sweep_dir, f"member_{k:02d}",
+                                   "checkpoint.pth.tar"),
+                      map_location="cpu", weights_only=False)["state_dict"]
+
+
+def check_grid_sweep(grid_dir, one_dir, shard_dirs, bf16):
     """The member grid's sweep directory against the one-process sweep
-    CLI's: every member's row (top-1 equal) and checkpoint (PARAM_TOL)."""
+    CLI's: every member's row (top-1 equal); and every member's checkpoint
+    bitwise that of the one-process sweep of its shard alone
+    (``shard_dirs``, shard_sweeps), whose launches run at the grid ranks'
+    member count.  Against the 4-member process the checkpoints are not
+    held: on the card a float32 member's rounding depends on the members a
+    launch (a batched reduction's split, e.g. the frame domain head's bias
+    gradient over [N, 1010, 2]), and over a free-running epoch one relu
+    mask flipped at a tie carries such an ulp past any fixed tolerance;
+    the drift is logged."""
     with open(os.path.join(grid_dir, "sweep.json")) as f:
         grid = json.load(f)
     with open(os.path.join(one_dir, "sweep.json")) as f:
@@ -5506,29 +5566,32 @@ def check_grid_sweep(grid_dir, one_dir, bf16):
             [(r["seed"], r["lr"], r["top1"]) for r in one]:
         raise AssertionError(f"the grid sweep's rows {grid} differ from "
                              f"one process's {one}")
-    worst = 0.0
+    drift = 0.0
     for k in range(len(one)):
-        a, b = (torch.load(os.path.join(d, f"member_{k:02d}",
-                                        "checkpoint.pth.tar"),
-                           map_location="cpu", weights_only=False)
-                ["state_dict"] for d in (grid_dir, one_dir))
-        for name, want in b.items():
-            diff = (a[name] - want).abs()
-            if (diff > PARAM_TOL["rtol"] * want.abs()
-                    + PARAM_TOL["atol"]).any():
-                raise AssertionError(f"member {k}'s {name} differs from "
-                                     "the one-process sweep's")
-            worst = max(worst, diff.max().item())
+        got = _member_state(grid_dir, k)
+        shard = _member_state(shard_dirs[k // GRID_SWEEP_MEMBERS],
+                              k % GRID_SWEEP_MEMBERS)
+        if set(got) != set(shard) or not all(
+                torch.equal(got[name], shard[name]) for name in shard):
+            raise AssertionError(f"member {k}'s checkpoint differs from "
+                                 "the one-process sweep of its shard")
+        four = _member_state(one_dir, k)
+        drift = max(drift, max((got[name].double() - four[name].double())
+                               .abs().max().item() for name in four))
     log(f"    {'bfloat16 ' if bf16 else ''}sweep over the member grid: "
         f"rows (seed, lr, top-1) equal to one process's "
         f"{[(r['seed'], r['lr'], r['top1']) for r in one]}; member "
-        f"checkpoints within {worst:.3e}")
+        f"checkpoints bitwise the one-process sweeps of their shards "
+        f"({GRID_SWEEP_MEMBERS} members a launch); against one 4-member "
+        f"process they drift by up to {drift:.3e}")
 
 
-def grid_world2(root, workdir, mesh, stores=None, dev=None):
+def grid_world2(root, workdir, mesh, stores=None, dev=None,
+                shard_dirs=None):
     """The two-rank grid work, on either rank (rank 0 with the smoke's
-    stores, whose one-process references it holds): the TP steps at both
-    dtypes, the collectives' times, then the member grid's sweeps.
+    stores, whose one-process references it holds, and the one-process
+    sweeps of each member shard by dtype, ``shard_dirs``): the TP steps at
+    both dtypes, the collectives' times, then the member grid's sweeps.
     Returns rank 0's (launches by dtype, times, sweeps) or None."""
     if stores is None:
         stores = [FeatureStore.load(os.path.join(root, n))
@@ -5582,7 +5645,8 @@ def grid_world2(root, workdir, mesh, stores=None, dev=None):
             f"{' (bfloat16, int8 stores)' if bf16 else ''}: {seconds:.1f} s;"
             f" rank 0's member launches at N = {sorted(widths)}")
         check_grid_sweep(out_dir, os.path.join(
-            root, "sweep_cli_bf16" if bf16 else "sweep_cli"), bf16)
+            root, "sweep_cli_bf16" if bf16 else "sweep_cli"),
+            shard_dirs[bf16], bf16)
         sweeps[bf16] = per_rank[0]
     return launches, times, sweeps
 
@@ -5643,7 +5707,7 @@ def grid_slice_kernels(store):
                             store, rows.rows, w, scale),
                         "library": lambda: torch.mm(
                             lib_store.index_select(0, rows.rows), w.t())})
-                    t.update(k3_stages(kernel, compute))
+                    t.update(stage_ms(kernel, K3_STAGES[compute]))
                 work = gather_work(rows, d, h, with_rows,
                                    compute_size=2 if compute == "bf16"
                                    else 4)
@@ -5656,8 +5720,8 @@ def grid_slice_kernels(store):
                     f"|kernel-plain| {err:.3e}; kernel {t['kernel']:.4f} "
                     f"ms, plain {t['plain']:.4f}, index_select + mm "
                     f"{t['library']:.4f}; bound {least:.4f} ms by {by}; "
-                    f"stage A {t['stage_a']:.4f}, stage B "
-                    f"{t['stage_b']:.4f} (profiler)")
+                    f"stage A {ms_text(t['stage_a'])}, stage B "
+                    f"{ms_text(t['stage_b'])} (profiler)")
     return out
 
 
@@ -5669,6 +5733,7 @@ def grid_phase(stores, dev, root, workdir):
     times)."""
     log("  K3 on the column slices of the first FC (tensor parallelism)")
     slices = grid_slice_kernels(dev[0])
+    shard_dirs = {bf16: shard_sweeps(root, bf16) for bf16 in (False, True)}
     init = "file://" + os.path.join(workdir, "grid_init")
     here = os.path.dirname(os.path.abspath(__file__))
     peer_log = open(os.path.join(workdir, "grid_peer.log"), "w")
@@ -5687,7 +5752,7 @@ def grid_phase(stores, dev, root, workdir):
                 "held to the one-process step; then the member grid's "
                 "sweeps")
             launches, times, sweeps = grid_world2(root, workdir, mesh,
-                                                  stores, dev)
+                                                  stores, dev, shard_dirs)
         finally:
             dist.destroy_process_group()
         code = peer.wait(timeout=DP_TIMEOUT)
@@ -5956,6 +6021,17 @@ def main() -> int:
                                         PEAK_OPS["trn_fused_fwd"])[0]})
     kernels[2].update(dx_ms=bwd_split["dx"], dw_ms=bwd_split["dW"],
                       both_ms=bwd_split["both"])
+    # the float32 TRN kernels' stages by the profiler (stage A, the GEMM,
+    # K1's epilogue; None where no launch was caught), K1 (infer) at each
+    # timed batch
+    for kernel, stages in ((kernels[0], times[SERVE_BATCH]["stages"]),
+                           (kernels[1], fwd_t["stages"]),
+                           (kernels[2], bwd_t["stages"])):
+        kernel.update({f"{stage}_ms": ms for stage, ms in stages.items()})
+    for b in TIMED_BATCHES:
+        if b != SERVE_BATCH:
+            kernels[0].update({f"b{b}_{stage}_ms": ms for stage, ms in
+                               times[b]["stages"].items()})
     # K1 and K2 at S = 17 and 25 (K1 (infer) at B=64, the others at 202)
     for kernel in kernels[:3]:
         for s, t in many.items():

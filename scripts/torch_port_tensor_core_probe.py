@@ -2,24 +2,19 @@
 the numbers behind the design of K1 (csrc/trn_fused_fwd.cu), K2
 (csrc/trn_fused_bwd.cu, and in bfloat16 csrc/trn_fused_bwd_bf16.cu) and
 K3 (csrc/gather_gemm.cu at float32 compute, csrc/gather_gemm_bf16.cu at
-bfloat16), and behind the tf32x3.cuh and wgmma_bf16.cuh helpers they
-share.
+bfloat16), and behind the tf32x3.cuh, tf32_wgmma.cuh and wgmma_bf16.cuh
+helpers they share.
 
     PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
         [PROBE ...] [--k3-slices N]
     PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
-        k1-earlier --earlier-k1 PATH
-    PYTHONPATH=. python3 scripts/torch_port_tensor_core_probe.py \
-        k3-bf16-earlier k3-f32-earlier k1-bf16-earlier --earlier-csrc DIR
+        k1-earlier k2-earlier k3-bf16-earlier k3-f32-earlier \
+        k1-bf16-earlier --earlier-csrc DIR
 
-Probes (all but k1-earlier and the *-earlier probes of --earlier-csrc by
-default):
-  mma-rate        mma.sync m16n8k8 TF32 throughput: bare, and as one 3xTF32
-                  step of the kernels (24 mma.sync over 16 fresh f32 values)
-                  with the split done by integer rounding (tf32x3.cuh) or by
-                  cvt.rna.tf32.f32
-  k3-clusters     the thread block clusters of 1..16 blocks of K3's
-                  float32 GEMM the card holds at once (f32_plan's table)
+Probes (all but the *-earlier probes of --earlier-csrc by default):
+  k3-clusters     the thread block clusters of 1..16 blocks of the float32
+                  GEMMs (384 threads, one block an SM) the card holds at
+                  once (the float32 plans' table)
   k3-splits       K3 device time by K slices: at float32 compute (1..8)
                   from the float32 store at the train (640 rows, x_res)
                   and eval (320 rows) shapes, with 4 and 8 members and on
@@ -33,15 +28,8 @@ default):
                   operations (the tree) and by cvt.rna: K3's error against
                   float64, and chip_smoke.py's five device-store steps
                   against the host-feature steps
-  phases          clock64 cycles a chunk spends waiting for its copies,
-                  issuing the next copies and computing, in K2's dx and dW
-                  families and in K1 (the mma.sync rings of tf32x3.cuh)
   k1-splits       K1 device time, (infer) at B=1, 64 and 202 and (train)
-                  at B=202, for 1..8 D slices
-  k1-variants     K1 with its tile width, ring and blocks an SM varied
-                  (K1_VARIANTS) at one and two D slices, each checked
-                  against the plain version and timed in turns; its GEMM
-                  and epilogue kernels by the profiler
+                  at B=202, for 1..8 D slices (clusters of its GEMM)
   wgmma-phases    clock64 cycles a chunk spends in the wgmma rings fed by a
                   producer warp (its boxes landing, converting, issuing
                   the products, and waiting for the previous batch): of
@@ -72,6 +60,19 @@ default):
                   and the H = 256 and 128 column slices, each checked
                   against the tree's z (bitwise where the slices are the
                   same) and the plain version, and timed in turns
+  k1-earlier      only when named, with --earlier-csrc DIR: K1 at float32
+  k2-earlier      (k1-earlier) or K2 (k2-earlier) built from DIR, an
+                  earlier csrc/ whose float32 TRN kernels are the mma.sync
+                  design (e.g. `git archive f802a48 ta3n_tpu_torch/csrc |
+                  tar -x -C build/earlier`: 64 x 64 tiles fed by cp.async,
+                  K1's D slices as float32 partials, K2 one grid of dx and
+                  dW tiles with no scratch), called with its own slices
+                  and scratch, against the current kernels at every K1
+                  and K2 row of PERF.md's table (S = 5, 17, 25; K1 (infer)
+                  at B = 1, 64, 202; N = 1, 4, 8 members; K2's dx and dW
+                  families alone), both checked against the plain version
+                  and timed in turns, and the current ones' stages by the
+                  profiler
   k3-f32-earlier  only when named, with --earlier-csrc DIR: K3 at float32
                   compute built from DIR, an earlier csrc/ whose K3 is the
                   mma.sync design (e.g. `git archive 33e2418
@@ -98,12 +99,6 @@ default):
                   ta3n_tpu_torch/csrc | tar -x -C build/earlier`), against
                   the current one, both checked against the plain version
                   and timed in turns
-  k1-earlier      only when named, with --earlier-k1 PATH: K1 against
-                  the f32-FMA design it replaced, built from PATH, that
-                  design's trn_fused_fwd.cu (its C entries take no scratch
-                  and no slice count; e.g. `git show
-                  a7f844d:ta3n_tpu_torch/csrc/trn_fused_fwd.cu`), both
-                  checked against the plain version and timed in turns
 
 --k3-slices N runs the split-variants probe with K3 at N K slices (1, 2,
 4 or 8, at most one a 32-deep chunk) in place of the wrapper's choice.  Variants are built from a patched copy of
@@ -135,118 +130,6 @@ from ta3n_tpu_torch.ops import _build, gather_gemm, trn_fused  # noqa: E402
 from ta3n_tpu_torch.ops.relation import build_relation_plan  # noqa: E402
 
 PROBE_DIR = _build.BUILD_DIR / "probe"
-
-MMA_RATE_CU = r"""
-#include <cstdio>
-#include "ta3n_tpu_torch/csrc/tf32x3.cuh"
-
-// kMode 0: three passes of mma.sync on fixed TF32 operands; 1: the
-// kernels' 3xTF32 step on fresh values (integer split); 2: the same with
-// cvt.rna.tf32.f32 doing the split
-template <int kMode>
-__global__ void __launch_bounds__(256) rate(float* out, int iters) {
-  float acc[2][4][4] = {};
-  float a[2][4], b[4][2];
-  for (int i = 0; i < 2; ++i)
-    for (int r = 0; r < 4; ++r) a[i][r] = 1e-3f * (threadIdx.x + i + r);
-  for (int j = 0; j < 4; ++j)
-    for (int r = 0; r < 2; ++r) b[j][r] = 1e-3f * (threadIdx.x + j - r);
-  unsigned ah[2][4], bh[4][2];
-  for (int i = 0; i < 2; ++i)
-    for (int r = 0; r < 4; ++r) ah[i][r] = ta3n::to_tf32(a[i][r]);
-  for (int j = 0; j < 4; ++j)
-    for (int r = 0; r < 2; ++r) bh[j][r] = ta3n::to_tf32(b[j][r]);
-  for (int it = 0; it < iters; ++it) {
-    if (kMode == 0) {
-#pragma unroll
-      for (int p = 0; p < 3; ++p)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) ta3n::mma_tf32(acc[i][j], ah[i], bh[j]);
-      continue;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[i][r] += 1e-7f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) b[j][r] -= 1e-7f;
-    if (kMode == 1) {
-      ta3n::mma_3xtf32(acc, a, b);
-      continue;
-    }
-    unsigned a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(a_hi[i][r]) : "f"(a[i][r]));
-        asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(a_lo[i][r])
-            : "f"(a[i][r] - __uint_as_float(a_hi[i][r])));
-      }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(b_hi[j][r]) : "f"(b[j][r]));
-        asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(b_lo[j][r])
-            : "f"(b[j][r] - __uint_as_float(b_hi[j][r])));
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ta3n::mma_tf32(acc[i][j], a_lo[i], b_hi[j]);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ta3n::mma_tf32(acc[i][j], a_hi[i], b_lo[j]);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ta3n::mma_tf32(acc[i][j], a_hi[i], b_hi[j]);
-  }
-  float s = 0;
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 4; ++j)
-      for (int r = 0; r < 4; ++r) s += acc[i][j][r];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
-}
-
-template <int kMode>
-void run(float* out, int blocks, const char* name) {
-  const int iters = 4096;
-  rate<kMode><<<blocks, 256>>>(out, 16);
-  cudaEvent_t e0, e1;
-  cudaEventCreate(&e0);
-  cudaEventCreate(&e1);
-  cudaEventRecord(e0);
-  rate<kMode><<<blocks, 256>>>(out, iters);
-  cudaEventRecord(e1);
-  cudaEventSynchronize(e1);
-  float ms;
-  cudaEventElapsedTime(&ms, e0, e1);
-  const double flop = double(blocks) * 8 * iters * 24 * 2.0 * 16 * 8 * 8;
-  printf("  %-34s %3d blocks of 8 warps: %7.1f TFLOP/s of TF32 mma.sync "
-         "(%5.1f TFLOP/s of f32 products in 3xTF32)\n",
-         name, blocks, flop / ms / 1e9, flop / ms / 1e9 / 3);
-}
-
-int main() {
-  float* out;
-  cudaMalloc(&out, 528 * 256 * sizeof(float));
-  for (int blocks : {132, 264, 528}) {
-    run<0>(out, blocks, "bare mma.sync");
-    run<1>(out, blocks, "3xTF32 step, integer split");
-    run<2>(out, blocks, "3xTF32 step, cvt.rna split");
-  }
-  const cudaError_t err = cudaDeviceSynchronize();
-  printf("  %s\n", cudaGetErrorString(err));
-  return err == cudaSuccess ? 0 : 1;
-}
-"""
 
 CLUSTERS_CU = r"""
 #include <cstdio>
@@ -295,39 +178,6 @@ SPLITS = {  # the body of split_tf32 in each variant
     "cvt.rna": """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(a));
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(a - __uint_as_float(hi)));""",
 }
-
-PHASES = r"""  long long t_wait = 0, t_issue = 0, t_comp = 0;
-  for (int c = 0; c < n; ++c) {
-    const long long t0 = clock64();
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const long long t1 = clock64();
-    const int next = c + kStages - 1;
-    if (next < n) issue(next, next % kStages);
-    cp_async_commit();
-    const long long t2 = clock64();
-    compute(c, c % kStages);
-    const long long t3 = clock64();
-    t_wait += t1 - t0;
-    t_issue += t2 - t1;
-    t_comp += t3 - t2;
-  }
-  if (threadIdx.x == 0) {
-    atomicAdd(&phases[0], (unsigned long long)t_wait);
-    atomicAdd(&phases[1], (unsigned long long)t_issue);
-    atomicAdd(&phases[2], (unsigned long long)t_comp);
-    atomicAdd(&phases[3], (unsigned long long)n);
-  }"""
-
-PIPELINE_LOOP = """  for (int c = 0; c < n; ++c) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = c + kStages - 1;
-    if (next < n) issue(next, next % kStages);
-    cp_async_commit();
-    compute(c, c % kStages);
-  }"""
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -378,19 +228,6 @@ def variant_library(name: str, patch, extra_c: str = "", edits=None):
 def with_library(lib):
     """Make the port's wrappers call ``lib``."""
     _build.load_library = lambda: lib
-
-
-def probe_mma_rate() -> None:
-    log("mma-rate")
-    PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    src, exe = PROBE_DIR / "mma_rate.cu", PROBE_DIR / "mma_rate"
-    src.write_text(MMA_RATE_CU)
-    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", f"-I{ROOT}", "-o", str(exe),
-                    str(src)], check=True)
-    run = subprocess.run([str(exe)], check=True, capture_output=True,
-                         text=True)
-    log(run.stdout.rstrip())
 
 
 def probe_k3_clusters() -> None:
@@ -550,61 +387,6 @@ def probe_split_variants() -> None:
                                           stores, dev)
         except AssertionError as fault:
             log(f"  {name}: device-store steps FAILED: {fault}")
-
-
-def probe_phases() -> None:
-    log("phases (thread 0 of every block; cycles a chunk, summed over "
-        "blocks and divided by block-chunks)")
-    def patch(text):
-        if PIPELINE_LOOP not in text:
-            raise RuntimeError("tf32x3.cuh's pipeline loop has changed")
-        return text.replace(
-            "namespace ta3n {", "namespace ta3n {\n"
-            "static __device__ unsigned long long phases[4];", 1).replace(
-                PIPELINE_LOOP, PHASES)
-    read = """
-extern "C" void probe_phases_STEM(unsigned long long* out, int reset) {
-  if (reset) {
-    const unsigned long long zero[4] = {0, 0, 0, 0};
-    cudaMemcpyToSymbol(ta3n::phases, zero, sizeof(zero));
-  } else {
-    cudaMemcpyFromSymbol(out, ta3n::phases, sizeof(unsigned long long) * 4);
-  }
-}
-"""
-    lib = variant_library("phases", patch, read)[0]
-    with_library(lib)
-    counts = (ctypes.c_ulonglong * 4)()
-
-    def measure(label, fn, source):
-        read = getattr(lib, f"probe_phases_{source}")
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        read(counts, 1)
-        fn()
-        torch.cuda.synchronize()
-        read(counts, 0)
-        wait, issue, comp, n = list(counts)
-        log(f"  {label}: wait + barrier {wait / n:.0f}, issue {issue / n:.0f}, "
-            f"compute {comp / n:.0f} cycles a chunk ({n} block-chunks)")
-
-    with torch.no_grad():
-        for b in (64, 202):
-            x, wt, bi = chip_smoke.trn_inputs(
-                b, 5, 512, 256, torch.Generator().manual_seed(0))
-            measure(f"K1 (infer) B={b}", lambda: trn_fused.trn_multiscale_infer(
-                x, wt, bi, 5), "trn_fused_fwd")
-    x, wt, bi = chip_smoke.trn_inputs(202, 5, 512, 256,
-                                      torch.Generator().manual_seed(0),
-                                      signed=True)
-    g = torch.randn((202, 4, 256), device="cuda")
-    with torch.no_grad():
-        _, masks = trn_fused.trn_multiscale_fwd_masks(x, wt, bi, 5)
-        for parts, label in ((1, "dx"), (2, "dW/db"), (3, "both")):
-            measure(f"K2 {label} tiles",
-                    lambda parts=parts: chip_smoke.bwd_parts(
-                        x, wt, masks, g, parts), "trn_fused_bwd")
 
 
 WGMMA_LOOP = """    const int s = c % kStages;
@@ -1122,18 +904,6 @@ def probe_k1_splits() -> None:
                 f"wrapper picks {chosen(5, 3, b, 512, 256)}")
 
 
-# K1 (csrc/trn_fused_fwd.cu) variants: edits of the source
-_K1_WIDE = [("constexpr int kTileH = 64;", "constexpr int kTileH = 128;"),
-            ("constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 2;")]
-_K1_STAGES3 = [("constexpr int kStages = 4;", "constexpr int kStages = 3;")]
-K1_VARIANTS = {
-    "64x64 tiles, 4 stages, 3 blocks an SM (the tree)": [],
-    "64x64, 3 stages, 4 blocks an SM": _K1_STAGES3 + [
-        ("constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 4;")],
-    "64x128, 3 stages, 2 blocks an SM": _K1_WIDE + _K1_STAGES3,
-}
-
-
 def ptxas_lines(out: str, kernel: str) -> str:
     """ptxas's registers and spills for the first entry naming kernel."""
     lines = out.splitlines()
@@ -1143,54 +913,6 @@ def ptxas_lines(out: str, kernel: str) -> str:
                      if "registers" in x or "spill" in x]
             return "; ".join(found)
     return "not found"
-
-
-def probe_k1_variants() -> None:
-    """K1 built in each variant of K1_VARIANTS at one and two D slices,
-    checked against the plain version and timed in turns; the GEMM and
-    the epilogue kernels of each by the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    log("k1-variants (device time, medians of 41 in turns)")
-    libs = {}
-    for name, edits in K1_VARIANTS.items():
-        lib, ptxas = variant_library(f"k1 {name}", lambda text: text, "",
-                                     {"trn_fused_fwd.cu": edits})
-        log(f"  {name}: {ptxas_lines(ptxas, 'trn_fused_fwd_kernel')}")
-        libs[name] = lib
-    chosen, tree = trn_fused._fwd_splits, _build.load_library
-    with torch.no_grad():
-        for label, b, fn in k1_cases():
-            x, w, bi = chip_smoke.trn_inputs(
-                b, 5, 512, 256, torch.Generator().manual_seed(0))
-            want = trn_fused.trn_multiscale_plain(x, w, bi, 5)
-            fns = {}
-            for (name, lib), splits in itertools.product(libs.items(),
-                                                         (1, 2)):
-                def run(lib=lib, splits=splits):
-                    with_library(lib)
-                    trn_fused._fwd_splits = lambda *a: splits
-                    return fn(x, w, bi)
-                got = run()
-                got = got[0] if isinstance(got, tuple) else got
-                err = (got - want).abs().max().item()
-                tol = chip_smoke.RTOL * max(1.0, want.abs().max().item())
-                if not err <= tol:
-                    raise AssertionError(f"{name} {label} B={b}: {err}")
-                fns[(name, splits)] = run
-            t = chip_smoke.time_pair(fns)
-            for key, run in fns.items():
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(20):
-                        run()
-                    torch.cuda.synchronize()
-                gemm, epi = (sum(e.self_device_time_total
-                                 for e in prof.key_averages() if part in e.key)
-                             / 1e3 / 20 for part in ("trn_fused_fwd_kernel",
-                                                     "trn_fused_fwd_epilogue"))
-                log(f"  {label} B={b}, {key[0]}, {key[1]} D slice(s): "
-                    f"{t[key]:.4f} ms (GEMM {gemm:.4f}, epilogue {epi:.4f} "
-                    "by the profiler, means of 20)")
-    trn_fused._fwd_splits, _build.load_library = chosen, tree
 
 
 def k1_timeline(prof) -> str:
@@ -1476,77 +1198,188 @@ def probe_k1_bf16_earlier(csrc: Path) -> None:
                 f"({t['earlier'] / t['current']:.2f}x)")
 
 
-def probe_k1_earlier(path: Path) -> None:
-    log(f"k1-earlier ({path.name} from {path.parent}; device time, "
-        "medians of 41 in turns)")
-    out_dir = PROBE_DIR / "earlier"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / "lib.so"
-    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                      str(lib_path), str(path)]])
-    lib = ctypes.CDLL(str(lib_path))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ta3n_trn_fused_fwd_f32.argtypes = [P] * 5 + [I] * 4 + [P]
-    lib.ta3n_trn_fused_fwd_train_f32.argtypes = [P] * 6 + [I] * 4 + [P]
+def _earlier_fwd_splits(s: int, b: int, d: int, h: int) -> int:
+    """The D slices of the mma.sync design of K1 (its _fwd_splits): 64 x 64
+    tiles of (subset, video) rows by H, as many slices as keep the grid
+    within 132 blocks, at most 8 and one per 32-deep chunk."""
+    tiles = sum(-(-n * b // 64) * -(-h // 64)
+                for _, _, n in trn_fused._fwd_units(s, 3))
+    return max(1, min(8, -(-d // 32), 132 // tiles))
 
-    def by_value_table(s):
-        """The earlier kernel's plan, passed by value: per scale k, n_sub,
-        then the frame indices."""
-        plan = build_relation_plan(s)
-        return np.asarray([v for k, sub in zip(plan.scales, plan.subsets)
-                           for v in (k, len(sub), *sub.reshape(-1))],
-                          np.int32)
 
-    def earlier(x, w, bi, masks=None):
-        b, s, d = x.shape
-        h = w[0].shape[0]
-        out = torch.empty((b, s - 1, h), device=x.device)
-        ptrs = [(ctypes.c_void_p * len(t))(*[v.data_ptr() for v in t])
-                for t in (w, bi)]
-        table = by_value_table(s)
-        extra = [] if masks is None else [masks.data_ptr()]
-        stream = torch.cuda.current_stream().cuda_stream
-        entry = (lib.ta3n_trn_fused_fwd_f32 if masks is None
-                 else lib.ta3n_trn_fused_fwd_train_f32)
-        err = entry(x.data_ptr(), ctypes.addressof(ptrs[0]),
-                    ctypes.addressof(ptrs[1]), out.data_ptr(), *extra,
-                    table.ctypes.data, b, s, d, h,
-                    stream)
+class _EarlierTrn:
+    """The float32 TRN kernels of an earlier library (the mma.sync design)
+    called on stacked inputs as that design's wrappers called them: K1
+    with its own D slices and float32 partials [N * splits * n_slots, B,
+    H], K2 with no scratch (and its dx / dW families alone through its
+    parts entry)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fwd = [P] * 5 + [P, I, P] + [I] * 6 + [P]
+        bwd = [P] * 8 + [P, I, P] + [I] * 5 + [P]
+        for name, argtypes in (
+                ("ta3n_trn_fused_fwd_f32", fwd),
+                ("ta3n_trn_fused_fwd_train_f32", [P] + fwd),
+                ("ta3n_trn_fused_bwd_f32", bwd),
+                ("ta3n_trn_fused_bwd_parts_f32", bwd)):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        self.lib = lib
+
+    def _call(self, name, *args):
+        err = getattr(self.lib, name)(
+            *args, torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"earlier K1 launch failed: {err}")
+            raise RuntimeError(f"earlier {name} failed: CUDA error {err}")
+
+    def fwd(self, x, w, bi, train):
+        n, b, s, d = x.shape
+        h = w[0].shape[-2]
+        splits = _earlier_fwd_splits(s, b, d, h)
+        slots = sum(c for _, _, c in trn_fused._fwd_units(s, 3))
+        out = torch.empty((n, b, s - 1, h), device=x.device)
+        masks = torch.empty((n, b, trn_fused._n_subsets(s, 3) * h),
+                            dtype=torch.uint8, device=x.device)
+        part = torch.empty((n * splits * slots, b, h), device=x.device)
+        self._call("ta3n_trn_fused_fwd_train_f32" if train
+                   else "ta3n_trn_fused_fwd_f32", x.data_ptr(),
+                   *trn_fused._pointer_args(w, bi, s, 3, x.device),
+                   out.data_ptr(), *([masks.data_ptr()] if train else []),
+                   part.data_ptr(), *trn_fused._plan_args(s, 3, x.device),
+                   b, s, d, h, splits, n)
         return out
 
+    def bwd(self, x, w, masks, g, parts=3):
+        n, b, s, d = x.shape
+        h = w[0].shape[-2]
+        dx = torch.zeros_like(x)
+        dw = torch.zeros((n, sum(t[0].numel() for t in w)), device=x.device)
+        db = torch.zeros((n, len(w), h), device=x.device)
+        args = (x.data_ptr(), *trn_fused._pointer_args(w, (), s, 3, x.device),
+                masks.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                db.data_ptr(), *trn_fused._plan_args(s, 3, x.device), b, s, d,
+                h)
+        if parts == 3:
+            self._call("ta3n_trn_fused_bwd_f32", *args, n)
+        else:
+            self._call("ta3n_trn_fused_bwd_parts_f32", *args, parts)
+        return dx, trn_fused._split_flat(dw, w), db
+
+
+def _current_bwd_parts(x, w, masks, g, parts):
+    """The current K2 on stacked inputs of one member, a family alone (as
+    chip_smoke.bwd_parts) or the backward."""
+    if parts == 3:
+        return trn_fused.trn_multiscale_bwd_members(x, w, masks, g,
+                                                    x.shape[2])
+    dx, dws, dbs = chip_smoke.bwd_parts(x[0], [t[0] for t in w], masks[0],
+                                        g[0], parts)
+    return dx[None], tuple(t[None] for t in dws), torch.stack(dbs)[None]
+
+
+def probe_trn_f32_earlier(csrc: Path, which: str) -> None:
+    """K1 (``which`` "k1") or K2 ("k2") at float32 built from an earlier
+    csrc/ (the mma.sync design) against the current kernels at every row
+    of PERF.md's table: both held to the plain version (within RTOL),
+    timed in turns, and the current ones' stages by the profiler."""
+    log(f"{which}-earlier (K1 and K2 at f32 from {csrc} against the "
+        f"current kernels; device ms, medians of 41 in turns; "
+        f"{chip_smoke.card_line()})")
+    earlier = _EarlierTrn(earlier_library(csrc))
+    gen = torch.Generator().manual_seed(0)
+
+    def stacked(n, b, s):
+        sets = [chip_smoke.trn_inputs(b, s, 512, 256, gen, signed=True)
+                for _ in range(n)]
+        return (torch.stack([t[0] for t in sets]),
+                [torch.stack([t[1][i] for t in sets]) for i in range(s - 1)],
+                [torch.stack([t[2][i] for t in sets]) for i in range(s - 1)])
+
+    def check(label, got, want):
+        got = got if isinstance(got, (tuple, list)) else [got]
+        want = want if isinstance(want, (tuple, list)) else [want]
+        for a_, r in zip(got, want):
+            err = (a_ - r).abs().max().item()
+            if not err <= chip_smoke.RTOL * max(1.0, r.abs().max().item()):
+                raise AssertionError(f"{label}: {err}")
+
+    def flat(out):
+        dx, dws, dbs = out
+        return [dx, *dws, dbs if isinstance(dbs, torch.Tensor)
+                else torch.stack(list(dbs), -2)]
+
+    if which == "k1":
+        cases = [("infer", n, b, s) for b, s in ((1, 5), (64, 5), (202, 5),
+                                                 (64, 17), (64, 25))
+                 for n in (1,)]
+        cases += [("train", 1, 202, s) for s in (5, 17, 25)]
+        cases += [("infer", n, 64, 5) for n in (4, 8)]
+        cases += [("train", n, 202, 5) for n in (4, 8)]
+    else:
+        cases = [("bwd", 1, 202, s) for s in (5, 17, 25)]
+        cases += [("bwd", n, 202, 5) for n in (4, 8)]
+        cases += [("dx", 1, 202, 5), ("dW", 1, 202, 5)]
     with torch.no_grad():
-        for label, b, fn in k1_cases():
-            x, w, bi = chip_smoke.trn_inputs(
-                b, 5, 512, 256, torch.Generator().manual_seed(0))
-            masks = (torch.empty((b, 10 * 256), dtype=torch.uint8,
-                                 device="cuda") if "train" in label else None)
-            want = trn_fused.trn_multiscale_plain(x, w, bi, 5)
-            for name, got in (("earlier", earlier(x, w, bi, masks)),
-                              ("current", fn(x, w, bi))):
-                got = got[0] if isinstance(got, tuple) else got
-                err = (got - want).abs().max().item()
-                tol = chip_smoke.RTOL * max(1.0, want.abs().max().item())
-                if not err <= tol:
-                    raise AssertionError(f"{name} {label} B={b}: {err}")
-            t = chip_smoke.time_pair({
-                "earlier": lambda: earlier(x, w, bi, masks),
-                "current": lambda: fn(x, w, bi)})
-            log(f"  {label} B={b}: earlier {t['earlier']:.4f} ms, current "
-                f"{t['current']:.4f} ms ({t['earlier'] / t['current']:.2f}x)")
+        for kind, n, b, s in cases:
+            x, w, bi = stacked(n, b, s)
+            plain = [trn_fused.trn_multiscale_fwd_masks_plain(
+                x[k], [t[k] for t in w], [t[k] for t in bi], s)
+                for k in range(n)]
+            if kind in ("infer", "train"):
+                train = kind == "train"
+                current = (
+                    (lambda: trn_fused.trn_multiscale_fwd_masks_members(
+                        x, w, bi, s)[0]) if train else
+                    (lambda: trn_fused.trn_multiscale_infer_members(
+                        x, w, bi, s)))
+                old = lambda: earlier.fwd(x, w, bi, train)
+                want = torch.stack([o for o, _ in plain])
+                stages = chip_smoke.TRN_STAGES["trn_fused_fwd"]
+            else:
+                masks = torch.stack([m for _, m in plain])
+                g = torch.randn((n, b, s - 1, 256), generator=gen).cuda()
+                parts = {"bwd": 3, "dx": 1, "dW": 2}[kind]
+                current = lambda: _current_bwd_parts(x, w, masks, g, parts)
+                old = lambda: earlier.bwd(x, w, masks, g, parts)
+                ref = [trn_fused.trn_multiscale_bwd_plain(
+                    x[k], [t[k] for t in w], masks[k], g[k], s)
+                    for k in range(n)]
+                want = flat((torch.stack([r[0] for r in ref]),
+                             [torch.stack([r[1][i] for r in ref])
+                              for i in range(s - 1)],
+                             torch.stack([torch.stack(list(r[2]))
+                                          for r in ref])))
+                keep = {"bwd": slice(None), "dx": slice(0, 1),
+                        "dW": slice(1, None)}[kind]
+                want = want[keep]
+                stages = chip_smoke.TRN_STAGES["trn_fused_bwd"]
+            label = f"{which} {kind} N={n} B={b} S={s}"
+            for name, fn in (("earlier", old), ("current", current)):
+                got = fn()
+                got = flat(got)[keep] if kind in ("bwd", "dx", "dW") \
+                    else got
+                check(f"{name} {label}", got, want)
+            t = chip_smoke.time_pair({"earlier": old, "current": current})
+            log(f"  {label}: earlier {t['earlier']:.4f} ms, current "
+                f"{t['current']:.4f} ms ({t['earlier'] / t['current']:.2f}x);"
+                f" current by stage: "
+                + chip_smoke.stage_text(chip_smoke.stage_ms(current,
+                                                            stages)))
 
 
-PROBES = {"mma-rate": probe_mma_rate, "k3-splits": probe_k3_splits,
+PROBES = {"k3-splits": probe_k3_splits,
           "k3-clusters": probe_k3_clusters,
-          "split-variants": probe_split_variants, "phases": probe_phases,
-          "k1-splits": probe_k1_splits, "k1-variants": probe_k1_variants,
+          "split-variants": probe_split_variants,
+          "k1-splits": probe_k1_splits,
           "wgmma-phases": probe_wgmma_phases,
           "k1-bf16-profile": probe_k1_bf16_profile,
           "k1-bf16-splits": probe_k1_bf16_splits,
           "k1-bf16-variants": probe_k1_bf16_variants,
           "k3-bf16-variants": probe_k3_bf16_variants,
           "k3-f32-variants": probe_k3_f32_variants}
+EARLIER = ("k1-earlier", "k2-earlier", "k3-bf16-earlier", "k3-f32-earlier",
+           "k1-bf16-earlier")
 
 
 def main(argv) -> int:
@@ -1563,21 +1396,16 @@ def main(argv) -> int:
         gather_gemm.f32_plan = lambda *a, **kw: chosen(*a, **kw)._replace(
             splits=slices)
         log(f"K3 at {slices} K slices")
-    if "--earlier-k1" in argv:
-        at = argv.index("--earlier-k1")
-        path = Path(argv[at + 1]).resolve()
-        del argv[at:at + 2]
-        PROBES["k1-earlier"] = lambda: probe_k1_earlier(path)
     if "--earlier-csrc" in argv:
         at = argv.index("--earlier-csrc")
         csrc = Path(argv[at + 1]).resolve()
         del argv[at:at + 2]
+        PROBES["k1-earlier"] = lambda: probe_trn_f32_earlier(csrc, "k1")
+        PROBES["k2-earlier"] = lambda: probe_trn_f32_earlier(csrc, "k2")
         PROBES["k3-bf16-earlier"] = lambda: probe_k3_bf16_earlier(csrc)
         PROBES["k3-f32-earlier"] = lambda: probe_k3_f32_earlier(csrc)
         PROBES["k1-bf16-earlier"] = lambda: probe_k1_bf16_earlier(csrc)
-    names = argv or [n for n in PROBES if n not in (
-        "k1-earlier", "k3-bf16-earlier", "k3-f32-earlier",
-        "k1-bf16-earlier")]
+    names = argv or [n for n in PROBES if n not in EARLIER]
     unknown = [n for n in names if n not in PROBES]
     if unknown:
         print(f"unknown probes {unknown}; choose from {list(PROBES)}",

@@ -68,9 +68,10 @@
 //    without spilling).  One block an SM.
 //  * The tensor cores truncate as they accumulate, so each chunk's twelve
 //    products go into fresh registers and are then added to the f32 sum
-//    on the CUDA cores (with one accumulator over K, K2 erred 42 times as
-//    much as the plain version, tf32x3.cuh).  The loop holds no branch on
-//    the thread: ptxas serializes wgmma in a divergent path (C7520).
+//    on the CUDA cores (with one accumulator over K, K2's mma.sync design
+//    erred 42 times as much as the plain version).  The loop holds no
+//    branch on the thread: ptxas serializes wgmma in a divergent path
+//    (C7520).
 //  * Members: N members' columns are N grid rows (blockIdx.y) of one
 //    launch, over one pair of planes when they share an index set.
 //  * Split K only where one member's tiles leave SMs without a block: the
@@ -97,6 +98,7 @@
 
 #include "bf16.cuh"
 #include "smem_optin.cuh"
+#include "tf32_wgmma.cuh"
 #include "tf32x3.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -253,58 +255,6 @@ struct Maps {
   CUtensorMap a, w;
 };
 
-// D[64 x 128] (+)= A[64 x 8] B[8 x 128] in TF32 with float32 accumulation:
-// A from registers (this thread's four TF32 values of the m16n8k8 A
-// fragment, warp w of the warpgroup on rows 16w..16w+15), B K-major from
-// the descriptor b; scale_d 0 ignores D's old values.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
-                                           const unsigned (&a)[4], uint64_t b,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-// An arrival on the mbarrier `bar` by the threads for which `arrive`
-// holds, as a predicated instruction rather than a branch (which would
-// serialize the products around it).
-__device__ __forceinline__ void arrive_if(uint64_t* bar, bool arrive) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
-          ta3n::smem_addr(bar)),
-      "r"(static_cast<int>(arrive))
-      : "memory");
-}
-
 // Stage B.  Block (blockIdx.x = row tile * col_tiles + column tile,
 // member blockIdx.y, K slice blockIdx.z of gridDim.z slices, a cluster
 // along z): z[member, 128 rows, 128 columns] of z [members, M, H] from
@@ -416,14 +366,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < kTileK / 8; ++kk) {
       const uint64_t step = kk * ta3n::kKMajorStep;
-      wgmma_tf32(part, w_lo[kk], b_hi + step, kk > 0);
-      wgmma_tf32(part, w_hi[kk], b_lo + step, 1);
-      wgmma_tf32(part, w_hi[kk], b_hi + step, 1);
+      ta3n::tf32::wgmma_tf32(part, w_lo[kk], b_hi + step, kk > 0);
+      ta3n::tf32::wgmma_tf32(part, w_hi[kk], b_lo + step, 1);
+      ta3n::tf32::wgmma_tf32(part, w_hi[kk], b_hi + step, 1);
     }
     ta3n::wgmma_commit();
     ta3n::wgmma_wait<0>();
     ta3n::fence_operands(part);
-    arrive_if(&empty[s], tid % 128 == 0);
+    ta3n::tf32::arrive_if(&empty[s], tid % 128 == 0);
 #pragma unroll
     for (int e = 0; e < 64; ++e)
       acc[e] = i == 0 ? part[e] : acc[e] + part[e];
@@ -497,20 +447,6 @@ bool aligned(const void* p, unsigned bytes) {
   return reinterpret_cast<unsigned long long>(p) % bytes == 0;
 }
 
-// The tensor map of a float32 operand [layers, rows, cols] whose rows lie
-// `pitch` values apart (a multiple of 4), in boxes of 32 columns x 128
-// rows of one layer; zeros out of range.
-int operand_map(const void* base, long long cols, long long rows,
-                int layers, long long pitch, CUtensorMap* map) {
-  const cuuint64_t row = static_cast<cuuint64_t>(pitch) * 4;
-  return ta3n::encode_map(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base,
-      {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
-       static_cast<cuuint64_t>(layers)},
-      {row, row * static_cast<cuuint64_t>(rows)}, {kTileK, kTileM, 1},
-      CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <class S>
 int launch(const void* store, const void* qscale, const void* idx,
            const void* scale, const void* w, void* z, void* x_res,
@@ -538,12 +474,14 @@ int launch(const void* store, const void* qscale, const void* idx,
   const bool w_direct = kd % 4 == 0 && aligned(w, 16);
   float* w_rows = w_direct ? nullptr : planes + 2 * plane;
   Maps maps{};
-  int err = operand_map(planes, kd, m_rows, 2 * sets, pitch, &maps.a);
+  int err = ta3n::tf32::operand_map(planes, kd, m_rows, 2 * sets, pitch,
+                                     kTileM, &maps.a);
   if (err == 0)
     err = w_direct ? ta3n::weight_map(w, kd, h, members, kTileK, kTileH,
                                       &maps.w,
                                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32)
-                   : operand_map(w_rows, kd, h, members, pitch, &maps.w);
+                   : ta3n::tf32::operand_map(w_rows, kd, h, members, pitch,
+                                              kTileH, &maps.w);
   if (err != 0) return err;
   const cudaError_t attr = allow_smem();
   if (attr != cudaSuccess) return static_cast<int>(attr);

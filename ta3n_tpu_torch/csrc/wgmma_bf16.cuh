@@ -1,6 +1,6 @@
 // Building blocks of the kernels on Hopper's warpgroup matrix multiply
 // (gather_gemm_bf16.cu, trn_fused_fwd_bf16.cu, trn_fused_bwd_bf16.cu, and
-// the float32 gather_gemm.cu, which issues its own tf32 products):
+// the float32 kernels, whose tf32 products are tf32_wgmma.cuh's):
 // shared-memory tiles in the 128-byte swizzled layout, their matrix
 // descriptors, the asynchronous products wgmma.mma_async m64nNk16 bf16
 // with float32 accumulation, the fences and waits around them, TMA

@@ -58,14 +58,15 @@ _ENTRIES = {
                                 _I, _I, _I, _I, _I, _P],
     "ta3n_trn_fused_fwd_train_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, w ptrs (device), w ptrs (host), masks, g, dx, dw, db, plan table,
-    # its length, plan (device), batch, frames, d, h, members, stream
-    "ta3n_trn_fused_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                               _I, _I, _I, _I, _I, _P],
+    # x, w ptrs (device), w ptrs (host), masks, g, dx, dw, db, scratch,
+    # plan table, its length, plan (device), batch, frames, d, h, K
+    # slices, members, stream
+    "ta3n_trn_fused_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _P, _I, _I, _I, _I, _I, _I, _P],
     # the same without members and with parts (1: dx tiles, 2: dW/db
     # tiles, 3: both), stream
-    "ta3n_trn_fused_bwd_parts_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                     _P, _I, _I, _I, _I, _I, _P],
+    "ta3n_trn_fused_bwd_parts_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _P, _I, _I, _I, _I, _I, _I, _P],
     # the bfloat16 backward (trn_fused_bwd_bf16.cu): the same arguments
     # with its grid (dx blocks, dW/db blocks) before members
     "ta3n_trn_fused_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,

@@ -79,8 +79,9 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ta3n_tpu_torch.ops.trn_fused import (_acc, _call, _check_tensor,
-                                          _no_kernel, _stacked)
+from ta3n_tpu_torch.ops.trn_fused import (_F32_CLUSTERS, _acc, _call,
+                                          _check_tensor, _no_kernel,
+                                          _stacked)
 
 __all__ = ["RowIndex", "row_index", "upload", "gathered_gemm_plain",
            "gathered_gemm", "gathered_gemm_members",
@@ -108,11 +109,9 @@ _MAX_SPLITS = 8
 # output tile of one member a block (128 rows x 128 columns, two
 # warpgroups of 64 columns), its 32-deep K chunks, and the thread block
 # clusters of 1..16 of its blocks (one an SM) that the H100 holds at once
-# (cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3:
-# scripts/torch_port_tensor_core_probe.py k3-clusters)
+# (the float32 kernels' table, ops/trn_fused.py)
 _F32_ROWS_THREADS = 256
 _F32_TILE_M, _F32_TILE_N, _F32_TILE_K = 128, 128, 32
-_F32_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
 # the bfloat16-compute kernels (csrc/gather_gemm_bf16.cu): stage A's
 # threads a block, each one 16-byte piece (8 values) of a gathered row;
 # stage B's output tile of one member a block (128 rows x 128 columns,

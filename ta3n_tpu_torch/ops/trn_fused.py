@@ -80,9 +80,10 @@ they take at most ``BF16_MAX_SCALES`` scales (S - 1) whatever N is.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +96,7 @@ __all__ = ["trn_multiscale_plain", "trn_multiscale_fwd_masks_plain",
            "trn_multiscale_fused", "trn_multiscale_infer_members",
            "trn_multiscale_fwd_masks_members", "trn_multiscale_bwd_members",
            "bf16_fwd_grid", "bf16_bwd_grid", "BF16_MAX_SCALES",
+           "f32_fwd_scratch", "F32BwdPlan", "f32_bwd_plan",
            "launches", "train_launches", "bwd_launches", "bf16_launches",
            "bf16_train_launches", "bf16_bwd_launches"]
 
@@ -113,14 +115,24 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the kernels take at most 3 subsets per scale (csrc/trn_plan.cuh)
 _MAX_SUBSETS = 3
 
-# the float32 forward kernel's tiles (csrc/trn_fused_fwd.cu): unit rows
-# (subset, video) and H columns per block, D per chunk; and how many D
-# slices share an output tile: as many as _FWD_TARGET_BLOCKS blocks hold,
-# one per SM of the H100's 132 (one slice at B=64, 128 blocks, and at
-# B=202, 440: on the H100 one slice beat two to eight at B=64 and was
-# within 1% of the best at B=202, PERF.md)
-_FWD_TILE_M, _FWD_TILE_H, _FWD_TILE_K = 64, 64, 32
-_FWD_MAX_SPLITS, _FWD_TARGET_BLOCKS = 8, 132
+# the float32 kernels on wgmma (csrc/trn_fused_fwd.cu, trn_fused_bwd.cu,
+# and K3's csrc/gather_gemm.cu): a block's output tile (128 x 128: two
+# consumer warpgroups of 64 rows of the register operand, 128 rows of the
+# shared one), its 32-deep K chunks, and the thread block clusters of
+# 1..16 of its blocks (one an SM) that the H100 holds at once
+# (cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3:
+# scripts/torch_port_tensor_core_probe.py k3-clusters), which bound a
+# tile's K slices (one cluster); the most scales their weights' tensor
+# maps take by value (csrc/wgmma_bf16.cuh, kMaxWeightMaps), past which,
+# as for D not a multiple of 4 or a weight not 16-byte aligned, the
+# kernels copy the weights into rows TMA can read
+_F32_TILE, _F32_TILE_K = 128, 32
+_F32_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
+_F32_MAP_SCALES = 32
+# scratch offsets in float32 values (256 bytes)
+_F32_ALIGN = 64
+# the most D slices of a forward output tile the bfloat16 kernel takes
+_FWD_MAX_SPLITS = 8
 
 # the bfloat16 forward kernel's tiles (csrc/trn_fused_fwd_bf16.cu): 64
 # videos of one subset by 128 H columns a block, D in chunks of 64; D
@@ -315,16 +327,99 @@ def _fwd_units(num_frames: int, subsample_num: int) -> tuple:
                  enumerate(zip(plan.scales, plan.subsets)) for p in range(k))
 
 
+def _f32_splits(tiles: int, chunks: int) -> int:
+    """K slices of a float32 kernel's tiles, one cluster a tile: the most
+    (up to 16, at most one per 32-deep chunk) whose clusters over
+    ``tiles`` tiles the card holds at once (_F32_CLUSTERS; 1 where even
+    single blocks take more than one wave)."""
+    return max([s for s, held in enumerate(_F32_CLUSTERS, 1)
+                if s <= chunks and tiles <= held], default=1)
+
+
+def _f32_fwd_width(b: int) -> int:
+    """Videos a tile of the float32 forward GEMM: 128, or at B <= 64 the
+    power of two from 8 that holds B (its products m64nNk8)."""
+    return next((n for n in (8, 16, 32, 64) if b <= n), _F32_TILE)
+
+
 def _fwd_splits(num_frames: int, subsample_num: int, b: int, d: int,
                 h: int) -> int:
-    """D slices per output tile of the forward kernel: as many as keep the
-    grid within _FWD_TARGET_BLOCKS blocks, at least 1, at most
-    _FWD_MAX_SPLITS and at most one per D chunk."""
-    h_tiles = -(-h // _FWD_TILE_H)
-    tiles = sum(-(-n * b // _FWD_TILE_M) * h_tiles
-                for _, _, n in _fwd_units(num_frames, subsample_num))
-    return max(1, min(_FWD_MAX_SPLITS, -(-d // _FWD_TILE_K),
-                      _FWD_TARGET_BLOCKS // tiles))
+    """D slices of the float32 forward GEMM's tiles (one a scratch slot,
+    128 H columns and _f32_fwd_width(B) videos), chosen by one member's
+    shape: _f32_splits over the D chunks."""
+    slots = sum(n for _, _, n in _fwd_units(num_frames, subsample_num))
+    tiles = slots * -(-h // _F32_TILE) * -(-b // _f32_fwd_width(b))
+    return _f32_splits(tiles, -(-d // _F32_TILE_K))
+
+
+def _f32_aligned(n: int) -> int:
+    return -(-n // _F32_ALIGN) * _F32_ALIGN
+
+
+def _f32_by_unit(weights, d: int) -> bool:
+    """Whether the float32 kernels copy the weights into rows first
+    (csrc/tf32_wgmma.cuh::trn_weights): D not a multiple of 4, a weight not
+    16-byte aligned, or more scales than the kernels' maps."""
+    return (d % 4 != 0 or len(weights) > _F32_MAP_SCALES
+            or any(w.data_ptr() % 16 for w in weights))
+
+
+def f32_fwd_scratch(num_frames: int, subsample_num: int, b: int, d: int,
+                    h: int, members: int = 1, by_unit: bool = False) -> int:
+    """Float32 values of the float32 forward's scratch: the slot partials
+    [members, n_slots, B, H], relu(x)'s TF32 hi and lo planes [members *
+    S, B, P] each (P = D up to 4s), then, ``by_unit``, every unit's
+    weight slice in rows [members, H, n_units, P]."""
+    units = _fwd_units(num_frames, subsample_num)
+    slots = sum(n for _, _, n in units)
+    pitch = -(-d // 4) * 4
+    planes = 2 * members * num_frames * b * pitch
+    return (_f32_aligned(members * slots * b * h) + planes
+            + (members * h * len(units) * pitch if by_unit else 0))
+
+
+class F32BwdPlan(NamedTuple):
+    """A call of the float32 backward (csrc/trn_fused_bwd.cu)."""
+
+    dx_tiles: int   # one member's GEMM grid: the dx tiles, then the dW
+    dw_tiles: int   # tiles (x), members (y), K slices (z, a cluster)
+    splits: int
+    scratch: int    # float32 values: m's planes, relu(x)^T's, W's rows
+
+
+def f32_bwd_plan(num_frames: int, subsample_num: int, b: int, d: int,
+                 h: int, members: int = 1,
+                 by_unit: bool = False) -> F32BwdPlan:
+    """The float32 backward for B videos, D features and H outputs.  Its
+    GEMM's tiles: dx, per frame 128 D columns x 128 videos over the
+    frame's triples' H; dW, per (scale, position) unit 128 H rows x 128 D
+    columns over the scale's subsets' videos.  Every tile's K is cut into
+    the same slices, one cluster a tile, chosen by one member's dx tiles
+    (_f32_splits over the shortest dx tile's chunks).  Scratch: m's TF32
+    hi and lo planes [members * n_sub, B, H'] each, m^T [members * n_sub,
+    H, B'], relu(x)^T's hi and lo planes [members * S, D, B'] each (H', B'
+    the widths up to 4s), then, ``by_unit``, every unit's weight slice in
+    rows [members, H, n_units, P]."""
+    units = _fwd_units(num_frames, subsample_num)
+    trips = collections.Counter(
+        int(f) for sub in build_relation_plan(num_frames,
+                                              subsample_num).subsets
+        for f in sub.reshape(-1))
+    tiles_d = -(-d // _F32_TILE)
+    dx_tiles = -(-b // _F32_TILE) * tiles_d * num_frames
+    dw_tiles = len(units) * -(-h // _F32_TILE) * tiles_d
+    h_chunks = -(-h // _F32_TILE_K)
+    splits = _f32_splits(dx_tiles, min(trips.values()) * h_chunks) \
+        if b else 1
+    n_sub = _n_subsets(num_frames, subsample_num)
+    m_planes = 2 * members * n_sub * b * -(-h // 4) * 4
+    m_t = members * n_sub * h * -(-b // 4) * 4
+    x_planes = 2 * members * num_frames * d * -(-b // 4) * 4
+    pitch = -(-d // 4) * 4
+    scratch = (_f32_aligned(m_planes) + _f32_aligned(m_t)
+               + _f32_aligned(x_planes)
+               + (members * h * len(units) * pitch if by_unit else 0))
+    return F32BwdPlan(dx_tiles, dw_tiles, splits, scratch)
 
 
 def bf16_fwd_grid(num_frames: int, subsample_num: int, b: int, d: int,
@@ -411,24 +506,26 @@ def _call(entry: str, x: torch.Tensor, *args) -> None:
 
 def _launch_fwd(entry, x, weights, biases, num_frames, subsample_num,
                 *outs) -> None:
-    """The forward kernel and its epilogue into ``outs`` (out, and the
-    masks in the training variant), with their scratch of partial z:
-    [splits * n_slots, B, H] f32 a member, n_slots = sum_k(k * n_sub_k):
-    32 slots at S=5 (6.6 MB at B=202, H=256), 922 at S=25 (190 MB).  Both
-    kernels take stacked inputs (x [N, B, S, D], each weight [N, H, k*D]
-    and bias [N, H], members first), one scratch a member, and their grid
-    (float32: its D slices; bfloat16: ``bf16_fwd_grid``) chosen by one
-    member's shape, so each member's blocks do a one-member launch's
+    """The forward kernels into ``outs`` (out, and the masks in the
+    training variant), with their scratch: float32, ``f32_fwd_scratch``
+    (the slot partials of z, relu(x)'s planes, the weights' rows where the
+    kernel copies them); bfloat16, the partials [splits * n_slots, B, H]
+    f32 a member.  Both take stacked inputs (x [N, B, S, D], each weight
+    [N, H, k*D] and bias [N, H], members first) and their grid (float32:
+    its D slices, ``_fwd_splits``; bfloat16: ``bf16_fwd_grid``) chosen by
+    one member's shape, so each member's blocks do a one-member launch's
     work."""
     n, b, s, d = x.shape
     h = weights[0].shape[-2]
     if x.dtype == torch.bfloat16:
         grid = bf16_fwd_grid(num_frames, subsample_num, b, d, h)
+        slots = sum(c for _, _, c in _fwd_units(num_frames, subsample_num))
+        size = n * grid[-1] * slots * b * h
     else:
         grid = (_fwd_splits(num_frames, subsample_num, b, d, h),)
-    slots = sum(c for _, _, c in _fwd_units(num_frames, subsample_num))
-    part = torch.empty((n * grid[-1] * slots, b, h), dtype=torch.float32,
-                       device=x.device)
+        size = f32_fwd_scratch(num_frames, subsample_num, b, d, h, n,
+                               _f32_by_unit(weights, d))
+    part = torch.empty((size,), dtype=torch.float32, device=x.device)
     _call(entry, x, x.data_ptr(),
           *_pointer_args(weights, biases, num_frames, subsample_num,
                          x.device),
@@ -573,7 +670,12 @@ def _bwd_kernel(x, weights, masks, g, num_frames, subsample_num):
             dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
             *_plan_args(num_frames, subsample_num, x.device), b, s, d, h)
     if x.dtype == torch.float32:
-        _call("ta3n_trn_fused_bwd_f32", x, *args, n)
+        plan = f32_bwd_plan(num_frames, subsample_num, b, d, h, n,
+                            _f32_by_unit(weights, d))
+        scratch = torch.empty((plan.scratch,), dtype=torch.float32,
+                              device=x.device)
+        _call("ta3n_trn_fused_bwd_f32", x, *args[:8], scratch.data_ptr(),
+              *args[8:], plan.splits, n)
         bwd_launches += 1
     else:
         _call("ta3n_trn_fused_bwd_bf16", x, *args,

@@ -80,6 +80,41 @@ def test_bf16_scale_limit_is_the_kernels():
     assert trn_fused.BF16_MAX_SCALES == int(limit)
 
 
+@pytest.mark.parametrize("source,stages,stage_boxes", [
+    ("trn_fused_fwd.cu", 4, (4, 4, 4)), ("trn_fused_bwd.cu", 4, (4, 4, 4))])
+def test_f32_trn_sources_match_their_plans(source, stages, stage_boxes):
+    """The float32 TRN kernels as the wrappers plan them: the shared tile,
+    chunk, cluster and weight-map limits of tf32_wgmma.cuh and
+    wgmma_bf16.cuh are ops/trn_fused.py's; K1's video tiles by batch are
+    _f32_fwd_width's; each kernel's ring (K1: W's box and relu(x)'s hi and
+    lo boxes of 128 rows; K2: A's 16 KB, W's four boxes of 32 rows or
+    m^T's one of 128, and B's hi and lo of 128) fits the 227 KB opt-in with one block an SM,
+    and holds the partial tile (and K2's db rows) it is reused for."""
+    shared = (_build._CSRC / "tf32_wgmma.cuh").read_text()
+    consts = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                  shared).group(1))
+              for name in ("kTile", "kTileK", "kMaxSplits")}
+    assert (consts["kTile"], consts["kTileK"]) == (trn_fused._F32_TILE,
+                                                   trn_fused._F32_TILE_K)
+    assert consts["kMaxSplits"] == len(trn_fused._F32_CLUSTERS)
+    maps = re.search(r"constexpr int kMaxWeightMaps = (\d+);",
+                     (_build._CSRC / "wgmma_bf16.cuh").read_text())
+    assert int(maps.group(1)) == trn_fused._F32_MAP_SCALES
+    text = (_build._CSRC / source).read_text()
+    assert int(re.search(r"constexpr int kStages = (\d+);",
+                         text).group(1)) == stages
+    if source == "trn_fused_fwd.cu":
+        assert "for (int n = 8; n <= 64; n *= 2)" in text
+        for b in range(1, 300):
+            want = next((n for n in (8, 16, 32, 64) if b <= n), 128)
+            assert trn_fused._f32_fwd_width(b) == want
+    quarter = 32 * 128  # a box of 32 rows of 128 bytes
+    stage = sum(stage_boxes) * quarter
+    smem = stages * stage + 2 * stages * 8 + 1024
+    assert smem <= 232448 and 2 * smem > 228 * 1024
+    assert 128 * (128 + 4) * 4 + 128 * 4 <= stages * stage
+
+
 @pytest.mark.parametrize("m,h,chunks", [
     (640, 512, 64), (370, 512, 64), (320, 512, 64), (37, 512, 64),
     (1, 512, 64), (45, 96, 2), (20000, 512, 64)])

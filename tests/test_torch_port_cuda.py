@@ -214,9 +214,9 @@ def _check_fwd(b, s, d, h, train):
 @pytest.mark.parametrize("train", [False, True], ids=["infer", "train"])
 @pytest.mark.parametrize("b", [63, 64, 65, 129, 202])
 def test_fwd_kernel_batch_edges(b, train):
-    """K1 around its 64-row unit tiles, whose rows (subset, video) run
-    over the subsets of a scale: B*n_sub rows end mid-tile at 63, 65 and
-    129, exactly at 64 and 202*3 = 606 = 9*64 + 30."""
+    """K1 around its video tiles (the narrowest of 8..64 that holds B, else
+    128): B = 63 and 64 in one tile of 64, 65 and 129 ending past a tile
+    of 128 by 1, 202 = 128 + 74."""
     _check_fwd(b, 5, 512, 256, train)
 
 
@@ -235,8 +235,10 @@ def test_fwd_kernel_splits(b, splits, train, monkeypatch):
 @pytest.mark.parametrize("train", [False, True], ids=["infer", "train"])
 @pytest.mark.parametrize("d", [37, 100])
 def test_fwd_kernel_ragged_d_chunk(d, train, monkeypatch):
-    """K1 with D not a multiple of its 32-deep chunk, with 4-byte copies
-    (D = 37) and 16-byte copies (D = 100), at 1 and at 3 D slices."""
+    """K1 with D not a multiple of its 32-deep chunk: D = 37 (x by 4-byte
+    loads, the weights copied into rows TMA can take) and D = 100 (both
+    read as they are), at 1 and at 3 D slices (3 > the 2 chunks of
+    D = 37: a slice with no chunk adds zeros)."""
     for splits in (1, 3):
         monkeypatch.setattr(trn_fused, "_fwd_splits",
                             lambda *a, n=splits: n)
@@ -275,10 +277,107 @@ def test_bwd_kernel_matches_plain(b, s, d, h):
 
 @pytest.mark.parametrize("b", [15, 16, 17])
 def test_bwd_kernel_batch_edges(b):
-    """K2 around the 16-row boundary of an m16n8k8 fragment, in its
-    16-byte copy variant (D % 4 == 0, H % 16 == 0): the checks of
-    test_bwd_kernel_matches_plain."""
+    """K2 around the 16-row boundary of a warp's rows of a wgmma fragment,
+    at widths TMA reads as they are (D % 4 == 0, H % 4 == 0): the checks
+    of test_bwd_kernel_matches_plain."""
     _check_bwd(b, 5, 128, 64)
+
+
+@pytest.mark.parametrize("kernel", ["infer", "train", "bwd"])
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_f32_trn_every_slice_count(kernel, splits, monkeypatch):
+    """The float32 K1 (its GEMM's D slices) and K2 (its GEMM's K slices,
+    the dx and the dW tiles alike) in clusters of every size 1..16 at the
+    train batch: the checks of _check_fwd and of _check_bwd (tolerance,
+    masks, a second call bitwise, exact inputs bit for bit)."""
+    if kernel == "bwd":
+        chosen = trn_fused.f32_bwd_plan
+        monkeypatch.setattr(trn_fused, "f32_bwd_plan", lambda *a, **k:
+                            chosen(*a, **k)._replace(splits=splits))
+        _check_bwd(202, 5, 512, 256)
+    else:
+        monkeypatch.setattr(trn_fused, "_fwd_splits", lambda *a: splits)
+        _check_fwd(202, 5, 512, 256, kernel == "train")
+
+
+def _offset(t):
+    """t's values in a contiguous tensor whose data starts 4 bytes past a
+    16-byte boundary (a view one element into a larger buffer)."""
+    k = 4 // t.element_size()
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[k:k + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("b,s,d,h", [(202, 5, 512, 256), (70, 5, 100, 40),
+                                     (13, 4, 37, 19)])
+def test_f32_trn_misaligned_operands(b, s, d, h):
+    """x, g and every weight 4 bytes off 16-byte alignment: K1 reads x by
+    its 4-byte loads and the weights through the copy into rows TMA can
+    take, K2 its g and masks by 4-byte loads; every output bitwise the
+    aligned operands' (the same products in the same order) and within
+    the tolerance of the plain version."""
+    x, w, bi = _trn_inputs(b, s, d, h)
+    g = torch.randn((b, s - 1, h), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    ox, ow, og = _offset(x), [_offset(t) for t in w], _offset(g)
+    with torch.no_grad():
+        out, masks = trn_fused.trn_multiscale_fwd_masks(x, w, bi, s)
+        o_out, o_masks = trn_fused.trn_multiscale_fwd_masks(ox, ow, bi, s)
+        infer = trn_fused.trn_multiscale_infer(x, w, bi, s)
+        o_infer = trn_fused.trn_multiscale_infer(ox, ow, bi, s)
+        grads = trn_fused.trn_multiscale_bwd(x, w, masks, g, s)
+        o_grads = trn_fused.trn_multiscale_bwd(ox, ow, _offset(masks), og,
+                                               s)
+        want = trn_fused.trn_multiscale_bwd_plain(x, w, masks, g, s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, o_out) and torch.equal(masks, o_masks)
+    assert torch.equal(infer, o_infer)
+    for ours, theirs, ref in zip((grads[0], *grads[1], *grads[2]),
+                                 (o_grads[0], *o_grads[1], *o_grads[2]),
+                                 (want[0], *want[1], *want[2])):
+        assert torch.equal(ours, theirs)
+        assert (ours - ref).abs().max().item() <= _tol(ref)
+
+
+@pytest.mark.parametrize("b,s,d,h", [(70, 5, 22, 50), (129, 4, 37, 19),
+                                     (5, 6, 100, 130), (33, 3, 6, 7)])
+def test_f32_trn_ragged_widths(b, s, d, h):
+    """Ragged B, H and D (D not a multiple of 4: the weights copied into
+    rows TMA can take, x and the planes padded), K1 at video tiles of 8
+    to 128: the checks of _check_fwd (both variants) and _check_bwd."""
+    _check_fwd(b, s, d, h, False)
+    _check_fwd(b, s, d, h, True)
+    _check_bwd(b, s, d, h)
+
+
+def test_f32_trn_second_call_new_weights():
+    """A second call with new weights (new tensors at other addresses,
+    then the first weights updated in place): each call of K1 and K2
+    within the tolerance of the plain version on the weights it was
+    given (the kernels' tensor maps are cached by address and shape, so
+    no map outlives what it describes)."""
+    b, s, d, h = 202, 5, 512, 256
+    x, w, bi = _trn_inputs(b, s, d, h)
+    _, w2, bi2 = _trn_inputs(b, s, d, h, seed=7)
+    g = torch.randn((b, s - 1, h), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(4))
+    with torch.no_grad():
+        for weights, biases in ((w, bi), (w2, bi2), (w, bi)):
+            out, masks = trn_fused.trn_multiscale_fwd_masks(x, weights,
+                                                            biases, s)
+            want = trn_fused.trn_multiscale_plain(x, weights, biases, s)
+            assert (out - want).abs().max().item() <= _tol(want)
+            got = trn_fused.trn_multiscale_bwd(x, weights, masks, g, s)
+            ref = trn_fused.trn_multiscale_bwd_plain(x, weights, masks, g, s)
+            for ours, r in zip((got[0], *got[1], *got[2]),
+                               (ref[0], *ref[1], *ref[2])):
+                assert (ours - r).abs().max().item() <= _tol(r)
+            for t in w:  # the first weights change in place
+                t.mul_(-0.5)
+    torch.cuda.synchronize()
 
 
 def _check_bwd(b, s, d, h):
@@ -1817,10 +1916,13 @@ def _member_trn_inputs(n, b, s, d, h):
 
 
 # (N, B, S, D, H): the smoke's N and batches at the flagship widths, S 17,
-# ragged widths, one member, and an empty batch
+# ragged widths, one member, and an empty batch; 8 members at the train
+# batch (the float32 kernels' clusters in several waves) and 25 frames
+# at ragged widths
 MEMBER_CASES = [(1, 64, 5, 512, 256), (3, 1, 5, 512, 256),
                 (4, 202, 5, 512, 256), (8, 64, 5, 512, 256),
-                (3, 13, 17, 37, 19), (3, 0, 5, 32, 16)]
+                (3, 13, 17, 37, 19), (3, 0, 5, 32, 16),
+                (8, 202, 5, 512, 256), (2, 70, 25, 22, 50)]
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["infer", "train"])
